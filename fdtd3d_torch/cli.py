@@ -1,0 +1,525 @@
+"""``fdtd3d-torch`` entry point: the reference CLI on the PyTorch port.
+
+Counterpart of ``fdtd3d_tpu/cli.py``. The front half (``build_parser``
+with every flag of the reference, ``read_cmd_file``, ``args_to_config``)
+is the reference's, so every ``Examples/*.txt`` command file parses to
+the same ``SimConfig``; the port adds ``--device`` (cuda by default,
+``--device cpu`` to run on the CPU). ``main`` runs the non-supervised,
+non-batch, single-device path: the run in chunks, ``--norms-every``
+lines, DAT dumps every ``--save-res`` steps, and the closing throughput
+line. Flags whose features are not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import shlex
+import sys
+import time
+from typing import List, Optional
+
+from fdtd3d_torch.config import (MaterialsConfig, NtffConfig, OutputConfig,
+                                 ParallelConfig, PmlConfig,
+                                 PointSourceConfig, SimConfig, SphereConfig,
+                                 TfsfConfig)
+from fdtd3d_torch.layout import SCHEME_MODES
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fdtd3d",
+        description="TPU-native 1D/2D/3D FDTD Maxwell solver "
+                    "(JAX/XLA rebuild of fdtd3d)")
+    g = p.add_argument_group("scheme / grid")
+    g.add_argument("--scheme", choices=sorted(SCHEME_MODES), default=None,
+                   help="solver mode (reference SchemeType)")
+    g.add_argument("--1d", dest="dim1", metavar="PAIR",
+                   help="1D mode shorthand, e.g. --1d EzHy")
+    g.add_argument("--2d", dest="dim2", metavar="POL",
+                   help="2D mode shorthand, e.g. --2d TMz")
+    g.add_argument("--3d", dest="dim3", action=argparse.BooleanOptionalAction, default=False,
+                   help="3D mode shorthand")
+    g.add_argument("--sizex", type=int, default=32)
+    g.add_argument("--sizey", type=int, default=32)
+    g.add_argument("--sizez", type=int, default=32)
+    g.add_argument("--same-size", type=int, metavar="N",
+                   help="set sizex=sizey=sizez=N")
+    g.add_argument("--time-steps", type=int, default=100)
+    g.add_argument("--dx", type=float, default=1e-3, help="cell size, m")
+    g.add_argument("--courant-factor", type=float, default=0.5)
+    g.add_argument("--wavelength", type=float, default=20e-3,
+                   help="source wavelength, m")
+    g.add_argument("--dtype", choices=["float32", "float64", "bfloat16",
+                                       "float32x2"],
+                   default="float32")
+    g.add_argument("--compensated", action=argparse.BooleanOptionalAction, default=False,
+                   help="Kahan-compensated f32 updates: f64-class "
+                        "long-horizon accuracy at ~1.25x the f32 "
+                        "traffic (float32 only)")
+    g.add_argument("--complex-field-values", action=argparse.BooleanOptionalAction, default=False)
+
+    g = p.add_argument_group("boundaries (CPML)")
+    g.add_argument("--use-pml", action=argparse.BooleanOptionalAction, default=False)
+    g.add_argument("--pml-size", type=int, default=8,
+                   help="thickness on every active axis")
+    g.add_argument("--pml-sizex", type=int, default=None)
+    g.add_argument("--pml-sizey", type=int, default=None)
+    g.add_argument("--pml-sizez", type=int, default=None)
+
+    g = p.add_argument_group("TFSF plane-wave source")
+    g.add_argument("--use-tfsf", action=argparse.BooleanOptionalAction, default=False)
+    g.add_argument("--tfsf-margin", type=int, default=8)
+    g.add_argument("--angle-teta", type=float, default=0.0)
+    g.add_argument("--angle-phi", type=float, default=0.0)
+    g.add_argument("--angle-psi", type=float, default=0.0)
+    g.add_argument("--tfsf-amplitude", type=float, default=1.0)
+    g.add_argument("--tfsf-waveform", default="sin",
+                   choices=["sin", "gauss_pulse"])
+
+    g = p.add_argument_group("point source")
+    g.add_argument("--point-source", metavar="COMP",
+                   help="enable soft point source on component, e.g. Ez")
+    g.add_argument("--point-source-x", type=int, default=None)
+    g.add_argument("--point-source-y", type=int, default=None)
+    g.add_argument("--point-source-z", type=int, default=None)
+    g.add_argument("--point-source-amplitude", type=float, default=1.0)
+    g.add_argument("--point-source-waveform", default="sin",
+                   choices=["sin", "gauss_pulse", "ricker"])
+
+    g = p.add_argument_group("materials")
+    g.add_argument("--eps", type=float, default=1.0)
+    g.add_argument("--mu", type=float, default=1.0)
+    g.add_argument("--sigma-e", type=float, default=0.0)
+    g.add_argument("--sigma-m", type=float, default=0.0)
+    g.add_argument("--eps-sphere", type=float, default=None,
+                   metavar="EPSVAL", help="spherical inclusion permittivity")
+    g.add_argument("--eps-sphere-center-x", type=float, default=0.0)
+    g.add_argument("--eps-sphere-center-y", type=float, default=0.0)
+    g.add_argument("--eps-sphere-center-z", type=float, default=0.0)
+    g.add_argument("--eps-sphere-radius", type=float, default=0.0)
+    g.add_argument("--load-eps-from-file", metavar="PATH", default=None)
+    g.add_argument("--load-mu-from-file", metavar="PATH", default=None)
+    g.add_argument("--use-drude", action=argparse.BooleanOptionalAction, default=False)
+    g.add_argument("--eps-inf", type=float, default=1.0)
+    g.add_argument("--omega-p", type=float, default=0.0, help="rad/s")
+    g.add_argument("--gamma-d", type=float, default=0.0, help="rad/s")
+    g.add_argument("--drude-sphere-center-x", type=float, default=0.0)
+    g.add_argument("--drude-sphere-center-y", type=float, default=0.0)
+    g.add_argument("--drude-sphere-center-z", type=float, default=0.0)
+    g.add_argument("--drude-sphere-radius", type=float, default=0.0)
+    # magnetic Drude (reference metamaterial mode: OmegaPM/GammaM)
+    g.add_argument("--use-drude-m", action=argparse.BooleanOptionalAction, default=False,
+                   help="dispersive mu(w) via an ADE magnetic current")
+    g.add_argument("--mu-inf", type=float, default=1.0)
+    g.add_argument("--omega-pm", type=float, default=0.0, help="rad/s")
+    g.add_argument("--gamma-m", type=float, default=0.0, help="rad/s")
+    g.add_argument("--drude-m-sphere-center-x", type=float, default=0.0)
+    g.add_argument("--drude-m-sphere-center-y", type=float, default=0.0)
+    g.add_argument("--drude-m-sphere-center-z", type=float, default=0.0)
+    g.add_argument("--drude-m-sphere-radius", type=float, default=0.0)
+
+    g = p.add_argument_group("near-to-far-field (NTFF)")
+    g.add_argument("--ntff", action=argparse.BooleanOptionalAction, default=False,
+                   help="accumulate the NTFF running DFT during the run "
+                        "and write the far-field pattern at the end")
+    g.add_argument("--ntff-frequency", type=float, default=None,
+                   help="DFT frequency, Hz (default: source frequency)")
+    g.add_argument("--ntff-every", type=int, default=None,
+                   help="sample every N steps (default ~16/period)")
+    g.add_argument("--ntff-start", type=int, default=None,
+                   help="first sampling step (default: half the run)")
+    g.add_argument("--ntff-margin", type=int, default=2,
+                   help="box margin inward from the PML inner face, cells")
+    g.add_argument("--ntff-box-lo", metavar="X,Y,Z", default=None,
+                   help="explicit box lower corner (overrides margin)")
+    g.add_argument("--ntff-box-hi", metavar="X,Y,Z", default=None,
+                   help="explicit box upper corner (overrides margin)")
+    g.add_argument("--ntff-theta-steps", type=int, default=19)
+    g.add_argument("--ntff-phi-steps", type=int, default=24)
+
+    g = p.add_argument_group("parallel decomposition")
+    g.add_argument("--topology", choices=["none", "auto", "manual"],
+                   default="none")
+    g.add_argument("--manual-topology", metavar="PXxPYxPZ", default=None,
+                   help="e.g. 2x2x2 (reference --manual-topology)")
+    g.add_argument("--num-devices", type=int, default=None)
+    # multi-process runtime (the reference's mpirun surface): one process
+    # per host; the device mesh then spans every process's chips.
+    g.add_argument("--coordinator-address", default=None,
+                   metavar="HOST:PORT")
+    g.add_argument("--num-processes", type=int, default=None)
+    g.add_argument("--process-id", type=int, default=None)
+
+    g = p.add_argument_group("kernels")
+    g.add_argument("--use-pallas", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="fused Pallas TPU kernels for the 3D hot path: "
+                        "auto engages them on TPU when eligible; on "
+                        "forces them (interpreter mode off-TPU, slow); "
+                        "off always runs the jnp path")
+    g.add_argument("--device", default=None, metavar="DEVICE",
+                   help="torch device of the PyTorch port: cuda (the "
+                        "default) or cpu; no GPU and no explicit cpu "
+                        "is an error")
+    g.add_argument("--require-pallas", action=argparse.BooleanOptionalAction, default=False,
+                   help="error out if the fused kernels do not engage "
+                        "instead of silently running the jnp fallback")
+
+    g = p.add_argument_group("output")
+    g.add_argument("--save-res", type=int, default=0,
+                   help="dump fields every N steps")
+    g.add_argument("--save-dir", default="out")
+    g.add_argument("--save-formats", default="dat",
+                   help="comma list of dat,txt,bmp")
+    g.add_argument("--save-materials", action=argparse.BooleanOptionalAction, default=False)
+    g.add_argument("--checkpoint-every", type=int, default=0)
+    g.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
+                   default="npz",
+                   help="npz: rank-0 single file; orbax: sharding-aware "
+                        "per-host shard writes (large/multi-host runs)")
+    g.add_argument("--checkpoint-keep", type=int, default=3,
+                   help="keep-K rotation for --checkpoint-every: only "
+                        "the newest K committed snapshots stay on disk "
+                        "(0 = keep all)")
+    g.add_argument("--load-checkpoint", metavar="PATH", default=None)
+    g.add_argument("--resume", metavar="auto|PATH", default=None,
+                   help="resume a killed/preempted run from a COMMITTED "
+                        "checkpoint and finish the remaining steps: "
+                        "'auto' picks the newest committed snapshot in "
+                        "--save-dir (snapshots failing their integrity "
+                        "checks are skipped with a warning), or give an "
+                        "explicit path (docs/ROBUSTNESS.md runbook)")
+    g.add_argument("--norms-every", type=int, default=0,
+                   help="print field norms every N steps")
+    g.add_argument("--metrics-every", type=int, default=0,
+                   help="append a structured metrics record (energy, "
+                        "norms, divergence residual) to "
+                        "save_dir/metrics.jsonl every N steps")
+    g.add_argument("--log-level", type=int, default=1)
+    g.add_argument("--profile", nargs="?", const=True, default=False,
+                   metavar="DIR",
+                   help="time every compute chunk (StepClock) and print "
+                        "a throughput summary at the end; with DIR, also "
+                        "capture a jax.profiler device trace there "
+                        "(crash-safe, finalized on every exit; attribute "
+                        "it with tools/trace_attribution.py; degrades to "
+                        "a clean skip when no profiler is available)")
+    # compat: --profile was a BooleanOptionalAction before round 7, so
+    # command files saved by earlier builds may contain --no-profile;
+    # replay must keep working (hidden from --help and from
+    # save_cmd_file, which skips SUPPRESS'd actions)
+    g.add_argument("--no-profile", dest="profile", action="store_const",
+                   const=False, help=argparse.SUPPRESS)
+    g.add_argument("--check-finite", action=argparse.BooleanOptionalAction, default=False,
+                   help="NaN/Inf tripwire over the state after each chunk")
+    g.add_argument("--trace", metavar="DIR", default=None,
+                   help="legacy alias for --profile DIR (kept for saved "
+                        "command files)")
+    g.add_argument("--telemetry", metavar="PATH", default=None,
+                   help="flight recorder: append schema-versioned JSONL "
+                        "records (per-chunk in-graph health counters, "
+                        "wall time, run provenance, VMEM-ladder events) "
+                        "to PATH; summarize with "
+                        "tools/telemetry_report.py")
+    g.add_argument("--metrics", metavar="PATH", default=None,
+                   help="write an OpenMetrics/Prometheus text "
+                        "exposition of this run's counters (chunk "
+                        "throughput, wall-time histogram, recovery "
+                        "events, unhealthy lanes, cache hits) to PATH "
+                        "at exit, fed host-side from the same events "
+                        "the telemetry sink records — any scraper "
+                        "can ingest a run without parsing our JSONL; "
+                        "works with or without --telemetry")
+    g.add_argument("--per-chip-telemetry",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="with --telemetry: also record the UN-psummed "
+                        "per-chip health counters (schema-v4 per_chip "
+                        "records, tiny all_gathered scalars on the "
+                        "same readback) plus a per-chunk imbalance "
+                        "summary (max/mean ratio, straggler chip). "
+                        "With --batch: per-LANE per_chip/imbalance "
+                        "rows naming each tenant's straggler chip")
+
+    g = p.add_argument_group("durability (docs/ROBUSTNESS.md)")
+    g.add_argument("--supervise", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="run under the durable-run supervisor: bounded "
+                        "retry with exponential backoff for transient "
+                        "device errors; on a NaN/Inf health trip, roll "
+                        "back to the last committed checkpoint and "
+                        "resume down the kernel degradation ladder "
+                        "(implies --check-finite)")
+
+    g = p.add_argument_group("planning")
+    g.add_argument("--dry-run", action=argparse.BooleanOptionalAction, default=False,
+                   help="print the per-chip memory/communication plan "
+                        "(no device needed) and exit — size pod-scale "
+                        "configs on a laptop")
+
+    g = p.add_argument_group("batched execution (docs/SERVICE.md)")
+    g.add_argument("--batch", metavar="SPEC.txt", nargs="+",
+                   default=None,
+                   help="run B same-shape scenarios as ONE vmap-"
+                        "batched execution: each SPEC.txt is a "
+                        "command file (--cmd-from-file format) "
+                        "describing one lane. Lanes must share the "
+                        "graph-shaping config (grid/scheme/dtype/"
+                        "steps/sources geometry) and may differ in "
+                        "material values and point-source amplitude; "
+                        "one compiled executable, one dispatch per "
+                        "chunk for the whole batch. Per-lane health "
+                        "flags — one lane's NaN never fails the "
+                        "others. Top-level --telemetry/--metrics/"
+                        "--check-finite apply to the batch; "
+                        "FDTD3D_BATCH_MAX bounds the lane count.")
+    g.add_argument("--batch-chunk", type=int, default=0, metavar="N",
+                   help="advance the batch in N-step compiled chunks "
+                        "(per-chunk telemetry cadence + per-lane "
+                        "health granularity: a mid-run NaN is "
+                        "attributed to its chunk, not just the final "
+                        "state sweep); 0 = the whole horizon as one "
+                        "chunk (fastest)")
+
+    g = p.add_argument_group("command files")
+    g.add_argument("--cmd-from-file", metavar="FILE", default=None,
+                   help="read flags from a .txt command file (reference "
+                        "format: one flag [value] per line)")
+    g.add_argument("--save-cmd-to-file", metavar="FILE", default=None,
+                   help="re-emit the effective flags to a command file")
+    return p
+
+
+def read_cmd_file(path: str) -> List[str]:
+    """Reference-style .txt command file -> argv list."""
+    argv: List[str] = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if line:
+                argv.extend(shlex.split(line))
+    return argv
+
+
+def _parse_xyz(val):
+    """'X,Y,Z' -> (int, int, int), or None passthrough."""
+    if val is None:
+        return None
+    parts = [p for p in str(val).replace("x", ",").split(",") if p]
+    try:
+        triple = tuple(int(p) for p in parts)
+    except ValueError:
+        triple = ()
+    if len(triple) != 3:
+        raise SystemExit(f"expected X,Y,Z integer triple, got {val!r}")
+    return triple
+
+
+def _resolve_scheme(args) -> str:
+    if args.dim3:
+        return "3D"
+    if args.dim2:
+        return f"2D_{args.dim2}"
+    if args.dim1:
+        return f"1D_{args.dim1}"
+    return args.scheme or "3D"
+
+
+def args_to_config(args) -> SimConfig:
+    if args.same_size:
+        args.sizex = args.sizey = args.sizez = args.same_size
+    pml_size = (0, 0, 0)
+    if args.use_pml:
+        pml_size = tuple(
+            args.pml_sizex if (a == 0 and args.pml_sizex is not None) else
+            args.pml_sizey if (a == 1 and args.pml_sizey is not None) else
+            args.pml_sizez if (a == 2 and args.pml_sizez is not None) else
+            args.pml_size for a in range(3))
+    manual = None
+    if args.manual_topology:
+        parts = args.manual_topology.lower().split("x")
+        if len(parts) != 3:
+            raise SystemExit("--manual-topology must look like 2x2x1")
+        manual = tuple(int(v) for v in parts)
+    ps_default = {0: args.sizex // 2, 1: args.sizey // 2,
+                  2: args.sizez // 2}
+    cfg = SimConfig(
+        scheme=_resolve_scheme(args),
+        size=(args.sizex, args.sizey, args.sizez),
+        time_steps=args.time_steps,
+        dx=args.dx,
+        courant_factor=args.courant_factor,
+        wavelength=args.wavelength,
+        dtype=args.dtype,
+        compensated=args.compensated,
+        complex_fields=args.complex_field_values,
+        pml=PmlConfig(size=pml_size),
+        tfsf=TfsfConfig(
+            enabled=args.use_tfsf,
+            margin=(args.tfsf_margin,) * 3,
+            angle_teta=args.angle_teta, angle_phi=args.angle_phi,
+            angle_psi=args.angle_psi, amplitude=args.tfsf_amplitude,
+            waveform=args.tfsf_waveform),
+        point_source=PointSourceConfig(
+            enabled=args.point_source is not None,
+            component=args.point_source or "Ez",
+            position=(
+                args.point_source_x if args.point_source_x is not None
+                else ps_default[0],
+                args.point_source_y if args.point_source_y is not None
+                else ps_default[1],
+                args.point_source_z if args.point_source_z is not None
+                else ps_default[2]),
+            amplitude=args.point_source_amplitude,
+            waveform=args.point_source_waveform),
+        materials=MaterialsConfig(
+            eps=args.eps, mu=args.mu,
+            sigma_e=args.sigma_e, sigma_m=args.sigma_m,
+            eps_sphere=SphereConfig(
+                enabled=args.eps_sphere is not None,
+                center=(args.eps_sphere_center_x, args.eps_sphere_center_y,
+                        args.eps_sphere_center_z),
+                radius=args.eps_sphere_radius,
+                value=args.eps_sphere or 1.0),
+            use_drude=args.use_drude,
+            eps_inf=args.eps_inf, omega_p=args.omega_p, gamma=args.gamma_d,
+            drude_sphere=SphereConfig(
+                enabled=args.drude_sphere_radius > 0,
+                center=(args.drude_sphere_center_x,
+                        args.drude_sphere_center_y,
+                        args.drude_sphere_center_z),
+                radius=args.drude_sphere_radius),
+            use_drude_m=args.use_drude_m,
+            mu_inf=args.mu_inf, omega_pm=args.omega_pm,
+            gamma_m=args.gamma_m,
+            drude_m_sphere=SphereConfig(
+                enabled=args.drude_m_sphere_radius > 0,
+                center=(args.drude_m_sphere_center_x,
+                        args.drude_m_sphere_center_y,
+                        args.drude_m_sphere_center_z),
+                radius=args.drude_m_sphere_radius),
+            eps_file=args.load_eps_from_file,
+            mu_file=args.load_mu_from_file),
+        parallel=ParallelConfig(
+            topology="manual" if manual else args.topology,
+            manual_topology=manual, n_devices=args.num_devices),
+        output=OutputConfig(
+            save_res=args.save_res, save_dir=args.save_dir,
+            formats=tuple(args.save_formats.split(",")),
+            save_materials=args.save_materials,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_backend=args.checkpoint_backend,
+            checkpoint_keep=args.checkpoint_keep,
+            norms_every=args.norms_every, metrics_every=args.metrics_every,
+            log_level=args.log_level,
+            profile=bool(args.profile), check_finite=args.check_finite,
+            telemetry_path=args.telemetry,
+            metrics_path=args.metrics,
+            per_chip_telemetry=args.per_chip_telemetry,
+            # --profile DIR routes the device-trace lane; --trace is
+            # the legacy alias (saved command files)
+            profile_dir=(args.profile
+                         if isinstance(args.profile, str) else None)
+            or args.trace),
+        ntff=NtffConfig(
+            enabled=args.ntff, frequency=args.ntff_frequency,
+            every=args.ntff_every, start=args.ntff_start,
+            margin=args.ntff_margin,
+            box_lo=_parse_xyz(args.ntff_box_lo),
+            box_hi=_parse_xyz(args.ntff_box_hi),
+            theta_steps=args.ntff_theta_steps,
+            phi_steps=args.ntff_phi_steps),
+        use_pallas={"auto": None, "on": True, "off": False}[args.use_pallas],
+        require_pallas=args.require_pallas,
+    )
+    return cfg
+
+
+# (flag attribute, value that means "not used", ROADMAP.md item)
+_NOT_PORTED = (
+    ("supervise", False, "A12"), ("batch", None, "A13"),
+    ("resume", None, "A6"), ("load_checkpoint", None, "A6"),
+    ("checkpoint_every", 0, "A6"), ("ntff", False, "A8"),
+    ("coordinator_address", None, "A11"), ("num_processes", None, "A11"),
+    ("process_id", None, "A11"), ("dry_run", False, "A11"),
+    ("telemetry", None, "A5"), ("metrics", None, "A15"),
+    ("metrics_every", 0, "A5"), ("per_chip_telemetry", False, "A5"),
+    ("profile", False, "A14"), ("trace", None, "A14"),
+    ("save_materials", False, "A7"), ("save_cmd_to_file", None, "A7"),
+)
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError for a flag whose feature is not in this
+    slice of the port."""
+    for attr, unused, item in _NOT_PORTED:
+        val = getattr(args, attr)
+        if val != unused:
+            flag = "--" + attr.replace("_", "-")
+            raise NotImplementedError(
+                f"{flag} is not ported to fdtd3d_torch yet (ROADMAP.md "
+                f"queue {item}); run it with the reference CLI "
+                f"(python -m fdtd3d_tpu.cli)")
+    if args.save_formats != "dat":
+        raise NotImplementedError(
+            f"--save-formats {args.save_formats}: only dat is ported to "
+            f"fdtd3d_torch yet (ROADMAP.md queue A7)")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.cmd_from_file:
+        # CLI flags override the command file (parse file first, then argv)
+        args = parser.parse_args(read_cmd_file(args.cmd_from_file) + argv)
+    check_ported(args)
+    cfg = args_to_config(args)
+
+    import torch
+
+    from fdtd3d_torch import diag, io
+    from fdtd3d_torch.log import log, set_level
+    from fdtd3d_torch.sim import Simulation
+    set_level(cfg.output.log_level)
+    sim = Simulation(cfg, device=args.device)
+    dev = sim.device
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else "cpu"
+    log(f"fdtd3d-torch: scheme={cfg.scheme} size={cfg.grid_shape} "
+        f"steps={cfg.time_steps} dt={cfg.dt:.3e}s device={dev} "
+        f"({name})")
+    log(f"step_kind={sim.step_kind}")
+
+    interval = 0
+    for v in (cfg.output.save_res, cfg.output.norms_every):
+        if v:
+            interval = math.gcd(interval, v)
+
+    def on_interval(s):
+        if cfg.output.norms_every and s.t % cfg.output.norms_every == 0:
+            norms = diag.field_norms(s)
+            txt = " ".join(f"{k}={v:.4e}"
+                           for k, v in sorted(norms.items()))
+            log(f"[t={s.t}] {txt}")
+        if cfg.output.save_res and s.t % cfg.output.save_res == 0:
+            io.write_outputs(s, s.t)
+
+    t0 = time.time()
+    sim.run(time_steps=cfg.time_steps,
+            on_interval=on_interval if interval else None,
+            interval=interval)
+    sim.block_until_ready()
+    dt_wall = time.time() - t0
+    cells = 1.0
+    for a in sim.static.mode.active_axes:
+        cells *= cfg.grid_shape[a]
+    mcps = cells * cfg.time_steps / dt_wall / 1e6
+    log(f"done: {cfg.time_steps} steps in {dt_wall:.2f}s "
+        f"({mcps:.1f} Mcells/s)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,352 @@
+"""Packed single-step leapfrog: stacked E/H carry, two CUDA launches.
+
+Replaces the Pallas TPU kernel
+``fdtd3d_tpu/ops/pallas_packed.py::make_packed_eh_step`` (builder :548,
+kernel body :694, ``pallas_call`` :1138) for 3D real float32, with the
+hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/packed_eh.cu``
+(``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
+rather than Triton: a stencil with per-cell coefficients and CPML slab
+branches, which wants explicit control of its indexing.
+
+What bounds it on the card: memory bytes. A step does ~60 flops per
+cell against 48 B/cell of unavoidable traffic (E and H read once and
+written once), far below the H100's ~20 flops per byte. Design: the
+TPU kernel's lagged-H carry needs an ordered grid, which CUDA does not
+have, so a step is two launches on the stacked layout, ``e_update``
+then ``h_update``, each updating its family in place. That moves 18
+field volumes (72 B/cell) per step against the 12 (48 B/cell) of the
+reference's fused pass; a single-launch fusion is later work. TFSF and
+the point source are torch plane patches between the launches
+(ops/patches.py), in the plain step's order: E update, E patches, Hinc
+advance, H update, H patches. The x-slab CPML therefore runs in-kernel
+for every source position: the curl that feeds psi never includes a
+source term.
+
+Layout (the port's own; parity is judged on the unpacked state):
+``E``, ``H`` (3, n1, n2, n3); ``psE[a]``/``psH[a]`` the compact slab psi
+of axis a, (2, ...) with dim 1+a of 2m planes, rows = the two
+components with a curl term along a, in component order; ``J``
+(3, n1, n2, n3) with Drude; ``inc`` and ``t`` as in the dict form.
+
+Beside each kernel wrapper stands its plain PyTorch version with the
+same signature (``e_update_plain``/``h_update_plain``). A wrapper uses
+the plain version only for tensors on the CPU; on a CUDA tensor it
+launches the kernel or raises. ``e_update.launches`` and
+``h_update.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from fdtd3d_torch.layout import component_axis
+from fdtd3d_torch.ops import build, patches, tfsf
+from fdtd3d_torch.ops.stencil import make_diff_ops
+from fdtd3d_torch.solver import _bcast1d, _pad_slab, _slab_delta, slab_axes
+
+AXES = "xyz"
+_LIB = "packed_eh"
+_diff_b, _diff_f = make_diff_ops()
+
+
+def psi_row(c: int, a: int) -> int:
+    """Row of component c in the psi stack of axis a (the two
+    components other than a, in order)."""
+    return c if c < a else c - 1
+
+
+def pack(state: Dict[str, Any], static) -> Dict[str, Any]:
+    """Dict-form state -> packed carry (new tensors)."""
+    mode = static.mode
+    p: Dict[str, Any] = {
+        "E": torch.stack([state["E"][c] for c in mode.e_components]),
+        "H": torch.stack([state["H"][c] for c in mode.h_components]),
+        "t": int(state["t"]),
+        "psE": {}, "psH": {}}
+    for a in slab_axes(static):
+        for fam, key, comps in (("psE", "psi_E", mode.e_components),
+                                ("psH", "psi_H", mode.h_components)):
+            rows = [c for c in comps if component_axis(c) != a]
+            p[fam][a] = torch.stack(
+                [state[key][f"{c}_{AXES[a]}"] for c in rows])
+    if static.use_drude:
+        p["J"] = torch.stack([state["J"][c] for c in mode.e_components])
+    if static.tfsf_setup is not None:
+        p["inc"] = {k: v.clone() for k, v in state["inc"].items()}
+    return p
+
+
+def unpack(p: Dict[str, Any], static) -> Dict[str, Any]:
+    """Packed carry -> dict-form state (views into the carry)."""
+    mode = static.mode
+    state: Dict[str, Any] = {
+        "E": {c: p["E"][j] for j, c in enumerate(mode.e_components)},
+        "H": {c: p["H"][j] for j, c in enumerate(mode.h_components)},
+        "t": p["t"]}
+    if p["psE"]:
+        state["psi_E"], state["psi_H"] = {}, {}
+        for a in p["psE"]:
+            for fam, key, comps in (("psE", "psi_E", mode.e_components),
+                                    ("psH", "psi_H", mode.h_components)):
+                rows = [c for c in comps if component_axis(c) != a]
+                for r, c in enumerate(rows):
+                    state[key][f"{c}_{AXES[a]}"] = p[fam][a][r]
+    if "J" in p:
+        state["J"] = {c: p["J"][j] for j, c in enumerate(mode.e_components)}
+    if "inc" in p:
+        state["inc"] = dict(p["inc"])
+    return state
+
+
+def prepare_family(static, coeffs, family: str) -> Dict[str, Any]:
+    """Per-family kernel operands from device coefficients: scalar or
+    grid coefficients per component, the slab CPML profiles (3, 2m) per
+    axis, and the wall vectors (used by the plain version)."""
+    mode = static.mode
+    comps = mode.e_components if family == "E" else mode.h_components
+    tag = "e" if family == "E" else "h"
+    pa, pb = ("ca", "cb") if family == "E" else ("da", "db")
+    fc: Dict[str, Any] = {
+        "family": family, "shape": tuple(static.grid_shape),
+        "inv_dx": float(np.float32(1.0 / static.dx)),
+        "a": [coeffs[f"{pa}_{c}"] for c in comps],
+        "b": [coeffs[f"{pb}_{c}"] for c in comps],
+        "kj": None, "bj": None, "m": dict(slab_axes(static)), "prof": {},
+        "wall": [coeffs[f"wall_{ax}"] for ax in AXES]}
+    if family == "E" and static.use_drude:
+        fc["kj"] = [coeffs[f"kj_{c}"] for c in comps]
+        fc["bj"] = [coeffs[f"bj_{c}"] for c in comps]
+    for a in fc["m"]:
+        fc["prof"][a] = torch.stack(
+            [coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"]
+             for v in ("b", "c", "ik")]).contiguous()
+    return fc
+
+
+# --------------------------------------------------------------------------
+# plain versions (the kernel's arithmetic in torch; CPU tensors and tests)
+# --------------------------------------------------------------------------
+
+def _family_plain(F, S, J, psi, fc, backward: bool) -> None:
+    diff = _diff_b if backward else _diff_f
+    for c in range(3):
+        acc = None
+        for t in range(2):
+            a, d = (c + 1 + t) % 3, (c + 2 - t) % 3
+            s = 1.0 if t == 0 else -1.0
+            dfa = diff(S[d], a) * fc["inv_dx"]
+            if a in fc["m"]:
+                m = fc["m"][a]
+                row = psi[a][psi_row(c, a)]
+                new_psi, dl, dh = _slab_delta(a, s, dfa, row,
+                                              tuple(fc["prof"][a]), m)
+                row.copy_(new_psi)
+                fix = _pad_slab(dl, dh, a, dfa.shape[a], m)
+                acc = fix if acc is None else acc + fix
+            acc = s * dfa if acc is None else acc + s * dfa
+        old = F[c]
+        if backward:
+            if J is not None:
+                j_new = fc["kj"][c] * J[c] + fc["bj"][c] * old
+                J[c].copy_(j_new)
+                acc = acc - j_new
+            v = fc["a"][c] * old + fc["b"][c] * acc
+            for w in range(3):
+                if w != c:
+                    v = v * _bcast1d(fc["wall"][w], w)
+        else:
+            v = fc["a"][c] * old - fc["b"][c] * acc
+        F[c].copy_(v)
+
+
+def e_update_plain(E, H, J, psi, fc) -> None:
+    """E (and J, psi_E) in place from backward differences of H."""
+    _family_plain(E, H, J, psi, fc, backward=True)
+
+
+def h_update_plain(H, E, psi, fc) -> None:
+    """H (and psi_H) in place from forward differences of E."""
+    _family_plain(H, E, None, psi, fc, backward=False)
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel wrappers
+# --------------------------------------------------------------------------
+
+class _Coef(ctypes.Structure):
+    _fields_ = [("grid", ctypes.c_void_p), ("val", ctypes.c_float)]
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``struct Params`` in csrc/packed_eh.cu."""
+    _fields_ = [("F", ctypes.c_void_p), ("S", ctypes.c_void_p),
+                ("J", ctypes.c_void_p),
+                ("psi", ctypes.c_void_p * 3), ("prof", ctypes.c_void_p * 3),
+                ("m", ctypes.c_int * 3),
+                ("a", _Coef * 3), ("b", _Coef * 3),
+                ("kj", _Coef * 3), ("bj", _Coef * 3),
+                ("n1", ctypes.c_int), ("n2", ctypes.c_int),
+                ("n3", ctypes.c_int), ("inv_dx", ctypes.c_float)]
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(_LIB)
+    if not getattr(lib, "_fdtd_bound", False):
+        for fn in ("fdtd_e_update", "fdtd_h_update"):
+            f = getattr(lib, fn)
+            f.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+            f.restype = ctypes.c_int
+        lib.fdtd_params_size.restype = ctypes.c_int
+        lib.fdtd_error_string.argtypes = [ctypes.c_int]
+        lib.fdtd_error_string.restype = ctypes.c_char_p
+        if lib.fdtd_params_size() != ctypes.sizeof(_Params):
+            raise RuntimeError(
+                f"{_LIB}: struct Params is {lib.fdtd_params_size()} bytes "
+                f"in CUDA and {ctypes.sizeof(_Params)} in ctypes")
+        lib._fdtd_bound = True
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, shape, device) -> int:
+    if t.device != device or t.dtype != torch.float32 \
+            or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: need a contiguous float32 tensor of shape "
+            f"{tuple(shape)} on {device}, got {tuple(t.shape)} "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    return t.data_ptr()
+
+
+def _coef_struct(v, name, shape, device) -> _Coef:
+    if isinstance(v, torch.Tensor):
+        return _Coef(_check(v, name, shape, device), 0.0)
+    return _Coef(None, float(v))
+
+
+def _params(F, S, J, psi, fc) -> _Params:
+    """The launch's parameter block; the static part (coefficients,
+    profiles) is built and checked once per prepared family."""
+    device = F.device
+    shape = fc["shape"]
+    base = fc.get("_params")
+    if base is None or base[0] != device:
+        prm = _Params()
+        for c in range(3):
+            prm.a[c] = _coef_struct(fc["a"][c], f"a[{c}]", shape, device)
+            prm.b[c] = _coef_struct(fc["b"][c], f"b[{c}]", shape, device)
+            if fc["kj"] is not None:
+                prm.kj[c] = _coef_struct(fc["kj"][c], f"kj[{c}]", shape,
+                                         device)
+                prm.bj[c] = _coef_struct(fc["bj"][c], f"bj[{c}]", shape,
+                                         device)
+        for a, m in fc["m"].items():
+            prm.m[a] = m
+            prm.prof[a] = _check(fc["prof"][a], f"prof[{a}]", (3, 2 * m),
+                                 device)
+        prm.n1, prm.n2, prm.n3 = shape
+        prm.inv_dx = fc["inv_dx"]
+        fc["_params"] = base = (device, prm)
+    prm = _Params.from_buffer_copy(base[1])
+    full = (3,) + tuple(shape)
+    prm.F = _check(F, "F", full, device)
+    prm.S = _check(S, "S", full, device)
+    if J is not None:
+        prm.J = _check(J, "J", full, device)
+    elif fc["family"] == "E" and fc["kj"] is not None:
+        raise ValueError("Drude coefficients given but no J stack")
+    for a, m in fc["m"].items():
+        ps = list(full)
+        ps[0], ps[1 + a] = 2, 2 * m
+        prm.psi[a] = _check(psi[a], f"psi[{a}]", ps, device)
+    return prm
+
+
+def _launch(fn: str, prm: _Params, device) -> None:
+    lib = _library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(ctypes.byref(prm), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
+                           f"({lib.fdtd_error_string(err).decode()})")
+
+
+def e_update(E, H, J, psi, fc) -> None:
+    """E (and J, psi_E) in place: the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors."""
+    if not E.is_cuda:
+        e_update_plain(E, H, J, psi, fc)
+        return
+    _launch("fdtd_e_update", _params(E, H, J, psi, fc), E.device)
+    e_update.launches += 1
+
+
+def h_update(H, E, psi, fc) -> None:
+    """H (and psi_H) in place: the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors."""
+    if not H.is_cuda:
+        h_update_plain(H, E, psi, fc)
+        return
+    _launch("fdtd_h_update", _params(H, E, None, psi, fc), H.device)
+    h_update.launches += 1
+
+
+e_update.launches = 0
+h_update.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the packed step
+# --------------------------------------------------------------------------
+
+def make_packed_step(static, device, plain: bool = False):
+    """The packed step over the packed carry (updated in place).
+
+    On a CUDA ``device`` the two family updates launch the kernels
+    (kind ``packed_cuda``); on the CPU they run their plain versions
+    (kind ``packed_plain``). ``plain=True`` runs the plain versions on
+    any device: the yardstick chip_smoke.py holds the kernels against.
+    """
+    setup = static.tfsf_setup
+    if set(static.pml_axes) != set(slab_axes(static)):
+        raise NotImplementedError(
+            "full-length CPML psi (a PML too thick for slab storage) is "
+            "not in the packed step's scope (ROADMAP.md queue A4)")
+    e_fn, h_fn = (e_update_plain, h_update_plain) if plain \
+        else (e_update, h_update)
+
+    def prepare(coeffs) -> Dict[str, Any]:
+        return {"coeffs": coeffs,
+                "E": prepare_family(static, coeffs, "E"),
+                "H": prepare_family(static, coeffs, "H"),
+                "tfsf_E": patches.build_tfsf_plan(static, coeffs, "E"),
+                "tfsf_H": patches.build_tfsf_plan(static, coeffs, "H"),
+                "point": patches.build_point_source(static, coeffs)}
+
+    def step(ps: Dict[str, Any], cc: Dict[str, Any]) -> Dict[str, Any]:
+        t = ps["t"]
+        if setup is not None:
+            ps["inc"] = tfsf.advance_einc(ps["inc"], cc["coeffs"], t,
+                                          static.dt, static.omega, setup)
+        e_fn(ps["E"], ps["H"], ps.get("J"), ps["psE"], cc["E"])
+        if setup is not None:
+            patches.tfsf_patch(ps["E"], cc["tfsf_E"], ps["inc"])
+        patches.point_source_patch(static, ps["E"], cc["point"], t)
+        if setup is not None:
+            ps["inc"] = tfsf.advance_hinc(ps["inc"], cc["coeffs"], setup)
+        h_fn(ps["H"], ps["E"], ps["psH"], cc["H"])
+        if setup is not None:
+            patches.tfsf_patch(ps["H"], cc["tfsf_H"], ps["inc"])
+        ps["t"] = t + 1
+        return ps
+
+    step.prepare = prepare
+    step.pack = lambda state: pack(state, static)
+    step.unpack = lambda p: unpack(p, static)
+    step.packed = True
+    on_cuda = torch.device(device).type == "cuda"
+    step.kind = "packed_cuda" if on_cuda and not plain else "packed_plain"
+    return step

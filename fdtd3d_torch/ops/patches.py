@@ -1,0 +1,159 @@
+"""Thin source patches applied between the packed step's two launches.
+
+Counterpart of the patch helpers of ``fdtd3d_tpu/ops/pallas3d.py``
+(``plane_corrections`` :859, ``tfsf_patch`` :961, ``point_source_patch``
+:1012), unsharded. A source adds ``cb * term`` to the E cells it
+drives (``-db * term`` to H), after the family's kernel: the reference's
+plain step adds ``term`` to the curl accumulator before the ``cb``
+multiply, so the two differ by one rounding of the added term.
+
+The TFSF faces are planned once per run (``build_tfsf_plan``): the
+face cells, the line indices and weights of the interpolation, and the
+coefficients are static, so a step's patch is two gathers off the
+incident line, a few elementwise ops on the face cells, and one
+``index_add_`` onto the stacked field. The geometry comes from the same
+functions the plain step uses (ops/tfsf.py), so the two cannot drift.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from fdtd3d_torch.layout import component_axis
+from fdtd3d_torch.ops import tfsf
+from fdtd3d_torch.ops.sources import waveform
+
+AXES = "xyz"
+
+
+def _plane_cells(shape, comp_index: int, axis: int, plane: int,
+                 device) -> torch.Tensor:
+    """Flat indices, into the stacked (3, n1, n2, n3) array, of one
+    component's cells on plane ``plane`` of ``axis``; shaped as the
+    plane (size 1 along ``axis``)."""
+    n1, n2, n3 = shape
+    rng = [torch.arange(n, device=device) for n in shape]
+    rng[axis] = torch.tensor([plane], device=device)
+    i = rng[0].reshape(-1, 1, 1)
+    j = rng[1].reshape(1, -1, 1)
+    k = rng[2].reshape(1, 1, -1)
+    return ((comp_index * n1 + i) * n2 + j) * n3 + k
+
+
+def _coef_at(coef, cells: torch.Tensor, vol: int):
+    """A coefficient at flat stacked-cell indices (scalar or grid)."""
+    if isinstance(coef, torch.Tensor):
+        return coef.reshape(-1)[cells % vol]
+    return torch.full(cells.shape, coef, dtype=torch.float32,
+                      device=cells.device)
+
+
+def build_tfsf_plan(static, coeffs, family: str) -> Optional[Dict]:
+    """The static part of one family's TFSF face patches, flattened over
+    every correction that can touch a cell: target cell, line indices,
+    interpolation weights, ``sign*pol/dx`` and ``+-cb`` per entry. Cells
+    the transverse box gate or a PEC wall zeroes are left out."""
+    setup = static.tfsf_setup
+    if setup is None:
+        return None
+    mode = static.mode
+    shape = static.grid_shape
+    vol = shape[0] * shape[1] * shape[2]
+    comps = mode.e_components if family == "E" else mode.h_components
+    gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
+    device = gs[0].device
+    parts = {k: [] for k in ("cells", "i0", "w0", "w1", "k", "cb")}
+    for ci, c in enumerate(comps):
+        cb = coeffs[("cb_" if family == "E" else "db_") + c]
+        sign = 1.0 if family == "E" else -1.0
+        for corr in setup.corrections:
+            if corr.field != family or corr.comp != c:
+                continue
+            pol = tfsf.corr_polarization(corr, setup)
+            if abs(pol) < tfsf.POL_EPS:
+                continue
+            if not 0 <= corr.plane < shape[corr.axis]:
+                continue
+            pshape = list(shape)
+            pshape[corr.axis] = 1
+            u = tfsf.corr_line_coord(corr, setup, gs, mode.active_axes)
+            i0, w = tfsf.clipped_line_coord(u, setup.n_inc)
+            keep = torch.ones(pshape, dtype=torch.bool, device=device)
+            gate = tfsf.corr_gate_transverse(corr, setup, gs,
+                                             mode.active_axes,
+                                             torch.float32)
+            if gate is not None:
+                keep &= gate.expand(pshape) > 0
+            if family == "E":
+                # PEC walls: the patch must not revive a zeroed cell
+                for a2 in mode.active_axes:
+                    if a2 != component_axis(c):
+                        w2 = coeffs[f"wall_{AXES[a2]}"]
+                        if a2 == corr.axis:
+                            w2 = w2[corr.plane:corr.plane + 1]
+                        s2 = [1, 1, 1]
+                        s2[a2] = w2.shape[0]
+                        keep &= w2.reshape(s2).expand(pshape) > 0
+            cells = _plane_cells(shape, ci, corr.axis, corr.plane, device)
+            cells = cells.expand(pshape)[keep]
+            parts["cells"].append(cells)
+            parts["i0"].append(i0.expand(pshape)[keep])
+            parts["w0"].append((1.0 - w).expand(pshape)[keep])
+            parts["w1"].append(w.expand(pshape)[keep])
+            parts["k"].append(torch.full(
+                cells.shape, float(np.float32(corr.sign * pol / static.dx)),
+                dtype=torch.float32, device=device))
+            parts["cb"].append(sign * _coef_at(cb, cells, vol))
+    if not parts["cells"]:
+        return None
+    plan = {k: torch.cat(v) for k, v in parts.items()}
+    plan["i1"] = plan["i0"] + 1
+    plan["line"] = "Hinc" if family == "E" else "Einc"
+    return plan
+
+
+def tfsf_patch(arr: torch.Tensor, plan: Optional[Dict],
+               inc: Dict[str, torch.Tensor]) -> None:
+    """Add one family's TFSF face corrections onto its stacked field,
+    in place."""
+    if plan is None:
+        return
+    line = inc[plan["line"]]
+    val = plan["w0"] * line[plan["i0"]] + plan["w1"] * line[plan["i1"]]
+    val = plan["cb"] * (plan["k"] * val)
+    arr.view(-1).index_add_(0, plan["cells"], val)
+
+
+def build_point_source(static, coeffs) -> Optional[Dict]:
+    """Static part of the point-source patch: the driven cell of the
+    stacked E array and its ``cb`` (or None when off, or on a wall)."""
+    ps = static.cfg.point_source
+    if not ps.enabled:
+        return None
+    mode = static.mode
+    n1, n2, n3 = static.grid_shape
+    i, j, k = ps.position
+    ci = mode.e_components.index(ps.component)
+    for a2 in mode.active_axes:
+        if a2 != component_axis(ps.component) \
+                and ps.position[a2] in (0, static.grid_shape[a2] - 1):
+            return None   # a PEC wall cell stays zero
+    cb = coeffs[f"cb_{ps.component}"]
+    if isinstance(cb, torch.Tensor):
+        cb = float(cb[i, j, k].item())
+    return {"cell": ((ci * n1 + i) * n2 + j) * n3 + k,
+            "amp_cb": np.float32(coeffs["ps_amp"]) * np.float32(cb)}
+
+
+def point_source_patch(static, E: torch.Tensor, src: Optional[Dict],
+                       t: int) -> None:
+    """Soft point source as a single-cell add onto stacked E, in place."""
+    if src is None:
+        return
+    ps = static.cfg.point_source
+    wf = waveform(ps.waveform, t, 0.5, static.omega, static.dt,
+                  static.real_dtype)
+    E.view(-1).narrow(0, src["cell"], 1).add_(float(src["amp_cb"] * wf))

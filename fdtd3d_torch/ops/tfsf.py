@@ -1,0 +1,281 @@
+"""Total-field / scattered-field (TFSF) plane-wave injection, in torch.
+
+Counterpart of ``fdtd3d_tpu/ops/tfsf.py`` (f32 path): the static
+geometry (``build_setup``, the incidence basis, the line's matched-loss
+tail) is the reference's numpy code unchanged; the incident-line
+leapfrog and the face corrections are torch ops on device tensors.
+
+Mechanism (see the reference module for the derivation): a 1D incident
+line (Einc at integer positions, Hinc at half positions) is leapfrogged
+each step; every curl difference that straddles the total-field box
+face is corrected by the incident value of the missing field,
+interpolated off the line at the straddling sample's staggered
+position. Einc advances to t^{n+1} before the E update, Hinc after it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fdtd3d_torch import physics
+from fdtd3d_torch.layout import CURL_TERMS, YEE_OFFSETS, component_axis
+from fdtd3d_torch.ops.sources import waveform
+
+_TAIL = 24  # absorbing-tail length on the incident line, cells
+
+# Polarization-projection cutoff: a correction whose ehat/hhat
+# projection is below this is an exact geometric zero blurred by f64
+# rounding, and is dropped (the reference's single threshold).
+POL_EPS = 1e-14
+
+
+@dataclasses.dataclass(frozen=True)
+class Correction:
+    """One face-plane consistency correction (static descriptor)."""
+
+    field: str        # "E" | "H": which update this correction belongs to
+    comp: str         # component being updated (e.g. "Ez")
+    axis: int         # derivative axis a
+    plane: int        # global integer coordinate g_a of the corrected cells
+    src: str          # incident component sampled (e.g. "Hy")
+    sign: float       # +-s premultiplied sign (without 1/dx)
+    pos_a: float      # position along `axis` at which src is sampled (cells)
+    mask_comp: str    # component whose TRANSVERSE box membership gates
+    #                   the correction
+
+
+@dataclasses.dataclass(frozen=True)
+class TfsfSetup:
+    """Static TFSF geometry: box, incidence basis, line length, corrections."""
+
+    lo: Tuple[int, int, int]
+    hi: Tuple[int, int, int]
+    khat: Tuple[float, float, float]
+    ehat: Tuple[float, float, float]
+    hhat: Tuple[float, float, float]
+    origin: Tuple[float, float, float]
+    zeta0: float            # guard offset added to projections (cells)
+    n_inc: int              # incident-line length
+    corrections: Tuple[Correction, ...]
+    waveform: str
+    amplitude: float
+
+
+def _incidence_basis(teta_deg, phi_deg, psi_deg):
+    """k/E/H unit vectors from the reference's teta/phi/psi angles."""
+    th, ph, ps = (math.radians(v) for v in (teta_deg, phi_deg, psi_deg))
+    khat = np.array([math.sin(th) * math.cos(ph),
+                     math.sin(th) * math.sin(ph),
+                     math.cos(th)])
+    # Spherical unit vectors at (th, ph); for th == 0 they default to (x, y).
+    theta_hat = np.array([math.cos(th) * math.cos(ph),
+                          math.cos(th) * math.sin(ph),
+                          -math.sin(th)])
+    phi_hat = np.array([-math.sin(ph), math.cos(ph), 0.0])
+    ehat = math.cos(ps) * theta_hat + math.sin(ps) * phi_hat
+    hhat = np.cross(khat, ehat)
+    return tuple(khat), tuple(ehat), tuple(hhat)
+
+
+def build_setup(cfg, static) -> TfsfSetup:
+    mode = static.mode
+    shape = static.grid_shape
+    lo, hi = [0, 0, 0], [0, 0, 0]
+    for a in range(3):
+        if a in mode.active_axes:
+            pad = cfg.pml.size[a] + cfg.tfsf.margin[a]
+            lo[a], hi[a] = pad, shape[a] - 1 - pad
+            if hi[a] - lo[a] < 2:
+                raise ValueError(f"TFSF box empty on axis {a}")
+    khat, ehat, hhat = _incidence_basis(
+        cfg.tfsf.angle_teta, cfg.tfsf.angle_phi, cfg.tfsf.angle_psi)
+    for a in range(3):
+        if a not in mode.active_axes and abs(khat[a]) > 1e-12:
+            raise ValueError(
+                f"incidence direction has a component along inactive axis "
+                f"{a} for scheme {mode.name}")
+    origin = tuple(
+        float(lo[a]) if khat[a] >= 0.0 else float(hi[a]) for a in range(3))
+    zeta0 = 2.0  # guard so slightly-negative projections stay in range
+    span = sum(abs(khat[a]) * (hi[a] - lo[a]) for a in mode.active_axes)
+    n_inc = int(math.ceil(span + zeta0)) + 8 + _TAIL
+
+    corrections: List[Correction] = []
+    # E-update corrections (incident H sampled at half positions).
+    for c in mode.e_components:
+        ca = component_axis(c)
+        for (a, d_axis, s) in CURL_TERMS[ca]:
+            d = "H" + "xyz"[d_axis]
+            if a not in mode.active_axes or d not in mode.h_components:
+                continue
+            corrections.append(Correction("E", c, a, lo[a], d, -s,
+                                          lo[a] - 0.5, c))
+            corrections.append(Correction("E", c, a, hi[a], d, +s,
+                                          hi[a] + 0.5, c))
+    # H-update corrections (incident E sampled at integer positions).
+    for c in mode.h_components:
+        ca = component_axis(c)
+        for (a, d_axis, s) in CURL_TERMS[ca]:
+            d = "E" + "xyz"[d_axis]
+            if a not in mode.active_axes or d not in mode.e_components:
+                continue
+            corrections.append(Correction("H", c, a, lo[a] - 1, d, -s,
+                                          float(lo[a]), d))
+            corrections.append(Correction("H", c, a, hi[a], d, +s,
+                                          float(hi[a]), d))
+    return TfsfSetup(tuple(lo), tuple(hi), khat, ehat, hhat, origin, zeta0,
+                     n_inc, tuple(corrections), cfg.tfsf.waveform,
+                     cfg.tfsf.amplitude)
+
+
+def line_loss_profiles(n_inc: int, dt: float, dx: float, dtype):
+    """Matched graded-loss absorbing tail for the 1D incident line.
+
+    Returns (ae, be, ah, bh): Einc = ae*Einc - be*dHinc ; likewise H.
+    """
+    d = (np.arange(n_inc) - (n_inc - 1 - _TAIL)) / _TAIL
+    d = np.clip(d, 0.0, 1.0)
+    smax = 4.0 / (physics.ETA0 * _TAIL * dx)  # ~R0 1e-5 at normal incidence
+    sigma = smax * d ** 3
+    se = sigma * dt / (2.0 * physics.EPS0)
+    ae = ((1.0 - se) / (1.0 + se)).astype(dtype)
+    be = ((dt / (physics.EPS0 * dx)) / (1.0 + se)).astype(dtype)
+    # matched magnetic loss at half positions
+    d_h = (np.arange(n_inc) + 0.5 - (n_inc - 1 - _TAIL)) / _TAIL
+    d_h = np.clip(d_h, 0.0, 1.0)
+    sh = (smax * d_h ** 3) * dt / (2.0 * physics.EPS0)  # sigma_m/mu = sig/eps
+    ah = ((1.0 - sh) / (1.0 + sh)).astype(dtype)
+    bh = ((dt / (physics.MU0 * dx)) / (1.0 + sh)).astype(dtype)
+    return ae, be, ah, bh
+
+
+def advance_einc(inc: Dict[str, torch.Tensor], coeffs, t: int, dt, omega,
+                 setup: TfsfSetup) -> Dict[str, torch.Tensor]:
+    """Einc^{n} -> Einc^{n+1} using Hinc^{n+1/2}; hard source at cell 0."""
+    einc, hinc = inc["Einc"], inc["Hinc"]
+    dh = hinc.clone()
+    dh[1:] -= hinc[:-1]
+    einc = coeffs["inc_ae"] * einc - coeffs["inc_be"] * dh
+    wf = waveform(setup.waveform, t, 1.0, omega, dt, np.float32)
+    # fill_ passes the value as a kernel argument; item assignment would
+    # copy it from pageable host memory every step
+    einc.narrow(0, 0, 1).fill_(float(np.float32(setup.amplitude) * wf))
+    return dict(inc, Einc=einc)
+
+
+def advance_hinc(inc: Dict[str, torch.Tensor], coeffs,
+                 setup: TfsfSetup) -> Dict[str, torch.Tensor]:
+    """Hinc^{n+1/2} -> Hinc^{n+3/2} using Einc^{n+1}."""
+    einc, hinc = inc["Einc"], inc["Hinc"]
+    de = -einc
+    de[:-1] += einc[1:]
+    hinc = coeffs["inc_ah"] * hinc - coeffs["inc_bh"] * de
+    return dict(inc, Hinc=hinc)
+
+
+def clipped_line_coord(u: torch.Tensor, n: int):
+    """(i0, w) of linear interpolation at fractional index u, clipped
+    into the line as the reference clips it."""
+    u = torch.clamp(u, 0.0, n - 1.001)
+    i0 = torch.floor(u).to(torch.int64)
+    return i0, u - i0.to(u.dtype)
+
+
+def _interp_line(line: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation of the 1D line at fractional index u."""
+    i0, w = clipped_line_coord(u, line.shape[0])
+    return (1.0 - w) * line[i0] + w * line[i0 + 1]
+
+
+def corr_gate_transverse(corr: Correction, setup: TfsfSetup, gs,
+                         active_axes, dtype) -> Optional[torch.Tensor]:
+    """Staggered transverse box membership (no normal-axis onehot) as a
+    broadcastable 0/1 mask, or None when no transverse axis is active.
+    Half-offset components occupy [lo, hi-1], integer ones [lo, hi]."""
+    gate = None
+    m_off = YEE_OFFSETS[corr.mask_comp]
+    for b in range(3):
+        if b == corr.axis or b not in active_axes:
+            continue
+        hi_b = setup.hi[b] - 1 if m_off[b] == 0.5 else setup.hi[b]
+        ind = (gs[b] >= setup.lo[b]) & (gs[b] <= hi_b)
+        shape_b = [1, 1, 1]
+        shape_b[b] = ind.shape[0]
+        ind = ind.reshape(shape_b).to(dtype)
+        gate = ind if gate is None else gate * ind
+    return gate
+
+
+def corr_line_coord(corr: Correction, setup: TfsfSetup, gs, active_axes,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The line coordinate (in line cells) at which this correction
+    samples its incident component: a broadcastable tensor over the two
+    transverse axes. Hinc samples live at half positions on the line."""
+    off = YEE_OFFSETS[corr.src]
+    zeta = setup.zeta0 + setup.khat[corr.axis] * (
+        corr.pos_a - setup.origin[corr.axis])
+    zeta = torch.tensor(zeta, dtype=dtype, device=gs[0].device).reshape(
+        1, 1, 1)
+    for b in range(3):
+        if b == corr.axis or b not in active_axes:
+            continue
+        pb = gs[b].to(dtype) + off[b]
+        shape = [1, 1, 1]
+        shape[b] = pb.shape[0]
+        zeta = zeta + float(np.float32(setup.khat[b])) * (
+            pb - float(np.float32(setup.origin[b]))).reshape(shape)
+    if corr.src[0] == "H":
+        zeta = zeta - 0.5
+    return zeta
+
+
+def corr_polarization(corr: Correction, setup: TfsfSetup) -> float:
+    """Projection of the incident field onto the sampled component."""
+    if corr.src[0] == "E":
+        return setup.ehat[component_axis(corr.src)]
+    return setup.hhat[component_axis(corr.src)]
+
+
+def corr_plane_term(corr: Correction, setup: TfsfSetup, coeffs,
+                    inc: Dict[str, torch.Tensor], active_axes,
+                    dx: float) -> Optional[torch.Tensor]:
+    """ONE correction's accumulator term on its face plane (transverse
+    box gate applied, no normal-axis onehot), or None when the
+    polarization projection vanishes."""
+    pol = corr_polarization(corr, setup)
+    if abs(pol) < POL_EPS:
+        return None
+    gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
+    rdt = inc["Einc"].dtype
+    line = inc["Einc"] if corr.src[0] == "E" else inc["Hinc"]
+    val = _interp_line(line, corr_line_coord(corr, setup, gs, active_axes,
+                                             rdt))
+    gate = corr_gate_transverse(corr, setup, gs, active_axes, val.dtype)
+    term = float(np.float32(corr.sign * pol / dx)) * val
+    return term if gate is None else term * gate
+
+
+def corrections_for(field: str, comp: str, setup: TfsfSetup, coeffs,
+                    inc: Dict[str, torch.Tensor], active_axes,
+                    dx: float) -> Optional[torch.Tensor]:
+    """Sum of this component's TFSF curl-accumulator corrections (or
+    None): each face's plane term times its normal-axis onehot."""
+    gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
+    total = None
+    for corr in setup.corrections:
+        if corr.field != field or corr.comp != comp:
+            continue
+        term = corr_plane_term(corr, setup, coeffs, inc, active_axes, dx)
+        if term is None:
+            continue
+        onehot_shape = [1, 1, 1]
+        onehot_shape[corr.axis] = gs[corr.axis].shape[0]
+        onehot = (gs[corr.axis] == corr.plane).reshape(onehot_shape)
+        term = term * onehot.to(term.dtype)
+        total = term if total is None else total + term
+    return total

@@ -1,0 +1,468 @@
+"""Solver core of the PyTorch port: static setup, coefficients, the step.
+
+Counterpart of ``fdtd3d_tpu/solver.py``. The state is a dict of torch
+tensors ``{E, H, psi_E, psi_H, J, inc, t}`` with the reference's keys
+(``t`` is a host integer here); coefficients are host-built numpy
+(``build_coeffs``, the reference's code) moved to the device once
+(``coeffs_to_device``). Update equations: see the reference module.
+
+``make_step`` dispatches an in-scope configuration to one of two steps:
+
+* the packed step (``ops/packed.py``): stacked E/H carry, one
+  hand-written CUDA launch per field family on a CUDA device (kind
+  ``packed_cuda``), the same arithmetic in plain torch on the CPU
+  (kind ``packed_plain``);
+* the plain step (kind ``plain``): the reference's jnp branch written in
+  torch on dict-form state. It is the port's oracle, as the jnp step is
+  the reference's.
+
+``use_pallas`` keeps its meaning: None picks the packed step on CUDA
+and the plain step on the CPU, True forces the packed step, False the
+plain one.
+
+Scope of this slice: 3D real float32, CPML on any axes, TFSF, the point
+source, electric Drude J, material coefficient grids, PEC walls,
+unsharded. Everything else raises ``NotImplementedError`` naming its
+ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fdtd3d_torch import materials, physics
+from fdtd3d_torch.config import SimConfig
+from fdtd3d_torch.layout import CURL_TERMS, component_axis
+from fdtd3d_torch.ops import cpml, tfsf
+from fdtd3d_torch.ops.sources import point_mask, waveform
+from fdtd3d_torch.ops.stencil import make_diff_ops
+
+AXES = "xyz"
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticSetup:
+    """Everything fixed for a run: read by the step functions."""
+
+    cfg: SimConfig
+    mode: Any
+    grid_shape: Tuple[int, int, int]
+    dt: float
+    dx: float
+    omega: float
+    pml_axes: Tuple[int, ...]        # active axes with a PML slab
+    tfsf_setup: Optional[tfsf.TfsfSetup]
+    use_drude: bool
+    field_dtype: Any                 # torch dtype of E/H
+    real_dtype: Any                  # numpy dtype of the coefficients
+    use_drude_m: bool = False
+    topology: Tuple[int, int, int] = (1, 1, 1)
+
+
+def slab_axes(static: StaticSetup) -> Dict[int, int]:
+    """axis -> planes per side of the compact slab psi storage.
+
+    CPML psi is identically zero outside the two absorbing slabs of its
+    own axis, so psi keeps only the boundary planes (lo slab ++ hi
+    slab). One extra plane per side: the h-staggered hi-side profile is
+    nonzero at index n-1-npml (ops/cpml.py), so exact parity with full
+    storage needs npml+1 planes per side.
+    """
+    out: Dict[int, int] = {}
+    for a in static.pml_axes:
+        npml = static.cfg.pml.size[a]
+        m = npml + 1
+        local_n = static.grid_shape[a] // static.topology[a]
+        if npml > 0 and local_n > 2 * m:
+            out[a] = m
+    return out
+
+
+def check_scope(cfg: SimConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP.md item, for every
+    configuration this slice of the port does not run."""
+    def out(what: str, item: str):
+        raise NotImplementedError(
+            f"{what} is not ported to fdtd3d_torch yet (ROADMAP.md queue "
+            f"{item}); run it with the reference package fdtd3d_tpu")
+    if cfg.scheme != "3D":
+        out(f"scheme {cfg.scheme!r} (1D/2D modes)", "A4")
+    if cfg.complex_fields:
+        out("complex fields", "A10")
+    if cfg.dtype == "float32x2":
+        out("dtype float32x2 (double-single)", "A9")
+    if cfg.dtype != "float32":
+        out(f"dtype {cfg.dtype!r}", "A4")
+    if cfg.compensated:
+        out("compensated (Kahan) mode", "A4")
+    if cfg.materials.use_drude_m:
+        out("magnetic Drude (K current)", "A4")
+    if cfg.ntff.enabled:
+        out("the near-to-far-field transform", "A8")
+    par = cfg.parallel
+    if par.topology == "manual" and tuple(
+            par.manual_topology or (1, 1, 1)) != (1, 1, 1):
+        out(f"manual topology {par.manual_topology}", "A11")
+    if par.n_devices not in (None, 1):
+        out(f"{par.n_devices} devices", "A11")
+
+
+def build_static(cfg: SimConfig) -> StaticSetup:
+    cfg.validate()
+    check_scope(cfg)
+    mode = cfg.mode
+    pml_axes = tuple(a for a in mode.active_axes if cfg.pml.size[a] > 0)
+    st = StaticSetup(
+        cfg=cfg, mode=mode, grid_shape=cfg.grid_shape, dt=cfg.dt,
+        dx=cfg.dx, omega=cfg.omega, pml_axes=pml_axes, tfsf_setup=None,
+        use_drude=cfg.materials.use_drude,
+        field_dtype=cfg.torch_dtype(), real_dtype=np.float32,
+        use_drude_m=cfg.materials.use_drude_m)
+    if cfg.tfsf.enabled:
+        st = dataclasses.replace(st, tfsf_setup=tfsf.build_setup(cfg, st))
+    return st
+
+
+# --------------------------------------------------------------------------
+# coefficients (host-built numpy, as in the reference)
+# --------------------------------------------------------------------------
+
+def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
+    """The reference's coefficient dict, key for key and bit for bit
+    (``fdtd3d_tpu/solver.py::build_coeffs``, f32 path): numpy arrays
+    and f32 scalars."""
+    cfg, mode = static.cfg, static.mode
+    shape = static.grid_shape
+    dt, rd = static.dt, static.real_dtype
+    mat = cfg.materials
+    out: Dict[str, Any] = {}
+
+    for a in range(3):
+        out[f"g{AXES[a]}"] = np.arange(shape[a], dtype=np.int32)
+        wall = np.ones(shape[a], dtype=rd)
+        if a in mode.active_axes:
+            wall[0] = 0.0
+            wall[-1] = 0.0
+        out[f"wall_{AXES[a]}"] = wall
+
+    def _cast(v):
+        return rd(v) if np.isscalar(v) else v.astype(rd)
+
+    for c in mode.e_components:
+        eps = materials.scalar_or_grid(c, shape, mode.active_axes, mat.eps,
+                                       mat.eps_sphere, mat.eps_file)
+        if static.use_drude:
+            wp, gamma, _ = materials.drude_params(c, shape,
+                                                  mode.active_axes, mat)
+            eps = materials.merge_drude_eps(eps, wp, mat.eps_inf)
+            out[f"kj_{c}"] = _cast((1.0 - gamma * dt / 2.0)
+                                   / (1.0 + gamma * dt / 2.0))
+            out[f"bj_{c}"] = _cast(physics.EPS0 * np.square(wp) * dt
+                                   / (1.0 + gamma * dt / 2.0))
+        se = mat.sigma_e * dt / (2.0 * physics.EPS0 * np.asarray(eps))
+        out[f"ca_{c}"] = _cast((1.0 - se) / (1.0 + se))
+        out[f"cb_{c}"] = _cast(dt / (physics.EPS0 * np.asarray(eps))
+                               / (1.0 + se))
+
+    for c in mode.h_components:
+        mu = materials.scalar_or_grid(c, shape, mode.active_axes, mat.mu,
+                                      mat.mu_sphere, mat.mu_file)
+        sm = mat.sigma_m * dt / (2.0 * physics.MU0 * np.asarray(mu))
+        out[f"da_{c}"] = _cast((1.0 - sm) / (1.0 + sm))
+        out[f"db_{c}"] = _cast(dt / (physics.MU0 * np.asarray(mu))
+                               / (1.0 + sm))
+
+    if static.pml_axes:
+        full = cpml.build_cpml_coeffs(cfg, static, rd)
+        out.update(full)
+        out.update(cpml.build_slab_coeffs(full, static, slab_axes(static)))
+
+    if cfg.point_source.enabled:
+        out["ps_amp"] = rd(cfg.point_source.amplitude)
+
+    if static.tfsf_setup is not None:
+        ae, be, ah, bh = tfsf.line_loss_profiles(
+            static.tfsf_setup.n_inc, dt, static.dx, rd)
+        out.update(inc_ae=ae, inc_be=be, inc_ah=ah, inc_bh=bh)
+    return out
+
+
+def coeffs_to_device(np_coeffs: Dict[str, Any],
+                     device) -> Dict[str, Any]:
+    """Arrays become tensors on ``device``; scalars stay host floats
+    (their f32 values), as the reference bakes them into the graph."""
+    out: Dict[str, Any] = {}
+    for k, v in np_coeffs.items():
+        if np.ndim(v) == 0:
+            out[k] = float(v)
+        else:
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return out
+
+
+def init_state(static: StaticSetup, device) -> Dict[str, Any]:
+    """Zero dict-form state on ``device`` (the reference's layout)."""
+    shape, fd = static.grid_shape, static.field_dtype
+    mode = static.mode
+    slabs = slab_axes(static)
+
+    def zeros(s=shape):
+        return torch.zeros(s, dtype=fd, device=device)
+
+    def psi_zeros(a: int):
+        """psi_{c,a} storage: slab-compacted along its own axis a."""
+        s = list(shape)
+        if a in slabs:
+            s[a] = 2 * slabs[a] * static.topology[a]
+        return zeros(tuple(s))
+
+    state: Dict[str, Any] = {
+        "E": {c: zeros() for c in mode.e_components},
+        "H": {c: zeros() for c in mode.h_components},
+        "t": 0,
+    }
+    psi_e, psi_h = {}, {}
+    for c in mode.e_components:
+        for (a, _d, _s) in CURL_TERMS[component_axis(c)]:
+            if a in static.pml_axes:
+                psi_e[f"{c}_{AXES[a]}"] = psi_zeros(a)
+    for c in mode.h_components:
+        for (a, _d, _s) in CURL_TERMS[component_axis(c)]:
+            if a in static.pml_axes:
+                psi_h[f"{c}_{AXES[a]}"] = psi_zeros(a)
+    if psi_e:
+        state["psi_E"] = psi_e
+        state["psi_H"] = psi_h
+    if static.use_drude:
+        state["J"] = {c: zeros() for c in mode.e_components}
+    if static.tfsf_setup is not None:
+        n = static.tfsf_setup.n_inc
+        state["inc"] = {"Einc": zeros((n,)), "Hinc": zeros((n,))}
+    return state
+
+
+# --------------------------------------------------------------------------
+# the plain step (the reference's jnp branch, in torch)
+# --------------------------------------------------------------------------
+
+def _bcast1d(arr: torch.Tensor, axis: int) -> torch.Tensor:
+    shape = [1, 1, 1]
+    shape[axis] = arr.shape[0]
+    return arr.reshape(shape)
+
+
+def _slab_delta(a, s, dfa, psi, prof, m):
+    """Slab-psi CPML correction: -> (new compact psi, lo delta, hi delta).
+
+    ``prof`` = (b, c, 1/kappa) slab profiles of length 2m along axis a.
+    The exact CPML term differs from the pure curl only inside the two
+    m-plane slabs of axis a, by s * ((ik - 1) * dfa + psi_new).
+    """
+    nloc = dfa.shape[a]
+
+    def cut(f, lo, hi):
+        return f.narrow(a, lo, hi - lo)
+
+    b, cc, ik = (_bcast1d(v, a) for v in prof)
+    d_lo, d_hi = cut(dfa, 0, m), cut(dfa, nloc - m, nloc)
+    p_lo = cut(b, 0, m) * cut(psi, 0, m) + cut(cc, 0, m) * d_lo
+    p_hi = cut(b, m, 2 * m) * cut(psi, m, 2 * m) + cut(cc, m, 2 * m) * d_hi
+    dl = s * ((cut(ik, 0, m) - 1.0) * d_lo + p_lo)
+    dh = s * ((cut(ik, m, 2 * m) - 1.0) * d_hi + p_hi)
+    return torch.cat([p_lo, p_hi], dim=a), dl, dh
+
+
+def _pad_slab(dl, dh, a, nloc, m):
+    """The two slab deltas placed back at the full local extent (zeros
+    between them; the slabs are disjoint since nloc > 2m)."""
+    shape = list(dl.shape)
+    shape[a] = nloc
+    out = torch.zeros(shape, dtype=dl.dtype, device=dl.device)
+    out.narrow(a, 0, m).copy_(dl)
+    out.narrow(a, nloc - m, m).copy_(dh)
+    return out
+
+
+def make_plain_step(static: StaticSetup):
+    """The reference's jnp leapfrog step (solver.py, f32 branch) in
+    torch, on dict-form state. Returns a new state dict."""
+    mode, cfg = static.mode, static.cfg
+    diff_b, diff_f = make_diff_ops()
+    inv_dx = float(np.float32(1.0 / static.dx))
+    setup = static.tfsf_setup
+    ps = cfg.point_source
+    slabs = slab_axes(static)
+
+    def _half_update(field: str, state, coeffs, new_psi):
+        """One family's curl accumulators (field='E' or 'H')."""
+        upd_comps = mode.e_components if field == "E" else mode.h_components
+        src = state["H"] if field == "E" else state["E"]
+        tag = "e" if field == "E" else "h"
+        diff = diff_b if field == "E" else diff_f
+        psi_key = "psi_E" if field == "E" else "psi_H"
+        out = {}
+        for c in upd_comps:
+            acc = None
+            for (a, d_axis, s) in CURL_TERMS[component_axis(c)]:
+                d = ("H" if field == "E" else "E") + AXES[d_axis]
+                if d not in src:
+                    continue
+                dfa = diff(src[d], a) * inv_dx
+                if a in slabs:
+                    key = f"{c}_{AXES[a]}"
+                    prof = tuple(coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"]
+                                 for v in ("b", "c", "ik"))
+                    psi, dl, dh = _slab_delta(a, s, dfa,
+                                              state[psi_key][key], prof,
+                                              slabs[a])
+                    new_psi[psi_key][key] = psi
+                    acc_fix = _pad_slab(dl, dh, a, dfa.shape[a], slabs[a])
+                    acc = acc_fix if acc is None else acc + acc_fix
+                    term = dfa
+                elif a in static.pml_axes:
+                    ax = AXES[a]
+                    b = _bcast1d(coeffs[f"pml_b{tag}_{ax}"], a)
+                    cc = _bcast1d(coeffs[f"pml_c{tag}_{ax}"], a)
+                    ik = _bcast1d(coeffs[f"pml_ik{tag}_{ax}"], a)
+                    key = f"{c}_{ax}"
+                    psi = b * state[psi_key][key] + cc * dfa
+                    new_psi[psi_key][key] = psi
+                    term = ik * dfa + psi
+                else:
+                    term = dfa
+                acc = s * term if acc is None else acc + s * term
+            if acc is None:
+                acc = torch.zeros_like(state[field][c])
+            if setup is not None:
+                corr = tfsf.corrections_for(field, c, setup, coeffs,
+                                            state["inc"], mode.active_axes,
+                                            static.dx)
+                if corr is not None:
+                    acc = acc + corr
+            out[c] = acc
+        return out
+
+    def step(state, coeffs):
+        t = state["t"]
+        new_state = dict(state)
+        new_psi = {"psi_E": dict(state.get("psi_E", {})),
+                   "psi_H": dict(state.get("psi_H", {}))}
+
+        # 1. incident line E advance (Einc -> t^{n+1})
+        if setup is not None:
+            new_state["inc"] = tfsf.advance_einc(
+                state["inc"], coeffs, t, static.dt, static.omega, setup)
+            state = dict(state, inc=new_state["inc"])
+
+        # 2. E family
+        new_E, new_J = {}, {}
+        acc_e = _half_update("E", state, coeffs, new_psi)
+        for c in mode.e_components:
+            acc = acc_e[c]
+            if static.use_drude:
+                j_new = coeffs[f"kj_{c}"] * state["J"][c] \
+                    + coeffs[f"bj_{c}"] * state["E"][c]
+                new_J[c] = j_new
+                acc = acc - j_new
+            if ps.enabled and ps.component == c:
+                mask = point_mask(coeffs["gx"], coeffs["gy"], coeffs["gz"],
+                                  ps.position, mode.active_axes)
+                wf = waveform(ps.waveform, t, 0.5, static.omega,
+                              static.dt, static.real_dtype)
+                amp = float(np.float32(coeffs["ps_amp"]) * wf)
+                acc = acc + amp * mask.to(acc.dtype)
+            e = coeffs[f"ca_{c}"] * state["E"][c] \
+                + coeffs[f"cb_{c}"] * acc
+            # PEC walls: zero tangential E on transverse-axis walls.
+            for a in mode.active_axes:
+                if a != component_axis(c):
+                    e = e * _bcast1d(coeffs[f"wall_{AXES[a]}"], a)
+            new_E[c] = e.to(static.field_dtype)
+        new_state["E"] = new_E
+        if static.use_drude:
+            new_state["J"] = new_J
+        state = dict(state, E=new_E)
+
+        # 3. incident line H advance (Hinc -> t^{n+3/2})
+        if setup is not None:
+            new_state["inc"] = tfsf.advance_hinc(new_state["inc"], coeffs,
+                                                 setup)
+            state = dict(state, inc=new_state["inc"])
+
+        # 4. H family
+        new_H = {}
+        acc_h = _half_update("H", state, coeffs, new_psi)
+        for c in mode.h_components:
+            h = coeffs[f"da_{c}"] * state["H"][c] \
+                - coeffs[f"db_{c}"] * acc_h[c]
+            new_H[c] = h.to(static.field_dtype)
+        new_state["H"] = new_H
+
+        if new_psi["psi_E"]:
+            new_state["psi_E"] = new_psi["psi_E"]
+            new_state["psi_H"] = new_psi["psi_H"]
+        new_state["t"] = t + 1
+        return new_state
+
+    step.kind = "plain"
+    return step
+
+
+def make_step(static: StaticSetup, device):
+    """The step for ``static`` on ``device`` (see the module docstring
+    for the dispatch rule)."""
+    flag = static.cfg.use_pallas
+    packed = torch.device(device).type == "cuda" if flag is None else flag
+    if packed:
+        from fdtd3d_torch.ops import packed as packed_mod
+        return packed_mod.make_packed_step(static, device)
+    return make_plain_step(static)
+
+
+def make_chunk_runner(static: StaticSetup, device, health: bool = False):
+    """run_chunk(state, coeffs, n): n steps in a Python loop.
+
+    Steps exposing ``prepare`` (the packed step) get it called outside
+    the loop, once per coefficient dict. When the packed step is engaged
+    (``run_chunk.packed``) the carry is the packed state; callers
+    convert once with ``run_chunk.pack``/``run_chunk.unpack``.
+
+    ``health=True``: run_chunk returns ``(state, health)`` where health
+    is the small device tensor of ``telemetry.make_health_fn`` — one
+    fused reduction at the chunk's end, read back by the caller once.
+    """
+    step = make_step(static, device)
+    prep = getattr(step, "prepare", None)
+    health_fn = None
+    if health:
+        from fdtd3d_torch import telemetry
+        health_fn = telemetry.make_health_fn()
+
+    prepared: Dict[str, Any] = {}
+
+    def run_chunk(state, coeffs, n: int):
+        cc = coeffs
+        if prep is not None:
+            # the prepared operands depend only on the coefficients:
+            # build them once per coefficient dict, not per chunk (the
+            # TFSF plan's masked selects synchronize with the device)
+            if prepared.get("src") is not coeffs:
+                prepared["src"], prepared["cc"] = coeffs, prep(coeffs)
+            cc = prepared["cc"]
+        for _ in range(n):
+            state = step(state, cc)
+        if health_fn is not None:
+            return state, health_fn(state)
+        return state
+
+    run_chunk.health = health_fn is not None
+    run_chunk.kind = step.kind
+    run_chunk.packed = getattr(step, "packed", False)
+    if run_chunk.packed:
+        run_chunk.pack = step.pack
+        run_chunk.unpack = step.unpack
+    return run_chunk

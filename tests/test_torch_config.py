@@ -1,0 +1,78 @@
+"""The PyTorch port's configuration and CLI front half against the
+reference's: every Examples/*.txt command file parses to an equal
+SimConfig in both packages, and the port names what it does not run."""
+
+import dataclasses
+import glob
+import os
+
+import pytest
+
+from fdtd3d_torch import cli as tcli
+from fdtd3d_torch import solver as tsolver
+from fdtd3d_tpu import cli as rcli
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "Examples", "*.txt")))
+
+
+def _cfg(cli_mod, argv):
+    return cli_mod.args_to_config(cli_mod.build_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=[os.path.basename(p) for p in EXAMPLES])
+def test_example_config_equals_reference(path):
+    argv = rcli.read_cmd_file(path)
+    assert tcli.read_cmd_file(path) == argv
+    assert dataclasses.asdict(_cfg(tcli, argv)) \
+        == dataclasses.asdict(_cfg(rcli, argv))
+
+
+def test_parser_keeps_every_reference_flag():
+    """Every option string of the reference parser exists in the port's
+    with the same default (the port adds --device only)."""
+    ref = {o: a for a in rcli.build_parser()._actions
+           for o in a.option_strings}
+    port = {o: a for a in tcli.build_parser()._actions
+            for o in a.option_strings}
+    assert set(port) - set(ref) == {"--device"}
+    assert set(ref) <= set(port)
+    for opt, act in ref.items():
+        assert port[opt].default == act.default, opt
+
+
+@pytest.mark.parametrize("argv", [
+    ["--3d", "--same-size", "24", "--use-pml", "--pml-sizex", "3",
+     "--pml-sizez", "5", "--use-tfsf", "--angle-teta", "30",
+     "--angle-phi", "40", "--angle-psi", "15", "--tfsf-waveform",
+     "gauss_pulse"],
+    ["--3d", "--sizex", "20", "--sizey", "24", "--sizez", "28",
+     "--point-source", "Ey", "--point-source-y", "3",
+     "--point-source-waveform", "ricker", "--use-drude", "--omega-p",
+     "1e11", "--gamma-d", "1e10", "--drude-sphere-radius", "4",
+     "--eps-sphere", "3.0", "--eps-sphere-radius", "5"],
+])
+def test_flag_combinations_equal_reference(argv):
+    assert dataclasses.asdict(_cfg(tcli, argv)) \
+        == dataclasses.asdict(_cfg(rcli, argv))
+
+
+@pytest.mark.parametrize("name,item", [
+    ("vacuum1D_ezhy.txt", "A4"), ("vacuum2D_tmz.txt", "A4"),
+    ("precision3D_compensated.txt", "A4"),
+    ("precision3D_float32x2.txt", "A9"),
+    ("metamaterial1D_dng.txt", "A4")])
+def test_out_of_scope_examples_name_their_roadmap_item(name, item):
+    cfg = _cfg(tcli, tcli.read_cmd_file(os.path.join(ROOT, "Examples",
+                                                     name)))
+    with pytest.raises(NotImplementedError, match=item):
+        tsolver.build_static(cfg)
+
+
+@pytest.mark.parametrize("name", ["vacuum3D_tfsf.txt", "sphere3D_mie.txt",
+                                  "drude3D_nanoantenna.txt"])
+def test_in_scope_examples_pass_the_scope_check(name):
+    cfg = _cfg(tcli, tcli.read_cmd_file(os.path.join(ROOT, "Examples",
+                                                     name)))
+    tsolver.check_scope(cfg)

@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone and fails loudly.
+
+* importing fdtd3d_torch and stepping a 3D run on the CPU pulls in
+  neither jax nor fdtd3d_tpu (checked in a subprocess: this test
+  process imports jax through tests/conftest.py);
+* no CUDA device and no explicit ``cpu`` raises;
+* an out-of-scope configuration raises NotImplementedError naming its
+  ROADMAP.md item;
+* a seeded NaN trips FloatingPointError with the first-bad-step bound;
+* the kernel module imports without nvcc, and on the CPU no kernel is
+  built or launched.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fdtd3d_torch import SimConfig, Simulation
+from fdtd3d_torch.config import PmlConfig, PointSourceConfig, TfsfConfig
+from fdtd3d_torch.ops import build, packed
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(scheme="3D", size=(16, 16, 16), time_steps=4,
+             pml=PmlConfig(size=(3, 3, 3)),
+             tfsf=TfsfConfig(enabled=True, margin=(2, 2, 2)),
+             point_source=PointSourceConfig(enabled=True, component="Ez",
+                                            position=(8, 8, 8)))
+
+_CHILD = """
+import sys
+from fdtd3d_torch import SimConfig, Simulation
+from fdtd3d_torch.config import PmlConfig, TfsfConfig
+for flag in (False, True):
+    cfg = SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
+                    pml=PmlConfig(size=(3, 3, 3)), use_pallas=flag,
+                    tfsf=TfsfConfig(enabled=True, margin=(2, 2, 2)))
+    sim = Simulation(cfg, device="cpu")
+    sim.run()
+    assert sim.t == 3
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "fdtd3d_tpu")))
+print("LEAKED" if bad else "CLEAN", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("CLEAN"), proc.stdout
+
+
+def test_no_cuda_and_no_explicit_cpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        Simulation(SimConfig(**SMALL))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Simulation(SimConfig(**SMALL), device="cuda")
+    from fdtd3d_torch import cli
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--3d", "--same-size", "16"])
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(scheme="2D_TMz", size=(16, 16, 1)), "A4"),
+    (dict(dtype="bfloat16"), "A4"), (dict(dtype="float32x2"), "A9"),
+    (dict(complex_fields=True), "A10"), (dict(compensated=True), "A4"),
+])
+def test_out_of_scope_config_raises(kw, item):
+    cfg = dict(SMALL, **kw)
+    with pytest.raises(NotImplementedError, match=item):
+        Simulation(SimConfig(**cfg), device="cpu")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_seeded_nan_trips_with_step_bound(use_pallas):
+    from fdtd3d_torch.config import OutputConfig
+    cfg = SimConfig(**SMALL, use_pallas=use_pallas,
+                    output=OutputConfig(check_finite=True))
+    sim = Simulation(cfg, device="cpu")
+    sim.advance(2)
+    ez = sim.field("Ez")
+    ez[5, 6, 7] = np.nan
+    sim.set_field("Ez", ez)
+    with pytest.raises(FloatingPointError,
+                       match=r"first bad step in \(2, 5\]") as exc:
+        sim.advance(3)
+    assert "Ez" in exc.value.bad_components
+
+
+def test_kernel_module_needs_no_nvcc_on_cpu():
+    """The wrapper takes its plain version for CPU tensors: nothing is
+    built, loaded or launched."""
+    packed.e_update.launches = packed.h_update.launches = 0
+    sim = Simulation(SimConfig(**SMALL, use_pallas=True), device="cpu")
+    sim.run()
+    assert sim.step_kind == "packed_plain"
+    assert packed.e_update.launches == packed.h_update.launches == 0
+    assert build._LIBS == {}
+    assert build.library_path("packed_eh").startswith(
+        os.path.join(ROOT, "build", "fdtd3d_torch"))
