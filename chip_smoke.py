@@ -24,8 +24,35 @@ reference package, and exits non-zero on the first failure:
 3. times each kernel, its plain version and the whole step with CUDA
    events after warm-up at 256^3, beside the bytes bound at 3.35 TB/s.
 
-The last lines are the kernels JSON, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+The float32x2 (double-single) path, ``Examples/precision3D_float32x2.txt``:
+
+4. (a) the EFT probe: the ds kernel's own ``two_sum``/``two_prod``
+   device functions on seeded (8, 128) inputs with exponents spread
+   over 2^-18..2^18, exact in f64; (b) one launch of each ds kernel
+   against its plain version at 256^3 from seeded hi/lo fields, then 10
+   whole packed-ds steps of kernels against plain versions on the
+   example at 128^3, at 128^3 with an eps sphere and a Drude sphere, at
+   96^3 with a point source and no CPML on x, and in vacuum at 128^3
+   (no slab algebra, no sources); the gates are the reference's, on hi
+   and lo words: fields 1e-9 of the family max (vacuum 1e-12), psi
+   1e-6, J 1e-5;
+5. (c) the ds main path through the CLI: the example as it stands
+   (128^3, 1000 steps) with DAT dumps and the finite check, asserting
+   the packed-ds CUDA step ran (1000 launches per family) and finite
+   dumps; (d) the same config through the port's float64 plain step
+   and through the f32 packed step: rel = max over components of
+   |x - f64| / the family's f64 max (hi words), ds gated at 2e-7 (the
+   reference's own bar), f32 printed;
+6. (e) times at 256^3: each ds launch, its plain version and the whole
+   ds step, by CUDA events, beside the bound in bytes and in operations;
+   then 50 ds steps of the main path's 128^3 under torch.profiler
+   (device time, launches per step, device busy share).
+
+Phases 1 and 4 (kernel against plain version) launch the kernels
+outside the main path's counts; each main path resets the counts just
+before it and reads them just after. The last lines are the kernels
+JSON, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -41,6 +68,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(ROOT, "Examples", "vacuum3D_tfsf.txt")
+PRECISION = os.path.join(ROOT, "Examples", "precision3D_float32x2.txt")
 MIE = os.path.join(ROOT, "Examples", "sphere3D_mie.txt")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -52,6 +80,10 @@ F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 # scripts/tfsf_leakage.py; the card's run must stay within 10x of it.
 REF_LEAKAGE = 2.506451500547642e-07
 STEPS_CMP = 10
+# the reference's packed-ds gates (tests/test_pallas_packed_ds.py)
+DS_FIELD_TOL, DS_VACUUM_TOL, DS_PSI_TOL, DS_J_TOL = 1e-9, 1e-12, 1e-6, 1e-5
+DS_REL_BAR = 2e-7         # tests/test_float32x2.py:206
+F32_REL_FLOOR = 5e-7      # tests/test_float32x2.py:205
 
 
 def fail(msg: str) -> None:
@@ -205,6 +237,229 @@ def family_flops(carry, family):
     return f
 
 
+# --------------------------------------------------------------------------
+# the float32x2 path
+# --------------------------------------------------------------------------
+
+def seeded_ds_sim(cfg, dev, seed, warm=0):
+    """A packed-ds Simulation on the card, ``warm`` kernel steps in
+    (so the incident line carries a wave), then seeded E/H pairs: f64
+    draws split into normalised (hi, lo) words, and seeded J."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(cfg, device=dev)
+    if sim.step_kind != "packed_ds_cuda":
+        fail(f"float32x2 ran {sim.step_kind}, not packed_ds_cuda")
+    sim.advance(warm)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    carry = sim._carry
+    for key in ("E", "H"):
+        v = 0.01 * torch.randn(carry[key][:3].shape, generator=g,
+                               device=dev, dtype=torch.float64)
+        hi = v.float()
+        carry[key][:3].copy_(hi)
+        carry[key][3:].copy_((v - hi.double()).float())
+    if "J" in carry:
+        carry["J"].copy_(1e-4 * torch.randn(carry["J"].shape, generator=g,
+                                            device=dev))
+    return sim
+
+
+def compare_ds(got, want, what, field_tol):
+    """The reference's packed-ds gates on the packed carries: E and H
+    (hi and lo rows) relative to the family's hi max, psi pairs at
+    DS_PSI_TOL of the psi hi max, J at DS_J_TOL, the incident line
+    pairs at DS_VACUUM_TOL; returns the largest absolute error."""
+    worst = 0.0
+
+    def gate(name, a, b, scale, tol):
+        nonlocal worst
+        err = float((a - b).abs().max())
+        rel = err / scale if scale > 0 else err
+        if not rel < tol:
+            fail(f"{what}: {name} differs from the plain version: "
+                 f"max|diff|={err:.3e}, scale={scale:.3e}, rel={rel:.3e} "
+                 f">= {tol}")
+        worst = max(worst, err)
+
+    for fam in ("E", "H"):
+        gate(fam, got[fam], want[fam], float(want[fam][:3].abs().max()),
+             field_tol)
+    for fam in ("psE", "psH"):
+        for a, b in want[fam].items():
+            gate(f"{fam}[{a}]", got[fam][a], b, float(b[:2].abs().max()),
+                 DS_PSI_TOL)
+    if "J" in want:
+        gate("J", got["J"], want["J"], float(want["J"].abs().max()),
+             DS_J_TOL)
+    for k, b in want.get("inc", {}).items():
+        scale = float(want["inc"][k.replace("_lo", "")].abs().max())
+        gate(f"inc/{k}", got["inc"][k], b, scale, DS_VACUUM_TOL)
+    return worst
+
+
+def ds_kernel_vs_plain(cfg, dev, seed, label, field_tol=DS_FIELD_TOL):
+    """10 packed-ds steps with the kernels against 10 with the plain
+    versions, from the same seeded carry; returns the worst error."""
+    import torch
+    from fdtd3d_torch.ops import packed_ds
+    sim = seeded_ds_sim(cfg, dev, seed)
+    k_step = packed_ds.make_packed_ds_step(sim.static, dev)
+    p_step = packed_ds.make_packed_ds_step(sim.static, dev, plain=True)
+    cc = k_step.prepare(sim.coeffs)
+    ck = sim._carry
+    cp = clone_carry(ck)
+    for _ in range(STEPS_CMP):
+        ck = k_step(ck, cc)
+        cp = p_step(cp, cc)
+    torch.cuda.synchronize()
+    err = compare_ds(ck, cp, f"{label}: {STEPS_CMP} packed-ds steps",
+                     field_tol)
+    say(f"{label}: {STEPS_CMP} ds kernel steps match the plain version "
+        f"(max abs err {err:.3e})")
+    return err
+
+
+def ds_launch_args(carry, cc, family):
+    """The arguments of one ds family launch on ``carry``: this step's
+    record plane terms from the carry's incident line."""
+    from fdtd3d_torch.ops import packed_ds
+    terms = packed_ds.record_terms(cc["plan"], carry.get("inc"))
+    if family == "E":
+        return (carry["E"], carry["H"], carry.get("J"), carry["psE"],
+                cc["E"], terms, None)
+    return (carry["H"], carry["E"], carry["psH"], cc["H"], terms)
+
+
+def ds_one_launch_vs_plain(sim, fn, plain_fn, family):
+    """One ds launch against its plain version on the same inputs."""
+    import torch
+    from fdtd3d_torch.ops import packed_ds
+    cc = packed_ds.make_packed_ds_step(sim.static, sim.device).prepare(
+        sim.coeffs)
+    a, b = clone_carry(sim._carry), clone_carry(sim._carry)
+    fn(*ds_launch_args(a, cc, family))
+    plain_fn(*ds_launch_args(b, cc, family))
+    torch.cuda.synchronize()
+    return compare_ds(a, b, f"one ds {family} launch", DS_FIELD_TOL)
+
+
+def eft_probe_check(dev):
+    """The kernel's two_sum/two_prod on wide-exponent inputs: s + e and
+    p + pe equal a + b and a * b exactly in f64."""
+    import numpy as np
+    import torch
+    from fdtd3d_torch.ops import packed_ds
+    rng = np.random.default_rng(1)
+    a64, b64 = (rng.standard_normal((8, 128))
+                * np.exp2(rng.integers(-18, 18, (8, 128)))
+                for _ in range(2))
+    a = torch.tensor(a64, dtype=torch.float32, device=dev)
+    b = torch.tensor(b64, dtype=torch.float32, device=dev)
+    s, e, p, pe = (t.double().cpu().numpy()
+                   for t in packed_ds.eft_probe(a, b))
+    ad, bd = a.double().cpu().numpy(), b.double().cpu().numpy()
+    if not np.array_equal(s + e, ad + bd):
+        fail("EFT probe: two_sum in the ds kernel is not exact")
+    if not np.array_equal(p + pe, ad * bd):
+        fail("EFT probe: two_prod in the ds kernel is not exact")
+    say("EFT probe: two_sum and two_prod exact on 1024 wide-exponent "
+        "pairs")
+
+
+def rel_vs_f64(fields, ref):
+    """max over components of |x - f64| / the family's f64 max."""
+    import numpy as np
+    scale = {fam: max(np.abs(ref[c]).max() for c in ref if c[0] == fam)
+             for fam in "EH"}
+    return max(float(np.abs(np.asarray(fields[c], np.float64)
+                            - ref[c]).max() / scale[c[0]]) for c in ref)
+
+
+def ds_record_cells(cc, family):
+    """Plane cells of the family's TFSF records (their terms are read)."""
+    fc = cc[family]
+    n = 0
+    for rec in fc["records"]:
+        if rec.corr is not None:
+            shape = list(fc["shape"])
+            shape[rec.axis] = 1
+            n += shape[0] * shape[1] * shape[2]
+    return n
+
+
+def ds_family_bytes(carry, cc, family):
+    """Bytes one ds family launch must move: each input read once, each
+    output written once (the other family's 6 words, its own 6 read and
+    written, psi pairs, J, coefficient grids, profiles, record terms)."""
+    import torch
+    vol = carry["E"][0].numel() * 4
+    n = 6 * vol + 2 * 6 * vol
+    ps = carry["psE"] if family == "E" else carry["psH"]
+    n += sum(2 * v.numel() * 4 for v in ps.values())
+    if family == "E" and "J" in carry:
+        n += 2 * 3 * vol
+    fc = cc[family]
+    for key in ("a", "b", "kj", "bj"):
+        for v in fc[key] or []:
+            for t in (v if isinstance(v, tuple) else (v,)):
+                if isinstance(t, torch.Tensor) and t.dim() > 0:
+                    n += t.numel() * 4
+    n += sum(v.numel() * 4 for v in fc["prof"].values())
+    n += 2 * 4 * ds_record_cells(cc, family)
+    return n
+
+
+def ds_family_flops(carry, cc, family):
+    """f32 operations of one ds family launch, counted from the kernel:
+    per component two EFT differences (40 each), the sign, the pair sum
+    (20), the coefficient products and sum (72); 118 per slab psi pair
+    (three pair products, two pair sums); 20 per record plane cell;
+    16 for Drude J per component."""
+    cells = carry["E"][0].numel()
+    f = 3 * cells * (2 * 40 + 2 + 20 + 72)
+    ps = carry["psE"] if family == "E" else carry["psH"]
+    f += sum(v.numel() // 2 for v in ps.values()) * 118
+    f += 20 * ds_record_cells(cc, family)
+    if family == "E" and "J" in carry:
+        f += 3 * cells * 16
+    return f
+
+
+
+def profile_window(sim, steps):
+    """``steps`` steps of ``sim`` under torch.profiler: wall and device
+    microseconds per step (the sum over device kernels), kernel launches
+    per step, and the device busy share (device over wall; the
+    profiler's host cost stretches the wall, so it is a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.advance(steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us, launches, kernels_us = 0.0, 0, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:                      # older torch
+            us = ev.self_cuda_time_total
+        us = float(us)
+        if us <= 0 or ev.key.startswith(("aten::", "cuda")):
+            continue
+        device_us += us
+        launches += ev.count
+        if "family_update" in ev.key:
+            kernels_us[ev.key] = us / steps
+    return {"wall_us_per_step": wall_us / steps,
+            "device_us_per_step": device_us / steps,
+            "launches_per_step": launches / steps,
+            "device_busy_share": device_us / wall_us,
+            "family_update_us_per_step": kernels_us}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -217,7 +472,7 @@ def main() -> int:
     try:
         from fdtd3d_torch import cli, diag
         from fdtd3d_torch.io import load_dat
-        from fdtd3d_torch.ops import build, packed
+        from fdtd3d_torch.ops import build, packed, packed_ds
         from fdtd3d_torch.sim import Simulation
         from fdtd3d_torch.solver import build_static
     except ImportError as exc:
@@ -233,13 +488,14 @@ def main() -> int:
 
     # ---- build -----------------------------------------------------------
     t0 = time.time()
-    info = build.build("packed_eh", verbose=True)
+    infos = build.build_many(["packed_eh", "packed_ds"], verbose=True)
     result["build_s"] = round(time.time() - t0, 3)
-    say(f"built {os.path.relpath(info['path'], ROOT)} in "
-        f"{result['build_s']} s (built={info['built']})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"ptxas: {line.strip()}")
+    for lib, info in infos.items():
+        say(f"built {os.path.relpath(info['path'], ROOT)} in "
+            f"{result['build_s']} s (built={info['built']})")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"ptxas {lib}: {line.strip()}")
 
     # ---- phase 1: kernels vs plain versions on the card ------------------
     cfg256 = config(EXAMPLE, ["--same-size", "256"])
@@ -269,6 +525,40 @@ def main() -> int:
                              "steps_256": err_steps, "steps_128_mie":
                              err_mie, "steps_96_oblique": err_obl}
     del sim
+
+    # ---- phase 4: the ds kernels vs their plain versions ----------------
+    eft_probe_check(dev)
+    ds256 = config(PRECISION, ["--same-size", "256"])
+    sim = seeded_ds_sim(ds256, dev, seed=4, warm=20)
+    err_de = ds_one_launch_vs_plain(sim, packed_ds.e_update,
+                                    packed_ds.e_update_plain, "E")
+    err_dh = ds_one_launch_vs_plain(sim, packed_ds.h_update,
+                                    packed_ds.h_update_plain, "H")
+    say(f"one ds launch at 256^3 matches the plain version (E "
+        f"{err_de:.3e}, H {err_dh:.3e})")
+    del sim
+    ds_spheres = ["--eps-sphere", "4.0", "--eps-sphere-center-x", "64",
+                  "--eps-sphere-center-y", "64", "--eps-sphere-center-z",
+                  "64", "--eps-sphere-radius", "16", "--use-drude",
+                  "--eps-inf", "4.0", "--omega-p", "1e12", "--gamma-d",
+                  "5e10", "--drude-sphere-center-x", "64",
+                  "--drude-sphere-center-y", "64",
+                  "--drude-sphere-center-z", "64",
+                  "--drude-sphere-radius", "12"]
+    result["max_abs_err"].update({
+        "ds_e_update_one": err_de, "ds_h_update_one": err_dh,
+        "ds_steps_128": ds_kernel_vs_plain(
+            config(PRECISION, []), dev, 5, "ds 128^3 precision example"),
+        "ds_steps_128_spheres": ds_kernel_vs_plain(
+            config(PRECISION, ds_spheres), dev, 6,
+            "ds 128^3 eps sphere + Drude sphere"),
+        "ds_steps_96_point": ds_kernel_vs_plain(
+            config(PRECISION, ["--same-size", "96", "--pml-sizex", "0",
+                               "--point-source", "Ez"]), dev, 7,
+            "ds 96^3 point source, no CPML on x"),
+        "ds_steps_128_vacuum": ds_kernel_vs_plain(
+            config(PRECISION, ["--no-use-pml", "--no-use-tfsf"]), dev, 8,
+            "ds 128^3 vacuum", field_tol=DS_VACUUM_TOL)})
 
     # ---- phase 2: the main path through the CLI ---------------------------
     packed.e_update.launches = 0
@@ -314,6 +604,70 @@ def main() -> int:
              f"{REF_LEAKAGE:.3e}")
     say(f"main path: {steps} steps, launches {launches}, leakage "
         f"{leak:.3e} (reference at 48^3: {REF_LEAKAGE})")
+
+    # ---- phase 5: the ds main path through the CLI, and accuracy --------
+    ds_dir = os.path.join(OUT_DIR, "ds")
+    ds_cfg = config(PRECISION, [])
+    ds_steps = ds_cfg.time_steps
+    packed_ds.e_update.launches = 0
+    packed_ds.h_update.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    captured = _io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(captured):
+        rc = cli.main(["--cmd-from-file", PRECISION, "--save-res",
+                       str(ds_steps), "--check-finite", "--save-dir",
+                       ds_dir])
+    torch.cuda.synchronize()
+    ds_wall = time.time() - t0
+    ds_launches = {"e_update": packed_ds.e_update.launches,
+                   "h_update": packed_ds.h_update.launches}
+    log_txt = captured.getvalue()
+    say("cli (float32x2): " + " | ".join(log_txt.strip().splitlines()))
+    if rc != 0:
+        fail(f"cli.main returned {rc} on {PRECISION}")
+    if "step_kind=packed_ds_cuda" not in log_txt:
+        fail("the CLI did not run the packed-ds CUDA step")
+    if ds_launches != {"e_update": ds_steps, "h_update": ds_steps}:
+        fail(f"ds kernel launches {ds_launches} != {ds_steps} per family")
+    ds_fields = {}
+    for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
+        path = os.path.join(ds_dir, f"{c}_t{ds_steps:06d}.dat")
+        if not os.path.exists(path):
+            fail(f"missing dump {path}")
+        ds_fields[c] = load_dat(path)
+        if ds_fields[c].shape != ds_cfg.grid_shape \
+                or str(ds_fields[c].dtype) != "float32" \
+                or not bool((abs(ds_fields[c]) < float("inf")).all()):
+            fail(f"{c}: bad ds dump (shape {ds_fields[c].shape}, dtype "
+                 f"{ds_fields[c].dtype} or non-finite)")
+    ds_peak = torch.cuda.max_memory_allocated()
+    runs = {}
+    for dtype, kind in (("float64", "plain"), ("float32", "packed_cuda")):
+        rsim = Simulation(config(PRECISION, ["--dtype", dtype]), device=dev)
+        if rsim.step_kind != kind:
+            fail(f"{dtype} ran {rsim.step_kind}, not {kind}")
+        t0 = time.time()
+        rsim.run()
+        rsim.block_until_ready()
+        runs[dtype] = (rsim.fields(), time.time() - t0)
+        del rsim
+    ref64 = runs["float64"][0]
+    rel_ds = rel_vs_f64(ds_fields, ref64)
+    rel_f32 = rel_vs_f64(runs["float32"][0], ref64)
+    result["ds_main_path"] = {
+        "steps": ds_steps, "wall_s": ds_wall, "launches": ds_launches,
+        "peak_mem_bytes": ds_peak, "rel_vs_f64": rel_ds,
+        "f32_rel_vs_f64": rel_f32, "f64_wall_s": runs["float64"][1],
+        "f32_wall_s": runs["float32"][1],
+        "f32_rel_above_floor": rel_f32 > F32_REL_FLOOR}
+    say(f"ds main path: {ds_steps} steps in {ds_wall:.2f} s, launches "
+        f"{ds_launches}; rel vs f64: float32x2 {rel_ds:.3e} (bar "
+        f"{DS_REL_BAR}), float32 {rel_f32:.3e} (expected above "
+        f"{F32_REL_FLOOR})")
+    if not rel_ds <= DS_REL_BAR:
+        fail(f"float32x2 rel vs f64 {rel_ds:.3e} > {DS_REL_BAR}")
+    del ds_fields, runs, ref64
 
     # ---- phase 3: times at 256^3 -----------------------------------------
     sim = Simulation(cfg256, device=dev)
@@ -364,6 +718,54 @@ def main() -> int:
         "e_bound_ms": bound["E"][0], "h_bound_ms": bound["H"][0],
         "e_bytes": b_e, "h_bytes": b_h}
     say("times at 256^3: " + json.dumps(result["times_256"]))
+    del sim, carry, cc
+
+    # ---- phase 6: ds times at 256^3 --------------------------------------
+    sim = Simulation(ds256, device=dev)
+    sim.advance(100)               # a wave on the incident line and grid
+    carry = sim._carry
+    dstep = packed_ds.make_packed_ds_step(sim.static, dev)
+    dplain = packed_ds.make_packed_ds_step(sim.static, dev, plain=True)
+    dcc = dstep.prepare(sim.coeffs)
+    args_e = ds_launch_args(carry, dcc, "E")
+    args_h = ds_launch_args(carry, dcc, "H")
+    de_ms = timed(lambda: packed_ds.e_update(*args_e), 20)
+    dh_ms = timed(lambda: packed_ds.h_update(*args_h), 20)
+    de_plain = timed(lambda: packed_ds.e_update_plain(*args_e), 2)
+    dh_plain = timed(lambda: packed_ds.h_update_plain(*args_h), 2)
+    terms_ms = timed(lambda: packed_ds.record_terms(dcc["plan"],
+                                                    carry["inc"]), 20)
+    dstep_ms = timed(lambda: dstep(carry, dcc), 20)
+    dplain_step_ms = timed(lambda: dplain(carry, dcc), 2)
+    dbound = {}
+    for fam in ("E", "H"):
+        nbytes = ds_family_bytes(carry, dcc, fam)
+        nops = ds_family_flops(carry, dcc, fam)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_FLOPS * 1e3
+        dbound[fam] = (max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations",
+                       nbytes, nops, t_bytes, t_ops)
+    result["ds_times_256"] = {
+        "e_update_ms": de_ms, "h_update_ms": dh_ms,
+        "plain_e_ms": de_plain, "plain_h_ms": dh_plain,
+        "record_terms_ms": terms_ms, "step_ms": dstep_ms,
+        "plain_step_ms": dplain_step_ms,
+        "mcells_per_s": cells / (dstep_ms * 1e-3) / 1e6,
+        "e_bytes": dbound["E"][2], "h_bytes": dbound["H"][2],
+        "e_ops": dbound["E"][3], "h_ops": dbound["H"][3],
+        "e_bytes_ms": dbound["E"][4], "e_ops_ms": dbound["E"][5],
+        "h_bytes_ms": dbound["H"][4], "h_ops_ms": dbound["H"][5],
+        "e_bound_share": dbound["E"][0] / de_ms,
+        "h_bound_share": dbound["H"][0] / dh_ms}
+    say("ds times at 256^3: " + json.dumps(result["ds_times_256"]))
+    del sim, carry, dcc, args_e, args_h
+    sim = Simulation(ds_cfg, device=dev)
+    sim.advance(20)
+    result["ds_profile_128"] = profile_window(sim, 50)
+    say("ds step at 128^3 under torch.profiler: "
+        + json.dumps(result["ds_profile_128"]))
+    del sim
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -378,6 +780,7 @@ def main() -> int:
             json.dump(result, f, indent=1)
 
     src = "fdtd3d_torch/csrc/packed_eh.cu"
+    ds_src = "fdtd3d_torch/csrc/packed_ds.cu"
     kernels = [
         {"name": "packed_eh.e_update", "route": "cuda", "source": src,
          "replaces": "fdtd3d_tpu/ops/pallas_packed.py:694",
@@ -389,6 +792,16 @@ def main() -> int:
          "launches": launches["h_update"], "max_abs_err": err_h,
          "ms": h_ms, "plain_ms": h_plain, "bound_ms": bound["H"][0],
          "bound_by": bound["H"][1], "library_ms": None},
+        {"name": "packed_ds.e_update", "route": "cuda", "source": ds_src,
+         "replaces": "fdtd3d_tpu/ops/pallas_packed_ds.py:429",
+         "launches": ds_launches["e_update"], "max_abs_err": err_de,
+         "ms": de_ms, "plain_ms": de_plain, "bound_ms": dbound["E"][0],
+         "bound_by": dbound["E"][1], "library_ms": None},
+        {"name": "packed_ds.h_update", "route": "cuda", "source": ds_src,
+         "replaces": "fdtd3d_tpu/ops/pallas_packed_ds.py:429",
+         "launches": ds_launches["h_update"], "max_abs_err": err_dh,
+         "ms": dh_ms, "plain_ms": dh_plain, "bound_ms": dbound["H"][0],
+         "bound_by": dbound["H"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -7,8 +7,10 @@ the same ``SimConfig``; the port adds ``--device`` (cuda by default,
 ``--device cpu`` to run on the CPU). ``main`` runs the non-supervised,
 non-batch, single-device path: the run in chunks, ``--norms-every``
 lines, DAT dumps every ``--save-res`` steps, and the closing throughput
-line. Flags whose features are not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+line, for ``--dtype float32``, ``float32x2`` (the hi words are dumped,
+in f32, as the reference dumps them) and ``float64``. Flags whose
+features are not ported yet raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations

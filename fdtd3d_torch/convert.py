@@ -1,10 +1,14 @@
 """Carry state and coefficients across between the two packages.
 
 The reference (``fdtd3d_tpu``) keeps its state as a dict of arrays
-``{E, H, psi_E, psi_H, J, inc, t}``; the port's dict form has the same
-keys and shapes, with torch tensors and a host integer ``t``. These
-functions map numpy copies of one onto the other, so both packages can
-start from identical fields and be compared in the unpacked form.
+``{E, H, psi_E, psi_H, J, inc, t}``, and with float32x2 fields also the
+low words ``loE``, ``loH``, ``lopsi_E``, ``lopsi_H`` and
+``inc/{Einc,Hinc}_lo``; the port's dict form has the same keys and
+shapes, with torch tensors and a host integer ``t``. These functions
+map numpy copies of one onto the other, key by key whatever the keys,
+so both packages can start from identical fields (hi and lo words
+alike) and be compared in the unpacked form. Coefficients cross the
+same way, the ``*_lo`` words and the ds CPML profile pairs included.
 """
 
 from __future__ import annotations

@@ -4,9 +4,11 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` at first use into a
 shared library with a plain C interface, under ``build/fdtd3d_torch/``
 at the root of the checkout (``.gitignore`` lists ``build/``), and
 loaded with ``ctypes``. The library's file name carries a hash of its
-source, so an edited source builds anew and a stale library is never
-loaded. Nothing here runs at import time: the CPU tests import every
-module on machines with no ``nvcc``.
+source and its nvcc flags (``flags``: the common ``NVCC_FLAGS`` and the
+library's own ``LIBRARY_FLAGS``), so an edited source or a changed flag
+builds anew and a stale library is never loaded. Nothing here runs at
+import time: the CPU tests import every module on machines with no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -25,6 +27,20 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fdtd3d_torch")
 # Hopper only: the kernels are built for sm_90a and nothing else.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# Flags of one library on top of NVCC_FLAGS. packed_ds carries
+# error-free transforms, which a contracted a*b+c breaks: no FMA
+# contraction, and never fast math (it would flush the subnormal low
+# words to zero).
+LIBRARY_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "packed_eh": (),
+    "packed_ds": ("--fmad=false",),
+}
+
+
+def flags(name: str) -> Tuple[str, ...]:
+    """The full nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + LIBRARY_FLAGS.get(name, ())
 
 
 def find_nvcc() -> str:
@@ -44,10 +60,59 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
+    """Where ``csrc/<name>.cu`` builds to, addressed by the hash of its
+    source and of its flags: a library built with other flags is never
+    loaded in place of this one."""
+    h = hashlib.sha256()
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        h.update(f.read())
+    h.update("\0".join(flags(name)).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _start(name: str, verbose: bool):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library exists:
+    (library path, temporary output, process or None)."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return out, None, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp.{os.getpid()}"
+    cmd: List[str] = [find_nvcc(), *flags(name)]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, out: str, tmp: Optional[str],
+            proc: Optional[subprocess.Popen]) -> Dict[str, object]:
+    if proc is None:
+        return {"path": out, "built": False, "log": ""}
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}.cu "
+                           f"(exit {proc.returncode}):\n{stderr}")
+    os.replace(tmp, out)
+    return {"path": out, "built": True, "log": stderr + stdout}
+
+
+def build_many(names, verbose: bool = False) -> Dict[str, Dict[str, object]]:
+    """Compile several ``csrc/<name>.cu`` at once, one nvcc process per
+    source, all started together; name -> ``build``'s result. Every
+    process is waited for before the first failure is raised."""
+    started = {n: _start(n, verbose) for n in names}
+    results, errors = {}, []
+    for n, st in started.items():
+        try:
+            results[n] = _finish(n, *st)
+        except RuntimeError as exc:
+            errors.append(exc)
+    if errors:
+        raise errors[0]
+    return results
 
 
 def build(name: str, verbose: bool = False) -> Dict[str, object]:
@@ -55,21 +120,7 @@ def build(name: str, verbose: bool = False) -> Dict[str, object]:
 
     Returns {"path", "built", "log"}: ``log`` holds the compiler's
     output (with ``verbose``, ptxas's register and spill report)."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return {"path": out, "built": False, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp.{os.getpid()}"
-    cmd: List[str] = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": out, "built": True, "log": proc.stderr + proc.stdout}
+    return build_many([name], verbose)[name]
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

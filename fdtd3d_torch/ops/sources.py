@@ -1,19 +1,24 @@
 """Source waveforms and point-source masks of the PyTorch port.
 
-Counterpart of ``fdtd3d_tpu/ops/sources.py`` (``waveform`` and
-``point_mask``). The step counter is a host integer in the port, so the
-waveform is evaluated on the host in numpy scalars of the real dtype,
-with the same operations in the same order as the reference's traced
-version; the result enters the device work as one scalar per step and
+Counterpart of ``fdtd3d_tpu/ops/sources.py`` (``waveform``,
+``point_mask``, and the float32x2 ``phase_frac_ds``/``waveform_ds``).
+The step counter is a host integer in the port, so the waveform is
+evaluated on the host (numpy scalars of the real dtype; the ds waveform
+in float32 CPU tensors, for a block of steps at once), with the same
+operations in the same order as the reference's traced version; the
+result enters the device work as one scalar (or pair) per step and
 costs no device readback.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
+
+from fdtd3d_torch.ops import ds
 
 # Waveform shape constants, shared with the reference
 # (fdtd3d_tpu/ops/sources.py): the ramp lasts _RAMP_PERIODS periods
@@ -37,6 +42,99 @@ def _phase_frac(step: int, f: float) -> np.float32:
     s = int(step) & 0xffffffff
     u = ((s * q) >> 32) & 0xffffffff
     return np.float32(u) * np.float32(2.0 ** -32)
+
+
+def _phase_words(step: int, f: float):
+    """(top-32, low-32) words of frac(step * f) in 64-bit fixed point:
+    the reference's wrapping uint32 arithmetic, in Python integers."""
+    q = int(round((f % 1.0) * 2.0 ** 64)) & ((1 << 64) - 1)
+    s = int(step) & 0xffffffff
+    prod = s * q
+    return (prod >> 32) & 0xffffffff, prod & 0xffffffff
+
+
+def phase_frac_ds(steps, f: float):
+    """frac(step * f) as a ds pair exact to 2^-48 (hi truncated from
+    below, 0 <= lo), for each host integer of ``steps``: two float32
+    CPU tensors of ``steps``' length."""
+    words = [_phase_words(s, f) for s in steps]
+    u = np.array([w[0] for w in words], dtype=np.uint64)
+    low32 = np.array([w[1] for w in words], dtype=np.uint64)
+    uh = (u & 0xffffff00).astype(np.float32)   # top 24 bits: exact in f32
+    rem = (u & 0xff).astype(np.float32)
+    c32, c64 = np.float32(2.0 ** -32), np.float32(2.0 ** -64)
+    fh = uh * c32
+    fl = rem * c32 + low32.astype(np.float32) * c64
+    return torch.from_numpy(fh), torch.from_numpy(fl)
+
+
+def waveform_ds(kind: str, steps, offset: float, omega: float, dt: float):
+    """Double-single source waveform at each host step of ``steps``:
+    an (hi, lo) pair of float32 CPU tensors.
+
+    The ds oscillator (``ds.sin2pi`` over the exact fixed-point phase)
+    removes the f32 sin's wave-coherent error; the "sin" ramp runs in
+    ds too. Non-oscillatory kinds take the f32 waveform with a zero lo
+    word. The steps are evaluated as one vector: every op is
+    elementwise, so each element has the bits a scalar call would give.
+    """
+    if kind not in ("sin", "gauss_pulse"):
+        hi = torch.tensor([float(waveform(kind, s, offset, omega, dt))
+                           for s in steps], dtype=torch.float32)
+        return hi, torch.zeros_like(hi)
+    f = (omega * dt) / (2.0 * math.pi)
+    fh, fl = phase_frac_ds(steps, f)
+    fh, fl = ds.add_ff(fh, fl, *ds.pair_tensors((offset * f) % 1.0, fh))
+    osc = ds.sin2pi(fh, fl)
+    period = 2.0 * math.pi / omega
+    st = torch.tensor([int(s) for s in steps], dtype=torch.int64).to(
+        torch.float32) + float(np.float32(offset))
+    if kind == "sin":
+        sph, spl = ds.pair_tensors(np.float64(dt)
+                                   / (_RAMP_PERIODS * period), fh)
+        th, tl = ds.scale_f(sph, spl, st)
+        rh = torch.clamp(th + tl, 0.0, 1.0)
+        inside = (rh > 0.0) & (rh < 1.0)
+        rl = torch.where(inside, tl, torch.zeros_like(tl))
+        rh = torch.where(inside, th, rh)
+        # smoothstep r*r*(3-2r) in ds
+        r2h, r2l = ds.mul_ff(rh, rl, rh, rl)
+        mh, ml = ds.add_f(-2.0 * rh, -2.0 * rl, ds.f32(3.0, rh))
+        rmp = ds.mul_ff(r2h, r2l, mh, ml)
+        return ds.mul_ff(*osc, *rmp)
+    t = st * float(np.float32(dt))
+    tau = _PULSE_TAU_PERIODS * period
+    t0 = _PULSE_T0_TAUS * tau
+    env = torch.exp(-(((t - float(np.float32(t0)))
+                       / float(np.float32(tau))) ** 2))
+    return ds.scale_f(*osc, env)
+
+
+class DsSourceTable:
+    """amplitude * waveform_ds(kind, t, offset, ...) as host floats
+    (hi, lo) per integer step, evaluated in blocks of ``block`` steps:
+    one vector evaluation serves many steps, so a step costs a table
+    read instead of a few hundred scalar ops."""
+
+    def __init__(self, kind: str, offset: float, omega: float, dt: float,
+                 amplitude: float, block: int = 256):
+        self.args = (kind, offset, omega, dt)
+        self.amplitude = amplitude
+        self.block = block
+        self.start = None
+        self.values = None
+
+    def __call__(self, t: int) -> Tuple[float, float]:
+        if self.start is None or not 0 <= t - self.start < self.block:
+            kind, offset, omega, dt = self.args
+            wh, wl = waveform_ds(kind, range(t, t + self.block), offset,
+                                 omega, dt)
+            hi, lo = ds.mul_ff(wh, wl,
+                               *ds.pair_tensors(self.amplitude, wh))
+            self.start = t
+            self.values = (hi.tolist(), lo.tolist())
+        i = t - self.start
+        return self.values[0][i], self.values[1][i]
 
 
 def waveform(kind: str, step: int, offset: float, omega: float,

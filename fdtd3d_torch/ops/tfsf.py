@@ -24,7 +24,8 @@ import torch
 
 from fdtd3d_torch import physics
 from fdtd3d_torch.layout import CURL_TERMS, YEE_OFFSETS, component_axis
-from fdtd3d_torch.ops.sources import waveform
+from fdtd3d_torch.ops import ds
+from fdtd3d_torch.ops.sources import DsSourceTable, waveform
 
 _TAIL = 24  # absorbing-tail length on the incident line, cells
 
@@ -154,23 +155,36 @@ def line_loss_profiles(n_inc: int, dt: float, dx: float, dtype):
     return ae, be, ah, bh
 
 
+def real_type(dtype):
+    """The numpy scalar type of a real torch dtype."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
 def advance_einc(inc: Dict[str, torch.Tensor], coeffs, t: int, dt, omega,
-                 setup: TfsfSetup) -> Dict[str, torch.Tensor]:
-    """Einc^{n} -> Einc^{n+1} using Hinc^{n+1/2}; hard source at cell 0."""
+                 setup: TfsfSetup, source=None) -> Dict[str, torch.Tensor]:
+    """Einc^{n} -> Einc^{n+1} using Hinc^{n+1/2}; hard source at cell 0.
+
+    A float32x2 line (``Einc_lo`` present) advances in ds; ``source``
+    is then its ``sources.DsSourceTable`` (made here when not given)."""
+    if "Einc_lo" in inc:
+        return _advance_einc_ds(inc, coeffs, t, dt, omega, setup, source)
     einc, hinc = inc["Einc"], inc["Hinc"]
+    rd = real_type(einc.dtype)
     dh = hinc.clone()
     dh[1:] -= hinc[:-1]
     einc = coeffs["inc_ae"] * einc - coeffs["inc_be"] * dh
-    wf = waveform(setup.waveform, t, 1.0, omega, dt, np.float32)
+    wf = waveform(setup.waveform, t, 1.0, omega, dt, rd)
     # fill_ passes the value as a kernel argument; item assignment would
     # copy it from pageable host memory every step
-    einc.narrow(0, 0, 1).fill_(float(np.float32(setup.amplitude) * wf))
+    einc.narrow(0, 0, 1).fill_(float(rd(setup.amplitude) * wf))
     return dict(inc, Einc=einc)
 
 
 def advance_hinc(inc: Dict[str, torch.Tensor], coeffs,
                  setup: TfsfSetup) -> Dict[str, torch.Tensor]:
     """Hinc^{n+1/2} -> Hinc^{n+3/2} using Einc^{n+1}."""
+    if "Einc_lo" in inc:
+        return _advance_hinc_ds(inc, coeffs)
     einc, hinc = inc["Einc"], inc["Hinc"]
     de = -einc
     de[:-1] += einc[1:]
@@ -221,14 +235,15 @@ def corr_line_coord(corr: Correction, setup: TfsfSetup, gs, active_axes,
         corr.pos_a - setup.origin[corr.axis])
     zeta = torch.tensor(zeta, dtype=dtype, device=gs[0].device).reshape(
         1, 1, 1)
+    rd = real_type(dtype)
     for b in range(3):
         if b == corr.axis or b not in active_axes:
             continue
         pb = gs[b].to(dtype) + off[b]
         shape = [1, 1, 1]
         shape[b] = pb.shape[0]
-        zeta = zeta + float(np.float32(setup.khat[b])) * (
-            pb - float(np.float32(setup.origin[b]))).reshape(shape)
+        zeta = zeta + float(rd(setup.khat[b])) * (
+            pb - float(rd(setup.origin[b]))).reshape(shape)
     if corr.src[0] == "H":
         zeta = zeta - 0.5
     return zeta
@@ -256,7 +271,7 @@ def corr_plane_term(corr: Correction, setup: TfsfSetup, coeffs,
     val = _interp_line(line, corr_line_coord(corr, setup, gs, active_axes,
                                              rdt))
     gate = corr_gate_transverse(corr, setup, gs, active_axes, val.dtype)
-    term = float(np.float32(corr.sign * pol / dx)) * val
+    term = float(real_type(val.dtype)(corr.sign * pol / dx)) * val
     return term if gate is None else term * gate
 
 
@@ -279,3 +294,149 @@ def corrections_for(field: str, comp: str, setup: TfsfSetup, coeffs,
         term = term * onehot.to(term.dtype)
         total = term if total is None else total + term
     return total
+
+
+# --------------------------------------------------------------------------
+# float32x2: the incident line and the face corrections in double-single
+# --------------------------------------------------------------------------
+
+def _ds_line_diff(fh, fl, forward: bool):
+    """Double-single neighbour difference on the 1D line (PEC ghost)."""
+    z = torch.zeros_like(fh[:1])
+    if forward:
+        sh, sl = torch.cat([fh[1:], z]), torch.cat([fl[1:], z])
+        dh, de = ds.two_diff(sh, fh)
+        dl = sl - fl
+    else:
+        sh, sl = torch.cat([z, fh[:-1]]), torch.cat([z, fl[:-1]])
+        dh, de = ds.two_diff(fh, sh)
+        dl = fl - sl
+    return ds.two_sum(dh, de + dl)
+
+
+def line_source(setup: TfsfSetup, omega, dt):
+    """The hard source of the ds line: amplitude * waveform_ds(t + 1)
+    as host (hi, lo) floats per step."""
+    return DsSourceTable(setup.waveform, 1.0, omega, dt, setup.amplitude)
+
+
+def _advance_einc_ds(inc, coeffs, t, dt, omega, setup: TfsfSetup,
+                     source=None):
+    """float32x2 incident line: the line's own leapfrog holds the same
+    ~2^-47 class as the 3D fields it forces, with ds coefficients."""
+    dh_h, dh_l = _ds_line_diff(inc["Hinc"], inc["Hinc_lo"], forward=False)
+    t1 = ds.mul_ff(inc["Einc"], inc["Einc_lo"], coeffs["inc_ae"],
+                   coeffs["inc_ae_lo"])
+    t2 = ds.mul_ff(dh_h, dh_l, coeffs["inc_be"], coeffs["inc_be_lo"])
+    eh, el = ds.sub_ff(*t1, *t2)
+    sh, sl = (source or line_source(setup, omega, dt))(t)
+    eh.narrow(0, 0, 1).fill_(sh)
+    el.narrow(0, 0, 1).fill_(sl)
+    return dict(inc, Einc=eh, Einc_lo=el)
+
+
+def _advance_hinc_ds(inc, coeffs):
+    de_h, de_l = _ds_line_diff(inc["Einc"], inc["Einc_lo"], forward=True)
+    t1 = ds.mul_ff(inc["Hinc"], inc["Hinc_lo"], coeffs["inc_ah"],
+                   coeffs["inc_ah_lo"])
+    t2 = ds.mul_ff(de_h, de_l, coeffs["inc_bh"], coeffs["inc_bh_lo"])
+    hh, hl = ds.sub_ff(*t1, *t2)
+    return dict(inc, Hinc=hh, Hinc_lo=hl)
+
+
+def record_coord_ds(corr: Correction, setup: TfsfSetup, gs, active_axes):
+    """The ds line coordinate (zh, zl) at which a correction samples its
+    incident component, broadcastable over the transverse axes (Hinc's
+    half-position shift included). A single-f32 coordinate would carry
+    an absolute sampling error of eps32*|zeta|, coherent with the wave;
+    the pair keeps the interpolation weight exact to ~2^-24."""
+    like = gs[0]
+    off = YEE_OFFSETS[corr.src]
+    z0 = np.float64(setup.zeta0) + np.float64(
+        setup.khat[corr.axis]) * (corr.pos_a - setup.origin[corr.axis])
+    zh, zl = ds.pair_tensors(z0, like)
+    for b in range(3):
+        if b == corr.axis or b not in active_axes:
+            continue
+        pb = gs[b].to(torch.float32) + off[b]   # integers + 0.5: exact
+        shape = [1, 1, 1]
+        shape[b] = pb.shape[0]
+        oh, ol = ds.pair_tensors(setup.origin[b], like)
+        dh_, dl_ = ds.add_f(-oh, -ol, pb)
+        th_, tl_ = ds.mul_ff(dh_, dl_,
+                             *ds.pair_tensors(setup.khat[b], like))
+        zh, zl = ds.add_ff(zh, zl, th_.reshape(shape), tl_.reshape(shape))
+    if corr.src[0] == "H":
+        zh, zl = ds.add_f(zh, zl, ds.f32(-0.5, like))
+    return zh, zl
+
+
+def interp_weights_ds(n: int, u_pair):
+    """(i0, w pair, 1 - w pair) of the ds linear interpolation at the ds
+    line coordinate ``u_pair`` on a line of n samples. The weight comes
+    from an exact two_diff against the floored index, so its absolute
+    error is ~2^-24 whatever |u|; (1 - w) is a pair too."""
+    uh, ul = u_pair
+    u = torch.clamp(uh + ul, 0.0, n - 1.001)
+    i0 = torch.floor(u).to(torch.int64)
+    wh, we = ds.two_diff(uh, i0.to(uh.dtype))
+    wh, wl = ds.two_sum(wh, we + ul)
+    owh, owl = ds.add_f(-wh, -wl, ds.f32(1.0, uh))
+    return i0, (wh, wl), (owh, owl)
+
+
+def _interp_line_ds(line_h, line_l, u_pair):
+    """Double-single linear interpolation of the (hi, lo) line."""
+    i0, w, ow = interp_weights_ds(line_h.shape[0], u_pair)
+    v0 = (line_h[i0], line_l[i0])
+    v1 = (line_h[i0 + 1], line_l[i0 + 1])
+    return ds.add_ff(*ds.mul_ff(*v0, *ow), *ds.mul_ff(*v1, *w))
+
+
+def record_scale_ds(corr: Correction, setup: TfsfSetup, dx: float):
+    """sign * pol / dx of a correction as a host (hi, lo) pair, or None
+    when the polarisation projection vanishes."""
+    pol = corr_polarization(corr, setup)
+    if abs(pol) < POL_EPS:
+        return None
+    return ds.from_f64(np.float64(corr.sign) * pol / dx)
+
+
+def record_term_ds(corr: Correction, setup: TfsfSetup, coeffs, inc,
+                   active_axes, dx: float):
+    """ONE correction's ds accumulator term on its plane (hi, lo), the
+    transverse box gate applied but without the normal-axis onehot, or
+    None when the polarisation projection vanishes."""
+    scale = record_scale_ds(corr, setup, dx)
+    if scale is None:
+        return None
+    gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
+    key = "Einc" if corr.src[0] == "E" else "Hinc"
+    vh, vl = _interp_line_ds(inc[key], inc[f"{key}_lo"],
+                             record_coord_ds(corr, setup, gs, active_axes))
+    th, tl = ds.mul_ff(vh, vl, ds.f32(scale[0], vh), ds.f32(scale[1], vh))
+    gate = corr_gate_transverse(corr, setup, gs, active_axes, th.dtype)
+    if gate is not None:
+        th, tl = th * gate, tl * gate      # 0/1 mask: exact
+    return th, tl
+
+
+def corrections_for_ds(field: str, comp: str, setup: TfsfSetup, coeffs,
+                       inc, active_axes, dx: float):
+    """corrections_for in double-single: an (hi, lo) pair or None."""
+    gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
+    tot = None
+    for corr in setup.corrections:
+        if corr.field != field or corr.comp != comp:
+            continue
+        term = record_term_ds(corr, setup, coeffs, inc, active_axes, dx)
+        if term is None:
+            continue
+        th, tl = term
+        onehot_shape = [1, 1, 1]
+        onehot_shape[corr.axis] = gs[corr.axis].shape[0]
+        onehot = (gs[corr.axis] == corr.plane) \
+            .reshape(onehot_shape).to(th.dtype)
+        th, tl = th * onehot, tl * onehot  # 0/1 mask: exact
+        tot = (th, tl) if tot is None else ds.add_ff(*tot, th, tl)
+    return tot

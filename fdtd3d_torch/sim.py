@@ -3,7 +3,8 @@
 Counterpart of ``fdtd3d_tpu/sim.py::Simulation`` for one device: owns
 the state and the coefficients, advances the leapfrog in chunks, and
 checks the fields for non-finite values after each chunk when
-``OutputConfig.check_finite`` is set (one reduction, one readback).
+``OutputConfig.check_finite`` is set (one reduction over every state
+tensor, float32x2 hi and lo words alike, and one readback).
 
 The device is an explicit argument: ``Simulation(cfg)`` runs on the
 current CUDA device and raises when there is none;
@@ -63,7 +64,8 @@ class Simulation:
         self._runner = make_chunk_runner(
             self.static, self.device, health=cfg.output.check_finite)
         self.step_kind: str = self._runner.kind
-        if cfg.require_pallas and self.step_kind != "packed_cuda":
+        if cfg.require_pallas and self.step_kind not in (
+                "packed_cuda", "packed_ds_cuda"):
             raise ValueError(
                 f"require_pallas is set but the CUDA kernels did not "
                 f"engage (step_kind={self.step_kind}, device="
@@ -117,7 +119,8 @@ class Simulation:
 
     def component_views(self) -> Dict[str, torch.Tensor]:
         """Every stored field component (E then H) as a view of the live
-        carry."""
+        carry: with float32x2 fields, the hi words (as the reference's
+        ``field``/``fields`` return them)."""
         view = self._dict_view()
         return {c: v for g in ("E", "H") for c, v in view[g].items()}
 
@@ -200,6 +203,11 @@ class Simulation:
         src = torch.from_numpy(np.array(np.broadcast_to(np.asarray(value),
                                                      dst.shape)))
         dst.copy_(src.to(dtype=dst.dtype))
+        lo = self._dict_view().get("lo" + comp[0])
+        if lo is not None:
+            # the pair's value is hi + lo: a stale lo word would perturb
+            # the value just set
+            lo[comp].zero_()
         return self
 
     def block_until_ready(self):

@@ -6,24 +6,29 @@ tensors ``{E, H, psi_E, psi_H, J, inc, t}`` with the reference's keys
 (``build_coeffs``, the reference's code) moved to the device once
 (``coeffs_to_device``). Update equations: see the reference module.
 
-``make_step`` dispatches an in-scope configuration to one of two steps:
+``make_step`` dispatches an in-scope configuration to one of four steps:
 
-* the packed step (``ops/packed.py``): stacked E/H carry, one
+* float32: the packed step (``ops/packed.py``): stacked E/H carry, one
   hand-written CUDA launch per field family on a CUDA device (kind
   ``packed_cuda``), the same arithmetic in plain torch on the CPU
-  (kind ``packed_plain``);
-* the plain step (kind ``plain``): the reference's jnp branch written in
-  torch on dict-form state. It is the port's oracle, as the jnp step is
-  the reference's.
+  (kind ``packed_plain``); or the plain step (kind ``plain``): the
+  reference's jnp branch written in torch on dict-form state. It is
+  the port's oracle, as the jnp step is the reference's.
+* float32x2 (double-single hi+lo pairs, ops/ds.py): the packed-ds step
+  (``ops/packed_ds.py``, kinds ``packed_ds_cuda``/``packed_ds_plain``)
+  or the plain ds step (kind ``plain_ds``, the reference's jnp-ds
+  branch).
+* float64: the plain step in f64 (no kernel in either package); it is
+  the oracle of the accuracy check on the card.
 
 ``use_pallas`` keeps its meaning: None picks the packed step on CUDA
 and the plain step on the CPU, True forces the packed step, False the
 plain one.
 
-Scope of this slice: 3D real float32, CPML on any axes, TFSF, the point
-source, electric Drude J, material coefficient grids, PEC walls,
-unsharded. Everything else raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+Scope of this slice: 3D real float32, float32x2 and float64, CPML on
+any axes, TFSF, the point source, electric Drude J, material
+coefficient grids, PEC walls, unsharded. Everything else raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,8 +42,8 @@ import torch
 from fdtd3d_torch import materials, physics
 from fdtd3d_torch.config import SimConfig
 from fdtd3d_torch.layout import CURL_TERMS, component_axis
-from fdtd3d_torch.ops import cpml, tfsf
-from fdtd3d_torch.ops.sources import point_mask, waveform
+from fdtd3d_torch.ops import cpml, ds, tfsf
+from fdtd3d_torch.ops.sources import DsSourceTable, point_mask, waveform
 from fdtd3d_torch.ops.stencil import make_diff_ops
 
 AXES = "xyz"
@@ -93,9 +98,7 @@ def check_scope(cfg: SimConfig) -> None:
         out(f"scheme {cfg.scheme!r} (1D/2D modes)", "A4")
     if cfg.complex_fields:
         out("complex fields", "A10")
-    if cfg.dtype == "float32x2":
-        out("dtype float32x2 (double-single)", "A9")
-    if cfg.dtype != "float32":
+    if cfg.dtype not in ("float32", "float32x2", "float64"):
         out(f"dtype {cfg.dtype!r}", "A4")
     if cfg.compensated:
         out("compensated (Kahan) mode", "A4")
@@ -104,8 +107,12 @@ def check_scope(cfg: SimConfig) -> None:
     if cfg.ntff.enabled:
         out("the near-to-far-field transform", "A8")
     par = cfg.parallel
-    if par.topology == "manual" and tuple(
-            par.manual_topology or (1, 1, 1)) != (1, 1, 1):
+    manual = par.topology == "manual" and tuple(
+        par.manual_topology or (1, 1, 1)) != (1, 1, 1)
+    if cfg.dtype == "float32x2" and (manual
+                                     or par.n_devices not in (None, 1)):
+        out("float32x2 on a sharded topology", "A9/A11")
+    if manual:
         out(f"manual topology {par.manual_topology}", "A11")
     if par.n_devices not in (None, 1):
         out(f"{par.n_devices} devices", "A11")
@@ -120,7 +127,8 @@ def build_static(cfg: SimConfig) -> StaticSetup:
         cfg=cfg, mode=mode, grid_shape=cfg.grid_shape, dt=cfg.dt,
         dx=cfg.dx, omega=cfg.omega, pml_axes=pml_axes, tfsf_setup=None,
         use_drude=cfg.materials.use_drude,
-        field_dtype=cfg.torch_dtype(), real_dtype=np.float32,
+        field_dtype=cfg.torch_dtype(),
+        real_dtype=np.float64 if cfg.dtype == "float64" else np.float32,
         use_drude_m=cfg.materials.use_drude_m)
     if cfg.tfsf.enabled:
         st = dataclasses.replace(st, tfsf_setup=tfsf.build_setup(cfg, st))
@@ -133,8 +141,9 @@ def build_static(cfg: SimConfig) -> StaticSetup:
 
 def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
     """The reference's coefficient dict, key for key and bit for bit
-    (``fdtd3d_tpu/solver.py::build_coeffs``, f32 path): numpy arrays
-    and f32 scalars."""
+    (``fdtd3d_tpu/solver.py::build_coeffs``): numpy arrays and scalars
+    of the real dtype, with the double-single low words (``*_lo``) of
+    the float32x2 mode."""
     cfg, mode = static.cfg, static.mode
     shape = static.grid_shape
     dt, rd = static.dt, static.real_dtype
@@ -152,6 +161,17 @@ def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
     def _cast(v):
         return rd(v) if np.isscalar(v) else v.astype(rd)
 
+    def _cast_ds(key, v):
+        """Store coefficient ``key``; with float32x2 fields also its
+        double-single low word ``key_lo`` = f32(v64 - f32(v64)): an f32
+        ca/cb/da/db alone perturbs the discrete system by ~eps32, a
+        drift from f64 that grows linearly in t."""
+        out[key] = _cast(v)
+        if cfg.ds_fields:
+            v64 = np.asarray(v, np.float64)
+            out[f"{key}_lo"] = _cast(v64 - np.asarray(out[key],
+                                                      np.float64))
+
     for c in mode.e_components:
         eps = materials.scalar_or_grid(c, shape, mode.active_axes, mat.eps,
                                        mat.eps_sphere, mat.eps_file)
@@ -164,19 +184,32 @@ def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
             out[f"bj_{c}"] = _cast(physics.EPS0 * np.square(wp) * dt
                                    / (1.0 + gamma * dt / 2.0))
         se = mat.sigma_e * dt / (2.0 * physics.EPS0 * np.asarray(eps))
-        out[f"ca_{c}"] = _cast((1.0 - se) / (1.0 + se))
-        out[f"cb_{c}"] = _cast(dt / (physics.EPS0 * np.asarray(eps))
-                               / (1.0 + se))
+        _cast_ds(f"ca_{c}", (1.0 - se) / (1.0 + se))
+        _cast_ds(f"cb_{c}", dt / (physics.EPS0 * np.asarray(eps))
+                 / (1.0 + se))
 
     for c in mode.h_components:
         mu = materials.scalar_or_grid(c, shape, mode.active_axes, mat.mu,
                                       mat.mu_sphere, mat.mu_file)
         sm = mat.sigma_m * dt / (2.0 * physics.MU0 * np.asarray(mu))
-        out[f"da_{c}"] = _cast((1.0 - sm) / (1.0 + sm))
-        out[f"db_{c}"] = _cast(dt / (physics.MU0 * np.asarray(mu))
-                               / (1.0 + sm))
+        _cast_ds(f"da_{c}", (1.0 - sm) / (1.0 + sm))
+        _cast_ds(f"db_{c}", dt / (physics.MU0 * np.asarray(mu))
+                 / (1.0 + sm))
 
-    if static.pml_axes:
+    if static.pml_axes and cfg.ds_fields:
+        # double-single CPML profiles: the slab algebra runs in ds (f32
+        # profiles inject eps32 noise at the absorbing interface, which
+        # reflects back coherently); the low word's key keeps the axis
+        # suffix last: pml_{b,c,ik}{e,h}lo_{x,y,z}
+        full64 = cpml.build_cpml_coeffs(cfg, static, np.float64)
+        slab64 = cpml.build_slab_coeffs(full64, static, slab_axes(static))
+        for src64 in (full64, slab64):
+            for k, v in src64.items():
+                hi, lo = ds.from_f64(v)
+                base, ax = k.rsplit("_", 1)
+                out[k] = hi
+                out[f"{base}lo_{ax}"] = lo
+    elif static.pml_axes:
         full = cpml.build_cpml_coeffs(cfg, static, rd)
         out.update(full)
         out.update(cpml.build_slab_coeffs(full, static, slab_axes(static)))
@@ -184,7 +217,14 @@ def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
     if cfg.point_source.enabled:
         out["ps_amp"] = rd(cfg.point_source.amplitude)
 
-    if static.tfsf_setup is not None:
+    if static.tfsf_setup is not None and cfg.ds_fields:
+        # double-single line coefficients: the line's own f32 rounding
+        # would bring back the linear-in-t drift the mode removes
+        prof64 = tfsf.line_loss_profiles(static.tfsf_setup.n_inc, dt,
+                                         static.dx, np.float64)
+        for k, v in zip(("inc_ae", "inc_be", "inc_ah", "inc_bh"), prof64):
+            out[k], out[f"{k}_lo"] = ds.from_f64(v)
+    elif static.tfsf_setup is not None:
         ae, be, ah, bh = tfsf.line_loss_profiles(
             static.tfsf_setup.n_inc, dt, static.dx, rd)
         out.update(inc_ae=ae, inc_be=be, inc_ah=ah, inc_bh=bh)
@@ -234,14 +274,26 @@ def init_state(static: StaticSetup, device) -> Dict[str, Any]:
         for (a, _d, _s) in CURL_TERMS[component_axis(c)]:
             if a in static.pml_axes:
                 psi_h[f"{c}_{AXES[a]}"] = psi_zeros(a)
+    ds_fields = static.cfg.ds_fields
     if psi_e:
         state["psi_E"] = psi_e
         state["psi_H"] = psi_h
+        if ds_fields:
+            # the psi recursions run in ds too (build_coeffs)
+            state["lopsi_E"] = {k: zeros(v.shape) for k, v in psi_e.items()}
+            state["lopsi_H"] = {k: zeros(v.shape) for k, v in psi_h.items()}
     if static.use_drude:
         state["J"] = {c: zeros() for c in mode.e_components}
+    if ds_fields:
+        # double-single low words: E/H carried as hi+lo f32 pairs
+        state["loE"] = {c: zeros() for c in mode.e_components}
+        state["loH"] = {c: zeros() for c in mode.h_components}
     if static.tfsf_setup is not None:
         n = static.tfsf_setup.n_inc
         state["inc"] = {"Einc": zeros((n,)), "Hinc": zeros((n,))}
+        if ds_fields:
+            state["inc"]["Einc_lo"] = zeros((n,))
+            state["inc"]["Hinc_lo"] = zeros((n,))
     return state
 
 
@@ -288,11 +340,12 @@ def _pad_slab(dl, dh, a, nloc, m):
 
 
 def make_plain_step(static: StaticSetup):
-    """The reference's jnp leapfrog step (solver.py, f32 branch) in
-    torch, on dict-form state. Returns a new state dict."""
+    """The reference's jnp leapfrog step (solver.py, f32 and f64
+    branches) in torch, on dict-form state. Returns a new state dict."""
     mode, cfg = static.mode, static.cfg
     diff_b, diff_f = make_diff_ops()
-    inv_dx = float(np.float32(1.0 / static.dx))
+    rd = static.real_dtype
+    inv_dx = float(rd(1.0 / static.dx))
     setup = static.tfsf_setup
     ps = cfg.point_source
     slabs = slab_axes(static)
@@ -373,7 +426,7 @@ def make_plain_step(static: StaticSetup):
                                   ps.position, mode.active_axes)
                 wf = waveform(ps.waveform, t, 0.5, static.omega,
                               static.dt, static.real_dtype)
-                amp = float(np.float32(coeffs["ps_amp"]) * wf)
+                amp = float(rd(coeffs["ps_amp"]) * wf)
                 acc = acc + amp * mask.to(acc.dtype)
             e = coeffs[f"ca_{c}"] * state["E"][c] \
                 + coeffs[f"cb_{c}"] * acc
@@ -412,11 +465,210 @@ def make_plain_step(static: StaticSetup):
     return step
 
 
+def _shift(f: torch.Tensor, a: int, backward: bool) -> torch.Tensor:
+    """f[i-1] (backward) or f[i+1] along axis a, zero ghost (PEC)."""
+    n = f.shape[a]
+    out = torch.zeros_like(f)
+    if backward:
+        out.narrow(a, 1, n - 1).copy_(f.narrow(a, 0, n - 1))
+    else:
+        out.narrow(a, 0, n - 1).copy_(f.narrow(a, 1, n - 1))
+    return out
+
+
+def ds_diff(fp, sp, iv) -> ds.Pair:
+    """(f - s) * (1/dx), all pairs, with an error-free difference: the
+    one EFT sequence of every curl term (plain and packed ds steps)."""
+    dh, de = ds.two_diff(fp[0], sp[0])
+    dl = fp[1] - sp[1]
+    dh, dl = ds.two_sum(dh, de + dl)
+    return ds.mul_ff(dh, dl, *iv)
+
+
+def coef_pair(coeffs, key: str, like: torch.Tensor) -> ds.Pair:
+    """Coefficient ``key`` and its ``key_lo`` as float32 tensors: a
+    scalar (a host float in the device coefficients) becomes a 0-d
+    tensor, so the ds products split it in f32."""
+    return ds.as_f32(coeffs[key], like), ds.as_f32(coeffs[f"{key}_lo"],
+                                                   like)
+
+
+def make_plain_ds_step(static: StaticSetup):
+    """The reference's double-single leapfrog step
+    (``solver._make_ds_step``, kind ``jnp_ds``) in torch, on dict-form
+    state: E/H, the psi recursions and the incident line as hi+lo f32
+    pairs (``loE``/``loH``/``lopsi_*``/``inc/*_lo``), every difference,
+    product and sum an error-free-transform sequence (ops/ds.py).
+
+    Deliberately plain f32, as in the reference: the Drude J current,
+    the Gaussian envelope of a pulse, and the geometry of the
+    interpolation. Kind ``plain_ds``."""
+    mode, cfg = static.mode, static.cfg
+    setup = static.tfsf_setup
+    ps = cfg.point_source
+    slabs = slab_axes(static)
+    line_src = tfsf.line_source(setup, static.omega, static.dt) \
+        if setup is not None else None
+    point_src = DsSourceTable(ps.waveform, 0.5, static.omega, static.dt,
+                              ps.amplitude) if ps.enabled else None
+
+    def slab_delta_ds(a, tag, s, dfa, psi, coeffs, m):
+        """The slab CPML correction in ds: -> (psi pair, lo/hi deltas)."""
+        ax = AXES[a]
+
+        def prof(name):
+            return (_bcast1d(coeffs[f"pml_slab_{name}{tag}_{ax}"], a),
+                    _bcast1d(coeffs[f"pml_slab_{name}{tag}lo_{ax}"], a))
+
+        def cut(f, lo, hi):
+            return f.narrow(a, lo, hi - lo)
+
+        (bh, bl), (ch, cl), (ikh, ikl) = prof("b"), prof("c"), prof("ik")
+        nloc = dfa[0].shape[a]
+        minus_one = ds.f32(-1.0, dfa[0])
+
+        def side(d0, d1, p0, p1):
+            d_pair = (cut(dfa[0], d0, d1), cut(dfa[1], d0, d1))
+            p_pair = (cut(psi[0], p0, p1), cut(psi[1], p0, p1))
+            p_new = ds.add_ff(
+                *ds.mul_ff(cut(bh, p0, p1), cut(bl, p0, p1), *p_pair),
+                *ds.mul_ff(cut(ch, p0, p1), cut(cl, p0, p1), *d_pair))
+            ikm1 = ds.add_f(cut(ikh, p0, p1), cut(ikl, p0, p1), minus_one)
+            delta = ds.add_ff(*ds.mul_ff(*ikm1, *d_pair), *p_new)
+            if s < 0:
+                delta = ds.neg(*delta)
+            return p_new, delta
+
+        pn_lo, delta_lo = side(0, m, 0, m)
+        pn_hi, delta_hi = side(nloc - m, nloc, m, 2 * m)
+        psi_new = (torch.cat([pn_lo[0], pn_hi[0]], dim=a),
+                   torch.cat([pn_lo[1], pn_hi[1]], dim=a))
+        return psi_new, delta_lo, delta_hi
+
+    def _half_update(field, state, coeffs, new_psi):
+        upd = mode.e_components if field == "E" else mode.h_components
+        other = "H" if field == "E" else "E"
+        srch, srcl = state[other], state["lo" + other]
+        backward = field == "E"
+        tag = "e" if field == "E" else "h"
+        psi_key, lopsi_key = f"psi_{field}", f"lopsi_{field}"
+        iv = ds.pair_tensors(1.0 / np.float64(static.dx), srch[other + "x"])
+        out = {}
+        for c in upd:
+            acc = None
+            for (a, d_axis, s) in CURL_TERMS[component_axis(c)]:
+                d = other + AXES[d_axis]
+                f = (srch[d], srcl[d])
+                g = (_shift(f[0], a, backward), _shift(f[1], a, backward))
+                dh, dl = ds_diff(f, g, iv) if backward \
+                    else ds_diff(g, f, iv)
+                fix = None
+                if a in slabs:
+                    key = f"{c}_{AXES[a]}"
+                    psi_new, delta_lo, delta_hi = slab_delta_ds(
+                        a, tag, s, (dh, dl),
+                        (state[psi_key][key], state[lopsi_key][key]),
+                        coeffs, slabs[a])
+                    new_psi[psi_key][key] = psi_new[0]
+                    new_psi[lopsi_key][key] = psi_new[1]
+                    nloc = dh.shape[a]
+                    fix = (_pad_slab(delta_lo[0], delta_hi[0], a, nloc,
+                                     slabs[a]),
+                           _pad_slab(delta_lo[1], delta_hi[1], a, nloc,
+                                     slabs[a]))
+                th, tl = dh, dl
+                if s < 0:
+                    th, tl = -th, -tl
+                acc = (th, tl) if acc is None else ds.add_ff(*acc, th, tl)
+                if fix is not None:      # carries s already
+                    acc = ds.add_ff(*acc, *fix)
+            if setup is not None:
+                corr = tfsf.corrections_for_ds(
+                    field, c, setup, coeffs, state["inc"],
+                    mode.active_axes, static.dx)
+                if corr is not None:
+                    acc = ds.add_ff(*acc, *corr)
+            out[c] = acc
+        return out
+
+    def step(state, coeffs):
+        t = state["t"]
+        new_state = dict(state)
+        new_psi = {k: dict(state.get(k, {}))
+                   for k in ("psi_E", "psi_H", "lopsi_E", "lopsi_H")}
+        if setup is not None:
+            new_state["inc"] = tfsf.advance_einc(
+                state["inc"], coeffs, t, static.dt, static.omega, setup,
+                source=line_src)
+            state = dict(state, inc=new_state["inc"])
+
+        new_E, new_lo, new_J = {}, {}, {}
+        acc_e = _half_update("E", state, coeffs, new_psi)
+        for c in mode.e_components:
+            ah, al = acc_e[c]
+            if static.use_drude:
+                j_new = coeffs[f"kj_{c}"] * state["J"][c] \
+                    + coeffs[f"bj_{c}"] * state["E"][c]
+                new_J[c] = j_new
+                ah, al = ds.add_f(ah, al, -j_new)
+            if ps.enabled and ps.component == c:
+                mask = point_mask(coeffs["gx"], coeffs["gy"], coeffs["gz"],
+                                  ps.position, mode.active_axes).to(ah.dtype)
+                wh, wl = point_src(t)
+                ah, al = ds.add_ff(ah, al, wh * mask, wl * mask)
+            t1 = ds.mul_ff(state["E"][c], state["loE"][c],
+                           *coef_pair(coeffs, f"ca_{c}", ah))
+            t2 = ds.mul_ff(ah, al, *coef_pair(coeffs, f"cb_{c}", ah))
+            eh, el = ds.add_ff(*t1, *t2)
+            for a in mode.active_axes:       # PEC walls: exact 0/1 mask
+                if a != component_axis(c):
+                    w = _bcast1d(coeffs[f"wall_{AXES[a]}"], a)
+                    eh, el = eh * w, el * w
+            new_E[c], new_lo[c] = eh, el
+        new_state["E"], new_state["loE"] = new_E, new_lo
+        if static.use_drude:
+            new_state["J"] = new_J
+        state = dict(state, E=new_E, loE=new_lo)
+
+        if setup is not None:
+            new_state["inc"] = tfsf.advance_hinc(new_state["inc"], coeffs,
+                                                 setup)
+            state = dict(state, inc=new_state["inc"])
+
+        new_H, new_loH = {}, {}
+        acc_h = _half_update("H", state, coeffs, new_psi)
+        for c in mode.h_components:
+            t1 = ds.mul_ff(state["H"][c], state["loH"][c],
+                           *coef_pair(coeffs, f"da_{c}", acc_h[c][0]))
+            t2 = ds.mul_ff(*acc_h[c],
+                           *coef_pair(coeffs, f"db_{c}", acc_h[c][0]))
+            new_H[c], new_loH[c] = ds.sub_ff(*t1, *t2)
+        new_state["H"], new_state["loH"] = new_H, new_loH
+        if new_psi["psi_E"]:
+            new_state.update(new_psi)
+        new_state["t"] = t + 1
+        return new_state
+
+    step.kind = "plain_ds"
+    return step
+
+
 def make_step(static: StaticSetup, device):
     """The step for ``static`` on ``device`` (see the module docstring
     for the dispatch rule)."""
     flag = static.cfg.use_pallas
     packed = torch.device(device).type == "cuda" if flag is None else flag
+    if static.cfg.ds_fields:
+        if packed:
+            from fdtd3d_torch.ops import packed_ds
+            return packed_ds.make_packed_ds_step(static, device)
+        return make_plain_ds_step(static)
+    if static.cfg.dtype == "float64":
+        if flag:
+            raise NotImplementedError(
+                "float64 has no kernel in either package: it runs the "
+                "plain step (use_pallas=None or False)")
+        return make_plain_step(static)
     if packed:
         from fdtd3d_torch.ops import packed as packed_mod
         return packed_mod.make_packed_step(static, device)

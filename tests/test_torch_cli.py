@@ -64,3 +64,68 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
 def test_cli_flags_outside_the_slice_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(["--3d", "--same-size", "16", "--device", "cpu"] + flag)
+
+
+PRECISION = os.path.join(ROOT, "Examples", "precision3D_float32x2.txt")
+# The example's 128^3 cut to 32^3 and its 1000 steps to 20: 32 is the
+# smallest width that keeps a TFSF box inside the 8-cell CPML and the
+# 6-cell margin (lo 14, hi 17).
+PRECISION_CUT = ["--same-size", "32", "--time-steps", "20"]
+
+
+@pytest.fixture(scope="module")
+def precision_reference():
+    """The reference's packed-ds kernel (interpret mode) on the cut
+    precision example: its fields after 20 steps. The reference CLI is
+    not used: on the CPU it would pick the jnp-ds step, which with TFSF
+    effectively never finishes there."""
+    from fdtd3d_tpu.sim import Simulation
+    parser = rcli.build_parser()
+    args = parser.parse_args(rcli.read_cmd_file(PRECISION) + PRECISION_CUT
+                             + ["--use-pallas", "on"])
+    sim = Simulation(rcli.args_to_config(args))
+    assert sim.step_kind == "pallas_packed_ds", sim.step_kind
+    sim.run()
+    return sim.fields()
+
+
+@pytest.mark.parametrize("use_pallas,kind", [("auto", "plain_ds"),
+                                             ("on", "packed_ds_plain")])
+def test_cli_precision_example_matches_reference(tmp_path, capsys,
+                                                 precision_reference,
+                                                 use_pallas, kind):
+    """The port's CLI runs Examples/precision3D_float32x2.txt (cut) with
+    DAT dumps of the hi words in f32, as the reference writes them, and
+    matches the reference's packed-ds fields at 1e-9 of the family max."""
+    out_dir = tmp_path / "port"
+    assert tcli.main(["--cmd-from-file", PRECISION, *PRECISION_CUT,
+                      "--save-res", "20", "--check-finite", "--save-dir",
+                      str(out_dir), "--device", "cpu", "--use-pallas",
+                      use_pallas]) == 0
+    assert f"step_kind={kind}" in capsys.readouterr().out
+    want = precision_reference
+    for fam in "EH":
+        scale = max(np.abs(want[c]).max() for c in COMPS if c[0] == fam)
+        assert scale > 0
+        for c in COMPS:
+            if c[0] != fam:
+                continue
+            path = str(out_dir / f"{c}_t000020.dat")
+            got = rio.load_dat(path)
+            assert got.shape == (32, 32, 32) and got.dtype == np.float32
+            with open(path + ".manifest.json") as f:
+                assert '"dtype": "<f4"' in f.read()
+            err = np.abs(got.astype(np.float64) - want[c]).max()
+            assert err < 1e-9 * scale, f"{c}: {err:.2e} vs {scale:.2e}"
+
+
+def test_cli_float64_dumps_f64(tmp_path, capsys):
+    """--dtype float64 runs the plain step through main and dumps f64."""
+    assert tcli.main(["--cmd-from-file", EXAMPLE, "--same-size", "32",
+                      "--time-steps", "6", "--dtype", "float64",
+                      "--save-res", "6", "--save-dir", str(tmp_path),
+                      "--device", "cpu"]) == 0
+    assert "step_kind=plain" in capsys.readouterr().out
+    got = rio.load_dat(str(tmp_path / "Ez_t000006.dat"))
+    assert got.dtype == np.float64 and np.isfinite(got).all()
+    assert np.abs(got).max() > 0

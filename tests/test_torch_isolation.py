@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and fails loudly.
 
-* importing fdtd3d_torch and stepping a 3D run on the CPU pulls in
-  neither jax nor fdtd3d_tpu (checked in a subprocess: this test
-  process imports jax through tests/conftest.py);
+* importing fdtd3d_torch and stepping 3D runs on the CPU (f32 plain
+  and packed, float32x2 plain and packed-ds, float64) pulls in neither
+  jax nor fdtd3d_tpu (checked in a subprocess: this test process
+  imports jax through tests/conftest.py);
 * no CUDA device and no explicit ``cpu`` raises;
 * an out-of-scope configuration raises NotImplementedError naming its
   ROADMAP.md item;
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 from fdtd3d_torch import SimConfig, Simulation
-from fdtd3d_torch.config import PmlConfig, PointSourceConfig, TfsfConfig
+from fdtd3d_torch.config import (ParallelConfig, PmlConfig,
+                                 PointSourceConfig, TfsfConfig)
 from fdtd3d_torch.ops import build, packed
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,10 +36,13 @@ _CHILD = """
 import sys
 from fdtd3d_torch import SimConfig, Simulation
 from fdtd3d_torch.config import PmlConfig, TfsfConfig
-for flag in (False, True):
+for dtype, flag in (("float32", False), ("float32", True),
+                    ("float32x2", False), ("float32x2", True),
+                    ("float64", None)):
     cfg = SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
                     pml=PmlConfig(size=(3, 3, 3)), use_pallas=flag,
-                    tfsf=TfsfConfig(enabled=True, margin=(2, 2, 2)))
+                    tfsf=TfsfConfig(enabled=True, margin=(2, 2, 2)),
+                    dtype=dtype)
     sim = Simulation(cfg, device="cpu")
     sim.run()
     assert sim.t == 3
@@ -69,7 +74,9 @@ def test_no_cuda_and_no_explicit_cpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(scheme="2D_TMz", size=(16, 16, 1)), "A4"),
-    (dict(dtype="bfloat16"), "A4"), (dict(dtype="float32x2"), "A9"),
+    (dict(dtype="bfloat16"), "A4"),
+    (dict(dtype="float32x2", parallel=ParallelConfig(
+        topology="manual", manual_topology=(2, 1, 1))), "A9"),
     (dict(complex_fields=True), "A10"), (dict(compensated=True), "A4"),
 ])
 def test_out_of_scope_config_raises(kw, item):
@@ -105,3 +112,39 @@ def test_kernel_module_needs_no_nvcc_on_cpu():
     assert build._LIBS == {}
     assert build.library_path("packed_eh").startswith(
         os.path.join(ROOT, "build", "fdtd3d_torch"))
+
+
+def test_ds_kernel_module_needs_no_nvcc_on_cpu():
+    """The packed-ds wrappers take their plain versions for CPU
+    tensors; nothing is built or launched."""
+    from fdtd3d_torch.ops import packed_ds
+    packed_ds.e_update.launches = packed_ds.h_update.launches = 0
+    sim = Simulation(SimConfig(**dict(SMALL, dtype="float32x2"),
+                               use_pallas=True), device="cpu")
+    sim.run()
+    assert sim.step_kind == "packed_ds_plain"
+    assert packed_ds.e_update.launches == packed_ds.h_update.launches == 0
+    assert build._LIBS == {}
+
+
+def test_library_flags_are_per_library_and_hashed(monkeypatch):
+    """packed_ds builds without FMA contraction and without fast math;
+    packed_eh keeps the common flags; a library's file name changes
+    with its flags, not only with its source."""
+    assert build.flags("packed_eh") == build.NVCC_FLAGS
+    ds_flags = build.flags("packed_ds")
+    assert "--fmad=false" in ds_flags
+    assert not any("fast" in f or "ftz=true" in f for f in ds_flags)
+    before = build.library_path("packed_ds")
+    monkeypatch.setitem(build.LIBRARY_FLAGS, "packed_ds",
+                        ("--fmad=true",))
+    assert build.library_path("packed_ds") != before
+    assert build.library_path("packed_eh") != before
+
+
+def test_float64_with_the_kernel_forced_raises():
+    """float64 has no kernel in either package: forcing the kernel path
+    raises instead of running another step."""
+    with pytest.raises(NotImplementedError, match="float64"):
+        Simulation(SimConfig(**dict(SMALL, dtype="float64"),
+                             use_pallas=True), device="cpu")

@@ -3,6 +3,8 @@ reference's, on the CPU: coefficients and initial state array by array,
 the source waveforms, the point mask, the TFSF incident line and face
 corrections, and the state carried across by fdtd3d_torch.convert."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,3 +170,91 @@ def test_convert_roundtrip_keeps_reference_form():
     assert back["t"].dtype == np.int32
     np.testing.assert_array_equal(back["E"]["Ez"], want["E"]["Ez"])
     assert set(back) == set(want)
+
+
+@pytest.mark.parametrize("case", ["kitchen_sink", "oblique_tfsf",
+                                  "drude_sphere"])
+def test_ds_coeffs_and_init_state_equal_reference(case):
+    """float32x2: the *_lo coefficient words, the ds CPML profile pairs
+    (pml_*lo_*), the ds incident-line coefficients and the lo state
+    keys, key for key and bit for bit."""
+    cfg = ref_config(case, dtype="float32x2")
+    rs = rsolver.build_static(cfg)
+    ts = tsolver.build_static(to_port(cfg))
+    want = rsolver.build_coeffs(rs)
+    got = tsolver.build_coeffs(ts)
+    assert set(got) == set(want)
+    assert any(k.endswith("_lo") for k in want)
+    for k, v in want.items():
+        assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
+                                      err_msg=k)
+    want_st = jnp_to_np(rsolver.init_state(rs))
+    got_st = convert.state_to_reference(tsolver.init_state(ts, "cpu"))
+    assert {"loE", "loH"} <= set(got_st) and set(got_st) == set(want_st)
+    for k in want_st:
+        if k == "t":
+            continue
+        assert set(got_st[k]) == set(want_st[k]), k
+        for c in want_st[k]:
+            assert got_st[k][c].shape == want_st[k][c].shape, (k, c)
+            assert got_st[k][c].dtype == want_st[k][c].dtype, (k, c)
+
+
+def test_float64_coeffs_equal_reference():
+    """float64: every coefficient in f64, as the reference builds them
+    (its static is made f64 without flipping jax's global x64 switch)."""
+    cfg = ref_config("kitchen_sink", dtype="float64")
+    rs = dataclasses.replace(rsolver.build_static(ref_config("kitchen_sink")),
+                             cfg=cfg, real_dtype=np.float64,
+                             field_dtype=np.float64)
+    ts = tsolver.build_static(to_port(cfg))
+    assert ts.real_dtype == np.float64
+    want = rsolver.build_coeffs(rs)
+    got = tsolver.build_coeffs(ts)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
+                                      err_msg=k)
+    st = tsolver.init_state(ts, "cpu")
+    assert st["E"]["Ez"].dtype == st["psi_E"]["Ez_x"].dtype == \
+        st["inc"]["Einc"].dtype == torch.float64
+
+
+def test_convert_roundtrips_ds_state():
+    """loE, loH, lopsi_E, lopsi_H and inc/*_lo cross both ways, and
+    through a packed-ds Simulation's carry, unchanged."""
+    from fdtd3d_torch.sim import Simulation
+    cfg = ref_config("kitchen_sink", dtype="float32x2")
+    rs = rsolver.build_static(cfg)
+    want = jnp_to_np(rsolver.init_state(rs))
+    rng = np.random.RandomState(4)
+
+    def fill(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fill(v)
+            elif k != "t":
+                tree[k] = rng.standard_normal(v.shape).astype(v.dtype)
+    fill(want)
+    want["t"] = np.asarray(5, np.int32)
+    for k in ("loE", "loH", "lopsi_E", "lopsi_H"):
+        assert k in want
+    assert {"Einc_lo", "Hinc_lo"} <= set(want["inc"])
+    back = convert.state_to_reference(convert.state_from_reference(want))
+    sim = Simulation(to_port(dataclasses.replace(cfg, use_pallas=True)),
+                     device="cpu")
+    assert sim.step_kind == "packed_ds_plain"
+    sim.state = convert.state_from_reference(want)
+    through = convert.state_to_reference(sim.state)
+
+    def walk(a, b, path=""):
+        assert set(a) == set(b), path
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], f"{path}/{k}")
+            else:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=path + k)
+    walk(want, back)
+    walk(want, through)

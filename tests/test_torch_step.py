@@ -82,3 +82,30 @@ def test_packed_carry_across_chunks_and_edits():
     assert many.sample("Ez", (7, 8, 9)) == 0.0
     many.advance(1)
     assert np.isfinite(many.field("Ez")).all()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_set_field_resets_the_lo_word(use_pallas):
+    """float32x2: set_field writes the hi word and zeroes the lo word
+    (the pair's value is hi + lo), in dict and packed carries alike;
+    field() returns the hi word."""
+    cfg = to_port(ref_config("xyz_cpml", dtype="float32x2",
+                             use_pallas=use_pallas))
+    sim = TSim(cfg, device="cpu")
+    rng = np.random.RandomState(3)
+    st = convert.state_to_reference(sim.state)
+    st["E"]["Ey"] = 0.01 * rng.standard_normal((16, 16, 16)).astype(
+        np.float32)
+    st["loE"]["Ey"] = 1e-11 * rng.standard_normal((16, 16, 16)).astype(
+        np.float32)
+    sim.state = convert.state_from_reference(st)
+    sim.advance(2)
+    assert np.abs(convert.state_to_reference(sim.state)["loE"]["Ey"])\
+        .max() > 0
+    value = np.full((16, 16, 16), 0.25, np.float32)
+    sim.set_field("Ey", value)
+    snap = convert.state_to_reference(sim.state)
+    np.testing.assert_array_equal(snap["E"]["Ey"], value)
+    assert not np.any(snap["loE"]["Ey"])
+    assert np.abs(snap["loE"]["Ex"]).max() > 0      # the others stay
+    np.testing.assert_array_equal(sim.field("Ey"), value)
