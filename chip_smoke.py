@@ -6,23 +6,33 @@ no arguments; ``--out FILE`` also writes the measurements as JSON).
 It imports the port (``fdtd3d_torch``) and torch only, never JAX or the
 reference package, and exits non-zero on the first failure:
 
-1. builds every CUDA kernel of the main path from ``fdtd3d_torch/csrc``
-   and holds each kernel against its plain PyTorch version on the card:
-   one launch of each at 256^3 (BASELINE config #3's width, xyz CPML +
-   TFSF, seeded fields), then 10 whole packed steps of kernels against
-   10 of plain versions, and the same 10 steps at 128^3 with a
-   dielectric sphere (coefficient grids) and a Drude sphere (J), and at
-   96^3 with an oblique plane wave, a point source and no CPML on x; the
-   gate is the reference's, max |diff| / max |plain| < 2e-6 in f32 on
-   E, H, psi, J and the incident line;
+1. builds every CUDA kernel from ``fdtd3d_torch/csrc`` (one nvcc per
+   source, all started together) and holds each kernel against its
+   plain PyTorch version on the card. The packed single step (the tail
+   of the temporal-blocked pass): one launch of each family at 256^3
+   (BASELINE config #3's width, xyz CPML + TFSF, seeded fields), then 10
+   whole packed steps of kernels against 10 of plain versions, and the
+   same 10 steps at 128^3 with a dielectric sphere (coefficient grids)
+   and a Drude sphere (J), and at 96^3 with an oblique plane wave, a
+   point source and no CPML on x. The temporal-blocked pass (two steps a
+   launch): one launch at 256^3 from seeded fields, psi and incident
+   line, then 10 passes at 128^3 with the two spheres, at 96^3 with the
+   oblique wave, the point source and no CPML on x, and at 100x90x70
+   with xyz CPML and TFSF (a shape the kernel's tile does not divide).
+   The gate is the reference's, max |diff| / max |plain| < 2e-6 in f32
+   on E, H, psi, J and the incident line;
 2. drives the main path through the user's entry point, the port's CLI
    on ``Examples/vacuum3D_tfsf.txt --same-size 256`` for its 150 steps
-   with DAT dumps and the finite check, and asserts the packed CUDA
-   step ran (2 launches per step), finite fields in the dumps, and
-   scattered-field leakage outside the TFSF box within 10x of the JAX
-   reference's at a small size on the CPU (scripts/tfsf_leakage.py);
+   with DAT dumps and the finite check, and asserts the temporal-blocked
+   CUDA pass ran (75 launches, no packed single step), finite fields in
+   the dumps, and scattered-field leakage outside the TFSF box within
+   10x of the JAX reference's at a small size on the CPU
+   (scripts/tfsf_leakage.py); then the same for 151 steps with a dump
+   at step 151: 75 passes and one launch of each packed family (the odd
+   step's tail);
 3. times each kernel, its plain version and the whole step with CUDA
-   events after warm-up at 256^3, beside the bytes bound at 3.35 TB/s.
+   events after warm-up at 256^3, beside its bound, and the
+   temporal-blocked main path's step under torch.profiler.
 
 The float32x2 (double-single) path, ``Examples/precision3D_float32x2.txt``:
 
@@ -103,8 +113,8 @@ def config(path, extra):
 
 
 def seeded_sim(cfg, dev, seed):
-    """A packed-step Simulation on the card with seeded random E, H
-    (and J with Drude), made on the device from a torch generator."""
+    """A Simulation with the packed carry on the card and seeded random
+    E, H (and J with Drude), made on the device from a torch generator."""
     import torch
     from fdtd3d_torch.sim import Simulation
     sim = Simulation(cfg, device=dev)
@@ -186,6 +196,75 @@ def one_launch_vs_plain(sim, fn, plain_fn, family):
             f(carry["H"], carry["E"], carry["psH"], cc["H"])
     torch.cuda.synchronize()
     return compare(a, b, f"one {family} launch")
+
+
+def seeded_tb_sim(cfg, dev, seed):
+    """A temporal-blocked Simulation on the card with every leaf of the
+    carry seeded (E, H, psi, J and the incident line), so the first
+    pass already reads non-zero psi and record terms."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(cfg, device=dev)
+    if sim.step_kind != "packed_tb_cuda":
+        fail(f"{cfg.grid_shape}: ran {sim.step_kind}, not packed_tb_cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for _, v in leaves(sim._carry):
+        v.copy_(0.01 * torch.randn(v.shape, generator=g, device=dev))
+    return sim
+
+
+def tb_vs_plain(cfg, dev, seed, passes, label):
+    """``passes`` temporal-blocked passes with the kernel against as many
+    with its plain version, from the same seeded carry; returns the
+    worst error."""
+    import torch
+    from fdtd3d_torch.ops import packed_tb
+    sim = seeded_tb_sim(cfg, dev, seed)
+    k_step = packed_tb.make_packed_tb_step(sim.static, dev)
+    p_step = packed_tb.make_packed_tb_step(sim.static, dev, plain=True)
+    cc = k_step.prepare(sim.coeffs)
+    ck = sim._carry
+    cp = clone_carry(ck)
+    for _ in range(passes):
+        ck = k_step(ck, cc)
+        cp = p_step(cp, cc)
+    torch.cuda.synchronize()
+    err = compare(ck, cp, f"{label}: {passes} tb passes")
+    say(f"{label}: {passes} tb kernel passes match the plain version "
+        f"(max abs err {err:.3e})")
+    return err
+
+
+def tb_bytes(carry, cc):
+    """Bytes one temporal-blocked pass must move: E, H (and J) read once
+    and written once, psi of both families read and written, each
+    coefficient grid and profile read once, the record terms read."""
+    import torch
+    vol = carry["E"][0].numel() * 4
+    n = 2 * 6 * vol
+    n += sum(2 * v.numel() * 4 for fam in ("psE", "psH")
+             for v in carry[fam].values())
+    if "J" in carry:
+        n += 2 * 3 * vol
+    for fam in ("E", "H"):
+        fc = cc[fam]
+        for key in ("a", "b", "kj", "bj"):
+            for v in fc[key] or []:
+                if isinstance(v, torch.Tensor):
+                    n += v.numel() * 4
+        n += sum(v.numel() * 4 for v in fc["prof"].values())
+    plan = cc["tb"]["plan"]
+    if plan is not None:
+        n += 2 * plan.total * 4
+    return n
+
+
+def tb_flops(carry, cc):
+    """Flops of one pass: two generations of both families, as counted
+    for the packed step, plus one add per record plane cell."""
+    plan = cc["tb"]["plan"]
+    f = 2 * (family_flops(carry, "E") + family_flops(carry, "H"))
+    return f + (2 * plan.total if plan is not None else 0)
 
 
 def timed(fn, reps):
@@ -430,7 +509,8 @@ def ds_family_flops(carry, cc, family):
 def profile_window(sim, steps):
     """``steps`` steps of ``sim`` under torch.profiler: wall and device
     microseconds per step (the sum over device kernels), kernel launches
-    per step, and the device busy share (device over wall; the
+    per step, the hand-written kernels' microseconds per step, and the
+    device busy share (device over wall; the
     profiler's host cost stretches the wall, so it is a lower bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -451,13 +531,68 @@ def profile_window(sim, steps):
             continue
         device_us += us
         launches += ev.count
-        if "family_update" in ev.key:
+        if "family_update" in ev.key or "tb_pass" in ev.key:
             kernels_us[ev.key] = us / steps
     return {"wall_us_per_step": wall_us / steps,
             "device_us_per_step": device_us / steps,
             "launches_per_step": launches / steps,
             "device_busy_share": device_us / wall_us,
-            "family_update_us_per_step": kernels_us}
+            "kernel_us_per_step": kernels_us}
+
+
+def cli_main_path(steps, cfg256):
+    """The CLI on vacuum3D_tfsf at 256^3 for ``steps`` steps, one DAT
+    dump at the last step, with the finite check: the kernel launches
+    of that run (counts set to 0 just before it), its wall, peak memory
+    and the TFSF leakage of its dumps."""
+    import torch
+    from fdtd3d_torch import cli, diag
+    from fdtd3d_torch.io import load_dat
+    from fdtd3d_torch.ops import packed, packed_tb
+    from fdtd3d_torch.solver import build_static
+    out_dir = os.path.join(OUT_DIR, f"main_{steps}")
+    packed.e_update.launches = 0
+    packed.h_update.launches = 0
+    packed_tb.tb_pass.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    captured = _io.StringIO()
+    argv = ["--cmd-from-file", EXAMPLE, "--same-size", "256",
+            "--time-steps", str(steps), "--save-res", str(steps),
+            "--check-finite", "--save-dir", out_dir]
+    t0 = time.time()
+    with contextlib.redirect_stdout(captured):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"tb_pass": packed_tb.tb_pass.launches,
+                "e_update": packed.e_update.launches,
+                "h_update": packed.h_update.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log_txt = captured.getvalue()
+    say(f"cli ({steps} steps): " + " | ".join(log_txt.strip().splitlines()))
+    if rc != 0:
+        fail(f"cli.main returned {rc}")
+    if "step_kind=packed_tb_cuda" not in log_txt:
+        fail("the CLI did not run the temporal-blocked CUDA pass")
+    fields = {}
+    for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
+        path = os.path.join(out_dir, f"{c}_t{steps:06d}.dat")
+        if not os.path.exists(path):
+            fail(f"missing dump {path}")
+        fields[c] = load_dat(path)
+        if fields[c].shape != (256, 256, 256) \
+                or not bool((abs(fields[c]) < float("inf")).all()):
+            fail(f"{c}: bad dump (shape {fields[c].shape} or non-finite)")
+    st = build_static(cfg256).tfsf_setup
+    leak = diag.tfsf_leakage(fields, st.lo, st.hi)
+    if not leak <= 10 * REF_LEAKAGE:
+        fail(f"{steps} steps: TFSF leakage {leak:.3e} exceeds 10x the "
+             f"reference's {REF_LEAKAGE:.3e}")
+    say(f"main path: {steps} steps, launches {launches}, leakage "
+        f"{leak:.3e} (reference at 48^3: {REF_LEAKAGE})")
+    return {"steps": steps, "wall_s": wall, "launches": launches,
+            "tfsf_leakage": leak, "ref_tfsf_leakage_48": REF_LEAKAGE,
+            "peak_mem_bytes": peak}
 
 
 def main() -> int:
@@ -470,11 +605,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this proof needs a GPU")
     try:
-        from fdtd3d_torch import cli, diag
+        from fdtd3d_torch import cli
         from fdtd3d_torch.io import load_dat
-        from fdtd3d_torch.ops import build, packed, packed_ds
+        from fdtd3d_torch.ops import build, packed, packed_ds, packed_tb
         from fdtd3d_torch.sim import Simulation
-        from fdtd3d_torch.solver import build_static
     except ImportError as exc:
         fail(f"the port is not importable from {ROOT}: {exc}")
     if "jax" in sys.modules or any(m.startswith("fdtd3d_tpu")
@@ -488,7 +622,8 @@ def main() -> int:
 
     # ---- build -----------------------------------------------------------
     t0 = time.time()
-    infos = build.build_many(["packed_eh", "packed_ds"], verbose=True)
+    infos = build.build_many(["packed_eh", "packed_ds", "packed_tb"],
+                             verbose=True)
     result["build_s"] = round(time.time() - t0, 3)
     for lib, info in infos.items():
         say(f"built {os.path.relpath(info['path'], ROOT)} in "
@@ -521,10 +656,22 @@ def main() -> int:
                "--point-source", "Ez"]
     err_obl = kernel_vs_plain(config(EXAMPLE, oblique), dev, 3,
                               "96^3 oblique TFSF + point source, y/z CPML")
+    del sim
+    err_tb = tb_vs_plain(cfg256, dev, 11, 1, "256^3 TFSF+CPML")
+    err_tb_mie = tb_vs_plain(config(MIE, mie), dev, 12, STEPS_CMP,
+                             "128^3 eps sphere + Drude sphere")
+    err_tb_obl = tb_vs_plain(config(EXAMPLE, oblique), dev, 13, STEPS_CMP,
+                             "96^3 oblique TFSF + point source, y/z CPML")
+    err_tb_odd = tb_vs_plain(
+        config(EXAMPLE, ["--same-size", "0", "--sizex", "100", "--sizey",
+                         "90", "--sizez", "70"]), dev, 14, STEPS_CMP,
+        "100x90x70 TFSF + xyz CPML")
     result["max_abs_err"] = {"e_update_one": err_e, "h_update_one": err_h,
                              "steps_256": err_steps, "steps_128_mie":
-                             err_mie, "steps_96_oblique": err_obl}
-    del sim
+                             err_mie, "steps_96_oblique": err_obl,
+                             "tb_one_256": err_tb, "tb_128_mie": err_tb_mie,
+                             "tb_96_oblique": err_tb_obl,
+                             "tb_100x90x70": err_tb_odd}
 
     # ---- phase 4: the ds kernels vs their plain versions ----------------
     eft_probe_check(dev)
@@ -561,49 +708,21 @@ def main() -> int:
             "ds 128^3 vacuum", field_tol=DS_VACUUM_TOL)})
 
     # ---- phase 2: the main path through the CLI ---------------------------
-    packed.e_update.launches = 0
-    packed.h_update.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    captured = _io.StringIO()
-    argv = ["--cmd-from-file", EXAMPLE, "--same-size", "256",
-            "--save-res", "150", "--check-finite", "--save-dir", OUT_DIR]
-    t0 = time.time()
-    with contextlib.redirect_stdout(captured):
-        rc = cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {"e_update": packed.e_update.launches,
-                "h_update": packed.h_update.launches}
-    log_txt = captured.getvalue()
-    say("cli: " + " | ".join(log_txt.strip().splitlines()))
     steps = cfg256.time_steps
-    if rc != 0:
-        fail(f"cli.main returned {rc}")
-    if "step_kind=packed_cuda" not in log_txt:
-        fail("the CLI did not run the packed CUDA step")
-    if launches["e_update"] + launches["h_update"] != 2 * steps \
-            or launches["e_update"] != steps:
-        fail(f"kernel launches {launches} != {steps} per family")
-    fields = {}
-    for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
-        path = os.path.join(OUT_DIR, f"{c}_t{steps:06d}.dat")
-        if not os.path.exists(path):
-            fail(f"missing dump {path}")
-        fields[c] = load_dat(path)
-        if fields[c].shape != (256, 256, 256) \
-                or not bool((abs(fields[c]) < float("inf")).all()):
-            fail(f"{c}: bad dump (shape {fields[c].shape} or non-finite)")
-    st = build_static(cfg256).tfsf_setup
-    leak = diag.tfsf_leakage(fields, st.lo, st.hi)
-    result["main_path"] = {
-        "steps": steps, "wall_s": wall, "launches": launches,
-        "tfsf_leakage": leak, "ref_tfsf_leakage_48": REF_LEAKAGE,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-    if not leak <= 10 * REF_LEAKAGE:
-        fail(f"TFSF leakage {leak:.3e} exceeds 10x the reference's "
-             f"{REF_LEAKAGE:.3e}")
-    say(f"main path: {steps} steps, launches {launches}, leakage "
-        f"{leak:.3e} (reference at 48^3: {REF_LEAKAGE})")
+    main = {}
+    for n in (steps, steps + 1):
+        main[n] = cli_main_path(n, cfg256)
+    launches = main[steps]["launches"]
+    tail_launches = main[steps + 1]["launches"]
+    want = {"tb_pass": steps // 2, "e_update": 0, "h_update": 0}
+    if launches != want:
+        fail(f"{steps} steps: kernel launches {launches} != {want}")
+    want = {"tb_pass": steps // 2, "e_update": 1, "h_update": 1}
+    if tail_launches != want:
+        fail(f"{steps + 1} steps: kernel launches {tail_launches} != "
+             f"{want}")
+    result["main_path"] = main[steps]
+    result["main_path_odd"] = main[steps + 1]
 
     # ---- phase 5: the ds main path through the CLI, and accuracy --------
     ds_dir = os.path.join(OUT_DIR, "ds")
@@ -643,7 +762,8 @@ def main() -> int:
                  f"{ds_fields[c].dtype} or non-finite)")
     ds_peak = torch.cuda.max_memory_allocated()
     runs = {}
-    for dtype, kind in (("float64", "plain"), ("float32", "packed_cuda")):
+    for dtype, kind in (("float64", "plain"),
+                        ("float32", "packed_tb_cuda")):
         rsim = Simulation(config(PRECISION, ["--dtype", dtype]), device=dev)
         if rsim.step_kind != kind:
             fail(f"{dtype} ran {rsim.step_kind}, not {kind}")
@@ -718,7 +838,44 @@ def main() -> int:
         "e_bound_ms": bound["E"][0], "h_bound_ms": bound["H"][0],
         "e_bytes": b_e, "h_bytes": b_h}
     say("times at 256^3: " + json.dumps(result["times_256"]))
-    del sim, carry, cc
+
+    tb_step = packed_tb.make_packed_tb_step(sim.static, dev)
+    tb_plain = packed_tb.make_packed_tb_step(sim.static, dev, plain=True)
+    tcc = tb_step.prepare(sim.coeffs)
+    spare = {k: clone_carry(v) for k, v in carry.items()
+             if k in ("E", "H", "J", "psE", "psH")}
+    _, terms, drive = packed_tb.generation_terms(sim.static, tcc["tb"],
+                                                 carry["inc"], carry["t"])
+    tb_ms = timed(lambda: packed_tb.tb_pass(carry, spare, tcc["tb"], terms,
+                                            drive), reps)
+    tb_plain_ms = timed(lambda: packed_tb.tb_pass_plain(
+        carry, spare, tcc["tb"], terms, drive), 5)
+    terms_ms = timed(lambda: packed_tb.generation_terms(
+        sim.static, tcc["tb"], carry["inc"], carry["t"]), reps)
+    tb_call_ms = timed(lambda: tb_step(carry, tcc), reps)
+    tb_plain_call_ms = timed(lambda: tb_plain(carry, tcc), 5)
+    nbytes, nops = tb_bytes(carry, tcc), tb_flops(carry, tcc)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS * 1e3
+    tb_bound = (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+    result["tb_times_256"] = {
+        "tb_pass_ms": tb_ms, "plain_pass_ms": tb_plain_ms,
+        "generation_terms_ms": terms_ms, "pass_call_ms": tb_call_ms,
+        "step_ms": tb_call_ms / 2, "plain_step_ms": tb_plain_call_ms / 2,
+        "mcells_per_s": cells / (tb_call_ms / 2 * 1e-3) / 1e6,
+        "pass_bytes": nbytes, "pass_ops": nops, "bytes_ms": t_bytes,
+        "ops_ms": t_ops, "bound_ms": tb_bound[0],
+        "bound_share": tb_bound[0] / tb_ms,
+        "packed_step_ms_same_call": step_ms}
+    say("tb times at 256^3: " + json.dumps(result["tb_times_256"]))
+    del sim, carry, cc, tcc, spare, terms
+    sim = Simulation(cfg256, device=dev)
+    sim.advance(20)
+    result["tb_profile_256"] = profile_window(sim, 20)
+    say("tb step at 256^3 under torch.profiler: "
+        + json.dumps(result["tb_profile_256"]))
+    del sim
 
     # ---- phase 6: ds times at 256^3 --------------------------------------
     sim = Simulation(ds256, device=dev)
@@ -781,15 +938,21 @@ def main() -> int:
 
     src = "fdtd3d_torch/csrc/packed_eh.cu"
     ds_src = "fdtd3d_torch/csrc/packed_ds.cu"
+    tb_src = "fdtd3d_torch/csrc/packed_tb.cu"
     kernels = [
+        {"name": "packed_tb.pass", "route": "cuda", "source": tb_src,
+         "replaces": "fdtd3d_tpu/ops/pallas_packed_tb.py:900",
+         "launches": launches["tb_pass"], "max_abs_err": err_tb,
+         "ms": tb_ms, "plain_ms": tb_plain_ms, "bound_ms": tb_bound[0],
+         "bound_by": tb_bound[1], "library_ms": None},
         {"name": "packed_eh.e_update", "route": "cuda", "source": src,
          "replaces": "fdtd3d_tpu/ops/pallas_packed.py:694",
-         "launches": launches["e_update"], "max_abs_err": err_e,
+         "launches": tail_launches["e_update"], "max_abs_err": err_e,
          "ms": e_ms, "plain_ms": e_plain, "bound_ms": bound["E"][0],
          "bound_by": bound["E"][1], "library_ms": None},
         {"name": "packed_eh.h_update", "route": "cuda", "source": src,
          "replaces": "fdtd3d_tpu/ops/pallas_packed.py:694",
-         "launches": launches["h_update"], "max_abs_err": err_h,
+         "launches": tail_launches["h_update"], "max_abs_err": err_h,
          "ms": h_ms, "plain_ms": h_plain, "bound_ms": bound["H"][0],
          "bound_by": bound["H"][1], "library_ms": None},
         {"name": "packed_ds.e_update", "route": "cuda", "source": ds_src,

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARY_FLAGS: Dict[str, Tuple[str, ...]] = {
     "packed_eh": (),
     "packed_ds": ("--fmad=false",),
+    "packed_tb": (),
 }
 
 

@@ -131,7 +131,13 @@ def prepare_family(static, coeffs, family: str) -> Dict[str, Any]:
 # plain versions (the kernel's arithmetic in torch; CPU tensors and tests)
 # --------------------------------------------------------------------------
 
-def _family_plain(F, S, J, psi, fc, backward: bool) -> None:
+def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
+                  point=None) -> None:
+    """One family update in place. ``records(c, acc)`` and, for E,
+    ``point(c, acc)`` add in-kernel sources to component c's curl
+    accumulator (the temporal-blocked pass, ops/packed_tb.py): the
+    records after the curl, the point source after the Drude current,
+    as the reference's kernels order them."""
     diff = _diff_b if backward else _diff_f
     for c in range(3):
         acc = None
@@ -148,12 +154,16 @@ def _family_plain(F, S, J, psi, fc, backward: bool) -> None:
                 fix = _pad_slab(dl, dh, a, dfa.shape[a], m)
                 acc = fix if acc is None else acc + fix
             acc = s * dfa if acc is None else acc + s * dfa
+        if records is not None:
+            acc = records(c, acc)
         old = F[c]
         if backward:
             if J is not None:
                 j_new = fc["kj"][c] * J[c] + fc["bj"][c] * old
                 J[c].copy_(j_new)
                 acc = acc - j_new
+            if point is not None:
+                acc = point(c, acc)
             v = fc["a"][c] * old + fc["b"][c] * acc
             for w in range(3):
                 if w != c:

@@ -126,12 +126,6 @@ def family_records(static, family: str) -> List[Record]:
     return groups[0] + groups[1] + groups[2]
 
 
-def _plane_shape(shape, axis: int):
-    s = list(shape)
-    s[axis] = 1
-    return tuple(s)
-
-
 class TermPlan(NamedTuple):
     """Fixed geometry of every TFSF record of both families, flattened
     into one vector of plane cells: E records, then H records."""
@@ -156,31 +150,26 @@ def build_term_plan(static, coeffs, records) -> Optional[TermPlan]:
                                               "owl", "sh", "sl", "gate")}
     offsets: Dict[Any, int] = {}
     total = 0
-    for fam in ("E", "H"):
-        for r, rec in enumerate(records[fam]):
-            if rec.corr is None:
-                continue
-            corr = rec.corr
-            pshape = _plane_shape(static.grid_shape, corr.axis)
-            i0, w, ow = tfsf.interp_weights_ds(
-                n, tfsf.record_coord_ds(corr, setup, gs,
-                                        static.mode.active_axes))
-            if corr.src[0] == "H":
-                i0 = i0 + n                 # the Hinc half of the line
-            gate = tfsf.corr_gate_transverse(corr, setup, gs,
-                                             static.mode.active_axes,
-                                             torch.float32)
-            if gate is None:
-                gate = torch.ones((), device=gs[0].device)
-            sc = tfsf.record_scale_ds(corr, setup, static.dx)
-            size = int(np.prod(pshape))
-            for key, v in (("i0", i0), ("wh", w[0]), ("wl", w[1]),
-                           ("owh", ow[0]), ("owl", ow[1]),
-                           ("sh", ds.f32(sc[0], gs[0])),
-                           ("sl", ds.f32(sc[1], gs[0])), ("gate", gate)):
-                parts[key].append(v.expand(pshape).reshape(size))
-            offsets[(fam, r)] = total
-            total += size
+    for fam, r, corr, pshape in tfsf.record_planes(static, records):
+        i0, w, ow = tfsf.interp_weights_ds(
+            n, tfsf.record_coord_ds(corr, setup, gs,
+                                    static.mode.active_axes))
+        if corr.src[0] == "H":
+            i0 = i0 + n                 # the Hinc half of the line
+        gate = tfsf.corr_gate_transverse(corr, setup, gs,
+                                         static.mode.active_axes,
+                                         torch.float32)
+        if gate is None:
+            gate = torch.ones((), device=gs[0].device)
+        sc = tfsf.record_scale_ds(corr, setup, static.dx)
+        size = int(np.prod(pshape))
+        for key, v in (("i0", i0), ("wh", w[0]), ("wl", w[1]),
+                       ("owh", ow[0]), ("owl", ow[1]),
+                       ("sh", ds.f32(sc[0], gs[0])),
+                       ("sl", ds.f32(sc[1], gs[0])), ("gate", gate)):
+            parts[key].append(v.expand(pshape).reshape(size))
+        offsets[(fam, r)] = total
+        total += size
     if total == 0:
         return None
     cat = {k: torch.cat(v).contiguous() for k, v in parts.items()}
@@ -342,7 +331,7 @@ def _add_records(acc, c: int, fc, terms, point) -> None:
             nh, nl = ds.add_ff(ah[sl], al[sl], ds.f32(point[0], ah),
                                ds.f32(point[1], ah))
         else:
-            ps = _plane_shape(shape, rec.axis)
+            ps = tfsf.plane_shape(shape, rec.axis)
             size = int(np.prod(ps))
             th = terms[0].narrow(0, off, size).reshape(ps)
             tl = terms[1].narrow(0, off, size).reshape(ps)

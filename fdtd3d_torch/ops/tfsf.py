@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -273,6 +273,97 @@ def corr_plane_term(corr: Correction, setup: TfsfSetup, coeffs,
     gate = corr_gate_transverse(corr, setup, gs, active_axes, val.dtype)
     term = float(real_type(val.dtype)(corr.sign * pol / dx)) * val
     return term if gate is None else term * gate
+
+
+# --------------------------------------------------------------------------
+# source records: every face correction's plane term, batched per step
+# --------------------------------------------------------------------------
+
+def plane_shape(shape, axis: int) -> Tuple[int, int, int]:
+    """The grid shape with ``axis`` cut to one plane."""
+    s = list(shape)
+    s[axis] = 1
+    return tuple(s)
+
+
+def record_planes(static, records):
+    """(family, record index, correction, plane shape) of every TFSF
+    record of ``records`` (family -> records with a ``corr`` field; the
+    point source's pseudo-record has none), E records then H records:
+    the order of the flat term vector of the batched builders."""
+    for fam in ("E", "H"):
+        for r, rec in enumerate(records[fam]):
+            if rec.corr is not None:
+                yield fam, r, rec.corr, plane_shape(static.grid_shape,
+                                                    rec.corr.axis)
+
+
+class RecordPlan(NamedTuple):
+    """Fixed f32 geometry of every TFSF record of both families,
+    flattened into one vector of plane cells: E records, then H."""
+    offsets: Dict[Any, int]       # (family, record index) -> offset
+    total: int
+    i0: torch.Tensor              # index into cat(Einc, Hinc)
+    i1: torch.Tensor              # i0 + 1
+    ow: torch.Tensor              # 1 - w
+    w: torch.Tensor
+    scale: torch.Tensor           # f32(sign * pol / dx)
+    gate: torch.Tensor            # transverse box membership, 0/1
+
+
+def build_record_plan(static, coeffs, records) -> Optional[RecordPlan]:
+    """Per record: the interpolation index and weights of its line
+    coordinate, its ``sign*pol/dx`` and its transverse gate, broadcast
+    to the record's plane and flattened (C order over the two
+    transverse axes). The same geometry functions as
+    ``corr_plane_term``, so ``record_terms`` gives its bits."""
+    setup = static.tfsf_setup
+    if setup is None:
+        return None
+    gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
+    n = setup.n_inc
+    parts: Dict[str, list] = {k: [] for k in ("i0", "ow", "w", "scale",
+                                              "gate")}
+    offsets: Dict[Any, int] = {}
+    total = 0
+    for fam, r, corr, pshape in record_planes(static, records):
+        u = corr_line_coord(corr, setup, gs, static.mode.active_axes)
+        i0, w = clipped_line_coord(u, n)
+        if corr.src[0] == "H":
+            i0 = i0 + n                     # the Hinc half of the line
+        gate = corr_gate_transverse(corr, setup, gs,
+                                    static.mode.active_axes, torch.float32)
+        if gate is None:
+            gate = torch.ones((), device=gs[0].device)
+        scale = torch.full((), float(np.float32(
+            corr.sign * corr_polarization(corr, setup) / static.dx)),
+            device=gs[0].device)
+        size = int(np.prod(pshape))
+        for key, v in (("i0", i0), ("ow", 1.0 - w), ("w", w),
+                       ("scale", scale), ("gate", gate)):
+            parts[key].append(v.expand(pshape).reshape(size))
+        offsets[(fam, r)] = total
+        total += size
+    if total == 0:
+        return None
+    cat = {k: torch.cat(v).contiguous() for k, v in parts.items()}
+    return RecordPlan(offsets, total, cat["i0"], cat["i0"] + 1, cat["ow"],
+                      cat["w"], cat["scale"], cat["gate"])
+
+
+def record_terms(plan: Optional[RecordPlan], inc,
+                 out: Optional[torch.Tensor] = None):
+    """The plane terms of every record, (total,) f32, written into
+    ``out`` when given: ``corr_plane_term`` of each record, bit for bit,
+    in eight ops for all of them. E records sample Hinc and H records
+    Einc, so this runs after the Einc advance and before the Hinc
+    advance."""
+    if plan is None:
+        return None
+    line = torch.cat([inc["Einc"], inc["Hinc"]])
+    v = plan.ow * line.index_select(0, plan.i0) \
+        + plan.w * line.index_select(0, plan.i1)
+    return torch.mul(plan.scale * v, plan.gate, out=out)
 
 
 def corrections_for(field: str, comp: str, setup: TfsfSetup, coeffs,

@@ -9,9 +9,11 @@ tensor, float32x2 hi and lo words alike, and one readback).
 The device is an explicit argument: ``Simulation(cfg)`` runs on the
 current CUDA device and raises when there is none;
 ``Simulation(cfg, device="cpu")`` runs on the CPU. The live carry is
-updated in place by the packed step, so ``state`` returns a snapshot
-(copies), while ``set_field`` writes into the carry. Checkpoints come
-with ROADMAP.md item A6.
+updated in place by the packed steps, and the temporal-blocked pass
+swaps its buffers with a spare set every pass, so ``state`` returns a
+snapshot (copies), ``set_field`` writes into the live carry, and a view
+from ``component_views`` holds until the next ``advance``. Checkpoints
+come with ROADMAP.md item A6.
 """
 
 from __future__ import annotations
@@ -64,8 +66,11 @@ class Simulation:
         self._runner = make_chunk_runner(
             self.static, self.device, health=cfg.output.check_finite)
         self.step_kind: str = self._runner.kind
+        # kernel diagnostics: the temporal-blocking depth, or why the
+        # temporal-blocked pass did not engage (tb_fallback)
+        self.step_diag = self._runner.diag
         if cfg.require_pallas and self.step_kind not in (
-                "packed_cuda", "packed_ds_cuda"):
+                "packed_tb_cuda", "packed_cuda", "packed_ds_cuda"):
             raise ValueError(
                 f"require_pallas is set but the CUDA kernels did not "
                 f"engage (step_kind={self.step_kind}, device="

@@ -8,12 +8,20 @@ tensors ``{E, H, psi_E, psi_H, J, inc, t}`` with the reference's keys
 
 ``make_step`` dispatches an in-scope configuration to one of four steps:
 
-* float32: the packed step (``ops/packed.py``): stacked E/H carry, one
-  hand-written CUDA launch per field family on a CUDA device (kind
-  ``packed_cuda``), the same arithmetic in plain torch on the CPU
-  (kind ``packed_plain``); or the plain step (kind ``plain``): the
-  reference's jnp branch written in torch on dict-form state. It is
-  the port's oracle, as the jnp step is the reference's.
+* float32: the temporal-blocked pass (``ops/packed_tb.py``): two
+  steps per hand-written CUDA launch on a CUDA device (kind
+  ``packed_tb_cuda``), its plain torch version on the CPU (kind
+  ``packed_tb_plain``), with the packed step as its tail for an odd
+  remainder; the reference's first choice, taken whenever the
+  configuration is in its scope, ``FDTD3D_NO_TEMPORAL`` is unset and
+  the caller allows multi-step steps. Otherwise the packed step
+  (``ops/packed.py``): stacked E/H carry, one hand-written CUDA launch
+  per field family on a CUDA device (kind ``packed_cuda``), the same
+  arithmetic in plain torch on the CPU (kind ``packed_plain``); or the
+  plain step (kind ``plain``): the reference's jnp branch written in
+  torch on dict-form state. It is the port's oracle, as the jnp step
+  is the reference's. Every step but the temporal-blocked one carries
+  ``diag["tb_fallback"]`` naming why (``tb_fallback_reason``).
 * float32x2 (double-single hi+lo pairs, ops/ds.py): the packed-ds step
   (``ops/packed_ds.py``, kinds ``packed_ds_cuda``/``packed_ds_plain``)
   or the plain ds step (kind ``plain_ds``, the reference's jnp-ds
@@ -21,8 +29,8 @@ tensors ``{E, H, psi_E, psi_H, J, inc, t}`` with the reference's keys
 * float64: the plain step in f64 (no kernel in either package); it is
   the oracle of the accuracy check on the card.
 
-``use_pallas`` keeps its meaning: None picks the packed step on CUDA
-and the plain step on the CPU, True forces the packed step, False the
+``use_pallas`` keeps its meaning: None picks the packed steps on CUDA
+and the plain step on the CPU, True forces the packed steps, False the
 plain one.
 
 Scope of this slice: 3D real float32, float32x2 and float64, CPML on
@@ -653,35 +661,78 @@ def make_plain_ds_step(static: StaticSetup):
     return step
 
 
-def make_step(static: StaticSetup, device):
+def tb_fallback_reason(static: StaticSetup, packed: bool,
+                       allow_multistep: bool = True) -> Optional[str]:
+    """Why the dispatch does not take the temporal-blocked pass, or None
+    when it does (the reference's ``solver.tb_fallback_reason``): the
+    pass's scope token first, then the dispatch context
+    (``single_step_contract``, ``env:FDTD3D_NO_TEMPORAL``,
+    ``pallas_disabled``)."""
+    import os
+
+    from fdtd3d_torch.ops import packed_tb
+    reason = packed_tb.reject_reason(static)
+    if reason is not None:
+        return reason
+    if not allow_multistep:
+        return "single_step_contract"
+    if os.environ.get("FDTD3D_NO_TEMPORAL"):
+        return "env:FDTD3D_NO_TEMPORAL"
+    if not packed:
+        return "pallas_disabled"
+    return None
+
+
+def _stamp_tb_fallback(step, reason: str):
+    """Record on a step that is not the temporal-blocked pass why it is
+    not (``diag["tb_fallback"]``, as the reference's steps carry it)."""
+    diag = getattr(step, "diag", None)
+    if diag is None:
+        diag = step.diag = {}
+    diag["tb_fallback"] = {"reason": reason}
+    return step
+
+
+def make_step(static: StaticSetup, device, allow_multistep: bool = True):
     """The step for ``static`` on ``device`` (see the module docstring
-    for the dispatch rule)."""
+    for the dispatch rule). ``allow_multistep=False`` skips the
+    temporal-blocked pass, whose step advances two steps per call."""
     flag = static.cfg.use_pallas
     packed = torch.device(device).type == "cuda" if flag is None else flag
+    reason = tb_fallback_reason(static, packed, allow_multistep)
     if static.cfg.ds_fields:
         if packed:
             from fdtd3d_torch.ops import packed_ds
-            return packed_ds.make_packed_ds_step(static, device)
-        return make_plain_ds_step(static)
-    if static.cfg.dtype == "float64":
+            step = packed_ds.make_packed_ds_step(static, device)
+        else:
+            step = make_plain_ds_step(static)
+    elif static.cfg.dtype == "float64":
         if flag:
             raise NotImplementedError(
                 "float64 has no kernel in either package: it runs the "
                 "plain step (use_pallas=None or False)")
-        return make_plain_step(static)
-    if packed:
+        step = make_plain_step(static)
+    elif reason is None:
+        from fdtd3d_torch.ops import packed_tb
+        return packed_tb.make_packed_tb_step(static, device)
+    elif packed:
         from fdtd3d_torch.ops import packed as packed_mod
-        return packed_mod.make_packed_step(static, device)
-    return make_plain_step(static)
+        step = packed_mod.make_packed_step(static, device)
+    else:
+        step = make_plain_step(static)
+    return _stamp_tb_fallback(step, reason)
 
 
 def make_chunk_runner(static: StaticSetup, device, health: bool = False):
     """run_chunk(state, coeffs, n): n steps in a Python loop.
 
-    Steps exposing ``prepare`` (the packed step) get it called outside
-    the loop, once per coefficient dict. When the packed step is engaged
+    Steps exposing ``prepare`` (the packed steps) get it called outside
+    the loop, once per coefficient dict. When a packed step is engaged
     (``run_chunk.packed``) the carry is the packed state; callers
-    convert once with ``run_chunk.pack``/``run_chunk.unpack``.
+    convert once with ``run_chunk.pack``/``run_chunk.unpack``. A step
+    that advances ``steps_per_call`` > 1 steps per call (the
+    temporal-blocked pass) runs ``n // steps_per_call`` times, and its
+    ``tail_step`` the ``n % steps_per_call`` remaining steps.
 
     ``health=True``: run_chunk returns ``(state, health)`` where health
     is the small device tensor of ``telemetry.make_health_fn`` — one
@@ -689,6 +740,8 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False):
     """
     step = make_step(static, device)
     prep = getattr(step, "prepare", None)
+    spc = getattr(step, "steps_per_call", 1)
+    tail = getattr(step, "tail_step", step)
     health_fn = None
     if health:
         from fdtd3d_torch import telemetry
@@ -705,14 +758,19 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False):
             if prepared.get("src") is not coeffs:
                 prepared["src"], prepared["cc"] = coeffs, prep(coeffs)
             cc = prepared["cc"]
-        for _ in range(n):
+        passes, rem = divmod(n, spc)
+        for _ in range(passes):
             state = step(state, cc)
+        for _ in range(rem):
+            state = tail(state, cc)
         if health_fn is not None:
             return state, health_fn(state)
         return state
 
     run_chunk.health = health_fn is not None
     run_chunk.kind = step.kind
+    run_chunk.steps_per_call = spc
+    run_chunk.diag = getattr(step, "diag", None)
     run_chunk.packed = getattr(step, "packed", False)
     if run_chunk.packed:
         run_chunk.pack = step.pack

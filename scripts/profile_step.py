@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's packed step on one GPU.
+"""Device-time breakdown of the port's f32 step on one GPU (the step
+``Simulation`` dispatches: the temporal-blocked pass, two steps a call).
 
 Runs ``Examples/vacuum3D_tfsf.txt`` at ``--same-size 256`` (the main
 path's cell in PERF.md) through ``fdtd3d_torch.Simulation`` on the

@@ -32,7 +32,7 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
     assert tcli.main(flags + ["--save-dir", str(port_dir), "--device",
                               "cpu", "--use-pallas", use_pallas]) == 0
     out = capsys.readouterr().out
-    kind = "plain" if use_pallas == "auto" else "packed_plain"
+    kind = "plain" if use_pallas == "auto" else "packed_tb_plain"
     assert f"step_kind={kind}" in out
     assert "[t=20]" in out and "Mcells/s" in out
     got = {c: rio.load_dat(str(port_dir / f"{c}_t000020.dat"))

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and fails loudly.
 
 * importing fdtd3d_torch and stepping 3D runs on the CPU (f32 plain
-  and packed, float32x2 plain and packed-ds, float64) pulls in neither
+  and temporal-blocked with a packed tail step, float32x2 plain and
+  packed-ds, float64) pulls in neither
   jax nor fdtd3d_tpu (checked in a subprocess: this test process
   imports jax through tests/conftest.py);
 * no CUDA device and no explicit ``cpu`` raises;
@@ -46,6 +47,11 @@ for dtype, flag in (("float32", False), ("float32", True),
     sim = Simulation(cfg, device="cpu")
     sim.run()
     assert sim.t == 3
+    if (dtype, flag) == ("float32", True):
+        assert sim.step_kind == "packed_tb_plain", sim.step_kind
+        sim.advance(4)
+        assert sim.t == 7
+import fdtd3d_torch.ops.packed_tb
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "fdtd3d_tpu")))
 print("LEAKED" if bad else "CLEAN", bad)
@@ -102,13 +108,17 @@ def test_seeded_nan_trips_with_step_bound(use_pallas):
 
 
 def test_kernel_module_needs_no_nvcc_on_cpu():
-    """The wrapper takes its plain version for CPU tensors: nothing is
+    """The wrappers take their plain versions for CPU tensors: nothing is
     built, loaded or launched."""
+    from fdtd3d_torch.ops import packed_tb
     packed.e_update.launches = packed.h_update.launches = 0
+    packed_tb.tb_pass.launches = 0
     sim = Simulation(SimConfig(**SMALL, use_pallas=True), device="cpu")
     sim.run()
-    assert sim.step_kind == "packed_plain"
+    sim.advance(1)
+    assert sim.step_kind == "packed_tb_plain"
     assert packed.e_update.launches == packed.h_update.launches == 0
+    assert packed_tb.tb_pass.launches == 0
     assert build._LIBS == {}
     assert build.library_path("packed_eh").startswith(
         os.path.join(ROOT, "build", "fdtd3d_torch"))
@@ -132,6 +142,7 @@ def test_library_flags_are_per_library_and_hashed(monkeypatch):
     packed_eh keeps the common flags; a library's file name changes
     with its flags, not only with its source."""
     assert build.flags("packed_eh") == build.NVCC_FLAGS
+    assert build.flags("packed_tb") == build.NVCC_FLAGS
     ds_flags = build.flags("packed_ds")
     assert "--fmad=false" in ds_flags
     assert not any("fast" in f or "ftz=true" in f for f in ds_flags)

@@ -7,7 +7,8 @@
   against the reference's packed Pallas kernel in interpret mode
   (``use_pallas=True`` with ``FDTD3D_NO_TEMPORAL=1``, as
   tests/test_pallas_packed.py runs it);
-* the port's packed step against its plain step.
+* the port's temporal-blocked pass and its packed single step (with
+  ``FDTD3D_NO_TEMPORAL=1``) against its plain step.
 
 Both sides start from the same seeded fields, carried across with
 fdtd3d_torch.convert, and are compared on E, H, psi, J, the incident
@@ -43,11 +44,15 @@ def test_packed_step_matches_reference_packed_kernel(case, monkeypatch):
     assert_state_close(want, got)
 
 
+@pytest.mark.parametrize("kind", ["packed_tb_plain", "packed_plain"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_packed_step_matches_plain_step(case):
-    """The kernels' arithmetic (plain versions on the packed carry, with
-    the source patches between the launches) against the port's own
-    oracle, over 12 steps from seeded fields."""
+def test_packed_step_matches_plain_step(case, kind, monkeypatch):
+    """The kernels' arithmetic (plain versions on the packed carry: the
+    temporal-blocked pass with in-kernel sources, or the single step
+    with the source patches between its launches) against the port's
+    own oracle, over 12 steps from seeded fields."""
+    if kind == "packed_plain":
+        monkeypatch.setenv("FDTD3D_NO_TEMPORAL", "1")
     rng = np.random.RandomState(7)
     sims = [TSim(to_port(ref_config(case, use_pallas=flag)), device="cpu")
             for flag in (False, True)]
@@ -59,7 +64,7 @@ def test_packed_step_matches_plain_step(case):
     for sim in sims:
         sim.state = convert.state_from_reference(init)
         sim.advance(12)
-    assert [s.step_kind for s in sims] == ["plain", "packed_plain"]
+    assert [s.step_kind for s in sims] == ["plain", kind]
     assert_state_close(convert.state_to_reference(sims[0].state),
                        convert.state_to_reference(sims[1].state))
 
