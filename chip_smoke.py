@@ -58,8 +58,38 @@ The float32x2 (double-single) path, ``Examples/precision3D_float32x2.txt``:
    then 50 ds steps of the main path's 128^3 under torch.profiler
    (device time, launches per step, device busy share).
 
-Phases 1 and 4 (kernel against plain version) launch the kernels
-outside the main path's counts; each main path resets the counts just
+Batched execution (``--batch``, ``fdtd3d_torch/batch.py``), on the
+lane-capable builds of the same two f32 kernels (one launch advances
+every lane):
+
+7. (a) 3 lanes at 128^3 from ``Examples/sphere3D_mie.txt`` with
+   different eps-sphere and Drude-sphere values (per-lane coefficient
+   grids and J), different point-source amplitudes, CPML and an oblique
+   plane wave, every carry leaf seeded: one lane-capable tb pass and one
+   lane-capable packed step against their plain versions (2e-6), and
+   each lane of one tb launch and of one e_update + h_update launch
+   against the same kernel run solo on that lane alone, bit for bit;
+8. CUDA-event times of the lane-capable tb pass, e_update and h_update
+   (beside their plain versions and their bound for all lanes), the
+   pass call and the packed step, at 256^3 (vacuum3D_tfsf) for 1, 2 and
+   4 lanes;
+9. ``Simulation.run_batch`` on 4 lanes of the Mie example as it stands
+   (512^3, eps-sphere 2, 4, 6, 9) for one step, which runs the
+   lane-capable packed step as the odd step's tail (one launch per
+   family, no tb launch; every lane healthy); then, on that batch with
+   every leaf seeded, (a)'s checks and (8)'s times at the main path's
+   shapes;
+10. (b) the batch main path through the CLI: ``--batch`` on four command
+   files (the Mie example with ``--eps-sphere`` 2, 4, 6, 9 appended,
+   written under ``build/chip_smoke`` at run time) with
+   ``--check-finite`` for the file's 800 steps: kind
+   ``packed_tb_cuda`` with no ``batch_unsupported`` token, 400 tb
+   launches for all four lanes and no packed one, every lane healthy;
+   its aggregate Mcells/s and peak memory.
+
+Phases 1, 4, 7 and the checks of 9 (kernel against plain version, lane
+against solo) launch the kernels outside the main paths' counts; each
+main path (phases 2, 5, 9's one step and 10) resets the counts just
 before it and reads them just after. The last lines are the kernels
 JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -235,12 +265,18 @@ def tb_vs_plain(cfg, dev, seed, passes, label):
     return err
 
 
+def lanes_of(carry):
+    """Lanes of a packed carry: 1 for a solo one (3, n1, n2, n3)."""
+    return carry["E"].shape[0] if carry["E"].dim() == 5 else 1
+
+
 def tb_bytes(carry, cc):
     """Bytes one temporal-blocked pass must move: E, H (and J) read once
     and written once, psi of both families read and written, each
-    coefficient grid and profile read once, the record terms read."""
+    coefficient grid and profile read once, the record terms read; all
+    lanes of a lane-stacked carry."""
     import torch
-    vol = carry["E"][0].numel() * 4
+    vol = carry["E"].numel() // 3 * 4
     n = 2 * 6 * vol
     n += sum(2 * v.numel() * 4 for fam in ("psE", "psH")
              for v in carry[fam].values())
@@ -255,7 +291,7 @@ def tb_bytes(carry, cc):
         n += sum(v.numel() * 4 for v in fc["prof"].values())
     plan = cc["tb"]["plan"]
     if plan is not None:
-        n += 2 * plan.total * 4
+        n += 2 * plan.total * 4 * lanes_of(carry)
     return n
 
 
@@ -264,7 +300,7 @@ def tb_flops(carry, cc):
     for the packed step, plus one add per record plane cell."""
     plan = cc["tb"]["plan"]
     f = 2 * (family_flops(carry, "E") + family_flops(carry, "H"))
-    return f + (2 * plan.total if plan is not None else 0)
+    return f + (2 * plan.total * lanes_of(carry) if plan is not None else 0)
 
 
 def timed(fn, reps):
@@ -285,9 +321,10 @@ def timed(fn, reps):
 
 def family_bytes(carry, cc, family):
     """Bytes one family update must move: each input read once, each
-    output written once (fields, psi, J, coefficient grids, profiles)."""
+    output written once (fields, psi, J, coefficient grids, profiles);
+    all lanes of a lane-stacked carry."""
     import torch
-    vol = carry["E"][0].numel() * 4
+    vol = carry["E"].numel() // 3 * 4
     n = 3 * vol                                  # other family, read
     n += 2 * 3 * vol                             # own family, r + w
     ps = carry["psE"] if family == "E" else carry["psH"]
@@ -306,8 +343,8 @@ def family_bytes(carry, cc, family):
 def family_flops(carry, family):
     """Flops per family update: per component two differences (sub,
     mul, add), the CPML slab terms where psi lives, and the update
-    (2 mul + 1 add; Drude 3 more)."""
-    cells = carry["E"][0].numel()
+    (2 mul + 1 add; Drude 3 more); all lanes."""
+    cells = carry["E"].numel() // 3
     f = 3 * cells * (2 * 3 + 3)
     ps = carry["psE"] if family == "E" else carry["psH"]
     f += sum(v.numel() * 7 for v in ps.values())
@@ -538,6 +575,236 @@ def profile_window(sim, steps):
             "launches_per_step": launches / steps,
             "device_busy_share": device_us / wall_us,
             "kernel_us_per_step": kernels_us}
+
+
+# --------------------------------------------------------------------------
+# batched execution: the lane-capable kernels
+# --------------------------------------------------------------------------
+
+def mie_args(size, eps, extra=()):
+    """Flags of Examples/sphere3D_mie.txt at ``size`` (the sphere centred,
+    radius size/8: the file's own at 512) with eps-sphere ``eps``."""
+    c, r = str(size // 2), str(size // 8)
+    return ["--same-size", str(size), "--eps-sphere", str(eps),
+            "--eps-sphere-center-x", c, "--eps-sphere-center-y", c,
+            "--eps-sphere-center-z", c, "--eps-sphere-radius", r,
+            *extra]
+
+
+def seed_leaves(carry, dev, seed):
+    """Every tensor leaf of a carry to seeded random values (0.01 sigma),
+    made on the device."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for _, v in leaves(carry):
+        v.copy_(0.01 * torch.randn(v.shape, generator=g, device=dev))
+
+
+def lane_batch(cfgs, dev):
+    """A BatchSimulation on the card that must ride the lane-capable
+    temporal-blocked kernel."""
+    from fdtd3d_torch.batch import BatchSimulation
+    bsim = BatchSimulation(cfgs, device=dev)
+    if bsim.step_kind != "packed_tb_cuda" or bsim.batch_fallback:
+        fail(f"batch of {bsim.batch_size}: ran {bsim.step_kind} "
+             f"{bsim.batch_fallback or ''}, not the lane-capable "
+             f"packed_tb_cuda")
+    return bsim
+
+
+def pass_fields(carry):
+    """The buffers a tb pass writes, as a dict for compare()."""
+    return {k: carry[k] for k in ("E", "H", "J", "psE", "psH")
+            if k in carry}
+
+
+def solo_lane(carry, lane):
+    """Lane ``lane`` of a lane-stacked carry as a solo carry (copies, no
+    lane axis)."""
+    import torch
+    if isinstance(carry, dict):
+        return {k: solo_lane(v, lane) for k, v in carry.items()}
+    return carry[lane].clone() if isinstance(carry, torch.Tensor) else carry
+
+
+def solo_tb(tb, lane):
+    """The tb operands of one lane of a lane-capable prepare."""
+    from fdtd3d_torch.ops import packed
+    out = {k: v for k, v in tb.items() if k != "_params"}
+    out.update(E=packed.lane_fc(tb["E"], lane),
+               H=packed.lane_fc(tb["H"], lane), batch=0)
+    return out
+
+
+def assert_lanes_equal(got, lane, want, what):
+    """Every leaf of the solo carry ``want`` equals lane ``lane`` of the
+    lane-stacked ``got``, bit for bit."""
+    import torch
+    got_leaves = dict(leaves(got))
+    for name, b in leaves(want):
+        if not torch.equal(got_leaves[name][lane], b):
+            err = float((got_leaves[name][lane] - b).abs().max())
+            fail(f"{what}: lane {lane} {name} differs from the same "
+                 f"kernel run solo (max |diff| {err:.3e})")
+
+
+def lane_kernels_check(bsim, dev, label):
+    """Phase 7 (a): on the seeded carry of ``bsim``, one lane-capable tb
+    pass and one lane-capable packed step (its two launches and the
+    patches between them) against their plain versions (TOL), and each
+    lane of one tb launch and of one e_update + h_update launch against
+    the same kernel run solo (one lane), bit for bit. Returns the worst
+    errors (tb pass, packed step)."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb
+    static, B = bsim.static, bsim.batch_size
+    carry = bsim._carry
+    k_tb = packed_tb.make_packed_tb_step(static, dev, batch=B)
+    cc = k_tb.prepare(bsim._coeffs)
+    tb = cc["tb"]
+    _, terms, drive = packed_tb.generation_terms(static, tb,
+                                                 carry.get("inc"),
+                                                 carry["t"])
+    dst_k = packed_tb._alloc_like(carry)
+    dst_p = packed_tb._alloc_like(carry)
+    packed_tb.tb_pass(carry, dst_k, tb, terms, drive)
+    packed_tb.tb_pass_plain(carry, dst_p, tb, terms, drive)
+    torch.cuda.synchronize()
+    err_tb = compare(dst_k, dst_p, f"{label}: one lane-capable tb pass")
+    for lane in range(B):
+        src = solo_lane(pass_fields(carry), lane)
+        dst = packed_tb._alloc_like(src)
+        packed_tb.tb_pass(src, dst, solo_tb(tb, lane),
+                          None if terms is None
+                          else terms[:, lane].contiguous(),
+                          None if drive is None else drive[lane].tolist())
+        torch.cuda.synchronize()
+        assert_lanes_equal(dst_k, lane, dst, f"{label}: tb pass")
+    del dst_k, dst_p, src, dst
+    k_pk = packed.make_packed_step(static, dev, batch=B)
+    p_pk = packed.make_packed_step(static, dev, plain=True, batch=B)
+    pcc = k_pk.prepare(bsim._coeffs)
+    ck, cp = clone_carry(carry), clone_carry(carry)
+    k_pk(ck, pcc)
+    p_pk(cp, pcc)
+    torch.cuda.synchronize()
+    err_pk = compare(ck, cp, f"{label}: one lane-capable packed step")
+    del ck, cp
+    for fc_lane in (None,) + tuple(range(B)):
+        if fc_lane is None:
+            a = pass_fields(clone_carry(carry))
+            fe, fh = pcc["E"], pcc["H"]
+        else:
+            a = solo_lane(pass_fields(carry), fc_lane)
+            fe = packed.lane_fc(pcc["E"], fc_lane)
+            fh = packed.lane_fc(pcc["H"], fc_lane)
+        packed.e_update(a["E"], a["H"], a.get("J"), a["psE"], fe)
+        packed.h_update(a["H"], a["E"], a["psH"], fh)
+        torch.cuda.synchronize()
+        if fc_lane is None:
+            batched = a
+        else:
+            assert_lanes_equal(batched, fc_lane, a,
+                               f"{label}: e_update + h_update")
+    say(f"{label}: the lane-capable tb pass ({err_tb:.3e}) and packed step "
+        f"({err_pk:.3e}) match their plain versions; every lane equals "
+        f"the same kernels run solo, bit for bit")
+    return err_tb, err_pk
+
+
+def bound(nbytes, nops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def lane_times(bsim, dev, reps, plain_reps):
+    """CUDA-event times of the lane-capable kernels on ``bsim``'s carry:
+    one tb pass, one e_update and one h_update launch (each beside its
+    plain version and its bound for all lanes), the whole pass call
+    (kernel + incident line + record terms) and the whole packed step."""
+    from fdtd3d_torch.ops import packed, packed_tb
+    static, B = bsim.static, bsim.batch_size
+    carry = bsim._carry
+    k_tb = packed_tb.make_packed_tb_step(static, dev, batch=B)
+    cc = k_tb.prepare(bsim._coeffs)
+    spare = packed_tb._alloc_like(carry)
+    _, terms, drive = packed_tb.generation_terms(static, cc["tb"],
+                                                 carry.get("inc"),
+                                                 carry["t"])
+    out = {"lanes": B, "shape": list(static.grid_shape)}
+    out["tb_pass_ms"] = timed(lambda: packed_tb.tb_pass(
+        carry, spare, cc["tb"], terms, drive), reps)
+    out["tb_plain_ms"] = timed(lambda: packed_tb.tb_pass_plain(
+        carry, spare, cc["tb"], terms, drive), plain_reps)
+    out["tb_bound_ms"], out["tb_bound_by"] = bound(tb_bytes(carry, cc),
+                                                   tb_flops(carry, cc))
+    del spare
+    for fam, fn, plain_fn, args in (
+            ("E", packed.e_update, packed.e_update_plain,
+             (carry["E"], carry["H"], carry.get("J"), carry["psE"],
+              cc["E"])),
+            ("H", packed.h_update, packed.h_update_plain,
+             (carry["H"], carry["E"], carry["psH"], cc["H"]))):
+        key = fam.lower()
+        out[f"{key}_update_ms"] = timed(lambda: fn(*args), reps)
+        out[f"{key}_plain_ms"] = timed(lambda: plain_fn(*args), plain_reps)
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = bound(
+            family_bytes(carry, cc, fam), family_flops(carry, fam))
+    out["pass_call_ms"] = timed(lambda: k_tb(carry, cc), reps)
+    out["packed_step_ms"] = timed(lambda: k_tb.tail_step(carry, cc), reps)
+    cells = float(static.grid_shape[0] * static.grid_shape[1]
+                  * static.grid_shape[2])
+    out["mcells_per_s_aggregate"] = B * cells * 2 / (
+        out["pass_call_ms"] * 1e-3) / 1e6
+    return out
+
+
+def batch_cli_path(paths, label):
+    """The batch main path through the CLI: ``--batch`` on the lanes'
+    command files with the finite check, kernel launch counts set to 0
+    just before it and read just after; its lines, launches, aggregate
+    Mcells/s and peak memory."""
+    import re
+
+    import torch
+    from fdtd3d_torch import cli
+    from fdtd3d_torch.ops import packed, packed_tb
+    packed.e_update.launches = 0
+    packed.h_update.launches = 0
+    packed_tb.tb_pass.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    captured = _io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(captured):
+        rc = cli.main(["--batch", *paths, "--check-finite"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"tb_pass": packed_tb.tb_pass.launches,
+                "e_update": packed.e_update.launches,
+                "h_update": packed.h_update.launches}
+    peak = torch.cuda.max_memory_allocated()
+    lines = captured.getvalue().strip().splitlines()
+    say(f"cli --batch ({label}): " + " | ".join(lines))
+    if rc != 0:
+        fail(f"cli.main --batch returned {rc}")
+    head = [ln for ln in lines if ln.startswith("batch: ")]
+    if head != [f"batch: {len(paths)} lanes step_kind=packed_tb_cuda"]:
+        fail(f"{label}: the batch did not ride the lane-capable kernel "
+             f"alone: {head}")
+    verdicts = [ln for ln in lines if ln.startswith("batch lane ")]
+    if verdicts != [f"batch lane {i}: healthy" for i in range(len(paths))]:
+        fail(f"{label}: not every lane is healthy: {verdicts}")
+    done = [ln for ln in lines if ln.startswith("done: ")]
+    m = re.search(r"in ([0-9.]+)s \(([0-9.]+) Mcells/s aggregate", done[0]) \
+        if done else None
+    if m is None:
+        fail(f"{label}: no closing line")
+    return {"lanes": len(paths), "launches": launches,
+            "stepping_s": float(m.group(1)),
+            "mcells_per_s_aggregate": float(m.group(2)),
+            "cli_wall_s": wall, "peak_mem_bytes": peak, "lines": lines}
 
 
 def cli_main_path(steps, cfg256):
@@ -924,6 +1191,90 @@ def main() -> int:
         + json.dumps(result["ds_profile_128"]))
     del sim
 
+    # ---- phase 7: the lane-capable kernels vs plain and vs solo ----------
+    c, r = "64", "12"
+    lane_extra = ["--angle-teta", "30", "--angle-phi", "40", "--angle-psi",
+                  "15", "--point-source", "Ez", "--use-drude", "--eps-inf",
+                  "4.0", "--gamma-d", "5e10", "--drude-sphere-center-x", c,
+                  "--drude-sphere-center-y", c, "--drude-sphere-center-z", c,
+                  "--drude-sphere-radius", r]
+    lanes128 = [config(MIE, mie_args(128, eps, lane_extra + [
+        "--omega-p", wp, "--point-source-amplitude", amp]))
+        for eps, wp, amp in (("2.0", "1e12", "1.0"), ("4.0", "2e12", "2.0"),
+                             ("6.0", "5e11", "-0.5"))]
+    bsim = lane_batch(lanes128, dev)
+    seed_leaves(bsim._carry, dev, 21)
+    err_lane128 = lane_kernels_check(
+        bsim, dev, "3 lanes at 128^3 (eps and Drude spheres, oblique TFSF, "
+        "point source)")
+    del bsim
+
+    # ---- phase 8: lane-capable kernel times at 256^3, B = 1, 2, 4 --------
+    result["batch_times_256"] = {}
+    for lanes in (1, 2, 4):
+        bsim = lane_batch([cfg256] * lanes, dev)
+        bsim.advance(steps)            # a realistic mid-run state
+        bt = lane_times(bsim, dev, reps, 3)
+        result["batch_times_256"][lanes] = bt
+        say(f"lane-capable times at 256^3, {lanes} lane(s): "
+            + json.dumps(bt))
+        del bsim
+
+    # ---- phase 9: the main path's shapes, and the odd step's tail --------
+    cfgs512 = [config(MIE, ["--eps-sphere", e])
+               for e in ("2.0", "4.0", "6.0", "9.0")]
+    packed.e_update.launches = 0
+    packed.h_update.launches = 0
+    packed_tb.tb_pass.launches = 0
+    t0 = time.time()
+    bsim = Simulation.run_batch(cfgs512, time_steps=1, device=dev)
+    torch.cuda.synchronize()
+    tail_run = {"wall_s": time.time() - t0, "launches": {
+        "tb_pass": packed_tb.tb_pass.launches,
+        "e_update": packed.e_update.launches,
+        "h_update": packed.h_update.launches}}
+    if bsim.step_kind != "packed_tb_cuda" or bsim.batch_fallback \
+            or tail_run["launches"] != {"tb_pass": 0, "e_update": 1,
+                                        "h_update": 1} \
+            or bsim.lane_finite != [True] * 4:
+        fail(f"run_batch, 4 Mie lanes at 512^3, 1 step: {bsim.step_kind} "
+             f"{bsim.batch_fallback} launches {tail_run['launches']} "
+             f"lanes {bsim.lane_finite}")
+    say(f"run_batch (4 Mie lanes at 512^3, 1 step: the lane-capable packed "
+        f"tail): {json.dumps(tail_run)}")
+    result["batch_tail_512"] = tail_run
+    seed_leaves(bsim._carry, dev, 31)
+    err_lane512 = lane_kernels_check(bsim, dev, "4 Mie lanes at 512^3")
+    times512 = lane_times(bsim, dev, 5, 1)
+    result["batch_times_512"] = times512
+    say("lane-capable times at 512^3, 4 Mie lanes: " + json.dumps(times512))
+    del bsim
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the batch main path through the CLI --------------------
+    spec_dir = os.path.join(OUT_DIR, "batch_specs")
+    os.makedirs(spec_dir, exist_ok=True)
+    with open(MIE) as f:
+        mie_text = f.read()
+    paths = []
+    for eps in ("2.0", "4.0", "6.0", "9.0"):
+        path = os.path.join(spec_dir, f"sphere3D_mie_eps{eps}.txt")
+        with open(path, "w") as f:
+            f.write(f"{mie_text}\n--eps-sphere {eps}\n")
+        paths.append(path)
+    mie_steps = cfgs512[0].time_steps
+    batch_main = batch_cli_path(paths, "4 Mie lanes at 512^3")
+    want = {"tb_pass": mie_steps // 2, "e_update": mie_steps % 2,
+            "h_update": mie_steps % 2}
+    if batch_main["launches"] != want:
+        fail(f"batch main path: launches {batch_main['launches']} != "
+             f"{want}")
+    result["batch_main_path"] = batch_main
+    say(f"batch main path: 4 lanes x {mie_steps} steps, launches "
+        f"{batch_main['launches']}, "
+        f"{batch_main['mcells_per_s_aggregate']} Mcells/s aggregate, peak "
+        f"{batch_main['peak_mem_bytes'] / 1e9:.3f} GB")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -965,6 +1316,30 @@ def main() -> int:
          "launches": ds_launches["h_update"], "max_abs_err": err_dh,
          "ms": dh_ms, "plain_ms": dh_plain, "bound_ms": dbound["H"][0],
          "bound_by": dbound["H"][1], "library_ms": None},
+        {"name": "packed_tb.pass[4 lanes]", "route": "cuda",
+         "source": tb_src,
+         "replaces": "fdtd3d_tpu/ops/pallas_packed_tb.py:900",
+         "launches": batch_main["launches"]["tb_pass"],
+         "max_abs_err": max(err_lane128[0], err_lane512[0]),
+         "ms": times512["tb_pass_ms"], "plain_ms": times512["tb_plain_ms"],
+         "bound_ms": times512["tb_bound_ms"],
+         "bound_by": times512["tb_bound_by"], "library_ms": None},
+        {"name": "packed_eh.e_update[4 lanes]", "route": "cuda",
+         "source": src,
+         "replaces": "fdtd3d_tpu/ops/pallas_packed.py:537",
+         "launches": tail_run["launches"]["e_update"],
+         "max_abs_err": max(err_lane128[1], err_lane512[1]),
+         "ms": times512["e_update_ms"], "plain_ms": times512["e_plain_ms"],
+         "bound_ms": times512["e_bound_ms"],
+         "bound_by": times512["e_bound_by"], "library_ms": None},
+        {"name": "packed_eh.h_update[4 lanes]", "route": "cuda",
+         "source": src,
+         "replaces": "fdtd3d_tpu/ops/pallas_packed.py:537",
+         "launches": tail_run["launches"]["h_update"],
+         "max_abs_err": max(err_lane128[1], err_lane512[1]),
+         "ms": times512["h_update_ms"], "plain_ms": times512["h_plain_ms"],
+         "bound_ms": times512["h_bound_ms"],
+         "bound_by": times512["h_bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

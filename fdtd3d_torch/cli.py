@@ -5,12 +5,14 @@ with every flag of the reference, ``read_cmd_file``, ``args_to_config``)
 is the reference's, so every ``Examples/*.txt`` command file parses to
 the same ``SimConfig``; the port adds ``--device`` (cuda by default,
 ``--device cpu`` to run on the CPU). ``main`` runs the non-supervised,
-non-batch, single-device path: the run in chunks, ``--norms-every``
-lines, DAT dumps every ``--save-res`` steps, and the closing throughput
-line, for ``--dtype float32``, ``float32x2`` (the hi words are dumped,
-in f32, as the reference dumps them) and ``float64``. Flags whose
-features are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+single-device path: the run in chunks, ``--norms-every`` lines, DAT
+dumps every ``--save-res`` steps, and the closing throughput line, for
+``--dtype float32``, ``float32x2`` (the hi words are dumped, in f32, as
+the reference dumps them) and ``float64``; and ``--batch a.txt b.txt
+...`` (``_run_batch_cli``): the command files as the lanes of one batch
+(fdtd3d_torch/batch.py), with the reference's per-lane lines. Flags
+whose features are not ported yet raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -440,7 +442,7 @@ def args_to_config(args) -> SimConfig:
 
 # (flag attribute, value that means "not used", ROADMAP.md item)
 _NOT_PORTED = (
-    ("supervise", False, "A12"), ("batch", None, "A13"),
+    ("supervise", False, "A12"),
     ("resume", None, "A6"), ("load_checkpoint", None, "A6"),
     ("checkpoint_every", 0, "A6"), ("ntff", False, "A8"),
     ("coordinator_address", None, "A11"), ("num_processes", None, "A11"),
@@ -469,6 +471,74 @@ def check_ported(args) -> None:
             f"fdtd3d_torch yet (ROADMAP.md queue A7)")
 
 
+def _run_batch_cli(parser, args) -> int:
+    """``--batch spec1.txt spec2.txt ...``: parse each command file into
+    one scenario, run them as one batch, report per-lane health. A
+    tripped lane is a WARNED per-lane verdict, never a batch failure
+    (exit stays 0: the other tenants' runs completed). The wall of the
+    closing line covers the stepping and the end-of-run sweep, as the
+    solo line's covers the stepping; the set-up (host coefficients of
+    every lane) is printed beside it."""
+    import dataclasses as _dc
+
+    from fdtd3d_torch.batch import BatchSimulation
+    from fdtd3d_torch.log import log, set_level, warn
+    cfgs = []
+    for path in args.batch:
+        largs = parser.parse_args(read_cmd_file(path))
+        if largs.batch:
+            raise SystemExit(
+                f"--batch: {path} itself contains --batch (nested "
+                f"batches are not a thing)")
+        check_ported(largs)
+        cfgs.append(args_to_config(largs))
+    if args.check_finite:
+        # top-level --check-finite applies to the batch (lane 0's output
+        # config drives the batch's tripwire, as in the reference)
+        cfgs[0] = _dc.replace(cfgs[0], output=_dc.replace(
+            cfgs[0].output, check_finite=True))
+    set_level(cfgs[0].output.log_level)
+    t0 = time.time()
+    try:
+        bsim = BatchSimulation(cfgs, device=args.device)
+    except ValueError as exc:
+        raise SystemExit(f"--batch: {exc}")
+    setup = time.time() - t0
+    t0 = time.time()
+    bsim.run(chunk=args.batch_chunk)
+    bsim.verify_final_lanes()
+    bsim.block_until_ready()
+    wall = time.time() - t0
+    # the batch dispatch verdict, mirroring the solo step-kind line: the
+    # engaged kind, and the named batch_unsupported:<token> when the
+    # batch could not ride the lane-capable kernels
+    kind_line = f"step_kind={bsim.step_kind}"
+    if bsim.batch_fallback:
+        kind_line += f" {bsim.batch_fallback}"
+    log(f"batch: {bsim.batch_size} lanes {kind_line}")
+    cells = 1.0
+    for a in bsim.static.mode.active_axes:
+        cells *= bsim.cfg.grid_shape[a]
+    mcps = cells * bsim.batch_size * bsim.cfg.time_steps \
+        / max(wall, 1e-9) / 1e6
+    for lane in range(bsim.batch_size):
+        verdict = {True: "healthy", False: "NON-FINITE",
+                   None: "unmeasured"}[bsim.lane_finite[lane]]
+        extra = ""
+        if bsim.lane_first_unhealthy_t[lane] is not None:
+            extra = (f" (first bad step <= "
+                     f"{bsim.lane_first_unhealthy_t[lane]})")
+        log(f"batch lane {lane}: {verdict}{extra}")
+    bad = [i for i, f in enumerate(bsim.lane_finite) if f is False]
+    if bad:
+        warn(f"batch: lane(s) {bad} tripped non-finite; the other "
+             f"{bsim.batch_size - len(bad)} completed healthy")
+    log(f"done: {bsim.batch_size} lanes x {bsim.cfg.time_steps} steps "
+        f"in {wall:.2f}s ({mcps:.1f} Mcells/s aggregate, one launch per "
+        f"kernel for every lane; set-up {setup:.2f}s)")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
@@ -477,6 +547,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # CLI flags override the command file (parse file first, then argv)
         args = parser.parse_args(read_cmd_file(args.cmd_from_file) + argv)
     check_ported(args)
+    if args.batch:
+        return _run_batch_cli(parser, args)
     cfg = args_to_config(args)
 
     import torch

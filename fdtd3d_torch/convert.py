@@ -9,6 +9,13 @@ map numpy copies of one onto the other, key by key whatever the keys,
 so both packages can start from identical fields (hi and lo words
 alike) and be compared in the unpacked form. Coefficients cross the
 same way, the ``*_lo`` words and the ds CPML profile pairs included.
+
+A batch (fdtd3d_torch/batch.py) has the lane-stacked forms: the
+reference's batched state and coefficient trees carry a leading lane
+axis on every leaf (``t`` a (B,) vector, a scalar coefficient a (B,)
+vector); the port's batch state has the same lane-leading leaves with
+one host ``t``, and its lane-capable coefficients keep what every lane
+shares once (``batch.stack_lane_coeffs``).
 """
 
 from __future__ import annotations
@@ -56,3 +63,60 @@ def coeffs_from_reference(np_coeffs: Dict[str, Any],
     """The reference's host coefficient dict -> the port's device
     coefficients (arrays as tensors, scalars as host floats)."""
     return coeffs_to_device(np_coeffs, device)
+
+
+def stacked_state_from_reference(np_state: Dict[str, Any],
+                                 device="cpu") -> Dict[str, Any]:
+    """The reference's lane-stacked state (numpy leaves, ``t`` one entry
+    per lane) -> the port's lane-stacked dict-form state on ``device``
+    (the lanes advance together: one host ``t``)."""
+    t = np.asarray(np_state["t"]).reshape(-1)
+    if not (t == t[0]).all():
+        raise ValueError(f"the lanes of a batch share one t, got {t}")
+    out = {k: _to_torch(v, device) for k, v in np_state.items()
+           if k != "t"}
+    out["t"] = int(t[0])
+    return out
+
+
+def stacked_state_to_reference(state: Dict[str, Any],
+                               lanes: int) -> Dict[str, Any]:
+    """The port's lane-stacked dict-form state -> the reference's
+    stacked form (numpy leaves, ``t`` an int32 vector of ``lanes``)."""
+    out = {k: _to_numpy(v) for k, v in state.items() if k != "t"}
+    out["t"] = np.full(lanes, state["t"], dtype=np.int32)
+    return out
+
+
+def _lane(tree: Any, lane: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _lane(v, lane) for k, v in tree.items()}
+    return np.asarray(tree)[lane]
+
+
+def stacked_coeffs_from_reference(np_coeffs: Dict[str, Any],
+                                  device="cpu") -> Dict[str, Any]:
+    """The reference's lane-stacked coefficient tree -> the port's
+    lane-capable device coefficients (``batch.stack_lane_coeffs`` of the
+    lanes' dicts)."""
+    from fdtd3d_torch.batch import stack_lane_coeffs
+    lanes = len(np.asarray(next(iter(np_coeffs.values()))))
+    return stack_lane_coeffs([_lane(np_coeffs, i) for i in range(lanes)],
+                             device)
+
+
+def stacked_coeffs_to_reference(coeffs: Dict[str, Any],
+                                lanes: int) -> Dict[str, Any]:
+    """The port's lane-capable coefficients -> the reference's
+    lane-stacked tree: a value the lanes share is repeated per lane."""
+    from fdtd3d_torch.batch import PER_LANE_SCALARS
+    out: Dict[str, Any] = {}
+    for k, v in coeffs.items():
+        if isinstance(v, torch.Tensor):
+            a = v.detach().cpu().numpy()
+            per_lane = k in PER_LANE_SCALARS or a.ndim == 4
+            out[k] = a.copy() if per_lane \
+                else np.broadcast_to(a, (lanes,) + a.shape).copy()
+        else:
+            out[k] = np.full(lanes, v, dtype=np.float32)
+    return out

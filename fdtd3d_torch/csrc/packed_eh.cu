@@ -32,6 +32,16 @@
 // Offsets are computed in 64 bits: at 1024^3 the stacked array holds
 // more than 2^31 elements.
 //
+// Lanes (the port of make_packed_eh_step_batched, pallas_packed.py:537,
+// whose pallas_call the reference vmaps over a lane-major grid
+// dimension): one launch advances `lanes` independent scenarios of the
+// same shape. The lane is folded into the grid's z dimension (lane =
+// blockIdx.z / n1), and every base pointer steps by a 64-bit lane
+// stride: the fields, J and psi by their per-lane extents, a
+// coefficient grid by its own stride (0 for a grid shared by all lanes,
+// n1 n2 n3 for a per-lane grid). Scalar coefficients are one value for
+// every lane, as the reference bakes them. A solo run is lanes = 1.
+//
 // Every entry returns cudaGetLastError() so the caller can raise on a
 // refused launch.
 
@@ -39,22 +49,27 @@
 #include <stdint.h>
 
 struct Coef {
-  const float* grid;  // (n1, n2, n3) or nullptr
+  const float* grid;  // (n1, n2, n3), (lanes, n1, n2, n3) or nullptr
+  long long lane;     // lane stride of grid: 0 (shared) or n1 n2 n3
   float val;          // used when grid is nullptr
 };
 
 struct Params {
-  float* F;              // family being updated, stacked (3, n1, n2, n3)
-  const float* S;        // curl source family, stacked (3, n1, n2, n3)
-  float* J;              // Drude J stack (3, n1, n2, n3) or nullptr (E only)
-  float* psi[3];         // per axis a: (2, n with dim a = 2 m[a]) or nullptr
+  float* F;              // family being updated, (lanes, 3, n1, n2, n3)
+  const float* S;        // curl source family, (lanes, 3, n1, n2, n3)
+  float* J;              // Drude J (lanes, 3, n1, n2, n3) or nullptr (E only)
+  float* psi[3];         // per axis a: (lanes, 2, n with dim a = 2 m[a])
+                         // or nullptr
   const float* prof[3];  // per axis a: (3, 2 m[a]) rows b, c, 1/kappa
+  long long field_lane;  // lane stride of F, S and J: 3 n1 n2 n3
+  long long psi_lane[3];  // lane stride of psi[a]
   int m[3];              // slab planes per side, 0 = no CPML on the axis
   Coef a[3];             // ca (E) / da (H)
   Coef b[3];             // cb (E) / db (H)
   Coef kj[3];            // Drude, E only
   Coef bj[3];
   int n1, n2, n3;
+  int lanes;             // scenarios advanced by one launch
   float inv_dx;
 };
 
@@ -69,8 +84,9 @@ __device__ __forceinline__ constexpr int term_comp(int c, int t) {
   return (c + 2 - t) % 3;
 }
 
-__device__ __forceinline__ float coef(const Coef& c, int64_t cell) {
-  return c.grid ? c.grid[cell] : c.val;
+__device__ __forceinline__ float coef(const Coef& c, int lane,
+                                      int64_t cell) {
+  return c.grid ? c.grid[lane * c.lane + cell] : c.val;
 }
 
 // Offset of cell (i, j, k) in the psi stack of axis a, row `row`, at
@@ -86,12 +102,17 @@ __device__ __forceinline__ int64_t psi_offset(int a, int row, int q, int i,
 
 // One family update. BACKWARD = true: E from backward differences of H
 // (with Drude J and PEC walls); false: H from forward differences of E.
-template <bool BACKWARD>
+// MULTI = false is a single-lane launch: the lane is the constant 0.
+template <bool BACKWARD, bool MULTI>
 __global__ void __launch_bounds__(128) family_update(Params p) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
-  const int i = blockIdx.z;
+  const int i = MULTI ? blockIdx.z % p.n1 : blockIdx.z;
+  const int lane = MULTI ? blockIdx.z / p.n1 : 0;
   if (k >= p.n3) return;
+  float* const F = p.F + lane * p.field_lane;
+  const float* const S = p.S + lane * p.field_lane;
+  float* const J = p.J ? p.J + lane * p.field_lane : nullptr;
   const int64_t n1 = p.n1, n2 = p.n2, n3 = p.n3;
   const int64_t vol = n1 * n2 * n3;
   const int64_t cell = (i * n2 + j) * n3 + k;
@@ -106,7 +127,7 @@ __global__ void __launch_bounds__(128) family_update(Params p) {
     for (int t = 0; t < 2; ++t) {
       const int a = term_axis(c, t);
       const float s = t == 0 ? 1.f : -1.f;
-      const float* src = p.S + term_comp(c, t) * vol + cell;
+      const float* src = S + term_comp(c, t) * vol + cell;
       float dfa;
       if (BACKWARD) {
         const float prev = idx[a] > 0 ? src[-stride[a]] : 0.f;
@@ -125,24 +146,26 @@ __global__ void __launch_bounds__(128) family_update(Params p) {
           const int64_t off =
               psi_offset(a, row, q, i, j, k, n1, n2, n3, 2 * m);
           const float* pr = p.prof[a];
-          const float psi = pr[q] * p.psi[a][off] + pr[2 * m + q] * dfa;
-          p.psi[a][off] = psi;
+          float* ps = p.psi[a] + lane * p.psi_lane[a] + off;
+          const float psi = pr[q] * *ps + pr[2 * m + q] * dfa;
+          *ps = psi;
           acc += s * ((pr[4 * m + q] - 1.f) * dfa + psi);
         }
       }
       acc += s * dfa;
     }
-    float* f = p.F + c * vol + cell;
+    float* f = F + c * vol + cell;
     const float old = *f;
     float v;
     if (BACKWARD) {
-      if (p.J) {
-        float* jp = p.J + c * vol + cell;
-        const float jn = coef(p.kj[c], cell) * *jp + coef(p.bj[c], cell) * old;
+      if (J) {
+        float* jp = J + c * vol + cell;
+        const float jn = coef(p.kj[c], lane, cell) * *jp +
+                         coef(p.bj[c], lane, cell) * old;
         *jp = jn;
         acc -= jn;
       }
-      v = coef(p.a[c], cell) * old + coef(p.b[c], cell) * acc;
+      v = coef(p.a[c], lane, cell) * old + coef(p.b[c], lane, cell) * acc;
       // PEC walls: tangential E vanishes on the walls of the two axes
       // other than its own.
 #pragma unroll
@@ -150,7 +173,7 @@ __global__ void __launch_bounds__(128) family_update(Params p) {
         if (w != c && (idx[w] == 0 || idx[w] == n[w] - 1)) v = 0.f;
       }
     } else {
-      v = coef(p.a[c], cell) * old - coef(p.b[c], cell) * acc;
+      v = coef(p.a[c], lane, cell) * old - coef(p.b[c], lane, cell) * acc;
     }
     *f = v;
   }
@@ -158,12 +181,21 @@ __global__ void __launch_bounds__(128) family_update(Params p) {
 
 static int launch(const Params* p, void* stream, bool backward) {
   const dim3 block(128);
-  const dim3 grid((p->n3 + 127) / 128, p->n2, p->n1);
+  // the lane rides the z dimension of the grid, beside the x index
+  if (p->lanes < 1 || (long long)p->n1 * p->lanes > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid((p->n3 + 127) / 128, p->n2, p->n1 * p->lanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (backward) {
-    family_update<true><<<grid, block, 0, s>>>(*p);
+  const bool multi = p->lanes > 1;
+  if (backward && multi) {
+    family_update<true, true><<<grid, block, 0, s>>>(*p);
+  } else if (backward) {
+    family_update<true, false><<<grid, block, 0, s>>>(*p);
+  } else if (multi) {
+    family_update<false, true><<<grid, block, 0, s>>>(*p);
   } else {
-    family_update<false><<<grid, block, 0, s>>>(*p);
+    family_update<false, false><<<grid, block, 0, s>>>(*p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,6 +50,18 @@
 // record code compiled out; the data-dependent branches of the full
 // path cost instruction-level parallelism even where they do nothing.
 //
+// Lanes (the reference's batch=B build of make_packed_tb_step, vmapped
+// over a lane-major grid dimension): one launch advances `lanes`
+// same-shape scenarios by two steps. The lane rides the grid's z
+// dimension beside the x segment (lane = blockIdx.z / segments; the
+// segment count is the solo launch's, so every lane runs exactly the
+// blocks a solo launch would), and every base pointer steps by a 64-bit
+// lane stride: fields and J by 3 n1 n2 n3, psi by its slab extent, a
+// coefficient grid by its own stride (0 when shared), the record terms
+// by one row of `total` per lane and generation, the point source's
+// drive by two values per lane. The record table and its column masks
+// depend on geometry only and serve every lane. A solo run is lanes = 1.
+//
 // In place would be wrong: a block reads halo columns of E, H, psi and J
 // that a neighbouring block writes, so the launch reads only the source
 // buffers and writes only the destination ones (the caller ping-pongs).
@@ -77,7 +89,8 @@
 #define PLANE (3 * NT)  // floats of one ring plane (three components)
 
 struct Coef {
-  const float* grid;  // (n1, n2, n3) or nullptr
+  const float* grid;  // (n1, n2, n3), (lanes, n1, n2, n3) or nullptr
+  long long lane;     // lane stride of grid: 0 (shared) or n1 n2 n3
   float val;          // used when grid is nullptr
 };
 
@@ -98,25 +111,30 @@ struct Family {
 };
 
 struct Params {
-  const float* E0;        // stacked (3, n1, n2, n3), read only
+  const float* E0;        // stacked (lanes, 3, n1, n2, n3), read only
   const float* H0;
   const float* J0;        // Drude J or nullptr
   float* E2;              // destination stacks, written only
   float* H2;
   float* J2;
-  const float* psE0[3];   // per axis a: (2, n with dim a = 2 m[a]) or null
-  const float* psH0[3];
+  const float* psE0[3];   // per axis a: (lanes, 2, n with dim a = 2 m[a])
+  const float* psH0[3];   // or null
   float* psE2[3];
   float* psH2[3];
-  const float* terms;     // (2, total) record plane terms per generation
+  const float* terms;     // (2, lanes, total) record plane terms
   long long total;
+  long long field_lane;   // lane stride of E, H and J: 3 n1 n2 n3
+  long long psi_lane[3];  // lane stride of the psi stacks of axis a
+  const float* lane_drive;  // (lanes, 2): the drive of a launch of several
+                            // lanes (a one-lane launch takes `drive`)
   Family fe, fh;
   Coef kj[3];             // Drude
   Coef bj[3];
   int m[3];               // slab planes per side, 0 = no CPML on the axis
   int pc, pi, pj, pk;     // point source: E component (-1: none), cell
-  float drive[2];         // its amplitude * waveform per generation
+  float drive[2];         // one lane: amplitude * waveform per generation
   int n1, n2, n3;
+  int lanes;              // scenarios advanced by one launch
   float inv_dx;
 };
 
@@ -130,8 +148,9 @@ __device__ __forceinline__ constexpr int term_comp(int c, int t) {
   return (c + 2 - t) % 3;
 }
 
-__device__ __forceinline__ float coef(const Coef& c, int64_t cell) {
-  return c.grid ? c.grid[cell] : c.val;
+__device__ __forceinline__ float coef(const Coef& c, int lane,
+                                      int64_t cell) {
+  return c.grid ? c.grid[lane * c.lane + cell] : c.val;
 }
 
 // Plane of index ia inside the compact 2m-plane slab stack, or -1.
@@ -206,11 +225,13 @@ __device__ __forceinline__ RecMask column_mask(const RecTable& rt, int n_rec,
 }
 
 // acc plus the record terms of component c at cell (x, j, k), in table
-// order, from row g of `terms`.
+// order, from the row of generation g and this lane in `terms` (a
+// single-lane launch reads row g, as it did before lanes existed).
+template <bool MULTI>
 __device__ __forceinline__ float add_records(const Params& p,
                                              const RecTable& rt,
                                              const RecMask& rm, int c, int g,
-                                             int x, int j, int k,
+                                             int lane, int x, int j, int k,
                                              float acc) {
   unsigned m = rm.col[c];
   for (unsigned z = rm.x; z; z &= z - 1) {
@@ -219,7 +240,9 @@ __device__ __forceinline__ float add_records(const Params& p,
   }
   for (; m; m &= m - 1) {
     const int r = __ffs(m) - 1;
-    acc += p.terms[g * p.total + rt.off[r] +
+    const int64_t row = MULTI ? (int64_t)(g * p.lanes + lane) * p.total
+                              : (int64_t)g * p.total;
+    acc += p.terms[row + rt.off[r] +
                    plane_index(rt.axis[r], x, j, k, p.n2, p.n3)];
   }
   return acc;
@@ -235,12 +258,13 @@ __device__ __forceinline__ bool plane_full(const Params& p,
   return full;
 }
 
-// psi of generation 0 at cell (x, j, k) from the stacks `ps`, for every
-// curl term (2 c + t) whose axis has a CPML slab holding the cell; the
-// other entries of `out` are left as they are.
+// psi of generation 0 at cell (x, j, k) of this lane from the stacks
+// `ps`, for every curl term (2 c + t) whose axis has a CPML slab holding
+// the cell; the other entries of `out` are left as they are.
 __device__ __forceinline__ void load_psi(const Params& p,
-                                         const float* const (&ps)[3], int x,
-                                         int j, int k, float (&out)[6]) {
+                                         const float* const (&ps)[3],
+                                         int lane, int x, int j, int k,
+                                         float (&out)[6]) {
   const int idx[3] = {x, j, k};
   const int n[3] = {p.n1, p.n2, p.n3};
 #pragma unroll
@@ -252,7 +276,8 @@ __device__ __forceinline__ void load_psi(const Params& p,
       if (m > 0) {
         const int q = slab_plane(idx[a], n[a], m);
         if (q >= 0) {
-          out[2 * c + t] = ps[a][psi_offset(a, c < a ? c : c - 1, q, x, j,
+          out[2 * c + t] = ps[a][lane * p.psi_lane[a] +
+                                 psi_offset(a, c < a ? c : c - 1, q, x, j,
                                             k, p.n1, p.n2, p.n3, 2 * m)];
         }
       }
@@ -262,17 +287,20 @@ __device__ __forceinline__ void load_psi(const Params& p,
 
 // One E cell of generation G + 1 at this thread's column.
 // hr: the ring of the H generation G (plane x at offset s0, x-1 at s1);
-// old: E(G) of the cell. G = 0 takes generation 0's psi and J from
-// psi0/j0 (loaded a plane ahead) and leaves generation 1's in pe/jr;
+// old: E(G) of the cell; drive: this lane's point-source values (a
+// one-lane launch reads p.drive, a kernel parameter, instead). G = 0
+// takes generation 0's psi and J from psi0/j0 (loaded a plane ahead)
+// and leaves generation 1's in pe/jr;
 // G = 1 takes them from pe/jr and, when `store`, writes generation 2's
 // to device memory. FULL = false compiles the CPML and the records out:
 // the straight-line path of a cell that no slab and no record touches.
-template <int G, bool FULL>
+template <int G, bool FULL, bool MULTI>
 __device__ __forceinline__ void e_cell(const Params& p, const RecTable& rt,
                                        const RecMask& rm, const float* hr,
                                        int s0, int s1, const int idx[3],
-                                       int64_t cell, int tid,
+                                       int lane, int64_t cell, int tid,
                                        const float (&old)[3],
+                                       const float (&drive)[2],
                                        const float (&psi0)[6],
                                        const float (&j0)[3], float (&pe)[6],
                                        float (&jr)[3], float (&out)[3],
@@ -307,7 +335,8 @@ __device__ __forceinline__ void e_cell(const Params& p, const RecTable& rt,
           if (G == 0) {
             pe[2 * c + t] = psi;
           } else if (store) {
-            p.psE2[a][psi_offset(a, c < a ? c : c - 1, q, idx[0], idx[1],
+            p.psE2[a][lane * p.psi_lane[a] +
+                      psi_offset(a, c < a ? c : c - 1, q, idx[0], idx[1],
                                  idx[2], p.n1, p.n2, p.n3, 2 * m)] = psi;
           }
           acc += s * ((pr[4 * m + q] - 1.f) * dfa + psi);
@@ -315,21 +344,26 @@ __device__ __forceinline__ void e_cell(const Params& p, const RecTable& rt,
       }
       acc += s * dfa;
     }
-    if (FULL) acc = add_records(p, rt, rm, c, G, idx[0], idx[1], idx[2], acc);
+    if (FULL) {
+      acc = add_records<MULTI>(p, rt, rm, c, G, lane, idx[0], idx[1],
+                               idx[2], acc);
+    }
     if (p.J0) {
       const float jo = G == 0 ? j0[c] : jr[c];
-      const float jn = coef(p.kj[c], cell) * jo + coef(p.bj[c], cell) * old[c];
+      const float jn = coef(p.kj[c], lane, cell) * jo +
+                       coef(p.bj[c], lane, cell) * old[c];
       if (G == 0) {
         jr[c] = jn;
       } else if (store) {
-        p.J2[c * vol + cell] = jn;
+        p.J2[(int64_t)lane * p.field_lane + c * vol + cell] = jn;
       }
       acc -= jn;
     }
     if (c == p.pc && idx[0] == p.pi && idx[1] == p.pj && idx[2] == p.pk) {
-      acc += p.drive[G];
+      acc += MULTI ? drive[G] : p.drive[G];
     }
-    float v = coef(p.fe.a[c], cell) * old[c] + coef(p.fe.b[c], cell) * acc;
+    float v = coef(p.fe.a[c], lane, cell) * old[c] +
+              coef(p.fe.b[c], lane, cell) * acc;
     // PEC walls: tangential E vanishes on the walls of the two axes
     // other than its own.
 #pragma unroll
@@ -343,11 +377,11 @@ __device__ __forceinline__ void e_cell(const Params& p, const RecTable& rt,
 // One H cell of generation G + 1 at this thread's column.
 // er: the ring of the E generation G + 1 (plane x at offset s0, x+1 at
 // s1); old: H(G) of the cell; psi and FULL as in e_cell, in psi0/ph.
-template <int G, bool FULL>
+template <int G, bool FULL, bool MULTI>
 __device__ __forceinline__ void h_cell(const Params& p, const RecTable& rt,
                                        const RecMask& rm, const float* er,
                                        int s0, int s1, const int idx[3],
-                                       int64_t cell, int tid,
+                                       int lane, int64_t cell, int tid,
                                        const float (&old)[3],
                                        const float (&psi0)[6],
                                        float (&ph)[6], float (&out)[3],
@@ -381,7 +415,8 @@ __device__ __forceinline__ void h_cell(const Params& p, const RecTable& rt,
           if (G == 0) {
             ph[2 * c + t] = psi;
           } else if (store) {
-            p.psH2[a][psi_offset(a, c < a ? c : c - 1, q, idx[0], idx[1],
+            p.psH2[a][lane * p.psi_lane[a] +
+                      psi_offset(a, c < a ? c : c - 1, q, idx[0], idx[1],
                                  idx[2], p.n1, p.n2, p.n3, 2 * m)] = psi;
           }
           acc += s * ((pr[4 * m + q] - 1.f) * dfa + psi);
@@ -389,11 +424,20 @@ __device__ __forceinline__ void h_cell(const Params& p, const RecTable& rt,
       }
       acc += s * dfa;
     }
-    if (FULL) acc = add_records(p, rt, rm, c, G, idx[0], idx[1], idx[2], acc);
-    out[c] = coef(p.fh.a[c], cell) * old[c] - coef(p.fh.b[c], cell) * acc;
+    if (FULL) {
+      acc = add_records<MULTI>(p, rt, rm, c, G, lane, idx[0], idx[1],
+                               idx[2], acc);
+    }
+    out[c] = coef(p.fh.a[c], lane, cell) * old[c] -
+             coef(p.fh.b[c], lane, cell) * acc;
   }
 }
 
+// MULTI = false is the launch of a single lane (a solo run, or a batch
+// of one): the lane is the constant 0, every lane offset folds away and
+// the drive is a kernel parameter, so the solo pass compiles to the code
+// it had before lanes existed.
+template <bool MULTI>
 __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
   extern __shared__ float ring[];
   float* h0r = ring;              // H(t)   planes i, i-1
@@ -407,10 +451,14 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
   const int k = blockIdx.x * (BZ - 2 * HALO) - HALO + lz;
   const int j = blockIdx.y * (BY - 2 * HALO) - HALO + ly;
   const int n1 = p.n1;
-  // this block's x segment [x0, x1): it marches from x0 - 1 (generation
-  // 1's halo plane) to x1 + 1, and writes generation 2 on [x0, x1) only
-  const int xs = (n1 + gridDim.z - 1) / gridDim.z;
-  const int x0 = blockIdx.z * xs;
+  // this block's lane and x segment [x0, x1): it marches from x0 - 1
+  // (generation 1's halo plane) to x1 + 1, and writes generation 2 on
+  // [x0, x1) only
+  // (a single-lane launch keeps the solo pass's own unsigned arithmetic)
+  const unsigned segs = MULTI ? gridDim.z / p.lanes : gridDim.z;
+  const int lane = MULTI ? blockIdx.z / segs : 0;
+  const int xs = (n1 + segs - 1) / segs;
+  const int x0 = (MULTI ? blockIdx.z % segs : blockIdx.z) * xs;
   if (x0 >= n1) return;  // the whole block: before any barrier
   const int x1 = min(x0 + xs, n1);
   const int lim = min(n1, x1 + 2);  // planes of generation 0 read: < lim
@@ -424,6 +472,17 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
   const bool in_e2 = in_h1 && ly >= 2 && lz >= 2;
   const bool own = in_e2 && ly < BY - 2 && lz < BZ - 2;
   const int64_t col = inside ? (int64_t)j * p.n3 + k : 0;
+  // the lane's offset in the field and J stacks (psi and coefficient
+  // grids take theirs where they are read); 0 in a single-lane launch
+  const int64_t lf = lane * p.field_lane;
+  // a launch of several lanes reads its lane's point-source values once:
+  // a register operand lets every cell add them branch-free, as the
+  // kernel parameter of a one-lane launch does
+  float drive[2] = {0.f, 0.f};
+  if (MULTI && p.pc >= 0) {
+    drive[0] = p.lane_drive[2 * lane];
+    drive[1] = p.lane_drive[2 * lane + 1];
+  }
 
   if (tid < p.fe.n_rec) copy_table(p.fe, tid, rt_e);
   if (tid < p.fh.n_rec) copy_table(p.fh, tid, rt_h);
@@ -455,23 +514,24 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
       const int64_t before = first - pstride;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        h0r[((ib - 1) & 1) * PLANE + c * NT + tid] = p.H0[c * vol + before];
+        h0r[((ib - 1) & 1) * PLANE + c * NT + tid] =
+            p.H0[lf + c * vol + before];
       }
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      hn[c] = p.H0[c * vol + first];
-      en[c] = p.E0[c * vol + first];
+      hn[c] = p.H0[lf + c * vol + first];
+      en[c] = p.E0[lf + c * vol + first];
     }
   }
   if (in_e1) {
-    load_psi(p, p.psE0, ib, j, k, pse);
+    load_psi(p, p.psE0, lane, ib, j, k, pse);
     if (p.J0) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) jn[c] = p.J0[c * vol + first];
+      for (int c = 0; c < 3; ++c) jn[c] = p.J0[lf + c * vol + first];
     }
   }
-  if (in_h1) load_psi(p, p.psH0, ib, j, k, psh);
+  if (in_h1) load_psi(p, p.psH0, lane, ib, j, k, psh);
 
   for (int i = ib; i <= x1 + 1; ++i) {
     // ring offsets: plane i (and i-2) in slot i & 1, plane i-1 in the other
@@ -488,8 +548,8 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
         const int64_t nxt = (int64_t)(i + 1) * pstride + col;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          hn[c] = p.H0[c * vol + nxt];
-          en[c] = p.E0[c * vol + nxt];
+          hn[c] = p.H0[lf + c * vol + nxt];
+          en[c] = p.E0[lf + c * vol + nxt];
         }
       }
     }
@@ -500,22 +560,22 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
       const int idx[3] = {i, j, k};
       float out[3];
       if (col_e || plane_full(p, rt_e, rm_e, i)) {
-        e_cell<0, true>(p, rt_e, rm_e, h0r, s_i, s_m, idx,
-                        (int64_t)i * pstride + col, tid, e_old, pse, jn,
-                        pe_new, j_new, out, false);
+        e_cell<0, true, MULTI>(p, rt_e, rm_e, h0r, s_i, s_m, idx, lane,
+                               (int64_t)i * pstride + col, tid, e_old, drive,
+                               pse, jn, pe_new, j_new, out, false);
       } else {
-        e_cell<0, false>(p, rt_e, rm_e, h0r, s_i, s_m, idx,
-                         (int64_t)i * pstride + col, tid, e_old, pse, jn,
-                         pe_new, j_new, out, false);
+        e_cell<0, false, MULTI>(p, rt_e, rm_e, h0r, s_i, s_m, idx, lane,
+                                (int64_t)i * pstride + col, tid, e_old, drive,
+                                pse, jn, pe_new, j_new, out, false);
       }
 #pragma unroll
       for (int c = 0; c < 3; ++c) e1r[s_i + c * NT + tid] = out[c];
       if (i + 1 < lim) {
-        load_psi(p, p.psE0, i + 1, j, k, pse);
+        load_psi(p, p.psE0, lane, i + 1, j, k, pse);
         if (p.J0) {
           const int64_t nxt = (int64_t)(i + 1) * pstride + col;
 #pragma unroll
-          for (int c = 0; c < 3; ++c) jn[c] = p.J0[c * vol + nxt];
+          for (int c = 0; c < 3; ++c) jn[c] = p.J0[lf + c * vol + nxt];
         }
       }
     }
@@ -529,17 +589,17 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = h0r[s_m + c * NT + tid];
       if (col_h || plane_full(p, rt_h, rm_h, xa)) {
-        h_cell<0, true>(p, rt_h, rm_h, e1r, s_m, s_i, idx,
-                        (int64_t)xa * pstride + col, tid, old, psh, ph_new,
-                        out, false);
+        h_cell<0, true, MULTI>(p, rt_h, rm_h, e1r, s_m, s_i, idx, lane,
+                               (int64_t)xa * pstride + col, tid, old, psh,
+                               ph_new, out, false);
       } else {
-        h_cell<0, false>(p, rt_h, rm_h, e1r, s_m, s_i, idx,
-                         (int64_t)xa * pstride + col, tid, old, psh, ph_new,
-                         out, false);
+        h_cell<0, false, MULTI>(p, rt_h, rm_h, e1r, s_m, s_i, idx, lane,
+                                (int64_t)xa * pstride + col, tid, old, psh,
+                                ph_new, out, false);
       }
 #pragma unroll
       for (int c = 0; c < 3; ++c) h1r[s_m + c * NT + tid] = out[c];
-      if (i <= x1 && i < n1) load_psi(p, p.psH0, i, j, k, psh);
+      if (i <= x1 && i < n1) load_psi(p, p.psH0, lane, i, j, k, psh);
     }
     __syncthreads();
 
@@ -552,16 +612,18 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = e1r[s_m + c * NT + tid];
       if (col_e || plane_full(p, rt_e, rm_e, xa)) {
-        e_cell<1, true>(p, rt_e, rm_e, h1r, s_m, s_i, idx, cell, tid, old,
-                        pse, jn, pe_old, j_old, out, store);
+        e_cell<1, true, MULTI>(p, rt_e, rm_e, h1r, s_m, s_i, idx, lane,
+                               cell, tid, old, drive, pse, jn, pe_old, j_old,
+                               out, store);
       } else {
-        e_cell<1, false>(p, rt_e, rm_e, h1r, s_m, s_i, idx, cell, tid, old,
-                         pse, jn, pe_old, j_old, out, store);
+        e_cell<1, false, MULTI>(p, rt_e, rm_e, h1r, s_m, s_i, idx, lane,
+                                cell, tid, old, drive, pse, jn, pe_old,
+                                j_old, out, store);
       }
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         e2r[s_m + c * NT + tid] = out[c];
-        if (store) p.E2[c * vol + cell] = out[c];
+        if (store) p.E2[lf + c * vol + cell] = out[c];
       }
     }
     __syncthreads();
@@ -575,14 +637,14 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = h1r[s_i + c * NT + tid];
       if (col_h || plane_full(p, rt_h, rm_h, x2)) {
-        h_cell<1, true>(p, rt_h, rm_h, e2r, s_i, s_m, idx, cell, tid, old,
-                        psh, ph_old, out, true);
+        h_cell<1, true, MULTI>(p, rt_h, rm_h, e2r, s_i, s_m, idx, lane,
+                               cell, tid, old, psh, ph_old, out, true);
       } else {
-        h_cell<1, false>(p, rt_h, rm_h, e2r, s_i, s_m, idx, cell, tid, old,
-                         psh, ph_old, out, true);
+        h_cell<1, false, MULTI>(p, rt_h, rm_h, e2r, s_i, s_m, idx, lane,
+                                cell, tid, old, psh, ph_old, out, true);
       }
 #pragma unroll
-      for (int c = 0; c < 3; ++c) p.H2[c * vol + cell] = out[c];
+      for (int c = 0; c < 3; ++c) p.H2[lf + c * vol + cell] = out[c];
     }
 
     // the plane made this iteration is the next iteration's old plane
@@ -624,16 +686,30 @@ int fdtd_tb_pass(const Params* p, void* stream) {
   const int smem = 8 * PLANE * static_cast<int>(sizeof(float));
   static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tb_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaFuncAttribute attr =
+        cudaFuncAttributeMaxDynamicSharedMemorySize;
+    cudaError_t err = cudaFuncSetAttribute(tb_pass<false>, attr, smem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(tb_pass<true>, attr, smem);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const dim3 block(BZ, BY);
   const int gz = (p->n3 + BZ - 2 * HALO - 1) / (BZ - 2 * HALO);
   const int gy = (p->n2 + BY - 2 * HALO - 1) / (BY - 2 * HALO);
-  const dim3 grid(gz, gy, segments(gz * gy, p->n1));
-  tb_pass<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(*p);
+  // the solo launch's segments for every lane, the lane beside them
+  const int segs = segments(gz * gy, p->n1);
+  if (p->lanes < 1 || (long long)segs * p->lanes > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(gz, gy, segs * p->lanes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->lanes == 1) {
+    tb_pass<false><<<grid, block, smem, s>>>(*p);
+  } else {
+    tb_pass<true><<<grid, block, smem, s>>>(*p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,17 +28,30 @@ of axis a, (2, ...) with dim 1+a of 2m planes, rows = the two
 components with a curl term along a, in component order; ``J``
 (3, n1, n2, n3) with Drude; ``inc`` and ``t`` as in the dict form.
 
+Lanes: the same kernels are the port of the reference's lane-capable
+build (``make_packed_eh_step_batched``, :537, whose ``pallas_call`` the
+batch executor vmaps). With ``batch=B`` every carry leaf has a leading
+lane axis (``E`` (B, 3, n1, n2, n3), psi (B, 2, ...), ``J``, the
+incident line (B, n)), a coefficient is a host float shared by every
+lane, a shared grid (n1, n2, n3) or a per-lane grid (B, n1, n2, n3), and
+one launch per family advances all B lanes (csrc/packed_eh.cu). The
+sources carry per-lane values as device tensors: the TFSF face patch
+its per-lane ``cb``, the point source ``ps_amp * cb`` per lane. A solo
+run (``batch=0``) keeps the carry without the lane axis and launches
+the same kernels with one lane.
+
 Beside each kernel wrapper stands its plain PyTorch version with the
-same signature (``e_update_plain``/``h_update_plain``). A wrapper uses
-the plain version only for tensors on the CPU; on a CUDA tensor it
-launches the kernel or raises. ``e_update.launches`` and
-``h_update.launches`` count kernel launches.
+same signature (``e_update_plain``/``h_update_plain``), on the solo
+and the lane-stacked layouts alike. A wrapper uses the plain version
+only for tensors on the CPU; on a CUDA tensor it launches the kernel or
+raises. ``e_update.launches`` and ``h_update.launches`` count kernel
+launches (one per launch, whatever the number of lanes).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -59,12 +72,16 @@ def psi_row(c: int, a: int) -> int:
     return c if c < a else c - 1
 
 
-def pack(state: Dict[str, Any], static) -> Dict[str, Any]:
-    """Dict-form state -> packed carry (new tensors)."""
+def pack(state: Dict[str, Any], static, lanes: bool = False
+         ) -> Dict[str, Any]:
+    """Dict-form state -> packed carry (new tensors). ``lanes``: every
+    leaf of the state carries a leading lane axis, which stays in front
+    of the stacked component axis."""
     mode = static.mode
+    d = int(lanes)
     p: Dict[str, Any] = {
-        "E": torch.stack([state["E"][c] for c in mode.e_components]),
-        "H": torch.stack([state["H"][c] for c in mode.h_components]),
+        "E": torch.stack([state["E"][c] for c in mode.e_components], d),
+        "H": torch.stack([state["H"][c] for c in mode.h_components], d),
         "t": int(state["t"]),
         "psE": {}, "psH": {}}
     for a in slab_axes(static):
@@ -72,20 +89,24 @@ def pack(state: Dict[str, Any], static) -> Dict[str, Any]:
                                 ("psH", "psi_H", mode.h_components)):
             rows = [c for c in comps if component_axis(c) != a]
             p[fam][a] = torch.stack(
-                [state[key][f"{c}_{AXES[a]}"] for c in rows])
+                [state[key][f"{c}_{AXES[a]}"] for c in rows], d)
     if static.use_drude:
-        p["J"] = torch.stack([state["J"][c] for c in mode.e_components])
+        p["J"] = torch.stack([state["J"][c] for c in mode.e_components], d)
     if static.tfsf_setup is not None:
         p["inc"] = {k: v.clone() for k, v in state["inc"].items()}
     return p
 
 
-def unpack(p: Dict[str, Any], static) -> Dict[str, Any]:
+def unpack(p: Dict[str, Any], static, lanes: bool = False
+           ) -> Dict[str, Any]:
     """Packed carry -> dict-form state (views into the carry)."""
     mode = static.mode
+    d = int(lanes)
     state: Dict[str, Any] = {
-        "E": {c: p["E"][j] for j, c in enumerate(mode.e_components)},
-        "H": {c: p["H"][j] for j, c in enumerate(mode.h_components)},
+        "E": {c: p["E"].select(d, j)
+              for j, c in enumerate(mode.e_components)},
+        "H": {c: p["H"].select(d, j)
+              for j, c in enumerate(mode.h_components)},
         "t": p["t"]}
     if p["psE"]:
         state["psi_E"], state["psi_H"] = {}, {}
@@ -94,12 +115,28 @@ def unpack(p: Dict[str, Any], static) -> Dict[str, Any]:
                                     ("psH", "psi_H", mode.h_components)):
                 rows = [c for c in comps if component_axis(c) != a]
                 for r, c in enumerate(rows):
-                    state[key][f"{c}_{AXES[a]}"] = p[fam][a][r]
+                    state[key][f"{c}_{AXES[a]}"] = p[fam][a].select(d, r)
     if "J" in p:
-        state["J"] = {c: p["J"][j] for j, c in enumerate(mode.e_components)}
+        state["J"] = {c: p["J"].select(d, j)
+                      for j, c in enumerate(mode.e_components)}
     if "inc" in p:
         state["inc"] = dict(p["inc"])
     return state
+
+
+def baked_coeff_keys(static) -> Tuple[str, ...]:
+    """Coefficient keys the packed kernels take as one scalar for every
+    lane when their host value is scalar (np.ndim < 3): the reference's
+    ``pallas_packed.baked_coeff_keys`` (:517). The batch dispatch
+    authority (``solver.batch_fallback_reason``) sweeps them across
+    lanes; a scalar that differs between lanes would run lane 0's value
+    in every lane (``scalar_coeff_divergence``)."""
+    mode = static.mode
+    pairs_e = ["ca", "cb"] + (["kj", "bj"] if static.use_drude else [])
+    pairs_h = ["da", "db"] + (["km", "bm"] if static.use_drude_m else [])
+    keys = [f"{p}_{c}" for c in mode.e_components for p in pairs_e]
+    keys += [f"{p}_{c}" for c in mode.h_components for p in pairs_h]
+    return tuple(keys)
 
 
 def prepare_family(static, coeffs, family: str) -> Dict[str, Any]:
@@ -173,14 +210,45 @@ def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
         F[c].copy_(v)
 
 
+def lane_fc(fc: Dict[str, Any], lane: int) -> Dict[str, Any]:
+    """One lane's family operands: per-lane coefficient grids
+    (B, n1, n2, n3) cut to the lane; scalars and shared grids as they
+    are."""
+    def cut(v):
+        return v[lane] if isinstance(v, torch.Tensor) and v.dim() == 4 \
+            else v
+    out = {k: v for k, v in fc.items() if k != "_params"}
+    for key in ("a", "b", "kj", "bj"):
+        if fc[key] is not None:
+            out[key] = [cut(v) for v in fc[key]]
+    return out
+
+
+def lane_views(F, S, J, psi):
+    """The solo-layout operands of every lane: a solo carry is its own
+    single lane; a lane-stacked one yields a view per lane."""
+    if F.dim() == 4:
+        yield None, F, S, J, psi
+        return
+    for lane in range(F.shape[0]):
+        yield (lane, F[lane], S[lane], None if J is None else J[lane],
+               {a: v[lane] for a, v in psi.items()})
+
+
 def e_update_plain(E, H, J, psi, fc) -> None:
-    """E (and J, psi_E) in place from backward differences of H."""
-    _family_plain(E, H, J, psi, fc, backward=True)
+    """E (and J, psi_E) in place from backward differences of H, on the
+    solo or the lane-stacked layout (one lane after the other)."""
+    for lane, e, h, j, ps in lane_views(E, H, J, psi):
+        _family_plain(e, h, j, ps, fc if lane is None else lane_fc(fc, lane),
+                      backward=True)
 
 
 def h_update_plain(H, E, psi, fc) -> None:
-    """H (and psi_H) in place from forward differences of E."""
-    _family_plain(H, E, None, psi, fc, backward=False)
+    """H (and psi_H) in place from forward differences of E, on the solo
+    or the lane-stacked layout."""
+    for lane, h, e, _, ps in lane_views(H, E, None, psi):
+        _family_plain(h, e, None, ps, fc if lane is None else lane_fc(fc, lane),
+                      backward=False)
 
 
 # --------------------------------------------------------------------------
@@ -188,7 +256,9 @@ def h_update_plain(H, E, psi, fc) -> None:
 # --------------------------------------------------------------------------
 
 class _Coef(ctypes.Structure):
-    _fields_ = [("grid", ctypes.c_void_p), ("val", ctypes.c_float)]
+    """Mirror of ``struct Coef`` in csrc/packed_eh.cu and packed_tb.cu."""
+    _fields_ = [("grid", ctypes.c_void_p), ("lane", ctypes.c_longlong),
+                ("val", ctypes.c_float)]
 
 
 class _Params(ctypes.Structure):
@@ -196,11 +266,14 @@ class _Params(ctypes.Structure):
     _fields_ = [("F", ctypes.c_void_p), ("S", ctypes.c_void_p),
                 ("J", ctypes.c_void_p),
                 ("psi", ctypes.c_void_p * 3), ("prof", ctypes.c_void_p * 3),
+                ("field_lane", ctypes.c_longlong),
+                ("psi_lane", ctypes.c_longlong * 3),
                 ("m", ctypes.c_int * 3),
                 ("a", _Coef * 3), ("b", _Coef * 3),
                 ("kj", _Coef * 3), ("bj", _Coef * 3),
                 ("n1", ctypes.c_int), ("n2", ctypes.c_int),
-                ("n3", ctypes.c_int), ("inv_dx", ctypes.c_float)]
+                ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
+                ("inv_dx", ctypes.c_float)]
 
 
 def _library() -> ctypes.CDLL:
@@ -231,37 +304,64 @@ def _check(t: torch.Tensor, name: str, shape, device) -> int:
     return t.data_ptr()
 
 
-def _coef_struct(v, name, shape, device) -> _Coef:
-    if isinstance(v, torch.Tensor):
-        return _Coef(_check(v, name, shape, device), 0.0)
-    return _Coef(None, float(v))
+def _coef_struct(v, name, shape, device, lanes: int) -> _Coef:
+    """A coefficient for the kernel: a scalar for every lane, a grid
+    shared by every lane (lane stride 0) or a per-lane grid."""
+    if not isinstance(v, torch.Tensor):
+        return _Coef(None, 0, float(v))
+    if v.dim() == 4:
+        vol = shape[0] * shape[1] * shape[2]
+        return _Coef(_check(v, name, (lanes,) + tuple(shape), device), vol,
+                     0.0)
+    return _Coef(_check(v, name, shape, device), 0, 0.0)
+
+
+def carry_lanes(F: torch.Tensor) -> Tuple[int, Tuple[int, ...]]:
+    """(lanes, leading dims) of a stacked field: a solo carry
+    (3, n1, n2, n3) is one lane with no lane axis; a batch carry is
+    (B, 3, n1, n2, n3)."""
+    return (F.shape[0], (F.shape[0],)) if F.dim() == 5 else (1, ())
+
+
+def psi_shape(shape, a: int, m: int, lead=()) -> Tuple[int, ...]:
+    """Shape of the compact slab psi stack of axis a."""
+    ps = [2] + list(shape)
+    ps[1 + a] = 2 * m
+    return tuple(lead) + tuple(ps)
 
 
 def _params(F, S, J, psi, fc) -> _Params:
     """The launch's parameter block; the static part (coefficients,
-    profiles) is built and checked once per prepared family."""
+    profiles) is built and checked once per prepared family, device and
+    lane count."""
     device = F.device
     shape = fc["shape"]
+    lanes, lead = carry_lanes(F)
     base = fc.get("_params")
-    if base is None or base[0] != device:
+    if base is None or base[0] != (device, lanes):
         prm = _Params()
         for c in range(3):
-            prm.a[c] = _coef_struct(fc["a"][c], f"a[{c}]", shape, device)
-            prm.b[c] = _coef_struct(fc["b"][c], f"b[{c}]", shape, device)
+            prm.a[c] = _coef_struct(fc["a"][c], f"a[{c}]", shape, device,
+                                    lanes)
+            prm.b[c] = _coef_struct(fc["b"][c], f"b[{c}]", shape, device,
+                                    lanes)
             if fc["kj"] is not None:
                 prm.kj[c] = _coef_struct(fc["kj"][c], f"kj[{c}]", shape,
-                                         device)
+                                         device, lanes)
                 prm.bj[c] = _coef_struct(fc["bj"][c], f"bj[{c}]", shape,
-                                         device)
+                                         device, lanes)
         for a, m in fc["m"].items():
             prm.m[a] = m
             prm.prof[a] = _check(fc["prof"][a], f"prof[{a}]", (3, 2 * m),
                                  device)
+            prm.psi_lane[a] = int(np.prod(psi_shape(shape, a, m)))
         prm.n1, prm.n2, prm.n3 = shape
+        prm.lanes = lanes
+        prm.field_lane = 3 * shape[0] * shape[1] * shape[2]
         prm.inv_dx = fc["inv_dx"]
-        fc["_params"] = base = (device, prm)
+        fc["_params"] = base = ((device, lanes), prm)
     prm = _Params.from_buffer_copy(base[1])
-    full = (3,) + tuple(shape)
+    full = lead + (3,) + tuple(shape)
     prm.F = _check(F, "F", full, device)
     prm.S = _check(S, "S", full, device)
     if J is not None:
@@ -269,9 +369,8 @@ def _params(F, S, J, psi, fc) -> _Params:
     elif fc["family"] == "E" and fc["kj"] is not None:
         raise ValueError("Drude coefficients given but no J stack")
     for a, m in fc["m"].items():
-        ps = list(full)
-        ps[0], ps[1 + a] = 2, 2 * m
-        prm.psi[a] = _check(psi[a], f"psi[{a}]", ps, device)
+        prm.psi[a] = _check(psi[a], f"psi[{a}]", psi_shape(shape, a, m, lead),
+                            device)
     return prm
 
 
@@ -285,8 +384,9 @@ def _launch(fn: str, prm: _Params, device) -> None:
 
 
 def e_update(E, H, J, psi, fc) -> None:
-    """E (and J, psi_E) in place: the CUDA kernel on CUDA tensors, its
-    plain version on CPU tensors."""
+    """E (and J, psi_E) in place, every lane of a lane-stacked carry in
+    one launch: the CUDA kernel on CUDA tensors, its plain version on
+    CPU tensors."""
     if not E.is_cuda:
         e_update_plain(E, H, J, psi, fc)
         return
@@ -295,8 +395,8 @@ def e_update(E, H, J, psi, fc) -> None:
 
 
 def h_update(H, E, psi, fc) -> None:
-    """H (and psi_H) in place: the CUDA kernel on CUDA tensors, its
-    plain version on CPU tensors."""
+    """H (and psi_H) in place, every lane in one launch: the CUDA kernel
+    on CUDA tensors, its plain version on CPU tensors."""
     if not H.is_cuda:
         h_update_plain(H, E, psi, fc)
         return
@@ -312,19 +412,27 @@ h_update.launches = 0
 # the packed step
 # --------------------------------------------------------------------------
 
-def make_packed_step(static, device, plain: bool = False):
+def make_packed_step(static, device, plain: bool = False, batch: int = 0):
     """The packed step over the packed carry (updated in place).
 
     On a CUDA ``device`` the two family updates launch the kernels
     (kind ``packed_cuda``); on the CPU they run their plain versions
     (kind ``packed_plain``). ``plain=True`` runs the plain versions on
     any device: the yardstick chip_smoke.py holds the kernels against.
+    ``batch=B`` (B >= 1) builds the lane-capable step over a carry with
+    a leading lane axis of B lanes (see the module docstring); the host
+    ops of a step do not grow with B.
     """
     setup = static.tfsf_setup
-    if set(static.pml_axes) != set(slab_axes(static)):
+    thin = sorted(set(static.pml_axes) - set(slab_axes(static)))
+    if thin:
+        # the reference runs a thin y or z axis through pallas3d's
+        # in-kernel full-length psi, and a thin x axis on its jnp step
+        item = "B3" if any(a in (1, 2) for a in thin) else "A4"
         raise NotImplementedError(
-            "full-length CPML psi (a PML too thick for slab storage) is "
-            "not in the packed step's scope (ROADMAP.md queue A4)")
+            f"full-length CPML psi on axis {', '.join(AXES[a] for a in thin)}"
+            f" (a PML too thick for slab storage) is not in the packed "
+            f"step's scope (ROADMAP.md queue {item})")
     e_fn, h_fn = (e_update_plain, h_update_plain) if plain \
         else (e_update, h_update)
 
@@ -332,8 +440,10 @@ def make_packed_step(static, device, plain: bool = False):
         return {"coeffs": coeffs,
                 "E": prepare_family(static, coeffs, "E"),
                 "H": prepare_family(static, coeffs, "H"),
-                "tfsf_E": patches.build_tfsf_plan(static, coeffs, "E"),
-                "tfsf_H": patches.build_tfsf_plan(static, coeffs, "H"),
+                "tfsf_E": patches.build_tfsf_plan(static, coeffs, "E",
+                                                  batch),
+                "tfsf_H": patches.build_tfsf_plan(static, coeffs, "H",
+                                                  batch),
                 "point": patches.build_point_source(static, coeffs)}
 
     def step(ps: Dict[str, Any], cc: Dict[str, Any]) -> Dict[str, Any]:
@@ -354,8 +464,8 @@ def make_packed_step(static, device, plain: bool = False):
         return ps
 
     step.prepare = prepare
-    step.pack = lambda state: pack(state, static)
-    step.unpack = lambda p: unpack(p, static)
+    step.pack = lambda state: pack(state, static, batch > 0)
+    step.unpack = lambda p: unpack(p, static, batch > 0)
     step.packed = True
     on_cuda = torch.device(device).type == "cuda"
     step.kind = "packed_cuda" if on_cuda and not plain else "packed_plain"

@@ -31,10 +31,23 @@ The step advances two steps per call (``steps_per_call``); its
 the carry layout, ``pack``/``unpack`` and ``prepare``, and runs in place
 on whichever buffer is live for an odd remainder.
 
+Lanes (the reference's ``batch=B`` build of this kernel): with
+``batch=B`` the carry and its spare have a leading lane axis (see
+``ops/packed.py``), and one launch advances all B lanes by two steps.
+The record table is geometry and serves every lane; the record terms
+are (2, B, total), one row per generation and lane, from the
+lane-stacked incident line in the same eight ops as a solo run; the
+point source's drive is a (B, 2) device tensor, ``ps_amp`` of each lane
+times ``waveform(t+g-1)``. A solo run (``batch=0``) is one lane, and a
+launch of one lane takes its drive as two host floats (kernel
+parameters), as the solo pass did before lanes existed: the one-lane
+build of the kernel is then the solo pass's code (csrc/packed_tb.cu).
+
 Beside the kernel wrapper ``tb_pass`` stands its plain PyTorch version
-``tb_pass_plain`` with the same signature; the wrapper takes it only for
-CPU tensors, and on a CUDA tensor launches the kernel or raises.
-``tb_pass.launches`` counts kernel launches.
+``tb_pass_plain`` with the same signature, on the solo and the
+lane-stacked layouts; the wrapper takes it only for CPU tensors, and on
+a CUDA tensor launches the kernel or raises. ``tb_pass.launches`` counts
+kernel launches (one per launch, whatever the number of lanes).
 """
 
 from __future__ import annotations
@@ -140,18 +153,21 @@ def tfsf_records(static) -> Dict[str, List[Record]]:
 def generation_terms(static, tb: Dict[str, Any], inc, t: int):
     """The host part of the pass starting at step t: (the incident line
     after both generations, the records' plane terms (2, total) or
-    None, the point source's drive per generation or None).
+    (2, B, total) or None, the point source's drive or None: a (B, 2)
+    device tensor for several lanes, two host floats for one).
 
     Generation g: ``advance_einc(t+g-1)``, the plane terms (E records
     sample Hinc at t+g-1/2, H records Einc at t+g), ``advance_hinc``;
-    the point source's drive is ``ps_amp * waveform(t+g-1)``."""
+    the point source's drive is ``ps_amp * waveform(t+g-1)`` per lane.
+    The ops do not grow with the number of lanes."""
     setup = static.tfsf_setup
     terms = None
     if setup is not None:
         coeffs, plan = tb["coeffs"], tb["plan"]
         if plan is not None:
-            terms = torch.empty((DEPTH, plan.total), dtype=torch.float32,
-                                device=plan.w.device)
+            lanes = (tb["batch"],) if tb["batch"] else ()
+            terms = torch.empty((DEPTH,) + lanes + (plan.total,),
+                                dtype=torch.float32, device=plan.w.device)
         for g in range(DEPTH):
             inc = tfsf.advance_einc(inc, coeffs, t + g, static.dt,
                                     static.omega, setup)
@@ -161,23 +177,32 @@ def generation_terms(static, tb: Dict[str, Any], inc, t: int):
     drive = None
     ps = static.cfg.point_source
     if ps.enabled:
-        rd = static.real_dtype
-        amp = rd(tb["coeffs"]["ps_amp"])
-        drive = [float(amp * waveform(ps.waveform, t + g, 0.5, static.omega,
-                                      static.dt, rd))
-                 for g in range(DEPTH)]
+        wfs = [waveform(ps.waveform, t + g, 0.5, static.omega, static.dt,
+                        static.real_dtype) for g in range(DEPTH)]
+        amp = tb["amp"]
+        if isinstance(amp, torch.Tensor):
+            drive = torch.empty((amp.shape[0], DEPTH), dtype=torch.float32,
+                                device=amp.device)
+            for g, wf in enumerate(wfs):
+                torch.mul(amp, float(wf), out=drive[:, g])
+        else:
+            drive = [float(amp * wf) for wf in wfs]
     return inc, terms, drive
 
 
-def prepare(static, cc: Dict[str, Any], records) -> Dict[str, Any]:
+def prepare(static, cc: Dict[str, Any], records,
+            batch: int = 0) -> Dict[str, Any]:
     """The pass's operands on top of the packed step's prepared ``cc``:
-    the per-family operands, the record tables and the record plan."""
+    the per-family operands, the record tables and the record plan (all
+    lanes share them), and the point source's cell and amplitude
+    ``amp``: a (B,) device tensor for several lanes, an f32 host value
+    for one (read back once here)."""
     coeffs = cc["coeffs"]
     plan = tfsf.build_record_plan(static, coeffs, records)
     ps = static.cfg.point_source
     tb: Dict[str, Any] = {
         "coeffs": coeffs, "E": cc["E"], "H": cc["H"], "plan": plan,
-        "shape": tuple(static.grid_shape), "point": None}
+        "shape": tuple(static.grid_shape), "point": None, "batch": batch}
     for fam in ("E", "H"):
         if len(records[fam]) > MAX_REC:
             raise ValueError(f"{len(records[fam])} TFSF records in the "
@@ -189,6 +214,10 @@ def prepare(static, cc: Dict[str, Any], records) -> Dict[str, Any]:
     if ps.enabled:
         tb["point"] = (static.mode.e_components.index(ps.component),
                        tuple(ps.position))
+        amp = torch.as_tensor(coeffs["ps_amp"]).reshape(-1)
+        tb["amp"] = amp.to(device=coeffs["gx"].device, dtype=torch.float32
+                           ).expand(batch).contiguous() if batch > 1 \
+            else np.float32(amp[0].item())
     return tb
 
 
@@ -213,7 +242,7 @@ def _record_adder(tb, fam: str, row):
     return add
 
 
-def _point_adder(tb, value: float):
+def _point_adder(tb, value):
     comp, (i, j, k) = tb["point"]
 
     def add(c, acc):
@@ -234,13 +263,9 @@ def _fields(carry) -> List[torch.Tensor]:
     return out
 
 
-def tb_pass_plain(src, dst, tb, terms, drive) -> None:
-    """Two generations from the carry ``src`` into ``dst`` (the same
-    keys and shapes; ``src`` is not modified): the whole volume per
-    generation, with the records added into the accumulator after the
-    curl and the point source after the Drude current."""
-    for a, b in zip(_fields(dst), _fields(src)):
-        a.copy_(b)
+def _generations(dst, tb, terms, drive) -> None:
+    """The two generations of one lane, in place on its solo-layout
+    views: ``terms`` (2, total) or None, ``drive`` two values or None."""
     for g in range(DEPTH):
         rec_e = rec_h = point = None
         if terms is not None:
@@ -252,6 +277,36 @@ def tb_pass_plain(src, dst, tb, terms, drive) -> None:
                              tb["E"], True, rec_e, point)
         packed._family_plain(dst["H"], dst["E"], None, dst["psH"], tb["H"],
                              False, rec_h)
+
+
+def _lane_carry(carry, lane: int) -> Dict[str, Any]:
+    """The pass's buffers of one lane of a lane-stacked carry (views)."""
+    out = {"E": carry["E"][lane], "H": carry["H"][lane],
+           "psE": {a: v[lane] for a, v in carry["psE"].items()},
+           "psH": {a: v[lane] for a, v in carry["psH"].items()}}
+    if "J" in carry:
+        out["J"] = carry["J"][lane]
+    return out
+
+
+def tb_pass_plain(src, dst, tb, terms, drive) -> None:
+    """Two generations from the carry ``src`` into ``dst`` (the same
+    keys and shapes; ``src`` is not modified): the whole volume per
+    generation, with the records added into the accumulator after the
+    curl and the point source after the Drude current; on a
+    lane-stacked carry, one lane after the other."""
+    for a, b in zip(_fields(dst), _fields(src)):
+        a.copy_(b)
+    if dst["E"].dim() == 4:
+        _generations(dst, tb, terms, drive)
+        return
+    for lane in range(dst["E"].shape[0]):
+        lane_tb = dict(tb, E=packed.lane_fc(tb["E"], lane),
+                       H=packed.lane_fc(tb["H"], lane))
+        _generations(_lane_carry(dst, lane), lane_tb,
+                     None if terms is None else terms[:, lane],
+                     drive if drive is None or isinstance(drive, list)
+                     else drive[lane])
 
 
 # --------------------------------------------------------------------------
@@ -280,6 +335,9 @@ class _Params(ctypes.Structure):
                 ("psE0", ctypes.c_void_p * 3), ("psH0", ctypes.c_void_p * 3),
                 ("psE2", ctypes.c_void_p * 3), ("psH2", ctypes.c_void_p * 3),
                 ("terms", ctypes.c_void_p), ("total", ctypes.c_longlong),
+                ("field_lane", ctypes.c_longlong),
+                ("psi_lane", ctypes.c_longlong * 3),
+                ("lane_drive", ctypes.c_void_p),
                 ("fe", _Family), ("fh", _Family),
                 ("kj", packed._Coef * 3), ("bj", packed._Coef * 3),
                 ("m", ctypes.c_int * 3),
@@ -287,7 +345,8 @@ class _Params(ctypes.Structure):
                 ("pj", ctypes.c_int), ("pk", ctypes.c_int),
                 ("drive", ctypes.c_float * 2),
                 ("n1", ctypes.c_int), ("n2", ctypes.c_int),
-                ("n3", ctypes.c_int), ("inv_dx", ctypes.c_float)]
+                ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
+                ("inv_dx", ctypes.c_float)]
 
 
 def _library() -> ctypes.CDLL:
@@ -307,12 +366,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _family_struct(fc, table, device) -> _Family:
+def _family_struct(fc, table, device, lanes: int) -> _Family:
     shape = fc["shape"]
     f = _Family()
     for c in range(3):
-        f.a[c] = packed._coef_struct(fc["a"][c], f"a[{c}]", shape, device)
-        f.b[c] = packed._coef_struct(fc["b"][c], f"b[{c}]", shape, device)
+        f.a[c] = packed._coef_struct(fc["a"][c], f"a[{c}]", shape, device,
+                                     lanes)
+        f.b[c] = packed._coef_struct(fc["b"][c], f"b[{c}]", shape, device,
+                                     lanes)
     for a, m in fc["m"].items():
         f.prof[a] = packed._check(fc["prof"][a], f"prof[{a}]", (3, 2 * m),
                                   device)
@@ -323,39 +384,43 @@ def _family_struct(fc, table, device) -> _Family:
     return f
 
 
-def _base_params(tb, device) -> _Params:
+def _base_params(tb, device, lanes: int) -> _Params:
     """The static part of the parameter block (coefficients, profiles,
-    record tables, the point source's cell), built and checked once per
-    prepared operand set and device."""
+    record tables, the point source's cell, the lane strides), built and
+    checked once per prepared operand set, device and lane count."""
     base = tb.get("_params")
-    if base is not None and base[0] == device:
+    if base is not None and base[0] == (device, lanes):
         return base[1]
     fe, shape = tb["E"], tb["shape"]
     prm = _Params()
-    prm.fe = _family_struct(fe, tb["rec_E"], device)
-    prm.fh = _family_struct(tb["H"], tb["rec_H"], device)
+    prm.fe = _family_struct(fe, tb["rec_E"], device, lanes)
+    prm.fh = _family_struct(tb["H"], tb["rec_H"], device, lanes)
     if fe["kj"] is not None:
         for c in range(3):
             prm.kj[c] = packed._coef_struct(fe["kj"][c], f"kj[{c}]", shape,
-                                            device)
+                                            device, lanes)
             prm.bj[c] = packed._coef_struct(fe["bj"][c], f"bj[{c}]", shape,
-                                            device)
+                                            device, lanes)
     for a, m in fe["m"].items():
         prm.m[a] = m
+        prm.psi_lane[a] = int(np.prod(packed.psi_shape(shape, a, m)))
     prm.pc = -1
     if tb["point"] is not None:
         prm.pc, (prm.pi, prm.pj, prm.pk) = tb["point"]
     prm.n1, prm.n2, prm.n3 = shape
+    prm.lanes = lanes
+    prm.field_lane = 3 * shape[0] * shape[1] * shape[2]
     prm.inv_dx = fe["inv_dx"]
-    tb["_params"] = (device, prm)
+    tb["_params"] = ((device, lanes), prm)
     return prm
 
 
 def _params(src, dst, tb, terms, drive) -> _Params:
     device = src["E"].device
     shape = tb["shape"]
-    prm = _Params.from_buffer_copy(_base_params(tb, device))
-    full = (3,) + tuple(shape)
+    lanes, lead = packed.carry_lanes(src["E"])
+    prm = _Params.from_buffer_copy(_base_params(tb, device, lanes))
+    full = lead + (3,) + tuple(shape)
     prm.E0 = packed._check(src["E"], "E", full, device)
     prm.H0 = packed._check(src["H"], "H", full, device)
     prm.E2 = packed._check(dst["E"], "E (destination)", full, device)
@@ -364,8 +429,7 @@ def _params(src, dst, tb, terms, drive) -> _Params:
         prm.J0 = packed._check(src["J"], "J", full, device)
         prm.J2 = packed._check(dst["J"], "J (destination)", full, device)
     for a, m in tb["E"]["m"].items():
-        ps = list(full)
-        ps[0], ps[1 + a] = 2, 2 * m
+        ps = packed.psi_shape(shape, a, m, lead)
         prm.psE0[a] = packed._check(src["psE"][a], f"psE[{a}]", ps, device)
         prm.psH0[a] = packed._check(src["psH"][a], f"psH[{a}]", ps, device)
         prm.psE2[a] = packed._check(dst["psE"][a], f"psE[{a}] (dst)", ps,
@@ -378,16 +442,21 @@ def _params(src, dst, tb, terms, drive) -> _Params:
                          "shares a buffer with the source")
     if tb["plan"] is not None:
         prm.terms = packed._check(terms, "terms",
-                                  (DEPTH, tb["plan"].total), device)
+                                  (DEPTH,) + lead + (tb["plan"].total,),
+                                  device)
         prm.total = tb["plan"].total
-    if tb["point"] is not None:
+    if tb["point"] is not None and lanes == 1:
         prm.drive[0], prm.drive[1] = drive
+    elif tb["point"] is not None:
+        prm.lane_drive = packed._check(drive, "drive", (lanes, DEPTH),
+                                       device)
     return prm
 
 
 def tb_pass(src, dst, tb, terms, drive) -> None:
-    """Two generations from ``src`` into ``dst``: the CUDA kernel on
-    CUDA tensors, its plain version on CPU tensors."""
+    """Two generations from ``src`` into ``dst``, every lane of a
+    lane-stacked carry in one launch: the CUDA kernel on CUDA tensors,
+    its plain version on CPU tensors."""
     if not src["E"].is_cuda:
         tb_pass_plain(src, dst, tb, terms, drive)
         return
@@ -426,7 +495,8 @@ def _swap(carry, spare) -> None:
             carry[fam][a], spare[fam][a] = spare[fam][a], carry[fam][a]
 
 
-def make_packed_tb_step(static, device, plain: bool = False):
+def make_packed_tb_step(static, device, plain: bool = False,
+                        batch: int = 0):
     """The depth-2 temporal-blocked step over the packed carry.
 
     Each call advances two steps (``steps_per_call``); ``tail_step`` is
@@ -434,20 +504,21 @@ def make_packed_tb_step(static, device, plain: bool = False):
     kernel (kind ``packed_tb_cuda``); on the CPU it runs the plain
     version (kind ``packed_tb_plain``). ``plain=True`` runs the plain
     versions on any device: the yardstick chip_smoke.py holds the
-    kernel against."""
+    kernel against. ``batch=B`` builds the lane-capable pass (and tail)
+    over a carry with B lanes."""
     reason = reject_reason(static)
     if reason is not None:
         raise NotImplementedError(
             f"this configuration is outside the temporal-blocked pass's "
             f"scope ({reason}); the packed step runs it")
-    tail = packed.make_packed_step(static, device, plain=plain)
+    tail = packed.make_packed_step(static, device, plain=plain, batch=batch)
     records = tfsf_records(static)
     fn = tb_pass_plain if plain else tb_pass
     spare: Dict[str, Any] = {}
 
     def prepare_tb(coeffs) -> Dict[str, Any]:
         cc = tail.prepare(coeffs)
-        cc["tb"] = prepare(static, cc, records)
+        cc["tb"] = prepare(static, cc, records, batch)
         return cc
 
     def step(ps: Dict[str, Any], cc: Dict[str, Any]) -> Dict[str, Any]:

@@ -13,6 +13,13 @@ coefficients are static, so a step's patch is two gathers off the
 incident line, a few elementwise ops on the face cells, and one
 ``index_add_`` onto the stacked field. The geometry comes from the same
 functions the plain step uses (ops/tfsf.py), so the two cannot drift.
+
+Lanes: on a lane-stacked carry (B, 3, n1, n2, n3) with a lane-stacked
+incident line (B, n), the face patch takes a per-lane ``cb`` (B, N) and
+adds its (B, N) values in one ``index_add_`` along the lane's row; the
+point source adds ``ps_amp * cb`` of each lane, a (B,) device tensor, at
+the driven cell of every lane. A solo carry is one lane: the same ops,
+the same values.
 """
 
 from __future__ import annotations
@@ -43,19 +50,26 @@ def _plane_cells(shape, comp_index: int, axis: int, plane: int,
     return ((comp_index * n1 + i) * n2 + j) * n3 + k
 
 
-def _coef_at(coef, cells: torch.Tensor, vol: int):
-    """A coefficient at flat stacked-cell indices (scalar or grid)."""
+def _coef_at(coef, cells: torch.Tensor, vol: int, batch: int = 0):
+    """A coefficient at flat stacked-cell indices (scalar, grid or
+    per-lane grid): (N,) for a solo run, (B, N) for ``batch=B``."""
     if isinstance(coef, torch.Tensor):
-        return coef.reshape(-1)[cells % vol]
-    return torch.full(cells.shape, coef, dtype=torch.float32,
-                      device=cells.device)
+        v = coef.reshape(-1, vol)[:, cells % vol]
+    else:
+        v = torch.full((1,) + tuple(cells.shape), coef, dtype=torch.float32,
+                       device=cells.device)
+    if not batch:
+        return v[0]
+    return v.expand(batch, -1)
 
 
-def build_tfsf_plan(static, coeffs, family: str) -> Optional[Dict]:
+def build_tfsf_plan(static, coeffs, family: str,
+                    batch: int = 0) -> Optional[Dict]:
     """The static part of one family's TFSF face patches, flattened over
     every correction that can touch a cell: target cell, line indices,
-    interpolation weights, ``sign*pol/dx`` and ``+-cb`` per entry. Cells
-    the transverse box gate or a PEC wall zeroes are left out."""
+    interpolation weights, ``sign*pol/dx`` and ``+-cb`` per entry (per
+    lane, (B, N), for ``batch=B``). Cells the transverse box gate or a
+    PEC wall zeroes are left out."""
     setup = static.tfsf_setup
     if setup is None:
         return None
@@ -106,10 +120,10 @@ def build_tfsf_plan(static, coeffs, family: str) -> Optional[Dict]:
             parts["k"].append(torch.full(
                 cells.shape, float(np.float32(corr.sign * pol / static.dx)),
                 dtype=torch.float32, device=device))
-            parts["cb"].append(sign * _coef_at(cb, cells, vol))
+            parts["cb"].append(sign * _coef_at(cb, cells, vol, batch))
     if not parts["cells"]:
         return None
-    plan = {k: torch.cat(v) for k, v in parts.items()}
+    plan = {k: torch.cat(v, dim=-1) for k, v in parts.items()}
     plan["i1"] = plan["i0"] + 1
     plan["line"] = "Hinc" if family == "E" else "Einc"
     return plan
@@ -117,19 +131,26 @@ def build_tfsf_plan(static, coeffs, family: str) -> Optional[Dict]:
 
 def tfsf_patch(arr: torch.Tensor, plan: Optional[Dict],
                inc: Dict[str, torch.Tensor]) -> None:
-    """Add one family's TFSF face corrections onto its stacked field,
-    in place."""
+    """Add one family's TFSF face corrections onto its stacked field
+    (every lane of a lane-stacked one), in place."""
     if plan is None:
         return
     line = inc[plan["line"]]
-    val = plan["w0"] * line[plan["i0"]] + plan["w1"] * line[plan["i1"]]
+    val = plan["w0"] * line[..., plan["i0"]] \
+        + plan["w1"] * line[..., plan["i1"]]
     val = plan["cb"] * (plan["k"] * val)
-    arr.view(-1).index_add_(0, plan["cells"], val)
+    if val.dim() == 1:
+        arr.view(-1).index_add_(0, plan["cells"], val)
+    else:
+        arr.view(val.shape[0], -1).index_add_(1, plan["cells"], val)
 
 
 def build_point_source(static, coeffs) -> Optional[Dict]:
     """Static part of the point-source patch: the driven cell of the
-    stacked E array and its ``cb`` (or None when off, or on a wall)."""
+    stacked E array and ``ps_amp * cb`` there for each lane, a (B,)
+    device tensor ((1,) for a solo run), or None when off, or on a
+    wall. ``coeffs["ps_amp"]`` is a host float, or a (B,) tensor of
+    per-lane amplitudes."""
     ps = static.cfg.point_source
     if not ps.enabled:
         return None
@@ -142,18 +163,25 @@ def build_point_source(static, coeffs) -> Optional[Dict]:
                 and ps.position[a2] in (0, static.grid_shape[a2] - 1):
             return None   # a PEC wall cell stays zero
     cb = coeffs[f"cb_{ps.component}"]
+    device = coeffs["gx"].device
     if isinstance(cb, torch.Tensor):
-        cb = float(cb[i, j, k].item())
-    return {"cell": ((ci * n1 + i) * n2 + j) * n3 + k,
-            "amp_cb": np.float32(coeffs["ps_amp"]) * np.float32(cb)}
+        cb = cb[..., i, j, k].reshape(-1)
+    else:
+        cb = torch.tensor([cb], dtype=torch.float32, device=device)
+    amp = torch.as_tensor(coeffs["ps_amp"], dtype=torch.float32,
+                          device=device).reshape(-1)
+    return {"cell": ((ci * n1 + i) * n2 + j) * n3 + k, "amp_cb": amp * cb}
 
 
 def point_source_patch(static, E: torch.Tensor, src: Optional[Dict],
                        t: int) -> None:
-    """Soft point source as a single-cell add onto stacked E, in place."""
+    """Soft point source as a single-cell add onto stacked E (the cell
+    of every lane), in place."""
     if src is None:
         return
     ps = static.cfg.point_source
     wf = waveform(ps.waveform, t, 0.5, static.omega, static.dt,
                   static.real_dtype)
-    E.view(-1).narrow(0, src["cell"], 1).add_(float(src["amp_cb"] * wf))
+    lanes = E.shape[0] if E.dim() == 5 else 1
+    E.view(lanes, -1).select(1, src["cell"]).add_(
+        src["amp_cb"] * float(wf))

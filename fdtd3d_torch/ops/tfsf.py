@@ -11,6 +11,11 @@ each step; every curl difference that straddles the total-field box
 face is corrected by the incident value of the missing field,
 interpolated off the line at the straddling sample's staggered
 position. Einc advances to t^{n+1} before the E update, Hinc after it.
+
+The f32 line may carry a leading lane axis, (B, n) for a batch of B
+same-geometry scenarios: every op of the advance and of the record terms
+works along the last axis, so each lane's line has the bits of a solo
+line.
 """
 
 from __future__ import annotations
@@ -162,7 +167,8 @@ def real_type(dtype):
 
 def advance_einc(inc: Dict[str, torch.Tensor], coeffs, t: int, dt, omega,
                  setup: TfsfSetup, source=None) -> Dict[str, torch.Tensor]:
-    """Einc^{n} -> Einc^{n+1} using Hinc^{n+1/2}; hard source at cell 0.
+    """Einc^{n} -> Einc^{n+1} using Hinc^{n+1/2}; hard source at cell 0
+    (of every lane of a lane-stacked line).
 
     A float32x2 line (``Einc_lo`` present) advances in ds; ``source``
     is then its ``sources.DsSourceTable`` (made here when not given)."""
@@ -171,12 +177,12 @@ def advance_einc(inc: Dict[str, torch.Tensor], coeffs, t: int, dt, omega,
     einc, hinc = inc["Einc"], inc["Hinc"]
     rd = real_type(einc.dtype)
     dh = hinc.clone()
-    dh[1:] -= hinc[:-1]
+    dh[..., 1:] -= hinc[..., :-1]
     einc = coeffs["inc_ae"] * einc - coeffs["inc_be"] * dh
     wf = waveform(setup.waveform, t, 1.0, omega, dt, rd)
     # fill_ passes the value as a kernel argument; item assignment would
     # copy it from pageable host memory every step
-    einc.narrow(0, 0, 1).fill_(float(rd(setup.amplitude) * wf))
+    einc.narrow(-1, 0, 1).fill_(float(rd(setup.amplitude) * wf))
     return dict(inc, Einc=einc)
 
 
@@ -187,7 +193,7 @@ def advance_hinc(inc: Dict[str, torch.Tensor], coeffs,
         return _advance_hinc_ds(inc, coeffs)
     einc, hinc = inc["Einc"], inc["Hinc"]
     de = -einc
-    de[:-1] += einc[1:]
+    de[..., :-1] += einc[..., 1:]
     hinc = coeffs["inc_ah"] * hinc - coeffs["inc_bh"] * de
     return dict(inc, Hinc=hinc)
 
@@ -353,16 +359,17 @@ def build_record_plan(static, coeffs, records) -> Optional[RecordPlan]:
 
 def record_terms(plan: Optional[RecordPlan], inc,
                  out: Optional[torch.Tensor] = None):
-    """The plane terms of every record, (total,) f32, written into
-    ``out`` when given: ``corr_plane_term`` of each record, bit for bit,
-    in eight ops for all of them. E records sample Hinc and H records
+    """The plane terms of every record, (total,) f32 ((B, total) for a
+    lane-stacked line), written into ``out`` when given:
+    ``corr_plane_term`` of each record, bit for bit, in eight ops for all
+    of them and every lane. E records sample Hinc and H records
     Einc, so this runs after the Einc advance and before the Hinc
     advance."""
     if plan is None:
         return None
-    line = torch.cat([inc["Einc"], inc["Hinc"]])
-    v = plan.ow * line.index_select(0, plan.i0) \
-        + plan.w * line.index_select(0, plan.i1)
+    line = torch.cat([inc["Einc"], inc["Hinc"]], dim=-1)
+    v = plan.ow * line.index_select(-1, plan.i0) \
+        + plan.w * line.index_select(-1, plan.i1)
     return torch.mul(plan.scale * v, plan.gate, out=out)
 
 

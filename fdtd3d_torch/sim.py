@@ -220,3 +220,22 @@ class Simulation:
             torch.cuda.synchronize(self.device)
         return self
 
+    @staticmethod
+    def run_batch(cfgs, time_steps: Optional[int] = None, device=None,
+                  chunk: int = 0):
+        """Run B same-shape scenarios as one batch
+        (:class:`fdtd3d_torch.batch.BatchSimulation`): in-scope batches
+        ride the lane-capable kernels, one launch for every lane; a
+        batch the dispatch authority gives a token runs the plain step
+        lane by lane, with ``batch_unsupported:<token>`` recorded.
+        Returns the finished batch, after its end-of-run
+        ``verify_final_lanes`` sweep; per-lane results via
+        ``lane_state(i)`` / ``lane_field(i, comp)``, verdicts via
+        ``lane_finite`` / ``lane_first_unhealthy_t``. ``chunk`` advances
+        the batch that many steps per chunk (0 = one chunk)."""
+        from fdtd3d_torch.batch import BatchSimulation
+        bsim = BatchSimulation(cfgs, device=device)
+        bsim.run(time_steps, chunk=chunk)
+        bsim.verify_final_lanes()
+        return bsim
+

@@ -33,6 +33,13 @@ tensors ``{E, H, psi_E, psi_H, J, inc, t}`` with the reference's keys
 and the plain step on the CPU, True forces the packed steps, False the
 plain one.
 
+``make_step(batch=B)`` builds the lane-capable step of a batch of B
+same-shape scenarios (fdtd3d_torch/batch.py): the temporal-blocked pass
+with its packed tail, or the packed step outside the pass's scope, over
+a carry with a leading lane axis, one launch for every lane. Callers
+gate it with ``batch_fallback_reason``, the batch dispatch authority;
+a batch it gives a token runs the plain step lane by lane.
+
 Scope of this slice: 3D real float32, float32x2 and float64, CPML on
 any axes, TFSF, the point source, electric Drude J, material
 coefficient grids, PEC walls, unsharded. Everything else raises
@@ -683,6 +690,52 @@ def tb_fallback_reason(static: StaticSetup, packed: bool,
     return None
 
 
+def batch_fallback_reason(static: StaticSetup, device, lane_coeffs=None,
+                          batch: int = 0) -> Optional[str]:
+    """Why a batch of ``batch`` lanes over ``static`` cannot ride the
+    lane-capable packed kernels, or None when it can: the reference's
+    ``solver.batch_fallback_reason`` (solver.py:476) and its tokens, in
+    its order: ``pallas_disabled`` (the packed steps are not wanted:
+    ``use_pallas`` False, or None off CUDA, or a configuration no packed
+    kernel covers), ``env:FDTD3D_NO_PACKED``, ``env:FDTD3D_FORCE_FUSED``,
+    ``kernel_ineligible`` (a sharded topology, or a CPML axis too thin
+    for slab psi, which only a sharded local extent can be), and last
+    ``scalar_coeff_divergence``: a key of ``baked_coeff_keys`` that is
+    scalar in some lane and differs between lanes, or is a scalar in one
+    lane and a grid in another (``lane_coeffs``: the lanes' host
+    coefficient dicts). The reference's ``vmem_exhausted`` has no cause
+    here: the kernels' shared memory does not depend on the lane
+    count."""
+    import os
+
+    from fdtd3d_torch.ops import packed
+    cfg = static.cfg
+    flag = cfg.use_pallas
+    want = torch.device(device).type == "cuda" if flag is None else flag
+    if not want or static.mode.name != "3D" or cfg.ds_fields \
+            or cfg.dtype not in ("float32", "bfloat16"):
+        return "pallas_disabled"
+    if os.environ.get("FDTD3D_NO_PACKED"):
+        return "env:FDTD3D_NO_PACKED"
+    if os.environ.get("FDTD3D_FORCE_FUSED"):
+        return "env:FDTD3D_FORCE_FUSED"
+    if tuple(static.topology) != (1, 1, 1) \
+            or set(static.pml_axes) != set(slab_axes(static)) \
+            or (static.use_drude_m and cfg.compensated):
+        return "kernel_ineligible"
+    for key in packed.baked_coeff_keys(static) if lane_coeffs else ():
+        vals = [lc[key] for lc in lane_coeffs]
+        nds = [np.ndim(v) for v in vals]
+        if all(nd >= 3 for nd in nds):
+            continue          # grids are per-lane operands
+        if any(nd >= 3 for nd in nds):
+            return "scalar_coeff_divergence"
+        v0 = np.asarray(vals[0])
+        if any(not np.array_equal(np.asarray(v), v0) for v in vals[1:]):
+            return "scalar_coeff_divergence"
+    return None
+
+
 def _stamp_tb_fallback(step, reason: str):
     """Record on a step that is not the temporal-blocked pass why it is
     not (``diag["tb_fallback"]``, as the reference's steps carry it)."""
@@ -693,10 +746,27 @@ def _stamp_tb_fallback(step, reason: str):
     return step
 
 
-def make_step(static: StaticSetup, device, allow_multistep: bool = True):
+def make_step(static: StaticSetup, device, allow_multistep: bool = True,
+              batch: int = 0):
     """The step for ``static`` on ``device`` (see the module docstring
     for the dispatch rule). ``allow_multistep=False`` skips the
-    temporal-blocked pass, whose step advances two steps per call."""
+    temporal-blocked pass, whose step advances two steps per call.
+    ``batch=B`` (B >= 1) builds the lane-capable step; the caller gates
+    it with ``batch_fallback_reason`` first, and a configuration no
+    lane-capable kernel covers raises rather than running another
+    step."""
+    if batch:
+        if static.cfg.ds_fields or static.cfg.dtype != "float32":
+            raise RuntimeError(
+                "make_step(batch>0): only float32 steps are lane-capable; "
+                "gate batched builds with solver.batch_fallback_reason")
+        reason = tb_fallback_reason(static, True, allow_multistep)
+        if reason is None:
+            from fdtd3d_torch.ops import packed_tb
+            return packed_tb.make_packed_tb_step(static, device, batch=batch)
+        from fdtd3d_torch.ops import packed as packed_mod
+        return _stamp_tb_fallback(
+            packed_mod.make_packed_step(static, device, batch=batch), reason)
     flag = static.cfg.use_pallas
     packed = torch.device(device).type == "cuda" if flag is None else flag
     reason = tb_fallback_reason(static, packed, allow_multistep)
@@ -723,7 +793,8 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True):
     return _stamp_tb_fallback(step, reason)
 
 
-def make_chunk_runner(static: StaticSetup, device, health: bool = False):
+def make_chunk_runner(static: StaticSetup, device, health: bool = False,
+                      batch: int = 0):
     """run_chunk(state, coeffs, n): n steps in a Python loop.
 
     Steps exposing ``prepare`` (the packed steps) get it called outside
@@ -737,15 +808,20 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False):
     ``health=True``: run_chunk returns ``(state, health)`` where health
     is the small device tensor of ``telemetry.make_health_fn`` — one
     fused reduction at the chunk's end, read back by the caller once.
+
+    ``batch=B`` builds the lane-capable runner (``make_step``'s batch):
+    its carry has a leading lane axis and its health is the (B,) tensor
+    of ``telemetry.make_lane_health_fn``.
     """
-    step = make_step(static, device)
+    step = make_step(static, device, batch=batch)
     prep = getattr(step, "prepare", None)
     spc = getattr(step, "steps_per_call", 1)
     tail = getattr(step, "tail_step", step)
     health_fn = None
     if health:
         from fdtd3d_torch import telemetry
-        health_fn = telemetry.make_health_fn()
+        health_fn = telemetry.make_lane_health_fn() if batch \
+            else telemetry.make_health_fn()
 
     prepared: Dict[str, Any] = {}
 

@@ -59,7 +59,7 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
     (["--supervise"], "A12"), (["--ntff"], "A8"),
     (["--checkpoint-every", "5"], "A6"), (["--resume", "auto"], "A6"),
     (["--num-processes", "2"], "A11"), (["--telemetry", "x.jsonl"], "A5"),
-    (["--save-formats", "dat,txt"], "A7"), (["--batch", "a.txt"], "A13"),
+    (["--save-formats", "dat,txt"], "A7"),
 ])
 def test_cli_flags_outside_the_slice_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -2,9 +2,9 @@
 
 * importing fdtd3d_torch and stepping 3D runs on the CPU (f32 plain
   and temporal-blocked with a packed tail step, float32x2 plain and
-  packed-ds, float64) pulls in neither
-  jax nor fdtd3d_tpu (checked in a subprocess: this test process
-  imports jax through tests/conftest.py);
+  packed-ds, float64, and a 2-lane batch through fdtd3d_torch.batch)
+  pulls in neither jax nor fdtd3d_tpu (checked in a subprocess: this
+  test process imports jax through tests/conftest.py);
 * no CUDA device and no explicit ``cpu`` raises;
 * an out-of-scope configuration raises NotImplementedError naming its
   ROADMAP.md item;
@@ -52,6 +52,16 @@ for dtype, flag in (("float32", False), ("float32", True),
         sim.advance(4)
         assert sim.t == 7
 import fdtd3d_torch.ops.packed_tb
+from fdtd3d_torch.batch import BatchSimulation
+from fdtd3d_torch.config import PointSourceConfig
+lanes = [SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
+                   pml=PmlConfig(size=(3, 3, 3)), use_pallas=True,
+                   point_source=PointSourceConfig(
+                       enabled=True, component="Ez", position=(8, 8, 8),
+                       amplitude=amp)) for amp in (1.0, 2.0)]
+bsim = BatchSimulation(lanes, device="cpu").run()
+assert bsim.step_kind == "packed_tb_plain", bsim.step_kind
+assert bsim.t == 3 and bsim.verify_final_lanes().lane_finite == [True] * 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "fdtd3d_tpu")))
 print("LEAKED" if bad else "CLEAN", bad)
