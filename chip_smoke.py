@@ -87,11 +87,41 @@ every lane):
    launches for all four lanes and no packed one, every lane healthy;
    its aggregate Mcells/s and peak memory.
 
-Phases 1, 4, 7 and the checks of 9 (kernel against plain version, lane
-against solo) launch the kernels outside the main paths' counts; each
-main path (phases 2, 5, 9's one step and 10) resets the counts just
-before it and reads them just after. The last lines are the kernels
-JSON, the card's name and power limit, and
+The kernel ladder below packed (``FDTD3D_NO_PACKED``,
+``FDTD3D_FORCE_FUSED``, ``FDTD3D_NO_FUSED``), on the two-pass family
+kernel (``csrc/family.cu``, two launches a step) and the
+recompute-fused single pass (``csrc/fused_eh.cu``, one launch):
+
+11. one launch of ``e_family``, ``h_family`` and ``fused_eh`` against
+   their plain versions on seeded inputs, then 8 whole two-pass and
+   fused steps against the same steps on the plain versions, at 256^3
+   (vacuum3D_tfsf), at 128^3 with the eps and Drude spheres, a point
+   source and the TFSF wave, and at the Mie example's 512^3 with its
+   coefficient grids; the gate is 2e-6 of each leaf's max;
+12. the ladder's main path through the CLI: ``Examples/vacuum3D_tfsf.txt
+   --same-size 256`` (150 steps) and ``Examples/sphere3D_mie.txt`` as it
+   stands (512^3, 800 steps), each under ``FDTD3D_NO_PACKED`` +
+   ``FDTD3D_NO_FUSED`` (kind ``pallas3d_cuda``) and under
+   ``FDTD3D_NO_PACKED`` + ``FDTD3D_FORCE_FUSED`` (kind ``fused_cuda``),
+   with DAT dumps and the finite check: the kind in the log, one launch
+   per family a step (two-pass) or one a step (fused) and none of the
+   main path's kernels, finite dumps, the TFSF leakage of the vacuum
+   runs within 10x of the reference's, and the fused and two-pass dumps
+   of each configuration within 1e-5 of the family max of each other;
+13. at 256^3 (150 steps in) and at the Mie example's 512^3 (200 steps
+   in), the main path's shapes and coefficient grids: one launch of each
+   ladder kernel and one step of each ladder step against their plain
+   versions at 2e-6 of each family's max, then same-call CUDA-event times
+   of each ladder launch and its plain version beside its bound, and of
+   the whole two-pass, fused, packed and temporal-blocked steps (the
+   data of ``fused_preferred``); both ladder steps at 256^3 under
+   torch.profiler.
+
+Phases 1, 4, 7, 11, 13 and the checks of 9 (kernel against plain version,
+lane against solo) launch the kernels outside the main paths' counts;
+each main path (phases 2, 5, 9's one step, 10 and each run of 12) resets
+the counts just before it and reads them just after. The last lines
+are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -102,6 +132,7 @@ import contextlib
 import io as _io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -120,6 +151,10 @@ F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 # scripts/tfsf_leakage.py; the card's run must stay within 10x of it.
 REF_LEAKAGE = 2.506451500547642e-07
 STEPS_CMP = 10
+# the ladder's fused and two-pass CLI runs of one configuration agree to
+# f32 rounding accumulated over the run: ~1e-6 over hundreds of steps,
+# gated an order above
+LADDER_REL = 1e-5
 # the reference's packed-ds gates (tests/test_pallas_packed_ds.py)
 DS_FIELD_TOL, DS_VACUUM_TOL, DS_PSI_TOL, DS_J_TOL = 1e-9, 1e-12, 1e-6, 1e-5
 DS_REL_BAR = 2e-7         # tests/test_float32x2.py:206
@@ -173,15 +208,23 @@ def leaves(carry, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def compare(got, want, what):
-    """Max |diff| per leaf, gated at TOL relative to the leaf's max;
-    returns the largest absolute error."""
+def compare(got, want, what, family=False):
+    """Max |diff| per leaf, gated at TOL relative to the leaf's max, or
+    with ``family`` to the max of its family (the top-level key: E, H,
+    psi_E, J, ..., the reference's gate; on a physical state a component
+    the wave does not drive holds only rounding noise, which its own max
+    cannot scale); returns the largest absolute error."""
     worst = 0.0
     want_leaves = dict(leaves(want))
+    fam_max = {}
+    for name, b in want_leaves.items():
+        top = name.split("/")[0]
+        fam_max[top] = max(fam_max.get(top, 0.0), float(b.abs().max()))
     for name, a in leaves(got):
         b = want_leaves[name]
         err = float((a - b).abs().max())
-        scale = float(b.abs().max())
+        scale = fam_max[name.split("/")[0]] if family \
+            else float(b.abs().max())
         rel = err / scale if scale > 0 else err
         if not rel < TOL:
             fail(f"{what}: {name} differs from the plain version: "
@@ -568,7 +611,8 @@ def profile_window(sim, steps):
             continue
         device_us += us
         launches += ev.count
-        if "family_update" in ev.key or "tb_pass" in ev.key:
+        if any(n in ev.key for n in ("family_update", "tb_pass",
+                                     "family_pass", "fused_eh")):
             kernels_us[ev.key] = us / steps
     return {"wall_us_per_step": wall_us / steps,
             "device_us_per_step": device_us / steps,
@@ -862,6 +906,305 @@ def cli_main_path(steps, cfg256):
             "peak_mem_bytes": peak}
 
 
+# --------------------------------------------------------------------------
+# the kernel ladder below packed: the two-pass and recompute-fused twins
+# --------------------------------------------------------------------------
+
+LADDER_ENV = ("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED", "FDTD3D_FORCE_FUSED")
+
+
+@contextlib.contextmanager
+def ladder_env(*names):
+    """The ladder's variables set to 1 (``names``) or unset for the
+    block, restored after."""
+    saved = {k: os.environ.get(k) for k in LADDER_ENV}
+    for k in LADDER_ENV:
+        os.environ.pop(k, None)
+    for k in names:
+        os.environ[k] = "1"
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ladder_launches():
+    """The ladder kernels' counts, and the f32 main path's (which a run
+    down the ladder must leave at 0)."""
+    from fdtd3d_torch.ops import packed, packed_tb, pallas3d, pallas_fused
+    return {"e_family": pallas3d.e_family.launches,
+            "h_family": pallas3d.h_family.launches,
+            "fused_eh": pallas_fused.fused_eh.launches,
+            "tb_pass": packed_tb.tb_pass.launches,
+            "e_update": packed.e_update.launches,
+            "h_update": packed.h_update.launches}
+
+
+def reset_launches():
+    """Every kernel count of the port to 0."""
+    from fdtd3d_torch.ops import packed, packed_ds, packed_tb, pallas3d
+    from fdtd3d_torch.ops import pallas_fused
+    for fn in (packed.e_update, packed.h_update, packed_tb.tb_pass,
+               packed_ds.e_update, packed_ds.h_update, pallas3d.e_family,
+               pallas3d.h_family, pallas_fused.fused_eh):
+        fn.launches = 0
+
+
+def seeded_dict_state(cfg, dev, seed):
+    """(static, device coefficients, dict-form state on the card with
+    every leaf seeded: E, H, psi, J and the incident line)."""
+    from fdtd3d_torch.solver import (build_coeffs, build_static,
+                                     coeffs_to_device, init_state)
+    static = build_static(cfg)
+    coeffs = coeffs_to_device(build_coeffs(static), dev)
+    state = init_state(static, dev)
+    seed_leaves(state, dev, seed)
+    return static, coeffs, state
+
+
+def kernel_args(static, coeffs, state):
+    """The family operands and the in-kernel psi of both families."""
+    from fdtd3d_torch.ops import pallas3d
+    fe = pallas3d.family_operands(static, coeffs, "E")
+    fh = pallas3d.family_operands(static, coeffs, "H")
+    pe = {k: state["psi_E"][k] for v in fe["psi"].values() for _, k in v}
+    ph = {k: state["psi_H"][k] for v in fh["psi"].values() for _, k in v}
+    return fe, fh, pe, ph
+
+
+def as_tree(outs, names):
+    return {n: o for n, o in zip(names, outs) if o is not None}
+
+
+def ladder_vs_plain(cfg, dev, seed, label, steps=8):
+    """Phase 11: one launch of e_family, h_family and fused_eh against
+    their plain versions on seeded inputs, then ``steps`` whole steps of
+    the two-pass and the fused step against the same steps on the plain
+    versions, from one seeded state (the steps do not mutate it); the
+    worst absolute errors per kernel."""
+    import torch
+    from fdtd3d_torch.ops import pallas3d, pallas_fused
+    static, coeffs, st = seeded_dict_state(cfg, dev, seed)
+    fe, fh, pe, ph = kernel_args(static, coeffs, st)
+    J = st.get("J")
+    err = {}
+    for name, fn, plain, args, outs in (
+            ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
+             (st["E"], st["H"], pe, J, fe), ("E", "psi", "J")),
+            ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
+             (st["H"], st["E"], ph, fh), ("H", "psi")),
+            ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
+             (st["E"], st["H"], pe, ph, J, fe, fh),
+             ("E", "H", "psi_E", "psi_H", "J"))):
+        got = as_tree(fn(*args), outs)
+        want = as_tree(plain(*args), outs)
+        torch.cuda.synchronize()
+        err[name] = compare(got, want, f"{label}: one {name} launch")
+    for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
+                             ("fused", pallas_fused.make_fused_eh_step)):
+        k_step = build_step(static, dev)
+        p_step = build_step(static, dev, plain=True)
+        cc = k_step.prepare(coeffs)
+        sk = sp = st
+        for _ in range(steps):
+            sk = k_step(sk, cc)
+            sp = p_step(sp, cc)
+        torch.cuda.synchronize()
+        key = "e_family" if name == "pallas3d" else "fused_eh"
+        err[key] = max(err[key], compare(
+            sk, sp, f"{label}: {steps} {k_step.kind} steps"))
+        del sk, sp
+    say(f"{label}: one launch and {steps} steps of each ladder kernel match "
+        f"the plain versions (max abs err {json.dumps(err)})")
+    return err
+
+
+def load_dumps(out_dir, steps, shape, label):
+    from fdtd3d_torch.io import load_dat
+    fields = {}
+    for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
+        path = os.path.join(out_dir, f"{c}_t{steps:06d}.dat")
+        if not os.path.exists(path):
+            fail(f"{label}: missing dump {path}")
+        fields[c] = load_dat(path)
+        if fields[c].shape != tuple(shape) \
+                or not bool((abs(fields[c]) < float("inf")).all()):
+            fail(f"{label}: {c}: bad dump (shape {fields[c].shape} or "
+                 f"non-finite)")
+    return fields
+
+
+def ladder_cli(label, argv, names, kind, cfg):
+    """Phase 12: one CLI run under the ladder variables ``names`` with a
+    DAT dump at its last step and the finite check, every kernel count
+    set to 0 just before it and read just after; asserts the kind in
+    the log, finite dumps of the grid's shape, and returns the run's
+    record (launches, wall, peak memory, TFSF leakage) and its fields."""
+    import torch
+    from fdtd3d_torch import cli, diag
+    from fdtd3d_torch.solver import build_static
+    steps = cfg.time_steps
+    out_dir = os.path.join(OUT_DIR, f"ladder_{label}")
+    argv = argv + ["--save-res", str(steps), "--check-finite",
+                   "--save-dir", out_dir]
+    captured = _io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    with ladder_env(*names), contextlib.redirect_stdout(captured):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ladder_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log_txt = captured.getvalue()
+    say(f"cli ({label}, {' '.join(names)}): "
+        + " | ".join(log_txt.strip().splitlines()))
+    if rc != 0:
+        fail(f"{label}: cli.main returned {rc}")
+    if f"step_kind={kind}" not in log_txt:
+        fail(f"{label}: the CLI did not run {kind}")
+    fields = load_dumps(out_dir, steps, cfg.grid_shape, label)
+    st = build_static(cfg).tfsf_setup
+    leak = diag.tfsf_leakage(fields, st.lo, st.hi)
+    return {"env": list(names), "kind": kind, "steps": steps,
+            "wall_s": wall, "launches": launches, "peak_mem_bytes": peak,
+            "tfsf_leakage": leak}, fields
+
+
+def rel_fields(got, want):
+    """max over components of |got - want| / the family's max |want|."""
+    import numpy as np
+    scale = {fam: max(float(np.abs(want[c]).max()) for c in want
+                      if c[0] == fam) for fam in "EH"}
+    return max(float(np.abs(got[c].astype(np.float64) - want[c]).max())
+               / scale[c[0]] for c in want)
+
+
+def ladder_bytes(static, coeffs, state, kernel):
+    """Bytes a launch must move: each field, psi, J and coefficient grid
+    it reads once, each output written once. ``kernel``: e_family,
+    h_family or fused_eh."""
+    import torch
+    vol = 4 * static.grid_shape[0] * static.grid_shape[1] \
+        * static.grid_shape[2]
+    fams = {"e_family": "E", "h_family": "H", "fused_eh": "EH"}[kernel]
+    n = (6 + 3 * len(fams)) * vol          # both families read, own written
+    keys = []
+    for fam in fams:
+        psi = state["psi_E" if fam == "E" else "psi_H"] \
+            if "psi_E" in state else {}
+        n += sum(2 * v.numel() * 4 for k, v in psi.items()
+                 if not k.endswith("_x"))
+        if fam == "E" and "J" in state:
+            n += 2 * 3 * vol
+            keys += [f"{p}_{c}" for p in ("kj", "bj") for c in state["J"]]
+        comps = static.mode.e_components if fam == "E" \
+            else static.mode.h_components
+        pa = ("ca", "cb") if fam == "E" else ("da", "db")
+        keys += [f"{p}_{c}" for p in pa for c in comps]
+    n += sum(coeffs[k].numel() * 4 for k in keys
+             if isinstance(coeffs[k], torch.Tensor))
+    return n
+
+
+def ladder_flops(static, state, kernel):
+    """Flops of a launch: per component two differences (sub, mul, add
+    into the accumulator) and the update (2 mul + 1 add), 7 per slab psi
+    cell, 4 per Drude cell; the fused pass does both families."""
+    cells = static.grid_shape[0] * static.grid_shape[1] \
+        * static.grid_shape[2]
+    f = 0
+    for fam in {"e_family": "E", "h_family": "H", "fused_eh": "EH"}[kernel]:
+        f += 3 * cells * (2 * 3 + 3)
+        psi = state["psi_E" if fam == "E" else "psi_H"] \
+            if "psi_E" in state else {}
+        f += sum(v.numel() * 7 for k, v in psi.items()
+                 if not k.endswith("_x"))
+        if fam == "E" and "J" in state:
+            f += 3 * cells * 4
+    return f
+
+
+def ladder_times(cfg, dev, advance, reps, plain_reps, label):
+    """Phase 13: on the state ``advance`` main-path steps into the run,
+    each ladder kernel launch and each ladder step held against its
+    plain version at the run's shape (the gate of ``compare``), then
+    same-call CUDA-event times of each launch and its plain version
+    beside its bound, and of the whole two-pass, fused, packed and
+    temporal-blocked steps. Returns (times, worst absolute error per
+    kernel)."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb, pallas3d, pallas_fused
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(cfg, device=dev)
+    sim.advance(advance)
+    static, coeffs = sim.static, sim.coeffs
+    st = sim.state
+    fe, fh, pe, ph = kernel_args(static, coeffs, st)
+    J = st.get("J")
+    out = {"shape": list(static.grid_shape), "advance": advance}
+    err = {}
+    for name, fn, plain, args, outs in (
+            ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
+             (st["E"], st["H"], pe, J, fe), ("E", "psi", "J")),
+            ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
+             (st["H"], st["E"], ph, fh), ("H", "psi")),
+            ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
+             (st["E"], st["H"], pe, ph, J, fe, fh),
+             ("E", "H", "psi_E", "psi_H", "J"))):
+        got = as_tree(fn(*args), outs)
+        want = as_tree(plain(*args), outs)
+        torch.cuda.synchronize()
+        err[name] = compare(got, want, f"{label}: one {name} launch",
+                            family=True)
+        del got, want
+        out[f"{name}_ms"] = timed(lambda: fn(*args), reps)
+        out[f"{name}_plain_ms"] = timed(lambda: plain(*args), plain_reps)
+        nbytes = ladder_bytes(static, coeffs, st, name)
+        out[f"{name}_bytes"] = nbytes
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = bound(
+            nbytes, ladder_flops(static, st, name))
+    for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
+                             ("fused", pallas_fused.make_fused_eh_step)):
+        k_step = build_step(static, dev)
+        p_step = build_step(static, dev, plain=True)
+        cc = k_step.prepare(coeffs)
+        got, want = k_step(st, cc), p_step(st, cc)
+        torch.cuda.synchronize()
+        key = "e_family" if name == "pallas3d" else "fused_eh"
+        err[key] = max(err[key], compare(
+            got, want, f"{label}: one {k_step.kind} step", family=True))
+        del got, want
+        out[f"{name}_step_ms"] = timed(lambda: k_step(st, cc), reps)
+        out[f"{name}_plain_step_ms"] = timed(lambda: p_step(st, cc),
+                                             plain_reps)
+    carry = sim._carry
+    pk = packed.make_packed_step(static, dev)
+    pcc = pk.prepare(coeffs)
+    out["packed_step_ms"] = timed(lambda: pk(carry, pcc), reps)
+    tb = packed_tb.make_packed_tb_step(static, dev)
+    tcc = tb.prepare(coeffs)
+    out["tb_step_ms"] = timed(lambda: tb(carry, tcc), reps) / 2
+    cells = static.grid_shape[0] * static.grid_shape[1] \
+        * static.grid_shape[2]
+    for k in ("pallas3d", "fused", "packed", "tb"):
+        out[f"{k}_mcells_per_s"] = cells / (out[f"{k}_step_ms"] * 1e-3) / 1e6
+    out["fused_over_pallas3d_step"] = out["fused_step_ms"] \
+        / out["pallas3d_step_ms"]
+    say(f"ladder times ({label}): " + json.dumps(out))
+    say(f"{label}: one launch and one step of each ladder kernel on the "
+        f"run's state match the plain versions (max abs err "
+        f"{json.dumps(err)})")
+    del sim, st, carry
+    torch.cuda.empty_cache()
+    return out, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -889,8 +1232,8 @@ def main() -> int:
 
     # ---- build -----------------------------------------------------------
     t0 = time.time()
-    infos = build.build_many(["packed_eh", "packed_ds", "packed_tb"],
-                             verbose=True)
+    infos = build.build_many(["packed_eh", "packed_ds", "packed_tb",
+                              "family", "fused_eh"], verbose=True)
     result["build_s"] = round(time.time() - t0, 3)
     for lib, info in infos.items():
         say(f"built {os.path.relpath(info['path'], ROOT)} in "
@@ -1275,6 +1618,77 @@ def main() -> int:
         f"{batch_main['mcells_per_s_aggregate']} Mcells/s aggregate, peak "
         f"{batch_main['peak_mem_bytes'] / 1e9:.3f} GB")
 
+    # ---- phase 11: the ladder's kernels vs their plain versions ---------
+    ladder_err = {}
+    mie512 = config(MIE, [])
+    for label, cfg_l, seed in (
+            ("256^3 TFSF+CPML", cfg256, 41),
+            ("128^3 eps + Drude spheres, point source, TFSF",
+             config(MIE, mie + ["--point-source", "Ez"]), 42),
+            ("512^3 Mie example", mie512, 43)):
+        for k, v in ladder_vs_plain(cfg_l, dev, seed, label).items():
+            ladder_err[k] = max(ladder_err.get(k, 0.0), v)
+    result["max_abs_err"].update(
+        {f"ladder_{k}": v for k, v in ladder_err.items()})
+
+    # ---- phase 12: the ladder's main path through the CLI ----------------
+    rungs = (("pallas3d_cuda", ("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED")),
+             ("fused_cuda", ("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED")))
+    ladder_main, ladder_fields = {}, {}
+    for label, argv, cfg_l in (
+            ("vacuum256", ["--cmd-from-file", EXAMPLE, "--same-size",
+                           "256"], cfg256),
+            ("mie512", ["--cmd-from-file", MIE], mie512)):
+        for kind, names in rungs:
+            rec, fields = ladder_cli(f"{label}_{kind}", argv, names, kind,
+                                     cfg_l)
+            n = cfg_l.time_steps
+            want = {"e_family": n if kind == "pallas3d_cuda" else 0,
+                    "h_family": n if kind == "pallas3d_cuda" else 0,
+                    "fused_eh": n if kind == "fused_cuda" else 0,
+                    "tb_pass": 0, "e_update": 0, "h_update": 0}
+            if rec["launches"] != want:
+                fail(f"{label} {kind}: launches {rec['launches']} != {want}")
+            if label == "vacuum256" \
+                    and not rec["tfsf_leakage"] <= 10 * REF_LEAKAGE:
+                fail(f"{label} {kind}: TFSF leakage "
+                     f"{rec['tfsf_leakage']:.3e} exceeds 10x the "
+                     f"reference's {REF_LEAKAGE:.3e}")
+            ladder_main[f"{label}_{kind}"] = rec
+            ladder_fields[kind] = fields
+            say(f"ladder main path {label} {kind}: {json.dumps(rec)}")
+        rel = rel_fields(ladder_fields["fused_cuda"],
+                         ladder_fields["pallas3d_cuda"])
+        ladder_main[f"{label}_fused_vs_pallas3d_rel"] = rel
+        say(f"{label}: fused vs two-pass dumps, rel {rel:.3e} of the "
+            f"family max (gate {LADDER_REL})")
+        if not rel < LADDER_REL:
+            fail(f"{label}: the fused and two-pass runs disagree: rel "
+                 f"{rel:.3e} >= {LADDER_REL}")
+        ladder_fields.clear()
+        for kind, _ in rungs:
+            shutil.rmtree(os.path.join(OUT_DIR, f"ladder_{label}_{kind}"),
+                          ignore_errors=True)
+    result["ladder_main_path"] = ladder_main
+
+    # ---- phase 13: the ladder's same-call times, and its profile ----------
+    t256, e256 = ladder_times(cfg256, dev, steps, reps, 2, "256^3")
+    t512, e512 = ladder_times(mie512, dev, 200, 10, 1, "512^3 Mie")
+    result["ladder_times_256"], result["ladder_times_512"] = t256, t512
+    for k in ladder_err:
+        ladder_err[k] = max(ladder_err[k], e256[k], e512[k])
+    result["max_abs_err"].update(
+        {f"ladder_{k}": v for k, v in ladder_err.items()})
+    for kind, names in rungs:
+        with ladder_env(*names):
+            sim = Simulation(cfg256, device=dev)
+            sim.advance(20)
+            result[f"ladder_profile_256_{kind}"] = prof = profile_window(
+                sim, 20)
+            del sim
+        say(f"{kind} step at 256^3 under torch.profiler: "
+            + json.dumps(prof))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1341,10 +1755,28 @@ def main() -> int:
          "bound_ms": times512["h_bound_ms"],
          "bound_by": times512["h_bound_by"], "library_ms": None},
     ]
+    fam_src = "fdtd3d_torch/csrc/family.cu"
+    main_launches = {k: sum(rec["launches"][k] for key, rec in
+                            ladder_main.items() if key.endswith("_cuda"))
+                     for k in ("e_family", "h_family", "fused_eh")}
+    for kname, key, source, replaces in (
+            ("family.e_family", "e_family", fam_src,
+             "fdtd3d_tpu/ops/pallas3d.py:293"),
+            ("family.h_family", "h_family", fam_src,
+             "fdtd3d_tpu/ops/pallas3d.py:293"),
+            ("fused_eh.fused_eh", "fused_eh", "fdtd3d_torch/csrc/fused_eh.cu",
+             "fdtd3d_tpu/ops/pallas_fused.py:423")):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[key],
+            "max_abs_err": ladder_err[key], "ms": t256[f"{key}_ms"],
+            "plain_ms": t256[f"{key}_plain_ms"],
+            "bound_ms": t256[f"{key}_bound_ms"],
+            "bound_by": t256[f"{key}_bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

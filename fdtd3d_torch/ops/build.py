@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` at first use into a
 shared library with a plain C interface, under ``build/fdtd3d_torch/``
 at the root of the checkout (``.gitignore`` lists ``build/``), and
 loaded with ``ctypes``. The library's file name carries a hash of its
-source and its nvcc flags (``flags``: the common ``NVCC_FLAGS`` and the
+source, of the headers in ``csrc/`` (``*.cuh``, which sources include
+by their bare name) and of its nvcc flags (``flags``: the common ``NVCC_FLAGS`` and the
 library's own ``LIBRARY_FLAGS``), so an edited source or a changed flag
 builds anew and a stale library is never loaded. Nothing here runs at
 import time: the CPU tests import every module on machines with no
@@ -36,6 +37,8 @@ LIBRARY_FLAGS: Dict[str, Tuple[str, ...]] = {
     "packed_eh": (),
     "packed_ds": ("--fmad=false",),
     "packed_tb": (),
+    "family": (),
+    "fused_eh": (),
 }
 
 
@@ -62,11 +65,14 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to, addressed by the hash of its
-    source and of its flags: a library built with other flags is never
-    loaded in place of this one."""
+    source, of the headers in ``csrc/`` and of its flags: a library built
+    from another header or with other flags is never loaded in place of
+    this one."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            h.update(path.encode() + b"\0" + f.read())
     h.update("\0".join(flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
@@ -79,7 +85,7 @@ def _start(name: str, verbose: bool):
         return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}"
-    cmd: List[str] = [find_nvcc(), *flags(name)]
+    cmd: List[str] = [find_nvcc(), *flags(name), "-I", CSRC]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, os.path.join(CSRC, f"{name}.cu")]

@@ -59,7 +59,7 @@ import torch
 from fdtd3d_torch.layout import component_axis
 from fdtd3d_torch.ops import build, patches, tfsf
 from fdtd3d_torch.ops.stencil import make_diff_ops
-from fdtd3d_torch.solver import _bcast1d, _pad_slab, _slab_delta, slab_axes
+from fdtd3d_torch.solver import _bcast1d, _slab_fix, slab_axes
 
 AXES = "xyz"
 _LIB = "packed_eh"
@@ -168,6 +168,30 @@ def prepare_family(static, coeffs, family: str) -> Dict[str, Any]:
 # plain versions (the kernel's arithmetic in torch; CPU tensors and tests)
 # --------------------------------------------------------------------------
 
+def family_value(c: int, old, acc, a, b, walls, backward: bool,
+                 drude=None, point=None):
+    """Component c's new value from its curl accumulator, as the kernels
+    compute it: for E (``backward``) the Drude current J' = kj J + bj old
+    (``drude`` = (J, kj, bj)) taken off acc, then ``point(acc)``,
+    ca old + cb acc and the PEC walls of the other two axes (``walls``:
+    one vector per axis); for H da old - db acc. -> (new value, J' or
+    None). Shared with the dict-form plain version (ops/pallas3d.py)."""
+    jn = None
+    if not backward:
+        return a * old - b * acc, jn
+    if drude is not None:
+        J, kj, bj = drude
+        jn = kj * J + bj * old
+        acc = acc - jn
+    if point is not None:
+        acc = point(acc)
+    v = a * old + b * acc
+    for w in range(3):
+        if w != c:
+            v = v * _bcast1d(walls[w], w)
+    return v, jn
+
+
 def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
                   point=None) -> None:
     """One family update in place. ``records(c, acc)`` and, for E,
@@ -183,30 +207,20 @@ def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
             s = 1.0 if t == 0 else -1.0
             dfa = diff(S[d], a) * fc["inv_dx"]
             if a in fc["m"]:
-                m = fc["m"][a]
                 row = psi[a][psi_row(c, a)]
-                new_psi, dl, dh = _slab_delta(a, s, dfa, row,
-                                              tuple(fc["prof"][a]), m)
+                new_psi, fix = _slab_fix(a, s, dfa, row,
+                                         tuple(fc["prof"][a]), fc["m"][a])
                 row.copy_(new_psi)
-                fix = _pad_slab(dl, dh, a, dfa.shape[a], m)
                 acc = fix if acc is None else acc + fix
             acc = s * dfa if acc is None else acc + s * dfa
         if records is not None:
             acc = records(c, acc)
-        old = F[c]
-        if backward:
-            if J is not None:
-                j_new = fc["kj"][c] * J[c] + fc["bj"][c] * old
-                J[c].copy_(j_new)
-                acc = acc - j_new
-            if point is not None:
-                acc = point(c, acc)
-            v = fc["a"][c] * old + fc["b"][c] * acc
-            for w in range(3):
-                if w != c:
-                    v = v * _bcast1d(fc["wall"][w], w)
-        else:
-            v = fc["a"][c] * old - fc["b"][c] * acc
+        drude = None if J is None else (J[c], fc["kj"][c], fc["bj"][c])
+        hook = None if point is None else (lambda acc, c=c: point(c, acc))
+        v, jn = family_value(c, F[c], acc, fc["a"][c], fc["b"][c],
+                             fc["wall"], backward, drude, hook)
+        if jn is not None:
+            J[c].copy_(jn)
         F[c].copy_(v)
 
 

@@ -70,7 +70,8 @@ class Simulation:
         # temporal-blocked pass did not engage (tb_fallback)
         self.step_diag = self._runner.diag
         if cfg.require_pallas and self.step_kind not in (
-                "packed_tb_cuda", "packed_cuda", "packed_ds_cuda"):
+                "packed_tb_cuda", "packed_cuda", "packed_ds_cuda",
+                "fused_cuda", "pallas3d_cuda"):
             raise ValueError(
                 f"require_pallas is set but the CUDA kernels did not "
                 f"engage (step_kind={self.step_kind}, device="

@@ -22,10 +22,18 @@ tensors ``{E, H, psi_E, psi_H, J, inc, t}`` with the reference's keys
   torch on dict-form state. It is the port's oracle, as the jnp step
   is the reference's. Every step but the temporal-blocked one carries
   ``diag["tb_fallback"]`` naming why (``tb_fallback_reason``).
+  The kernel ladder below packed: ``FDTD3D_NO_PACKED`` or
+  ``FDTD3D_FORCE_FUSED`` skips the pass and the packed step; the run
+  takes the recompute-fused single pass (``ops/pallas_fused.py``, kinds
+  ``fused_cuda``/``fused_plain``) where it is eligible and
+  ``FDTD3D_FORCE_FUSED`` is set or the port's ``fused_preferred`` rule
+  picks it, else the two-pass family step (``ops/pallas3d.py``, kinds
+  ``pallas3d_cuda``/``pallas3d_plain``). ``FDTD3D_NO_FUSED`` skips the
+  fused rung; alone it changes nothing above packed.
 * float32x2 (double-single hi+lo pairs, ops/ds.py): the packed-ds step
   (``ops/packed_ds.py``, kinds ``packed_ds_cuda``/``packed_ds_plain``)
   or the plain ds step (kind ``plain_ds``, the reference's jnp-ds
-  branch).
+  branch), which ``FDTD3D_NO_PACKED`` also selects.
 * float64: the plain step in f64 (no kernel in either package); it is
   the oracle of the accuracy check on the card.
 
@@ -114,11 +122,12 @@ def check_scope(cfg: SimConfig) -> None:
     if cfg.complex_fields:
         out("complex fields", "A10")
     if cfg.dtype not in ("float32", "float32x2", "float64"):
-        out(f"dtype {cfg.dtype!r}", "A4")
+        out(f"dtype {cfg.dtype!r}",
+            "A4(a)" if cfg.dtype == "bfloat16" else "A4")
     if cfg.compensated:
         out("compensated (Kahan) mode", "A4")
     if cfg.materials.use_drude_m:
-        out("magnetic Drude (K current)", "A4")
+        out("magnetic Drude (K current)", "A4(b)")
     if cfg.ntff.enabled:
         out("the near-to-far-field transform", "A8")
     par = cfg.parallel
@@ -354,6 +363,13 @@ def _pad_slab(dl, dh, a, nloc, m):
     return out
 
 
+def _slab_fix(a, s, dfa, psi, prof, m):
+    """``_slab_delta`` with its deltas placed at the full extent of axis
+    a: -> (new compact psi, the accumulator's slab correction)."""
+    psi, dl, dh = _slab_delta(a, s, dfa, psi, prof, m)
+    return psi, _pad_slab(dl, dh, a, dfa.shape[a], m)
+
+
 def make_plain_step(static: StaticSetup):
     """The reference's jnp leapfrog step (solver.py, f32 and f64
     branches) in torch, on dict-form state. Returns a new state dict."""
@@ -384,11 +400,10 @@ def make_plain_step(static: StaticSetup):
                     key = f"{c}_{AXES[a]}"
                     prof = tuple(coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"]
                                  for v in ("b", "c", "ik"))
-                    psi, dl, dh = _slab_delta(a, s, dfa,
-                                              state[psi_key][key], prof,
-                                              slabs[a])
+                    psi, acc_fix = _slab_fix(a, s, dfa,
+                                             state[psi_key][key], prof,
+                                             slabs[a])
                     new_psi[psi_key][key] = psi
-                    acc_fix = _pad_slab(dl, dh, a, dfa.shape[a], slabs[a])
                     acc = acc_fix if acc is None else acc + acc_fix
                     term = dfa
                 elif a in static.pml_axes:
@@ -674,7 +689,8 @@ def tb_fallback_reason(static: StaticSetup, packed: bool,
     when it does (the reference's ``solver.tb_fallback_reason``): the
     pass's scope token first, then the dispatch context
     (``single_step_contract``, ``env:FDTD3D_NO_TEMPORAL``,
-    ``pallas_disabled``)."""
+    ``pallas_disabled``, ``env:FDTD3D_NO_PACKED``,
+    ``env:FDTD3D_FORCE_FUSED``), in the reference's order."""
     import os
 
     from fdtd3d_torch.ops import packed_tb
@@ -687,6 +703,10 @@ def tb_fallback_reason(static: StaticSetup, packed: bool,
         return "env:FDTD3D_NO_TEMPORAL"
     if not packed:
         return "pallas_disabled"
+    if os.environ.get("FDTD3D_NO_PACKED"):
+        return "env:FDTD3D_NO_PACKED"
+    if os.environ.get("FDTD3D_FORCE_FUSED"):
+        return "env:FDTD3D_FORCE_FUSED"
     return None
 
 
@@ -746,6 +766,27 @@ def _stamp_tb_fallback(step, reason: str):
     return step
 
 
+def _ladder_step(static: StaticSetup, device):
+    """The rungs below packed (the reference's ``make_step``
+    :697-726), for a run that ``FDTD3D_NO_PACKED`` or
+    ``FDTD3D_FORCE_FUSED`` sends there: the recompute-fused twin
+    (ops/pallas_fused.py) where it is eligible and either
+    ``FDTD3D_FORCE_FUSED`` is set or the port's ``fused_preferred``
+    rule picks it, unless ``FDTD3D_NO_FUSED`` is set; else the two-pass
+    twin (ops/pallas3d.py); else the plain step, the reference ladder's
+    bottom rung (its jnp step)."""
+    import os
+
+    from fdtd3d_torch.ops import pallas3d, pallas_fused
+    if not os.environ.get("FDTD3D_NO_FUSED") \
+            and pallas_fused.eligible(static) \
+            and (os.environ.get("FDTD3D_FORCE_FUSED")
+                 or pallas_fused.fused_preferred(static)):
+        return pallas_fused.make_fused_eh_step(static, device)
+    step = pallas3d.make_pallas_step(static, device)
+    return step if step is not None else make_plain_step(static)
+
+
 def make_step(static: StaticSetup, device, allow_multistep: bool = True,
               batch: int = 0):
     """The step for ``static`` on ``device`` (see the module docstring
@@ -755,12 +796,18 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     it with ``batch_fallback_reason`` first, and a configuration no
     lane-capable kernel covers raises rather than running another
     step."""
+    import os
     if batch:
         if static.cfg.ds_fields or static.cfg.dtype != "float32":
             raise RuntimeError(
                 "make_step(batch>0): only float32 steps are lane-capable; "
                 "gate batched builds with solver.batch_fallback_reason")
         reason = tb_fallback_reason(static, True, allow_multistep)
+        if reason in ("env:FDTD3D_NO_PACKED", "env:FDTD3D_FORCE_FUSED"):
+            raise RuntimeError(
+                f"make_step(batch>0): {reason} leaves no lane-capable "
+                f"kernel; gate batched builds with "
+                f"solver.batch_fallback_reason")
         if reason is None:
             from fdtd3d_torch.ops import packed_tb
             return packed_tb.make_packed_tb_step(static, device, batch=batch)
@@ -771,7 +818,9 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     packed = torch.device(device).type == "cuda" if flag is None else flag
     reason = tb_fallback_reason(static, packed, allow_multistep)
     if static.cfg.ds_fields:
-        if packed:
+        # the reference's ds dispatch: FDTD3D_NO_PACKED takes the plain
+        # ds step (its jnp-ds branch)
+        if packed and not os.environ.get("FDTD3D_NO_PACKED"):
             from fdtd3d_torch.ops import packed_ds
             step = packed_ds.make_packed_ds_step(static, device)
         else:
@@ -785,6 +834,9 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     elif reason is None:
         from fdtd3d_torch.ops import packed_tb
         return packed_tb.make_packed_tb_step(static, device)
+    elif packed and (os.environ.get("FDTD3D_NO_PACKED")
+                     or os.environ.get("FDTD3D_FORCE_FUSED")):
+        step = _ladder_step(static, device)
     elif packed:
         from fdtd3d_torch.ops import packed as packed_mod
         step = packed_mod.make_packed_step(static, device)

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone and fails loudly.
 
 * importing fdtd3d_torch and stepping 3D runs on the CPU (f32 plain
-  and temporal-blocked with a packed tail step, float32x2 plain and
-  packed-ds, float64, and a 2-lane batch through fdtd3d_torch.batch)
-  pulls in neither jax nor fdtd3d_tpu (checked in a subprocess: this
-  test process imports jax through tests/conftest.py);
+  and temporal-blocked with a packed tail step, the fused and two-pass
+  ladder steps, float32x2 plain and packed-ds, float64, and a 2-lane
+  batch through fdtd3d_torch.batch) pulls in neither jax nor fdtd3d_tpu
+  (checked in a subprocess: this test process imports jax through
+  tests/conftest.py);
 * no CUDA device and no explicit ``cpu`` raises;
 * an out-of-scope configuration raises NotImplementedError naming its
   ROADMAP.md item;
@@ -51,7 +52,22 @@ for dtype, flag in (("float32", False), ("float32", True),
         assert sim.step_kind == "packed_tb_plain", sim.step_kind
         sim.advance(4)
         assert sim.t == 7
+import os
+for names, kind in ((("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"),
+                     "fused_plain"),
+                    (("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"),
+                     "pallas3d_plain")):
+    os.environ.update({k: "1" for k in names})
+    cfg = SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
+                    pml=PmlConfig(size=(3, 3, 3)), use_pallas=True,
+                    tfsf=TfsfConfig(enabled=True, margin=(2, 2, 2)))
+    sim = Simulation(cfg, device="cpu").run()
+    assert sim.step_kind == kind and sim.t == 3, sim.step_kind
+    for k in names:
+        del os.environ[k]
 import fdtd3d_torch.ops.packed_tb
+import fdtd3d_torch.ops.pallas3d
+import fdtd3d_torch.ops.pallas_fused
 from fdtd3d_torch.batch import BatchSimulation
 from fdtd3d_torch.config import PointSourceConfig
 lanes = [SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
@@ -145,6 +161,31 @@ def test_ds_kernel_module_needs_no_nvcc_on_cpu():
     assert sim.step_kind == "packed_ds_plain"
     assert packed_ds.e_update.launches == packed_ds.h_update.launches == 0
     assert build._LIBS == {}
+
+
+@pytest.mark.parametrize("names,kind", [
+    (("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"), "fused_plain"),
+    (("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"), "pallas3d_plain"),
+])
+def test_ladder_kernel_modules_need_no_nvcc_on_cpu(names, kind,
+                                                   monkeypatch):
+    """The fused and two-pass wrappers take their plain versions for CPU
+    tensors; nothing is built or launched."""
+    from fdtd3d_torch.ops import pallas3d, pallas_fused
+    for k in names:
+        monkeypatch.setenv(k, "1")
+    pallas3d.e_family.launches = pallas3d.h_family.launches = 0
+    pallas_fused.fused_eh.launches = 0
+    sim = Simulation(SimConfig(**SMALL, use_pallas=True), device="cpu")
+    sim.run()
+    assert sim.step_kind == kind
+    assert pallas3d.e_family.launches == pallas3d.h_family.launches == 0
+    assert pallas_fused.fused_eh.launches == 0
+    assert build._LIBS == {}
+    for lib in ("family", "fused_eh"):
+        assert build.flags(lib) == build.NVCC_FLAGS
+        assert build.library_path(lib).startswith(
+            os.path.join(ROOT, "build", "fdtd3d_torch"))
 
 
 def test_library_flags_are_per_library_and_hashed(monkeypatch):

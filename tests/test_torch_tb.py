@@ -88,6 +88,10 @@ def test_reject_reason_matches_reference(case, kw, token):
     (dict(use_pallas=True, dtype="float32x2"), {}, "ds_fields",
      "packed_ds_plain"),
     (dict(dtype="float64"), {}, "dtype", "plain"),
+    (dict(use_pallas=True), {"FDTD3D_NO_PACKED": "1"},
+     "env:FDTD3D_NO_PACKED", "pallas3d_plain"),
+    (dict(use_pallas=True), {"FDTD3D_FORCE_FUSED": "1"},
+     "env:FDTD3D_FORCE_FUSED", "fused_plain"),
 ])
 def test_other_kinds_name_their_tb_fallback(kw, env, reason, kind,
                                             monkeypatch):
