@@ -32,7 +32,11 @@ reference package, and exits non-zero on the first failure:
    step's tail);
 3. times each kernel, its plain version and the whole step with CUDA
    events after warm-up at 256^3, beside its bound, and the
-   temporal-blocked main path's step under torch.profiler.
+   temporal-blocked main path's step under torch.profiler. Here and in
+   phases 8, 9 and 13 a ``tb pass`` line gives the tb kernels'
+   registers, local (spill) bytes and resident blocks an SM, the pass's
+   share of its bound, and its time over two packed steps' kernels
+   (e_update + h_update) timed in the same call.
 
 The float32x2 (double-single) path, ``Examples/precision3D_float32x2.txt``:
 
@@ -346,6 +350,25 @@ def tb_flops(carry, cc):
     return f + (2 * plan.total * lanes_of(carry) if plan is not None else 0)
 
 
+def tb_report(label, tb_ms, bound_ms, packed_ms):
+    """One line on the tb pass at a shape: the kernels' registers, local
+    (spill) bytes and resident blocks an SM (the CUDA runtime's), the
+    pass's share of its bound, and its time over two packed steps'
+    kernels (``packed_ms``: e_update + h_update) measured in the same
+    call."""
+    from fdtd3d_torch.ops import packed_tb
+    occ = packed_tb.occupancy()
+    rec = {"label": label, "tb_pass_ms": tb_ms, "bound_ms": bound_ms,
+           "bound_share": bound_ms / tb_ms,
+           "two_packed_steps_ms": 2 * packed_ms,
+           "over_two_packed_steps": tb_ms / (2 * packed_ms),
+           "kernels": {k: [v["registers"], v["local_bytes"],
+                           v["blocks_per_sm"]] for k, v in occ.items()}}
+    say("tb pass (registers, local bytes, blocks an SM per kernel): "
+        + json.dumps(rec))
+    return rec
+
+
 def timed(fn, reps):
     """Mean ms of fn() over reps calls, by CUDA events after one
     warm-up call."""
@@ -611,7 +634,7 @@ def profile_window(sim, steps):
             continue
         device_us += us
         launches += ev.count
-        if any(n in ev.key for n in ("family_update", "tb_pass",
+        if any(n in ev.key for n in ("family_update", "tb_section",
                                      "family_pass", "fused_eh")):
             kernels_us[ev.key] = us / steps
     return {"wall_us_per_step": wall_us / steps,
@@ -1190,6 +1213,23 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
     tb = packed_tb.make_packed_tb_step(static, dev)
     tcc = tb.prepare(coeffs)
     out["tb_step_ms"] = timed(lambda: tb(carry, tcc), reps) / 2
+    # the tb pass's kernel against two packed steps' kernels, same call
+    spare = packed_tb._alloc_like(carry)
+    _, terms, drive = packed_tb.generation_terms(static, tcc["tb"],
+                                                 carry.get("inc"),
+                                                 carry["t"])
+    out["tb_pass_ms"] = timed(lambda: packed_tb.tb_pass(
+        carry, spare, tcc["tb"], terms, drive), reps)
+    out["e_update_ms"] = timed(lambda: packed.e_update(
+        carry["E"], carry["H"], carry.get("J"), carry["psE"], pcc["E"]),
+        reps)
+    out["h_update_ms"] = timed(lambda: packed.h_update(
+        carry["H"], carry["E"], carry["psH"], pcc["H"]), reps)
+    out["tb_report"] = tb_report(
+        f"{label}, phase 13", out["tb_pass_ms"],
+        bound(tb_bytes(carry, tcc), tb_flops(carry, tcc))[0],
+        out["e_update_ms"] + out["h_update_ms"])
+    del spare, terms
     cells = static.grid_shape[0] * static.grid_shape[1] \
         * static.grid_shape[2]
     for k in ("pallas3d", "fused", "packed", "tb"):
@@ -1479,6 +1519,8 @@ def main() -> int:
         "bound_share": tb_bound[0] / tb_ms,
         "packed_step_ms_same_call": step_ms}
     say("tb times at 256^3: " + json.dumps(result["tb_times_256"]))
+    result["tb_report_256"] = tb_report("256^3, phase 3", tb_ms, tb_bound[0],
+                                        e_ms + h_ms)
     del sim, carry, cc, tcc, spare, terms
     sim = Simulation(cfg256, device=dev)
     sim.advance(20)
@@ -1561,6 +1603,9 @@ def main() -> int:
         result["batch_times_256"][lanes] = bt
         say(f"lane-capable times at 256^3, {lanes} lane(s): "
             + json.dumps(bt))
+        bt["tb_report"] = tb_report(
+            f"256^3, {lanes} lane(s), phase 8", bt["tb_pass_ms"],
+            bt["tb_bound_ms"], bt["e_update_ms"] + bt["h_update_ms"])
         del bsim
 
     # ---- phase 9: the main path's shapes, and the odd step's tail --------
@@ -1591,6 +1636,10 @@ def main() -> int:
     times512 = lane_times(bsim, dev, 5, 1)
     result["batch_times_512"] = times512
     say("lane-capable times at 512^3, 4 Mie lanes: " + json.dumps(times512))
+    times512["tb_report"] = tb_report(
+        "512^3, 4 Mie lanes, phase 9", times512["tb_pass_ms"],
+        times512["tb_bound_ms"],
+        times512["e_update_ms"] + times512["h_update_ms"])
     del bsim
     torch.cuda.empty_cache()
 

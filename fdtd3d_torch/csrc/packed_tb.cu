@@ -1,12 +1,12 @@
 // Temporal-blocked packed pass of the 3D Yee scheme at depth k = 2, for
-// Hopper (sm_90a): one launch advances E and H by two leapfrog steps.
+// Hopper (sm_90a): one call advances E and H by two leapfrog steps.
 //
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas_packed_tb.py::make_packed_tb_step (builder :520,
 // kernel body :900, pallas_call :1320) for unsharded 3D float32 runs at
 // k = 2.
 //
-// What one launch computes, on the stacked layout E, H = (3, n1, n2, n3)
+// What one call computes, on the stacked layout E, H = (3, n1, n2, n3)
 // float32, C order, z innermost, out of place (source buffers *0,
 // destination buffers *2), for generations g = 1, 2:
 //   E(g) = ca E(g-1) + cb (curl_b H(g-1) + CPML terms + records(g)
@@ -22,71 +22,158 @@
 // per generation, through the record table (component, normal axis,
 // plane, offset); the point source adds drive[g-1].
 //
-// Design. Generation 1 never reaches device memory. One thread block
-// owns a (y, z) tile of (BY - 4) x (BZ - 4) cells over one segment of
-// the x axis, and marches along x (from one plane before its segment to
-// one after, for generation 1's halo); the segments give the card about
-// four waves of blocks, so slow blocks (slabs, source planes) spread;
-// one thread per (y, z) column of the tile plus a 2-cell halo on each
-// side. At iteration i it loads plane i of H(0) (and E(0), prefetched
-// one iteration ahead) and computes, in four phases separated by
-// barriers: E1(i), H1(i-1), E2(i-1), H2(i-2) (the reference's phase
-// lags). E reads H at x-1 and H reads E at x+1, so depth-2 plane rings
-// in shared memory for H0, E1, H1 and E2 suffice (8 planes x 3
-// components x 512 columns x 4 B = 48 KB). Each phase runs on a region
-// that shrinks by one halo cell on the side its stencil reads:
-// E1 on [1, B), H1 on [1, B-1), E2 on [2, B-1), H2 on [2, B-2) = the
-// owned tile, so halo cells are computed redundantly for generation 1
-// (and E2 one cell beyond the tile, for H2's forward differences), with
-// their own sources, psi and walls: every decision is taken on global
-// coordinates. The thread that owns a column keeps that column's
-// generation-1 psi and J in registers, as a one-plane ring. Generation
-// 0's fields, psi and J are loaded one plane ahead, so their latency
-// hides behind the phases of the current plane. Each column keeps
-// bitmasks of the source records that can touch it (the table itself is
-// copied once into shared memory), so a cell tests the few x-normal
-// records and nothing else. A cell that no slab and no record touches
-// (most of the volume) takes a straight-line path with the CPML and
-// record code compiled out; the data-dependent branches of the full
-// path cost instruction-level parallelism even where they do nothing.
+// The march. Generation 1 never reaches device memory. A thread block
+// owns a work item of the host's plan (ops/packed_tb.py::plan_items): a
+// (y, z) tile of at most (BY - 4) x (BZ - 4) owned cells over an x
+// segment [x0, x1). One thread per (y, z) column of the tile plus a
+// 2-cell halo on each side marches x (from x0 - 1 to x1 + 1, for
+// generation 1's halo planes) and, at plane i, computes in four phases
+// separated by barriers E1(i), H1(i-1), E2(i-1), H2(i-2) (the
+// reference's phase lags). E reads H at x-1 and H reads E at x+1, so
+// depth-2 shared-memory plane rings for E1, H1 and E2 suffice. Each phase
+// runs on a region that shrinks by one halo cell on the side its stencil
+// reads: E1 on [1, W), H1 on [1, W-1), E2 on [2, W-1), H2 on [2, W-2) =
+// the owned tile (W the tile's window, owned + 4), so halo cells are
+// computed redundantly for generation 1 with their own sources, psi and
+// walls: every decision is taken on global coordinates.
+//
+// The design for the H100. Each choice against its alternative in one
+// call of scripts/tb_variants.py (ms a pass at 256^3 on
+// vacuum3D_tfsf's state / on one lane of the Mie example at 512^3;
+// NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+//
+// 1. Occupancy. The plan's items run in sections, one kernel each, built
+//    from one march (tb_section): the items whose computed cells touch
+//    no CPML slab (most of the volume) in a kernel with the CPML code
+//    and the psi state compiled out, under __launch_bounds__(NT,
+//    INNER_BLOCKS = 2): 64 registers, two resident 512-thread blocks (32
+//    warps) an SM (0.967 / 6.25 against 1.097 / 7.23 at one block); the
+//    slab items in edge kernels specialised by the axes whose slab they
+//    touch (AX: x, y, z alone, or several), each keeping only those
+//    axes' generation-1 psi rings (0.967 / 6.25 against 1.059 / 6.76 for
+//    one general kernel). The edge kernels run one block an SM with no
+//    register cap (105-118 registers, no spills); at two (64 registers,
+//    24-168 bytes of spills) the single-axis ones take 1.033 / 6.22, the
+//    general one 1.002 / 6.30. Items whose cells
+//    read coefficient grids run in builds with the grids' rings, one
+//    block an SM.
+// 2. Asynchronous generation-0 loads. H0, E0 (the E coefficient grids
+//    and Drude J0 in the grid builds, and the rows of the y- and
+//    z-normal TFSF records that cross the tile) stream into
+//    shared-memory rings PIPE = 2 planes ahead of the march, by cp.async
+//    (4 bytes a thread: each thread copies its own column, so no
+//    register holds the operand). Each plane's copies are one commit
+//    group; `cp.async.wait_group PIPE` before the barrier that opens the
+//    plane completes them, and that barrier, which the march needs
+//    anyway, publishes them to the block (so no mbarrier is needed). A
+//    ring slot is refilled only after the barrier that follows its last
+//    reader. One plane ahead measures the same (0.965); three cost one
+//    block an SM (1.114). The edge kernels' generation-0 psi stays a
+//    one-plane register prefetch, and their CPML profiles sit in shared
+//    memory.
+// 3. Balance. The plan cuts each axis into its CPML bands and interior
+//    pieces, so slab work is confined to thin items; x segments of 48
+//    planes (16: 1.020, 32: 0.980, 64: 0.990); each section's items
+//    heaviest first (blockIdx.x follows the plan, and the block
+//    scheduler hands blocks out in that order; x, y, z order: 1.042). A
+//    section's kernel may start on the SMs its predecessor leaves free
+//    (programmatic dependent launch; without: 1.237 / 6.50): the
+//    sections write disjoint cells and read only the source buffers. A
+//    z-band item runs in a transposed block (BZ / 2 threads along z, 2 BY
+//    along y), which fills its lanes (without: 1.107 / 6.56). Items
+//    outside the box where the coefficient grids differ from their
+//    background run the scalar-coefficient build (without: 11.69 on the
+//    Mie lane).
+// 4. Halo. The block stays 32 (z) x 16 (y) threads with a 2-cell halo
+//    (32 x 32 threads, 1.31 columns computed a column owned against
+//    1.52: 1.250; 8 x 32: 1.119). The interior tiles are 24 cells wide
+//    at multiples of 8 along z, so the rows of owned cells the kernel
+//    writes start and end on 32-byte sectors (28 wide anywhere: 1.025 /
+//    6.80).
+//
+// Records cost nothing where they are absent: each family's record
+// table lives in shared memory with per-component and x-normal bit
+// masks; a column holds the bits of the y- and z-normal records whose
+// plane holds it, a table the bits of the x-normal records on each
+// plane of the item, and a cell adds the records of those bits in table
+// order.
 //
 // Lanes (the reference's batch=B build of make_packed_tb_step, vmapped
-// over a lane-major grid dimension): one launch advances `lanes`
-// same-shape scenarios by two steps. The lane rides the grid's z
-// dimension beside the x segment (lane = blockIdx.z / segments; the
-// segment count is the solo launch's, so every lane runs exactly the
-// blocks a solo launch would), and every base pointer steps by a 64-bit
-// lane stride: fields and J by 3 n1 n2 n3, psi by its slab extent, a
-// coefficient grid by its own stride (0 when shared), the record terms
-// by one row of `total` per lane and generation, the point source's
-// drive by two values per lane. The record table and its column masks
-// depend on geometry only and serve every lane. A solo run is lanes = 1.
+// over a lane-major grid dimension): one call advances `lanes` same-shape
+// scenarios by two steps. Block b runs item b / lanes on lane b % lanes:
+// every lane runs exactly the items of a solo call, in the same kernels,
+// and every base pointer steps by a 64-bit lane stride: fields and J by
+// 3 n1 n2 n3, psi by its slab extent, a coefficient grid by its own
+// stride (0 when shared), the record terms by one row of `total` per lane
+// and generation, the point source's drive by two values per lane. The
+// plan, the record table and its masks depend on geometry (and the
+// grids' box, the same for every lane) only. A solo run is lanes = 1
+// (MULTI = false).
 //
 // In place would be wrong: a block reads halo columns of E, H, psi and J
-// that a neighbouring block writes, so the launch reads only the source
+// that a neighbouring block writes, so the call reads only the source
 // buffers and writes only the destination ones (the caller ping-pongs).
 //
-// What bounds it on the card: memory bytes. A launch must read E and H
+// What bounds it on the card: memory bytes. A call must read E and H
 // once and write them once (12 volumes, 48 B/cell for two steps, 24
 // B/cell a step, against the two-launch twin's 72) plus the psi slabs;
-// the halo columns are re-read, 512 / 336 = 1.52x on the source fields
-// at the chosen tile (mostly from L2, where neighbouring blocks read the
-// same planes at about the same time). About 120 flops a cell for the
-// two steps, far below the card's ~20 flops per byte.
+// the halo columns are re-read (mostly from L2). About 120 flops a cell
+// for the two steps, far below the card's ~20 flops per byte.
 //
-// Offsets are 64-bit. Every entry returns cudaGetLastError() so the
-// caller can raise on a refused launch.
+// Build knobs (-D): BY, BZ (threads of a block, halo included), PIPE,
+// INNER_BLOCKS, EDGE_BLOCKS, SINGLE_BLOCKS, OVERLAP; TB_BLOCK_TIMER
+// records each block's %globaltimer start and end and its SM
+// (fdtd_tb_blocks).
+//
+// Offsets are 64-bit (32-bit inside one lane's psi stack). Every entry
+// returns cudaGetLastError() so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_REC 16  // mirrors fdtd3d_torch/ops/packed_tb.py
-#define BZ 32       // block extent along z (threadIdx.x), halo included
-#define BY 16       // block extent along y (threadIdx.y), halo included
+#define MAX_REC 16   // mirrors fdtd3d_torch/ops/packed_tb.py
+#define PLAN_COLS 8  // ints a plan row: j0, k0, ny, nz, x0, x1, class, pad
+#define MAX_PLANES 512  // owned x planes of an item at most (the plan's)
+#define MAX_SLAB_SUM 256  // CPML planes a side summed over the axes
+#ifndef BZ
+#define BZ 32  // block extent along z (threadIdx.x), halo included
+#endif
+#ifndef BY
+#define BY 16  // block extent along y (threadIdx.y), halo included
+#endif
+#ifndef PIPE
+#define PIPE 2  // generation-0 planes in flight ahead of the march
+#endif
+#ifndef INNER_BLOCKS
+#define INNER_BLOCKS 2  // resident blocks an SM the inner kernel is built for
+#endif
+#ifndef EDGE_BLOCKS
+#define EDGE_BLOCKS 1  // the general edge kernel (slabs of several axes)
+#endif
+#ifndef SINGLE_BLOCKS
+#define SINGLE_BLOCKS 1  // the edge kernels of items in one axis's slab
+#endif
+#define SECTIONS 7
+#ifndef OVERLAP
+#define OVERLAP 1  // a section's kernel may start while the one before ends
+#endif
 #define HALO 2
-#define MIN_SEGMENT 32  // least x planes a block marches over
 #define NT (BZ * BY)
 #define PLANE (3 * NT)  // floats of one ring plane (three components)
+#define RING ((PIPE + 2) <= 4 ? 4 : 8)  // generation-0 ring planes
+#define REC_SLOTS (NT >= 512 ? 4 : NT / 128)  // staged records a family
+#define REC_RING 8   // staged record planes (PIPE + 3 at most)
+#define REC_ROW 32   // floats of a staged record row (>= BZ and BY)
+#define REC_STAGE (2 * REC_SLOTS * 2 * REC_RING * REC_ROW)  // floats
+#if PIPE < 1 || PIPE + 3 > REC_RING
+#error "PIPE must lie in [1, 5]"
+#endif
+#if BZ > REC_ROW || BY > REC_ROW || NT < 256
+#error "a staged record row holds at most REC_ROW columns"
+#endif
+// The transposed layout (BZ / 2 threads along z, 2 BY along y) of the
+// edge kernel's items in a z band; built when its rows fit a staged row.
+#define ZBAND (2 * BY <= REC_ROW && BZ % 2 == 0)
 
 struct Coef {
   const float* grid;  // (n1, n2, n3), (lanes, n1, n2, n3) or nullptr
@@ -127,6 +214,7 @@ struct Params {
   long long psi_lane[3];  // lane stride of the psi stacks of axis a
   const float* lane_drive;  // (lanes, 2): the drive of a launch of several
                             // lanes (a one-lane launch takes `drive`)
+  const int* plan;        // (items, PLAN_COLS) work items, by section
   Family fe, fh;
   Coef kj[3];             // Drude
   Coef bj[3];
@@ -134,7 +222,9 @@ struct Params {
   int pc, pi, pj, pk;     // point source: E component (-1: none), cell
   float drive[2];         // one lane: amplitude * waveform per generation
   int n1, n2, n3;
-  int lanes;              // scenarios advanced by one launch
+  int lanes;              // scenarios advanced by one call
+  int n_item[SECTIONS];   // items of each section, in launch order (see
+                          // kKernels)
   float inv_dx;
 };
 
@@ -158,12 +248,12 @@ __device__ __forceinline__ int slab_plane(int ia, int n, int m) {
   return ia < m ? ia : (ia >= n - m ? ia - (n - 2 * m) : -1);
 }
 
-// Offset of cell (i, j, k) in the psi stack of axis a, row `row`, at
-// slab plane q.
-__device__ __forceinline__ int64_t psi_offset(int a, int row, int q, int i,
-                                              int j, int k, int64_t n1,
-                                              int64_t n2, int64_t n3,
-                                              int64_t m2) {
+// Offset of cell (i, j, k) in one lane's psi stack of axis a, row
+// `row`, at slab plane q (a lane's stack holds fewer than 2^31 values:
+// the wrapper checks).
+__device__ __forceinline__ int psi_offset(int a, int row, int q, int i,
+                                          int j, int k, int n1, int n2,
+                                          int n3, int m2) {
   if (a == 0) return ((row * m2 + q) * n2 + j) * n3 + k;
   if (a == 1) return ((row * n1 + i) * m2 + q) * n3 + k;
   return ((row * n1 + i) * n2 + j) * m2 + q;
@@ -179,133 +269,252 @@ __device__ __forceinline__ int64_t plane_index(int axis, int i, int j,
   return i * n2 + j;
 }
 
+// Asynchronous 4-byte copy global -> shared, and its commit groups.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // One family's record table in shared memory: the kernel copies it from
 // the parameter block once, because indexing the parameter block with a
-// runtime index is slow.
+// runtime index is slow; with the bits of each component's records and
+// of the x-normal records.
+// A y-normal record whose plane crosses the block's window adds, at
+// plane x, one row of terms along z (the window's columns); a z-normal
+// one a row along y. The first REC_SLOTS such records of a family are
+// staged: their rows of both generations stream into a shared ring
+// (REC_RING planes, PIPE ahead, with the fields), so a record cell reads
+// its term from shared memory; slot[r] is record r's slot or -1.
 struct RecTable {
   int comp[MAX_REC];
   int axis[MAX_REC];
   int plane[MAX_REC];
   long long off[MAX_REC];
+  int slot[MAX_REC];
+  int srec[REC_SLOTS];  // the record of each slot
+  int nslot;
+  unsigned cbits[3];
+  unsigned xbits;
 };
 
-// The records of a family that can touch this thread's column: per
-// component, the bits of the y- and z-normal records whose plane holds
-// the column, and, family-wide, the bits of the x-normal records, whose
-// plane is checked per cell. Bits in table order.
-struct RecMask {
-  unsigned col[3];
-  unsigned x;
-};
-
-__device__ __forceinline__ void copy_table(const Family& f, int r,
+// The window covers rows [jw, jw + wy) and columns [kw, kw + wz).
+__device__ __forceinline__ void copy_table(const Family& f, int tid, int jw,
+                                           int wy, int kw, int wz,
                                            RecTable& rt) {
-  rt.comp[r] = f.rec[r].comp;
-  rt.axis[r] = f.rec[r].axis;
-  rt.plane[r] = f.rec[r].plane;
-  rt.off[r] = f.rec[r].off;
-}
-
-__device__ __forceinline__ RecMask column_mask(const RecTable& rt, int n_rec,
-                                               int j, int k) {
-  RecMask rm = {{0u, 0u, 0u}, 0u};
-  for (int r = 0; r < n_rec; ++r) {
-    const unsigned bit = 1u << r;
-    const int a = rt.axis[r];
-    if (a == 0) {
-      rm.x |= bit;
-    } else if ((a == 1 ? j : k) == rt.plane[r]) {
-      const int c = rt.comp[r];
-      rm.col[0] |= c == 0 ? bit : 0u;
-      rm.col[1] |= c == 1 ? bit : 0u;
-      rm.col[2] |= c == 2 ? bit : 0u;
+  if (tid < f.n_rec) {
+    rt.comp[tid] = f.rec[tid].comp;
+    rt.axis[tid] = f.rec[tid].axis;
+    rt.plane[tid] = f.rec[tid].plane;
+    rt.off[tid] = f.rec[tid].off;
+  }
+  if (tid == 0) {
+    unsigned cb0 = 0u, cb1 = 0u, cb2 = 0u, xb = 0u;
+    int ns = 0;
+#pragma unroll
+    for (int r = 0; r < MAX_REC; ++r) {
+      if (r < f.n_rec) {
+        const unsigned bit = 1u << r;
+        const int c = f.rec[r].comp;
+        const int a = f.rec[r].axis;
+        const int q = f.rec[r].plane;
+        cb0 |= c == 0 ? bit : 0u;
+        cb1 |= c == 1 ? bit : 0u;
+        cb2 |= c == 2 ? bit : 0u;
+        xb |= a == 0 ? bit : 0u;
+        const bool crosses = (a == 1 && q >= jw && q < jw + wy) ||
+                             (a == 2 && q >= kw && q < kw + wz);
+        rt.slot[r] = -1;
+        if (crosses && ns < REC_SLOTS) {
+          rt.slot[r] = ns;
+          rt.srec[ns] = r;
+          ++ns;
+        }
+      }
     }
+    rt.nslot = ns;
+    rt.cbits[0] = cb0;
+    rt.cbits[1] = cb1;
+    rt.cbits[2] = cb2;
+    rt.xbits = xb;
   }
-  return rm;
 }
 
-// acc plus the record terms of component c at cell (x, j, k), in table
-// order, from the row of generation g and this lane in `terms` (a
-// single-lane launch reads row g, as it did before lanes existed).
-template <bool MULTI>
-__device__ __forceinline__ float add_records(const Params& p,
-                                             const RecTable& rt,
-                                             const RecMask& rm, int c, int g,
-                                             int lane, int x, int j, int k,
-                                             float acc) {
-  unsigned m = rm.col[c];
-  for (unsigned z = rm.x; z; z &= z - 1) {
-    const int r = __ffs(z) - 1;
-    if (rt.comp[r] == c && rt.plane[r] == x) m |= 1u << r;
+// The y- and z-normal records whose plane holds column (j, k).
+__device__ __forceinline__ unsigned column_bits(const RecTable& rt,
+                                                int n_rec, int j, int k) {
+  unsigned bits = 0u;
+  for (int r = 0; r < n_rec; ++r) {
+    const int a = rt.axis[r];
+    if (a != 0 && (a == 1 ? j : k) == rt.plane[r]) bits |= 1u << r;
   }
-  for (; m; m &= m - 1) {
+  return bits;
+}
+
+// The x-normal records on plane x (the same for every thread).
+__device__ __forceinline__ unsigned plane_bits(const RecTable& rt, int x) {
+  unsigned bits = 0u;
+  for (unsigned z = rt.xbits; z; z &= z - 1) {
+    const int r = __ffs(z) - 1;
+    bits |= rt.plane[r] == x ? 1u << r : 0u;
+  }
+  return bits;
+}
+
+// The row of generation g of this lane in `terms` (a single-lane launch
+// reads row g).
+template <bool MULTI>
+__device__ __forceinline__ int64_t terms_row(const Params& p, int g,
+                                             int lane) {
+  return MULTI ? (int64_t)(g * p.lanes + lane) * p.total
+               : (int64_t)g * p.total;
+}
+
+// Offset of a staged row: family f, slot s, generation g, plane x.
+__device__ __forceinline__ int stage_row(int f, int s, int g, int x) {
+  return (((f * REC_SLOTS + s) * 2 + g) * REC_RING + (x & (REC_RING - 1))) *
+         REC_ROW;
+}
+
+// acc plus the record terms of component c at cell (x, j, k) among the
+// records `bits`, in table order, for generation g of this lane: a
+// staged record from family f's rows in `stage` (the thread's place in
+// the window, ly = tid / ZW, lz = tid % ZW, picks the value), the others
+// from `terms`.
+template <bool MULTI, int ZW>
+__device__ __forceinline__ float add_records(
+    const Params& p, const RecTable& rt, const float* stage, int f,
+    unsigned bits, int c, int g, int lane, int x, int j, int k, int tid,
+    float acc) {
+  for (unsigned m = bits & rt.cbits[c]; m; m &= m - 1) {
     const int r = __ffs(m) - 1;
-    const int64_t row = MULTI ? (int64_t)(g * p.lanes + lane) * p.total
-                              : (int64_t)g * p.total;
-    acc += p.terms[row + rt.off[r] +
-                   plane_index(rt.axis[r], x, j, k, p.n2, p.n3)];
+    const int s = rt.slot[r];
+    if (s >= 0) {
+      acc += stage[stage_row(f, s, g, x) +
+                   (rt.axis[r] == 1 ? tid % ZW : tid / ZW)];
+    } else {
+      acc += p.terms[terms_row<MULTI>(p, g, lane) + rt.off[r] +
+                     plane_index(rt.axis[r], x, j, k, p.n2, p.n3)];
+    }
   }
   return acc;
 }
 
-// Whether plane x of a family needs the full path: it lies in the x
-// slab, or an x-normal record of the family sits on it.
-__device__ __forceinline__ bool plane_full(const Params& p,
-                                           const RecTable& rt,
-                                           const RecMask& rm, int x) {
-  bool full = p.m[0] > 0 && slab_plane(x, p.n1, p.m[0]) >= 0;
-  for (unsigned z = rm.x; z; z &= z - 1) full |= rt.plane[__ffs(z) - 1] == x;
-  return full;
+// Facts of a thread's column, fixed over the march.
+struct Col {
+  int j, k;
+  int qy, qz;     // slab plane of j and of k, -1 outside (or no CPML)
+  unsigned wall;  // E components that a y or z PEC wall zeroes (bit c)
+  bool ym, zm;    // j > 0, k > 0: the backward neighbour is in the domain
+  bool yp, zp;    // j < n2 - 1, k < n3 - 1: the forward one is
+};
+
+// Facts of a phase's plane x, the same for every thread.
+struct Pl {
+  int x;
+  int qx;         // slab plane of x, -1 outside (or no CPML)
+  bool xm, xp;    // x > 0, x < n1 - 1
+  unsigned wall;  // E components that an x PEC wall zeroes
+};
+
+__device__ __forceinline__ Pl plane(const Params& p, int x) {
+  Pl pl;
+  pl.x = x;
+  pl.qx = p.m[0] > 0 ? slab_plane(x, p.n1, p.m[0]) : -1;
+  pl.xm = x > 0;
+  pl.xp = x < p.n1 - 1;
+  pl.wall = (x == 0 || x == p.n1 - 1) ? 6u : 0u;
+  return pl;
 }
 
-// psi of generation 0 at cell (x, j, k) of this lane from the stacks
-// `ps`, for every curl term (2 c + t) whose axis has a CPML slab holding
-// the cell; the other entries of `out` are left as they are.
+__device__ __forceinline__ int slab_of(const Col& col, const Pl& pl,
+                                       int a) {
+  return a == 0 ? pl.qx : (a == 1 ? col.qy : col.qz);
+}
+
+// psi of generation 0 at the cell of column `col` on plane `pl` of this
+// lane from the stacks `ps`, for every curl term (2 c + t) whose axis (of
+// the axes AX) has a CPML slab holding the cell; the other entries of
+// `out` are left as they are.
+template <int AX>
 __device__ __forceinline__ void load_psi(const Params& p,
                                          const float* const (&ps)[3],
-                                         int lane, int x, int j, int k,
-                                         float (&out)[6]) {
-  const int idx[3] = {x, j, k};
-  const int n[3] = {p.n1, p.n2, p.n3};
+                                         int lane, const Col& col,
+                                         const Pl& pl, float (&out)[6]) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int a = term_axis(c, t);
-      const int m = p.m[a];
-      if (m > 0) {
-        const int q = slab_plane(idx[a], n[a], m);
-        if (q >= 0) {
-          out[2 * c + t] = ps[a][lane * p.psi_lane[a] +
-                                 psi_offset(a, c < a ? c : c - 1, q, x, j,
-                                            k, p.n1, p.n2, p.n3, 2 * m)];
-        }
+      const int q = (AX >> a) & 1 ? slab_of(col, pl, a) : -1;
+      if (q >= 0) {
+        out[2 * c + t] =
+            ps[a][lane * p.psi_lane[a] +
+                  psi_offset(a, c < a ? c : c - 1, q, pl.x, col.j, col.k,
+                             p.n1, p.n2, p.n3, 2 * p.m[a])];
       }
     }
   }
 }
 
+// Where a cell's operands beyond the field rings come from: the staged
+// record rows, and (GRID) the E coefficients' ring slot of the cell's
+// plane at this thread (ca of component c at [c NT], cb at [(3 + c) NT];
+// a grid that is absent is the scalar).
+struct Src {
+  const float* stage;
+  const float* cf;
+  const float* prof;  // the CPML profiles in shared memory (edge kernel)
+};
+
+// Offset of family f's profile rows of axis a in the shared profiles:
+// per family and axis with a slab, rows b, c, 1/kappa of 2 m[a] values.
+__device__ __forceinline__ int prof_offset(const Params& p, int f, int a) {
+  const int msum = p.m[0] + p.m[1] + p.m[2];
+  return 6 * (f * msum + (a > 0 ? p.m[0] : 0) + (a > 1 ? p.m[1] : 0));
+}
+
+// A coefficient: a grid value, or (GRID = false: no grid in the call)
+// the scalar.
+template <bool GRID>
+__device__ __forceinline__ float cval(const Coef& c, int lane,
+                                      int64_t cell) {
+  return GRID ? coef(c, lane, cell) : c.val;
+}
+
+// ca or cb of an E component: from the coefficient ring (GRID), else
+// the scalar.
+template <bool GRID>
+__device__ __forceinline__ float eval(const Coef& c, const float* cf,
+                                      int at) {
+  return GRID && c.grid ? cf[at] : c.val;
+}
+
 // One E cell of generation G + 1 at this thread's column.
 // hr: the ring of the H generation G (plane x at offset s0, x-1 at s1);
 // old: E(G) of the cell; drive: this lane's point-source values (a
-// one-lane launch reads p.drive, a kernel parameter, instead). G = 0
-// takes generation 0's psi and J from psi0/j0 (loaded a plane ahead)
-// and leaves generation 1's in pe/jr;
-// G = 1 takes them from pe/jr and, when `store`, writes generation 2's
-// to device memory. FULL = false compiles the CPML and the records out:
-// the straight-line path of a cell that no slab and no record touches.
-template <int G, bool FULL, bool MULTI>
-__device__ __forceinline__ void e_cell(const Params& p, const RecTable& rt,
-                                       const RecMask& rm, const float* hr,
-                                       int s0, int s1, const int idx[3],
-                                       int lane, int64_t cell, int tid,
-                                       const float (&old)[3],
-                                       const float (&drive)[2],
-                                       const float (&psi0)[6],
-                                       const float (&j0)[3], float (&pe)[6],
-                                       float (&jr)[3], float (&out)[3],
-                                       bool store) {
-  const int n[3] = {p.n1, p.n2, p.n3};
+// one-lane launch reads p.drive, a kernel parameter, instead); point:
+// the cell is the point source's. G = 0 takes generation 0's psi and J
+// from psi0/j0 and leaves generation 1's in pe/jr; G = 1 takes them from
+// pe/jr and, when `store`, writes generation 2's to device memory.
+// AX: the axes whose slab terms are compiled in (bit a: axis a; 0 for
+// none), REC = false compiles the records out, GRID = false the
+// coefficient grids and Drude J.
+template <int G, int AX, bool REC, bool GRID, bool MULTI, int ZW>
+__device__ __forceinline__ void e_cell(
+    const Params& p, const RecTable& rt, unsigned bits, const float* hr,
+    int s0, int s1, const Col& col, const Pl& pl, const Src& src, int lane,
+    int64_t cell, int tid, const float (&old)[3], const float (&drive)[2],
+    bool point, const float (&psi0)[6], const float (&j0)[3],
+    float (&pe)[6], float (&jr)[3], float (&out)[3], bool store) {
   const int64_t vol = (int64_t)p.n1 * p.n2 * p.n3;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -318,37 +527,37 @@ __device__ __forceinline__ void e_cell(const Params& p, const RecTable& rt,
       const float* here = hr + s0 + d * NT + tid;
       float prev;
       if (a == 0) {
-        prev = idx[0] > 0 ? hr[s1 + d * NT + tid] : 0.f;
+        prev = pl.xm ? hr[s1 + d * NT + tid] : 0.f;
       } else if (a == 1) {
-        prev = idx[1] > 0 ? here[-BZ] : 0.f;
+        prev = col.ym ? here[-ZW] : 0.f;
       } else {
-        prev = idx[2] > 0 ? here[-1] : 0.f;
+        prev = col.zm ? here[-1] : 0.f;
       }
       const float dfa = (here[0] - prev) * p.inv_dx;
-      const int m = p.m[a];
-      if (FULL && m > 0) {
-        const int q = slab_plane(idx[a], n[a], m);
+      if ((AX >> a) & 1) {
+        const int q = slab_of(col, pl, a);
         if (q >= 0) {
-          const float* pr = p.fe.prof[a];
+          const int m = p.m[a];
+          const float* pr = src.prof + prof_offset(p, 0, a);
           const float ps_old = G == 0 ? psi0[2 * c + t] : pe[2 * c + t];
           const float psi = pr[q] * ps_old + pr[2 * m + q] * dfa;
           if (G == 0) {
             pe[2 * c + t] = psi;
           } else if (store) {
             p.psE2[a][lane * p.psi_lane[a] +
-                      psi_offset(a, c < a ? c : c - 1, q, idx[0], idx[1],
-                                 idx[2], p.n1, p.n2, p.n3, 2 * m)] = psi;
+                      psi_offset(a, c < a ? c : c - 1, q, pl.x, col.j,
+                                 col.k, p.n1, p.n2, p.n3, 2 * m)] = psi;
           }
           acc += s * ((pr[4 * m + q] - 1.f) * dfa + psi);
         }
       }
       acc += s * dfa;
     }
-    if (FULL) {
-      acc = add_records<MULTI>(p, rt, rm, c, G, lane, idx[0], idx[1],
-                               idx[2], acc);
+    if (REC) {
+      acc = add_records<MULTI, ZW>(p, rt, src.stage, 0, bits, c, G, lane,
+                                   pl.x, col.j, col.k, tid, acc);
     }
-    if (p.J0) {
+    if (GRID && p.J0) {
       const float jo = G == 0 ? j0[c] : jr[c];
       const float jn = coef(p.kj[c], lane, cell) * jo +
                        coef(p.bj[c], lane, cell) * old[c];
@@ -359,34 +568,26 @@ __device__ __forceinline__ void e_cell(const Params& p, const RecTable& rt,
       }
       acc -= jn;
     }
-    if (c == p.pc && idx[0] == p.pi && idx[1] == p.pj && idx[2] == p.pk) {
+    if (c == p.pc && point) {
       acc += MULTI ? drive[G] : p.drive[G];
     }
-    float v = coef(p.fe.a[c], lane, cell) * old[c] +
-              coef(p.fe.b[c], lane, cell) * acc;
+    const float v = eval<GRID>(p.fe.a[c], src.cf, c * NT) * old[c] +
+                    eval<GRID>(p.fe.b[c], src.cf, (3 + c) * NT) * acc;
     // PEC walls: tangential E vanishes on the walls of the two axes
     // other than its own.
-#pragma unroll
-    for (int w = 0; w < 3; ++w) {
-      if (w != c && (idx[w] == 0 || idx[w] == n[w] - 1)) v = 0.f;
-    }
-    out[c] = v;
+    out[c] = ((col.wall | pl.wall) >> c) & 1u ? 0.f : v;
   }
 }
 
 // One H cell of generation G + 1 at this thread's column.
 // er: the ring of the E generation G + 1 (plane x at offset s0, x+1 at
-// s1); old: H(G) of the cell; psi and FULL as in e_cell, in psi0/ph.
-template <int G, bool FULL, bool MULTI>
-__device__ __forceinline__ void h_cell(const Params& p, const RecTable& rt,
-                                       const RecMask& rm, const float* er,
-                                       int s0, int s1, const int idx[3],
-                                       int lane, int64_t cell, int tid,
-                                       const float (&old)[3],
-                                       const float (&psi0)[6],
-                                       float (&ph)[6], float (&out)[3],
-                                       bool store) {
-  const int n[3] = {p.n1, p.n2, p.n3};
+// s1); old: H(G) of the cell; psi, AX, REC and GRID as in e_cell.
+template <int G, int AX, bool REC, bool GRID, bool MULTI, int ZW>
+__device__ __forceinline__ void h_cell(
+    const Params& p, const RecTable& rt, unsigned bits, const float* er,
+    int s0, int s1, const Col& col, const Pl& pl, const Src& src, int lane,
+    int64_t cell, int tid, const float (&old)[3], const float (&psi0)[6],
+    float (&ph)[6], float (&out)[3], bool store) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float acc = 0.f;
@@ -398,83 +599,164 @@ __device__ __forceinline__ void h_cell(const Params& p, const RecTable& rt,
       const float* here = er + s0 + d * NT + tid;
       float next;
       if (a == 0) {
-        next = idx[0] < n[0] - 1 ? er[s1 + d * NT + tid] : 0.f;
+        next = pl.xp ? er[s1 + d * NT + tid] : 0.f;
       } else if (a == 1) {
-        next = idx[1] < n[1] - 1 ? here[BZ] : 0.f;
+        next = col.yp ? here[ZW] : 0.f;
       } else {
-        next = idx[2] < n[2] - 1 ? here[1] : 0.f;
+        next = col.zp ? here[1] : 0.f;
       }
       const float dfa = (next - here[0]) * p.inv_dx;
-      const int m = p.m[a];
-      if (FULL && m > 0) {
-        const int q = slab_plane(idx[a], n[a], m);
+      if ((AX >> a) & 1) {
+        const int q = slab_of(col, pl, a);
         if (q >= 0) {
-          const float* pr = p.fh.prof[a];
+          const int m = p.m[a];
+          const float* pr = src.prof + prof_offset(p, 1, a);
           const float ps_old = G == 0 ? psi0[2 * c + t] : ph[2 * c + t];
           const float psi = pr[q] * ps_old + pr[2 * m + q] * dfa;
           if (G == 0) {
             ph[2 * c + t] = psi;
           } else if (store) {
             p.psH2[a][lane * p.psi_lane[a] +
-                      psi_offset(a, c < a ? c : c - 1, q, idx[0], idx[1],
-                                 idx[2], p.n1, p.n2, p.n3, 2 * m)] = psi;
+                      psi_offset(a, c < a ? c : c - 1, q, pl.x, col.j,
+                                 col.k, p.n1, p.n2, p.n3, 2 * m)] = psi;
           }
           acc += s * ((pr[4 * m + q] - 1.f) * dfa + psi);
         }
       }
       acc += s * dfa;
     }
-    if (FULL) {
-      acc = add_records<MULTI>(p, rt, rm, c, G, lane, idx[0], idx[1],
-                               idx[2], acc);
+    if (REC) {
+      acc = add_records<MULTI, ZW>(p, rt, src.stage, 1, bits, c, G, lane,
+                                   pl.x, col.j, col.k, tid, acc);
     }
-    out[c] = coef(p.fh.a[c], lane, cell) * old[c] -
-             coef(p.fh.b[c], lane, cell) * acc;
+    out[c] = cval<GRID>(p.fh.a[c], lane, cell) * old[c] -
+             cval<GRID>(p.fh.b[c], lane, cell) * acc;
   }
 }
 
-// MULTI = false is the launch of a single lane (a solo run, or a batch
-// of one): the lane is the constant 0, every lane offset folds away and
-// the drive is a kernel parameter, so the solo pass compiles to the code
-// it had before lanes existed.
-template <bool MULTI>
-__global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
-  extern __shared__ float ring[];
-  float* h0r = ring;              // H(t)   planes i, i-1
-  float* e1r = ring + 2 * PLANE;  // E(t+1) planes i, i-1
-  float* h1r = ring + 4 * PLANE;  // H(t+1) planes i-1, i-2
-  float* e2r = ring + 6 * PLANE;  // E(t+2) planes i-1, i-2
-  __shared__ RecTable rt_e, rt_h;
+// The cell paths of a phase: the slab terms of the axes AX and records
+// (edge kernels: a slab cell or a record cell), records only (a record
+// cell of the inner kernel), neither. The branch is taken per column and
+// plane.
+#define E_CELL(G, ...)                                          \
+  do {                                                          \
+    if constexpr (AX != 0) {                                    \
+      if (full) {                                               \
+        e_cell<G, AX, true, GRID, MULTI, ZW>(__VA_ARGS__);      \
+      } else {                                                  \
+        e_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);      \
+      }                                                         \
+    } else if (full) {                                          \
+      e_cell<G, 0, true, GRID, MULTI, ZW>(__VA_ARGS__);         \
+    } else {                                                    \
+      e_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);        \
+    }                                                           \
+  } while (0)
+#define H_CELL(G, ...)                                          \
+  do {                                                          \
+    if constexpr (AX != 0) {                                    \
+      if (full) {                                               \
+        h_cell<G, AX, true, GRID, MULTI, ZW>(__VA_ARGS__);      \
+      } else {                                                  \
+        h_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);      \
+      }                                                         \
+    } else if (full) {                                          \
+      h_cell<G, 0, true, GRID, MULTI, ZW>(__VA_ARGS__);         \
+    } else {                                                    \
+      h_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);        \
+    }                                                           \
+  } while (0)
 
-  const int lz = threadIdx.x, ly = threadIdx.y;
-  const int tid = ly * BZ + lz;
-  const int k = blockIdx.x * (BZ - 2 * HALO) - HALO + lz;
-  const int j = blockIdx.y * (BY - 2 * HALO) - HALO + ly;
-  const int n1 = p.n1;
-  // this block's lane and x segment [x0, x1): it marches from x0 - 1
-  // (generation 1's halo plane) to x1 + 1, and writes generation 2 on
-  // [x0, x1) only
-  // (a single-lane launch keeps the solo pass's own unsigned arithmetic)
-  const unsigned segs = MULTI ? gridDim.z / p.lanes : gridDim.z;
-  const int lane = MULTI ? blockIdx.z / segs : 0;
-  const int xs = (n1 + segs - 1) / segs;
-  const int x0 = (MULTI ? blockIdx.z % segs : blockIdx.z) * xs;
-  if (x0 >= n1) return;  // the whole block: before any barrier
-  const int x1 = min(x0 + xs, n1);
+#ifdef TB_BLOCK_TIMER
+#define TIMER_BLOCKS 65536
+__device__ unsigned long long g_tb_blocks[3 * TIMER_BLOCKS];
+#endif
+
+// A block's shared tables: each family's record table and the bits of
+// its x-normal records on each plane the item marches (index x - ib).
+struct Tables {
+  RecTable rt[2];
+  unsigned short xb[2][MAX_PLANES + 4];
+};
+
+// One work item on one lane. MULTI = false is the launch of a single
+// lane (a solo run, or a batch of one): the lane is the constant 0, every
+// lane offset folds away and the drive is a kernel parameter. AX: the
+// axes whose CPML slabs the item's cells may touch (bit a for axis a),
+// whose slab path and psi state are compiled in; 0 for the inner kernel,
+// which the plan gives only items whose computed cells touch no slab.
+// GRID = false compiles the coefficient grids and Drude J out. ZW: the
+// block's extent along z (BZ, or BZ / 2 in the transposed layout of
+// z-band items, with 2 BY along y).
+template <bool MULTI, int AX, bool GRID, int ZW>
+__device__ __forceinline__ void march(const Params& p, int first_item) {
+  constexpr bool EDGE = AX != 0;
+  extern __shared__ __align__(16) float ring[];
+  __shared__ Tables tab;
+  float* h0r = ring;                  // H(t):   RING planes
+  float* e0r = ring + RING * PLANE;   // E(t):   RING planes
+  float* e1r = e0r + RING * PLANE;    // E(t+1): planes i, i-1
+  float* h1r = e1r + 2 * PLANE;       // H(t+1): planes i-1, i-2
+  float* e2r = h1r + 2 * PLANE;       // E(t+2): planes i-1, i-2
+  float* stage = e2r + 2 * PLANE;      // staged record rows
+  float* cr = stage + REC_STAGE;       // ca, cb: RING planes (GRID only)
+  float* j0r = cr + RING * 2 * PLANE;  // J(t): RING planes (GRID only)
+  // CPML profiles (edge kernel), after the rings the call has
+  float* prof = GRID ? j0r + RING * PLANE : cr;
+  RecTable& rt_e = tab.rt[0];
+  RecTable& rt_h = tab.rt[1];
+
+#ifdef TB_BLOCK_TIMER
+  unsigned long long t_start;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_start));
+#endif
+#if OVERLAP
+  // the next section's kernel reads no output of this one: it may start
+  // on the SMs this kernel's last blocks leave free
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+  const int tid = threadIdx.y * BZ + threadIdx.x;
+  const int lz = tid % ZW, ly = tid / ZW;
+  const int lane = MULTI ? (int)(blockIdx.x % p.lanes) : 0;
+  const int item = first_item + (MULTI ? (int)(blockIdx.x / p.lanes)
+                                       : (int)blockIdx.x);
+  const int* it = p.plan + (int64_t)PLAN_COLS * item;
+  const int j0 = it[0], k0 = it[1], ny = it[2], nz = it[3];
+  const int x0 = it[4], x1 = it[5];
+  const int wy = ny + 2 * HALO, wz = nz + 2 * HALO;  // the tile's window
+  const int jw = j0 - HALO, kw = k0 - HALO;           // its first cell
+  const int n1 = p.n1, n2 = p.n2, n3 = p.n3;
+  Col col;
+  col.k = kw + lz;
+  col.j = jw + ly;
+  const int j = col.j, k = col.k;
+  // the march runs from x0 - 1 (generation 1's halo plane) to x1 + 1 and
+  // writes generation 2 on [x0, x1) only
   const int lim = min(n1, x1 + 2);  // planes of generation 0 read: < lim
   const int ib = max(x0 - 1, 0);    // the first iteration
-  const int64_t vol = (int64_t)n1 * p.n2 * p.n3;
-  const int64_t pstride = (int64_t)p.n2 * p.n3;
-  const bool inside = j >= 0 && j < p.n2 && k >= 0 && k < p.n3;
+  const int64_t vol = (int64_t)n1 * n2 * n3;
+  const int64_t pstride = (int64_t)n2 * n3;
+  const bool inside =
+      ly < wy && lz < wz && j >= 0 && j < n2 && k >= 0 && k < n3;
   // the shrinking regions of the four phases (see the header)
   const bool in_e1 = inside && ly >= 1 && lz >= 1;
-  const bool in_h1 = in_e1 && ly < BY - 1 && lz < BZ - 1;
+  const bool in_h1 = in_e1 && ly < wy - 1 && lz < wz - 1;
   const bool in_e2 = in_h1 && ly >= 2 && lz >= 2;
-  const bool own = in_e2 && ly < BY - 2 && lz < BZ - 2;
-  const int64_t col = inside ? (int64_t)j * p.n3 + k : 0;
+  const bool own = in_e2 && ly < wy - 2 && lz < wz - 2;
+  const int64_t cidx = inside ? (int64_t)j * n3 + k : 0;
+  col.qy = p.m[1] > 0 ? slab_plane(j, n2, p.m[1]) : -1;
+  col.qz = p.m[2] > 0 ? slab_plane(k, n3, p.m[2]) : -1;
+  const bool y_wall = j == 0 || j == n2 - 1, z_wall = k == 0 || k == n3 - 1;
+  col.wall = (y_wall || z_wall ? 1u : 0u) | (z_wall ? 2u : 0u) |
+             (y_wall ? 4u : 0u);
+  col.ym = j > 0;
+  col.zm = k > 0;
+  col.yp = j < n2 - 1;
+  col.zp = k < n3 - 1;
   // the lane's offset in the field and J stacks (psi and coefficient
   // grids take theirs where they are read); 0 in a single-lane launch
   const int64_t lf = lane * p.field_lane;
+  const bool pcol = j == p.pj && k == p.pk;
   // a launch of several lanes reads its lane's point-source values once:
   // a register operand lets every cell add them branch-free, as the
   // kernel parameter of a one-lane launch does
@@ -484,99 +766,152 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
     drive[1] = p.lane_drive[2 * lane + 1];
   }
 
-  if (tid < p.fe.n_rec) copy_table(p.fe, tid, rt_e);
-  if (tid < p.fh.n_rec) copy_table(p.fh, tid, rt_h);
+  copy_table(p.fe, tid, jw, wy, kw, wz, rt_e);
+  copy_table(p.fh, tid, jw, wy, kw, wz, rt_h);
+  if (EDGE) {
+    for (int f = 0; f < 2; ++f) {
+      for (int a = 0; a < 3; ++a) {
+        const float* src = (f == 0 ? p.fe : p.fh).prof[a];
+        float* dst = prof + prof_offset(p, f, a);
+        for (int t = tid; t < 6 * p.m[a]; t += NT) dst[t] = src[t];
+      }
+    }
+  }
   __syncthreads();
-  const RecMask rm_e = column_mask(rt_e, p.fe.n_rec, j, k);
-  const RecMask rm_h = column_mask(rt_h, p.fh.n_rec, j, k);
-  // columns that a y or z slab or a y- or z-normal record touches take
-  // the full path on every plane; the others only on full planes
-  const bool col_slab = (p.m[1] > 0 && slab_plane(j, p.n2, p.m[1]) >= 0) ||
-                        (p.m[2] > 0 && slab_plane(k, p.n3, p.m[2]) >= 0);
-  const bool col_e = col_slab || (rm_e.col[0] | rm_e.col[1] | rm_e.col[2]);
-  const bool col_h = col_slab || (rm_h.col[0] | rm_h.col[1] | rm_h.col[2]);
+
+  // generation 0 of plane x (< lim) into the rings: H for the window,
+  // E, the E coefficients and J for the columns that compute E, the
+  // staged record rows; one commit group a plane
+  auto load_plane = [&](int x) {
+    if (x >= lim) return;
+    const int slot = x & (RING - 1);
+    if (inside) {
+      const int64_t off = lf + (int64_t)x * pstride + cidx;
+      const int s = slot * PLANE + tid;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        cp_async4(h0r + s + c * NT, p.H0 + off + c * vol);
+      }
+      if (in_e1) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          cp_async4(e0r + s + c * NT, p.E0 + off + c * vol);
+        }
+        if (GRID) {
+          const int64_t at = (int64_t)x * pstride + cidx;
+          float* cs = cr + slot * 2 * PLANE + tid;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const Coef& a = p.fe.a[c];
+            const Coef& b = p.fe.b[c];
+            if (a.grid) cp_async4(cs + c * NT, a.grid + lane * a.lane + at);
+            if (b.grid) {
+              cp_async4(cs + (3 + c) * NT, b.grid + lane * b.lane + at);
+            }
+          }
+          if (p.J0) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              cp_async4(j0r + s + c * NT, p.J0 + off + c * vol);
+            }
+          }
+        }
+      }
+    }
+    // staged record rows: this thread's place l of generation g of slot
+    // sl of family f
+    if (tid < 2 * REC_SLOTS * 2 * REC_ROW &&
+        tab.rt[0].nslot + tab.rt[1].nslot > 0) {
+      const int l = tid % REC_ROW;
+      const int g = (tid / REC_ROW) % 2;
+      const int sl = (tid / (2 * REC_ROW)) % REC_SLOTS;
+      const int f = tid / (2 * REC_ROW * REC_SLOTS);
+      const RecTable& rt = tab.rt[f];
+      if (sl < rt.nslot) {
+        const int r = rt.srec[sl];
+        const bool ynorm = rt.axis[r] == 1;
+        const int at = ynorm ? kw + l : jw + l;
+        if (l < (ynorm ? wz : wy) && at >= 0 && at < (ynorm ? n3 : n2)) {
+          cp_async4(stage + stage_row(f, sl, g, x) + l,
+                    p.terms + terms_row<MULTI>(p, g, lane) + rt.off[r] +
+                        (int64_t)x * (ynorm ? n3 : n2) + at);
+        }
+      }
+    }
+  };
+  if (ib > 0 && inside) {  // H of plane ib - 1, read by E1(ib)
+    const int64_t off = lf + (int64_t)(ib - 1) * pstride + cidx;
+    const int s = ((ib - 1) & (RING - 1)) * PLANE + tid;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      cp_async4(h0r + s + c * NT, p.H0 + off + c * vol);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PIPE; ++q) {
+    load_plane(ib + q);
+    cp_commit();
+  }
+
+  for (int t = tid; t < lim - ib; t += NT) {
+    tab.xb[0][t] = static_cast<unsigned short>(plane_bits(rt_e, ib + t));
+    tab.xb[1][t] = static_cast<unsigned short>(plane_bits(rt_h, ib + t));
+  }
+  const unsigned cb_e = column_bits(rt_e, p.fe.n_rec, j, k);
+  const unsigned cb_h = column_bits(rt_h, p.fh.n_rec, j, k);
+  // columns in a y or z slab take the full path on every plane
+  const bool col_slab = ((AX & 2) && col.qy >= 0) || ((AX & 4) && col.qz >= 0);
 
   // generation-1 recursion state of this column: the plane just made
   // (*_new) and the one before (*_old)
   float pe_new[6] = {0.f}, pe_old[6] = {0.f};
   float ph_new[6] = {0.f}, ph_old[6] = {0.f};
   float j_new[3] = {0.f}, j_old[3] = {0.f};
-
-  // generation-0 operands loaded one plane ahead: H and E of plane i + 1
-  // at the top of iteration i; psi_E and J of plane i + 1 after E1(i);
-  // psi_H of plane i after H1(i - 1)
-  float hn[3] = {0.f, 0.f, 0.f}, en[3] = {0.f, 0.f, 0.f};
-  float jn[3] = {0.f, 0.f, 0.f};
+  // the edge kernel's generation-0 psi, loaded one plane ahead: psi_E of
+  // plane i + 1 after E1(i), psi_H of plane i after H1(i - 1)
   float pse[6] = {0.f}, psh[6] = {0.f};
-  const int64_t first = (int64_t)ib * pstride + col;
-  if (inside) {
-    if (ib > 0) {  // H of plane ib - 1, read by E1(ib)
-      const int64_t before = first - pstride;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        h0r[((ib - 1) & 1) * PLANE + c * NT + tid] =
-            p.H0[lf + c * vol + before];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      hn[c] = p.H0[lf + c * vol + first];
-      en[c] = p.E0[lf + c * vol + first];
-    }
+  if (EDGE) {
+    const Pl pl = plane(p, ib);
+    if (in_e1) load_psi<AX>(p, p.psE0, lane, col, pl, pse);
+    if (in_h1) load_psi<AX>(p, p.psH0, lane, col, pl, psh);
   }
-  if (in_e1) {
-    load_psi(p, p.psE0, lane, ib, j, k, pse);
-    if (p.J0) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) jn[c] = p.J0[lf + c * vol + first];
-    }
-  }
-  if (in_h1) load_psi(p, p.psH0, lane, ib, j, k, psh);
 
   for (int i = ib; i <= x1 + 1; ++i) {
-    // ring offsets: plane i (and i-2) in slot i & 1, plane i-1 in the other
+    load_plane(i + PIPE);
+    cp_commit();
+    cp_wait<PIPE>();
+    __syncthreads();
+    // generation-0 ring offsets of planes i and i - 1; generation-1 ring
+    // offsets: plane i (and i-2) in slot i & 1, plane i-1 in the other
+    const int r_i = (i & (RING - 1)) * PLANE;
+    const int r_m = ((i - 1) & (RING - 1)) * PLANE;
     const int s_i = (i & 1) * PLANE;
     const int s_m = ((i + 1) & 1) * PLANE;
-    float e_old[3];
-    if (i < lim) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        h0r[s_i + c * NT + tid] = hn[c];
-        e_old[c] = en[c];
-      }
-      if (inside && i + 1 < lim) {
-        const int64_t nxt = (int64_t)(i + 1) * pstride + col;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          hn[c] = p.H0[lf + c * vol + nxt];
-          en[c] = p.E0[lf + c * vol + nxt];
-        }
-      }
-    }
-    __syncthreads();
+    const Pl pl_i = plane(p, i);
+    const Pl pl_a = plane(p, i - 1);
+    const Pl pl_2 = plane(p, i - 2);
+    const Src src_i = {stage, cr + 2 * r_i + tid, prof};
+    const Src src_m = {stage, cr + 2 * r_m + tid, prof};
 
     // phase E1(i)
     if (i < lim && in_e1) {
-      const int idx[3] = {i, j, k};
-      float out[3];
-      if (col_e || plane_full(p, rt_e, rm_e, i)) {
-        e_cell<0, true, MULTI>(p, rt_e, rm_e, h0r, s_i, s_m, idx, lane,
-                               (int64_t)i * pstride + col, tid, e_old, drive,
-                               pse, jn, pe_new, j_new, out, false);
-      } else {
-        e_cell<0, false, MULTI>(p, rt_e, rm_e, h0r, s_i, s_m, idx, lane,
-                                (int64_t)i * pstride + col, tid, e_old, drive,
-                                pse, jn, pe_new, j_new, out, false);
+      const int64_t cell = (int64_t)i * pstride + cidx;
+      const unsigned bits = cb_e | tab.xb[0][i - ib];
+      const bool full = bits != 0u || (col_slab || ((AX & 1) && pl_i.qx >= 0));
+      float old[3], jn[3] = {0.f, 0.f, 0.f}, out[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) old[c] = e0r[r_i + c * NT + tid];
+      if (GRID && p.J0) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) jn[c] = j0r[r_i + c * NT + tid];
       }
+      E_CELL(0, p, rt_e, bits, h0r, r_i, r_m, col, pl_i, src_i, lane, cell,
+             tid, old, drive, pcol && i == p.pi, pse, jn, pe_new, j_new, out,
+             false);
 #pragma unroll
       for (int c = 0; c < 3; ++c) e1r[s_i + c * NT + tid] = out[c];
-      if (i + 1 < lim) {
-        load_psi(p, p.psE0, lane, i + 1, j, k, pse);
-        if (p.J0) {
-          const int64_t nxt = (int64_t)(i + 1) * pstride + col;
-#pragma unroll
-          for (int c = 0; c < 3; ++c) jn[c] = p.J0[lf + c * vol + nxt];
-        }
+      if (EDGE && i + 1 < lim) {
+        load_psi<AX>(p, p.psE0, lane, col, plane(p, i + 1), pse);
       }
     }
     __syncthreads();
@@ -584,42 +919,34 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
     // phase H1(i-1): E1 at i-1 and i, H0 at i-1
     const int xa = i - 1;
     if (xa >= ib && xa <= x1 && xa < n1 && in_h1) {
-      const int idx[3] = {xa, j, k};
+      const int64_t cell = (int64_t)xa * pstride + cidx;
+      const unsigned bits = cb_h | tab.xb[1][xa - ib];
+      const bool full = bits != 0u || (col_slab || ((AX & 1) && pl_a.qx >= 0));
       float old[3], out[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) old[c] = h0r[s_m + c * NT + tid];
-      if (col_h || plane_full(p, rt_h, rm_h, xa)) {
-        h_cell<0, true, MULTI>(p, rt_h, rm_h, e1r, s_m, s_i, idx, lane,
-                               (int64_t)xa * pstride + col, tid, old, psh,
-                               ph_new, out, false);
-      } else {
-        h_cell<0, false, MULTI>(p, rt_h, rm_h, e1r, s_m, s_i, idx, lane,
-                                (int64_t)xa * pstride + col, tid, old, psh,
-                                ph_new, out, false);
-      }
+      for (int c = 0; c < 3; ++c) old[c] = h0r[r_m + c * NT + tid];
+      H_CELL(0, p, rt_h, bits, e1r, s_m, s_i, col, pl_a, src_m, lane, cell,
+             tid, old, psh, ph_new, out, false);
 #pragma unroll
       for (int c = 0; c < 3; ++c) h1r[s_m + c * NT + tid] = out[c];
-      if (i <= x1 && i < n1) load_psi(p, p.psH0, lane, i, j, k, psh);
+      if (EDGE && i <= x1 && i < n1) {
+        load_psi<AX>(p, p.psH0, lane, col, pl_i, psh);
+      }
     }
     __syncthreads();
 
     // phase E2(i-1): H1 at i-1 and i-2, E1 at i-1; written on [x0, x1)
     if (xa >= x0 && xa <= x1 && xa < n1 && in_e2) {
-      const int idx[3] = {xa, j, k};
-      const int64_t cell = (int64_t)xa * pstride + col;
+      const int64_t cell = (int64_t)xa * pstride + cidx;
       const bool store = own && xa < x1;
+      const unsigned bits = cb_e | tab.xb[0][xa - ib];
+      const bool full = bits != 0u || (col_slab || ((AX & 1) && pl_a.qx >= 0));
       float old[3], out[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = e1r[s_m + c * NT + tid];
-      if (col_e || plane_full(p, rt_e, rm_e, xa)) {
-        e_cell<1, true, MULTI>(p, rt_e, rm_e, h1r, s_m, s_i, idx, lane,
-                               cell, tid, old, drive, pse, jn, pe_old, j_old,
-                               out, store);
-      } else {
-        e_cell<1, false, MULTI>(p, rt_e, rm_e, h1r, s_m, s_i, idx, lane,
-                                cell, tid, old, drive, pse, jn, pe_old,
-                                j_old, out, store);
-      }
+      E_CELL(1, p, rt_e, bits, h1r, s_m, s_i, col, pl_a, src_m, lane, cell,
+             tid, old, drive, pcol && xa == p.pi, pse, j_new, pe_old, j_old,
+             out, store);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         e2r[s_m + c * NT + tid] = out[c];
@@ -631,87 +958,234 @@ __global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {
     // phase H2(i-2): E2 at i-2 and i-1, H1 at i-2
     const int x2 = i - 2;
     if (x2 >= x0 && x2 < x1 && own) {
-      const int idx[3] = {x2, j, k};
-      const int64_t cell = (int64_t)x2 * pstride + col;
+      const int64_t cell = (int64_t)x2 * pstride + cidx;
+      const unsigned bits = cb_h | tab.xb[1][x2 - ib];
+      const bool full = bits != 0u || (col_slab || ((AX & 1) && pl_2.qx >= 0));
       float old[3], out[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = h1r[s_i + c * NT + tid];
-      if (col_h || plane_full(p, rt_h, rm_h, x2)) {
-        h_cell<1, true, MULTI>(p, rt_h, rm_h, e2r, s_i, s_m, idx, lane,
-                               cell, tid, old, psh, ph_old, out, true);
-      } else {
-        h_cell<1, false, MULTI>(p, rt_h, rm_h, e2r, s_i, s_m, idx, lane,
-                                cell, tid, old, psh, ph_old, out, true);
-      }
+      H_CELL(1, p, rt_h, bits, e2r, s_i, s_m, col, pl_2, src_i, lane, cell,
+             tid, old, psh, ph_old, out, true);
 #pragma unroll
       for (int c = 0; c < 3; ++c) p.H2[lf + c * vol + cell] = out[c];
     }
 
     // the plane made this iteration is the next iteration's old plane
+    if (EDGE) {
 #pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      pe_old[q] = pe_new[q];
-      ph_old[q] = ph_new[q];
+      for (int q = 0; q < 6; ++q) {
+        pe_old[q] = pe_new[q];
+        ph_old[q] = ph_new[q];
+      }
     }
+    if (GRID) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) j_old[c] = j_new[c];
+      for (int c = 0; c < 3; ++c) j_old[c] = j_new[c];
+    }
   }
+  cp_wait<0>();  // the last groups are empty; none stays in flight
+
+#ifdef TB_BLOCK_TIMER
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long t_end;
+    unsigned smid;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_end));
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    const long long b = (long long)first_item * p.lanes + blockIdx.x;
+    if (b < TIMER_BLOCKS) {
+      g_tb_blocks[3 * b] = t_start;
+      g_tb_blocks[3 * b + 1] = t_end;
+      g_tb_blocks[3 * b + 2] = smid;
+    }
+  }
+#endif
 }
 
-// Segments of the x axis: enough blocks for about four waves over the
-// card's SMs (one block each), each segment at least MIN_SEGMENT planes
-// (a segment recomputes up to three planes of generation 1 beyond its
-// ends).
-static int segments(int blocks_yz, int n1) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      sms = 132;  // the H100 SXM's count
+
+// Each kernel runs the items of one plan section, from item `first`:
+// AX, GRID and its target blocks an SM are the section's; an item of a
+// section whose slabs include z may take the transposed layout.
+template <bool MULTI, int AX, bool GRID, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+    tb_section(const Params p, int first) {
+#if ZBAND
+  if constexpr ((AX & 4) != 0) {
+    const int item =
+        first + (MULTI ? (int)(blockIdx.x / p.lanes) : (int)blockIdx.x);
+    if (p.plan[PLAN_COLS * item + 7]) {
+      march<MULTI, AX, GRID, BZ / 2>(p, first);
+      return;
     }
   }
-  const int want = (4 * sms + blocks_yz - 1) / blocks_yz;
-  const int most = n1 / MIN_SEGMENT;
-  const int n = want < most ? want : most;
-  return n > 1 ? n : 1;
+#endif
+  march<MULTI, AX, GRID, BZ>(p, first);
+}
+
+// Dynamic shared memory of a block: the generation-0 rings of H and E,
+// the generation-1 rings of E1, H1 and E2, the staged record rows; with
+// GRID the E coefficients' and J's rings; the CPML profiles.
+static int smem_bytes(bool grid, int msum) {
+  return (((2 + (grid ? 3 : 0)) * RING + 6) * PLANE + REC_STAGE +
+          12 * msum) *
+         static_cast<int>(sizeof(float));
+}
+
+typedef void (*Kernel)(const Params, int);
+
+// The plan's sections, in launch order (ops/packed_tb.py::SECTIONS): the
+// edge kernels (the items whose cells touch a CPML slab: grids, the slab
+// of x only, of y only, of z only, several), then the inner kernel (grids,
+// none). GRID: the items whose cells read a coefficient grid or Drude J
+// (the other items of a call with grids take each grid's background
+// value, which Coef.val then holds); they need the larger shared memory
+// of the coefficient and J rings, so their builds are for one block an
+// SM. The kernels of one slab axis keep less psi state than the general
+// one and are built for SINGLE_BLOCKS.
+#define SECTION(AX, GRID, MINB) \
+  { tb_section<false, AX, GRID, MINB>, tb_section<true, AX, GRID, MINB> }
+static const Kernel kKernels[SECTIONS][2] = {
+    SECTION(7, true, EDGE_BLOCKS),   SECTION(1, false, SINGLE_BLOCKS),
+    SECTION(2, false, SINGLE_BLOCKS), SECTION(4, false, SINGLE_BLOCKS),
+    SECTION(7, false, EDGE_BLOCKS),  SECTION(0, true, 1),
+    SECTION(0, false, INNER_BLOCKS)};
+static const bool kGrid[SECTIONS] = {true,  false, false, false,
+                                     false, true,  false};
+
+// Lets every kernel take the largest shared memory a call may need (at
+// most what the card allows a block) and prefer shared memory over L1,
+// once.
+static int g_smem_most = 0;  // shared memory a block may have (opt-in)
+
+static cudaError_t set_attributes() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  g_smem_most = most;
+  const int want = smem_bytes(true, MAX_SLAB_SUM);
+  for (int q = 0; q < 2 * SECTIONS; ++q) {
+    const Kernel k = kKernels[q / 2][q % 2];
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, k);
+    if (err != cudaSuccess) return err;
+    const int room = most - static_cast<int>(a.sharedSizeBytes);
+    err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        want < room ? want : room);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  done = true;
+  return cudaSuccess;
 }
 
 extern "C" {
 
 int fdtd_tb_params_size() { return static_cast<int>(sizeof(Params)); }
 
-int fdtd_tb_pass(const Params* p, void* stream) {
-  const int smem = 8 * PLANE * static_cast<int>(sizeof(float));
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaFuncAttribute attr =
-        cudaFuncAttributeMaxDynamicSharedMemorySize;
-    cudaError_t err = cudaFuncSetAttribute(tb_pass<false>, attr, smem);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(tb_pass<true>, attr, smem);
+// The geometry the plan must follow: out = {owned y extent of a tile,
+// owned z extent, MAX_PLANES, whether z-band items may take the
+// transposed layout (owned 2 BY - 4 along y, BZ / 2 - 4 along z)}.
+int fdtd_tb_tile(int* out) {
+  out[0] = BY - 2 * HALO;
+  out[1] = BZ - 2 * HALO;
+  out[2] = MAX_PLANES;
+  out[3] = ZBAND;
+  return 0;
+}
+
+// Per kernel (each section's solo build, then its lane-capable one),
+// four ints: registers a thread, local (spill) bytes a thread, resident
+// blocks an SM at the call's shared memory (CPML of 8 planes on every
+// axis), static shared bytes.
+int fdtd_tb_occupancy(int* out) {
+  cudaError_t err = set_attributes();
+  for (int q = 0; q < 2 * SECTIONS && err == cudaSuccess; ++q) {
+    const Kernel k = kKernels[q / 2][q % 2];
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, k);
+    int blocks = 0;
+    const int smem = smem_bytes(kGrid[q / 2], 24);
+    if (err == cudaSuccess &&
+        smem + static_cast<int>(a.sharedSizeBytes) <= g_smem_most) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, NT,
+                                                          smem);
     }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    out[4 * q] = a.numRegs;
+    out[4 * q + 1] = static_cast<int>(a.localSizeBytes);
+    out[4 * q + 2] = blocks;
+    out[4 * q + 3] = static_cast<int>(a.sharedSizeBytes);
   }
-  const dim3 block(BZ, BY);
-  const int gz = (p->n3 + BZ - 2 * HALO - 1) / (BZ - 2 * HALO);
-  const int gy = (p->n2 + BY - 2 * HALO - 1) / (BY - 2 * HALO);
-  // the solo launch's segments for every lane, the lane beside them
-  const int segs = segments(gz * gy, p->n1);
-  if (p->lanes < 1 || (long long)segs * p->lanes > 65535) {
+  return static_cast<int>(err);
+}
+
+int fdtd_tb_pass(const Params* p, void* stream) {
+  cudaError_t err = set_attributes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long items = 0;
+  for (int q = 0; q < SECTIONS; ++q) {
+    if (p->n_item[q] < 0) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    items += p->n_item[q];
+  }
+  const int msum = p->m[0] + p->m[1] + p->m[2];
+  if (p->lanes < 1 || items * p->lanes > 0x7fffffffLL ||
+      msum > MAX_SLAB_SUM) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const dim3 grid(gz, gy, segs * p->lanes);
+  const dim3 block(BZ, BY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->lanes == 1) {
-    tb_pass<false><<<grid, block, smem, s>>>(*p);
-  } else {
-    tb_pass<true><<<grid, block, smem, s>>>(*p);
+  int first = 0;
+  for (int q = 0; q < SECTIONS; ++q) {  // in the plan's order
+    const int n = p->n_item[q];
+    if (n > 0) {
+      void* args[] = {const_cast<Params*>(p), &first};
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(n * p->lanes);
+      cfg.blockDim = block;
+      cfg.dynamicSmemBytes = smem_bytes(kGrid[q], msum);
+      cfg.stream = s;
+      // every section's kernel but the call's first may overlap the one
+      // before it (programmatic dependent launch): the sections write
+      // disjoint cells and read only the source buffers; the first waits
+      // for all earlier work on the stream, as every later launch on it
+      // waits for both
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr.val.programmaticStreamSerializationAllowed = 1;
+      cfg.attrs = &attr;
+      cfg.numAttrs = OVERLAP && first > 0 ? 1 : 0;
+      err = cudaLaunchKernelExC(
+          &cfg, reinterpret_cast<const void*>(kKernels[q][p->lanes > 1]),
+          args);
+      if (err == cudaSuccess) err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    first += n;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }
+
+#ifdef TB_BLOCK_TIMER
+// Each block's start and end (%globaltimer, ns) and SM of the last call:
+// 3 values a block, edge blocks first; n values at most.
+int fdtd_tb_blocks(unsigned long long* out, int n) {
+  const int most = 3 * TIMER_BLOCKS;
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_tb_blocks, (n < most ? n : most) * sizeof(unsigned long long)));
+}
+#endif
 
 const char* fdtd_tb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

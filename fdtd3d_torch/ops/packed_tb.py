@@ -1,4 +1,4 @@
-"""Temporal-blocked packed pass at depth 2: two Yee steps per launch.
+"""Temporal-blocked packed pass at depth 2: two Yee steps per call.
 
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas_packed_tb.py::make_packed_tb_step`` (builder
@@ -6,8 +6,8 @@ Replaces the Pallas TPU kernel
 :214, host step :1809-1955) for unsharded 3D float32 runs at k = 2,
 with the hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/packed_tb.cu``
 (``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
-rather than Triton: a marching stencil with shared-memory plane rings,
-per-column register state and CPML slab branches.
+rather than Triton: a marching stencil with shared-memory plane rings fed
+by cp.async, per-column register state and CPML slab branches.
 
 What one pass computes: E(t+1), H(t+1), E(t+2), H(t+2) from E(t), H(t),
 with the slab CPML of every axis run twice, electric Drude J, material
@@ -26,6 +26,17 @@ incident line advances on the host side of the pass in thin torch ops,
 twice per pass, in the reference's order: ``advance_einc(t+g-1)``, the
 records' terms of generation g, ``advance_hinc``.
 
+The kernel's work plan is made here, once per prepared operand set and
+card (``plan_items``, as a small int32 device tensor): (y, z) tiles over
+x segments, cut along each axis's CPML bands, classed by what their
+cells touch (a slab, a record's plane or the point source, nothing) and
+put in the sections of SECTIONS, each run by its own kernel, heaviest
+items first. ``material`` finds the box outside which the coefficient
+grids hold their background value, so that only the items inside it run
+the kernels that read grids. The plan depends on geometry (and that box)
+only, so every lane of a batch runs a solo call's items. The CPU tests
+check it (tests/test_torch_tb_plan.py).
+
 The step advances two steps per call (``steps_per_call``); its
 ``tail_step`` is the packed single step (``ops/packed.py``), which shares
 the carry layout, ``pack``/``unpack`` and ``prepare``, and runs in place
@@ -33,7 +44,7 @@ on whichever buffer is live for an odd remainder.
 
 Lanes (the reference's ``batch=B`` build of this kernel): with
 ``batch=B`` the carry and its spare have a leading lane axis (see
-``ops/packed.py``), and one launch advances all B lanes by two steps.
+``ops/packed.py``), and one call advances all B lanes by two steps.
 The record table is geometry and serves every lane; the record terms
 are (2, B, total), one row per generation and lane, from the
 lane-stacked incident line in the same eight ops as a solo run; the
@@ -47,14 +58,15 @@ Beside the kernel wrapper ``tb_pass`` stands its plain PyTorch version
 ``tb_pass_plain`` with the same signature, on the solo and the
 lane-stacked layouts; the wrapper takes it only for CPU tensors, and on
 a CUDA tensor launches the kernel or raises. ``tb_pass.launches`` counts
-kernel launches (one per launch, whatever the number of lanes).
+the kernel's calls (one per call, whatever the number of lanes; a call
+launches one kernel for each non-empty section of the plan).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +78,9 @@ from fdtd3d_torch.solver import slab_axes
 
 DEPTH = 2             # steps per pass; the only depth of this kernel
 MAX_REC = 16          # records per family; mirrors csrc/packed_tb.cu
+PLAN_COLS = 8         # ints a plan row; mirrors csrc/packed_tb.cu
+MAX_PLANES = 512      # owned x planes of an item at most; mirrors it too
+TILE = (12, 28)       # owned (y, z) cells of a tile at the source's BY, BZ
 _LIB = "packed_tb"
 
 
@@ -222,6 +237,292 @@ def prepare(static, cc: Dict[str, Any], records,
 
 
 # --------------------------------------------------------------------------
+# the kernel's work plan (host side; csrc/packed_tb.cu runs it)
+# --------------------------------------------------------------------------
+
+PLAIN, SOURCE, SLAB = 0, 1, 2   # item classes, lightest first
+# the kernel's sections, in launch order (csrc/packed_tb.cu, kKernels):
+# the edge kernels (the SLAB items: reading coefficient grids, touching
+# the slab of x only, of y only, of z only, of several axes), then the
+# inner kernel (the other items: reading grids, not)
+SECTIONS = ("edge_grid", "edge_x", "edge_y", "edge_z", "edge", "inner_grid",
+            "inner")
+# relative cost of one plane of an item, by class: the order of a
+# section's items, heaviest first (SLAB items run in the edge kernels,
+# the others in the inner one)
+CLASS_COST = {PLAIN: 1.0, SOURCE: 1.2, SLAB: 1.7}
+HALO_PLANES = 3      # planes a segment marches beyond its own
+# x segment lengths, the first that gives every SM four items: on the
+# card 48 planes beat 16, 24, 32 and 64 at 256^3 and 512^3
+# (scripts/tb_variants.py, seg_N); shorter ones keep a small grid's SMs
+# busy
+SEGMENTS = (48, 32, 24, 16)
+
+
+def _pieces(a: int, b: int, k: int) -> List[Tuple[int, int]]:
+    """[a, b) in k near-equal pieces (fewer if it is shorter than k)."""
+    n = b - a
+    k = max(1, min(k, n))
+    cuts = [a + (n * q) // k for q in range(k + 1)]
+    return list(zip(cuts[:-1], cuts[1:])) if n > 0 else []
+
+
+def _bands(n: int, m: int) -> Tuple[int, int]:
+    """Widths of the low and high CPML bands of an axis with an m-plane
+    slab: an owned range computes generation 1 one cell below it and two
+    above it (E1 reaches both, H1 one above), so an owned range clear of
+    the slab starts at m + 1 and ends by n - m - 2."""
+    if m <= 0:
+        return 0, 0
+    lo, hi = m + 1, m + 2
+    return (n, 0) if lo + hi >= n else (lo, hi)
+
+
+def _aligned(a: int, b: int, size: int, align: int) -> List[Tuple[int, int]]:
+    """[a, b) in pieces of at most ``size`` whose inner cuts fall on
+    multiples of ``align``, each as long as that allows."""
+    out: List[Tuple[int, int]] = []
+    while b - a > size:
+        cut = (a + size) // align * align
+        cut = cut if cut > a else a + size
+        out.append((a, cut))
+        a = cut
+    return out + [(a, b)]
+
+
+def _axis_cuts(n: int, m: int, size: int,
+               align: int = 1) -> List[Tuple[int, int, bool]]:
+    """Owned ranges of a y or z axis: each CPML band and the interior
+    between them, cut into the fewest near-equal pieces of at most
+    ``size`` (the interior, with ``align`` > 1, at multiples of it);
+    each with whether it lies in a band."""
+    lo, hi = _bands(n, m)
+    out: List[Tuple[int, int, bool]] = []
+    for a, b, band in ((0, lo, True), (lo, n - hi, False),
+                       (n - hi, n, True)):
+        if b > a and align > 1 and not band:
+            out += [(u, v, band) for u, v in _aligned(a, b, size, align)]
+        elif b > a:
+            out += [(u, v, band)
+                    for u, v in _pieces(a, b, -(-(b - a) // size))]
+    return out
+
+
+def _x_cuts(n: int, m: int, seg: int) -> List[Tuple[int, int, bool]]:
+    """x segments: each CPML band whole, the interior in near-equal
+    segments of at most ``seg`` planes (and none above MAX_PLANES); each
+    with whether it lies in a band."""
+    lo, hi = _bands(n, m)
+    out: List[Tuple[int, int, bool]] = []
+    for a, b, size, band in ((0, lo, lo, True), (lo, n - hi, seg, False),
+                             (n - hi, n, hi, True)):
+        if b > a:
+            size = min(max(size, 1), MAX_PLANES)
+            out += [(u, v, band)
+                    for u, v in _pieces(a, b, -(-(b - a) // size))]
+    return out
+
+
+def item_class(shape, m, records, point, item) -> int:
+    """SLAB if a cell the item computes (``computed_box``) lies in a CPML
+    slab; else SOURCE if such a cell lies on a record's plane or is the
+    point source's cell; else PLAIN. ``item`` = (j0, k0, ny, nz, x0,
+    x1)."""
+    if item_axes(shape, m, item):
+        return SLAB
+    box = computed_box(item, shape)
+    if any(box[axis][0] <= plane <= box[axis][1]
+           for axis, plane in records):
+        return SOURCE
+    if point is not None and all(box[a][0] <= point[a] <= box[a][1]
+                                 for a in range(3)):
+        return SOURCE
+    return PLAIN
+
+
+def item_axes(shape, m, item) -> int:
+    """The axes whose CPML slab holds a cell the item computes (bit a for
+    axis a)."""
+    box = computed_box(item, shape)
+    return sum(1 << a for a in range(3)
+               if m[a] > 0 and (box[a][0] < m[a]
+                                or box[a][1] >= shape[a] - m[a]))
+
+
+def section(shape, m, grids, row) -> int:
+    """The section of SECTIONS that runs an item (a plan row)."""
+    grid = reads_grid(row, shape, grids)
+    if row[6] != SLAB:
+        return 5 if grid else 6
+    if grid:
+        return 0
+    return {1: 1, 2: 2, 4: 3}.get(item_axes(shape, m, row), 4)
+
+
+def item_cost(row) -> float:
+    """The plan's estimate of an item's time: planes marched times its
+    class's cost."""
+    return (row[5] - row[4] + HALO_PLANES) * CLASS_COST[row[6]]
+
+
+def transposed_tile(tile) -> Tuple[int, int]:
+    """Owned (y, z) cells of a tile in the transposed layout (the block's
+    threads as half as many columns along z, twice as many rows along
+    y) of ``tile``'s block."""
+    return 2 * (tile[0] + 4) - 4, (tile[1] + 4) // 2 - 4
+
+
+def computed_box(item, shape) -> Tuple[Tuple[int, int], ...]:
+    """The cells an item computes (inclusive bounds per axis): its owned
+    box grown by one cell below and two above on every axis (the
+    generation-1 halo), inside the grid. ``item`` = (j0, k0, ny, nz, x0,
+    x1)."""
+    j0, k0, ny, nz, x0, x1 = item[:6]
+    return ((max(x0 - 1, 0), min(x1 + 1, shape[0] - 1)),
+            (max(j0 - 1, 0), min(j0 + ny + 1, shape[1] - 1)),
+            (max(k0 - 1, 0), min(k0 + nz + 1, shape[2] - 1)))
+
+
+def reads_grid(item, shape, grids) -> bool:
+    """Whether an item's cells read a coefficient grid: ``grids`` is
+    None (no grid), "all" (everywhere), or the box (inclusive bounds per
+    axis, or () when empty) outside which every grid holds its
+    background value."""
+    if grids is None or grids == ():
+        return False
+    if grids == "all":
+        return True
+    box = computed_box(item, shape)
+    return all(box[a][0] <= grids[a][1] and grids[a][0] <= box[a][1]
+               for a in range(3))
+
+
+def _tilings(shape, m, tile, zband: bool, zalign: int):
+    """The (y, z) tiles of an x segment in a CPML band and of one in the
+    interior: (j0, ny, k0, nz, layout) each. z-band columns narrow enough
+    take the transposed layout; the interior tiles of the interior
+    segments are ``zalign``-aligned along z (``_axis_cuts``), so their
+    rows of owned cells start and end on whole 32-byte sectors when
+    ``zalign`` is 8; the others keep ``tile``'s width."""
+    n2, n3 = shape[1:]
+    wide = transposed_tile(tile)
+    ycuts = {0: _axis_cuts(n2, m[1], tile[0]),
+             1: _axis_cuts(n2, m[1], wide[0])}
+    zcuts = _axis_cuts(n3, m[2], tile[1])
+    zaligned = [c for c in _axis_cuts(n3, m[2], tile[1], zalign) if not c[2]]
+    band_tiles, inner_tiles = [], []
+    for k0, k1, zb in zcuts:
+        layout = 1 if zband and zb and k1 - k0 <= wide[1] else 0
+        for j0, j1, yb in ycuts[layout]:
+            band_tiles.append((j0, j1 - j0, k0, k1 - k0, layout))
+            if zb or yb:
+                inner_tiles.append(band_tiles[-1])
+    for j0, j1, yb in ycuts[0]:
+        if not yb:
+            inner_tiles += [(j0, j1 - j0, k0, k1 - k0, 0)
+                            for k0, k1, _ in zaligned]
+    return band_tiles, inner_tiles
+
+
+def plan_items(shape, m, records=(), point=None, tile=TILE, sms=132,
+               zband=True, grids=None, zalign=8,
+               segments=SEGMENTS) -> Tuple[np.ndarray, Tuple[int, ...]]:
+    """The kernel's work items: (rows, counts).
+
+    ``rows`` is (n, PLAN_COLS) int32: j0, k0, ny, nz, x0, x1, class,
+    layout (an owned box of at most ``tile`` (y, z) cells, or of
+    ``transposed_tile(tile)`` with layout 1, over x planes [x0, x1)), in
+    the sections of SECTIONS (``counts`` items each, the kernel's
+    launches in order; ``section``): SLAB items that read a coefficient
+    grid (``reads_grid``), SLAB items whose cells touch the slab of x
+    only, y only, z only (``item_axes``), the other SLAB items, the
+    other classes' items that read a grid, the rest. Each axis is cut
+    into its CPML bands
+    and the interior (``_axis_cuts``, ``_x_cuts``), so the owned boxes
+    tile the grid exactly once; with ``zband``, a z-band piece narrow
+    enough for the transposed layout takes it, with y pieces of its
+    height; the interior tiles of the interior x segments are aligned
+    along z (``_tilings``: their owned rows, written out by the kernel,
+    start and end on 32-byte sectors). The x segments are the first of
+    ``segments`` long that gives the card's ``sms`` SMs four items each
+    (else the last); each section's items run heaviest first
+    (``item_cost``), ties in the order of their x segments.
+    ``m``: slab planes per axis (0: no CPML); ``records``: (normal axis,
+    plane) of every record; ``point``: the point source's cell or None.
+    The plan depends on geometry only (and the grids' box, the same for
+    every lane): every lane of a batch runs the items of a solo call."""
+    n1 = shape[0]
+    m = tuple(m)
+    records = [tuple(r) for r in records]
+    tilings = _tilings(shape, m, tile, zband, zalign)
+    for seg in segments:
+        rows = []
+        for x0, x1, xb in _x_cuts(n1, m[0], seg):
+            for j0, ny, k0, nz, layout in tilings[0 if xb else 1]:
+                item = (j0, k0, ny, nz, x0, x1)
+                rows.append(item + (item_class(shape, m, records, point,
+                                               item), layout))
+        if len(rows) >= 4 * sms:
+            break
+    sections = [[] for _ in SECTIONS]
+    for r in rows:
+        sections[section(shape, m, grids, r)].append(r)
+    for sec in sections:
+        sec.sort(key=item_cost, reverse=True)
+    rows = np.array([r for sec in sections for r in sec],
+                    dtype=np.int32).reshape(-1, PLAN_COLS)
+    return rows, tuple(len(sec) for sec in sections)
+
+
+def material(tb) -> Tuple[Any, Dict[Tuple[str, int], float]]:
+    """Where a prepared pass's coefficient grids differ from their
+    background: (``grids`` as ``plan_items`` takes it, the background
+    value of each E grid by (key, component)). A grid's background is
+    its value at cell (0, 0, 0), which must be the same on every lane;
+    Drude J and grids of the H family read everywhere ("all")."""
+    fe, fh = tb["E"], tb["H"]
+    if fe["kj"] is not None or any(isinstance(v, torch.Tensor)
+                                   for key in ("a", "b") for v in fh[key]):
+        return "all", {}
+    shape = tuple(tb["shape"])
+    lo, hi = [None] * 3, [None] * 3
+    bg: Dict[Tuple[str, int], float] = {}
+    for key in ("a", "b"):
+        for c, v in enumerate(fe[key]):
+            if not isinstance(v, torch.Tensor):
+                continue
+            lanes = v.reshape((-1,) + shape)
+            corner = lanes[:, 0, 0, 0]
+            if not bool((corner == corner[0]).all()):
+                return "all", {}
+            bg[(key, c)] = float(corner[0])
+            mask = (lanes != corner[0]).any(0)
+            for a, proj in enumerate((mask.any(2).any(1), mask.any(2).any(0),
+                                      mask.any(1).any(0))):
+                idx = torch.nonzero(proj).flatten()
+                if idx.numel():
+                    lo[a] = min(int(idx[0]), lo[a] if lo[a] is not None
+                                else shape[a])
+                    hi[a] = max(int(idx[-1]), hi[a] if hi[a] is not None
+                                else -1)
+    if not bg:
+        return None, {}
+    box = () if lo[0] is None else tuple(zip(lo, hi))
+    return box, bg
+
+
+def plan_geometry(tb) -> Tuple[Tuple[int, int, int], Tuple[Tuple[int, int],
+                                                          ...], Any]:
+    """(m per axis, records as (axis, plane), the point source's cell or
+    None) of a prepared pass, as ``plan_items`` takes them."""
+    m = tuple(tb["E"]["m"].get(a, 0) for a in range(3))
+    records = tuple((axis, plane) for fam in ("E", "H")
+                    for _, axis, plane, _ in tb[f"rec_{fam}"])
+    point = None if tb["point"] is None else tuple(tb["point"][1])
+    return m, records, point
+
+
+# --------------------------------------------------------------------------
 # plain version (the kernel's arithmetic in torch; CPU tensors and tests)
 # --------------------------------------------------------------------------
 
@@ -338,6 +639,7 @@ class _Params(ctypes.Structure):
                 ("field_lane", ctypes.c_longlong),
                 ("psi_lane", ctypes.c_longlong * 3),
                 ("lane_drive", ctypes.c_void_p),
+                ("plan", ctypes.c_void_p),
                 ("fe", _Family), ("fh", _Family),
                 ("kj", packed._Coef * 3), ("bj", packed._Coef * 3),
                 ("m", ctypes.c_int * 3),
@@ -346,6 +648,7 @@ class _Params(ctypes.Structure):
                 ("drive", ctypes.c_float * 2),
                 ("n1", ctypes.c_int), ("n2", ctypes.c_int),
                 ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
+                ("n_item", ctypes.c_int * len(SECTIONS)),
                 ("inv_dx", ctypes.c_float)]
 
 
@@ -358,12 +661,65 @@ def _library() -> ctypes.CDLL:
         lib.fdtd_tb_params_size.restype = ctypes.c_int
         lib.fdtd_tb_error_string.argtypes = [ctypes.c_int]
         lib.fdtd_tb_error_string.restype = ctypes.c_char_p
+        lib.fdtd_tb_tile.argtypes = [ctypes.c_void_p]
+        lib.fdtd_tb_tile.restype = ctypes.c_int
+        lib.fdtd_tb_occupancy.argtypes = [ctypes.c_void_p]
+        lib.fdtd_tb_occupancy.restype = ctypes.c_int
         if lib.fdtd_tb_params_size() != ctypes.sizeof(_Params):
             raise RuntimeError(
                 f"{_LIB}: struct Params is {lib.fdtd_tb_params_size()} "
                 f"bytes in CUDA and {ctypes.sizeof(_Params)} in ctypes")
         lib._fdtd_bound = True
     return lib
+
+
+def _material(tb):
+    """``material(tb)``, computed once per prepared operand set."""
+    if "_material" not in tb:
+        tb["_material"] = material(tb)
+    return tb["_material"]
+
+
+def _device_plan(tb, device, lib) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """The plan of a prepared pass on ``device`` for the geometry the
+    library was built with (its tile, item length and z-band layout), the
+    card's SM count and the grids' box, built once: (rows, counts)."""
+    geo = (ctypes.c_int * 4)()
+    lib.fdtd_tb_tile(ctypes.addressof(geo))
+    key = (device, tuple(geo))
+    cached = tb.get("_plan")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    m, records, point = plan_geometry(tb)
+    rows, counts = plan_items(tb["shape"], m, records, point,
+                              tile=(geo[0], geo[1]), sms=sms,
+                              zband=bool(geo[3]),
+                              grids=_material(tb)[0])
+    if int((rows[:, 5] - rows[:, 4]).max()) > geo[2]:
+        raise ValueError("plan_items made an item longer than the kernel's "
+                         f"{geo[2]} planes")
+    plan = (torch.from_numpy(rows).to(device), counts)
+    tb["_plan"] = (key, plan)
+    return plan
+
+
+def occupancy() -> Dict[str, Dict[str, int]]:
+    """Registers and local (spill) bytes a thread, resident blocks an SM
+    and static shared bytes of each tb kernel, as the CUDA runtime
+    reports them for the card: each section's kernel (SECTIONS), solo
+    and lane-capable (``*_lanes``); the grid sections' at their larger
+    shared memory."""
+    lib = _library()
+    out = (ctypes.c_int * (8 * len(SECTIONS)))()
+    err = lib.fdtd_tb_occupancy(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fdtd_tb_occupancy failed: CUDA error {err} "
+                           f"({lib.fdtd_tb_error_string(err).decode()})")
+    names = tuple(n + lane for n in SECTIONS for lane in ("", "_lanes"))
+    keys = ("registers", "local_bytes", "blocks_per_sm", "static_smem")
+    return {n: {k: out[4 * q + i] for i, k in enumerate(keys)}
+            for q, n in enumerate(names)}
 
 
 def _family_struct(fc, table, device, lanes: int) -> _Family:
@@ -394,6 +750,9 @@ def _base_params(tb, device, lanes: int) -> _Params:
     fe, shape = tb["E"], tb["shape"]
     prm = _Params()
     prm.fe = _family_struct(fe, tb["rec_E"], device, lanes)
+    # the items that read no grid take each E grid's background value
+    for (key, c), value in _material(tb)[1].items():
+        getattr(prm.fe, key)[c].val = value
     prm.fh = _family_struct(tb["H"], tb["rec_H"], device, lanes)
     if fe["kj"] is not None:
         for c in range(3):
@@ -415,11 +774,15 @@ def _base_params(tb, device, lanes: int) -> _Params:
     return prm
 
 
-def _params(src, dst, tb, terms, drive) -> _Params:
+def _params(src, dst, tb, terms, drive, lib) -> _Params:
     device = src["E"].device
     shape = tb["shape"]
     lanes, lead = packed.carry_lanes(src["E"])
     prm = _Params.from_buffer_copy(_base_params(tb, device, lanes))
+    plan, counts = _device_plan(tb, device, lib)
+    prm.plan = plan.data_ptr()
+    for q, n in enumerate(counts):
+        prm.n_item[q] = n
     full = lead + (3,) + tuple(shape)
     prm.E0 = packed._check(src["E"], "E", full, device)
     prm.H0 = packed._check(src["H"], "H", full, device)
@@ -430,6 +793,9 @@ def _params(src, dst, tb, terms, drive) -> _Params:
         prm.J2 = packed._check(dst["J"], "J (destination)", full, device)
     for a, m in tb["E"]["m"].items():
         ps = packed.psi_shape(shape, a, m, lead)
+        if int(np.prod(packed.psi_shape(shape, a, m))) >= 2 ** 31:
+            raise ValueError(f"psi[{a}] of {shape} exceeds the kernel's "
+                             "32-bit psi offsets")
         prm.psE0[a] = packed._check(src["psE"][a], f"psE[{a}]", ps, device)
         prm.psH0[a] = packed._check(src["psH"][a], f"psH[{a}]", ps, device)
         prm.psE2[a] = packed._check(dst["psE"][a], f"psE[{a}] (dst)", ps,
@@ -455,13 +821,13 @@ def _params(src, dst, tb, terms, drive) -> _Params:
 
 def tb_pass(src, dst, tb, terms, drive) -> None:
     """Two generations from ``src`` into ``dst``, every lane of a
-    lane-stacked carry in one launch: the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors."""
+    lane-stacked carry in one call: the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors."""
     if not src["E"].is_cuda:
         tb_pass_plain(src, dst, tb, terms, drive)
         return
-    prm = _params(src, dst, tb, terms, drive)
     lib = _library()
+    prm = _params(src, dst, tb, terms, drive, lib)
     stream = torch.cuda.current_stream(src["E"].device).cuda_stream
     err = lib.fdtd_tb_pass(ctypes.byref(prm), ctypes.c_void_p(stream))
     if err != 0:

@@ -7,9 +7,11 @@ builds its kernels there, runs ``Examples/vacuum3D_tfsf.txt`` at
 ``--same-size 256`` for 150 steps (the main path's state), then times
 one temporal-blocked pass, one ``e_update`` and one ``h_update`` launch
 over 50 launches each, twice, and prints one JSON object. With
-``--lanes B`` it also times the lane-capable tb pass on B copies of the
-same configuration (a checkout that has ``fdtd3d_torch.batch``). Needs a
-CUDA device. Compare two commits within one call, in turns (parent,
+``--lanes B`` it also times the lane-capable tb pass and the lane-capable
+``e_update`` and ``h_update`` (one launch for every lane) on B lanes of
+``Examples/sphere3D_mie.txt`` as it stands (512^3, eps-sphere 2, 4, 6,
+9, ... by lane) after 20 steps (a checkout that has
+``fdtd3d_torch.batch``). Needs a CUDA device. Compare two commits within one call, in turns (parent,
 change, change, parent), each in its own process: unpack the other
 commit into a directory that ``.gitignore`` lists (``git archive``) and
 pass it as ``PATH``.
@@ -66,9 +68,13 @@ def main() -> int:
             carry["H"], carry["E"], carry["psH"], cc["H"]), 50)
     if args.lanes:
         del sim, carry, spare
+        torch.cuda.empty_cache()
         from fdtd3d_torch.batch import BatchSimulation
-        bsim = BatchSimulation([cfg] * args.lanes, device=dev)
-        bsim.advance(150)
+        eps = ("2.0", "4.0", "6.0", "9.0")
+        bsim = BatchSimulation(
+            [cs.config(cs.MIE, ["--eps-sphere", eps[lane % len(eps)]])
+             for lane in range(args.lanes)], device=dev)
+        bsim.advance(20)
         bc = bsim._carry
         kcc = packed_tb.make_packed_tb_step(
             bsim.static, dev, batch=args.lanes).prepare(bsim._coeffs)
@@ -76,8 +82,14 @@ def main() -> int:
         _, bterms, bdrive = packed_tb.generation_terms(
             bsim.static, kcc["tb"], bc["inc"], bc["t"])
         out["lanes"] = args.lanes
-        out["lanes_tb_ms"] = [cs.timed(lambda: packed_tb.tb_pass(
-            bc, bspare, kcc["tb"], bterms, bdrive), 20) for _ in range(2)]
+        out["lanes_shape"] = list(bsim.static.grid_shape)
+        for rep in range(2):
+            out[f"lanes_tb_ms_{rep}"] = cs.timed(lambda: packed_tb.tb_pass(
+                bc, bspare, kcc["tb"], bterms, bdrive), 5)
+            out[f"lanes_e_ms_{rep}"] = cs.timed(lambda: packed.e_update(
+                bc["E"], bc["H"], bc.get("J"), bc["psE"], kcc["E"]), 5)
+            out[f"lanes_h_ms_{rep}"] = cs.timed(lambda: packed.h_update(
+                bc["H"], bc["E"], bc["psH"], kcc["H"]), 5)
     print(json.dumps(out), flush=True)
     return 0
 

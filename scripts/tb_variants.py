@@ -1,33 +1,61 @@
 #!/usr/bin/env python3
-"""Where the temporal-blocked kernel's time goes, on one GPU.
+"""Where the temporal-blocked pass's time goes, on one GPU.
 
-Builds variants of ``fdtd3d_torch/csrc/packed_tb.cu`` by textual
-substitution (each with a per-block ``%globaltimer`` start/end and
-``%smid`` record added at the kernel's ends), and times one pass of
-each at 256^3 with CUDA events, in turns (a, b, ..., b, a), on two
-carries: ``Examples/vacuum3D_tfsf.txt`` after 150 steps (CPML on every
-axis, TFSF records) and the same grid without CPML and TFSF. Variants:
+Builds variants of ``fdtd3d_torch/csrc/packed_tb.cu`` with nvcc ``-D``
+build knobs (every variant also with ``-DTB_BLOCK_TIMER``, which records
+each block's ``%globaltimer`` start and end and its SM), and times one
+pass of each, by CUDA events, in turns (a, b, ..., b, a), on
+``Examples/vacuum3D_tfsf.txt`` at ``--same-size 256`` after 150 steps
+(CPML on every axis, TFSF records; the f32 main path's state) and on
+the same grid without CPML and TFSF; with ``--mie`` also on one lane of
+``Examples/sphere3D_mie.txt`` at 512^3 after 20 steps (coefficient
+grids). Variants (the build knobs of the source's header):
 
 * ``as_built``: the source as it is;
-* ``one_segment``: one x segment per (y, z) tile (a block marches the
-  whole x axis: 220 blocks at 256^3);
-* ``no_fast_path``: every cell takes the full path (CPML and records
-  code in every cell);
-* ``no_records``: the record terms compiled out (wrong fields; timing
-  only);
-* ``no_cpml``: the CPML compiled out (wrong fields; timing only).
+* ``inner_1_block``: the inner kernel built for one block an SM;
+* ``edge_2_blocks``: the general edge kernel built for two blocks an SM
+  (at most 64 registers);
+* ``single_2_blocks``: the single-axis edge kernels built for two
+  blocks an SM (at most 64 registers; as built: one);
+* ``pipe_1``, ``pipe_3``: generation-0 planes in flight 1 and 3 (as
+  built: 2);
+* ``no_overlap``: each section's kernel starts when the one before it
+  has ended (no programmatic dependent launch);
+* ``tile_32x32``: 32 x 32-thread blocks (28 x 28 owned, 1.31 columns
+  computed a column owned, against 1.52), one block an SM;
+* ``tile_8x32``: 8 x 32-thread blocks (4 x 28 owned), four inner blocks
+  an SM;
+* ``grid_order``: the plan's items in x, y, z order (not heaviest
+  first);
+* ``all_edge``: every item in the edge kernel (no inner kernel);
+* ``no_zband``: z-band items in the block's own layout (not the
+  transposed one);
+* ``unaligned``: the interior tiles as wide as the others (28 cells,
+  rows of owned cells on no particular sector boundary) instead of 24
+  cells at multiples of 8;
+* ``no_box``: the items of a call with coefficient grids all read them
+  (no material box);
+* ``one_edge``: every SLAB item in the general edge kernel (no kernel
+  of one slab axis);
+* ``seg_N``: x segments of N planes (as built: 48 where the grid gives
+  every SM four items).
 
-Prints one JSON object: ms per pass per variant and carry (both turns),
-and per-block milliseconds (min, deciles, max) and the makespan of one
-pass. Needs a CUDA device and nvcc; prints no result without them.
+Prints one JSON object: the card, per variant the kernels' registers,
+spills and blocks an SM, and per carry ms per pass (both turns), each
+plan section's makespan and per-class block milliseconds (deciles) of
+one pass; a variant whose launch the card refuses is listed under
+``failed`` with the error. Needs a CUDA device and nvcc; prints no result
+without them.
 
-    python3 scripts/tb_variants.py [--out FILE]
+    python3 scripts/tb_variants.py [--mie] [--only a,b]
+        [--source NAME=PATH ...] [--out FILE]
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -35,92 +63,127 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-SRC = os.path.join(ROOT, "fdtd3d_torch", "csrc", "packed_tb.cu")
 EXAMPLE = os.path.join(ROOT, "Examples", "vacuum3D_tfsf.txt")
+MIE = os.path.join(ROOT, "Examples", "sphere3D_mie.txt")
 OUT_DIR = os.path.join(ROOT, "build", "tb_variants")
-MAX_BLOCKS = 8192
+TIMER_BLOCKS = 65536  # mirrors csrc/packed_tb.cu
 
-# the per-block timer: start at the kernel's entry, end after its loop
-TIMER = [
-    ("__global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {",
-     "__device__ unsigned long long g_blocks[3 * %d];\n"
-     "__global__ void __launch_bounds__(NT, 1) tb_pass(const Params p) {\n"
-     "  unsigned long long t_start;\n"
-     "  asm volatile(\"mov.u64 %%0, %%%%globaltimer;\" : \"=l\"(t_start));"
-     % MAX_BLOCKS),
-    ("    for (int c = 0; c < 3; ++c) j_old[c] = j_new[c];\n  }\n}",
-     "    for (int c = 0; c < 3; ++c) j_old[c] = j_new[c];\n  }\n"
-     "  __syncthreads();\n"
-     "  if (tid == 0) {\n"
-     "    unsigned long long t_end;\n"
-     "    unsigned smid;\n"
-     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_end));\n"
-     "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
-     "    const int b = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
-     " + blockIdx.x;\n"
-     "    g_blocks[3 * b] = t_start;\n"
-     "    g_blocks[3 * b + 1] = t_end;\n"
-     "    g_blocks[3 * b + 2] = smid;\n"
-     "  }\n}"),
-    ('extern "C" {',
-     'extern "C" {\n'
-     'int fdtd_tb_blocks(unsigned long long* out, int n) {\n'
-     '  return (int)cudaMemcpyFromSymbol(out, g_blocks,\n'
-     '                                   n * sizeof(unsigned long long));\n'
-     '}\n'),
-]
-
+# name -> (nvcc -D knobs, plan option)
 VARIANTS = {
-    "as_built": [],
-    "one_segment": [("  return n > 1 ? n : 1;\n", "  return 1;\n")],
-    "no_fast_path": [("<0, false>", "<0, true>"), ("<1, false>", "<1, true>")],
-    "no_records": [("if (FULL) acc = add_records(",
-                    "if (false) acc = add_records(")],
-    "no_cpml": [("if (FULL && m > 0) {", "if (false) {")],
+    "as_built": ((), None),
+    "inner_1_block": (("INNER_BLOCKS=1",), None),
+    "edge_2_blocks": (("EDGE_BLOCKS=2",), None),
+    "single_2_blocks": (("SINGLE_BLOCKS=2",), None),
+    "pipe_1": (("PIPE=1",), None),
+    "no_overlap": (("OVERLAP=0",), None),
+    "pipe_3": (("PIPE=3",), None),
+    "tile_32x32": (("BY=32", "INNER_BLOCKS=1"), None),
+    "tile_8x32": (("BY=8", "INNER_BLOCKS=4", "EDGE_BLOCKS=2"), None),
+    "grid_order": ((), "grid_order"),
+    "all_edge": ((), "all_edge"),
+    "no_zband": ((), "no_zband"),
+    "unaligned": ((), "unaligned"),
+    "no_box": ((), "no_box"),
+    "one_edge": ((), "one_edge"),
+    "seg_16": ((), "seg_16"),
+    "seg_24": ((), "seg_24"),
+    "seg_32": ((), "seg_32"),
+    "seg_48": ((), "seg_48"),
+    "seg_64": ((), "seg_64"),
 }
 
 
-def build_variants():
+def build_variants(names, sources):
+    """One nvcc per variant, all started together; name -> library.
+    ``sources``: variant name -> another source file (built as it is)."""
     from fdtd3d_torch.ops import build
     os.makedirs(OUT_DIR, exist_ok=True)
-    base = open(SRC).read()
     procs = {}
-    for name, subs in VARIANTS.items():
-        src = base
-        for old, new in TIMER + subs:
-            if old not in src:
-                raise RuntimeError(f"{name}: {old[:50]!r} not in the source")
-            src = src.replace(old, new)
-        cu = os.path.join(OUT_DIR, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(src)
-        cmd = [build.find_nvcc(), *build.flags("packed_tb"), "-o",
-               os.path.join(OUT_DIR, f"{name}.so"), cu]
+    for name in names:
+        src = sources.get(name, os.path.join(build.CSRC, "packed_tb.cu"))
+        knobs = VARIANTS[name][0] if name in VARIANTS else ()
+        defs = ["-DTB_BLOCK_TIMER"] + [f"-D{d}" for d in knobs]
+        cmd = [build.find_nvcc(), *build.flags("packed_tb"), "-I",
+               build.CSRC, *defs, "-Xptxas", "-v", "-o",
+               os.path.join(OUT_DIR, f"{name}.so"), src]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+    return {n: ctypes.CDLL(os.path.join(OUT_DIR, f"{n}.so")) for n in names}
 
 
-def carry_for(extra, dev):
-    """A pass's operands on the main path's grid after 150 steps."""
+def plan_option(base, option):
+    """The planner ``base`` (``packed_tb.plan_items``) under a variant's
+    plan option."""
+    import numpy as np
+    from fdtd3d_torch.ops import packed_tb
+    if option is None:
+        return base
+
+    @functools.wraps(base)
+    def planned(*args, **kw):
+        if option == "no_zband":
+            return base(*args, **dict(kw, zband=False))
+        if option == "unaligned":
+            return base(*args, **dict(kw, zalign=1))
+        if option == "no_box" and kw.get("grids") not in (None, "all"):
+            return base(*args, **dict(kw, grids="all"))
+        if option.startswith("seg_"):
+            return base(*args, **dict(kw, segments=(int(option[4:]),)))
+        rows, counts = base(*args, **kw)
+        bounds = np.cumsum((0,) + tuple(counts))
+        secs = [rows[bounds[q]:bounds[q + 1]] for q in range(len(counts))]
+        if option == "grid_order":
+            secs = [sec[np.lexsort((sec[:, 1], sec[:, 0], sec[:, 4]))]
+                    for sec in secs]
+            return np.concatenate(secs), counts
+        names = packed_tb.SECTIONS
+        if option == "one_edge":   # no single-axis edge kernel
+            edge = [names.index(n) for n in ("edge_x", "edge_y", "edge_z",
+                                             "edge")]
+            new = list(counts)
+            for q in edge:
+                new[q] = 0
+            new[names.index("edge")] = sum(counts[q] for q in edge)
+            order = [secs[q] for q in range(len(names))]
+            return np.concatenate(order), tuple(new)
+        if option != "all_edge":
+            return rows, counts
+        # all_edge: every item in the general edge kernel's sections
+        grid = [q for q, n in enumerate(names) if n.endswith("_grid")]
+        rest = [q for q in range(len(names)) if q not in grid]
+        new = [0] * len(names)
+        new[names.index("edge_grid")] = sum(counts[q] for q in grid)
+        new[names.index("edge")] = sum(counts[q] for q in rest)
+        order = [secs[q] for q in grid] + [secs[q] for q in rest]
+        return np.concatenate(order), tuple(new)
+    return planned
+
+
+def carry_for(path, extra, dev, steps):
+    """A pass's launch on the grid of the command file ``path`` (with the
+    flags ``extra``) after ``steps``."""
     from fdtd3d_torch import cli
     from fdtd3d_torch.ops import packed_tb
     from fdtd3d_torch.sim import Simulation
-    parser = cli.build_parser()
-    cfg = cli.args_to_config(parser.parse_args(
-        cli.read_cmd_file(EXAMPLE) + ["--same-size", "256"] + extra))
+    cfg = cli.args_to_config(cli.build_parser().parse_args(
+        cli.read_cmd_file(path) + list(extra)))
     sim = Simulation(cfg, device=dev)
-    sim.advance(150)
+    sim.advance(steps)
     step = packed_tb.make_packed_tb_step(sim.static, dev)
     cc = step.prepare(sim.coeffs)
     carry = sim._carry
     spare = packed_tb._alloc_like(carry)
     _, terms, drive = packed_tb.generation_terms(
         sim.static, cc["tb"], carry.get("inc"), carry["t"])
-    return lambda: packed_tb.tb_pass(carry, spare, cc["tb"], terms, drive)
+
+    def launch():
+        packed_tb.tb_pass(carry, spare, cc["tb"], terms, drive)
+    launch.tb = cc["tb"]
+    return launch
 
 
 def timed(fn, reps):
@@ -138,26 +201,53 @@ def timed(fn, reps):
 
 
 def block_times(lib, launch):
-    """Per-block milliseconds of one launch, and its makespan."""
+    """Each kernel's makespan and per-class block ms of one launch."""
     import numpy as np
     import torch
     launch()
     torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (3 * MAX_BLOCKS))()
+    buf = (ctypes.c_ulonglong * (3 * TIMER_BLOCKS))()
     lib.fdtd_tb_blocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    if lib.fdtd_tb_blocks(ctypes.addressof(buf), 3 * MAX_BLOCKS) != 0:
+    if lib.fdtd_tb_blocks(ctypes.addressof(buf), 3 * TIMER_BLOCKS) != 0:
         raise RuntimeError("reading the block timers failed")
-    a = np.array(buf, dtype=np.float64).reshape(MAX_BLOCKS, 3)
-    a = a[a[:, 1] > 0]
+    a = np.array(buf, dtype=np.float64).reshape(TIMER_BLOCKS, 3)
+    plan, counts = launch.tb["_plan"][1]
+    rows = plan.cpu().numpy()
+    n = min(len(rows), TIMER_BLOCKS)
+    a, rows = a[:n], rows[:n]
+    out = {"blocks": int(n), "items": list(counts)}
+    first = 0
+    from fdtd3d_torch.ops import packed_tb
+    for sec, count in zip(packed_tb.SECTIONS, counts):
+        t = a[first:min(first + count, n)]
+        if len(t):
+            out[f"{sec}_makespan_ms"] = float(
+                (t[:, 1].max() - t[:, 0].min()) / 1e6)
+        first += count
+    start = a[:, 0].min()
+    out["pass_makespan_ms"] = float((a[:, 1].max() - start) / 1e6)
     dur = (a[:, 1] - a[:, 0]) / 1e6
-    return {"blocks": int(len(a)),
-            "block_ms_deciles": np.percentile(
-                dur, np.arange(0, 101, 10)).tolist(),
-            "makespan_ms": float((a[:, 1].max() - a[:, 0].min()) / 1e6)}
+    planes = rows[:, 5] - rows[:, 4]
+    for cls, label in enumerate(("plain", "source", "slab")):
+        sel = rows[:, 6] == cls
+        if sel.any():
+            out[f"{label}_block_ms_deciles"] = np.percentile(
+                dur[sel], np.arange(0, 101, 10)).tolist()
+            out[f"{label}_us_per_plane_median"] = float(np.median(
+                dur[sel] * 1e3 / (planes[sel] + 3)))
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mie", action="store_true",
+                    help="also time one Mie lane at 512^3")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variants (default: all)")
+    ap.add_argument("--source", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="also time the source file PATH (the same "
+                         "parameter block) as variant NAME")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON here")
     args = ap.parse_args()
@@ -165,24 +255,49 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tb_variants: no CUDA device", file=sys.stderr)
         return 1
-    from fdtd3d_torch.ops import build
-    build_variants()
+    from fdtd3d_torch.ops import build, packed_tb
+    names = args.only.split(",") if args.only else list(VARIANTS)
+    sources = dict(s.split("=", 1) for s in args.source)
+    names += [n for n in sources if n not in names]
+    libs = build_variants(names, sources)
     dev = torch.device("cuda", 0)
-    libs = {n: ctypes.CDLL(os.path.join(OUT_DIR, f"{n}.so"))
-            for n in VARIANTS}
-    names = list(VARIANTS)
-    out = {"device": torch.cuda.get_device_name(0), "ms": {}, "blocks": {}}
-    for label, extra in (("tfsf_cpml", []),
-                         ("vacuum", ["--no-use-pml", "--no-use-tfsf"])):
-        launch = carry_for(extra, dev)
+    out = {"device": torch.cuda.get_device_name(0), "occupancy": {},
+           "ms": {}, "blocks": {}}
+    for name in names:
+        build._LIBS["packed_tb"] = libs[name]
+        out["occupancy"][name] = packed_tb.occupancy()
+    carries = [("tfsf_cpml", EXAMPLE, ["--same-size", "256"], 150),
+               ("vacuum", EXAMPLE, ["--same-size", "256", "--no-use-pml",
+                                    "--no-use-tfsf"], 150)]
+    if args.mie:
+        carries.append(("mie512", MIE, [], 20))
+    base = packed_tb.plan_items
+
+    def use(name, tb):
+        build._LIBS["packed_tb"] = libs[name]
+        packed_tb.plan_items = plan_option(
+            base, VARIANTS[name][1] if name in VARIANTS else None)
+        tb.pop("_plan", None)
+
+    failed = out["failed"] = {}
+    for label, path, extra, steps in carries:
+        launch = carry_for(path, extra, dev, steps)
         for name in names + names[::-1]:
-            build._LIBS["packed_tb"] = libs[name]
-            out["ms"].setdefault(label, {}).setdefault(name, []).append(
-                timed(launch, 20))
+            if name in failed:
+                continue
+            use(name, launch.tb)
+            try:
+                ms = timed(launch, 20)
+            except RuntimeError as exc:   # a refused launch: recorded
+                failed[name] = f"{label}: {exc}"
+                continue
+            out["ms"].setdefault(label, {}).setdefault(name, []).append(ms)
         for name in names:
-            build._LIBS["packed_tb"] = libs[name]
-            out["blocks"].setdefault(label, {})[name] = block_times(
-                libs[name], launch)
+            if name not in failed:
+                use(name, launch.tb)
+                out["blocks"].setdefault(label, {})[name] = block_times(
+                    libs[name], launch)
+        packed_tb.plan_items = base
         del launch
         torch.cuda.empty_cache()
     build._LIBS.pop("packed_tb", None)
