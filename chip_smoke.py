@@ -42,25 +42,31 @@ The float32x2 (double-single) path, ``Examples/precision3D_float32x2.txt``:
 
 4. (a) the EFT probe: the ds kernel's own ``two_sum``/``two_prod``
    device functions on seeded (8, 128) inputs with exponents spread
-   over 2^-18..2^18, exact in f64; (b) one launch of each ds kernel
-   against its plain version at 256^3 from seeded hi/lo fields, then 10
-   whole packed-ds steps of kernels against plain versions on the
-   example at 128^3, at 128^3 with an eps sphere and a Drude sphere, at
-   96^3 with a point source and no CPML on x, and in vacuum at 128^3
-   (no slab algebra, no sources); the gates are the reference's, on hi
-   and lo words: fields 1e-9 of the family max (vacuum 1e-12), psi
-   1e-6, J 1e-5;
+   over 2^-18..2^18, exact in f64, and on subnormal lo words and
+   operands near the Dekker split's overflow, the plain version's bits;
+   (b) at 256^3 from seeded hi/lo fields 20 steps in: the line kernel
+   against the torch ds line ops and the kernel's own record-term
+   function against ``record_terms``, bit for bit; one CUDA step (line
+   + pass) against one plain step (the reference's schedule in torch
+   ops); then 10 whole packed-ds steps of kernels against plain
+   versions on the example at 128^3, at 128^3 with an eps sphere and a
+   Drude sphere, at 96^3 with a point source and no CPML on x, and in
+   vacuum at 128^3 (no slab algebra, no sources); the gates are the
+   reference's, on hi and lo words: fields 1e-9 of the family max
+   (vacuum 1e-12), psi 1e-6, J 1e-5;
 5. (c) the ds main path through the CLI: the example as it stands
    (128^3, 1000 steps) with DAT dumps and the finite check, asserting
-   the packed-ds CUDA step ran (1000 launches per family) and finite
-   dumps; (d) the same config through the port's float64 plain step
-   and through the f32 packed step: rel = max over components of
-   |x - f64| / the family's f64 max (hi words), ds gated at 2e-7 (the
-   reference's own bar), f32 printed;
-6. (e) times at 256^3: each ds launch, its plain version and the whole
-   ds step, by CUDA events, beside the bound in bytes and in operations;
-   then 50 ds steps of the main path's 128^3 under torch.profiler
-   (device time, launches per step, device busy share).
+   the packed-ds CUDA step ran (1000 line and pass calls, at most 3
+   kernels a step) and finite dumps; (d) the same config through the
+   port's float64 plain step and through the f32 packed step: rel = max
+   over components of |x - f64| / the family's f64 max (hi words), ds
+   gated at 2e-7 (the reference's own bar), f32 printed;
+6. (e) times at 256^3: the line kernel, the pass and the whole ds step,
+   each beside its plain version, by CUDA events, with the pass's
+   registers, spills and blocks an SM, beside the bound in bytes and in
+   operations (at the non-FMA rate, F32_NONFMA_OPS); then 50 ds steps
+   of the main path's 128^3 under torch.profiler (device time, launches
+   per step, device busy share).
 
 Batched execution (``--batch``, ``fdtd3d_torch/batch.py``), on the
 lane-capable builds of the same two f32 kernels (one launch advances
@@ -150,6 +156,9 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 TOL = 2e-6               # the reference's f32 kernel-vs-jnp gate
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
+# the same units without FMA (the ds kernels' --fmad=false and explicitly
+# rounded intrinsics): 132 SMs x 128 f32 lanes x 1.98 GHz, one op a lane
+F32_NONFMA_OPS = 33.5e12
 # tfsf_leakage of the JAX reference (jnp step, CPU) on
 # Examples/vacuum3D_tfsf.txt at --same-size 48, 150 steps, measured by
 # scripts/tfsf_leakage.py; the card's run must stay within 10x of it.
@@ -451,18 +460,19 @@ def compare_ds(got, want, what, field_tol):
     """The reference's packed-ds gates on the packed carries: E and H
     (hi and lo rows) relative to the family's hi max, psi pairs at
     DS_PSI_TOL of the psi hi max, J at DS_J_TOL, the incident line
-    pairs at DS_VACUUM_TOL; returns the largest absolute error."""
-    worst = 0.0
+    pairs at DS_VACUUM_TOL; returns the largest absolute error of the
+    pass's leaves (fields, psi, J) and, apart, of the line's:
+    {"pass": x, "line": y}."""
+    worst = {"pass": 0.0, "line": 0.0}
 
-    def gate(name, a, b, scale, tol):
-        nonlocal worst
+    def gate(name, a, b, scale, tol, part="pass"):
         err = float((a - b).abs().max())
         rel = err / scale if scale > 0 else err
         if not rel < tol:
             fail(f"{what}: {name} differs from the plain version: "
                  f"max|diff|={err:.3e}, scale={scale:.3e}, rel={rel:.3e} "
                  f">= {tol}")
-        worst = max(worst, err)
+        worst[part] = max(worst[part], err)
 
     for fam in ("E", "H"):
         gate(fam, got[fam], want[fam], float(want[fam][:3].abs().max()),
@@ -476,13 +486,14 @@ def compare_ds(got, want, what, field_tol):
              DS_J_TOL)
     for k, b in want.get("inc", {}).items():
         scale = float(want["inc"][k.replace("_lo", "")].abs().max())
-        gate(f"inc/{k}", got["inc"][k], b, scale, DS_VACUUM_TOL)
+        gate(f"inc/{k}", got["inc"][k], b, scale, DS_VACUUM_TOL, "line")
     return worst
 
 
 def ds_kernel_vs_plain(cfg, dev, seed, label, field_tol=DS_FIELD_TOL):
     """10 packed-ds steps with the kernels against 10 with the plain
-    versions, from the same seeded carry; returns the worst error."""
+    versions, from the same seeded carry; returns the worst errors
+    (``compare_ds``)."""
     import torch
     from fdtd3d_torch.ops import packed_ds
     sim = seeded_ds_sim(cfg, dev, seed)
@@ -498,32 +509,95 @@ def ds_kernel_vs_plain(cfg, dev, seed, label, field_tol=DS_FIELD_TOL):
     err = compare_ds(ck, cp, f"{label}: {STEPS_CMP} packed-ds steps",
                      field_tol)
     say(f"{label}: {STEPS_CMP} ds kernel steps match the plain version "
-        f"(max abs err {err:.3e})")
+        f"(max abs err {max(err.values()):.3e})")
     return err
 
 
-def ds_launch_args(carry, cc, family):
-    """The arguments of one ds family launch on ``carry``: this step's
-    record plane terms from the carry's incident line."""
-    from fdtd3d_torch.ops import packed_ds
-    terms = packed_ds.record_terms(cc["plan"], carry.get("inc"))
-    if family == "E":
-        return (carry["E"], carry["H"], carry.get("J"), carry["psE"],
-                cc["E"], terms, None)
-    return (carry["H"], carry["E"], carry["psH"], cc["H"], terms)
-
-
-def ds_one_launch_vs_plain(sim, fn, plain_fn, family):
-    """One ds launch against its plain version on the same inputs."""
+def ds_one_step_vs_plain(sim):
+    """One step of the CUDA path (line kernel + pass) against one plain
+    step (the reference's schedule in torch ops) from the same carry;
+    returns the worst absolute errors (``compare_ds``; 0.0: bit-exact on
+    every leaf)."""
     import torch
     from fdtd3d_torch.ops import packed_ds
-    cc = packed_ds.make_packed_ds_step(sim.static, sim.device).prepare(
-        sim.coeffs)
-    a, b = clone_carry(sim._carry), clone_carry(sim._carry)
-    fn(*ds_launch_args(a, cc, family))
-    plain_fn(*ds_launch_args(b, cc, family))
+    k_step = packed_ds.make_packed_ds_step(sim.static, sim.device)
+    p_step = packed_ds.make_packed_ds_step(sim.static, sim.device,
+                                           plain=True)
+    cc = k_step.prepare(sim.coeffs)
+    a = k_step(clone_carry(sim._carry), cc)
+    b = p_step(clone_carry(sim._carry), cc)
     torch.cuda.synchronize()
-    return compare_ds(a, b, f"one ds {family} launch", DS_FIELD_TOL)
+    return compare_ds(a, b, "one ds step (line + pass)", DS_FIELD_TOL)
+
+
+def bits_equal(a, b):
+    """Two float32 tensors hold the same bit patterns (-0 is not +0)."""
+    import torch
+    return a.shape == b.shape and bool(
+        (a.contiguous().view(torch.int32)
+         == b.contiguous().view(torch.int32)).all())
+
+
+def ds_line_terms_check(sim):
+    """The device line and the in-kernel record terms against the torch
+    ds ops on the card, bit for bit: ``line_advance`` from the carry's
+    line against ``tfsf.advance_einc``/``advance_hinc``, and the
+    kernel's own record-term function (``device_terms``) against
+    ``record_terms`` of the line between the two advances; returns the
+    sizes and the measured max |diff| over the line leaves and terms."""
+    import torch
+    from fdtd3d_torch.ops import packed_ds, tfsf
+    static, inc = sim.static, sim._carry["inc"]
+    step = packed_ds.make_packed_ds_step(static, sim.device)
+    cc = step.prepare(sim.coeffs)
+    table = tfsf.line_source(static.tfsf_setup, static.omega, static.dt)
+    t = int(sim._carry["t"])
+    dst = {k: torch.empty_like(v) for k, v in inc.items()}
+    packed_ds.line_advance(inc, dst, cc, table(t))
+    mid = tfsf.advance_einc(dict(inc), sim.coeffs, t, static.dt,
+                            static.omega, static.tfsf_setup, source=table)
+    want = tfsf.advance_hinc(mid, sim.coeffs, static.tfsf_setup)
+    got_terms = packed_ds.device_terms(cc, inc, dst)
+    want_terms = packed_ds.record_terms(cc["plan"], mid)
+    torch.cuda.synchronize()
+    err = float((got_terms - want_terms).abs().max())
+    for k in packed_ds.LINE_KEYS:
+        err = max(err, float((dst[k] - want[k]).abs().max()))
+        if not bits_equal(dst[k], want[k]):
+            fail(f"the line kernel's {k} differs from the torch ds ops")
+    if not bits_equal(got_terms, want_terms):
+        fail(f"the in-kernel record terms differ from record_terms "
+             f"(max |diff| {err:.3e})")
+    if not float(want_terms.abs().max()) > 0:
+        fail("the record terms are all zero: no wave on the line")
+    say(f"ds line ({static.tfsf_setup.n_inc} cells) and {cc['plan'].total} "
+        "in-kernel record terms bit-equal to the torch ds ops")
+    return {"line_cells": static.tfsf_setup.n_inc,
+            "record_cells": cc["plan"].total, "bit_equal": True,
+            "max_abs_err": err}
+
+
+def eft_extended_inputs(dev):
+    """(a, b) float32 pairs past the wide-exponent probe: subnormal lo
+    words against normal and subnormal operands, operands near the
+    Dekker split's overflow (4097 a overflows above ~2^115), signed
+    zeros."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2)
+    n = 1024
+    tiny = np.float32(2.0 ** -126)
+    sub = (rng.integers(1, 2 ** 23, n).astype(np.float32)
+           * np.float32(2.0 ** -149)) * rng.choice([-1, 1], n)
+    big = (rng.uniform(1, 2, n) * np.exp2(rng.integers(110, 127, n))
+           * rng.choice([-1, 1], n))
+    wide = rng.standard_normal(n) * np.exp2(rng.integers(-60, 60, n))
+    small = rng.standard_normal(n) * np.exp2(rng.integers(-80, -60, n))
+    a = np.concatenate([sub, sub, big, big, small, wide, [0.0, -0.0]])
+    b = np.concatenate([wide, sub, wide, small, small,
+                        tiny * rng.standard_normal(n), [-0.0, 1.0]])
+    return (torch.tensor(a.astype(np.float32), device=dev),
+            torch.tensor(b.astype(np.float32), device=dev))
 
 
 def eft_probe_check(dev):
@@ -547,6 +621,21 @@ def eft_probe_check(dev):
         fail("EFT probe: two_prod in the ds kernel is not exact")
     say("EFT probe: two_sum and two_prod exact on 1024 wide-exponent "
         "pairs")
+    # past exactness: subnormal lo words and operands near the split's
+    # overflow, where Dekker's product is not exact but is the
+    # reference's; the kernel must give the plain version's bits
+    from fdtd3d_torch.ops import ds
+    a, b = eft_extended_inputs(dev)
+    got = packed_ds.eft_probe(a, b)
+    want = ds.two_sum(a, b) + ds.two_prod(a, b)
+    for name, g, w in zip(("s", "e", "p", "pe"), got, want):
+        same = (g.view(torch.int32) == w.view(torch.int32)) \
+            | (torch.isnan(g) & torch.isnan(w))
+        if not bool(same.all()):
+            fail(f"EFT probe: the ds kernel's {name} differs from the plain "
+                 f"version on {int((~same).sum())} extended pairs")
+    say(f"EFT probe: two_sum and two_prod give the plain version's bits on "
+        f"{a.numel()} subnormal and near-overflow pairs")
 
 
 def rel_vs_f64(fields, ref):
@@ -559,7 +648,8 @@ def rel_vs_f64(fields, ref):
 
 
 def ds_record_cells(cc, family):
-    """Plane cells of the family's TFSF records (their terms are read)."""
+    """Plane cells of the family's TFSF records (their terms are
+    computed)."""
     fc = cc[family]
     n = 0
     for rec in fc["records"]:
@@ -570,43 +660,103 @@ def ds_record_cells(cc, family):
     return n
 
 
-def ds_family_bytes(carry, cc, family):
-    """Bytes one ds family launch must move: each input read once, each
-    output written once (the other family's 6 words, its own 6 read and
-    written, psi pairs, J, coefficient grids, profiles, record terms)."""
+def ds_pass_bytes(carry, cc):
+    """Bytes one ds pass must move: each input read once, each output
+    written once (E and H: 6 words each read and 6 written; psi pairs
+    and J read and written; coefficient grids, profiles, the record
+    geometry of 7 floats and an index a record cell, the line)."""
     import torch
     vol = carry["E"][0].numel() * 4
-    n = 6 * vol + 2 * 6 * vol
-    ps = carry["psE"] if family == "E" else carry["psH"]
-    n += sum(2 * v.numel() * 4 for v in ps.values())
-    if family == "E" and "J" in carry:
+    n = 4 * 6 * vol
+    for fam in ("psE", "psH"):
+        n += sum(2 * v.numel() * 4 for v in carry[fam].values())
+    if "J" in carry:
         n += 2 * 3 * vol
-    fc = cc[family]
-    for key in ("a", "b", "kj", "bj"):
-        for v in fc[key] or []:
-            for t in (v if isinstance(v, tuple) else (v,)):
-                if isinstance(t, torch.Tensor) and t.dim() > 0:
-                    n += t.numel() * 4
-    n += sum(v.numel() * 4 for v in fc["prof"].values())
-    n += 2 * 4 * ds_record_cells(cc, family)
+    for family in ("E", "H"):
+        fc = cc[family]
+        for key in ("a", "b", "kj", "bj"):
+            for v in fc[key] or []:
+                for t in (v if isinstance(v, tuple) else (v,)):
+                    if isinstance(t, torch.Tensor) and t.dim() > 0:
+                        n += t.numel() * 4
+        n += sum(v.numel() * 4 for v in fc["prof"].values())
+        n += 8 * 4 * ds_record_cells(cc, family)
+    if "inc" in carry:
+        n += sum(v.numel() * 4 for v in carry["inc"].values())
     return n
 
 
-def ds_family_flops(carry, cc, family):
-    """f32 operations of one ds family launch, counted from the kernel:
-    per component two EFT differences (40 each), the sign, the pair sum
-    (20), the coefficient products and sum (72); 118 per slab psi pair
-    (three pair products, two pair sums); 20 per record plane cell;
-    16 for Drude J per component."""
+def ds_pass_flops(carry, cc):
+    """f32 operations of one ds pass, counted from the kernel's EFT
+    sequences: per cell and family, per component two differences (40
+    each), the sign, the pair sum (20), the coefficient products and
+    sum (72); 118 per slab psi pair (three pair products, two pair
+    sums); per record cell the term (three pair products, a pair sum,
+    the gate: 94) and its pair sum into the accumulator (20); 16 for
+    Drude J per component."""
     cells = carry["E"][0].numel()
-    f = 3 * cells * (2 * 40 + 2 + 20 + 72)
-    ps = carry["psE"] if family == "E" else carry["psH"]
-    f += sum(v.numel() // 2 for v in ps.values()) * 118
-    f += 20 * ds_record_cells(cc, family)
-    if family == "E" and "J" in carry:
+    f = 2 * 3 * cells * (2 * 40 + 2 + 20 + 72)
+    for fam in ("psE", "psH"):
+        f += sum(v.numel() // 2 for v in carry[fam].values()) * 118
+    f += 114 * (ds_record_cells(cc, "E") + ds_record_cells(cc, "H"))
+    if "J" in carry:
         f += 3 * cells * 16
     return f
 
+
+def ds_line_bytes_flops(cc):
+    """(bytes, f32 operations) of one line advance: 4 words read and 4
+    written, 8 coefficient words a line cell; per cell and half a
+    difference (13), two pair products (48) and a pair sum (20)."""
+    n = cc["n_inc"]
+    return (16 * 4 * n, 2 * 81 * n)
+
+
+def ds_times(sim, dev, reps, plain_reps):
+    """CUDA-event times on ``sim``'s packed-ds state: the line kernel,
+    the pass, the whole CUDA step, each beside its plain version, the
+    torch record-term ops the pass replaced, and the bounds (bytes at
+    HBM_BYTES_PER_S, operations at the non-FMA rate F32_NONFMA_OPS)."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_ds, tfsf
+    static, carry = sim.static, sim._carry
+    dstep = packed_ds.make_packed_ds_step(static, dev)
+    dplain = packed_ds.make_packed_ds_step(static, dev, plain=True)
+    cc = dstep.prepare(sim.coeffs)
+    pair = tfsf.line_source(static.tfsf_setup, static.omega, static.dt)(
+        int(carry["t"]))
+    inc = carry["inc"]
+    line_dst = {k: torch.empty_like(v) for k, v in inc.items()}
+    spare = packed.alloc_like(carry)
+    point = (0.0, 0.0) if cc["has_point"] else None
+    out = {
+        "line_ms": timed(lambda: packed_ds.line_advance(inc, line_dst, cc,
+                                                        pair), reps),
+        "pass_ms": timed(lambda: packed_ds.ds_pass(carry, spare, cc, inc,
+                                                   line_dst, point), reps),
+        "line_plain_ms": timed(lambda: packed_ds.line_advance_plain(
+            inc, line_dst, cc, pair), plain_reps),
+        "pass_plain_ms": timed(lambda: packed_ds.ds_pass_plain(
+            carry, spare, cc, inc, line_dst, point), plain_reps),
+        "record_terms_torch_ms": timed(lambda: packed_ds.record_terms(
+            cc["plan"], inc), reps),
+        "step_ms": timed(lambda: dstep(carry, cc), reps),
+        "plain_step_ms": timed(lambda: dplain(carry, cc), plain_reps)}
+    nbytes, nops = ds_pass_bytes(carry, cc), ds_pass_flops(carry, cc)
+    lbytes, lops = ds_line_bytes_flops(cc)
+    for key, b, o in (("pass", nbytes, nops), ("line", lbytes, lops)):
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = o / F32_NONFMA_OPS * 1e3
+        out.update({f"{key}_bytes": b, f"{key}_ops": o,
+                    f"{key}_bytes_ms": t_bytes, f"{key}_ops_ms": t_ops,
+                    f"{key}_bound_ms": max(t_bytes, t_ops),
+                    f"{key}_bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations"})
+    out["pass_bound_share"] = out["pass_bound_ms"] / out["pass_ms"]
+    out["step_bound_share"] = (out["pass_bound_ms"] + out["line_bound_ms"]) \
+        / out["step_ms"]
+    out["occupancy"] = packed_ds.occupancy()
+    return out
 
 
 def profile_window(sim, steps):
@@ -635,7 +785,8 @@ def profile_window(sim, steps):
         device_us += us
         launches += ev.count
         if any(n in ev.key for n in ("family_update", "tb_section",
-                                     "family_pass", "fused_eh")):
+                                     "family_pass", "fused_eh",
+                                     "ds_section", "ds_line")):
             kernels_us[ev.key] = us / steps
     return {"wall_us_per_step": wall_us / steps,
             "device_us_per_step": device_us / steps,
@@ -732,15 +883,15 @@ def lane_kernels_check(bsim, dev, label):
     _, terms, drive = packed_tb.generation_terms(static, tb,
                                                  carry.get("inc"),
                                                  carry["t"])
-    dst_k = packed_tb._alloc_like(carry)
-    dst_p = packed_tb._alloc_like(carry)
+    dst_k = packed.alloc_like(carry)
+    dst_p = packed.alloc_like(carry)
     packed_tb.tb_pass(carry, dst_k, tb, terms, drive)
     packed_tb.tb_pass_plain(carry, dst_p, tb, terms, drive)
     torch.cuda.synchronize()
     err_tb = compare(dst_k, dst_p, f"{label}: one lane-capable tb pass")
     for lane in range(B):
         src = solo_lane(pass_fields(carry), lane)
-        dst = packed_tb._alloc_like(src)
+        dst = packed.alloc_like(src)
         packed_tb.tb_pass(src, dst, solo_tb(tb, lane),
                           None if terms is None
                           else terms[:, lane].contiguous(),
@@ -796,7 +947,7 @@ def lane_times(bsim, dev, reps, plain_reps):
     carry = bsim._carry
     k_tb = packed_tb.make_packed_tb_step(static, dev, batch=B)
     cc = k_tb.prepare(bsim._coeffs)
-    spare = packed_tb._alloc_like(carry)
+    spare = packed.alloc_like(carry)
     _, terms, drive = packed_tb.generation_terms(static, cc["tb"],
                                                  carry.get("inc"),
                                                  carry["t"])
@@ -972,7 +1123,7 @@ def reset_launches():
     from fdtd3d_torch.ops import packed, packed_ds, packed_tb, pallas3d
     from fdtd3d_torch.ops import pallas_fused
     for fn in (packed.e_update, packed.h_update, packed_tb.tb_pass,
-               packed_ds.e_update, packed_ds.h_update, pallas3d.e_family,
+               packed_ds.line_advance, packed_ds.ds_pass, pallas3d.e_family,
                pallas3d.h_family, pallas_fused.fused_eh):
         fn.launches = 0
 
@@ -1214,7 +1365,7 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
     tcc = tb.prepare(coeffs)
     out["tb_step_ms"] = timed(lambda: tb(carry, tcc), reps) / 2
     # the tb pass's kernel against two packed steps' kernels, same call
-    spare = packed_tb._alloc_like(carry)
+    spare = packed.alloc_like(carry)
     _, terms, drive = packed_tb.generation_terms(static, tcc["tb"],
                                                  carry.get("inc"),
                                                  carry["t"])
@@ -1327,12 +1478,13 @@ def main() -> int:
     eft_probe_check(dev)
     ds256 = config(PRECISION, ["--same-size", "256"])
     sim = seeded_ds_sim(ds256, dev, seed=4, warm=20)
-    err_de = ds_one_launch_vs_plain(sim, packed_ds.e_update,
-                                    packed_ds.e_update_plain, "E")
-    err_dh = ds_one_launch_vs_plain(sim, packed_ds.h_update,
-                                    packed_ds.h_update_plain, "H")
-    say(f"one ds launch at 256^3 matches the plain version (E "
-        f"{err_de:.3e}, H {err_dh:.3e})")
+    result["ds_line_terms"] = ds_line_terms_check(sim)
+    err_ds = ds_one_step_vs_plain(sim)
+    result["ds_pass_occupancy"] = packed_ds.occupancy()
+    say(f"one ds step (line + pass) at 256^3 matches the plain step (max "
+        f"abs err {max(err_ds.values()):.3e}, bit-exact: "
+        f"{max(err_ds.values()) == 0.0}); pass kernels "
+        + json.dumps(result["ds_pass_occupancy"]))
     del sim
     ds_spheres = ["--eps-sphere", "4.0", "--eps-sphere-center-x", "64",
                   "--eps-sphere-center-y", "64", "--eps-sphere-center-z",
@@ -1343,7 +1495,7 @@ def main() -> int:
                   "--drude-sphere-center-z", "64",
                   "--drude-sphere-radius", "12"]
     result["max_abs_err"].update({
-        "ds_e_update_one": err_de, "ds_h_update_one": err_dh,
+        "ds_step_one": err_ds,
         "ds_steps_128": ds_kernel_vs_plain(
             config(PRECISION, []), dev, 5, "ds 128^3 precision example"),
         "ds_steps_128_spheres": ds_kernel_vs_plain(
@@ -1356,6 +1508,11 @@ def main() -> int:
         "ds_steps_128_vacuum": ds_kernel_vs_plain(
             config(PRECISION, ["--no-use-pml", "--no-use-tfsf"]), dev, 8,
             "ds 128^3 vacuum", field_tol=DS_VACUUM_TOL)})
+    ds_checks = [v for k, v in result["max_abs_err"].items()
+                 if k.startswith("ds_step")]
+    err_ds_pass = max(c["pass"] for c in ds_checks)
+    err_ds_line = max([result["ds_line_terms"]["max_abs_err"]]
+                      + [c["line"] for c in ds_checks])
 
     # ---- phase 2: the main path through the CLI ---------------------------
     steps = cfg256.time_steps
@@ -1378,8 +1535,8 @@ def main() -> int:
     ds_dir = os.path.join(OUT_DIR, "ds")
     ds_cfg = config(PRECISION, [])
     ds_steps = ds_cfg.time_steps
-    packed_ds.e_update.launches = 0
-    packed_ds.h_update.launches = 0
+    packed_ds.line_advance.launches = 0
+    packed_ds.ds_pass.launches = packed_ds.ds_pass.kernels = 0
     torch.cuda.reset_peak_memory_stats()
     captured = _io.StringIO()
     t0 = time.time()
@@ -1389,16 +1546,22 @@ def main() -> int:
                        ds_dir])
     torch.cuda.synchronize()
     ds_wall = time.time() - t0
-    ds_launches = {"e_update": packed_ds.e_update.launches,
-                   "h_update": packed_ds.h_update.launches}
+    ds_launches = {"line": packed_ds.line_advance.launches,
+                   "pass": packed_ds.ds_pass.launches}
     log_txt = captured.getvalue()
     say("cli (float32x2): " + " | ".join(log_txt.strip().splitlines()))
     if rc != 0:
         fail(f"cli.main returned {rc} on {PRECISION}")
     if "step_kind=packed_ds_cuda" not in log_txt:
         fail("the CLI did not run the packed-ds CUDA step")
-    if ds_launches != {"e_update": ds_steps, "h_update": ds_steps}:
-        fail(f"ds kernel launches {ds_launches} != {ds_steps} per family")
+    if ds_launches != {"line": ds_steps, "pass": ds_steps}:
+        fail(f"ds kernel calls {ds_launches} != {ds_steps} each")
+    # kernels a step: the line's, and the pass's section kernels
+    ds_kernels_per_step = (ds_launches["line"]
+                           + packed_ds.ds_pass.kernels) / ds_steps
+    if ds_kernels_per_step > 3:
+        fail(f"the ds step launches {ds_kernels_per_step} kernels, not at "
+             "most 3")
     ds_fields = {}
     for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
         path = os.path.join(ds_dir, f"{c}_t{ds_steps:06d}.dat")
@@ -1427,6 +1590,7 @@ def main() -> int:
     rel_f32 = rel_vs_f64(runs["float32"][0], ref64)
     result["ds_main_path"] = {
         "steps": ds_steps, "wall_s": ds_wall, "launches": ds_launches,
+        "kernels_per_step": ds_kernels_per_step,
         "peak_mem_bytes": ds_peak, "rel_vs_f64": rel_ds,
         "f32_rel_vs_f64": rel_f32, "f64_wall_s": runs["float64"][1],
         "f32_wall_s": runs["float32"][1],
@@ -1532,43 +1696,11 @@ def main() -> int:
     # ---- phase 6: ds times at 256^3 --------------------------------------
     sim = Simulation(ds256, device=dev)
     sim.advance(100)               # a wave on the incident line and grid
-    carry = sim._carry
-    dstep = packed_ds.make_packed_ds_step(sim.static, dev)
-    dplain = packed_ds.make_packed_ds_step(sim.static, dev, plain=True)
-    dcc = dstep.prepare(sim.coeffs)
-    args_e = ds_launch_args(carry, dcc, "E")
-    args_h = ds_launch_args(carry, dcc, "H")
-    de_ms = timed(lambda: packed_ds.e_update(*args_e), 20)
-    dh_ms = timed(lambda: packed_ds.h_update(*args_h), 20)
-    de_plain = timed(lambda: packed_ds.e_update_plain(*args_e), 2)
-    dh_plain = timed(lambda: packed_ds.h_update_plain(*args_h), 2)
-    terms_ms = timed(lambda: packed_ds.record_terms(dcc["plan"],
-                                                    carry["inc"]), 20)
-    dstep_ms = timed(lambda: dstep(carry, dcc), 20)
-    dplain_step_ms = timed(lambda: dplain(carry, dcc), 2)
-    dbound = {}
-    for fam in ("E", "H"):
-        nbytes = ds_family_bytes(carry, dcc, fam)
-        nops = ds_family_flops(carry, dcc, fam)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_FLOPS * 1e3
-        dbound[fam] = (max(t_bytes, t_ops),
-                       "bytes" if t_bytes >= t_ops else "operations",
-                       nbytes, nops, t_bytes, t_ops)
-    result["ds_times_256"] = {
-        "e_update_ms": de_ms, "h_update_ms": dh_ms,
-        "plain_e_ms": de_plain, "plain_h_ms": dh_plain,
-        "record_terms_ms": terms_ms, "step_ms": dstep_ms,
-        "plain_step_ms": dplain_step_ms,
-        "mcells_per_s": cells / (dstep_ms * 1e-3) / 1e6,
-        "e_bytes": dbound["E"][2], "h_bytes": dbound["H"][2],
-        "e_ops": dbound["E"][3], "h_ops": dbound["H"][3],
-        "e_bytes_ms": dbound["E"][4], "e_ops_ms": dbound["E"][5],
-        "h_bytes_ms": dbound["H"][4], "h_ops_ms": dbound["H"][5],
-        "e_bound_share": dbound["E"][0] / de_ms,
-        "h_bound_share": dbound["H"][0] / dh_ms}
+    result["ds_times_256"] = ds_times(sim, dev, 20, 2)
+    dt6 = result["ds_times_256"]
+    dt6["mcells_per_s"] = cells / (dt6["step_ms"] * 1e-3) / 1e6
     say("ds times at 256^3: " + json.dumps(result["ds_times_256"]))
-    del sim, carry, dcc, args_e, args_h
+    del sim
     sim = Simulation(ds_cfg, device=dev)
     sim.advance(20)
     result["ds_profile_128"] = profile_window(sim, 50)
@@ -1769,16 +1901,18 @@ def main() -> int:
          "launches": tail_launches["h_update"], "max_abs_err": err_h,
          "ms": h_ms, "plain_ms": h_plain, "bound_ms": bound["H"][0],
          "bound_by": bound["H"][1], "library_ms": None},
-        {"name": "packed_ds.e_update", "route": "cuda", "source": ds_src,
+        {"name": "packed_ds.pass", "route": "cuda", "source": ds_src,
          "replaces": "fdtd3d_tpu/ops/pallas_packed_ds.py:429",
-         "launches": ds_launches["e_update"], "max_abs_err": err_de,
-         "ms": de_ms, "plain_ms": de_plain, "bound_ms": dbound["E"][0],
-         "bound_by": dbound["E"][1], "library_ms": None},
-        {"name": "packed_ds.h_update", "route": "cuda", "source": ds_src,
-         "replaces": "fdtd3d_tpu/ops/pallas_packed_ds.py:429",
-         "launches": ds_launches["h_update"], "max_abs_err": err_dh,
-         "ms": dh_ms, "plain_ms": dh_plain, "bound_ms": dbound["H"][0],
-         "bound_by": dbound["H"][1], "library_ms": None},
+         "launches": ds_launches["pass"], "max_abs_err": err_ds_pass,
+         "ms": dt6["pass_ms"], "plain_ms": dt6["pass_plain_ms"],
+         "bound_ms": dt6["pass_bound_ms"], "bound_by": dt6["pass_bound_by"],
+         "library_ms": None},
+        {"name": "packed_ds.line", "route": "cuda", "source": ds_src,
+         "replaces": "fdtd3d_tpu/ops/tfsf.py:235",
+         "launches": ds_launches["line"], "max_abs_err": err_ds_line,
+         "ms": dt6["line_ms"], "plain_ms": dt6["line_plain_ms"],
+         "bound_ms": dt6["line_bound_ms"], "bound_by": dt6["line_bound_by"],
+         "library_ms": None},
         {"name": "packed_tb.pass[4 lanes]", "route": "cuda",
          "source": tb_src,
          "replaces": "fdtd3d_tpu/ops/pallas_packed_tb.py:900",

@@ -1,24 +1,39 @@
-// Packed double-single (float32x2) leapfrog half-steps of the 3D Yee
-// scheme, for Hopper (sm_90a).
+// Packed double-single (float32x2) leapfrog step of the 3D Yee scheme,
+// for Hopper (sm_90a): the incident line in one launch, then E and H in
+// one x-marching pass.
 //
 // Replaces the Pallas TPU kernel
-// fdtd3d_tpu/ops/pallas_packed_ds.py::make_packed_ds_step (kernel body
-// at pallas_packed_ds.py:429, pallas_call at :936) for unsharded 3D
-// float32x2 runs.
+// fdtd3d_tpu/ops/pallas_packed_ds.py::make_packed_ds_step (factory :193,
+// kernel :364 with body :429, pallas_call :936) for unsharded 3D
+// float32x2 runs, and the reference step's host part around it (the ds
+// incident line, tfsf.py, and the record terms).
 //
 // What one step computes, on the reference's stacked layout
 // E, H = (6, n1, n2, n3) float32, rows [0,3) hi words and [3,6) lo
 // words, C order, z innermost, every value the pair hi + lo:
+//   Einc' = ae Einc - be dHinc (hard source pair at cell 0),
+//   Hinc' = ah Hinc - bh dEinc'                   (the ds line, ds_line)
 //   E' = ca E + cb (curl_b H + CPML terms + source records - J'),
-//   J' = kj J + bj E_hi                          (plain f32, as the
-//                                                 reference keeps it)
+//   J' = kj J + bj E_hi                           (plain f32, as the
+//                                                  reference keeps it)
 //   H' = da H - db (curl_f E' + CPML terms + source records)
 // with each difference, product and sum an error-free-transform (EFT)
 // sequence: the differences are exact (two_diff) and scaled by 1/dx as
 // a pair, the slab CPML runs as pair recursions on compact slab stacks
 // (psi' = b psi + c d, term = ik d + psi'), each source record's plane
 // term is added into the accumulator pair at its plane before the
-// coefficient multiply, and ca/cb/da/db are pairs (scalars or grids).
+// coefficient multiply, in table order, and ca/cb/da/db are pairs
+// (scalars or grids). A record's term is computed in the kernel from
+// the line: v = Einc or Hinc interpolated as v0 (1 - w) + v1 w with the
+// pairs of the record's fixed geometry (ops/packed_ds.py::
+// build_term_plan), times its sign*pol/dx pair, times its 0/1 gate. E
+// records sample the line's Hinc before this step's advance, H records
+// its advanced Einc: the line is double-buffered (ds_line reads one
+// buffer and writes the other), and the pass reads Hinc from the first
+// and Einc from the second. Every operation is the plain PyTorch
+// version's, in its order (ops/tfsf.py::_advance_einc_ds and
+// _advance_hinc_ds, ops/packed_ds.py::record_terms, e_update_plain and
+// h_update_plain).
 //
 // The EFT hazard. A compiler that contracts a*b + c into one FMA, or
 // reassociates, breaks two_sum, two_prod and everything built on them.
@@ -28,29 +43,145 @@
 // math: the lo words may be subnormal and must not be flushed.
 // two_prod is Dekker's split product (no fmaf), so the kernel computes
 // the same bits as the reference and the plain PyTorch version in every
-// case, underflow included.
+// case, underflow included. FMA_PROD=1 builds the two-op product
+// (p = a b, e = fma(a, b, -p)) as a measured variant only
+// (scripts/ds_variants.py), since it differs from Dekker's where the
+// split's partial products underflow or overflow.
 //
-// Design. As in packed_eh.cu: the TPU kernel lags H one x-tile behind E
-// in an ordered grid, which CUDA does not have, so a step is two
-// launches, fdtd_ds_e_update then fdtd_ds_h_update, one thread per cell
-// with z innermost, each updating its family in place (a cell's new
-// value reads its own old value and the OTHER family's neighbours only).
-// The step is bound by memory bytes: a launch reads the other family's
-// 6 words and reads and writes its own 6, 72 B/cell a launch, about
-// 400 EFT flops per cell a launch, below the H100's 20 flops per byte.
-// Records come as a table in the parameter block (component, normal
-// axis, plane, offset into the stacked plane terms); the point source
-// is a record carrying its own pair.
+// The march (ds_pass). A thread block owns a work item of the host's
+// plan (ops/packed_ds.py::plan_items): a (y, z) tile of at most
+// (BY - 2) x (BZ - 2) owned cells over an x segment [x0, x1). One thread
+// per (y, z) column of the tile plus a 1-cell halo on each side marches x
+// from x0 to x1 and at plane i computes E(i) (the new E) and then H(i-1)
+// (the new H, from E(i-1) and E(i)), with one barrier a plane: H(i-1)
+// reads E(i) only at its own column, which the same thread has just
+// written, and E(i-1) at its neighbours', which the plane's barrier
+// published.
+// E reads H at y-1, z-1 and x-1 (backward differences) and H reads the
+// new E at y+1, z+1 and x+1 (forward), so E is computed on the owned
+// cells and the +y/+z halo row and column and on plane x1 (redundantly,
+// with their own psi, J, records and walls), and H on the owned cells
+// only: one launch moves E and H once each, 96 B/cell a step, against
+// the two in-place launches' 144. The old H of planes i and i-1 and the
+// old E of plane i stream into shared-memory plane rings PIPE planes
+// ahead of the march by cp.async (4 bytes a thread and word: each thread
+// copies its own column; the barrier that opens a plane, which the march
+// needs anyway, publishes it); the new E of planes i and i-1 sits in a
+// two-plane ring. Neighbours are read from the rings, never from device
+// memory.
 //
-// Offsets are 64-bit. Every entry returns cudaGetLastError() so the
+// Out of place. A block reads halo cells of E, H, psi and J that a
+// neighbouring block owns, so the pass reads only the source buffers
+// (*0) and writes only the destination ones (*2); a halo cell computes
+// its new psi and J for its own E but never stores them, only the owner
+// stores a cell's E, H, psi and J, and every cell has exactly one owner
+// (the plan tiles the grid). The caller swaps the two buffer sets.
+//
+// The design for the H100. Each choice against its alternative in one
+// call of scripts/ds_variants.py (ms of the pass at 256^3 / 128^3 on the
+// precision example's state; NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// as built 1.81 / 0.35; the first design (16 x 32-thread blocks, two an
+// SM, tiles cut band by band, 8-plane segments) 2.10 / 0.43.
+// 1. One pass: E and H in one march beat two launches a section (E, then
+//    H reading the new E back: 2.38 / 0.47 against the first design's
+//    2.10 / 0.43; that variant's source is not kept).
+// 2. Occupancy: 32 x 32-thread blocks (30 x 30 owned), one an SM at 64
+//    registers without spills (16 x 32 two an SM 1.89 / 0.37, one an SM
+//    at 83-96 registers 2.29 / 0.46; 8 x 32 four an SM 1.98 / 0.40; 8 x
+//    64 two an SM 2.32 / 0.47; 16 x 64 one an SM 2.27 / 0.45). The old E
+//    is a ring slot only its own thread reads, so it needs PIPE + 1
+//    planes; old fields in flight two planes ahead do not fit a 32 x 32
+//    block's shared memory (16 x 32, one an SM: 2.33 / 0.47).
+// 3. One barrier a plane (see the march); the three components' chains
+//    of a cell are computed stage by stage (curl sums, records, J,
+//    coefficients) so the compiler can interleave them.
+// 4. Sections: the items whose computed cells touch a CPML slab run the
+//    edge kernel (the slab path compiled in), the others the inner
+//    kernel (every item in the edge kernel: 1.89 / 0.35); the inner
+//    kernel may start on the SMs the edge kernel leaves free
+//    (programmatic dependent launch: the two write disjoint cells and
+//    read only the source buffers and the line; without: 1.93 / 0.43).
+//    Coefficient grids and Drude J are compiled out of the calls that
+//    have none.
+// 5. Each axis cut whole into near-equal tiles (cut band by band, the
+//    band tiles 8-9 cells wide: 2.25 / 0.49), over x segments of 16
+//    planes where that gives every SM four items, else 10 (10 at 256^3:
+//    1.84; 16 at 128^3: 0.45; 6, 8, 12: 1.94 / 0.35, 1.89 / 0.37, 1.83
+//    / 0.37); tiles up to 30 cells wide anywhere along z (24 wide at
+//    multiples of 8, whole sectors: 2.09 / 0.40).
+// 6. Records cost nothing where they are absent: each family's record
+//    table lives in shared memory with per-component and x-normal bit
+//    masks; a column holds the bits of the y- and z-normal records whose
+//    plane holds it, a plane the bits of its x-normal records, and a
+//    cell adds the records of those bits in table order.
+// 7. Index math is 32-bit inside a plane and a psi stack, on 64-bit plane
+//    and component bases.
+//
+// What bounds it on the card: a step must move E and H once each (96
+// B/cell) plus the psi slabs, and do ~1,000 f32 operations a cell for
+// both families, which --fmad=false and the explicitly rounded
+// intrinsics issue at the card's non-FMA rate (~33.5 T op/s on an H100
+// SXM): the bytes' time and the operations' time are about equal (0.56
+// and 0.58 ms at 256^3). The pass reaches 32% of that. Timing-only
+// builds (source patches of scripts/ds_variants.py, 10-plane segments)
+// show where the rest goes: the march's loads and stores alone take
+// 1.19 ms, of which the stores of the new E and H (rows of up to 30
+// cells, 12 of them a cell column and plane) 0.85 and the loads 0.40;
+// barriers and ring traffic alone 0.07; the arithmetic adds 0.65 on
+// top. Stores marked evict-first changed nothing in the first design
+// (2.10; not kept); the FMA product (FMA_PROD) takes 1.64 / 0.32 but
+// differs from Dekker's product in the low word where the split's
+// partial products underflow, so it stays a variant.
+//
+// Build knobs (-D): BY, BZ (threads of a block, halo included), PIPE,
+// INNER_BLOCKS, EDGE_BLOCKS, OVERLAP, FMA_PROD. The timing-only builds
+// are source patches of scripts/ds_variants.py, not knobs of this file.
+//
+// Every entry returns cudaGetLastError() (or the first error) so the
 // caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_REC 16  // mirrors fdtd3d_torch/ops/packed_ds.py
+#define MAX_REC 16      // records per family; mirrors ops/packed_ds.py
+#define PLAN_COLS 8     // ints a plan row: j0, k0, ny, nz, x0, x1, class, pad
+#define SECTIONS 2      // the edge kernel, then the inner one
+#define MAX_SLAB_SUM 256  // CPML planes a side summed over the axes
+#define LINE_THREADS 1024
+#ifndef BZ
+#define BZ 32  // block extent along z (threadIdx.x), halo included
+#endif
+#ifndef BY
+#define BY 32  // block extent along y (threadIdx.y), halo included
+#endif
+#ifndef PIPE
+#define PIPE 1  // planes of old fields in flight ahead of the march
+#endif
+#ifndef INNER_BLOCKS
+#define INNER_BLOCKS 1  // resident blocks an SM the inner kernel is built for
+#endif
+#ifndef EDGE_BLOCKS
+#define EDGE_BLOCKS 1  // resident blocks an SM the edge kernel is built for
+#endif
+#ifndef OVERLAP
+#define OVERLAP 1  // the inner kernel may start while the edge one ends
+#endif
+#ifndef FMA_PROD
+#define FMA_PROD 0  // 1: two_prod by fma (a measured variant only)
+#endif
+#define NT (BZ * BY)
+#define PL (6 * NT)  // floats of one ring plane: 3 hi words, 3 lo words
+// an H ring slot is refilled PIPE planes ahead, while other threads of
+// the iteration before may still read the planes i-1 and i-2; an old-E
+// slot is read only by the thread that loads it, which has used its
+// plane before it refills the slot
+#define RING ((PIPE + 3) <= 4 ? 4 : 8)
+#define ERING (PIPE + 1)
+#if PIPE < 1 || PIPE > 5
+#error "PIPE must lie in [1, 5]"
+#endif
 
-struct Pair {
+struct PairCoef {
   const float* hi;  // (n1, n2, n3) grids, or nullptr for the scalar pair
   const float* lo;
   float vh, vl;
@@ -62,32 +193,56 @@ struct Coef {
 };
 
 struct Rec {
-  long long off;  // offset of the plane term in `terms` (TFSF records)
-  int comp;       // component index within the family
-  int axis;       // normal axis of the plane
-  int plane;      // index of the plane along `axis`
-  int point;      // 1: the point source at (plane, pj, pk), pair (vh, vl)
-  int pj, pk;
-  float vh, vl;
+  int off;    // offset of the record's plane cells in the geometry
+  int comp;   // component index within the family
+  int axis;   // normal axis of the plane
+  int plane;  // index of the plane along `axis`
+  int point;  // 1: the point source at (plane, pj, pk), pair (pt_h, pt_l)
+  int pad;
+};
+
+struct Family {
+  PairCoef a[3];          // ca (E) / da (H)
+  PairCoef b[3];          // cb (E) / db (H)
+  const float* prof[3];   // per axis a: (6, 2 m[a]) b, c, ik hi then lo
+  const float* line_h;    // the line half the records sample: Hinc before
+  const float* line_l;    // the advance (E), Einc after it (H)
+  Rec rec[MAX_REC];
+  int n_rec;
 };
 
 struct Params {
-  float* F;              // family being updated, (6, n1, n2, n3)
-  const float* S;        // curl source family, (6, n1, n2, n3)
-  float* J;              // Drude J (3, n1, n2, n3) or nullptr (E only)
-  float* psi[3];         // per axis a: (4, n with dim a = 2 m[a]) or null
-  const float* prof[3];  // per axis a: (6, 2 m[a]) b, c, ik hi then lo
-  const float* terms;    // (2, total) record plane terms, hi then lo
+  const float* E0;        // source stacks (6, n1, n2, n3), read only
+  const float* H0;
+  const float* J0;        // Drude J (3, n1, n2, n3) or nullptr
+  float* E2;              // destination stacks, written only
+  float* H2;
+  float* J2;
+  const float* psE0[3];   // per axis a: (4, n with dim a = 2 m[a]) or null
+  const float* psH0[3];
+  float* psE2[3];
+  float* psH2[3];
+  const float* geo;       // (7, total): w, ow, scale pairs, gate
+  const int* geo_i0;      // (total,): interpolation index into the half
   long long total;
-  int m[3];              // slab planes per side, 0 = no CPML on the axis
-  Pair a[3];             // ca (E) / da (H)
-  Pair b[3];             // cb (E) / db (H)
-  Coef kj[3];            // Drude, E only
+  const int* plan;        // (items, PLAN_COLS) work items, by section
+  Family fe, fh;
+  Coef kj[3];             // Drude, E only
   Coef bj[3];
-  Rec rec[MAX_REC];
-  int n_rec;
+  int m[3];               // slab planes per side, 0 = no CPML on the axis
+  int pj, pk;             // the point source's column
   int n1, n2, n3;
-  float iv_h, iv_l;      // 1/dx as a pair
+  int n_item[SECTIONS];   // items of each section, in launch order
+  float iv_h, iv_l;       // 1/dx as a pair
+  float pt_h, pt_l;       // the point source's pair this step
+};
+
+struct Line {
+  const float* src[4];    // Einc, Einc_lo, Hinc, Hinc_lo at the step's start
+  float* dst[4];          // the advanced line (another buffer)
+  const float* co[8];     // ae, ae_lo, be, be_lo, ah, ah_lo, bh, bh_lo
+  int n;
+  float sh, sl;           // the hard source's pair at cell 0
 };
 
 // ---------------------------------------------------------------------
@@ -117,6 +272,9 @@ __device__ __forceinline__ void split(float a, float& hi, float& lo) {
 __device__ __forceinline__ void two_prod(float a, float b, float& p,
                                          float& e) {
   p = __fmul_rn(a, b);
+#if FMA_PROD
+  e = __fmaf_rn(a, b, -p);
+#else
   float ah, al, bh, bl;
   split(a, ah, al);
   split(b, bh, bl);
@@ -124,6 +282,7 @@ __device__ __forceinline__ void two_prod(float a, float b, float& p,
                                     __fmul_rn(ah, bl)),
                           __fmul_rn(al, bh)),
                 __fmul_rn(al, bl));
+#endif
 }
 
 // (ah, al) + (bh, bl), renormalised with the full two_sum
@@ -168,7 +327,46 @@ __device__ __forceinline__ void ds_diff(float fh, float fl, float gh,
 }
 
 // ---------------------------------------------------------------------
-// the kernel
+// the incident line (one block)
+// ---------------------------------------------------------------------
+
+// Einc' then Hinc' into the other buffer: ops/tfsf.py's
+// _advance_einc_ds and _advance_hinc_ds, op for op (a PEC ghost beyond
+// each end of the line).
+__global__ void __launch_bounds__(LINE_THREADS) ds_line(const Line L) {
+  const int n = L.n;
+  const float *eh = L.src[0], *el = L.src[1];
+  const float *hh = L.src[2], *hl = L.src[3];
+  float *ne_h = L.dst[0], *ne_l = L.dst[1];
+  for (int i = threadIdx.x; i < n; i += LINE_THREADS) {
+    const float gh = i > 0 ? hh[i - 1] : 0.f;
+    const float gl = i > 0 ? hl[i - 1] : 0.f;
+    float dh, de, t1h, t1l, t2h, t2l, vh, vl;
+    two_diff(hh[i], gh, dh, de);
+    two_sum(dh, __fadd_rn(de, __fsub_rn(hl[i], gl)), dh, de);
+    mul_ff(eh[i], el[i], L.co[0][i], L.co[1][i], t1h, t1l);
+    mul_ff(dh, de, L.co[2][i], L.co[3][i], t2h, t2l);
+    add_ff(t1h, t1l, -t2h, -t2l, vh, vl);
+    ne_h[i] = i == 0 ? L.sh : vh;
+    ne_l[i] = i == 0 ? L.sl : vl;
+  }
+  __syncthreads();  // the new Einc, written by other threads, is read below
+  for (int i = threadIdx.x; i < n; i += LINE_THREADS) {
+    const float gh = i < n - 1 ? ne_h[i + 1] : 0.f;
+    const float gl = i < n - 1 ? ne_l[i + 1] : 0.f;
+    float dh, de, t1h, t1l, t2h, t2l, vh, vl;
+    two_diff(gh, ne_h[i], dh, de);
+    two_sum(dh, __fadd_rn(de, __fsub_rn(gl, ne_l[i])), dh, de);
+    mul_ff(hh[i], hl[i], L.co[4][i], L.co[5][i], t1h, t1l);
+    mul_ff(dh, de, L.co[6][i], L.co[7][i], t2h, t2l);
+    add_ff(t1h, t1l, -t2h, -t2l, vh, vl);
+    L.dst[2][i] = vh;
+    L.dst[3][i] = vl;
+  }
+}
+
+// ---------------------------------------------------------------------
+// the pass
 // ---------------------------------------------------------------------
 
 // CURL_TERMS of fdtd3d_tpu/layout.py: component c couples
@@ -181,172 +379,540 @@ __device__ __forceinline__ constexpr int term_comp(int c, int t) {
   return (c + 2 - t) % 3;
 }
 
-__device__ __forceinline__ void pair_coef(const Pair& c, int64_t cell,
+// A coefficient pair at a cell: a grid's words, or (GRID = false: no
+// grid in the call) the scalar pair.
+template <bool GRID>
+__device__ __forceinline__ void pair_coef(const PairCoef& c, int64_t cell,
                                           float& h, float& l) {
-  if (c.hi) {
-    h = c.hi[cell];
-    l = c.lo[cell];
-  } else {
-    h = c.vh;
-    l = c.vl;
-  }
+  h = GRID && c.hi ? c.hi[cell] : c.vh;
+  l = GRID && c.hi ? c.lo[cell] : c.vl;
 }
 
 __device__ __forceinline__ float coef(const Coef& c, int64_t cell) {
   return c.grid ? c.grid[cell] : c.val;
 }
 
+// Plane of index ia inside the compact 2m-plane slab stack, or -1.
+__device__ __forceinline__ int slab_plane(int ia, int n, int m) {
+  return m > 0 ? (ia < m ? ia : (ia >= n - m ? ia - (n - 2 * m) : -1))
+               : -1;
+}
+
 // Offset of cell (i, j, k) in the psi stack of axis a, row `row`, at
-// slab plane q (the index along axis a inside the compact 2m planes).
-__device__ __forceinline__ int64_t psi_offset(int a, int row, int q, int i,
-                                              int j, int k, int64_t n1,
-                                              int64_t n2, int64_t n3,
-                                              int64_t m2) {
+// slab plane q (a stack holds fewer than 2^31 values: the wrapper
+// checks).
+__device__ __forceinline__ int psi_offset(int a, int row, int q, int i,
+                                          int j, int k, int n1, int n2,
+                                          int n3, int m2) {
   if (a == 0) return ((row * m2 + q) * n2 + j) * n3 + k;
   if (a == 1) return ((row * n1 + i) * m2 + q) * n3 + k;
   return ((row * n1 + i) * n2 + j) * m2 + q;
 }
 
-// Index of cell (i, j, k) inside the plane term of a record whose
-// normal is `axis` (C order over the two other axes).
-__device__ __forceinline__ int64_t plane_index(int axis, int i, int j,
-                                               int k, int64_t n2,
-                                               int64_t n3) {
+// Index of cell (i, j, k) inside the plane of a record whose normal is
+// `axis` (C order over the two other axes).
+__device__ __forceinline__ int plane_index(int axis, int i, int j, int k,
+                                           int n2, int n3) {
   if (axis == 0) return j * n3 + k;
   if (axis == 1) return i * n3 + k;
   return i * n2 + j;
 }
 
-// One family update. BACKWARD = true: E from backward differences of H
-// (with Drude J and PEC walls); false: H from forward differences of E.
-template <bool BACKWARD>
-__global__ void __launch_bounds__(128) family_update(const Params p) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  const int i = blockIdx.z;
-  if (k >= p.n3) return;
-  const int64_t n1 = p.n1, n2 = p.n2, n3 = p.n3;
-  const int64_t vol = n1 * n2 * n3;
-  const int64_t cell = (i * n2 + j) * n3 + k;
-  const int64_t stride[3] = {n2 * n3, n3, 1};
-  const int idx[3] = {i, j, k};
-  const int n[3] = {p.n1, p.n2, p.n3};
+// The record term at geometry cell q from the line half (lh, ll):
+// ops/packed_ds.py::record_terms for one cell, op for op.
+__device__ __forceinline__ void record_term(const Params& p,
+                                            const float* lh,
+                                            const float* ll, int q,
+                                            float& th, float& tl) {
+  const int i0 = p.geo_i0[q];
+  const int64_t T = p.total;
+  const float* g = p.geo + q;
+  float ah, al, bh, bl, vh, vl;
+  mul_ff(lh[i0], ll[i0], g[2 * T], g[3 * T], ah, al);          // v0 (1-w)
+  mul_ff(lh[i0 + 1], ll[i0 + 1], g[0], g[T], bh, bl);          // v1 w
+  add_ff(ah, al, bh, bl, vh, vl);
+  mul_ff(vh, vl, g[4 * T], g[5 * T], th, tl);                  // * scale
+  const float gate = g[6 * T];
+  th = __fmul_rn(th, gate);
+  tl = __fmul_rn(tl, gate);
+}
 
+// One family's record table in shared memory (the kernel copies it from
+// the parameter block once: indexing the parameter block with a runtime
+// index is slow), with the bits of each component's records, of the
+// x-normal TFSF records and of the point source's record.
+struct RecTable {
+  int comp[MAX_REC];
+  int axis[MAX_REC];
+  int plane[MAX_REC];
+  int off[MAX_REC];
+  unsigned cbits[3];
+  unsigned xbits;
+  unsigned pbit;
+};
+
+__device__ __forceinline__ void copy_table(const Family& f, int tid,
+                                           RecTable& rt) {
+  if (tid < f.n_rec) {
+    rt.comp[tid] = f.rec[tid].comp;
+    rt.axis[tid] = f.rec[tid].axis;
+    rt.plane[tid] = f.rec[tid].plane;
+    rt.off[tid] = f.rec[tid].off;
+  }
+  if (tid == 0) {
+    unsigned cb0 = 0u, cb1 = 0u, cb2 = 0u, xb = 0u, pb = 0u;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float ah = 0.f, al = 0.f;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int a = term_axis(c, t);
-      const float* sh = p.S + term_comp(c, t) * vol + cell;
-      const float* sl = sh + 3 * vol;
-      float th, tl;
-      if (BACKWARD) {
-        const bool in = idx[a] > 0;
-        const float gh = in ? sh[-stride[a]] : 0.f;
-        const float gl = in ? sl[-stride[a]] : 0.f;
-        ds_diff(sh[0], sl[0], gh, gl, p.iv_h, p.iv_l, th, tl);
-      } else {
-        const bool in = idx[a] < n[a] - 1;
-        const float gh = in ? sh[stride[a]] : 0.f;
-        const float gl = in ? sl[stride[a]] : 0.f;
-        ds_diff(gh, gl, sh[0], sl[0], p.iv_h, p.iv_l, th, tl);
-      }
-      const int m = p.m[a];
-      if (m > 0) {
-        const int ia = idx[a];
-        const int q = ia < m ? ia : (ia >= n[a] - m ? ia - (n[a] - 2 * m)
-                                                    : -1);
-        if (q >= 0) {
-          const int row = c < a ? c : c - 1;
-          const int64_t m2 = 2 * m;
-          const int64_t oh = psi_offset(a, row, q, i, j, k, n1, n2, n3, m2);
-          const int64_t ol =
-              psi_offset(a, row + 2, q, i, j, k, n1, n2, n3, m2);
-          const float* pr = p.prof[a];
-          float x1h, x1l, x2h, x2l, pnh, pnl, yh, yl;
-          mul_ff(pr[q], pr[3 * m2 + q], p.psi[a][oh], p.psi[a][ol], x1h,
-                 x1l);
-          mul_ff(pr[m2 + q], pr[4 * m2 + q], th, tl, x2h, x2l);
-          add_ff(x1h, x1l, x2h, x2l, pnh, pnl);
-          p.psi[a][oh] = pnh;
-          p.psi[a][ol] = pnl;
-          mul_ff(pr[2 * m2 + q], pr[5 * m2 + q], th, tl, yh, yl);
-          add_ff(yh, yl, pnh, pnl, th, tl);
+    for (int r = 0; r < MAX_REC; ++r) {
+      if (r < f.n_rec) {
+        const unsigned bit = 1u << r;
+        const int c = f.rec[r].comp;
+        cb0 |= c == 0 ? bit : 0u;
+        cb1 |= c == 1 ? bit : 0u;
+        cb2 |= c == 2 ? bit : 0u;
+        if (f.rec[r].point) {
+          pb |= bit;
+        } else if (f.rec[r].axis == 0) {
+          xb |= bit;
         }
       }
-      if (t == 1) {
-        th = -th;
-        tl = -tl;
-      }
-      if (t == 0) {
-        ah = th;
-        al = tl;
-      } else {
-        add_ff(ah, al, th, tl, ah, al);
-      }
     }
-    // source records, in table order, at their planes
-    for (int r = 0; r < p.n_rec; ++r) {
-      const Rec& rc = p.rec[r];
-      if (rc.comp != c || idx[rc.axis] != rc.plane) continue;
-      if (rc.point) {
-        if (j == rc.pj && k == rc.pk) add_ff(ah, al, rc.vh, rc.vl, ah, al);
-      } else {
-        const float* tp =
-            p.terms + rc.off + plane_index(rc.axis, i, j, k, n2, n3);
-        add_ff(ah, al, tp[0], tp[p.total], ah, al);
-      }
+    rt.cbits[0] = cb0;
+    rt.cbits[1] = cb1;
+    rt.cbits[2] = cb2;
+    rt.xbits = xb;
+    rt.pbit = pb;
+  }
+}
+
+// The y- and z-normal TFSF records whose plane holds column (j, k).
+__device__ __forceinline__ unsigned column_bits(const RecTable& rt,
+                                                int n_rec, int j, int k) {
+  unsigned bits = 0u;
+  for (int r = 0; r < n_rec; ++r) {
+    const int a = rt.axis[r];
+    if (!((rt.pbit >> r) & 1u) && a != 0 &&
+        (a == 1 ? j : k) == rt.plane[r]) {
+      bits |= 1u << r;
     }
-    float* fh = p.F + c * vol + cell;
-    float* fl = fh + 3 * vol;
-    const float oh = *fh, ol = *fl;
+  }
+  return bits;
+}
+
+// The x-normal records on plane x (the same for every thread); the point
+// source's record when (x, column) is its cell.
+__device__ __forceinline__ unsigned plane_bits(const RecTable& rt, int x,
+                                               bool pcol) {
+  unsigned bits = 0u;
+  for (unsigned z = rt.xbits | rt.pbit; z; z &= z - 1) {
+    const int r = __ffs(z) - 1;
+    const bool point = (rt.pbit >> r) & 1u;
+    bits |= rt.plane[r] == x && (pcol || !point) ? 1u << r : 0u;
+  }
+  return bits;
+}
+
+// acc plus the records `bits` of component c at cell (x, j, k), in table
+// order: a TFSF record's term from the line half (lh, ll), the point
+// source's pair.
+__device__ __forceinline__ void add_records(const Params& p,
+                                            const RecTable& rt,
+                                            unsigned bits, int c,
+                                            const float* lh,
+                                            const float* ll, int x, int j,
+                                            int k, float& ah, float& al) {
+  for (unsigned m = bits & rt.cbits[c]; m; m &= m - 1) {
+    const int r = __ffs(m) - 1;
+    float th, tl;
+    if ((rt.pbit >> r) & 1u) {
+      th = p.pt_h;
+      tl = p.pt_l;
+    } else {
+      record_term(p, lh, ll,
+                  rt.off[r] + plane_index(rt.axis[r], x, j, k, p.n2, p.n3),
+                  th, tl);
+    }
+    add_ff(ah, al, th, tl, ah, al);
+  }
+}
+
+// Offset of family f's profile rows of axis a in the shared profiles:
+// per family and axis with a slab, rows b, c, ik hi then lo of 2 m[a]
+// values.
+__device__ __forceinline__ int prof_offset(const Params& p, int f, int a) {
+  const int msum = p.m[0] + p.m[1] + p.m[2];
+  return 12 * (f * msum + (a > 0 ? p.m[0] : 0) + (a > 1 ? p.m[1] : 0));
+}
+
+// Facts of a thread's column, fixed over the march.
+struct Col {
+  int j, k;
+  int qy, qz;     // slab plane of j and of k, -1 outside (or no CPML)
+  unsigned wall;  // E components that a y or z PEC wall zeroes (bit c)
+  bool ym, zm;    // j > 0, k > 0: the backward neighbour is in the domain
+  bool yp, zp;    // j < n2 - 1, k < n3 - 1: the forward one is
+};
+
+// The slab term of curl term (c, a) at slab plane q: psi' = b psi + c d
+// (stored into `ps2` when `store`), d' = ik d + psi'.
+__device__ __forceinline__ void slab_term(const Params& p, const float* pr,
+                                          const float* ps0, float* ps2,
+                                          int a, int c, int q, int x,
+                                          const Col& col, bool store,
+                                          float& th, float& tl) {
+  const int m2 = 2 * p.m[a];
+  const int row = c < a ? c : c - 1;
+  const int oh = psi_offset(a, row, q, x, col.j, col.k, p.n1, p.n2, p.n3,
+                            m2);
+  const int ol = psi_offset(a, row + 2, q, x, col.j, col.k, p.n1, p.n2,
+                            p.n3, m2);
+  float x1h, x1l, x2h, x2l, pnh, pnl, yh, yl;
+  mul_ff(pr[q], pr[3 * m2 + q], ps0[oh], ps0[ol], x1h, x1l);
+  mul_ff(pr[m2 + q], pr[4 * m2 + q], th, tl, x2h, x2l);
+  add_ff(x1h, x1l, x2h, x2l, pnh, pnl);
+  if (store) {
+    ps2[oh] = pnh;
+    ps2[ol] = pnl;
+  }
+  mul_ff(pr[2 * m2 + q], pr[5 * m2 + q], th, tl, yh, yl);
+  add_ff(yh, yl, pnh, pnl, th, tl);
+}
+
+// Curl term t of component c at column `at` of the ring planes, plane x:
+// the difference of the source family's ring planes `here` (plane x) and
+// its neighbour along the term's axis (`there`: plane x - 1 for E, x + 1
+// for H; a neighbouring column of `here` along y or z), the slab CPML
+// of the axis where the cell lies in its slab (AX), and the sign. The
+// neighbour's address lies in the ring for every thread that computes,
+// so it is loaded unconditionally and the PEC ghost (0) selected: the
+// three components' chains stay one basic block the compiler can
+// interleave.
+template <bool BACKWARD, int AX>
+__device__ __forceinline__ void curl_term(const Params& p,
+                                          const float* prof,
+                                          const float* here,
+                                          const float* there, bool thr,
+                                          int at, int x, int qx,
+                                          const Col& col, bool store, int c,
+                                          int t, float& th, float& tl) {
+  const int a = term_axis(c, t);
+  const int d = term_comp(c, t);
+  const float* f = here + d * NT + at;
+  const int nb = a == 1 ? BZ : 1;
+  const float* g =
+      a == 0 ? there + d * NT + at : f + (BACKWARD ? -nb : nb);
+  const bool in = a == 0 ? thr
+                         : (BACKWARD ? (a == 1 ? col.ym : col.zm)
+                                     : (a == 1 ? col.yp : col.zp));
+  const float gh = in ? g[0] : 0.f;
+  const float gl = in ? g[3 * NT] : 0.f;
+  if (BACKWARD) {
+    ds_diff(f[0], f[3 * NT], gh, gl, p.iv_h, p.iv_l, th, tl);
+  } else {
+    ds_diff(gh, gl, f[0], f[3 * NT], p.iv_h, p.iv_l, th, tl);
+  }
+  if ((AX >> a) & 1) {
+    const int q = a == 0 ? qx : (a == 1 ? col.qy : col.qz);
+    if (q >= 0) {
+      slab_term(p, prof + prof_offset(p, BACKWARD ? 0 : 1, a),
+                BACKWARD ? p.psE0[a] : p.psH0[a],
+                BACKWARD ? p.psE2[a] : p.psH2[a], a, c, q, x, col, store, th,
+                tl);
+    }
+  }
+}
+
+// One cell of the new E (BACKWARD) or H at column `at` of the ring
+// planes, plane x, from the source family's ring planes `here` (plane x)
+// and `there` (x - 1 for E, x + 1 for H); `old` the family's old pair
+// words, `thr` whether `there` exists, `store` whether the cell is the
+// thread's own (its psi and J are written). AX: the axes whose slab
+// path is compiled in (bit a; 0 in the inner kernel); GRID = false
+// compiles the coefficient grids and Drude J out. Each stage runs for
+// the three components before the next (curl sums, records, Drude J,
+// coefficient products, walls): every component sees the reference's
+// operations in the reference's order, and the three independent chains
+// give the compiler instructions to interleave.
+template <bool BACKWARD, int AX, bool GRID>
+__device__ __forceinline__ void update(const Params& p, const Family& f,
+                                       const RecTable& rt,
+                                       const float* prof, unsigned bits,
+                                       const float* here, const float* there,
+                                       bool thr, int at, int x, int qx,
+                                       const Col& col, unsigned wall,
+                                       int64_t cell, const float (&old)[6],
+                                       bool store, float (&out)[6]) {
+  float ah[3], al[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float th0, tl0, th1, tl1;
+    curl_term<BACKWARD, AX>(p, prof, here, there, thr, at, x, qx, col,
+                            store, c, 0, th0, tl0);
+    curl_term<BACKWARD, AX>(p, prof, here, there, thr, at, x, qx, col,
+                            store, c, 1, th1, tl1);
+    add_ff(th0, tl0, -th1, -tl1, ah[c], al[c]);
+  }
+  if (bits) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      add_records(p, rt, bits, c, f.line_h, f.line_l, x, col.j, col.k,
+                  ah[c], al[c]);
+    }
+  }
+  if (BACKWARD && GRID && p.J0) {
+    const int64_t vol = (int64_t)p.n1 * p.n2 * p.n3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float jn =
+          __fadd_rn(__fmul_rn(coef(p.kj[c], cell), p.J0[c * vol + cell]),
+                    __fmul_rn(coef(p.bj[c], cell), old[c]));
+      if (store) p.J2[c * vol + cell] = jn;
+      add_f(ah[c], al[c], -jn, ah[c], al[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
     float ch, cl, bh, bl, t1h, t1l, t2h, t2l, vh, vl;
-    pair_coef(p.a[c], cell, ch, cl);
-    pair_coef(p.b[c], cell, bh, bl);
+    pair_coef<GRID>(f.a[c], cell, ch, cl);
+    pair_coef<GRID>(f.b[c], cell, bh, bl);
+    mul_ff(old[c], old[3 + c], ch, cl, t1h, t1l);
+    mul_ff(ah[c], al[c], bh, bl, t2h, t2l);
     if (BACKWARD) {
-      if (p.J) {
-        float* jp = p.J + c * vol + cell;
-        const float jn = __fadd_rn(__fmul_rn(coef(p.kj[c], cell), *jp),
-                                   __fmul_rn(coef(p.bj[c], cell), oh));
-        *jp = jn;
-        add_f(ah, al, -jn, ah, al);
-      }
-      mul_ff(oh, ol, ch, cl, t1h, t1l);
-      mul_ff(ah, al, bh, bl, t2h, t2l);
       add_ff(t1h, t1l, t2h, t2l, vh, vl);
       // PEC walls: tangential E vanishes on the walls of the two axes
       // other than its own (an exact 0/1 factor, as the reference's)
-#pragma unroll
-      for (int w = 0; w < 3; ++w) {
-        if (w != c && (idx[w] == 0 || idx[w] == n[w] - 1)) {
-          vh = __fmul_rn(vh, 0.f);
-          vl = __fmul_rn(vl, 0.f);
-        }
-      }
+      const bool zero = (wall >> c) & 1u;
+      vh = zero ? __fmul_rn(vh, 0.f) : vh;
+      vl = zero ? __fmul_rn(vl, 0.f) : vl;
     } else {
-      mul_ff(oh, ol, ch, cl, t1h, t1l);
-      mul_ff(ah, al, bh, bl, t2h, t2l);
       add_ff(t1h, t1l, -t2h, -t2l, vh, vl);
     }
-    *fh = vh;
-    *fl = vl;
+    out[c] = vh;
+    out[3 + c] = vl;
   }
 }
 
-static int launch(const Params* p, void* stream, bool backward) {
-  const dim3 block(128);
-  const dim3 grid((p->n3 + 127) / 128, p->n2, p->n1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (backward) {
-    family_update<true><<<grid, block, 0, s>>>(*p);
-  } else {
-    family_update<false><<<grid, block, 0, s>>>(*p);
-  }
-  return static_cast<int>(cudaGetLastError());
+// Asynchronous 4-byte copy global -> shared, and its commit groups.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The EFT probe: the kernel's own two_sum and two_prod on n pairs.
+// One work item: the march over its x segment. AX: the axes whose CPML
+// slab path is compiled in (7 in the edge kernel, 0 in the inner one,
+// which the plan gives only items whose computed cells touch no slab).
+// Thread (ly, lz) takes window cell (j0 - 1 + ly, k0 - 1 + lz): it loads
+// the cell's old H if the cell lies in the window, computes E on the
+// owned cells and the +y/+z halo row and column, and H on the owned
+// cells. GRID as in update.
+template <int AX, bool GRID>
+__device__ __forceinline__ void march(const Params& p, int first) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ RecTable tab[2];
+  float* hr = ring;               // old H: RING planes
+  float* er = hr + RING * PL;     // old E: ERING planes
+  float* nr = er + ERING * PL;    // new E: planes i, i-1
+  float* prof = nr + 2 * PL;      // CPML profiles (edge kernel)
+
+#if OVERLAP
+  // the next section's kernel reads no output of this one: it may start
+  // on the SMs this kernel's last blocks leave free
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+  const int tid = threadIdx.y * BZ + threadIdx.x;
+  const int ly = threadIdx.y, lz = threadIdx.x;
+  const int* it = p.plan + PLAN_COLS * (first + (int)blockIdx.x);
+  const int j0 = it[0], k0 = it[1], ny = it[2], nz = it[3];
+  const int x0 = it[4], x1 = it[5];
+  const int wy = ny + 2, wz = nz + 2;  // the tile's window
+  const int n1 = p.n1, n2 = p.n2, n3 = p.n3;
+  Col col;
+  col.j = j0 - 1 + ly;
+  col.k = k0 - 1 + lz;
+  const int j = col.j, k = col.k;
+  const bool inside =
+      ly < wy && lz < wz && j >= 0 && j < n2 && k >= 0 && k < n3;
+  const bool halo_e = inside && ly >= 1 && lz >= 1;  // the new E is read
+  const bool own = halo_e && ly < wy - 1 && lz < wz - 1;  // owns its cells
+  const int cidx = inside ? j * n3 + k : 0;
+  const int64_t pstride = (int64_t)n2 * n3;
+  const int64_t vol = (int64_t)n1 * pstride;
+  col.qy = slab_plane(j, n2, p.m[1]);
+  col.qz = slab_plane(k, n3, p.m[2]);
+  const bool y_wall = j == 0 || j == n2 - 1, z_wall = k == 0 || k == n3 - 1;
+  col.wall = (y_wall || z_wall ? 1u : 0u) | (z_wall ? 2u : 0u) |
+             (y_wall ? 4u : 0u);
+  col.ym = j > 0;
+  col.zm = k > 0;
+  col.yp = j < n2 - 1;
+  col.zp = k < n3 - 1;
+  const bool pcol = j == p.pj && k == p.pk;
+  // planes of old fields read: < lim (E and H up to x1, the halo plane)
+  const int lim = min(n1, x1 + 1);
+
+  copy_table(p.fe, tid, tab[0]);
+  copy_table(p.fh, tid, tab[1]);
+  if (AX != 0) {
+    for (int f = 0; f < 2; ++f) {
+      for (int a = 0; a < 3; ++a) {
+        const float* src = (f == 0 ? p.fe : p.fh).prof[a];
+        float* dst = prof + prof_offset(p, f, a);
+        for (int t = tid; t < 12 * p.m[a]; t += NT) dst[t] = src[t];
+      }
+    }
+  }
+  __syncthreads();
+  const unsigned cb_e = column_bits(tab[0], p.fe.n_rec, j, k);
+  const unsigned cb_h = column_bits(tab[1], p.fh.n_rec, j, k);
+
+  // old H of plane x for the window, and (e) old E for the columns that
+  // compute E (thread-private slots: a thread reads only what it
+  // loaded, and has used a slot's plane before it refills the slot); one
+  // commit group a plane
+  auto load_plane = [&](int x, bool e) {
+    if (x >= lim || !inside) return;
+    const int64_t off = (int64_t)x * pstride + cidx;
+    const int s = (x & (RING - 1)) * PL + tid;
+#pragma unroll
+    for (int w = 0; w < 6; ++w) {
+      cp_async4(hr + s + w * NT, p.H0 + w * vol + off);
+    }
+    if (e && halo_e) {
+      const int se = (x % ERING) * PL + tid;
+#pragma unroll
+      for (int w = 0; w < 6; ++w) {
+        cp_async4(er + se + w * NT, p.E0 + w * vol + off);
+      }
+    }
+  };
+  if (x0 > 0) load_plane(x0 - 1, false);  // H, read by E(x0)
+#pragma unroll
+  for (int q = 0; q < PIPE; ++q) {
+    load_plane(x0 + q, true);
+    cp_commit();
+  }
+
+  for (int i = x0; i <= x1; ++i) {
+    load_plane(i + PIPE, true);
+    cp_commit();
+    cp_wait<PIPE>();
+    __syncthreads();
+    const int r_i = (i & (RING - 1)) * PL;
+    const int r_m = ((i - 1) & (RING - 1)) * PL;
+    const int e_i = (i % ERING) * PL;
+    const int s_i = (i & 1) * PL;
+    const int s_m = ((i + 1) & 1) * PL;
+
+    // phase E(i): the new E on the owned columns and the +y/+z halo
+    if (i < n1 && halo_e) {
+      const int64_t c_at = (int64_t)i * pstride + cidx;
+      const bool store = own && i < x1;
+      float old[6], out[6];
+#pragma unroll
+      for (int w = 0; w < 6; ++w) old[w] = er[e_i + w * NT + tid];
+      const unsigned bits = cb_e | plane_bits(tab[0], i, pcol);
+      const unsigned wall = col.wall | (i == 0 || i == n1 - 1 ? 6u : 0u);
+      update<true, AX, GRID>(p, p.fe, tab[0], prof, bits, hr + r_i, hr + r_m,
+                             i > 0, tid, i, slab_plane(i, n1, p.m[0]), col,
+                             wall, c_at, old, store, out);
+#pragma unroll
+      for (int w = 0; w < 6; ++w) {
+        nr[s_i + w * NT + tid] = out[w];
+        if (store) p.E2[w * vol + c_at] = out[w];
+      }
+    }
+
+    // phase H(i-1): the new H on the owned columns, from the new E of
+    // plane i-1 (this column and its +y, +z neighbours: written in the
+    // iteration before, published by this iteration's barrier) and of
+    // plane i (this column only: written just above by this thread), so
+    // it needs no barrier of its own
+    const int xa = i - 1;
+    if (xa >= x0 && own) {
+      const int64_t c_at = (int64_t)xa * pstride + cidx;
+      float old[6], out[6];
+#pragma unroll
+      for (int w = 0; w < 6; ++w) old[w] = hr[r_m + w * NT + tid];
+      const unsigned bits = cb_h | plane_bits(tab[1], xa, pcol);
+      update<false, AX, GRID>(p, p.fh, tab[1], prof, bits, nr + s_m, nr + s_i,
+                              xa < n1 - 1, tid, xa, slab_plane(xa, n1, p.m[0]),
+                              col, 0u, c_at, old, true, out);
+#pragma unroll
+      for (int w = 0; w < 6; ++w) p.H2[w * vol + c_at] = out[w];
+    }
+  }
+  cp_wait<0>();  // the last groups are empty; none stays in flight
+}
+
+template <int AX, bool GRID, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+    ds_section(const Params p, int first) {
+  march<AX, GRID>(p, first);
+}
+
+// Dynamic shared memory of a block: the old H and E rings, the new E
+// ring, the CPML profiles.
+static int smem_bytes(int msum) {
+  return ((RING + ERING + 2) * PL + 24 * msum) *
+         static_cast<int>(sizeof(float));
+}
+
+typedef void (*Kernel)(const Params, int);
+
+// The plan's sections, in launch order (ops/packed_ds.py::SECTIONS): the
+// items whose computed cells touch a CPML slab, then the others; one
+// launch of each, in a build with the coefficient grids and Drude J (a
+// call that has any) or one without.
+static const Kernel kKernels[2][SECTIONS] = {
+    {ds_section<7, false, EDGE_BLOCKS>, ds_section<0, false, INNER_BLOCKS>},
+    {ds_section<7, true, EDGE_BLOCKS>, ds_section<0, true, INNER_BLOCKS>}};
+
+static int g_smem_most = 0;  // shared memory a block may have (opt-in)
+
+// Lets both kernels take the largest shared memory a call may need and
+// prefer shared memory over L1, once.
+static cudaError_t set_attributes() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  g_smem_most = most;
+  const int want = smem_bytes(MAX_SLAB_SUM);
+  for (int q = 0; q < 2 * SECTIONS; ++q) {
+    const Kernel k = kKernels[q / SECTIONS][q % SECTIONS];
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, k);
+    if (err != cudaSuccess) return err;
+    const int room = most - static_cast<int>(a.sharedSizeBytes);
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               want < room ? want : room);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  done = true;
+  return cudaSuccess;
+}
+
+// The test-only probes: the kernel's own two_sum and two_prod on n
+// pairs; the record term of every geometry cell (E records' cells,
+// which sample fe's line half, before `h_first`, then H records').
 __global__ void eft_probe(const float* a, const float* b, float* s,
                           float* e, float* pr, float* pe, int n) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -355,16 +921,112 @@ __global__ void eft_probe(const float* a, const float* b, float* s,
   two_prod(a[x], b[x], pr[x], pe[x]);
 }
 
+__global__ void terms_probe(const Params p, int h_first, float* out) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= p.total) return;
+  const Family& f = q < h_first ? p.fe : p.fh;
+  float th, tl;
+  record_term(p, f.line_h, f.line_l, q, th, tl);
+  out[q] = th;
+  out[p.total + q] = tl;
+}
+
 extern "C" {
 
 int fdtd_ds_params_size() { return static_cast<int>(sizeof(Params)); }
 
-int fdtd_ds_e_update(const Params* p, void* stream) {
-  return launch(p, stream, true);
+int fdtd_ds_line_size() { return static_cast<int>(sizeof(Line)); }
+
+// The geometry the plan must follow: out = {owned y extent of a tile,
+// owned z extent}.
+int fdtd_ds_tile(int* out) {
+  out[0] = BY - 2;
+  out[1] = BZ - 2;
+  return 0;
 }
 
-int fdtd_ds_h_update(const Params* p, void* stream) {
-  return launch(p, stream, false);
+// Per section kernel (the builds without grids, then those with), four
+// ints: registers a thread, local (spill) bytes a thread, resident blocks
+// an SM at the shared memory of CPML of 8 planes on every axis, static
+// shared bytes.
+int fdtd_ds_occupancy(int* out) {
+  cudaError_t err = set_attributes();
+  for (int q = 0; q < 2 * SECTIONS && err == cudaSuccess; ++q) {
+    const Kernel k = kKernels[q / SECTIONS][q % SECTIONS];
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, k);
+    int blocks = 0;
+    const int smem = smem_bytes(24);
+    if (err == cudaSuccess &&
+        smem + static_cast<int>(a.sharedSizeBytes) <= g_smem_most) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, k, NT, smem);
+    }
+    out[4 * q] = a.numRegs;
+    out[4 * q + 1] = static_cast<int>(a.localSizeBytes);
+    out[4 * q + 2] = blocks;
+    out[4 * q + 3] = static_cast<int>(a.sharedSizeBytes);
+  }
+  return static_cast<int>(err);
+}
+
+int fdtd_ds_line(const Line* l, void* stream) {
+  if (l->n < 2) return static_cast<int>(cudaErrorInvalidValue);
+  ds_line<<<1, LINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*l);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fdtd_ds_pass(const Params* p, void* stream) {
+  cudaError_t err = set_attributes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int msum = p->m[0] + p->m[1] + p->m[2];
+  if (msum > MAX_SLAB_SUM || p->n_item[0] < 0 || p->n_item[1] < 0) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // the builds with grids when any coefficient is a grid or Drude J runs
+  bool grid = p->J0 != nullptr;
+  for (int c = 0; c < 3; ++c) {
+    grid = grid || p->fe.a[c].hi || p->fe.b[c].hi || p->fh.a[c].hi ||
+           p->fh.b[c].hi;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int q = 0; q < SECTIONS; ++q) {  // in the plan's order
+    const int n = p->n_item[q];
+    int first = q == 0 ? 0 : p->n_item[0];
+    if (n > 0) {
+      void* args[] = {const_cast<Params*>(p), &first};
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(n);
+      cfg.blockDim = dim3(BZ, BY);
+      cfg.dynamicSmemBytes = smem_bytes(msum);
+      cfg.stream = s;
+      // the inner kernel may overlap the edge one (programmatic dependent
+      // launch): they write disjoint cells and read only the source
+      // buffers and the line, which the work before the edge kernel
+      // wrote; the call's first kernel waits for all earlier work on the
+      // stream, as every later launch on it waits for both
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr.val.programmaticStreamSerializationAllowed = 1;
+      cfg.attrs = &attr;
+      cfg.numAttrs = OVERLAP && first > 0 ? 1 : 0;
+      err = cudaLaunchKernelExC(
+          &cfg,
+          reinterpret_cast<const void*>(kKernels[grid][q]),
+          args);
+      if (err == cudaSuccess) err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+int fdtd_ds_terms(const Params* p, int h_first, float* out, void* stream) {
+  const int n = static_cast<int>(p->total);
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  terms_probe<<<(n + 255) / 256, 256, 0,
+                static_cast<cudaStream_t>(stream)>>>(*p, h_first, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int fdtd_ds_eft_probe(const float* a, const float* b, float* s, float* e,

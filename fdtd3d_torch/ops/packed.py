@@ -51,7 +51,7 @@ launches (one per launch, whatever the number of lanes).
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -342,6 +342,36 @@ def psi_shape(shape, a: int, m: int, lead=()) -> Tuple[int, ...]:
     ps = [2] + list(shape)
     ps[1 + a] = 2 * m
     return tuple(lead) + tuple(ps)
+
+
+def carry_buffers(carry) -> List[torch.Tensor]:
+    """The buffers an out-of-place pass reads and writes, in a fixed
+    order: E, H, psi, J."""
+    out = [carry["E"], carry["H"]]
+    out += [carry["psE"][a] for a in sorted(carry["psE"])]
+    out += [carry["psH"][a] for a in sorted(carry["psH"])]
+    if "J" in carry:
+        out.append(carry["J"])
+    return out
+
+
+def alloc_like(carry) -> Dict[str, Any]:
+    """A spare set of a carry's pass buffers (E, H, psi, J)."""
+    return {"E": torch.empty_like(carry["E"]),
+            "H": torch.empty_like(carry["H"]),
+            "psE": {a: torch.empty_like(v) for a, v in carry["psE"].items()},
+            "psH": {a: torch.empty_like(v) for a, v in carry["psH"].items()},
+            **({"J": torch.empty_like(carry["J"])} if "J" in carry else {})}
+
+
+def swap_buffers(carry, spare) -> None:
+    """Exchange the pass buffers between the carry and the spare."""
+    for key in ("E", "H", "J"):
+        if key in carry:
+            carry[key], spare[key] = spare[key], carry[key]
+    for fam in ("psE", "psH"):
+        for a in carry[fam]:
+            carry[fam][a], spare[fam][a] = spare[fam][a], carry[fam][a]
 
 
 def _params(F, S, J, psi, fc) -> _Params:

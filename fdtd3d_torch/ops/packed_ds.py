@@ -1,66 +1,88 @@
-"""Packed double-single (float32x2) step: two CUDA launches per step.
+"""Packed double-single (float32x2) step: at most three CUDA launches a
+step, and no PyTorch op between them.
 
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas_packed_ds.py::make_packed_ds_step`` (factory
 :193, kernel :364 with body :429, ``pallas_call`` :936) for unsharded
-3D float32x2 runs, with the hand-written CUDA C++ kernel
-``fdtd3d_torch/csrc/packed_ds.cu`` (``sm_90a``, built by nvcc with
-``--fmad=false`` at first use, bound with ctypes). CUDA C++ rather than
-Triton: every error-free transform needs its exact rounding sequence,
-which the source states op by op with explicitly rounded intrinsics.
+3D float32x2 runs, and the reference step's host part around it (the ds
+incident line and the TFSF record terms), with the hand-written CUDA
+C++ kernels of ``fdtd3d_torch/csrc/packed_ds.cu`` (``sm_90a``, built by
+nvcc with ``--fmad=false`` at first use, bound with ctypes). CUDA C++
+rather than Triton: every error-free transform needs its exact rounding
+sequence, which the source states op by op with explicitly rounded
+intrinsics, and the pass is a marching stencil with shared-memory plane
+rings fed by cp.async.
 
 What one step computes: the reference kernel's arithmetic on hi+lo f32
-pairs. Per E component: the EFT curl of the H pair times 1/dx as a
-pair, the y/z/x slab CPML as pair recursions (term = ik*d + psi'),
-each source record's plane term added into the accumulator pair at its
-plane before the ca/cb pair multiply, Drude J in plain f32, PEC walls;
-then H the same from the fully corrected new E. The source records are
-the reference's: every TFSF face correction whose polarisation
-projection does not vanish, grouped by normal axis, with the point
-source as a pseudo-record at the end of the axis-0 group (E only).
+pairs. The ds incident line advances (Einc with its hard-source pair,
+then Hinc). Per E component: the EFT curl of the H pair times 1/dx as a
+pair, the y/z/x slab CPML as pair recursions (term = ik*d + psi'), each
+source record's plane term added into the accumulator pair at its plane
+before the ca/cb pair multiply, Drude J in plain f32, PEC walls; then H
+the same from the new E. The source records are the reference's: every
+TFSF face correction whose polarisation projection does not vanish,
+grouped by normal axis, with the point source as a pseudo-record at the
+end of the axis-0 group (E only). A record's plane term interpolates
+the line at the record's fixed geometry (``build_term_plan``: index,
+weight pairs, the sign*pol/dx pair, the transverse gate); E records
+sample Hinc before the line's advance, H records Einc after it.
 
-Design. The reference lags H one x-tile behind E in one ordered grid;
-CUDA blocks run in no order, so the step is two launches on the stacked
-layout, ``e_update`` then ``h_update``, each in place (the race argument
-of ``ops/packed.py``). The per-step plane terms (the math of
-``tfsf.record_term_ds``) are thin torch ds ops outside the kernel: the
-geometry (interpolation index, weight pairs, gate, sign*pol/dx pair) is
-fixed per record and computed once in ``prepare``; a step gathers the
-incident-line samples of every record of both families at once and runs
-one batch of ds ops over their concatenated planes. The kernel gets the
-record table (comp, axis, plane, offset) in its parameter block and a
-device pointer to the stacked terms; the point source's pair rides in
-the table as two floats.
+The CUDA step (kind ``packed_ds_cuda``), in launch order:
 
-What bounds it on the card: memory bytes. A launch reads the other
-family's 6 pair volumes, reads and writes its own 6, so a step moves 24
-pair-volume words (96 B/cell) per family against the reference's single
-fused pass at 96 B/cell per step; the EFT work (~400 flops/cell/family)
-stays below the H100's ~20 flops per byte.
+1. ``line_advance`` (``ds_line``, one block): the line from the carry's
+   buffer into a second one, Einc then Hinc, op for op the torch ds ops
+   of ``tfsf.advance_einc``/``advance_hinc``; the hard source's pair
+   (``sources.DsSourceTable``) is a kernel argument. Skipped without
+   TFSF.
+2. and 3. ``ds_pass`` (``ds_section``, the edge kernel then the inner
+   one, which may overlap it): E and H of every cell in one x-marching
+   pass, out of place (source buffers in the carry, destination buffers
+   in the step's spare set), with the record terms computed in the
+   kernel at the record planes from the two line buffers (Hinc from the
+   first, Einc from the second) and the point source's pair as a
+   kernel argument. The host's work plan (``plan_items``) tiles the grid
+   into (y, z) tiles over x segments; the items that reach into a CPML
+   slab run in the edge kernel, the others in the inner one.
+
+The step then swaps the carry's E, H, psi, J and line with the spare
+set: the carry always holds the live state.
+
+Beside each kernel wrapper stands its plain PyTorch version with the
+same signature (``line_advance_plain``, ``ds_pass_plain``: the same
+schedule, double buffer and out of place, with the record terms of
+``plan_terms``, the kernel's per-cell formula ``record_term_cell``); a
+wrapper takes it only for CPU tensors, and on a CUDA tensor launches
+the kernel or raises. ``line_advance.launches`` and ``ds_pass.launches``
+count kernel calls; ``ds_pass.kernels`` the section kernels those
+calls launched (one a non-empty plan section).
+``make_packed_ds_step(..., plain=True)`` is the yardstick the card
+holds the kernels against: the reference's own schedule in torch ops
+(the line advance, ``record_terms``, ``e_update_plain`` and
+``h_update_plain`` in place). The test-only probes ``eft_probe`` and
+``device_terms`` run the kernel's own EFTs and record-term function.
+
+What bounds it on the card: a step must move E and H once each (96
+B/cell) plus the psi slabs, and do ~1,000 f32 operations a cell, which
+``--fmad=false`` issues at the card's non-FMA rate: bytes and
+operations take about the same time (csrc/packed_ds.cu).
 
 Layout (the reference's): ``E``, ``H`` (6, n1, n2, n3) with rows [0,3)
 the hi words and [3,6) the lo words; ``psE[a]``/``psH[a]`` (4, ...)
 with dim 1+a of 2m planes, rows = the two components with a curl term
 along a (hi, then the same two lo); ``J`` (3, ...) with Drude; ``inc``
 the ds line with ``*_lo`` words.
-
-Beside each kernel wrapper stands its plain PyTorch version with the
-same signature (``e_update_plain``/``h_update_plain``); a wrapper takes
-it only for CPU tensors. ``e_update.launches``/``h_update.launches``
-count kernel launches. The EFT probe ``eft_probe`` runs the kernel's own
-``two_sum``/``two_prod`` device functions on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fdtd3d_torch.layout import component_axis
-from fdtd3d_torch.ops import build, ds, tfsf
+from fdtd3d_torch.ops import build, ds, packed, tfsf
 from fdtd3d_torch.ops.packed import psi_row
 from fdtd3d_torch.ops.sources import DsSourceTable
 from fdtd3d_torch.solver import (_bcast1d, _shift, coef_pair, ds_diff,
@@ -69,6 +91,7 @@ from fdtd3d_torch.solver import (_bcast1d, _shift, coef_pair, ds_diff,
 AXES = "xyz"
 _LIB = "packed_ds"
 MAX_REC = 16          # records per family; mirrors csrc/packed_ds.cu
+LINE_KEYS = ("Einc", "Einc_lo", "Hinc", "Hinc_lo")
 
 
 def eligible(static) -> bool:
@@ -192,6 +215,194 @@ def record_terms(plan: Optional[TermPlan], inc) -> Optional[torch.Tensor]:
     vh, vl = ds.add_ff(*ds.mul_ff(*v0, *plan.ow), *ds.mul_ff(*v1, *plan.w))
     th, tl = ds.mul_ff(vh, vl, *plan.scale)
     return torch.stack([th * plan.gate, tl * plan.gate])
+
+
+def record_term_cell(v0, v1, w, ow, scale, gate):
+    """One record cell's plane term from its two line samples v0, v1
+    (pairs) and its geometry (the weight pairs w and 1 - w, the
+    sign*pol/dx pair, the 0/1 gate): the formula the kernel evaluates at
+    a record cell (csrc/packed_ds.cu ``record_term``), op for op, as
+    ``record_terms`` (the yardstick) evaluates it for all cells at once.
+    Elementwise: the operands may be scalars or vectors of cells."""
+    vh, vl = ds.add_ff(*ds.mul_ff(*v0, *ow), *ds.mul_ff(*v1, *w))
+    th, tl = ds.mul_ff(vh, vl, *scale)
+    return th * gate, tl * gate
+
+
+def kernel_geometry(plan: Optional[TermPlan], n: int):
+    """The plan's fixed geometry as the kernel reads it: (geo, i0, the
+    first H record's cell). ``geo`` is (7, total) float32, rows w hi, w
+    lo, 1-w hi, 1-w lo, scale hi, scale lo, gate; ``i0`` (total,) int32
+    indexes the line half the record samples (Hinc for E records, Einc
+    for H records), so the plan's index into cat(Einc, Hinc) loses n
+    for E records."""
+    if plan is None:
+        return None, None, 0
+    geo = torch.stack([plan.w[0], plan.w[1], plan.ow[0], plan.ow[1],
+                       plan.scale[0], plan.scale[1], plan.gate]).contiguous()
+    i0 = torch.where(plan.i0 >= n, plan.i0 - n, plan.i0).to(torch.int32)
+    h_first = min([off for (fam, _), off in plan.offsets.items()
+                   if fam == "H"] or [plan.total])
+    return geo, i0.contiguous(), h_first
+
+
+def plan_terms(cc, line_src, line_dst) -> Optional[torch.Tensor]:
+    """The record terms (2, total) as the kernel computes them from the
+    double-buffered line: E records sample ``line_src``'s Hinc (before
+    the advance), H records ``line_dst``'s Einc (after it), each cell by
+    ``record_term_cell``. Equal to ``record_terms`` of the line between
+    the two advances, bit for bit (tests/test_torch_ds_kernel.py)."""
+    if cc["plan"] is None:
+        return None
+    geo, h = cc["geo"], cc["h_first"]
+    i0 = cc["geo_i0"].long()
+    samples = []
+    for shift in (0, 1):
+        idx_e, idx_h = i0[:h] + shift, i0[h:] + shift
+        samples.append(tuple(
+            torch.cat([line_src[f"Hinc{lo}"][idx_e],
+                       line_dst[f"Einc{lo}"][idx_h]]) for lo in ("", "_lo")))
+    th, tl = record_term_cell(samples[0], samples[1], (geo[0], geo[1]),
+                              (geo[2], geo[3]), (geo[4], geo[5]), geo[6])
+    return torch.stack([th, tl])
+
+
+def line_advance_plain(src, dst, cc, pair) -> None:
+    """The ds incident line from ``src`` into ``dst`` (dicts of
+    LINE_KEYS; ``src`` is not modified): ``tfsf.advance_einc`` with the
+    hard source's ``pair`` (host floats), then ``tfsf.advance_hinc``."""
+    static = cc["static"]
+    inc = tfsf.advance_einc(dict(src), cc["coeffs"], 0, static.dt,
+                            static.omega, static.tfsf_setup,
+                            source=lambda _t: pair)
+    inc = tfsf.advance_hinc(inc, cc["coeffs"], static.tfsf_setup)
+    for key in LINE_KEYS:
+        dst[key].copy_(inc[key])
+
+
+# --------------------------------------------------------------------------
+# the pass's work plan (host side; csrc/packed_ds.cu runs it)
+# --------------------------------------------------------------------------
+
+PLAIN, SLAB = 0, 1    # item classes
+# the kernel's sections, in launch order (csrc/packed_ds.cu, kKernels):
+# the SLAB items in the edge kernel, the PLAIN ones in the inner kernel
+SECTIONS = ("edge", "inner")
+PLAN_COLS = 8         # ints a plan row; mirrors csrc/packed_ds.cu
+TILE = (30, 30)       # owned (y, z) cells of a tile at the source's BY, BZ
+# relative cost of one plane of an item, by class: the order of a
+# section's items, heaviest first
+CLASS_COST = {PLAIN: 1.0, SLAB: 1.7}
+# x segment lengths, the first that gives every SM four items (else the
+# last): on the card 16 planes beat 6-12 at 256^3, and 10 tie 6 and beat
+# 8, 12 and 16 at 128^3, where 16 leave 200 items on 132 SMs
+# (scripts/ds_variants.py, seg_N)
+SEGMENTS = (16, 10)
+
+
+def _pieces(a: int, b: int, k: int) -> List[Tuple[int, int]]:
+    """[a, b) in k near-equal pieces (fewer if it is shorter than k)."""
+    n = b - a
+    k = max(1, min(k, n))
+    cuts = [a + (n * q) // k for q in range(k + 1)]
+    return list(zip(cuts[:-1], cuts[1:])) if n > 0 else []
+
+
+def _bands(n: int, m: int) -> Tuple[int, int]:
+    """Widths of the low and high CPML bands of an axis with an m-plane
+    slab: an owned range computes E one cell above it (H reads it), so
+    an owned range clear of the slab starts at m and ends by n - m - 1."""
+    if m <= 0:
+        return 0, 0
+    lo, hi = m, m + 1
+    return (n, 0) if lo + hi >= n else (lo, hi)
+
+
+def _axis_cuts(n: int, m: int, size: int, align: int = 1,
+               bands: bool = False) -> List[Tuple[int, int]]:
+    """Owned ranges of an axis: the whole axis (or, with ``bands``, each
+    CPML band and the interior between them) cut into the fewest
+    near-equal pieces of at most ``size`` (the interior, with ``align`` >
+    1, at multiples of it)."""
+    lo, hi = _bands(n, m) if bands else (0, 0)
+    out: List[Tuple[int, int]] = []
+    for a, b, band in ((0, lo, True), (lo, n - hi, False),
+                       (n - hi, n, True)):
+        if b <= a:
+            continue
+        if align > 1 and not band:
+            while b - a > size:
+                cut = (a + size) // align * align
+                cut = cut if cut > a else a + size
+                out.append((a, cut))
+                a = cut
+            out.append((a, b))
+        else:
+            out += _pieces(a, b, -(-(b - a) // size))
+    return out
+
+
+def computed_box(item, shape) -> Tuple[Tuple[int, int], ...]:
+    """The cells an item computes (inclusive bounds per axis): E on its
+    owned box grown by one cell above on every axis (H reads it), H on
+    the owned box, inside the grid. ``item`` = (j0, k0, ny, nz, x0,
+    x1)."""
+    j0, k0, ny, nz, x0, x1 = item[:6]
+    return ((x0, min(x1, shape[0] - 1)), (j0, min(j0 + ny, shape[1] - 1)),
+            (k0, min(k0 + nz, shape[2] - 1)))
+
+
+def item_class(shape, m, item) -> int:
+    """SLAB if a cell the item computes lies in a CPML slab, else
+    PLAIN."""
+    box = computed_box(item, shape)
+    return SLAB if any(m[a] > 0 and (box[a][0] < m[a]
+                                     or box[a][1] >= shape[a] - m[a])
+                       for a in range(3)) else PLAIN
+
+
+def item_cost(row) -> float:
+    """The plan's estimate of an item's time: planes marched (the halo
+    plane included) times its class's cost."""
+    return (row[5] - row[4] + 1) * CLASS_COST[row[6]]
+
+
+def plan_items(shape, m, tile=TILE, sms=132, zalign=1, segments=SEGMENTS,
+               bands=False) -> Tuple[np.ndarray, Tuple[int, ...]]:
+    """The pass's work items: (rows, counts).
+
+    ``rows`` is (n, PLAN_COLS) int32: j0, k0, ny, nz, x0, x1, class, 0
+    (an owned box of at most ``tile`` (y, z) cells over x planes [x0,
+    x1)), the SLAB items (the edge kernel) then the PLAIN ones (the
+    inner kernel), ``counts`` items each, heaviest first within each
+    (``item_cost``), ties in the order of their x segments. Each axis is
+    cut as a whole into near-equal pieces (``_axis_cuts``; with ``bands``,
+    band by band, which leaves narrow band tiles: slower on the card at
+    128^3 and 256^3), so the owned boxes tile the grid exactly once; an
+    item is SLAB if any cell it computes lies in a slab; with ``zalign``
+    > 1 the interior z pieces are cut at its multiples. The x segments
+    are the first of ``segments`` long that gives the card's ``sms`` SMs
+    four items each (else the last). ``m``: slab planes per axis (0: no
+    CPML)."""
+    m = tuple(m)
+    ycuts = _axis_cuts(shape[1], m[1], tile[0], bands=bands)
+    zcuts = _axis_cuts(shape[2], m[2], tile[1], zalign, bands)
+    for seg in segments:
+        rows = []
+        for x0, x1 in _axis_cuts(shape[0], m[0], seg, bands=bands):
+            for j0, j1 in ycuts:
+                for k0, k1 in zcuts:
+                    item = (j0, k0, j1 - j0, k1 - k0, x0, x1)
+                    rows.append(item + (item_class(shape, m, item), 0))
+        if len(rows) >= 4 * sms:
+            break
+    sections = [[r for r in rows if r[6] == SLAB],
+                [r for r in rows if r[6] == PLAIN]]
+    for sec in sections:
+        sec.sort(key=item_cost, reverse=True)
+    rows = np.array([r for sec in sections for r in sec],
+                    dtype=np.int32).reshape(-1, PLAN_COLS)
+    return rows, tuple(len(sec) for sec in sections)
 
 
 # --------------------------------------------------------------------------
@@ -391,10 +602,29 @@ def h_update_plain(H, E, psi, fc, terms) -> None:
 
 
 # --------------------------------------------------------------------------
+# plain versions of the CUDA path (CPU tensors and tests)
+# --------------------------------------------------------------------------
+
+def ds_pass_plain(src, dst, cc, line_src, line_dst, point) -> None:
+    """One step of E and H from the carry ``src`` into ``dst`` (the same
+    keys and shapes; ``src`` is not modified), the kernel's schedule:
+    the record terms of ``plan_terms`` from the two line buffers, then
+    the E and H updates of the whole volume with the point source's
+    ``point`` pair (or None)."""
+    terms = plan_terms(cc, line_src, line_dst)
+    for a, b in zip(packed.carry_buffers(dst), packed.carry_buffers(src)):
+        a.copy_(b)
+    e_update_plain(dst["E"], dst["H"], dst.get("J"), dst["psE"], cc["E"],
+                   terms, point)
+    h_update_plain(dst["H"], dst["E"], dst["psH"], cc["H"], terms)
+
+
+# --------------------------------------------------------------------------
 # the CUDA kernel wrappers
 # --------------------------------------------------------------------------
 
-class _Pair(ctypes.Structure):
+class _PairCoef(ctypes.Structure):
+    """Mirror of ``struct PairCoef`` in csrc/packed_ds.cu."""
     _fields_ = [("hi", ctypes.c_void_p), ("lo", ctypes.c_void_p),
                 ("vh", ctypes.c_float), ("vl", ctypes.c_float)]
 
@@ -405,57 +635,99 @@ class _Coef(ctypes.Structure):
 
 class _Rec(ctypes.Structure):
     """Mirror of ``struct Rec`` in csrc/packed_ds.cu."""
-    _fields_ = [("off", ctypes.c_longlong), ("comp", ctypes.c_int),
+    _fields_ = [("off", ctypes.c_int), ("comp", ctypes.c_int),
                 ("axis", ctypes.c_int), ("plane", ctypes.c_int),
-                ("point", ctypes.c_int), ("pj", ctypes.c_int),
-                ("pk", ctypes.c_int), ("vh", ctypes.c_float),
-                ("vl", ctypes.c_float)]
+                ("point", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+class _Family(ctypes.Structure):
+    """Mirror of ``struct Family`` in csrc/packed_ds.cu."""
+    _fields_ = [("a", _PairCoef * 3), ("b", _PairCoef * 3),
+                ("prof", ctypes.c_void_p * 3),
+                ("line_h", ctypes.c_void_p), ("line_l", ctypes.c_void_p),
+                ("rec", _Rec * MAX_REC), ("n_rec", ctypes.c_int)]
 
 
 class _Params(ctypes.Structure):
     """Mirror of ``struct Params`` in csrc/packed_ds.cu."""
-    _fields_ = [("F", ctypes.c_void_p), ("S", ctypes.c_void_p),
-                ("J", ctypes.c_void_p),
-                ("psi", ctypes.c_void_p * 3), ("prof", ctypes.c_void_p * 3),
-                ("terms", ctypes.c_void_p), ("total", ctypes.c_longlong),
-                ("m", ctypes.c_int * 3),
-                ("a", _Pair * 3), ("b", _Pair * 3),
+    _fields_ = [("E0", ctypes.c_void_p), ("H0", ctypes.c_void_p),
+                ("J0", ctypes.c_void_p), ("E2", ctypes.c_void_p),
+                ("H2", ctypes.c_void_p), ("J2", ctypes.c_void_p),
+                ("psE0", ctypes.c_void_p * 3), ("psH0", ctypes.c_void_p * 3),
+                ("psE2", ctypes.c_void_p * 3), ("psH2", ctypes.c_void_p * 3),
+                ("geo", ctypes.c_void_p), ("geo_i0", ctypes.c_void_p),
+                ("total", ctypes.c_longlong), ("plan", ctypes.c_void_p),
+                ("fe", _Family), ("fh", _Family),
                 ("kj", _Coef * 3), ("bj", _Coef * 3),
-                ("rec", _Rec * MAX_REC), ("n_rec", ctypes.c_int),
-                ("n1", ctypes.c_int), ("n2", ctypes.c_int),
-                ("n3", ctypes.c_int),
-                ("iv_h", ctypes.c_float), ("iv_l", ctypes.c_float)]
+                ("m", ctypes.c_int * 3), ("pj", ctypes.c_int),
+                ("pk", ctypes.c_int), ("n1", ctypes.c_int),
+                ("n2", ctypes.c_int), ("n3", ctypes.c_int),
+                ("n_item", ctypes.c_int * len(SECTIONS)),
+                ("iv_h", ctypes.c_float), ("iv_l", ctypes.c_float),
+                ("pt_h", ctypes.c_float), ("pt_l", ctypes.c_float)]
+
+
+class _Line(ctypes.Structure):
+    """Mirror of ``struct Line`` in csrc/packed_ds.cu."""
+    _fields_ = [("src", ctypes.c_void_p * 4), ("dst", ctypes.c_void_p * 4),
+                ("co", ctypes.c_void_p * 8), ("n", ctypes.c_int),
+                ("sh", ctypes.c_float), ("sl", ctypes.c_float)]
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(_LIB)
     if not getattr(lib, "_fdtd_bound", False):
-        for fn in ("fdtd_ds_e_update", "fdtd_ds_h_update"):
-            f = getattr(lib, fn)
-            f.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
-            f.restype = ctypes.c_int
+        lib.fdtd_ds_pass.argtypes = [ctypes.POINTER(_Params),
+                                     ctypes.c_void_p]
+        lib.fdtd_ds_line.argtypes = [ctypes.POINTER(_Line), ctypes.c_void_p]
+        lib.fdtd_ds_terms.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
+                                      ctypes.c_void_p, ctypes.c_void_p]
         lib.fdtd_ds_eft_probe.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_void_p]
-        lib.fdtd_ds_eft_probe.restype = ctypes.c_int
-        lib.fdtd_ds_params_size.restype = ctypes.c_int
+        for fn in ("fdtd_ds_tile", "fdtd_ds_occupancy"):
+            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+        for fn in ("fdtd_ds_pass", "fdtd_ds_line", "fdtd_ds_terms",
+                   "fdtd_ds_eft_probe", "fdtd_ds_tile", "fdtd_ds_occupancy",
+                   "fdtd_ds_params_size", "fdtd_ds_line_size"):
+            getattr(lib, fn).restype = ctypes.c_int
         lib.fdtd_ds_error_string.argtypes = [ctypes.c_int]
         lib.fdtd_ds_error_string.restype = ctypes.c_char_p
-        if lib.fdtd_ds_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError(
-                f"{_LIB}: struct Params is {lib.fdtd_ds_params_size()} "
-                f"bytes in CUDA and {ctypes.sizeof(_Params)} in ctypes")
+        for name, struct in (("params", _Params), ("line", _Line)):
+            size = getattr(lib, f"fdtd_ds_{name}_size")()
+            if size != ctypes.sizeof(struct):
+                raise RuntimeError(
+                    f"{_LIB}: struct {struct.__name__[1:]} is {size} bytes "
+                    f"in CUDA and {ctypes.sizeof(struct)} in ctypes")
         lib._fdtd_bound = True
     return lib
 
 
-def _check(t: torch.Tensor, name: str, shape, device) -> int:
-    if t.device != device or t.dtype != torch.float32 \
+def _raise_on(lib, fn: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {err} "
+                           f"({lib.fdtd_ds_error_string(err).decode()})")
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check(t: torch.Tensor, name: str, shape, device,
+           dtype=torch.float32) -> int:
+    if t.device != device or t.dtype != dtype \
             or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"{name}: need a contiguous float32 tensor of shape "
+            f"{name}: need a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {tuple(t.shape)} "
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     return t.data_ptr()
+
+
+def _pair_struct(p, name, shape, device) -> _PairCoef:
+    if p[0].dim() == 0:
+        return _PairCoef(None, None, float(p[0]), float(p[1]))
+    return _PairCoef(_check(p[0], name, shape, device),
+                     _check(p[1], name + "_lo", shape, device), 0.0, 0.0)
 
 
 def _coef_struct(v: torch.Tensor, name, shape, device) -> _Coef:
@@ -464,103 +736,199 @@ def _coef_struct(v: torch.Tensor, name, shape, device) -> _Coef:
     return _Coef(_check(v, name, shape, device), 0.0)
 
 
-def _pair_struct(p, name, shape, device) -> _Pair:
-    if p[0].dim() == 0:
-        return _Pair(None, None, float(p[0]), float(p[1]))
-    return _Pair(_check(p[0], name, shape, device),
-                 _check(p[1], name + "_lo", shape, device), 0.0, 0.0)
-
-
-def _params(F, S, J, psi, fc, terms, point) -> _Params:
-    """The launch's parameter block; the static part (coefficients,
-    profiles, record table) is built and checked once per prepared
-    family, the step's part (fields, terms, the point pair) per call."""
-    device = F.device
+def _family_struct(fc, device) -> _Family:
     shape = fc["shape"]
-    base = fc.get("_params")
-    if base is None or base[0] != device:
-        prm = _Params()
-        for c in range(3):
-            prm.a[c] = _pair_struct(fc["a"][c], f"a[{c}]", shape, device)
-            prm.b[c] = _pair_struct(fc["b"][c], f"b[{c}]", shape, device)
-            if fc["kj"] is not None:
-                prm.kj[c] = _coef_struct(fc["kj"][c], f"kj[{c}]", shape,
-                                         device)
-                prm.bj[c] = _coef_struct(fc["bj"][c], f"bj[{c}]", shape,
-                                         device)
-        for a, m in fc["m"].items():
-            prm.m[a] = m
-            prm.prof[a] = _check(fc["prof"][a], f"prof[{a}]", (6, 2 * m),
-                                 device)
-        for r, (rec, off) in enumerate(zip(fc["records"], fc["offsets"])):
-            prm.rec[r].comp, prm.rec[r].axis = rec.comp, rec.axis
-            prm.rec[r].plane = rec.plane
-            if rec.corr is None:
-                prm.rec[r].point = 1
-                _, prm.rec[r].pj, prm.rec[r].pk = fc["point_pos"]
-            else:
-                prm.rec[r].off = off
-        prm.n_rec = len(fc["records"])
-        prm.n1, prm.n2, prm.n3 = shape
-        prm.iv_h, prm.iv_l = (float(v) for v in fc["iv"])
-        fc["_params"] = base = (device, prm)
-    prm = _Params.from_buffer_copy(base[1])
-    full = (6,) + tuple(shape)
-    prm.F = _check(F, "F", full, device)
-    prm.S = _check(S, "S", full, device)
-    if J is not None:
-        prm.J = _check(J, "J", (3,) + tuple(shape), device)
-    elif fc["family"] == "E" and fc["kj"] is not None:
-        raise ValueError("Drude coefficients given but no J stack")
+    f = _Family()
+    for c in range(3):
+        f.a[c] = _pair_struct(fc["a"][c], f"a[{c}]", shape, device)
+        f.b[c] = _pair_struct(fc["b"][c], f"b[{c}]", shape, device)
     for a, m in fc["m"].items():
-        ps = [4] + list(shape)
-        ps[1 + a] = 2 * m
-        prm.psi[a] = _check(psi[a], f"psi[{a}]", ps, device)
-    if terms is not None:
-        prm.terms = _check(terms, "terms", (2, terms.shape[1]), device)
-        prm.total = terms.shape[1]
-    elif any(rec.corr is not None for rec in fc["records"]):
-        raise ValueError("TFSF records given but no plane terms")
-    for r, rec in enumerate(fc["records"]):
-        if rec.corr is None:
-            # no point pair this step: a zero pair adds nothing
-            prm.rec[r].vh, prm.rec[r].vl = point or (0.0, 0.0)
+        f.prof[a] = _check(fc["prof"][a], f"prof[{a}]", (6, 2 * m), device)
+    for r, (rec, off) in enumerate(zip(fc["records"], fc["offsets"])):
+        f.rec[r].comp, f.rec[r].axis = rec.comp, rec.axis
+        f.rec[r].plane = rec.plane
+        f.rec[r].point = int(rec.corr is None)
+        f.rec[r].off = 0 if off is None else off
+    f.n_rec = len(fc["records"])
+    return f
+
+
+def _device_plan(cc, device, lib):
+    """The pass's plan on ``device`` for the tile the library was built
+    with and the card's SM count, built once: (rows, counts)."""
+    geo = (ctypes.c_int * 2)()
+    lib.fdtd_ds_tile(ctypes.addressof(geo))
+    key = (device, tuple(geo))
+    cached = cc.get("_plan")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    m = tuple(cc["E"]["m"].get(a, 0) for a in range(3))
+    rows, counts = plan_items(cc["shape"], m, tile=(geo[0], geo[1]),
+                              sms=sms)
+    plan = (torch.from_numpy(rows).to(device), counts)
+    cc["_plan"] = (key, plan)
+    return plan
+
+
+def _base_params(cc, device, lib) -> _Params:
+    """The static part of the parameter block (coefficients, profiles,
+    record tables and geometry, the plan), built and checked once per
+    prepared operand set and device."""
+    base = cc.get("_params")
+    if base is not None and base[0] == device:
+        return base[1]
+    fe, shape = cc["E"], cc["shape"]
+    prm = _Params()
+    prm.fe = _family_struct(fe, device)
+    prm.fh = _family_struct(cc["H"], device)
+    if fe["kj"] is not None:
+        for c in range(3):
+            prm.kj[c] = _coef_struct(fe["kj"][c], f"kj[{c}]", shape, device)
+            prm.bj[c] = _coef_struct(fe["bj"][c], f"bj[{c}]", shape, device)
+    for a, m in fe["m"].items():
+        prm.m[a] = m
+        if int(np.prod(packed.psi_shape(shape, a, m))) * 2 >= 2 ** 31:
+            raise ValueError(f"psi[{a}] of {shape} exceeds the kernel's "
+                             "32-bit psi offsets")
+    if cc["plan"] is not None:
+        total = cc["plan"].total
+        if total >= 2 ** 31:
+            raise ValueError("the record geometry exceeds the kernel's "
+                             "32-bit offsets")
+        prm.geo = _check(cc["geo"], "geo", (7, total), device)
+        prm.geo_i0 = _check(cc["geo_i0"], "geo_i0", (total,), device,
+                            torch.int32)
+        prm.total = total
+    _, prm.pj, prm.pk = fe["point_pos"]
+    prm.n1, prm.n2, prm.n3 = shape
+    prm.iv_h, prm.iv_l = (float(v) for v in fe["iv"])
+    rows, counts = _device_plan(cc, device, lib)
+    prm.plan = rows.data_ptr()
+    for q, n in enumerate(counts):
+        prm.n_item[q] = n
+    cc["_params"] = (device, prm)
     return prm
 
 
-def _launch(fn: str, prm: _Params, device) -> None:
+def _line_pointers(prm: _Params, cc, line_src, line_dst, device) -> None:
+    """The record geometry's line halves: E records sample the Hinc of
+    ``line_src``, H records the Einc of ``line_dst``."""
+    if cc["plan"] is None:
+        return
+    n = (cc["n_inc"],)
+    prm.fe.line_h = _check(line_src["Hinc"], "Hinc", n, device)
+    prm.fe.line_l = _check(line_src["Hinc_lo"], "Hinc_lo", n, device)
+    prm.fh.line_h = _check(line_dst["Einc"], "Einc (advanced)", n, device)
+    prm.fh.line_l = _check(line_dst["Einc_lo"], "Einc_lo (advanced)", n,
+                           device)
+
+
+def _pass_params(src, dst, cc, line_src, line_dst, point, lib) -> _Params:
+    device = src["E"].device
+    shape = cc["shape"]
+    prm = _Params.from_buffer_copy(_base_params(cc, device, lib))
+    full = (6,) + tuple(shape)
+    prm.E0 = _check(src["E"], "E", full, device)
+    prm.H0 = _check(src["H"], "H", full, device)
+    prm.E2 = _check(dst["E"], "E (destination)", full, device)
+    prm.H2 = _check(dst["H"], "H (destination)", full, device)
+    if cc["E"]["kj"] is not None:
+        jshape = (3,) + tuple(shape)
+        prm.J0 = _check(src["J"], "J", jshape, device)
+        prm.J2 = _check(dst["J"], "J (destination)", jshape, device)
+    for a, m in cc["E"]["m"].items():
+        ps = [4] + list(shape)
+        ps[1 + a] = 2 * m
+        prm.psE0[a] = _check(src["psE"][a], f"psE[{a}]", ps, device)
+        prm.psH0[a] = _check(src["psH"][a], f"psH[{a}]", ps, device)
+        prm.psE2[a] = _check(dst["psE"][a], f"psE[{a}] (dst)", ps, device)
+        prm.psH2[a] = _check(dst["psH"][a], f"psH[{a}] (dst)", ps, device)
+    if {t.data_ptr() for t in packed.carry_buffers(src)} \
+            & {t.data_ptr() for t in packed.carry_buffers(dst)}:
+        raise ValueError("ds_pass writes out of place: the destination "
+                         "shares a buffer with the source")
+    _line_pointers(prm, cc, line_src, line_dst, device)
+    if cc["has_point"]:
+        if point is None:
+            raise ValueError("the point source's record needs its pair")
+        prm.pt_h, prm.pt_l = point
+    return prm
+
+
+def line_advance(src, dst, cc, pair) -> None:
+    """The ds incident line from ``src`` into ``dst``: the CUDA kernel
+    on CUDA tensors, its plain version on CPU tensors."""
+    if not src["Einc"].is_cuda:
+        line_advance_plain(src, dst, cc, pair)
+        return
     lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(ctypes.byref(prm), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
-                           f"({lib.fdtd_ds_error_string(err).decode()})")
+    device = src["Einc"].device
+    n = (cc["n_inc"],)
+    line = _Line()
+    for q, key in enumerate(LINE_KEYS):
+        line.src[q] = _check(src[key], key, n, device)
+        line.dst[q] = _check(dst[key], f"{key} (destination)", n, device)
+        if line.src[q] == line.dst[q]:
+            raise ValueError("line_advance writes out of place")
+    coeffs = cc["coeffs"]
+    for q, key in enumerate(("inc_ae", "inc_ae_lo", "inc_be", "inc_be_lo",
+                             "inc_ah", "inc_ah_lo", "inc_bh", "inc_bh_lo")):
+        line.co[q] = _check(coeffs[key], key, n, device)
+    line.n = cc["n_inc"]
+    line.sh, line.sl = pair
+    _raise_on(lib, "fdtd_ds_line",
+              lib.fdtd_ds_line(ctypes.byref(line), _stream(device)))
+    line_advance.launches += 1
 
 
-def e_update(E, H, J, psi, fc, terms, point) -> None:
-    """E pairs (and J, psi_E) in place: the CUDA kernel on CUDA
-    tensors, its plain version on CPU tensors."""
-    if not E.is_cuda:
-        e_update_plain(E, H, J, psi, fc, terms, point)
+def ds_pass(src, dst, cc, line_src, line_dst, point) -> None:
+    """One step of E and H from ``src`` into ``dst``: the CUDA kernels on
+    CUDA tensors, their plain version on CPU tensors."""
+    if not src["E"].is_cuda:
+        ds_pass_plain(src, dst, cc, line_src, line_dst, point)
         return
-    _launch("fdtd_ds_e_update",
-            _params(E, H, J, psi, fc, terms, point), E.device)
-    e_update.launches += 1
+    lib = _library()
+    prm = _pass_params(src, dst, cc, line_src, line_dst, point, lib)
+    _raise_on(lib, "fdtd_ds_pass",
+              lib.fdtd_ds_pass(ctypes.byref(prm), _stream(src["E"].device)))
+    ds_pass.launches += 1
+    ds_pass.kernels += sum(n > 0 for n in prm.n_item)
 
 
-def h_update(H, E, psi, fc, terms) -> None:
-    """H pairs (and psi_H) in place: the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors."""
-    if not H.is_cuda:
-        h_update_plain(H, E, psi, fc, terms)
-        return
-    _launch("fdtd_ds_h_update",
-            _params(H, E, None, psi, fc, terms, None), H.device)
-    h_update.launches += 1
+line_advance.launches = 0
+ds_pass.launches = 0
+ds_pass.kernels = 0     # section kernels launched by those calls
 
 
-e_update.launches = 0
-h_update.launches = 0
+def device_terms(cc, line_src, line_dst) -> torch.Tensor:
+    """The record terms (2, total) by the kernel's own record-term
+    device function from two CUDA line buffers (a test-only probe)."""
+    lib = _library()
+    device = line_src["Hinc"].device
+    prm = _Params.from_buffer_copy(_base_params(cc, device, lib))
+    _line_pointers(prm, cc, line_src, line_dst, device)
+    out = torch.empty((2, cc["plan"].total), dtype=torch.float32,
+                      device=device)
+    _raise_on(lib, "fdtd_ds_terms", lib.fdtd_ds_terms(
+        ctypes.byref(prm), cc["h_first"], ctypes.c_void_p(out.data_ptr()),
+        _stream(device)))
+    return out
+
+
+def occupancy() -> Dict[str, Dict[str, int]]:
+    """Registers and local (spill) bytes a thread, resident blocks an SM
+    and static shared bytes of each pass kernel (SECTIONS, and their
+    builds with coefficient grids and Drude J, ``*_grid``), as the CUDA
+    runtime reports them for the card."""
+    lib = _library()
+    names = SECTIONS + tuple(f"{n}_grid" for n in SECTIONS)
+    out = (ctypes.c_int * (4 * len(names)))()
+    _raise_on(lib, "fdtd_ds_occupancy",
+              lib.fdtd_ds_occupancy(ctypes.addressof(out)))
+    keys = ("registers", "local_bytes", "blocks_per_sm", "static_smem")
+    return {n: {k: out[4 * q + i] for i, k in enumerate(keys)}
+            for q, n in enumerate(names)}
 
 
 def eft_probe(a: torch.Tensor, b: torch.Tensor):
@@ -571,13 +939,9 @@ def eft_probe(a: torch.Tensor, b: torch.Tensor):
     a, b = a.contiguous(), b.contiguous()
     outs = [torch.empty_like(a) for _ in range(4)]
     lib = _library()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.fdtd_ds_eft_probe(
+    _raise_on(lib, "fdtd_ds_eft_probe", lib.fdtd_ds_eft_probe(
         *(ctypes.c_void_p(t.data_ptr()) for t in (a, b, *outs)),
-        ctypes.c_int(a.numel()), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"fdtd_ds_eft_probe launch failed: CUDA error "
-                           f"{err} ({lib.fdtd_ds_error_string(err).decode()})")
+        ctypes.c_int(a.numel()), _stream(a.device)))
     return tuple(outs)
 
 
@@ -586,13 +950,16 @@ def eft_probe(a: torch.Tensor, b: torch.Tensor):
 # --------------------------------------------------------------------------
 
 def make_packed_ds_step(static, device, plain: bool = False):
-    """The packed float32x2 step over the packed carry (in place).
+    """The packed float32x2 step over the packed carry.
 
-    On a CUDA ``device`` the two family updates launch the kernels
-    (kind ``packed_ds_cuda``); on the CPU they run their plain versions
-    (kind ``packed_ds_plain``). ``plain=True`` runs the plain versions
-    on any device: the yardstick chip_smoke.py holds the kernels
-    against."""
+    On a CUDA ``device`` it launches the kernels (kind
+    ``packed_ds_cuda``): ``line_advance`` (with TFSF) and ``ds_pass``,
+    into the step's spare buffers, then swaps them with the carry's; on
+    the CPU the same schedule runs their plain versions (kind
+    ``packed_ds_plain``). ``plain=True`` runs the reference's own
+    schedule in place on any device (torch line ops, ``record_terms``,
+    ``e_update_plain``, ``h_update_plain``): the yardstick chip_smoke.py
+    holds the kernels against."""
     if not eligible(static):
         raise NotImplementedError(
             "this float32x2 configuration is outside the packed-ds "
@@ -607,18 +974,40 @@ def make_packed_ds_step(static, device, plain: bool = False):
     has_point = any(r.corr is None for r in records["E"])
     point_src = DsSourceTable(ps.waveform, 0.5, static.omega, static.dt,
                               ps.amplitude) if has_point else None
-    e_fn, h_fn = (e_update_plain, h_update_plain) if plain \
-        else (e_update, h_update)
+    spare: Dict[str, Any] = {}
 
     def prepare(coeffs) -> Dict[str, Any]:
         plan = build_term_plan(static, coeffs, records)
-        cc = {"coeffs": coeffs, "plan": plan}
+        n_inc = setup.n_inc if setup is not None else 0
+        cc = {"coeffs": coeffs, "plan": plan, "static": static,
+              "shape": tuple(static.grid_shape), "n_inc": n_inc,
+              "has_point": has_point}
         for fam in ("E", "H"):
             cc[fam] = prepare_family(static, coeffs, fam, records[fam],
                                      plan)
+        cc["geo"], cc["geo_i0"], cc["h_first"] = kernel_geometry(plan,
+                                                                 n_inc)
         return cc
 
     def step(pst: Dict[str, Any], cc: Dict[str, Any]) -> Dict[str, Any]:
+        t = pst["t"]
+        if not spare:
+            spare.update(packed.alloc_like(pst))
+            if "inc" in pst:
+                spare["inc"] = {k: torch.empty_like(v)
+                                for k, v in pst["inc"].items()}
+        if setup is not None:
+            line_advance(pst["inc"], spare["inc"], cc, line_src(t))
+        point = point_src(t) if point_src is not None else None
+        ds_pass(pst, spare, cc, pst.get("inc"), spare.get("inc"), point)
+        packed.swap_buffers(pst, spare)
+        if "inc" in pst:
+            pst["inc"], spare["inc"] = spare["inc"], pst["inc"]
+        pst["t"] = t + 1
+        return pst
+
+    def plain_step(pst: Dict[str, Any],
+                   cc: Dict[str, Any]) -> Dict[str, Any]:
         t = pst["t"]
         terms = None
         if setup is not None:
@@ -628,17 +1017,18 @@ def make_packed_ds_step(static, device, plain: bool = False):
             terms = record_terms(cc["plan"], pst["inc"])
             pst["inc"] = tfsf.advance_hinc(pst["inc"], cc["coeffs"], setup)
         point = point_src(t) if point_src is not None else None
-        e_fn(pst["E"], pst["H"], pst.get("J"), pst["psE"], cc["E"], terms,
-             point)
-        h_fn(pst["H"], pst["E"], pst["psH"], cc["H"], terms)
+        e_update_plain(pst["E"], pst["H"], pst.get("J"), pst["psE"],
+                       cc["E"], terms, point)
+        h_update_plain(pst["H"], pst["E"], pst["psH"], cc["H"], terms)
         pst["t"] = t + 1
         return pst
 
-    step.prepare = prepare
-    step.pack = lambda state: pack(state, static)
-    step.unpack = lambda p: unpack(p, static)
-    step.packed = True
+    out = plain_step if plain else step
+    out.prepare = prepare
+    out.pack = lambda state: pack(state, static)
+    out.unpack = lambda p: unpack(p, static)
+    out.packed = True
     on_cuda = torch.device(device).type == "cuda"
-    step.kind = "packed_ds_cuda" if on_cuda and not plain \
+    out.kind = "packed_ds_cuda" if on_cuda and not plain \
         else "packed_ds_plain"
-    return step
+    return out

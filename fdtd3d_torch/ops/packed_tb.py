@@ -554,16 +554,6 @@ def _point_adder(tb, value):
     return add
 
 
-def _fields(carry) -> List[torch.Tensor]:
-    """The pass's buffers of a carry, in a fixed order: E, H, psi, J."""
-    out = [carry["E"], carry["H"]]
-    out += [carry["psE"][a] for a in sorted(carry["psE"])]
-    out += [carry["psH"][a] for a in sorted(carry["psH"])]
-    if "J" in carry:
-        out.append(carry["J"])
-    return out
-
-
 def _generations(dst, tb, terms, drive) -> None:
     """The two generations of one lane, in place on its solo-layout
     views: ``terms`` (2, total) or None, ``drive`` two values or None."""
@@ -596,7 +586,7 @@ def tb_pass_plain(src, dst, tb, terms, drive) -> None:
     generation, with the records added into the accumulator after the
     curl and the point source after the Drude current; on a
     lane-stacked carry, one lane after the other."""
-    for a, b in zip(_fields(dst), _fields(src)):
+    for a, b in zip(packed.carry_buffers(dst), packed.carry_buffers(src)):
         a.copy_(b)
     if dst["E"].dim() == 4:
         _generations(dst, tb, terms, drive)
@@ -802,8 +792,8 @@ def _params(src, dst, tb, terms, drive, lib) -> _Params:
                                     device)
         prm.psH2[a] = packed._check(dst["psH"][a], f"psH[{a}] (dst)", ps,
                                     device)
-    if {t.data_ptr() for t in _fields(src)} \
-            & {t.data_ptr() for t in _fields(dst)}:
+    if {t.data_ptr() for t in packed.carry_buffers(src)} \
+            & {t.data_ptr() for t in packed.carry_buffers(dst)}:
         raise ValueError("tb_pass writes out of place: the destination "
                          "shares a buffer with the source")
     if tb["plan"] is not None:
@@ -843,24 +833,6 @@ tb_pass.launches = 0
 # the temporal-blocked step
 # --------------------------------------------------------------------------
 
-def _alloc_like(carry) -> Dict[str, Any]:
-    return {"E": torch.empty_like(carry["E"]),
-            "H": torch.empty_like(carry["H"]),
-            "psE": {a: torch.empty_like(v) for a, v in carry["psE"].items()},
-            "psH": {a: torch.empty_like(v) for a, v in carry["psH"].items()},
-            **({"J": torch.empty_like(carry["J"])} if "J" in carry else {})}
-
-
-def _swap(carry, spare) -> None:
-    """Exchange the pass's buffers between the carry and the spare."""
-    for key in ("E", "H", "J"):
-        if key in carry:
-            carry[key], spare[key] = spare[key], carry[key]
-    for fam in ("psE", "psH"):
-        for a in carry[fam]:
-            carry[fam][a], spare[fam][a] = spare[fam][a], carry[fam][a]
-
-
 def make_packed_tb_step(static, device, plain: bool = False,
                         batch: int = 0):
     """The depth-2 temporal-blocked step over the packed carry.
@@ -892,9 +864,9 @@ def make_packed_tb_step(static, device, plain: bool = False,
         inc, terms, drive = generation_terms(static, cc["tb"],
                                              ps.get("inc"), t)
         if not spare:
-            spare.update(_alloc_like(ps))
+            spare.update(packed.alloc_like(ps))
         fn(ps, spare, cc["tb"], terms, drive)
-        _swap(ps, spare)
+        packed.swap_buffers(ps, spare)
         if inc is not None:
             ps["inc"] = inc
         ps["t"] = t + DEPTH

@@ -11,12 +11,20 @@ over 50 launches each, twice, and prints one JSON object. With
 ``e_update`` and ``h_update`` (one launch for every lane) on B lanes of
 ``Examples/sphere3D_mie.txt`` as it stands (512^3, eps-sphere 2, 4, 6,
 9, ... by lane) after 20 steps (a checkout that has
-``fdtd3d_torch.batch``). Needs a CUDA device. Compare two commits within one call, in turns (parent,
-change, change, parent), each in its own process: unpack the other
+``fdtd3d_torch.batch``). With ``--ds SIZES`` (default 256) it also
+times the float32x2 step of ``Examples/precision3D_float32x2.txt`` at
+``--same-size`` each of the comma-separated sizes (128: the example as
+it stands) after 100 steps, and its kernels: the line kernel and the
+one-pass
+``ds_pass`` where the checkout has them, else the two in-place
+``e_update``/``h_update`` launches of the earlier design with the
+step's record terms. Needs a CUDA device. Compare two commits within
+one call, in turns (parent, change, change, parent), each in its own
+process: unpack the other
 commit into a directory that ``.gitignore`` lists (``git archive``) and
 pass it as ``PATH``.
 
-    python3 scripts/solo_kernel_times.py [PATH] [--lanes 4]
+    python3 scripts/solo_kernel_times.py [PATH] [--lanes 4] [--ds 256,128]
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default=HERE)
     ap.add_argument("--lanes", type=int, default=0)
+    ap.add_argument("--ds", nargs="?", const="256", default=None,
+                    help="also time the float32x2 step and its kernels "
+                         "at these comma-separated sizes (default 256)")
     args = ap.parse_args()
     root = os.path.abspath(args.path)
     sys.path.insert(0, root)
@@ -44,7 +55,8 @@ def main() -> int:
     import chip_smoke as cs
     from fdtd3d_torch.ops import build, packed, packed_tb
     from fdtd3d_torch.sim import Simulation
-    build.build_many(["packed_eh", "packed_tb"])
+    build.build_many(["packed_eh", "packed_tb"]
+                     + (["packed_ds"] if args.ds else []))
     dev = torch.device("cuda", 0)
     cfg = cs.config(cs.EXAMPLE, ["--same-size", "256"])
     sim = Simulation(cfg, device=dev)
@@ -78,7 +90,9 @@ def main() -> int:
         bc = bsim._carry
         kcc = packed_tb.make_packed_tb_step(
             bsim.static, dev, batch=args.lanes).prepare(bsim._coeffs)
-        bspare = packed_tb._alloc_like(bc)
+        alloc = getattr(packed, "alloc_like", None) \
+            or getattr(packed_tb, "_alloc_like")
+        bspare = alloc(bc)
         _, bterms, bdrive = packed_tb.generation_terms(
             bsim.static, kcc["tb"], bc["inc"], bc["t"])
         out["lanes"] = args.lanes
@@ -90,8 +104,50 @@ def main() -> int:
                 bc["E"], bc["H"], bc.get("J"), bc["psE"], kcc["E"]), 5)
             out[f"lanes_h_ms_{rep}"] = cs.timed(lambda: packed.h_update(
                 bc["H"], bc["E"], bc["psH"], kcc["H"]), 5)
+    for size in args.ds.split(",") if args.ds else ():
+        out[f"ds_{size}"] = ds_times(cs, dev, size)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def ds_times(cs, dev, size):
+    """The float32x2 step at ``size``^3 and its kernels, twice each."""
+    import torch
+    from fdtd3d_torch.ops import packed_ds, tfsf
+    from fdtd3d_torch.sim import Simulation
+    torch.cuda.empty_cache()
+    sim = Simulation(cs.config(cs.PRECISION, ["--same-size", size]),
+                     device=dev)
+    sim.advance(100)
+    carry = sim._carry
+    step = packed_ds.make_packed_ds_step(sim.static, dev)
+    cc = step.prepare(sim.coeffs)
+    out = {}
+    if hasattr(packed_ds, "ds_pass"):       # line kernel + one pass
+        from fdtd3d_torch.ops import packed
+        inc = carry["inc"]
+        line_dst = {k: torch.empty_like(v) for k, v in inc.items()}
+        spare = packed.alloc_like(carry)
+        pair = tfsf.line_source(sim.static.tfsf_setup, sim.static.omega,
+                                sim.static.dt)(int(carry["t"]))
+        kernels = {
+            "ds_line": lambda: packed_ds.line_advance(inc, line_dst, cc,
+                                                      pair),
+            "ds_pass": lambda: packed_ds.ds_pass(carry, spare, cc, inc,
+                                                 line_dst, None)}
+    else:                                   # two in-place launches
+        terms = packed_ds.record_terms(cc["plan"], carry["inc"])
+        kernels = {
+            "ds_e_update": lambda: packed_ds.e_update(
+                carry["E"], carry["H"], carry.get("J"), carry["psE"],
+                cc["E"], terms, None),
+            "ds_h_update": lambda: packed_ds.h_update(
+                carry["H"], carry["E"], carry["psH"], cc["H"], terms)}
+    for rep in range(2):
+        for name, fn in kernels.items():
+            out[f"{name}_ms_{rep}"] = cs.timed(fn, 20)
+        out[f"ds_step_ms_{rep}"] = cs.timed(lambda: step(carry, cc), 20)
+    return out
 
 
 if __name__ == "__main__":

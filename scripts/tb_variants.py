@@ -167,7 +167,7 @@ def carry_for(path, extra, dev, steps):
     """A pass's launch on the grid of the command file ``path`` (with the
     flags ``extra``) after ``steps``."""
     from fdtd3d_torch import cli
-    from fdtd3d_torch.ops import packed_tb
+    from fdtd3d_torch.ops import packed, packed_tb
     from fdtd3d_torch.sim import Simulation
     cfg = cli.args_to_config(cli.build_parser().parse_args(
         cli.read_cmd_file(path) + list(extra)))
@@ -176,7 +176,7 @@ def carry_for(path, extra, dev, steps):
     step = packed_tb.make_packed_tb_step(sim.static, dev)
     cc = step.prepare(sim.coeffs)
     carry = sim._carry
-    spare = packed_tb._alloc_like(carry)
+    spare = packed.alloc_like(carry)
     _, terms, drive = packed_tb.generation_terms(
         sim.static, cc["tb"], carry.get("inc"), carry["t"])
 

@@ -154,12 +154,12 @@ def test_ds_kernel_module_needs_no_nvcc_on_cpu():
     """The packed-ds wrappers take their plain versions for CPU
     tensors; nothing is built or launched."""
     from fdtd3d_torch.ops import packed_ds
-    packed_ds.e_update.launches = packed_ds.h_update.launches = 0
+    packed_ds.line_advance.launches = packed_ds.ds_pass.launches = 0
     sim = Simulation(SimConfig(**dict(SMALL, dtype="float32x2"),
                                use_pallas=True), device="cpu")
     sim.run()
     assert sim.step_kind == "packed_ds_plain"
-    assert packed_ds.e_update.launches == packed_ds.h_update.launches == 0
+    assert packed_ds.line_advance.launches == packed_ds.ds_pass.launches == 0
     assert build._LIBS == {}
 
 
