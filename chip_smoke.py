@@ -100,32 +100,41 @@ every lane):
 The kernel ladder below packed (``FDTD3D_NO_PACKED``,
 ``FDTD3D_FORCE_FUSED``, ``FDTD3D_NO_FUSED``), on the two-pass family
 kernel (``csrc/family.cu``, two launches a step) and the
-recompute-fused single pass (``csrc/fused_eh.cu``, one launch):
+recompute-fused pass (``csrc/fused_eh.cu``: one call a step, one kernel
+for each non-empty section of its work plan, with the x slab CPML, the
+TFSF record terms and the point source in the kernel):
 
-11. one launch of ``e_family``, ``h_family`` and ``fused_eh`` against
-   their plain versions on seeded inputs, then 8 whole two-pass and
-   fused steps against the same steps on the plain versions, at 256^3
-   (vacuum3D_tfsf), at 128^3 with the eps and Drude spheres, a point
-   source and the TFSF wave, and at the Mie example's 512^3 with its
-   coefficient grids; the gate is 2e-6 of each leaf's max;
+11. one launch of ``e_family``, ``h_family`` and one call of
+   ``fused_eh`` (with its record terms and point-source drive) against
+   their plain versions on seeded inputs, the fused call's worst error
+   also per section (over the cells its items own), then 8 whole
+   two-pass and fused steps against the same steps on the plain
+   versions, at 256^3 (vacuum3D_tfsf), at 128^3 with the eps and Drude
+   spheres, a point source and the TFSF wave, and at the Mie example's
+   512^3 with its coefficient grids; the gate is 2e-6 of each leaf's
+   max;
 12. the ladder's main path through the CLI: ``Examples/vacuum3D_tfsf.txt
    --same-size 256`` (150 steps) and ``Examples/sphere3D_mie.txt`` as it
    stands (512^3, 800 steps), each under ``FDTD3D_NO_PACKED`` +
    ``FDTD3D_NO_FUSED`` (kind ``pallas3d_cuda``) and under
    ``FDTD3D_NO_PACKED`` + ``FDTD3D_FORCE_FUSED`` (kind ``fused_cuda``),
    with DAT dumps and the finite check: the kind in the log, one launch
-   per family a step (two-pass) or one a step (fused) and none of the
-   main path's kernels, finite dumps, the TFSF leakage of the vacuum
+   per family a step (two-pass) or one call a step with the plan's
+   non-empty sections' kernels (fused) and none of the main path's
+   kernels, finite dumps, the TFSF leakage of the vacuum
    runs within 10x of the reference's, and the fused and two-pass dumps
    of each configuration within 1e-5 of the family max of each other;
 13. at 256^3 (150 steps in) and at the Mie example's 512^3 (200 steps
    in), the main path's shapes and coefficient grids: one launch of each
    ladder kernel and one step of each ladder step against their plain
-   versions at 2e-6 of each family's max, then same-call CUDA-event times
-   of each ladder launch and its plain version beside its bound, and of
-   the whole two-pass, fused, packed and temporal-blocked steps (the
-   data of ``fused_preferred``); both ladder steps at 256^3 under
-   torch.profiler.
+   versions at 2e-6 of each family's max (the fused call also per
+   section), then same-call CUDA-event times of each ladder launch and
+   its plain version beside its bound, with the fused kernels'
+   registers, spills and blocks an SM, and of the whole two-pass, fused,
+   packed and temporal-blocked steps (the data of ``fused_preferred``);
+   both ladder steps at 256^3 under torch.profiler (launches a step and
+   device busy share; the fused step must stay within
+   ``FUSED_LAUNCHES`` launches a step).
 
 Phases 1, 4, 7, 11, 13 and the checks of 9 (kernel against plain version,
 lane against solo) launch the kernels outside the main paths' counts;
@@ -168,6 +177,10 @@ STEPS_CMP = 10
 # f32 rounding accumulated over the run: ~1e-6 over hundreds of steps,
 # gated an order above
 LADDER_REL = 1e-5
+# device launches a step of the fused step at 256^3 under the profiler:
+# the two incident-line advances and the record terms (19 torch ops)
+# and at most six section kernels
+FUSED_LAUNCHES = 25
 # the reference's packed-ds gates (tests/test_pallas_packed_ds.py)
 DS_FIELD_TOL, DS_VACUUM_TOL, DS_PSI_TOL, DS_J_TOL = 1e-9, 1e-12, 1e-6, 1e-5
 DS_REL_BAR = 2e-7         # tests/test_float32x2.py:206
@@ -785,7 +798,7 @@ def profile_window(sim, steps):
         device_us += us
         launches += ev.count
         if any(n in ev.key for n in ("family_update", "tb_section",
-                                     "family_pass", "fused_eh",
+                                     "family_pass", "fused_section",
                                      "ds_section", "ds_line")):
             kernels_us[ev.key] = us / steps
     return {"wall_us_per_step": wall_us / steps,
@@ -1113,6 +1126,7 @@ def ladder_launches():
     return {"e_family": pallas3d.e_family.launches,
             "h_family": pallas3d.h_family.launches,
             "fused_eh": pallas_fused.fused_eh.launches,
+            "fused_eh_kernels": pallas_fused.fused_eh.kernels,
             "tb_pass": packed_tb.tb_pass.launches,
             "e_update": packed.e_update.launches,
             "h_update": packed.h_update.launches}
@@ -1126,6 +1140,7 @@ def reset_launches():
                packed_ds.line_advance, packed_ds.ds_pass, pallas3d.e_family,
                pallas3d.h_family, pallas_fused.fused_eh):
         fn.launches = 0
+    packed_ds.ds_pass.kernels = pallas_fused.fused_eh.kernels = 0
 
 
 def seeded_dict_state(cfg, dev, seed):
@@ -1154,17 +1169,85 @@ def as_tree(outs, names):
     return {n: o for n, o in zip(names, outs) if o is not None}
 
 
+def fused_args(static, coeffs, state):
+    """The fused call's arguments on a state, as its step makes them:
+    old E, H, the psi of every slab axis, J, the prepared operands, the
+    record terms after the state's E-incident advance, the point
+    source's drive."""
+    from fdtd3d_torch.ops import pallas3d, pallas_fused, tfsf
+    fp = pallas_fused.prepare(static, coeffs)
+    terms = None
+    if static.tfsf_setup is not None:
+        inc = tfsf.advance_einc(state["inc"], coeffs, state["t"], static.dt,
+                                static.omega, static.tfsf_setup)
+        terms = tfsf.record_terms(fp["plan"], inc)
+    psi = [{k: state[key][k] for v in pallas3d.kernel_psi_terms(
+        static, fam, x_slab=True).values() for _, k in v}
+        for key, fam in (("psi_E", "E"), ("psi_H", "H"))]
+    return (state["E"], state["H"], psi[0], psi[1], state.get("J"), fp,
+            terms, pallas_fused.point_drive(static, fp, state["t"]))
+
+
+FUSED_OUTS = ("E", "H", "psi_E", "psi_H", "J")
+
+
+def fused_section_errors(fp, got, want):
+    """The fused call's worst absolute error on E and H over the cells
+    each section's items own: section name -> error (None when the plan
+    has no item there)."""
+    import torch
+    from fdtd3d_torch.ops import pallas_fused
+    first = next(iter(got["E"].values()))
+    rows, counts = pallas_fused.device_plan(fp, first.device)
+    rows = rows.cpu().numpy()
+    owner = torch.full(first.shape, -1, dtype=torch.int8,
+                       device=first.device)
+    q0 = 0
+    for q, n in enumerate(counts):
+        for j0, k0, ny, nz, x0, x1 in rows[q0:q0 + n, :6]:
+            owner[x0:x1, j0:j0 + ny, k0:k0 + nz] = q
+        q0 += n
+    out = {}
+    for q, name in enumerate(pallas_fused.SECTIONS):
+        if not counts[q]:
+            out[name] = None
+            continue
+        mask = owner == q
+        out[name] = max(float(((got[f][c] - want[f][c]).abs() * mask).max())
+                        for f in ("E", "H") for c in got[f])
+    return out
+
+
+def fused_sections_per_step(static, dev):
+    """Non-empty sections of the fused pass's plan for ``static`` on
+    the card: its kernels a step."""
+    import torch
+    from fdtd3d_torch.ops import packed_tb, pallas_fused
+    from fdtd3d_torch.solver import slab_axes
+    m = tuple(slab_axes(static).get(a, 0) for a in range(3))
+    recs = packed_tb.tfsf_records(static)
+    records = [(r.axis, r.plane) for fam in ("E", "H") for r in recs[fam]]
+    ps = static.cfg.point_source
+    point = tuple(ps.position) if ps.enabled else None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, counts = pallas_fused.plan_items(tuple(static.grid_shape), m,
+                                        records, point, sms=sms)
+    return sum(n > 0 for n in counts)
+
+
 def ladder_vs_plain(cfg, dev, seed, label, steps=8):
-    """Phase 11: one launch of e_family, h_family and fused_eh against
-    their plain versions on seeded inputs, then ``steps`` whole steps of
-    the two-pass and the fused step against the same steps on the plain
-    versions, from one seeded state (the steps do not mutate it); the
-    worst absolute errors per kernel."""
+    """Phase 11: one launch of e_family, h_family and one fused_eh call
+    against their plain versions on seeded inputs (the fused call also
+    per section), then ``steps`` whole steps of the two-pass and the
+    fused step against the same steps on the plain versions, from one
+    seeded state (the steps do not mutate it); the worst absolute errors
+    per kernel."""
     import torch
     from fdtd3d_torch.ops import pallas3d, pallas_fused
     static, coeffs, st = seeded_dict_state(cfg, dev, seed)
     fe, fh, pe, ph = kernel_args(static, coeffs, st)
     J = st.get("J")
+    fargs = fused_args(static, coeffs, st)
     err = {}
     for name, fn, plain, args, outs in (
             ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
@@ -1172,12 +1255,14 @@ def ladder_vs_plain(cfg, dev, seed, label, steps=8):
             ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
              (st["H"], st["E"], ph, fh), ("H", "psi")),
             ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
-             (st["E"], st["H"], pe, ph, J, fe, fh),
-             ("E", "H", "psi_E", "psi_H", "J"))):
+             fargs, FUSED_OUTS)):
         got = as_tree(fn(*args), outs)
         want = as_tree(plain(*args), outs)
         torch.cuda.synchronize()
         err[name] = compare(got, want, f"{label}: one {name} launch")
+        if name == "fused_eh":
+            say(f"{label}: one fused_eh call per section, max abs err "
+                + json.dumps(fused_section_errors(fargs[5], got, want)))
     for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
                              ("fused", pallas_fused.make_fused_eh_step)):
         k_step = build_step(static, dev)
@@ -1261,19 +1346,26 @@ def rel_fields(got, want):
 
 def ladder_bytes(static, coeffs, state, kernel):
     """Bytes a launch must move: each field, psi, J and coefficient grid
-    it reads once, each output written once. ``kernel``: e_family,
-    h_family or fused_eh."""
+    it reads once (a grid whole, though the fused pass reads it only
+    inside the box where it differs from its background), each output
+    written once. ``kernel``: e_family, h_family or fused_eh (its psi of
+    every slab axis, x included, and the record terms)."""
     import torch
+    from fdtd3d_torch.ops import packed_tb, tfsf
     vol = 4 * static.grid_shape[0] * static.grid_shape[1] \
         * static.grid_shape[2]
     fams = {"e_family": "E", "h_family": "H", "fused_eh": "EH"}[kernel]
     n = (6 + 3 * len(fams)) * vol          # both families read, own written
     keys = []
+    if kernel == "fused_eh" and static.tfsf_setup is not None:
+        plan = tfsf.build_record_plan(static, coeffs,
+                                      packed_tb.tfsf_records(static))
+        n += 4 * (plan.total if plan is not None else 0)
     for fam in fams:
         psi = state["psi_E" if fam == "E" else "psi_H"] \
             if "psi_E" in state else {}
         n += sum(2 * v.numel() * 4 for k, v in psi.items()
-                 if not k.endswith("_x"))
+                 if kernel == "fused_eh" or not k.endswith("_x"))
         if fam == "E" and "J" in state:
             n += 2 * 3 * vol
             keys += [f"{p}_{c}" for p in ("kj", "bj") for c in state["J"]]
@@ -1289,7 +1381,8 @@ def ladder_bytes(static, coeffs, state, kernel):
 def ladder_flops(static, state, kernel):
     """Flops of a launch: per component two differences (sub, mul, add
     into the accumulator) and the update (2 mul + 1 add), 7 per slab psi
-    cell, 4 per Drude cell; the fused pass does both families."""
+    cell, 4 per Drude cell; the fused pass does both families, with the
+    psi of x too."""
     cells = static.grid_shape[0] * static.grid_shape[1] \
         * static.grid_shape[2]
     f = 0
@@ -1298,7 +1391,7 @@ def ladder_flops(static, state, kernel):
         psi = state["psi_E" if fam == "E" else "psi_H"] \
             if "psi_E" in state else {}
         f += sum(v.numel() * 7 for k, v in psi.items()
-                 if not k.endswith("_x"))
+                 if kernel == "fused_eh" or not k.endswith("_x"))
         if fam == "E" and "J" in state:
             f += 3 * cells * 4
     return f
@@ -1321,6 +1414,7 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
     st = sim.state
     fe, fh, pe, ph = kernel_args(static, coeffs, st)
     J = st.get("J")
+    fargs = fused_args(static, coeffs, st)
     out = {"shape": list(static.grid_shape), "advance": advance}
     err = {}
     for name, fn, plain, args, outs in (
@@ -1329,20 +1423,29 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
             ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
              (st["H"], st["E"], ph, fh), ("H", "psi")),
             ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
-             (st["E"], st["H"], pe, ph, J, fe, fh),
-             ("E", "H", "psi_E", "psi_H", "J"))):
+             fargs, FUSED_OUTS)):
         got = as_tree(fn(*args), outs)
         want = as_tree(plain(*args), outs)
         torch.cuda.synchronize()
         err[name] = compare(got, want, f"{label}: one {name} launch",
                             family=True)
+        if name == "fused_eh":
+            out["fused_section_err"] = fused_section_errors(fargs[5], got,
+                                                            want)
+            out["fused_occupancy"] = pallas_fused.occupancy()
+            out["fused_plan_counts"] = list(pallas_fused.device_plan(
+                fargs[5], dev)[1])
         del got, want
         out[f"{name}_ms"] = timed(lambda: fn(*args), reps)
         out[f"{name}_plain_ms"] = timed(lambda: plain(*args), plain_reps)
         nbytes = ladder_bytes(static, coeffs, st, name)
         out[f"{name}_bytes"] = nbytes
+        # the fused pass is built without FMA contraction: its
+        # operations issue at the non-FMA rate
+        flops = ladder_flops(static, st, name)
         out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = bound(
-            nbytes, ladder_flops(static, st, name))
+            nbytes, flops * F32_FLOPS / F32_NONFMA_OPS
+            if name == "fused_eh" else flops)
     for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
                              ("fused", pallas_fused.make_fused_eh_step)):
         k_step = build_step(static, dev)
@@ -1410,6 +1513,7 @@ def main() -> int:
         from fdtd3d_torch.io import load_dat
         from fdtd3d_torch.ops import build, packed, packed_ds, packed_tb
         from fdtd3d_torch.sim import Simulation
+        from fdtd3d_torch.solver import build_static
     except ImportError as exc:
         fail(f"the port is not importable from {ROOT}: {exc}")
     if "jax" in sys.modules or any(m.startswith("fdtd3d_tpu")
@@ -1824,9 +1928,12 @@ def main() -> int:
             rec, fields = ladder_cli(f"{label}_{kind}", argv, names, kind,
                                      cfg_l)
             n = cfg_l.time_steps
+            sections = fused_sections_per_step(build_static(cfg_l), dev)
             want = {"e_family": n if kind == "pallas3d_cuda" else 0,
                     "h_family": n if kind == "pallas3d_cuda" else 0,
                     "fused_eh": n if kind == "fused_cuda" else 0,
+                    "fused_eh_kernels":
+                        n * sections if kind == "fused_cuda" else 0,
                     "tb_pass": 0, "e_update": 0, "h_update": 0}
             if rec["launches"] != want:
                 fail(f"{label} {kind}: launches {rec['launches']} != {want}")
@@ -1869,6 +1976,11 @@ def main() -> int:
             del sim
         say(f"{kind} step at 256^3 under torch.profiler: "
             + json.dumps(prof))
+        if kind == "fused_cuda" \
+                and prof["launches_per_step"] > FUSED_LAUNCHES:
+            fail(f"the fused step at 256^3 launched "
+                 f"{prof['launches_per_step']} kernels a step (at most "
+                 f"{FUSED_LAUNCHES})")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1947,7 +2059,7 @@ def main() -> int:
              "fdtd3d_tpu/ops/pallas3d.py:293"),
             ("family.h_family", "h_family", fam_src,
              "fdtd3d_tpu/ops/pallas3d.py:293"),
-            ("fused_eh.fused_eh", "fused_eh", "fdtd3d_torch/csrc/fused_eh.cu",
+            ("fused_eh.pass", "fused_eh", "fdtd3d_torch/csrc/fused_eh.cu",
              "fdtd3d_tpu/ops/pallas_fused.py:423")):
         kernels.append({
             "name": kname, "route": "cuda", "source": source,

@@ -1,7 +1,9 @@
-// Per-cell arithmetic of one field family's update, shared by the
-// two-pass kernels (csrc/family.cu) and the recompute-fused pass
-// (csrc/fused_eh.cu), with the parameter blocks both fill
-// (mirrored in ctypes by fdtd3d_torch/ops/pallas3d.py).
+// Per-cell arithmetic of one field family's update for the two-pass
+// kernels (csrc/family.cu), with the parameter blocks (mirrored in
+// ctypes by fdtd3d_torch/ops/pallas3d.py) and index helpers that the
+// recompute-fused pass (csrc/fused_eh.cu) fills and uses too; the fused
+// pass has its own per-cell code (every axis's psi, records, point
+// source).
 //
 // Arrays are per component (n1, n2, n3) float32, C order, z innermost.
 // A curl term of component c is s * dfa, plus, on a y or z CPML slab,

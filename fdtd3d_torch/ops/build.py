@@ -32,13 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Flags of one library on top of NVCC_FLAGS. packed_ds carries
 # error-free transforms, which a contracted a*b+c breaks: no FMA
 # contraction, and never fast math (it would flush the subnormal low
-# words to zero).
+# words to zero). fused_eh computes redundant halo cells that must have
+# their owner's bits whichever section kernel computes them: no FMA
+# contraction either.
 LIBRARY_FLAGS: Dict[str, Tuple[str, ...]] = {
     "packed_eh": (),
     "packed_ds": ("--fmad=false",),
     "packed_tb": (),
     "family": (),
-    "fused_eh": (),
+    "fused_eh": ("--fmad=false",),
 }
 
 

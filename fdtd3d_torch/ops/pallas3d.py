@@ -38,12 +38,10 @@ family (3), so a step moves 18 field volumes (72 B/cell f32) plus the
 y/z psi slabs, against ~30 flops a cell per family.
 
 The patch helpers are thin torch counterparts of the reference's jnp
-helpers (``Patch`` :669, ``slab_post``/``x_slab_post`` :722/:852,
-``plane_corrections`` :859, ``tfsf_patch`` :961, ``point_source_patch``
-:1012), unsharded only. Each adds in place onto the fresh field tensors
-it is given and, with ``collect=`` a list, records the applied deltas as
-``Patch`` records for the recompute-fused step (ops/pallas_fused.py).
-The TFSF geometry comes from ``ops/tfsf.py``, the functions the plain
+helpers (``slab_post``/``x_slab_post`` :722/:852, ``plane_corrections``
+:859, ``tfsf_patch`` :961, ``point_source_patch`` :1012), unsharded
+only. Each adds in place onto the fresh field tensors it is given. The
+TFSF geometry comes from ``ops/tfsf.py``, the functions the plain
 step uses, so the two cannot drift; it is planned once per coefficient
 dict (``tfsf_plan``) and a step's patch is a few ops per face.
 
@@ -105,10 +103,12 @@ def check_scope(static, what: str) -> None:
         out(f"topology {tuple(static.topology)}", "A11")
 
 
-def kernel_psi_terms(static, family: str) -> Dict[str, List[Tuple[int, str]]]:
+def kernel_psi_terms(static, family: str,
+                     x_slab: bool = False) -> Dict[str, List[Tuple[int, str]]]:
     """component -> [(term index, psi key)] of the psi the family's
-    kernel updates in-kernel: the slab axes y and z (x is the post-pass
-    axis, the reference's ``_classify`` :159)."""
+    kernel updates in-kernel: the slab axes y and z (x is the two-pass
+    step's post-pass axis, the reference's ``_classify`` :159), and x
+    too with ``x_slab`` (the recompute-fused pass)."""
     slabs = slab_axes(static)
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
@@ -116,20 +116,22 @@ def kernel_psi_terms(static, family: str) -> Dict[str, List[Tuple[int, str]]]:
     for c in comps:
         terms = CURL_TERMS[component_axis(c)]
         out[c] = [(t, f"{c}_{AXES[a]}") for t, (a, _d, _s) in enumerate(terms)
-                  if a != 0 and a in slabs]
+                  if (x_slab or a != 0) and a in slabs]
     return out
 
 
-def family_operands(static, coeffs, family: str) -> Dict[str, Any]:
+def family_operands(static, coeffs, family: str,
+                    x_slab: bool = False) -> Dict[str, Any]:
     """One family's kernel operands from device coefficients: the
     material coefficients per component (host float or grid), the slab
-    CPML profiles (3, 2m) of the in-kernel axes, the in-kernel psi keys,
-    and the wall vectors (used by the plain version)."""
+    CPML profiles (3, 2m) of the in-kernel axes (y and z; x too with
+    ``x_slab``), the in-kernel psi keys, and the wall vectors (used by
+    the plain version)."""
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
     tag = "e" if family == "E" else "h"
     pa, pb = ("ca", "cb") if family == "E" else ("da", "db")
-    slabs = {a: m for a, m in slab_axes(static).items() if a != 0}
+    slabs = {a: m for a, m in slab_axes(static).items() if x_slab or a != 0}
     fc: Dict[str, Any] = {
         "family": family, "comps": tuple(comps),
         "shape": tuple(static.grid_shape),
@@ -137,7 +139,7 @@ def family_operands(static, coeffs, family: str) -> Dict[str, Any]:
         "a": [coeffs[f"{pa}_{c}"] for c in comps],
         "b": [coeffs[f"{pb}_{c}"] for c in comps],
         "kj": None, "bj": None, "m": slabs, "prof": {},
-        "psi": kernel_psi_terms(static, family),
+        "psi": kernel_psi_terms(static, family, x_slab),
         "wall": [coeffs[f"wall_{ax}"] for ax in AXES]}
     if family == "E" and static.use_drude:
         fc["kj"] = [coeffs[f"kj_{c}"] for c in comps]
@@ -153,10 +155,14 @@ def family_operands(static, coeffs, family: str) -> Dict[str, Any]:
 # plain versions (the kernel's arithmetic in torch; CPU tensors and tests)
 # --------------------------------------------------------------------------
 
-def _family_plain(F, S, psi, J, fc, backward: bool):
+def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
+                  point=None):
     """One family update as the kernel body computes it (:377-429):
     returns (new fields, new in-kernel psi, new J or None), fresh
-    tensors; the inputs are not touched."""
+    tensors; the inputs are not touched. ``records(ci, acc)`` and, for
+    E, ``point(ci, acc)`` add in-kernel sources to component ci's curl
+    accumulator (the recompute-fused pass, ops/pallas_fused.py): the
+    records after the curl, the point source after the Drude current."""
     diff = _diff_b if backward else _diff_f
     other = "H" if backward else "E"
     new_f, new_psi, new_j = {}, {}, ({} if J is not None else None)
@@ -173,9 +179,13 @@ def _family_plain(F, S, psi, J, fc, backward: bool):
                                               fc["m"][a])
                 term = term + fix
             acc = term if acc is None else acc + term
+        if records is not None:
+            acc = records(ci, acc)
         drude = None if J is None else (J[c], fc["kj"][ci], fc["bj"][ci])
+        hook = None if point is None else (lambda v, ci=ci: point(ci, v))
         new_f[c], jn = family_value(ci, F[c], acc, fc["a"][ci],
-                                    fc["b"][ci], fc["wall"], backward, drude)
+                                    fc["b"][ci], fc["wall"], backward, drude,
+                                    hook)
         if jn is not None:
             new_j[c] = jn
     return new_f, new_psi, new_j
@@ -385,19 +395,6 @@ h_family.launches = 0
 # thin patches on kernel output (the reference's jnp post-passes)
 # --------------------------------------------------------------------------
 
-class Patch(NamedTuple):
-    """One applied E-side field delta, for the recompute-fused step's
-    post-hoc H correction (pallas_fused.apply_patch_h_corrections): the
-    delta spans ``delta.shape[axis]`` planes of ``axis`` from ``start``
-    and the full extent of the other two axes. Unsharded only: the
-    reference's traced (sharded-axis) patches wait for A11."""
-
-    comp: str
-    axis: int
-    start: int
-    delta: torch.Tensor
-
-
 def _cut(f: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
     return f.narrow(axis, lo, hi - lo)
 
@@ -408,14 +405,12 @@ def _pad1(f: torch.Tensor, axis: int, lo_side: bool) -> torch.Tensor:
 
 
 def slab_post(static, family: str, fields, src, psi_ax, coeffs, slabs,
-              axis: int, collect=None):
+              axis: int):
     """One axis's CPML psi recursion and delta onto kernel output: the
     kernel computed the plain ``s * dfa`` for this axis's curl terms;
     the exact CPML term differs on the two slabs of ``axis`` by
     ``s * ((ik - 1) * dfa + psi')``. Adds in place onto ``fields``
-    (fresh kernel outputs) and returns (fields, new psi of the axis);
-    ``collect``, when a list, receives the applied deltas as Patch
-    records."""
+    (fresh kernel outputs) and returns (fields, new psi of the axis)."""
     mode = static.mode
     upd = mode.e_components if family == "E" else mode.h_components
     tag = "e" if family == "E" else "h"
@@ -479,19 +474,12 @@ def slab_post(static, family: str, fields, src, psi_ax, coeffs, slabs,
             add_hi = sign * cb_hi * dh
             cut(fields[c], 0, m).add_(add_lo)
             cut(fields[c], n1 - m, n1).add_(add_hi)
-            if collect is not None:
-                shape = list(fields[c].shape)
-                shape[axis] = m
-                collect.append(Patch(c, axis, 0, add_lo.expand(shape)))
-                collect.append(Patch(c, axis, n1 - m, add_hi.expand(shape)))
     return fields, new_psi
 
 
-def x_slab_post(static, family, fields, src, psi_x, coeffs, slabs,
-                collect=None):
+def x_slab_post(static, family, fields, src, psi_x, coeffs, slabs):
     """Axis-0 wrapper of slab_post (the two-pass kernels' post-pass)."""
-    return slab_post(static, family, fields, src, psi_x, coeffs, slabs, 0,
-                     collect)
+    return slab_post(static, family, fields, src, psi_x, coeffs, slabs, 0)
 
 
 class FacePatch(NamedTuple):
@@ -571,13 +559,11 @@ def tfsf_plan(static, coeffs, family: str) -> List[FacePatch]:
     return plan
 
 
-def tfsf_patch(static, family: str, fields, coeffs, inc, collect=None,
+def tfsf_patch(static, family: str, fields, coeffs, inc,
                plan: Optional[List[FacePatch]] = None):
     """Add the TFSF face corrections onto the kernel output planes, in
     place (``cb * term`` per face: the reference's ``tfsf_patch`` :961).
-    ``plan``: ``tfsf_plan``'s result, made here when not given.
-    ``collect``, when a list, receives the applied deltas as Patch
-    records."""
+    ``plan``: ``tfsf_plan``'s result, made here when not given."""
     if plan is None:
         plan = tfsf_plan(static, coeffs, family)
     for fp in plan:
@@ -585,12 +571,7 @@ def tfsf_patch(static, family: str, fields, coeffs, inc, collect=None,
         term = fp.k * (fp.ow * line[fp.i0] + fp.w * line[fp.i1])
         if fp.mask is not None:
             term = term * fp.mask
-        val = fp.coef * term
-        dst = fields[fp.comp].narrow(fp.axis, fp.plane, 1)
-        dst.add_(val)
-        if collect is not None:
-            collect.append(Patch(fp.comp, fp.axis, fp.plane,
-                                 val.expand(dst.shape)))
+        fields[fp.comp].narrow(fp.axis, fp.plane, 1).add_(fp.coef * term)
     return fields
 
 
@@ -610,12 +591,10 @@ def point_plan(static, coeffs):
     return ps.component, idx, scale
 
 
-def point_source_patch(static, fields, coeffs, t: int, collect=None,
-                       plan=None):
+def point_source_patch(static, fields, coeffs, t: int, plan=None):
     """Soft point source as a single-cell add, in place
     (``ps_amp * cb * waveform``: the reference's ``point_source_patch``
-    :1012). ``collect``: receives the applied delta as a one-x-plane
-    Patch with a single nonzero cell."""
+    :1012)."""
     if plan is None:
         plan = point_plan(static, coeffs)
     if plan is None:
@@ -629,12 +608,6 @@ def point_source_patch(static, fields, coeffs, t: int, collect=None,
     else:
         val = float(np.float32(scale) * wf)
     fields[c][i, j, k].add_(val)
-    if collect is not None:
-        f = fields[c]
-        plane = torch.zeros((1,) + tuple(f.shape[1:]), dtype=f.dtype,
-                            device=f.device)
-        plane[0, j, k] = val
-        collect.append(Patch(c, 0, i, plane))
     return fields
 
 

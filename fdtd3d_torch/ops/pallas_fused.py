@@ -1,59 +1,80 @@
-"""Recompute-fused single pass: one CUDA launch for E and H a step.
+"""Recompute-fused single pass: a whole Yee step in one x-marching pass.
 
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas_fused.py::make_fused_eh_step`` (builder :310,
 kernel body :423, ``pallas_call`` :709) for 3D real float32, unsharded,
 with the hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/fused_eh.cu``
 (``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
-rather than Triton, as for the port's other stencils.
+rather than Triton, as for the port's other stencils: a marching stencil
+with shared-memory plane rings fed by cp.async and CPML slab branches.
 
-The kernel computes new E on each block's cells **plus a redundant
-halo** (one x plane ahead, one y row and one z column) from old E, H,
-psi_E, J and the E-side coefficients there, then new H on the block's
-cells from that new E: no block waits on another, which suits CUDA's
-unordered blocks (see the source's header for the blocking). It moves
-12 field volumes a step (48 B/cell f32) plus psi and the halo re-reads,
-against the two-pass step's 18 (ops/pallas3d.py). It writes out of
-place: the redundant halo reads old E, psi_E and J, and the E update's
-backward differences read old H, on cells a neighbouring block writes.
+What the pass computes: new E with every term in the kernel (the curl
+of H, the CPML psi of all three slab axes, x included, the TFSF record
+terms added into the accumulator before the cb multiply, the Drude
+current, the point source after it, the PEC walls), then new H from
+that final E (its own psi of every axis and its TFSF records). So the
+reference's schedule, whose kernel computes H from the pre-patch E and
+whose step then adds the x-slab post-pass, the TFSF and point patches
+and the curl of those patches onto H, becomes one computation with
+nothing patched afterwards. It moves 12 field volumes a step (48 B/cell
+f32) plus psi, against the two-pass step's 18 (ops/pallas3d.py), and
+writes out of place: a block computes E redundantly on a halo of cells
+that a neighbouring block owns, from the old state.
 
-A step (the reference's :729-817): the E-incident line; the kernel
-(``fused_eh``: E and H, with the **pure** curl on x, y/z slab psi,
-Drude J, walls); the E post-passes with ``collect`` (x-slab CPML, TFSF
-E patch, point source, ops/pallas3d.py); ``apply_patch_h_corrections``,
-which adds to H the curl of those E patches (the kernel computed H from
-the pre-patch E; the update is linear); the H-incident line; the H
-x-slab post-pass on the corrected E; the TFSF H patch. The state dict
-is not mutated: a new one is returned.
+A step: the E-incident line advance; ``tfsf.record_terms`` (E records
+sample Hinc before the Hinc advance, H records Einc after the Einc
+advance: both known here); the pass (``fused_eh``: one kernel for each
+non-empty section of the work plan); the H-incident line advance. No
+other op runs between the record terms and the H-incident advance. The
+state dict is not mutated: a new one is returned.
 
-``fused_eh_plain`` is the kernel's plain PyTorch version with its
-schedule (H from the pre-patch E), so the step built on it goes through
-the same patch corrections: the CPU tests hold it against the
-reference's interpret-mode kernel and ``chip_smoke.py`` holds the
-kernel against it on the card. ``fused_eh.launches`` counts launches.
+The work plan (``plan_items``, made once per prepared operand set and
+card, a small int32 device tensor): (y, z) tiles over x segments, the x
+axis cut along its CPML bands, each item classed by the cells it
+computes, its hi E halo included (one x plane, one y row and one z
+column beyond what it owns): SLAB if one lies in a CPML slab, SOURCE if
+one lies on a TFSF record's plane or is the point source's cell, PLAIN
+otherwise. The sections of SECTIONS run them, each by its own kernel,
+heaviest first; the inner kernel has no slab, record or point code, so a
+halo cell always runs its owner's code. ``packed_tb.material`` finds the
+box outside which the coefficient grids hold their background value;
+only the items that reach it read the grids. The CPU tests check the
+plan (tests/test_torch_fused_plan.py) and emulate the schedule item by
+item (tests/test_torch_fused_kernel.py).
+
+``fused_eh_plain`` is the kernel's plain PyTorch version in the kernel's
+order (E with every term, then H from that E): the CPU step (kind
+``fused_plain``) runs it, the CPU tests hold it against the reference's
+interpret-mode kernel and ``chip_smoke.py`` holds the kernel against it
+on the card. The wrapper ``fused_eh`` takes it only for CPU tensors; on
+a CUDA tensor it launches the kernel or raises. ``fused_eh.launches``
+counts its calls (one a step), ``fused_eh.kernels`` the section kernels
+those calls launched.
 
 Eligibility (``eligible``): the reference's ``pallas_fused.eligible``
 (:48) and every CPML axis slab-compacted (:317-321). Magnetic Drude K
 (A4(b)), bf16 storage (A4(a)) and sharded runs (A11) raise
-``NotImplementedError`` naming their ROADMAP.md item; the reference's
-sharded-only ``_traced_patch_fix`` waits for A11.
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from fdtd3d_torch.layout import CURL_TERMS, component_axis
-from fdtd3d_torch.ops import pallas3d, tfsf
+from fdtd3d_torch.ops import packed_tb, pallas3d, tfsf
 from fdtd3d_torch.ops.pallas3d import Drude, FamOps, Grid
-from fdtd3d_torch.solver import _bcast1d, slab_axes
+from fdtd3d_torch.ops.sources import waveform
+from fdtd3d_torch.solver import slab_axes
 
 AXES = "xyz"
 _LIB = "fused_eh"
+MAX_REC = 16          # records per family; mirrors csrc/fused_eh.cu
+PLAN_COLS = 8         # ints a plan row; mirrors csrc/fused_eh.cu
+TILE = (10, 32)       # owned (y, z) cells of a tile at the source's BY, BZ
 
 
 def eligible(static) -> bool:
@@ -75,7 +96,7 @@ def fused_preferred(static) -> bool:
     not copied). A pure function of the static setup.
 
     Set from same-call CUDA-event times on an NVIDIA H100 80GB HBM3 at
-    700 W (``chip_smoke.py`` phase 13): the fused launch against the
+    700 W (``chip_smoke.py`` phase 13): the fused pass against the
     two-pass kernels' E + H launches, and the whole steps, on
     ``Examples/vacuum3D_tfsf.txt --same-size 256`` and on
     ``Examples/sphere3D_mie.txt`` (512^3, eps-sphere coefficient grids):
@@ -83,159 +104,412 @@ def fused_preferred(static) -> bool:
     ========  ==========  ==============  ==========  =============
     grid      fused (ms)  two-pass E + H  fused step  two-pass step
     ========  ==========  ==============  ==========  =============
-    256^3     0.726       0.327 + 0.322   7.82        4.24
-    512^3     5.77        3.21 + 2.40     8.15        7.06
+    256^3     0.600       0.319 + 0.325   0.665       2.561
+    512^3     4.177       3.263 + 2.450   4.297       7.240
     ========  ==========  ==============  ==========  =============
 
-    The fused launch moves 2/3 of the bytes but is latency-bound (a
-    barrier-separated march over x) and ran 1.03-1.12x the two launches;
-    its step adds the H corrections of the E patches, ~160 more small
-    ops a step, which the host cannot hide at 256^3. The two-pass step
-    is the faster at both sizes, so the rule picks it for every
-    configuration; ``FDTD3D_FORCE_FUSED`` still takes the fused twin.
-
-    So the rule is the constant False until a measured crossover exists:
-    no configuration measured yet has the fused step ahead, so there is
-    nothing in the static setup for it to read."""
-    return False
+    The fused step computes everything in its pass (no patch, no H
+    correction: 24 launches a step under the profiler at 256^3, where
+    the two-pass step enqueues 192 and is host-bound), and its pass
+    moves 2/3 of the two-pass kernels' bytes and reads the coefficient
+    grids only inside their box. It is the faster step at both sizes, so
+    the rule picks it wherever it is ``eligible``."""
+    return eligible(static)
 
 
-def _shift_lo(v: torch.Tensor, axis: int) -> torch.Tensor:
-    """v shifted one plane toward lo along axis, zero-filled at hi."""
-    n = v.shape[axis]
-    out = torch.zeros_like(v)
-    out.narrow(axis, 0, n - 1).copy_(v.narrow(axis, 1, n - 1))
+# --------------------------------------------------------------------------
+# the kernel's work plan (host side; csrc/fused_eh.cu runs it)
+# --------------------------------------------------------------------------
+
+PLAIN, SOURCE, SLAB = 0, 1, 2   # item classes, lightest first
+# the kernel's sections, in launch order (csrc/fused_eh.cu, kKernels):
+# the SLAB items touching the slabs of several axes, of x only, of y
+# only, of z only, then the SOURCE items, then the PLAIN ones
+SECTIONS = ("edge", "edge_x", "edge_y", "edge_z", "source", "inner")
+# the slab axes each section's kernel has compiled in (bit a for axis a)
+SECTION_AXES = (7, 1, 2, 4, 0, 0)
+# relative cost of one plane of an item, by class: the sections run in
+# this order, heaviest first, and each section's items heaviest first
+CLASS_COST = {PLAIN: 1.0, SOURCE: 1.2, SLAB: 1.7}
+# x segment lengths, the first that gives every SM four items
+SEGMENTS = (16, 10)
+
+
+def _pieces(a: int, b: int, k: int) -> List[Tuple[int, int]]:
+    """[a, b) in k near-equal pieces (fewer if it is shorter than k)."""
+    n = b - a
+    k = max(1, min(k, n))
+    cuts = [a + (n * q) // k for q in range(k + 1)]
+    return list(zip(cuts[:-1], cuts[1:])) if n > 0 else []
+
+
+def _bands(n: int, m: int) -> Tuple[int, int]:
+    """Widths of the low and high CPML bands of an axis with an m-plane
+    slab: an owned range computes E one cell above it (H reads it), so
+    an owned range clear of the slab starts at m and ends by n - m - 1."""
+    if m <= 0:
+        return 0, 0
+    lo, hi = m, m + 1
+    return (n, 0) if lo + hi >= n else (lo, hi)
+
+
+def _axis_cuts(n: int, m: int, size: int, bands: bool,
+               aligned: bool = False) -> List[Tuple[int, int]]:
+    """Owned ranges of an axis: each CPML band and the interior between
+    them apart (``bands``), or the whole axis at once, in the fewest
+    near-equal pieces of at most ``size``, or (``aligned``) cut at the
+    multiples of ``size``."""
+    lo, hi = _bands(n, m) if bands else (0, 0)
+    out: List[Tuple[int, int]] = []
+    for a, b in ((0, lo), (lo, n - hi), (n - hi, n)):
+        if b > a and aligned:
+            cuts = [a] + list(range((a // size + 1) * size, b, size)) + [b]
+            out += list(zip(cuts[:-1], cuts[1:]))
+        elif b > a:
+            out += _pieces(a, b, -(-(b - a) // size))
     return out
 
 
-def apply_patch_h_corrections(static, new_H, psi_H, patches, coeffs,
-                              slabs):
-    """Correct the kernel's H for the post-kernel E patches, in place
-    (the reference's :142, unsharded branch). The kernel computed H from
-    E' (pre-patch); the exact H uses E' + sum(patches), and the update is
-    linear, so dH_c = -db_c * sum_terms s * F_a(D_a(dE_d)/dx) at the
-    patches' planes only, with F_a the kernel's CPML handling of axis a:
-    the identity on x (the post axis: the x-slab delta is added later
-    over the corrected E) and where a has no CPML; ``ik + c`` on a y/z
-    slab axis, whose stored psi' also needs ``+c * D_a(dE)/dx`` at the
-    slab overlap."""
-    mode = static.mode
-    inv_dx = float(np.float32(1.0 / static.dx))
+def computed_box(item, shape) -> Tuple[Tuple[int, int], ...]:
+    """The cells an item computes (inclusive bounds per axis): E on its
+    owned box grown by one cell above on every axis (H reads it), H on
+    the owned box, inside the grid. ``item`` = (j0, k0, ny, nz, x0,
+    x1)."""
+    j0, k0, ny, nz, x0, x1 = (int(v) for v in item[:6])
+    return ((x0, min(x1, shape[0] - 1)), (j0, min(j0 + ny, shape[1] - 1)),
+            (k0, min(k0 + nz, shape[2] - 1)))
 
-    def slab_f(a: int, lo: int, hi: int) -> torch.Tensor:
-        """F = ik + c at absolute planes [lo, hi) of axis a, from the
-        full-length h profiles (the identity outside the absorber)."""
-        v = (coeffs[f"pml_ikh_{AXES[a]}"] + coeffs[f"pml_ch_{AXES[a]}"])
-        return _bcast1d(v[lo:hi], a)
 
-    for c in mode.h_components:
-        db = coeffs[f"db_{c}"]
-        for (a, d_axis, s) in CURL_TERMS[component_axis(c)]:
-            d = "E" + AXES[d_axis]
-            for p in patches:
-                if p.comp != d:
-                    continue
-                b, start, delta = p.axis, p.start, p.delta
-                k = delta.shape[b]
-                n_a = static.grid_shape[a]
-                if a == b:
-                    # forward diff along the patch normal: k+1 planes from
-                    # start-1 (zero ghost beyond the patch)
-                    z = torch.zeros_like(delta.narrow(a, 0, 1))
-                    vpad = torch.cat([z, delta, z], dim=a)
-                    w = (vpad.narrow(a, 1, k + 1)
-                         - vpad.narrow(a, 0, k + 1)) * inv_dx
-                    pstart = start - 1
-                    lo_clip = max(0, -pstart)
-                    hi_clip = min(k + 1, n_a - pstart)
-                    if hi_clip <= lo_clip:
-                        continue
-                    w = w.narrow(a, lo_clip, hi_clip - lo_clip)
-                    pstart += lo_clip
-                    plen = hi_clip - lo_clip
-                else:
-                    # in-patch forward diff along a (PEC zero ghost at hi)
-                    w = (_shift_lo(delta, a) - delta) * inv_dx
-                    pstart, plen = start, k
-                pa = a if a == b else b
-                if a in slabs and a != 0:
-                    if a == b:
-                        dacc = s * slab_f(a, pstart, pstart + plen) * w
-                    else:
-                        dacc = s * slab_f(a, 0, n_a) * w
-                    key = f"{c}_{AXES[a]}"
-                    m = slabs[a]
-                    c_prof = coeffs[f"pml_slab_ch_{AXES[a]}"]
-                    if a == b:
-                        # patch planes vs slabs [0, m) and [n_a-m, n_a),
-                        # compact [0, m) / [m, 2m)
-                        for (s_lo, s_hi, c_off) in ((0, m, 0),
-                                                    (n_a - m, n_a, m)):
-                            o_lo = max(pstart, s_lo)
-                            o_hi = min(pstart + plen, s_hi)
-                            if o_hi <= o_lo:
-                                continue
-                            q = c_off + o_lo - s_lo
-                            cp = _bcast1d(c_prof[q:q + o_hi - o_lo], a)
-                            psi_H[key].narrow(a, q, o_hi - o_lo).add_(
-                                cp * w.narrow(a, o_lo - pstart, o_hi - o_lo))
-                    else:
-                        add = torch.cat(
-                            [_bcast1d(c_prof[:m], a) * w.narrow(a, 0, m),
-                             _bcast1d(c_prof[m:], a)
-                             * w.narrow(a, n_a - m, m)], dim=a)
-                        psi_H[key].narrow(b, pstart, plen).add_(add)
-                else:
-                    dacc = s * w
-                db_sl = db.narrow(pa, pstart, plen) \
-                    if isinstance(db, torch.Tensor) else db
-                new_H[c].narrow(pa, pstart, plen).add_(-db_sl * dacc)
-    return new_H, psi_H
+def item_axes(shape, m, item) -> int:
+    """The axes whose CPML slab holds a cell the item computes (bit a for
+    axis a)."""
+    box = computed_box(item, shape)
+    return sum(1 << a for a in range(3)
+               if m[a] > 0 and (box[a][0] < m[a]
+                                or box[a][1] >= shape[a] - m[a]))
+
+
+def item_class(shape, m, records, point, item) -> int:
+    """SLAB if a cell the item computes lies in a CPML slab; else SOURCE
+    if one lies on a record's plane or is the point source's cell; else
+    PLAIN."""
+    if item_axes(shape, m, item):
+        return SLAB
+    box = computed_box(item, shape)
+    if any(box[axis][0] <= plane <= box[axis][1]
+           for axis, plane in records):
+        return SOURCE
+    if point is not None and all(box[a][0] <= point[a] <= box[a][1]
+                                 for a in range(3)):
+        return SOURCE
+    return PLAIN
+
+
+def section(shape, m, row) -> int:
+    """The section of SECTIONS that runs an item (a plan row)."""
+    if row[6] == SLAB:
+        return {1: 1, 2: 2, 4: 3}.get(item_axes(shape, m, row), 0)
+    return 4 if row[6] == SOURCE else 5
+
+
+def reads_grid(item, shape, grids) -> bool:
+    """Whether an item's computed cells read a coefficient grid:
+    ``grids`` is None (no grid), "all" (everywhere), or the box
+    (inclusive bounds per axis, or () when empty) outside which every
+    grid holds its background value."""
+    if grids is None or grids == ():
+        return False
+    if grids == "all":
+        return True
+    box = computed_box(item, shape)
+    return all(box[a][0] <= grids[a][1] and grids[a][0] <= box[a][1]
+               for a in range(3))
+
+
+def item_cost(row) -> float:
+    """The plan's estimate of an item's time: planes marched (the halo
+    plane included) times its class's cost."""
+    return (row[5] - row[4] + 1) * CLASS_COST[row[6]]
+
+
+def plan_items(shape, m, records=(), point=None, tile=TILE, sms=132,
+               grids=None, segments=SEGMENTS,
+               bands=False) -> Tuple[np.ndarray, Tuple[int, ...]]:
+    """The pass's work items: (rows, counts).
+
+    ``rows`` is (n, PLAN_COLS) int32: j0, k0, ny, nz, x0, x1, class,
+    grid (an owned box of at most ``tile`` (y, z) cells over x planes
+    [x0, x1); ``grid`` 1 if its computed cells read a coefficient grid,
+    ``reads_grid``), in the sections of SECTIONS (``counts`` items each,
+    the kernel's launches in order; ``section``), heaviest first within
+    each (``item_cost``), ties in the order of their x segments. The x
+    axis is cut along its CPML bands into segments of at most the
+    segment length; y as a whole into near-equal pieces of at most
+    ``tile``; z at the multiples of the tile's width, so that each owned
+    row is whole aligned 128-byte lines (with ``bands``, y and z band by
+    band like x), so the owned boxes tile the grid exactly once. The x segments are the
+    first of ``segments`` long that gives the card's ``sms`` SMs four
+    items each (else the last). ``m``: slab planes per axis (0: no
+    CPML); ``records``: (normal axis, plane) of every TFSF record of
+    both families; ``point``: the point source's cell or None."""
+    m = tuple(m)
+    records = [tuple(r) for r in records]
+    ycuts = _axis_cuts(shape[1], m[1], tile[0], bands)
+    zcuts = _axis_cuts(shape[2], m[2], tile[1], bands, aligned=True)
+    for seg in segments:
+        rows = []
+        for x0, x1 in _axis_cuts(shape[0], m[0], seg, True):
+            for j0, j1 in ycuts:
+                for k0, k1 in zcuts:
+                    item = (j0, k0, j1 - j0, k1 - k0, x0, x1)
+                    rows.append(item + (
+                        item_class(shape, m, records, point, item),
+                        int(reads_grid(item, shape, grids))))
+        if len(rows) >= 4 * sms:
+            break
+    sections: List[list] = [[] for _ in SECTIONS]
+    for r in rows:
+        sections[section(shape, m, r)].append(r)
+    for sec in sections:
+        sec.sort(key=item_cost, reverse=True)
+    rows = np.array([r for sec in sections for r in sec],
+                    dtype=np.int32).reshape(-1, PLAN_COLS)
+    return rows, tuple(len(sec) for sec in sections)
+
+
+# --------------------------------------------------------------------------
+# the prepared operands
+# --------------------------------------------------------------------------
+
+def prepare(static, coeffs) -> Dict[str, Any]:
+    """The pass's operands from device coefficients: each family's
+    (``pallas3d.family_operands`` with the x slab in the kernel), the
+    record plan and tables (``tfsf.build_record_plan`` over the TFSF
+    records of ``packed_tb.tfsf_records``: (component index, normal axis,
+    plane, offset) per record, in the order the kernel adds them), and
+    the point source's cell and f32 amplitude."""
+    records = packed_tb.tfsf_records(static)
+    plan = tfsf.build_record_plan(static, coeffs, records)
+    fp: Dict[str, Any] = {
+        "coeffs": coeffs, "shape": tuple(static.grid_shape),
+        "E": pallas3d.family_operands(static, coeffs, "E", x_slab=True),
+        "H": pallas3d.family_operands(static, coeffs, "H", x_slab=True),
+        "plan": plan, "point": None, "amp": None}
+    for fam in ("E", "H"):
+        if len(records[fam]) > MAX_REC:
+            raise ValueError(f"{len(records[fam])} TFSF records in the "
+                             f"{fam} family; the kernel takes at most "
+                             f"{MAX_REC}")
+        fp[f"rec_{fam}"] = [(rec.comp, rec.axis, rec.plane,
+                             plan.offsets[(fam, r)])
+                            for r, rec in enumerate(records[fam])]
+    ps = static.cfg.point_source
+    if ps.enabled and ps.component in static.mode.e_components:
+        fp["point"] = (static.mode.e_components.index(ps.component),
+                       tuple(ps.position))
+        fp["amp"] = np.float32(
+            torch.as_tensor(coeffs["ps_amp"]).reshape(-1)[0].item())
+    return fp
+
+
+def point_drive(static, fp, t: int) -> Optional[float]:
+    """The point source's add at step t, ``ps_amp * waveform(t)`` in f32
+    (the temporal-blocked pass's drive), or None without one."""
+    if fp["point"] is None:
+        return None
+    ps = static.cfg.point_source
+    wf = waveform(ps.waveform, t, 0.5, static.omega, static.dt,
+                  static.real_dtype)
+    return float(fp["amp"] * wf)
 
 
 # --------------------------------------------------------------------------
 # the kernel: plain version and CUDA wrapper
 # --------------------------------------------------------------------------
 
-def fused_eh_plain(E, H, psi_e, psi_h, J, fce, fch):
-    """The kernel's schedule in torch: new E (the pure x curl, y/z slab
-    psi, J, walls), then new H from that pre-patch E. Returns (E', H',
-    psi_E', psi_H', J' or None), fresh tensors."""
-    new_e, pe, new_j = pallas3d.e_family_plain(E, H, psi_e, J, fce)
-    new_h, ph = pallas3d.h_family_plain(H, new_e, psi_h, fch)
+def _record_adder(fp, fam: str, terms):
+    """records(ci, acc): each record of component ci adds its plane term
+    at its plane, in table order."""
+    shape = fp["shape"]
+    table = fp[f"rec_{fam}"]
+
+    def add(ci, acc):
+        for comp, axis, plane, off in table:
+            if comp != ci:
+                continue
+            ps = tfsf.plane_shape(shape, axis)
+            term = terms.narrow(0, off, int(np.prod(ps))).reshape(ps)
+            acc.narrow(axis, plane, 1).add_(term)
+        return acc
+
+    return add
+
+
+def _point_adder(fp, drive):
+    comp, (i, j, k) = fp["point"]
+
+    def add(ci, acc):
+        if ci == comp:
+            acc[i:i + 1, j:j + 1, k:k + 1] += drive
+        return acc
+
+    return add
+
+
+def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive):
+    """The kernel's computation in torch: new E with every term (the
+    psi of every slab axis, the record terms before the cb multiply,
+    Drude J, the point source ``drive`` after it, walls), then new H
+    from that E (its psi and records). ``terms``: ``record_terms``'
+    vector or None; ``drive``: the point source's add or None. Returns
+    (E', H', psi_E', psi_H', J' or None), fresh tensors."""
+    rec_e = rec_h = point = None
+    if terms is not None:
+        rec_e = _record_adder(fp, "E", terms)
+        rec_h = _record_adder(fp, "H", terms)
+    if drive is not None:
+        point = _point_adder(fp, drive)
+    new_e, pe, new_j = pallas3d._family_plain(E, H, psi_e, J, fp["E"],
+                                              True, rec_e, point)
+    new_h, ph, _ = pallas3d._family_plain(H, new_e, psi_h, None, fp["H"],
+                                          False, rec_h)
     return new_e, new_h, pe, ph, new_j
+
+
+class _Rec(ctypes.Structure):
+    """Mirror of ``struct Rec`` in csrc/fused_eh.cu."""
+    _fields_ = [("off", ctypes.c_int), ("comp", ctypes.c_int),
+                ("axis", ctypes.c_int), ("plane", ctypes.c_int)]
 
 
 class _Params(ctypes.Structure):
     """Mirror of ``struct Params`` in csrc/fused_eh.cu."""
-    _fields_ = [("e", FamOps), ("h", FamOps), ("dr", Drude), ("g", Grid)]
+    _fields_ = [("e", FamOps), ("h", FamOps), ("dr", Drude), ("g", Grid),
+                ("terms", ctypes.c_void_p), ("plan", ctypes.c_void_p),
+                ("rec", (_Rec * MAX_REC) * 2), ("n_rec", ctypes.c_int * 2),
+                ("pc", ctypes.c_int), ("pi", ctypes.c_int),
+                ("pj", ctypes.c_int), ("pk", ctypes.c_int),
+                ("drive", ctypes.c_float),
+                ("n_item", ctypes.c_int * len(SECTIONS))]
 
 
-def fused_params(E, H, psi_e, psi_h, J, fce, fch):
-    """The launch's parameter block on CUDA tensors, with fresh outputs:
-    (params, (E', H', psi_E', psi_H', J' or None))."""
-    device = E[fce["comps"][0]].device
+def _library() -> ctypes.CDLL:
+    lib = pallas3d.bind(_LIB, ("fdtd_fused_pass",), _Params)
+    if not getattr(lib, "_fused_bound", False):
+        for fn in ("fdtd_fused_tile", "fdtd_fused_occupancy"):
+            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+            getattr(lib, fn).restype = ctypes.c_int
+        lib._fused_bound = True
+    return lib
+
+
+def _material(fp):
+    """``packed_tb.material(fp)``, computed once per prepared operand
+    set."""
+    if "_material" not in fp:
+        fp["_material"] = packed_tb.material(fp)
+    return fp["_material"]
+
+
+def device_plan(fp, device, lib=None) -> Tuple[torch.Tensor,
+                                               Tuple[int, ...]]:
+    """The plan of a prepared pass on ``device`` for the tile the library
+    was built with, the card's SM count and the grids' box, built once:
+    (rows, counts)."""
+    lib = lib or _library()
+    geo = (ctypes.c_int * 2)()
+    lib.fdtd_fused_tile(ctypes.addressof(geo))
+    key = (device, tuple(geo))
+    cached = fp.get("_plan")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    m, records, point = packed_tb.plan_geometry(fp)
+    rows, counts = plan_items(fp["shape"], m, records, point,
+                              tile=(geo[0], geo[1]), sms=sms,
+                              grids=_material(fp)[0])
+    plan = (torch.from_numpy(rows).to(device), counts)
+    fp["_plan"] = (key, plan)
+    return plan
+
+
+def occupancy() -> Dict[str, Dict[str, int]]:
+    """Registers and local (spill) bytes a thread, resident blocks an SM
+    and static shared bytes of each section's kernel, as the CUDA runtime
+    reports them for the card."""
+    lib = _library()
+    out = (ctypes.c_int * (4 * len(SECTIONS)))()
+    err = lib.fdtd_fused_occupancy(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fdtd_fused_occupancy failed: CUDA error {err} "
+                           f"({lib.fdtd_error_string(err).decode()})")
+    keys = ("registers", "local_bytes", "blocks_per_sm", "static_smem")
+    return {n: {k: out[4 * q + i] for i, k in enumerate(keys)}
+            for q, n in enumerate(SECTIONS)}
+
+
+def _static_params(fp, device, lib) -> _Params:
+    """The part of the parameter block that does not change from call to
+    call (the work plan, the record tables, the point source's cell),
+    built once per prepared operand set and device."""
+    cached = fp.get("_params")
+    if cached is not None and cached[0] == device:
+        return cached[1]
     prm = _Params()
-    new_e, pe = pallas3d.fill_family(prm.e, E, psi_e, fce, device)
-    new_h, ph = pallas3d.fill_family(prm.h, H, psi_h, fch, device)
-    new_j = pallas3d.fill_drude_grid(prm, J, fce, device)
+    rows, counts = device_plan(fp, device, lib)
+    prm.plan = rows.data_ptr()
+    for q, n in enumerate(counts):
+        prm.n_item[q] = n
+    for f, fam in enumerate(("E", "H")):
+        table = fp[f"rec_{fam}"]
+        for r, (comp, axis, plane, off) in enumerate(table):
+            prm.rec[f][r].comp, prm.rec[f][r].axis = comp, axis
+            prm.rec[f][r].plane, prm.rec[f][r].off = plane, off
+        prm.n_rec[f] = len(table)
+    prm.pc = -1
+    if fp["point"] is not None:
+        prm.pc, (prm.pi, prm.pj, prm.pk) = fp["point"]
+    fp["_params"] = (device, prm)
+    return prm
+
+
+def fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, lib=None):
+    """The call's parameter block on CUDA tensors, with fresh outputs:
+    (params, (E', H', psi_E', psi_H', J' or None))."""
+    fe = fp["E"]
+    device = E[fe["comps"][0]].device
+    prm = _Params.from_buffer_copy(_static_params(fp, device, lib))
+    new_e, pe = pallas3d.fill_family(prm.e, E, psi_e, fe, device)
+    new_h, ph = pallas3d.fill_family(prm.h, H, psi_h, fp["H"], device)
+    new_j = pallas3d.fill_drude_grid(prm, J, fe, device)
+    # the items that read no grid take each E grid's background value
+    for (key, c), value in _material(fp)[1].items():
+        getattr(prm.e, key)[c].val = value
+    if fp["plan"] is not None:
+        prm.terms = pallas3d.check(terms, "terms", (fp["plan"].total,),
+                                   device)
+    if fp["point"] is not None:
+        prm.drive = drive
     return prm, (new_e, new_h, pe, ph, new_j)
 
 
-def fused_eh(E, H, psi_e, psi_h, J, fce, fch):
-    """New E, H (and psi, J) in fresh tensors, one launch: the CUDA
-    kernel on CUDA tensors, its plain version on CPU tensors."""
-    first = E[fce["comps"][0]]
+def fused_eh(E, H, psi_e, psi_h, J, fp, terms, drive):
+    """New E, H (and psi, J) in fresh tensors: the CUDA kernel (one
+    launch a non-empty section) on CUDA tensors, its plain version on
+    CPU tensors."""
+    first = E[fp["E"]["comps"][0]]
     if not first.is_cuda:
-        return fused_eh_plain(E, H, psi_e, psi_h, J, fce, fch)
-    prm, outs = fused_params(E, H, psi_e, psi_h, J, fce, fch)
-    lib = pallas3d.bind(_LIB, ("fdtd_fused_eh",), _Params)
-    pallas3d.launch(lib, "fdtd_fused_eh", prm, first.device)
+        return fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive)
+    lib = _library()
+    prm, outs = fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, lib)
+    pallas3d.launch(lib, "fdtd_fused_pass", prm, first.device)
     fused_eh.launches += 1
+    fused_eh.kernels += sum(n > 0 for n in prm.n_item)
     return outs
 
 
 fused_eh.launches = 0
+fused_eh.kernels = 0      # section kernels launched by those calls
 
 
 # --------------------------------------------------------------------------
@@ -253,79 +527,39 @@ def make_fused_eh_step(static, device, plain: bool = False):
     if not eligible(static):
         return None
     pallas3d.check_scope(static, "recompute-fused kernel (ROADMAP B6)")
-    slabs = slab_axes(static)
     setup = static.tfsf_setup
-    x_pml = 0 in static.pml_axes
     fn = fused_eh_plain if plain else fused_eh
-    psi_e_names = [k for v in pallas3d.kernel_psi_terms(static, "E").values()
-                   for _, k in v]
-    psi_h_names = [k for v in pallas3d.kernel_psi_terms(static, "H").values()
-                   for _, k in v]
+    psi_names = {fam: [k for v in pallas3d.kernel_psi_terms(
+        static, fam, x_slab=True).values() for _, k in v]
+        for fam in ("E", "H")}
 
-    def prepare(coeffs) -> Dict[str, Any]:
-        return {"coeffs": coeffs,
-                "E": pallas3d.family_operands(static, coeffs, "E"),
-                "H": pallas3d.family_operands(static, coeffs, "H"),
-                "tfsf_E": pallas3d.tfsf_plan(static, coeffs, "E"),
-                "tfsf_H": pallas3d.tfsf_plan(static, coeffs, "H"),
-                "point": pallas3d.point_plan(static, coeffs)}
-
-    def step(state, cc):
-        coeffs = cc["coeffs"]
+    def step(state, fp):
+        coeffs = fp["coeffs"]
         t = state["t"]
         new_state = dict(state)
+        terms = None
         if setup is not None:
-            new_state["inc"] = tfsf.advance_einc(
-                state["inc"], coeffs, t, static.dt, static.omega, setup)
+            inc = tfsf.advance_einc(state["inc"], coeffs, t, static.dt,
+                                    static.omega, setup)
+            terms = tfsf.record_terms(fp["plan"], inc)
         new_E, new_H, pe, ph, new_J = fn(
             state["E"], state["H"],
-            {k: state["psi_E"][k] for k in psi_e_names},
-            {k: state["psi_H"][k] for k in psi_h_names},
-            state.get("J"), cc["E"], cc["H"])
+            {k: state["psi_E"][k] for k in psi_names["E"]},
+            {k: state["psi_H"][k] for k in psi_names["H"]},
+            state.get("J"), fp, terms, point_drive(static, fp, t))
+        if setup is not None:
+            new_state["inc"] = tfsf.advance_hinc(inc, coeffs, setup)
         if new_J is not None:
             new_state["J"] = new_J
-        psi_E = dict(state.get("psi_E", {}), **pe)
-        psi_H = dict(state.get("psi_H", {}), **ph)
-
-        # E post-passes, collecting the applied thin patches
-        patches: list = []
-        if x_pml:
-            px = {k: v for k, v in psi_E.items() if k.endswith("_x")}
-            new_E, px_new = pallas3d.x_slab_post(
-                static, "E", new_E, state["H"], px, coeffs, slabs,
-                collect=patches)
-            psi_E.update(px_new)
-        if setup is not None:
-            pallas3d.tfsf_patch(static, "E", new_E, coeffs,
-                                new_state["inc"], collect=patches,
-                                plan=cc["tfsf_E"])
-        pallas3d.point_source_patch(static, new_E, coeffs, t,
-                                    collect=patches, plan=cc["point"])
-
-        # H corrections: the curl of the E patches
-        if patches:
-            new_H, psi_H = apply_patch_h_corrections(
-                static, new_H, psi_H, patches, coeffs, slabs)
-        if setup is not None:
-            new_state["inc"] = tfsf.advance_hinc(new_state["inc"], coeffs,
-                                                 setup)
-        if x_pml:
-            px = {k: v for k, v in psi_H.items() if k.endswith("_x")}
-            new_H, px_new = pallas3d.x_slab_post(
-                static, "H", new_H, new_E, px, coeffs, slabs)
-            psi_H.update(px_new)
-        if setup is not None:
-            pallas3d.tfsf_patch(static, "H", new_H, coeffs,
-                                new_state["inc"], plan=cc["tfsf_H"])
+        if pe or ph:
+            new_state["psi_E"] = dict(state["psi_E"], **pe)
+            new_state["psi_H"] = dict(state["psi_H"], **ph)
         new_state["E"] = new_E
         new_state["H"] = new_H
-        if psi_E or psi_H:
-            new_state["psi_E"] = psi_E
-            new_state["psi_H"] = psi_H
         new_state["t"] = t + 1
         return new_state
 
-    step.prepare = prepare
+    step.prepare = lambda coeffs: prepare(static, coeffs)
     on_cuda = torch.device(device).type == "cuda"
     step.kind = "fused_cuda" if on_cuda and not plain else "fused_plain"
     return step

@@ -18,13 +18,20 @@ it stands) after 100 steps, and its kernels: the line kernel and the
 one-pass
 ``ds_pass`` where the checkout has them, else the two in-place
 ``e_update``/``h_update`` launches of the earlier design with the
-step's record terms. Needs a CUDA device. Compare two commits within
-one call, in turns (parent, change, change, parent), each in its own
-process: unpack the other
-commit into a directory that ``.gitignore`` lists (``git archive``) and
-pass it as ``PATH``.
+step's record terms. With ``--fused SIZES`` it also times the
+recompute-fused pass (one ``fused_eh`` call: the section kernels where
+the checkout has them, else its single launch), the two-pass
+``e_family`` and ``h_family`` launches, and the whole fused and
+two-pass steps, on ``Examples/vacuum3D_tfsf.txt`` at 256^3 after 150
+steps and (512) on ``Examples/sphere3D_mie.txt`` as it stands after 200
+(two-pass steps both); ``--only-fused`` skips the rest. Needs a CUDA
+device. Compare two commits within one call, in turns (parent, change,
+change, parent), each in its own process: unpack the other commit into
+a directory that ``.gitignore`` lists (``git archive``) and pass it as
+``PATH``.
 
     python3 scripts/solo_kernel_times.py [PATH] [--lanes 4] [--ds 256,128]
+        [--fused 256,512] [--only-fused]
 """
 
 from __future__ import annotations
@@ -44,6 +51,11 @@ def main() -> int:
     ap.add_argument("--ds", nargs="?", const="256", default=None,
                     help="also time the float32x2 step and its kernels "
                          "at these comma-separated sizes (default 256)")
+    ap.add_argument("--fused", nargs="?", const="256", default=None,
+                    help="also time the fused pass, the two-pass kernels "
+                         "and both ladder steps at 256 and/or 512")
+    ap.add_argument("--only-fused", action="store_true",
+                    help="with --fused: skip the other kernels' times")
     args = ap.parse_args()
     root = os.path.abspath(args.path)
     sys.path.insert(0, root)
@@ -55,9 +67,18 @@ def main() -> int:
     import chip_smoke as cs
     from fdtd3d_torch.ops import build, packed, packed_tb
     from fdtd3d_torch.sim import Simulation
-    build.build_many(["packed_eh", "packed_tb"]
-                     + (["packed_ds"] if args.ds else []))
     dev = torch.device("cuda", 0)
+    out = {"checkout": args.path,
+           "card": torch.cuda.get_device_name(0)}
+    if args.fused and args.only_fused:
+        build.build_many(["family", "fused_eh"])
+        for size in args.fused.split(","):
+            out[f"fused_{size}"] = fused_times(cs, dev, size)
+        print(json.dumps(out), flush=True)
+        return 0
+    build.build_many(["packed_eh", "packed_tb"]
+                     + (["packed_ds"] if args.ds else [])
+                     + (["family", "fused_eh"] if args.fused else []))
     cfg = cs.config(cs.EXAMPLE, ["--same-size", "256"])
     sim = Simulation(cfg, device=dev)
     sim.advance(150)
@@ -68,8 +89,6 @@ def main() -> int:
              if k in ("E", "H", "J", "psE", "psH")}
     _, terms, drive = packed_tb.generation_terms(sim.static, tcc["tb"],
                                                  carry["inc"], carry["t"])
-    out = {"checkout": args.path,
-           "card": torch.cuda.get_device_name(0)}
     for rep in range(2):
         out[f"tb_ms_{rep}"] = cs.timed(lambda: packed_tb.tb_pass(
             carry, spare, tcc["tb"], terms, drive), 50)
@@ -106,8 +125,50 @@ def main() -> int:
                 bc["H"], bc["E"], bc["psH"], kcc["H"]), 5)
     for size in args.ds.split(",") if args.ds else ():
         out[f"ds_{size}"] = ds_times(cs, dev, size)
+    for size in args.fused.split(",") if args.fused else ():
+        out[f"fused_{size}"] = fused_times(cs, dev, size)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def fused_times(cs, dev, size):
+    """The fused pass, the two-pass kernels and both ladder steps at
+    ``size`` (256: the vacuum example at 256^3; 512: the Mie example),
+    twice each."""
+    import torch
+    from fdtd3d_torch.ops import pallas3d, pallas_fused
+    from fdtd3d_torch.sim import Simulation
+    torch.cuda.empty_cache()
+    path, extra, steps, reps = {"256": (cs.EXAMPLE, ["--same-size", "256"],
+                                        150, 30),
+                                "512": (cs.MIE, [], 200, 10)}[size]
+    with cs.ladder_env("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"):
+        sim = Simulation(cs.config(path, extra), device=dev)
+        sim.advance(steps)
+    static, coeffs, st = sim.static, sim.coeffs, sim.state
+    fe, fh, pe, ph = cs.kernel_args(static, coeffs, st)
+    if hasattr(cs, "fused_args"):       # the pass with its sources
+        fargs = cs.fused_args(static, coeffs, st)
+    else:                               # one launch, patches after it
+        fargs = (st["E"], st["H"], pe, ph, st.get("J"), fe, fh)
+    ladder = {}
+    for name, build_step in (("fused", pallas_fused.make_fused_eh_step),
+                             ("pallas3d", pallas3d.make_pallas_step)):
+        k_step = build_step(static, dev)
+        ladder[name] = (k_step, k_step.prepare(coeffs))
+    out = {"shape": list(static.grid_shape)}
+    for rep in range(2):
+        out[f"fused_ms_{rep}"] = cs.timed(
+            lambda: pallas_fused.fused_eh(*fargs), reps)
+        out[f"e_family_ms_{rep}"] = cs.timed(lambda: pallas3d.e_family(
+            st["E"], st["H"], pe, st.get("J"), fe), reps)
+        out[f"h_family_ms_{rep}"] = cs.timed(lambda: pallas3d.h_family(
+            st["H"], st["E"], ph, fh), reps)
+        for name, (k_step, cc) in ladder.items():
+            out[f"{name}_step_ms_{rep}"] = cs.timed(
+                lambda: k_step(st, cc), reps)
+    del sim, st, fargs, ladder
+    return out
 
 
 def ds_times(cs, dev, size):

@@ -183,9 +183,14 @@ def test_ladder_kernel_modules_need_no_nvcc_on_cpu(names, kind,
     assert pallas_fused.fused_eh.launches == 0
     assert build._LIBS == {}
     for lib in ("family", "fused_eh"):
-        assert build.flags(lib) == build.NVCC_FLAGS
+        assert build.flags(lib)[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
         assert build.library_path(lib).startswith(
             os.path.join(ROOT, "build", "fdtd3d_torch"))
+    # the fused pass's halo cells must have their owner's bits in every
+    # section kernel: no FMA contraction; the two-pass kernels keep the
+    # common flags
+    assert build.flags("family") == build.NVCC_FLAGS
+    assert build.flags("fused_eh") == build.NVCC_FLAGS + ("--fmad=false",)
 
 
 def test_library_flags_are_per_library_and_hashed(monkeypatch):

@@ -3,9 +3,10 @@
 The port's two rungs under the packed step: the recompute-fused single
 pass (``ops/pallas_fused.py``, kind ``fused_plain`` on the CPU) and the
 two-pass family step (``ops/pallas3d.py``, kind ``pallas3d_plain``).
-On the CPU each runs its kernel's plain version, with the kernel's
-schedule: the fused pass computes H from the pre-patch E and adds the
-curl of the E patches afterwards.
+On the CPU each runs its kernel's plain version, in the kernel's order:
+the fused pass computes E with the x slab CPML, the TFSF record terms
+and the point source, then H from that E; the two-pass step patches the
+x slab, TFSF and the point source onto each kernel's output.
 
 * Each rung, from one seeded state (E and H at 0.01 N(0, 1)), against
   the reference's own kernel in interpret mode (``use_pallas=True``:
