@@ -136,10 +136,46 @@ TFSF record terms and the point source in the kernel):
    device busy share; the fused step must stay within
    ``FUSED_LAUNCHES`` launches a step).
 
-Phases 1, 4, 7, 11, 13 and the checks of 9 (kernel against plain version,
-lane against solo) launch the kernels outside the main paths' counts;
-each main path (phases 2, 5, 9's one step, 10 and each run of 12) resets
-the counts just before it and reads them just after. The last lines
+bf16 storage with f32 compute (``--dtype bfloat16``: E and H stored in
+bf16, rounded to nearest even where they are stored; the arithmetic, the
+CPML psi, Drude J, the incident line and the coefficients in f32), on
+the bf16 builds of the same four f32 sources:
+
+14. each bf16 kernel (e_update, h_update, the tb pass, e_family,
+   h_family, the fused call) against its plain version: one launch at
+   256^3 from seeded fields, then 10 steps at 128^3 with the eps and
+   Drude spheres, a point source and the oblique wave; the gates are the
+   reference's bf16 ones, 2e-2 of the max (3e-2 for the tb pass), and
+   each comparison prints its worst error in bf16 ulps and the share of
+   bf16 elements that differ (the fused twin: 0.0);
+15. the bf16 main path through the CLI: vacuum3D_tfsf at 256^3 for 150
+   steps (75 tb launches, no packed one; finite dumps of 2-byte words,
+   manifest dtype "<V2") and 151 (the packed tail), the dumps within
+   5e-2 of the family max of phase 2's f32 dumps (the reference's bar,
+   tests/test_pallas.py:249), the TFSF leakage printed;
+16. at 256^3, 150 steps into a run of each dtype: one launch of each
+   bf16 kernel against its plain version, then same-call CUDA-event times
+   of each kernel in f32 and in bf16, in turns, beside its bound at its
+   storage width (the byte counters with 2-byte fields), the bf16 plain
+   versions, the whole steps of both dtypes (Mcells/s), the kernels'
+   registers and spills, and the bf16 tb step under torch.profiler;
+17. the ladder in bf16: the CLI at 256^3 under both rungs (launches, the
+   dumps within 5e-2 of the f32 main path's), then 16's checks and times
+   on the Mie example at 512^3, 200 steps in;
+18. 3 bf16 lanes at 128^3 (7's batch in bf16): the lane-capable tb pass
+   and packed step against their plain versions and each lane against
+   the same kernels run solo, bit for bit; 4 bf16 lanes timed at 256^3;
+   and the CLI ``--batch`` on the three lanes' command files for 41
+   steps (20 tb launches and the packed tail);
+19. capacity: vacuum3D_tfsf at 1024^3 through ``Simulation`` for 20
+   steps in f32 and in bf16: peak device memory, set-up seconds and
+   Mcells/s.
+
+Phases 1, 4, 7, 11, 13, 14, 16-18 and the checks of 9 (kernel against
+plain version, lane against solo) launch the kernels outside the main
+paths' counts; each main path (phases 2, 5, 9's one step, 10, each run
+of 12, 15, 17's CLI runs and 18's) resets the counts just before it and
+reads them just after. The last lines
 are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -185,6 +221,16 @@ FUSED_LAUNCHES = 25
 DS_FIELD_TOL, DS_VACUUM_TOL, DS_PSI_TOL, DS_J_TOL = 1e-9, 1e-12, 1e-6, 1e-5
 DS_REL_BAR = 2e-7         # tests/test_float32x2.py:206
 F32_REL_FLOOR = 5e-7      # tests/test_float32x2.py:205
+# bf16 storage with f32 compute: the reference's bf16 gates of a kernel
+# against its plain version, of the tb kernel, and of a bf16 run against
+# the f32 run of the same configuration
+BF16_TOL = 2e-2           # tests/test_pallas_packed.py:187
+TB_BF16_TOL = 3e-2        # tests/test_pallas_packed_tb.py:161
+BF16_TRACK = 5e-2         # tests/test_pallas.py:249
+BF16 = ["--dtype", "bfloat16"]
+# what -> the worst error of a compare() on bf16 leaves in bf16 ulps and
+# the share of their elements that differ at all
+BF16_STATS = {}
 
 
 def fail(msg: str) -> None:
@@ -234,35 +280,62 @@ def leaves(carry, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def compare(got, want, what, family=False):
-    """Max |diff| per leaf, gated at TOL relative to the leaf's max, or
-    with ``family`` to the max of its family (the top-level key: E, H,
+def compare(got, want, what, family=False, tol=TOL):
+    """Max |diff| per leaf, gated at ``tol`` relative to the leaf's max,
+    or with ``family`` to the max of its family (the top-level key: E, H,
     psi_E, J, ..., the reference's gate; on a physical state a component
     the wave does not drive holds only rounding noise, which its own max
-    cannot scale); returns the largest absolute error."""
+    cannot scale); returns the largest absolute error. On bf16 leaves it
+    also records and prints the worst error in bf16 ulps, of the element
+    (the larger of its two values: a cell near zero counts its own tiny
+    ulp) and of the scale the gate uses, and the share of elements that
+    differ (``BF16_STATS[what]``)."""
+    import torch
     worst = 0.0
     want_leaves = dict(leaves(want))
     fam_max = {}
     for name, b in want_leaves.items():
         top = name.split("/")[0]
         fam_max[top] = max(fam_max.get(top, 0.0), float(b.abs().max()))
+    ulps, scale_ulps, differ, total = 0.0, 0.0, 0, 0
     for name, a in leaves(got):
         b = want_leaves[name]
-        err = float((a - b).abs().max())
+        d = (a.float() - b.float()).abs()
+        err = float(d.max())
         scale = fam_max[name.split("/")[0]] if family \
             else float(b.abs().max())
         rel = err / scale if scale > 0 else err
-        if not rel < TOL:
+        if not rel < tol:
             fail(f"{what}: {name} differs from the plain version: "
                  f"max|diff|={err:.3e}, max|plain|={scale:.3e}, "
-                 f"rel={rel:.3e} >= {TOL}")
+                 f"rel={rel:.3e} >= {tol}")
         worst = max(worst, err)
+        if a.dtype == torch.bfloat16:
+            _, e = torch.frexp(torch.maximum(a.float().abs(),
+                                             b.float().abs()))
+            ulp = torch.ldexp(torch.ones_like(d), e - 8)  # 8-bit mantissa
+            ulps = max(ulps, float((d / ulp).max()))
+            if scale > 0:
+                _, es = torch.frexp(torch.tensor(scale))
+                scale_ulps = max(scale_ulps, err / 2.0 ** (int(es) - 8))
+            differ += int((a != b).sum())
+            total += a.numel()
+            del e, ulp
+        del d
+    if total:
+        BF16_STATS[what] = {"max_bf16_ulps": ulps,
+                            "max_bf16_ulps_of_scale": scale_ulps,
+                            "share_differing": differ / total}
+        say(f"{what}: bf16 fields at most {ulps:g} bf16 ulps of the "
+            f"element apart, {scale_ulps:g} ulps of the gate's scale; "
+            f"{differ / total:.3e} of their elements differ")
     return worst
 
 
-def kernel_vs_plain(cfg, dev, seed, label):
-    """10 packed steps with the kernels against 10 with the plain
-    versions, from the same seeded carry; returns the worst error."""
+def kernel_vs_plain(cfg, dev, seed, label, steps=STEPS_CMP, tol=TOL):
+    """``steps`` packed steps with the kernels against as many with the
+    plain versions, from the same seeded carry; returns the worst
+    error."""
     import torch
     from fdtd3d_torch.ops import packed
     sim = seeded_sim(cfg, dev, seed)
@@ -271,17 +344,17 @@ def kernel_vs_plain(cfg, dev, seed, label):
     cc = k_step.prepare(sim.coeffs)
     ck = sim._carry
     cp = clone_carry(ck)
-    for _ in range(STEPS_CMP):
+    for _ in range(steps):
         ck = k_step(ck, cc)
         cp = p_step(cp, cc)
     torch.cuda.synchronize()
-    err = compare(ck, cp, f"{label}: {STEPS_CMP} packed steps")
-    say(f"{label}: {STEPS_CMP} kernel steps match the plain version "
+    err = compare(ck, cp, f"{label}: {steps} packed steps", tol=tol)
+    say(f"{label}: {steps} kernel steps match the plain version "
         f"(max abs err {err:.3e})")
     return err
 
 
-def one_launch_vs_plain(sim, fn, plain_fn, family):
+def one_launch_vs_plain(sim, fn, plain_fn, family, tol=TOL):
     """One launch of a family's kernel against its plain version on the
     same inputs (the carry of ``sim``, cloned twice)."""
     import torch
@@ -294,7 +367,9 @@ def one_launch_vs_plain(sim, fn, plain_fn, family):
         else:
             f(carry["H"], carry["E"], carry["psH"], cc["H"])
     torch.cuda.synchronize()
-    return compare(a, b, f"one {family} launch")
+    return compare(a, b, f"one {family} launch "
+                   f"({sim.static.cfg.dtype}, {sim.static.grid_shape})",
+                   tol=tol)
 
 
 def seeded_tb_sim(cfg, dev, seed):
@@ -312,7 +387,7 @@ def seeded_tb_sim(cfg, dev, seed):
     return sim
 
 
-def tb_vs_plain(cfg, dev, seed, passes, label):
+def tb_vs_plain(cfg, dev, seed, passes, label, tol=TOL):
     """``passes`` temporal-blocked passes with the kernel against as many
     with its plain version, from the same seeded carry; returns the
     worst error."""
@@ -328,7 +403,7 @@ def tb_vs_plain(cfg, dev, seed, passes, label):
         ck = k_step(ck, cc)
         cp = p_step(cp, cc)
     torch.cuda.synchronize()
-    err = compare(ck, cp, f"{label}: {passes} tb passes")
+    err = compare(ck, cp, f"{label}: {passes} tb passes", tol=tol)
     say(f"{label}: {passes} tb kernel passes match the plain version "
         f"(max abs err {err:.3e})")
     return err
@@ -343,14 +418,15 @@ def tb_bytes(carry, cc):
     """Bytes one temporal-blocked pass must move: E, H (and J) read once
     and written once, psi of both families read and written, each
     coefficient grid and profile read once, the record terms read; all
-    lanes of a lane-stacked carry."""
+    lanes of a lane-stacked carry. E and H at their storage width (4 or
+    2 bytes), everything else f32."""
     import torch
-    vol = carry["E"].numel() // 3 * 4
-    n = 2 * 6 * vol
+    cells = carry["E"].numel() // 3
+    n = 2 * 6 * cells * carry["E"].element_size()
     n += sum(2 * v.numel() * 4 for fam in ("psE", "psH")
              for v in carry[fam].values())
     if "J" in carry:
-        n += 2 * 3 * vol
+        n += 2 * 3 * cells * 4
     for fam in ("E", "H"):
         fc = cc[fam]
         for key in ("a", "b", "kj", "bj"):
@@ -410,11 +486,13 @@ def timed(fn, reps):
 def family_bytes(carry, cc, family):
     """Bytes one family update must move: each input read once, each
     output written once (fields, psi, J, coefficient grids, profiles);
-    all lanes of a lane-stacked carry."""
+    all lanes of a lane-stacked carry. E and H at their storage width."""
     import torch
-    vol = carry["E"].numel() // 3 * 4
-    n = 3 * vol                                  # other family, read
-    n += 2 * 3 * vol                             # own family, r + w
+    cells = carry["E"].numel() // 3
+    vol = cells * 4
+    fvol = cells * carry["E"].element_size()
+    n = 3 * fvol                                 # other family, read
+    n += 2 * 3 * fvol                            # own family, r + w
     ps = carry["psE"] if family == "E" else carry["psH"]
     n += sum(2 * v.numel() * 4 for v in ps.values())
     if family == "E" and "J" in carry:
@@ -879,7 +957,7 @@ def assert_lanes_equal(got, lane, want, what):
                  f"kernel run solo (max |diff| {err:.3e})")
 
 
-def lane_kernels_check(bsim, dev, label):
+def lane_kernels_check(bsim, dev, label, tb_tol=TOL, tol=TOL):
     """Phase 7 (a): on the seeded carry of ``bsim``, one lane-capable tb
     pass and one lane-capable packed step (its two launches and the
     patches between them) against their plain versions (TOL), and each
@@ -901,7 +979,8 @@ def lane_kernels_check(bsim, dev, label):
     packed_tb.tb_pass(carry, dst_k, tb, terms, drive)
     packed_tb.tb_pass_plain(carry, dst_p, tb, terms, drive)
     torch.cuda.synchronize()
-    err_tb = compare(dst_k, dst_p, f"{label}: one lane-capable tb pass")
+    err_tb = compare(dst_k, dst_p, f"{label}: one lane-capable tb pass",
+                     tol=tb_tol)
     for lane in range(B):
         src = solo_lane(pass_fields(carry), lane)
         dst = packed.alloc_like(src)
@@ -919,7 +998,8 @@ def lane_kernels_check(bsim, dev, label):
     k_pk(ck, pcc)
     p_pk(cp, pcc)
     torch.cuda.synchronize()
-    err_pk = compare(ck, cp, f"{label}: one lane-capable packed step")
+    err_pk = compare(ck, cp, f"{label}: one lane-capable packed step",
+                     tol=tol)
     del ck, cp
     for fc_lane in (None,) + tuple(range(B)):
         if fc_lane is None:
@@ -1038,17 +1118,20 @@ def batch_cli_path(paths, label):
             "cli_wall_s": wall, "peak_mem_bytes": peak, "lines": lines}
 
 
-def cli_main_path(steps, cfg256):
-    """The CLI on vacuum3D_tfsf at 256^3 for ``steps`` steps, one DAT
-    dump at the last step, with the finite check: the kernel launches
-    of that run (counts set to 0 just before it), its wall, peak memory
-    and the TFSF leakage of its dumps."""
+def cli_main_path(steps, cfg256, dtype="float32"):
+    """The CLI on vacuum3D_tfsf at 256^3 for ``steps`` steps in
+    ``dtype``, one DAT dump at the last step, with the finite check: the
+    kernel launches of that run (counts set to 0 just before it), its
+    wall, peak memory, the TFSF leakage of its dumps (gated in f32; bf16
+    storage floors the scattered field at its own rounding) and, under
+    ``fields``, the dumps (bf16: 2-byte words, manifest dtype "<V2",
+    read back widened to f32)."""
     import torch
     from fdtd3d_torch import cli, diag
-    from fdtd3d_torch.io import load_dat
+    from fdtd3d_torch.io import BF16_DTYPE, load_dat
     from fdtd3d_torch.ops import packed, packed_tb
     from fdtd3d_torch.solver import build_static
-    out_dir = os.path.join(OUT_DIR, f"main_{steps}")
+    out_dir = os.path.join(OUT_DIR, f"main_{dtype}_{steps}")
     packed.e_update.launches = 0
     packed.h_update.launches = 0
     packed_tb.tb_pass.launches = 0
@@ -1056,7 +1139,7 @@ def cli_main_path(steps, cfg256):
     captured = _io.StringIO()
     argv = ["--cmd-from-file", EXAMPLE, "--same-size", "256",
             "--time-steps", str(steps), "--save-res", str(steps),
-            "--check-finite", "--save-dir", out_dir]
+            "--check-finite", "--save-dir", out_dir, "--dtype", dtype]
     t0 = time.time()
     with contextlib.redirect_stdout(captured):
         rc = cli.main(argv)
@@ -1081,16 +1164,24 @@ def cli_main_path(steps, cfg256):
         if fields[c].shape != (256, 256, 256) \
                 or not bool((abs(fields[c]) < float("inf")).all()):
             fail(f"{c}: bad dump (shape {fields[c].shape} or non-finite)")
+        if dtype == "bfloat16":
+            with open(path + ".manifest.json") as f:
+                manifest = json.load(f)
+            if manifest["dtype"] != BF16_DTYPE \
+                    or os.path.getsize(path) != 2 * 256 ** 3:
+                fail(f"{c}: the bf16 dump is not 2-byte words "
+                     f"({manifest['dtype']}, {os.path.getsize(path)} B)")
     st = build_static(cfg256).tfsf_setup
     leak = diag.tfsf_leakage(fields, st.lo, st.hi)
-    if not leak <= 10 * REF_LEAKAGE:
+    if dtype == "float32" and not leak <= 10 * REF_LEAKAGE:
         fail(f"{steps} steps: TFSF leakage {leak:.3e} exceeds 10x the "
              f"reference's {REF_LEAKAGE:.3e}")
-    say(f"main path: {steps} steps, launches {launches}, leakage "
-        f"{leak:.3e} (reference at 48^3: {REF_LEAKAGE})")
-    return {"steps": steps, "wall_s": wall, "launches": launches,
-            "tfsf_leakage": leak, "ref_tfsf_leakage_48": REF_LEAKAGE,
-            "peak_mem_bytes": peak}
+    say(f"main path ({dtype}): {steps} steps, launches {launches}, "
+        f"leakage {leak:.3e} (f32 reference at 48^3: {REF_LEAKAGE})")
+    return {"dtype": dtype, "steps": steps, "wall_s": wall,
+            "launches": launches, "tfsf_leakage": leak,
+            "ref_tfsf_leakage_48": REF_LEAKAGE, "peak_mem_bytes": peak,
+            "fields": fields}
 
 
 # --------------------------------------------------------------------------
@@ -1235,7 +1326,7 @@ def fused_sections_per_step(static, dev):
     return sum(n > 0 for n in counts)
 
 
-def ladder_vs_plain(cfg, dev, seed, label, steps=8):
+def ladder_vs_plain(cfg, dev, seed, label, steps=8, tol=TOL):
     """Phase 11: one launch of e_family, h_family and one fused_eh call
     against their plain versions on seeded inputs (the fused call also
     per section), then ``steps`` whole steps of the two-pass and the
@@ -1259,7 +1350,8 @@ def ladder_vs_plain(cfg, dev, seed, label, steps=8):
         got = as_tree(fn(*args), outs)
         want = as_tree(plain(*args), outs)
         torch.cuda.synchronize()
-        err[name] = compare(got, want, f"{label}: one {name} launch")
+        err[name] = compare(got, want, f"{label}: one {name} launch",
+                            tol=tol)
         if name == "fused_eh":
             say(f"{label}: one fused_eh call per section, max abs err "
                 + json.dumps(fused_section_errors(fargs[5], got, want)))
@@ -1275,7 +1367,7 @@ def ladder_vs_plain(cfg, dev, seed, label, steps=8):
         torch.cuda.synchronize()
         key = "e_family" if name == "pallas3d" else "fused_eh"
         err[key] = max(err[key], compare(
-            sk, sp, f"{label}: {steps} {k_step.kind} steps"))
+            sk, sp, f"{label}: {steps} {k_step.kind} steps", tol=tol))
         del sk, sp
     say(f"{label}: one launch and {steps} steps of each ladder kernel match "
         f"the plain versions (max abs err {json.dumps(err)})")
@@ -1349,13 +1441,16 @@ def ladder_bytes(static, coeffs, state, kernel):
     it reads once (a grid whole, though the fused pass reads it only
     inside the box where it differs from its background), each output
     written once. ``kernel``: e_family, h_family or fused_eh (its psi of
-    every slab axis, x included, and the record terms)."""
+    every slab axis, x included, and the record terms). E and H at their
+    storage width, everything else f32."""
     import torch
     from fdtd3d_torch.ops import packed_tb, tfsf
-    vol = 4 * static.grid_shape[0] * static.grid_shape[1] \
+    cells = static.grid_shape[0] * static.grid_shape[1] \
         * static.grid_shape[2]
+    vol = 4 * cells
+    fvol = next(iter(state["E"].values())).element_size() * cells
     fams = {"e_family": "E", "h_family": "H", "fused_eh": "EH"}[kernel]
-    n = (6 + 3 * len(fams)) * vol          # both families read, own written
+    n = (6 + 3 * len(fams)) * fvol         # both families read, own written
     keys = []
     if kernel == "fused_eh" and static.tfsf_setup is not None:
         plan = tfsf.build_record_plan(static, coeffs,
@@ -1499,6 +1594,283 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
     return out, err
 
 
+# --------------------------------------------------------------------------
+# bf16 storage with f32 compute (phases 14-19)
+# --------------------------------------------------------------------------
+
+def bf16_kernels_vs_plain(dev, mie128):
+    """Phase 14: each bf16 kernel against its plain version: one launch
+    at 256^3 from seeded fields (e_update, h_update, the tb pass,
+    e_family, h_family, the fused call), then 10 steps at 128^3 with the
+    eps and Drude spheres, a point source and the oblique wave (``mie128``
+    flags); the reference's bf16 gates. Worst absolute error per
+    kernel: (one launch at 256^3, the steps at 128^3)."""
+    from fdtd3d_torch.ops import packed
+    cfg = config(EXAMPLE, ["--same-size", "256"] + BF16)
+    label = "bf16 256^3 TFSF+CPML"
+    sim = seeded_sim(cfg, dev, 51)
+    err = {"e_update": one_launch_vs_plain(sim, packed.e_update,
+                                           packed.e_update_plain, "E",
+                                           BF16_TOL),
+           "h_update": one_launch_vs_plain(sim, packed.h_update,
+                                           packed.h_update_plain, "H",
+                                           BF16_TOL)}
+    del sim
+    err["tb_pass"] = tb_vs_plain(cfg, dev, 52, 1, label, TB_BF16_TOL)
+    err.update(ladder_vs_plain(cfg, dev, 53, label, steps=1, tol=BF16_TOL))
+    cfg = config(MIE, mie128 + BF16)
+    label = "bf16 128^3 eps + Drude spheres, point source, oblique TFSF"
+    pk = kernel_vs_plain(cfg, dev, 54, label, steps=STEPS_CMP, tol=BF16_TOL)
+    steps = {"e_update": pk, "h_update": pk, "tb_pass": tb_vs_plain(
+        cfg, dev, 55, STEPS_CMP // 2, label, TB_BF16_TOL)}
+    steps.update(ladder_vs_plain(cfg, dev, 56, label, steps=STEPS_CMP,
+                                 tol=BF16_TOL))
+    return err, steps
+
+
+def bf16_times(cfg32, cfg16, dev, advance, reps, plain_reps, label):
+    """Phases 16 and 17: on the state ``advance`` steps into a run of
+    each storage dtype (``cfg32``, ``cfg16``: one configuration in f32
+    and in bf16), one launch of every bf16 kernel against its plain
+    version (the reference's bf16 gates, of the family max), then
+    same-call CUDA-event times of every kernel in f32 and in bf16 in
+    turns and of the bf16 plain versions, each beside its bound at its
+    storage width, and of the whole tb, packed, fused and two-pass steps
+    in both dtypes. Returns (times, worst absolute error per bf16
+    kernel)."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb, pallas3d, pallas_fused
+    from fdtd3d_torch.sim import Simulation
+    ops = {}
+    for dt, cfg in (("f32", cfg32), ("bf16", cfg16)):
+        sim = Simulation(cfg, device=dev)
+        sim.advance(advance)
+        static, coeffs, carry = sim.static, sim.coeffs, sim._carry
+        o = {"sim": sim, "static": static, "carry": carry,
+             "pk": packed.make_packed_step(static, dev),
+             "tbs": packed_tb.make_packed_tb_step(static, dev),
+             "steps": {}}
+        o["pcc"] = o["pk"].prepare(coeffs)
+        o["tcc"] = o["tbs"].prepare(coeffs)
+        _, terms, drive = packed_tb.generation_terms(
+            static, o["tcc"]["tb"], carry.get("inc"), carry["t"])
+        o["st"] = st = sim.state
+        fe, fh, pe, ph = kernel_args(static, coeffs, st)
+        spare = packed.alloc_like(carry)
+        o["calls"] = {
+            "tb_pass": (packed_tb.tb_pass, packed_tb.tb_pass_plain,
+                        (carry, spare, o["tcc"]["tb"], terms, drive)),
+            "e_update": (packed.e_update, packed.e_update_plain,
+                         (carry["E"], carry["H"], carry.get("J"),
+                          carry["psE"], o["pcc"]["E"])),
+            "h_update": (packed.h_update, packed.h_update_plain,
+                         (carry["H"], carry["E"], carry["psH"],
+                          o["pcc"]["H"])),
+            "e_family": (pallas3d.e_family, pallas3d.e_family_plain,
+                         (st["E"], st["H"], pe, st.get("J"), fe)),
+            "h_family": (pallas3d.h_family, pallas3d.h_family_plain,
+                         (st["H"], st["E"], ph, fh)),
+            "fused_eh": (pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
+                         fused_args(static, coeffs, st))}
+        for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
+                                 ("fused", pallas_fused.make_fused_eh_step)):
+            k_step = build_step(static, dev)
+            o["steps"][name] = (k_step, k_step.prepare(coeffs))
+        ops[dt] = o
+    # one launch of each bf16 kernel against its plain version
+    o = ops["bf16"]
+    err = {}
+    for name, (fn, plain, args) in o["calls"].items():
+        if name == "tb_pass":
+            got, want = packed.alloc_like(o["carry"]), \
+                packed.alloc_like(o["carry"])
+            fn(args[0], got, *args[2:])
+            plain(args[0], want, *args[2:])
+            tol = TB_BF16_TOL
+        elif name in ("e_update", "h_update"):
+            got, want = clone_carry(o["carry"]), clone_carry(o["carry"])
+            for tree, f in ((got, fn), (want, plain)):
+                if name == "e_update":
+                    f(tree["E"], tree["H"], tree.get("J"), tree["psE"],
+                      args[4])
+                else:
+                    f(tree["H"], tree["E"], tree["psH"], args[3])
+            got, want = pass_fields(got), pass_fields(want)
+            tol = BF16_TOL
+        else:
+            outs = {"e_family": ("E", "psi", "J"), "h_family": ("H", "psi"),
+                    "fused_eh": FUSED_OUTS}[name]
+            got = as_tree(fn(*args), outs)
+            want = as_tree(plain(*args), outs)
+            tol = BF16_TOL
+        torch.cuda.synchronize()
+        err[name] = compare(got, want, f"{label}: one bf16 {name} launch",
+                            family=True, tol=tol)
+        del got, want
+    # times, f32 and bf16 in turns
+    cells = 1
+    for n in o["static"].grid_shape:
+        cells *= n
+    out = {"shape": list(o["static"].grid_shape), "advance": advance}
+    for name in o["calls"]:
+        for dt in ("f32", "bf16"):
+            fn, plain, args = ops[dt]["calls"][name]
+            out[f"{name}_{dt}_ms"] = timed(lambda: fn(*args), reps)
+        fn, plain, args = o["calls"][name]
+        out[f"{name}_bf16_plain_ms"] = timed(lambda: plain(*args),
+                                             plain_reps)
+        for dt in ("f32", "bf16"):
+            d = ops[dt]
+            if name == "tb_pass":
+                nbytes = tb_bytes(d["carry"], d["tcc"])
+                flops = tb_flops(d["carry"], d["tcc"])
+            elif name in ("e_update", "h_update"):
+                fam = name[0].upper()
+                nbytes = family_bytes(d["carry"], d["pcc"], fam)
+                flops = family_flops(d["carry"], fam)
+            else:
+                nbytes = ladder_bytes(d["static"], d["sim"].coeffs, d["st"],
+                                      name)
+                flops = ladder_flops(d["static"], d["st"], name)
+                if name == "fused_eh":   # built without FMA contraction
+                    flops = flops * F32_FLOPS / F32_NONFMA_OPS
+            out[f"{name}_{dt}_bytes"] = nbytes
+            out[f"{name}_{dt}_bound_ms"], out[f"{name}_{dt}_bound_by"] = \
+                bound(nbytes, flops)
+        out[f"{name}_bf16_over_f32"] = out[f"{name}_bf16_ms"] \
+            / out[f"{name}_f32_ms"]
+    for dt in ("f32", "bf16"):
+        d = ops[dt]
+        out[f"tb_step_{dt}_ms"] = timed(
+            lambda: d["tbs"](d["carry"], d["tcc"]), reps) / 2
+        out[f"packed_step_{dt}_ms"] = timed(
+            lambda: d["pk"](d["carry"], d["pcc"]), reps)
+        for name, (k_step, cc) in d["steps"].items():
+            out[f"{name}_step_{dt}_ms"] = timed(
+                lambda: k_step(d["st"], cc), reps)
+        for k in ("tb", "packed", "pallas3d", "fused"):
+            out[f"{k}_{dt}_mcells_per_s"] = cells / (
+                out[f"{k}_step_{dt}_ms"] * 1e-3) / 1e6
+    if o["static"].grid_shape == (256, 256, 256):
+        from fdtd3d_torch.ops import packed_tb as _tb
+        out["occupancy"] = {
+            "tb": {k: [v["registers"], v["local_bytes"], v["blocks_per_sm"]]
+                   for k, v in _tb.occupancy().items() if "lanes" not in k},
+            "fused": {k: [v["registers"], v["local_bytes"],
+                          v["blocks_per_sm"]]
+                      for k, v in pallas_fused.occupancy().items()}}
+    say(f"bf16 vs f32 times ({label}): " + json.dumps(out))
+    say(f"{label}: one launch of each bf16 kernel on the run's state "
+        f"matches its plain version (max abs err {json.dumps(err)})")
+    del ops, o, d
+    torch.cuda.empty_cache()
+    return out, err
+
+
+def bf16_main_paths(cfg256, steps, f32_fields):
+    """Phase 15: the bf16 main path through the CLI (150 steps: the tb
+    pass alone; 151: and the packed tail), its dumps within BF16_TRACK of
+    the family max of the f32 main path's dumps (``f32_fields``); the
+    TFSF leakage is printed (bf16 storage floors it at its rounding)."""
+    runs = {n: cli_main_path(n, cfg256, "bfloat16")
+            for n in (steps, steps + 1)}
+    for n, want in ((steps, {"tb_pass": steps // 2, "e_update": 0,
+                             "h_update": 0}),
+                    (steps + 1, {"tb_pass": steps // 2, "e_update": 1,
+                                 "h_update": 1})):
+        if runs[n]["launches"] != want:
+            fail(f"bf16 main path, {n} steps: kernel launches "
+                 f"{runs[n]['launches']} != {want}")
+    rel = rel_fields(runs[steps].pop("fields"), f32_fields)
+    runs[steps + 1].pop("fields")
+    runs[steps]["rel_vs_f32"] = rel
+    say(f"bf16 main path: dumps within {rel:.3e} of the f32 run's family "
+        f"max (gate {BF16_TRACK}); TFSF leakage "
+        f"{runs[steps]['tfsf_leakage']:.3e} (f32 "
+        f"{REF_LEAKAGE:.3e} in the reference at 48^3)")
+    if not rel < BF16_TRACK:
+        fail(f"the bf16 main path's dumps are {rel:.3e} of the family max "
+             f"away from the f32 run's (gate {BF16_TRACK})")
+    return runs
+
+
+def bf16_ladder_cli(cfg256, f32_fields, dev):
+    """Phase 17 (CLI): vacuum3D_tfsf at 256^3 in bf16 under
+    FDTD3D_NO_PACKED with FDTD3D_NO_FUSED and with FDTD3D_FORCE_FUSED:
+    the kind, one launch a family a step (two-pass) or one call a step
+    (fused) and no main-path kernel, finite dumps within BF16_TRACK of
+    the f32 main path's; the fused vs two-pass rel and the leakage are
+    printed."""
+    from fdtd3d_torch.solver import build_static
+    runs, fields = {}, {}
+    n = cfg256.time_steps
+    sections = fused_sections_per_step(build_static(cfg256), dev)
+    for kind, names in (("pallas3d_cuda", ("FDTD3D_NO_PACKED",
+                                           "FDTD3D_NO_FUSED")),
+                        ("fused_cuda", ("FDTD3D_NO_PACKED",
+                                        "FDTD3D_FORCE_FUSED"))):
+        rec, fields[kind] = ladder_cli(
+            f"bf16_vacuum256_{kind}", ["--cmd-from-file", EXAMPLE,
+                                       "--same-size", "256"] + BF16,
+            names, kind, cfg256)
+        two = kind == "pallas3d_cuda"
+        want = {"e_family": n if two else 0, "h_family": n if two else 0,
+                "fused_eh": 0 if two else n,
+                "fused_eh_kernels": 0 if two else n * sections,
+                "tb_pass": 0, "e_update": 0, "h_update": 0}
+        if rec["launches"] != want:
+            fail(f"bf16 ladder {kind}: launches {rec['launches']} != "
+                 f"{want}")
+        rec["rel_vs_f32"] = rel_fields(fields[kind], f32_fields)
+        if not rec["rel_vs_f32"] < BF16_TRACK:
+            fail(f"bf16 ladder {kind}: dumps {rec['rel_vs_f32']:.3e} of "
+                 f"the family max from the f32 main path's")
+        runs[kind] = rec
+        say(f"bf16 ladder main path {kind}: {json.dumps(rec)}")
+        shutil.rmtree(os.path.join(OUT_DIR, f"ladder_bf16_vacuum256_{kind}"),
+                      ignore_errors=True)
+    runs["fused_vs_pallas3d_rel"] = rel_fields(fields["fused_cuda"],
+                                               fields["pallas3d_cuda"])
+    say(f"bf16 ladder: fused vs two-pass dumps, rel "
+        f"{runs['fused_vs_pallas3d_rel']:.3e} of the family max")
+    return runs
+
+
+def capacity_run(size, dtype, steps, dev):
+    """Phase 19: vacuum3D_tfsf at ``size``^3 through ``Simulation`` in
+    ``dtype``: set-up seconds, Mcells/s over ``steps`` steps after two
+    warm-up steps, finite fields, and peak device memory."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cfg = config(EXAMPLE, ["--same-size", str(size), "--dtype", dtype,
+                           "--check-finite"])
+    sim = Simulation(cfg, device=dev)
+    sim.advance(2)
+    torch.cuda.synchronize()
+    setup = time.time() - t0
+    t0 = time.time()
+    sim.advance(steps)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in sim.component_views().values())
+    rec = {"size": size, "dtype": dtype, "step_kind": sim.step_kind,
+           "steps": steps, "setup_s": setup, "wall_s": wall,
+           "mcells_per_s": size ** 3 * steps / wall / 1e6,
+           "peak_mem_bytes": peak, "finite": finite}
+    del sim
+    torch.cuda.empty_cache()
+    say(f"capacity: {json.dumps(rec)}")
+    if not finite or rec["step_kind"] != "packed_tb_cuda":
+        fail(f"capacity run at {size}^3 {dtype}: {rec}")
+    return rec
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1623,6 +1995,8 @@ def main() -> int:
     main = {}
     for n in (steps, steps + 1):
         main[n] = cli_main_path(n, cfg256)
+    f32_fields = main[steps].pop("fields")
+    main[steps + 1].pop("fields")
     launches = main[steps]["launches"]
     tail_launches = main[steps + 1]["launches"]
     want = {"tb_pass": steps // 2, "e_update": 0, "h_update": 0}
@@ -1982,6 +2356,74 @@ def main() -> int:
                  f"{prof['launches_per_step']} kernels a step (at most "
                  f"{FUSED_LAUNCHES})")
 
+    # ---- phase 14: the bf16 kernels vs their plain versions --------------
+    mie128 = mie + ["--point-source", "Ez", "--angle-teta", "30",
+                    "--angle-phi", "40", "--angle-psi", "15"]
+    bf16_err, bf16_steps_err = bf16_kernels_vs_plain(dev, mie128)
+    result["max_abs_err"].update(
+        {f"bf16_{k}_steps_128": v for k, v in bf16_steps_err.items()})
+
+    # ---- phase 15: the bf16 main path through the CLI --------------------
+    bf16_main = bf16_main_paths(cfg256, steps, f32_fields)
+    result["bf16_main_path"] = bf16_main[steps]
+    result["bf16_main_path_odd"] = bf16_main[steps + 1]
+
+    # ---- phase 16: bf16 vs f32 times at 256^3, the bf16 step's profile --
+    cfg256_16 = config(EXAMPLE, ["--same-size", "256"] + BF16)
+    t16, e16 = bf16_times(cfg256, cfg256_16, dev, steps, reps, 3, "256^3")
+    result["bf16_times_256"] = t16
+    sim = Simulation(cfg256_16, device=dev)
+    sim.advance(20)
+    result["bf16_profile_256"] = profile_window(sim, 20)
+    say("bf16 tb step at 256^3 under torch.profiler: "
+        + json.dumps(result["bf16_profile_256"]))
+    del sim
+
+    # ---- phase 17: the ladder in bf16: the CLI at 256^3, Mie 512^3 times -
+    result["bf16_ladder_main_path"] = bf16_ladder = bf16_ladder_cli(
+        cfg256, f32_fields, dev)
+    del f32_fields
+    t16m, e16m = bf16_times(mie512, config(MIE, BF16), dev, 200, 10, 1,
+                            "512^3 Mie")
+    result["bf16_times_512"] = t16m
+    for k in bf16_err:
+        bf16_err[k] = max(bf16_err[k], e16[k], e16m[k])
+    result["max_abs_err"].update(
+        {f"bf16_{k}_one": v for k, v in bf16_err.items()})
+
+    # ---- phase 18: bf16 lanes: vs plain and solo, times, the CLI --------
+    lane_flags = [mie_args(128, eps, lane_extra + [
+        "--omega-p", wp, "--point-source-amplitude", amp] + BF16)
+        for eps, wp, amp in (("2.0", "1e12", "1.0"), ("4.0", "2e12", "2.0"),
+                             ("6.0", "5e11", "-0.5"))]
+    bsim = lane_batch([config(MIE, f) for f in lane_flags], dev)
+    seed_leaves(bsim._carry, dev, 61)
+    err_lane16 = lane_kernels_check(
+        bsim, dev, "3 bf16 lanes at 128^3 (eps and Drude spheres, oblique "
+        "TFSF, point source)", TB_BF16_TOL, BF16_TOL)
+    del bsim
+    bsim = lane_batch([cfg256_16] * 4, dev)
+    bsim.advance(steps)
+    result["bf16_batch_times_256"] = bt16 = lane_times(bsim, dev, reps, 3)
+    say("bf16 lane-capable times at 256^3, 4 lanes: " + json.dumps(bt16))
+    del bsim
+    paths = []
+    for q, flags in enumerate(lane_flags):
+        path = os.path.join(spec_dir, f"sphere3D_mie_bf16_lane{q}.txt")
+        with open(path, "w") as f:
+            f.write(f"{mie_text}\n{' '.join(flags)}\n--time-steps 41\n")
+        paths.append(path)
+    bf16_batch = batch_cli_path(paths, "3 bf16 lanes at 128^3")
+    if bf16_batch["launches"] != {"tb_pass": 20, "e_update": 1,
+                                  "h_update": 1}:
+        fail(f"bf16 batch main path: launches {bf16_batch['launches']}")
+    result["bf16_batch_main_path"] = bf16_batch
+
+    # ---- phase 19: capacity at 1024^3, f32 and bf16 ---------------------
+    result["capacity_1024"] = {dt: capacity_run(1024, dt, 20, dev)
+                               for dt in ("float32", "bfloat16")}
+    result["bf16_stats"] = BF16_STATS
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2068,6 +2510,51 @@ def main() -> int:
             "plain_ms": t256[f"{key}_plain_ms"],
             "bound_ms": t256[f"{key}_bound_ms"],
             "bound_by": t256[f"{key}_bound_by"], "library_ms": None})
+    for kname, key, source, replaces, launches_n, bt in (
+            ("packed_tb.pass[bf16]", "tb_pass", tb_src,
+             "fdtd3d_tpu/ops/pallas_packed_tb.py:900",
+             bf16_main[steps]["launches"]["tb_pass"], t16),
+            ("packed_eh.e_update[bf16]", "e_update", src,
+             "fdtd3d_tpu/ops/pallas_packed.py:694",
+             bf16_main[steps + 1]["launches"]["e_update"], t16),
+            ("packed_eh.h_update[bf16]", "h_update", src,
+             "fdtd3d_tpu/ops/pallas_packed.py:694",
+             bf16_main[steps + 1]["launches"]["h_update"], t16),
+            ("family.e_family[bf16]", "e_family", fam_src,
+             "fdtd3d_tpu/ops/pallas3d.py:293",
+             bf16_ladder["pallas3d_cuda"]["launches"]["e_family"], t16),
+            ("family.h_family[bf16]", "h_family", fam_src,
+             "fdtd3d_tpu/ops/pallas3d.py:293",
+             bf16_ladder["pallas3d_cuda"]["launches"]["h_family"], t16),
+            ("fused_eh.pass[bf16]", "fused_eh",
+             "fdtd3d_torch/csrc/fused_eh.cu",
+             "fdtd3d_tpu/ops/pallas_fused.py:423",
+             bf16_ladder["fused_cuda"]["launches"]["fused_eh"], t16)):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches_n,
+            "max_abs_err": bf16_err[key], "ms": bt[f"{key}_bf16_ms"],
+            "plain_ms": bt[f"{key}_bf16_plain_ms"],
+            "bound_ms": bt[f"{key}_bf16_bound_ms"],
+            "bound_by": bt[f"{key}_bf16_bound_by"], "library_ms": None})
+    for kname, key, source, replaces, launches_n, err_n in (
+            ("packed_tb.pass[bf16 lanes]", "tb", tb_src,
+             "fdtd3d_tpu/ops/pallas_packed_tb.py:900",
+             bf16_batch["launches"]["tb_pass"], err_lane16[0]),
+            ("packed_eh.e_update[bf16 lanes]", "e", src,
+             "fdtd3d_tpu/ops/pallas_packed.py:537",
+             bf16_batch["launches"]["e_update"], err_lane16[1]),
+            ("packed_eh.h_update[bf16 lanes]", "h", src,
+             "fdtd3d_tpu/ops/pallas_packed.py:537",
+             bf16_batch["launches"]["h_update"], err_lane16[1])):
+        ms_key = "tb_pass_ms" if key == "tb" else f"{key}_update_ms"
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches_n,
+            "max_abs_err": err_n, "ms": bt16[ms_key],
+            "plain_ms": bt16[f"{key}_plain_ms"],
+            "bound_ms": bt16[f"{key}_bound_ms"],
+            "bound_by": bt16[f"{key}_bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from fdtd3d_torch import convert, telemetry
 from fdtd3d_torch import log as _log
-from fdtd3d_torch import telemetry
 from fdtd3d_torch.scenario import ScenarioSpec, batch_fingerprint_diff
 from fdtd3d_torch.sim import _map_tensors, resolve_device
 from fdtd3d_torch.solver import (batch_fallback_reason, build_static,
@@ -367,8 +367,10 @@ class BatchSimulation:
                             torch.clone)
 
     def lane_field(self, lane: int, comp: str) -> np.ndarray:
+        """One lane's field component as a host numpy array (bf16
+        storage widened exactly to float32, as ``Simulation.field``)."""
         group = "E" if comp[0] == "E" else "H"
-        return self._dict_view()[group][comp][lane].cpu().numpy()
+        return convert.to_host(self._dict_view()[group][comp][lane])
 
     def set_field(self, comp: str, value):
         """Overwrite one component across the WHOLE batch (``value``
@@ -380,7 +382,7 @@ class BatchSimulation:
             raise KeyError(f"{comp} not active in scheme "
                            f"{self.cfg.scheme}")
         dst = view[group][comp]
-        src = torch.as_tensor(np.asarray(value))
+        src = convert.from_host(value)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(
                 f"set_field on a batch needs the lane-leading shape "

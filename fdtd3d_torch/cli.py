@@ -7,8 +7,10 @@ the same ``SimConfig``; the port adds ``--device`` (cuda by default,
 ``--device cpu`` to run on the CPU). ``main`` runs the non-supervised,
 single-device path: the run in chunks, ``--norms-every`` lines, DAT
 dumps every ``--save-res`` steps, and the closing throughput line, for
-``--dtype float32``, ``float32x2`` (the hi words are dumped, in f32, as
-the reference dumps them) and ``float64``; and ``--batch a.txt b.txt
+``--dtype float32``, ``bfloat16`` (bf16 storage, f32 arithmetic; the
+dumps are the fields' 2-byte words, as the reference's), ``float32x2``
+(the hi words are dumped, in f32, as the reference dumps them) and
+``float64``; and ``--batch a.txt b.txt
 ...`` (``_run_batch_cli``): the command files as the lanes of one batch
 (fdtd3d_torch/batch.py), with the reference's per-lane lines. Flags
 whose features are not ported yet raise ``NotImplementedError`` naming

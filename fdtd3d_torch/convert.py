@@ -10,6 +10,13 @@ so both packages can start from identical fields (hi and lo words
 alike) and be compared in the unpacked form. Coefficients cross the
 same way, the ``*_lo`` words and the ds CPML profile pairs included.
 
+bfloat16 fields: the reference keeps them as ``ml_dtypes`` bfloat16
+arrays, which numpy sees as 2-byte void words; the port does not import
+``ml_dtypes``. A 2-byte void leaf comes across as a bf16 tensor with the
+same bits (``from_host``), and a bf16 tensor goes back as float32 holding
+the same values, widened exactly (``to_host``): numpy has no bf16 of its
+own, and every bf16 value is an f32 value.
+
 A batch (fdtd3d_torch/batch.py) has the lane-stacked forms: the
 reference's batched state and coefficient trees carry a leading lane
 axis on every leaf (``t`` a (B,) vector, a scalar coefficient a (B,)
@@ -28,16 +35,40 @@ import torch
 from fdtd3d_torch.solver import coeffs_to_device
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array (a copy); bf16 widened exactly to
+    float32."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def from_host(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor (a copy); 2-byte void words (the
+    reference's ``ml_dtypes`` bfloat16) as a bf16 tensor of the same
+    bits."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def bf16_words(t: torch.Tensor) -> np.ndarray:
+    """The bits of a bf16 tensor as a host int16 array (a copy)."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().copy()
+
+
 def _to_torch(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_torch(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    return from_host(tree).to(device)
 
 
 def _to_numpy(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy().copy()
+    return to_host(tree)
 
 
 def state_from_reference(np_state: Dict[str, Any],
@@ -113,7 +144,7 @@ def stacked_coeffs_to_reference(coeffs: Dict[str, Any],
     out: Dict[str, Any] = {}
     for k, v in coeffs.items():
         if isinstance(v, torch.Tensor):
-            a = v.detach().cpu().numpy()
+            a = to_host(v)
             per_lane = k in PER_LANE_SCALARS or a.ndim == 4
             out[k] = a.copy() if per_lane \
                 else np.broadcast_to(a, (lanes,) + a.shape).copy()

@@ -2,11 +2,15 @@
 //
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas3d.py::make_family_kernel (builder :167, kernel
-// body :293, pallas_call :507) for 3D real float32, unsharded; the step
-// around it is fdtd3d_torch/ops/pallas3d.py::make_pallas_step.
+// body :293, pallas_call :507) for 3D real float32 and bf16 storage,
+// unsharded; the step around it is
+// fdtd3d_torch/ops/pallas3d.py::make_pallas_step.
 //
 // What one launch computes, on per-component arrays (n1, n2, n3)
-// float32, C order, z innermost (the reference's unpacked state):
+// float32 or bf16 (Grid.bf16: fields loaded as floats, computed in
+// float32, rounded to bf16 where they are stored; psi, J and the
+// coefficients float32), C order, z innermost (the reference's
+// unpacked state):
 //   E' = ca E + cb (curl_b H + y/z CPML deltas - J'),   J' = kj J + bj E
 //   H' = da H - db (curl_f E + y/z CPML deltas)
 // with PEC zero ghosts outside the domain, per-cell or scalar
@@ -41,14 +45,14 @@
 
 struct Params {
   FamOps f;                   // the family updated
-  const float* S[3];          // the curl source family
+  const void* S[3];           // the curl source family (float or bf16)
   Drude dr;                   // E only; null pointers for H
   Grid g;
 };
 
 // BACKWARD = true: E from backward differences of H (Drude J, walls);
-// false: H from forward differences of E.
-template <bool BACKWARD>
+// false: H from forward differences of E. T: the fields' storage type.
+template <bool BACKWARD, typename T>
 __global__ void __launch_bounds__(128) family_pass(Params p) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= p.g.n[2]) return;
@@ -62,18 +66,18 @@ __global__ void __launch_bounds__(128) family_pass(Params p) {
   for (int c = 0; c < 3; ++c) {
     const float acc = curl_acc(p.f, p.g, c, idx, true, [&](int t) {
       const int a = term_axis(c, t);
-      const float* src = p.S[term_comp(c, t)] + cell;
+      const T* src = fld<T>(p.S, term_comp(c, t)) + cell;
       if (BACKWARD) {
-        const float prev = idx[a] > 0 ? src[-stride[a]] : 0.f;
-        return (src[0] - prev) * p.g.inv_dx;
+        const float prev = idx[a] > 0 ? ld(src - stride[a]) : 0.f;
+        return (ld(src) - prev) * p.g.inv_dx;
       }
-      const float next = idx[a] < p.g.n[a] - 1 ? src[stride[a]] : 0.f;
-      return (next - src[0]) * p.g.inv_dx;
+      const float next = idx[a] < p.g.n[a] - 1 ? ld(src + stride[a]) : 0.f;
+      return (next - ld(src)) * p.g.inv_dx;
     });
     if (BACKWARD) {
-      e_value(p.f, p.dr, p.g, c, idx, cell, acc, true);
+      e_value<T>(p.f, p.dr, p.g, c, idx, cell, acc, true);
     } else {
-      h_value(p.f, c, cell, p.f.F[c][cell], acc);
+      h_value<T>(p.f, c, cell, ld(fld<T>(p.f.F, c) + cell), acc);
     }
   }
 }
@@ -85,10 +89,14 @@ static int launch(const Params* p, void* stream, bool backward) {
   }
   const dim3 grid((p->g.n[2] + 127) / 128, p->g.n[1], p->g.n[0]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (backward) {
-    family_pass<true><<<grid, block, 0, s>>>(*p);
+  if (backward && p->g.bf16) {
+    family_pass<true, bf16_t><<<grid, block, 0, s>>>(*p);
+  } else if (backward) {
+    family_pass<true, float><<<grid, block, 0, s>>>(*p);
+  } else if (p->g.bf16) {
+    family_pass<false, bf16_t><<<grid, block, 0, s>>>(*p);
   } else {
-    family_pass<false><<<grid, block, 0, s>>>(*p);
+    family_pass<false, float><<<grid, block, 0, s>>>(*p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,9 @@
 // pass has its own per-cell code (every axis's psi, records, point
 // source).
 //
-// Arrays are per component (n1, n2, n3) float32, C order, z innermost.
+// Arrays are per component (n1, n2, n3), C order, z innermost: the
+// fields float32 or bf16 (Grid.bf16; csrc/storage.cuh), everything else
+// float32.
 // A curl term of component c is s * dfa, plus, on a y or z CPML slab,
 // s * ((ik - 1) dfa + psi') with psi' = b psi + c dfa on the compact
 // slab psi (2m planes along the axis). x is the reference's "post"
@@ -17,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 struct Coef {
   const float* grid;  // (n1, n2, n3) or nullptr
   float val;          // used when grid is nullptr
@@ -24,8 +28,8 @@ struct Coef {
 
 // One family's operands.
 struct FamOps {
-  const float* F[3];          // old components
-  float* out[3];              // new components
+  const void* F[3];           // old components (float or bf16 words)
+  void* out[3];               // new components (float or bf16 words)
   const float* psi_in[3][2];  // per component, per curl term: the
   float* psi_out[3][2];       // compact slab psi of a y/z CPML axis, or
                               // nullptr (no in-kernel psi on that term)
@@ -46,7 +50,18 @@ struct Grid {
   int m[3];      // slab planes per side of the y/z CPML axes; m[0] = 0
   int n[3];      // n1, n2, n3
   float inv_dx;
+  int bf16;      // the fields are bf16 words (else float32)
 };
+
+// Component c of a family's fields as words of the storage type T.
+template <typename T>
+__device__ __forceinline__ const T* fld(const void* const (&F)[3], int c) {
+  return static_cast<const T*>(F[c]);
+}
+template <typename T>
+__device__ __forceinline__ T* fld(void* const (&F)[3], int c) {
+  return static_cast<T*>(F[c]);
+}
 
 // CURL_TERMS of fdtd3d_torch/layout.py: component c couples
 // (derivative axis, source component, sign) = ((c+1)%3, (c+2)%3, +1)
@@ -117,12 +132,13 @@ __device__ __forceinline__ float curl_acc(const FamOps& f, const Grid& g,
 // New E component c at cell idx from its curl accumulator: the Drude
 // current taken off, ca E + cb acc, and the PEC walls (tangential E
 // vanishes on the walls of the two axes other than its own). J' and E'
-// are written when `write`.
+// are written when `write`. T: the fields' storage type.
+template <typename T>
 __device__ __forceinline__ float e_value(const FamOps& e, const Drude& dr,
                                          const Grid& g, int c,
                                          const int idx[3], int64_t cell,
                                          float acc, bool write) {
-  const float old = e.F[c][cell];
+  const float old = ld(fld<T>(e.F, c) + cell);
   if (dr.Jin[c] != nullptr) {
     const float jn = coef(dr.kj[c], cell) * dr.Jin[c][cell] +
                      coef(dr.bj[c], cell) * old;
@@ -134,12 +150,14 @@ __device__ __forceinline__ float e_value(const FamOps& e, const Drude& dr,
   for (int w = 0; w < 3; ++w) {
     if (w != c && (idx[w] == 0 || idx[w] == g.n[w] - 1)) v = 0.f;
   }
-  if (write) e.out[c][cell] = v;
+  if (write) st(fld<T>(e.out, c) + cell, v);
   return v;
 }
 
 // New H component c at `cell`: da H - db acc, written.
+template <typename T>
 __device__ __forceinline__ void h_value(const FamOps& h, int c, int64_t cell,
                                         float old, float acc) {
-  h.out[c][cell] = coef(h.a[c], cell) * old - coef(h.b[c], cell) * acc;
+  st(fld<T>(h.out, c) + cell,
+     coef(h.a[c], cell) * old - coef(h.b[c], cell) * acc);
 }

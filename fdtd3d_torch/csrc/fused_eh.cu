@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas_fused.py::make_fused_eh_step (builder :310,
-// kernel body :423, pallas_call :709) for 3D real float32, unsharded,
+// kernel body :423, pallas_call :709) for 3D real float32 and bf16
+// storage, unsharded,
 // together with what the reference's step patches on after it (the x
 // slab CPML post-pass, the TFSF face patches, the point source and the
 // H corrections of those patches); the step around it is
@@ -24,6 +25,12 @@
 // the waveform) after the Drude current. PEC zero ghosts outside the
 // domain, per-cell or scalar coefficients, PEC walls on tangential E.
 // H is computed from the final E, so nothing is patched afterwards.
+// bf16 storage (Grid.bf16, csrc/storage.cuh): E and H are bf16 words in
+// device memory, widened to float where they enter the rings; E' is
+// rounded to bf16 where it is stored, and H' is computed from the
+// unrounded E' of the new-E ring, as the reference's fused kernel keeps
+// new_e for its H update (pallas_fused.py:566-603). psi, J, the records
+// and the coefficients stay float32.
 // Every operation is the plain PyTorch version's, in its order
 // (pallas_fused.fused_eh_plain), and the library is built with
 // --fmad=false: no product is contracted into an FMA, so a cell's value
@@ -90,7 +97,11 @@
 //    4.46.
 // 3. One barrier a plane (a second between the phases: 0.604 / 4.19);
 //    old fields by cp.async (ordinary loads: 0.641 / 4.33) one plane
-//    ahead (two: 0.597 / 4.15).
+//    ahead (two: 0.597 / 4.15). A bf16 cell is a 2-byte word, below
+//    cp.async's 4 bytes, and the halo columns make a tile's rows start
+//    at odd columns: the bf16 build loads each thread's words of the
+//    next plane into registers at the top of an iteration and widens
+//    them into the float rings at its end, after the plane's phases.
 // 4. Sections: edge kernels specialised by slab axis (one general edge
 //    kernel: 0.646 / 4.42; every item in it: 0.740 / 5.19); each section
 //    may start while the one before ends (programmatic dependent launch;
@@ -116,7 +127,8 @@
 // are source patches of scripts/fused_variants.py, not knobs of this
 // file.
 //
-// Offsets are 64-bit across planes (32-bit inside a plane). Every entry
+// Every kernel has a float and a bf16 build (kKernels). Offsets are
+// 64-bit across planes (32-bit inside a plane). Every entry
 // returns cudaGetLastError() (or the first error) so the caller can
 // raise on a refused launch.
 
@@ -401,8 +413,9 @@ __device__ __forceinline__ void cp_wait() {
 // lanes column 0 and column BZ + 1 of every row. It loads the cell's old
 // H if the cell lies in the window, computes E on the owned cells and
 // the +y/+z halo row and column, and H on the owned cells.
-template <int AX, bool SRC>
+template <int AX, bool SRC, typename T>
 __device__ __forceinline__ void march(const Params& p, int first) {
+  constexpr bool BF = sizeof(T) == 2;
   extern __shared__ __align__(16) float ring[];
   __shared__ RecTable tab[2];
   float* hr = ring;               // old H: RING planes
@@ -468,23 +481,54 @@ __device__ __forceinline__ void march(const Params& p, int first) {
   // old H of plane x for the window, and (e) old E for the columns that
   // compute E (thread-private slots: a thread reads only what it
   // loaded, and has used a slot's plane before it refills the slot); one
-  // commit group a plane
+  // commit group a plane. float: by cp.async into the rings; bf16: into
+  // the registers hw, ew, which put_plane widens into the rings
+  T hw[3], ew[3];
   auto load_plane = [&](int x, bool e) {
     if (x >= lim || !inside) return;
     const int64_t off = x * pstride + cidx;
+    if constexpr (BF) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) hw[c] = fld<T>(p.h.F, c)[off];
+      if (e && halo_e) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) ew[c] = fld<T>(p.e.F, c)[off];
+      }
+    } else {
+      const int s = (x & (RING - 1)) * PL + at;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        cp_async4(hr + s + c * RP, fld<float>(p.h.F, c) + off);
+      }
+      if (e && halo_e) {
+        const int se = (x % ERING) * PL + at;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          cp_async4(er + se + c * RP, fld<float>(p.e.F, c) + off);
+        }
+      }
+    }
+  };
+  // bf16: the words load_plane(x, e) fetched, widened into the rings
+  auto put_plane = [&](int x, bool e) {
+    if (!BF || x >= lim || !inside) return;
     const int s = (x & (RING - 1)) * PL + at;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) cp_async4(hr + s + c * RP, p.h.F[c] + off);
+    for (int c = 0; c < 3; ++c) hr[s + c * RP] = widen(hw[c]);
     if (e && halo_e) {
       const int se = (x % ERING) * PL + at;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) cp_async4(er + se + c * RP, p.e.F[c] + off);
+      for (int c = 0; c < 3; ++c) er[se + c * RP] = widen(ew[c]);
     }
   };
-  if (x0 > 0) load_plane(x0 - 1, false);  // H, read by E(x0)
+  if (x0 > 0) {  // H, read by E(x0)
+    load_plane(x0 - 1, false);
+    put_plane(x0 - 1, false);
+  }
 #pragma unroll
   for (int q = 0; q < PIPE; ++q) {
     load_plane(x0 + q, true);
+    put_plane(x0 + q, true);
     cp_commit();
   }
 
@@ -515,7 +559,7 @@ __device__ __forceinline__ void march(const Params& p, int first) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         nr[s_i + c * RP + at] = out[c];
-        if (store) p.e.out[c][cell] = out[c];
+        if (store) st(fld<T>(p.e.out, c) + cell, out[c]);
       }
     }
 
@@ -536,16 +580,19 @@ __device__ __forceinline__ void march(const Params& p, int first) {
                              (AX & 1) ? slab_plane(xa, n1, p.g.m[0]) : -1,
                              col, 0u, grid, cell, old, true, out);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) p.h.out[c][cell] = out[c];
+      for (int c = 0; c < 3; ++c) st(fld<T>(p.h.out, c) + cell, out[c]);
     }
+    // bf16: plane i + PIPE into the rings, after every read of the slots
+    // it refills (see load_plane)
+    put_plane(i + PIPE, true);
   }
   cp_wait<0>();  // the last groups are empty; none stays in flight
 }
 
-template <int AX, bool SRC, int MINB>
+template <int AX, bool SRC, int MINB, typename T>
 __global__ void __launch_bounds__(NT, MINB)
     fused_section(const Params p, int first) {
-  march<AX, SRC>(p, first);
+  march<AX, SRC, T>(p, first);
 }
 
 // Dynamic shared memory of a block: the old H and E rings, the new E
@@ -559,12 +606,18 @@ typedef void (*Kernel)(const Params, int);
 
 // The plan's sections, in launch order (ops/pallas_fused.py::SECTIONS):
 // the slab items of several axes, of x, of y, of z alone, the source
-// items, the plain ones.
-static const Kernel kKernels[SECTIONS] = {
-    fused_section<7, true, EDGE_BLOCKS>, fused_section<1, true, EDGE_BLOCKS>,
-    fused_section<2, true, EDGE_BLOCKS>, fused_section<4, true, EDGE_BLOCKS>,
-    fused_section<0, true, INNER_BLOCKS>,
-    fused_section<0, false, INNER_BLOCKS>};
+// items, the plain ones; the float build, then the bf16 one.
+#define SECTION_KERNELS(T)                                                 \
+  {                                                                        \
+    fused_section<7, true, EDGE_BLOCKS, T>,                                \
+        fused_section<1, true, EDGE_BLOCKS, T>,                            \
+        fused_section<2, true, EDGE_BLOCKS, T>,                            \
+        fused_section<4, true, EDGE_BLOCKS, T>,                            \
+        fused_section<0, true, INNER_BLOCKS, T>,                           \
+        fused_section<0, false, INNER_BLOCKS, T>                           \
+  }
+static const Kernel kKernels[2][SECTIONS] = {SECTION_KERNELS(float),
+                                             SECTION_KERNELS(bf16_t)};
 
 static int g_smem_most = 0;  // shared memory a block may have (opt-in)
 
@@ -582,16 +635,16 @@ static cudaError_t set_attributes() {
   if (err != cudaSuccess) return err;
   g_smem_most = most;
   const int want = smem_bytes(MAX_SLAB_SUM);
-  for (int q = 0; q < SECTIONS; ++q) {
+  for (int q = 0; q < 2 * SECTIONS; ++q) {
+    const Kernel k = kKernels[q / SECTIONS][q % SECTIONS];
     cudaFuncAttributes a;
-    err = cudaFuncGetAttributes(&a, kKernels[q]);
+    err = cudaFuncGetAttributes(&a, k);
     if (err != cudaSuccess) return err;
     const int room = most - static_cast<int>(a.sharedSizeBytes);
-    err = cudaFuncSetAttribute(kKernels[q],
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                want < room ? want : room);
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(kKernels[q],
+      err = cudaFuncSetAttribute(k,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     }
@@ -613,20 +666,21 @@ int fdtd_fused_tile(int* out) {
   return 0;
 }
 
-// Per section kernel, four ints: registers a thread, local (spill) bytes
-// a thread, resident blocks an SM at the shared memory of CPML of 10
-// planes on every axis, static shared bytes.
+// Per section kernel (the float builds, then the bf16 ones), four ints:
+// registers a thread, local (spill) bytes a thread, resident blocks an SM
+// at the shared memory of CPML of 10 planes on every axis, static shared
+// bytes.
 int fdtd_fused_occupancy(int* out) {
   cudaError_t err = set_attributes();
-  for (int q = 0; q < SECTIONS && err == cudaSuccess; ++q) {
+  for (int q = 0; q < 2 * SECTIONS && err == cudaSuccess; ++q) {
+    const Kernel k = kKernels[q / SECTIONS][q % SECTIONS];
     cudaFuncAttributes a;
-    err = cudaFuncGetAttributes(&a, kKernels[q]);
+    err = cudaFuncGetAttributes(&a, k);
     int blocks = 0;
     const int smem = smem_bytes(30);
     if (err == cudaSuccess &&
         smem + static_cast<int>(a.sharedSizeBytes) <= g_smem_most) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
-                                                          kKernels[q], NT,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, NT,
                                                           smem);
     }
     out[4 * q] = a.numRegs;
@@ -668,9 +722,10 @@ int fdtd_fused_pass(const Params* p, void* stream) {
       attr.val.programmaticStreamSerializationAllowed = 1;
       cfg.attrs = &attr;
       cfg.numAttrs = OVERLAP && first > 0 ? 1 : 0;
-      err = cudaLaunchKernelExC(&cfg,
-                                reinterpret_cast<const void*>(kKernels[q]),
-                                args);
+      err = cudaLaunchKernelExC(
+          &cfg,
+          reinterpret_cast<const void*>(kKernels[p->g.bf16 ? 1 : 0][q]),
+          args);
       if (err == cudaSuccess) err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }

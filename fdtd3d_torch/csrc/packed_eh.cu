@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas_packed.py::make_packed_eh_step (kernel body at
-// pallas_packed.py:694, pallas_call at :1138) for 3D real float32.
+// pallas_packed.py:694, pallas_call at :1138) for 3D real float32 and
+// bf16 storage.
 //
 // What one step computes, on the reference's stacked layout
-// E, H = (3, n1, n2, n3) float32, C order, z innermost:
+// E, H = (3, n1, n2, n3) float32 or bf16, C order, z innermost:
 //   E' = ca E + cb (curl_b H + CPML terms - J'),   J' = kj J + bj E
 //   H' = da H - db (curl_f E' + CPML terms)
 // with PEC zero ghosts outside the domain, the y/z/x CPML psi
@@ -42,11 +43,20 @@
 // n1 n2 n3 for a per-lane grid). Scalar coefficients are one value for
 // every lane, as the reference bakes them. A solo run is lanes = 1.
 //
+// bf16 storage (Params.bf16): E and H are bf16 words, loaded as floats
+// and rounded to bf16 where they are stored (csrc/storage.cuh); psi, J,
+// the profiles and the coefficients stay float32, as does all the
+// arithmetic. A launch then moves half the field bytes: each cell's new
+// value is stored once, so the H launch reads the rounded E, as the
+// plain version's in-place updates do.
+//
 // Every entry returns cudaGetLastError() so the caller can raise on a
 // refused launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 struct Coef {
   const float* grid;  // (n1, n2, n3), (lanes, n1, n2, n3) or nullptr
@@ -55,8 +65,8 @@ struct Coef {
 };
 
 struct Params {
-  float* F;              // family being updated, (lanes, 3, n1, n2, n3)
-  const float* S;        // curl source family, (lanes, 3, n1, n2, n3)
+  void* F;               // family being updated, (lanes, 3, n1, n2, n3)
+  const void* S;         // curl source family, (lanes, 3, n1, n2, n3)
   float* J;              // Drude J (lanes, 3, n1, n2, n3) or nullptr (E only)
   float* psi[3];         // per axis a: (lanes, 2, n with dim a = 2 m[a])
                          // or nullptr
@@ -71,6 +81,7 @@ struct Params {
   int n1, n2, n3;
   int lanes;             // scenarios advanced by one launch
   float inv_dx;
+  int bf16;              // F and S are bf16 words (else float32)
 };
 
 // CURL_TERMS of fdtd3d_tpu/layout.py: component c couples
@@ -103,15 +114,16 @@ __device__ __forceinline__ int64_t psi_offset(int a, int row, int q, int i,
 // One family update. BACKWARD = true: E from backward differences of H
 // (with Drude J and PEC walls); false: H from forward differences of E.
 // MULTI = false is a single-lane launch: the lane is the constant 0.
-template <bool BACKWARD, bool MULTI>
+// T: the fields' storage type (float or bf16).
+template <bool BACKWARD, bool MULTI, typename T>
 __global__ void __launch_bounds__(128) family_update(Params p) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
   const int i = MULTI ? blockIdx.z % p.n1 : blockIdx.z;
   const int lane = MULTI ? blockIdx.z / p.n1 : 0;
   if (k >= p.n3) return;
-  float* const F = p.F + lane * p.field_lane;
-  const float* const S = p.S + lane * p.field_lane;
+  T* const F = static_cast<T*>(p.F) + lane * p.field_lane;
+  const T* const S = static_cast<const T*>(p.S) + lane * p.field_lane;
   float* const J = p.J ? p.J + lane * p.field_lane : nullptr;
   const int64_t n1 = p.n1, n2 = p.n2, n3 = p.n3;
   const int64_t vol = n1 * n2 * n3;
@@ -127,14 +139,14 @@ __global__ void __launch_bounds__(128) family_update(Params p) {
     for (int t = 0; t < 2; ++t) {
       const int a = term_axis(c, t);
       const float s = t == 0 ? 1.f : -1.f;
-      const float* src = S + term_comp(c, t) * vol + cell;
+      const T* src = S + term_comp(c, t) * vol + cell;
       float dfa;
       if (BACKWARD) {
-        const float prev = idx[a] > 0 ? src[-stride[a]] : 0.f;
-        dfa = (src[0] - prev) * p.inv_dx;
+        const float prev = idx[a] > 0 ? ld(src - stride[a]) : 0.f;
+        dfa = (ld(src) - prev) * p.inv_dx;
       } else {
-        const float next = idx[a] < n[a] - 1 ? src[stride[a]] : 0.f;
-        dfa = (next - src[0]) * p.inv_dx;
+        const float next = idx[a] < n[a] - 1 ? ld(src + stride[a]) : 0.f;
+        dfa = (next - ld(src)) * p.inv_dx;
       }
       const int m = p.m[a];
       if (m > 0) {
@@ -154,8 +166,8 @@ __global__ void __launch_bounds__(128) family_update(Params p) {
       }
       acc += s * dfa;
     }
-    float* f = F + c * vol + cell;
-    const float old = *f;
+    T* f = F + c * vol + cell;
+    const float old = ld(f);
     float v;
     if (BACKWARD) {
       if (J) {
@@ -175,7 +187,22 @@ __global__ void __launch_bounds__(128) family_update(Params p) {
     } else {
       v = coef(p.a[c], lane, cell) * old - coef(p.b[c], lane, cell) * acc;
     }
-    *f = v;
+    st(f, v);
+  }
+}
+
+template <typename T>
+static void launch_t(const Params* p, dim3 grid, dim3 block, cudaStream_t s,
+                     bool backward) {
+  const bool multi = p->lanes > 1;
+  if (backward && multi) {
+    family_update<true, true, T><<<grid, block, 0, s>>>(*p);
+  } else if (backward) {
+    family_update<true, false, T><<<grid, block, 0, s>>>(*p);
+  } else if (multi) {
+    family_update<false, true, T><<<grid, block, 0, s>>>(*p);
+  } else {
+    family_update<false, false, T><<<grid, block, 0, s>>>(*p);
   }
 }
 
@@ -187,15 +214,10 @@ static int launch(const Params* p, void* stream, bool backward) {
   }
   const dim3 grid((p->n3 + 127) / 128, p->n2, p->n1 * p->lanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool multi = p->lanes > 1;
-  if (backward && multi) {
-    family_update<true, true><<<grid, block, 0, s>>>(*p);
-  } else if (backward) {
-    family_update<true, false><<<grid, block, 0, s>>>(*p);
-  } else if (multi) {
-    family_update<false, true><<<grid, block, 0, s>>>(*p);
+  if (p->bf16) {
+    launch_t<bf16_t>(p, grid, block, s, backward);
   } else {
-    family_update<false, false><<<grid, block, 0, s>>>(*p);
+    launch_t<float>(p, grid, block, s, backward);
   }
   return static_cast<int>(cudaGetLastError());
 }

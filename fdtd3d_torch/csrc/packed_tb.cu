@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas_packed_tb.py::make_packed_tb_step (builder :520,
-// kernel body :900, pallas_call :1320) for unsharded 3D float32 runs at
-// k = 2.
+// kernel body :900, pallas_call :1320) for unsharded 3D float32 and bf16
+// storage runs at k = 2.
 //
 // What one call computes, on the stacked layout E, H = (3, n1, n2, n3)
 // float32, C order, z innermost, out of place (source buffers *0,
@@ -110,6 +110,19 @@
 // grids' box, the same for every lane) only. A solo run is lanes = 1
 // (MULTI = false).
 //
+// bf16 storage (Params.bf16, csrc/storage.cuh): E and H are bf16 words in
+// device memory, widened to float where they enter the rings; all the
+// arithmetic, the psi and J state and the coefficients stay float32, and
+// only generation 2 is rounded to bf16, where it is stored (the rings of
+// generation 1 and of E2, which H2 reads, hold floats), as the
+// reference's tb kernel rounds only at g == k (pallas_packed_tb.py:1200,
+// :1258). A bf16 cell is a 2-byte word, below cp.async's 4 bytes, and the
+// tiles start at any z: the bf16 build loads each thread's words of
+// plane i + PIPE into registers at the top of iteration i and widens
+// them into the float rings at its end, after the phases that read the
+// slots they refill; the coefficient, J and record rings keep cp.async.
+// The rings and shared memory are the float build's.
+//
 // In place would be wrong: a block reads halo columns of E, H, psi and J
 // that a neighbouring block writes, so the call reads only the source
 // buffers and writes only the destination ones (the caller ping-pongs).
@@ -130,6 +143,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 #define MAX_REC 16   // mirrors fdtd3d_torch/ops/packed_tb.py
 #define PLAN_COLS 8  // ints a plan row: j0, k0, ny, nz, x0, x1, class, pad
@@ -198,11 +213,11 @@ struct Family {
 };
 
 struct Params {
-  const float* E0;        // stacked (lanes, 3, n1, n2, n3), read only
-  const float* H0;
+  const void* E0;         // stacked (lanes, 3, n1, n2, n3), read only
+  const void* H0;         // (float or bf16 words)
   const float* J0;        // Drude J or nullptr
-  float* E2;              // destination stacks, written only
-  float* H2;
+  void* E2;               // destination stacks, written only
+  void* H2;
   float* J2;
   const float* psE0[3];   // per axis a: (lanes, 2, n with dim a = 2 m[a])
   const float* psH0[3];   // or null
@@ -226,6 +241,7 @@ struct Params {
   int n_item[SECTIONS];   // items of each section, in launch order (see
                           // kKernels)
   float inv_dx;
+  int bf16;               // E and H are bf16 words (else float32)
 };
 
 // CURL_TERMS of fdtd3d_tpu/layout.py: component c couples
@@ -687,10 +703,15 @@ struct Tables {
 // which the plan gives only items whose computed cells touch no slab.
 // GRID = false compiles the coefficient grids and Drude J out. ZW: the
 // block's extent along z (BZ, or BZ / 2 in the transposed layout of
-// z-band items, with 2 BY along y).
-template <bool MULTI, int AX, bool GRID, int ZW>
+// z-band items, with 2 BY along y). T: the fields' storage type.
+template <bool MULTI, int AX, bool GRID, int ZW, typename T>
 __device__ __forceinline__ void march(const Params& p, int first_item) {
   constexpr bool EDGE = AX != 0;
+  constexpr bool BF = sizeof(T) == 2;
+  const T* const E0 = static_cast<const T*>(p.E0);
+  const T* const H0 = static_cast<const T*>(p.H0);
+  T* const E2 = static_cast<T*>(p.E2);
+  T* const H2 = static_cast<T*>(p.H2);
   extern __shared__ __align__(16) float ring[];
   __shared__ Tables tab;
   float* h0r = ring;                  // H(t):   RING planes
@@ -781,7 +802,10 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
 
   // generation 0 of plane x (< lim) into the rings: H for the window,
   // E, the E coefficients and J for the columns that compute E, the
-  // staged record rows; one commit group a plane
+  // staged record rows; one commit group a plane. The fields: float by
+  // cp.async; bf16 into the registers hw, ew, which put_plane widens into
+  // the rings
+  T hw[3], ew[3];
   auto load_plane = [&](int x) {
     if (x >= lim) return;
     const int slot = x & (RING - 1);
@@ -790,12 +814,20 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
       const int s = slot * PLANE + tid;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        cp_async4(h0r + s + c * NT, p.H0 + off + c * vol);
+        if constexpr (BF) {
+          hw[c] = H0[off + c * vol];
+        } else {
+          cp_async4(h0r + s + c * NT, H0 + off + c * vol);
+        }
       }
       if (in_e1) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          cp_async4(e0r + s + c * NT, p.E0 + off + c * vol);
+          if constexpr (BF) {
+            ew[c] = E0[off + c * vol];
+          } else {
+            cp_async4(e0r + s + c * NT, E0 + off + c * vol);
+          }
         }
         if (GRID) {
           const int64_t at = (int64_t)x * pstride + cidx;
@@ -839,17 +871,33 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
       }
     }
   };
+  // bf16: the field words load_plane(x) fetched, widened into the rings
+  auto put_plane = [&](int x) {
+    if (!BF || x >= lim || !inside) return;
+    const int s = (x & (RING - 1)) * PLANE + tid;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) h0r[s + c * NT] = widen(hw[c]);
+    if (in_e1) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) e0r[s + c * NT] = widen(ew[c]);
+    }
+  };
   if (ib > 0 && inside) {  // H of plane ib - 1, read by E1(ib)
     const int64_t off = lf + (int64_t)(ib - 1) * pstride + cidx;
     const int s = ((ib - 1) & (RING - 1)) * PLANE + tid;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      cp_async4(h0r + s + c * NT, p.H0 + off + c * vol);
+      if constexpr (BF) {
+        h0r[s + c * NT] = ld(H0 + off + c * vol);
+      } else {
+        cp_async4(h0r + s + c * NT, H0 + off + c * vol);
+      }
     }
   }
 #pragma unroll
   for (int q = 0; q < PIPE; ++q) {
     load_plane(ib + q);
+    put_plane(ib + q);
     cp_commit();
   }
 
@@ -950,7 +998,7 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         e2r[s_m + c * NT + tid] = out[c];
-        if (store) p.E2[lf + c * vol + cell] = out[c];
+        if (store) st(E2 + lf + c * vol + cell, out[c]);
       }
     }
     __syncthreads();
@@ -967,8 +1015,11 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
       H_CELL(1, p, rt_h, bits, e2r, s_i, s_m, col, pl_2, src_i, lane, cell,
              tid, old, psh, ph_old, out, true);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) p.H2[lf + c * vol + cell] = out[c];
+      for (int c = 0; c < 3; ++c) st(H2 + lf + c * vol + cell, out[c]);
     }
+    // bf16: plane i + PIPE into the rings, after every read of the slots
+    // it refills (see load_plane)
+    put_plane(i + PIPE);
 
     // the plane made this iteration is the next iteration's old plane
     if (EDGE) {
@@ -1006,7 +1057,7 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
 // Each kernel runs the items of one plan section, from item `first`:
 // AX, GRID and its target blocks an SM are the section's; an item of a
 // section whose slabs include z may take the transposed layout.
-template <bool MULTI, int AX, bool GRID, int MINB>
+template <bool MULTI, int AX, bool GRID, int MINB, typename T>
 __global__ void __launch_bounds__(NT, MINB)
     tb_section(const Params p, int first) {
 #if ZBAND
@@ -1014,12 +1065,12 @@ __global__ void __launch_bounds__(NT, MINB)
     const int item =
         first + (MULTI ? (int)(blockIdx.x / p.lanes) : (int)blockIdx.x);
     if (p.plan[PLAN_COLS * item + 7]) {
-      march<MULTI, AX, GRID, BZ / 2>(p, first);
+      march<MULTI, AX, GRID, BZ / 2, T>(p, first);
       return;
     }
   }
 #endif
-  march<MULTI, AX, GRID, BZ>(p, first);
+  march<MULTI, AX, GRID, BZ, T>(p, first);
 }
 
 // Dynamic shared memory of a block: the generation-0 rings of H and E,
@@ -1041,14 +1092,22 @@ typedef void (*Kernel)(const Params, int);
 // value, which Coef.val then holds); they need the larger shared memory
 // of the coefficient and J rings, so their builds are for one block an
 // SM. The kernels of one slab axis keep less psi state than the general
-// one and are built for SINGLE_BLOCKS.
-#define SECTION(AX, GRID, MINB) \
-  { tb_section<false, AX, GRID, MINB>, tb_section<true, AX, GRID, MINB> }
-static const Kernel kKernels[SECTIONS][2] = {
-    SECTION(7, true, EDGE_BLOCKS),   SECTION(1, false, SINGLE_BLOCKS),
-    SECTION(2, false, SINGLE_BLOCKS), SECTION(4, false, SINGLE_BLOCKS),
-    SECTION(7, false, EDGE_BLOCKS),  SECTION(0, true, 1),
-    SECTION(0, false, INNER_BLOCKS)};
+// one and are built for SINGLE_BLOCKS. Each has a float and a bf16 build.
+#define SECTION(AX, GRID, MINB, T)       \
+  {                                      \
+    tb_section<false, AX, GRID, MINB, T>, \
+        tb_section<true, AX, GRID, MINB, T> \
+  }
+#define SECTION_KERNELS(T)                                            \
+  {                                                                   \
+    SECTION(7, true, EDGE_BLOCKS, T), SECTION(1, false, SINGLE_BLOCKS, T), \
+        SECTION(2, false, SINGLE_BLOCKS, T),                          \
+        SECTION(4, false, SINGLE_BLOCKS, T),                          \
+        SECTION(7, false, EDGE_BLOCKS, T), SECTION(0, true, 1, T),    \
+        SECTION(0, false, INNER_BLOCKS, T)                            \
+  }
+static const Kernel kKernels[2][SECTIONS][2] = {SECTION_KERNELS(float),
+                                                SECTION_KERNELS(bf16_t)};
 static const bool kGrid[SECTIONS] = {true,  false, false, false,
                                      false, true,  false};
 
@@ -1069,8 +1128,8 @@ static cudaError_t set_attributes() {
   if (err != cudaSuccess) return err;
   g_smem_most = most;
   const int want = smem_bytes(true, MAX_SLAB_SUM);
-  for (int q = 0; q < 2 * SECTIONS; ++q) {
-    const Kernel k = kKernels[q / 2][q % 2];
+  for (int q = 0; q < 4 * SECTIONS; ++q) {
+    const Kernel k = kKernels[q / (2 * SECTIONS)][q / 2 % SECTIONS][q % 2];
     cudaFuncAttributes a;
     err = cudaFuncGetAttributes(&a, k);
     if (err != cudaSuccess) return err;
@@ -1104,18 +1163,18 @@ int fdtd_tb_tile(int* out) {
   return 0;
 }
 
-// Per kernel (each section's solo build, then its lane-capable one),
-// four ints: registers a thread, local (spill) bytes a thread, resident
-// blocks an SM at the call's shared memory (CPML of 8 planes on every
-// axis), static shared bytes.
+// Per kernel (each section's solo build, then its lane-capable one; the
+// float builds, then the bf16 ones), four ints: registers a thread, local
+// (spill) bytes a thread, resident blocks an SM at the call's shared
+// memory (CPML of 8 planes on every axis), static shared bytes.
 int fdtd_tb_occupancy(int* out) {
   cudaError_t err = set_attributes();
-  for (int q = 0; q < 2 * SECTIONS && err == cudaSuccess; ++q) {
-    const Kernel k = kKernels[q / 2][q % 2];
+  for (int q = 0; q < 4 * SECTIONS && err == cudaSuccess; ++q) {
+    const Kernel k = kKernels[q / (2 * SECTIONS)][q / 2 % SECTIONS][q % 2];
     cudaFuncAttributes a;
     err = cudaFuncGetAttributes(&a, k);
     int blocks = 0;
-    const int smem = smem_bytes(kGrid[q / 2], 24);
+    const int smem = smem_bytes(kGrid[q / 2 % SECTIONS], 24);
     if (err == cudaSuccess &&
         smem + static_cast<int>(a.sharedSizeBytes) <= g_smem_most) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, NT,
@@ -1167,7 +1226,8 @@ int fdtd_tb_pass(const Params* p, void* stream) {
       cfg.attrs = &attr;
       cfg.numAttrs = OVERLAP && first > 0 ? 1 : 0;
       err = cudaLaunchKernelExC(
-          &cfg, reinterpret_cast<const void*>(kKernels[q][p->lanes > 1]),
+          &cfg, reinterpret_cast<const void*>(
+                    kKernels[p->bf16 ? 1 : 0][q][p->lanes > 1]),
           args);
       if (err == cudaSuccess) err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);

@@ -7,6 +7,11 @@ are byte-identical to the reference's. Every file is written through
 the atomic writer (tmp file + fsync + ``os.replace``), so a crash
 mid-write never leaves a torn file under the final name. Checkpoints
 and the TXT/BMP dumpers come with ROADMAP.md items A6 and A7.
+
+A bf16 field is dumped as its 2-byte words with the manifest dtype
+``"<V2"``, which is what the reference's writer records for an
+``ml_dtypes`` bfloat16 array; ``load_dat`` reads such a dump back as
+bf16 widened to float32.
 """
 
 from __future__ import annotations
@@ -76,12 +81,19 @@ def atomic_publish(path: str, write_fn) -> None:
         raise
 
 
-def dump_dat(arr: np.ndarray, path: str, step: Optional[int] = None):
-    """Bare binary dump (little-endian, C order) + .manifest.json sidecar."""
+BF16_DTYPE = "<V2"   # the manifest dtype of a bf16 dump
+
+
+def dump_dat(arr: np.ndarray, path: str, step: Optional[int] = None,
+             bf16: bool = False):
+    """Bare binary dump (little-endian, C order) + .manifest.json sidecar.
+    ``bf16``: ``arr`` holds the 2-byte words of a bf16 field (its int16
+    bits), recorded as ``BF16_DTYPE``."""
     arr = np.asarray(arr)
     le = arr.astype(arr.dtype.newbyteorder("<"), copy=False)
     atomic_publish(path, le.tofile)
-    manifest = {"shape": list(arr.shape), "dtype": le.dtype.str,
+    manifest = {"shape": list(arr.shape),
+                "dtype": BF16_DTYPE if bf16 else le.dtype.str,
                 "order": "C", "endian": "little"}
     if step is not None:
         manifest["step"] = int(step)
@@ -93,6 +105,9 @@ def load_dat(path: str) -> np.ndarray:
     """Load a DAT dump with the shape and dtype of its sidecar."""
     with open(path + ".manifest.json") as f:
         manifest = json.load(f)
+    if manifest["dtype"] == BF16_DTYPE:
+        words = np.fromfile(path, dtype="<u2").astype(np.uint32)
+        return (words << 16).view(np.float32).reshape(manifest["shape"])
     return np.fromfile(path, dtype=np.dtype(manifest["dtype"])).reshape(
         manifest["shape"])
 
@@ -105,10 +120,17 @@ def write_outputs(sim, step: int):
         raise NotImplementedError(
             f"dump formats {other} are not ported to fdtd3d_torch yet "
             f"(ROADMAP.md queue A7); use --save-formats dat")
+    import torch
+
+    from fdtd3d_torch import convert
     os.makedirs(out.save_dir, exist_ok=True)
-    for comp, arr in sim.fields().items():
+    for comp, v in sim.component_views().items():
         base = os.path.join(out.save_dir, f"{comp}_t{step:06d}")
-        dump_dat(arr, base + ".dat", step=step)
+        if v.dtype == torch.bfloat16:
+            dump_dat(convert.bf16_words(v), base + ".dat", step=step,
+                     bf16=True)
+        else:
+            dump_dat(convert.to_host(v), base + ".dat", step=step)
 
 
 def load_bmp_gray(path: str) -> np.ndarray:

@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas_packed.py::make_packed_eh_step`` (builder :548,
-kernel body :694, ``pallas_call`` :1138) for 3D real float32, with the
-hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/packed_eh.cu``
-(``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
+kernel body :694, ``pallas_call`` :1138) for 3D real float32 and bf16
+storage, with the hand-written CUDA C++ kernel
+``fdtd3d_torch/csrc/packed_eh.cu`` (``sm_90a``, built by nvcc at first
+use, bound with ctypes). CUDA C++
 rather than Triton: a stencil with per-cell coefficients and CPML slab
 branches, which wants explicit control of its indexing.
 
@@ -21,6 +22,15 @@ the point source are torch plane patches between the launches
 advance, H update, H patches. The x-slab CPML therefore runs in-kernel
 for every source position: the curl that feeds psi never includes a
 source term.
+
+bf16 storage (the reference's ``fst = static.field_dtype``,
+pallas_packed.py:591): E and H are bf16, psi, J and the coefficients
+f32; the kernels load the fields as floats, compute in f32 and round
+each new value to bf16 where they store it, so the H launch reads the
+rounded E. The patches between the launches add their value rounded to
+bf16 onto the stored field, as the reference's patches do (the sum is
+rounded again), so a face cell differs from the plain step by a bf16
+rounding or two.
 
 Layout (the port's own; parity is judged on the unpacked state):
 ``E``, ``H`` (3, n1, n2, n3); ``psE[a]``/``psH[a]`` the compact slab psi
@@ -198,8 +208,11 @@ def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
     ``point(c, acc)`` add in-kernel sources to component c's curl
     accumulator (the temporal-blocked pass, ops/packed_tb.py): the
     records after the curl, the point source after the Drude current,
-    as the reference's kernels order them."""
+    as the reference's kernels order them. bf16 fields are widened to
+    float32 before any operation and the new values rounded to bf16
+    where they are stored, as the kernel loads and stores them."""
     diff = _diff_b if backward else _diff_f
+    S = S.float()
     for c in range(3):
         acc = None
         for t in range(2):
@@ -217,7 +230,7 @@ def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
             acc = records(c, acc)
         drude = None if J is None else (J[c], fc["kj"][c], fc["bj"][c])
         hook = None if point is None else (lambda acc, c=c: point(c, acc))
-        v, jn = family_value(c, F[c], acc, fc["a"][c], fc["b"][c],
+        v, jn = family_value(c, F[c].float(), acc, fc["a"][c], fc["b"][c],
                              fc["wall"], backward, drude, hook)
         if jn is not None:
             J[c].copy_(jn)
@@ -287,7 +300,7 @@ class _Params(ctypes.Structure):
                 ("kj", _Coef * 3), ("bj", _Coef * 3),
                 ("n1", ctypes.c_int), ("n2", ctypes.c_int),
                 ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
-                ("inv_dx", ctypes.c_float)]
+                ("inv_dx", ctypes.c_float), ("bf16", ctypes.c_int)]
 
 
 def _library() -> ctypes.CDLL:
@@ -308,14 +321,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, shape, device) -> int:
-    if t.device != device or t.dtype != torch.float32 \
+FIELD_DTYPES = (torch.float32, torch.bfloat16)   # the kernels' storage
+
+
+def _check(t: torch.Tensor, name: str, shape, device,
+           dtype=torch.float32) -> int:
+    """The data pointer of a contiguous tensor of ``dtype`` and ``shape``
+    on ``device``; anything else raises."""
+    if t.device != device or t.dtype != dtype \
             or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"{name}: need a contiguous float32 tensor of shape "
+            f"{name}: need a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {tuple(t.shape)} "
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     return t.data_ptr()
+
+
+def field_dtype(t: torch.Tensor) -> torch.dtype:
+    """The storage dtype of a kernel's fields (float32 or bfloat16; the
+    other operands are float32 either way); anything else raises."""
+    if t.dtype not in FIELD_DTYPES:
+        raise ValueError(f"the kernels store fields in float32 or bfloat16, "
+                         f"got {t.dtype}")
+    return t.dtype
 
 
 def _coef_struct(v, name, shape, device, lanes: int) -> _Coef:
@@ -406,8 +434,10 @@ def _params(F, S, J, psi, fc) -> _Params:
         fc["_params"] = base = ((device, lanes), prm)
     prm = _Params.from_buffer_copy(base[1])
     full = lead + (3,) + tuple(shape)
-    prm.F = _check(F, "F", full, device)
-    prm.S = _check(S, "S", full, device)
+    fd = field_dtype(F)
+    prm.F = _check(F, "F", full, device, fd)
+    prm.S = _check(S, "S", full, device, fd)
+    prm.bf16 = int(fd == torch.bfloat16)
     if J is not None:
         prm.J = _check(J, "J", full, device)
     elif fc["family"] == "E" and fc["kj"] is not None:

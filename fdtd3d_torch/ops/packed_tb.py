@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas_packed_tb.py::make_packed_tb_step`` (builder
 :520, kernel body :900, ``pallas_call`` :1320; scope ``_reject_reason``
-:214, host step :1809-1955) for unsharded 3D float32 runs at k = 2,
+:214, host step :1809-1955) for unsharded 3D float32 and bf16 storage
+runs at k = 2,
 with the hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/packed_tb.cu``
 (``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
 rather than Triton: a marching stencil with shared-memory plane rings fed
@@ -16,6 +17,12 @@ generation (the reference tb's form): TFSF through the record table of
 ``ops/packed_ds.py`` with this pass's two rows of f32 plane terms
 (``tfsf.record_terms``), the point source as ``ps_amp * waveform(t+g-1)``
 for g = 1, 2. Generation t+1 never reaches device memory.
+
+bf16 storage: E and H are stored in bf16 and everything else in f32;
+both generations compute in f32 and only generation 2 is rounded to
+bf16, where it is stored (the reference's tb kernel rounds at g == k,
+pallas_packed_tb.py:1200, :1258): generation 1, and the E(2) that H(2)
+reads, never leave the kernel.
 
 Design: the kernel reads the carry and writes a second buffer set of
 the same shapes, because a block reads halo cells that a neighbour
@@ -135,7 +142,7 @@ def reject_reason(static) -> Optional[str]:
     cfg = static.cfg
     if cfg.ds_fields:
         return "ds_fields"
-    if cfg.dtype != "float32":
+    if cfg.dtype not in ("float32", "bfloat16"):
         return "dtype"
     if tuple(static.topology) != (1, 1, 1):
         return "sharded"
@@ -585,19 +592,28 @@ def tb_pass_plain(src, dst, tb, terms, drive) -> None:
     keys and shapes; ``src`` is not modified): the whole volume per
     generation, with the records added into the accumulator after the
     curl and the point source after the Drude current; on a
-    lane-stacked carry, one lane after the other."""
+    lane-stacked carry, one lane after the other. bf16 fields: both
+    generations run on float32 copies of E and H, rounded to bf16 only
+    where generation 2 is stored (generation 1 never leaves the kernel,
+    and H(2) reads the unrounded E(2), as in the reference's tb kernel)."""
     for a, b in zip(packed.carry_buffers(dst), packed.carry_buffers(src)):
         a.copy_(b)
-    if dst["E"].dim() == 4:
-        _generations(dst, tb, terms, drive)
-        return
-    for lane in range(dst["E"].shape[0]):
-        lane_tb = dict(tb, E=packed.lane_fc(tb["E"], lane),
-                       H=packed.lane_fc(tb["H"], lane))
-        _generations(_lane_carry(dst, lane), lane_tb,
-                     None if terms is None else terms[:, lane],
-                     drive if drive is None or isinstance(drive, list)
-                     else drive[lane])
+    work = dst
+    if dst["E"].dtype != torch.float32:
+        work = dict(dst, E=dst["E"].float(), H=dst["H"].float())
+    if work["E"].dim() == 4:
+        _generations(work, tb, terms, drive)
+    else:
+        for lane in range(work["E"].shape[0]):
+            lane_tb = dict(tb, E=packed.lane_fc(tb["E"], lane),
+                           H=packed.lane_fc(tb["H"], lane))
+            _generations(_lane_carry(work, lane), lane_tb,
+                         None if terms is None else terms[:, lane],
+                         drive if drive is None or isinstance(drive, list)
+                         else drive[lane])
+    if work is not dst:
+        dst["E"].copy_(work["E"])
+        dst["H"].copy_(work["H"])
 
 
 # --------------------------------------------------------------------------
@@ -639,7 +655,7 @@ class _Params(ctypes.Structure):
                 ("n1", ctypes.c_int), ("n2", ctypes.c_int),
                 ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
                 ("n_item", ctypes.c_int * len(SECTIONS)),
-                ("inv_dx", ctypes.c_float)]
+                ("inv_dx", ctypes.c_float), ("bf16", ctypes.c_int)]
 
 
 def _library() -> ctypes.CDLL:
@@ -698,15 +714,16 @@ def occupancy() -> Dict[str, Dict[str, int]]:
     """Registers and local (spill) bytes a thread, resident blocks an SM
     and static shared bytes of each tb kernel, as the CUDA runtime
     reports them for the card: each section's kernel (SECTIONS), solo
-    and lane-capable (``*_lanes``); the grid sections' at their larger
-    shared memory."""
+    and lane-capable (``*_lanes``), float32 and bf16 (``*_bf16``); the
+    grid sections' at their larger shared memory."""
     lib = _library()
-    out = (ctypes.c_int * (8 * len(SECTIONS)))()
+    out = (ctypes.c_int * (16 * len(SECTIONS)))()
     err = lib.fdtd_tb_occupancy(ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"fdtd_tb_occupancy failed: CUDA error {err} "
                            f"({lib.fdtd_tb_error_string(err).decode()})")
-    names = tuple(n + lane for n in SECTIONS for lane in ("", "_lanes"))
+    names = tuple(n + lane + dt for dt in ("", "_bf16") for n in SECTIONS
+                  for lane in ("", "_lanes"))
     keys = ("registers", "local_bytes", "blocks_per_sm", "static_smem")
     return {n: {k: out[4 * q + i] for i, k in enumerate(keys)}
             for q, n in enumerate(names)}
@@ -774,10 +791,12 @@ def _params(src, dst, tb, terms, drive, lib) -> _Params:
     for q, n in enumerate(counts):
         prm.n_item[q] = n
     full = lead + (3,) + tuple(shape)
-    prm.E0 = packed._check(src["E"], "E", full, device)
-    prm.H0 = packed._check(src["H"], "H", full, device)
-    prm.E2 = packed._check(dst["E"], "E (destination)", full, device)
-    prm.H2 = packed._check(dst["H"], "H (destination)", full, device)
+    fd = packed.field_dtype(src["E"])
+    prm.E0 = packed._check(src["E"], "E", full, device, fd)
+    prm.H0 = packed._check(src["H"], "H", full, device, fd)
+    prm.E2 = packed._check(dst["E"], "E (destination)", full, device, fd)
+    prm.H2 = packed._check(dst["H"], "H (destination)", full, device, fd)
+    prm.bf16 = int(fd == torch.bfloat16)
     if tb["E"]["kj"] is not None:
         prm.J0 = packed._check(src["J"], "J", full, device)
         prm.J2 = packed._check(dst["J"], "J (destination)", full, device)

@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas3d.py::make_family_kernel`` (builder :167, kernel
 body :293, ``pallas_call`` :507), through its step
-``make_pallas_step`` (:1068), for 3D real float32, unsharded, with the
+``make_pallas_step`` (:1068), for 3D real float32 and bf16 storage,
+unsharded, with the
 hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/family.cu``
 (``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
 rather than Triton: a stencil on per-component pointers with slab CPML
@@ -52,9 +53,15 @@ A wrapper takes the plain version only for tensors on the CPU; on a
 CUDA tensor it launches the kernel or raises. ``e_family.launches`` and
 ``h_family.launches`` count kernel launches.
 
+bf16 storage: the kernels load E and H as floats, compute in f32 (psi,
+J and the coefficients are f32) and round their outputs to bf16; the
+patches then add their values rounded to bf16 onto those outputs, as
+the reference's post-passes do (``val.astype(fdt)`` and an add in the
+field dtype: two roundings on a patched cell).
+
 Out of scope here, and raising ``NotImplementedError`` with the
 ROADMAP.md item (the reference's kernel accepts them): magnetic Drude K
-(A4(b)), bf16 storage (A4(a)), sharded runs (A11).
+(A4(b)), sharded runs (A11).
 """
 
 from __future__ import annotations
@@ -67,8 +74,9 @@ import torch
 
 from fdtd3d_torch.layout import CURL_TERMS, component_axis
 from fdtd3d_torch.ops import build, tfsf
-from fdtd3d_torch.ops.packed import family_value
-from fdtd3d_torch.ops.sources import waveform
+from fdtd3d_torch.ops.packed import _check as check
+from fdtd3d_torch.ops.packed import family_value, field_dtype
+from fdtd3d_torch.ops.sources import host_round, waveform
 from fdtd3d_torch.ops.stencil import make_diff_ops
 from fdtd3d_torch.solver import _bcast1d, _slab_fix, slab_axes
 
@@ -97,8 +105,6 @@ def check_scope(static, what: str) -> None:
             f"package fdtd3d_tpu")
     if static.use_drude_m:
         out("magnetic Drude (K current)", "A4(b)")
-    if static.cfg.dtype != "float32":
-        out(f"{static.cfg.dtype} storage", "A4(a)")
     if tuple(static.topology) != (1, 1, 1):
         out(f"topology {tuple(static.topology)}", "A11")
 
@@ -162,9 +168,13 @@ def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
     tensors; the inputs are not touched. ``records(ci, acc)`` and, for
     E, ``point(ci, acc)`` add in-kernel sources to component ci's curl
     accumulator (the recompute-fused pass, ops/pallas_fused.py): the
-    records after the curl, the point source after the Drude current."""
+    records after the curl, the point source after the Drude current.
+    bf16 fields are widened to float32 before any operation; the new
+    fields come back in float32, unrounded (the callers round them where
+    the kernel stores them)."""
     diff = _diff_b if backward else _diff_f
     other = "H" if backward else "E"
+    S = {k: v.float() for k, v in S.items()}
     new_f, new_psi, new_j = {}, {}, ({} if J is not None else None)
     for ci, c in enumerate(fc["comps"]):
         psi_of = dict(fc["psi"][c])
@@ -183,7 +193,7 @@ def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
             acc = records(ci, acc)
         drude = None if J is None else (J[c], fc["kj"][ci], fc["bj"][ci])
         hook = None if point is None else (lambda v, ci=ci: point(ci, v))
-        new_f[c], jn = family_value(ci, F[c], acc, fc["a"][ci],
+        new_f[c], jn = family_value(ci, F[c].float(), acc, fc["a"][ci],
                                     fc["b"][ci], fc["wall"], backward, drude,
                                     hook)
         if jn is not None:
@@ -191,17 +201,24 @@ def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
     return new_f, new_psi, new_j
 
 
+def stored(new: Dict[str, torch.Tensor], like: Dict[str, torch.Tensor]):
+    """New fields rounded to the storage dtype of ``like`` (the old
+    fields of the same family): what the kernel writes."""
+    return {c: v.to(like[c].dtype) for c, v in new.items()}
+
+
 def e_family_plain(E, H, psi, J, fc):
     """New E (and in-kernel psi_E, J) from backward differences of H:
     the plain version of ``e_family``."""
-    return _family_plain(E, H, psi, J, fc, backward=True)
+    new_e, new_psi, new_j = _family_plain(E, H, psi, J, fc, backward=True)
+    return stored(new_e, E), new_psi, new_j
 
 
 def h_family_plain(H, E, psi, fc):
     """New H (and in-kernel psi_H) from forward differences of E: the
     plain version of ``h_family``."""
     new_h, new_psi, _ = _family_plain(H, E, psi, None, fc, backward=False)
-    return new_h, new_psi
+    return stored(new_h, H), new_psi
 
 
 # --------------------------------------------------------------------------
@@ -232,7 +249,7 @@ class Drude(ctypes.Structure):
 class Grid(ctypes.Structure):
     """Mirror of ``struct Grid`` in csrc/family_cell.cuh."""
     _fields_ = [("m", ctypes.c_int * 3), ("n", ctypes.c_int * 3),
-                ("inv_dx", ctypes.c_float)]
+                ("inv_dx", ctypes.c_float), ("bf16", ctypes.c_int)]
 
 
 class _Params(ctypes.Structure):
@@ -272,18 +289,6 @@ def launch(lib: ctypes.CDLL, fn: str, prm, device) -> None:
                            f"({lib.fdtd_error_string(err).decode()})")
 
 
-def check(t: torch.Tensor, name: str, shape, device) -> int:
-    """The data pointer of a contiguous float32 tensor of ``shape`` on
-    ``device``; anything else raises."""
-    if t.device != device or t.dtype != torch.float32 \
-            or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: need a contiguous float32 tensor of shape "
-            f"{tuple(shape)} on {device}, got {tuple(t.shape)} "
-            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    return t.data_ptr()
-
-
 def coef_struct(v, name: str, shape, device) -> Coef:
     """A coefficient for the kernel: a grid, or a scalar host float."""
     if isinstance(v, torch.Tensor):
@@ -305,8 +310,9 @@ def fill_family(ops: FamOps, F, psi, fc, device) -> Tuple[Dict, Dict]:
     shape = fc["shape"]
     new_f, new_psi = {}, {}
     for ci, c in enumerate(fc["comps"]):
-        ops.F[ci] = check(F[c], c, shape, device)
-        new_f[c] = torch.empty(shape, dtype=torch.float32, device=device)
+        fd = field_dtype(F[c])
+        ops.F[ci] = check(F[c], c, shape, device, fd)
+        new_f[c] = torch.empty(shape, dtype=fd, device=device)
         ops.out[ci] = new_f[c].data_ptr()
         ops.a[ci] = coef_struct(fc["a"][ci], f"a[{c}]", shape, device)
         ops.b[ci] = coef_struct(fc["b"][ci], f"b[{c}]", shape, device)
@@ -322,10 +328,11 @@ def fill_family(ops: FamOps, F, psi, fc, device) -> Tuple[Dict, Dict]:
     return new_f, new_psi
 
 
-def fill_drude_grid(prm, J, fce, device) -> Optional[Dict]:
+def fill_drude_grid(prm, J, fce, device, fd) -> Optional[Dict]:
     """Fill a parameter block's ``dr`` (Drude J, with fresh outputs,
     from the E family's operands ``fce``; null pointers without Drude)
-    and ``g``. Returns the new J or None."""
+    and ``g`` (``fd``: the fields' storage dtype). Returns the new J or
+    None."""
     shape = fce["shape"]
     new_j = None
     if fce["kj"] is not None:
@@ -345,6 +352,7 @@ def fill_drude_grid(prm, J, fce, device) -> Optional[Dict]:
     for a, n in enumerate(shape):
         prm.g.n[a] = n
     prm.g.inv_dx = fce["inv_dx"]
+    prm.g.bf16 = int(fd == torch.bfloat16)
     return new_j
 
 
@@ -353,11 +361,12 @@ def _params(F, S, psi, J, fc) -> Tuple[_Params, Dict, Dict, Optional[Dict]]:
     shape = fc["shape"]
     prm = _Params()
     new_f, new_psi = fill_family(prm.f, F, psi, fc, device)
+    fd = field_dtype(F[fc["comps"][0]])
     other = "H" if fc["family"] == "E" else "E"
     for d in range(3):
         key = other + AXES[d]
-        prm.S[d] = check(S[key], key, shape, device)
-    new_j = fill_drude_grid(prm, J, fc, device)
+        prm.S[d] = check(S[key], key, shape, device, fd)
+    new_j = fill_drude_grid(prm, J, fc, device, fd)
     return prm, new_f, new_psi, new_j
 
 
@@ -437,7 +446,9 @@ def slab_post(static, family: str, fields, src, psi_ax, coeffs, slabs,
             if d not in src:
                 continue
             f = src[d]
-            f_lo, f_hi = cut(f, 0, m + 1), cut(f, n1 - m - 1, n1)
+            # slice first, widen the thin regions after (bf16 storage)
+            f_lo = cut(f, 0, m + 1).float()
+            f_hi = cut(f, n1 - m - 1, n1).float()
             if family == "E":      # backward diff, slabs [0,m) / [n1-m,n1)
                 d_lo = (cut(f_lo, 0, m)
                         - _pad1(cut(f_lo, 0, m - 1), axis, True)) * inv_dx
@@ -470,10 +481,9 @@ def slab_post(static, family: str, fields, src, psi_ax, coeffs, slabs,
                         w = _bcast1d(coeffs[f"wall_{AXES[a2]}"], a2)
                         dl = dl * w
                         dh = dh * w
-            add_lo = sign * cb_lo * dl
-            add_hi = sign * cb_hi * dh
-            cut(fields[c], 0, m).add_(add_lo)
-            cut(fields[c], n1 - m, n1).add_(add_hi)
+            fdt = fields[c].dtype
+            cut(fields[c], 0, m).add_((sign * cb_lo * dl).to(fdt))
+            cut(fields[c], n1 - m, n1).add_((sign * cb_hi * dh).to(fdt))
     return fields, new_psi
 
 
@@ -571,7 +581,8 @@ def tfsf_patch(static, family: str, fields, coeffs, inc,
         term = fp.k * (fp.ow * line[fp.i0] + fp.w * line[fp.i1])
         if fp.mask is not None:
             term = term * fp.mask
-        fields[fp.comp].narrow(fp.axis, fp.plane, 1).add_(fp.coef * term)
+        dst = fields[fp.comp].narrow(fp.axis, fp.plane, 1)
+        dst.add_((fp.coef * term).to(dst.dtype))
     return fields
 
 
@@ -603,11 +614,12 @@ def point_source_patch(static, fields, coeffs, t: int, plan=None):
     ps = static.cfg.point_source
     wf = np.float32(waveform(ps.waveform, t, 0.5, static.omega, static.dt,
                              static.real_dtype))
+    cell = fields[c][i, j, k]
     if isinstance(scale, torch.Tensor):
-        val = scale * float(wf)
+        val = (scale * float(wf)).to(cell.dtype)
     else:
-        val = float(np.float32(scale) * wf)
-    fields[c][i, j, k].add_(val)
+        val = host_round(float(np.float32(scale) * wf), cell.dtype)
+    cell.add_(val)
     return fields
 
 

@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas_fused.py::make_fused_eh_step`` (builder :310,
-kernel body :423, ``pallas_call`` :709) for 3D real float32, unsharded,
+kernel body :423, ``pallas_call`` :709) for 3D real float32 and bf16
+storage, unsharded,
 with the hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/fused_eh.cu``
 (``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
 rather than Triton, as for the port's other stencils: a marching stencil
@@ -51,10 +52,15 @@ a CUDA tensor it launches the kernel or raises. ``fused_eh.launches``
 counts its calls (one a step), ``fused_eh.kernels`` the section kernels
 those calls launched.
 
+bf16 storage: the pass computes in f32 from the widened fields, H from
+the unrounded E', and rounds E' and H' to bf16 where it stores them, as
+the reference's fused kernel keeps ``new_e`` for its H update
+(pallas_fused.py:566-603).
+
 Eligibility (``eligible``): the reference's ``pallas_fused.eligible``
 (:48) and every CPML axis slab-compacted (:317-321). Magnetic Drude K
-(A4(b)), bf16 storage (A4(a)) and sharded runs (A11) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+(A4(b)) and sharded runs (A11) raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -362,7 +368,9 @@ def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive):
     Drude J, the point source ``drive`` after it, walls), then new H
     from that E (its psi and records). ``terms``: ``record_terms``'
     vector or None; ``drive``: the point source's add or None. Returns
-    (E', H', psi_E', psi_H', J' or None), fresh tensors."""
+    (E', H', psi_E', psi_H', J' or None), fresh tensors. bf16 fields: H
+    is computed from the unrounded float32 E', and both are rounded to
+    bf16 where they are stored, as the kernel keeps E' on chip."""
     rec_e = rec_h = point = None
     if terms is not None:
         rec_e = _record_adder(fp, "E", terms)
@@ -373,7 +381,8 @@ def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive):
                                               True, rec_e, point)
     new_h, ph, _ = pallas3d._family_plain(H, new_e, psi_h, None, fp["H"],
                                           False, rec_h)
-    return new_e, new_h, pe, ph, new_j
+    return (pallas3d.stored(new_e, E), pallas3d.stored(new_h, H), pe, ph,
+            new_j)
 
 
 class _Rec(ctypes.Structure):
@@ -436,16 +445,18 @@ def device_plan(fp, device, lib=None) -> Tuple[torch.Tensor,
 def occupancy() -> Dict[str, Dict[str, int]]:
     """Registers and local (spill) bytes a thread, resident blocks an SM
     and static shared bytes of each section's kernel, as the CUDA runtime
-    reports them for the card."""
+    reports them for the card: the float32 builds by section name, the
+    bf16 ones as ``<section>_bf16``."""
     lib = _library()
-    out = (ctypes.c_int * (4 * len(SECTIONS)))()
+    out = (ctypes.c_int * (8 * len(SECTIONS)))()
     err = lib.fdtd_fused_occupancy(ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"fdtd_fused_occupancy failed: CUDA error {err} "
                            f"({lib.fdtd_error_string(err).decode()})")
     keys = ("registers", "local_bytes", "blocks_per_sm", "static_smem")
+    names = SECTIONS + tuple(n + "_bf16" for n in SECTIONS)
     return {n: {k: out[4 * q + i] for i, k in enumerate(keys)}
-            for q, n in enumerate(SECTIONS)}
+            for q, n in enumerate(names)}
 
 
 def _static_params(fp, device, lib) -> _Params:
@@ -481,7 +492,10 @@ def fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, lib=None):
     prm = _Params.from_buffer_copy(_static_params(fp, device, lib))
     new_e, pe = pallas3d.fill_family(prm.e, E, psi_e, fe, device)
     new_h, ph = pallas3d.fill_family(prm.h, H, psi_h, fp["H"], device)
-    new_j = pallas3d.fill_drude_grid(prm, J, fe, device)
+    fd = new_e[fe["comps"][0]].dtype
+    if any(v.dtype != fd for v in new_h.values()):
+        raise ValueError("fused_eh: E and H must share their storage dtype")
+    new_j = pallas3d.fill_drude_grid(prm, J, fe, device, fd)
     # the items that read no grid take each E grid's background value
     for (key, c), value in _material(fp)[1].items():
         getattr(prm.e, key)[c].val = value

@@ -5,7 +5,9 @@ Counterpart of the patch helpers of ``fdtd3d_tpu/ops/pallas3d.py``
 :1012), unsharded. A source adds ``cb * term`` to the E cells it
 drives (``-db * term`` to H), after the family's kernel: the reference's
 plain step adds ``term`` to the curl accumulator before the ``cb``
-multiply, so the two differ by one rounding of the added term.
+multiply, so the two differ by one rounding of the added term. With
+bf16 fields the patch value is rounded to bf16 before it is added, and
+the sum is rounded again, as the reference's patches do.
 
 The TFSF faces are planned once per run (``build_tfsf_plan``): the
 face cells, the line indices and weights of the interpolation, and the
@@ -138,7 +140,7 @@ def tfsf_patch(arr: torch.Tensor, plan: Optional[Dict],
     line = inc[plan["line"]]
     val = plan["w0"] * line[..., plan["i0"]] \
         + plan["w1"] * line[..., plan["i1"]]
-    val = plan["cb"] * (plan["k"] * val)
+    val = (plan["cb"] * (plan["k"] * val)).to(arr.dtype)
     if val.dim() == 1:
         arr.view(-1).index_add_(0, plan["cells"], val)
     else:
@@ -184,4 +186,4 @@ def point_source_patch(static, E: torch.Tensor, src: Optional[Dict],
                   static.real_dtype)
     lanes = E.shape[0] if E.dim() == 5 else 1
     E.view(lanes, -1).select(1, src["cell"]).add_(
-        src["amp_cb"] * float(wf))
+        (src["amp_cb"] * float(wf)).to(E.dtype))

@@ -182,3 +182,13 @@ def point_mask(gx, gy, gz, pos, active_axes) -> torch.Tensor:
         ms.append(m)
     return (ms[0][:, None, None] & ms[1][None, :, None]
             & ms[2][None, None, :])
+
+
+def host_round(x: float, dtype) -> float:
+    """An f32 value rounded on the host to the field dtype ``dtype``, as
+    a store rounds it (bf16: round to nearest even); other dtypes keep
+    it. A source patch adds its value rounded so, as the reference's
+    patches do (``val.astype(field dtype)`` before the add)."""
+    if dtype != torch.bfloat16:
+        return x
+    return float(torch.tensor(x, dtype=torch.float32).to(dtype))

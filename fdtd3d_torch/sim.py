@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from fdtd3d_torch import telemetry
+from fdtd3d_torch import convert, telemetry
 from fdtd3d_torch.solver import (StaticSetup, build_coeffs, build_static,
                                  coeffs_to_device, init_state,
                                  make_chunk_runner)
@@ -112,8 +112,8 @@ class Simulation:
                 return {k: adopt(ref[k], new[k], f"{path}/{k}")
                         for k in ref}
             if isinstance(ref, torch.Tensor):
-                t = torch.as_tensor(np.asarray(new) if not isinstance(
-                    new, torch.Tensor) else new)
+                t = new if isinstance(new, torch.Tensor) \
+                    else convert.from_host(new)
                 if tuple(t.shape) != tuple(ref.shape):
                     raise ValueError(f"{path}: shape {tuple(t.shape)} != "
                                      f"{tuple(ref.shape)}")
@@ -194,11 +194,14 @@ class Simulation:
         return float(self.component_views()[comp][tuple(idx)].item())
 
     def field(self, comp: str) -> np.ndarray:
-        """One field component as a host numpy array."""
-        return self.component_views()[comp].cpu().numpy()
+        """One field component as a host numpy array: with bf16 storage
+        widened exactly to float32 (the reference returns an
+        ``ml_dtypes`` bfloat16 array, a type the port does not use)."""
+        return convert.to_host(self.component_views()[comp])
 
     def fields(self) -> Dict[str, np.ndarray]:
-        return {c: v.cpu().numpy() for c, v in self.component_views().items()}
+        return {c: convert.to_host(v)
+                for c, v in self.component_views().items()}
 
     def set_field(self, comp: str, value):
         """Overwrite one field component of the live carry."""
@@ -206,8 +209,7 @@ class Simulation:
         if comp not in views:
             raise KeyError(f"{comp} not active in scheme {self.cfg.scheme}")
         dst = views[comp]
-        src = torch.from_numpy(np.array(np.broadcast_to(np.asarray(value),
-                                                     dst.shape)))
+        src = convert.from_host(np.broadcast_to(np.asarray(value), dst.shape))
         dst.copy_(src.to(dtype=dst.dtype))
         lo = self._dict_view().get("lo" + comp[0])
         if lo is not None:

@@ -48,8 +48,14 @@ a carry with a leading lane axis, one launch for every lane. Callers
 gate it with ``batch_fallback_reason``, the batch dispatch authority;
 a batch it gives a token runs the plain step lane by lane.
 
-Scope of this slice: 3D real float32, float32x2 and float64, CPML on
-any axes, TFSF, the point source, electric Drude J, material
+bfloat16 is a storage dtype (the reference's mixed precision): E and H
+are stored in bf16, every operation runs in float32, and the recursion
+state (CPML psi, Drude J, the incident line) and the coefficients stay
+float32. A field is rounded to bf16 (round to nearest even) where it is
+stored; the steps above are the same functions with bf16 fields.
+
+Scope of this slice: 3D real float32, bfloat16, float32x2 and float64,
+CPML on any axes, TFSF, the point source, electric Drude J, material
 coefficient grids, PEC walls, unsharded. Everything else raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -90,6 +96,20 @@ class StaticSetup:
     use_drude_m: bool = False
     topology: Tuple[int, int, int] = (1, 1, 1)
 
+    @property
+    def aux_dtype(self):
+        """torch dtype of the recursion state (CPML psi, Drude J, the
+        incident line): float32 when the fields are bf16 storage, else
+        the field dtype (the reference's ``StaticSetup.aux_dtype``)."""
+        return torch.float32 if self.field_dtype == torch.bfloat16 \
+            else self.field_dtype
+
+    @property
+    def compute_dtype(self):
+        """torch dtype the update arithmetic runs in: the recursion
+        state's, so bf16 storage computes in float32."""
+        return self.aux_dtype
+
 
 def slab_axes(static: StaticSetup) -> Dict[int, int]:
     """axis -> planes per side of the compact slab psi storage.
@@ -121,9 +141,8 @@ def check_scope(cfg: SimConfig) -> None:
         out(f"scheme {cfg.scheme!r} (1D/2D modes)", "A4")
     if cfg.complex_fields:
         out("complex fields", "A10")
-    if cfg.dtype not in ("float32", "float32x2", "float64"):
-        out(f"dtype {cfg.dtype!r}",
-            "A4(a)" if cfg.dtype == "bfloat16" else "A4")
+    if cfg.dtype not in ("float32", "bfloat16", "float32x2", "float64"):
+        out(f"dtype {cfg.dtype!r}", "A4")
     if cfg.compensated:
         out("compensated (Kahan) mode", "A4")
     if cfg.materials.use_drude_m:
@@ -269,13 +288,15 @@ def coeffs_to_device(np_coeffs: Dict[str, Any],
 
 
 def init_state(static: StaticSetup, device) -> Dict[str, Any]:
-    """Zero dict-form state on ``device`` (the reference's layout)."""
+    """Zero dict-form state on ``device`` (the reference's layout): E
+    and H in the field dtype, psi, J and the incident line in the
+    recursion state's (``aux_dtype``)."""
     shape, fd = static.grid_shape, static.field_dtype
     mode = static.mode
     slabs = slab_axes(static)
 
-    def zeros(s=shape):
-        return torch.zeros(s, dtype=fd, device=device)
+    def zeros(s=shape, dtype=static.aux_dtype):
+        return torch.zeros(s, dtype=dtype, device=device)
 
     def psi_zeros(a: int):
         """psi_{c,a} storage: slab-compacted along its own axis a."""
@@ -285,8 +306,8 @@ def init_state(static: StaticSetup, device) -> Dict[str, Any]:
         return zeros(tuple(s))
 
     state: Dict[str, Any] = {
-        "E": {c: zeros() for c in mode.e_components},
-        "H": {c: zeros() for c in mode.h_components},
+        "E": {c: zeros(dtype=fd) for c in mode.e_components},
+        "H": {c: zeros(dtype=fd) for c in mode.h_components},
         "t": 0,
     }
     psi_e, psi_h = {}, {}
@@ -371,9 +392,15 @@ def _slab_fix(a, s, dfa, psi, prof, m):
 
 
 def make_plain_step(static: StaticSetup):
-    """The reference's jnp leapfrog step (solver.py, f32 and f64
-    branches) in torch, on dict-form state. Returns a new state dict."""
+    """The reference's jnp leapfrog step (solver.py, f32, bf16 and f64
+    branches) in torch, on dict-form state. Returns a new state dict.
+
+    bf16 storage: every field operand is widened to float32 before it
+    meets an operation (torch keeps ``float * bf16`` and ``bf16 - bf16``
+    in bf16), and E and H are rounded to bf16 where they are stored, so
+    the H update reads the stored E, as in the reference."""
     mode, cfg = static.mode, static.cfg
+    cdt = static.compute_dtype
     diff_b, diff_f = make_diff_ops()
     rd = static.real_dtype
     inv_dx = float(rd(1.0 / static.dx))
@@ -385,6 +412,7 @@ def make_plain_step(static: StaticSetup):
         """One family's curl accumulators (field='E' or 'H')."""
         upd_comps = mode.e_components if field == "E" else mode.h_components
         src = state["H"] if field == "E" else state["E"]
+        src = {k: v.to(cdt) for k, v in src.items()}
         tag = "e" if field == "E" else "h"
         diff = diff_b if field == "E" else diff_f
         psi_key = "psi_E" if field == "E" else "psi_H"
@@ -419,7 +447,7 @@ def make_plain_step(static: StaticSetup):
                     term = dfa
                 acc = s * term if acc is None else acc + s * term
             if acc is None:
-                acc = torch.zeros_like(state[field][c])
+                acc = torch.zeros_like(state[field][c], dtype=cdt)
             if setup is not None:
                 corr = tfsf.corrections_for(field, c, setup, coeffs,
                                             state["inc"], mode.active_axes,
@@ -446,9 +474,10 @@ def make_plain_step(static: StaticSetup):
         acc_e = _half_update("E", state, coeffs, new_psi)
         for c in mode.e_components:
             acc = acc_e[c]
+            old = state["E"][c].to(cdt)
             if static.use_drude:
                 j_new = coeffs[f"kj_{c}"] * state["J"][c] \
-                    + coeffs[f"bj_{c}"] * state["E"][c]
+                    + coeffs[f"bj_{c}"] * old
                 new_J[c] = j_new
                 acc = acc - j_new
             if ps.enabled and ps.component == c:
@@ -458,8 +487,7 @@ def make_plain_step(static: StaticSetup):
                               static.dt, static.real_dtype)
                 amp = float(rd(coeffs["ps_amp"]) * wf)
                 acc = acc + amp * mask.to(acc.dtype)
-            e = coeffs[f"ca_{c}"] * state["E"][c] \
-                + coeffs[f"cb_{c}"] * acc
+            e = coeffs[f"ca_{c}"] * old + coeffs[f"cb_{c}"] * acc
             # PEC walls: zero tangential E on transverse-axis walls.
             for a in mode.active_axes:
                 if a != component_axis(c):
@@ -480,7 +508,7 @@ def make_plain_step(static: StaticSetup):
         new_H = {}
         acc_h = _half_update("H", state, coeffs, new_psi)
         for c in mode.h_components:
-            h = coeffs[f"da_{c}"] * state["H"][c] \
+            h = coeffs[f"da_{c}"] * state["H"][c].to(cdt) \
                 - coeffs[f"db_{c}"] * acc_h[c]
             new_H[c] = h.to(static.field_dtype)
         new_state["H"] = new_H
@@ -710,6 +738,11 @@ def tb_fallback_reason(static: StaticSetup, packed: bool,
     return None
 
 
+# the field dtypes of the lane-capable kernels: batch_fallback_reason
+# admits no other, and make_step(batch=) builds no other
+LANE_DTYPES = ("float32", "bfloat16")
+
+
 def batch_fallback_reason(static: StaticSetup, device, lane_coeffs=None,
                           batch: int = 0) -> Optional[str]:
     """Why a batch of ``batch`` lanes over ``static`` cannot ride the
@@ -732,8 +765,8 @@ def batch_fallback_reason(static: StaticSetup, device, lane_coeffs=None,
     cfg = static.cfg
     flag = cfg.use_pallas
     want = torch.device(device).type == "cuda" if flag is None else flag
-    if not want or static.mode.name != "3D" or cfg.ds_fields \
-            or cfg.dtype not in ("float32", "bfloat16"):
+    if not want or static.mode.name != "3D" \
+            or cfg.dtype not in LANE_DTYPES:
         return "pallas_disabled"
     if os.environ.get("FDTD3D_NO_PACKED"):
         return "env:FDTD3D_NO_PACKED"
@@ -798,10 +831,11 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     step."""
     import os
     if batch:
-        if static.cfg.ds_fields or static.cfg.dtype != "float32":
+        if static.cfg.dtype not in LANE_DTYPES:
             raise RuntimeError(
-                "make_step(batch>0): only float32 steps are lane-capable; "
-                "gate batched builds with solver.batch_fallback_reason")
+                "make_step(batch>0): only float32 and bfloat16 steps are "
+                "lane-capable; gate batched builds with "
+                "solver.batch_fallback_reason")
         reason = tb_fallback_reason(static, True, allow_multistep)
         if reason in ("env:FDTD3D_NO_PACKED", "env:FDTD3D_FORCE_FUSED"):
             raise RuntimeError(

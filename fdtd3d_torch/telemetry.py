@@ -30,7 +30,7 @@ def _tensors(tree: Any) -> Iterator[torch.Tensor]:
 def max_abs(x: torch.Tensor) -> torch.Tensor:
     """max |x| in one pass; NaN propagates (torch.aminmax keeps NaN)."""
     lo, hi = torch.aminmax(x.reshape(-1))
-    return torch.maximum(hi, -lo)
+    return torch.maximum(hi, -lo).float()
 
 
 def make_health_fn():
@@ -54,7 +54,7 @@ def lane_max_abs(x: torch.Tensor) -> torch.Tensor:
     """max |x| of each lane of a lane-leading tensor, (B,); NaN
     propagates."""
     lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
-    return torch.maximum(hi, -lo)
+    return torch.maximum(hi, -lo).float()
 
 
 def make_lane_health_fn():

@@ -86,9 +86,10 @@ SKEL = ("#define SKEL_UPDATE(...) "
 PATCHES = {
     "e_math": (("update<true, AX, SRC>(", "SKEL_UPDATE("),),
     "h_math": (("update<false, AX, SRC>(", "SKEL_UPDATE("),),
-    "stores": (("if (store) p.e.out[c][cell] = out[c];", "(void)store;"),
-               ("for (int c = 0; c < 3; ++c) p.h.out[c][cell] = out[c];",
-                "(void)out;")),
+    "stores": (("if (store) st(fld<T>(p.e.out, c) + cell, out[c]);",
+                "(void)store;"),
+               ("for (int c = 0; c < 3; ++c) st(fld<T>(p.h.out, c) + cell, "
+                "out[c]);", "(void)out;")),
     "loads": (("if (x >= lim || !inside) return;", "return;"),),
     "two_barriers": (("    // phase H(i-1): the new H",
                       "    __syncthreads();\n    // phase H(i-1): the new H"),),

@@ -17,7 +17,10 @@ axis, x included) and J stored. Cells nobody stores stay NaN.
   from that E) exactly, on the ladder's four cases, a point source, and
   a Drude sphere with a grid box and no CPML on x, with the y and z
   axes cut whole and band by band, at tiles and segments small enough
-  to give every axis several items.
+  to give every axis several items; in float32 and with bf16 storage
+  (each block computes in float32 from the widened fields, H from its
+  own unrounded E, and the owned cells' E and H are rounded to bf16
+  where they are stored).
 * The emulated step (E-incident advance, record terms, the emulated
   pass, H-incident advance) against the reference's interpret-mode
   recompute-fused step and its jnp step, 8 steps at 16^3 from one
@@ -131,17 +134,21 @@ def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, tile=TILE,
             a = "xyz".index(k[-1])
             outs[k] = outs[k].index_select(
                 a, _slab_rows(shape[a], fp["E"]["m"][a]))
-    return out_e, out_h, out_pe, out_ph, out_j
+    # the stores: the fields in their storage dtype
+    return (pallas3d.stored(out_e, E), pallas3d.stored(out_h, H), out_pe,
+            out_ph, out_j)
 
 
 EMU_CASES = dict(LADDER_CASES, point_source=CASES["point_source"],
                  drude_sphere=CASES["drude_sphere"])
 
 
-def seeded(case, seed=5):
+def seeded(case, seed=5, dtype="float32"):
     """(static, prepared operands, state) of a case, every leaf of the
-    state seeded: E, H, psi, J and the incident line."""
-    static = build_static(to_port(SimConfig(**BASE, **EMU_CASES[case])))
+    state seeded: E, H, psi, J and the incident line (E and H rounded
+    to the storage ``dtype``)."""
+    static = build_static(to_port(SimConfig(**dict(BASE, dtype=dtype),
+                                            **EMU_CASES[case])))
     coeffs = coeffs_to_device(build_coeffs(static), "cpu")
     state = init_state(static, "cpu")
     rng = np.random.RandomState(seed)
@@ -152,10 +159,11 @@ def seeded(case, seed=5):
     return static, pallas_fused.prepare(static, coeffs), state
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bands", [False, True], ids=["whole", "bands"])
 @pytest.mark.parametrize("case", sorted(EMU_CASES))
-def test_emulated_schedule_equals_the_plain_pass(case, bands):
-    static, fp, st = seeded(case)
+def test_emulated_schedule_equals_the_plain_pass(case, bands, dtype):
+    static, fp, st = seeded(case, dtype=dtype)
     terms = drive = None
     if static.tfsf_setup is not None:
         inc = tfsf.advance_einc(st["inc"], fp["coeffs"], 3, static.dt,

@@ -1,11 +1,11 @@
 """The PyTorch port stands alone and fails loudly.
 
-* importing fdtd3d_torch and stepping 3D runs on the CPU (f32 plain
-  and temporal-blocked with a packed tail step, the fused and two-pass
-  ladder steps, float32x2 plain and packed-ds, float64, and a 2-lane
-  batch through fdtd3d_torch.batch) pulls in neither jax nor fdtd3d_tpu
-  (checked in a subprocess: this test process imports jax through
-  tests/conftest.py);
+* importing fdtd3d_torch and stepping 3D runs on the CPU (f32 and bf16
+  plain and temporal-blocked with a packed tail step, the fused and
+  two-pass ladder steps, float32x2 plain and packed-ds, float64, and a
+  2-lane batch through fdtd3d_torch.batch) pulls in neither jax, nor
+  fdtd3d_tpu, nor ml_dtypes (checked in a subprocess: this test process
+  imports jax through tests/conftest.py);
 * no CUDA device and no explicit ``cpu`` raises;
 * an out-of-scope configuration raises NotImplementedError naming its
   ROADMAP.md item;
@@ -23,8 +23,9 @@ import pytest
 import torch
 
 from fdtd3d_torch import SimConfig, Simulation
-from fdtd3d_torch.config import (ParallelConfig, PmlConfig,
-                                 PointSourceConfig, TfsfConfig)
+from fdtd3d_torch.config import (MaterialsConfig, ParallelConfig,
+                                 PmlConfig, PointSourceConfig, SphereConfig,
+                                 TfsfConfig)
 from fdtd3d_torch.ops import build, packed
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,6 +40,7 @@ import sys
 from fdtd3d_torch import SimConfig, Simulation
 from fdtd3d_torch.config import PmlConfig, TfsfConfig
 for dtype, flag in (("float32", False), ("float32", True),
+                    ("bfloat16", False), ("bfloat16", True),
                     ("float32x2", False), ("float32x2", True),
                     ("float64", None)):
     cfg = SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
@@ -48,10 +50,12 @@ for dtype, flag in (("float32", False), ("float32", True),
     sim = Simulation(cfg, device="cpu")
     sim.run()
     assert sim.t == 3
-    if (dtype, flag) == ("float32", True):
+    if flag and dtype in ("float32", "bfloat16"):
         assert sim.step_kind == "packed_tb_plain", sim.step_kind
         sim.advance(4)
         assert sim.t == 7
+    if dtype == "bfloat16":
+        sim.field("Ez")
 import os
 for names, kind in ((("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"),
                      "fused_plain"),
@@ -79,7 +83,8 @@ bsim = BatchSimulation(lanes, device="cpu").run()
 assert bsim.step_kind == "packed_tb_plain", bsim.step_kind
 assert bsim.t == 3 and bsim.verify_final_lanes().lane_finite == [True] * 2
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "fdtd3d_tpu")))
+             if m in ("jax", "ml_dtypes")
+             or m.startswith(("jax.", "ml_dtypes.", "fdtd3d_tpu")))
 print("LEAKED" if bad else "CLEAN", bad)
 """
 
@@ -106,7 +111,10 @@ def test_no_cuda_and_no_explicit_cpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(scheme="2D_TMz", size=(16, 16, 1)), "A4"),
-    (dict(dtype="bfloat16"), "A4"),
+    (dict(dtype="bfloat16", materials=MaterialsConfig(
+        use_drude_m=True, mu_inf=1.5, omega_pm=1e11, gamma_m=1e10,
+        drude_m_sphere=SphereConfig(enabled=True, center=(8, 8, 8),
+                                    radius=3))), "A4"),
     (dict(dtype="float32x2", parallel=ParallelConfig(
         topology="manual", manual_topology=(2, 1, 1))), "A9"),
     (dict(complex_fields=True), "A10"), (dict(compensated=True), "A4"),

@@ -20,8 +20,9 @@ x slab, TFSF and the point source onto each kernel's output.
   family's max on E, H, psi, J and each incident line.
 * The dispatch (ROADMAP C1): the kinds and ``tb_fallback`` tokens under
   the ladder's variables against the reference's.
-* Magnetic Drude K, bf16 storage and sharded runs raise, naming their
-  ROADMAP.md item; the steps do not mutate the state they are given.
+* Magnetic Drude K (with f32 or bf16 storage) and sharded runs raise,
+  naming their ROADMAP.md item; the steps do not mutate the state they
+  are given.
 """
 
 import dataclasses
@@ -184,7 +185,7 @@ _K = MaterialsConfig(use_drude_m=True, mu_inf=1.5, omega_pm=1e11,
                                    ("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED")])
 @pytest.mark.parametrize("kw,item", [
     (dict(materials=_K), r"A4\(b\)"),
-    (dict(dtype="bfloat16"), r"A4\(a\)"),
+    (dict(dtype="bfloat16", materials=_K), r"A4\(b\)"),
     (dict(parallel=ParallelConfig(topology="manual",
                                   manual_topology=(2, 1, 1))), "A11"),
 ])
@@ -199,19 +200,20 @@ def test_out_of_scope_configs_raise_naming_their_item(kw, item, names,
 
 @pytest.mark.parametrize("change,item", [
     (dict(use_drude_m=True), r"A4\(b\)"),
-    ("bfloat16", r"A4\(a\)"),
+    (dict(dtype="bfloat16", use_drude_m=True), r"A4\(b\)"),
     (dict(topology=(2, 1, 1)), "A11"),
 ])
 def test_builders_raise_naming_their_item(change, item):
     """The kernels' own builders refuse what the reference's kernels
-    cover and these twins do not, whoever calls them; a sharded static
-    is not fused-eligible, as in the reference."""
+    cover and these twins do not, whoever calls them (bf16 storage is in
+    their scope, magnetic Drude is not); a sharded static is not
+    fused-eligible, as in the reference."""
     static = build_static(to_port(ref_config("xyz_cpml")))
-    if change == "bfloat16":
+    change = dict(change)
+    if "dtype" in change:
         static = dataclasses.replace(static, cfg=dataclasses.replace(
-            static.cfg, dtype="bfloat16"))
-    else:
-        static = dataclasses.replace(static, **change)
+            static.cfg, dtype=change.pop("dtype")))
+    static = dataclasses.replace(static, **change)
     with pytest.raises(NotImplementedError, match=item):
         pallas3d.make_pallas_step(static, "cpu")
     if "topology" in change:
