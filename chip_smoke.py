@@ -171,10 +171,50 @@ the bf16 builds of the same four f32 sources:
    steps in f32 and in bf16: peak device memory, set-up seconds and
    Mcells/s.
 
-Phases 1, 4, 7, 11, 13, 14, 16-18 and the checks of 9 (kernel against
-plain version, lane against solo) launch the kernels outside the main
-paths' counts; each main path (phases 2, 5, 9's one step, 10, each run
-of 12, 15, 17's CLI runs and 18's) resets the counts just before it and
+Compensated (Kahan) float32 (bf16 residuals rE/rH, double-single
+coefficients and 1/dx, in the packed kernel's two launches) and magnetic
+Drude K (the H family's ADE current in the packed, two-pass and fused
+kernels):
+
+20. (C1) the compensated e_update/h_update against their plain versions,
+   one launch of each and 10 packed steps at the example's 64^3, one
+   launch and 2 steps at 256^3: bit for bit; then
+   ``Examples/precision3D_compensated.txt`` as it stands through the CLI
+   (64^3, 150 steps, a dump at step 150): the packed CUDA step with
+   tb_fallback compensated, 150 launches of each family and no other
+   kernel, finite dumps, and their error against the port's float64
+   plain step and the plain f32 run;
+21. (C2) ``Examples/vacuum3D_tfsf.txt --same-size 256`` for 150 steps
+   with --compensated and without through the CLI (Mcells/s of each),
+   and CUDA-event times of the compensated launches and the f32 ones in
+   turns, their plain versions and bounds (the byte counters with the
+   residuals), and both packed steps;
+22. (C3) ``tests/test_compensated.py:87`` on the card: a 17^3 PEC cavity,
+   mode (2, 3, 1), 1000 steps against ``fdtd3d_torch/exact.py``, the
+   compensated run on the packed CUDA kernel, f32 on the plain step (the
+   reference's gate: e32c < 0.9 e32 and e32c < 2.5e-6) and on the main
+   path's kernel (reported);
+23. (C4) a double-negative sphere (electric and magnetic Drude on
+   ``Examples/sphere3D_mie.txt``'s sphere, omega_p = omega_pm = 1.2 x the
+   source's, ``metamaterial1D_dng.txt``'s ratio) at 512^3 through
+   ``Simulation`` for 200 steps in f32 and in bf16 on the packed kernel
+   (tb_fallback magnetic_drude): ms a step, Mcells/s, peak memory; one
+   launch of each family and 8 packed steps against the plain versions
+   (2e-6 / 2e-2 of each family's max) and the launches' times;
+24. (C5) the same sphere at 256^3 down the ladder in f32 and bf16: one
+   launch of e_family/h_family (K) and one fused call and 8 steps of
+   each ladder step against the plain versions (the fused ones bit for
+   bit), the CLI for 200 steps under ``FDTD3D_FORCE_FUSED`` and under
+   ``FDTD3D_NO_PACKED`` + ``FDTD3D_NO_FUSED``, the launches' times
+   beside their bounds; and 3 K lanes at 128^3 (per-lane omega_pm): the
+   lane-capable packed step against its plain version and each lane
+   against the same kernels run solo, bit for bit.
+
+Phases 1, 4, 7, 11, 13, 14, 16-18, 20-24's checks and the checks of 9
+(kernel against plain version, lane against solo) launch the kernels
+outside the main paths' counts; each main path (phases 2, 5, 9's one
+step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
+``Simulation`` runs of 20-24) resets the counts just before it and
 reads them just after. The last lines
 are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -251,15 +291,17 @@ def config(path, extra):
 
 def seeded_sim(cfg, dev, seed):
     """A Simulation with the packed carry on the card and seeded random
-    E, H (and J with Drude), made on the device from a torch generator."""
+    E, H (and J, K with Drude, the Kahan residuals rE, rH in compensated
+    mode, at 1e-10), made on the device from a torch generator."""
     import torch
     from fdtd3d_torch.sim import Simulation
     sim = Simulation(cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     carry = sim._carry
-    for key in ("E", "H", "J"):
+    for key, scale in (("E", 0.01), ("H", 0.01), ("J", 0.01), ("K", 0.01),
+                       ("rE", 1e-10), ("rH", 1e-10)):
         if key in carry:
-            carry[key].copy_(0.01 * torch.randn(
+            carry[key].copy_(scale * torch.randn(
                 carry[key].shape, generator=g, device=dev))
     return sim
 
@@ -363,9 +405,11 @@ def one_launch_vs_plain(sim, fn, plain_fn, family, tol=TOL):
     a, b = clone_carry(sim._carry), clone_carry(sim._carry)
     for carry, f in ((a, fn), (b, plain_fn)):
         if family == "E":
-            f(carry["E"], carry["H"], carry.get("J"), carry["psE"], cc["E"])
+            f(carry["E"], carry["H"], carry.get("J"), carry["psE"], cc["E"],
+              carry.get("rE"))
         else:
-            f(carry["H"], carry["E"], carry["psH"], cc["H"])
+            f(carry["H"], carry["E"], carry["psH"], cc["H"], carry.get("K"),
+              carry.get("rH"))
     torch.cuda.synchronize()
     return compare(a, b, f"one {family} launch "
                    f"({sim.static.cfg.dtype}, {sim.static.grid_shape})",
@@ -495,8 +539,11 @@ def family_bytes(carry, cc, family):
     n += 2 * 3 * fvol                            # own family, r + w
     ps = carry["psE"] if family == "E" else carry["psH"]
     n += sum(2 * v.numel() * 4 for v in ps.values())
-    if family == "E" and "J" in carry:
-        n += 2 * 3 * vol
+    if ("J" if family == "E" else "K") in carry:
+        n += 2 * 3 * vol                         # the ADE current, r + w
+    res = carry.get("rE" if family == "E" else "rH")
+    if res is not None:
+        n += 2 * res.numel() * 2                 # bf16 residuals, r + w
     fc = cc[family]
     for key in ("a", "b", "kj", "bj"):
         for v in fc[key] or []:
@@ -509,13 +556,17 @@ def family_bytes(carry, cc, family):
 def family_flops(carry, family):
     """Flops per family update: per component two differences (sub,
     mul, add), the CPML slab terms where psi lives, and the update
-    (2 mul + 1 add; Drude 3 more); all lanes."""
+    (2 mul + 1 add; the ADE current, J or K, 4 more); in compensated
+    mode 2 more a difference (the low word of 1/dx) and 10 more an
+    update (the Kahan update against ca E + cb acc); all lanes."""
     cells = carry["E"].numel() // 3
     f = 3 * cells * (2 * 3 + 3)
     ps = carry["psE"] if family == "E" else carry["psH"]
     f += sum(v.numel() * 7 for v in ps.values())
-    if family == "E" and "J" in carry:
+    if ("J" if family == "E" else "K") in carry:
         f += 3 * cells * 4
+    if "rE" in carry:
+        f += 3 * cells * (2 * 2 + 10)
     return f
 
 
@@ -1264,7 +1315,7 @@ def fused_args(static, coeffs, state):
     """The fused call's arguments on a state, as its step makes them:
     old E, H, the psi of every slab axis, J, the prepared operands, the
     record terms after the state's E-incident advance, the point
-    source's drive."""
+    source's drive, K."""
     from fdtd3d_torch.ops import pallas3d, pallas_fused, tfsf
     fp = pallas_fused.prepare(static, coeffs)
     terms = None
@@ -1276,10 +1327,11 @@ def fused_args(static, coeffs, state):
         static, fam, x_slab=True).values() for _, k in v}
         for key, fam in (("psi_E", "E"), ("psi_H", "H"))]
     return (state["E"], state["H"], psi[0], psi[1], state.get("J"), fp,
-            terms, pallas_fused.point_drive(static, fp, state["t"]))
+            terms, pallas_fused.point_drive(static, fp, state["t"]),
+            state.get("K"))
 
 
-FUSED_OUTS = ("E", "H", "psi_E", "psi_H", "J")
+FUSED_OUTS = ("E", "H", "psi_E", "psi_H", "J", "K")
 
 
 def fused_section_errors(fp, got, want):
@@ -1344,7 +1396,7 @@ def ladder_vs_plain(cfg, dev, seed, label, steps=8, tol=TOL):
             ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
              (st["E"], st["H"], pe, J, fe), ("E", "psi", "J")),
             ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
-             (st["H"], st["E"], ph, fh), ("H", "psi")),
+             (st["H"], st["E"], ph, fh, st.get("K")), ("H", "psi", "K")),
             ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
              fargs, FUSED_OUTS)):
         got = as_tree(fn(*args), outs)
@@ -1389,42 +1441,54 @@ def load_dumps(out_dir, steps, shape, label):
     return fields
 
 
-def ladder_cli(label, argv, names, kind, cfg):
-    """Phase 12: one CLI run under the ladder variables ``names`` with a
-    DAT dump at its last step and the finite check, every kernel count
-    set to 0 just before it and read just after; asserts the kind in
-    the log, finite dumps of the grid's shape, and returns the run's
-    record (launches, wall, peak memory, TFSF leakage) and its fields."""
+def run_cli(label, argv, kind, fallback, shape, steps):
+    """One CLI run (``argv`` plus a DAT dump at its last step and the
+    finite check), every kernel count set to 0 just before it and read
+    just after: asserts ``step_kind={kind} tb_fallback={fallback}`` in
+    its log and finite dumps of ``shape``; returns (record, fields)."""
     import torch
-    from fdtd3d_torch import cli, diag
-    from fdtd3d_torch.solver import build_static
-    steps = cfg.time_steps
-    out_dir = os.path.join(OUT_DIR, f"ladder_{label}")
+    from fdtd3d_torch import cli
+    out_dir = os.path.join(OUT_DIR, label)
     argv = argv + ["--save-res", str(steps), "--check-finite",
                    "--save-dir", out_dir]
     captured = _io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.time()
-    with ladder_env(*names), contextlib.redirect_stdout(captured):
+    with contextlib.redirect_stdout(captured):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = ladder_launches()
     peak = torch.cuda.max_memory_allocated()
     log_txt = captured.getvalue()
-    say(f"cli ({label}, {' '.join(names)}): "
-        + " | ".join(log_txt.strip().splitlines()))
+    say(f"cli ({label}): " + " | ".join(log_txt.strip().splitlines()))
     if rc != 0:
         fail(f"{label}: cli.main returned {rc}")
-    if f"step_kind={kind}" not in log_txt:
-        fail(f"{label}: the CLI did not run {kind}")
-    fields = load_dumps(out_dir, steps, cfg.grid_shape, label)
+    want = f"step_kind={kind}" + (f" tb_fallback={fallback}" if fallback
+                                  else "")
+    if want not in log_txt:
+        fail(f"{label}: the CLI did not report {want}")
+    done = [ln for ln in log_txt.splitlines() if ln.startswith("done: ")]
+    mcps = float(done[0].split("(")[1].split()[0]) if done else None
+    return {"steps": steps, "kind": kind, "wall_s": wall,
+            "launches": launches, "mcells_per_s": mcps,
+            "peak_mem_bytes": peak}, load_dumps(out_dir, steps, shape,
+                                                label)
+
+
+def ladder_cli(label, argv, names, kind, cfg):
+    """Phase 12: one CLI run (``run_cli``) under the ladder variables
+    ``names``; its record gains the TFSF leakage of its dumps."""
+    from fdtd3d_torch import diag
+    from fdtd3d_torch.solver import build_static
+    with ladder_env(*names):
+        rec, fields = run_cli(f"ladder_{label}", argv, kind, None,
+                              cfg.grid_shape, cfg.time_steps)
     st = build_static(cfg).tfsf_setup
-    leak = diag.tfsf_leakage(fields, st.lo, st.hi)
-    return {"env": list(names), "kind": kind, "steps": steps,
-            "wall_s": wall, "launches": launches, "peak_mem_bytes": peak,
-            "tfsf_leakage": leak}, fields
+    rec.update(env=list(names),
+               tfsf_leakage=diag.tfsf_leakage(fields, st.lo, st.hi))
+    return rec, fields
 
 
 def rel_fields(got, want):
@@ -1437,7 +1501,7 @@ def rel_fields(got, want):
 
 
 def ladder_bytes(static, coeffs, state, kernel):
-    """Bytes a launch must move: each field, psi, J and coefficient grid
+    """Bytes a launch must move: each field, psi, J, K and coefficient grid
     it reads once (a grid whole, though the fused pass reads it only
     inside the box where it differs from its background), each output
     written once. ``kernel``: e_family, h_family or fused_eh (its psi of
@@ -1461,9 +1525,10 @@ def ladder_bytes(static, coeffs, state, kernel):
             if "psi_E" in state else {}
         n += sum(2 * v.numel() * 4 for k, v in psi.items()
                  if kernel == "fused_eh" or not k.endswith("_x"))
-        if fam == "E" and "J" in state:
+        ade, pq = ("J", ("kj", "bj")) if fam == "E" else ("K", ("km", "bm"))
+        if ade in state:
             n += 2 * 3 * vol
-            keys += [f"{p}_{c}" for p in ("kj", "bj") for c in state["J"]]
+            keys += [f"{p}_{c}" for p in pq for c in state[ade]]
         comps = static.mode.e_components if fam == "E" \
             else static.mode.h_components
         pa = ("ca", "cb") if fam == "E" else ("da", "db")
@@ -1476,8 +1541,8 @@ def ladder_bytes(static, coeffs, state, kernel):
 def ladder_flops(static, state, kernel):
     """Flops of a launch: per component two differences (sub, mul, add
     into the accumulator) and the update (2 mul + 1 add), 7 per slab psi
-    cell, 4 per Drude cell; the fused pass does both families, with the
-    psi of x too."""
+    cell, 4 per Drude J or K cell; the fused pass does both families,
+    with the psi of x too."""
     cells = static.grid_shape[0] * static.grid_shape[1] \
         * static.grid_shape[2]
     f = 0
@@ -1487,7 +1552,7 @@ def ladder_flops(static, state, kernel):
             if "psi_E" in state else {}
         f += sum(v.numel() * 7 for k, v in psi.items()
                  if kernel == "fused_eh" or not k.endswith("_x"))
-        if fam == "E" and "J" in state:
+        if ("J" if fam == "E" else "K") in state:
             f += 3 * cells * 4
     return f
 
@@ -1516,7 +1581,7 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
             ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
              (st["E"], st["H"], pe, J, fe), ("E", "psi", "J")),
             ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
-             (st["H"], st["E"], ph, fh), ("H", "psi")),
+             (st["H"], st["E"], ph, fh, st.get("K")), ("H", "psi", "K")),
             ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
              fargs, FUSED_OUTS)):
         got = as_tree(fn(*args), outs)
@@ -1868,6 +1933,442 @@ def capacity_run(size, dtype, steps, dev):
     if not finite or rec["step_kind"] != "packed_tb_cuda":
         fail(f"capacity run at {size}^3 {dtype}: {rec}")
     return rec
+
+
+
+# --------------------------------------------------------------------------
+# compensated (Kahan) float32 and magnetic Drude K (phases 20-24)
+# --------------------------------------------------------------------------
+
+COMPENSATED = os.path.join(ROOT, "Examples", "precision3D_compensated.txt")
+C0 = 299792458.0
+# Examples/metamaterial1D_dng.txt's plasma frequency over its source's
+# (1.507e11 rad/s at 15e-3 m: ~1.2), at sphere3D_mie.txt's 60e-3 m
+DNG_OMEGA_P = 1.507e11 / (2 * 3.141592653589793 * C0 / 15e-3) \
+    * (2 * 3.141592653589793 * C0 / 60e-3)
+CAVITY_FACTOR, CAVITY_BAR = 0.9, 2.5e-6   # tests/test_compensated.py:124
+
+
+def dng_flags(size, steps, omega_pm=DNG_OMEGA_P):
+    """sphere3D_mie.txt at ``size`` for ``steps`` steps with electric and
+    magnetic Drude on its sphere (centre size/2, radius size/8; the
+    file's own at 512): a double-negative sphere, omega_p = omega_pm =
+    ``DNG_OMEGA_P``, lossless."""
+    c, r = str(size // 2), str(size // 8)
+    out = ["--same-size", str(size), "--time-steps", str(steps)]
+    for sph in ("eps-sphere", "drude-sphere", "drude-m-sphere"):
+        for a in "xyz":
+            out += [f"--{sph}-center-{a}", c]
+        out += [f"--{sph}-radius", r]
+    return out + ["--use-drude", "--omega-p", repr(DNG_OMEGA_P),
+                  "--use-drude-m", "--omega-pm", repr(omega_pm)]
+
+
+def compensated_kernels(cfg, dev, seed, label, steps):
+    """One e_update and one h_update launch of the compensated build
+    against their plain versions on a seeded carry (E, H, rE, rH), then
+    ``steps`` packed steps of kernels against plain versions: bit for
+    bit (max |diff| 0.0: the variant runs the plain version's operations
+    in its order, none contracted). Returns the worst absolute error."""
+    from fdtd3d_torch.ops import packed
+    sim = seeded_sim(cfg, dev, seed)
+    if sim.step_kind != "packed_cuda":
+        fail(f"{label}: ran {sim.step_kind}, not packed_cuda")
+    errs = [one_launch_vs_plain(sim, packed.e_update,
+                                packed.e_update_plain, "E"),
+            one_launch_vs_plain(sim, packed.h_update,
+                                packed.h_update_plain, "H")]
+    del sim
+    errs.append(kernel_vs_plain(cfg, dev, seed, label, steps))
+    if any(errs):
+        fail(f"{label}: the compensated launches differ from their plain "
+             f"versions (max |diff| of one E, one H launch, {steps} steps: "
+             f"{errs})")
+    return max(errs)
+
+
+def compensated_example(dev, size=256):
+    """Phase 20 (C1): the compensated kernels against their plain
+    versions at the example's 64^3 and at 256^3, then
+    Examples/precision3D_compensated.txt as it stands through the CLI
+    (64^3, 150 steps, point source, CPML 8; a dump at step 150): the
+    packed CUDA step with tb_fallback compensated, 150 launches of each
+    family and no other kernel, finite dumps; the dumps' error against
+    the port's float64 plain step and the plain f32 run of the same
+    file (rel: max over components of |x - y| / the family's max |y|)."""
+    from fdtd3d_torch.sim import Simulation
+    out = {"max_abs_err": {
+        "64": compensated_kernels(config(COMPENSATED, []), dev, 61,
+                                  "compensated 64^3", STEPS_CMP),
+        str(size): compensated_kernels(
+            config(EXAMPLE, ["--same-size", str(size), "--compensated"]),
+            dev, 62, f"compensated {size}^3 TFSF+CPML", 2)}}
+    rec, fields = run_cli("compensated_example", ["--cmd-from-file",
+                                                  COMPENSATED],
+                          "packed_cuda", "compensated", (64, 64, 64), 150)
+    n = rec["launches"]
+    if n["e_update"] != 150 or n["h_update"] != 150 or any(
+            n[k] for k in n if k not in ("e_update", "h_update")):
+        fail(f"compensated example: launches {n}, not 150 of each family "
+             f"alone")
+    out["cli"] = rec
+    refs = {}
+    for key, extra in (("float64", ["--no-compensated", "--dtype",
+                                    "float64"]),
+                       ("float32", ["--no-compensated"])):
+        sim = Simulation(config(COMPENSATED, extra), device=dev).run()
+        refs[key] = {c: v.astype("float64") for c, v in
+                     sim.fields().items()}
+        out[f"{key}_kind"] = sim.step_kind
+        del sim
+    out["rel_vs_float64"] = rel_fields(fields, refs["float64"])
+    out["rel_vs_float32"] = rel_fields(fields, refs["float32"])
+    out["float32_rel_vs_float64"] = rel_fields(refs["float32"],
+                                               refs["float64"])
+    say("compensated example: " + json.dumps(out))
+    return out
+
+
+def compensated_times(dev, reps, plain_reps, size=256):
+    """Phase 21 (C2): Examples/vacuum3D_tfsf.txt at 256^3 for 150 steps
+    with --compensated and without, through the CLI in one call (the
+    compensated packed step against the f32 main path), then, 150 steps
+    into a compensated run and a packed f32 run, CUDA-event times of the
+    compensated e_update/h_update and of the f32 builds in turns, their
+    plain versions, the bounds (the byte counters with the bf16
+    residuals; operations at the non-FMA rate for the compensated
+    build) and the whole packed steps."""
+    import torch
+    from fdtd3d_torch.ops import packed
+    from fdtd3d_torch.sim import Simulation
+    out = {}
+    argv = ["--cmd-from-file", EXAMPLE, "--same-size", str(size)]
+    shape = (size,) * 3
+    out["cli_compensated"], _ = run_cli(
+        "c2_compensated", argv + ["--compensated"], "packed_cuda",
+        "compensated", shape, 150)
+    out["cli_f32"], _ = run_cli("c2_f32", argv, "packed_tb_cuda", None,
+                                shape, 150)
+    if out["cli_compensated"]["launches"]["e_update"] != 150:
+        fail(f"C2: {out['cli_compensated']['launches']}")
+    runs = {}
+    for key, extra in (("comp", ["--compensated"]), ("f32", [])):
+        os.environ["FDTD3D_NO_TEMPORAL"] = "1"   # the packed f32 step
+        try:
+            sim = Simulation(config(EXAMPLE, ["--same-size", str(size)]
+                                    + extra), device=dev)
+        finally:
+            os.environ.pop("FDTD3D_NO_TEMPORAL")
+        if sim.step_kind != "packed_cuda":
+            fail(f"C2 {key}: ran {sim.step_kind}")
+        sim.advance(150)
+        carry = sim._carry
+        step = packed.make_packed_step(sim.static, dev)
+        cc = step.prepare(sim.coeffs)
+        runs[key] = (sim, carry, step, cc)
+    for turn in range(2):
+        for key in (("comp", "f32") if turn == 0 else ("f32", "comp")):
+            sim, carry, step, cc = runs[key]
+            out.setdefault(f"e_update_{key}_ms", []).append(timed(
+                lambda: packed.e_update(carry["E"], carry["H"], None,
+                                        carry["psE"], cc["E"],
+                                        carry.get("rE")), reps))
+            out.setdefault(f"h_update_{key}_ms", []).append(timed(
+                lambda: packed.h_update(carry["H"], carry["E"],
+                                        carry["psH"], cc["H"], None,
+                                        carry.get("rH")), reps))
+    for key in ("comp", "f32"):
+        sim, carry, step, cc = runs[key]
+        for fam in ("e", "h"):
+            ms = out[f"{fam}_update_{key}_ms"]
+            out[f"{fam}_update_{key}_ms"] = sum(ms) / len(ms)
+            out[f"{fam}_update_{key}_ms_turns"] = ms
+            F = fam.upper()
+            nbytes = family_bytes(carry, cc, F)
+            flops = family_flops(carry, F)
+            if key == "comp":     # explicitly rounded: the non-FMA rate
+                flops = flops * F32_FLOPS / F32_NONFMA_OPS
+            out[f"{fam}_update_{key}_bytes"] = nbytes
+            out[f"{fam}_update_{key}_bytes_per_cell"] = nbytes / size ** 3
+            out[f"{fam}_update_{key}_bound_ms"], \
+                out[f"{fam}_update_{key}_bound_by"] = bound(nbytes, flops)
+        out[f"packed_step_{key}_ms"] = timed(lambda: step(carry, cc), reps)
+    sim, carry, step, cc = runs["comp"]
+    out["e_update_comp_plain_ms"] = timed(lambda: packed.e_update_plain(
+        carry["E"], carry["H"], None, carry["psE"], cc["E"], carry["rE"]),
+        plain_reps)
+    out["h_update_comp_plain_ms"] = timed(lambda: packed.h_update_plain(
+        carry["H"], carry["E"], carry["psH"], cc["H"], None, carry["rH"]),
+        plain_reps)
+    out["launches_a_step"] = {"e_update": 1, "h_update": 1}
+    say(f"compensated times ({size}^3): " + json.dumps(out))
+    del runs, sim, carry, step, cc
+    torch.cuda.empty_cache()
+    return out
+
+
+def cavity_check(dev):
+    """Phase 22 (C3): tests/test_compensated.py:87 on the card: the (2,
+    3, 1) eigenmode of a 17^3 PEC cavity for 1000 steps, the worst
+    component's error against fdtd3d_torch/exact.py over its mode's max;
+    compensated through the packed CUDA kernel, f32 through the plain
+    step (the twin of the reference's jnp step, whose error its gate
+    takes) and through the f32 main path's kernel (reported). Gates:
+    e32c < 0.9 e32 and e32c < 2.5e-6."""
+    import numpy as np
+    from fdtd3d_torch import exact
+    from fdtd3d_torch.config import PmlConfig, SimConfig
+    from fdtd3d_torch.sim import Simulation
+    out = {}
+    for key, comp, flag in (("e32c", True, None), ("e32", False, False),
+                            ("e32_main_path", False, None)):
+        cfg = SimConfig(scheme="3D", size=(17, 17, 17), time_steps=1000,
+                        dx=1e-3, courant_factor=0.5, wavelength=8e-3,
+                        pml=PmlConfig(size=(0, 0, 0)), compensated=comp,
+                        use_pallas=flag)
+        sim = Simulation(cfg, device=dev)
+        shapes, omega = exact.cavity_mode((17, 17, 17), (2, 3, 1), cfg.dx,
+                                          cfg.dt)
+        for c, v in shapes.items():
+            sim.set_field(c, v.astype(np.float32))
+        sim.run()
+        out[key] = max(
+            float(np.abs(np.asarray(sim.field(c), np.float64)
+                         - exact.cavity_expectation(s, omega, cfg.dt, 1000)
+                         ).max() / np.abs(s).max())
+            for c, s in shapes.items())
+        out[f"{key}_kind"] = sim.step_kind
+    if out["e32c_kind"] != "packed_cuda":
+        fail(f"C3: the compensated cavity ran {out['e32c_kind']}")
+    if not (out["e32c"] < CAVITY_FACTOR * out["e32"]
+            and out["e32c"] < CAVITY_BAR):
+        fail(f"C3: the cavity gate failed: e32c {out['e32c']:.4e}, e32 "
+             f"{out['e32']:.4e} (needs e32c < {CAVITY_FACTOR} e32 and < "
+             f"{CAVITY_BAR})")
+    say("cavity gate: " + json.dumps(out))
+    return out
+
+
+def drude_m_kernels_vs_plain(sim, dev, label, tol, steps):
+    """On a run's packed carry: one e_update and one h_update launch (J,
+    K) against their plain versions, then ``steps`` packed steps of
+    kernels against plain versions, at ``tol`` of each family's max.
+    Returns the worst absolute error."""
+    import torch
+    from fdtd3d_torch.ops import packed
+    err = max(one_launch_vs_plain(sim, packed.e_update,
+                                  packed.e_update_plain, "E", tol),
+              one_launch_vs_plain(sim, packed.h_update,
+                                  packed.h_update_plain, "H", tol))
+    k_step = packed.make_packed_step(sim.static, dev)
+    p_step = packed.make_packed_step(sim.static, dev, plain=True)
+    cc = k_step.prepare(sim.coeffs)
+    ck, cp = clone_carry(sim._carry), clone_carry(sim._carry)
+    for _ in range(steps):
+        ck = k_step(ck, cc)
+        cp = p_step(cp, cc)
+    torch.cuda.synchronize()
+    err = max(err, compare(ck, cp, f"{label}: {steps} packed steps",
+                           family=True, tol=tol))
+    del ck, cp
+    torch.cuda.empty_cache()
+    return err
+
+
+def dng_mie(dev, dtype, steps, reps, plain_reps, size=512):
+    """Phase 23 (C4): the double-negative sphere (``dng_flags``) in
+    sphere3D_mie.txt at 512^3 through ``Simulation`` for ``steps``
+    steps with the finite check: the packed CUDA step (tb_fallback
+    magnetic_drude), one launch of each family a step, set-up seconds,
+    ms a step, Mcells/s and peak memory; then, on the run's state, one
+    launch of each family and 8 packed steps against the plain versions
+    (2e-6 f32, 2e-2 bf16 of each family's max) and CUDA-event times of
+    e_update and h_update (J and K) beside their plain versions and
+    bounds."""
+    import torch
+    from fdtd3d_torch.ops import packed
+    from fdtd3d_torch.sim import Simulation
+    label = f"DNG sphere {size}^3 {dtype}"
+    cfg = config(MIE, dng_flags(size, steps) + ["--dtype", dtype,
+                                                 "--check-finite"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim = Simulation(cfg, device=dev)
+    setup = time.time() - t0
+    if sim.step_kind != "packed_cuda" or sim.step_diag.get(
+            "tb_fallback") != {"reason": "magnetic_drude"}:
+        fail(f"{label}: ran {sim.step_kind} {sim.step_diag}")
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    launches = ladder_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["e_update"] != steps or launches["h_update"] != steps \
+            or launches["tb_pass"] or launches["fused_eh"] \
+            or launches["e_family"]:
+        fail(f"{label}: launches {launches}")
+    if not all(bool(torch.isfinite(v.float()).all())
+               for _, v in leaves(sim._carry)):
+        fail(f"{label}: non-finite state after {steps} steps")
+    tol = TOL if dtype == "float32" else BF16_TOL
+    err = drude_m_kernels_vs_plain(sim, dev, label, tol, 8)
+    carry = sim._carry
+    cc = packed.make_packed_step(sim.static, dev).prepare(sim.coeffs)
+    out = {"dtype": dtype, "steps": steps, "setup_s": setup,
+           "step_ms": wall / steps * 1e3,
+           "mcells_per_s": size ** 3 * steps / wall / 1e6,
+           "peak_mem_bytes": peak, "launches": launches,
+           "max_abs_err": err, "omega_p": DNG_OMEGA_P}
+    for fam, fn, plain, args in (
+            ("E", packed.e_update, packed.e_update_plain,
+             (carry["E"], carry["H"], carry["J"], carry["psE"], cc["E"])),
+            ("H", packed.h_update, packed.h_update_plain,
+             (carry["H"], carry["E"], carry["psH"], cc["H"], carry["K"]))):
+        key = fam.lower()
+        out[f"{key}_update_ms"] = timed(lambda: fn(*args), reps)
+        out[f"{key}_plain_ms"] = timed(lambda: plain(*args), plain_reps)
+        nbytes = family_bytes(carry, cc, fam)
+        out[f"{key}_bytes"] = nbytes
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = bound(
+            nbytes, family_flops(carry, fam))
+    say(f"{label}: " + json.dumps(out))
+    del sim, carry, cc
+    torch.cuda.empty_cache()
+    return out
+
+
+def dng_ladder(dev, steps, reps, plain_reps, size=256):
+    """Phase 24 (C5): the double-negative sphere at 256^3 down the
+    ladder, in f32 and bf16: one launch of e_family, h_family (K) and one
+    fused_eh call (K in its H half) and 8 steps of each ladder step
+    against their plain versions (the fused call and steps bit for bit,
+    the two-pass ones at 2e-6 / 2e-2 of each family's max), the CLI
+    under FDTD3D_FORCE_FUSED and under FDTD3D_NO_PACKED + FDTD3D_NO_FUSED
+    (one fused call a step, or one launch of each family a step, and no
+    other kernel; finite dumps), and, on the run's state, CUDA-event
+    times of each ladder launch and its plain version beside its
+    bound."""
+    import torch
+    from fdtd3d_torch.ops import pallas3d, pallas_fused
+    from fdtd3d_torch.sim import Simulation
+    out, err = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        tol = TOL if dtype == "float32" else BF16_TOL
+        flags = dng_flags(size, steps) + ["--dtype", dtype]
+        cfg = config(MIE, flags)
+        label = f"DNG sphere {size}^3 {dtype}"
+        e = ladder_vs_plain(cfg, dev, 71, label, steps=8, tol=tol)
+        if e["fused_eh"] != 0.0:
+            fail(f"{label}: the fused pass with K is not bit-equal to its "
+                 f"plain version ({e['fused_eh']:.3e})")
+        err[dtype] = e
+        for names, kind, key in (
+                (("FDTD3D_FORCE_FUSED",), "fused_cuda", "fused"),
+                (("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"), "pallas3d_cuda",
+                 "pallas3d")):
+            with ladder_env(*names):
+                rec, _ = run_cli(f"c5_{key}_{dtype}",
+                                 ["--cmd-from-file", MIE] + flags, kind,
+                                 "magnetic_drude", (size,) * 3, steps)
+            n = rec["launches"]
+            want = {"fused_eh": steps if key == "fused" else 0,
+                    "e_family": 0 if key == "fused" else steps,
+                    "h_family": 0 if key == "fused" else steps,
+                    "tb_pass": 0, "e_update": 0, "h_update": 0}
+            if any(n[k] != v for k, v in want.items()):
+                fail(f"{label} {kind}: launches {n}, want {want}")
+            out[f"cli_{key}_{dtype}"] = rec
+        sim = Simulation(cfg, device=dev)
+        sim.advance(steps)
+        static, coeffs, st = sim.static, sim.coeffs, sim.state
+        fe, fh, pe, ph = kernel_args(static, coeffs, st)
+        for name, fn, plain, args in (
+                ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
+                 (st["E"], st["H"], pe, st["J"], fe)),
+                ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
+                 (st["H"], st["E"], ph, fh, st["K"])),
+                ("fused_eh", pallas_fused.fused_eh,
+                 pallas_fused.fused_eh_plain,
+                 fused_args(static, coeffs, st))):
+            k = f"{name}_{dtype}"
+            out[f"{k}_ms"] = timed(lambda: fn(*args), reps)
+            out[f"{k}_plain_ms"] = timed(lambda: plain(*args), plain_reps)
+            nbytes = ladder_bytes(static, coeffs, st, name)
+            flops = ladder_flops(static, st, name)
+            if name == "fused_eh":   # built without FMA contraction
+                flops = flops * F32_FLOPS / F32_NONFMA_OPS
+            out[f"{k}_bytes"] = nbytes
+            out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bound(nbytes,
+                                                               flops)
+        for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
+                                 ("fused", pallas_fused.make_fused_eh_step)):
+            k_step = build_step(static, dev)
+            cc = k_step.prepare(coeffs)
+            out[f"{name}_step_{dtype}_ms"] = timed(lambda: k_step(st, cc),
+                                                   reps)
+        del sim, st
+        torch.cuda.empty_cache()
+    say(f"DNG ladder ({size}^3): " + json.dumps(out))
+    return out, err
+
+
+def drude_m_lanes(dev, size=128):
+    """Phase 24 (C5), lanes: 3 lanes at 128^3 of the double-negative
+    sphere (``dng_flags``) with different omega_pm (per-lane bm and
+    da/db grids) and point-source amplitudes: the batch authority admits
+    them (the reference's carries K lanes on its packed kernel), the
+    lane-capable packed step against its plain version, and each lane
+    of one e_update + h_update launch against the same kernels run
+    solo, bit for bit."""
+    import torch
+    from fdtd3d_torch.batch import BatchSimulation
+    from fdtd3d_torch.ops import packed
+    cfgs = [config(MIE, dng_flags(size, 8, DNG_OMEGA_P * f)
+                   + ["--point-source", "Ez", "--point-source-x",
+                      str(size // 3),
+                      "--point-source-amplitude", str(a)])
+            for f, a in ((1.0, 1.0), (0.8, 2.0), (1.2, 0.5))]
+    bsim = BatchSimulation(cfgs, device=dev)
+    if bsim.step_kind != "packed_cuda" or bsim.batch_fallback:
+        fail(f"K lanes: ran {bsim.step_kind} {bsim.batch_fallback or ''}")
+    seed_leaves(bsim._carry, dev, 81)
+    static, B = bsim.static, bsim.batch_size
+    carry = bsim._carry
+    k_pk = packed.make_packed_step(static, dev, batch=B)
+    p_pk = packed.make_packed_step(static, dev, plain=True, batch=B)
+    pcc = k_pk.prepare(bsim._coeffs)
+    ck, cp = clone_carry(carry), clone_carry(carry)
+    k_pk(ck, pcc)
+    p_pk(cp, pcc)
+    torch.cuda.synchronize()
+    err = compare(ck, cp, "K lanes: one lane-capable packed step",
+                  family=True)
+    del ck, cp
+    for fc_lane in (None,) + tuple(range(B)):
+        if fc_lane is None:
+            a = clone_carry(carry)
+            fe, fh = pcc["E"], pcc["H"]
+        else:
+            a = solo_lane(carry, fc_lane)
+            fe = packed.lane_fc(pcc["E"], fc_lane)
+            fh = packed.lane_fc(pcc["H"], fc_lane)
+        packed.e_update(a["E"], a["H"], a["J"], a["psE"], fe)
+        packed.h_update(a["H"], a["E"], a["psH"], fh, a["K"])
+        torch.cuda.synchronize()
+        a = {k: a[k] for k in ("E", "H", "J", "K", "psE", "psH")}
+        if fc_lane is None:
+            batched = a
+        else:
+            assert_lanes_equal(batched, fc_lane, a,
+                               "K lanes: e_update + h_update")
+    say(f"K lanes: the lane-capable packed step matches its plain version "
+        f"({err:.3e}); every lane equals the same kernels run solo, bit "
+        f"for bit")
+    return {"lanes": B, "max_abs_err": err}
 
 
 
@@ -2422,6 +2923,34 @@ def main() -> int:
     # ---- phase 19: capacity at 1024^3, f32 and bf16 ---------------------
     result["capacity_1024"] = {dt: capacity_run(1024, dt, 20, dev)
                                for dt in ("float32", "bfloat16")}
+
+    def mark(name):
+        result.setdefault("elapsed_s", {})[name] = round(time.time() - t0, 1)
+        say(f"{name} done, {result['elapsed_s'][name]} s in")
+
+    mark("phases 1-19")
+    # ---- phase 20 (C1): the compensated example through the CLI ---------
+    result["compensated_example"] = comp_ex = compensated_example(dev)
+    mark("phase 20")
+    # ---- phase 21 (C2): the compensated step at 256^3 -------------------
+    result["compensated_times"] = comp_t = compensated_times(dev, reps, 2)
+    mark("phase 21")
+    # ---- phase 22 (C3): the cavity gate through the compensated kernel --
+    result["cavity"] = cavity_check(dev)
+    mark("phase 22")
+    # ---- phase 23 (C4): the double-negative sphere at 512^3 -------------
+    result["dng_512"] = dng = {dt: dng_mie(dev, dt, 200, 10, 1)
+                               for dt in ("float32", "bfloat16")}
+    mark("phase 23")
+    # ---- phase 24 (C5): K down the ladder at 256^3, and K lanes ---------
+    dng_l, dng_l_err = dng_ladder(dev, 200, reps, 2)
+    result["dng_ladder_256"] = dng_l
+    result["k_lanes_128"] = k_lanes = drude_m_lanes(dev)
+    mark("phase 24")
+    result["max_abs_err"].update({
+        "compensated": max(comp_ex["max_abs_err"].values()),
+        "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
+        "dng_ladder_256": dng_l_err, "k_lanes_128": k_lanes["max_abs_err"]})
     result["bf16_stats"] = BF16_STATS
 
     smi = subprocess.run(
@@ -2555,6 +3084,47 @@ def main() -> int:
             "plain_ms": bt16[f"{key}_plain_ms"],
             "bound_ms": bt16[f"{key}_bound_ms"],
             "bound_by": bt16[f"{key}_bound_by"], "library_ms": None})
+    comp_launches = comp_ex["cli"]["launches"]
+    for fam in ("e", "h"):
+        kernels.append({
+            "name": f"packed_eh.{fam}_update[compensated]", "route": "cuda",
+            "source": src, "replaces": "fdtd3d_tpu/ops/pallas_packed.py:694",
+            "launches": comp_launches[f"{fam}_update"],
+            "max_abs_err": result["max_abs_err"]["compensated"],
+            "ms": comp_t[f"{fam}_update_comp_ms"],
+            "plain_ms": comp_t[f"{fam}_update_comp_plain_ms"],
+            "bound_ms": comp_t[f"{fam}_update_comp_bound_ms"],
+            "bound_by": comp_t[f"{fam}_update_comp_bound_by"],
+            "library_ms": None})
+    for dt, tag in (("float32", "K"), ("bfloat16", "K bf16")):
+        d = dng[dt]
+        for fam in ("e", "h"):
+            kernels.append({
+                "name": f"packed_eh.{fam}_update[{tag}]", "route": "cuda",
+                "source": src,
+                "replaces": "fdtd3d_tpu/ops/pallas_packed.py:694",
+                "launches": d["launches"][f"{fam}_update"],
+                "max_abs_err": d["max_abs_err"],
+                "ms": d[f"{fam}_update_ms"], "plain_ms": d[f"{fam}_plain_ms"],
+                "bound_ms": d[f"{fam}_bound_ms"],
+                "bound_by": d[f"{fam}_bound_by"], "library_ms": None})
+        for kname, key, source, replaces, cli_key in (
+                ("family.e_family", "e_family", fam_src,
+                 "fdtd3d_tpu/ops/pallas3d.py:293", "pallas3d"),
+                ("family.h_family", "h_family", fam_src,
+                 "fdtd3d_tpu/ops/pallas3d.py:293", "pallas3d"),
+                ("fused_eh.pass", "fused_eh", "fdtd3d_torch/csrc/fused_eh.cu",
+                 "fdtd3d_tpu/ops/pallas_fused.py:423", "fused")):
+            kernels.append({
+                "name": f"{kname}[{tag}]", "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": dng_l[f"cli_{cli_key}_{dt}"]["launches"][key],
+                "max_abs_err": dng_l_err[dt][key],
+                "ms": dng_l[f"{key}_{dt}_ms"],
+                "plain_ms": dng_l[f"{key}_{dt}_plain_ms"],
+                "bound_ms": dng_l[f"{key}_{dt}_bound_ms"],
+                "bound_by": dng_l[f"{key}_{dt}_bound_by"],
+                "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

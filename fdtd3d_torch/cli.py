@@ -566,7 +566,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     log(f"fdtd3d-torch: scheme={cfg.scheme} size={cfg.grid_shape} "
         f"steps={cfg.time_steps} dt={cfg.dt:.3e}s device={dev} "
         f"({name})")
-    log(f"step_kind={sim.step_kind}")
+    fallback = (sim.step_diag or {}).get("tb_fallback")
+    log(f"step_kind={sim.step_kind}"
+        + (f" tb_fallback={fallback['reason']}" if fallback else ""))
 
     interval = 0
     for v in (cfg.output.save_res, cfg.output.norms_every):

@@ -10,12 +10,15 @@ so both packages can start from identical fields (hi and lo words
 alike) and be compared in the unpacked form. Coefficients cross the
 same way, the ``*_lo`` words and the ds CPML profile pairs included.
 
-bfloat16 fields: the reference keeps them as ``ml_dtypes`` bfloat16
-arrays, which numpy sees as 2-byte void words; the port does not import
-``ml_dtypes``. A 2-byte void leaf comes across as a bf16 tensor with the
-same bits (``from_host``), and a bf16 tensor goes back as float32 holding
-the same values, widened exactly (``to_host``): numpy has no bf16 of its
-own, and every bf16 value is an f32 value.
+bfloat16 leaves (bf16 fields, and the Kahan residuals ``rE``/``rH`` of
+compensated mode, bf16 in both packages): the reference keeps them as
+``ml_dtypes`` bfloat16 arrays, which numpy sees as 2-byte void words;
+the port does not import ``ml_dtypes``. A 2-byte void leaf comes across
+as a bf16 tensor with the same bits (``from_host``; ``bf16_words``
+gives them back as int16 words), and a bf16 tensor goes back as float32
+holding the same values, widened exactly (``to_host``): numpy has no
+bf16 of its own, and every bf16 value is an f32 value. Magnetic Drude's
+``K`` crosses like J.
 
 A batch (fdtd3d_torch/batch.py) has the lane-stacked forms: the
 reference's batched state and coefficient trees carry a leading lane

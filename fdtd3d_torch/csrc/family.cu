@@ -12,8 +12,9 @@
 // coefficients float32), C order, z innermost (the reference's
 // unpacked state):
 //   E' = ca E + cb (curl_b H + y/z CPML deltas - J'),   J' = kj J + bj E
-//   H' = da H - db (curl_f E + y/z CPML deltas)
-// with PEC zero ghosts outside the domain, per-cell or scalar
+//   H' = da H - db (curl_f E + y/z CPML deltas + K'),   K' = km K + bm H
+// (K: magnetic Drude, the reference's H-family ADE current,
+// pallas3d.py:191), with PEC zero ghosts outside the domain, per-cell or scalar
 // coefficients, and PEC walls on tangential E. Each curl term is
 // s * dfa, plus, on a y or z CPML slab, s * ((ik - 1) dfa + psi') with
 // psi' = b psi + c dfa on the compact slab psi (2m planes along the
@@ -35,8 +36,9 @@
 //
 // Bound: memory bytes. A launch reads 6 field volumes (its own family
 // and the other) and writes 3, so a step of two launches moves 18
-// volumes (72 B/cell f32) plus the y/z psi slabs, against ~30 flops a
-// cell per family: far below the H100's ~20 flops per byte.
+// volumes (72 B/cell f32) plus the y/z psi slabs, and J or K read and
+// written (24 B/cell each) where the family has one, against ~30 flops
+// a cell per family: far below the H100's ~20 flops per byte.
 //
 // Offsets are computed in 64 bits. Every entry returns
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -46,12 +48,14 @@
 struct Params {
   FamOps f;                   // the family updated
   const void* S[3];           // the curl source family (float or bf16)
-  Drude dr;                   // E only; null pointers for H
+  Drude dr;                   // the family's ADE current: J (E) or K
+                              // (H); null pointers without it
   Grid g;
 };
 
 // BACKWARD = true: E from backward differences of H (Drude J, walls);
-// false: H from forward differences of E. T: the fields' storage type.
+// false: H from forward differences of E (magnetic Drude K). T: the
+// fields' storage type.
 template <bool BACKWARD, typename T>
 __global__ void __launch_bounds__(128) family_pass(Params p) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -77,7 +81,7 @@ __global__ void __launch_bounds__(128) family_pass(Params p) {
     if (BACKWARD) {
       e_value<T>(p.f, p.dr, p.g, c, idx, cell, acc, true);
     } else {
-      h_value<T>(p.f, c, cell, ld(fld<T>(p.f.F, c) + cell), acc);
+      h_value<T>(p.f, p.dr, c, cell, ld(fld<T>(p.f.F, c) + cell), acc);
     }
   }
 }

@@ -38,7 +38,9 @@ struct FamOps {
   Coef b[3];                  // cb (E) / db (H)
 };
 
-// Electric Drude current J' = kj J + bj E, or null pointers.
+// A family's ADE current, or null pointers: electric Drude J' = kj J +
+// bj E on the E family, magnetic Drude K' = km K + bm H on the H family
+// (its coefficients in kj, bj).
 struct Drude {
   const float* Jin[3];
   float* Jout[3];
@@ -154,10 +156,19 @@ __device__ __forceinline__ float e_value(const FamOps& e, const Drude& dr,
   return v;
 }
 
-// New H component c at `cell`: da H - db acc, written.
+// New H component c at `cell` from its curl accumulator: the magnetic
+// Drude current K' (`dk`, null pointers without it) added (the dual of
+// J's sign on E), then da H - db acc. K' and H' are written.
 template <typename T>
-__device__ __forceinline__ void h_value(const FamOps& h, int c, int64_t cell,
-                                        float old, float acc) {
+__device__ __forceinline__ void h_value(const FamOps& h, const Drude& dk,
+                                        int c, int64_t cell, float old,
+                                        float acc) {
+  if (dk.Jin[c] != nullptr) {
+    const float kn = coef(dk.kj[c], cell) * dk.Jin[c][cell] +
+                     coef(dk.bj[c], cell) * old;
+    dk.Jout[c][cell] = kn;
+    acc = acc + kn;
+  }
   st(fld<T>(h.out, c) + cell,
      coef(h.a[c], cell) * old - coef(h.b[c], cell) * acc);
 }

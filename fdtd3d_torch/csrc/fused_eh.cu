@@ -15,14 +15,16 @@
 // of place (old arrays read, fresh arrays written):
 //   E' = ca E + cb (curl_b H + CPML terms + records - J' + drive),
 //   J' = kj J + bj E,
-//   H' = da H - db (curl_f E' + CPML terms + records)
+//   H' = da H - db (curl_f E' + CPML terms + records + K'),
+//   K' = km K + bm H   (magnetic Drude, pallas_fused.py:597)
 // Each curl term is s * dfa, plus, on a CPML slab of its axis (x, y or
 // z alike), s * ((ik - 1) dfa + psi') with psi' = b psi + c dfa on the
 // compact slab psi (2m planes along the axis). Each TFSF record adds its
 // plane term (ops/tfsf.py::record_terms, one f32 vector for both
 // families) into the accumulator at its plane before the coefficient
 // multiply, in table order; the point source adds `drive` (ps_amp times
-// the waveform) after the Drude current. PEC zero ghosts outside the
+// the waveform) after the Drude current; the H half adds K' after its
+// records (the E half takes J' off). PEC zero ghosts outside the
 // domain, per-cell or scalar coefficients, PEC walls on tangential E.
 // H is computed from the final E, so nothing is patched afterwards.
 // bf16 storage (Grid.bf16, csrc/storage.cuh): E and H are bf16 words in
@@ -112,7 +114,8 @@
 //    then differ from its owner's bits.
 //
 // What bounds it on the card: memory bytes. A call must read E, H (and
-// J) once and write E', H' (and J') once, 12 field volumes (48 B/cell)
+// J, K) once and write E', H' (and J', K') once, 12 field volumes (48 B/cell,
+// 24 B/cell more for each of J and K)
 // plus psi of every slab axis, the coefficient grids inside their box
 // and the record terms, against the two-pass step's 18 volumes; ~60
 // flops a cell. The halo re-reads (1.28 cells loaded a cell owned at 10
@@ -181,7 +184,8 @@ struct Rec {
 struct Params {
   FamOps e;               // E: old and fresh fields, psi of every slab
   FamOps h;               // axis (x too), profiles, ca/cb; H: da/db
-  Drude dr;               // null pointers without Drude J
+  Drude dr;               // Drude J, or null pointers
+  Drude dk;               // magnetic Drude K (km, bm), or null pointers
   Grid g;                 // m[a]: slab planes a side of every CPML axis
   const float* terms;     // (total,) record terms, or nullptr
   const int* plan;        // (items, PLAN_COLS) work items, by section
@@ -370,6 +374,15 @@ __device__ __forceinline__ void update(const Params& p, const RecTable* rt,
                        coef_at(p.dr.bj[c], grid, cell) * old[c];
       if (store) p.dr.Jout[c][cell] = jn;
       acc[c] = acc[c] - jn;
+    }
+  }
+  if (!BACKWARD && p.dk.Jin[0] != nullptr) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float kn = coef_at(p.dk.kj[c], grid, cell) * p.dk.Jin[c][cell] +
+                       coef_at(p.dk.bj[c], grid, cell) * old[c];
+      if (store) p.dk.Jout[c][cell] = kn;
+      acc[c] = acc[c] + kn;
     }
   }
   if (BACKWARD && SRC && pcell) {

@@ -32,11 +32,30 @@ bf16 onto the stored field, as the reference's patches do (the sum is
 rounded again), so a face cell differs from the plain step by a bf16
 rounding or two.
 
+Magnetic Drude K (the reference's :630-635 and :955-962): the H launch
+reads and writes K as the E launch does J, ``K' = km K + bm H`` added to
+H's accumulator (J is taken off E's), with km/bm scalars or grids.
+
+Compensated (Kahan) float32 (:588-589, :757-759, :872-881, :963-972):
+both launches scale every difference by the double-single 1/dx, apply
+the scalar coefficients' double-single low words and feed back the
+bf16 residuals ``rE``/``rH`` (read and written in place beside the
+field, zeroed by the PEC walls with E). That variant runs in the plain
+version's order with every product and sum explicitly rounded
+(``__fmul_rn``/``__fadd_rn``, no FMA contraction), so it reproduces the
+plain version's bits; the uncompensated builds keep their arithmetic.
+As in the reference, the variant takes scalar coefficients only
+(``declines`` sends compensated runs with a grid to the plain step),
+and the patches between the launches add onto the field in plain f32
+and leave the residuals alone (pallas_packed.py:94-103).
+
 Layout (the port's own; parity is judged on the unpacked state):
 ``E``, ``H`` (3, n1, n2, n3); ``psE[a]``/``psH[a]`` the compact slab psi
 of axis a, (2, ...) with dim 1+a of 2m planes, rows = the two
 components with a curl term along a, in component order; ``J``
-(3, n1, n2, n3) with Drude; ``inc`` and ``t`` as in the dict form.
+(3, n1, n2, n3) with Drude, ``K`` likewise with magnetic Drude, ``rE``,
+``rH`` (3, n1, n2, n3) bf16 in compensated mode; ``inc`` and ``t`` as in
+the dict form.
 
 Lanes: the same kernels are the port of the reference's lane-capable
 build (``make_packed_eh_step_batched``, :537, whose ``pallas_call`` the
@@ -76,6 +95,35 @@ _LIB = "packed_eh"
 _diff_b, _diff_f = make_diff_ops()
 
 
+# the carry's per-component stacks besides E, H and psi, with the
+# components they stack: Drude J, magnetic Drude K, the Kahan residuals
+STACKED_AUX = (("J", "e_components"), ("K", "h_components"),
+               ("rE", "e_components"), ("rH", "h_components"))
+
+
+def eligible(static) -> bool:
+    """The reference's ``pallas_packed.eligible`` (:229), unsharded: 3D
+    real float32 or bf16 storage, not double-single, and not
+    compensated mode with magnetic Drude K (whose residual the kernel
+    does not Kahan-treat)."""
+    cfg = static.cfg
+    return static.mode.name == "3D" \
+        and cfg.dtype in ("float32", "bfloat16") \
+        and not (static.use_drude_m and cfg.compensated)
+
+
+def declines(static) -> bool:
+    """Whether the reference's packed kernel declines this configuration
+    and its dispatch runs the jnp step instead: compensated mode with a
+    coefficient grid (its double-single coefficients are embedded
+    scalars, pallas_packed.py:647) or with magnetic Drude K (whose
+    residual is not Kahan-treated, :251). The port runs its plain step
+    there, and no kernel."""
+    from fdtd3d_torch.solver import has_coeff_grids
+    return bool(static.cfg.compensated
+                and (static.use_drude_m or has_coeff_grids(static)))
+
+
 def psi_row(c: int, a: int) -> int:
     """Row of component c in the psi stack of axis a (the two
     components other than a, in order)."""
@@ -100,8 +148,10 @@ def pack(state: Dict[str, Any], static, lanes: bool = False
             rows = [c for c in comps if component_axis(c) != a]
             p[fam][a] = torch.stack(
                 [state[key][f"{c}_{AXES[a]}"] for c in rows], d)
-    if static.use_drude:
-        p["J"] = torch.stack([state["J"][c] for c in mode.e_components], d)
+    for key, comps in STACKED_AUX:
+        if key in state:
+            comps = getattr(mode, comps)
+            p[key] = torch.stack([state[key][c] for c in comps], d)
     if static.tfsf_setup is not None:
         p["inc"] = {k: v.clone() for k, v in state["inc"].items()}
     return p
@@ -126,9 +176,10 @@ def unpack(p: Dict[str, Any], static, lanes: bool = False
                 rows = [c for c in comps if component_axis(c) != a]
                 for r, c in enumerate(rows):
                     state[key][f"{c}_{AXES[a]}"] = p[fam][a].select(d, r)
-    if "J" in p:
-        state["J"] = {c: p["J"].select(d, j)
-                      for j, c in enumerate(mode.e_components)}
+    for key, comps in STACKED_AUX:
+        if key in p:
+            state[key] = {c: p[key].select(d, j)
+                          for j, c in enumerate(getattr(mode, comps))}
     if "inc" in p:
         state["inc"] = dict(p["inc"])
     return state
@@ -149,10 +200,25 @@ def baked_coeff_keys(static) -> Tuple[str, ...]:
     return tuple(keys)
 
 
+def ade_keys(static, family: str):
+    """The family's ADE (auxiliary current) coefficient names, or None:
+    Drude J's ``kj``/``bj`` on E, magnetic Drude K's ``km``/``bm`` on
+    H. The operand dicts keep them under ``kj``/``bj`` for either
+    family, and the kernels take them as the family's one ADE current
+    (taken off E's accumulator, added to H's)."""
+    if family == "E":
+        return ("kj", "bj") if static.use_drude else None
+    return ("km", "bm") if static.use_drude_m else None
+
+
 def prepare_family(static, coeffs, family: str) -> Dict[str, Any]:
     """Per-family kernel operands from device coefficients: scalar or
-    grid coefficients per component, the slab CPML profiles (3, 2m) per
-    axis, and the wall vectors (used by the plain version)."""
+    grid coefficients per component (the ADE current's under
+    ``kj``/``bj``), the slab CPML profiles (3, 2m) per axis, the wall
+    vectors (used by the plain version), and in compensated mode the
+    coefficients' low words and 1/dx's (``comp``: a_lo, b_lo,
+    inv_dx_lo; None otherwise)."""
+    from fdtd3d_torch.solver import inv_dx_pair
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
     tag = "e" if family == "E" else "h"
@@ -163,10 +229,15 @@ def prepare_family(static, coeffs, family: str) -> Dict[str, Any]:
         "a": [coeffs[f"{pa}_{c}"] for c in comps],
         "b": [coeffs[f"{pb}_{c}"] for c in comps],
         "kj": None, "bj": None, "m": dict(slab_axes(static)), "prof": {},
-        "wall": [coeffs[f"wall_{ax}"] for ax in AXES]}
-    if family == "E" and static.use_drude:
-        fc["kj"] = [coeffs[f"kj_{c}"] for c in comps]
-        fc["bj"] = [coeffs[f"bj_{c}"] for c in comps]
+        "wall": [coeffs[f"wall_{ax}"] for ax in AXES], "comp": None}
+    ade = ade_keys(static, family)
+    if ade is not None:
+        fc["kj"] = [coeffs[f"{ade[0]}_{c}"] for c in comps]
+        fc["bj"] = [coeffs[f"{ade[1]}_{c}"] for c in comps]
+    if static.cfg.compensated:
+        fc["comp"] = {"a_lo": [coeffs[f"{pa}_{c}_lo"] for c in comps],
+                      "b_lo": [coeffs[f"{pb}_{c}_lo"] for c in comps],
+                      "inv_dx_lo": inv_dx_pair(static.dx)[1]}
     for a in fc["m"]:
         fc["prof"][a] = torch.stack(
             [coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"]
@@ -179,38 +250,58 @@ def prepare_family(static, coeffs, family: str) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 
 def family_value(c: int, old, acc, a, b, walls, backward: bool,
-                 drude=None, point=None):
+                 drude=None, point=None, comp=None):
     """Component c's new value from its curl accumulator, as the kernels
-    compute it: for E (``backward``) the Drude current J' = kj J + bj old
-    (``drude`` = (J, kj, bj)) taken off acc, then ``point(acc)``,
-    ca old + cb acc and the PEC walls of the other two axes (``walls``:
-    one vector per axis); for H da old - db acc. -> (new value, J' or
-    None). Shared with the dict-form plain version (ops/pallas3d.py)."""
-    jn = None
-    if not backward:
-        return a * old - b * acc, jn
+    compute it: the family's ADE current ``drude`` = (J or K, k, b):
+    J' = kj J + bj old taken off E's acc (``backward``), K' = km K +
+    bm old added to H's; then, for E, ``point(acc)``; ca old + cb acc
+    (H: da old - db acc), or in compensated mode (``comp`` = (a_lo,
+    b_lo, old residual)) the Kahan update of ``solver.kahan_update``;
+    and for E the PEC walls of the other two axes (``walls``: one vector
+    per axis), on the residual too. -> (new value, new ADE current or
+    None, new residual or None). Shared with the dict-form plain version
+    (ops/pallas3d.py)."""
+    from fdtd3d_torch.solver import kahan_update
+    jn = r = None
     if drude is not None:
         J, kj, bj = drude
         jn = kj * J + bj * old
-        acc = acc - jn
+        acc = acc - jn if backward else acc + jn
     if point is not None:
         acc = point(acc)
-    v = a * old + b * acc
-    for w in range(3):
-        if w != c:
-            v = v * _bcast1d(walls[w], w)
-    return v, jn
+    if comp is not None:
+        v, r = kahan_update(old, acc, a, b, *comp, backward)
+    else:
+        v = a * old + b * acc if backward else a * old - b * acc
+    if backward:
+        for w in range(3):
+            if w != c:
+                wv = _bcast1d(walls[w], w)
+                v = v * wv
+                if r is not None:
+                    r = r * wv
+    return v, jn, r
+
+
+def scaled_diff(d0, fc):
+    """A difference over dx as the kernels scale it: ``d0 * inv_dx``, or
+    in compensated mode ``d0 * inv_dx + d0 * inv_dx_lo``."""
+    if fc["comp"] is None:
+        return d0 * fc["inv_dx"]
+    return d0 * fc["inv_dx"] + d0 * fc["comp"]["inv_dx_lo"]
 
 
 def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
-                  point=None) -> None:
-    """One family update in place. ``records(c, acc)`` and, for E,
-    ``point(c, acc)`` add in-kernel sources to component c's curl
-    accumulator (the temporal-blocked pass, ops/packed_tb.py): the
-    records after the curl, the point source after the Drude current,
-    as the reference's kernels order them. bf16 fields are widened to
-    float32 before any operation and the new values rounded to bf16
-    where they are stored, as the kernel loads and stores them."""
+                  point=None, R=None) -> None:
+    """One family update in place. ``J``: the family's ADE current (J on
+    E, K on H) or None; ``R``: the Kahan residuals (bf16) in compensated
+    mode. ``records(c, acc)`` and, for E, ``point(c, acc)`` add in-kernel
+    sources to component c's curl accumulator (the temporal-blocked
+    pass, ops/packed_tb.py): the records after the curl, the point
+    source after the Drude current, as the reference's kernels order
+    them. bf16 fields are widened to float32 before any operation and
+    the new values rounded to bf16 where they are stored, as the kernel
+    loads and stores them."""
     diff = _diff_b if backward else _diff_f
     S = S.float()
     for c in range(3):
@@ -218,7 +309,7 @@ def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
         for t in range(2):
             a, d = (c + 1 + t) % 3, (c + 2 - t) % 3
             s = 1.0 if t == 0 else -1.0
-            dfa = diff(S[d], a) * fc["inv_dx"]
+            dfa = scaled_diff(diff(S[d], a), fc)
             if a in fc["m"]:
                 row = psi[a][psi_row(c, a)]
                 new_psi, fix = _slab_fix(a, s, dfa, row,
@@ -230,10 +321,15 @@ def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
             acc = records(c, acc)
         drude = None if J is None else (J[c], fc["kj"][c], fc["bj"][c])
         hook = None if point is None else (lambda acc, c=c: point(c, acc))
-        v, jn = family_value(c, F[c].float(), acc, fc["a"][c], fc["b"][c],
-                             fc["wall"], backward, drude, hook)
+        comp = None if fc["comp"] is None else (
+            fc["comp"]["a_lo"][c], fc["comp"]["b_lo"][c], R[c])
+        v, jn, r = family_value(c, F[c].float(), acc, fc["a"][c],
+                                fc["b"][c], fc["wall"], backward, drude,
+                                hook, comp)
         if jn is not None:
             J[c].copy_(jn)
+        if r is not None:
+            R[c].copy_(r)
         F[c].copy_(v)
 
 
@@ -251,31 +347,34 @@ def lane_fc(fc: Dict[str, Any], lane: int) -> Dict[str, Any]:
     return out
 
 
-def lane_views(F, S, J, psi):
+def lane_views(F, S, J, psi, R=None):
     """The solo-layout operands of every lane: a solo carry is its own
     single lane; a lane-stacked one yields a view per lane."""
     if F.dim() == 4:
-        yield None, F, S, J, psi
+        yield None, F, S, J, psi, R
         return
     for lane in range(F.shape[0]):
         yield (lane, F[lane], S[lane], None if J is None else J[lane],
-               {a: v[lane] for a, v in psi.items()})
+               {a: v[lane] for a, v in psi.items()},
+               None if R is None else R[lane])
 
 
-def e_update_plain(E, H, J, psi, fc) -> None:
-    """E (and J, psi_E) in place from backward differences of H, on the
-    solo or the lane-stacked layout (one lane after the other)."""
-    for lane, e, h, j, ps in lane_views(E, H, J, psi):
+def e_update_plain(E, H, J, psi, fc, R=None) -> None:
+    """E (and J, psi_E, the residual rE in compensated mode) in place
+    from backward differences of H, on the solo or the lane-stacked
+    layout (one lane after the other)."""
+    for lane, e, h, j, ps, r in lane_views(E, H, J, psi, R):
         _family_plain(e, h, j, ps, fc if lane is None else lane_fc(fc, lane),
-                      backward=True)
+                      backward=True, R=r)
 
 
-def h_update_plain(H, E, psi, fc) -> None:
-    """H (and psi_H) in place from forward differences of E, on the solo
-    or the lane-stacked layout."""
-    for lane, h, e, _, ps in lane_views(H, E, None, psi):
-        _family_plain(h, e, None, ps, fc if lane is None else lane_fc(fc, lane),
-                      backward=False)
+def h_update_plain(H, E, psi, fc, K=None, R=None) -> None:
+    """H (and K with magnetic Drude, psi_H, the residual rH in
+    compensated mode) in place from forward differences of E, on the
+    solo or the lane-stacked layout."""
+    for lane, h, e, k, ps, r in lane_views(H, E, K, psi, R):
+        _family_plain(h, e, k, ps, fc if lane is None else lane_fc(fc, lane),
+                      backward=False, R=r)
 
 
 # --------------------------------------------------------------------------
@@ -291,16 +390,18 @@ class _Coef(ctypes.Structure):
 class _Params(ctypes.Structure):
     """Mirror of ``struct Params`` in csrc/packed_eh.cu."""
     _fields_ = [("F", ctypes.c_void_p), ("S", ctypes.c_void_p),
-                ("J", ctypes.c_void_p),
+                ("J", ctypes.c_void_p), ("R", ctypes.c_void_p),
                 ("psi", ctypes.c_void_p * 3), ("prof", ctypes.c_void_p * 3),
                 ("field_lane", ctypes.c_longlong),
                 ("psi_lane", ctypes.c_longlong * 3),
                 ("m", ctypes.c_int * 3),
                 ("a", _Coef * 3), ("b", _Coef * 3),
                 ("kj", _Coef * 3), ("bj", _Coef * 3),
+                ("a_lo", ctypes.c_float * 3), ("b_lo", ctypes.c_float * 3),
                 ("n1", ctypes.c_int), ("n2", ctypes.c_int),
                 ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
-                ("inv_dx", ctypes.c_float), ("bf16", ctypes.c_int)]
+                ("inv_dx", ctypes.c_float), ("inv_dx_lo", ctypes.c_float),
+                ("bf16", ctypes.c_int)]
 
 
 def _library() -> ctypes.CDLL:
@@ -402,10 +503,12 @@ def swap_buffers(carry, spare) -> None:
             carry[fam][a], spare[fam][a] = spare[fam][a], carry[fam][a]
 
 
-def _params(F, S, J, psi, fc) -> _Params:
+def _params(F, S, J, psi, fc, R=None) -> _Params:
     """The launch's parameter block; the static part (coefficients,
     profiles) is built and checked once per prepared family, device and
-    lane count."""
+    lane count. ``J``: the family's ADE current (J or K) or None;
+    ``R``: the bf16 Kahan residuals of compensated mode (``fc["comp"]``
+    set), whose coefficients the kernel takes as scalars only."""
     device = F.device
     shape = fc["shape"]
     lanes, lead = carry_lanes(F)
@@ -427,6 +530,19 @@ def _params(F, S, J, psi, fc) -> _Params:
             prm.prof[a] = _check(fc["prof"][a], f"prof[{a}]", (3, 2 * m),
                                  device)
             prm.psi_lane[a] = int(np.prod(psi_shape(shape, a, m)))
+        comp = fc["comp"]
+        if comp is not None:
+            for c in range(3):
+                for key in ("a", "b"):
+                    if isinstance(fc[key][c], torch.Tensor) \
+                            or isinstance(comp[f"{key}_lo"][c], torch.Tensor):
+                        raise ValueError(
+                            "the compensated kernel takes scalar "
+                            "coefficients only (packed.declines "
+                            "sends grids to the plain step)")
+                prm.a_lo[c] = float(comp["a_lo"][c])
+                prm.b_lo[c] = float(comp["b_lo"][c])
+            prm.inv_dx_lo = comp["inv_dx_lo"]
         prm.n1, prm.n2, prm.n3 = shape
         prm.lanes = lanes
         prm.field_lane = 3 * shape[0] * shape[1] * shape[2]
@@ -439,9 +555,15 @@ def _params(F, S, J, psi, fc) -> _Params:
     prm.S = _check(S, "S", full, device, fd)
     prm.bf16 = int(fd == torch.bfloat16)
     if J is not None:
-        prm.J = _check(J, "J", full, device)
-    elif fc["family"] == "E" and fc["kj"] is not None:
-        raise ValueError("Drude coefficients given but no J stack")
+        prm.J = _check(J, "J" if fc["family"] == "E" else "K", full, device)
+    elif fc["kj"] is not None:
+        raise ValueError("Drude coefficients given but no J or K stack")
+    if fc["comp"] is not None:
+        if fd != torch.float32:
+            raise ValueError("compensated mode needs float32 fields")
+        if R is None:
+            raise ValueError("compensated mode needs the residual stack")
+        prm.R = _check(R, "R", full, device, torch.bfloat16)
     for a, m in fc["m"].items():
         prm.psi[a] = _check(psi[a], f"psi[{a}]", psi_shape(shape, a, m, lead),
                             device)
@@ -457,24 +579,24 @@ def _launch(fn: str, prm: _Params, device) -> None:
                            f"({lib.fdtd_error_string(err).decode()})")
 
 
-def e_update(E, H, J, psi, fc) -> None:
-    """E (and J, psi_E) in place, every lane of a lane-stacked carry in
-    one launch: the CUDA kernel on CUDA tensors, its plain version on
+def e_update(E, H, J, psi, fc, R=None) -> None:
+    """E (and J, psi_E, rE) in place, every lane of a lane-stacked carry
+    in one launch: the CUDA kernel on CUDA tensors, its plain version on
     CPU tensors."""
     if not E.is_cuda:
-        e_update_plain(E, H, J, psi, fc)
+        e_update_plain(E, H, J, psi, fc, R)
         return
-    _launch("fdtd_e_update", _params(E, H, J, psi, fc), E.device)
+    _launch("fdtd_e_update", _params(E, H, J, psi, fc, R), E.device)
     e_update.launches += 1
 
 
-def h_update(H, E, psi, fc) -> None:
-    """H (and psi_H) in place, every lane in one launch: the CUDA kernel
-    on CUDA tensors, its plain version on CPU tensors."""
+def h_update(H, E, psi, fc, K=None, R=None) -> None:
+    """H (and K, psi_H, rH) in place, every lane in one launch: the CUDA
+    kernel on CUDA tensors, its plain version on CPU tensors."""
     if not H.is_cuda:
-        h_update_plain(H, E, psi, fc)
+        h_update_plain(H, E, psi, fc, K, R)
         return
-    _launch("fdtd_h_update", _params(H, E, None, psi, fc), H.device)
+    _launch("fdtd_h_update", _params(H, E, K, psi, fc, R), H.device)
     h_update.launches += 1
 
 
@@ -497,6 +619,11 @@ def make_packed_step(static, device, plain: bool = False, batch: int = 0):
     a leading lane axis of B lanes (see the module docstring); the host
     ops of a step do not grow with B.
     """
+    if declines(static):
+        raise ValueError(
+            "the packed kernel declines compensated mode with coefficient "
+            "grids or magnetic Drude K, as the reference's does: the "
+            "dispatch runs the plain step there (packed.declines)")
     setup = static.tfsf_setup
     thin = sorted(set(static.pml_axes) - set(slab_axes(static)))
     if thin:
@@ -525,13 +652,15 @@ def make_packed_step(static, device, plain: bool = False, batch: int = 0):
         if setup is not None:
             ps["inc"] = tfsf.advance_einc(ps["inc"], cc["coeffs"], t,
                                           static.dt, static.omega, setup)
-        e_fn(ps["E"], ps["H"], ps.get("J"), ps["psE"], cc["E"])
+        e_fn(ps["E"], ps["H"], ps.get("J"), ps["psE"], cc["E"],
+             ps.get("rE"))
         if setup is not None:
             patches.tfsf_patch(ps["E"], cc["tfsf_E"], ps["inc"])
         patches.point_source_patch(static, ps["E"], cc["point"], t)
         if setup is not None:
             ps["inc"] = tfsf.advance_hinc(ps["inc"], cc["coeffs"], setup)
-        h_fn(ps["H"], ps["E"], ps["psH"], cc["H"])
+        h_fn(ps["H"], ps["E"], ps["psH"], cc["H"], ps.get("K"),
+             ps.get("rH"))
         if setup is not None:
             patches.tfsf_patch(ps["H"], cc["tfsf_H"], ps["inc"])
         ps["t"] = t + 1

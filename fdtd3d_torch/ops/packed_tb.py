@@ -146,7 +146,8 @@ def reject_reason(static) -> Optional[str]:
         return "dtype"
     if tuple(static.topology) != (1, 1, 1):
         return "sharded"
-    if set(static.pml_axes) != set(slab_axes(static)):
+    if set(static.pml_axes) != set(slab_axes(static)) \
+            or (cfg.compensated and static.use_drude_m):
         return "packed_ineligible"
     if cfg.compensated:
         return "compensated"
@@ -486,10 +487,11 @@ def material(tb) -> Tuple[Any, Dict[Tuple[str, int], float]]:
     background: (``grids`` as ``plan_items`` takes it, the background
     value of each E grid by (key, component)). A grid's background is
     its value at cell (0, 0, 0), which must be the same on every lane;
-    Drude J and grids of the H family read everywhere ("all")."""
+    Drude J or K and grids of the H family read everywhere ("all")."""
     fe, fh = tb["E"], tb["H"]
-    if fe["kj"] is not None or any(isinstance(v, torch.Tensor)
-                                   for key in ("a", "b") for v in fh[key]):
+    if fe["kj"] is not None or fh["kj"] is not None \
+            or any(isinstance(v, torch.Tensor)
+                   for key in ("a", "b") for v in fh[key]):
         return "all", {}
     shape = tuple(tb["shape"])
     lo, hi = [None] * 3, [None] * 3

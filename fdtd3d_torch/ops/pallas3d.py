@@ -59,9 +59,15 @@ patches then add their values rounded to bf16 onto those outputs, as
 the reference's post-passes do (``val.astype(fdt)`` and an add in the
 field dtype: two roundings on a patched cell).
 
+Magnetic Drude K (the reference's ``drude = static.use_drude_m`` of the
+H family, :191): ``h_family`` reads and writes K as ``e_family`` does
+J, ``K' = km K + bm H`` added to the H accumulator before the
+coefficient step (J is taken off E's), km/bm scalars or grids; the x
+slab's delta is then added by the post-pass, as in the reference.
+
 Out of scope here, and raising ``NotImplementedError`` with the
-ROADMAP.md item (the reference's kernel accepts them): magnetic Drude K
-(A4(b)), sharded runs (A11).
+ROADMAP.md item (the reference's kernel accepts them): sharded runs
+(A11).
 """
 
 from __future__ import annotations
@@ -103,8 +109,6 @@ def check_scope(static, what: str) -> None:
             f"{feature} in the {what} is not ported to fdtd3d_torch yet "
             f"(ROADMAP.md queue {item}); run it with the reference "
             f"package fdtd3d_tpu")
-    if static.use_drude_m:
-        out("magnetic Drude (K current)", "A4(b)")
     if tuple(static.topology) != (1, 1, 1):
         out(f"topology {tuple(static.topology)}", "A11")
 
@@ -129,10 +133,12 @@ def kernel_psi_terms(static, family: str,
 def family_operands(static, coeffs, family: str,
                     x_slab: bool = False) -> Dict[str, Any]:
     """One family's kernel operands from device coefficients: the
-    material coefficients per component (host float or grid), the slab
-    CPML profiles (3, 2m) of the in-kernel axes (y and z; x too with
-    ``x_slab``), the in-kernel psi keys, and the wall vectors (used by
-    the plain version)."""
+    material coefficients per component (host float or grid; the ADE
+    current's, Drude J's kj/bj or K's km/bm, under ``kj``/``bj``), the
+    slab CPML profiles (3, 2m) of the in-kernel axes (y and z; x too
+    with ``x_slab``), the in-kernel psi keys, and the wall vectors (used
+    by the plain version)."""
+    from fdtd3d_torch.ops.packed import ade_keys
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
     tag = "e" if family == "E" else "h"
@@ -146,10 +152,11 @@ def family_operands(static, coeffs, family: str,
         "b": [coeffs[f"{pb}_{c}"] for c in comps],
         "kj": None, "bj": None, "m": slabs, "prof": {},
         "psi": kernel_psi_terms(static, family, x_slab),
-        "wall": [coeffs[f"wall_{ax}"] for ax in AXES]}
-    if family == "E" and static.use_drude:
-        fc["kj"] = [coeffs[f"kj_{c}"] for c in comps]
-        fc["bj"] = [coeffs[f"bj_{c}"] for c in comps]
+        "wall": [coeffs[f"wall_{ax}"] for ax in AXES], "comp": None}
+    ade = ade_keys(static, family)
+    if ade is not None:
+        fc["kj"] = [coeffs[f"{ade[0]}_{c}"] for c in comps]
+        fc["bj"] = [coeffs[f"{ade[1]}_{c}"] for c in comps]
     for a in slabs:
         fc["prof"][a] = torch.stack(
             [coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"]
@@ -164,8 +171,9 @@ def family_operands(static, coeffs, family: str,
 def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
                   point=None):
     """One family update as the kernel body computes it (:377-429):
-    returns (new fields, new in-kernel psi, new J or None), fresh
-    tensors; the inputs are not touched. ``records(ci, acc)`` and, for
+    returns (new fields, new in-kernel psi, new ADE current or None),
+    fresh tensors; the inputs are not touched. ``J``: the family's ADE
+    current (Drude J on E, K on H) or None. ``records(ci, acc)`` and, for
     E, ``point(ci, acc)`` add in-kernel sources to component ci's curl
     accumulator (the recompute-fused pass, ops/pallas_fused.py): the
     records after the curl, the point source after the Drude current.
@@ -193,9 +201,9 @@ def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
             acc = records(ci, acc)
         drude = None if J is None else (J[c], fc["kj"][ci], fc["bj"][ci])
         hook = None if point is None else (lambda v, ci=ci: point(ci, v))
-        new_f[c], jn = family_value(ci, F[c].float(), acc, fc["a"][ci],
-                                    fc["b"][ci], fc["wall"], backward, drude,
-                                    hook)
+        new_f[c], jn, _ = family_value(ci, F[c].float(), acc, fc["a"][ci],
+                                       fc["b"][ci], fc["wall"], backward,
+                                       drude, hook)
         if jn is not None:
             new_j[c] = jn
     return new_f, new_psi, new_j
@@ -214,11 +222,11 @@ def e_family_plain(E, H, psi, J, fc):
     return stored(new_e, E), new_psi, new_j
 
 
-def h_family_plain(H, E, psi, fc):
-    """New H (and in-kernel psi_H) from forward differences of E: the
-    plain version of ``h_family``."""
-    new_h, new_psi, _ = _family_plain(H, E, psi, None, fc, backward=False)
-    return stored(new_h, H), new_psi
+def h_family_plain(H, E, psi, fc, K=None):
+    """New H (and in-kernel psi_H, K with magnetic Drude) from forward
+    differences of E: the plain version of ``h_family``."""
+    new_h, new_psi, new_k = _family_plain(H, E, psi, K, fc, backward=False)
+    return stored(new_h, H), new_psi, new_k
 
 
 # --------------------------------------------------------------------------
@@ -241,7 +249,8 @@ class FamOps(ctypes.Structure):
 
 
 class Drude(ctypes.Structure):
-    """Mirror of ``struct Drude`` in csrc/family_cell.cuh."""
+    """Mirror of ``struct Drude`` in csrc/family_cell.cuh: a family's
+    ADE current (J, or K) and its coefficients."""
     _fields_ = [("Jin", ctypes.c_void_p * 3), ("Jout", ctypes.c_void_p * 3),
                 ("kj", Coef * 3), ("bj", Coef * 3)]
 
@@ -328,25 +337,34 @@ def fill_family(ops: FamOps, F, psi, fc, device) -> Tuple[Dict, Dict]:
     return new_f, new_psi
 
 
+def fill_ade(dr: Drude, J, fc, device) -> Optional[Dict]:
+    """Fill a ``Drude`` block with a family's ADE current (``fc``'s
+    family: Drude J on E, K on H), with fresh outputs; null pointers
+    when the family has none. Returns the new current or None."""
+    shape = fc["shape"]
+    if fc["kj"] is None:
+        return None
+    name = "J" if fc["family"] == "E" else "K"
+    if J is None:
+        raise ValueError(f"ADE coefficients given but no {name}")
+    new_j = {}
+    for ci, c in enumerate(fc["comps"]):
+        dr.Jin[ci] = check(J[c], f"{name}[{c}]", shape, device)
+        new_j[c] = torch.empty(shape, dtype=torch.float32, device=device)
+        dr.Jout[ci] = new_j[c].data_ptr()
+        dr.kj[ci] = coef_struct(fc["kj"][ci], f"{name} k[{c}]", shape,
+                                device)
+        dr.bj[ci] = coef_struct(fc["bj"][ci], f"{name} b[{c}]", shape,
+                                device)
+    return new_j
+
+
 def fill_drude_grid(prm, J, fce, device, fd) -> Optional[Dict]:
-    """Fill a parameter block's ``dr`` (Drude J, with fresh outputs,
-    from the E family's operands ``fce``; null pointers without Drude)
-    and ``g`` (``fd``: the fields' storage dtype). Returns the new J or
-    None."""
+    """Fill a parameter block's ``dr`` (the ADE current of ``fce``'s
+    family, ``fill_ade``) and ``g`` (``fd``: the fields' storage dtype).
+    Returns the new current or None."""
     shape = fce["shape"]
-    new_j = None
-    if fce["kj"] is not None:
-        if J is None:
-            raise ValueError("Drude coefficients given but no J")
-        new_j = {}
-        for ci, c in enumerate(fce["comps"]):
-            prm.dr.Jin[ci] = check(J[c], f"J[{c}]", shape, device)
-            new_j[c] = torch.empty(shape, dtype=torch.float32, device=device)
-            prm.dr.Jout[ci] = new_j[c].data_ptr()
-            prm.dr.kj[ci] = coef_struct(fce["kj"][ci], f"kj[{c}]", shape,
-                                        device)
-            prm.dr.bj[ci] = coef_struct(fce["bj"][ci], f"bj[{c}]", shape,
-                                        device)
+    new_j = fill_ade(prm.dr, J, fce, device)
     for a, m in fce["m"].items():
         prm.g.m[a] = m
     for a, n in enumerate(shape):
@@ -385,15 +403,15 @@ def e_family(E, H, psi, J, fc):
     return new_e, new_psi, new_j
 
 
-def h_family(H, E, psi, fc):
-    """New H (and in-kernel psi_H) in fresh tensors: the CUDA kernel on
-    CUDA tensors, its plain version on CPU tensors."""
+def h_family(H, E, psi, fc, K=None):
+    """New H (and in-kernel psi_H, K) in fresh tensors: the CUDA kernel
+    on CUDA tensors, its plain version on CPU tensors."""
     if not H[fc["comps"][0]].is_cuda:
-        return h_family_plain(H, E, psi, fc)
-    prm, new_h, new_psi, _ = _params(H, E, psi, None, fc)
+        return h_family_plain(H, E, psi, fc, K)
+    prm, new_h, new_psi, new_k = _params(H, E, psi, K, fc)
     launch(_library(), "fdtd_h_family", prm, H[fc["comps"][0]].device)
     h_family.launches += 1
-    return new_h, new_psi
+    return new_h, new_psi, new_k
 
 
 e_family.launches = 0
@@ -698,7 +716,10 @@ def make_pallas_step(static, device, plain: bool = False):
 
         # H family
         psi_h_in = {k: state["psi_H"][k] for k in psi_h_names}
-        new_H, psi_h_out = h_fn(state["H"], new_E, psi_h_in, cc["H"])
+        new_H, psi_h_out, new_K = h_fn(state["H"], new_E, psi_h_in,
+                                       cc["H"], state.get("K"))
+        if new_K is not None:
+            new_state["K"] = new_K
         psi_H = dict(state.get("psi_H", {}), **psi_h_out)
         if x_active:
             px = {k: v for k, v in psi_H.items() if k.endswith("_x")}

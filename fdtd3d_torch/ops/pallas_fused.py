@@ -57,10 +57,15 @@ the unrounded E', and rounds E' and H' to bf16 where it stores them, as
 the reference's fused kernel keeps ``new_e`` for its H update
 (pallas_fused.py:566-603).
 
+Magnetic Drude K (the reference's :341, :360, :405, :444, :597): the H
+half of the pass reads and writes K beside H, ``K' = km K + bm H``
+added to H's accumulator after its records, as the E half does Drude J
+(taken off). The coefficient grids of K's sphere make the H family's
+da/db grids too, so every item reads grids (``packed_tb.material``).
+
 Eligibility (``eligible``): the reference's ``pallas_fused.eligible``
-(:48) and every CPML axis slab-compacted (:317-321). Magnetic Drude K
-(A4(b)) and sharded runs (A11) raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+(:48) and every CPML axis slab-compacted (:317-321). Sharded runs (A11)
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -362,15 +367,16 @@ def _point_adder(fp, drive):
     return add
 
 
-def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive):
+def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive, K=None):
     """The kernel's computation in torch: new E with every term (the
     psi of every slab axis, the record terms before the cb multiply,
     Drude J, the point source ``drive`` after it, walls), then new H
-    from that E (its psi and records). ``terms``: ``record_terms``'
-    vector or None; ``drive``: the point source's add or None. Returns
-    (E', H', psi_E', psi_H', J' or None), fresh tensors. bf16 fields: H
-    is computed from the unrounded float32 E', and both are rounded to
-    bf16 where they are stored, as the kernel keeps E' on chip."""
+    from that E (its psi, records and magnetic Drude K). ``terms``:
+    ``record_terms``' vector or None; ``drive``: the point source's add
+    or None. Returns (E', H', psi_E', psi_H', J' or None, K' or None),
+    fresh tensors. bf16 fields: H is computed from the unrounded float32
+    E', and both are rounded to bf16 where they are stored, as the
+    kernel keeps E' on chip."""
     rec_e = rec_h = point = None
     if terms is not None:
         rec_e = _record_adder(fp, "E", terms)
@@ -379,10 +385,10 @@ def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive):
         point = _point_adder(fp, drive)
     new_e, pe, new_j = pallas3d._family_plain(E, H, psi_e, J, fp["E"],
                                               True, rec_e, point)
-    new_h, ph, _ = pallas3d._family_plain(H, new_e, psi_h, None, fp["H"],
-                                          False, rec_h)
+    new_h, ph, new_k = pallas3d._family_plain(H, new_e, psi_h, K, fp["H"],
+                                              False, rec_h)
     return (pallas3d.stored(new_e, E), pallas3d.stored(new_h, H), pe, ph,
-            new_j)
+            new_j, new_k)
 
 
 class _Rec(ctypes.Structure):
@@ -393,7 +399,8 @@ class _Rec(ctypes.Structure):
 
 class _Params(ctypes.Structure):
     """Mirror of ``struct Params`` in csrc/fused_eh.cu."""
-    _fields_ = [("e", FamOps), ("h", FamOps), ("dr", Drude), ("g", Grid),
+    _fields_ = [("e", FamOps), ("h", FamOps), ("dr", Drude),
+                ("dk", Drude), ("g", Grid),
                 ("terms", ctypes.c_void_p), ("plan", ctypes.c_void_p),
                 ("rec", (_Rec * MAX_REC) * 2), ("n_rec", ctypes.c_int * 2),
                 ("pc", ctypes.c_int), ("pi", ctypes.c_int),
@@ -484,9 +491,10 @@ def _static_params(fp, device, lib) -> _Params:
     return prm
 
 
-def fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, lib=None):
+def fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, K=None,
+                 lib=None):
     """The call's parameter block on CUDA tensors, with fresh outputs:
-    (params, (E', H', psi_E', psi_H', J' or None))."""
+    (params, (E', H', psi_E', psi_H', J' or None, K' or None))."""
     fe = fp["E"]
     device = E[fe["comps"][0]].device
     prm = _Params.from_buffer_copy(_static_params(fp, device, lib))
@@ -496,6 +504,7 @@ def fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, lib=None):
     if any(v.dtype != fd for v in new_h.values()):
         raise ValueError("fused_eh: E and H must share their storage dtype")
     new_j = pallas3d.fill_drude_grid(prm, J, fe, device, fd)
+    new_k = pallas3d.fill_ade(prm.dk, K, fp["H"], device)
     # the items that read no grid take each E grid's background value
     for (key, c), value in _material(fp)[1].items():
         getattr(prm.e, key)[c].val = value
@@ -504,18 +513,19 @@ def fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, lib=None):
                                    device)
     if fp["point"] is not None:
         prm.drive = drive
-    return prm, (new_e, new_h, pe, ph, new_j)
+    return prm, (new_e, new_h, pe, ph, new_j, new_k)
 
 
-def fused_eh(E, H, psi_e, psi_h, J, fp, terms, drive):
-    """New E, H (and psi, J) in fresh tensors: the CUDA kernel (one
+def fused_eh(E, H, psi_e, psi_h, J, fp, terms, drive, K=None):
+    """New E, H (and psi, J, K) in fresh tensors: the CUDA kernel (one
     launch a non-empty section) on CUDA tensors, its plain version on
     CPU tensors."""
     first = E[fp["E"]["comps"][0]]
     if not first.is_cuda:
-        return fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive)
+        return fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive, K)
     lib = _library()
-    prm, outs = fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, lib)
+    prm, outs = fused_params(E, H, psi_e, psi_h, J, fp, terms, drive, K,
+                             lib)
     pallas3d.launch(lib, "fdtd_fused_pass", prm, first.device)
     fused_eh.launches += 1
     fused_eh.kernels += sum(n > 0 for n in prm.n_item)
@@ -556,15 +566,18 @@ def make_fused_eh_step(static, device, plain: bool = False):
             inc = tfsf.advance_einc(state["inc"], coeffs, t, static.dt,
                                     static.omega, setup)
             terms = tfsf.record_terms(fp["plan"], inc)
-        new_E, new_H, pe, ph, new_J = fn(
+        new_E, new_H, pe, ph, new_J, new_K = fn(
             state["E"], state["H"],
             {k: state["psi_E"][k] for k in psi_names["E"]},
             {k: state["psi_H"][k] for k in psi_names["H"]},
-            state.get("J"), fp, terms, point_drive(static, fp, t))
+            state.get("J"), fp, terms, point_drive(static, fp, t),
+            K=state.get("K"))
         if setup is not None:
             new_state["inc"] = tfsf.advance_hinc(inc, coeffs, setup)
         if new_J is not None:
             new_state["J"] = new_J
+        if new_K is not None:
+            new_state["K"] = new_K
         if pe or ph:
             new_state["psi_E"] = dict(state["psi_E"], **pe)
             new_state["psi_H"] = dict(state["psi_H"], **ph)

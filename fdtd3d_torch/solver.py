@@ -54,9 +54,18 @@ state (CPML psi, Drude J, the incident line) and the coefficients stay
 float32. A field is rounded to bf16 (round to nearest even) where it is
 stored; the steps above are the same functions with bf16 fields.
 
+Compensated (Kahan) float32 (``cfg.compensated``, the reference's
+mode): E and H carry bf16 residuals ``rE``/``rH`` of the low-order bits
+their f32 add drops, the material coefficients a double-single low word
+(``*_lo``) and 1/dx a low word too. It runs on the packed step, as the
+reference's; with a coefficient grid, or with magnetic Drude K, the
+reference declines its packed kernel and so does the port: the plain
+step runs.
+
 Scope of this slice: 3D real float32, bfloat16, float32x2 and float64,
-CPML on any axes, TFSF, the point source, electric Drude J, material
-coefficient grids, PEC walls, unsharded. Everything else raises
+CPML on any axes, TFSF, the point source, electric Drude J, magnetic
+Drude K (not with float32x2), compensated float32, material coefficient
+grids, PEC walls, unsharded. Everything else raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -91,7 +100,8 @@ class StaticSetup:
     pml_axes: Tuple[int, ...]        # active axes with a PML slab
     tfsf_setup: Optional[tfsf.TfsfSetup]
     use_drude: bool
-    field_dtype: Any                 # torch dtype of E/H
+    field_dtype: Any                 # torch dtype of E/H (the Kahan
+                                     # residuals rE/rH are bf16 always)
     real_dtype: Any                  # numpy dtype of the coefficients
     use_drude_m: bool = False
     topology: Tuple[int, int, int] = (1, 1, 1)
@@ -143,10 +153,8 @@ def check_scope(cfg: SimConfig) -> None:
         out("complex fields", "A10")
     if cfg.dtype not in ("float32", "bfloat16", "float32x2", "float64"):
         out(f"dtype {cfg.dtype!r}", "A4")
-    if cfg.compensated:
-        out("compensated (Kahan) mode", "A4")
-    if cfg.materials.use_drude_m:
-        out("magnetic Drude (K current)", "A4(b)")
+    if cfg.materials.use_drude_m and cfg.dtype == "float32x2":
+        out("magnetic Drude (K current) with float32x2 fields", "B4(b)")
     if cfg.ntff.enabled:
         out("the near-to-far-field transform", "A8")
     par = cfg.parallel
@@ -205,12 +213,12 @@ def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
         return rd(v) if np.isscalar(v) else v.astype(rd)
 
     def _cast_ds(key, v):
-        """Store coefficient ``key``; with float32x2 fields also its
-        double-single low word ``key_lo`` = f32(v64 - f32(v64)): an f32
-        ca/cb/da/db alone perturbs the discrete system by ~eps32, a
-        drift from f64 that grows linearly in t."""
+        """Store coefficient ``key``; in compensated and float32x2 modes
+        also its double-single low word ``key_lo`` = f32(v64 - f32(v64)):
+        an f32 ca/cb/da/db alone perturbs the discrete system by ~eps32,
+        a drift from f64 that grows linearly in t."""
         out[key] = _cast(v)
-        if cfg.ds_fields:
+        if cfg.compensated or cfg.ds_fields:
             v64 = np.asarray(v, np.float64)
             out[f"{key}_lo"] = _cast(v64 - np.asarray(out[key],
                                                       np.float64))
@@ -234,6 +242,15 @@ def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
     for c in mode.h_components:
         mu = materials.scalar_or_grid(c, shape, mode.active_axes, mat.mu,
                                       mat.mu_sphere, mat.mu_file)
+        if static.use_drude_m:
+            # magnetic Drude (metamaterial) K: the dual of J
+            wpm, gm, _ = materials.drude_params(c, shape, mode.active_axes,
+                                                mat, magnetic=True)
+            mu = materials.merge_drude_eps(mu, wpm, mat.mu_inf)
+            out[f"km_{c}"] = _cast((1.0 - gm * dt / 2.0)
+                                   / (1.0 + gm * dt / 2.0))
+            out[f"bm_{c}"] = _cast(physics.MU0 * np.square(wpm) * dt
+                                   / (1.0 + gm * dt / 2.0))
         sm = mat.sigma_m * dt / (2.0 * physics.MU0 * np.asarray(mu))
         _cast_ds(f"da_{c}", (1.0 - sm) / (1.0 + sm))
         _cast_ds(f"db_{c}", dt / (physics.MU0 * np.asarray(mu))
@@ -274,6 +291,22 @@ def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
     return out
 
 
+def has_coeff_grids(static: StaticSetup) -> bool:
+    """Whether ``build_coeffs`` makes any material coefficient a 3D grid
+    (ca/cb/kj/bj, da/db/km/bm), decided from the configuration alone: a
+    material file or an enabled sphere of eps or mu, or a Drude sphere
+    of J or K (the plasma confined to it makes its coefficients and the
+    merged eps or mu grids)."""
+    mat = static.cfg.materials
+
+    def sphere(sp):
+        return sp is not None and sp.enabled and sp.radius > 0
+    return bool(mat.eps_file or mat.mu_file or sphere(mat.eps_sphere)
+                or sphere(mat.mu_sphere)
+                or (static.use_drude and sphere(mat.drude_sphere))
+                or (static.use_drude_m and sphere(mat.drude_m_sphere)))
+
+
 def coeffs_to_device(np_coeffs: Dict[str, Any],
                      device) -> Dict[str, Any]:
     """Arrays become tensors on ``device``; scalars stay host floats
@@ -289,8 +322,10 @@ def coeffs_to_device(np_coeffs: Dict[str, Any],
 
 def init_state(static: StaticSetup, device) -> Dict[str, Any]:
     """Zero dict-form state on ``device`` (the reference's layout): E
-    and H in the field dtype, psi, J and the incident line in the
-    recursion state's (``aux_dtype``)."""
+    and H in the field dtype, psi, J, K and the incident line in the
+    recursion state's (``aux_dtype``), the Kahan residuals ``rE``/``rH``
+    of compensated mode in bf16 (the reference's choice: ~8 of the bits
+    the f32 add drops, at a quarter of an f32 residual's traffic)."""
     shape, fd = static.grid_shape, static.field_dtype
     mode = static.mode
     slabs = slab_axes(static)
@@ -329,6 +364,13 @@ def init_state(static: StaticSetup, device) -> Dict[str, Any]:
             state["lopsi_H"] = {k: zeros(v.shape) for k, v in psi_h.items()}
     if static.use_drude:
         state["J"] = {c: zeros() for c in mode.e_components}
+    if static.use_drude_m:
+        state["K"] = {c: zeros() for c in mode.h_components}
+    if static.cfg.compensated:
+        state["rE"] = {c: zeros(dtype=torch.bfloat16)
+                       for c in mode.e_components}
+        state["rH"] = {c: zeros(dtype=torch.bfloat16)
+                       for c in mode.h_components}
     if ds_fields:
         # double-single low words: E/H carried as hi+lo f32 pairs
         state["loE"] = {c: zeros() for c in mode.e_components}
@@ -391,19 +433,66 @@ def _slab_fix(a, s, dfa, psi, prof, m):
     return psi, _pad_slab(dl, dh, a, dfa.shape[a], m)
 
 
+def inv_dx_pair(dx: float) -> Tuple[float, float]:
+    """1/dx as a double-single pair of f32 values (hi, lo), as host
+    floats: compensated mode scales every difference by both
+    (``d0 * hi + d0 * lo``), since the f32 rounding of 1/dx alone
+    perturbs the discrete system as an f32 ca/cb would."""
+    inv = 1.0 / dx
+    hi = np.float32(inv)
+    return float(hi), float(np.float32(inv - np.float64(hi)))
+
+
+def minus_one(v):
+    """``v - 1`` of an f32 coefficient, rounded to f32 as the reference
+    computes it on its f32 value (a host float stays a host float)."""
+    if isinstance(v, torch.Tensor):
+        return v - 1.0
+    return float(np.float32(v) - np.float32(1.0))
+
+
+def kahan_update(old, acc, a, b, a_lo, b_lo, r_old, backward: bool):
+    """One compensated (Kahan) update: new = old + u with ``u = (a - 1)
+    old + b acc + (a_lo old + b_lo acc)`` (E, ``backward``: ca, cb; H:
+    da, db and ``-`` before each b term), fed back the stored residual
+    ``r_old`` (bf16) of the previous add. Returns (new value, new
+    residual in f32), before the walls: the reference's
+    solver.py:855-881 and :909-920, operation for operation, as the
+    plain step and the packed kernel's plain version compute it."""
+    if backward:
+        u = minus_one(a) * old + b * acc + (a_lo * old + b_lo * acc)
+    else:
+        u = minus_one(a) * old - b * acc + (a_lo * old - b_lo * acc)
+    y = u - r_old.to(u.dtype)
+    new = old + y
+    return new, (new - old) - y
+
+
 def make_plain_step(static: StaticSetup):
     """The reference's jnp leapfrog step (solver.py, f32, bf16 and f64
-    branches) in torch, on dict-form state. Returns a new state dict.
+    branches, compensated mode and magnetic Drude K included) in torch,
+    on dict-form state. Returns a new state dict.
 
     bf16 storage: every field operand is widened to float32 before it
     meets an operation (torch keeps ``float * bf16`` and ``bf16 - bf16``
     in bf16), and E and H are rounded to bf16 where they are stored, so
-    the H update reads the stored E, as in the reference."""
+    the H update reads the stored E, as in the reference.
+
+    Compensated mode, in the reference's order of operations (torch
+    reassociates no more than XLA does): every difference scaled by the
+    double-single 1/dx (``d0 * iv_hi + d0 * iv_lo``); the update
+    ``u = (a - 1) old +- b acc + (a_lo old +- b_lo acc)``,
+    ``y = u - r``, ``new = old + y`` and the new residual
+    ``(new - old) - y``, stored in bf16; the PEC walls zero the residual
+    with the field. K (magnetic Drude): ``K' = km K + bm H`` enters H's
+    accumulator with the sign opposite to J's on E (``acc + K'``)."""
     mode, cfg = static.mode, static.cfg
     cdt = static.compute_dtype
     diff_b, diff_f = make_diff_ops()
     rd = static.real_dtype
     inv_dx = float(rd(1.0 / static.dx))
+    compensated = cfg.compensated
+    iv_hi, iv_lo = inv_dx_pair(static.dx)
     setup = static.tfsf_setup
     ps = cfg.point_source
     slabs = slab_axes(static)
@@ -423,7 +512,11 @@ def make_plain_step(static: StaticSetup):
                 d = ("H" if field == "E" else "E") + AXES[d_axis]
                 if d not in src:
                     continue
-                dfa = diff(src[d], a) * inv_dx
+                if compensated:
+                    d0 = diff(src[d], a)
+                    dfa = d0 * iv_hi + d0 * iv_lo
+                else:
+                    dfa = diff(src[d], a) * inv_dx
                 if a in slabs:
                     key = f"{c}_{AXES[a]}"
                     prof = tuple(coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"]
@@ -470,7 +563,7 @@ def make_plain_step(static: StaticSetup):
             state = dict(state, inc=new_state["inc"])
 
         # 2. E family
-        new_E, new_J = {}, {}
+        new_E, new_J, new_rE = {}, {}, {}
         acc_e = _half_update("E", state, coeffs, new_psi)
         for c in mode.e_components:
             acc = acc_e[c]
@@ -487,13 +580,26 @@ def make_plain_step(static: StaticSetup):
                               static.dt, static.real_dtype)
                 amp = float(rd(coeffs["ps_amp"]) * wf)
                 acc = acc + amp * mask.to(acc.dtype)
-            e = coeffs[f"ca_{c}"] * old + coeffs[f"cb_{c}"] * acc
+            if compensated:
+                e, r = kahan_update(
+                    old, acc, coeffs[f"ca_{c}"], coeffs[f"cb_{c}"],
+                    coeffs[f"ca_{c}_lo"], coeffs[f"cb_{c}_lo"],
+                    state["rE"][c], True)
+            else:
+                e = coeffs[f"ca_{c}"] * old + coeffs[f"cb_{c}"] * acc
             # PEC walls: zero tangential E on transverse-axis walls.
             for a in mode.active_axes:
                 if a != component_axis(c):
-                    e = e * _bcast1d(coeffs[f"wall_{AXES[a]}"], a)
+                    w = _bcast1d(coeffs[f"wall_{AXES[a]}"], a)
+                    e = e * w
+                    if compensated:
+                        r = r * w
             new_E[c] = e.to(static.field_dtype)
+            if compensated:
+                new_rE[c] = r.to(torch.bfloat16)
         new_state["E"] = new_E
+        if compensated:
+            new_state["rE"] = new_rE
         if static.use_drude:
             new_state["J"] = new_J
         state = dict(state, E=new_E)
@@ -504,14 +610,31 @@ def make_plain_step(static: StaticSetup):
                                                  setup)
             state = dict(state, inc=new_state["inc"])
 
-        # 4. H family
-        new_H = {}
+        # 4. H family (the dual of 2: mu0 mu dH/dt = -curl E - K)
+        new_H, new_K, new_rH = {}, {}, {}
         acc_h = _half_update("H", state, coeffs, new_psi)
         for c in mode.h_components:
-            h = coeffs[f"da_{c}"] * state["H"][c].to(cdt) \
-                - coeffs[f"db_{c}"] * acc_h[c]
+            acc = acc_h[c]
+            old = state["H"][c].to(cdt)
+            if static.use_drude_m:
+                k_new = coeffs[f"km_{c}"] * state["K"][c] \
+                    + coeffs[f"bm_{c}"] * old
+                new_K[c] = k_new
+                acc = acc + k_new
+            if compensated:
+                h, r = kahan_update(
+                    old, acc, coeffs[f"da_{c}"], coeffs[f"db_{c}"],
+                    coeffs[f"da_{c}_lo"], coeffs[f"db_{c}_lo"],
+                    state["rH"][c], False)
+                new_rH[c] = r.to(torch.bfloat16)
+            else:
+                h = coeffs[f"da_{c}"] * old - coeffs[f"db_{c}"] * acc
             new_H[c] = h.to(static.field_dtype)
         new_state["H"] = new_H
+        if compensated:
+            new_state["rH"] = new_rH
+        if static.use_drude_m:
+            new_state["K"] = new_K
 
         if new_psi["psi_E"]:
             new_state["psi_E"] = new_psi["psi_E"]
@@ -761,20 +884,21 @@ def batch_fallback_reason(static: StaticSetup, device, lane_coeffs=None,
     count."""
     import os
 
-    from fdtd3d_torch.ops import packed
+    from fdtd3d_torch.ops import packed, pallas3d
     cfg = static.cfg
     flag = cfg.use_pallas
     want = torch.device(device).type == "cuda" if flag is None else flag
-    if not want or static.mode.name != "3D" \
-            or cfg.dtype not in LANE_DTYPES:
+    # the reference's _want_pallas: some kernel covers the configuration
+    # (compensated + K: neither the two-pass nor the packed kernel)
+    if not want or cfg.dtype not in LANE_DTYPES \
+            or not (pallas3d.eligible(static) or packed.eligible(static)):
         return "pallas_disabled"
     if os.environ.get("FDTD3D_NO_PACKED"):
         return "env:FDTD3D_NO_PACKED"
     if os.environ.get("FDTD3D_FORCE_FUSED"):
         return "env:FDTD3D_FORCE_FUSED"
     if tuple(static.topology) != (1, 1, 1) \
-            or set(static.pml_axes) != set(slab_axes(static)) \
-            or (static.use_drude_m and cfg.compensated):
+            or set(static.pml_axes) != set(slab_axes(static)):
         return "kernel_ineligible"
     for key in packed.baked_coeff_keys(static) if lane_coeffs else ():
         vals = [lc[key] for lc in lane_coeffs]
@@ -842,10 +966,17 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
                 f"make_step(batch>0): {reason} leaves no lane-capable "
                 f"kernel; gate batched builds with "
                 f"solver.batch_fallback_reason")
+        from fdtd3d_torch.ops import packed as packed_mod
+        if packed_mod.declines(static):
+            # the reference's batch authority admits such lanes and its
+            # batched build then raises the same way (solver.py:717)
+            raise RuntimeError(
+                "make_step(batch>0): no lane-capable packed kind engaged "
+                "(the packed kernel declines compensated mode with "
+                "coefficient grids or magnetic Drude K)")
         if reason is None:
             from fdtd3d_torch.ops import packed_tb
             return packed_tb.make_packed_tb_step(static, device, batch=batch)
-        from fdtd3d_torch.ops import packed as packed_mod
         return _stamp_tb_fallback(
             packed_mod.make_packed_step(static, device, batch=batch), reason)
     flag = static.cfg.use_pallas
@@ -873,7 +1004,10 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
         step = _ladder_step(static, device)
     elif packed:
         from fdtd3d_torch.ops import packed as packed_mod
-        step = packed_mod.make_packed_step(static, device)
+        # where the reference's packed kernel declines, its dispatch runs
+        # its jnp step
+        step = make_plain_step(static) if packed_mod.declines(static) \
+            else packed_mod.make_packed_step(static, device)
     else:
         step = make_plain_step(static)
     return _stamp_tb_fallback(step, reason)

@@ -61,15 +61,15 @@ def test_flag_combinations_equal_reference(argv):
 
 @pytest.mark.parametrize("name,item", [
     ("vacuum1D_ezhy.txt", "A4"), ("vacuum2D_tmz.txt", "A4"),
-    ("precision3D_compensated.txt", "A4"),
+    ("precision3D_compensated.txt", "A11"),
     ("precision3D_float32x2.txt", "A9"),
     ("metamaterial1D_dng.txt", "A4")])
 def test_out_of_scope_examples_name_their_roadmap_item(name, item):
     cfg = _cfg(tcli, tcli.read_cmd_file(os.path.join(ROOT, "Examples",
                                                      name)))
-    if cfg.dtype == "float32x2":
-        # the unsharded float32x2 step is ported; what stays out of
-        # scope of A9 is its sharded step
+    if cfg.dtype == "float32x2" or cfg.compensated:
+        # the unsharded float32x2 and compensated steps are ported; what
+        # stays out of scope (A9, A11) is their sharded step
         cfg = dataclasses.replace(cfg, parallel=ParallelConfig(
             topology="manual", manual_topology=(2, 1, 1)))
     with pytest.raises(NotImplementedError, match=item):
@@ -78,7 +78,8 @@ def test_out_of_scope_examples_name_their_roadmap_item(name, item):
 
 @pytest.mark.parametrize("name", ["vacuum3D_tfsf.txt", "sphere3D_mie.txt",
                                   "drude3D_nanoantenna.txt",
-                                  "precision3D_float32x2.txt"])
+                                  "precision3D_float32x2.txt",
+                                  "precision3D_compensated.txt"])
 def test_in_scope_examples_pass_the_scope_check(name):
     cfg = _cfg(tcli, tcli.read_cmd_file(os.path.join(ROOT, "Examples",
                                                      name)))

@@ -14,8 +14,9 @@ not its owner's copy), and the owned cells' E, H, psi (of every slab
 axis, x included) and J stored. Cells nobody stores stay NaN.
 
 * The emulation equals ``fused_eh_plain`` (E with every term, then H
-  from that E) exactly, on the ladder's four cases, a point source, and
-  a Drude sphere with a grid box and no CPML on x, with the y and z
+  from that E) exactly, on the ladder's four cases, a point source, a
+  Drude sphere with a grid box and no CPML on x, and a magnetic Drude K
+  sphere (K read and written by the H half), with the y and z
   axes cut whole and band by band, at tiles and segments small enough
   to give every axis several items; in float32 and with bf16 storage
   (each block computes in float32 from the widened fields, H from its
@@ -33,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_ladder import LADDER_CASES, assert_family_close, case_config
-from torch_parity import CASES, BASE, np_state, seed_reference, to_port
+from torch_parity import (BASE, CASES, MODE_CASES, np_state, seed_reference,
+                          to_port)
 
 from fdtd3d_torch import convert
 from fdtd3d_torch.ops import packed_tb, pallas3d, pallas_fused, tfsf
@@ -74,10 +76,10 @@ def _full_psi(psi, key, shape, m):
     return full.index_copy(a, _slab_rows(shape[a], m), psi)
 
 
-def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, tile=TILE,
+def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, K=None, tile=TILE,
             segments=SEGMENTS, bands=False):
     """The pass as the kernel schedules it (see the module docstring):
-    (E', H', psi_E', psi_H', J' or None)."""
+    (E', H', psi_E', psi_H', J' or None, K' or None)."""
     shape = fp["shape"]
     m, recs, point = packed_tb.plan_geometry(fp)
     grids, background = packed_tb.material(fp)
@@ -88,6 +90,7 @@ def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, tile=TILE,
     out_e = {c: nan() for c in E}
     out_h = {c: nan() for c in H}
     out_j = None if J is None else {c: nan() for c in J}
+    out_k = None if K is None else {c: nan() for c in K}
     out_pe = {k: nan() for k in psi_e}
     out_ph = {k: nan() for k in psi_h}
     bounds = np.cumsum((0,) + tuple(counts))
@@ -119,10 +122,11 @@ def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, tile=TILE,
             local[c][box] = new_e[c][box]
         rec_h = pallas_fused._record_adder(fp, "H", terms) \
             if src and terms is not None else None
-        new_h, ph, _ = pallas3d._family_plain(
+        new_h, ph, new_k = pallas3d._family_plain(
             H, local, {k: psi_h[k] for v in fh["psi"].values()
-                       for _, k in v}, None, fh, False, rec_h)
-        for outs, new in ((out_e, new_e), (out_h, new_h), (out_j, new_j)):
+                       for _, k in v}, K, fh, False, rec_h)
+        for outs, new in ((out_e, new_e), (out_h, new_h), (out_j, new_j),
+                          (out_k, new_k)):
             for c in outs or ():
                 outs[c][own] = new[c][own]
         for outs, new in ((out_pe, pe), (out_ph, ph)):
@@ -136,11 +140,12 @@ def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, tile=TILE,
                 a, _slab_rows(shape[a], fp["E"]["m"][a]))
     # the stores: the fields in their storage dtype
     return (pallas3d.stored(out_e, E), pallas3d.stored(out_h, H), out_pe,
-            out_ph, out_j)
+            out_ph, out_j, out_k)
 
 
 EMU_CASES = dict(LADDER_CASES, point_source=CASES["point_source"],
-                 drude_sphere=CASES["drude_sphere"])
+                 drude_sphere=CASES["drude_sphere"],
+                 k_sphere=MODE_CASES["k_sphere"])
 
 
 def seeded(case, seed=5, dtype="float32"):
@@ -152,7 +157,7 @@ def seeded(case, seed=5, dtype="float32"):
     coeffs = coeffs_to_device(build_coeffs(static), "cpu")
     state = init_state(static, "cpu")
     rng = np.random.RandomState(seed)
-    for grp in ("E", "H", "J", "psi_E", "psi_H", "inc"):
+    for grp in ("E", "H", "J", "K", "psi_E", "psi_H", "inc"):
         for v in state.get(grp, {}).values():
             v.copy_(torch.from_numpy(0.01 * rng.standard_normal(
                 v.shape).astype(np.float32)))
@@ -175,10 +180,11 @@ def test_emulated_schedule_equals_the_plain_pass(case, bands, dtype):
         for fam in ("E", "H")}
     args = (st["E"], st["H"], {k: st["psi_E"][k] for k in names["E"]},
             {k: st["psi_H"][k] for k in names["H"]}, st.get("J"), fp, terms,
-            drive)
+            drive, st.get("K"))
     want = pallas_fused.fused_eh_plain(*args)
     got = emulate(*args, bands=bands)
-    for w, g, what in zip(want, got, ("E", "H", "psi_E", "psi_H", "J")):
+    for w, g, what in zip(want, got, ("E", "H", "psi_E", "psi_H", "J",
+                                      "K")):
         if w is None:
             assert g is None
             continue

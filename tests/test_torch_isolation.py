@@ -2,8 +2,9 @@
 
 * importing fdtd3d_torch and stepping 3D runs on the CPU (f32 and bf16
   plain and temporal-blocked with a packed tail step, the fused and
-  two-pass ladder steps, float32x2 plain and packed-ds, float64, and a
-  2-lane batch through fdtd3d_torch.batch) pulls in neither jax, nor
+  two-pass ladder steps, float32x2 plain and packed-ds, float64,
+  compensated plain and packed, magnetic Drude K packed in f32 and bf16,
+  and a 2-lane batch through fdtd3d_torch.batch) pulls in neither jax, nor
   fdtd3d_tpu, nor ml_dtypes (checked in a subprocess: this test process
   imports jax through tests/conftest.py);
 * no CUDA device and no explicit ``cpu`` raises;
@@ -69,6 +70,20 @@ for names, kind in ((("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"),
     assert sim.step_kind == kind and sim.t == 3, sim.step_kind
     for k in names:
         del os.environ[k]
+from fdtd3d_torch.config import MaterialsConfig, SphereConfig
+K = MaterialsConfig(use_drude_m=True, mu_inf=1.5, omega_pm=1e11,
+                    gamma_m=1e10, drude_m_sphere=SphereConfig(
+                        enabled=True, center=(8, 8, 8), radius=3))
+for kw, kind in ((dict(compensated=True, use_pallas=False), "plain"),
+                 (dict(compensated=True, use_pallas=True), "packed_plain"),
+                 (dict(materials=K, use_pallas=True), "packed_plain"),
+                 (dict(materials=K, use_pallas=True, dtype="bfloat16"),
+                  "packed_plain")):
+    cfg = SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
+                    pml=PmlConfig(size=(3, 3, 3)), **kw)
+    sim = Simulation(cfg, device="cpu").run()
+    assert sim.step_kind == kind and sim.t == 3, sim.step_kind
+import fdtd3d_torch.exact
 import fdtd3d_torch.ops.packed_tb
 import fdtd3d_torch.ops.pallas3d
 import fdtd3d_torch.ops.pallas_fused
@@ -109,15 +124,19 @@ def test_no_cuda_and_no_explicit_cpu_raises(monkeypatch):
         cli.main(["--3d", "--same-size", "16"])
 
 
+_K = MaterialsConfig(use_drude_m=True, mu_inf=1.5, omega_pm=1e11,
+                     gamma_m=1e10, drude_m_sphere=SphereConfig(
+                         enabled=True, center=(8, 8, 8), radius=3))
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(scheme="2D_TMz", size=(16, 16, 1)), "A4"),
-    (dict(dtype="bfloat16", materials=MaterialsConfig(
-        use_drude_m=True, mu_inf=1.5, omega_pm=1e11, gamma_m=1e10,
-        drude_m_sphere=SphereConfig(enabled=True, center=(8, 8, 8),
-                                    radius=3))), "A4"),
+    (dict(dtype="float32x2", materials=_K), r"B4\(b\)"),
     (dict(dtype="float32x2", parallel=ParallelConfig(
         topology="manual", manual_topology=(2, 1, 1))), "A9"),
-    (dict(complex_fields=True), "A10"), (dict(compensated=True), "A4"),
+    (dict(complex_fields=True), "A10"),
+    (dict(compensated=True, parallel=ParallelConfig(
+        topology="manual", manual_topology=(2, 1, 1))), "A11"),
 ])
 def test_out_of_scope_config_raises(kw, item):
     cfg = dict(SMALL, **kw)

@@ -20,9 +20,11 @@ x slab, TFSF and the point source onto each kernel's output.
   family's max on E, H, psi, J and each incident line.
 * The dispatch (ROADMAP C1): the kinds and ``tb_fallback`` tokens under
   the ladder's variables against the reference's.
-* Magnetic Drude K (with f32 or bf16 storage) and sharded runs raise,
-  naming their ROADMAP.md item; the steps do not mutate the state they
-  are given.
+* The dispatch also for magnetic Drude K (f32 and bf16) and compensated
+  mode (with a point source; with coefficient grids, where the
+  reference declines its kernels and runs its jnp step).
+* Sharded runs and float32x2 with K raise, naming their ROADMAP.md item;
+  the steps do not mutate the state they are given.
 """
 
 import dataclasses
@@ -125,26 +127,40 @@ def _port_ladder_kind(cfg) -> str:
         else "pallas3d_plain"
 
 
+# (case, dtype) of the dispatch check: the kitchen sink and the
+# compensated and K configurations, bf16 where the mode admits it
+# (compensated runs are float32 only)
+DISPATCH_CASES = [(case, dtype) for case in
+                  ("kitchen_sink", "k_sphere", "compensated_point",
+                   "compensated_grid")
+                  for dtype in ("float32", "bfloat16")
+                  if dtype == "float32" or not case.startswith("compensated")]
+
+
+@pytest.mark.parametrize("case,dtype", DISPATCH_CASES)
 @pytest.mark.parametrize("names", [
     ("FDTD3D_NO_PACKED",), ("FDTD3D_FORCE_FUSED",),
     ("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"),
     ("FDTD3D_FORCE_FUSED", "FDTD3D_NO_FUSED"), ("FDTD3D_NO_FUSED",),
     ("FDTD3D_NO_TEMPORAL", "FDTD3D_NO_PACKED"),
 ])
-def test_dispatch_matches_reference(names, monkeypatch):
-    """The kitchen sink with the kernels wanted: the port's kind follows
-    the reference's rung, and ``tb_fallback`` carries the reference's
-    token (ROADMAP C1)."""
+def test_dispatch_matches_reference(names, case, dtype, monkeypatch):
+    """Each configuration with the kernels wanted: the port's kind
+    follows the reference's rung (its jnp step: the port's plain step),
+    and ``tb_fallback`` carries the reference's token (ROADMAP C1)."""
     for k in names:
         monkeypatch.setenv(k, "1")
-    cfg = ref_config("kitchen_sink", use_pallas=True)
+    cfg = ref_config(case, use_pallas=True, dtype=dtype)
     ref = RSim(cfg)
     port = TSim(to_port(cfg), device="cpu")
     kinds = {"pallas_packed_tb": "packed_tb_plain",
-             "pallas_fused": "fused_plain", "pallas": "pallas3d_plain"}
+             "pallas_packed": "packed_plain",
+             "pallas_fused": "fused_plain", "pallas": "pallas3d_plain",
+             "jnp": "plain"}
     want = kinds[ref.step_kind]
-    if names == ("FDTD3D_NO_PACKED",) \
-            or names == ("FDTD3D_NO_TEMPORAL", "FDTD3D_NO_PACKED"):
+    if names in (("FDTD3D_NO_PACKED",),
+                 ("FDTD3D_NO_TEMPORAL", "FDTD3D_NO_PACKED")) \
+            and ref.step_kind in ("pallas_fused", "pallas"):
         want = _port_ladder_kind(cfg)     # the port's own rule
     assert port.step_kind == want
     if ref.step_kind == "pallas_packed_tb":
@@ -184,8 +200,9 @@ _K = MaterialsConfig(use_drude_m=True, mu_inf=1.5, omega_pm=1e11,
 @pytest.mark.parametrize("names", [("FDTD3D_NO_PACKED",),
                                    ("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED")])
 @pytest.mark.parametrize("kw,item", [
-    (dict(materials=_K), r"A4\(b\)"),
-    (dict(dtype="bfloat16", materials=_K), r"A4\(b\)"),
+    (dict(dtype="float32x2", materials=_K), r"B4\(b\)"),
+    (dict(dtype="bfloat16", materials=_K, parallel=ParallelConfig(
+        topology="manual", manual_topology=(1, 2, 1))), "A11"),
     (dict(parallel=ParallelConfig(topology="manual",
                                   manual_topology=(2, 1, 1))), "A11"),
 ])
@@ -199,14 +216,15 @@ def test_out_of_scope_configs_raise_naming_their_item(kw, item, names,
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(use_drude_m=True), r"A4\(b\)"),
-    (dict(dtype="bfloat16", use_drude_m=True), r"A4\(b\)"),
+    (dict(use_drude_m=True, topology=(1, 2, 1)), "A11"),
+    (dict(dtype="bfloat16", use_drude_m=True, topology=(1, 1, 2)), "A11"),
     (dict(topology=(2, 1, 1)), "A11"),
 ])
 def test_builders_raise_naming_their_item(change, item):
     """The kernels' own builders refuse what the reference's kernels
-    cover and these twins do not, whoever calls them (bf16 storage is in
-    their scope, magnetic Drude is not); a sharded static is not
+    cover and these twins do not, whoever calls them: a sharded static
+    (with f32 or bf16 storage, with magnetic Drude K or without, which
+    are in their scope) raises in the two-pass builder and is not
     fused-eligible, as in the reference."""
     static = build_static(to_port(ref_config("xyz_cpml")))
     change = dict(change)

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import CASES, ref_config, to_port
+from torch_parity import CASES, MODE_CASES, ref_config, to_port
 
 from fdtd3d_torch import convert
 from fdtd3d_torch import solver as tsolver
@@ -26,7 +26,7 @@ def _statics(case):
     return rsolver.build_static(cfg), tsolver.build_static(to_port(cfg))
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(MODE_CASES))
 def test_build_coeffs_equal_reference(case):
     rs, ts = _statics(case)
     want = rsolver.build_coeffs(rs)

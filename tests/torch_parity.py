@@ -66,8 +66,28 @@ CASES = {
 }
 
 
+# Compensated (Kahan) float32 and magnetic Drude K: the configurations
+# whose dispatch differs (tests/test_torch_compensated.py and
+# tests/test_torch_drude_m.py hold their numbers): compensated with a
+# point source (the packed step), compensated with coefficient grids
+# (the reference declines its packed kernel: the plain step), and a K
+# sphere (tests/test_pallas_packed.py:277's materials) with CPML and
+# TFSF. Compensated runs are float32 only.
+K_SPHERE = MaterialsConfig(
+    use_drude_m=True, mu_inf=1.5, omega_pm=1e11, gamma_m=1e10,
+    drude_m_sphere=SphereConfig(enabled=True, center=(8, 8, 8), radius=3))
+MODE_CASES = {
+    "compensated_point": dict(CASES["point_source"], compensated=True),
+    "compensated_grid": dict(CASES["kitchen_sink"], compensated=True),
+    "k_sphere": dict(pml=PmlConfig(size=(3, 3, 3)),
+                     tfsf=TfsfConfig(enabled=True, margin=(2, 2, 2)),
+                     materials=K_SPHERE),
+}
+
+
 def ref_config(case: str, **kw) -> SimConfig:
-    return SimConfig(**BASE, **CASES[case], **kw)
+    kw = dict(CASES[case] if case in CASES else MODE_CASES[case], **kw)
+    return SimConfig(**BASE, **kw)
 
 
 def to_port(obj):
