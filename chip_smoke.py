@@ -208,15 +208,29 @@ kernels):
    ``FDTD3D_NO_PACKED`` + ``FDTD3D_NO_FUSED``, the launches' times
    beside their bounds; and 3 K lanes at 128^3 (per-lane omega_pm): the
    lane-capable packed step against its plain version and each lane
-   against the same kernels run solo, bit for bit.
+   against the same kernels run solo, bit for bit, the lane-capable
+   launches' times beside their bound (B times a solo launch's bytes),
+   and the lanes through ``run_batch`` for 8 steps;
+25. (C6) 3 compensated lanes at 128^3 (the compensated example's point
+   source and CPML, scalar coefficients shared by every lane, every
+   carry leaf of each lane, the residuals included, seeded from its own
+   seed): one lane-capable compensated e_update + h_update launch and
+   one packed step against their plain versions, and each lane against
+   the same kernels run solo, all bit for bit; the launches' times
+   beside their bound, and the lanes through ``run_batch`` for 8 steps.
 
-Phases 1, 4, 7, 11, 13, 14, 16-18, 20-24's checks and the checks of 9
+The packed kernels' bound counts each coefficient grid inside the box
+outside which it holds its background value (``packed.material``):
+the kernel reads grids there only. Phase 3 prints the packed kernels'
+registers, spills and blocks an SM.
+
+Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 (kernel against plain version, lane against solo) launch the kernels
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
-``Simulation`` runs of 20-24) resets the counts just before it and
-reads them just after. The last lines
-are the kernels JSON, the card's name and power limit, and
+``Simulation`` runs of 20-24 and the ``run_batch`` runs of 24-25)
+resets the counts just before it and reads them just after. The last
+lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -527,10 +541,28 @@ def timed(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def family_bytes(carry, cc, family):
+def grid_cells(fc, whole=False):
+    """Cells of each coefficient grid of a packed family that a launch
+    must read: the box outside which every grid holds its background
+    (``packed.material``: the items outside it read none), or with
+    ``whole`` (or "all") the whole grid."""
+    from fdtd3d_torch.ops import packed
+    grids, _ = packed.material(fc)
+    if whole or grids == "all":
+        return None
+    n = 1
+    for lo, hi in grids or ():
+        n *= hi - lo + 1
+    return n if grids else 0
+
+
+def family_bytes(carry, cc, family, whole_grids=False):
     """Bytes one family update must move: each input read once, each
-    output written once (fields, psi, J, coefficient grids, profiles);
-    all lanes of a lane-stacked carry. E and H at their storage width."""
+    output written once (fields, psi, J, profiles, and the coefficient
+    grids inside their box: ``grid_cells``; ``whole_grids``: the whole
+    grids, the count before the kernel read grids inside their box
+    only); all lanes of a lane-stacked carry. E and H at their storage
+    width."""
     import torch
     cells = carry["E"].numel() // 3
     vol = cells * 4
@@ -545,12 +577,27 @@ def family_bytes(carry, cc, family):
     if res is not None:
         n += 2 * res.numel() * 2                 # bf16 residuals, r + w
     fc = cc[family]
+    box = grid_cells(fc, whole_grids)
+    one = fc["shape"][0] * fc["shape"][1] * fc["shape"][2]
     for key in ("a", "b", "kj", "bj"):
         for v in fc[key] or []:
             if isinstance(v, torch.Tensor):
-                n += v.numel() * 4
+                n += (v.numel() if box is None
+                      else box * (v.numel() // one)) * 4
     n += sum(v.numel() * 4 for v in fc["prof"].values())
     return n
+
+
+def packed_report(label):
+    """One line on the packed kernels: registers, local (spill) bytes and
+    resident blocks an SM of each build (the CUDA runtime's)."""
+    from fdtd3d_torch.ops import packed
+    rec = {"label": label, "kernels": {
+        k: [v["registers"], v["local_bytes"], v["blocks_per_sm"]]
+        for k, v in packed.occupancy().items()}}
+    say("packed kernels (registers, local bytes, blocks an SM): "
+        + json.dumps(rec))
+    return rec
 
 
 def family_flops(carry, family):
@@ -2235,6 +2282,10 @@ def dng_mie(dev, dtype, steps, reps, plain_reps, size=512):
         out[f"{key}_bytes"] = nbytes
         out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = bound(
             nbytes, family_flops(carry, fam))
+        whole = family_bytes(carry, cc, fam, whole_grids=True)
+        out[f"{key}_bytes_whole_grids"] = whole
+        out[f"{key}_bound_whole_grids_ms"] = bound(
+            whole, family_flops(carry, fam))[0]
     say(f"{label}: " + json.dumps(out))
     del sim, carry, cc
     torch.cuda.empty_cache()
@@ -2368,7 +2419,151 @@ def drude_m_lanes(dev, size=128):
     say(f"K lanes: the lane-capable packed step matches its plain version "
         f"({err:.3e}); every lane equals the same kernels run solo, bit "
         f"for bit")
-    return {"lanes": B, "max_abs_err": err}
+    out = {"lanes": B, "max_abs_err": err}
+    out.update(lane_update_times(bsim, pcc, 20, 2))
+    out["main_path"] = lane_main_path(cfgs, "K lanes", 8, dev)
+    say("K lanes: " + json.dumps(out))
+    del bsim, carry
+    torch.cuda.empty_cache()
+    return out
+
+
+def lane_update_times(bsim, pcc, reps, plain_reps):
+    """CUDA-event times of one lane-capable e_update and h_update launch
+    on ``bsim``'s carry (every lane), their plain versions and their
+    bound: all lanes' bytes (B times a solo launch's), operations at the
+    non-FMA rate for the compensated build."""
+    from fdtd3d_torch.ops import packed
+    carry = bsim._carry
+    comp = "rE" in carry
+    out = {}
+    for fam, fn, plain, args in (
+            ("E", packed.e_update, packed.e_update_plain,
+             (carry["E"], carry["H"], carry.get("J"), carry["psE"], pcc["E"],
+              carry.get("rE"))),
+            ("H", packed.h_update, packed.h_update_plain,
+             (carry["H"], carry["E"], carry["psH"], pcc["H"], carry.get("K"),
+              carry.get("rH")))):
+        key = fam.lower()
+        out[f"{key}_update_ms"] = timed(lambda: fn(*args), reps)
+        out[f"{key}_plain_ms"] = timed(lambda: plain(*args), plain_reps)
+        nbytes = family_bytes(carry, pcc, fam)
+        flops = family_flops(carry, fam)
+        if comp:              # explicitly rounded: the non-FMA rate
+            flops = flops * F32_FLOPS / F32_NONFMA_OPS
+        out[f"{key}_bytes"] = nbytes
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = bound(nbytes, flops)
+    return out
+
+
+def lane_main_path(cfgs, label, steps, dev):
+    """The lanes through ``Simulation.run_batch`` for ``steps`` steps
+    (the lane-capable packed step: one launch of each family a step, no
+    other kernel), the kernel counts set to 0 just before and read just
+    after, every lane healthy."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    reset_launches()
+    bsim = Simulation.run_batch(cfgs, time_steps=steps, device=dev)
+    torch.cuda.synchronize()
+    n = ladder_launches()
+    want = {k: (steps if k in ("e_update", "h_update") else 0) for k in n}
+    if bsim.step_kind != "packed_cuda" or bsim.batch_fallback \
+            or n != want or bsim.lane_finite != [True] * len(cfgs):
+        fail(f"{label}: run_batch ran {bsim.step_kind} "
+             f"{bsim.batch_fallback or ''} launches {n} lanes "
+             f"{bsim.lane_finite}")
+    return {"steps": steps, "launches": n}
+
+
+def compensated_lanes(dev, size=128, times=True):
+    """Phase 25 (C6): 3 compensated lanes at 128^3 (the compensated
+    example's point source and CPML at 128^3; scalar coefficients shared
+    by every lane), every carry leaf of each lane seeded from its own
+    seed, the residuals included: one lane-capable compensated e_update
+    + h_update launch and one lane-capable packed step against their
+    plain versions, and each lane of one e_update + h_update launch
+    against the same kernels run solo on that lane, all bit for bit;
+    then (``times``) the launches' times beside their bound and the
+    lanes through ``run_batch`` for 8 steps."""
+    import torch
+    from fdtd3d_torch.batch import BatchSimulation
+    from fdtd3d_torch.ops import packed
+    c = str(size // 2)
+    cfgs = [config(COMPENSATED, ["--same-size", str(size),
+                                 "--point-source-x", c, "--point-source-y",
+                                 c, "--point-source-z", c,
+                                 "--point-source-amplitude", amp])
+            for amp in ("1.0", "2.0", "0.5")]
+    bsim = BatchSimulation(cfgs, device=dev)
+    if bsim.step_kind != "packed_cuda" or bsim.batch_fallback:
+        fail(f"compensated lanes: ran {bsim.step_kind} "
+             f"{bsim.batch_fallback or ''}")
+    static, B = bsim.static, bsim.batch_size
+    carry = bsim._carry
+    for lane in range(B):
+        g = torch.Generator(device=dev).manual_seed(91 + lane)
+        for name, v in leaves(carry):
+            if v.dim() == 0 or v.shape[0] != B:
+                continue
+            scale = 1e-10 if name in ("rE", "rH") else 0.01
+            v[lane].copy_(scale * torch.randn(v[lane].shape, generator=g,
+                                              device=dev))
+    k_pk = packed.make_packed_step(static, dev, batch=B)
+    p_pk = packed.make_packed_step(static, dev, plain=True, batch=B)
+    pcc = k_pk.prepare(bsim._coeffs)
+    errs = {}
+    ck, cp = clone_carry(carry), clone_carry(carry)
+    for tree, fe, fh in ((ck, packed.e_update, packed.h_update),
+                         (cp, packed.e_update_plain, packed.h_update_plain)):
+        fe(tree["E"], tree["H"], None, tree["psE"], pcc["E"], tree["rE"])
+        fh(tree["H"], tree["E"], tree["psH"], pcc["H"], None, tree["rH"])
+    torch.cuda.synchronize()
+    errs["e_update + h_update"] = compare(
+        ck, cp, "compensated lanes: one e_update + h_update launch",
+        family=True)
+    ck, cp = clone_carry(carry), clone_carry(carry)
+    k_pk(ck, pcc)
+    p_pk(cp, pcc)
+    torch.cuda.synchronize()
+    errs["packed step"] = compare(ck, cp, "compensated lanes: one "
+                                  "lane-capable packed step", family=True)
+    del ck, cp
+    if any(errs.values()):
+        fail(f"compensated lanes: not bit-equal to the plain versions "
+             f"({errs})")
+    keys = ("E", "H", "rE", "rH", "psE", "psH")
+    for fc_lane in (None,) + tuple(range(B)):
+        if fc_lane is None:
+            a = clone_carry(carry)
+            fe, fh = pcc["E"], pcc["H"]
+        else:
+            a = solo_lane(carry, fc_lane)
+            fe = packed.lane_fc(pcc["E"], fc_lane)
+            fh = packed.lane_fc(pcc["H"], fc_lane)
+        packed.e_update(a["E"], a["H"], None, a["psE"], fe, a["rE"])
+        packed.h_update(a["H"], a["E"], a["psH"], fh, None, a["rH"])
+        torch.cuda.synchronize()
+        a = {k: a[k] for k in keys}
+        if fc_lane is None:
+            batched = a
+        else:
+            assert_lanes_equal(batched, fc_lane, a,
+                               "compensated lanes: e_update + h_update")
+    say(f"compensated lanes ({B} at {size}^3): the lane-capable launches "
+        f"and step equal their plain versions ({errs}) and every lane the "
+        f"same kernels run solo, bit for bit")
+    out = {"lanes": B, "shape": list(static.grid_shape),
+           "max_abs_err": max(errs.values())}
+    if times:
+        out.update(lane_update_times(bsim, pcc, 20, 2))
+        del bsim, carry, batched, a
+        torch.cuda.empty_cache()
+        out["main_path"] = lane_main_path(cfgs, "compensated lanes", 8,
+                                          dev)
+        say("compensated lanes: " + json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
 
 
 
@@ -2664,6 +2859,7 @@ def main() -> int:
     say("tb times at 256^3: " + json.dumps(result["tb_times_256"]))
     result["tb_report_256"] = tb_report("256^3, phase 3", tb_ms, tb_bound[0],
                                         e_ms + h_ms)
+    result["packed_report"] = packed_report("phase 3")
     del sim, carry, cc, tcc, spare, terms
     sim = Simulation(cfg256, device=dev)
     sim.advance(20)
@@ -2947,10 +3143,14 @@ def main() -> int:
     result["dng_ladder_256"] = dng_l
     result["k_lanes_128"] = k_lanes = drude_m_lanes(dev)
     mark("phase 24")
+    # ---- phase 25 (C6): compensated lanes at 128^3 ---------------------
+    result["comp_lanes_128"] = comp_lanes = compensated_lanes(dev)
+    mark("phase 25")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
-        "dng_ladder_256": dng_l_err, "k_lanes_128": k_lanes["max_abs_err"]})
+        "dng_ladder_256": dng_l_err, "k_lanes_128": k_lanes["max_abs_err"],
+        "comp_lanes_128": comp_lanes["max_abs_err"]})
     result["bf16_stats"] = BF16_STATS
 
     smi = subprocess.run(
@@ -3125,6 +3325,19 @@ def main() -> int:
                 "bound_ms": dng_l[f"{key}_{dt}_bound_ms"],
                 "bound_by": dng_l[f"{key}_{dt}_bound_by"],
                 "library_ms": None})
+    for tag, rec in (("K lanes", k_lanes), ("compensated lanes",
+                                            comp_lanes)):
+        for fam in ("e", "h"):
+            kernels.append({
+                "name": f"packed_eh.{fam}_update[{tag}]", "route": "cuda",
+                "source": src,
+                "replaces": "fdtd3d_tpu/ops/pallas_packed.py:537",
+                "launches": rec["main_path"]["launches"][f"{fam}_update"],
+                "max_abs_err": rec["max_abs_err"],
+                "ms": rec[f"{fam}_update_ms"],
+                "plain_ms": rec[f"{fam}_plain_ms"],
+                "bound_ms": rec[f"{fam}_bound_ms"],
+                "bound_by": rec[f"{fam}_bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

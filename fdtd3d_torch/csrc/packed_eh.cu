@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas_packed.py::make_packed_eh_step (kernel body at
-// pallas_packed.py:694, pallas_call at :1138) for 3D real float32 and
-// bf16 storage.
+// pallas_packed.py:694, pallas_call at :1138) and its lane-capable build
+// make_packed_eh_step_batched (:537) for 3D real float32 and bf16
+// storage.
 //
 // What one step computes, on the reference's stacked layout
 // E, H = (3, n1, n2, n3) float32 or bf16, C order, z innermost:
@@ -18,39 +19,69 @@
 // (fdtd3d_torch/ops/patches.py), in the order of the reference's plain
 // step: E update, E patches, H update, H patches.
 //
-// Design. The TPU kernel runs H one x-tile behind E and carries the
-// fresh E tile in VMEM scratch, which relies on the TPU grid running in
-// order. CUDA blocks run in no order, so this twin uses two launches per
-// step, fdtd_e_update then fdtd_h_update, each one thread per cell with
-// z innermost (neighbouring threads touch neighbouring addresses), each
-// updating its family in place: a cell's new value depends on its own
-// old value and on the OTHER family's neighbours only, so no thread
-// reads what another writes. The step is bound by memory bytes: each
-// launch reads 6 field volumes and writes 3, so a step moves 18 volumes
-// (72 B/cell) against the 12 (48 B/cell) a single fused pass needs. A
-// single-launch fusion is later work.
+// Two launches, each in place. The TPU kernel runs H one x-tile behind
+// E in one pass, which relies on its grid running in order. A single
+// CUDA pass would need a wavefront across blocks or a spare copy of E,
+// H, J and K to recompute halos out of place, so a step stays two
+// launches, fdtd_e_update then fdtd_h_update, each updating its family
+// in place: a cell's new value depends only on its own old value and on
+// the OTHER family, so no thread reads what another writes.
 //
-// Scalars vs grids: each coefficient comes as a nullable grid pointer
-// plus a scalar, so one build serves uniform media and material grids.
-// Offsets are computed in 64 bits: at 1024^3 the stacked array holds
-// more than 2^31 elements.
+// The march. A thread block owns one work item of the host's plan
+// (ops/packed.py::plan_items): a (y, z) tile of at most TY rows by TZ =
+// 32 V columns (V = 2 cells a thread where the build takes pairs, else
+// 1), the z cuts at multiples of TZ so that every owned row is whole
+// aligned 128-byte lines (256 bytes for float pairs), over an x segment
+// [x0, x1) of one lane. Warp w owns row j0 + w, lane l the V cells
+// k0 + l V ... of it. The block marches x (E upwards, H downwards) and
+// at each plane:
+// - the source family's plane (H for E, E for H) lands in a shared
+//   memory ring of SLOTS planes, brought by cp.async PIPE planes ahead
+//   of the march (one word of V cells a thread and component: 4 bytes,
+//   or 8 for float pairs): the tile, a 1-cell halo row (E: the row
+//   below, H: the row above; components 0 and 2, by warp 0) and a
+//   1-cell halo column (E: the word left of the tile, H: the word right
+//   of it; components 0 and 1, by the last warp). Ring cells outside
+//   the domain are zeroed once and never loaded: they are the PEC
+//   ghosts. So the source family is read once an item, and a cell
+//   issues 3 source requests where one thread a cell issued 12;
+// - the y and z neighbours come from the ring, the x neighbour (the
+//   plane before in the march: E reads H(i-1), H reads E(i+1)) from the
+//   two components a thread kept in registers from the plane before
+//   (components 1 and 2 have the x terms); marching H downwards makes
+//   its x neighbour the plane before, as E's is;
+// - the family being updated, J or K and the residuals come through
+//   the thread's own slots of rings of the same depth, and are written
+//   once each, in V-cell words, by the thread that owns the cell, as
+//   psi is read and written;
+// - one barrier a plane: it publishes the plane that landed and
+//   retires the slot the next cp.async refills.
 //
-// Lanes (the port of make_packed_eh_step_batched, pallas_packed.py:537,
-// whose pallas_call the reference vmaps over a lane-major grid
-// dimension): one launch advances `lanes` independent scenarios of the
-// same shape. The lane is folded into the grid's z dimension (lane =
-// blockIdx.z / n1), and every base pointer steps by a 64-bit lane
-// stride: the fields, J and psi by their per-lane extents, a
-// coefficient grid by its own stride (0 for a grid shared by all lanes,
-// n1 n2 n3 for a per-lane grid). Scalar coefficients are one value for
-// every lane, as the reference bakes them. A solo run is lanes = 1.
+// Coefficient grids are read only by the items whose cells reach the
+// box outside which every grid of the family holds its background
+// value (plan flag GRID; ops/packed.py::material); the other items take
+// the background from the scalar of the Coef (a uniform branch a
+// block). J and K are read and written everywhere.
+//
+// Sections. The plan puts the items with a cell in a CPML slab of any
+// axis (flag SLAB) first; they run the kernel with the psi path
+// compiled in, the others one without it, started on the SMs the first
+// leaves free (programmatic dependent launch: the two write disjoint
+// cells and read only the other family). SECTIONS=0 runs every item in
+// the slab kernel.
 //
 // bf16 storage (Params.bf16): E and H are bf16 words, loaded as floats
 // and rounded to bf16 where they are stored (csrc/storage.cuh); psi, J,
 // the profiles and the coefficients stay float32, as does all the
-// arithmetic. A launch then moves half the field bytes: each cell's new
-// value is stored once, so the H launch reads the rounded E, as the
-// plain version's in-place updates do.
+// arithmetic. A thread takes two z cells (a bf16x2 word), so every field
+// request is 4 bytes and a warp moves 128 bytes a request, as in f32.
+// The ring holds the bf16 words as they arrive (cp.async cannot widen);
+// they are widened where they are read. Each new value is rounded once,
+// where it is stored, so the H launch reads the rounded E, as the plain
+// version's in-place updates do. An odd n3 leaves rows unaligned for
+// words of two cells: that run takes one cell a thread, and its 2-byte
+// ring words are copied by ordinary loads (cp.async copies 4 bytes at
+// least).
 //
 // Compensated (Kahan) float32 (Params.R, the reference's
 // pallas_packed.py:588-589, :757-759, :872-881 and :963-972): every
@@ -61,26 +92,113 @@
 // with the bf16 residual r of the family (rE or rH, same layout as F)
 // read and written in place, r' zeroed by the PEC walls with E. The
 // coefficients are scalars in that mode (a grid sends the run to the
-// plain step, as the reference's kernel declines it). That branch
-// (COMP) does every product and sum with an explicitly rounded
-// intrinsic (__fmul_rn, __fadd_rn, __fsub_rn) in the plain version's
-// order: no FMA contraction, so r' is the true rounding error of the
-// add and the launch reproduces the plain version's bits. The other
-// builds keep their (contracted) arithmetic. It adds the residuals'
-// 2 B x 3 components read and written to a launch's bytes.
+// plain step, as the reference's kernel declines it). That build (COMP)
+// does every product and sum with an explicitly rounded intrinsic
+// (__fmul_rn, __fadd_rn, __fsub_rn) in the plain version's order: no
+// FMA contraction, so r' is the true rounding error of the add and the
+// launch reproduces the plain version's bits. It takes two cells a
+// thread where n3 is even, so its residual words are 4 bytes too. The
+// other builds keep their (contracted) arithmetic.
 //
-// Every entry returns cudaGetLastError() so the caller can raise on a
-// refused launch.
+// Lanes: one launch advances `lanes` independent scenarios of the same
+// shape; the lane is a column of the plan's row, and every base pointer
+// steps by a 64-bit lane stride: the fields, J and R by 3 n1 n2 n3, psi
+// by its per-lane extent, a coefficient grid by its own stride (0 for a
+// grid shared by all lanes, n1 n2 n3 for a per-lane grid). Scalar
+// coefficients are one value for every lane. A solo run is one lane.
+// Offsets are 64-bit: at 1024^3 the stacked array holds more than 2^31
+// elements.
+//
+// What bounds it on the card: memory bytes and requests. A launch must
+// read the other family and its own family once and write its own once
+// (9 field volumes), plus J or K (read and written), psi, the residuals
+// and the grids inside their box; ~20 flops a cell.
+//
+// The design for the H100: each choice against its alternative in one
+// call of scripts/packed_variants.py (ms of e_update + h_update on
+// vacuum3D_tfsf's state at 256^3 in f32 / bf16 / compensated mode, and
+// on the double-negative sphere at 256^3 (J, K, grids); NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md section 6). As built: 0.609 / 0.549 /
+// 0.884 / 0.938 (one thread a cell before: 0.72 / 0.86 / 1.17 at 256^3,
+// scripts/solo_kernel_times.py --packed in the same kind of call).
+// 1. The old family, J or K and the residuals through the rings too
+//    (one plane ahead in registers instead: 0.697 / 0.579 / 0.919 /
+//    1.119 in an earlier call, where the rings-only timing-only build
+//    showed the loads waiting on that prefetch), PIPE = 2 planes ahead
+//    (1: 0.625 / 0.563 / 0.924 / 0.941; 3: 0.610 / 0.550 / 0.939 /
+//    0.937).
+// 2. Registers for four blocks an SM in float32 (three: 0.654 in f32,
+//    1.032 on the sphere), three in bf16 and compensated mode (two:
+//    0.663 / 0.930; four, with spills: 0.603 / 1.059).
+// 3. Tiles of 8 rows, one warp a row (4 rows: 0.599 / 0.529 / 0.863 /
+//    0.924 here, but 0.604 / 0.543 / 0.943 / 0.951 in the call before:
+//    within the calls' spread; 16 rows: 0.633 / 0.629 / 1.099 / 0.967;
+//    rows of two or four warps, 64 or 128 cells of f32, with a knob
+//    since removed: 0.698 / 0.696 / 0.975 / 1.005 and 0.831 / 0.686 /
+//    0.959 / 1.107). Two cells a
+//    thread in bf16 and compensated mode (4-byte words and residual
+//    words); in f32 two cells cost registers (0.797, 1.157 on the
+//    sphere; with three blocks an SM 0.689 / 0.983).
+// 4. x segments of 16 planes (8: 0.617 / 0.550 / 0.878 / 0.931; 32:
+//    0.617 / 0.581 / 0.919 / 0.978; 64: 0.640 / 0.647 / 0.990 / 1.076).
+// 5. Sections (every item in the slab kernel: 0.638 / 0.606 / 0.929 /
+//    0.964); grids read inside their box only (every item reading them:
+//    1.353 on the sphere).
+// 6. 16-byte chunk copies into the rings, the block's threads taking the
+//    tile's chunks in order, bought nothing (0.601 / 0.555 / 0.936 /
+//    0.936 against 0.609 / 0.549 / 0.885 / 0.937 for these words in one
+//    call): the loads do not wait on their number of requests.
+// Timing-only builds split the time: the loads, barriers and rings
+// alone 0.317 / 0.183 / 0.444 / 0.453, with the stores 0.461 / 0.241 /
+// 0.598 / 0.616; the arithmetic the rest.
+//
+// Build knobs (-D): TY (tile rows), PIPE (planes in flight ahead of the
+// march), F32_PAIRS (two cells a thread in the float32 build),
+// SECTIONS, MIN_BLOCKS and F32_BLOCKS (resident blocks an SM the
+// register budget is set for: the bf16 and compensated builds, the
+// float32 build). The timing-only builds are source patches of
+// scripts/packed_variants.py, not knobs of this file.
+//
+// Every entry returns cudaGetLastError() (or the first error) so the
+// caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "storage.cuh"
 
+#ifndef TY
+#define TY 8  // rows of a tile, one warp each
+#endif
+#ifndef PIPE
+#define PIPE 2  // planes in flight ahead of the march
+#endif
+#ifndef F32_PAIRS
+#define F32_PAIRS 0  // two z cells a thread in the float32 build
+#endif
+#ifndef SECTIONS
+#define SECTIONS 1  // slab items and plain items by their own kernels
+#endif
+#ifndef MIN_BLOCKS
+#define MIN_BLOCKS 3  // resident blocks an SM the registers are set for:
+#endif                // bf16 and compensated builds
+#ifndef F32_BLOCKS
+#define F32_BLOCKS 4  // the float32 build's
+#endif
+#define NT (TY * 32)          // threads a block
+#define SLOTS (PIPE + 1)      // ring planes
+#define PLAN_COLS 8           // j0, k0, ny, nz, x0, x1, lane, flags
+#define FLAG_GRID 1           // the item's cells reach the grids' box
+#define FLAG_SLAB 2           // the item has a cell in a CPML slab
+#if PIPE < 1 || PIPE > 3
+#error "PIPE must lie in [1, 3]"
+#endif
+
 struct Coef {
   const float* grid;  // (n1, n2, n3), (lanes, n1, n2, n3) or nullptr
   long long lane;     // lane stride of grid: 0 (shared) or n1 n2 n3
-  float val;          // used when grid is nullptr
+  float val;          // used when grid is nullptr, and by the items
+                      // outside the grids' box: the grid's background
 };
 
 struct Params {
@@ -93,7 +211,7 @@ struct Params {
   float* psi[3];         // per axis a: (lanes, 2, n with dim a = 2 m[a])
                          // or nullptr
   const float* prof[3];  // per axis a: (3, 2 m[a]) rows b, c, 1/kappa
-  long long field_lane;  // lane stride of F, S and J: 3 n1 n2 n3
+  long long field_lane;  // lane stride of F, S, J and R: 3 n1 n2 n3
   long long psi_lane[3];  // lane stride of psi[a]
   int m[3];              // slab planes per side, 0 = no CPML on the axis
   Coef a[3];             // ca (E) / da (H)
@@ -107,6 +225,9 @@ struct Params {
   float inv_dx;
   float inv_dx_lo;       // compensated: low word of 1/dx
   int bf16;              // F and S are bf16 words (else float32)
+  int pairs;             // the plan's tiles take two z cells a thread
+  const int* plan;       // (items, PLAN_COLS) work items, slab ones first
+  int n_item[2];         // items of the slab and of the plain section
 };
 
 // Products and sums of the compensated branch: rounded to nearest one by
@@ -132,9 +253,10 @@ __device__ __forceinline__ constexpr int term_comp(int c, int t) {
   return (c + 2 - t) % 3;
 }
 
-__device__ __forceinline__ float coef(const Coef& c, int lane,
-                                      int64_t cell) {
-  return c.grid ? c.grid[lane * c.lane + cell] : c.val;
+// The slab plane of index ia on an axis of n cells with m-plane slabs,
+// or -1 outside them.
+__device__ __forceinline__ int slab_plane(int ia, int n, int m) {
+  return ia < m ? ia : (ia >= n - m ? ia - (n - 2 * m) : -1);
 }
 
 // Offset of cell (i, j, k) in the psi stack of axis a, row `row`, at
@@ -148,162 +270,490 @@ __device__ __forceinline__ int64_t psi_offset(int a, int row, int q, int i,
   return ((row * n1 + i) * n2 + j) * m2 + q;
 }
 
-// One family update. BACKWARD = true: E from backward differences of H
-// (with Drude J and PEC walls); false: H from forward differences of E
-// (with magnetic Drude K). MULTI = false is a single-lane launch: the
-// lane is the constant 0. COMP: compensated mode (float fields only).
-// T: the fields' storage type (float or bf16).
-template <bool BACKWARD, bool MULTI, bool COMP, typename T>
-__global__ void __launch_bounds__(128) family_update(Params p) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  const int i = MULTI ? blockIdx.z % p.n1 : blockIdx.z;
-  const int lane = MULTI ? blockIdx.z / p.n1 : 0;
-  if (k >= p.n3) return;
-  T* const F = static_cast<T*>(p.F) + lane * p.field_lane;
-  const T* const S = static_cast<const T*>(p.S) + lane * p.field_lane;
-  float* const J = p.J ? p.J + lane * p.field_lane : nullptr;
-  const int64_t n1 = p.n1, n2 = p.n2, n3 = p.n3;
-  const int64_t vol = n1 * n2 * n3;
-  const int64_t cell = (i * n2 + j) * n3 + k;
-  const int64_t stride[3] = {n2 * n3, n3, 1};
-  const int idx[3] = {i, j, k};
-  const int n[3] = {p.n1, p.n2, p.n3};
-
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float acc = 0.f;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int a = term_axis(c, t);
-      const float s = t == 0 ? 1.f : -1.f;
-      const T* src = S + term_comp(c, t) * vol + cell;
-      float d0;
-      if (BACKWARD) {
-        const float prev = idx[a] > 0 ? ld(src - stride[a]) : 0.f;
-        d0 = ld(src) - prev;
-      } else {
-        const float next = idx[a] < n[a] - 1 ? ld(src + stride[a]) : 0.f;
-        d0 = next - ld(src);
-      }
-      const float dfa = COMP ? add_rn(mul_rn(d0, p.inv_dx),
-                                      mul_rn(d0, p.inv_dx_lo))
-                             : d0 * p.inv_dx;
-      const int m = p.m[a];
-      if (m > 0) {
-        const int ia = idx[a];
-        const int q = ia < m ? ia : (ia >= n[a] - m ? ia - (n[a] - 2 * m)
-                                                    : -1);
-        if (q >= 0) {
-          const int row = c < a ? c : c - 1;
-          const int64_t off =
-              psi_offset(a, row, q, i, j, k, n1, n2, n3, 2 * m);
-          const float* pr = p.prof[a];
-          float* ps = p.psi[a] + lane * p.psi_lane[a] + off;
-          if (COMP) {
-            const float psi = add_rn(mul_rn(pr[q], *ps),
-                                     mul_rn(pr[2 * m + q], dfa));
-            *ps = psi;
-            acc = add_rn(acc, mul_rn(s, add_rn(mul_rn(sub_rn(pr[4 * m + q],
-                                                             1.f),
-                                                      dfa),
-                                               psi)));
-          } else {
-            const float psi = pr[q] * *ps + pr[2 * m + q] * dfa;
-            *ps = psi;
-            acc += s * ((pr[4 * m + q] - 1.f) * dfa + psi);
-          }
-        }
-      }
-      acc = COMP ? add_rn(acc, mul_rn(s, dfa)) : acc + s * dfa;
-    }
-    T* f = F + c * vol + cell;
-    const float old = ld(f);
-    if (J) {  // the ADE current: J' taken off E's acc, K' added to H's
-      float* jp = J + c * vol + cell;
-      const float ka = coef(p.kj[c], lane, cell);
-      const float kb = coef(p.bj[c], lane, cell);
-      const float jn = COMP ? add_rn(mul_rn(ka, *jp), mul_rn(kb, old))
-                            : ka * *jp + kb * old;
-      *jp = jn;
-      if (COMP) {
-        acc = BACKWARD ? sub_rn(acc, jn) : add_rn(acc, jn);
-      } else {
-        acc = BACKWARD ? acc - jn : acc + jn;
-      }
-    }
-    const float ca = coef(p.a[c], lane, cell);
-    const float cb = coef(p.b[c], lane, cell);
-    float v, r = 0.f;
-    if (COMP) {
-      // Kahan: new = old + y, y = u - r, with the stored residual r
-      bf16_t* rp = p.R + lane * p.field_lane + c * vol + cell;
-      const float am1 = mul_rn(sub_rn(ca, 1.f), old);
-      const float lo_a = mul_rn(p.a_lo[c], old);
-      const float u =
-          BACKWARD ? add_rn(add_rn(am1, mul_rn(cb, acc)),
-                            add_rn(lo_a, mul_rn(p.b_lo[c], acc)))
-                   : add_rn(sub_rn(am1, mul_rn(cb, acc)),
-                            sub_rn(lo_a, mul_rn(p.b_lo[c], acc)));
-      const float y = sub_rn(u, ld(rp));
-      v = add_rn(old, y);
-      r = sub_rn(sub_rn(v, old), y);
-      if (BACKWARD) {
-#pragma unroll
-        for (int w = 0; w < 3; ++w) {
-          if (w != c && (idx[w] == 0 || idx[w] == n[w] - 1)) r = 0.f;
-        }
-      }
-      st(rp, r);
-    } else if (BACKWARD) {
-      v = ca * old + cb * acc;
-    } else {
-      v = ca * old - cb * acc;
-    }
-    if (BACKWARD) {
-      // PEC walls: tangential E vanishes on the walls of the two axes
-      // other than its own.
-#pragma unroll
-      for (int w = 0; w < 3; ++w) {
-        if (w != c && (idx[w] == 0 || idx[w] == n[w] - 1)) v = 0.f;
-      }
-    }
-    st(f, v);
+// V consecutive cells as floats from a word of T at p (aligned to the
+// word), and back (bf16 rounded to nearest even, each cell).
+template <int V, typename T>
+__device__ __forceinline__ void ldv(const T* p, float (&out)[V]) {
+  if constexpr (V == 1) {
+    out[0] = ld(p);
+  } else if constexpr (sizeof(T) == 4) {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    out[0] = w.x;
+    out[1] = w.y;
+  } else {
+    const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(p);
+    out[0] = __low2float(w);
+    out[1] = __high2float(w);
+  }
+}
+template <int V, typename T>
+__device__ __forceinline__ void stv(T* p, const float (&v)[V]) {
+  if constexpr (V == 1) {
+    st(p, v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
   }
 }
 
-template <bool COMP, typename T>
-static void launch_t(const Params* p, dim3 grid, dim3 block, cudaStream_t s,
-                     bool backward) {
-  const bool multi = p->lanes > 1;
-  if (backward && multi) {
-    family_update<true, true, COMP, T><<<grid, block, 0, s>>>(*p);
-  } else if (backward) {
-    family_update<true, false, COMP, T><<<grid, block, 0, s>>>(*p);
-  } else if (multi) {
-    family_update<false, true, COMP, T><<<grid, block, 0, s>>>(*p);
+// A coefficient's V cells: its grid where the item reads grids, else its
+// scalar (for an item outside the grids' box, the grid's background).
+template <int V>
+__device__ __forceinline__ void coef_v(const Coef& c, bool grid, int lane,
+                                       int64_t cell, float (&out)[V]) {
+  if (grid && c.grid) {
+    ldv<V>(c.grid + lane * c.lane + cell, out);
   } else {
-    family_update<false, false, COMP, T><<<grid, block, 0, s>>>(*p);
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[v] = c.val;
   }
+}
+
+// Copy of one word of V cells of T from device memory into the ring:
+// cp.async (4 or 8 bytes), or, for a lone bf16 cell, an ordinary load
+// and store (published by the same barrier).
+template <int V, typename T>
+__device__ __forceinline__ void copy_word(T* dst, const T* src) {
+  constexpr int BYTES = V * static_cast<int>(sizeof(T));
+  if constexpr (BYTES == 4 || BYTES == 8) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES)
+                 : "memory");
+  } else {
+    *dst = *src;
+  }
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory of a block, for fields of T and V cells a thread: the
+// source ring (SLOTS planes of the tile, its halo row and halo column
+// word, three components), then the own rings of the same depth (the
+// old family, J or K when the launch has it, the residuals in
+// compensated mode: the owned cells only, each thread's own words).
+constexpr int round16(int b) { return (b + 15) / 16 * 16; }
+template <typename T, int V>
+struct Ring {
+  static constexpr int TZ = 32 * V;       // owned columns of a tile
+  static constexpr int RW = TZ + V;       // a source ring row: the owned
+                                          // cells and the halo word
+  static constexpr int RP = (TY + 1) * RW;  // a source plane, a component
+  static constexpr int OP = TY * TZ;        // an own plane, a component
+  static constexpr int S_BYTES =
+      round16(SLOTS * 3 * RP * static_cast<int>(sizeof(T)));
+  static constexpr int F_BYTES =
+      round16(SLOTS * 3 * OP * static_cast<int>(sizeof(T)));
+  static constexpr int J_BYTES = round16(SLOTS * 3 * OP * 4);
+  static constexpr int R_BYTES = round16(SLOTS * 3 * OP * 2);
+  static int bytes(bool j, bool comp) {
+    return S_BYTES + F_BYTES + (j ? J_BYTES : 0) + (comp ? R_BYTES : 0);
+  }
+};
+
+// One work item: the march of one family's update over its x segment.
+// BACKWARD = true: E from backward differences of H (with Drude J and
+// PEC walls), marching x upwards; false: H from forward differences of E
+// (with magnetic Drude K), marching downwards. COMP: compensated mode
+// (float fields only). SLAB: the CPML psi path compiled in. T: the
+// fields' storage type; V: z cells a thread.
+template <bool BACKWARD, bool COMP, bool SLAB, typename T, int V>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
+                                                               : MIN_BLOCKS)
+    family_march(const Params p, int first) {
+  typedef Ring<T, V> Rg;
+  constexpr int TZ = Rg::TZ, RW = Rg::RW, RP = Rg::RP, OP = Rg::OP;
+  constexpr int COL0 = BACKWARD ? V : 0;  // the owned cells' first column
+  constexpr int HCOL = BACKWARD ? 0 : TZ;  // the halo word's
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const ring = reinterpret_cast<T*>(smem);
+  T* const fr = reinterpret_cast<T*>(smem + Rg::S_BYTES);
+  float* const jr = reinterpret_cast<float*>(smem + Rg::S_BYTES +
+                                             Rg::F_BYTES);
+  bf16_t* const rr = reinterpret_cast<bf16_t*>(
+      smem + Rg::S_BYTES + Rg::F_BYTES + (p.J ? Rg::J_BYTES : 0));
+
+#if SECTIONS
+  // the plain section's kernel reads no output of this one: it may start
+  // on the SMs this kernel's last blocks leave free
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+  const int* it = p.plan + PLAN_COLS * (first + static_cast<int>(blockIdx.x));
+  const int j0 = it[0], k0 = it[1], ny = it[2], nz = it[3];
+  const int x0 = it[4], x1 = it[5], lane = it[6];
+  const bool grid = (it[7] & FLAG_GRID) != 0;
+  // warp w takes tile row w, its lane l the V cells from column l V on
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int n1 = p.n1, n2 = p.n2, n3 = p.n3;
+  const int64_t vol = static_cast<int64_t>(n1) * n2 * n3;
+  const int64_t pstride = static_cast<int64_t>(n2) * n3;
+  const int64_t lane_off = lane * p.field_lane;
+  T* const F = static_cast<T*>(p.F) + lane_off;
+  const T* const S = static_cast<const T*>(p.S) + lane_off;
+  float* const J = p.J ? p.J + lane_off : nullptr;
+  bf16_t* const R = COMP ? p.R + lane_off : nullptr;
+
+  // this thread's cells: row j, columns kk .. kk + V - 1
+  const int j = j0 + w;
+  const int kk = k0 + l * V;
+  const bool own = w < ny && l * V < nz;
+  const int at = (BACKWARD ? w + 1 : w) * RW + COL0 + l * V;  // in a slot
+  const int oat = w * TZ + l * V;  // in an own ring plane
+  // the halo row (E: below the tile, H: above it) and column word
+  const int hj = BACKWARD ? j0 - 1 : j0 + ny;
+  const bool hrow = w == 0 && hj >= 0 && hj < n2 && l * V < nz;
+  const int hat = (BACKWARD ? 0 : ny) * RW + COL0 + l * V;
+  const int hk = BACKWARD ? k0 - V : k0 + TZ;
+  const bool hcol = w == TY - 1 && l < ny &&
+                    (BACKWARD ? k0 > 0 : nz == TZ && k0 + TZ < n3);
+  const int hcat = (BACKWARD ? l + 1 : l) * RW + HCOL;
+  const int64_t own_off = static_cast<int64_t>(j) * n3 + kk;
+  const int64_t hrow_off = static_cast<int64_t>(hj) * n3 + kk;
+  const int64_t hcol_off = static_cast<int64_t>(j0 + l) * n3 + hk;
+
+  // facts of the thread's columns, fixed over the march
+  const int qy = SLAB ? slab_plane(j, n2, p.m[1]) : -1;
+  const bool y_wall = j == 0 || j == n2 - 1;
+  int qz[V];
+  bool z_wall[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    qz[v] = SLAB ? slab_plane(kk + v, n3, p.m[2]) : -1;
+    z_wall[v] = kk + v == 0 || kk + v == n3 - 1;
+  }
+
+  // the source family's plane i into ring slot `slot`, and the thread's
+  // own old family, J or K and residuals of plane i into its own slots
+  auto load_plane = [&](int i, int slot) {
+    T* rs = ring + slot * 3 * RP;
+    const int64_t base = static_cast<int64_t>(i) * pstride;
+    if (own) {
+      const int64_t cell = base + own_off;
+      const int os = slot * 3 * OP + oat;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        copy_word<V>(rs + c * RP + at, S + c * vol + cell);
+        copy_word<V>(fr + os + c * OP, F + c * vol + cell);
+        if (J) copy_word<V>(jr + os + c * OP, J + c * vol + cell);
+        if (COMP) copy_word<V>(rr + os + c * OP, R + c * vol + cell);
+      }
+    }
+    if (hrow) {  // components 0 and 2 have the y terms
+      copy_word<V>(rs + hat, S + base + hrow_off);
+      copy_word<V>(rs + 2 * RP + hat, S + 2 * vol + base + hrow_off);
+    }
+    if (hcol) {  // components 0 and 1 have the z terms
+      copy_word<V>(rs + hcat, S + base + hcol_off);
+      copy_word<V>(rs + RP + hcat, S + vol + base + hcol_off);
+    }
+  };
+
+  const int dir = BACKWARD ? 1 : -1;
+  const int start = BACKWARD ? x0 : x1 - 1;
+  const int count = x1 - x0;
+  // the x neighbours of the first plane (E: H(x0 - 1), H: E(x1)) of
+  // components 1 and 2, the two with an x term; the PEC ghost outside
+  float xn[2][V];
+  {
+    const int xi = start - dir;
+    const bool in = own && xi >= 0 && xi < n1;
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      if (in) {
+        ldv<V>(S + (d + 1) * vol + static_cast<int64_t>(xi) * pstride +
+                   own_off,
+               xn[d]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) xn[d][v] = 0.f;
+      }
+    }
+  }
+  // every source ring cell a load does not fill stays 0: the PEC ghosts
+  for (int t = threadIdx.x; t < Rg::S_BYTES / 4; t += NT) {
+    reinterpret_cast<unsigned*>(smem)[t] = 0u;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < PIPE; ++q) {
+    if (q < count) load_plane(start + q * dir, q % SLOTS);
+    cp_commit();
+  }
+
+  for (int s = 0; s < count; ++s) {
+    const int i = start + s * dir;
+    cp_wait<PIPE - 1>();  // this thread's copies of plane i have landed
+    __syncthreads();      // everyone's have; plane i - dir is retired
+    if (s + PIPE < count) load_plane(i + PIPE * dir, (s + PIPE) % SLOTS);
+    cp_commit();
+    if (!own) continue;
+    const T* rs = ring + (s % SLOTS) * 3 * RP + at;
+    const int os = (s % SLOTS) * 3 * OP + oat;
+    float here[3][V];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) ldv<V>(rs + d * RP, here[d]);
+    const int64_t cell0 = static_cast<int64_t>(i) * pstride + own_off;
+    const int qx = SLAB ? slab_plane(i, n1, p.m[0]) : -1;
+    const bool x_wall = i == 0 || i == n1 - 1;
+
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // the differences of the two curl terms, each cell
+      float d0[2][V];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int a = term_axis(c, t);
+        const int d = term_comp(c, t);
+        float nb[V];
+        if (a == 0) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) nb[v] = xn[d - 1][v];
+        } else if (a == 1) {
+          ldv<V>(rs + d * RP + (BACKWARD ? -RW : RW), nb);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            // the cell beside it: in the thread's own word, else the
+            // neighbouring word's (or the halo word's) nearest cell
+            if (BACKWARD) {
+              nb[v] = v == 0 ? ld(rs + d * RP - 1)
+                             : here[d][v > 0 ? v - 1 : 0];
+            } else {
+              nb[v] = v == V - 1 ? ld(rs + d * RP + V)
+                                 : here[d][v < V - 1 ? v + 1 : v];
+            }
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          d0[t][v] = BACKWARD ? here[d][v] - nb[v] : nb[v] - here[d][v];
+        }
+      }
+      float ca[V], cb[V], ka[V], kb[V], rv[V], jn[V], out[V], ro[V];
+      coef_v<V>(p.a[c], grid, lane, cell0, ca);
+      coef_v<V>(p.b[c], grid, lane, cell0, cb);
+      if (J) {
+        coef_v<V>(p.kj[c], grid, lane, cell0, ka);
+        coef_v<V>(p.bj[c], grid, lane, cell0, kb);
+      }
+      float old[V], jo[V];
+      ldv<V>(fr + os + c * OP, old);
+      if (J) ldv<V>(jr + os + c * OP, jo);
+      if (COMP) ldv<V>(rr + os + c * OP, rv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int k = kk + v;
+        float acc = 0.f;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int a = term_axis(c, t);
+          const float sg = t == 0 ? 1.f : -1.f;
+          const float dv = d0[t][v];
+          const float dfa = COMP ? add_rn(mul_rn(dv, p.inv_dx),
+                                          mul_rn(dv, p.inv_dx_lo))
+                                 : dv * p.inv_dx;
+          if (SLAB) {
+            const int q = a == 0 ? qx : (a == 1 ? qy : qz[v]);
+            if (q >= 0) {
+              const int m = p.m[a];
+              const int row = c < a ? c : c - 1;
+              const int64_t off = psi_offset(a, row, q, i, j, k, n1, n2, n3,
+                                             2 * m);
+              const float* pr = p.prof[a];
+              float* ps = p.psi[a] + lane * p.psi_lane[a] + off;
+              if (COMP) {
+                const float psi = add_rn(mul_rn(pr[q], *ps),
+                                         mul_rn(pr[2 * m + q], dfa));
+                *ps = psi;
+                acc = add_rn(acc, mul_rn(sg, add_rn(mul_rn(sub_rn(
+                                                        pr[4 * m + q], 1.f),
+                                                    dfa),
+                                             psi)));
+              } else {
+                const float psi = pr[q] * *ps + pr[2 * m + q] * dfa;
+                *ps = psi;
+                acc += sg * ((pr[4 * m + q] - 1.f) * dfa + psi);
+              }
+            }
+          }
+          acc = COMP ? add_rn(acc, mul_rn(sg, dfa)) : acc + sg * dfa;
+        }
+        const float o = old[v];
+        if (J) {  // the ADE current: J' taken off E's acc, K' added to H's
+          jn[v] = COMP ? add_rn(mul_rn(ka[v], jo[v]), mul_rn(kb[v], o))
+                       : ka[v] * jo[v] + kb[v] * o;
+          if (COMP) {
+            acc = BACKWARD ? sub_rn(acc, jn[v]) : add_rn(acc, jn[v]);
+          } else {
+            acc = BACKWARD ? acc - jn[v] : acc + jn[v];
+          }
+        }
+        // PEC walls: tangential E vanishes on the walls of the two axes
+        // other than its own
+        const bool wall = BACKWARD && ((c != 0 && x_wall) ||
+                                       (c != 1 && y_wall) ||
+                                       (c != 2 && z_wall[v]));
+        float val;
+        if (COMP) {
+          // Kahan: new = old + y, y = u - r, with the stored residual r
+          const float am1 = mul_rn(sub_rn(ca[v], 1.f), o);
+          const float lo_a = mul_rn(p.a_lo[c], o);
+          const float u =
+              BACKWARD ? add_rn(add_rn(am1, mul_rn(cb[v], acc)),
+                                add_rn(lo_a, mul_rn(p.b_lo[c], acc)))
+                       : add_rn(sub_rn(am1, mul_rn(cb[v], acc)),
+                                sub_rn(lo_a, mul_rn(p.b_lo[c], acc)));
+          const float y = sub_rn(u, rv[v]);
+          val = add_rn(o, y);
+          ro[v] = wall ? 0.f : sub_rn(sub_rn(val, o), y);
+        } else if (BACKWARD) {
+          val = ca[v] * o + cb[v] * acc;
+        } else {
+          val = ca[v] * o - cb[v] * acc;
+        }
+        out[v] = wall ? 0.f : val;
+      }
+      stv<V>(F + c * vol + cell0, out);
+      if (J) stv<V>(J + c * vol + cell0, jn);
+      if (COMP) stv<V>(R + c * vol + cell0, ro);
+    }
+    // this plane is the next one's x neighbour
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      xn[0][v] = here[1][v];
+      xn[1][v] = here[2][v];
+    }
+  }
+  cp_wait<0>();  // the last groups are empty; none stays in flight
+}
+
+typedef void (*Kernel)(const Params, int);
+
+// The builds: [family][storage][cells a thread][section]. Storage 0
+// float32, 1 bf16, 2 compensated float32; cells a thread 0: one, 1: two
+// (the float32 build's two-cell entry is its one-cell kernel unless
+// F32_PAIRS); section 0 the slab kernel, 1 the plain one (the slab
+// kernel too when SECTIONS is 0).
+#if SECTIONS
+#define SECTION_PAIR(B, C, T, V) \
+  { family_march<B, C, true, T, V>, family_march<B, C, false, T, V> }
+#else
+#define SECTION_PAIR(B, C, T, V) \
+  { family_march<B, C, true, T, V>, family_march<B, C, true, T, V> }
+#endif
+#define F32_EVEN_V (F32_PAIRS ? 2 : 1)
+#define FAMILY_KERNELS(B)                                                   \
+  {                                                                         \
+    {SECTION_PAIR(B, false, float, 1), SECTION_PAIR(B, false, float,      \
+                                                    F32_EVEN_V)},           \
+        {SECTION_PAIR(B, false, bf16_t, 1),                                 \
+         SECTION_PAIR(B, false, bf16_t, 2)},                                \
+        {SECTION_PAIR(B, true, float, 1), SECTION_PAIR(B, true, float, 2)} \
+  }
+static const Kernel kKernels[2][3][2][2] = {FAMILY_KERNELS(true),
+                                            FAMILY_KERNELS(false)};
+
+// Whether a launch takes two z cells a thread: rows of an even n3 are
+// aligned to words of two cells; bf16 and compensated always pair them,
+// float32 where F32_PAIRS says.
+static bool pairs_for(int bf16, int comp, int n3) {
+  return n3 % 2 == 0 && (bf16 || comp || F32_PAIRS);
+}
+
+// Dynamic shared memory of a launch (Ring<T, V>::bytes) by storage (0
+// float32, 1 bf16, 2 compensated float32) and cells a thread.
+static int launch_smem(int storage, bool pairs, bool j) {
+  switch (storage * 2 + (pairs ? 1 : 0)) {
+    case 0:
+      return Ring<float, 1>::bytes(j, false);
+    case 1:
+      return Ring<float, F32_EVEN_V>::bytes(j, false);
+    case 2:
+      return Ring<bf16_t, 1>::bytes(j, false);
+    case 3:
+      return Ring<bf16_t, 2>::bytes(j, false);
+    case 4:
+      return Ring<float, 1>::bytes(j, true);
+    default:
+      return Ring<float, 2>::bytes(j, true);
+  }
+}
+
+// Lets every kernel take as much dynamic shared memory as the card
+// offers a block and prefer shared memory over L1, once.
+static cudaError_t set_attributes() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  for (int q = 0; q < 24 && err == cudaSuccess; ++q) {
+    const Kernel k = kKernels[q / 12][(q / 4) % 3][(q / 2) % 2][q % 2];
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(k,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+  }
+  if (err == cudaSuccess) done = true;
+  return err;
 }
 
 static int launch(const Params* p, void* stream, bool backward) {
-  const dim3 block(128);
-  // the lane rides the z dimension of the grid, beside the x index
-  if (p->lanes < 1 || (long long)p->n1 * p->lanes > 65535) {
+  cudaError_t err0 = set_attributes();
+  if (err0 != cudaSuccess) return static_cast<int>(err0);
+  if (p->lanes < 1 || p->n_item[0] < 0 || p->n_item[1] < 0) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const dim3 grid((p->n3 + 127) / 128, p->n2, p->n1 * p->lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->R && p->bf16) {  // compensated mode is float32 only
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (p->R) {
-    launch_t<true, float>(p, grid, block, s, backward);
-  } else if (p->bf16) {
-    launch_t<false, bf16_t>(p, grid, block, s, backward);
-  } else {
-    launch_t<false, float>(p, grid, block, s, backward);
+  const bool pairs = pairs_for(p->bf16, p->R != nullptr, p->n3);
+  if (pairs != (p->pairs != 0)) {  // a plan made for another tile width
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int storage = p->R ? 2 : (p->bf16 ? 1 : 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int first = 0;
+  bool launched = false;
+  for (int q = 0; q < 2; ++q) {
+    const int n = p->n_item[q];
+    if (n > 0) {
+      int at = first;
+      void* args[] = {const_cast<Params*>(p), &at};
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(n);
+      cfg.blockDim = dim3(NT);
+      cfg.dynamicSmemBytes = launch_smem(storage, pairs, p->J != nullptr);
+      cfg.stream = s;
+      // the plain section may overlap the slab one (programmatic
+      // dependent launch): they write disjoint cells and read only the
+      // other family and what the work before the launch wrote
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr.val.programmaticStreamSerializationAllowed = 1;
+      cfg.attrs = &attr;
+      cfg.numAttrs = SECTIONS && launched ? 1 : 0;
+      const Kernel k =
+          kKernels[backward ? 0 : 1][storage][pairs ? 1 : 0][q];
+      cudaError_t err =
+          cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(k), args);
+      if (err == cudaSuccess) err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      launched = true;
+    }
+    first += n;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -311,6 +761,41 @@ static int launch(const Params* p, void* stream, bool backward) {
 extern "C" {
 
 int fdtd_params_size() { return static_cast<int>(sizeof(Params)); }
+
+// The geometry a plan must follow for a launch of this build: out = {tile
+// rows, tile columns (also the alignment of the z cuts), sections (1:
+// the plan splits slab and plain items), two cells a thread (1) or
+// one}.
+int fdtd_packed_tile(int bf16, int comp, int n3, int* out) {
+  const bool pairs = pairs_for(bf16, comp, n3);
+  out[0] = TY;
+  out[1] = 32 * (pairs ? 2 : 1);
+  out[2] = SECTIONS;
+  out[3] = pairs ? 1 : 0;
+  return 0;
+}
+
+// Per kernel of kKernels in its order (family, storage, cells a thread,
+// section), four ints: registers a thread, local (spill) bytes a thread,
+// resident blocks an SM (without J or K), static shared bytes.
+int fdtd_packed_occupancy(int* out) {
+  cudaError_t err = set_attributes();
+  for (int q = 0; q < 24 && err == cudaSuccess; ++q) {
+    const Kernel k = kKernels[q / 12][(q / 4) % 3][(q / 2) % 2][q % 2];
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, k);
+    int blocks = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, k, NT, launch_smem((q / 4) % 3, (q / 2) % 2, false));
+    }
+    out[4 * q] = a.numRegs;
+    out[4 * q + 1] = static_cast<int>(a.localSizeBytes);
+    out[4 * q + 2] = blocks;
+    out[4 * q + 3] = static_cast<int>(a.sharedSizeBytes);
+  }
+  return static_cast<int>(err);
+}
 
 int fdtd_e_update(const Params* p, void* stream) {
   return launch(p, stream, true);

@@ -9,19 +9,27 @@ use, bound with ctypes). CUDA C++
 rather than Triton: a stencil with per-cell coefficients and CPML slab
 branches, which wants explicit control of its indexing.
 
-What bounds it on the card: memory bytes. A step does ~60 flops per
-cell against 48 B/cell of unavoidable traffic (E and H read once and
-written once), far below the H100's ~20 flops per byte. Design: the
-TPU kernel's lagged-H carry needs an ordered grid, which CUDA does not
-have, so a step is two launches on the stacked layout, ``e_update``
-then ``h_update``, each updating its family in place. That moves 18
-field volumes (72 B/cell) per step against the 12 (48 B/cell) of the
-reference's fused pass; a single-launch fusion is later work. TFSF and
-the point source are torch plane patches between the launches
-(ops/patches.py), in the plain step's order: E update, E patches, Hinc
-advance, H update, H patches. The x-slab CPML therefore runs in-kernel
-for every source position: the curl that feeds psi never includes a
-source term.
+What bounds it on the card: memory bytes and the requests a thread
+makes. A step does ~60 flops per cell against 48 B/cell of unavoidable
+traffic (E and H read once and written once), far below the H100's ~20
+flops per byte. The TPU kernel's lagged-H carry needs an ordered grid,
+which CUDA does not have, and a single CUDA pass would need a wavefront
+across blocks or a spare copy of E, H, J and K to recompute halos out
+of place (ROADMAP B1(d)), so a step is two launches on the stacked
+layout, ``e_update`` then ``h_update``, each updating its family in
+place: 18 field volumes (72 B/cell) a step. Each launch marches x over
+the (y, z) tiles of a host work plan (``plan_items``, a small int32
+device tensor made once per prepared family, lane count and tile):
+whole aligned 128-byte z rows, the source family read once an item
+through a shared-memory plane ring fed by cp.async, two z cells a
+thread in bf16 and compensated mode (4-byte requests), the coefficient
+grids read only by the items that reach their box (``material``), and
+the items with a CPML slab cell run by their own kernel
+(csrc/packed_eh.cu). TFSF and the point source are torch plane patches
+between the launches (ops/patches.py), in the plain step's order: E
+update, E patches, Hinc advance, H update, H patches. The x-slab CPML
+therefore runs in-kernel for every source position: the curl that feeds
+psi never includes a source term.
 
 bf16 storage (the reference's ``fst = static.field_dtype``,
 pallas_packed.py:591): E and H are bf16, psi, J and the coefficients
@@ -63,7 +71,8 @@ batch executor vmaps). With ``batch=B`` every carry leaf has a leading
 lane axis (``E`` (B, 3, n1, n2, n3), psi (B, 2, ...), ``J``, the
 incident line (B, n)), a coefficient is a host float shared by every
 lane, a shared grid (n1, n2, n3) or a per-lane grid (B, n1, n2, n3), and
-one launch per family advances all B lanes (csrc/packed_eh.cu). The
+one launch per family advances all B lanes (the lane is a column of
+the plan's rows; the grids' box is the union of the lanes'). The
 sources carry per-lane values as device tensors: the TFSF face patch
 its per-lane ``cb``, the point source ``ps_amp * cb`` per lane. A solo
 run (``batch=0``) keeps the carry without the lane axis and launches
@@ -73,8 +82,9 @@ Beside each kernel wrapper stands its plain PyTorch version with the
 same signature (``e_update_plain``/``h_update_plain``), on the solo
 and the lane-stacked layouts alike. A wrapper uses the plain version
 only for tensors on the CPU; on a CUDA tensor it launches the kernel or
-raises. ``e_update.launches`` and ``h_update.launches`` count kernel
-launches (one per launch, whatever the number of lanes).
+raises. ``e_update.launches`` and ``h_update.launches`` count their
+calls (one per call, whatever the number of lanes; a call launches one
+kernel for each non-empty section of the plan).
 """
 
 from __future__ import annotations
@@ -340,7 +350,7 @@ def lane_fc(fc: Dict[str, Any], lane: int) -> Dict[str, Any]:
     def cut(v):
         return v[lane] if isinstance(v, torch.Tensor) and v.dim() == 4 \
             else v
-    out = {k: v for k, v in fc.items() if k != "_params"}
+    out = {k: v for k, v in fc.items() if not k.startswith("_")}
     for key in ("a", "b", "kj", "bj"):
         if fc[key] is not None:
             out[key] = [cut(v) for v in fc[key]]
@@ -378,6 +388,166 @@ def h_update_plain(H, E, psi, fc, K=None, R=None) -> None:
 
 
 # --------------------------------------------------------------------------
+# the kernels' work plan (host side; csrc/packed_eh.cu runs it)
+# --------------------------------------------------------------------------
+
+PLAN_COLS = 8        # j0, k0, ny, nz, x0, x1, lane, flags; mirrors the source
+GRID, SLAB = 1, 2    # plan row flags: reads the grids, has a CPML slab cell
+TILE_ROWS = 8        # rows of a tile (one warp each), the source's TY
+WARP = 32            # threads of a tile row
+F32_PAIRS = False    # the source's F32_PAIRS: two z cells a thread in f32
+SEGMENTS = (16, 8)   # x segment lengths, the first that gives
+ITEMS_PER_SM = 6     # every SM this many items
+
+
+def pairs_for(bf16: bool, comp: bool, n3: int,
+              f32_pairs: bool = F32_PAIRS) -> bool:
+    """Whether a launch takes two z cells a thread (the source's
+    ``pairs_for``): rows of an even n3 are aligned to words of two cells;
+    bf16 and compensated mode always pair them, float32 with
+    ``f32_pairs``."""
+    return n3 % 2 == 0 and (bf16 or comp or f32_pairs)
+
+
+def default_tile(bf16: bool, comp: bool, n3: int
+                 ) -> Tuple[int, int, int, int]:
+    """(tile rows, tile columns, sections, two cells a thread) of the
+    source's default build: what ``fdtd_packed_tile`` reports on the
+    card."""
+    pairs = pairs_for(bf16, comp, n3)
+    return TILE_ROWS, WARP * (2 if pairs else 1), 1, int(pairs)
+
+
+def _pieces(a: int, b: int, k: int) -> List[Tuple[int, int]]:
+    """[a, b) in k near-equal pieces (fewer if it is shorter than k)."""
+    n = b - a
+    k = max(1, min(k, n))
+    cuts = [a + (n * q) // k for q in range(k + 1)]
+    return list(zip(cuts[:-1], cuts[1:])) if n > 0 else []
+
+
+def x_cuts(n: int, m: int, seg: int) -> List[Tuple[int, int]]:
+    """The x segments: the low CPML band, the interior and the high band
+    apart (with an m-plane slab), each in the fewest near-equal pieces of
+    at most ``seg`` planes."""
+    bands = [(0, m), (m, n - m), (n - m, n)] if 0 < m and 2 * m < n \
+        else [(0, n)]
+    out: List[Tuple[int, int]] = []
+    for a, b in bands:
+        out += _pieces(a, b, -(-(b - a) // seg))
+    return out
+
+
+def item_box(item) -> Tuple[Tuple[int, int], ...]:
+    """The cells an item owns and computes (inclusive bounds per axis x,
+    y, z); ``item`` = (j0, k0, ny, nz, x0, x1, ...)."""
+    j0, k0, ny, nz, x0, x1 = (int(v) for v in item[:6])
+    return ((x0, x1 - 1), (j0, j0 + ny - 1), (k0, k0 + nz - 1))
+
+
+def item_slab(shape, m, item) -> bool:
+    """Whether a cell of the item lies in the CPML slab of an axis
+    (``m``: slab planes a side per axis, 0 without)."""
+    box = item_box(item)
+    return any(m[a] > 0 and (box[a][0] < m[a]
+                             or box[a][1] >= shape[a] - m[a])
+               for a in range(3))
+
+
+def reads_grid(item, grids) -> bool:
+    """Whether an item's cells read the coefficient grids: ``grids`` is
+    None (no grid), "all" (everywhere), or the box (inclusive bounds per
+    axis, () when empty) outside which every grid holds its background
+    value (``material``)."""
+    if grids is None or grids == ():
+        return False
+    if grids == "all":
+        return True
+    box = item_box(item)
+    return all(box[a][0] <= grids[a][1] and grids[a][0] <= box[a][1]
+               for a in range(3))
+
+
+def plan_items(shape, m, lanes: int = 1, tile=(TILE_ROWS, WARP), sms=132,
+               grids=None, segments=SEGMENTS, sections: bool = True
+               ) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """A launch's work items: (rows, counts).
+
+    ``rows`` is (n, PLAN_COLS) int32: j0, k0, ny, nz, x0, x1, lane,
+    flags: an owned box of at most ``tile`` (y, z) cells over x planes
+    [x0, x1) of one lane; flags GRID if its cells reach the grids' box
+    (``reads_grid``), SLAB if one lies in a CPML slab (``item_slab``).
+    y is cut into near-equal pieces of at most tile[0] rows, z at the
+    multiples of tile[1] (so every owned row is whole aligned lines), x
+    along its CPML bands into segments (``x_cuts``) of the first length
+    of ``segments`` that gives the card's ``sms`` SMs ``ITEMS_PER_SM``
+    items each (else the last), for every lane: the owned boxes tile
+    each lane's grid exactly once. With ``sections`` the SLAB items come
+    first and ``counts`` = (SLAB items, the others), the slab and the
+    plain kernel's launches; without, every item runs the slab kernel
+    (counts (n, 0)). Each section's items run longest first, ties in
+    plan order. ``m``: slab planes per axis (0: no CPML); ``grids``: as
+    ``reads_grid`` takes it, the same for every lane."""
+    n1, n2, n3 = (int(v) for v in shape)
+    m = tuple(int(v) for v in m)
+    ycuts = _pieces(0, n2, -(-n2 // tile[0]))
+    zcuts = [(k, min(k + tile[1], n3)) for k in range(0, n3, tile[1])]
+    for seg in segments:
+        rows = []
+        for lane in range(lanes):
+            for x0, x1 in x_cuts(n1, m[0], seg):
+                for j0, j1 in ycuts:
+                    for k0, k1 in zcuts:
+                        item = (j0, k0, j1 - j0, k1 - k0, x0, x1)
+                        flags = GRID * reads_grid(item, grids) \
+                            + SLAB * item_slab(shape, m, item)
+                        rows.append(item + (lane, flags))
+        if len(rows) >= ITEMS_PER_SM * sms:
+            break
+    secs: List[list] = [[], []]
+    for r in rows:
+        secs[0 if r[7] & SLAB or not sections else 1].append(r)
+    for sec in secs:
+        sec.sort(key=lambda r: r[5] - r[4], reverse=True)
+    out = np.array(secs[0] + secs[1], dtype=np.int32).reshape(-1, PLAN_COLS)
+    return out, (len(secs[0]), len(secs[1]))
+
+
+def material(fc) -> Tuple[Any, Dict[Tuple[str, int], float]]:
+    """Where a family's coefficient grids (a, b and its ADE current's kj,
+    bj) differ from their background: (``grids`` as ``plan_items`` takes
+    it, the background value of each grid by (key, component)). A grid's
+    background is its value at cell (0, 0, 0), which must be the same on
+    every lane, else every item reads the grids ("all"); the box is the
+    union over the grids and the lanes. ``packed_tb.material``'s rule,
+    for one family of the packed step."""
+    shape = tuple(fc["shape"])
+    lo: List[Any] = [None] * 3
+    hi: List[Any] = [None] * 3
+    bg: Dict[Tuple[str, int], float] = {}
+    for key in ("a", "b", "kj", "bj"):
+        for c, v in enumerate(fc[key] or []):
+            if not isinstance(v, torch.Tensor):
+                continue
+            lanes = v.reshape((-1,) + shape)
+            corner = lanes[:, 0, 0, 0]
+            if not bool((corner == corner[0]).all()):
+                return "all", {}
+            bg[(key, c)] = float(corner[0])
+            mask = (lanes != corner[0]).any(0)
+            for a, proj in enumerate((mask.any(2).any(1), mask.any(2).any(0),
+                                      mask.any(1).any(0))):
+                idx = torch.nonzero(proj).flatten()
+                if idx.numel():
+                    lo[a] = min(int(idx[0]), shape[a] if lo[a] is None
+                                else lo[a])
+                    hi[a] = max(int(idx[-1]), -1 if hi[a] is None else hi[a])
+    if not bg:
+        return None, {}
+    return (() if lo[0] is None else tuple(zip(lo, hi))), bg
+
+
+# --------------------------------------------------------------------------
 # the CUDA kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -401,7 +571,8 @@ class _Params(ctypes.Structure):
                 ("n1", ctypes.c_int), ("n2", ctypes.c_int),
                 ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
                 ("inv_dx", ctypes.c_float), ("inv_dx_lo", ctypes.c_float),
-                ("bf16", ctypes.c_int)]
+                ("bf16", ctypes.c_int), ("pairs", ctypes.c_int),
+                ("plan", ctypes.c_void_p), ("n_item", ctypes.c_int * 2)]
 
 
 def _library() -> ctypes.CDLL:
@@ -411,6 +582,11 @@ def _library() -> ctypes.CDLL:
             f = getattr(lib, fn)
             f.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
             f.restype = ctypes.c_int
+        lib.fdtd_packed_tile.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p]
+        lib.fdtd_packed_tile.restype = ctypes.c_int
+        lib.fdtd_packed_occupancy.argtypes = [ctypes.c_void_p]
+        lib.fdtd_packed_occupancy.restype = ctypes.c_int
         lib.fdtd_params_size.restype = ctypes.c_int
         lib.fdtd_error_string.argtypes = [ctypes.c_int]
         lib.fdtd_error_string.restype = ctypes.c_char_p
@@ -503,18 +679,39 @@ def swap_buffers(carry, spare) -> None:
             carry[fam][a], spare[fam][a] = spare[fam][a], carry[fam][a]
 
 
-def _params(F, S, J, psi, fc, R=None) -> _Params:
-    """The launch's parameter block; the static part (coefficients,
-    profiles) is built and checked once per prepared family, device and
-    lane count. ``J``: the family's ADE current (J or K) or None;
-    ``R``: the bf16 Kahan residuals of compensated mode (``fc["comp"]``
-    set), whose coefficients the kernel takes as scalars only."""
+def _params(F, S, J, psi, fc, R=None, tile=None, sms=132) -> _Params:
+    """The launch's parameter block; the static part (coefficients with
+    each grid's background, profiles, the work plan) is built and checked
+    once per prepared family, device, lane count and tile. ``J``: the
+    family's ADE current (J or K) or None; ``R``: the bf16 Kahan
+    residuals of compensated mode (``fc["comp"]`` set), whose
+    coefficients the kernel takes as scalars only. ``tile``: (rows,
+    columns, sections, two cells a thread) of the library's build
+    (``default_tile`` when None); ``sms``: the card's SM count, for the
+    plan."""
     device = F.device
     shape = fc["shape"]
     lanes, lead = carry_lanes(F)
+    fd = field_dtype(F)
+    comp = fc["comp"]
+    if tile is None:
+        tile = default_tile(fd == torch.bfloat16, comp is not None, shape[2])
+    key = (device, lanes, tuple(tile))
     base = fc.get("_params")
-    if base is None or base[0] != (device, lanes):
+    if base is None or base[0] != key:
         prm = _Params()
+        if comp is not None:
+            for c in range(3):
+                for k in ("a", "b"):
+                    if isinstance(fc[k][c], torch.Tensor) \
+                            or isinstance(comp[f"{k}_lo"][c], torch.Tensor):
+                        raise ValueError(
+                            "the compensated kernel takes scalar "
+                            "coefficients only (packed.declines "
+                            "sends grids to the plain step)")
+                prm.a_lo[c] = float(comp["a_lo"][c])
+                prm.b_lo[c] = float(comp["b_lo"][c])
+            prm.inv_dx_lo = comp["inv_dx_lo"]
         for c in range(3):
             prm.a[c] = _coef_struct(fc["a"][c], f"a[{c}]", shape, device,
                                     lanes)
@@ -525,32 +722,35 @@ def _params(F, S, J, psi, fc, R=None) -> _Params:
                                          device, lanes)
                 prm.bj[c] = _coef_struct(fc["bj"][c], f"bj[{c}]", shape,
                                          device, lanes)
-        for a, m in fc["m"].items():
-            prm.m[a] = m
-            prm.prof[a] = _check(fc["prof"][a], f"prof[{a}]", (3, 2 * m),
+        if "_material" not in fc:
+            fc["_material"] = material(fc)
+        grids, background = fc["_material"]
+        # the items outside the grids' box take each grid's background
+        for (k, c), value in background.items():
+            getattr(prm, k)[c].val = value
+        m = [0, 0, 0]
+        for a, ma in fc["m"].items():
+            m[a] = ma
+            prm.m[a] = ma
+            prm.prof[a] = _check(fc["prof"][a], f"prof[{a}]", (3, 2 * ma),
                                  device)
-            prm.psi_lane[a] = int(np.prod(psi_shape(shape, a, m)))
-        comp = fc["comp"]
-        if comp is not None:
-            for c in range(3):
-                for key in ("a", "b"):
-                    if isinstance(fc[key][c], torch.Tensor) \
-                            or isinstance(comp[f"{key}_lo"][c], torch.Tensor):
-                        raise ValueError(
-                            "the compensated kernel takes scalar "
-                            "coefficients only (packed.declines "
-                            "sends grids to the plain step)")
-                prm.a_lo[c] = float(comp["a_lo"][c])
-                prm.b_lo[c] = float(comp["b_lo"][c])
-            prm.inv_dx_lo = comp["inv_dx_lo"]
+            prm.psi_lane[a] = int(np.prod(psi_shape(shape, a, ma)))
+        rows, counts = plan_items(shape, m, lanes, tile[:2], sms, grids,
+                                  sections=bool(tile[2]))
+        if rows.size >= 2 ** 31:   # the kernel indexes the plan in 32 bits
+            raise ValueError(f"{len(rows)} work items: more than the "
+                             f"kernel's plan index holds")
+        plan = torch.from_numpy(rows).to(device)
+        prm.plan = plan.data_ptr()
+        prm.n_item[0], prm.n_item[1] = counts
+        prm.pairs = tile[3]
         prm.n1, prm.n2, prm.n3 = shape
         prm.lanes = lanes
         prm.field_lane = 3 * shape[0] * shape[1] * shape[2]
         prm.inv_dx = fc["inv_dx"]
-        fc["_params"] = base = ((device, lanes), prm)
+        fc["_params"] = base = (key, prm, plan)
     prm = _Params.from_buffer_copy(base[1])
     full = lead + (3,) + tuple(shape)
-    fd = field_dtype(F)
     prm.F = _check(F, "F", full, device, fd)
     prm.S = _check(S, "S", full, device, fd)
     prm.bf16 = int(fd == torch.bfloat16)
@@ -558,20 +758,59 @@ def _params(F, S, J, psi, fc, R=None) -> _Params:
         prm.J = _check(J, "J" if fc["family"] == "E" else "K", full, device)
     elif fc["kj"] is not None:
         raise ValueError("Drude coefficients given but no J or K stack")
-    if fc["comp"] is not None:
+    if comp is not None:
         if fd != torch.float32:
             raise ValueError("compensated mode needs float32 fields")
         if R is None:
             raise ValueError("compensated mode needs the residual stack")
         prm.R = _check(R, "R", full, device, torch.bfloat16)
-    for a, m in fc["m"].items():
-        prm.psi[a] = _check(psi[a], f"psi[{a}]", psi_shape(shape, a, m, lead),
-                            device)
+    for a, ma in fc["m"].items():
+        prm.psi[a] = _check(psi[a], f"psi[{a}]",
+                            psi_shape(shape, a, ma, lead), device)
     return prm
 
 
-def _launch(fn: str, prm: _Params, device) -> None:
+_SMS: Dict[Any, int] = {}
+
+
+def launch_geometry(lib, F, fc) -> Tuple[Tuple[int, int, int], int]:
+    """(tile, SM count) of a launch on the card: the tile the library was
+    built with for these fields (``fdtd_packed_tile``) and the card's
+    SMs, for the plan."""
+    out = (ctypes.c_int * 4)()
+    lib.fdtd_packed_tile(int(F.dtype == torch.bfloat16),
+                         int(fc["comp"] is not None), fc["shape"][2],
+                         ctypes.addressof(out))
+    if F.device not in _SMS:
+        _SMS[F.device] = torch.cuda.get_device_properties(
+            F.device).multi_processor_count
+    return tuple(out), _SMS[F.device]
+
+
+KERNEL_NAMES = tuple(
+    f"{fam}_{store}_{cells}_{sec}" for fam in ("e", "h")
+    for store in ("f32", "bf16", "comp") for cells in ("one", "pair")
+    for sec in ("slab", "plain"))
+
+
+def occupancy() -> Dict[str, Dict[str, int]]:
+    """Registers and local (spill) bytes a thread, resident blocks an SM
+    and static shared bytes of each kernel of the library, as the CUDA
+    runtime reports them for the card, by ``KERNEL_NAMES``: family,
+    storage (f32, bf16, compensated), one or two z cells a thread, the
+    slab or the plain section."""
     lib = _library()
+    out = (ctypes.c_int * (4 * len(KERNEL_NAMES)))()
+    err = lib.fdtd_packed_occupancy(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fdtd_packed_occupancy failed: CUDA error {err} "
+                           f"({lib.fdtd_error_string(err).decode()})")
+    keys = ("registers", "local_bytes", "blocks_per_sm", "static_smem")
+    return {n: {k: out[4 * q + i] for i, k in enumerate(keys)}
+            for q, n in enumerate(KERNEL_NAMES)}
+
+
+def _launch(lib, fn: str, prm: _Params, device) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(ctypes.byref(prm), ctypes.c_void_p(stream))
     if err != 0:
@@ -586,7 +825,10 @@ def e_update(E, H, J, psi, fc, R=None) -> None:
     if not E.is_cuda:
         e_update_plain(E, H, J, psi, fc, R)
         return
-    _launch("fdtd_e_update", _params(E, H, J, psi, fc, R), E.device)
+    lib = _library()
+    _launch(lib, "fdtd_e_update", _params(E, H, J, psi, fc, R,
+                                          *launch_geometry(lib, E, fc)),
+            E.device)
     e_update.launches += 1
 
 
@@ -596,7 +838,10 @@ def h_update(H, E, psi, fc, K=None, R=None) -> None:
     if not H.is_cuda:
         h_update_plain(H, E, psi, fc, K, R)
         return
-    _launch("fdtd_h_update", _params(H, E, K, psi, fc, R), H.device)
+    lib = _library()
+    _launch(lib, "fdtd_h_update", _params(H, E, K, psi, fc, R,
+                                          *launch_geometry(lib, H, fc)),
+            H.device)
     h_update.launches += 1
 
 

@@ -485,39 +485,16 @@ def plan_items(shape, m, records=(), point=None, tile=TILE, sms=132,
 def material(tb) -> Tuple[Any, Dict[Tuple[str, int], float]]:
     """Where a prepared pass's coefficient grids differ from their
     background: (``grids`` as ``plan_items`` takes it, the background
-    value of each E grid by (key, component)). A grid's background is
-    its value at cell (0, 0, 0), which must be the same on every lane;
-    Drude J or K and grids of the H family read everywhere ("all")."""
+    value of each E grid by (key, component)), the E family's by
+    ``packed.material``'s rule (a grid's background is its value at cell
+    (0, 0, 0), the same on every lane); Drude J or K and grids of the H
+    family read everywhere ("all")."""
     fe, fh = tb["E"], tb["H"]
     if fe["kj"] is not None or fh["kj"] is not None \
             or any(isinstance(v, torch.Tensor)
                    for key in ("a", "b") for v in fh[key]):
         return "all", {}
-    shape = tuple(tb["shape"])
-    lo, hi = [None] * 3, [None] * 3
-    bg: Dict[Tuple[str, int], float] = {}
-    for key in ("a", "b"):
-        for c, v in enumerate(fe[key]):
-            if not isinstance(v, torch.Tensor):
-                continue
-            lanes = v.reshape((-1,) + shape)
-            corner = lanes[:, 0, 0, 0]
-            if not bool((corner == corner[0]).all()):
-                return "all", {}
-            bg[(key, c)] = float(corner[0])
-            mask = (lanes != corner[0]).any(0)
-            for a, proj in enumerate((mask.any(2).any(1), mask.any(2).any(0),
-                                      mask.any(1).any(0))):
-                idx = torch.nonzero(proj).flatten()
-                if idx.numel():
-                    lo[a] = min(int(idx[0]), lo[a] if lo[a] is not None
-                                else shape[a])
-                    hi[a] = max(int(idx[-1]), hi[a] if hi[a] is not None
-                                else -1)
-    if not bg:
-        return None, {}
-    box = () if lo[0] is None else tuple(zip(lo, hi))
-    return box, bg
+    return packed.material(fe)
 
 
 def plan_geometry(tb) -> Tuple[Tuple[int, int, int], Tuple[Tuple[int, int],

@@ -24,14 +24,22 @@ the checkout has them, else its single launch), the two-pass
 ``e_family`` and ``h_family`` launches, and the whole fused and
 two-pass steps, on ``Examples/vacuum3D_tfsf.txt`` at 256^3 after 150
 steps and (512) on ``Examples/sphere3D_mie.txt`` as it stands after 200
-(two-pass steps both); ``--only-fused`` skips the rest. Needs a CUDA
+(two-pass steps both); ``--only-fused`` skips the rest. With
+``--packed`` it also times the packed single step's builds, twice each:
+``e_update``, ``h_update`` and the whole packed step at 256^3 on
+vacuum3D_tfsf after 150 packed steps in float32, bf16 and compensated
+mode, the f32 main path's temporal-blocked step there (half a pass
+call), ``e_update``/``h_update`` (J and K, 18 coefficient grids) and
+the packed step on the double-negative sphere of ``chip_smoke.py``
+phase 23 at 512^3 after 20 steps, and (``--lanes``, 4 unless given)
+the lane-capable launches on the Mie lanes. Needs a CUDA
 device. Compare two commits within one call, in turns (parent, change,
 change, parent), each in its own process: unpack the other commit into
 a directory that ``.gitignore`` lists (``git archive``) and pass it as
 ``PATH``.
 
     python3 scripts/solo_kernel_times.py [PATH] [--lanes 4] [--ds 256,128]
-        [--fused 256,512] [--only-fused]
+        [--fused 256,512] [--only-fused] [--packed]
 """
 
 from __future__ import annotations
@@ -56,7 +64,12 @@ def main() -> int:
                          "and both ladder steps at 256 and/or 512")
     ap.add_argument("--only-fused", action="store_true",
                     help="with --fused: skip the other kernels' times")
+    ap.add_argument("--packed", action="store_true",
+                    help="also time the packed step's builds (f32, bf16, "
+                         "compensated, the DNG sphere at 512^3, lanes)")
     args = ap.parse_args()
+    if args.packed and not args.lanes:
+        args.lanes = 4
     root = os.path.abspath(args.path)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -123,12 +136,69 @@ def main() -> int:
                 bc["E"], bc["H"], bc.get("J"), bc["psE"], kcc["E"]), 5)
             out[f"lanes_h_ms_{rep}"] = cs.timed(lambda: packed.h_update(
                 bc["H"], bc["E"], bc["psH"], kcc["H"]), 5)
+    if args.packed:       # the memory of the states above, released
+        sim = carry = spare = tcc = cc = terms = None
+        bsim = bc = bspare = kcc = bterms = None
+        torch.cuda.empty_cache()
+        out["packed"] = packed_times(cs, dev)
     for size in args.ds.split(",") if args.ds else ():
         out[f"ds_{size}"] = ds_times(cs, dev, size)
     for size in args.fused.split(",") if args.fused else ():
         out[f"fused_{size}"] = fused_times(cs, dev, size)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def packed_times(cs, dev, reps=30):
+    """The packed step's builds (see the module docstring), twice each."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb
+    from fdtd3d_torch.sim import Simulation
+    out = {}
+
+    def launches(key, sim, reps):
+        carry = sim._carry
+        step = packed.make_packed_step(sim.static, dev)
+        cc = step.prepare(sim.coeffs)
+        for rep in range(2):
+            out[f"{key}_e_ms_{rep}"] = cs.timed(lambda: packed.e_update(
+                carry["E"], carry["H"], carry.get("J"), carry["psE"],
+                cc["E"], carry.get("rE")), reps)
+            out[f"{key}_h_ms_{rep}"] = cs.timed(lambda: packed.h_update(
+                carry["H"], carry["E"], carry["psH"], cc["H"],
+                carry.get("K"), carry.get("rH")), reps)
+            out[f"{key}_step_ms_{rep}"] = cs.timed(lambda: step(carry, cc),
+                                                   reps)
+
+    for key, extra in (("f32", []), ("bf16", cs.BF16),
+                       ("comp", ["--compensated"])):
+        torch.cuda.empty_cache()
+        os.environ["FDTD3D_NO_TEMPORAL"] = "1"     # the packed step
+        try:
+            sim = Simulation(cs.config(cs.EXAMPLE, ["--same-size", "256"]
+                                       + extra), device=dev)
+        finally:
+            os.environ.pop("FDTD3D_NO_TEMPORAL")
+        sim.advance(150)
+        launches(key, sim, reps)
+        del sim
+    torch.cuda.empty_cache()
+    sim = Simulation(cs.config(cs.EXAMPLE, ["--same-size", "256"]),
+                     device=dev)
+    sim.advance(150)
+    tb = packed_tb.make_packed_tb_step(sim.static, dev)
+    tcc = tb.prepare(sim.coeffs)
+    for rep in range(2):
+        out[f"tb_step_ms_{rep}"] = cs.timed(lambda: tb(sim._carry, tcc),
+                                            reps) / 2
+    del sim, tb, tcc
+    torch.cuda.empty_cache()
+    sim = Simulation(cs.config(cs.MIE, cs.dng_flags(512, 20)), device=dev)
+    sim.advance(20)
+    launches("dng512", sim, 10)
+    del sim
+    torch.cuda.empty_cache()
+    return out
 
 
 def fused_times(cs, dev, size):
