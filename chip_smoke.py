@@ -99,42 +99,47 @@ every lane):
 
 The kernel ladder below packed (``FDTD3D_NO_PACKED``,
 ``FDTD3D_FORCE_FUSED``, ``FDTD3D_NO_FUSED``), on the two-pass family
-kernel (``csrc/family.cu``, two launches a step) and the
-recompute-fused pass (``csrc/fused_eh.cu``: one call a step, one kernel
-for each non-empty section of its work plan, with the x slab CPML, the
-TFSF record terms and the point source in the kernel):
+kernels (``csrc/family.cu``: two calls a step, ``e_family`` and then
+``h_family``, each one kernel for each non-empty section of its
+family's work plan) and the recompute-fused pass (``csrc/fused_eh.cu``:
+one call a step, one kernel for each non-empty section of its plan),
+both with the x slab CPML, the TFSF record terms and the point source in
+the kernels:
 
-11. one launch of ``e_family``, ``h_family`` and one call of
-   ``fused_eh`` (with its record terms and point-source drive) against
-   their plain versions on seeded inputs, the fused call's worst error
-   also per section (over the cells its items own), then 8 whole
-   two-pass and fused steps against the same steps on the plain
-   versions, at 256^3 (vacuum3D_tfsf), at 128^3 with the eps and Drude
-   spheres, a point source and the TFSF wave, and at the Mie example's
-   512^3 with its coefficient grids; the gate is 2e-6 of each leaf's
-   max;
+11. one call of ``e_family``, ``h_family`` and ``fused_eh`` (with the
+   record terms and point-source drive of the state's step) against
+   their plain versions on seeded inputs, each call's worst error also
+   per section (over the cells its items own; the two-pass sections bit
+   for bit), then 8 whole two-pass (bit for bit) and fused steps
+   against the same steps on the plain versions, at 256^3
+   (vacuum3D_tfsf), at 128^3 with the eps and Drude spheres, a point
+   source and the TFSF wave, and at the Mie example's 512^3 with its
+   coefficient grids; the gate is 2e-6 of each leaf's max;
 12. the ladder's main path through the CLI: ``Examples/vacuum3D_tfsf.txt
    --same-size 256`` (150 steps) and ``Examples/sphere3D_mie.txt`` as it
    stands (512^3, 800 steps), each under ``FDTD3D_NO_PACKED`` +
    ``FDTD3D_NO_FUSED`` (kind ``pallas3d_cuda``) and under
    ``FDTD3D_NO_PACKED`` + ``FDTD3D_FORCE_FUSED`` (kind ``fused_cuda``),
-   with DAT dumps and the finite check: the kind in the log, one launch
-   per family a step (two-pass) or one call a step with the plan's
-   non-empty sections' kernels (fused) and none of the main path's
-   kernels, finite dumps, the TFSF leakage of the vacuum
+   with DAT dumps and the finite check: the kind in the log, one call
+   per family a step with its plan's non-empty sections' kernels
+   (two-pass, counted as ``family_kernels``) or one call a step with the
+   plan's non-empty sections' kernels (fused) and none of the main
+   path's kernels, finite dumps, the TFSF leakage of the vacuum
    runs within 10x of the reference's, and the fused and two-pass dumps
    of each configuration within 1e-5 of the family max of each other;
 13. at 256^3 (150 steps in) and at the Mie example's 512^3 (200 steps
    in), the main path's shapes and coefficient grids: one launch of each
    ladder kernel and one step of each ladder step against their plain
-   versions at 2e-6 of each family's max (the fused call also per
-   section), then same-call CUDA-event times of each ladder launch and
-   its plain version beside its bound, with the fused kernels'
-   registers, spills and blocks an SM, and of the whole two-pass, fused,
-   packed and temporal-blocked steps (the data of ``fused_preferred``);
-   both ladder steps at 256^3 under torch.profiler (launches a step and
-   device busy share; the fused step must stay within
-   ``FUSED_LAUNCHES`` launches a step).
+   versions at 2e-6 of each family's max (each call also per section),
+   then same-call CUDA-event times of each ladder call (the two-pass
+   ones also launched alone from a prebuilt parameter block) and its
+   plain version beside its bound, with the fused kernels' registers,
+   spills and blocks an SM and a ``family`` line for the two-pass ones
+   (registers, spills, blocks an SM, share of the bound), and of the
+   whole two-pass, fused, packed and temporal-blocked steps (the data of
+   ``fused_preferred``); both ladder steps at 256^3 under torch.profiler
+   (launches a step and device busy share; each must stay within
+   ``LADDER_LAUNCHES`` launches a step).
 
 bf16 storage with f32 compute (``--dtype bfloat16``: E and H stored in
 bf16, rounded to nearest even where they are stored; the arithmetic, the
@@ -159,9 +164,10 @@ the bf16 builds of the same four f32 sources:
    storage width (the byte counters with 2-byte fields), the bf16 plain
    versions, the whole steps of both dtypes (Mcells/s), the kernels'
    registers and spills, and the bf16 tb step under torch.profiler;
-17. the ladder in bf16: the CLI at 256^3 under both rungs (launches, the
-   dumps within 5e-2 of the f32 main path's), then 16's checks and times
-   on the Mie example at 512^3, 200 steps in;
+17. the ladder in bf16: the CLI at 256^3 under both rungs (launches and
+   section kernels, the dumps within 5e-2 of the f32 main path's), then
+   16's checks (the two-pass calls per section, bit for bit) and times
+   on the Mie example at 512^3, 200 steps in, with the ``family`` lines;
 18. 3 bf16 lanes at 128^3 (7's batch in bf16): the lane-capable tb pass
    and packed step against their plain versions and each lane against
    the same kernels run solo, bit for bit; 4 bf16 lanes timed at 256^3;
@@ -203,14 +209,17 @@ kernels):
    (2e-6 / 2e-2 of each family's max) and the launches' times;
 24. (C5) the same sphere at 256^3 down the ladder in f32 and bf16: one
    launch of e_family/h_family (K) and one fused call and 8 steps of
-   each ladder step against the plain versions (the fused ones bit for
-   bit), the CLI for 200 steps under ``FDTD3D_FORCE_FUSED`` and under
-   ``FDTD3D_NO_PACKED`` + ``FDTD3D_NO_FUSED``, the launches' times
-   beside their bounds; and 3 K lanes at 128^3 (per-lane omega_pm): the
-   lane-capable packed step against its plain version and each lane
-   against the same kernels run solo, bit for bit, the lane-capable
-   launches' times beside their bound (B times a solo launch's bytes),
-   and the lanes through ``run_batch`` for 8 steps;
+   each ladder step against the plain versions (bit for bit, the
+   two-pass calls per section too), the CLI for 200 steps under
+   ``FDTD3D_FORCE_FUSED`` and under ``FDTD3D_NO_PACKED`` +
+   ``FDTD3D_NO_FUSED`` (one call a step, or one call of each family a
+   step with its plan's section kernels), the launches' times beside
+   their bounds and the ``family`` line; and 3 K lanes at 128^3
+   (per-lane omega_pm): the lane-capable packed step against its plain
+   version and each lane against the same kernels run solo, bit for
+   bit, the lane-capable launches' times beside their bound (B times a
+   solo launch's bytes), and the lanes through ``run_batch`` for 8
+   steps;
 25. (C6) 3 compensated lanes at 128^3 (the compensated example's point
    source and CPML, scalar coefficients shared by every lane, every
    carry leaf of each lane, the residuals included, seeded from its own
@@ -219,10 +228,10 @@ kernels):
    the same kernels run solo, all bit for bit; the launches' times
    beside their bound, and the lanes through ``run_batch`` for 8 steps.
 
-The packed kernels' bound counts each coefficient grid inside the box
-outside which it holds its background value (``packed.material``):
-the kernel reads grids there only. Phase 3 prints the packed kernels'
-registers, spills and blocks an SM.
+The packed and two-pass kernels' bound counts each coefficient grid
+inside the box outside which it holds its background value
+(``packed.material``): the kernels read grids there only. Phase 3
+prints the packed kernels' registers, spills and blocks an SM.
 
 Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 (kernel against plain version, lane against solo) launch the kernels
@@ -267,10 +276,11 @@ STEPS_CMP = 10
 # f32 rounding accumulated over the run: ~1e-6 over hundreds of steps,
 # gated an order above
 LADDER_REL = 1e-5
-# device launches a step of the fused step at 256^3 under the profiler:
-# the two incident-line advances and the record terms (19 torch ops)
-# and at most six section kernels
-FUSED_LAUNCHES = 25
+# device launches a step of each ladder step at 256^3 under the
+# profiler: the two incident-line advances and the record terms (17
+# torch ops), at most six section kernels (the fused pass's, or the
+# two-pass launches' three each) and the run's per-chunk health check
+LADDER_LAUNCHES = 25
 # the reference's packed-ds gates (tests/test_pallas_packed_ds.py)
 DS_FIELD_TOL, DS_VACUUM_TOL, DS_PSI_TOL, DS_J_TOL = 1e-9, 1e-12, 1e-6, 1e-5
 DS_REL_BAR = 2e-7         # tests/test_float32x2.py:206
@@ -973,7 +983,8 @@ def profile_window(sim, steps):
             continue
         device_us += us
         launches += ev.count
-        if any(n in ev.key for n in ("family_update", "tb_section",
+        if any(n in ev.key for n in ("family_update", "family_section",
+                                     "tb_section",
                                      "family_pass", "fused_section",
                                      "ds_section", "ds_line")):
             kernels_us[ev.key] = us / steps
@@ -1314,6 +1325,8 @@ def ladder_launches():
     from fdtd3d_torch.ops import packed, packed_tb, pallas3d, pallas_fused
     return {"e_family": pallas3d.e_family.launches,
             "h_family": pallas3d.h_family.launches,
+            "family_kernels": pallas3d.e_family.kernels
+            + pallas3d.h_family.kernels,
             "fused_eh": pallas_fused.fused_eh.launches,
             "fused_eh_kernels": pallas_fused.fused_eh.kernels,
             "tb_pass": packed_tb.tb_pass.launches,
@@ -1330,6 +1343,7 @@ def reset_launches():
                pallas3d.h_family, pallas_fused.fused_eh):
         fn.launches = 0
     packed_ds.ds_pass.kernels = pallas_fused.fused_eh.kernels = 0
+    pallas3d.e_family.kernels = pallas3d.h_family.kernels = 0
 
 
 def seeded_dict_state(cfg, dev, seed):
@@ -1344,14 +1358,13 @@ def seeded_dict_state(cfg, dev, seed):
     return static, coeffs, state
 
 
-def kernel_args(static, coeffs, state):
-    """The family operands and the in-kernel psi of both families."""
-    from fdtd3d_torch.ops import pallas3d
-    fe = pallas3d.family_operands(static, coeffs, "E")
-    fh = pallas3d.family_operands(static, coeffs, "H")
-    pe = {k: state["psi_E"][k] for v in fe["psi"].values() for _, k in v}
-    ph = {k: state["psi_H"][k] for v in fh["psi"].values() for _, k in v}
-    return fe, fh, pe, ph
+def family_args(static, coeffs, state):
+    """The two-pass launches' arguments on a state, as its step makes
+    them: (e_family's (E, H, psi_E, J, operands, record terms, drive),
+    h_family's (H, E, psi_H, operands, K, record terms)), the record
+    terms after the state's E-incident advance (``fused_args``)."""
+    E, H, pe, ph, J, fp, terms, drive, K = fused_args(static, coeffs, state)
+    return (E, H, pe, J, fp, terms, drive), (H, E, ph, fp, K, terms)
 
 
 def as_tree(outs, names):
@@ -1363,18 +1376,18 @@ def fused_args(static, coeffs, state):
     old E, H, the psi of every slab axis, J, the prepared operands, the
     record terms after the state's E-incident advance, the point
     source's drive, K."""
-    from fdtd3d_torch.ops import pallas3d, pallas_fused, tfsf
-    fp = pallas_fused.prepare(static, coeffs)
+    from fdtd3d_torch.ops import pallas3d, tfsf
+    fp = pallas3d.prepare(static, coeffs)
     terms = None
     if static.tfsf_setup is not None:
         inc = tfsf.advance_einc(state["inc"], coeffs, state["t"], static.dt,
                                 static.omega, static.tfsf_setup)
         terms = tfsf.record_terms(fp["plan"], inc)
     psi = [{k: state[key][k] for v in pallas3d.kernel_psi_terms(
-        static, fam, x_slab=True).values() for _, k in v}
+        static, fam).values() for _, k in v}
         for key, fam in (("psi_E", "E"), ("psi_H", "H"))]
     return (state["E"], state["H"], psi[0], psi[1], state.get("J"), fp,
-            terms, pallas_fused.point_drive(static, fp, state["t"]),
+            terms, pallas3d.point_drive(static, fp, state["t"]),
             state.get("K"))
 
 
@@ -1385,10 +1398,28 @@ def fused_section_errors(fp, got, want):
     """The fused call's worst absolute error on E and H over the cells
     each section's items own: section name -> error (None when the plan
     has no item there)."""
-    import torch
     from fdtd3d_torch.ops import pallas_fused
     first = next(iter(got["E"].values()))
     rows, counts = pallas_fused.device_plan(fp, first.device)
+    return section_errors(rows, counts, pallas_fused.SECTIONS, got, want,
+                          ("E", "H"))
+
+
+def family_section_errors(fp, family, got, want):
+    """A two-pass launch's worst absolute error on its family over the
+    cells each section's items own (its plan on the card, as the launch
+    cached it): section name -> error (None when empty)."""
+    from fdtd3d_torch.ops import pallas3d
+    rows, counts = fp[f"_plan_{family}"][1]
+    return section_errors(rows, counts, pallas3d.SECTIONS, got, want,
+                          (family,))
+
+
+def section_errors(rows, counts, names, got, want, fams):
+    """The worst absolute error over the fields ``fams`` of ``got``
+    against ``want`` on the cells each section's items own."""
+    import torch
+    first = next(iter(got[fams[0]].values()))
     rows = rows.cpu().numpy()
     owner = torch.full(first.shape, -1, dtype=torch.int8,
                        device=first.device)
@@ -1398,13 +1429,14 @@ def fused_section_errors(fp, got, want):
             owner[x0:x1, j0:j0 + ny, k0:k0 + nz] = q
         q0 += n
     out = {}
-    for q, name in enumerate(pallas_fused.SECTIONS):
+    for q, name in enumerate(names):
         if not counts[q]:
             out[name] = None
             continue
         mask = owner == q
-        out[name] = max(float(((got[f][c] - want[f][c]).abs() * mask).max())
-                        for f in ("E", "H") for c in got[f])
+        out[name] = max(float(((got[f][c].float() - want[f][c].float())
+                               .abs() * mask).max())
+                        for f in fams for c in got[f])
     return out
 
 
@@ -1425,27 +1457,117 @@ def fused_sections_per_step(static, dev):
     return sum(n > 0 for n in counts)
 
 
+def family_sections_per_step(static, dev):
+    """Non-empty sections of the two-pass launches' plans for ``static``
+    on the card (the default build's tile): their kernels a step."""
+    import torch
+    from fdtd3d_torch.ops import packed_tb, pallas3d
+    from fdtd3d_torch.solver import slab_axes
+    shape = tuple(static.grid_shape)
+    m = tuple(slab_axes(static).get(a, 0) for a in range(3))
+    recs = packed_tb.tfsf_records(static)
+    ps = static.cfg.point_source
+    tile = pallas3d.default_tile(static.cfg.dtype == "bfloat16", shape[2])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 0
+    for fam in ("E", "H"):
+        point = tuple(ps.position) if ps.enabled and fam == "E" else None
+        _, counts = pallas3d.plan_items(
+            shape, m, [(r.axis, r.plane) for r in recs[fam]], point,
+            tile[:2], sms)
+        n += sum(c > 0 for c in counts)
+    return n
+
+
+FAMILY_OUTS = {"e_family": ("E", "psi", "J"), "h_family": ("H", "psi", "K")}
+
+
+def family_calls(static, coeffs, st):
+    """(name, kernel wrapper, plain version, arguments, output names) of
+    the two-pass launches on a state (``family_args``)."""
+    from fdtd3d_torch.ops import pallas3d
+    e_args, h_args = family_args(static, coeffs, st)
+    return (("e_family", pallas3d.e_family, pallas3d.e_family_plain, e_args,
+             FAMILY_OUTS["e_family"]),
+            ("h_family", pallas3d.h_family, pallas3d.h_family_plain, h_args,
+             FAMILY_OUTS["h_family"]))
+
+
+def family_sections_check(label, name, args, got, want):
+    """Each section kernel of a two-pass launch against the plain
+    version on the cells its items own: printed; the launch is built
+    without FMA contraction and must reproduce the plain version's bits
+    in every section."""
+    fam = name[0].upper()
+    errs = family_section_errors(args[4] if fam == "E" else args[3], fam,
+                                 got, want)
+    say(f"{label}: one {name} launch per section, max abs err "
+        + json.dumps(errs))
+    if any(v for v in errs.values()):
+        fail(f"{label}: a {name} section kernel differs from the plain "
+             f"version: {errs}")
+    return errs
+
+
+def family_launch_ms(name, args, reps):
+    """CUDA-event ms of one two-pass launch from one prebuilt parameter
+    block (no host set-up timed; ``name``: e_family or h_family)."""
+    from fdtd3d_torch.ops import pallas3d
+    lib = pallas3d._library()
+    fam = name[0].upper()
+    if fam == "E":
+        F, S, psi, J, fp, terms, drive = args
+    else:
+        F, S, psi, fp, J, terms = args
+        drive = None
+    first = F[fp[fam]["comps"][0]]
+    prm = pallas3d._params(F, S, psi, J, fp, fam, terms, drive,
+                           *pallas3d.launch_geometry(lib, first,
+                                                     fp["shape"][2]))[0]
+    fn = "fdtd_e_family" if fam == "E" else "fdtd_h_family"
+    return timed(lambda: pallas3d.launch(lib, fn, prm, first.device), reps)
+
+
+def family_report(label, times, suffix=""):
+    """One line on the two-pass launches at a shape: the kernels'
+    registers, local (spill) bytes and resident blocks an SM (the CUDA
+    runtime's), each launch's ms (its wrapper, and the launch alone),
+    its bound and its share of the bound. ``times``: a phase's dict with
+    ``{name}{suffix}_ms``, ``_launch_ms`` and ``_bound_ms`` keys."""
+    from fdtd3d_torch.ops import pallas3d
+    rec = {"label": label, "kernels": {
+        k: [v["registers"], v["local_bytes"], v["blocks_per_sm"]]
+        for k, v in pallas3d.occupancy().items()}}
+    for name in ("e_family", "h_family"):
+        k = f"{name}{suffix}"
+        if f"{k}_ms" not in times:
+            continue
+        rec[k] = {"ms": times[f"{k}_ms"],
+                  "launch_ms": times.get(f"{k}_launch_ms"),
+                  "bound_ms": times[f"{k}_bound_ms"],
+                  "bound_share": times[f"{k}_bound_ms"] / times.get(
+                      f"{k}_launch_ms", times[f"{k}_ms"])}
+    say("family (registers, local bytes, blocks an SM per kernel; ms, "
+        "bound, share): " + json.dumps(rec))
+    return rec
+
+
 def ladder_vs_plain(cfg, dev, seed, label, steps=8, tol=TOL):
-    """Phase 11: one launch of e_family, h_family and one fused_eh call
-    against their plain versions on seeded inputs (the fused call also
-    per section), then ``steps`` whole steps of the two-pass and the
-    fused step against the same steps on the plain versions, from one
-    seeded state (the steps do not mutate it); the worst absolute errors
-    per kernel."""
+    """Phase 11: one launch of e_family, h_family (each per section, bit
+    for bit) and one fused_eh call (also per section) against their
+    plain versions on seeded inputs with the state's record terms and
+    drive, then ``steps`` whole steps of the two-pass (bit for bit) and
+    the fused step against the same steps on the plain versions, from
+    one seeded state (the steps do not mutate it); the worst absolute
+    errors per kernel."""
     import torch
     from fdtd3d_torch.ops import pallas3d, pallas_fused
     static, coeffs, st = seeded_dict_state(cfg, dev, seed)
-    fe, fh, pe, ph = kernel_args(static, coeffs, st)
-    J = st.get("J")
     fargs = fused_args(static, coeffs, st)
     err = {}
-    for name, fn, plain, args, outs in (
-            ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
-             (st["E"], st["H"], pe, J, fe), ("E", "psi", "J")),
-            ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
-             (st["H"], st["E"], ph, fh, st.get("K")), ("H", "psi", "K")),
+    for name, fn, plain, args, outs in family_calls(static, coeffs, st) + (
             ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
-             fargs, FUSED_OUTS)):
+             fargs, FUSED_OUTS),):
         got = as_tree(fn(*args), outs)
         want = as_tree(plain(*args), outs)
         torch.cuda.synchronize()
@@ -1454,6 +1576,11 @@ def ladder_vs_plain(cfg, dev, seed, label, steps=8, tol=TOL):
         if name == "fused_eh":
             say(f"{label}: one fused_eh call per section, max abs err "
                 + json.dumps(fused_section_errors(fargs[5], got, want)))
+        else:
+            family_sections_check(label, name, args, got, want)
+            if err[name] != 0.0:
+                fail(f"{label}: one {name} launch is not bit-equal to its "
+                     f"plain version ({err[name]:.3e})")
     for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
                              ("fused", pallas_fused.make_fused_eh_step)):
         k_step = build_step(static, dev)
@@ -1465,8 +1592,11 @@ def ladder_vs_plain(cfg, dev, seed, label, steps=8, tol=TOL):
             sp = p_step(sp, cc)
         torch.cuda.synchronize()
         key = "e_family" if name == "pallas3d" else "fused_eh"
-        err[key] = max(err[key], compare(
-            sk, sp, f"{label}: {steps} {k_step.kind} steps", tol=tol))
+        e = compare(sk, sp, f"{label}: {steps} {k_step.kind} steps", tol=tol)
+        if name == "pallas3d" and e != 0.0:
+            fail(f"{label}: {steps} two-pass steps are not bit-equal to "
+                 f"the plain steps ({e:.3e})")
+        err[key] = max(err[key], e)
         del sk, sp
     say(f"{label}: one launch and {steps} steps of each ladder kernel match "
         f"the plain versions (max abs err {json.dumps(err)})")
@@ -1548,48 +1678,51 @@ def rel_fields(got, want):
 
 
 def ladder_bytes(static, coeffs, state, kernel):
-    """Bytes a launch must move: each field, psi, J, K and coefficient grid
-    it reads once (a grid whole, though the fused pass reads it only
-    inside the box where it differs from its background), each output
-    written once. ``kernel``: e_family, h_family or fused_eh (its psi of
-    every slab axis, x included, and the record terms). E and H at their
-    storage width, everything else f32."""
+    """Bytes a launch must move: each field, psi, J and K it reads once,
+    each output written once. ``kernel``: e_family or h_family (its
+    family's psi of every slab axis, its TFSF records' plane terms, its
+    coefficient grids inside the box outside which they hold their
+    background, as the kernels read them: ``grid_cells``) or fused_eh
+    (both families, the record terms, every grid whole, though the pass
+    reads them only inside that box).
+    E and H at their storage width, everything else f32."""
+    import numpy as np
     import torch
-    from fdtd3d_torch.ops import packed_tb, tfsf
+    from fdtd3d_torch.ops import pallas3d, tfsf
     cells = static.grid_shape[0] * static.grid_shape[1] \
         * static.grid_shape[2]
     vol = 4 * cells
     fvol = next(iter(state["E"].values())).element_size() * cells
     fams = {"e_family": "E", "h_family": "H", "fused_eh": "EH"}[kernel]
     n = (6 + 3 * len(fams)) * fvol         # both families read, own written
-    keys = []
-    if kernel == "fused_eh" and static.tfsf_setup is not None:
-        plan = tfsf.build_record_plan(static, coeffs,
-                                      packed_tb.tfsf_records(static))
-        n += 4 * (plan.total if plan is not None else 0)
+    fp = pallas3d.prepare(static, coeffs)
+    if fp["plan"] is not None:
+        if kernel == "fused_eh":
+            n += 4 * fp["plan"].total
+        else:
+            n += 4 * sum(int(np.prod(tfsf.plane_shape(fp["shape"], axis)))
+                         for _, axis, _, _ in fp[f"rec_{fams}"])
     for fam in fams:
         psi = state["psi_E" if fam == "E" else "psi_H"] \
             if "psi_E" in state else {}
-        n += sum(2 * v.numel() * 4 for k, v in psi.items()
-                 if kernel == "fused_eh" or not k.endswith("_x"))
-        ade, pq = ("J", ("kj", "bj")) if fam == "E" else ("K", ("km", "bm"))
-        if ade in state:
-            n += 2 * 3 * vol
-            keys += [f"{p}_{c}" for p in pq for c in state[ade]]
-        comps = static.mode.e_components if fam == "E" \
-            else static.mode.h_components
-        pa = ("ca", "cb") if fam == "E" else ("da", "db")
-        keys += [f"{p}_{c}" for p in pa for c in comps]
-    n += sum(coeffs[k].numel() * 4 for k in keys
-             if isinstance(coeffs[k], torch.Tensor))
+        n += sum(2 * v.numel() * 4 for v in psi.values())
+        n += 2 * 3 * vol * (("J" if fam == "E" else "K") in state)
+        fc = fp[fam]
+        box = None if kernel == "fused_eh" else grid_cells(fc)
+        for key in ("a", "b", "kj", "bj"):
+            for v in fc[key] or []:
+                if isinstance(v, torch.Tensor):
+                    n += 4 * (v.numel() if box is None else box)
     return n
 
 
-def ladder_flops(static, state, kernel):
-    """Flops of a launch: per component two differences (sub, mul, add
-    into the accumulator) and the update (2 mul + 1 add), 7 per slab psi
-    cell, 4 per Drude J or K cell; the fused pass does both families,
-    with the psi of x too."""
+def ladder_ops(static, state, kernel):
+    """Operations of a launch at the f32 peak's scale: per component two
+    differences (sub, mul, add into the accumulator) and the update (2
+    mul + 1 add), 7 per slab psi cell, 4 per Drude J or K cell, the
+    fused pass both families; the ladder's kernels are built without
+    FMA contraction, so the flops count at the non-FMA rate (x F32_FLOPS
+    / F32_NONFMA_OPS)."""
     cells = static.grid_shape[0] * static.grid_shape[1] \
         * static.grid_shape[2]
     f = 0
@@ -1597,11 +1730,10 @@ def ladder_flops(static, state, kernel):
         f += 3 * cells * (2 * 3 + 3)
         psi = state["psi_E" if fam == "E" else "psi_H"] \
             if "psi_E" in state else {}
-        f += sum(v.numel() * 7 for k, v in psi.items()
-                 if kernel == "fused_eh" or not k.endswith("_x"))
+        f += sum(v.numel() * 7 for v in psi.values())
         if ("J" if fam == "E" else "K") in state:
             f += 3 * cells * 4
-    return f
+    return f * F32_FLOPS / F32_NONFMA_OPS
 
 
 def ladder_times(cfg, dev, advance, reps, plain_reps, label):
@@ -1619,18 +1751,12 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
     sim.advance(advance)
     static, coeffs = sim.static, sim.coeffs
     st = sim.state
-    fe, fh, pe, ph = kernel_args(static, coeffs, st)
-    J = st.get("J")
     fargs = fused_args(static, coeffs, st)
     out = {"shape": list(static.grid_shape), "advance": advance}
     err = {}
-    for name, fn, plain, args, outs in (
-            ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
-             (st["E"], st["H"], pe, J, fe), ("E", "psi", "J")),
-            ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
-             (st["H"], st["E"], ph, fh, st.get("K")), ("H", "psi", "K")),
+    for name, fn, plain, args, outs in family_calls(static, coeffs, st) + (
             ("fused_eh", pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
-             fargs, FUSED_OUTS)):
+             fargs, FUSED_OUTS),):
         got = as_tree(fn(*args), outs)
         want = as_tree(plain(*args), outs)
         torch.cuda.synchronize()
@@ -1642,17 +1768,21 @@ def ladder_times(cfg, dev, advance, reps, plain_reps, label):
             out["fused_occupancy"] = pallas_fused.occupancy()
             out["fused_plan_counts"] = list(pallas_fused.device_plan(
                 fargs[5], dev)[1])
+        else:
+            out[f"{name}_section_err"] = family_sections_check(
+                label, name, args, got, want)
+            fam = name[0].upper()
+            out[f"{name}_plan_counts"] = list(
+                (args[4] if fam == "E" else args[3])[f"_plan_{fam}"][1][1])
         del got, want
         out[f"{name}_ms"] = timed(lambda: fn(*args), reps)
+        if name != "fused_eh":
+            out[f"{name}_launch_ms"] = family_launch_ms(name, args, reps)
         out[f"{name}_plain_ms"] = timed(lambda: plain(*args), plain_reps)
         nbytes = ladder_bytes(static, coeffs, st, name)
         out[f"{name}_bytes"] = nbytes
-        # the fused pass is built without FMA contraction: its
-        # operations issue at the non-FMA rate
-        flops = ladder_flops(static, st, name)
         out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = bound(
-            nbytes, flops * F32_FLOPS / F32_NONFMA_OPS
-            if name == "fused_eh" else flops)
+            nbytes, ladder_ops(static, st, name))
     for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
                              ("fused", pallas_fused.make_fused_eh_step)):
         k_step = build_step(static, dev)
@@ -1767,7 +1897,6 @@ def bf16_times(cfg32, cfg16, dev, advance, reps, plain_reps, label):
         _, terms, drive = packed_tb.generation_terms(
             static, o["tcc"]["tb"], carry.get("inc"), carry["t"])
         o["st"] = st = sim.state
-        fe, fh, pe, ph = kernel_args(static, coeffs, st)
         spare = packed.alloc_like(carry)
         o["calls"] = {
             "tb_pass": (packed_tb.tb_pass, packed_tb.tb_pass_plain,
@@ -1778,10 +1907,8 @@ def bf16_times(cfg32, cfg16, dev, advance, reps, plain_reps, label):
             "h_update": (packed.h_update, packed.h_update_plain,
                          (carry["H"], carry["E"], carry["psH"],
                           o["pcc"]["H"])),
-            "e_family": (pallas3d.e_family, pallas3d.e_family_plain,
-                         (st["E"], st["H"], pe, st.get("J"), fe)),
-            "h_family": (pallas3d.h_family, pallas3d.h_family_plain,
-                         (st["H"], st["E"], ph, fh)),
+            **{name: (fn, plain, args) for name, fn, plain, args, _ in
+               family_calls(static, coeffs, st)},
             "fused_eh": (pallas_fused.fused_eh, pallas_fused.fused_eh_plain,
                          fused_args(static, coeffs, st))}
         for name, build_step in (("pallas3d", pallas3d.make_pallas_step),
@@ -1810,14 +1937,15 @@ def bf16_times(cfg32, cfg16, dev, advance, reps, plain_reps, label):
             got, want = pass_fields(got), pass_fields(want)
             tol = BF16_TOL
         else:
-            outs = {"e_family": ("E", "psi", "J"), "h_family": ("H", "psi"),
-                    "fused_eh": FUSED_OUTS}[name]
+            outs = dict(FAMILY_OUTS, fused_eh=FUSED_OUTS)[name]
             got = as_tree(fn(*args), outs)
             want = as_tree(plain(*args), outs)
             tol = BF16_TOL
         torch.cuda.synchronize()
         err[name] = compare(got, want, f"{label}: one bf16 {name} launch",
                             family=True, tol=tol)
+        if name in FAMILY_OUTS:
+            family_sections_check(f"{label} bf16", name, args, got, want)
         del got, want
     # times, f32 and bf16 in turns
     cells = 1
@@ -1828,6 +1956,9 @@ def bf16_times(cfg32, cfg16, dev, advance, reps, plain_reps, label):
         for dt in ("f32", "bf16"):
             fn, plain, args = ops[dt]["calls"][name]
             out[f"{name}_{dt}_ms"] = timed(lambda: fn(*args), reps)
+            if name in FAMILY_OUTS:
+                out[f"{name}_{dt}_launch_ms"] = family_launch_ms(
+                    name, args, reps)
         fn, plain, args = o["calls"][name]
         out[f"{name}_bf16_plain_ms"] = timed(lambda: plain(*args),
                                              plain_reps)
@@ -1843,9 +1974,7 @@ def bf16_times(cfg32, cfg16, dev, advance, reps, plain_reps, label):
             else:
                 nbytes = ladder_bytes(d["static"], d["sim"].coeffs, d["st"],
                                       name)
-                flops = ladder_flops(d["static"], d["st"], name)
-                if name == "fused_eh":   # built without FMA contraction
-                    flops = flops * F32_FLOPS / F32_NONFMA_OPS
+                flops = ladder_ops(d["static"], d["st"], name)
             out[f"{name}_{dt}_bytes"] = nbytes
             out[f"{name}_{dt}_bound_ms"], out[f"{name}_{dt}_bound_by"] = \
                 bound(nbytes, flops)
@@ -1871,6 +2000,8 @@ def bf16_times(cfg32, cfg16, dev, advance, reps, plain_reps, label):
             "fused": {k: [v["registers"], v["local_bytes"],
                           v["blocks_per_sm"]]
                       for k, v in pallas_fused.occupancy().items()}}
+    out["family"] = {dt: family_report(f"{label}, {dt}", out, f"_{dt}")
+                     for dt in ("f32", "bf16")}
     say(f"bf16 vs f32 times ({label}): " + json.dumps(out))
     say(f"{label}: one launch of each bf16 kernel on the run's state "
         f"matches its plain version (max abs err {json.dumps(err)})")
@@ -1917,6 +2048,8 @@ def bf16_ladder_cli(cfg256, f32_fields, dev):
     runs, fields = {}, {}
     n = cfg256.time_steps
     sections = fused_sections_per_step(build_static(cfg256), dev)
+    family_sections = family_sections_per_step(build_static(config(
+        EXAMPLE, ["--same-size", "256"] + BF16)), dev)
     for kind, names in (("pallas3d_cuda", ("FDTD3D_NO_PACKED",
                                            "FDTD3D_NO_FUSED")),
                         ("fused_cuda", ("FDTD3D_NO_PACKED",
@@ -1927,6 +2060,7 @@ def bf16_ladder_cli(cfg256, f32_fields, dev):
             names, kind, cfg256)
         two = kind == "pallas3d_cuda"
         want = {"e_family": n if two else 0, "h_family": n if two else 0,
+                "family_kernels": n * family_sections if two else 0,
                 "fused_eh": 0 if two else n,
                 "fused_eh_kernels": 0 if two else n * sections,
                 "tb_pass": 0, "e_update": 0, "h_update": 0}
@@ -2306,6 +2440,7 @@ def dng_ladder(dev, steps, reps, plain_reps, size=256):
     import torch
     from fdtd3d_torch.ops import pallas3d, pallas_fused
     from fdtd3d_torch.sim import Simulation
+    from fdtd3d_torch.solver import build_static
     out, err = {}, {}
     for dtype in ("float32", "bfloat16"):
         tol = TOL if dtype == "float32" else BF16_TOL
@@ -2326,9 +2461,11 @@ def dng_ladder(dev, steps, reps, plain_reps, size=256):
                                  ["--cmd-from-file", MIE] + flags, kind,
                                  "magnetic_drude", (size,) * 3, steps)
             n = rec["launches"]
-            want = {"fused_eh": steps if key == "fused" else 0,
-                    "e_family": 0 if key == "fused" else steps,
-                    "h_family": 0 if key == "fused" else steps,
+            two = 0 if key == "fused" else steps
+            want = {"fused_eh": steps - two, "e_family": two,
+                    "h_family": two, "family_kernels":
+                        two * family_sections_per_step(build_static(cfg),
+                                                       dev),
                     "tb_pass": 0, "e_update": 0, "h_update": 0}
             if any(n[k] != v for k, v in want.items()):
                 fail(f"{label} {kind}: launches {n}, want {want}")
@@ -2336,22 +2473,17 @@ def dng_ladder(dev, steps, reps, plain_reps, size=256):
         sim = Simulation(cfg, device=dev)
         sim.advance(steps)
         static, coeffs, st = sim.static, sim.coeffs, sim.state
-        fe, fh, pe, ph = kernel_args(static, coeffs, st)
-        for name, fn, plain, args in (
-                ("e_family", pallas3d.e_family, pallas3d.e_family_plain,
-                 (st["E"], st["H"], pe, st["J"], fe)),
-                ("h_family", pallas3d.h_family, pallas3d.h_family_plain,
-                 (st["H"], st["E"], ph, fh, st["K"])),
+        for name, fn, plain, args, _ in family_calls(static, coeffs, st) + (
                 ("fused_eh", pallas_fused.fused_eh,
                  pallas_fused.fused_eh_plain,
-                 fused_args(static, coeffs, st))):
+                 fused_args(static, coeffs, st), None),):
             k = f"{name}_{dtype}"
             out[f"{k}_ms"] = timed(lambda: fn(*args), reps)
+            if name != "fused_eh":
+                out[f"{k}_launch_ms"] = family_launch_ms(name, args, reps)
             out[f"{k}_plain_ms"] = timed(lambda: plain(*args), plain_reps)
             nbytes = ladder_bytes(static, coeffs, st, name)
-            flops = ladder_flops(static, st, name)
-            if name == "fused_eh":   # built without FMA contraction
-                flops = flops * F32_FLOPS / F32_NONFMA_OPS
+            flops = ladder_ops(static, st, name)
             out[f"{k}_bytes"] = nbytes
             out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bound(nbytes,
                                                                flops)
@@ -2361,6 +2493,8 @@ def dng_ladder(dev, steps, reps, plain_reps, size=256):
             cc = k_step.prepare(coeffs)
             out[f"{name}_step_{dtype}_ms"] = timed(lambda: k_step(st, cc),
                                                    reps)
+        out[f"family_{dtype}"] = family_report(
+            f"DNG sphere {size}^3 {dtype}", out, f"_{dtype}")
         del sim, st
         torch.cuda.empty_cache()
     say(f"DNG ladder ({size}^3): " + json.dumps(out))
@@ -3000,8 +3134,10 @@ def main() -> int:
                                      cfg_l)
             n = cfg_l.time_steps
             sections = fused_sections_per_step(build_static(cfg_l), dev)
-            want = {"e_family": n if kind == "pallas3d_cuda" else 0,
-                    "h_family": n if kind == "pallas3d_cuda" else 0,
+            two = kind == "pallas3d_cuda"
+            want = {"e_family": n if two else 0, "h_family": n if two else 0,
+                    "family_kernels": n * family_sections_per_step(
+                        build_static(cfg_l), dev) if two else 0,
                     "fused_eh": n if kind == "fused_cuda" else 0,
                     "fused_eh_kernels":
                         n * sections if kind == "fused_cuda" else 0,
@@ -3034,6 +3170,8 @@ def main() -> int:
     t256, e256 = ladder_times(cfg256, dev, steps, reps, 2, "256^3")
     t512, e512 = ladder_times(mie512, dev, 200, 10, 1, "512^3 Mie")
     result["ladder_times_256"], result["ladder_times_512"] = t256, t512
+    result["family_256"] = family_report("256^3, phase 13", t256)
+    result["family_512"] = family_report("512^3 Mie, phase 13", t512)
     for k in ladder_err:
         ladder_err[k] = max(ladder_err[k], e256[k], e512[k])
     result["max_abs_err"].update(
@@ -3047,11 +3185,10 @@ def main() -> int:
             del sim
         say(f"{kind} step at 256^3 under torch.profiler: "
             + json.dumps(prof))
-        if kind == "fused_cuda" \
-                and prof["launches_per_step"] > FUSED_LAUNCHES:
-            fail(f"the fused step at 256^3 launched "
+        if prof["launches_per_step"] > LADDER_LAUNCHES:
+            fail(f"the {kind} step at 256^3 launched "
                  f"{prof['launches_per_step']} kernels a step (at most "
-                 f"{FUSED_LAUNCHES})")
+                 f"{LADDER_LAUNCHES})")
 
     # ---- phase 14: the bf16 kernels vs their plain versions --------------
     mie128 = mie + ["--point-source", "Ez", "--angle-teta", "30",
@@ -3235,10 +3372,21 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": main_launches[key],
-            "max_abs_err": ladder_err[key], "ms": t256[f"{key}_ms"],
+            "max_abs_err": ladder_err[key],
+            "ms": t256.get(f"{key}_launch_ms", t256[f"{key}_ms"]),
             "plain_ms": t256[f"{key}_plain_ms"],
             "bound_ms": t256[f"{key}_bound_ms"],
             "bound_by": t256[f"{key}_bound_by"], "library_ms": None})
+    mie_run = ladder_main["mie512_pallas3d_cuda"]["launches"]
+    for key in ("e_family", "h_family"):
+        kernels.append({
+            "name": f"family.{key}[Mie 512]", "route": "cuda",
+            "source": fam_src, "replaces": "fdtd3d_tpu/ops/pallas3d.py:293",
+            "launches": mie_run[key], "max_abs_err": ladder_err[key],
+            "ms": t512[f"{key}_launch_ms"],
+            "plain_ms": t512[f"{key}_plain_ms"],
+            "bound_ms": t512[f"{key}_bound_ms"],
+            "bound_by": t512[f"{key}_bound_by"], "library_ms": None})
     for kname, key, source, replaces, launches_n, bt in (
             ("packed_tb.pass[bf16]", "tb_pass", tb_src,
              "fdtd3d_tpu/ops/pallas_packed_tb.py:900",
@@ -3262,7 +3410,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches_n,
-            "max_abs_err": bf16_err[key], "ms": bt[f"{key}_bf16_ms"],
+            "max_abs_err": bf16_err[key],
+            "ms": bt.get(f"{key}_bf16_launch_ms", bt[f"{key}_bf16_ms"]),
             "plain_ms": bt[f"{key}_bf16_plain_ms"],
             "bound_ms": bt[f"{key}_bf16_bound_ms"],
             "bound_by": bt[f"{key}_bf16_bound_by"], "library_ms": None})
@@ -3320,7 +3469,8 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": dng_l[f"cli_{cli_key}_{dt}"]["launches"][key],
                 "max_abs_err": dng_l_err[dt][key],
-                "ms": dng_l[f"{key}_{dt}_ms"],
+                "ms": dng_l.get(f"{key}_{dt}_launch_ms",
+                                dng_l[f"{key}_{dt}_ms"]),
                 "plain_ms": dng_l[f"{key}_{dt}_plain_ms"],
                 "bound_ms": dng_l[f"{key}_{dt}_bound_ms"],
                 "bound_by": dng_l[f"{key}_{dt}_bound_by"],

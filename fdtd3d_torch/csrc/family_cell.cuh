@@ -1,18 +1,18 @@
 // Per-cell arithmetic of one field family's update for the two-pass
 // kernels (csrc/family.cu), with the parameter blocks (mirrored in
-// ctypes by fdtd3d_torch/ops/pallas3d.py) and index helpers that the
-// recompute-fused pass (csrc/fused_eh.cu) fills and uses too; the fused
-// pass has its own per-cell code (every axis's psi, records, point
-// source).
+// ctypes by fdtd3d_torch/ops/pallas3d.py), index helpers and the TFSF
+// record table that the recompute-fused pass (csrc/fused_eh.cu) fills
+// and uses too; the fused pass has its own per-cell code.
 //
 // Arrays are per component (n1, n2, n3), C order, z innermost: the
 // fields float32 or bf16 (Grid.bf16; csrc/storage.cuh), everything else
 // float32.
-// A curl term of component c is s * dfa, plus, on a y or z CPML slab,
-// s * ((ik - 1) dfa + psi') with psi' = b psi + c dfa on the compact
-// slab psi (2m planes along the axis). x is the reference's "post"
-// axis: its psi delta is added after the launch
-// (ops/pallas3d.x_slab_post), so no x term carries psi here.
+// A curl term of component c is s * dfa, plus, on a CPML slab of its
+// axis (x, y or z alike), s * ((ik - 1) dfa + psi') with
+// psi' = b psi + c dfa on the compact slab psi (2m planes along the
+// axis). Every helper below does the plain version's operations
+// (fdtd3d_torch/ops/pallas3d.py::_family_plain) in its order, so a
+// library built without FMA contraction reproduces its bits.
 
 #pragma once
 
@@ -23,7 +23,8 @@
 
 struct Coef {
   const float* grid;  // (n1, n2, n3) or nullptr
-  float val;          // used when grid is nullptr
+  float val;          // used when grid is nullptr, and by the items
+                      // outside the grids' box: the grid's background
 };
 
 // One family's operands.
@@ -31,8 +32,8 @@ struct FamOps {
   const void* F[3];           // old components (float or bf16 words)
   void* out[3];               // new components (float or bf16 words)
   const float* psi_in[3][2];  // per component, per curl term: the
-  float* psi_out[3][2];       // compact slab psi of a y/z CPML axis, or
-                              // nullptr (no in-kernel psi on that term)
+  float* psi_out[3][2];       // compact slab psi of a CPML axis, or
+                              // nullptr (no CPML on that term's axis)
   const float* prof[3];       // per axis a: (3, 2 m[a]) rows b, c, 1/kappa
   Coef a[3];                  // ca (E) / da (H)
   Coef b[3];                  // cb (E) / db (H)
@@ -49,7 +50,7 @@ struct Drude {
 };
 
 struct Grid {
-  int m[3];      // slab planes per side of the y/z CPML axes; m[0] = 0
+  int m[3];      // slab planes per side of each CPML axis (0: none)
   int n[3];      // n1, n2, n3
   float inv_dx;
   int bf16;      // the fields are bf16 words (else float32)
@@ -75,100 +76,138 @@ __device__ __forceinline__ constexpr int term_comp(int c, int t) {
   return (c + 2 - t) % 3;
 }
 
-__device__ __forceinline__ float coef(const Coef& c, int64_t cell) {
-  return c.grid ? c.grid[cell] : c.val;
-}
-
-__device__ __forceinline__ int64_t cell_index(const Grid& g,
-                                              const int idx[3]) {
-  return (static_cast<int64_t>(idx[0]) * g.n[1] + idx[1]) * g.n[2] + idx[2];
-}
-
 // Slab plane of index ia on an axis of n cells with m planes a side, or
-// -1 outside the two slabs.
+// -1 outside the two slabs (always with m = 0).
 __device__ __forceinline__ int slab_plane(int ia, int n, int m) {
   return ia < m ? ia : (ia >= n - m ? ia - (n - 2 * m) : -1);
 }
 
-// Index of cell idx in the compact slab psi of axis a (1 or 2) at slab
-// plane q.
-__device__ __forceinline__ int64_t psi_index(const Grid& g, int a, int q,
-                                             const int idx[3]) {
-  const int64_t m2 = 2 * g.m[a];
-  if (a == 1) return (static_cast<int64_t>(idx[0]) * m2 + q) * g.n[2] + idx[2];
-  return (static_cast<int64_t>(idx[0]) * g.n[1] + idx[1]) * m2 + q;
+// Offset of cell (i, j, k) in the compact slab psi of axis a at slab
+// plane q: (2m, n2, n3), (n1, 2m, n3) or (n1, n2, 2m) (m2 = 2m).
+__device__ __forceinline__ int64_t slab_offset(int a, int q, int i, int j,
+                                               int k, int n2, int n3,
+                                               int m2) {
+  if (a == 0) return (static_cast<int64_t>(q) * n2 + j) * n3 + k;
+  if (a == 1) return (static_cast<int64_t>(i) * m2 + q) * n3 + k;
+  return (static_cast<int64_t>(i) * n2 + j) * m2 + q;
 }
 
-// Curl accumulator of component c at cell idx: its two terms from
-// diff(t), term t's difference along term_axis(c, t) already over dx,
-// each with its slab psi recursion where the family has one. The new
-// psi is written when `write`.
-template <class Diff>
-__device__ __forceinline__ float curl_acc(const FamOps& f, const Grid& g,
-                                          int c, const int idx[3],
-                                          bool write, Diff diff) {
-  float acc = 0.f;
+// Curl term t of a component (sign + for t = 0, - for t = 1) from its
+// difference over dx, dfa. With q >= 0 (the cell lies on slab plane q
+// of the term's axis) the CPML recursion psi' = b psi + c dfa on the
+// compact slab psi at `off` (read from pin, written to pout; profile
+// rows pr of m2 = 2m values each) and its correction are added.
+__device__ __forceinline__ float curl_term(int t, float dfa, int q,
+                                           const float* pr, int m2,
+                                           const float* pin, float* pout,
+                                           int64_t off) {
+  float term = t == 0 ? dfa : -dfa;
+  if (q >= 0) {
+    const float psi = pr[q] * pin[off] + pr[m2 + q] * dfa;
+    pout[off] = psi;
+    const float fix = (pr[2 * m2 + q] - 1.f) * dfa + psi;
+    term = term + (t == 0 ? fix : -fix);
+  }
+  return term;
+}
+
+// A component's new value from its curl accumulator `acc` (records
+// already in): the ADE current jn (J' taken off E's acc, BACKWARD; K'
+// added to H's; `ade` whether the family has one), then, where `pcell`
+// (the point source's cell and component, E only), the source's
+// `drive`; then a old + b acc (E) or a old - b acc (H), and for E the
+// PEC walls (`wall`) last, so nothing added on a wall cell survives.
+template <bool BACKWARD>
+__device__ __forceinline__ float new_value(float old, float acc, float a,
+                                           float b, bool ade, float jn,
+                                           bool pcell, float drive,
+                                           bool wall) {
+  if (ade) acc = BACKWARD ? acc - jn : acc + jn;
+  if (BACKWARD && pcell) acc = acc + drive;
+  if (BACKWARD) return wall ? 0.f : a * old + b * acc;
+  return a * old - b * acc;
+}
+
+// TFSF records (csrc/family.cu, csrc/fused_eh.cu): each adds its plane
+// term (ops/tfsf.py::record_terms' vector) to one component's
+// accumulator on one plane.
+#define MAX_REC 16  // records of a family; mirrors ops/pallas3d.py
+
+struct Rec {
+  int off;    // offset of the record's plane cells in the terms vector
+  int comp;   // component index within the family
+  int axis;   // normal axis of the plane
+  int plane;  // index of the plane along `axis`
+};
+
+// A family's record table in shared memory (a kernel copies it from its
+// parameter block once: indexing the parameter block with a runtime
+// index is slow), with the bits of each component's records and of the
+// x-normal records.
+struct RecTable {
+  int comp[MAX_REC];
+  int axis[MAX_REC];
+  int plane[MAX_REC];
+  int off[MAX_REC];
+  unsigned cbits[3];
+  unsigned xbits;
+};
+
+// The n records `rec` into `rt`, by the block's threads (`tid`).
+__device__ __forceinline__ void copy_table(const Rec* rec, int n, int tid,
+                                           RecTable& rt) {
+  if (tid < n) {
+    rt.comp[tid] = rec[tid].comp;
+    rt.axis[tid] = rec[tid].axis;
+    rt.plane[tid] = rec[tid].plane;
+    rt.off[tid] = rec[tid].off;
+  }
+  if (tid == 0) {
+    unsigned cb0 = 0u, cb1 = 0u, cb2 = 0u, xb = 0u;
 #pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int a = term_axis(c, t);
-    const float s = t == 0 ? 1.f : -1.f;
-    const float dfa = diff(t);
-    float term = s * dfa;
-    const float* pin = f.psi_in[c][t];
-    if (pin != nullptr) {
-      const int m = g.m[a];
-      const int q = slab_plane(idx[a], g.n[a], m);
-      if (q >= 0) {
-        const int64_t off = psi_index(g, a, q, idx);
-        const float* pr = f.prof[a];
-        const float psi = pr[q] * pin[off] + pr[2 * m + q] * dfa;
-        if (write) f.psi_out[c][t][off] = psi;
-        term = term + s * ((pr[4 * m + q] - 1.f) * dfa + psi);
+    for (int r = 0; r < MAX_REC; ++r) {
+      if (r < n) {
+        const unsigned bit = 1u << r;
+        const int c = rec[r].comp;
+        cb0 |= c == 0 ? bit : 0u;
+        cb1 |= c == 1 ? bit : 0u;
+        cb2 |= c == 2 ? bit : 0u;
+        xb |= rec[r].axis == 0 ? bit : 0u;
       }
     }
-    acc = t == 0 ? term : acc + term;
+    rt.cbits[0] = cb0;
+    rt.cbits[1] = cb1;
+    rt.cbits[2] = cb2;
+    rt.xbits = xb;
   }
-  return acc;
 }
 
-// New E component c at cell idx from its curl accumulator: the Drude
-// current taken off, ca E + cb acc, and the PEC walls (tangential E
-// vanishes on the walls of the two axes other than its own). J' and E'
-// are written when `write`. T: the fields' storage type.
-template <typename T>
-__device__ __forceinline__ float e_value(const FamOps& e, const Drude& dr,
-                                         const Grid& g, int c,
-                                         const int idx[3], int64_t cell,
-                                         float acc, bool write) {
-  const float old = ld(fld<T>(e.F, c) + cell);
-  if (dr.Jin[c] != nullptr) {
-    const float jn = coef(dr.kj[c], cell) * dr.Jin[c][cell] +
-                     coef(dr.bj[c], cell) * old;
-    if (write) dr.Jout[c][cell] = jn;
-    acc = acc - jn;
+// The y- and z-normal records whose plane holds column (j, k).
+__device__ __forceinline__ unsigned column_bits(const RecTable& rt, int n,
+                                                int j, int k) {
+  unsigned bits = 0u;
+  for (int r = 0; r < n; ++r) {
+    const int a = rt.axis[r];
+    if (a != 0 && (a == 1 ? j : k) == rt.plane[r]) bits |= 1u << r;
   }
-  float v = coef(e.a[c], cell) * old + coef(e.b[c], cell) * acc;
-#pragma unroll
-  for (int w = 0; w < 3; ++w) {
-    if (w != c && (idx[w] == 0 || idx[w] == g.n[w] - 1)) v = 0.f;
-  }
-  if (write) st(fld<T>(e.out, c) + cell, v);
-  return v;
+  return bits;
 }
 
-// New H component c at `cell` from its curl accumulator: the magnetic
-// Drude current K' (`dk`, null pointers without it) added (the dual of
-// J's sign on E), then da H - db acc. K' and H' are written.
-template <typename T>
-__device__ __forceinline__ void h_value(const FamOps& h, const Drude& dk,
-                                        int c, int64_t cell, float old,
-                                        float acc) {
-  if (dk.Jin[c] != nullptr) {
-    const float kn = coef(dk.kj[c], cell) * dk.Jin[c][cell] +
-                     coef(dk.bj[c], cell) * old;
-    dk.Jout[c][cell] = kn;
-    acc = acc + kn;
+// The x-normal records on plane x (the same for every thread).
+__device__ __forceinline__ unsigned plane_bits(const RecTable& rt, int x) {
+  unsigned bits = 0u;
+  for (unsigned z = rt.xbits; z; z &= z - 1) {
+    const int r = __ffs(z) - 1;
+    bits |= rt.plane[r] == x ? 1u << r : 0u;
   }
-  st(fld<T>(h.out, c) + cell,
-     coef(h.a[c], cell) * old - coef(h.b[c], cell) * acc);
+  return bits;
+}
+
+// Index of cell (i, j, k) inside the plane of a record whose normal is
+// `axis` (C order over the two other axes).
+__device__ __forceinline__ int plane_index(int axis, int i, int j, int k,
+                                           int n2, int n3) {
+  if (axis == 0) return j * n3 + k;
+  if (axis == 1) return i * n3 + k;
+  return i * n2 + j;
 }

@@ -137,7 +137,6 @@
 
 #include "family_cell.cuh"
 
-#define MAX_REC 16      // records per family; mirrors ops/pallas_fused.py
 #define PLAN_COLS 8     // ints a plan row: j0, k0, ny, nz, x0, x1, class, grid
 #define SECTIONS 6      // edge, edge_x, edge_y, edge_z, source, inner
 #define MAX_SLAB_SUM 256  // CPML planes a side summed over the axes
@@ -174,13 +173,6 @@
 #error "PIPE must lie in [1, 5]"
 #endif
 
-struct Rec {
-  int off;    // offset of the record's plane cells in the terms vector
-  int comp;   // component index within the family
-  int axis;   // normal axis of the plane
-  int plane;  // index of the plane along `axis`
-};
-
 struct Params {
   FamOps e;               // E: old and fresh fields, psi of every slab
   FamOps h;               // axis (x too), profiles, ca/cb; H: da/db
@@ -195,78 +187,6 @@ struct Params {
   float drive;            // ps_amp * waveform(t)
   int n_item[SECTIONS];   // items of each section, in launch order
 };
-
-// One family's record table in shared memory (the kernel copies it from
-// the parameter block once: indexing the parameter block with a runtime
-// index is slow), with the bits of each component's records and of the
-// x-normal records.
-struct RecTable {
-  int comp[MAX_REC];
-  int axis[MAX_REC];
-  int plane[MAX_REC];
-  int off[MAX_REC];
-  unsigned cbits[3];
-  unsigned xbits;
-};
-
-__device__ __forceinline__ void copy_table(const Params& p, int f, int tid,
-                                           RecTable& rt) {
-  const int n = p.n_rec[f];
-  if (tid < n) {
-    rt.comp[tid] = p.rec[f][tid].comp;
-    rt.axis[tid] = p.rec[f][tid].axis;
-    rt.plane[tid] = p.rec[f][tid].plane;
-    rt.off[tid] = p.rec[f][tid].off;
-  }
-  if (tid == 0) {
-    unsigned cb0 = 0u, cb1 = 0u, cb2 = 0u, xb = 0u;
-#pragma unroll
-    for (int r = 0; r < MAX_REC; ++r) {
-      if (r < n) {
-        const unsigned bit = 1u << r;
-        const int c = p.rec[f][r].comp;
-        cb0 |= c == 0 ? bit : 0u;
-        cb1 |= c == 1 ? bit : 0u;
-        cb2 |= c == 2 ? bit : 0u;
-        xb |= p.rec[f][r].axis == 0 ? bit : 0u;
-      }
-    }
-    rt.cbits[0] = cb0;
-    rt.cbits[1] = cb1;
-    rt.cbits[2] = cb2;
-    rt.xbits = xb;
-  }
-}
-
-// The y- and z-normal records whose plane holds column (j, k).
-__device__ __forceinline__ unsigned column_bits(const RecTable& rt, int n,
-                                                int j, int k) {
-  unsigned bits = 0u;
-  for (int r = 0; r < n; ++r) {
-    const int a = rt.axis[r];
-    if (a != 0 && (a == 1 ? j : k) == rt.plane[r]) bits |= 1u << r;
-  }
-  return bits;
-}
-
-// The x-normal records on plane x (the same for every thread).
-__device__ __forceinline__ unsigned plane_bits(const RecTable& rt, int x) {
-  unsigned bits = 0u;
-  for (unsigned z = rt.xbits; z; z &= z - 1) {
-    const int r = __ffs(z) - 1;
-    bits |= rt.plane[r] == x ? 1u << r : 0u;
-  }
-  return bits;
-}
-
-// Index of cell (i, j, k) inside the plane of a record whose normal is
-// `axis` (C order over the two other axes).
-__device__ __forceinline__ int plane_index(int axis, int i, int j, int k,
-                                           int n2, int n3) {
-  if (axis == 0) return j * n3 + k;
-  if (axis == 1) return i * n3 + k;
-  return i * n2 + j;
-}
 
 // Offset of cell (i, j, k) in a compact slab psi of axis a at slab plane
 // q: (2m, n2, n3), (n1, 2m, n3) or (n1, n2, 2m).
@@ -475,8 +395,8 @@ __device__ __forceinline__ void march(const Params& p, int first) {
   const int lim = min(n1, x1 + 1);
 
   if (SRC) {
-    copy_table(p, 0, tid, tab[0]);
-    copy_table(p, 1, tid, tab[1]);
+    copy_table(p.rec[0], p.n_rec[0], tid, tab[0]);
+    copy_table(p.rec[1], p.n_rec[1], tid, tab[1]);
   }
   if (AX != 0) {
     for (int f = 0; f < 2; ++f) {

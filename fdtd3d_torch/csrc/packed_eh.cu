@@ -165,7 +165,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "storage.cuh"
+#include "march.cuh"
 
 #ifndef TY
 #define TY 8  // rows of a tile, one warp each
@@ -270,33 +270,6 @@ __device__ __forceinline__ int64_t psi_offset(int a, int row, int q, int i,
   return ((row * n1 + i) * n2 + j) * m2 + q;
 }
 
-// V consecutive cells as floats from a word of T at p (aligned to the
-// word), and back (bf16 rounded to nearest even, each cell).
-template <int V, typename T>
-__device__ __forceinline__ void ldv(const T* p, float (&out)[V]) {
-  if constexpr (V == 1) {
-    out[0] = ld(p);
-  } else if constexpr (sizeof(T) == 4) {
-    const float2 w = *reinterpret_cast<const float2*>(p);
-    out[0] = w.x;
-    out[1] = w.y;
-  } else {
-    const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(p);
-    out[0] = __low2float(w);
-    out[1] = __high2float(w);
-  }
-}
-template <int V, typename T>
-__device__ __forceinline__ void stv(T* p, const float (&v)[V]) {
-  if constexpr (V == 1) {
-    st(p, v[0]);
-  } else if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  }
-}
-
 // A coefficient's V cells: its grid where the item reads grids, else its
 // scalar (for an item outside the grids' box, the grid's background).
 template <int V>
@@ -310,35 +283,11 @@ __device__ __forceinline__ void coef_v(const Coef& c, bool grid, int lane,
   }
 }
 
-// Copy of one word of V cells of T from device memory into the ring:
-// cp.async (4 or 8 bytes), or, for a lone bf16 cell, an ordinary load
-// and store (published by the same barrier).
-template <int V, typename T>
-__device__ __forceinline__ void copy_word(T* dst, const T* src) {
-  constexpr int BYTES = V * static_cast<int>(sizeof(T));
-  if constexpr (BYTES == 4 || BYTES == 8) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES)
-                 : "memory");
-  } else {
-    *dst = *src;
-  }
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Shared memory of a block, for fields of T and V cells a thread: the
 // source ring (SLOTS planes of the tile, its halo row and halo column
 // word, three components), then the own rings of the same depth (the
 // old family, J or K when the launch has it, the residuals in
 // compensated mode: the owned cells only, each thread's own words).
-constexpr int round16(int b) { return (b + 15) / 16 * 16; }
 template <typename T, int V>
 struct Ring {
   static constexpr int TZ = 32 * V;       // owned columns of a tile

@@ -34,12 +34,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # contraction, and never fast math (it would flush the subnormal low
 # words to zero). fused_eh computes redundant halo cells that must have
 # their owner's bits whichever section kernel computes them: no FMA
-# contraction either.
+# contraction either. family computes each cell once, and is built
+# without contraction so that it reproduces its plain version's bits.
 LIBRARY_FLAGS: Dict[str, Tuple[str, ...]] = {
     "packed_eh": (),
     "packed_ds": ("--fmad=false",),
     "packed_tb": (),
-    "family": (),
+    "family": ("--fmad=false",),
     "fused_eh": ("--fmad=false",),
 }
 

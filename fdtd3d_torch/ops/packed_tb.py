@@ -54,7 +54,7 @@ Lanes (the reference's ``batch=B`` build of this kernel): with
 ``ops/packed.py``), and one call advances all B lanes by two steps.
 The record table is geometry and serves every lane; the record terms
 are (2, B, total), one row per generation and lane, from the
-lane-stacked incident line in the same eight ops as a solo run; the
+lane-stacked incident line in the same six ops as a solo run; the
 point source's drive is a (B, 2) device tensor, ``ps_amp`` of each lane
 times ``waveform(t+g-1)``. A solo run (``batch=0``) is one lane, and a
 launch of one lane takes its drive as two host floats (kernel

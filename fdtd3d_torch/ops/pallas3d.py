@@ -1,69 +1,84 @@
-"""Two-pass family step: one CUDA launch per field family, thin patches.
+"""Two-pass family step: one x-marching CUDA launch per field family.
 
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas3d.py::make_family_kernel`` (builder :167, kernel
 body :293, ``pallas_call`` :507), through its step
 ``make_pallas_step`` (:1068), for 3D real float32 and bf16 storage,
-unsharded, with the
-hand-written CUDA C++ kernel ``fdtd3d_torch/csrc/family.cu``
-(``sm_90a``, built by nvcc at first use, bound with ctypes). CUDA C++
-rather than Triton: a stencil on per-component pointers with slab CPML
-branches and per-cell or scalar coefficients, which wants explicit
-control of its indexing, like the port's other kernels.
+unsharded, with the hand-written CUDA C++ kernel
+``fdtd3d_torch/csrc/family.cu`` (``sm_90a``, built by nvcc at first
+use, bound with ctypes). CUDA C++ rather than Triton: a marching stencil
+with shared-memory plane rings fed by cp.async and CPML slab branches,
+like the port's other kernels.
 
 The module is named after the reference's, so a reader finds
 ``fdtd3d_tpu/ops/pallas3d.py`` from it. It runs on the unpacked state
 dict (the plain step's form: the chunk runner's ``packed`` is False),
 and does not mutate the state it is given: every kernel writes its
-outputs into fresh tensors, and the patches add onto those.
+outputs into fresh tensors.
 
-A step, in the reference's order (:1101-1183):
+What each launch computes: the whole new family, nothing patched
+afterwards. ``e_family``: the curl of H by backward differences, the
+CPML psi of every slab axis (x too, on the compact ``(2m, n2, n3)``
+psi), the TFSF E record terms (added into the accumulator at their
+planes before the cb multiply), Drude J, the point source's drive after
+it, ca/cb (scalar or grid) and the PEC walls last. ``h_family``: H from
+forward differences of that E, its psi of every axis, the TFSF H record
+terms and magnetic Drude K. The reference instead computes the pure x
+curl in its kernel and patches the x slab (``x_slab_post`` :852), the
+TFSF faces (``tfsf_patch`` :961) and the point source
+(``point_source_patch`` :1012) onto each kernel's output.
 
-1. the E-incident line advance;
-2. the E-family kernel (``e_family``): the curl of H by backward
-   differences, ca/cb (scalar or grid), the y/z slab psi recursions and
-   their accumulator deltas, the **pure** curl on x, Drude J, the PEC
-   wall masks, PEC zero ghosts outside the domain;
-3. the x-slab CPML post-pass (``x_slab_post``): the x psi recursion and
-   its delta on the 2m boundary planes of x;
-4. the TFSF E patch and the point source (``tfsf_patch``,
-   ``point_source_patch``);
-5. the H-incident line advance;
-6. the H-family kernel (``h_family``, forward differences of the new E);
-7. the H x-slab post-pass;
-8. the TFSF H patch.
+A step: the E-incident line advance; ``tfsf.record_terms`` (E records
+sample Hinc before its advance, H records Einc after its advance: both
+known here, as in the fused step); ``e_family`` (one kernel for each
+non-empty section of its plan, at most 3); the H-incident line advance;
+``h_family`` (at most 3 kernels). Nothing else runs on the fields.
 
-What bounds the kernel on the card: memory bytes. A family launch reads
-the old family and the other family (6 volumes) and writes the new
-family (3), so a step moves 18 field volumes (72 B/cell f32) plus the
-y/z psi slabs, against ~30 flops a cell per family.
-
-The patch helpers are thin torch counterparts of the reference's jnp
-helpers (``slab_post``/``x_slab_post`` :722/:852, ``plane_corrections``
-:859, ``tfsf_patch`` :961, ``point_source_patch`` :1012), unsharded
-only. Each adds in place onto the fresh field tensors it is given. The
-TFSF geometry comes from ``ops/tfsf.py``, the functions the plain
-step uses, so the two cannot drift; it is planned once per coefficient
-dict (``tfsf_plan``) and a step's patch is a few ops per face.
+The work plan (``plan_items``, one per family, made once per prepared
+operand set, card and tile, a small int32 device tensor): (y, z) tiles
+of ``TILE_ROWS`` rows by 32 V columns (V = 2 z cells a thread where n3
+is even, else 1; z cut at multiples of the tile's width) over x
+segments cut along the x CPML bands, each item classed by the cells it
+owns (``item_class``): SLAB (a CPML slab cell), SOURCE (a cell on one of
+the family's record planes, or the point source's cell for E), PLAIN.
+The sections of ``SECTIONS`` run them, each by its own kernel.
+``packed.material`` finds, per family, the box outside which its
+coefficient grids hold their background value; only the items that
+reach it read the grids (the plan row's flag). The CPU tests check the
+plan and emulate the march item by item
+(tests/test_torch_family_plan.py).
 
 Beside each kernel wrapper stands its plain PyTorch version with the
-same signature (``e_family_plain``/``h_family_plain``): the CPU tests
-use it and ``chip_smoke.py`` holds the kernel against it on the card.
-A wrapper takes the plain version only for tensors on the CPU; on a
-CUDA tensor it launches the kernel or raises. ``e_family.launches`` and
-``h_family.launches`` count kernel launches.
+same signature (``e_family_plain``/``h_family_plain``), in the kernel's
+order: the CPU step (kind ``pallas3d_plain``) runs it, the CPU tests
+hold it against the reference's interpret-mode kernel and jnp step, and
+``chip_smoke.py`` holds the kernel against it on the card. A wrapper
+takes the plain version only for tensors on the CPU; on a CUDA tensor it
+launches the kernel or raises. ``e_family.launches`` and
+``h_family.launches`` count calls; ``.kernels`` the section kernels
+those calls launched.
 
-bf16 storage: the kernels load E and H as floats, compute in f32 (psi,
-J and the coefficients are f32) and round their outputs to bf16; the
-patches then add their values rounded to bf16 onto those outputs, as
-the reference's post-passes do (``val.astype(fdt)`` and an add in the
-field dtype: two roundings on a patched cell).
+The plain version in the kernel's order, against the reference's
+patches. The reference adds ``cb * delta`` (the x slab), ``cb * term``
+(a TFSF record) and ``ps_amp * cb * waveform`` (the point source) onto
+its kernel's ``ca E + cb acc``; here they go into ``acc`` before the one
+multiply, ``ca E + cb (acc + delta + term + drive)``. In float32 that
+moves a patched cell by a rounding or two of its value, far inside the
+2e-6 gate. With bf16 storage the reference rounds a patched cell twice
+(the kernel's store, then the patch's ``.astype(fdt)`` and its add in
+bf16) and this kernel once, where it stores: the two results differ by
+at most about one bf16 rounding of the cell (2^-8 of its value, 4e-3),
+and only on the patched planes, so the port stays inside the
+reference's own bf16 gate, 2e-2 of each family's max, against its
+interpret-mode ``pallas`` rung and its jnp step
+(tests/test_torch_ladder.py holds it on every case of
+tests/torch_parity.py and a K sphere). H is computed from the stored
+(rounded) E in both.
 
 Magnetic Drude K (the reference's ``drude = static.use_drude_m`` of the
 H family, :191): ``h_family`` reads and writes K as ``e_family`` does
-J, ``K' = km K + bm H`` added to the H accumulator before the
-coefficient step (J is taken off E's), km/bm scalars or grids; the x
-slab's delta is then added by the post-pass, as in the reference.
+J, ``K' = km K + bm H`` added to the H accumulator after its records
+(J is taken off E's), km/bm scalars or grids.
 
 Out of scope here, and raising ``NotImplementedError`` with the
 ROADMAP.md item (the reference's kernel accepts them): sharded runs
@@ -73,21 +88,22 @@ ROADMAP.md item (the reference's kernel accepts them): sharded runs
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fdtd3d_torch.layout import CURL_TERMS, component_axis
-from fdtd3d_torch.ops import build, tfsf
+from fdtd3d_torch.ops import build, packed, packed_tb, tfsf
 from fdtd3d_torch.ops.packed import _check as check
 from fdtd3d_torch.ops.packed import family_value, field_dtype
-from fdtd3d_torch.ops.sources import host_round, waveform
+from fdtd3d_torch.ops.sources import waveform
 from fdtd3d_torch.ops.stencil import make_diff_ops
-from fdtd3d_torch.solver import _bcast1d, _slab_fix, slab_axes
+from fdtd3d_torch.solver import _slab_fix, slab_axes
 
 AXES = "xyz"
 _LIB = "family"
+MAX_REC = 16          # records of a family; mirrors csrc/family.cu
 _diff_b, _diff_f = make_diff_ops()
 
 
@@ -113,12 +129,10 @@ def check_scope(static, what: str) -> None:
         out(f"topology {tuple(static.topology)}", "A11")
 
 
-def kernel_psi_terms(static, family: str,
-                     x_slab: bool = False) -> Dict[str, List[Tuple[int, str]]]:
+def kernel_psi_terms(static, family: str) -> Dict[str, List[Tuple[int, str]]]:
     """component -> [(term index, psi key)] of the psi the family's
-    kernel updates in-kernel: the slab axes y and z (x is the two-pass
-    step's post-pass axis, the reference's ``_classify`` :159), and x
-    too with ``x_slab`` (the recompute-fused pass)."""
+    kernels update: the terms along every slab-compacted CPML axis, x
+    included."""
     slabs = slab_axes(static)
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
@@ -126,24 +140,22 @@ def kernel_psi_terms(static, family: str,
     for c in comps:
         terms = CURL_TERMS[component_axis(c)]
         out[c] = [(t, f"{c}_{AXES[a]}") for t, (a, _d, _s) in enumerate(terms)
-                  if (x_slab or a != 0) and a in slabs]
+                  if a in slabs]
     return out
 
 
-def family_operands(static, coeffs, family: str,
-                    x_slab: bool = False) -> Dict[str, Any]:
+def family_operands(static, coeffs, family: str) -> Dict[str, Any]:
     """One family's kernel operands from device coefficients: the
     material coefficients per component (host float or grid; the ADE
     current's, Drude J's kj/bj or K's km/bm, under ``kj``/``bj``), the
-    slab CPML profiles (3, 2m) of the in-kernel axes (y and z; x too
-    with ``x_slab``), the in-kernel psi keys, and the wall vectors (used
-    by the plain version)."""
+    slab CPML profiles (3, 2m) of every slab axis, the in-kernel psi
+    keys, and the wall vectors (used by the plain version)."""
     from fdtd3d_torch.ops.packed import ade_keys
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
     tag = "e" if family == "E" else "h"
     pa, pb = ("ca", "cb") if family == "E" else ("da", "db")
-    slabs = {a: m for a, m in slab_axes(static).items() if x_slab or a != 0}
+    slabs = dict(slab_axes(static))
     fc: Dict[str, Any] = {
         "family": family, "comps": tuple(comps),
         "shape": tuple(static.grid_shape),
@@ -151,7 +163,7 @@ def family_operands(static, coeffs, family: str,
         "a": [coeffs[f"{pa}_{c}"] for c in comps],
         "b": [coeffs[f"{pb}_{c}"] for c in comps],
         "kj": None, "bj": None, "m": slabs, "prof": {},
-        "psi": kernel_psi_terms(static, family, x_slab),
+        "psi": kernel_psi_terms(static, family),
         "wall": [coeffs[f"wall_{ax}"] for ax in AXES], "comp": None}
     ade = ade_keys(static, family)
     if ade is not None:
@@ -164,18 +176,59 @@ def family_operands(static, coeffs, family: str,
     return fc
 
 
+def prepare(static, coeffs) -> Dict[str, Any]:
+    """Both families' operands (``family_operands``), the record plan and
+    tables (``tfsf.build_record_plan`` over the TFSF records of
+    ``packed_tb.tfsf_records``: (component index, normal axis, plane,
+    offset) per record, in the order the kernels add them), and the
+    point source's cell and f32 amplitude: what the two-pass and the
+    recompute-fused steps' kernels take."""
+    records = packed_tb.tfsf_records(static)
+    plan = tfsf.build_record_plan(static, coeffs, records)
+    fp: Dict[str, Any] = {
+        "coeffs": coeffs, "shape": tuple(static.grid_shape),
+        "E": family_operands(static, coeffs, "E"),
+        "H": family_operands(static, coeffs, "H"),
+        "plan": plan, "point": None, "amp": None}
+    for fam in ("E", "H"):
+        if len(records[fam]) > MAX_REC:
+            raise ValueError(f"{len(records[fam])} TFSF records in the "
+                             f"{fam} family; the kernels take at most "
+                             f"{MAX_REC}")
+        fp[f"rec_{fam}"] = [(rec.comp, rec.axis, rec.plane,
+                             plan.offsets[(fam, r)])
+                            for r, rec in enumerate(records[fam])]
+    ps = static.cfg.point_source
+    if ps.enabled and ps.component in static.mode.e_components:
+        fp["point"] = (static.mode.e_components.index(ps.component),
+                       tuple(ps.position))
+        fp["amp"] = np.float32(
+            torch.as_tensor(coeffs["ps_amp"]).reshape(-1)[0].item())
+    return fp
+
+
+def point_drive(static, fp, t: int) -> Optional[float]:
+    """The point source's add at step t, ``ps_amp * waveform(t)`` in f32
+    (the temporal-blocked pass's drive), or None without one."""
+    if fp["point"] is None:
+        return None
+    ps = static.cfg.point_source
+    wf = waveform(ps.waveform, t, 0.5, static.omega, static.dt,
+                  static.real_dtype)
+    return float(fp["amp"] * wf)
+
+
 # --------------------------------------------------------------------------
 # plain versions (the kernel's arithmetic in torch; CPU tensors and tests)
 # --------------------------------------------------------------------------
 
 def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
                   point=None):
-    """One family update as the kernel body computes it (:377-429):
-    returns (new fields, new in-kernel psi, new ADE current or None),
-    fresh tensors; the inputs are not touched. ``J``: the family's ADE
-    current (Drude J on E, K on H) or None. ``records(ci, acc)`` and, for
-    E, ``point(ci, acc)`` add in-kernel sources to component ci's curl
-    accumulator (the recompute-fused pass, ops/pallas_fused.py): the
+    """One family update as the kernels compute it: returns (new fields,
+    new in-kernel psi, new ADE current or None), fresh tensors; the
+    inputs are not touched. ``J``: the family's ADE current (Drude J on
+    E, K on H) or None. ``records(ci, acc)`` and, for E, ``point(ci,
+    acc)`` add the sources to component ci's curl accumulator: the
     records after the curl, the point source after the Drude current.
     bf16 fields are widened to float32 before any operation; the new
     fields come back in float32, unrounded (the callers round them where
@@ -209,24 +262,179 @@ def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
     return new_f, new_psi, new_j
 
 
+def record_adder(fp, fam: str, terms):
+    """records(ci, acc): each record of component ci of family ``fam``
+    adds its plane term (``terms``: ``tfsf.record_terms``' vector) at its
+    plane, in table order."""
+    shape = fp["shape"]
+    table = fp[f"rec_{fam}"]
+
+    def add(ci, acc):
+        for comp, axis, plane, off in table:
+            if comp != ci:
+                continue
+            ps = tfsf.plane_shape(shape, axis)
+            term = terms.narrow(0, off, int(np.prod(ps))).reshape(ps)
+            acc.narrow(axis, plane, 1).add_(term)
+        return acc
+
+    return add
+
+
+def point_adder(fp, drive):
+    """point(ci, acc): the point source's ``drive`` added at its cell
+    on its component."""
+    comp, (i, j, k) = fp["point"]
+
+    def add(ci, acc):
+        if ci == comp:
+            acc[i:i + 1, j:j + 1, k:k + 1] += drive
+        return acc
+
+    return add
+
+
 def stored(new: Dict[str, torch.Tensor], like: Dict[str, torch.Tensor]):
     """New fields rounded to the storage dtype of ``like`` (the old
     fields of the same family): what the kernel writes."""
     return {c: v.to(like[c].dtype) for c, v in new.items()}
 
 
-def e_family_plain(E, H, psi, J, fc):
-    """New E (and in-kernel psi_E, J) from backward differences of H:
-    the plain version of ``e_family``."""
-    new_e, new_psi, new_j = _family_plain(E, H, psi, J, fc, backward=True)
+def e_family_plain(E, H, psi, J, fp, terms=None, drive=None):
+    """New E (and psi_E of every slab axis, J) from backward differences
+    of H with the E records (``terms``: ``tfsf.record_terms``' vector, or
+    None) and the point source's ``drive`` (or None): the plain version
+    of ``e_family``."""
+    rec = None if terms is None else record_adder(fp, "E", terms)
+    pt = None if drive is None else point_adder(fp, drive)
+    new_e, new_psi, new_j = _family_plain(E, H, psi, J, fp["E"], True, rec,
+                                          pt)
     return stored(new_e, E), new_psi, new_j
 
 
-def h_family_plain(H, E, psi, fc, K=None):
-    """New H (and in-kernel psi_H, K with magnetic Drude) from forward
-    differences of E: the plain version of ``h_family``."""
-    new_h, new_psi, new_k = _family_plain(H, E, psi, K, fc, backward=False)
+def h_family_plain(H, E, psi, fp, K=None, terms=None):
+    """New H (and psi_H, K with magnetic Drude) from forward differences
+    of E with the H records: the plain version of ``h_family``."""
+    rec = None if terms is None else record_adder(fp, "H", terms)
+    new_h, new_psi, new_k = _family_plain(H, E, psi, K, fp["H"], False, rec)
     return stored(new_h, H), new_psi, new_k
+
+
+# --------------------------------------------------------------------------
+# the kernels' work plan (host side; csrc/family.cu runs it)
+# --------------------------------------------------------------------------
+
+PLAN_COLS = 8        # j0, k0, ny, nz, x0, x1, class, grid; mirrors the source
+PLAIN, SOURCE, SLAB = 0, 1, 2   # item classes
+SECTIONS = ("slab", "source", "plain")   # the kernels, in launch order
+TILE_ROWS = 4        # rows of a tile (one warp each), the source's TY
+WARP = 32            # threads of a tile row
+F32_PAIRS = True     # the source's F32_PAIRS: two z cells a thread in f32
+SEGMENTS = (16, 8)   # x segment lengths, the first that gives
+ITEMS_PER_SM = 6     # every SM this many items
+
+
+def pairs_for(bf16: bool, n3: int) -> bool:
+    """Whether a launch of the default build takes two z cells a thread
+    (the source's ``pairs_for``): rows of an even n3 are aligned to words
+    of two cells, which bf16 always pairs and float32 with F32_PAIRS."""
+    return n3 % 2 == 0 and (bf16 or F32_PAIRS)
+
+
+def default_tile(bf16: bool, n3: int) -> Tuple[int, int, int]:
+    """(tile rows, tile columns, two cells a thread) of the source's
+    default build: what ``fdtd_family_tile`` reports on the card."""
+    pairs = pairs_for(bf16, n3)
+    return TILE_ROWS, WARP * (2 if pairs else 1), int(pairs)
+
+
+def item_class(shape, m, records, point, item) -> int:
+    """SLAB if a cell the item owns lies in a CPML slab; else SOURCE if
+    one lies on a record's plane (``records``: (normal axis, plane)) or
+    is the point source's cell; else PLAIN."""
+    if packed.item_slab(shape, m, item):
+        return SLAB
+    box = packed.item_box(item)
+    if any(box[axis][0] <= plane <= box[axis][1] for axis, plane in records):
+        return SOURCE
+    if point is not None and all(box[a][0] <= point[a] <= box[a][1]
+                                 for a in range(3)):
+        return SOURCE
+    return PLAIN
+
+
+def section(row) -> int:
+    """The section of SECTIONS that runs an item (a plan row)."""
+    return {SLAB: 0, SOURCE: 1, PLAIN: 2}[int(row[6])]
+
+
+def plan_items(shape, m, records=(), point=None, tile=(TILE_ROWS, WARP),
+               sms=132, grids=None, segments=SEGMENTS
+               ) -> Tuple[np.ndarray, Tuple[int, int, int]]:
+    """A family launch's work items: (rows, counts).
+
+    ``rows`` is (n, PLAN_COLS) int32: j0, k0, ny, nz, x0, x1, class,
+    grid: an owned box of at most ``tile`` (y, z) cells over x planes
+    [x0, x1); ``class`` its ``item_class``, ``grid`` 1 if its cells reach
+    the grids' box (``packed.reads_grid``). y is cut into near-equal
+    pieces of at most tile[0] rows, z at the multiples of tile[1] (so
+    every owned row is whole aligned lines), x along its CPML bands into
+    segments (``packed.x_cuts``) of the first length of ``segments`` that
+    gives the card's ``sms`` SMs ``ITEMS_PER_SM`` items each (else the
+    last): the owned boxes tile the grid exactly once. The items come in
+    the sections of SECTIONS (``counts`` items each, the kernels'
+    launches in order; ``section``), each section's items longest first,
+    ties in plan order. ``m``: slab planes per axis (0: no CPML);
+    ``records``: (normal axis, plane) of the family's TFSF records;
+    ``point``: the point source's cell (E) or None."""
+    n1, n2, n3 = (int(v) for v in shape)
+    m = tuple(int(v) for v in m)
+    records = [tuple(r) for r in records]
+    ycuts = packed._pieces(0, n2, -(-n2 // tile[0]))
+    zcuts = [(k, min(k + tile[1], n3)) for k in range(0, n3, tile[1])]
+    for seg in segments:
+        rows = []
+        for x0, x1 in packed.x_cuts(n1, m[0], seg):
+            for j0, j1 in ycuts:
+                for k0, k1 in zcuts:
+                    item = (j0, k0, j1 - j0, k1 - k0, x0, x1)
+                    rows.append(item + (
+                        item_class(shape, m, records, point, item),
+                        int(packed.reads_grid(item, grids))))
+        if len(rows) >= ITEMS_PER_SM * sms:
+            break
+    secs: List[list] = [[] for _ in SECTIONS]
+    for r in rows:
+        secs[section(r)].append(r)
+    for sec in secs:
+        sec.sort(key=lambda r: r[5] - r[4], reverse=True)
+    out = np.array([r for sec in secs for r in sec],
+                   dtype=np.int32).reshape(-1, PLAN_COLS)
+    return out, tuple(len(sec) for sec in secs)
+
+
+def material(fp, family: str):
+    """``packed.material`` of one family's operands (the box outside
+    which its grids hold their background, and those values), computed
+    once per prepared operand set."""
+    key = f"_material_{family}"
+    if key not in fp:
+        fp[key] = packed.material(fp[family])
+    return fp[key]
+
+
+def plan_geometry(fp, family: str):
+    """(m per axis, the family's records as (axis, plane), the point
+    source's cell for E or None) of a prepared operand set, as
+    ``plan_items`` takes them."""
+    fc = fp[family]
+    m = tuple(fc["m"].get(a, 0) for a in range(3))
+    records = tuple((axis, plane) for _, axis, plane, _ in
+                    fp[f"rec_{family}"])
+    point = None
+    if family == "E" and fp["point"] is not None:
+        point = tuple(fp["point"][1])
+    return m, records, point
 
 
 # --------------------------------------------------------------------------
@@ -261,10 +469,22 @@ class Grid(ctypes.Structure):
                 ("inv_dx", ctypes.c_float), ("bf16", ctypes.c_int)]
 
 
+class _Rec(ctypes.Structure):
+    """Mirror of ``struct Rec`` in csrc/family.cu (and csrc/fused_eh.cu)."""
+    _fields_ = [("off", ctypes.c_int), ("comp", ctypes.c_int),
+                ("axis", ctypes.c_int), ("plane", ctypes.c_int)]
+
+
 class _Params(ctypes.Structure):
     """Mirror of ``struct Params`` in csrc/family.cu."""
     _fields_ = [("f", FamOps), ("S", ctypes.c_void_p * 3),
-                ("dr", Drude), ("g", Grid)]
+                ("dr", Drude), ("g", Grid),
+                ("terms", ctypes.c_void_p), ("plan", ctypes.c_void_p),
+                ("rec", _Rec * MAX_REC), ("n_rec", ctypes.c_int),
+                ("pc", ctypes.c_int), ("pi", ctypes.c_int),
+                ("pj", ctypes.c_int), ("pk", ctypes.c_int),
+                ("drive", ctypes.c_float), ("pairs", ctypes.c_int),
+                ("n_item", ctypes.c_int * len(SECTIONS))]
 
 
 def bind(name: str, fns, params_cls) -> ctypes.CDLL:
@@ -374,271 +594,157 @@ def fill_drude_grid(prm, J, fce, device, fd) -> Optional[Dict]:
     return new_j
 
 
-def _params(F, S, psi, J, fc) -> Tuple[_Params, Dict, Dict, Optional[Dict]]:
+def _library() -> ctypes.CDLL:
+    lib = bind(_LIB, ("fdtd_e_family", "fdtd_h_family"), _Params)
+    if not getattr(lib, "_family_bound", False):
+        lib.fdtd_family_tile.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+        lib.fdtd_family_tile.restype = ctypes.c_int
+        lib.fdtd_family_occupancy.argtypes = [ctypes.c_void_p]
+        lib.fdtd_family_occupancy.restype = ctypes.c_int
+        lib._family_bound = True
+    return lib
+
+
+_SMS: Dict[Any, int] = {}
+
+
+def launch_geometry(lib, F, n3: int) -> Tuple[Tuple[int, int, int], int]:
+    """(tile, SM count) of a launch on the card: the tile the library was
+    built with for these fields (``fdtd_family_tile``) and the card's
+    SMs, for the plan."""
+    out = (ctypes.c_int * 3)()
+    lib.fdtd_family_tile(int(F.dtype == torch.bfloat16), n3,
+                         ctypes.addressof(out))
+    if F.device not in _SMS:
+        _SMS[F.device] = torch.cuda.get_device_properties(
+            F.device).multi_processor_count
+    return tuple(out), _SMS[F.device]
+
+
+def device_plan(fp, family: str, device, tile, sms=132
+                ) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """A family's plan on ``device`` for ``tile`` (rows, columns, two
+    cells a thread) and the card's ``sms``, built once: (rows, counts)."""
+    key = (device, tuple(tile), sms)
+    cached = fp.get(f"_plan_{family}")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    m, records, point = plan_geometry(fp, family)
+    rows, counts = plan_items(fp["shape"], m, records, point,
+                              tile=tuple(tile[:2]), sms=sms,
+                              grids=material(fp, family)[0])
+    plan = (torch.from_numpy(rows).to(device), counts)
+    fp[f"_plan_{family}"] = (key, plan)
+    return plan
+
+
+def _params(F, S, psi, J, fp, family: str, terms=None, drive=None,
+            tile=None, sms=132):
+    """The launch's parameter block on the fields' device, with fresh
+    outputs: (params, new fields, new psi, new ADE current or None).
+    ``tile``: (rows, columns, two cells a thread) of the library's build
+    (``default_tile`` when None); ``sms``: the card's SM count, for the
+    plan. Items outside the family's grid box take each grid's
+    background value as their scalar."""
+    fc = fp[family]
     device = F[fc["comps"][0]].device
     shape = fc["shape"]
+    fd = field_dtype(F[fc["comps"][0]])
+    if tile is None:
+        tile = default_tile(fd == torch.bfloat16, shape[2])
     prm = _Params()
     new_f, new_psi = fill_family(prm.f, F, psi, fc, device)
-    fd = field_dtype(F[fc["comps"][0]])
-    other = "H" if fc["family"] == "E" else "E"
+    other = "H" if family == "E" else "E"
     for d in range(3):
         key = other + AXES[d]
         prm.S[d] = check(S[key], key, shape, device, fd)
     new_j = fill_drude_grid(prm, J, fc, device, fd)
+    for (key, c), value in material(fp, family)[1].items():
+        blk = prm.dr if key in ("kj", "bj") else prm.f
+        getattr(blk, key)[c].val = value
+    rows, counts = device_plan(fp, family, device, tile, sms)
+    prm.plan = rows.data_ptr()
+    for q, n in enumerate(counts):
+        prm.n_item[q] = n
+    prm.pairs = tile[2]
+    table = fp[f"rec_{family}"]
+    for r, (comp, axis, plane, off) in enumerate(table):
+        prm.rec[r].comp, prm.rec[r].axis = comp, axis
+        prm.rec[r].plane, prm.rec[r].off = plane, off
+    prm.n_rec = len(table)
+    if table and fp["plan"] is not None:
+        if terms is None:
+            raise ValueError(f"{family} family: TFSF records but no terms")
+        prm.terms = check(terms, "terms", (fp["plan"].total,), device)
+    prm.pc = -1
+    if family == "E" and fp["point"] is not None:
+        if drive is None:
+            raise ValueError("E family: a point source but no drive")
+        prm.pc, (prm.pi, prm.pj, prm.pk) = fp["point"]
+        prm.drive = drive
     return prm, new_f, new_psi, new_j
 
 
-def _library() -> ctypes.CDLL:
-    return bind(_LIB, ("fdtd_e_family", "fdtd_h_family"), _Params)
+def _launch_family(fn: str, F, S, psi, J, fp, family, terms, drive):
+    lib = _library()
+    first = F[fp[family]["comps"][0]]
+    prm, new_f, new_psi, new_j = _params(
+        F, S, psi, J, fp, family, terms, drive,
+        *launch_geometry(lib, first, fp["shape"][2]))
+    launch(lib, fn, prm, first.device)
+    return sum(n > 0 for n in prm.n_item), (new_f, new_psi, new_j)
 
 
-def e_family(E, H, psi, J, fc):
-    """New E (and in-kernel psi_E, J) in fresh tensors: the CUDA kernel
-    on CUDA tensors, its plain version on CPU tensors."""
-    if not E[fc["comps"][0]].is_cuda:
-        return e_family_plain(E, H, psi, J, fc)
-    prm, new_e, new_psi, new_j = _params(E, H, psi, J, fc)
-    launch(_library(), "fdtd_e_family", prm, E[fc["comps"][0]].device)
+def e_family(E, H, psi, J, fp, terms=None, drive=None):
+    """New E (and psi_E, J) in fresh tensors: the CUDA kernels (one
+    launch a non-empty section) on CUDA tensors, the plain version on CPU
+    tensors."""
+    if not E[fp["E"]["comps"][0]].is_cuda:
+        return e_family_plain(E, H, psi, J, fp, terms, drive)
+    n, outs = _launch_family("fdtd_e_family", E, H, psi, J, fp, "E", terms,
+                             drive)
     e_family.launches += 1
-    return new_e, new_psi, new_j
+    e_family.kernels += n
+    return outs
 
 
-def h_family(H, E, psi, fc, K=None):
-    """New H (and in-kernel psi_H, K) in fresh tensors: the CUDA kernel
-    on CUDA tensors, its plain version on CPU tensors."""
-    if not H[fc["comps"][0]].is_cuda:
-        return h_family_plain(H, E, psi, fc, K)
-    prm, new_h, new_psi, new_k = _params(H, E, psi, K, fc)
-    launch(_library(), "fdtd_h_family", prm, H[fc["comps"][0]].device)
+def h_family(H, E, psi, fp, K=None, terms=None):
+    """New H (and psi_H, K) in fresh tensors: the CUDA kernels on CUDA
+    tensors, the plain version on CPU tensors."""
+    if not H[fp["H"]["comps"][0]].is_cuda:
+        return h_family_plain(H, E, psi, fp, K, terms)
+    n, outs = _launch_family("fdtd_h_family", H, E, psi, K, fp, "H", terms,
+                             None)
     h_family.launches += 1
-    return new_h, new_psi, new_k
+    h_family.kernels += n
+    return outs
 
 
-e_family.launches = 0
-h_family.launches = 0
+e_family.launches = h_family.launches = 0
+e_family.kernels = h_family.kernels = 0   # section kernels launched
 
 
-# --------------------------------------------------------------------------
-# thin patches on kernel output (the reference's jnp post-passes)
-# --------------------------------------------------------------------------
-
-def _cut(f: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
-    return f.narrow(axis, lo, hi - lo)
+KERNEL_NAMES = tuple(
+    f"{fam}_{store}_{cells}_{sec}" for fam in ("e", "h")
+    for store in ("f32", "bf16") for cells in ("one", "pair")
+    for sec in SECTIONS)
 
 
-def _pad1(f: torch.Tensor, axis: int, lo_side: bool) -> torch.Tensor:
-    z = torch.zeros_like(f.narrow(axis, 0, 1))
-    return torch.cat([z, f] if lo_side else [f, z], dim=axis)
-
-
-def slab_post(static, family: str, fields, src, psi_ax, coeffs, slabs,
-              axis: int):
-    """One axis's CPML psi recursion and delta onto kernel output: the
-    kernel computed the plain ``s * dfa`` for this axis's curl terms;
-    the exact CPML term differs on the two slabs of ``axis`` by
-    ``s * ((ik - 1) * dfa + psi')``. Adds in place onto ``fields``
-    (fresh kernel outputs) and returns (fields, new psi of the axis)."""
-    mode = static.mode
-    upd = mode.e_components if family == "E" else mode.h_components
-    tag = "e" if family == "E" else "h"
-    ax = AXES[axis]
-    inv_dx = float(np.float32(1.0 / static.dx))
-    n1 = static.grid_shape[axis]
-    m = slabs[axis]
-    b = coeffs[f"pml_slab_b{tag}_{ax}"]
-    cc = coeffs[f"pml_slab_c{tag}_{ax}"]
-    ik = coeffs[f"pml_slab_ik{tag}_{ax}"]
-
-    def r3(v, lo, hi):
-        return _bcast1d(v[lo:hi], axis)
-
-    def cut(f, lo, hi):
-        return _cut(f, axis, lo, hi)
-
-    new_psi = {}
-    for c in upd:
-        for (a, d_axis, s) in CURL_TERMS[component_axis(c)]:
-            if a != axis:
-                continue
-            d = ("H" if family == "E" else "E") + AXES[d_axis]
-            if d not in src:
-                continue
-            f = src[d]
-            # slice first, widen the thin regions after (bf16 storage)
-            f_lo = cut(f, 0, m + 1).float()
-            f_hi = cut(f, n1 - m - 1, n1).float()
-            if family == "E":      # backward diff, slabs [0,m) / [n1-m,n1)
-                d_lo = (cut(f_lo, 0, m)
-                        - _pad1(cut(f_lo, 0, m - 1), axis, True)) * inv_dx
-                d_hi = (cut(f_hi, 1, m + 1) - cut(f_hi, 0, m)) * inv_dx
-            else:                  # forward diff
-                d_lo = (cut(f_lo, 1, m + 1) - cut(f_lo, 0, m)) * inv_dx
-                d_hi = (_pad1(cut(f_hi, 2, m + 1), axis, False)
-                        - cut(f_hi, 1, m + 1)) * inv_dx
-            key = f"{c}_{ax}"
-            psi = psi_ax[key]
-            p_lo = r3(b, 0, m) * cut(psi, 0, m) + r3(cc, 0, m) * d_lo
-            p_hi = (r3(b, m, 2 * m) * cut(psi, m, 2 * m)
-                    + r3(cc, m, 2 * m) * d_hi)
-            new_psi[key] = torch.cat([p_lo, p_hi], dim=axis)
-            dl = s * ((r3(ik, 0, m) - 1.0) * d_lo + p_lo)
-            dh = s * ((r3(ik, m, 2 * m) - 1.0) * d_hi + p_hi)
-            cb = coeffs[("cb_" if family == "E" else "db_") + c]
-            sign = 1.0 if family == "E" else -1.0
-            if isinstance(cb, torch.Tensor):
-                cb_lo, cb_hi = cut(cb, 0, m), cut(cb, n1 - m, n1)
-            else:
-                cb_lo = cb_hi = cb
-            if family == "E":
-                # respect PEC walls (the kernel already zeroed the field)
-                wx = coeffs[f"wall_{ax}"]
-                dl = dl * r3(wx, 0, m)
-                dh = dh * r3(wx, n1 - m, n1)
-                for a2 in range(3):
-                    if a2 != component_axis(c) and a2 != axis:
-                        w = _bcast1d(coeffs[f"wall_{AXES[a2]}"], a2)
-                        dl = dl * w
-                        dh = dh * w
-            fdt = fields[c].dtype
-            cut(fields[c], 0, m).add_((sign * cb_lo * dl).to(fdt))
-            cut(fields[c], n1 - m, n1).add_((sign * cb_hi * dh).to(fdt))
-    return fields, new_psi
-
-
-def x_slab_post(static, family, fields, src, psi_x, coeffs, slabs):
-    """Axis-0 wrapper of slab_post (the two-pass kernels' post-pass)."""
-    return slab_post(static, family, fields, src, psi_x, coeffs, slabs, 0)
-
-
-class FacePatch(NamedTuple):
-    """The fixed part of one TFSF face correction on its plane: the line
-    sampled, the interpolation (index and weights, broadcast over the
-    plane), ``sign*pol/dx``, the 0/1 mask (transverse box gate and PEC
-    walls) and ``sign * cb`` at the plane."""
-    comp: str
-    axis: int
-    plane: int
-    line: str
-    i0: torch.Tensor
-    i1: torch.Tensor
-    ow: torch.Tensor
-    w: torch.Tensor
-    k: float
-    mask: Optional[torch.Tensor]
-    coef: Any
-
-
-def plane_corrections(field: str, comp: str, setup, coeffs, inc,
-                      active_axes, dx: float):
-    """TFSF corrections of one component as (axis, plane, broadcastable
-    term) triples, without the normal-axis onehot (the reference's
-    ``plane_corrections`` :859): ``tfsf.corr_plane_term`` of each face."""
-    out = []
-    for corr in setup.corrections:
-        if corr.field != field or corr.comp != comp:
-            continue
-        term = tfsf.corr_plane_term(corr, setup, coeffs, inc, active_axes,
-                                    dx)
-        if term is not None:
-            out.append((corr.axis, corr.plane, term))
-    return out
-
-
-def tfsf_plan(static, coeffs, family: str) -> List[FacePatch]:
-    """The fixed geometry of one family's TFSF face patches (the terms
-    of ``plane_corrections`` up to the line samples), planned once per
-    coefficient dict: the same geometry functions, so a planned patch
-    has the bits of one computed from scratch."""
-    setup = static.tfsf_setup
-    if setup is None:
-        return []
-    mode = static.mode
-    gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
-    comps = mode.e_components if family == "E" else mode.h_components
-    sign = 1.0 if family == "E" else -1.0
-    plan = []
-    for c in comps:
-        cb = coeffs[("cb_" if family == "E" else "db_") + c]
-        for corr in setup.corrections:
-            if corr.field != family or corr.comp != c:
-                continue
-            pol = tfsf.corr_polarization(corr, setup)
-            if abs(pol) < tfsf.POL_EPS:
-                continue
-            if not 0 <= corr.plane < static.grid_shape[corr.axis]:
-                continue
-            u = tfsf.corr_line_coord(corr, setup, gs, mode.active_axes)
-            i0, w = tfsf.clipped_line_coord(u, setup.n_inc)
-            mask = tfsf.corr_gate_transverse(corr, setup, gs,
-                                             mode.active_axes, torch.float32)
-            if family == "E":
-                # PEC wall zeroing must survive the patch
-                for a2 in mode.active_axes:
-                    if a2 != component_axis(c) and a2 != corr.axis:
-                        wl = _bcast1d(coeffs[f"wall_{AXES[a2]}"], a2)
-                        mask = wl if mask is None else mask * wl
-            coef = sign * (cb.narrow(corr.axis, corr.plane, 1)
-                           if isinstance(cb, torch.Tensor) else cb)
-            plan.append(FacePatch(
-                c, corr.axis, corr.plane,
-                "Einc" if corr.src[0] == "E" else "Hinc", i0, i0 + 1,
-                1.0 - w, w, float(np.float32(corr.sign * pol / static.dx)),
-                mask, coef))
-    return plan
-
-
-def tfsf_patch(static, family: str, fields, coeffs, inc,
-               plan: Optional[List[FacePatch]] = None):
-    """Add the TFSF face corrections onto the kernel output planes, in
-    place (``cb * term`` per face: the reference's ``tfsf_patch`` :961).
-    ``plan``: ``tfsf_plan``'s result, made here when not given."""
-    if plan is None:
-        plan = tfsf_plan(static, coeffs, family)
-    for fp in plan:
-        line = inc[fp.line]
-        term = fp.k * (fp.ow * line[fp.i0] + fp.w * line[fp.i1])
-        if fp.mask is not None:
-            term = term * fp.mask
-        dst = fields[fp.comp].narrow(fp.axis, fp.plane, 1)
-        dst.add_((fp.coef * term).to(dst.dtype))
-    return fields
-
-
-def point_plan(static, coeffs):
-    """The point source's fixed part: (component, cell, ps_amp * cb at
-    the cell), or None when off."""
-    ps = static.cfg.point_source
-    if not ps.enabled or ps.component not in static.mode.e_components:
-        return None
-    cb = coeffs[f"cb_{ps.component}"]
-    amp = np.float32(coeffs["ps_amp"])
-    idx = tuple(ps.position)
-    if isinstance(cb, torch.Tensor):
-        scale = float(amp) * cb[idx]
-    else:
-        scale = float(amp * np.float32(cb))
-    return ps.component, idx, scale
-
-
-def point_source_patch(static, fields, coeffs, t: int, plan=None):
-    """Soft point source as a single-cell add, in place
-    (``ps_amp * cb * waveform``: the reference's ``point_source_patch``
-    :1012)."""
-    if plan is None:
-        plan = point_plan(static, coeffs)
-    if plan is None:
-        return fields
-    c, (i, j, k), scale = plan
-    ps = static.cfg.point_source
-    wf = np.float32(waveform(ps.waveform, t, 0.5, static.omega, static.dt,
-                             static.real_dtype))
-    cell = fields[c][i, j, k]
-    if isinstance(scale, torch.Tensor):
-        val = (scale * float(wf)).to(cell.dtype)
-    else:
-        val = host_round(float(np.float32(scale) * wf), cell.dtype)
-    cell.add_(val)
-    return fields
+def occupancy() -> Dict[str, Dict[str, int]]:
+    """Registers and local (spill) bytes a thread, resident blocks an SM
+    and static shared bytes of each kernel of the library, as the CUDA
+    runtime reports them for the card, by ``KERNEL_NAMES``: family,
+    storage, one or two z cells a thread, section."""
+    lib = _library()
+    out = (ctypes.c_int * (4 * len(KERNEL_NAMES)))()
+    err = lib.fdtd_family_occupancy(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fdtd_family_occupancy failed: CUDA error {err} "
+                           f"({lib.fdtd_error_string(err).decode()})")
+    keys = ("registers", "local_bytes", "blocks_per_sm", "static_smem")
+    return {n: {k: out[4 * q + i] for i, k in enumerate(keys)}
+            for q, n in enumerate(KERNEL_NAMES)}
 
 
 # --------------------------------------------------------------------------
@@ -651,10 +757,10 @@ def make_pallas_step(static, device, plain: bool = False):
     ``eligible``, or a CPML x axis too thin for slab psi, where the
     reference runs its jnp step).
 
-    On a CUDA ``device`` the two family updates launch the kernel (kind
+    On a CUDA ``device`` the two family updates launch the kernels (kind
     ``pallas3d_cuda``); on the CPU they run their plain versions (kind
     ``pallas3d_plain``). ``plain=True`` runs the plain versions on any
-    device: the yardstick chip_smoke.py holds the kernel against."""
+    device: the yardstick chip_smoke.py holds the kernels against."""
     if not eligible(static):
         return None
     check_scope(static, "two-pass family kernel (ROADMAP B3)")
@@ -668,75 +774,43 @@ def make_pallas_step(static, device, plain: bool = False):
             "storage, which only a sharded topology makes) is not ported "
             "(ROADMAP.md queue A11)")
     setup = static.tfsf_setup
-    x_active = 0 in static.pml_axes
     e_fn, h_fn = (e_family_plain, h_family_plain) if plain \
         else (e_family, h_family)
-    psi_e_names = [k for v in kernel_psi_terms(static, "E").values()
-                   for _, k in v]
-    psi_h_names = [k for v in kernel_psi_terms(static, "H").values()
-                   for _, k in v]
+    psi_names = {fam: [k for v in kernel_psi_terms(static, fam).values()
+                       for _, k in v] for fam in ("E", "H")}
 
-    def prepare(coeffs) -> Dict[str, Any]:
-        return {"coeffs": coeffs,
-                "E": family_operands(static, coeffs, "E"),
-                "H": family_operands(static, coeffs, "H"),
-                "tfsf_E": tfsf_plan(static, coeffs, "E"),
-                "tfsf_H": tfsf_plan(static, coeffs, "H"),
-                "point": point_plan(static, coeffs)}
-
-    def step(state, cc):
-        coeffs = cc["coeffs"]
+    def step(state, fp):
+        coeffs = fp["coeffs"]
         t = state["t"]
         new_state = dict(state)
+        terms = None
         if setup is not None:
-            new_state["inc"] = tfsf.advance_einc(
-                state["inc"], coeffs, t, static.dt, static.omega, setup)
-
-        # E family
-        psi_e_in = {k: state["psi_E"][k] for k in psi_e_names}
-        new_E, psi_e_out, new_J = e_fn(state["E"], state["H"], psi_e_in,
-                                       state.get("J"), cc["E"])
+            inc = tfsf.advance_einc(state["inc"], coeffs, t, static.dt,
+                                    static.omega, setup)
+            terms = tfsf.record_terms(fp["plan"], inc)
+        new_E, pe, new_J = e_fn(
+            state["E"], state["H"], {k: state["psi_E"][k]
+                                     for k in psi_names["E"]},
+            state.get("J"), fp, terms, point_drive(static, fp, t))
+        if setup is not None:
+            new_state["inc"] = tfsf.advance_hinc(inc, coeffs, setup)
+        new_H, ph, new_K = h_fn(
+            state["H"], new_E, {k: state["psi_H"][k]
+                                for k in psi_names["H"]},
+            fp, state.get("K"), terms)
         if new_J is not None:
             new_state["J"] = new_J
-        psi_E = dict(state.get("psi_E", {}), **psi_e_out)
-        if x_active:
-            px = {k: v for k, v in psi_E.items() if k.endswith("_x")}
-            new_E, px_new = x_slab_post(static, "E", new_E, state["H"], px,
-                                        coeffs, slabs)
-            psi_E.update(px_new)
-        if setup is not None:
-            tfsf_patch(static, "E", new_E, coeffs, new_state["inc"],
-                       plan=cc["tfsf_E"])
-        point_source_patch(static, new_E, coeffs, t, plan=cc["point"])
-        new_state["E"] = new_E
-
-        if setup is not None:
-            new_state["inc"] = tfsf.advance_hinc(new_state["inc"], coeffs,
-                                                 setup)
-
-        # H family
-        psi_h_in = {k: state["psi_H"][k] for k in psi_h_names}
-        new_H, psi_h_out, new_K = h_fn(state["H"], new_E, psi_h_in,
-                                       cc["H"], state.get("K"))
         if new_K is not None:
             new_state["K"] = new_K
-        psi_H = dict(state.get("psi_H", {}), **psi_h_out)
-        if x_active:
-            px = {k: v for k, v in psi_H.items() if k.endswith("_x")}
-            new_H, px_new = x_slab_post(static, "H", new_H, new_E, px,
-                                        coeffs, slabs)
-            psi_H.update(px_new)
-        if setup is not None:
-            tfsf_patch(static, "H", new_H, coeffs, new_state["inc"],
-                       plan=cc["tfsf_H"])
+        if pe or ph:
+            new_state["psi_E"] = dict(state["psi_E"], **pe)
+            new_state["psi_H"] = dict(state["psi_H"], **ph)
+        new_state["E"] = new_E
         new_state["H"] = new_H
-        if psi_E:
-            new_state["psi_E"] = psi_E
-            new_state["psi_H"] = psi_H
         new_state["t"] = t + 1
         return new_state
 
-    step.prepare = prepare
+    step.prepare = lambda coeffs: prepare(static, coeffs)
     on_cuda = torch.device(device).type == "cuda"
     step.kind = "pallas3d_cuda" if on_cuda and not plain else "pallas3d_plain"
     return step

@@ -71,19 +71,18 @@ raise ``NotImplementedError`` naming their ROADMAP.md item.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from fdtd3d_torch.ops import packed_tb, pallas3d, tfsf
-from fdtd3d_torch.ops.pallas3d import Drude, FamOps, Grid
-from fdtd3d_torch.ops.sources import waveform
-from fdtd3d_torch.solver import slab_axes
+from fdtd3d_torch.ops.pallas3d import (MAX_REC, Drude, FamOps, Grid,
+                                       point_drive, prepare)
+from fdtd3d_torch.solver import has_coeff_grids, slab_axes
 
 AXES = "xyz"
 _LIB = "fused_eh"
-MAX_REC = 16          # records per family; mirrors csrc/fused_eh.cu
 PLAN_COLS = 8         # ints a plan row; mirrors csrc/fused_eh.cu
 TILE = (10, 32)       # owned (y, z) cells of a tile at the source's BY, BZ
 
@@ -104,28 +103,39 @@ def fused_preferred(static) -> bool:
     """The port's rule between the fused and the two-pass twins when
     ``FDTD3D_NO_PACKED`` alone sends a run down the ladder (the
     reference's ``tile >= 4`` was measured against a TPU's VMEM and is
-    not copied). A pure function of the static setup.
+    not copied). A pure function of the static setup: the fused step
+    for float32 runs without coefficient grids, the two-pass step for
+    bf16 storage and for runs with coefficient grids
+    (``solver.has_coeff_grids``).
 
     Set from same-call CUDA-event times on an NVIDIA H100 80GB HBM3 at
-    700 W (``chip_smoke.py`` phase 13): the fused pass against the
-    two-pass kernels' E + H launches, and the whole steps, on
+    700 W (``scripts/solo_kernel_times.py --fused
+    256,256_bf16,512,512_bf16 --only-fused``, two runs of the change in
+    one call, each timing twice): the fused pass against the two-pass
+    launches (each call with its host set-up), and the whole steps, on
     ``Examples/vacuum3D_tfsf.txt --same-size 256`` and on
-    ``Examples/sphere3D_mie.txt`` (512^3, eps-sphere coefficient grids):
+    ``Examples/sphere3D_mie.txt`` (512^3, eps-sphere coefficient grids),
+    ms:
 
-    ========  ==========  ==============  ==========  =============
-    grid      fused (ms)  two-pass E + H  fused step  two-pass step
-    ========  ==========  ==============  ==========  =============
-    256^3     0.600       0.319 + 0.325   0.665       2.561
-    512^3     4.177       3.263 + 2.450   4.297       7.240
-    ========  ==========  ==============  ==========  =============
+    ===========  ===========  ===========  ===========  =============
+    grid, dtype  fused pass   e + h        fused step   two-pass step
+    ===========  ===========  ===========  ===========  =============
+    256^3 f32    0.602-0.611  0.602-0.619  0.684-0.912  0.697-0.993
+    256^3 bf16   0.541-0.592  0.503-0.524  0.747-1.069  0.684-1.241
+    512^3 f32    4.212-4.242  4.063-4.112  4.339-4.403  4.167-4.246
+    512^3 bf16   3.547-3.554  2.922-2.971  3.666-3.717  3.033-3.084
+    ===========  ===========  ===========  ===========  =============
 
-    The fused step computes everything in its pass (no patch, no H
-    correction: 24 launches a step under the profiler at 256^3, where
-    the two-pass step enqueues 192 and is host-bound), and its pass
-    moves 2/3 of the two-pass kernels' bytes and reads the coefficient
-    grids only inside their box. It is the faster step at both sizes, so
-    the rule picks it wherever it is ``eligible``."""
-    return eligible(static)
+    In that call both steps launched 25.05 kernels a step at 256^3
+    under the profiler (the two-pass step with its patches as torch ops
+    before: 193.05). The fused pass moves 2/3 of the two-pass launches'
+    bytes but runs at a smaller share of its bound: at 256^3 in float32
+    the two are within the steps' spread, so the rule keeps the fused step
+    there; with bf16 storage (two cells a thread in the two-pass march)
+    and with grids (read by each family's launch only inside the box of
+    its own grids) the two-pass step is the faster one."""
+    return eligible(static) and static.cfg.dtype == "float32" \
+        and not has_coeff_grids(static)
 
 
 # --------------------------------------------------------------------------
@@ -288,85 +298,6 @@ def plan_items(shape, m, records=(), point=None, tile=TILE, sms=132,
     return rows, tuple(len(sec) for sec in sections)
 
 
-# --------------------------------------------------------------------------
-# the prepared operands
-# --------------------------------------------------------------------------
-
-def prepare(static, coeffs) -> Dict[str, Any]:
-    """The pass's operands from device coefficients: each family's
-    (``pallas3d.family_operands`` with the x slab in the kernel), the
-    record plan and tables (``tfsf.build_record_plan`` over the TFSF
-    records of ``packed_tb.tfsf_records``: (component index, normal axis,
-    plane, offset) per record, in the order the kernel adds them), and
-    the point source's cell and f32 amplitude."""
-    records = packed_tb.tfsf_records(static)
-    plan = tfsf.build_record_plan(static, coeffs, records)
-    fp: Dict[str, Any] = {
-        "coeffs": coeffs, "shape": tuple(static.grid_shape),
-        "E": pallas3d.family_operands(static, coeffs, "E", x_slab=True),
-        "H": pallas3d.family_operands(static, coeffs, "H", x_slab=True),
-        "plan": plan, "point": None, "amp": None}
-    for fam in ("E", "H"):
-        if len(records[fam]) > MAX_REC:
-            raise ValueError(f"{len(records[fam])} TFSF records in the "
-                             f"{fam} family; the kernel takes at most "
-                             f"{MAX_REC}")
-        fp[f"rec_{fam}"] = [(rec.comp, rec.axis, rec.plane,
-                             plan.offsets[(fam, r)])
-                            for r, rec in enumerate(records[fam])]
-    ps = static.cfg.point_source
-    if ps.enabled and ps.component in static.mode.e_components:
-        fp["point"] = (static.mode.e_components.index(ps.component),
-                       tuple(ps.position))
-        fp["amp"] = np.float32(
-            torch.as_tensor(coeffs["ps_amp"]).reshape(-1)[0].item())
-    return fp
-
-
-def point_drive(static, fp, t: int) -> Optional[float]:
-    """The point source's add at step t, ``ps_amp * waveform(t)`` in f32
-    (the temporal-blocked pass's drive), or None without one."""
-    if fp["point"] is None:
-        return None
-    ps = static.cfg.point_source
-    wf = waveform(ps.waveform, t, 0.5, static.omega, static.dt,
-                  static.real_dtype)
-    return float(fp["amp"] * wf)
-
-
-# --------------------------------------------------------------------------
-# the kernel: plain version and CUDA wrapper
-# --------------------------------------------------------------------------
-
-def _record_adder(fp, fam: str, terms):
-    """records(ci, acc): each record of component ci adds its plane term
-    at its plane, in table order."""
-    shape = fp["shape"]
-    table = fp[f"rec_{fam}"]
-
-    def add(ci, acc):
-        for comp, axis, plane, off in table:
-            if comp != ci:
-                continue
-            ps = tfsf.plane_shape(shape, axis)
-            term = terms.narrow(0, off, int(np.prod(ps))).reshape(ps)
-            acc.narrow(axis, plane, 1).add_(term)
-        return acc
-
-    return add
-
-
-def _point_adder(fp, drive):
-    comp, (i, j, k) = fp["point"]
-
-    def add(ci, acc):
-        if ci == comp:
-            acc[i:i + 1, j:j + 1, k:k + 1] += drive
-        return acc
-
-    return add
-
-
 def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive, K=None):
     """The kernel's computation in torch: new E with every term (the
     psi of every slab axis, the record terms before the cb multiply,
@@ -379,10 +310,10 @@ def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive, K=None):
     kernel keeps E' on chip."""
     rec_e = rec_h = point = None
     if terms is not None:
-        rec_e = _record_adder(fp, "E", terms)
-        rec_h = _record_adder(fp, "H", terms)
+        rec_e = pallas3d.record_adder(fp, "E", terms)
+        rec_h = pallas3d.record_adder(fp, "H", terms)
     if drive is not None:
-        point = _point_adder(fp, drive)
+        point = pallas3d.point_adder(fp, drive)
     new_e, pe, new_j = pallas3d._family_plain(E, H, psi_e, J, fp["E"],
                                               True, rec_e, point)
     new_h, ph, new_k = pallas3d._family_plain(H, new_e, psi_h, K, fp["H"],
@@ -391,18 +322,13 @@ def fused_eh_plain(E, H, psi_e, psi_h, J, fp, terms, drive, K=None):
             new_j, new_k)
 
 
-class _Rec(ctypes.Structure):
-    """Mirror of ``struct Rec`` in csrc/fused_eh.cu."""
-    _fields_ = [("off", ctypes.c_int), ("comp", ctypes.c_int),
-                ("axis", ctypes.c_int), ("plane", ctypes.c_int)]
-
-
 class _Params(ctypes.Structure):
     """Mirror of ``struct Params`` in csrc/fused_eh.cu."""
     _fields_ = [("e", FamOps), ("h", FamOps), ("dr", Drude),
                 ("dk", Drude), ("g", Grid),
                 ("terms", ctypes.c_void_p), ("plan", ctypes.c_void_p),
-                ("rec", (_Rec * MAX_REC) * 2), ("n_rec", ctypes.c_int * 2),
+                ("rec", (pallas3d._Rec * MAX_REC) * 2),
+                ("n_rec", ctypes.c_int * 2),
                 ("pc", ctypes.c_int), ("pi", ctypes.c_int),
                 ("pj", ctypes.c_int), ("pk", ctypes.c_int),
                 ("drive", ctypes.c_float),
@@ -554,8 +480,7 @@ def make_fused_eh_step(static, device, plain: bool = False):
     setup = static.tfsf_setup
     fn = fused_eh_plain if plain else fused_eh
     psi_names = {fam: [k for v in pallas3d.kernel_psi_terms(
-        static, fam, x_slab=True).values() for _, k in v]
-        for fam in ("E", "H")}
+        static, fam).values() for _, k in v] for fam in ("E", "H")}
 
     def step(state, fp):
         coeffs = fp["coeffs"]

@@ -309,12 +309,12 @@ class RecordPlan(NamedTuple):
     flattened into one vector of plane cells: E records, then H."""
     offsets: Dict[Any, int]       # (family, record index) -> offset
     total: int
-    i0: torch.Tensor              # index into cat(Einc, Hinc)
-    i1: torch.Tensor              # i0 + 1
+    i01: torch.Tensor             # cat(i0, i0 + 1): indices into
+                                  # cat(Einc, Hinc)
     ow: torch.Tensor              # 1 - w
     w: torch.Tensor
-    scale: torch.Tensor           # f32(sign * pol / dx)
-    gate: torch.Tensor            # transverse box membership, 0/1
+    sg: torch.Tensor              # f32(sign * pol / dx) times the
+                                  # transverse box membership (0/1)
 
 
 def build_record_plan(static, coeffs, records) -> Optional[RecordPlan]:
@@ -353,24 +353,28 @@ def build_record_plan(static, coeffs, records) -> Optional[RecordPlan]:
     if total == 0:
         return None
     cat = {k: torch.cat(v).contiguous() for k, v in parts.items()}
-    return RecordPlan(offsets, total, cat["i0"], cat["i0"] + 1, cat["ow"],
-                      cat["w"], cat["scale"], cat["gate"])
+    return RecordPlan(offsets, total,
+                      torch.cat([cat["i0"], cat["i0"] + 1]).contiguous(),
+                      cat["ow"], cat["w"], cat["scale"] * cat["gate"])
 
 
 def record_terms(plan: Optional[RecordPlan], inc,
                  out: Optional[torch.Tensor] = None):
     """The plane terms of every record, (total,) f32 ((B, total) for a
     lane-stacked line), written into ``out`` when given:
-    ``corr_plane_term`` of each record, bit for bit, in eight ops for all
-    of them and every lane. E records sample Hinc and H records
-    Einc, so this runs after the Einc advance and before the Hinc
-    advance."""
+    ``corr_plane_term`` of each record, bit for bit, in six ops for all
+    of them and every lane (both samples gathered at once; the gate, 0
+    or 1, folded into the scale, which changes no bit of a finite
+    term: ``(scale * v) * gate`` and ``v * (scale * gate)`` are both
+    ``scale * v`` or a zero of its sign). E records sample Hinc and H
+    records Einc, so this runs after the Einc advance and before the
+    Hinc advance."""
     if plan is None:
         return None
     line = torch.cat([inc["Einc"], inc["Hinc"]], dim=-1)
-    v = plan.ow * line.index_select(-1, plan.i0) \
-        + plan.w * line.index_select(-1, plan.i1)
-    return torch.mul(plan.scale * v, plan.gate, out=out)
+    both = line.index_select(-1, plan.i01)
+    v = plan.ow * both[..., :plan.total] + plan.w * both[..., plan.total:]
+    return torch.mul(v, plan.sg, out=out)
 
 
 def corrections_for(field: str, comp: str, setup: TfsfSetup, coeffs,

@@ -280,7 +280,7 @@ def main() -> int:
             except RuntimeError as exc:     # a refused launch: recorded
                 failed[name] = f"{size}: {exc}"
         del want
-        fe, fh, pe, ph = cs.kernel_args(static, coeffs, st)
+        e_args, h_args = cs.family_args(static, coeffs, st)
         step = pallas_fused.make_fused_eh_step(static, dev)
         reps = args.reps if size == "256" else max(2, args.reps // 4)
         order = [n for n in names if n not in failed]
@@ -297,8 +297,8 @@ def main() -> int:
             del prm, outs
             if name == "as_built":
                 ms["two_pass_e_plus_h"].append(cs.timed(lambda: (
-                    pallas3d.e_family(st["E"], st["H"], pe, st.get("J"), fe),
-                    pallas3d.h_family(st["H"], st["E"], ph, fh)), reps))
+                    pallas3d.e_family(*e_args),
+                    pallas3d.h_family(*h_args)), reps))
                 ms["fused_step"].append(cs.timed(lambda: step(st, fp), reps))
         pallas_fused.plan_items = base
         print(f"fused_variants {size}: {json.dumps(ms)}", file=sys.stderr,

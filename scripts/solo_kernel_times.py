@@ -24,7 +24,10 @@ the checkout has them, else its single launch), the two-pass
 ``e_family`` and ``h_family`` launches, and the whole fused and
 two-pass steps, on ``Examples/vacuum3D_tfsf.txt`` at 256^3 after 150
 steps and (512) on ``Examples/sphere3D_mie.txt`` as it stands after 200
-(two-pass steps both); ``--only-fused`` skips the rest. With
+(two-pass steps both), in f32 or (``256_bf16``, ``512_bf16``) bf16, and
+at 256 both ladder steps' launches a step under torch.profiler (the
+two-pass launches alone too, where the checkout's ``chip_smoke.py``
+times them so); ``--only-fused`` skips the rest. With
 ``--packed`` it also times the packed single step's builds, twice each:
 ``e_update``, ``h_update`` and the whole packed step at 256^3 on
 vacuum3D_tfsf after 150 packed steps in float32, bf16 and compensated
@@ -61,7 +64,8 @@ def main() -> int:
                          "at these comma-separated sizes (default 256)")
     ap.add_argument("--fused", nargs="?", const="256", default=None,
                     help="also time the fused pass, the two-pass kernels "
-                         "and both ladder steps at 256 and/or 512")
+                         "and both ladder steps at 256 and/or 512 (a "
+                         "_bf16 suffix: in bf16)")
     ap.add_argument("--only-fused", action="store_true",
                     help="with --fused: skip the other kernels' times")
     ap.add_argument("--packed", action="store_true",
@@ -203,20 +207,29 @@ def packed_times(cs, dev, reps=30):
 
 def fused_times(cs, dev, size):
     """The fused pass, the two-pass kernels and both ladder steps at
-    ``size`` (256: the vacuum example at 256^3; 512: the Mie example),
-    twice each."""
+    ``size`` (256: the vacuum example at 256^3; 512: the Mie example;
+    with ``_bf16``: in bf16), twice each; the two-pass launches alone
+    where the checkout times them so; at 256 both ladder steps' launches
+    a step under torch.profiler."""
     import torch
     from fdtd3d_torch.ops import pallas3d, pallas_fused
     from fdtd3d_torch.sim import Simulation
     torch.cuda.empty_cache()
-    path, extra, steps, reps = {"256": (cs.EXAMPLE, ["--same-size", "256"],
-                                        150, 30),
-                                "512": (cs.MIE, [], 200, 10)}[size]
+    path, extra, steps, reps = {
+        "256": (cs.EXAMPLE, ["--same-size", "256"], 150, 30),
+        "256_bf16": (cs.EXAMPLE, ["--same-size", "256"] + cs.BF16, 150, 30),
+        "512": (cs.MIE, [], 200, 10),
+        "512_bf16": (cs.MIE, cs.BF16, 200, 10)}[size]
     with cs.ladder_env("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"):
         sim = Simulation(cs.config(path, extra), device=dev)
         sim.advance(steps)
     static, coeffs, st = sim.static, sim.coeffs, sim.state
-    fe, fh, pe, ph = cs.kernel_args(static, coeffs, st)
+    if hasattr(cs, "family_args"):      # the launches with their sources
+        e_args, h_args = cs.family_args(static, coeffs, st)
+    else:                               # patches after each launch
+        fe, fh, pe, ph = cs.kernel_args(static, coeffs, st)
+        e_args = (st["E"], st["H"], pe, st.get("J"), fe)
+        h_args = (st["H"], st["E"], ph, fh)
     if hasattr(cs, "fused_args"):       # the pass with its sources
         fargs = cs.fused_args(static, coeffs, st)
     else:                               # one launch, patches after it
@@ -230,14 +243,29 @@ def fused_times(cs, dev, size):
     for rep in range(2):
         out[f"fused_ms_{rep}"] = cs.timed(
             lambda: pallas_fused.fused_eh(*fargs), reps)
-        out[f"e_family_ms_{rep}"] = cs.timed(lambda: pallas3d.e_family(
-            st["E"], st["H"], pe, st.get("J"), fe), reps)
-        out[f"h_family_ms_{rep}"] = cs.timed(lambda: pallas3d.h_family(
-            st["H"], st["E"], ph, fh), reps)
+        out[f"e_family_ms_{rep}"] = cs.timed(
+            lambda: pallas3d.e_family(*e_args), reps)
+        out[f"h_family_ms_{rep}"] = cs.timed(
+            lambda: pallas3d.h_family(*h_args), reps)
         for name, (k_step, cc) in ladder.items():
             out[f"{name}_step_ms_{rep}"] = cs.timed(
                 lambda: k_step(st, cc), reps)
-    del sim, st, fargs, ladder
+    if hasattr(cs, "family_launch_ms"):  # the launches alone
+        out["e_family_launch_ms"] = cs.family_launch_ms("e_family", e_args,
+                                                        reps)
+        out["h_family_launch_ms"] = cs.family_launch_ms("h_family", h_args,
+                                                        reps)
+    if size == "256":                   # launches a step, by the profiler
+        for name, names in (("pallas3d", ("FDTD3D_NO_PACKED",
+                                          "FDTD3D_NO_FUSED")),
+                            ("fused", ("FDTD3D_NO_PACKED",
+                                       "FDTD3D_FORCE_FUSED"))):
+            with cs.ladder_env(*names):
+                psim = Simulation(cs.config(path, extra), device=dev)
+                psim.advance(20)
+                out[f"{name}_profile"] = cs.profile_window(psim, 20)
+                del psim
+    del sim, st, fargs, ladder, e_args, h_args
     return out
 
 

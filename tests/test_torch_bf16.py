@@ -251,7 +251,7 @@ def test_fused_plain_computes_h_from_the_unrounded_e(case):
                                 static.omega, static.tfsf_setup)
         terms = tfsf.record_terms(fp["plan"], inc)
     names = {fam: [k for v in pallas3d.kernel_psi_terms(
-        static, fam, x_slab=True).values() for _, k in v]
+        static, fam).values() for _, k in v]
         for fam in ("E", "H")}
     rest = ({k: st["psi_E"][k] for k in names["E"]},
             {k: st["psi_H"][k] for k in names["H"]}, st.get("J"), fp, terms,

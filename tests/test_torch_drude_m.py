@@ -170,11 +170,11 @@ def test_h_launches_read_and_write_k():
         for v in state[g].values():
             v.copy_(torch.from_numpy(rng.standard_normal(v.shape)
                                      .astype(np.float32)))
-    fc = pallas3d.family_operands(static, coeffs, "H")
+    fp = pallas3d.prepare(static, coeffs)
     zero_e = {c: torch.zeros_like(v) for c, v in state["E"].items()}
     psi = {k: torch.zeros_like(state["psi_H"][k])
-           for v in fc["psi"].values() for _, k in v}
-    new_h, _, new_k = pallas3d.h_family_plain(state["H"], zero_e, psi, fc,
+           for v in fp["H"]["psi"].values() for _, k in v}
+    new_h, _, new_k = pallas3d.h_family_plain(state["H"], zero_e, psi, fp,
                                               state["K"])
     stack = {g: torch.stack([state[g][c] for c in ("Hx", "Hy", "Hz")])
              for g in ("H", "K")}
@@ -260,10 +260,12 @@ def test_parameter_blocks_carry_k():
     from fdtd3d_torch.solver import coeffs_to_device
     coeffs = coeffs_to_device(build_coeffs(static), "cpu")
     state = init_state(static, "cpu")
-    fc = pallas3d.family_operands(static, coeffs, "H")
-    psi = {k: state["psi_H"][k] for v in fc["psi"].values() for _, k in v}
+    fp = pallas3d.prepare(static, coeffs)
+    psi = {k: state["psi_H"][k] for v in fp["H"]["psi"].values()
+           for _, k in v}
+    terms = None if fp["plan"] is None else torch.zeros(fp["plan"].total)
     prm, _, _, new_k = pallas3d._params(state["H"], state["E"], psi,
-                                        state["K"], fc)
+                                        state["K"], fp, "H", terms)
     assert set(new_k) == {"Hx", "Hy", "Hz"}
     for ci, c in enumerate(("Hx", "Hy", "Hz")):
         assert prm.dr.Jin[ci] == state["K"][c].data_ptr()
@@ -271,7 +273,7 @@ def test_parameter_blocks_carry_k():
         assert prm.dr.kj[ci].val == coeffs[f"km_{c}"]
         assert prm.dr.bj[ci].grid == coeffs[f"bm_{c}"].data_ptr()
     with pytest.raises(ValueError, match="no K"):
-        pallas3d._params(state["H"], state["E"], psi, None, fc)
+        pallas3d._params(state["H"], state["E"], psi, None, fp, "H", terms)
     p = packed.make_packed_step(static, "cpu")
     carry = p.pack(state)
     cc = p.prepare(coeffs)

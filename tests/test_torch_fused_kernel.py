@@ -104,9 +104,9 @@ def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, K=None, tile=TILE,
         fh = _variant(fp["H"], axes, grid, background)
         key = (axes, src, grid)
         if key not in e_cache:
-            rec = pallas_fused._record_adder(fp, "E", terms) \
+            rec = pallas3d.record_adder(fp, "E", terms) \
                 if src and terms is not None else None
-            pt = pallas_fused._point_adder(fp, drive) \
+            pt = pallas3d.point_adder(fp, drive) \
                 if src and drive is not None else None
             e_cache[key] = pallas3d._family_plain(
                 E, H, {k: psi_e[k] for v in fe["psi"].values()
@@ -120,7 +120,7 @@ def emulate(E, H, psi_e, psi_h, J, fp, terms, drive, K=None, tile=TILE,
         local = {c: torch.zeros(shape) for c in new_e}
         for c in new_e:
             local[c][box] = new_e[c][box]
-        rec_h = pallas_fused._record_adder(fp, "H", terms) \
+        rec_h = pallas3d.record_adder(fp, "H", terms) \
             if src and terms is not None else None
         new_h, ph, new_k = pallas3d._family_plain(
             H, local, {k: psi_h[k] for v in fh["psi"].values()
@@ -176,7 +176,7 @@ def test_emulated_schedule_equals_the_plain_pass(case, bands, dtype):
         terms = tfsf.record_terms(fp["plan"], inc)
     drive = pallas_fused.point_drive(static, fp, 3)
     names = {fam: [k for v in pallas3d.kernel_psi_terms(
-        static, fam, x_slab=True).values() for _, k in v]
+        static, fam).values() for _, k in v]
         for fam in ("E", "H")}
     args = (st["E"], st["H"], {k: st["psi_E"][k] for k in names["E"]},
             {k: st["psi_H"][k] for k in names["H"]}, st.get("J"), fp, terms,

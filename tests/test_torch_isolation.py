@@ -214,9 +214,9 @@ def test_ladder_kernel_modules_need_no_nvcc_on_cpu(names, kind,
         assert build.library_path(lib).startswith(
             os.path.join(ROOT, "build", "fdtd3d_torch"))
     # the fused pass's halo cells must have their owner's bits in every
-    # section kernel: no FMA contraction; the two-pass kernels keep the
-    # common flags
-    assert build.flags("family") == build.NVCC_FLAGS
+    # section kernel, and the two-pass kernels reproduce their plain
+    # versions' bits: no FMA contraction in either
+    assert build.flags("family") == build.NVCC_FLAGS + ("--fmad=false",)
     assert build.flags("fused_eh") == build.NVCC_FLAGS + ("--fmad=false",)
 
 

@@ -3,10 +3,12 @@
 The port's two rungs under the packed step: the recompute-fused single
 pass (``ops/pallas_fused.py``, kind ``fused_plain`` on the CPU) and the
 two-pass family step (``ops/pallas3d.py``, kind ``pallas3d_plain``).
-On the CPU each runs its kernel's plain version, in the kernel's order:
+On the CPU each runs its kernels' plain versions, in the kernels' order:
 the fused pass computes E with the x slab CPML, the TFSF record terms
-and the point source, then H from that E; the two-pass step patches the
-x slab, TFSF and the point source onto each kernel's output.
+and the point source, then H from that E; the two-pass step does the
+same in two launches (E with every term, then H from the stored E), and
+patches nothing afterwards, where the reference patches the x slab,
+TFSF and the point source onto each kernel's output.
 
 * Each rung, from one seeded state (E and H at 0.01 N(0, 1)), against
   the reference's own kernel in interpret mode (``use_pallas=True``:
@@ -18,6 +20,16 @@ x slab, TFSF and the point source onto each kernel's output.
   which puts TFSF faces inside the CPML slabs (the reference's
   ``test_fused_tfsf_in_slab_parity`` geometry). Gate: 2e-6 of each
   family's max on E, H, psi, J and each incident line.
+* The two-pass rung in bf16 (gate 2e-2, the reference's bf16 gate) on
+  every case of tests/torch_parity.py, a K sphere and the TFSF planes
+  inside the slabs, and in f32 on the cases the line above leaves out,
+  against the reference's interpret-mode ``pallas`` kernel and its jnp
+  step: the plain version's sources inside the accumulator hold the
+  reference's patches' gates (the reference rounds a patched bf16 cell
+  twice, the port once).
+* The two-pass step issues none of the reference's patches: the
+  port's patch helpers are gone, and stand-ins that raise change
+  nothing.
 * The dispatch (ROADMAP C1): the kinds and ``tb_fallback`` tokens under
   the ladder's variables against the reference's.
 * The dispatch also for magnetic Drude K (f32 and bf16) and compensated
@@ -32,11 +44,11 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import (BASE, CASES, TOL, np_state, ref_config,
-                          seed_reference, to_port)
+from torch_parity import (BASE, CASES, MODE_CASES, TOL, np_state,
+                          ref_config, seed_reference, to_port)
 
 from fdtd3d_torch import convert
-from fdtd3d_torch.ops import build, pallas3d, pallas_fused
+from fdtd3d_torch.ops import build, patches, pallas3d, pallas_fused
 from fdtd3d_torch.sim import Simulation as TSim
 from fdtd3d_torch.solver import (build_coeffs, build_static,
                                  coeffs_to_device, init_state, make_step)
@@ -90,13 +102,16 @@ def assert_family_close(want, got, tol: float = TOL):
                     f"{fam}/{k}: rel {rel:.2e} of the {name} max {scale:.2e}"
 
 
-def run_rung(case, rung, ref_pallas, monkeypatch, steps=8, seed=7):
+def run_rung(case, rung, ref_pallas, monkeypatch, steps=8, seed=7,
+             cases=None, **kw):
     names, ref_kind, port_kind = RUNGS[rung]
     for k in names:
         monkeypatch.setenv(k, "1")
-    ref = RSim(case_config(case, use_pallas=ref_pallas))
+    spec = (cases or LADDER_CASES)[case]
+    ref = RSim(SimConfig(**BASE, **spec, use_pallas=ref_pallas, **kw))
     seed_reference(ref, seed)
-    port = TSim(to_port(case_config(case, use_pallas=True)), device="cpu")
+    port = TSim(to_port(SimConfig(**BASE, **spec, use_pallas=True, **kw)),
+                device="cpu")
     port.state = convert.state_from_reference(np_state(ref))
     ref.advance(steps)
     port.advance(steps)
@@ -271,40 +286,62 @@ def test_steps_leave_their_input_state_alone(build_step):
     assert "family" not in build._LIBS and "fused_eh" not in build._LIBS
 
 
-@pytest.mark.parametrize("case", ["kitchen_sink", "oblique_tfsf"])
-def test_planned_face_patches_equal_plane_corrections(case):
-    """The TFSF face patches planned once per coefficient dict
-    (``tfsf_plan``) add, per face, the bits of ``cb`` times the
-    reference-style ``plane_corrections`` term computed from scratch,
-    PEC walls applied."""
-    static = build_static(to_port(ref_config(case)))
+# every case of tests/torch_parity.py, a K sphere and the TFSF planes
+# inside the slabs, on the two-pass rung: bf16 on all of them, f32 on
+# those test_rung_matches_reference_* above leave out
+TWO_PASS_CASES = dict(CASES, k_sphere=MODE_CASES["k_sphere"],
+                      tfsf_in_slab=LADDER_CASES["tfsf_in_slab"])
+TWO_PASS_TOLS = {"float32": TOL, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("ref_pallas", [True, False],
+                         ids=["interpret_kernel", "jnp"])
+@pytest.mark.parametrize("case,dtype", [
+    (case, dtype) for case in sorted(TWO_PASS_CASES)
+    for dtype in sorted(TWO_PASS_TOLS)
+    if dtype == "bfloat16" or case not in LADDER_CASES])
+def test_two_pass_rung_on_every_case(case, dtype, ref_pallas, monkeypatch):
+    """The two-pass rung (its plain versions, with the x slab, the
+    records and the point source added into the accumulator) against the
+    reference's two-pass kernel in interpret mode, which patches them on,
+    and against its jnp step: 8 steps at 16^3 from one seeded state, at
+    2e-6 (f32) or 2e-2 (bf16) of each family's max."""
+    want, got = run_rung(case, "pallas3d", ref_pallas, monkeypatch,
+                         cases=TWO_PASS_CASES, dtype=dtype)
+    assert_family_close(want, got, TWO_PASS_TOLS[dtype])
+
+
+def test_two_pass_step_issues_no_patches(monkeypatch):
+    """The reference's post-passes (``x_slab_post``, ``tfsf_patch``,
+    ``point_source_patch``) have no counterpart left in the two-pass
+    module, and stand-ins that raise, there and in ``ops/patches.py``
+    (the packed step's patches), leave a step of the kitchen sink (x
+    CPML, TFSF, point source, Drude J, grids) as it was."""
+    static = build_static(to_port(ref_config("kitchen_sink")))
     coeffs = coeffs_to_device(build_coeffs(static), "cpu")
-    rng = np.random.RandomState(11)
-    n = static.tfsf_setup.n_inc
-    inc = {k: torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-           for k in ("Einc", "Hinc")}
-    for family in ("E", "H"):
-        comps = static.mode.e_components if family == "E" \
-            else static.mode.h_components
-        planned = {c: torch.zeros(static.grid_shape) for c in comps}
-        pallas3d.tfsf_patch(static, family, planned, coeffs, inc)
-        want = {c: torch.zeros(static.grid_shape) for c in comps}
-        sign = 1.0 if family == "E" else -1.0
-        for c in comps:
-            cb = coeffs[("cb_" if family == "E" else "db_") + c]
-            for axis, plane, term in pallas3d.plane_corrections(
-                    family, c, static.tfsf_setup, coeffs, inc,
-                    static.mode.active_axes, static.dx):
-                if family == "E":
-                    for a2 in static.mode.active_axes:
-                        if a2 not in (axis,
-                                      static.mode.e_components.index(c)):
-                            w = coeffs[f"wall_{'xyz'[a2]}"]
-                            shape = [1, 1, 1]
-                            shape[a2] = w.shape[0]
-                            term = term * w.reshape(shape)
-                scale = cb.narrow(axis, plane, 1) \
-                    if isinstance(cb, torch.Tensor) else cb
-                want[c].narrow(axis, plane, 1).add_(sign * scale * term)
-        for c in comps:
-            assert torch.equal(planned[c], want[c]), f"{family} {c}"
+    state = init_state(static, "cpu")
+    rng = np.random.RandomState(5)
+    for grp in ("E", "H", "J", "psi_E", "psi_H", "inc"):
+        for v in state[grp].values():
+            v.copy_(torch.from_numpy(0.01 * rng.standard_normal(
+                v.shape).astype(np.float32)))
+    step = pallas3d.make_pallas_step(static, "cpu")
+    fp = step.prepare(coeffs)
+    want = convert.state_to_reference(step(state, fp))
+    names = ("x_slab_post", "slab_post", "tfsf_patch", "point_source_patch",
+             "tfsf_plan", "point_plan")
+    assert not any(hasattr(pallas3d, n) for n in names)
+
+    def raiser(*args, **kw):
+        raise AssertionError("the two-pass step issued a patch")
+    for n in names:
+        monkeypatch.setattr(pallas3d, n, raiser, raising=False)
+    for n in ("tfsf_patch", "point_source_patch"):
+        monkeypatch.setattr(patches, n, raiser)
+    got = convert.state_to_reference(step(state, fp))
+    for grp, leaves in want.items():
+        if grp == "t":
+            assert int(got[grp]) == int(leaves)
+            continue
+        for k, v in leaves.items():
+            np.testing.assert_array_equal(got[grp][k], v)

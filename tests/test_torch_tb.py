@@ -89,8 +89,9 @@ def test_reject_reason_matches_reference(case, kw, token):
      "packed_ds_plain"),
     (dict(dtype="float64"), {}, "dtype", "plain"),
     # FDTD3D_NO_PACKED alone: the rung pallas_fused.fused_preferred names
+    # (the two-pass one for the kitchen sink's coefficient grids)
     (dict(use_pallas=True), {"FDTD3D_NO_PACKED": "1"},
-     "env:FDTD3D_NO_PACKED", "fused_plain"),
+     "env:FDTD3D_NO_PACKED", "pallas3d_plain"),
     (dict(use_pallas=True), {"FDTD3D_FORCE_FUSED": "1"},
      "env:FDTD3D_FORCE_FUSED", "fused_plain"),
 ])
