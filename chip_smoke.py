@@ -228,6 +228,32 @@ kernels):
    the same kernels run solo, all bit for bit; the launches' times
    beside their bound, and the lanes through ``run_batch`` for 8 steps.
 
+Durable runs (npz checkpoints in the reference's format, ``--resume``,
+the supervisor's rollback and kernel ladder, the fault plan of
+``FDTD3D_FAULT_PLAN``):
+
+26. (a) ``Simulation.checkpoint`` and ``restore`` of vacuum3D_tfsf at
+   256^3, 20 steps in, in f32 and bf16: their seconds, the file's MB,
+   and the device memory each adds at its peak, gated at one leaf's
+   bytes; the restore writes into the live carry's own tensors and
+   gives back the checkpointed state bit for bit; (b) the CLI on
+   vacuum3D_tfsf at 256^3 for 150 steps with ``--checkpoint-every 50``:
+   uninterrupted, then killed at t=100 (a child process under
+   ``preempt@t=100``, which must exit non-zero) and resumed with
+   ``--resume auto`` (25 tb launches, the remaining steps only), the
+   dumps equal byte for byte, in f32 and bf16; in f32 also with the
+   newest snapshot damaged (``corrupt_ckpt``), the resume falling back
+   to t=50; and ``Examples/precision3D_float32x2.txt`` as it stands
+   (128^3, 1000 steps, cadence 250, killed at 500); (c) the supervised
+   ladder: ``--supervise --checkpoint-every 10`` with NaNs at t = 20,
+   40, 60, 80: the degrades ``packed_tb_cuda`` -> ``packed_cuda`` ->
+   ``fused_cuda`` -> ``pallas3d_cuda`` -> ``plain``, each CUDA rung's
+   kernels launched, the dumps within ``LADDER_REL`` of the
+   uninterrupted run's, the run's wall and peak memory and each
+   degrade's, the tripped sim released before the next rung is built
+   (one carry on the card at a time); then a trip on the plain step
+   re-raises.
+
 The packed and two-pass kernels' bound counts each coefficient grid
 inside the box outside which it holds its background value
 (``packed.material``): the kernels read grids there only. Phase 3
@@ -237,8 +263,9 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 (kernel against plain version, lane against solo) launch the kernels
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
-``Simulation`` runs of 20-24 and the ``run_batch`` runs of 24-25)
-resets the counts just before it and reads them just after. The last
+``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25, and
+each CLI run of 26 in this process) resets the counts just before it
+and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -254,6 +281,7 @@ import shutil
 import subprocess
 import sys
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(ROOT, "Examples", "vacuum3D_tfsf.txt")
@@ -2701,6 +2729,339 @@ def compensated_lanes(dev, size=128, times=True):
 
 
 
+# --------------------------------------------------------------------------
+# durable runs: checkpoints, resume, the supervised ladder (phase 26)
+# --------------------------------------------------------------------------
+
+DURABLE_DIR = os.path.join(OUT_DIR, "durable")
+# the supervised ladder's rungs on the card, NaNs at t = 20, 40, 60, 80
+LADDER_RUNGS = ("packed_tb_cuda", "packed_cuda", "fused_cuda",
+                "pallas3d_cuda", "plain")
+# each CUDA rung's kernel counts (ladder_launches keys)
+RUNG_KERNELS = {"packed_tb_cuda": ("tb_pass",),
+                "packed_cuda": ("e_update", "h_update"),
+                "fused_cuda": ("fused_eh",),
+                "pallas3d_cuda": ("e_family", "h_family")}
+
+
+def checkpoint_numbers(dtype, dev, size=256):
+    """Phase 26 (a): a ``Simulation`` of vacuum3D_tfsf at ``size``^3 in
+    ``dtype`` 20 steps in: the seconds of ``checkpoint`` and of
+    ``restore``, the file's MB, and the device memory each adds at its
+    peak over what the sim holds (``max_memory_allocated`` from a reset
+    just before), gated at one leaf's bytes; the restore must write into
+    the live carry's own tensors (their addresses unchanged) and give
+    back the checkpointed state bit for bit after 6 more steps."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    os.makedirs(DURABLE_DIR, exist_ok=True)
+    path = os.path.join(DURABLE_DIR, f"ck_{dtype}.npz")
+    sim = Simulation(config(EXAMPLE, ["--same-size", str(size), "--dtype",
+                                      dtype]), device=dev)
+    sim.advance(20)
+    want = {k: v.clone() for k, v in leaves(sim._dict_view())}
+    leaf_max = max(v.numel() * v.element_size() for v in want.values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim.checkpoint(path)
+    ck_s = time.time() - t0
+    ck_extra = torch.cuda.max_memory_allocated() - base
+    sim.advance(6)
+    torch.cuda.synchronize()
+    ptrs = {k: v.data_ptr() for k, v in leaves(sim._dict_view())}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim.restore(path)
+    torch.cuda.synchronize()
+    rs_s = time.time() - t0
+    rs_extra = torch.cuda.max_memory_allocated() - base
+    got = dict(leaves(sim._dict_view()))
+    rec = {"size": size, "dtype": dtype, "step_kind": sim.step_kind,
+           "checkpoint_s": ck_s, "restore_s": rs_s,
+           "file_mb": os.path.getsize(path) / 1e6,
+           "state_mb": sum(v.numel() * v.element_size()
+                           for v in want.values()) / 1e6,
+           "leaf_max_bytes": leaf_max,
+           "checkpoint_peak_extra_bytes": ck_extra,
+           "restore_peak_extra_bytes": rs_extra,
+           "restore_in_place": {k: v.data_ptr() for k, v in got.items()}
+           == ptrs}
+    say(f"checkpoint numbers: {json.dumps(rec)}")
+    if sim.t != 20 or not all(torch.equal(got[k], v)
+                              for k, v in want.items()):
+        fail(f"{dtype}: the restored state is not the checkpointed one")
+    if ck_extra > leaf_max or rs_extra > leaf_max:
+        fail(f"{dtype}: checkpoint/restore added {ck_extra}/{rs_extra} B "
+             f"of device memory, more than one leaf ({leaf_max} B)")
+    if not rec["restore_in_place"]:
+        fail(f"{dtype}: restore replaced the live carry's tensors")
+    del sim, want, got
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def killed_cli(argv, plan, label):
+    """The CLI in a child process under the fault plan ``plan``: it must
+    end with a non-zero exit (the simulated preemption)."""
+    env = dict(os.environ, FDTD3D_FAULT_PLAN=plan,
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "fdtd3d_torch.cli"]
+                          + argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600, check=False)
+    tail = (proc.stderr.strip().splitlines() or [""])[-1]
+    say(f"{label}: killed run under {plan!r} exited {proc.returncode} in "
+        f"{time.time() - t0:.1f} s ({tail})")
+    if proc.returncode == 0 or "SimulatedPreemption" not in proc.stderr:
+        fail(f"{label}: the run under {plan!r} was not preempted "
+             f"(rc {proc.returncode}): {proc.stderr[-2000:]}")
+    return time.time() - t0
+
+
+def cli_logged(argv, label):
+    """cli.main(argv) in this process with every kernel count set to 0
+    just before and read just after: (stdout, stderr, launches, wall,
+    peak device memory)."""
+    import torch
+    from fdtd3d_torch import cli
+    out, err = _io.StringIO(), _io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    from fdtd3d_torch.ops import packed_ds
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ladder_launches(),
+                    ds_pass=packed_ds.ds_pass.launches,
+                    ds_line=packed_ds.line_advance.launches)
+    say(f"cli ({label}): " + " | ".join(out.getvalue().strip().splitlines()
+                                        + err.getvalue().strip()
+                                        .splitlines()[-6:]))
+    if rc != 0:
+        fail(f"{label}: cli.main returned {rc}")
+    return (out.getvalue(), err.getvalue(), launches, wall,
+            torch.cuda.max_memory_allocated())
+
+
+def same_dumps(dir_a, dir_b, steps, label):
+    """Every DAT dump of step ``steps`` in the two directories equal
+    byte for byte."""
+    for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
+        name = f"{c}_t{steps:06d}.dat"
+        with open(os.path.join(dir_a, name), "rb") as fa, \
+                open(os.path.join(dir_b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"{label}: {name} of the resumed run differs from "
+                     f"the uninterrupted run's")
+
+
+def kill_and_resume(label, base_argv, every, kill, steps, kind, counter,
+                    per_call, clean=None):
+    """Phase 26 (b): the CLI with ``--checkpoint-every every``
+    uninterrupted, then killed at ``kill`` (a child process under
+    ``preempt@t=kill``) and resumed with ``--resume auto``: the resumed
+    run runs ``kind`` for the remaining steps only (``counter`` launches,
+    ``per_call`` steps a launch) and its dumps equal the uninterrupted
+    run's byte for byte. With ``clean`` (the directory of an earlier
+    uninterrupted run of the same flags) the killed run's newest
+    snapshot is damaged (``corrupt_ckpt``), and the resume falls back to
+    the one before it."""
+    corrupt = clean is not None
+    killed = os.path.join(DURABLE_DIR, f"{label}_killed")
+    shutil.rmtree(killed, ignore_errors=True)
+    flags = base_argv + ["--checkpoint-every", str(every), "--save-res",
+                         str(steps), "--check-finite"]
+    wall = launches = None
+    if not corrupt:
+        clean = os.path.join(DURABLE_DIR, f"{label}_clean")
+        shutil.rmtree(clean, ignore_errors=True)
+        _o, _e, launches, wall, _p = cli_logged(
+            flags + ["--save-dir", clean], f"{label} uninterrupted")
+    n_ckpt = kill // every
+    plan = f"preempt@t={kill}"
+    if corrupt:
+        plan = f"corrupt_ckpt@n={n_ckpt}; " + plan
+    killed_s = killed_cli(flags + ["--save-dir", killed], plan, label)
+    from fdtd3d_torch import io
+    if [t for t, _ in io.find_checkpoints(killed)][:1] != [kill]:
+        fail(f"{label}: the killed run left {io.find_checkpoints(killed)}")
+    start = kill - every if corrupt else kill
+    out, err, r_launches, r_wall, r_peak = cli_logged(
+        flags + ["--save-dir", killed, "--resume", "auto"],
+        f"{label} resumed")
+    want_from = f"ckpt_t{start:06d}.npz at t={start}"
+    if want_from not in out or f"step_kind={kind}" not in out:
+        fail(f"{label}: the resume did not start from {want_from} on "
+             f"{kind}")
+    if corrupt and "skipping unusable checkpoint" not in err:
+        fail(f"{label}: the corrupt snapshot was not skipped")
+    want = (steps - start) // per_call
+    if r_launches[counter] != want:
+        fail(f"{label}: the resumed run made {r_launches[counter]} "
+             f"{counter} launches, not {want}")
+    same_dumps(clean, killed, steps, label)
+    rec = {"steps": steps, "checkpoint_every": every, "kill_at": kill,
+           "resumed_from": start, "kind": kind,
+           "uninterrupted_wall_s": wall, "uninterrupted_launches":
+           launches, "killed_wall_s": killed_s, "resumed_wall_s": r_wall,
+           "resumed_launches": r_launches, "peak_mem_bytes": r_peak,
+           "bit_equal": True, "corrupt_fallback": corrupt}
+    say(f"kill and resume ({label}): {json.dumps(rec)}")
+    shutil.rmtree(killed, ignore_errors=True)
+    return rec, clean
+
+
+def supervised_ladder(base_argv, clean_dir, steps, dev, size=256):
+    """Phase 26 (c): ``--supervise --checkpoint-every 10`` with NaNs at
+    t = 20, 40, 60, 80: each trip rolls back and steps one rung down
+    ``LADDER_RUNGS`` (the supervisor's log names each degrade), every
+    CUDA rung launches its kernels, the run ends on the plain step at
+    ``steps`` with finite dumps within ``LADDER_REL`` of the family max
+    of the unsupervised run's (``clean_dir``); the peak device memory,
+    and at each degrade the memory before it and when the next rung's
+    build starts, by which time the tripped sim must be released. Then
+    a trip on the plain step re-raises."""
+    import torch
+    from fdtd3d_torch import faults
+    from fdtd3d_torch.supervisor import RetryPolicy, Supervisor
+    out_dir = os.path.join(DURABLE_DIR, "supervised")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    plan = "nan@t=20; nan@t=40; nan@t=60; nan@t=80"
+    swaps = []
+    real_swap = Supervisor._swap_sim
+
+    def swap(sup, cfg):
+        # the device memory while a degrade builds the next rung: before
+        # the swap (the tripped sim held), when the build starts (the
+        # tripped sim must be gone by then), peak during the build, after
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        tripped = weakref.ref(sup.sim)
+        build, at_build = sup._factory, {}
+
+        def factory(c):
+            at_build.update(released=tripped() is None,
+                            allocated=torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return build(c)
+
+        sup._factory = factory
+        try:
+            real_swap(sup, cfg)
+        finally:
+            sup._factory = build
+        torch.cuda.synchronize()
+        swaps.append({"kind": sup.sim.step_kind,
+                      "allocated_before": before,
+                      "tripped_released": at_build["released"],
+                      "allocated_at_build": at_build["allocated"],
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "allocated_after": torch.cuda.memory_allocated()})
+
+    faults.clear()
+    os.environ["FDTD3D_FAULT_PLAN"] = plan
+    Supervisor._swap_sim = swap
+    # what the card holds outside the supervised run (earlier phases'
+    # tensors): the tripped sim's memory is measured above it
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    try:
+        out, err, launches, wall, peak = cli_logged(
+            base_argv + ["--supervise", "--checkpoint-every", "10",
+                         "--save-res", str(steps), "--save-dir", out_dir],
+            "supervised ladder")
+    finally:
+        Supervisor._swap_sim = real_swap
+        os.environ.pop("FDTD3D_FAULT_PLAN")
+        faults.clear()
+    degrades = [ln.split("degraded ")[1].split(" -> ")
+                for ln in err.splitlines() if " and degraded " in ln]
+    want = [[a, b] for a, b in zip(LADDER_RUNGS, LADDER_RUNGS[1:])]
+    if degrades != want:
+        fail(f"supervised ladder: degrades {degrades} != {want}")
+    if "supervisor: 0 retries, 4 rollbacks, 4 ladder degrades (now " \
+            "plain)" not in out:
+        fail("supervised ladder: the supervisor's closing line is missing")
+    for sw in swaps:
+        # one carry at a time: the tripped sim is released before the
+        # next rung is built
+        if not sw["tripped_released"] or 2 * (
+                sw["allocated_at_build"] - base) > \
+                sw["allocated_before"] - base:
+            fail(f"supervised ladder: the tripped sim was still on the "
+                 f"card when {sw['kind']} was built: {sw}")
+    for rung, keys in RUNG_KERNELS.items():
+        if not all(launches[k] > 0 for k in keys):
+            fail(f"supervised ladder: {rung} launched "
+                 f"{[launches[k] for k in keys]}")
+    got = load_dumps(out_dir, steps, (size,) * 3, "supervised ladder")
+    ref = load_dumps(clean_dir, steps, (size,) * 3, "unsupervised")
+    rel = rel_fields(got, ref)
+    if not rel <= LADDER_REL:
+        fail(f"supervised ladder: rel {rel:.3e} vs the unsupervised run "
+             f"> {LADDER_REL}")
+    # a trip at the bottom is physics: it re-raises
+    faults.install("nan@t=10")
+    cfg = config(EXAMPLE, ["--same-size", str(size), "--use-pallas",
+                           "off"])
+    sup = Supervisor(cfg, device=dev, policy=RetryPolicy(
+        sleep=lambda _s: None))
+    try:
+        sup.run(time_steps=20, interval=10)
+        fail("a trip on the plain step did not re-raise")
+    except FloatingPointError:
+        bottom = sup.sim.step_kind
+    finally:
+        faults.clear()
+    del sup
+    torch.cuda.empty_cache()
+    rec = {"steps": steps, "plan": plan, "wall_s": wall,
+           "degrades": degrades, "launches": launches,
+           "peak_mem_bytes": peak, "allocated_outside": base,
+           "swaps": swaps,
+           "rel_vs_unsupervised": rel, "bottom_reraised_on": bottom}
+    say(f"supervised ladder: {json.dumps(rec)}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
+def durable_runs(dev, size=256, ds_plan=(250, 500, 1000)):
+    """Phase 26: the durable-run path (npz checkpoints, --resume, the
+    supervisor) at the main path's width, vacuum3D_tfsf at ``size``^3
+    for 150 steps, f32 and bf16, and the float32x2 example as it stands
+    (128^3, 1000 steps; ``ds_plan``: cadence, kill step, steps)."""
+    import torch
+    rec = {"checkpoint": {dt: checkpoint_numbers(dt, dev, size)
+                          for dt in ("float32", "bfloat16")}}
+    main = ["--cmd-from-file", EXAMPLE, "--same-size", str(size)]
+    rec["resume_float32"], clean = kill_and_resume(
+        "f32", main, 50, 100, 150, "packed_tb_cuda", "tb_pass", 2)
+    rec["resume_float32_corrupt"], _c = kill_and_resume(
+        "f32_corrupt", main, 50, 100, 150, "packed_tb_cuda", "tb_pass", 2,
+        clean=clean)
+    rec["supervised_ladder"] = supervised_ladder(main, clean, 150, dev,
+                                                 size)
+    shutil.rmtree(clean, ignore_errors=True)
+    rec["resume_bfloat16"], clean = kill_and_resume(
+        "bf16", main + BF16, 50, 100, 150, "packed_tb_cuda", "tb_pass", 2)
+    shutil.rmtree(clean, ignore_errors=True)
+    every, kill, steps = ds_plan
+    rec["resume_float32x2"], clean = kill_and_resume(
+        "ds", ["--cmd-from-file", PRECISION, "--time-steps", str(steps)],
+        every, kill, steps, "packed_ds_cuda", "ds_pass", 1)
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3283,6 +3644,9 @@ def main() -> int:
     # ---- phase 25 (C6): compensated lanes at 128^3 ---------------------
     result["comp_lanes_128"] = comp_lanes = compensated_lanes(dev)
     mark("phase 25")
+    # ---- phase 26: durable runs: checkpoints, resume, the supervisor ----
+    result["durable"] = durable_runs(dev)
+    mark("phase 26")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},

@@ -25,9 +25,11 @@ bounds the lane count.
 
 Not here yet (ROADMAP.md): the telemetry sink, heartbeats, the run
 registry and metrics (A5/A15, their flags raise), the executable cache
-(A13), checkpoint/restore of a batch (A6), fault hooks (A12) and meshes
-(A11). The reference's VMEM ladder has no counterpart: the kernels'
-shared memory does not depend on the lane count.
+(A13), checkpoint/restore of a batch and fault plans on a batch
+(A13(b): a batch under ``FDTD3D_FAULT_PLAN`` raises, and so do the CLI's
+``--batch`` with the checkpoint and resume flags) and meshes (A11).
+The reference's VMEM ladder has no counterpart: the kernels' shared
+memory does not depend on the lane count.
 """
 
 from __future__ import annotations
@@ -214,6 +216,12 @@ class BatchSimulation:
     """
 
     def __init__(self, cfgs, device=None):
+        from fdtd3d_torch import faults
+        if faults.load_env() is not None:
+            raise NotImplementedError(
+                "fault plans on a batch (per-lane fault scopes and "
+                "hooks) are not ported to fdtd3d_torch yet (ROADMAP.md "
+                "queue A13(b))")
         specs = [c if isinstance(c, ScenarioSpec) else ScenarioSpec(c)
                  for c in cfgs]
         if not specs:

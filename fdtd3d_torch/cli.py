@@ -6,7 +6,12 @@ is the reference's, so every ``Examples/*.txt`` command file parses to
 the same ``SimConfig``; the port adds ``--device`` (cuda by default,
 ``--device cpu`` to run on the CPU). ``main`` runs the non-supervised,
 single-device path: the run in chunks, ``--norms-every`` lines, DAT
-dumps every ``--save-res`` steps, and the closing throughput line, for
+dumps every ``--save-res`` steps, npz checkpoints every
+``--checkpoint-every`` steps (keep-K rotation, ``--checkpoint-keep``),
+``--load-checkpoint``/``--resume auto|PATH`` (only the remaining steps
+run), ``--supervise`` (``fdtd3d_torch/supervisor.py``: retry, rollback,
+the kernel ladder), the SIGTERM/SIGINT handlers (exit 143/130), and the
+closing throughput line, for
 ``--dtype float32``, ``bfloat16`` (bf16 storage, f32 arithmetic; the
 dumps are the fields' 2-byte words, as the reference's), ``float32x2``
 (the hi words are dumped, in f32, as the reference dumps them) and
@@ -444,9 +449,7 @@ def args_to_config(args) -> SimConfig:
 
 # (flag attribute, value that means "not used", ROADMAP.md item)
 _NOT_PORTED = (
-    ("supervise", False, "A12"),
-    ("resume", None, "A6"), ("load_checkpoint", None, "A6"),
-    ("checkpoint_every", 0, "A6"), ("ntff", False, "A8"),
+    ("ntff", False, "A8"),
     ("coordinator_address", None, "A11"), ("num_processes", None, "A11"),
     ("process_id", None, "A11"), ("dry_run", False, "A11"),
     ("telemetry", None, "A5"), ("metrics", None, "A15"),
@@ -456,17 +459,33 @@ _NOT_PORTED = (
 )
 
 
+def _not_ported(flag: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{flag} is not ported to fdtd3d_torch yet (ROADMAP.md queue "
+        f"{item}); run it with the reference CLI (python -m "
+        f"fdtd3d_tpu.cli)")
+
+
+# the durable-run flags a batch does not take: batch checkpoints and
+# resume are ROADMAP.md item A13(b)
+_BATCH_NOT_PORTED = (("checkpoint_every", 0), ("resume", None),
+                     ("load_checkpoint", None))
+
+
+def check_batch_ported(args) -> None:
+    for attr, unused in _BATCH_NOT_PORTED:
+        if getattr(args, attr) != unused:
+            _not_ported("--batch with --" + attr.replace("_", "-"),
+                        "A13(b)")
+
+
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose feature is not in this
     slice of the port."""
     for attr, unused, item in _NOT_PORTED:
         val = getattr(args, attr)
         if val != unused:
-            flag = "--" + attr.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported to fdtd3d_torch yet (ROADMAP.md "
-                f"queue {item}); run it with the reference CLI "
-                f"(python -m fdtd3d_tpu.cli)")
+            _not_ported("--" + attr.replace("_", "-"), item)
     if args.save_formats != "dat":
         raise NotImplementedError(
             f"--save-formats {args.save_formats}: only dat is ported to "
@@ -485,6 +504,12 @@ def _run_batch_cli(parser, args) -> int:
 
     from fdtd3d_torch.batch import BatchSimulation
     from fdtd3d_torch.log import log, set_level, warn
+    check_batch_ported(args)
+    if args.supervise:
+        # a supervised batch's recovery is per-lane isolation (one
+        # lane's NaN flips only its verdict): --supervise forces the
+        # finite check on, as in the reference
+        args.check_finite = True
     cfgs = []
     for path in args.batch:
         largs = parser.parse_args(read_cmd_file(path))
@@ -493,6 +518,7 @@ def _run_batch_cli(parser, args) -> int:
                 f"--batch: {path} itself contains --batch (nested "
                 f"batches are not a thing)")
         check_ported(largs)
+        check_batch_ported(largs)
         cfgs.append(args_to_config(largs))
     if args.check_finite:
         # top-level --check-finite applies to the batch (lane 0's output
@@ -541,6 +567,76 @@ def _run_batch_cli(parser, args) -> int:
     return 0
 
 
+def _peek_supervisor_state(cfg, resume: str):
+    """-> (supervisor recovery state or None, snapshot path or None).
+
+    The recovery state a previous supervised run persisted into the
+    snapshot ``--resume`` will pick (metadata only, no state bytes), so
+    a supervised resume re-applies the ladder pins before the
+    Simulation is built. ``auto`` takes the first snapshot of the
+    restore's own walk (``sim.checkpoint_candidates``, with its horizon
+    and metadata guards), so a foreign run's leftover snapshot in the
+    same save_dir cannot donate its recovery state."""
+    from fdtd3d_torch import io
+    from fdtd3d_torch.log import warn
+    from fdtd3d_torch.sim import (CKPT_UNUSABLE, checkpoint_candidates,
+                                  ckpt_meta_mismatch)
+    if resume == "auto":
+        cand, meta = next(checkpoint_candidates(
+            cfg, cfg.output.save_dir, cfg.time_steps), (None, None))
+    else:
+        cand = resume
+        try:
+            meta = io.read_checkpoint_meta(cand)
+            reason = ckpt_meta_mismatch(cfg, meta)
+        except CKPT_UNUSABLE as exc:
+            reason = str(exc)
+        if reason:
+            warn(f"supervised resume: not adopting recovery state from "
+                 f"{cand} ({reason})")
+            meta = None
+    state = (meta or {}).get("supervisor")
+    return state, (cand if state else None)
+
+
+def _resume(sim, args, cfg, peeked_ckpt) -> None:
+    """``--load-checkpoint PATH`` / ``--resume auto|PATH`` into ``sim``
+    (``fdtd3d_tpu/cli.py:801-854``): ``auto`` restores the newest
+    usable snapshot (``sim.restore_newest``: newest first, skipping
+    ones past this run's horizon and ones that fail the guards or the
+    integrity checks)."""
+    from fdtd3d_torch import io
+    from fdtd3d_torch.log import log, warn
+    from fdtd3d_torch.sim import restore_newest
+    if args.load_checkpoint:
+        sim.restore(args.load_checkpoint)
+        log(f"restored checkpoint {args.load_checkpoint} at t={sim.t}")
+    if not args.resume:
+        return
+    if args.resume != "auto":
+        try:
+            sim.restore(args.resume)
+        except (io.CheckpointCorrupt, ValueError) as exc:
+            raise SystemExit(f"--resume: {exc}")
+        log(f"resumed from {args.resume} at t={sim.t}")
+        return
+    if not io.find_checkpoints(cfg.output.save_dir):
+        raise SystemExit(
+            f"--resume auto: no committed checkpoint in "
+            f"{cfg.output.save_dir!r} (cadence runs write ckpt_tNNNNNN "
+            f"snapshots there)")
+    cand = restore_newest(sim, cfg.output.save_dir, cfg.time_steps)
+    if cand is None:
+        raise SystemExit(
+            "--resume auto: no usable committed checkpoint (every "
+            "candidate was corrupt, incompatible, or past this run's "
+            "horizon)")
+    log(f"resumed from {cand} at t={sim.t}")
+    if peeked_ckpt is not None and cand != peeked_ckpt:
+        warn(f"supervisor recovery state was adopted from {peeked_ckpt} "
+             f"but the run resumed from {cand}")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
@@ -551,7 +647,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     check_ported(args)
     if args.batch:
         return _run_batch_cli(parser, args)
+    if args.resume and args.load_checkpoint:
+        raise SystemExit(
+            "--resume and --load-checkpoint are mutually exclusive")
+    if args.supervise:
+        # the supervisor consumes the finite check: force it on
+        args.check_finite = True
     cfg = args_to_config(args)
+
+    import signal
 
     import torch
 
@@ -559,44 +663,109 @@ def main(argv: Optional[List[str]] = None) -> int:
     from fdtd3d_torch.log import log, set_level
     from fdtd3d_torch.sim import Simulation
     set_level(cfg.output.log_level)
-    sim = Simulation(cfg, device=args.device)
-    dev = sim.device
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
-        else "cpu"
-    log(f"fdtd3d-torch: scheme={cfg.scheme} size={cfg.grid_shape} "
-        f"steps={cfg.time_steps} dt={cfg.dt:.3e}s device={dev} "
-        f"({name})")
-    fallback = (sim.step_diag or {}).get("tb_fallback")
-    log(f"step_kind={sim.step_kind}"
-        + (f" tb_fallback={fallback['reason']}" if fallback else ""))
+    sup = None  # the supervisor (--supervise); it may replace sim
+    peeked_ckpt = None
+    if args.supervise:
+        # built before the Simulation: a supervised --resume adopts the
+        # ladder pins a previous supervised run persisted
+        from fdtd3d_torch.supervisor import Supervisor
+        resume_state = None
+        if args.resume:
+            resume_state, peeked_ckpt = _peek_supervisor_state(
+                cfg, args.resume)
+        sup = Supervisor(cfg=cfg, resume_state=resume_state,
+                         device=args.device)
+        try:
+            cfg = sup.cfg
+            sim = sup.ensure_sim()
+        except BaseException:
+            # the pins adopted above must not leak into the caller
+            sup._restore_env()
+            raise
+    else:
+        sim = Simulation(cfg, device=args.device)
 
-    interval = 0
-    for v in (cfg.output.save_res, cfg.output.norms_every):
-        if v:
-            interval = math.gcd(interval, v)
+    # SIGTERM/SIGINT end the run through SystemExit (143/130), so the
+    # finally below runs on a kill as on any other exit; the previous
+    # handlers come back on every exit (library callers must not
+    # inherit ours)
+    old_handlers = {}
+    for sig, code in ((signal.SIGTERM, 143), (signal.SIGINT, 130)):
+        try:
+            old_handlers[sig] = signal.signal(
+                sig, lambda _s, _frm, _c=code: sys.exit(_c))
+        except (ValueError, OSError):  # not the main thread
+            pass
+    try:
+        _resume(sim, args, cfg, peeked_ckpt)
+        dev = sim.device
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+            else "cpu"
+        log(f"fdtd3d-torch: scheme={cfg.scheme} size={cfg.grid_shape} "
+            f"steps={cfg.time_steps} dt={cfg.dt:.3e}s device={dev} "
+            f"({name})")
+        fallback = (sim.step_diag or {}).get("tb_fallback")
+        log(f"step_kind={sim.step_kind}"
+            + (f" tb_fallback={fallback['reason']}" if fallback else ""))
 
-    def on_interval(s):
-        if cfg.output.norms_every and s.t % cfg.output.norms_every == 0:
-            norms = diag.field_norms(s)
-            txt = " ".join(f"{k}={v:.4e}"
-                           for k, v in sorted(norms.items()))
-            log(f"[t={s.t}] {txt}")
-        if cfg.output.save_res and s.t % cfg.output.save_res == 0:
-            io.write_outputs(s, s.t)
+        # gcd, not min: chunks must land on every cadence's multiples;
+        # the checkpoint cadence is in it, so a resumed run's chunks end
+        # where the uninterrupted run's do
+        interval = 0
+        for v in (cfg.output.save_res, cfg.output.norms_every,
+                  cfg.output.checkpoint_every):
+            if v:
+                interval = math.gcd(interval, v)
 
-    t0 = time.time()
-    sim.run(time_steps=cfg.time_steps,
-            on_interval=on_interval if interval else None,
-            interval=interval)
-    sim.block_until_ready()
-    dt_wall = time.time() - t0
-    cells = 1.0
-    for a in sim.static.mode.active_axes:
-        cells *= cfg.grid_shape[a]
-    mcps = cells * cfg.time_steps / dt_wall / 1e6
-    log(f"done: {cfg.time_steps} steps in {dt_wall:.2f}s "
-        f"({mcps:.1f} Mcells/s)")
-    return 0
+        def on_interval(s):
+            if cfg.output.norms_every and s.t % cfg.output.norms_every == 0:
+                norms = diag.field_norms(s)
+                txt = " ".join(f"{k}={v:.4e}"
+                               for k, v in sorted(norms.items()))
+                log(f"[t={s.t}] {txt}")
+            if cfg.output.save_res and s.t % cfg.output.save_res == 0:
+                io.write_outputs(s, s.t)
+
+        # after a restore only the remaining steps run, so the resumed
+        # run ends at the same t as the uninterrupted one
+        remaining = max(0, cfg.time_steps - sim.t) \
+            if (args.load_checkpoint or args.resume) else cfg.time_steps
+        t0 = time.time()
+        if sup is not None:
+            # the supervisor takes the absolute horizon (it tracks its
+            # own progress across rollbacks); it owns the sim, so a
+            # degrade can release the tripped one before the next rung
+            horizon = max(cfg.time_steps, sim.t)
+            sim = None
+            sim = sup.run(time_steps=horizon,
+                          on_interval=on_interval if interval else None,
+                          interval=interval)
+        else:
+            sim.run(time_steps=remaining,
+                    on_interval=on_interval if interval else None,
+                    interval=interval)
+        sim.block_until_ready()
+        dt_wall = time.time() - t0
+        cells = 1.0
+        for a in sim.static.mode.active_axes:
+            cells *= cfg.grid_shape[a]
+        mcps = cells * remaining / max(dt_wall, 1e-9) / 1e6
+        if sup is not None and (sup.retries or sup.rollbacks
+                                or sup.degrades):
+            log(f"supervisor: {sup.retries} retries, {sup.rollbacks} "
+                f"rollbacks, {sup.degrades} ladder degrades (now "
+                f"{sim.step_kind})")
+        log(f"done: {cfg.time_steps} steps in {dt_wall:.2f}s "
+            f"({mcps:.1f} Mcells/s)")
+        return 0
+    finally:
+        for sig, old in old_handlers.items():
+            try:
+                signal.signal(sig, old)
+            except (ValueError, OSError):
+                pass
+        if sup is not None:
+            sup._restore_env()  # idempotent; run()'s finally usually did
 
 
 if __name__ == "__main__":

@@ -12,21 +12,103 @@ current CUDA device and raises when there is none;
 updated in place by the packed steps, and the temporal-blocked pass
 swaps its buffers with a spare set every pass, so ``state`` returns a
 snapshot (copies), ``set_field`` writes into the live carry, and a view
-from ``component_views`` holds until the next ``advance``. Checkpoints
-come with ROADMAP.md item A6.
+from ``component_views`` holds until the next ``advance``.
+
+Checkpoints (``checkpoint``/``restore``, the ``checkpoint_every``
+cadence with its keep-K rotation) are the reference's npz files, which
+either package restores (``fdtd3d_torch/io.py``). ``checkpoint`` streams
+the live carry's leaves to the file one at a time, and ``restore``
+copies the loaded leaves into the live carry in place (as ``set_field``
+does), so neither holds a second copy of the state on the device. A
+resumed run is bit-equal to the uninterrupted one when its chunks end
+at the same steps: the temporal-blocked pass advances two steps a call
+and an odd chunk ends with a packed step (the CLI's chunk interval
+includes ``checkpoint_every``, as the reference's does). The chunk
+boundary's hooks run in the reference's order: the cadence checkpoint,
+then the fault plan (``fdtd3d_torch/faults.py``, adopted from
+``FDTD3D_FAULT_PLAN`` at construction).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from fdtd3d_torch import convert, telemetry
+from fdtd3d_torch import convert, io, telemetry
+from fdtd3d_torch import faults as _faults
+from fdtd3d_torch import log as _log
 from fdtd3d_torch.solver import (StaticSetup, build_coeffs, build_static,
                                  coeffs_to_device, init_state,
-                                 make_chunk_runner)
+                                 make_chunk_runner, slab_axes)
+
+_AXES_STR = "xyz"
+
+
+def ckpt_meta_mismatch(cfg, extra) -> Optional[str]:
+    """The configuration-level snapshot guards (scheme, grid size,
+    dtype): None when compatible, else the message
+    (``fdtd3d_tpu/sim.py::ckpt_meta_mismatch``). One predicate shared by
+    :meth:`Simulation._check_ckpt_meta` (which raises it) and the CLI's
+    supervised-resume peek (which skips the snapshot); the carry-family
+    guard needs a live sim and stays in ``_check_ckpt_meta``."""
+    if extra.get("scheme") not in (None, cfg.scheme):
+        return (f"checkpoint scheme {extra.get('scheme')!r} != "
+                f"config scheme {cfg.scheme!r}")
+    if "size" in extra and tuple(extra["size"]) != tuple(cfg.size):
+        return (f"checkpoint grid size {tuple(extra['size'])} != "
+                f"config size {tuple(cfg.size)}")
+    if extra.get("dtype") not in (None, cfg.dtype):
+        return (f"checkpoint dtype {extra.get('dtype')!r} != config "
+                f"dtype {cfg.dtype!r}; resume on the same dtype "
+                f"(the state carries dtype-specific companions — ds lo "
+                f"words, compensated residuals — that do not convert)")
+    return None
+
+
+# what makes a committed snapshot unusable for a resume or a rollback:
+# damaged bytes, a failed guard, a file gone between listing and reading
+CKPT_UNUSABLE = (io.CheckpointCorrupt, ValueError, OSError)
+
+
+def checkpoint_candidates(cfg, save_dir: str, t_max: int):
+    """The committed snapshots in ``save_dir`` a run of ``cfg`` may
+    resume from, newest first, as (path, metadata): those at
+    t <= ``t_max`` (a later one is a previous run's leftover; it passes
+    every guard, time_steps is not in the metadata, and would
+    fast-forward this run to the old run's state) whose metadata reads
+    and passes :func:`ckpt_meta_mismatch`. The walk of ``--resume auto``,
+    of the supervised resume's peek and of the supervisor's rollback."""
+    for t, path in io.find_checkpoints(save_dir):
+        if t > t_max:
+            _log.warn(f"skipping {path}: t={t} is past the horizon "
+                      f"({t_max})")
+            continue
+        try:
+            meta = io.read_checkpoint_meta(path)
+            reason = ckpt_meta_mismatch(cfg, meta)
+        except CKPT_UNUSABLE as exc:
+            reason = str(exc)
+        if reason:
+            _log.warn(f"skipping unusable checkpoint {path}: {reason}")
+            continue
+        yield path, meta
+
+
+def restore_newest(sim, save_dir: str, t_max: int) -> Optional[str]:
+    """Restore ``sim`` from the newest usable committed snapshot at
+    t <= ``t_max`` (:func:`checkpoint_candidates`, then the full load's
+    integrity and carry-family checks); -> its path, or None when no
+    snapshot is usable."""
+    for path, _meta in checkpoint_candidates(sim.cfg, save_dir, t_max):
+        try:
+            sim.restore(path)
+            return path
+        except CKPT_UNUSABLE as exc:
+            _log.warn(f"skipping unusable checkpoint {path}: {exc}")
+    return None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,7 +142,13 @@ class Simulation:
     def __init__(self, cfg, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the deterministic fault plan (fdtd3d_torch/faults.py): adopt
+        # FDTD3D_FAULT_PLAN once per process; a no-op otherwise
+        _faults.load_env()
         self.static: StaticSetup = build_static(cfg)
+        # unsharded: the checkpoint metadata's topology, and the one the
+        # supervisor persists
+        self.topology = tuple(self.static.topology)
         self.coeffs = coeffs_to_device(build_coeffs(self.static),
                                        self.device)
         self._runner = make_chunk_runner(
@@ -77,6 +165,10 @@ class Simulation:
                 f"engage (step_kind={self.step_kind}, device="
                 f"{self.device})")
         self._chunk_idx = 0
+        self._ckpt_last_t = 0
+        # durable per-run facts riding every checkpoint's metadata (the
+        # supervisor persists its recovery state here)
+        self.extra_ckpt_meta: Dict[str, Any] = {}
         # zeros made directly in the carry's form: building the dict
         # form first and packing it would hold the fields twice
         shapes = init_state(self.static, "meta")
@@ -101,27 +193,9 @@ class Simulation:
     @state.setter
     def state(self, value: Dict[str, Any]):
         """Install a dict-form state (tensors or numpy arrays, with the
-        keys and shapes of ``init_state``) as the live carry."""
-        want = init_state(self.static, "meta")
-
-        def adopt(ref, new, path):
-            if isinstance(ref, dict):
-                if not isinstance(new, dict) or set(new) != set(ref):
-                    raise ValueError(f"state structure mismatch at "
-                                     f"{path or 'top'}")
-                return {k: adopt(ref[k], new[k], f"{path}/{k}")
-                        for k in ref}
-            if isinstance(ref, torch.Tensor):
-                t = new if isinstance(new, torch.Tensor) \
-                    else convert.from_host(new)
-                if tuple(t.shape) != tuple(ref.shape):
-                    raise ValueError(f"{path}: shape {tuple(t.shape)} != "
-                                     f"{tuple(ref.shape)}")
-                return t.to(device=self.device, dtype=ref.dtype).clone()
-            return int(new)
-
-        st = adopt(want, value, "")
-        self._carry = self._runner.pack(st) if self._runner.packed else st
+        keys and shapes of ``init_state``) into the live carry in place
+        (:meth:`adopt_state`)."""
+        self.adopt_state(value)
 
     def component_views(self) -> Dict[str, torch.Tensor]:
         """Every stored field component (E then H) as a view of the live
@@ -155,6 +229,13 @@ class Simulation:
                 f"(check the Courant factor / Drude stability bound)")
             err.bad_components = bad
             raise err
+        # the chunk boundary's hooks, after the health check (a tripped
+        # chunk never commits its state as a good snapshot): the cadence
+        # checkpoint, then the fault plan (a snapshot at this t stays
+        # clean of an injected NaN, and a preemption leaves it committed)
+        self._maybe_auto_checkpoint()
+        if _faults.active() is not None:
+            _faults.on_chunk_boundary(self)
         return self
 
     def _nonfinite_leaves(self):
@@ -203,19 +284,142 @@ class Simulation:
         return {c: convert.to_host(v)
                 for c, v in self.component_views().items()}
 
-    def set_field(self, comp: str, value):
-        """Overwrite one field component of the live carry."""
+    def set_field(self, comp: str, value, at=None):
+        """Overwrite one field component of the live carry, or with
+        ``at`` (an index into the component) only those cells."""
         views = self.component_views()
         if comp not in views:
             raise KeyError(f"{comp} not active in scheme {self.cfg.scheme}")
-        dst = views[comp]
+        dst = views[comp] if at is None else views[comp][at]
         src = convert.from_host(np.broadcast_to(np.asarray(value), dst.shape))
         dst.copy_(src.to(dtype=dst.dtype))
         lo = self._dict_view().get("lo" + comp[0])
         if lo is not None:
             # the pair's value is hi + lo: a stale lo word would perturb
             # the value just set
-            lo[comp].zero_()
+            (lo[comp] if at is None else lo[comp][at]).zero_()
+        return self
+
+    # -- checkpoints -------------------------------------------------------
+
+    def _ckpt_meta(self) -> Dict[str, Any]:
+        """The snapshot's metadata, in the reference's keys: an
+        unsharded topology and its psi slab layout
+        (``solver.slab_axes``), so the reference restores the file;
+        ``step_kind`` holds the port's kind."""
+        meta = {"t": self.t, "scheme": self.cfg.scheme,
+                "size": list(self.cfg.size),
+                "topology": list(self.topology),
+                "psi_slabs": {_AXES_STR[a]: int(m) for a, m in
+                              slab_axes(self.static).items()},
+                "dtype": self.cfg.dtype,
+                "step_kind": self.step_kind,
+                "state_keys": sorted(self._dict_view().keys())}
+        meta.update(self.extra_ckpt_meta)
+        return meta
+
+    def _check_ckpt_meta(self, extra):
+        reason = ckpt_meta_mismatch(self.cfg, extra)
+        if reason:
+            raise ValueError(reason)
+        if "state_keys" in extra:
+            want = sorted(self._dict_view().keys())
+            got = list(extra["state_keys"])
+            if got != want:
+                raise ValueError(
+                    f"checkpoint carry family {got} != this run's "
+                    f"{want}; the step-kind family (ds/compensated/"
+                    f"Drude companions) must match — resume with the "
+                    f"same physics/dtype configuration")
+
+    def checkpoint(self, path: str):
+        """Bit-exact snapshot of the whole state as one npz file (the
+        reference's format), streamed from the live carry one leaf at a
+        time (``io.save_checkpoint``): no copy of the state on the
+        device."""
+        io.save_checkpoint(self._dict_view(), path, extra=self._ckpt_meta())
+        _faults.on_checkpoint(path)  # committed: the fault plan's hook
+        return self
+
+    def restore(self, path: str):
+        """Load a checkpoint (this package's or the reference's npz) into
+        this sim's live carry. A snapshot failing its integrity checks
+        raises :class:`fdtd3d_torch.io.CheckpointCorrupt`; one of another
+        scheme, size, dtype or carry family a ValueError naming the
+        guard."""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"{path} is an orbax checkpoint directory: only npz "
+                f"checkpoints are ported to fdtd3d_torch yet (ROADMAP.md "
+                f"queue A11)")
+        loaded, extra = io.load_checkpoint(path)
+        self._check_ckpt_meta(extra)
+        return self.adopt_state(loaded,
+                                src_topology=extra.get("topology"))
+
+    def adopt_state(self, tree, src_topology=None):
+        """Install a dict-form state tree (numpy or tensor leaves, the
+        keys and shapes of ``init_state``) as the live state, leaf by
+        leaf into the live carry (``copy_``, as ``set_field`` does): no
+        second carry on the device. The one install path of the
+        ``state`` setter, :meth:`restore` and the supervisor's rollback
+        to an in-memory snapshot. A tree from a sharded topology needs
+        the psi reshard of ROADMAP.md item A11."""
+        if src_topology is not None and \
+                tuple(int(p) for p in src_topology) != self.topology:
+            raise NotImplementedError(
+                f"a checkpoint written on topology {tuple(src_topology)} "
+                f"needs the psi reshard, which is not ported to "
+                f"fdtd3d_torch yet (ROADMAP.md queue A11); restore it "
+                f"with the reference on an unsharded topology")
+        pairs = []
+
+        def walk(dst, new, path):
+            if not isinstance(new, dict) or set(new) != set(dst):
+                raise ValueError(f"state structure mismatch at "
+                                 f"{path or 'top'}")
+            for k, v in dst.items():
+                if isinstance(v, dict):
+                    walk(v, new[k], f"{path}/{k}")
+                elif k != "t":
+                    src = new[k] if isinstance(new[k], torch.Tensor) \
+                        else convert.from_host(np.asarray(new[k]))
+                    if tuple(src.shape) != tuple(v.shape):
+                        raise ValueError(
+                            f"{path}/{k}: shape {tuple(src.shape)} != "
+                            f"{tuple(v.shape)}")
+                    pairs.append((v, src))
+
+        walk(self._dict_view(), tree, "")
+        for dst, src in pairs:
+            dst.copy_(src.to(dtype=dst.dtype))
+        self._carry["t"] = int(tree["t"])
+        self._ckpt_last_t = self.t
+        return self
+
+    def _maybe_auto_checkpoint(self):
+        """The ``checkpoint_every`` cadence with its keep-K rotation: a
+        committed snapshot at the first chunk boundary past each cadence
+        multiple."""
+        ce = self.cfg.output.checkpoint_every
+        if not ce or self.t // ce <= self._ckpt_last_t // ce:
+            return
+        self.checkpoint_now()
+
+    def checkpoint_now(self):
+        """Write a committed cadence-style snapshot (``ckpt_tNNNNNN.npz``
+        in save_dir) of the current state and prune to the newest
+        keep-K at t <= now: the cadence's path and rotation, callable
+        off the cadence (the supervisor seeds its rollback floor with
+        it)."""
+        out = self.cfg.output
+        t = self.t
+        os.makedirs(out.save_dir, exist_ok=True)
+        self.checkpoint(os.path.join(out.save_dir, f"ckpt_t{t:06d}.npz"))
+        self._ckpt_last_t = t
+        if out.checkpoint_keep > 0:
+            io.prune_checkpoints(out.save_dir, out.checkpoint_keep,
+                                 t_max=t)
         return self
 
     def block_until_ready(self):

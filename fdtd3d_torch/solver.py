@@ -157,6 +157,8 @@ def check_scope(cfg: SimConfig) -> None:
         out("magnetic Drude (K current) with float32x2 fields", "B4(b)")
     if cfg.ntff.enabled:
         out("the near-to-far-field transform", "A8")
+    if cfg.output.checkpoint_backend == "orbax":
+        out("the orbax checkpoint backend", "A11")
     par = cfg.parallel
     manual = par.topology == "manual" and tuple(
         par.manual_topology or (1, 1, 1)) != (1, 1, 1)

@@ -347,7 +347,7 @@ def test_cli_batch_prints_the_reference_lines(tmp_path):
     assert any(ln.startswith("done: 2 lanes x 6 steps in ") for ln in got)
 
 
-@pytest.mark.parametrize("flag,item", [("--supervise", "A12"),
+@pytest.mark.parametrize("flag,item", [("--profile", "A14"),
                                        ("--telemetry=t.jsonl", "A5"),
                                        ("--metrics=m.txt", "A15")])
 def test_cli_batch_unported_flags_raise(tmp_path, flag, item):

@@ -56,8 +56,8 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--supervise"], "A12"), (["--ntff"], "A8"),
-    (["--checkpoint-every", "5"], "A6"), (["--resume", "auto"], "A6"),
+    (["--checkpoint-backend", "orbax"], "A11"), (["--ntff"], "A8"),
+    (["--per-chip-telemetry"], "A5"), (["--profile"], "A14"),
     (["--num-processes", "2"], "A11"), (["--telemetry", "x.jsonl"], "A5"),
     (["--save-formats", "dat,txt"], "A7"),
 ])

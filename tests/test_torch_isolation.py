@@ -97,6 +97,20 @@ lanes = [SimConfig(scheme="3D", size=(16, 16, 16), time_steps=3,
 bsim = BatchSimulation(lanes, device="cpu").run()
 assert bsim.step_kind == "packed_tb_plain", bsim.step_kind
 assert bsim.t == 3 and bsim.verify_final_lanes().lane_finite == [True] * 2
+import tempfile
+from fdtd3d_torch import faults
+from fdtd3d_torch.config import OutputConfig
+from fdtd3d_torch.supervisor import RetryPolicy, Supervisor
+with tempfile.TemporaryDirectory() as d:
+    faults.install("nan@t=2; preempt@t=8")
+    cfg = SimConfig(scheme="3D", size=(16, 16, 16), time_steps=6,
+                    pml=PmlConfig(size=(3, 3, 3)), use_pallas=True,
+                    output=OutputConfig(save_dir=d, checkpoint_every=2))
+    sup = Supervisor(cfg, device="cpu",
+                     policy=RetryPolicy(sleep=lambda _s: None))
+    sim = sup.run(interval=2)
+    assert sim.t == 6 and sim.step_kind == "packed_plain", sim.step_kind
+    faults.clear()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ml_dtypes")
              or m.startswith(("jax.", "ml_dtypes.", "fdtd3d_tpu")))
