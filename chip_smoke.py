@@ -254,6 +254,38 @@ the supervisor's rollback and kernel ladder, the fault plan of
    (one carry on the card at a time); then a trip on the plain step
    re-raises.
 
+Every scheme mode and every output of the CLI (1D/2D runs take the plain
+step, as the reference's jnp step; no kernel is new):
+
+27. (a) the four 1D/2D examples (vacuum1D_ezhy, vacuum2D_tmz,
+   drude1D_metal, metamaterial1D_dng) as they stand through the CLI on
+   the card and on the CPU: the plain step with ``tb_fallback
+   packed_ineligible`` and no kernel launched, wall and Mcells/s, the
+   dumps' max |component| within ``MODE_NORM_TOL`` of the CPU run's;
+   (b) vacuum2D_tmz at 4096^2 for 1000 steps: Mcells/s and peak memory
+   above the card's baseline; (c) the Mie example scaled to 256^3 with
+   ``--save-formats dat,txt,bmp`` and with ``--save-materials``: each
+   writer's seconds and the TXT bytes; a field's and a material's TXT
+   and BMP byte-equal to the host writers' output for their DAT dumps'
+   values, the first ``TXT_PLAIN_LINES`` TXT lines to the per-value
+   Python formatter's.
+28. the far field (``--ntff``): (a) the Mie example as it stands (512^3,
+   800 steps) with its ``--norms-every 200`` (chunk interval gcd(200, 13)
+   = 1: 800 packed steps) and with ``--norms-every 0`` (chunks of 13: 6 tb
+   passes and a packed tail), kinds and launches gated against the
+   chunking, 31 samples, the device ms and launches a sample, the
+   accumulators' bytes, the host seconds of the pattern, profiled
+   chunks, and the same sim stepped without sampling (the run without
+   ``--ntff``); (b) the example scaled to 256^3 for 1200 steps: the
+   kernels' pattern within ``NTFF_PATTERN_TOL`` of the plain step's, and
+   bf16's within ``BF16_TRACK`` of f32's (bf16 against f32 at 800 steps
+   recorded); (c) a z dipole at 64^3 on the tb pass: the sin^2(theta)
+   gates of ``tests/test_exact_ntff.py:111``; (d) the dipole under
+   ``--supervise`` with a NaN at t=168: the degrade to the packed step,
+   the collector on the live sim, the pattern within ``LADDER_REL`` of
+   the uninterrupted run's. ``--only 27,28`` runs these two phases alone
+   after the build and prints their JSON (no kernels or ok line).
+
 The packed and two-pass kernels' bound counts each coefficient grid
 inside the box outside which it holds its background value
 (``packed.material``): the kernels read grids there only. Phase 3
@@ -264,8 +296,8 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
 ``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25, and
-each CLI run of 26 in this process) resets the counts just before it
-and reads them just after. The last
+each CLI run of 26-28 in this process) resets the counts just before
+it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -992,16 +1024,35 @@ def profile_window(sim, steps):
     per step, the hand-written kernels' microseconds per step, and the
     device busy share (device over wall; the
     profiler's host cost stretches the wall, so it is a lower bound)."""
+    wall_us, device_us, launches, per_key = device_launches(
+        lambda: sim.advance(steps))
+    kernels_us = {k: us / steps for k, us in per_key.items()
+                  if any(n in k for n in ("family_update", "family_section",
+                                          "tb_section", "family_pass",
+                                          "fused_section", "ds_section",
+                                          "ds_line"))}
+    return {"wall_us_per_step": wall_us / steps,
+            "device_us_per_step": device_us / steps,
+            "launches_per_step": launches / steps,
+            "device_busy_share": device_us / wall_us,
+            "kernel_us_per_step": kernels_us}
+
+
+def device_launches(fn):
+    """``fn()`` under torch.profiler: (wall us, device us, device
+    launches, device us by kernel name), the device time summed over
+    kernels (the profiler's own ``cuda*`` and ``aten::`` rows left
+    out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.advance(steps)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device_us, launches, kernels_us = 0.0, 0, {}
+    device_us, launches, per_key = 0.0, 0, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:                      # older torch
@@ -1011,16 +1062,8 @@ def profile_window(sim, steps):
             continue
         device_us += us
         launches += ev.count
-        if any(n in ev.key for n in ("family_update", "family_section",
-                                     "tb_section",
-                                     "family_pass", "fused_section",
-                                     "ds_section", "ds_line")):
-            kernels_us[ev.key] = us / steps
-    return {"wall_us_per_step": wall_us / steps,
-            "device_us_per_step": device_us / steps,
-            "launches_per_step": launches / steps,
-            "device_busy_share": device_us / wall_us,
-            "kernel_us_per_step": kernels_us}
+        per_key[ev.key] = us
+    return wall_us, device_us, launches, per_key
 
 
 # --------------------------------------------------------------------------
@@ -3062,10 +3105,603 @@ def durable_runs(dev, size=256, ds_plan=(250, 500, 1000)):
     return rec
 
 
+# --------------------------------------------------------------------------
+# every scheme mode and every output of the CLI (phases 27 and 28)
+# --------------------------------------------------------------------------
+
+MODES_DIR = os.path.join(OUT_DIR, "modes")
+MODE_EXAMPLES = ("vacuum1D_ezhy.txt", "vacuum2D_tmz.txt",
+                 "drude1D_metal.txt", "metamaterial1D_dng.txt")
+# a 1D/2D example's norms on the card against the port's CPU run of the
+# same file, relative to the family's largest norm
+MODE_NORM_TOL = 1e-5
+# the Mie far field at 256^3: the kernels' pattern against the plain
+# step's, both normalised to their peak; bf16 against f32 at the bf16
+# tracking bar
+NTFF_PATTERN_TOL = 1e-4
+# lines of a TXT dump held against the per-value Python formatter
+TXT_PLAIN_LINES = 1 << 18
+
+
+def done_mcps(log):
+    """Mcells/s of the CLI's closing ``done:`` line."""
+    done = [ln for ln in log.splitlines() if ln.startswith("done: ")]
+    return float(done[-1].split("(")[1].split()[0]) if done else None
+
+
+def mode_fields(out_dir, steps, comps):
+    """Each component's DAT dump at ``steps``, as float64."""
+    from fdtd3d_torch.io import load_dat
+    return {c: load_dat(os.path.join(out_dir, f"{c}_t{steps:06d}.dat"))
+            .astype("float64") for c in comps}
+
+
+def mode_examples():
+    """Phase 27 (a): each 1D/2D example as it stands through the CLI on
+    the card, then on the CPU, with a DAT dump at its last step: the
+    plain step (``packed_ineligible``) and no kernel launched, wall and
+    Mcells/s on the card, and max |component| of the two runs' dumps
+    within ``MODE_NORM_TOL`` of the family's largest."""
+    import numpy as np
+    from fdtd3d_torch.layout import SCHEME_MODES
+    out = {}
+    for name in MODE_EXAMPLES:
+        path = os.path.join(ROOT, "Examples", name)
+        cfg = config(path, [])
+        steps = cfg.time_steps
+        comps = SCHEME_MODES[cfg.scheme].components
+        rec, fields = {"scheme": cfg.scheme, "size": list(cfg.grid_shape),
+                       "steps": steps}, {}
+        for dev_name, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            d = os.path.join(MODES_DIR, f"{name[:-4]}_{dev_name}")
+            shutil.rmtree(d, ignore_errors=True)
+            (log, _err, launches, wall, _p), peak = peak_above(
+                lambda: cli_logged(
+                    ["--cmd-from-file", path, "--save-res", str(steps),
+                     "--save-dir", d] + extra, f"{name} on {dev_name}"))
+            if "step_kind=plain tb_fallback=packed_ineligible" not in log:
+                fail(f"{name} on {dev_name}: not the plain step")
+            if any(launches.values()):
+                fail(f"{name}: a {cfg.scheme} run launched a 3D kernel: "
+                     f"{launches}")
+            fields[dev_name] = mode_fields(d, steps, comps)
+            rec[f"wall_s_{dev_name}"] = wall
+            rec[f"mcells_per_s_{dev_name}"] = done_mcps(log)
+            if dev_name == "cuda":
+                rec["peak_above_base_bytes"] = peak
+            shutil.rmtree(d, ignore_errors=True)
+        norms = {d: {c: float(np.abs(v).max()) for c, v in f.items()}
+                 for d, f in fields.items()}
+        worst = field_rel = 0.0
+        for fam in "EH":
+            members = [c for c in comps if c[0] == fam]
+            scale = max(norms["cpu"][c] for c in members)
+            for c in members:
+                worst = max(worst, abs(norms["cuda"][c] - norms["cpu"][c])
+                            / scale)
+                field_rel = max(field_rel, float(np.abs(
+                    fields["cuda"][c] - fields["cpu"][c]).max()) / scale)
+        rec.update(norms_cuda=norms["cuda"], norm_rel_vs_cpu=worst,
+                   field_rel_vs_cpu=field_rel)
+        say(f"mode example {name}: {json.dumps(rec)}")
+        if not worst <= MODE_NORM_TOL:
+            fail(f"{name}: norms on the card {worst:.3e} from the CPU "
+                 f"run's (> {MODE_NORM_TOL})")
+        out[name] = rec
+    return out
+
+
+def tmz_large(size=4096, steps=1000):
+    """Phase 27 (b): ``Examples/vacuum2D_tmz.txt`` at size^2 for
+    ``steps`` steps through the CLI on the card: the plain step's
+    Mcells/s and peak device memory, finite norms."""
+    path = os.path.join(ROOT, "Examples", "vacuum2D_tmz.txt")
+    d = os.path.join(MODES_DIR, "tmz_large")
+    (log, _err, launches, wall, _p), peak = peak_above(lambda: cli_logged(
+        ["--cmd-from-file", path, "--sizex", str(size), "--sizey",
+         str(size), "--time-steps", str(steps), "--norms-every",
+         str(steps // 10), "--save-dir", d], f"2D TMz at {size}^2"))
+    if "step_kind=plain" not in log or any(launches.values()):
+        fail(f"2D TMz at {size}^2: not the plain step ({launches})")
+    last = [ln for ln in log.splitlines() if ln.startswith("[t=")][-1]
+    ez = float(last.split("Ez=")[1].split()[0])
+    if not 0.0 < ez < float("inf"):
+        fail(f"2D TMz at {size}^2: Ez norm {ez}")
+    rec = {"size": [size, size, 1], "steps": steps, "wall_s": wall,
+           "mcells_per_s": done_mcps(log), "peak_above_base_bytes": peak,
+           "ez_norm": ez}
+    say(f"2D TMz at {size}^2: {json.dumps(rec)}")
+    return rec
+
+
+def mie_scaled(size):
+    """``Examples/sphere3D_mie.txt`` at size^3, its sphere scaled with
+    the grid (centre size/2, radius size/8)."""
+    c = str(size // 2)
+    return ["--cmd-from-file", MIE, "--same-size", str(size),
+            "--eps-sphere-center-x", c, "--eps-sphere-center-y", c,
+            "--eps-sphere-center-z", c, "--eps-sphere-radius",
+            str(size // 8)]
+
+
+@contextlib.contextmanager
+def timed_writers(seconds):
+    """io's DAT, TXT and BMP writers timed, summed per format into
+    ``seconds`` (and counted under ``<format>_files``)."""
+    from fdtd3d_torch import io as tio
+    real = {f: getattr(tio, f"dump_{f}") for f in ("dat", "txt", "bmp")}
+
+    def wrap(fmt, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            seconds[fmt] = seconds.get(fmt, 0.0) + time.perf_counter() - t0
+            seconds[f"{fmt}_files"] = seconds.get(f"{fmt}_files", 0) + 1
+        return timed
+
+    for fmt, fn in real.items():
+        setattr(tio, f"dump_{fmt}", wrap(fmt, fn))
+    try:
+        yield seconds
+    finally:
+        for fmt, fn in real.items():
+            setattr(tio, f"dump_{fmt}", fn)
+
+
+def same_text_as_host(out_dir, name, axes, label):
+    """``name``'s TXT and BMP dumps equal the host writers' output for
+    its DAT dump's exact values, and the TXT's first ``TXT_PLAIN_LINES``
+    lines equal the per-value Python ``%.9e`` formatter's."""
+    import filecmp
+
+    import numpy as np
+    from fdtd3d_torch import io as tio
+    vals = tio.load_dat(os.path.join(out_dir, name + ".dat"))
+    again = os.path.join(out_dir, "again")
+    tio.dump_txt(vals, again + ".txt")
+    tio.dump_bmp(vals, again + ".bmp", axes)
+    for ext in ("txt", "bmp"):
+        if not filecmp.cmp(again + "." + ext,
+                           os.path.join(out_dir, f"{name}.{ext}"),
+                           shallow=False):
+            fail(f"{label}: {name}.{ext} differs from the host writer's "
+                 f"output for the same array")
+        os.remove(again + "." + ext)
+    flat = vals.reshape(-1)[:TXT_PLAIN_LINES]
+    idx = np.unravel_index(np.arange(flat.size), vals.shape)
+    plain = "".join(
+        " ".join(str(int(i[n])) for i in idx) + f" {float(v):.9e}\n"
+        for n, v in enumerate(flat.tolist())).encode()
+    with open(os.path.join(out_dir, name + ".txt"), "rb") as f:
+        head = f.read(len(plain))
+    if head != plain:
+        fail(f"{label}: {name}.txt's first {flat.size} lines differ from "
+             f"the per-value formatter's")
+
+
+def dump_numbers(size=256, steps=20):
+    """Phase 27 (c): TXT and BMP field dumps (``--save-formats
+    dat,txt,bmp``) and ``--save-materials`` at size^3 through the CLI on
+    the card, on the Mie example scaled (its sphere shapes the eps
+    grids): each format's writer seconds summed over its files, the TXT
+    files' bytes; Ez's and eps_Ex's TXT and BMP against the host writers
+    on their DAT dumps' values (``same_text_as_host``). Each run's files
+    are removed after its checks (a 256^3 TXT dump is ~0.5 GB)."""
+    axes = (0, 1, 2)
+    rec = {"size": size}
+    d = os.path.join(MODES_DIR, "dumps")
+    shutil.rmtree(d, ignore_errors=True)
+    with timed_writers({}) as seconds:
+        log, _err, launches, wall, _peak = cli_logged(
+            mie_scaled(size) + ["--time-steps", str(steps), "--save-res",
+                                str(steps), "--save-formats",
+                                "dat,txt,bmp", "--save-dir", d],
+            f"TXT/BMP dumps at {size}^3")
+    if "step_kind=packed_tb_cuda" not in log:
+        fail("TXT/BMP dumps: the run did not take the tb pass")
+    txt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                    for f in os.listdir(d) if f.endswith(".txt"))
+    rec["fields"] = dict(seconds, wall_s=wall, txt_bytes=txt_bytes,
+                         launches=launches)
+    same_text_as_host(d, f"Ez_t{steps:06d}", axes, "field dumps")
+    shutil.rmtree(d, ignore_errors=True)
+    with timed_writers({}) as seconds:
+        log, _err, _l, wall, _peak = cli_logged(
+            mie_scaled(size) + ["--time-steps", "2", "--save-materials",
+                                "--save-formats", "dat,txt,bmp",
+                                "--save-dir", d],
+            f"--save-materials at {size}^3")
+    names = sorted(f for f in os.listdir(d) if f.endswith(".txt"))
+    want = sorted(f"{g}.txt" for g in ("eps_Ex", "eps_Ey", "eps_Ez",
+                                       "mu_Hx", "mu_Hy", "mu_Hz",
+                                       "sigma_e", "sigma_m"))
+    if names != want:
+        fail(f"--save-materials wrote {names}, not {want}")
+    rec["materials"] = dict(seconds, wall_s=wall, files=len(os.listdir(d)))
+    same_text_as_host(d, "eps_Ex", axes, "--save-materials")
+    shutil.rmtree(d, ignore_errors=True)
+    say(f"dump numbers at {size}^3: {json.dumps(rec)}")
+    return rec
+
+
+def modes_and_outputs():
+    """Phase 27: the 1D/2D examples, 2D TMz at 4096^2, and the TXT/BMP
+    dumps and --save-materials at 256^3."""
+    rec = {"examples": mode_examples(), "tmz_4096": tmz_large()}
+    rec["dumps_256"] = dump_numbers()
+    shutil.rmtree(MODES_DIR, ignore_errors=True)
+    return rec
+
+
+class NtffProbe:
+    """Wraps ``cli.make_ntff_collector`` for one CLI run: keeps the
+    collector, and times each sample on the device (CUDA events around
+    it, read after the run)."""
+
+    def __init__(self):
+        from fdtd3d_torch import cli
+        self.cli, self.real = cli, cli.make_ntff_collector
+        self.col, self.events = None, []
+
+    def __enter__(self):
+        import torch
+
+        def make(sim, cfg):
+            col, every, start = self.real(sim, cfg)
+            self.col, self.every, self.start = col, every, start
+            if col is not None:
+                sample = col.sample
+
+                def timed():
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                    sample()
+                    ev[1].record()
+                    self.events.append(ev)
+                col.sample = timed
+            return col, every, start
+        self.cli.make_ntff_collector = make
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.make_ntff_collector = self.real
+        if self.col is not None:
+            # the timed wrapper closes over the collector: drop it, so
+            # no reference cycle keeps the collector and its sim alive
+            self.col.__dict__.pop("sample", None)
+
+    def sample_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in self.events]
+        return sum(times) / len(times) if times else None
+
+
+def tb_launches(steps, interval):
+    """(tb passes, packed tail steps) of a run of ``steps`` in chunks of
+    ``interval`` (0: one chunk): a chunk of n steps is n // 2 passes and
+    n % 2 tail steps."""
+    chunks = [interval] * (steps // interval) + [steps % interval] \
+        if interval else [steps]
+    return sum(n // 2 for n in chunks), sum(n % 2 for n in chunks)
+
+
+def read_pattern(out_dir, cfg, label):
+    import numpy as np
+    path = os.path.join(out_dir, "ntff_pattern.txt")
+    if not os.path.exists(path):
+        fail(f"{label}: no ntff_pattern.txt")
+    rows = np.loadtxt(path)
+    n = cfg.ntff.theta_steps * cfg.ntff.phi_steps
+    if rows.shape != (n, 3) or not np.isfinite(rows).all() \
+            or abs(rows[:, 2].max() - 1.0) > 1e-12:
+        fail(f"{label}: bad pattern ({rows.shape}, peak "
+             f"{rows[:, 2].max()})")
+    return rows[:, 2]
+
+
+def peak_above(fn):
+    """(fn(), the peak device memory during it above what the card held
+    just before, in bytes)."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def mie_ntff_512(size=512):
+    """Phase 28 (a): the Mie example as it stands (512^3 f32, 800 steps)
+    with ``--ntff``, keeping its ``--norms-every 200`` (the NTFF cadence,
+    13, makes the chunk interval gcd(200, 13) = 1: 800 chunks of one
+    packed step) and with ``--norms-every 0`` (chunks of 13: six tb passes
+    and a packed tail): kinds and launches (gated against the chunking),
+    wall, Mcells/s, peak memory above the card's baseline, the samples
+    (31, from t=403), the device ms a sample (CUDA events) and its
+    device launches (one more sample under the profiler after the run),
+    the accumulators' device bytes, and, on the run's live sim after it,
+    one chunk of each run's interval under the profiler (and a chunk of
+    12: the passes without the tail) and 26 steps as the CLI runs them.
+    Beside each, the same run without ``--ntff``: the first run's sim
+    stepped again for 800 steps in the chunks the CLI takes without
+    ``--ntff`` (200 with the norms, whose readback it makes; one chunk
+    without), no sampling: the same kernels on the same coefficients,
+    without a second 512^3 set-up. At 800 steps the wave scattered by
+    the sphere has not reached the NTFF box (~1200 steps away), so the
+    faces hold the TFSF boundary's roundoff: the two patterns are
+    recorded, not gated against each other (the pattern gate is phase
+    28 (b)'s, at 256^3)."""
+    import math
+
+    import numpy as np
+    import torch
+    from fdtd3d_torch import diag
+    cfg = config(MIE, mie_scaled(size)[2:])
+    steps = cfg.time_steps
+    cells = float(size) ** 3
+    rec, patterns = {}, {}
+    for label, extra in (("ntff_norms200", ["--ntff"]),
+                         ("ntff", ["--ntff", "--norms-every", "0"])):
+        d = os.path.join(MODES_DIR, f"mie{size}_{label}")
+        shutil.rmtree(d, ignore_errors=True)
+        with NtffProbe() as probe:
+            (log, _err, launches, wall, _p), peak = peak_above(
+                lambda: cli_logged(mie_scaled(size) + ["--save-dir", d]
+                                   + extra, f"Mie {size}^3 {label}"))
+        col, every = probe.col, probe.every
+        interval = math.gcd(config(MIE, extra).output.norms_every, every)
+        passes, tails = tb_launches(steps, interval)
+        got = {k: launches[k] for k in ("tb_pass", "e_update", "h_update")}
+        if got != {"tb_pass": passes, "e_update": tails,
+                   "h_update": tails}:
+            fail(f"Mie {label}: launches {got}, chunks of {interval} "
+                 f"want {passes} passes and {tails} tails")
+        want_n = len(range(probe.start, steps + 1, every))
+        if col.n_samples != want_n:
+            fail(f"Mie {label}: {col.n_samples} samples != {want_n}")
+        patterns[label] = read_pattern(d, cfg, f"Mie {label}")
+        r = {"interval": interval, "launches": got, "wall_s": wall,
+             "mcells_per_s": done_mcps(log), "peak_above_base_bytes": peak,
+             "samples": col.n_samples, "sample_device_ms": probe.sample_ms(),
+             "ntff_every": every, "ntff_start": probe.start,
+             "acc_device_bytes": col.device_bytes(),
+             "box": [list(col.lo), list(col.hi)]}
+        # the pattern's evaluation on the host (the CLI times it inside
+        # its run: the done line's Mcells/s counts it)
+        t0 = time.time()
+        col.directivity_pattern(np.linspace(0.0, 180.0,
+                                            cfg.ntff.theta_steps),
+                                np.arange(cfg.ntff.phi_steps)
+                                * (360.0 / cfg.ntff.phi_steps))
+        r["pattern_host_s"] = time.time() - t0
+        # after the pattern: one more sample, one chunk of the run's
+        # interval (and of 12 steps) and 26 steps as the CLI runs them (a
+        # sample at each multiple of the cadence), each under the profiler
+        _w, dev_us, n_launch, _k = device_launches(col.sample)
+        r.update(sample_launches=n_launch,
+                 sample_profiled_device_ms=dev_us / 1e3)
+        col.sim.advance(2)     # the tb pass's first call prepares
+        for n in sorted({interval, 12}):
+            wall_us, dev_us, n_launch, _k = device_launches(
+                lambda: col.sim.advance(n))
+            r[f"chunk_{n}_profiled"] = {
+                "wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
+                "launches": n_launch}
+        col.sim.advance(-col.sim.t % every)
+
+        def window():
+            col.sim.run(2 * every, interval=interval, on_interval=(
+                lambda sm: col.sample() if sm.t % every == 0 else None))
+        wall_us, dev_us, n_launch, _k = device_launches(window)
+        r["window_26_profiled"] = {
+            "wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
+            "launches": n_launch, "device_busy_share": dev_us / wall_us}
+        if label == "ntff_norms200":
+            for base, norms in (("norms200", 200), ("plain_cadence", 0)):
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                col.sim.run(steps, interval=norms, on_interval=(
+                    diag.field_norms if norms else None))
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                got = {k: v for k, v in ladder_launches().items()
+                       if k in ("tb_pass", "e_update", "h_update")}
+                if got != {"tb_pass": steps // 2, "e_update": 0,
+                           "h_update": 0}:
+                    fail(f"Mie {base}: launches {got}")
+                rec[base] = {"interval": norms, "launches": got,
+                             "stepping_wall_s": wall,
+                             "mcells_per_s": cells * steps / wall / 1e6}
+                say(f"Mie {size}^3 {base}: {json.dumps(rec[base])}")
+        del col
+        probe.col = None
+        rec[label] = r
+        say(f"Mie {size}^3 {label}: {json.dumps(r)}")
+        shutil.rmtree(d, ignore_errors=True)
+    rec["pattern_rel_tb_vs_packed"] = float(np.abs(
+        patterns["ntff"] - patterns["ntff_norms200"]).max())
+    return rec
+
+
+def mie_pattern_gate(size=256, steps=1200):
+    """Phase 28 (b): the Mie example scaled to size^3 with ``--ntff
+    --norms-every 0`` for ``steps`` steps (sampled from steps/2: at
+    256^3 the wave scattered by the sphere reaches the NTFF box at
+    ~560 steps, so from 600 on the faces hold it) on the kernels (tb
+    passes and packed tails), on the plain step (``--use-pallas off``)
+    and on the bf16 kernels: the kernels' pattern within
+    ``NTFF_PATTERN_TOL`` of the plain step's, bf16's within
+    ``BF16_TRACK`` of f32's (each normalised to its peak). Recorded, not
+    gated: bf16 against f32 at the example's 800 steps, whose samples
+    from 403 also hold the faces before the scattered wave, where bf16
+    storage floors the field at its rounding (~1e-2 of the incident
+    wave) and f32 at ~1e-7."""
+    import numpy as np
+    cfg = config(MIE, ["--same-size", str(size)])
+    rec, patterns = {}, {}
+    for label, n, extra, kind in (
+            ("kernels", steps, [], "packed_tb_cuda"),
+            ("plain", steps, ["--use-pallas", "off"], "plain"),
+            ("bf16", steps, BF16, "packed_tb_cuda"),
+            ("kernels_800", 800, [], "packed_tb_cuda"),
+            ("bf16_800", 800, BF16, "packed_tb_cuda")):
+        d = os.path.join(MODES_DIR, f"mie{size}_{label}")
+        (log, _err, launches, wall, _p), peak = peak_above(
+            lambda: cli_logged(
+                mie_scaled(size) + ["--ntff", "--norms-every", "0",
+                                    "--time-steps", str(n), "--save-dir",
+                                    d] + extra, f"Mie {size}^3 {label}"))
+        if f"step_kind={kind}" not in log:
+            fail(f"Mie {size}^3 {label}: not {kind}")
+        patterns[label] = read_pattern(d, cfg, f"Mie {size}^3 {label}")
+        rec[label] = {"steps": n, "launches": {
+            k: launches[k] for k in ("tb_pass", "e_update", "h_update")},
+            "wall_s": wall, "mcells_per_s": done_mcps(log),
+            "peak_above_base_bytes": peak}
+        shutil.rmtree(d, ignore_errors=True)
+
+    def rel(a, b):
+        return float(np.abs(patterns[a] - patterns[b]).max())
+    rec.update(kernels_vs_plain=rel("kernels", "plain"),
+               bf16_vs_f32=rel("bf16", "kernels"),
+               bf16_vs_f32_800=rel("bf16_800", "kernels_800"))
+    say(f"Mie {size}^3 pattern gate: {json.dumps(rec)}")
+    if not rec["kernels_vs_plain"] <= NTFF_PATTERN_TOL:
+        fail(f"Mie {size}^3: the kernels' pattern is "
+             f"{rec['kernels_vs_plain']:.3e} from the plain step's")
+    if not rec["bf16_vs_f32"] <= BF16_TRACK:
+        fail(f"Mie {size}^3: bf16's pattern is {rec['bf16_vs_f32']:.3e} "
+             f"from f32's")
+    return rec
+
+
+def dipole_cfg(n, steps=0):
+    from fdtd3d_torch.config import PmlConfig, PointSourceConfig, SimConfig
+    return SimConfig(scheme="3D", size=(n, n, n), time_steps=steps,
+                     dx=1e-3, courant_factor=0.5, wavelength=12e-3,
+                     pml=PmlConfig(size=(8, 8, 8)),
+                     point_source=PointSourceConfig(
+                         enabled=True, component="Ez",
+                         position=(n // 2,) * 3))
+
+
+def dipole_gates(dev, n=64):
+    """Phase 28 (c): tests/test_exact_ntff.py:111 on the card: a
+    z-directed point current at n^3 on the tb pass (a stride of 3: one
+    pass and a packed tail between samples), 300 steps, then 48 samples
+    on the box n/4..3n/4: the sin^2(theta) gates."""
+    from fdtd3d_torch import physics
+    from fdtd3d_torch.ntff import NtffCollector
+    from fdtd3d_torch.sim import Simulation
+    cfg = dipole_cfg(n)
+    sim = Simulation(cfg, device=dev)
+    if sim.step_kind != "packed_tb_cuda":
+        fail(f"dipole: {sim.step_kind}")
+    reset_launches()
+    sim.advance(300)
+    col = NtffCollector(sim, physics.C0 / cfg.wavelength,
+                        box=((n // 4,) * 3, (n - n // 4,) * 3))
+    stride = max(1, int(round(cfg.wavelength / physics.C0 / cfg.dt / 16)))
+    for _ in range(48):
+        sim.advance(stride)
+        col.sample()
+    launches = {k: v for k, v in ladder_launches().items()
+                if k in ("tb_pass", "e_update", "h_update")}
+    p90 = col.directivity_pattern([90.0], [0.0, 90.0, 180.0, 270.0])[0]
+    rec = {"n": n, "stride": stride, "launches": launches,
+           "phi_asymmetry": float(p90.max() / p90.min()),
+           "diagonal": float(col.directivity_pattern([90.0], [45.0])[0, 0]
+                             / p90.mean()),
+           "r45": float(col.directivity_pattern([45.0], [0.0])[0, 0]
+                        / p90.mean()),
+           "r10": float(col.directivity_pattern([10.0], [0.0])[0, 0]
+                        / p90.mean())}
+    say(f"dipole at {n}^3: {json.dumps(rec)}")
+    if not (rec["phi_asymmetry"] < 1.2 and 0.6 < rec["diagonal"] < 1.4
+            and 0.35 < rec["r45"] < 0.75 and rec["r10"] < 0.15):
+        fail(f"dipole at {n}^3: the pattern is not sin^2(theta): {rec}")
+    if not (launches["tb_pass"] and launches["e_update"]):
+        fail(f"dipole at {n}^3: launches {launches}")
+    del sim, col
+    return rec
+
+
+def supervised_ntff(n=64, steps=240):
+    """Phase 28 (d): a dipole at n^3 with ``--ntff --checkpoint-every 24``
+    through the CLI, uninterrupted and ``--supervise`` with a NaN at
+    t=168 (mid-sampling): the supervisor rolls back and degrades the tb
+    pass to the packed step, the collector samples the live (degraded)
+    sim, and the pattern stays within ``LADDER_REL`` of the
+    uninterrupted run's."""
+    import numpy as np
+    from fdtd3d_torch import faults
+    base = ["--3d", "--same-size", str(n), "--time-steps", str(steps),
+            "--courant-factor", "0.5", "--wavelength", "12e-3",
+            "--use-pml", "--pml-size", "8", "--point-source", "Ez",
+            "--ntff", "--ntff-margin", "8", "--checkpoint-every", "24"]
+    cfg = config(os.devnull, base)
+    dirs = {k: os.path.join(MODES_DIR, f"dipole_{k}")
+            for k in ("clean", "supervised")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    cli_logged(base + ["--save-dir", dirs["clean"]], "dipole clean")
+    faults.clear()
+    os.environ["FDTD3D_FAULT_PLAN"] = "nan@t=168"
+    try:
+        with NtffProbe() as probe:
+            log, err, launches, wall, _peak = cli_logged(
+                base + ["--supervise", "--save-dir", dirs["supervised"]],
+                "dipole supervised")
+    finally:
+        os.environ.pop("FDTD3D_FAULT_PLAN")
+        faults.clear()
+    sampled = probe.col.sim.step_kind
+    samples = probe.col.n_samples
+    probe.col = None
+    if "ladder degrades (now packed_cuda)" not in log \
+            or sampled != "packed_cuda":
+        fail(f"dipole supervised: no degrade to packed_cuda, or the "
+             f"collector sampled {sampled}")
+    rel = float(np.abs(read_pattern(dirs["supervised"], cfg, "supervised")
+                       - read_pattern(dirs["clean"], cfg, "clean")).max())
+    rec = {"n": n, "steps": steps, "wall_s": wall, "samples": samples,
+           "launches": {
+               k: launches[k] for k in ("tb_pass", "e_update",
+                                        "h_update")},
+           "pattern_rel_vs_uninterrupted": rel}
+    say(f"dipole supervised: {json.dumps(rec)}")
+    if not rel <= LADDER_REL:
+        fail(f"dipole supervised: pattern {rel:.3e} from the clean run's")
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def mie_far_field(dev):
+    """Phase 28: the Mie far field at 512^3 (with and without
+    --norms-every), the pattern gate at 256^3, the dipole's sin^2 gates
+    at 64^3, a supervised NaN trip with the collector on the degraded
+    sim."""
+    rec = {"mie_512": mie_ntff_512(), "pattern_256": mie_pattern_gate(),
+           "dipole_64": dipole_gates(dev),
+           "supervised_64": supervised_ntff()}
+    shutil.rmtree(MODES_DIR, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
+    ap.add_argument("--only", default=None, metavar="27,28",
+                    help="run only these of phases 27 and 28 (after the "
+                         "build) and print their JSON, without the kernels "
+                         "line and the closing ok line")
     args = ap.parse_args()
 
     import torch
@@ -3089,7 +3725,14 @@ def main() -> int:
     result = {"device": name}
 
     # ---- build -----------------------------------------------------------
-    t0 = time.time()
+    start = t0 = time.time()
+
+    def mark(name):
+        """Seconds since the build started, at the end of ``name``."""
+        result.setdefault("elapsed_s", {})[name] = round(
+            time.time() - start, 1)
+        say(f"{name} done, {result['elapsed_s'][name]} s in")
+
     infos = build.build_many(["packed_eh", "packed_ds", "packed_tb",
                               "family", "fused_eh"], verbose=True)
     result["build_s"] = round(time.time() - t0, 3)
@@ -3099,6 +3742,22 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {lib}: {line.strip()}")
+    if args.only:
+        only = {int(p) for p in args.only.split(",")}
+        if not only <= {27, 28}:
+            fail(f"--only takes phases 27 and 28, not {sorted(only)}")
+        for phase, key, fn in ((27, "modes", modes_and_outputs),
+                               (28, "far_field",
+                                lambda: mie_far_field(dev))):
+            if phase in only:
+                t1 = time.time()
+                result[key] = fn()
+                result[f"phase_{phase}_s"] = time.time() - t1
+        print(json.dumps(result), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        return 0
 
     # ---- phase 1: kernels vs plain versions on the card ------------------
     cfg256 = config(EXAMPLE, ["--same-size", "256"])
@@ -3181,6 +3840,7 @@ def main() -> int:
     err_ds_line = max([result["ds_line_terms"]["max_abs_err"]]
                       + [c["line"] for c in ds_checks])
 
+    mark("phases 1, 4")
     # ---- phase 2: the main path through the CLI ---------------------------
     steps = cfg256.time_steps
     main = {}
@@ -3378,6 +4038,7 @@ def main() -> int:
         + json.dumps(result["ds_profile_128"]))
     del sim
 
+    mark("phases 2, 3, 5, 6")
     # ---- phase 7: the lane-capable kernels vs plain and vs solo ----------
     c, r = "64", "12"
     lane_extra = ["--angle-teta", "30", "--angle-phi", "40", "--angle-psi",
@@ -3469,6 +4130,7 @@ def main() -> int:
         f"{batch_main['mcells_per_s_aggregate']} Mcells/s aggregate, peak "
         f"{batch_main['peak_mem_bytes'] / 1e9:.3f} GB")
 
+    mark("phases 7-10")
     # ---- phase 11: the ladder's kernels vs their plain versions ---------
     ladder_err = {}
     mie512 = config(MIE, [])
@@ -3551,6 +4213,7 @@ def main() -> int:
                  f"{prof['launches_per_step']} kernels a step (at most "
                  f"{LADDER_LAUNCHES})")
 
+    mark("phases 11-13")
     # ---- phase 14: the bf16 kernels vs their plain versions --------------
     mie128 = mie + ["--point-source", "Ez", "--angle-teta", "30",
                     "--angle-phi", "40", "--angle-psi", "15"]
@@ -3574,6 +4237,7 @@ def main() -> int:
         + json.dumps(result["bf16_profile_256"]))
     del sim
 
+    mark("phases 14-16")
     # ---- phase 17: the ladder in bf16: the CLI at 256^3, Mie 512^3 times -
     result["bf16_ladder_main_path"] = bf16_ladder = bf16_ladder_cli(
         cfg256, f32_fields, dev)
@@ -3618,11 +4282,7 @@ def main() -> int:
     result["capacity_1024"] = {dt: capacity_run(1024, dt, 20, dev)
                                for dt in ("float32", "bfloat16")}
 
-    def mark(name):
-        result.setdefault("elapsed_s", {})[name] = round(time.time() - t0, 1)
-        say(f"{name} done, {result['elapsed_s'][name]} s in")
-
-    mark("phases 1-19")
+    mark("phases 17-19")
     # ---- phase 20 (C1): the compensated example through the CLI ---------
     result["compensated_example"] = comp_ex = compensated_example(dev)
     mark("phase 20")
@@ -3647,6 +4307,12 @@ def main() -> int:
     # ---- phase 26: durable runs: checkpoints, resume, the supervisor ----
     result["durable"] = durable_runs(dev)
     mark("phase 26")
+    # ---- phase 27: every scheme mode and every output of the CLI --------
+    result["modes"] = modes_and_outputs()
+    mark("phase 27")
+    # ---- phase 28: the Mie far field (--ntff) on the tb and packed twins
+    result["far_field"] = mie_far_field(dev)
+    mark("phase 28")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},

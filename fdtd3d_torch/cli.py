@@ -4,19 +4,22 @@ Counterpart of ``fdtd3d_tpu/cli.py``. The front half (``build_parser``
 with every flag of the reference, ``read_cmd_file``, ``args_to_config``)
 is the reference's, so every ``Examples/*.txt`` command file parses to
 the same ``SimConfig``; the port adds ``--device`` (cuda by default,
-``--device cpu`` to run on the CPU). ``main`` runs the non-supervised,
-single-device path: the run in chunks, ``--norms-every`` lines, DAT
-dumps every ``--save-res`` steps, npz checkpoints every
-``--checkpoint-every`` steps (keep-K rotation, ``--checkpoint-keep``),
-``--load-checkpoint``/``--resume auto|PATH`` (only the remaining steps
-run), ``--supervise`` (``fdtd3d_torch/supervisor.py``: retry, rollback,
-the kernel ladder), the SIGTERM/SIGINT handlers (exit 143/130), and the
-closing throughput line, for
-``--dtype float32``, ``bfloat16`` (bf16 storage, f32 arithmetic; the
-dumps are the fields' 2-byte words, as the reference's), ``float32x2``
-(the hi words are dumped, in f32, as the reference dumps them) and
-``float64``; and ``--batch a.txt b.txt
-...`` (``_run_batch_cli``): the command files as the lanes of one batch
+``--device cpu`` to run on the CPU). ``main`` runs the single-device
+path of every scheme mode (1D, 2D, 3D): the run in chunks,
+``--norms-every`` lines, dumps every ``--save-res`` steps in the
+``--save-formats`` (dat, txt, bmp), ``--save-materials``,
+``--save-cmd-to-file``, the near-to-far-field transform (``--ntff``:
+sampled between chunks, ``ntff_pattern.txt`` at the end), npz
+checkpoints every ``--checkpoint-every`` steps (keep-K rotation,
+``--checkpoint-keep``), ``--load-checkpoint``/``--resume auto|PATH``
+(only the remaining steps run), ``--supervise``
+(``fdtd3d_torch/supervisor.py``: retry, rollback, the kernel ladder),
+the SIGTERM/SIGINT handlers (exit 143/130), and the closing throughput
+line, for ``--dtype float32``, ``bfloat16`` (bf16 storage, f32
+arithmetic; the DAT dumps are the fields' 2-byte words, as the
+reference's), ``float32x2`` (the hi words are dumped, in f32, as the
+reference dumps them) and ``float64``; and ``--batch a.txt b.txt ...``
+(``_run_batch_cli``): the command files as the lanes of one batch
 (fdtd3d_torch/batch.py), with the reference's per-lane lines. Flags
 whose features are not ported yet raise ``NotImplementedError`` naming
 their ROADMAP.md item.
@@ -449,13 +452,11 @@ def args_to_config(args) -> SimConfig:
 
 # (flag attribute, value that means "not used", ROADMAP.md item)
 _NOT_PORTED = (
-    ("ntff", False, "A8"),
     ("coordinator_address", None, "A11"), ("num_processes", None, "A11"),
     ("process_id", None, "A11"), ("dry_run", False, "A11"),
     ("telemetry", None, "A5"), ("metrics", None, "A15"),
     ("metrics_every", 0, "A5"), ("per_chip_telemetry", False, "A5"),
     ("profile", False, "A14"), ("trace", None, "A14"),
-    ("save_materials", False, "A7"), ("save_cmd_to_file", None, "A7"),
 )
 
 
@@ -466,10 +467,12 @@ def _not_ported(flag: str, item: str) -> None:
         f"fdtd3d_tpu.cli)")
 
 
-# the durable-run flags a batch does not take: batch checkpoints and
-# resume are ROADMAP.md item A13(b)
+# the flags a batch does not take (ROADMAP.md item A13(b)): batch
+# checkpoints and resume, and the per-run outputs the reference's batch
+# leaves out (the far-field pattern, the material dump)
 _BATCH_NOT_PORTED = (("checkpoint_every", 0), ("resume", None),
-                     ("load_checkpoint", None))
+                     ("load_checkpoint", None), ("ntff", False),
+                     ("save_materials", False))
 
 
 def check_batch_ported(args) -> None:
@@ -486,10 +489,108 @@ def check_ported(args) -> None:
         val = getattr(args, attr)
         if val != unused:
             _not_ported("--" + attr.replace("_", "-"), item)
-    if args.save_formats != "dat":
-        raise NotImplementedError(
-            f"--save-formats {args.save_formats}: only dat is ported to "
-            f"fdtd3d_torch yet (ROADMAP.md queue A7)")
+
+
+def resolve_ntff_cadence(cfg):
+    """(frequency_hz, every, start) with the derived defaults filled in
+    (``fdtd3d_tpu/cli.py::resolve_ntff_cadence``): the source frequency,
+    ~16 samples a period, from half the run, the start aligned up to a
+    multiple of ``every`` (the run samples only there). ``main`` and
+    ``save_cmd_file`` share it, so a saved command file pins the derived
+    cadence too."""
+    from fdtd3d_torch import physics
+    freq = cfg.ntff.frequency or physics.C0 / cfg.wavelength
+    period_steps = 1.0 / (freq * cfg.dt)
+    every = cfg.ntff.every or max(1, round(period_steps / 16.0))
+    start = (cfg.ntff.start if cfg.ntff.start is not None
+             else cfg.time_steps // 2)
+    start = -(-start // every) * every
+    return freq, every, start
+
+
+# flags save_cmd_file does not re-emit: the command-file flags
+# themselves, the batch list, and the port's --device (a saved file
+# replays on either package's CLI, and on any device)
+_NOT_SAVED = ("help", "cmd_from_file", "save_cmd_to_file", "batch",
+              "device")
+
+
+def save_cmd_file(args, path: str):
+    """``--save-cmd-to-file``: every effective flag, defaults included,
+    one ``flag [value]`` a line (``fdtd3d_tpu/cli.py::save_cmd_file``),
+    the derived NTFF cadence resolved first, booleans in both states
+    (``--flag`` / ``--no-flag``), written through the atomic writer: a
+    saved file replays to the same configuration even if a default
+    changes."""
+    if args.ntff:
+        freq, every, start = resolve_ntff_cadence(args_to_config(args))
+        args = argparse.Namespace(**{**vars(args), "ntff_frequency": freq,
+                                     "ntff_every": every,
+                                     "ntff_start": start})
+    lines = []
+    for action in build_parser()._actions:
+        if not action.option_strings or action.dest in _NOT_SAVED \
+                or action.help == argparse.SUPPRESS:
+            continue
+        val = getattr(args, action.dest, None)
+        if val is None:
+            continue
+        opt = action.option_strings[0]
+        if isinstance(val, bool):
+            neg = next((o for o in action.option_strings
+                        if o.startswith("--no-")), None)
+            if val:
+                lines.append(opt)
+            elif neg is not None:
+                lines.append(neg)
+        else:
+            lines.append(f"{opt} {val}")
+    from fdtd3d_torch.io import atomic_open
+    with atomic_open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_ntff_pattern(col, cfg) -> str:
+    """The far-field |E|^2 pattern over the angle grid, normalised to
+    its peak, as ``save_dir/ntff_pattern.txt``: a header line, then
+    ``theta phi value`` rows (``fdtd3d_tpu/cli.py::write_ntff_pattern``)."""
+    import os
+
+    import numpy as np
+
+    from fdtd3d_torch.io import atomic_open
+    thetas = np.linspace(0.0, 180.0, cfg.ntff.theta_steps)
+    phis = np.arange(cfg.ntff.phi_steps) * (360.0 / cfg.ntff.phi_steps)
+    pattern = col.directivity_pattern(thetas, phis)
+    peak = pattern.max()
+    if peak > 0:
+        pattern = pattern / peak
+    os.makedirs(cfg.output.save_dir, exist_ok=True)
+    path = os.path.join(cfg.output.save_dir, "ntff_pattern.txt")
+    with atomic_open(path, "w") as f:
+        f.write("# theta_deg phi_deg directivity(normalized)\n")
+        for i, th in enumerate(thetas):
+            for j, ph in enumerate(phis):
+                f.write(f"{th:.3f} {ph:.3f} {pattern[i, j]:.9e}\n")
+    return path
+
+
+def make_ntff_collector(sim, cfg):
+    """-> (the NTFF collector, its cadence ``every``, its first sampling
+    step), or (None, 0, 0) without ``--ntff``; an explicit box needs both
+    its ends (SystemExit)."""
+    if not cfg.ntff.enabled:
+        return None, 0, 0
+    from fdtd3d_torch.ntff import NtffCollector
+    freq, every, start = resolve_ntff_cadence(cfg)
+    box = None
+    if cfg.ntff.box_lo is not None or cfg.ntff.box_hi is not None:
+        if cfg.ntff.box_lo is None or cfg.ntff.box_hi is None:
+            raise SystemExit(
+                "--ntff-box-lo and --ntff-box-hi must be given together")
+        box = (cfg.ntff.box_lo, cfg.ntff.box_hi)
+    return NtffCollector(sim, frequency=freq, box=box,
+                         margin=cfg.ntff.margin), every, start
 
 
 def _run_batch_cli(parser, args) -> int:
@@ -645,6 +746,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # CLI flags override the command file (parse file first, then argv)
         args = parser.parse_args(read_cmd_file(args.cmd_from_file) + argv)
     check_ported(args)
+    if args.save_cmd_to_file:
+        save_cmd_file(args, args.save_cmd_to_file)
     if args.batch:
         return _run_batch_cli(parser, args)
     if args.resume and args.load_checkpoint:
@@ -660,7 +763,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from fdtd3d_torch import diag, io
-    from fdtd3d_torch.log import log, set_level
+    from fdtd3d_torch.log import log, set_level, warn
     from fdtd3d_torch.sim import Simulation
     set_level(cfg.output.log_level)
     sup = None  # the supervisor (--supervise); it may replace sim
@@ -698,6 +801,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             pass
     try:
         _resume(sim, args, cfg, peeked_ckpt)
+        if cfg.output.save_materials:
+            io.write_materials(sim)
         dev = sim.device
         name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
             else "cpu"
@@ -708,16 +813,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         log(f"step_kind={sim.step_kind}"
             + (f" tb_fallback={fallback['reason']}" if fallback else ""))
 
+        # the running DFT of the far field, sampled between chunks
+        ntff_col, ntff_every, ntff_start = make_ntff_collector(sim, cfg)
+
         # gcd, not min: chunks must land on every cadence's multiples;
         # the checkpoint cadence is in it, so a resumed run's chunks end
         # where the uninterrupted run's do
         interval = 0
         for v in (cfg.output.save_res, cfg.output.norms_every,
-                  cfg.output.checkpoint_every):
+                  cfg.output.checkpoint_every, ntff_every):
             if v:
                 interval = math.gcd(interval, v)
 
         def on_interval(s):
+            if ntff_col is not None:
+                # a supervised degrade replaces the Simulation: sample
+                # the live one (same grid, dt and box)
+                ntff_col.sim = s
+                if s.t >= ntff_start and s.t % ntff_every == 0:
+                    ntff_col.sample()
             if cfg.output.norms_every and s.t % cfg.output.norms_every == 0:
                 norms = diag.field_norms(s)
                 txt = " ".join(f"{k}={v:.4e}"
@@ -745,6 +859,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                     on_interval=on_interval if interval else None,
                     interval=interval)
         sim.block_until_ready()
+        if ntff_col is not None and ntff_col.n_samples > 0:
+            path = write_ntff_pattern(ntff_col, cfg)
+            log(f"ntff: {ntff_col.n_samples} samples -> {path}")
+        elif ntff_col is not None:
+            warn(f"ntff: no samples collected (first sample at step "
+                 f"{ntff_start}, every {ntff_every}, run ends at "
+                 f"{cfg.time_steps}); no pattern written")
         dt_wall = time.time() - t0
         cells = 1.0
         for a in sim.static.mode.active_axes:

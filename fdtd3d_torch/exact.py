@@ -1,8 +1,9 @@
 """Exact solutions of the discrete Yee scheme, for accuracy checks.
 
-The port's own copy (numpy only) of ``discrete_omega``, ``cavity_mode``
-and ``cavity_expectation`` of ``fdtd3d_tpu/exact.py``: the port imports
-nothing of the JAX package. A PEC-cavity eigenmode (a sin-product mode
+The port's own copy (numpy only) of ``discrete_omega``,
+``discrete_k_1d``, ``cavity_mode_tmz``, ``cavity_mode``,
+``cavity_expectation`` and ``plane_wave_1d_steady`` of
+``fdtd3d_tpu/exact.py``: the port imports nothing of the JAX package. A PEC-cavity eigenmode (a sin-product mode
 shape) is an eigenvector of the discrete curl-curl with PEC walls, and
 its discrete frequency follows the exact discrete dispersion relation,
 so a run started from it has a machine-precision oracle: the cavity
@@ -32,6 +33,30 @@ def discrete_omega(k_cells: Sequence[float], dx: float, dt: float) -> float:
     if arg > 1.0:
         raise ValueError("mode beyond the stability limit")
     return 2.0 / dt * math.asin(arg)
+
+
+def discrete_k_1d(omega: float, dx: float, dt: float) -> float:
+    """Inverse dispersion: wave number (rad/cell) of a CW at ``omega``."""
+    s = math.sin(omega * dt / 2.0) / (physics.C0 * dt / dx)
+    if s > 1.0:
+        raise ValueError("frequency beyond the grid's passband")
+    return 2.0 * math.asin(s)
+
+
+def cavity_mode_tmz(size: Tuple[int, int], m: int, n: int,
+                    dx: float, dt: float):
+    """2D TMz PEC-cavity eigenmode: (Ez0 mode shape on the (Nx, Ny)
+    E-grid, omega_discrete). Walls at i=0, i=Nx-1, j=0, j=Ny-1 (where
+    tangential Ez is pinned); Ez0 = sin(m pi i/(Nx-1)) sin(n pi j/(Ny-1)).
+    From E^0 = mode and H = 0 the step gives
+    E^t = mode * cos(w(t - 1/2)dt)/cos(w dt/2) (``cavity_expectation``)."""
+    nx, ny = size
+    kx = m * math.pi / (nx - 1)
+    ky = n * math.pi / (ny - 1)
+    i = np.arange(nx)[:, None]
+    j = np.arange(ny)[None, :]
+    shape = np.sin(kx * i) * np.sin(ky * j)
+    return shape, discrete_omega((kx, ky, 0.0), dx, dt)
 
 
 def cavity_mode(size: Tuple[int, int, int], mnp: Tuple[int, int, int],
@@ -110,3 +135,11 @@ def cavity_expectation(mode_shape: np.ndarray, omega: float, dt: float,
     """Expected E-field of a cavity mode at step ``t`` (solver convention)."""
     return mode_shape * (math.cos(omega * (t - 0.5) * dt)
                          / math.cos(omega * 0.5 * dt))
+
+
+def plane_wave_1d_steady(x_cells: np.ndarray, t: int, omega: float,
+                         dx: float, dt: float, amplitude: float = 1.0,
+                         phase0: float = 0.0) -> np.ndarray:
+    """Steady-state CW plane wave with the DISCRETE wave number."""
+    k = discrete_k_1d(omega, dx, dt)
+    return amplitude * np.sin(omega * t * dt - k * x_cells + phase0)

@@ -3,11 +3,14 @@
 Counterpart of the DAT and npz-checkpoint halves of ``fdtd3d_tpu/io.py``
 (numpy path): a DAT file is the bare little-endian C-order values of one
 component, with a ``.manifest.json`` sidecar recording shape, dtype and
-step; both files are byte-identical to the reference's. Every file is
-written through the atomic writer (tmp file + fsync + ``os.replace``;
-the fault plan's ``fail_write`` fires just before the rename), so a
-crash mid-write never leaves a torn file under the final name. The
-TXT/BMP dumpers come with ROADMAP.md item A7.
+step; both files are byte-identical to the reference's. TXT dumps are
+``i j k %.9e`` lines (``format_e9``, a vectorised formatter byte-equal
+to C's printf, stands in for the reference's native writer); BMP dumps
+a colormapped central cut (the reference's encoder and colormap, in
+numpy). Every file is written through the atomic writer (tmp file +
+fsync + ``os.replace``; the fault plan's ``fail_write`` fires just
+before the rename), so a crash mid-write never leaves a torn file under
+the final name.
 
 A checkpoint is the reference's format: one ``.npz`` holding every leaf
 of the dict-form state under its ``/``-joined key (``E/Ex``,
@@ -128,7 +131,19 @@ def dump_dat(arr: np.ndarray, path: str, step: Optional[int] = None,
     bits), recorded as ``BF16_DTYPE``."""
     arr = np.asarray(arr)
     le = arr.astype(arr.dtype.newbyteorder("<"), copy=False)
-    atomic_publish(path, le.tofile)
+
+    def _write(tmp):
+        if le.flags.c_contiguous or le.ndim == 0:
+            le.tofile(tmp)
+            return
+        # a strided or broadcast view (a uniform material grid): one
+        # contiguous copy of a leading slice at a time, not tofile's
+        # value-by-value walk nor a copy of the whole
+        with open(tmp, "wb") as f:
+            for part in le:
+                f.write(np.ascontiguousarray(part).tobytes())
+
+    atomic_publish(path, _write)
     manifest = {"shape": list(arr.shape),
                 "dtype": BF16_DTYPE if bf16 else le.dtype.str,
                 "order": "C", "endian": "little"}
@@ -149,25 +164,339 @@ def load_dat(path: str) -> np.ndarray:
         manifest["shape"])
 
 
+# --------------------------------------------------------------------------
+# TXT: "i j k value" lines, one per cell, the value as "%.9e"
+# --------------------------------------------------------------------------
+
+# one value's "%.9e" bytes at fixed columns, 0 where a byte is absent
+# (the compaction below drops them): sign, the first digit, ".", nine
+# digits, "e", the exponent's sign, its hundreds (0 when |exp| < 100),
+# tens and units
+_E9_WIDTH = 17
+# a value whose scaled mantissa lies this close to a rounding tie is
+# formatted exactly (by Python, whose "%.9e" is correctly rounded, as
+# C's printf is); the float64 scaling errs by a few ulp, ~4e-6 at 1e10
+_E9_TIE_MARGIN = 1e-4
+# lines formatted per vectorised chunk (bounds each thread's
+# temporaries to ~25 MB whatever the array's size)
+_TXT_CHUNK = 1 << 18
+
+
+def _e9_exact(v: float) -> bytes:
+    """'%.9e' of one value, as C's printf writes it (a NaN with its sign
+    bit set as ``-nan``)."""
+    if v != v:
+        return b"-nan" if np.signbit(v) else b"nan"
+    return f"{v:.9e}".encode()
+
+
+_E9_RANGE = 280          # |decimal exponent| the vectorised path covers
+# the five-digit groups "00000".."99999", the exponent fields
+# (sign, hundreds or 0, tens, units) of -_E9_RANGE-1..+_E9_RANGE+1, and
+# the powers of ten the mantissa is scaled by
+_DIGITS5 = (np.arange(100000)[:, None] // 10 ** np.arange(4, -1, -1)
+            % 10 + ord("0")).astype(np.uint8)
+_EXPS = np.arange(-_E9_RANGE - 1, _E9_RANGE + 2)
+_EXP_FIELD = np.array(
+    [[ord("-" if e < 0 else "+"),
+      abs(e) // 100 + ord("0") if abs(e) >= 100 else 0,
+      abs(e) // 10 % 10 + ord("0"), abs(e) % 10 + ord("0")]
+     for e in _EXPS], dtype=np.uint8)
+_POW10 = np.power(10.0, (9 - _EXPS).astype(np.float64))
+
+
+def format_e9(values: np.ndarray) -> np.ndarray:
+    """``"%.9e"`` of every value of a float array, as a (n, 17) uint8
+    matrix of the text's bytes at fixed columns, 0 where a byte is
+    absent. Byte-equal to C's printf (and Python's format), which round
+    the decimal value correctly: the 10 significant digits come from the
+    value scaled by 10^(9-E) in float64, and a value whose scaled
+    mantissa falls within ``_E9_TIE_MARGIN`` of a rounding tie, or
+    outside the exponent range the scaling covers, or non-finite, is
+    formatted one at a time by Python."""
+    x = np.asarray(values, dtype=np.float64).reshape(-1)
+    n = x.size
+    out = np.zeros((n, _E9_WIDTH), dtype=np.uint8)
+    if n == 0:
+        return out
+    a = np.abs(x)
+    nz = np.isfinite(x) & (a > 0)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        e = np.floor(np.log10(np.where(nz, a, 1.0))).astype(np.int64)
+        slow = ~np.isfinite(x) | (e < -_E9_RANGE) | (e > _E9_RANGE)
+        e[slow] = 0
+        k = e + _E9_RANGE + 1                # row of e in the tables
+        y = a * _POW10[k]
+        for step in (1, -1):                 # log10 can miss by one at 10^k
+            fix = nz & ~slow & ((y >= 1e10) if step > 0 else (y < 1e9))
+            k[fix] += step
+            y[fix] = a[fix] * _POW10[k[fix]]
+        q = np.floor(y + 0.5)
+        up = q >= 1e10
+        q[up] = 1e9
+        k[up] += 1
+        slow |= nz & ((np.abs(y - np.floor(y) - 0.5) < _E9_TIE_MARGIN)
+                      | (q < 1e9) | (k >= len(_EXPS)))
+    k[~nz | slow] = _E9_RANGE + 1            # exponent 0 (zero, or slow)
+    qi = np.where(nz & ~slow, q, 0.0).astype(np.int64)
+    hi5 = _DIGITS5[qi // 100000]
+    out[:, 0] = np.where(np.signbit(x), ord("-"), 0)
+    out[:, 1] = hi5[:, 0]
+    out[:, 2] = ord(".")
+    out[:, 3:7] = hi5[:, 1:]
+    out[:, 7:12] = _DIGITS5[qi % 100000]
+    out[:, 12] = ord("e")
+    out[:, 13:17] = _EXP_FIELD[k]
+    for i in np.flatnonzero(slow):
+        text = _e9_exact(float(x[i]))
+        out[i] = 0
+        out[i, :len(text)] = np.frombuffer(text, np.uint8)
+    return out
+
+
+def _index_table(n: int) -> np.ndarray:
+    """(n, width) uint8: the bytes of ``f"{i} "`` for i < n, zero-padded."""
+    text = np.array([f"{i} " for i in range(n)], dtype=f"S{len(str(n)) + 1}")
+    return text.view(np.uint8).reshape(n, -1)
+
+
+def txt_bytes(arr: np.ndarray, start: int = 0, stop: int = None) -> bytes:
+    """The TXT dump's lines ``start`` to ``stop`` (C order) of ``arr``:
+    each ``"i j k %.9e\n"`` (one index per dimension), the reference's
+    format (``fdtd3d_tpu/io.py::dump_txt``), built without a Python loop
+    over the values."""
+    arr = np.asarray(arr)
+    stop = arr.size if stop is None else min(stop, arr.size)
+    if stop <= start:
+        return b""
+    tables = [_index_table(n) for n in arr.shape]
+    width = sum(t.shape[1] for t in tables) + _E9_WIDTH + 1
+    lines = np.empty((stop - start, width), dtype=np.uint8)
+    idx = np.unravel_index(np.arange(start, stop), arr.shape)
+    col = 0
+    for t, i in zip(tables, idx):
+        lines[:, col:col + t.shape[1]] = t[i]
+        col += t.shape[1]
+    # the values gathered by index: a broadcast grid is never copied whole
+    lines[:, col:col + _E9_WIDTH] = format_e9(arr[idx])
+    lines[:, -1] = ord("\n")
+    return lines[lines != 0].tobytes()
+
+
+def dump_txt(arr: np.ndarray, path: str):
+    """Human-readable dump: one ``i j k value`` line per cell, the value
+    as ``%.9e`` (the reference's format, byte for byte), written in
+    vectorised chunks, formatted on a few threads (numpy releases the
+    interpreter lock), through the atomic writer."""
+    from concurrent.futures import ThreadPoolExecutor
+    arr = np.asarray(arr)
+    starts = range(0, arr.size, _TXT_CHUNK)
+    workers = max(1, min(8, os.cpu_count() or 1, len(starts)))
+
+    def _write(tmp):
+        with open(tmp, "wb") as f, ThreadPoolExecutor(workers) as pool:
+            for text in pool.map(
+                    lambda s: txt_bytes(arr, s, s + _TXT_CHUNK), starts):
+                f.write(text)
+
+    atomic_publish(path, _write)
+
+
+def load_txt(path: str, shape: Tuple[int, ...],
+             dtype=np.float64) -> np.ndarray:
+    """A TXT dump back into an array of ``shape``: each line's value
+    placed at its indices."""
+    out = np.zeros(shape, dtype=dtype)
+    data = np.loadtxt(path, dtype=np.float64, ndmin=2)
+    if data.size:
+        nd = len(shape)
+        out[tuple(data[:, :nd].astype(np.int64).T)] = data[:, nd]
+    return out
+
+
+# --------------------------------------------------------------------------
+# BMP: a colormapped 2D cut, 24-bit uncompressed
+# --------------------------------------------------------------------------
+
+def bmp_encode(rgb: np.ndarray) -> bytes:
+    """uint8 (H, W, 3) RGB -> 24-bit uncompressed BMP bytes (rows
+    bottom-up, BGR, each padded to 4 bytes; the reference's header)."""
+    h, w, _ = rgb.shape
+    row = w * 3
+    pad = (4 - row % 4) % 4
+    body = np.zeros((h, row + pad), dtype=np.uint8)
+    body[:, :row] = np.ascontiguousarray(rgb[::-1, :, ::-1]).reshape(h, row)
+    header = struct.pack("<2sIHHI", b"BM", 54 + body.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, body.size,
+                       2835, 2835, 0, 0)
+    return header + info + body.tobytes()
+
+
+def colormap_diverging(v: np.ndarray) -> np.ndarray:
+    """Symmetric blue-white-red map on [-max|v|, +max|v|] -> uint8 RGB."""
+    v = np.asarray(v, dtype=np.float64)
+    scale = np.max(np.abs(v)) or 1.0
+    x = np.clip(v / scale, -1.0, 1.0)
+    rgb = np.empty(v.shape + (3,), dtype=np.uint8)
+    up = np.clip(1.0 + x, 0.0, 1.0)     # 0 at -1 .. 1 at >=0
+    dn = np.clip(1.0 - x, 0.0, 1.0)     # 1 at <=0 .. 0 at +1
+    rgb[..., 0] = np.round(255 * np.where(x >= 0, 1.0, up))
+    rgb[..., 1] = np.round(255 * np.minimum(up, dn))
+    rgb[..., 2] = np.round(255 * np.where(x <= 0, 1.0, dn))
+    return rgb
+
+
+def bmp_image(arr: np.ndarray, active_axes=(0, 1)) -> np.ndarray:
+    """The (rows, cols) image ``dump_bmp`` colours: the central cut of a
+    rank-3 grid spanned by the first two active axes (rows = the second,
+    cols = the first), or for one active axis its line repeated in 24
+    rows."""
+    arr = np.asarray(arr)
+    axes = list(active_axes) or [0, 1]
+    if len(axes) == 1:
+        a = axes[0]
+        line = np.moveaxis(arr, a, 0).reshape(arr.shape[a], -1)[:, 0]
+        return np.tile(line[None, :], (24, 1))
+    a, b = axes[0], axes[1]
+    sl = [slice(None)] * arr.ndim
+    for r in range(arr.ndim):
+        if r not in (a, b):
+            sl[r] = arr.shape[r] // 2
+    cut = arr[tuple(sl)]
+    if a > b:  # keep (a, b) order as (rows, cols)
+        cut = cut.T
+    return cut.T
+
+
+def dump_bmp(arr: np.ndarray, path: str, active_axes=(0, 1)):
+    """Central 2D cut of a rank-3 grid -> colormapped BMP
+    (``bmp_image``, ``colormap_diverging``), through the atomic writer."""
+    data = bmp_encode(colormap_diverging(bmp_image(arr, active_axes)))
+
+    def _write(tmp):
+        with open(tmp, "wb") as f:
+            f.write(data)
+
+    atomic_publish(path, _write)
+
+
+def load_bmp(path: str) -> np.ndarray:
+    """Decode a 24-bit uncompressed BMP -> uint8 (H, W, 3) RGB, bottom-up
+    (positive height) or top-down (negative height) rows."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"BM":
+        raise ValueError(f"{path}: not a BMP file")
+    (offset,) = struct.unpack_from("<I", data, 10)
+    w, h = struct.unpack_from("<ii", data, 18)
+    (bpp,) = struct.unpack_from("<H", data, 28)
+    (compression,) = struct.unpack_from("<I", data, 30)
+    if bpp != 24 or compression != 0:
+        raise ValueError(
+            f"{path}: only 24-bit uncompressed BMP supported "
+            f"(got {bpp}bpp, compression {compression})")
+    top_down = h < 0
+    h = abs(h)
+    row = w * 3
+    stride = row + (4 - row % 4) % 4
+    if w <= 0 or h <= 0:
+        raise ValueError(f"{path}: bad BMP dimensions {w}x{h}")
+    if offset + (h - 1) * stride + row > len(data):
+        raise ValueError(
+            f"{path}: truncated BMP ({len(data)} bytes; header claims "
+            f"{w}x{h} 24-bit rows ending at byte "
+            f"{offset + (h - 1) * stride + row})")
+    rows = np.frombuffer(data, np.uint8, (h - 1) * stride + row, offset)
+    rows = np.lib.stride_tricks.as_strided(
+        rows, (h, row), (stride, 1)).reshape(h, w, 3)[:, :, ::-1]
+    return np.ascontiguousarray(rows if top_down else rows[::-1])
+
+
+def load_bmp_gray(path: str) -> np.ndarray:
+    """BMP -> float64 (H, W) luminance in [0, 1] (material-init input)."""
+    return load_bmp(path).mean(axis=2) / 255.0
+
+
+# --------------------------------------------------------------------------
+# periodic output and the material dump
+# --------------------------------------------------------------------------
+
+def _dump_formats(arr: np.ndarray, base: str, formats, axes,
+                  step: Optional[int] = None, bf16_words=None):
+    """``arr`` in each of ``formats`` (dat, txt, bmp; others are
+    ignored, as the reference ignores them) under ``base`` + suffix. A
+    bf16 field's DAT holds its 2-byte words (``bf16_words``); its TXT and
+    BMP its values widened exactly, as the reference formats them."""
+    if "dat" in formats:
+        if bf16_words is not None:
+            dump_dat(bf16_words, base + ".dat", step=step, bf16=True)
+        else:
+            dump_dat(arr, base + ".dat", step=step)
+    if "txt" in formats:
+        dump_txt(arr, base + ".txt")
+    if "bmp" in formats:
+        dump_bmp(arr, base + ".bmp", axes)
+
+
 def write_outputs(sim, step: int):
-    """Dump every stored field component (DAT) into the save dir."""
-    out = sim.cfg.output
-    other = [f for f in out.formats if f != "dat"]
-    if other:
-        raise NotImplementedError(
-            f"dump formats {other} are not ported to fdtd3d_torch yet "
-            f"(ROADMAP.md queue A7); use --save-formats dat")
+    """Dump every stored field component into the save dir, in each
+    configured format (``fdtd3d_tpu/io.py::write_outputs``)."""
     import torch
 
     from fdtd3d_torch import convert
+    out = sim.cfg.output
     os.makedirs(out.save_dir, exist_ok=True)
+    axes = sim.static.mode.active_axes
     for comp, v in sim.component_views().items():
         base = os.path.join(out.save_dir, f"{comp}_t{step:06d}")
-        if v.dtype == torch.bfloat16:
-            dump_dat(convert.bf16_words(v), base + ".dat", step=step,
-                     bf16=True)
-        else:
-            dump_dat(convert.to_host(v), base + ".dat", step=step)
+        bf16 = v.dtype == torch.bfloat16
+        words = convert.bf16_words(v) if bf16 and "dat" in out.formats \
+            else None
+        arr = convert.to_host(v) \
+            if not bf16 or {"txt", "bmp"} & set(out.formats) else None
+        _dump_formats(arr, base, out.formats, axes, step=step,
+                      bf16_words=words)
+
+
+def write_materials(sim):
+    """One-time dump of every material grid (``--save-materials``,
+    ``fdtd3d_tpu/io.py::write_materials``) in each configured format,
+    each as a float64 grid of the run's shape: eps at each E component's
+    staggered positions, mu at each H component's, the Drude omega_p and
+    gamma (magnetic: omega_pm, gamma_m) when that dispersion is on, and
+    the uniform sigma_e and sigma_m, in the reference's order and
+    names."""
+    from fdtd3d_torch import materials as mats
+    out = sim.cfg.output
+    os.makedirs(out.save_dir, exist_ok=True)
+    mode = sim.static.mode
+    mat = sim.cfg.materials
+    shape = sim.static.grid_shape
+    grids: Dict[str, Any] = {}
+    for comp in mode.e_components:
+        grids[f"eps_{comp}"] = mats.scalar_or_grid(
+            comp, shape, mode.active_axes, mat.eps, mat.eps_sphere,
+            mat.eps_file)
+        if mat.use_drude:
+            wp, gamma, _ = mats.drude_params(comp, shape,
+                                             mode.active_axes, mat)
+            grids[f"omega_p_{comp}"] = wp
+            grids[f"gamma_{comp}"] = gamma
+    for comp in mode.h_components:
+        grids[f"mu_{comp}"] = mats.scalar_or_grid(
+            comp, shape, mode.active_axes, mat.mu, mat.mu_sphere,
+            mat.mu_file)
+        if mat.use_drude_m:
+            wpm, gm, _ = mats.drude_params(comp, shape, mode.active_axes,
+                                           mat, magnetic=True)
+            grids[f"omega_pm_{comp}"] = wpm
+            grids[f"gamma_m_{comp}"] = gm
+    grids["sigma_e"] = mat.sigma_e
+    grids["sigma_m"] = mat.sigma_m
+    for name, val in grids.items():
+        arr = np.broadcast_to(np.asarray(val, dtype=np.float64), shape)
+        _dump_formats(arr, os.path.join(out.save_dir, name), out.formats,
+                      sim.static.mode.active_axes)
 
 
 # --------------------------------------------------------------------------
@@ -387,34 +716,3 @@ def prune_checkpoints(save_dir: str, keep: int,
         except OSError:
             pass  # a prune failure must never kill the run
     return pruned
-
-
-def load_bmp_gray(path: str) -> np.ndarray:
-    """24-bit uncompressed BMP -> float64 (H, W) luminance in [0, 1]
-    (material-init input; ``fdtd3d_tpu/io.py::load_bmp_gray``)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:2] != b"BM":
-        raise ValueError(f"{path}: not a BMP file")
-    (offset,) = struct.unpack_from("<I", data, 10)
-    w, h = struct.unpack_from("<ii", data, 18)
-    (bpp,) = struct.unpack_from("<H", data, 28)
-    (compression,) = struct.unpack_from("<I", data, 30)
-    if bpp != 24 or compression != 0:
-        raise ValueError(
-            f"{path}: only 24-bit uncompressed BMP supported "
-            f"(got {bpp}bpp, compression {compression})")
-    top_down = h < 0
-    h = abs(h)
-    row = w * 3
-    stride = row + (4 - row % 4) % 4
-    if w <= 0 or h <= 0:
-        raise ValueError(f"{path}: bad BMP dimensions {w}x{h}")
-    if offset + (h - 1) * stride + row > len(data):
-        raise ValueError(f"{path}: truncated BMP ({len(data)} bytes)")
-    out = np.empty((h, w, 3), dtype=np.uint8)
-    for y in range(h):
-        line = np.frombuffer(data, np.uint8, row,
-                             offset + y * stride).reshape(w, 3)
-        out[y if top_down else h - 1 - y] = line[:, ::-1]  # BGR -> RGB
-    return out.mean(axis=2) / 255.0

@@ -874,7 +874,7 @@ def make_packed_step(static, device, plain: bool = False, batch: int = 0):
     if thin:
         # the reference runs a thin y or z axis through pallas3d's
         # in-kernel full-length psi, and a thin x axis on its jnp step
-        item = "B3" if any(a in (1, 2) for a in thin) else "A4"
+        item = "B3" if any(a in (1, 2) for a in thin) else "A11"
         raise NotImplementedError(
             f"full-length CPML psi on axis {', '.join(AXES[a] for a in thin)}"
             f" (a PML too thick for slab storage) is not in the packed "

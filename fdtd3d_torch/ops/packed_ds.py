@@ -961,10 +961,11 @@ def make_packed_ds_step(static, device, plain: bool = False):
     ``e_update_plain``, ``h_update_plain``): the yardstick chip_smoke.py
     holds the kernels against."""
     if not eligible(static):
-        raise NotImplementedError(
-            "this float32x2 configuration is outside the packed-ds "
-            "step's scope (a PML too thick for slab psi storage: "
-            "ROADMAP.md queue A4); run it with use_pallas=False")
+        raise ValueError(
+            "this float32x2 configuration (a 1D/2D mode, or a PML too "
+            "thick for slab psi storage) is outside the packed-ds step's "
+            "scope: the dispatch runs the plain ds step there, as the "
+            "reference runs its jnp-ds step (packed_ds.eligible)")
     setup = static.tfsf_setup
     ps = static.cfg.point_source
     records = {"E": family_records(static, "E"),

@@ -142,6 +142,8 @@ def reject_reason(static) -> Optional[str]:
     cfg = static.cfg
     if cfg.ds_fields:
         return "ds_fields"
+    if static.mode.name != "3D":
+        return "packed_ineligible"
     if cfg.dtype not in ("float32", "bfloat16"):
         return "dtype"
     if tuple(static.topology) != (1, 1, 1):

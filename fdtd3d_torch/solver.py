@@ -62,10 +62,16 @@ reference's; with a coefficient grid, or with magnetic Drude K, the
 reference declines its packed kernel and so does the port: the plain
 step runs.
 
-Scope of this slice: 3D real float32, bfloat16, float32x2 and float64,
-CPML on any axes, TFSF, the point source, electric Drude J, magnetic
-Drude K (not with float32x2), compensated float32, material coefficient
-grids, PEC walls, unsharded. Everything else raises
+Every kernel is 3D-only, as the reference's are: a 1D or 2D scheme
+mode (inactive axes are singleton dims) runs the plain step (kind
+``plain``, ``plain_ds`` with float32x2), the counterpart of the
+reference's jnp and jnp-ds steps, with ``tb_fallback`` token
+``packed_ineligible``; ``require_pallas`` raises on it.
+
+Scope: every scheme mode, real float32, bfloat16, float32x2 and
+float64, CPML on any axes, TFSF, the point source, electric Drude J,
+magnetic Drude K (not with float32x2), compensated float32, material
+coefficient grids, PEC walls, unsharded. Everything else raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -147,16 +153,10 @@ def check_scope(cfg: SimConfig) -> None:
         raise NotImplementedError(
             f"{what} is not ported to fdtd3d_torch yet (ROADMAP.md queue "
             f"{item}); run it with the reference package fdtd3d_tpu")
-    if cfg.scheme != "3D":
-        out(f"scheme {cfg.scheme!r} (1D/2D modes)", "A4")
     if cfg.complex_fields:
         out("complex fields", "A10")
-    if cfg.dtype not in ("float32", "bfloat16", "float32x2", "float64"):
-        out(f"dtype {cfg.dtype!r}", "A4")
     if cfg.materials.use_drude_m and cfg.dtype == "float32x2":
         out("magnetic Drude (K current) with float32x2 fields", "B4(b)")
-    if cfg.ntff.enabled:
-        out("the near-to-far-field transform", "A8")
     if cfg.output.checkpoint_backend == "orbax":
         out("the orbax checkpoint backend", "A11")
     par = cfg.parallel
@@ -735,12 +735,17 @@ def make_plain_ds_step(static: StaticSetup):
         backward = field == "E"
         tag = "e" if field == "E" else "h"
         psi_key, lopsi_key = f"psi_{field}", f"lopsi_{field}"
-        iv = ds.pair_tensors(1.0 / np.float64(static.dx), srch[other + "x"])
+        iv = ds.pair_tensors(1.0 / np.float64(static.dx),
+                             next(iter(srch.values())))
         out = {}
         for c in upd:
             acc = None
             for (a, d_axis, s) in CURL_TERMS[component_axis(c)]:
                 d = other + AXES[d_axis]
+                if d not in srch or srch[d].shape[a] == 1:
+                    # a component outside the mode, or a difference
+                    # along an inactive axis: no term (the reference's)
+                    continue
                 f = (srch[d], srcl[d])
                 g = (_shift(f[0], a, backward), _shift(f[1], a, backward))
                 dh, dl = ds_diff(f, g, iv) if backward \
@@ -765,6 +770,9 @@ def make_plain_ds_step(static: StaticSetup):
                 acc = (th, tl) if acc is None else ds.add_ff(*acc, th, tl)
                 if fix is not None:      # carries s already
                     acc = ds.add_ff(*acc, *fix)
+            if acc is None:
+                z = torch.zeros_like(state[field][c])
+                acc = (z, z)
             if setup is not None:
                 corr = tfsf.corrections_for_ds(
                     field, c, setup, coeffs, state["inc"],
@@ -981,14 +989,17 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
             return packed_tb.make_packed_tb_step(static, device, batch=batch)
         return _stamp_tb_fallback(
             packed_mod.make_packed_step(static, device, batch=batch), reason)
+    from fdtd3d_torch.ops import packed as packed_mod
+    from fdtd3d_torch.ops import packed_ds, pallas3d
     flag = static.cfg.use_pallas
     packed = torch.device(device).type == "cuda" if flag is None else flag
     reason = tb_fallback_reason(static, packed, allow_multistep)
     if static.cfg.ds_fields:
-        # the reference's ds dispatch: FDTD3D_NO_PACKED takes the plain
-        # ds step (its jnp-ds branch)
-        if packed and not os.environ.get("FDTD3D_NO_PACKED"):
-            from fdtd3d_torch.ops import packed_ds
+        # the reference's ds dispatch: FDTD3D_NO_PACKED, or a
+        # configuration outside the packed-ds scope (a 1D/2D mode),
+        # takes the plain ds step (its jnp-ds branch)
+        if packed and not os.environ.get("FDTD3D_NO_PACKED") \
+                and packed_ds.eligible(static):
             step = packed_ds.make_packed_ds_step(static, device)
         else:
             step = make_plain_ds_step(static)
@@ -1001,17 +1012,19 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     elif reason is None:
         from fdtd3d_torch.ops import packed_tb
         return packed_tb.make_packed_tb_step(static, device)
-    elif packed and (os.environ.get("FDTD3D_NO_PACKED")
-                     or os.environ.get("FDTD3D_FORCE_FUSED")):
+    elif not (packed and (packed_mod.eligible(static)
+                          or pallas3d.eligible(static))):
+        # no kernel is wanted, or none covers the configuration (a 1D/2D
+        # mode): the reference's _want_pallas is false, its jnp step runs
+        step = make_plain_step(static)
+    elif os.environ.get("FDTD3D_NO_PACKED") \
+            or os.environ.get("FDTD3D_FORCE_FUSED"):
         step = _ladder_step(static, device)
-    elif packed:
-        from fdtd3d_torch.ops import packed as packed_mod
+    else:
         # where the reference's packed kernel declines, its dispatch runs
         # its jnp step
         step = make_plain_step(static) if packed_mod.declines(static) \
             else packed_mod.make_packed_step(static, device)
-    else:
-        step = make_plain_step(static)
     return _stamp_tb_fallback(step, reason)
 
 

@@ -349,7 +349,9 @@ def test_cli_batch_prints_the_reference_lines(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [("--profile", "A14"),
                                        ("--telemetry=t.jsonl", "A5"),
-                                       ("--metrics=m.txt", "A15")])
+                                       ("--metrics=m.txt", "A15"),
+                                       ("--ntff", r"A13\(b\)"),
+                                       ("--save-materials", r"A13\(b\)")])
 def test_cli_batch_unported_flags_raise(tmp_path, flag, item):
     paths = _spec_files(tmp_path, (1.0, 2.0))
     with pytest.raises(NotImplementedError, match=item):

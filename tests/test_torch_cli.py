@@ -56,10 +56,11 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--checkpoint-backend", "orbax"], "A11"), (["--ntff"], "A8"),
+    (["--checkpoint-backend", "orbax"], "A11"),
+    (["--metrics-every", "5"], "A5"),
     (["--per-chip-telemetry"], "A5"), (["--profile"], "A14"),
     (["--num-processes", "2"], "A11"), (["--telemetry", "x.jsonl"], "A5"),
-    (["--save-formats", "dat,txt"], "A7"),
+    (["--complex-field-values"], "A10"),
 ])
 def test_cli_flags_outside_the_slice_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):

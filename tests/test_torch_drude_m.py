@@ -17,7 +17,7 @@ float32 auxiliary state in f32 and bf16 runs (as J), float64 in f64.
 * A batch of K lanes: ``batch_fallback_reason`` equals the reference's
   (None: its packed kernel carries K lanes), and each lane of the
   lane-capable packed step equals the reference's solo jnp run.
-* float32x2 with K (B4(b)) and a 1D K run (A4) still raise, naming their
+* float32x2 with K (B4(b)), in 3D and in 1D, still raises, naming its
   ROADMAP.md item.
 """
 
@@ -243,12 +243,15 @@ def test_out_of_scope_k_raises_naming_its_item(kw, item):
 
 
 def test_one_dimensional_k_raises_naming_its_item():
+    """1D K runs (tests/test_torch_modes.py holds it); float32x2 with K
+    stays out of scope in 1D too."""
     cfg = SimConfig(scheme="1D_EzHy", size=(64, 1, 1), time_steps=4,
                     dx=1e-3, courant_factor=0.5, wavelength=15e-3,
+                    dtype="float32x2",
                     materials=MaterialsConfig(**dict(
                         K_MAT, drude_m_sphere=SphereConfig(
                             enabled=True, center=(32, 0, 0), radius=5))))
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match=r"B4\(b\)"):
         TSim(to_port(cfg), device="cpu")
 
 

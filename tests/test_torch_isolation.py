@@ -1,5 +1,8 @@
 """The PyTorch port stands alone and fails loudly.
 
+* the 1D/2D modes, the NTFF collector and the TXT/BMP, material and
+  command-file writers (through the CLI) load neither jax, fdtd3d_tpu,
+  ml_dtypes nor the reference's native I/O library;
 * importing fdtd3d_torch and stepping 3D runs on the CPU (f32 and bf16
   plain and temporal-blocked with a packed tail step, the fused and
   two-pass ladder steps, float32x2 plain and packed-ds, float64,
@@ -118,6 +121,58 @@ print("LEAKED" if bad else "CLEAN", bad)
 """
 
 
+_CHILD_OUTPUTS = """
+import sys, tempfile
+from fdtd3d_torch import SimConfig, Simulation, cli
+from fdtd3d_torch.config import PmlConfig, PointSourceConfig
+from fdtd3d_torch.ntff import NtffCollector
+for scheme, size in (("1D_EzHy", (40, 1, 1)), ("2D_TEz", (24, 20, 1))):
+    cfg = SimConfig(scheme=scheme, size=size, time_steps=5,
+                    pml=PmlConfig(size=(4, 4, 0)), use_pallas=True,
+                    dtype="float32x2" if scheme == "2D_TEz" else "float32")
+    sim = Simulation(cfg, device="cpu").run()
+    assert sim.step_kind in ("plain", "plain_ds"), sim.step_kind
+cfg = SimConfig(scheme="3D", size=(16, 16, 16), time_steps=0,
+                pml=PmlConfig(size=(3, 3, 3)),
+                point_source=PointSourceConfig(enabled=True,
+                                               position=(8, 8, 8)))
+sim = Simulation(cfg, device="cpu")
+col = NtffCollector(sim, 3e10)
+for _ in range(3):
+    sim.advance(2)
+    col.sample()
+assert col.directivity_pattern([0.0, 90.0], [0.0]).shape == (2, 1)
+with tempfile.TemporaryDirectory() as d:
+    assert cli.main(["--2d", "TMz", "--same-size", "16", "--time-steps",
+                     "4", "--point-source", "Ez", "--save-res", "4",
+                     "--save-formats", "dat,txt,bmp", "--save-materials",
+                     "--save-cmd-to-file", d + "/cmd.txt", "--save-dir",
+                     d, "--device", "cpu"]) == 0
+    assert cli.main(["--3d", "--same-size", "16", "--time-steps", "8",
+                     "--point-source", "Ez", "--use-pml", "--pml-size",
+                     "3", "--ntff", "--ntff-margin", "1", "--save-dir",
+                     d, "--device", "cpu"]) == 0
+with open("/proc/self/maps") as f:
+    native = "libfdtd3d_io" in f.read()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "ml_dtypes")
+             or m.startswith(("jax.", "ml_dtypes.", "fdtd3d_tpu")))
+print("LEAKED" if bad or native else "CLEAN", bad, native)
+"""
+
+
+def test_outputs_and_modes_import_neither_jax_nor_native_io():
+    """The 1D/2D modes, the NTFF collector and the TXT/BMP/material and
+    command-file writers (through the CLI) pull in neither jax, nor
+    fdtd3d_tpu, nor ml_dtypes, and load no native/libfdtd3d_io.so."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD_OUTPUTS], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1].startswith("CLEAN"), proc.stdout
+
+
 def test_port_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
@@ -144,7 +199,7 @@ _K = MaterialsConfig(use_drude_m=True, mu_inf=1.5, omega_pm=1e11,
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(scheme="2D_TMz", size=(16, 16, 1)), "A4"),
+    (dict(scheme="2D_TMz", size=(16, 16, 1), complex_fields=True), "A10"),
     (dict(dtype="float32x2", materials=_K), r"B4\(b\)"),
     (dict(dtype="float32x2", parallel=ParallelConfig(
         topology="manual", manual_topology=(2, 1, 1))), "A9"),
