@@ -283,8 +283,39 @@ step, as the reference's jnp step; no kernel is new):
    gates of ``tests/test_exact_ntff.py:111``; (d) the dipole under
    ``--supervise`` with a NaN at t=168: the degrade to the packed step,
    the collector on the live sim, the pattern within ``LADDER_REL`` of
-   the uninterrupted run's. ``--only 27,28`` runs these two phases alone
-   after the build and prints their JSON (no kernels or ok line).
+   the uninterrupted run's.
+
+Health counters, the telemetry sink and profiling (no kernel is new: the
+health pass is torch ops on views of the carry the kernels leave):
+
+29. (a) the f32 and bf16 main paths (vacuum3D_tfsf at 256^3, 150 and 151
+   steps) through the CLI with ``--telemetry --per-chip-telemetry
+   --metrics-every 50 --profile``: the tb launches (and the packed tail),
+   every record validated, one chunk and one per_chip record a chunk,
+   metrics.jsonl at 50/100/150, the profile line; the f32 chunk counters
+   against the same sim on the plain step (max |E|/|H| 2e-6, energy
+   1e-5 relative, div·E absolute at 1e-5 e_scale / dx), bf16 against f32
+   within ``BF16_TRACK``; one device-to-host copy in a 50-step chunk
+   with a sink (torch.profiler's Memcpy DtoH events); (b) CUDA-event ms
+   and device kernels (from a trace) of one health pass at 256^3 beside
+   a tb step, and the 150-step main path's run with the finite check,
+   with it and ``--telemetry``, and with neither, three sims in turns,
+   min of 5, the overhead gated at ``TELEMETRY_OVERHEAD``; the
+   ``--metrics-every`` pass on the Mie example at 256^3 (its ms, the
+   bytes it keeps and adds); (c) vacuum3D_tfsf at
+   1024^3 f32, 20 steps, without a health pass and with ``--telemetry``:
+   the added peak gated at ``HEALTH_PEAK_BYTES``; (d) the 64^3 dipole
+   under ``--supervise`` with a NaN and ``--telemetry``: one
+   run_start/run_end, the rollback and degrade records (packed_tb_cuda
+   -> packed_cuda), the first_unhealthy_t bound; (e) 3 Mie lanes at
+   128^3 through ``--batch --telemetry --per-chip-telemetry`` with a NaN
+   written into one lane: the batch_lane rows, only that lane
+   non-finite, each lane's counters against its solo run; (f) ``--trace
+   DIR`` on a 64^3 run: the trace holds the chunk, readback and health
+   spans and device kernels.
+
+``--only 27,28,29`` runs these phases alone after the build and prints
+their JSON (no kernels or ok line).
 
 The packed and two-pass kernels' bound counts each coefficient grid
 inside the box outside which it holds its background value
@@ -296,7 +327,7 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
 ``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25, and
-each CLI run of 26-28 in this process) resets the counts just before
+each CLI run of 26-29 in this process) resets the counts just before
 it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1041,8 +1072,8 @@ def profile_window(sim, steps):
 def device_launches(fn):
     """``fn()`` under torch.profiler: (wall us, device us, device
     launches, device us by kernel name), the device time summed over
-    kernels (the profiler's own ``cuda*`` and ``aten::`` rows left
-    out)."""
+    kernels (the profiler's own ``cuda*`` and ``aten::`` rows and the
+    port's ``fdtd3d/`` spans left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1058,7 +1089,9 @@ def device_launches(fn):
         if us is None:                      # older torch
             us = ev.self_cuda_time_total
         us = float(us)
-        if us <= 0 or ev.key.startswith(("aten::", "cuda")):
+        # the port's own spans (fdtd3d/...) hold the kernels launched
+        # inside them: counting them too would count those twice
+        if us <= 0 or ev.key.startswith(("aten::", "cuda", "fdtd3d/")):
             continue
         device_us += us
         launches += ev.count
@@ -3694,12 +3727,595 @@ def mie_far_field(dev):
     return rec
 
 
+# --------------------------------------------------------------------------
+# health counters, the telemetry sink and profiling (phase 29)
+# --------------------------------------------------------------------------
+
+OBS_DIR = os.path.join(OUT_DIR, "observability")
+# phase 29 (a): the chunk counters of a kernel run against the same sim
+# stepped by the plain step: max |E|, max |H| relative, the energy
+# relative, div·E absolute against this x e_scale / dx (at normal
+# incidence div·E is roundoff, so its relative error means nothing)
+HEALTH_MAX_REL = 2e-6
+HEALTH_ENERGY_REL = 1e-5
+HEALTH_DIV_ABS = 1e-5
+# (b) the --telemetry overhead on the 150-step 256^3 run's stepping wall
+TELEMETRY_OVERHEAD = 0.02
+# (c) the health pass's added peak device memory at 1024^3: a quarter of
+# one f32 field volume
+HEALTH_PEAK_BYTES = 1.1e9
+# (f) the spans a trace of a telemetry run must hold
+TRACE_SPANS = ("fdtd3d/chunk", "fdtd3d/telemetry-readback", "fdtd3d/health")
+
+
+def read_records(path, label):
+    """A telemetry JSONL read back through the port's validator."""
+    from fdtd3d_torch import telemetry
+    try:
+        return telemetry.read_jsonl(path)
+    except (OSError, ValueError) as exc:
+        fail(f"{label}: telemetry file {path}: {exc}")
+
+
+def chunks_of(recs):
+    return [r for r in recs if r["type"] == "chunk"]
+
+
+def counters_close(got, want, rel_max, rel_energy, div_abs, label):
+    """The worst errors of one chunk record against another (max_e/max_h
+    and energy relative, div·E absolute over ``div_abs`` x e_scale / dx,
+    returned as a multiple of the gate); fails past a gate."""
+    errs = {}
+    for k, gate in (("max_e", rel_max), ("max_h", rel_max),
+                    ("energy", rel_energy)):
+        errs[k] = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+        if not errs[k] <= gate:
+            fail(f"{label}: {k} {got[k]!r} vs {want[k]!r} (rel "
+                 f"{errs[k]:.3e} > {gate})")
+    for k in ("div_l2", "div_linf"):
+        errs[k] = abs(got[k] - want[k]) / max(div_abs, 1e-30)
+        if not errs[k] <= 1.0:
+            fail(f"{label}: {k} {got[k]!r} vs {want[k]!r} (over "
+                 f"{div_abs:.3e} by {errs[k]:.3f}x)")
+    return errs
+
+
+def count_dtoh(fn):
+    """``fn()`` under torch.profiler: the device-to-host copies it made
+    (``Memcpy DtoH`` events) and the host extractions of tensors
+    (``tolist``/``item``/``numpy``/``__float__``/``__bool__``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    calls = {}
+    saved = {}
+
+    def counting(name, orig):
+        def wrapped(self, *a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return orig(self, *a, **k)
+        return wrapped
+
+    for name in ("tolist", "item", "numpy", "__float__", "__bool__"):
+        saved[name] = getattr(torch.Tensor, name)
+        setattr(torch.Tensor, name, counting(name, saved[name]))
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for name, orig in saved.items():
+            setattr(torch.Tensor, name, orig)
+    dtoh = sum(ev.count for ev in prof.key_averages()
+               if "DtoH" in ev.key or "Device -> Pageable" in ev.key)
+    return dtoh, calls
+
+
+def telemetry_main_path(dtype, steps, label):
+    """Phase 29 (a): the CLI main path (vacuum3D_tfsf at 256^3) with
+    ``--telemetry --per-chip-telemetry --metrics-every 50 --profile``:
+    the launches (75 tb passes, one packed launch a family at 151),
+    every record validated, one chunk record (and one per_chip) a chunk
+    of 50 steps (the cadence: 25 passes each; 151 ends with a 1-step
+    chunk), metrics.jsonl at 50/100/150, the profile line."""
+    out_dir = os.path.join(OBS_DIR, f"main_{dtype}_{steps}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = os.path.join(out_dir, "telemetry.jsonl")
+    argv = ["--cmd-from-file", EXAMPLE, "--same-size", "256",
+            "--time-steps", str(steps), "--check-finite", "--save-dir",
+            out_dir, "--dtype", dtype, "--telemetry", path,
+            "--per-chip-telemetry", "--metrics-every", "50", "--profile"]
+    out, _err, launches, wall, peak = cli_logged(argv, label)
+    passes, tails = tb_launches(steps, 50)
+    got = {k: launches[k] for k in ("tb_pass", "e_update", "h_update")}
+    if got != {"tb_pass": passes, "e_update": tails, "h_update": tails}:
+        fail(f"{label}: launches {got}, want {passes} passes and {tails} "
+             f"tails")
+    recs = read_records(path, label)
+    types = [r["type"] for r in recs]
+    n_chunks = -(-steps // 50)
+    if types != ["run_start"] + ["chunk", "per_chip"] * n_chunks \
+            + ["run_end"]:
+        fail(f"{label}: record types {types}")
+    if recs[0]["step_kind"] != "packed_tb_cuda" \
+            or recs[0]["platform"] != "gpu":
+        fail(f"{label}: run_start {recs[0]}")
+    chunks = chunks_of(recs)
+    if [c["t"] for c in chunks] != [min(50 * (i + 1), steps)
+                                    for i in range(n_chunks)] \
+            or not all(c["finite"] for c in chunks):
+        fail(f"{label}: chunk records {chunks}")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        metrics = [json.loads(ln) for ln in f]
+    if [m["t"] for m in metrics] != [50.0, 100.0, 150.0] or not all(
+            m["energy"] > 0 and m["e_scale"] > 0 for m in metrics):
+        fail(f"{label}: metrics.jsonl {metrics}")
+    if "profile: " not in out or f"telemetry: {len(recs)} records" \
+            not in out:
+        fail(f"{label}: no profile or telemetry line")
+    rec = {"dtype": dtype, "steps": steps, "launches": got,
+           "cli_wall_s": wall, "stepping_s": done_seconds(out),
+           "peak_mem_bytes": peak, "records": len(recs),
+           "chunks": [{k: c[k] for k in ("t", "steps", "wall_s", "energy",
+                                         "div_l2", "div_linf", "max_e",
+                                         "max_h", "finite")}
+                      for c in chunks],
+           "metrics": metrics, "run_end": recs[-1]}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
+def done_seconds(log):
+    """The stepping wall of a CLI run's closing ``done:`` line."""
+    import re
+    m = re.search(r"done: \d+ steps in ([0-9.]+)s", log)
+    if m is None:
+        fail("no closing done: line")
+    return float(m.group(1))
+
+
+def plain_chunks(dtype, chunks, dev):
+    """The main path's configuration on the plain step (no kernel), its
+    health pass read after each of ``chunks`` (step counts): the chunk
+    records of the same sim stepped by the plain step."""
+    import torch
+    from fdtd3d_torch import telemetry
+    from fdtd3d_torch.sim import Simulation
+    cfg = config(EXAMPLE, ["--same-size", "256", "--dtype", dtype,
+                           "--use-pallas", "off"])
+    sim = Simulation(cfg, device=dev)
+    hfn = telemetry.make_health_fn(sim.static)
+    out = []
+    for n in chunks:
+        sim.advance(n)
+        out.append(dict(telemetry.readback(hfn(sim._dict_view())),
+                        t=sim.t))
+    dx = cfg.dx
+    del sim
+    torch.cuda.empty_cache()
+    return out, dx
+
+
+def health_counters_main_path(dev):
+    """Phase 29 (a): f32 and bf16 at 150 and 151 steps through the CLI
+    with the telemetry flags; the f32 chunk counters against the same sim
+    on the plain step (2e-6 / 1e-5 / div absolute), bf16 against f32
+    within ``BF16_TRACK`` of the f32 family max (div absolute at the same
+    share of e_scale / dx); one device-to-host copy a chunk."""
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for steps in (150, 151):
+            runs[f"{dtype}_{steps}"] = telemetry_main_path(
+                dtype, steps, f"telemetry {dtype} {steps}")
+    plain, dx = plain_chunks("float32", (50, 50, 50, 1), dev)
+    errs = {}
+    for key in ("float32_150", "float32_151"):
+        for c, p in zip(runs[key]["chunks"], plain):
+            if c["t"] != p["t"]:
+                fail(f"{key}: chunk t {c['t']} vs plain {p['t']}")
+            e = counters_close(c, p, HEALTH_MAX_REL, HEALTH_ENERGY_REL,
+                               HEALTH_DIV_ABS * p["max_e"] / dx,
+                               f"{key} t={c['t']} vs plain")
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+    bf_errs = {}
+    for steps in (150, 151):
+        for c, f in zip(runs[f"bfloat16_{steps}"]["chunks"],
+                        runs[f"float32_{steps}"]["chunks"]):
+            e = counters_close(c, f, BF16_TRACK, BF16_TRACK,
+                               BF16_TRACK * f["max_e"] / dx,
+                               f"bf16 {steps} t={c['t']} vs f32")
+            for k, v in e.items():
+                bf_errs[k] = max(bf_errs.get(k, 0.0), v)
+    # one device-to-host copy a chunk, on the card: a 50-step chunk of
+    # the main path's sim with a sink, after a warm-up chunk
+    from fdtd3d_torch.sim import Simulation
+    path = os.path.join(OBS_DIR, "dtoh.jsonl")
+    cfg = config(EXAMPLE, ["--same-size", "256", "--telemetry", path])
+    sim = Simulation(cfg, device=dev)
+    sim.advance(50)
+    dtoh, calls = count_dtoh(lambda: sim.advance(50))
+    sim.close()
+    del sim
+    say(f"one chunk with a sink: {dtoh} device-to-host copies, host "
+        f"extractions {calls}")
+    if dtoh != 1 or calls != {"tolist": 1}:
+        fail(f"a chunk with health on made {dtoh} device-to-host copies "
+             f"({calls}), not one")
+    rec = {"runs": runs, "vs_plain_rel_or_gate_share": errs,
+           "bf16_vs_f32_gate_share": bf_errs, "dtoh_per_chunk": dtoh,
+           "host_extractions_per_chunk": calls}
+    say(f"health counters: vs plain {errs}, bf16 vs f32 {bf_errs}")
+    return rec
+
+
+def trace_kernels(fn):
+    """``fn()`` under torch.profiler, its Chrome trace read back: (device
+    kernels, their summed device ms, the device ms of the port's spans
+    on the GPU timeline). The span is the cross-check: in a long process
+    the profiler has dropped kernel events (phase 29's whole-script runs
+    read 0 kernels for a pass that reads 43 alone)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(OBS_DIR, exist_ok=True)
+    path = os.path.join(OBS_DIR, "kernels.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    spans = [ev for ev in events if ev.get("cat") == "gpu_user_annotation"
+             and ev.get("name", "").startswith("fdtd3d/")]
+    return (len(kernels), sum(ev.get("dur", 0.0) for ev in kernels) / 1e3,
+            sum(ev.get("dur", 0.0) for ev in spans) / 1e3)
+
+
+def health_pass_cost(dev, reps=20, rounds=5):
+    """Phase 29 (b): CUDA-event ms of one health pass on the main path's
+    256^3 carry (tb pass, 150 steps in), its device kernels and their
+    device ms from a trace, beside one tb step in the same call; then
+    the main path's 150-step run (``Simulation.run`` of the CLI's
+    configuration, one chunk, synchronised) with the finite check, with
+    it and ``--telemetry``, and with neither (no health pass), three
+    sims in turns (the order reversed every round) after a warm-up run
+    each, min of ``rounds``."""
+    import torch
+    from fdtd3d_torch import telemetry
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(config(EXAMPLE, ["--same-size", "256"]), device=dev)
+    sim.advance(150)
+    hfn = telemetry.make_health_fn(sim.static)
+    health_ms = timed(lambda: hfn(sim._dict_view()), reps)
+    step_ms = timed(lambda: sim.advance(2), reps) / 2
+    n_kernels, kernel_ms, span_ms = trace_kernels(
+        lambda: hfn(sim._dict_view()))
+    readback_ms = timed(lambda: telemetry.readback(hfn(sim._dict_view())),
+                        reps)
+    del sim, hfn
+    torch.cuda.empty_cache()
+    extra = {"finite": ["--check-finite"],
+             "telemetry": ["--check-finite", "--telemetry",
+                           os.path.join(OBS_DIR, "ab.jsonl")],
+             "no_health": []}
+    sims = {k: Simulation(config(EXAMPLE, ["--same-size", "256"] + v),
+                          device=dev) for k, v in extra.items()}
+    walls = {k: [] for k in sims}
+    for key, s in sims.items():
+        s.run(150)
+    for r in range(rounds):
+        for key in (list(sims) if r % 2 == 0 else list(sims)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sims[key].run(150)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+    for s in sims.values():
+        s.close()
+    del sims, s
+    torch.cuda.empty_cache()
+    best = {k: min(v) for k, v in walls.items()}
+    overhead = (best["telemetry"] - best["finite"]) / best["finite"]
+    rec = {"health_ms": health_ms, "health_kernels": n_kernels,
+           "health_kernel_ms": kernel_ms, "health_span_device_ms": span_ms,
+           "health_and_readback_ms": readback_ms, "tb_step_ms": step_ms,
+           "health_in_tb_steps": health_ms / step_ms,
+           "run_150_walls_s": walls, "best_s": best,
+           "telemetry_overhead": overhead,
+           "health_pass_share": (best["finite"] - best["no_health"])
+           / best["no_health"]}
+    say(f"health pass cost: {json.dumps(rec)}")
+    if not overhead <= TELEMETRY_OVERHEAD:
+        fail(f"--telemetry costs {overhead:.2%} of the 150-step wall "
+             f"(> {TELEMETRY_OVERHEAD:.0%})")
+    return rec
+
+
+def metrics_pass_cost(dev, size=256, reps=10):
+    """Phase 29 (b): ``diag.metrics`` (the ``--metrics-every`` record) on
+    the Mie example scaled to ``size``^3 (its eps sphere: the energy
+    weights' box) after 20 steps: the device bytes it keeps (the box
+    weights) and adds at its peak, and its CUDA-event ms."""
+    import torch
+    from fdtd3d_torch import diag
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(config(MIE, mie_args(size, 4)), device=dev)
+    sim.advance(20)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = diag.metrics(sim)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    added_peak = torch.cuda.max_memory_allocated() - before
+
+    def fresh():
+        sim._metrics_cache = None
+        diag.metrics(sim)
+    ms = timed(fresh, reps)
+    out = {"size": size, "kept_bytes": kept, "added_peak_bytes": added_peak,
+           "ms": ms, "energy": rec["energy"], "e_scale": rec["e_scale"]}
+    del sim
+    torch.cuda.empty_cache()
+    say(f"metrics pass: {json.dumps(out)}")
+    if not (rec["energy"] > 0 and added_peak <= HEALTH_PEAK_BYTES):
+        fail(f"metrics pass: {out}")
+    return out
+
+
+def health_peak_1024(dev, steps=20):
+    """Phase 29 (c): vacuum3D_tfsf at 1024^3 in f32 through
+    ``Simulation`` for ``steps`` steps without the health pass (no sink,
+    no finite check) and with ``--telemetry``: the peak device memory of
+    each, the difference gated at ``HEALTH_PEAK_BYTES``."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    rec = {}
+    for key, extra in (("without", []), ("with_telemetry", [
+            "--telemetry", os.path.join(OBS_DIR, "t1024.jsonl")])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sim = Simulation(config(EXAMPLE, ["--same-size", "1024"] + extra),
+                         device=dev)
+        t0 = time.time()
+        sim.advance(steps)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        rec[key] = {"peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "wall_s": wall, "step_kind": sim.step_kind}
+        if key == "with_telemetry":
+            # the pass's own transient above the carry it reads
+            from fdtd3d_torch import telemetry
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            telemetry.readback(telemetry.make_health_fn(sim.static)(
+                sim._dict_view()))
+            rec["health_transient_bytes"] = \
+                torch.cuda.max_memory_allocated() - base
+        sim.close()
+        del sim
+    torch.cuda.empty_cache()
+    recs = read_records(os.path.join(OBS_DIR, "t1024.jsonl"), "1024^3")
+    rec["chunk"] = chunks_of(recs)[0]
+    rec["added_peak_bytes"] = rec["with_telemetry"]["peak_mem_bytes"] \
+        - rec["without"]["peak_mem_bytes"]
+    say(f"health at 1024^3: {json.dumps(rec)}")
+    if not rec["added_peak_bytes"] <= HEALTH_PEAK_BYTES \
+            or not rec["chunk"]["finite"]:
+        fail(f"1024^3: the health pass added "
+             f"{rec['added_peak_bytes']} B of peak (> {HEALTH_PEAK_BYTES})")
+    return rec
+
+
+def supervised_telemetry(n=64, steps=240):
+    """Phase 29 (d): the 64^3 dipole under ``--supervise
+    --checkpoint-every 24`` with a NaN at t=168 and ``--telemetry``: one
+    run_start/run_end pair, a rollback and a degrade record naming
+    packed_tb_cuda -> packed_cuda, chip/host null, and the run_end's
+    first_unhealthy_t bound (the first non-finite chunk)."""
+    from fdtd3d_torch import faults
+    out_dir = os.path.join(OBS_DIR, "supervised")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = os.path.join(out_dir, "t.jsonl")
+    argv = ["--3d", "--same-size", str(n), "--time-steps", str(steps),
+            "--courant-factor", "0.5", "--wavelength", "12e-3",
+            "--use-pml", "--pml-size", "8", "--point-source", "Ez",
+            "--checkpoint-every", "24", "--supervise", "--save-dir",
+            out_dir, "--telemetry", path]
+    faults.clear()
+    os.environ["FDTD3D_FAULT_PLAN"] = "nan@t=168"
+    try:
+        _out, _err, launches, wall, _peak = cli_logged(
+            argv, "supervised dipole with telemetry")
+    finally:
+        os.environ.pop("FDTD3D_FAULT_PLAN")
+        faults.clear()
+    recs = read_records(path, "supervised dipole")
+    types = [r["type"] for r in recs]
+    deg = [(r["old_kind"], r["new_kind"]) for r in recs
+           if r["type"] == "degrade"]
+    rb = [(r["t_failed"], r["t_restored"]) for r in recs
+          if r["type"] == "rollback"]
+    bad = [r["t"] for r in chunks_of(recs) if not r["finite"]]
+    rec = {"wall_s": wall, "records": len(recs), "degrades": deg,
+           "rollbacks": rb, "nonfinite_chunks": bad,
+           "first_unhealthy_t": recs[-1].get("first_unhealthy_t"),
+           "launches": {k: launches[k] for k in ("tb_pass", "e_update",
+                                                 "h_update")}}
+    say(f"supervised dipole telemetry: {json.dumps(rec)}")
+    if types.count("run_start") != 1 or types.count("run_end") != 1 \
+            or types[-1] != "run_end" \
+            or deg != [("packed_tb_cuda", "packed_cuda")] \
+            or rb != [(192, 168)] or bad != [192] \
+            or rec["first_unhealthy_t"] != 192 or not all(
+                r["chip"] is None and r["host"] is None for r in recs
+                if r["type"] in ("rollback", "degrade")):
+        fail(f"supervised dipole telemetry: {rec}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
+def batch_telemetry(dev, size=128, steps=41, chunk=10, bad_lane=1):
+    """Phase 29 (e): 3 Mie lanes at ``size``^3 (eps-sphere 2, 4, 6)
+    through the CLI's ``--batch --telemetry --per-chip-telemetry`` in
+    chunks of ``chunk`` (the last one step: the lane-capable packed
+    tail), a NaN written into lane ``bad_lane`` after the first chunk:
+    the lane-capable tb and packed kernels, one batch_lane and one
+    per_chip row a lane a chunk, only that lane non-finite (from the
+    second chunk on), and each lane's counters against the same lane run
+    solo (``Simulation``, same chunks; the bad lane up to its NaN)."""
+    from fdtd3d_torch import batch as batch_mod
+    from fdtd3d_torch import telemetry
+    from fdtd3d_torch.sim import Simulation
+    out_dir = os.path.join(OBS_DIR, "batch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, "t.jsonl")
+    lane_flags = [mie_args(size, eps, ["--time-steps", str(steps)])
+                  for eps in (2, 4, 6)]
+    files = []
+    for i, flags in enumerate(lane_flags):
+        p = os.path.join(out_dir, f"lane{i}.txt")
+        with open(MIE) as f:
+            body = f.read()
+        with open(p, "w") as f:
+            f.write(f"{body}\n{' '.join(flags)}\n")
+        files.append(p)
+    real = batch_mod.BatchSimulation.advance
+
+    def advance(bsim, n):
+        real(bsim, n)
+        if bsim.t == chunk:
+            bsim._dict_view()["E"]["Ez"][bad_lane, size // 2, size // 2,
+                                         size // 2] = float("nan")
+        return bsim
+
+    batch_mod.BatchSimulation.advance = advance
+    try:
+        out, _err, launches, wall, peak = cli_logged(
+            ["--batch", *files, "--batch-chunk", str(chunk),
+             "--telemetry", path, "--per-chip-telemetry"],
+            "batch with telemetry")
+    finally:
+        batch_mod.BatchSimulation.advance = real
+    passes, tails = tb_launches(steps, chunk)
+    if "step_kind=packed_tb_cuda" not in out or (
+            launches["tb_pass"], launches["e_update"],
+            launches["h_update"]) != (passes, tails, tails):
+        fail(f"batch telemetry: not the lane-capable tb pass and its "
+             f"packed tail ({launches})")
+    recs = read_records(path, "batch")
+    if recs[0].get("batch") != 3 or "batch_fallback" in recs[0]:
+        fail(f"batch telemetry: run_start {recs[0]}")
+    rows = [r for r in recs if r["type"] == "batch_lane"]
+    per = [r for r in recs if r["type"] == "per_chip"]
+    ts = list(range(chunk, steps + 1, chunk)) \
+        + ([steps] if steps % chunk else [])
+    if [(r["t"], r["lane"]) for r in rows] != [(t, ln) for t in ts
+                                               for ln in range(3)] \
+            or [(r["t"], r["lane"]) for r in per] != \
+            [(r["t"], r["lane"]) for r in rows]:
+        fail(f"batch telemetry: rows {[(r['t'], r['lane']) for r in rows]}")
+    for r in rows:
+        want = r["lane"] != bad_lane or r["t"] == chunk
+        if r["finite"] != want:
+            fail(f"batch telemetry: lane {r['lane']} at t={r['t']} "
+                 f"finite={r['finite']}")
+    errs = {}
+    dx = config(MIE, lane_flags[0]).dx
+    for lane, flags in enumerate(lane_flags):
+        solo = Simulation(config(MIE, flags), device=dev)
+        hfn = telemetry.make_health_fn(solo.static)
+        for t in ts:
+            solo.advance(t - solo.t)
+            row = next(r for r in rows if r["t"] == t and r["lane"] == lane)
+            if not row["finite"]:
+                continue
+            want = telemetry.readback(hfn(solo._dict_view()))
+            e = counters_close(row, want, HEALTH_MAX_REL,
+                               HEALTH_ENERGY_REL,
+                               HEALTH_DIV_ABS * want["max_e"] / dx,
+                               f"batch lane {lane} t={t} vs solo")
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        del solo, hfn
+    rec = {"lanes": 3, "size": size, "steps": steps, "chunk": chunk,
+           "bad_lane": bad_lane, "wall_s": wall, "peak_mem_bytes": peak,
+           "launches": {k: launches[k] for k in ("tb_pass", "e_update",
+                                                 "h_update")},
+           "rows": len(rows),
+           "vs_solo_rel_or_gate_share": errs,
+           "lane_lines": [ln for ln in out.splitlines()
+                          if ln.startswith("batch lane ")]}
+    say(f"batch telemetry: {json.dumps(rec)}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
+def trace_run(n=64, steps=20):
+    """Phase 29 (f): ``--trace DIR --telemetry`` on a 64^3 dipole on the
+    tb pass: DIR/trace.json holds the chunk, readback and health spans
+    and device kernels."""
+    from fdtd3d_torch import profiling
+    out_dir = os.path.join(OBS_DIR, "trace")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--3d", "--same-size", str(n), "--time-steps", str(steps),
+            "--courant-factor", "0.5", "--wavelength", "12e-3",
+            "--use-pml", "--pml-size", "8", "--point-source", "Ez",
+            "--norms-every", "10", "--save-dir", out_dir, "--telemetry",
+            os.path.join(out_dir, "t.jsonl"), "--trace",
+            os.path.join(out_dir, "trace")]
+    _out, _err, launches, wall, _peak = cli_logged(argv, "trace")
+    tpath = os.path.join(out_dir, "trace", profiling.TRACE_FILE)
+    if not os.path.exists(tpath):
+        fail(f"trace: no {tpath}")
+    with open(tpath) as f:
+        events = json.load(f)["traceEvents"]
+    names = {}
+    kernels = 0
+    for ev in events:
+        nm = ev.get("name", "")
+        if nm.startswith("fdtd3d/"):
+            names[nm] = names.get(nm, 0) + 1
+        if ev.get("cat") == "kernel":
+            kernels += 1
+    rec = {"n": n, "steps": steps, "wall_s": wall,
+           "bytes": os.path.getsize(tpath), "spans": names,
+           "device_kernels": kernels, "tb_pass": launches["tb_pass"]}
+    say(f"trace: {json.dumps(rec)}")
+    if not all(s in names for s in TRACE_SPANS) or kernels == 0 \
+            or launches["tb_pass"] != steps // 2:
+        fail(f"trace: spans or kernels missing: {rec}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return rec
+
+
+def observability(dev):
+    """Phase 29: the health counters, the telemetry sink and profiling on
+    the main path, the supervisor and the batch."""
+    shutil.rmtree(OBS_DIR, ignore_errors=True)   # sinks append
+    rec = {"main_path": health_counters_main_path(dev),
+           "cost": health_pass_cost(dev),
+           "metrics_pass": metrics_pass_cost(dev),
+           "peak_1024": health_peak_1024(dev),
+           "supervised": supervised_telemetry(),
+           "batch": batch_telemetry(dev),
+           "trace": trace_run()}
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
-    ap.add_argument("--only", default=None, metavar="27,28",
-                    help="run only these of phases 27 and 28 (after the "
+    ap.add_argument("--only", default=None, metavar="27,28,29",
+                    help="run only these of phases 27, 28 and 29 (after the "
                          "build) and print their JSON, without the kernels "
                          "line and the closing ok line")
     args = ap.parse_args()
@@ -3744,11 +4360,13 @@ def main() -> int:
                 say(f"ptxas {lib}: {line.strip()}")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {27, 28}:
-            fail(f"--only takes phases 27 and 28, not {sorted(only)}")
+        if not only <= {27, 28, 29}:
+            fail(f"--only takes phases 27, 28 and 29, not {sorted(only)}")
         for phase, key, fn in ((27, "modes", modes_and_outputs),
                                (28, "far_field",
-                                lambda: mie_far_field(dev))):
+                                lambda: mie_far_field(dev)),
+                               (29, "observability",
+                                lambda: observability(dev))):
             if phase in only:
                 t1 = time.time()
                 result[key] = fn()
@@ -4313,6 +4931,9 @@ def main() -> int:
     # ---- phase 28: the Mie far field (--ntff) on the tb and packed twins
     result["far_field"] = mie_far_field(dev)
     mark("phase 28")
+    # ---- phase 29: health counters, the telemetry sink, profiling -------
+    result["observability"] = observability(dev)
+    mark("phase 29")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},

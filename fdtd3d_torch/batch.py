@@ -5,9 +5,14 @@ Many tenants' same-shape jobs share the card by stacking their states
 and coefficients under a leading lane axis: the lane-capable kernels
 (``csrc/packed_tb.cu``, ``csrc/packed_eh.cu``) advance every lane in one
 launch, so a pass costs B lanes' bytes and the host's ops of one. Health
-is per lane (``telemetry.make_lane_health_fn``: one (B,) reduction and
-one readback per chunk), so one tenant's NaN flips only its own lane's
-flag and never raises.
+is per lane (``telemetry.make_lane_health_fn``: one pass over the
+lane-stacked state and one readback per chunk), so one tenant's NaN
+flips only its own lane's flag and never raises. With a telemetry sink
+(lane 0's ``OutputConfig.telemetry_path``) each chunk writes one
+``batch_lane`` record per lane (that lane's energy, div·E, max |E|/|H|
+and finite flag), with ``per_chip_telemetry`` a ``per_chip`` record per
+lane, and one aggregate ``chunk`` record; ``run_start`` carries
+``batch`` and ``batch_fallback``.
 
 Eligibility, as in the reference: every lane shares the step-shaping
 config (``ScenarioSpec.batch_fingerprint``: grid, scheme, dtype, steps,
@@ -23,8 +28,8 @@ coefficient into a grid in one lane only, a Drude flag adding J) is
 caught leaf by leaf with the offending key named. ``FDTD3D_BATCH_MAX``
 bounds the lane count.
 
-Not here yet (ROADMAP.md): the telemetry sink, heartbeats, the run
-registry and metrics (A5/A15, their flags raise), the executable cache
+Not here yet (ROADMAP.md): heartbeats, the run registry and metrics
+(A15; ``metrics_path`` raises), the executable cache
 (A13), checkpoint/restore of a batch and fault plans on a batch
 (A13(b): a batch under ``FDTD3D_FAULT_PLAN`` raises, and so do the CLI's
 ``--batch`` with the checkpoint and resume flags) and meshes (A11).
@@ -35,7 +40,9 @@ memory does not depend on the lane count.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -181,13 +188,15 @@ def _copy_into(dst: Any, src: Any) -> None:
             v.copy_(src[k])
 
 
-def make_plain_lane_runner(static, device, health: bool = False):
+def make_plain_lane_runner(static, device, health: bool = False,
+                           per_chip: bool = False):
     """The token path: run_chunk(state, lane_coeffs, n) runs the plain
     step (the port's oracle) over each lane of a lane-stacked dict-form
     state in turn, with each lane's own coefficients; health as the
     lane-capable runner's."""
     solo = make_chunk_runner(static, device)
-    health_fn = telemetry.make_lane_health_fn() if health else None
+    health_fn = telemetry.make_lane_health_fn(static, per_chip=per_chip) \
+        if health else None
 
     def run_chunk(state, lane_coeffs, n: int):
         for lane, coeffs in enumerate(lane_coeffs):
@@ -256,16 +265,17 @@ class BatchSimulation:
                 "complex path (its complex<->paired conversion routes "
                 "through host numpy); run complex scenarios solo")
         out0 = cfg0.output
-        for flag, item in ((out0.telemetry_path, "A5"),
-                           (out0.metrics_path, "A15"),
-                           (out0.per_chip_telemetry, "A5")):
-            if flag:
-                raise NotImplementedError(
-                    f"telemetry and metrics of a batch are not ported to "
-                    f"fdtd3d_torch yet (ROADMAP.md queue {item})")
+        if out0.metrics_path:
+            raise NotImplementedError(
+                "the metrics exposition of a batch is not ported to "
+                "fdtd3d_torch yet (ROADMAP.md queue A15)")
         self.device = resolve_device(device)
         self.static = specs[0].static
+        self.topology = tuple(self.static.topology)
         self._check_finite = out0.check_finite
+        health = bool(out0.telemetry_path) or out0.check_finite
+        per_chip = health and bool(out0.per_chip_telemetry) \
+            and bool(out0.telemetry_path)
 
         # every lane's coefficients from ITS config (material values and
         # ps_amp differ); the dispatch authority's scalar sweep reads them
@@ -276,14 +286,14 @@ class BatchSimulation:
             None if token is None else f"batch_unsupported:{token}"
         if token is None:
             self._runner = make_chunk_runner(
-                self.static, self.device, health=self._check_finite,
-                batch=B)
+                self.static, self.device, health=health, batch=B,
+                per_chip=per_chip)
             self._coeffs: Any = stack_lane_coeffs(lane_coeffs, self.device)
         else:
             self.static = build_static(
                 dataclasses.replace(cfg0, use_pallas=False))
             self._runner = make_plain_lane_runner(
-                self.static, self.device, health=self._check_finite)
+                self.static, self.device, health=health, per_chip=per_chip)
             _stack_trees(lane_coeffs, "coeffs", lambda path, vals: None)
             self._coeffs = [coeffs_to_device(lc, self.device)
                             for lc in lane_coeffs]
@@ -304,6 +314,14 @@ class BatchSimulation:
         # chunk's finite flag; the first unhealthy t bound per lane
         self.lane_finite: List[Optional[bool]] = [None] * B
         self.lane_first_unhealthy_t: List[Optional[int]] = [None] * B
+        self._cells = float(np.prod([self.static.grid_shape[a] for a in
+                                     self.static.mode.active_axes]))
+        self._chunk_idx = 0
+        self._closed = False
+        self.telemetry: Optional[telemetry.TelemetrySink] = None
+        if out0.telemetry_path:
+            self.telemetry = telemetry.TelemetrySink(
+                out0.telemetry_path, run_meta=telemetry.provenance(self))
 
     # -- stepping ----------------------------------------------------------
 
@@ -314,29 +332,92 @@ class BatchSimulation:
         if n_steps <= 0:
             return self
         t_prev = self.t
-        out = self._runner(self._carry, self._coeffs, n_steps)
+        timed = self.telemetry is not None
+        if timed:
+            self.block_until_ready()
+            t0 = time.perf_counter()
+        with telemetry.span("chunk"):
+            out = self._runner(self._carry, self._coeffs, n_steps)
         health = None
         if self._runner.health:
             out, health = out
         self._carry = out
+        wall = 0.0
+        if timed:
+            self.block_until_ready()
+            wall = time.perf_counter() - t0
+        self._chunk_idx += 1
         if health is not None:
-            self._readback(health, t_prev)
+            self._readback(health, t_prev, n_steps, wall)
         return self
 
-    def _readback(self, health: torch.Tensor, t_prev: int) -> None:
-        """ONE device->host transfer of the per-lane health vector."""
+    def _readback(self, health, t_prev: int, n_steps: int,
+                  wall: float) -> None:
+        """ONE device->host transfer of the per-lane health counters:
+        the lanes' verdicts, and with a sink their batch_lane rows (and
+        per-chip rows) and the aggregate chunk record."""
+        hv = telemetry.readback(health)
         tripped = []
-        for lane, finite in enumerate(telemetry.lanes_finite(health)):
+        for lane, finite in enumerate(hv["finite"]):
             self.lane_finite[lane] = finite
             if not finite and self.lane_first_unhealthy_t[lane] is None:
                 self.lane_first_unhealthy_t[lane] = self.t
                 tripped.append(lane)
+        if self.telemetry is not None:
+            self._emit_lanes(hv, n_steps, wall)
         if tripped and self._check_finite:
             _log.warn(
                 f"batch: non-finite fields in lane(s) {tripped} (first "
                 f"bad step in ({t_prev}, {self.t}]); the other "
                 f"{self.batch_size - len(tripped)} lane(s) continue — "
                 f"per-lane verdicts in lane_finite")
+
+    def _emit_lanes(self, hv: Dict[str, Any], n_steps: int,
+                    wall: float) -> None:
+        sink, idx, t = self.telemetry, self._chunk_idx, self.t
+        per = hv.get("per_chip")
+        for lane in range(self.batch_size):
+            sink.emit("batch_lane", chunk=idx, t=t, lane=lane,
+                      **{k: hv[k][lane] for k in
+                         ("energy", "div_l2", "div_linf", "max_e",
+                          "max_h")},
+                      finite=bool(hv["finite"][lane]))
+            if per is not None:
+                chips = {k: per[k][lane] for k in per}
+                sink.emit("per_chip", chunk=idx, t=t, lane=lane,
+                          n_chips=len(chips["energy"]), counters=chips)
+                imb = telemetry.imbalance_summary(chips)
+                if imb is not None:
+                    sink.emit("imbalance", chunk=idx, t=t, lane=lane,
+                              **imb)
+        # one aggregate chunk record beside the lane rows, so the
+        # reference's report tools read a batch's throughput unchanged
+        energies = [v for v in hv["energy"] if v is not None]
+        agg = {"energy": math.fsum(energies) if energies else None,
+               "finite": all(hv["finite"])}
+        for k in ("div_l2", "div_linf", "max_e", "max_h"):
+            vals = [v for v in hv[k] if v is not None]
+            agg[k] = max(vals) if vals else None
+        sink.emit_chunk(chunk=idx, t=t, steps=n_steps, wall_s=wall,
+                        cells=self._cells * self.batch_size, health=agg)
+
+    def close_telemetry(self):
+        """Write the sink's run_end (aggregate Mcells/s) and close it;
+        idempotent, a no-op without a sink."""
+        if self.telemetry is None:
+            return self
+        w = self.telemetry.wall_total
+        mcps = self._cells * self.batch_size * self.telemetry.steps_total \
+            / w / 1e6 if w > 0 else 0.0
+        self.telemetry.close(t=self.t, mcells_per_s=mcps)
+        return self
+
+    def close(self):
+        """Close the sink (run_end); idempotent."""
+        if not self._closed:
+            self._closed = True
+            self.close_telemetry()
+        return self
 
     def run(self, time_steps: Optional[int] = None, chunk: int = 0):
         """Advance every lane ``time_steps`` (default: the shared

@@ -20,9 +20,15 @@ arithmetic; the DAT dumps are the fields' 2-byte words, as the
 reference's), ``float32x2`` (the hi words are dumped, in f32, as the
 reference dumps them) and ``float64``; and ``--batch a.txt b.txt ...``
 (``_run_batch_cli``): the command files as the lanes of one batch
-(fdtd3d_torch/batch.py), with the reference's per-lane lines. Flags
-whose features are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+(fdtd3d_torch/batch.py), with the reference's per-lane lines. The
+observability flags: ``--telemetry`` (the schema-v11 JSONL of
+``fdtd3d_torch/telemetry.py``; with ``--per-chip-telemetry`` the
+per-chip rows), ``--metrics-every`` (``save_dir/metrics.jsonl``, in the
+chunk interval's gcd), ``--profile [DIR]`` and ``--trace DIR`` (the
+per-chunk clock's ``profile:`` line; a torch.profiler trace), closed on
+every exit with the run's ``telemetry: N records`` line. Flags whose
+features are not ported yet raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -216,10 +222,10 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="DIR",
                    help="time every compute chunk (StepClock) and print "
                         "a throughput summary at the end; with DIR, also "
-                        "capture a jax.profiler device trace there "
-                        "(crash-safe, finalized on every exit; attribute "
-                        "it with tools/trace_attribution.py; degrades to "
-                        "a clean skip when no profiler is available)")
+                        "capture a torch.profiler trace there "
+                        "(DIR/trace.json, a Chrome trace; finalized on "
+                        "every exit; degrades to a clean skip when no "
+                        "profiler is available)")
     # compat: --profile was a BooleanOptionalAction before round 7, so
     # command files saved by earlier builds may contain --no-profile;
     # replay must keep working (hidden from --help and from
@@ -454,9 +460,7 @@ def args_to_config(args) -> SimConfig:
 _NOT_PORTED = (
     ("coordinator_address", None, "A11"), ("num_processes", None, "A11"),
     ("process_id", None, "A11"), ("dry_run", False, "A11"),
-    ("telemetry", None, "A5"), ("metrics", None, "A15"),
-    ("metrics_every", 0, "A5"), ("per_chip_telemetry", False, "A5"),
-    ("profile", False, "A14"), ("trace", None, "A14"),
+    ("metrics", None, "A15"),
 )
 
 
@@ -621,12 +625,21 @@ def _run_batch_cli(parser, args) -> int:
         check_ported(largs)
         check_batch_ported(largs)
         cfgs.append(args_to_config(largs))
-    if args.check_finite:
-        # top-level --check-finite applies to the batch (lane 0's output
-        # config drives the batch's tripwire, as in the reference)
+    if args.telemetry or args.check_finite or args.per_chip_telemetry:
+        # top-level observability flags apply to the batch (lane 0's
+        # output config drives the shared sink, the tripwire and the
+        # per-chip rows, as in the reference)
+        out0 = cfgs[0].output
         cfgs[0] = _dc.replace(cfgs[0], output=_dc.replace(
-            cfgs[0].output, check_finite=True))
+            out0, telemetry_path=args.telemetry or out0.telemetry_path,
+            check_finite=args.check_finite or out0.check_finite,
+            per_chip_telemetry=args.per_chip_telemetry
+            or out0.per_chip_telemetry))
     set_level(cfgs[0].output.log_level)
+    if args.profile or args.trace:
+        # the reference's batch has no clock and no trace capture
+        log("profile: a batch keeps no per-chunk clock and no trace "
+            "(--profile/--trace apply to solo runs)")
     t0 = time.time()
     try:
         bsim = BatchSimulation(cfgs, device=args.device)
@@ -634,9 +647,12 @@ def _run_batch_cli(parser, args) -> int:
         raise SystemExit(f"--batch: {exc}")
     setup = time.time() - t0
     t0 = time.time()
-    bsim.run(chunk=args.batch_chunk)
-    bsim.verify_final_lanes()
-    bsim.block_until_ready()
+    try:
+        bsim.run(chunk=args.batch_chunk)
+        bsim.verify_final_lanes()
+        bsim.block_until_ready()
+    finally:
+        bsim.close()
     wall = time.time() - t0
     # the batch dispatch verdict, mirroring the solo step-kind line: the
     # engaged kind, and the named batch_unsupported:<token> when the
@@ -666,6 +682,16 @@ def _run_batch_cli(parser, args) -> int:
         f"in {wall:.2f}s ({mcps:.1f} Mcells/s aggregate, one launch per "
         f"kernel for every lane; set-up {setup:.2f}s)")
     return 0
+
+
+def write_metrics(rec, save_dir: str) -> None:
+    """Append one ``diag.metrics`` record to ``save_dir/metrics.jsonl``
+    (the reference's ``--metrics-every`` file)."""
+    import json
+    import os
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "metrics.jsonl"), "a") as f:
+        f.write(json.dumps(rec) + "\n")
 
 
 def _peek_supervisor_state(cfg, resume: str):
@@ -763,6 +789,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from fdtd3d_torch import diag, io
+    from fdtd3d_torch import telemetry as _telemetry
     from fdtd3d_torch.log import log, set_level, warn
     from fdtd3d_torch.sim import Simulation
     set_level(cfg.output.log_level)
@@ -787,6 +814,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             raise
     else:
         sim = Simulation(cfg, device=args.device)
+
+    def _current_sim():
+        # after a ladder degrade the supervisor's sim replaces the first
+        # one: the finalizer closes the live one
+        return sup.sim if (sup is not None and sup.sim is not None) \
+            else sim
 
     # SIGTERM/SIGINT end the run through SystemExit (143/130), so the
     # finally below runs on a kill as on any other exit; the previous
@@ -821,7 +854,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # where the uninterrupted run's do
         interval = 0
         for v in (cfg.output.save_res, cfg.output.norms_every,
-                  cfg.output.checkpoint_every, ntff_every):
+                  cfg.output.checkpoint_every, cfg.output.metrics_every,
+                  ntff_every):
             if v:
                 interval = math.gcd(interval, v)
 
@@ -831,14 +865,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                 # the live one (same grid, dt and box)
                 ntff_col.sim = s
                 if s.t >= ntff_start and s.t % ntff_every == 0:
-                    ntff_col.sample()
+                    with _telemetry.span("ntff-sample"):
+                        ntff_col.sample()
+            # metrics before norms: when both cadences land on one step,
+            # field_norms reuses the metrics pass (diag's per-step cache)
+            if cfg.output.metrics_every and \
+                    s.t % cfg.output.metrics_every == 0:
+                write_metrics(diag.metrics(s), cfg.output.save_dir)
             if cfg.output.norms_every and s.t % cfg.output.norms_every == 0:
                 norms = diag.field_norms(s)
                 txt = " ".join(f"{k}={v:.4e}"
                                for k, v in sorted(norms.items()))
                 log(f"[t={s.t}] {txt}")
             if cfg.output.save_res and s.t % cfg.output.save_res == 0:
-                io.write_outputs(s, s.t)
+                with _telemetry.span("io-dump"):
+                    io.write_outputs(s, s.t)
 
         # after a restore only the remaining steps run, so the resumed
         # run ends at the same t as the uninterrupted one
@@ -871,6 +912,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         for a in sim.static.mode.active_axes:
             cells *= cfg.grid_shape[a]
         mcps = cells * remaining / max(dt_wall, 1e-9) / 1e6
+        if sim.clock is not None:
+            log(f"profile: {sim.clock.report()}")
         if sup is not None and (sup.retries or sup.rollbacks
                                 or sup.degrades):
             log(f"supervisor: {sup.retries} retries, {sup.rollbacks} "
@@ -880,6 +923,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"({mcps:.1f} Mcells/s)")
         return 0
     finally:
+        # every exit ends the recording: the trace file and the sink's
+        # run_end record (the live sim may be a ladder replacement)
+        cur = _current_sim()
+        n_rec = 0
+        if cur is not None:
+            n_rec = cur.telemetry.n_records \
+                if cur.telemetry is not None else 0
+            has_sink = cur.telemetry is not None
+            cur.close()
         for sig, old in old_handlers.items():
             try:
                 signal.signal(sig, old)
@@ -887,6 +939,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                 pass
         if sup is not None:
             sup._restore_env()  # idempotent; run()'s finally usually did
+        if cur is not None and has_sink:
+            log(f"telemetry: {n_rec + 1} records -> "
+                f"{cfg.output.telemetry_path}")
 
 
 if __name__ == "__main__":

@@ -210,18 +210,16 @@ class OutputConfig:
     # SURVEY.md §5.1).
     profile: bool = False
     # NaN/Inf tripwire after every advance() chunk. Implemented by the
-    # IN-GRAPH health counters (fdtd3d_tpu/telemetry.py): one fused
-    # reduction inside the compiled chunk + one scalar readback, never
-    # a host-side pass over the full pytree (the paired-complex path's
-    # legs are reduced in-graph too). Independent of log_level so it
+    # health pass (fdtd3d_torch/telemetry.py): one reduction over views
+    # of the live carry at the chunk's end + one scalar readback, never
+    # a host-side pass over the fields. Independent of log_level so it
     # can guard production runs.
     check_finite: bool = False
-    # Flight-recorder JSONL (fdtd3d_tpu/telemetry.py): when set, every
-    # advance() chunk appends a schema-versioned record (in-graph
-    # health counters, wall time, throughput) to this path, after a
-    # run_start provenance record; VMEM-ladder downgrades are recorded
-    # as ladder_downgrade events. CLI flag: --telemetry PATH.
-    # Summarize with tools/telemetry_report.py.
+    # Flight-recorder JSONL (fdtd3d_torch/telemetry.py): when set, every
+    # advance() chunk appends a schema-versioned record (the health
+    # counters, wall time, throughput) to this path, after a run_start
+    # provenance record. CLI flag: --telemetry PATH. Summarize with
+    # tools/telemetry_report.py.
     telemetry_path: Optional[str] = None
     # OpenMetrics exposition (fdtd3d_tpu/metrics.py): when set, a
     # MetricsRegistry observes every telemetry record host-side
@@ -231,20 +229,17 @@ class OutputConfig:
     # ingest a run without parsing our JSONL. Works with or without
     # telemetry_path (a file-less sink feeds it). CLI: --metrics PATH.
     metrics_path: Optional[str] = None
-    # Per-chip lane (telemetry schema v4, round 10): with a sink
-    # attached, each chunk additionally records the UN-psummed per-chip
-    # health counters (tiny all_gathered scalars on the same single
-    # readback) as a "per_chip" record plus an "imbalance" summary
-    # (max/mean ratio + argmax straggler chip). CLI flag:
-    # --per-chip-telemetry. No-op without telemetry_path.
+    # Per-chip lane (telemetry schema v4): with a sink attached, each
+    # chunk additionally records the per-chip health counters (length-1
+    # vectors unsharded, on the same single readback) as a "per_chip"
+    # record (and, with several chips, an "imbalance" summary). CLI
+    # flag: --per-chip-telemetry. No-op without telemetry_path.
     per_chip_telemetry: bool = False
-    # Device-trace lane (round 7): when set, Simulation starts a
-    # jax.profiler capture into this directory at the first advance()
-    # and finalizes it in Simulation.close() — crash-safe via the
-    # callers' try/finally, degrade-to-skip when no profiler/chip is
-    # available (profiling.TraceCapture). CLI flag: --profile DIR;
-    # bench: FDTD3D_BENCH_PROFILE. Attribute the capture back onto the
-    # named solver sections with tools/trace_attribution.py.
+    # Trace capture: when set, Simulation starts a torch.profiler
+    # capture at the first advance() and writes DIR/trace.json in
+    # Simulation.close() — crash-safe via the callers' try/finally,
+    # degrade-to-skip when no profiler is available
+    # (profiling.TraceCapture). CLI flag: --profile DIR or --trace DIR.
     profile_dir: Optional[str] = None
 
 

@@ -1,10 +1,19 @@
 """High-level Simulation of the PyTorch port.
 
 Counterpart of ``fdtd3d_tpu/sim.py::Simulation`` for one device: owns
-the state and the coefficients, advances the leapfrog in chunks, and
-checks the fields for non-finite values after each chunk when
-``OutputConfig.check_finite`` is set (one reduction over every state
-tensor, float32x2 hi and lo words alike, and one readback).
+the state and the coefficients and advances the leapfrog in chunks.
+With ``OutputConfig.check_finite`` or a telemetry sink
+(``OutputConfig.telemetry_path``) every chunk ends with the health pass
+of ``fdtd3d_torch/telemetry.py`` (energy, div·E, max |E|/|H| and the
+non-finite flag over every floating leaf, float32x2 lo words and J/K
+included) and one readback of its scalars; check_finite raises on a
+non-finite chunk, the sink records a ``chunk`` record (and with
+``per_chip_telemetry`` the ``per_chip`` vectors and their
+``imbalance``). ``OutputConfig.profile`` attaches a
+``profiling.StepClock`` (``sim.clock``), and ``profile_dir`` a
+``profiling.TraceCapture`` started at the first ``advance``; a timed
+chunk is bracketed by device syncs. ``close`` finalises both and writes
+the sink's ``run_end``: callers hold it in a ``finally``.
 
 The device is an explicit argument: ``Simulation(cfg)`` runs on the
 current CUDA device and raises when there is none;
@@ -32,12 +41,13 @@ then the fault plan (``fdtd3d_torch/faults.py``, adopted from
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from fdtd3d_torch import convert, io, telemetry
+from fdtd3d_torch import convert, io, profiling, telemetry
 from fdtd3d_torch import faults as _faults
 from fdtd3d_torch import log as _log
 from fdtd3d_torch.solver import (StaticSetup, build_coeffs, build_static,
@@ -151,8 +161,15 @@ class Simulation:
         self.topology = tuple(self.static.topology)
         self.coeffs = coeffs_to_device(build_coeffs(self.static),
                                        self.device)
+        out = cfg.output
+        self._check_finite = out.check_finite
+        # the health pass rides every chunk when the finite check or a
+        # sink wants it: one reduction and one readback a chunk
+        health = bool(out.telemetry_path) or out.check_finite
         self._runner = make_chunk_runner(
-            self.static, self.device, health=cfg.output.check_finite)
+            self.static, self.device, health=health,
+            per_chip=health and bool(out.per_chip_telemetry)
+            and bool(out.telemetry_path))
         self.step_kind: str = self._runner.kind
         # kernel diagnostics: the temporal-blocking depth, or why the
         # temporal-blocked pass did not engage (tb_fallback)
@@ -171,11 +188,25 @@ class Simulation:
         self.extra_ckpt_meta: Dict[str, Any] = {}
         # zeros made directly in the carry's form: building the dict
         # form first and packing it would hold the fields twice
-        shapes = init_state(self.static, "meta")
-        if self._runner.packed:
-            shapes = self._runner.pack(shapes)
-        self._carry = _map_tensors(shapes, lambda t: torch.zeros(
-            t.shape, dtype=t.dtype, device=self.device))
+        with telemetry.span("pack"):
+            shapes = init_state(self.static, "meta")
+            if self._runner.packed:
+                shapes = self._runner.pack(shapes)
+            self._carry = _map_tensors(shapes, lambda t: torch.zeros(
+                t.shape, dtype=t.dtype, device=self.device))
+        self._cells = float(np.prod([self.static.grid_shape[a] for a in
+                                     self.static.mode.active_axes]))
+        self.clock = profiling.StepClock() if out.profile else None
+        self.telemetry: Optional[telemetry.TelemetrySink] = None
+        if out.telemetry_path:
+            self.telemetry = telemetry.TelemetrySink(
+                out.telemetry_path, run_meta=telemetry.provenance(self))
+        # the trace capture starts at the first advance (a construction
+        # failure leaves no profiler session) and stops in close()
+        self.tracer: Optional[profiling.TraceCapture] = None
+        if out.profile_dir:
+            self.tracer = profiling.TraceCapture(out.profile_dir)
+        self._closed = False
 
     # -- state representation ---------------------------------------------
 
@@ -207,19 +238,37 @@ class Simulation:
     # -- stepping ----------------------------------------------------------
 
     def advance(self, n_steps: int):
-        """Advance n_steps. With check_finite, a chunk whose fields went
-        non-finite raises FloatingPointError naming the components and
-        the first-bad-step bound."""
+        """Advance n_steps. A timed chunk (a clock or a sink) is
+        bracketed by device syncs; the health pass is read back once,
+        after the wall is taken. With check_finite, a chunk whose fields
+        went non-finite raises FloatingPointError naming the components
+        and the first-bad-step bound (after its chunk record)."""
         if n_steps <= 0:
             return self
+        if self.tracer is not None:
+            self.tracer.start()   # idempotent; degrades to a no-op
         t_prev = self.t
-        out = self._runner(self._carry, self.coeffs, n_steps)
+        timed = self.clock is not None or self.telemetry is not None
+        if timed:
+            self.block_until_ready()
+            t0 = time.perf_counter()
+        with telemetry.span("chunk"):
+            out = self._runner(self._carry, self.coeffs, n_steps)
         health = None
         if self._runner.health:
             out, health = out
         self._carry = out
+        wall = 0.0
+        if timed:
+            self.block_until_ready()
+            wall = time.perf_counter() - t0
+            if self.clock is not None:
+                self.clock.record(n_steps, wall, self._cells)
+        hv = telemetry.readback(health) if health is not None else None
         self._chunk_idx += 1
-        if health is not None and not telemetry.is_finite(health):
+        if self.telemetry is not None and hv is not None:
+            self._emit_chunk(n_steps, wall, hv)
+        if hv is not None and not hv["finite"] and self._check_finite:
             bad = sorted(self._nonfinite_leaves())
             names = ", ".join(bad) if bad else "unknown"
             err = FloatingPointError(
@@ -236,6 +285,46 @@ class Simulation:
         self._maybe_auto_checkpoint()
         if _faults.active() is not None:
             _faults.on_chunk_boundary(self)
+        return self
+
+    def _emit_chunk(self, n_steps: int, wall: float, hv: Dict[str, Any]):
+        """The chunk record, and the per-chip vectors with their
+        imbalance summary, from one readback."""
+        self.telemetry.emit_chunk(chunk=self._chunk_idx, t=self.t,
+                                  steps=n_steps, wall_s=wall,
+                                  cells=self._cells, health=hv)
+        per_chip = hv.get("per_chip")
+        if per_chip is not None:
+            self.telemetry.emit(
+                "per_chip", chunk=self._chunk_idx, t=self.t,
+                n_chips=len(next(iter(per_chip.values()))),
+                counters=per_chip)
+            imb = telemetry.imbalance_summary(per_chip)
+            if imb is not None:
+                self.telemetry.emit("imbalance", chunk=self._chunk_idx,
+                                    t=self.t, **imb)
+
+    def close_telemetry(self):
+        """Write the sink's run_end record (Mcells/s over the recorded
+        chunks) and close it; idempotent, a no-op without a sink."""
+        if self.telemetry is None:
+            return self
+        w = self.telemetry.wall_total
+        mcps = self._cells * self.telemetry.steps_total / w / 1e6 \
+            if w > 0 else 0.0
+        self.telemetry.close(t=self.t, mcells_per_s=mcps)
+        return self
+
+    def close(self):
+        """Finalise the observability lanes: stop the trace capture
+        (writing its file) and close the sink with its run_end record.
+        Idempotent: safe on every exit path."""
+        if self._closed:
+            return self
+        self._closed = True
+        if self.tracer is not None:
+            self.tracer.stop()
+        self.close_telemetry()
         return self
 
     def _nonfinite_leaves(self):
@@ -337,7 +426,9 @@ class Simulation:
         reference's format), streamed from the live carry one leaf at a
         time (``io.save_checkpoint``): no copy of the state on the
         device."""
-        io.save_checkpoint(self._dict_view(), path, extra=self._ckpt_meta())
+        with telemetry.span("checkpoint"):
+            io.save_checkpoint(self._dict_view(), path,
+                               extra=self._ckpt_meta())
         _faults.on_checkpoint(path)  # committed: the fault plan's hook
         return self
 
@@ -439,10 +530,14 @@ class Simulation:
         ``verify_final_lanes`` sweep; per-lane results via
         ``lane_state(i)`` / ``lane_field(i, comp)``, verdicts via
         ``lane_finite`` / ``lane_first_unhealthy_t``. ``chunk`` advances
-        the batch that many steps per chunk (0 = one chunk)."""
+        the batch that many steps per chunk (0 = one chunk); a
+        telemetry sink is closed (run_end) on every exit."""
         from fdtd3d_torch.batch import BatchSimulation
         bsim = BatchSimulation(cfgs, device=device)
-        bsim.run(time_steps, chunk=chunk)
-        bsim.verify_final_lanes()
+        try:
+            bsim.run(time_steps, chunk=chunk)
+            bsim.verify_final_lanes()
+        finally:
+            bsim.close()
         return bsim
 

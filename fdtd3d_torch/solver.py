@@ -1029,34 +1029,40 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
 
 
 def make_chunk_runner(static: StaticSetup, device, health: bool = False,
-                      batch: int = 0):
+                      batch: int = 0, per_chip: bool = False):
     """run_chunk(state, coeffs, n): n steps in a Python loop.
 
     Steps exposing ``prepare`` (the packed steps) get it called outside
-    the loop, once per coefficient dict. When a packed step is engaged
-    (``run_chunk.packed``) the carry is the packed state; callers
-    convert once with ``run_chunk.pack``/``run_chunk.unpack``. A step
-    that advances ``steps_per_call`` > 1 steps per call (the
+    the loop, once per coefficient dict (in a ``prepare`` scope). When a
+    packed step is engaged (``run_chunk.packed``) the carry is the packed
+    state; callers convert once with ``run_chunk.pack``/``run_chunk.unpack``.
+    A step that advances ``steps_per_call`` > 1 steps per call (the
     temporal-blocked pass) runs ``n // steps_per_call`` times, and its
     ``tail_step`` the ``n % steps_per_call`` remaining steps.
 
     ``health=True``: run_chunk returns ``(state, health)`` where health
-    is the small device tensor of ``telemetry.make_health_fn`` — one
-    fused reduction at the chunk's end, read back by the caller once.
+    is the :class:`telemetry.Health` of ``telemetry.make_health_fn``,
+    computed on the dict-form view of the chunk's final carry (a packed
+    carry through ``unpack``: views, built anew every chunk, since the tb
+    pass swaps its buffers) in a ``health`` scope, and read back by the
+    caller once. ``per_chip`` adds the per-chip vectors
+    (``run_chunk.per_chip``).
 
     ``batch=B`` builds the lane-capable runner (``make_step``'s batch):
-    its carry has a leading lane axis and its health is the (B,) tensor
-    of ``telemetry.make_lane_health_fn``.
+    its carry has a leading lane axis and its health is that of
+    ``telemetry.make_lane_health_fn``, per lane.
     """
+    from fdtd3d_torch import telemetry
     step = make_step(static, device, batch=batch)
     prep = getattr(step, "prepare", None)
     spc = getattr(step, "steps_per_call", 1)
     tail = getattr(step, "tail_step", step)
+    packed = getattr(step, "packed", False)
     health_fn = None
     if health:
-        from fdtd3d_torch import telemetry
-        health_fn = telemetry.make_lane_health_fn() if batch \
-            else telemetry.make_health_fn()
+        health_fn = (telemetry.make_lane_health_fn if batch
+                     else telemetry.make_health_fn)(static,
+                                                    per_chip=per_chip)
 
     prepared: Dict[str, Any] = {}
 
@@ -1067,7 +1073,8 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
             # build them once per coefficient dict, not per chunk (the
             # TFSF plan's masked selects synchronize with the device)
             if prepared.get("src") is not coeffs:
-                prepared["src"], prepared["cc"] = coeffs, prep(coeffs)
+                with telemetry.named("prepare"):
+                    prepared["src"], prepared["cc"] = coeffs, prep(coeffs)
             cc = prepared["cc"]
         passes, rem = divmod(n, spc)
         for _ in range(passes):
@@ -1075,15 +1082,17 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
         for _ in range(rem):
             state = tail(state, cc)
         if health_fn is not None:
-            return state, health_fn(state)
+            return state, health_fn(step.unpack(state) if packed
+                                    else state)
         return state
 
     run_chunk.health = health_fn is not None
+    run_chunk.per_chip = health_fn is not None and per_chip
     run_chunk.kind = step.kind
     run_chunk.steps_per_call = spc
     run_chunk.diag = getattr(step, "diag", None)
-    run_chunk.packed = getattr(step, "packed", False)
-    if run_chunk.packed:
+    run_chunk.packed = packed
+    if packed:
         run_chunk.pack = step.pack
         run_chunk.unpack = step.unpack
     return run_chunk

@@ -38,10 +38,14 @@ A degrade drops the tripped ``Simulation`` before it builds the next
 rung's (the rollback restores from a committed snapshot or the host
 snapshot, so the tripped state is never read again): the device holds
 one carry at a time (``chip_smoke.py`` records the memory while each
-rung is built). The reference's
-telemetry records, heartbeats and trace spans wait for ROADMAP.md items
-A5 and A15; the supervisor logs its recoveries through
-``fdtd3d_torch/log.py``, as the reference does without a sink.
+rung is built). Every recovery is logged through ``fdtd3d_torch/log.py``
+and, when the run has a telemetry sink, written as a ``retry``,
+``rollback`` or ``degrade`` record (``chip``/``host`` null: unsharded).
+The sink follows the run across a rung swap (handed to the new sim
+before the old one is dropped), so a supervised run writes one
+``run_start``/``run_end`` pair; the trace capture ends at the first swap,
+as the reference's does. Heartbeats and trace-plane spans are ROADMAP.md
+item A15.
 
 :func:`run_with_retry` is the stage-shaped flavour of the same bounded
 retry (the reference's benchmark harness wraps its stages in it).
@@ -258,13 +262,34 @@ class Supervisor:
         self.sim.adopt_state(self._snapshot)
         return "initial-snapshot"
 
+    def _emit(self, rec_type: str, **fields):
+        sink = self.sim.telemetry if self.sim is not None else None
+        if sink is not None:
+            sink.emit(rec_type, **fields)
+
     def _swap_sim(self, cfg):
         """Replace the supervised sim by one built on ``cfg`` (the pins
-        set). The old sim is dropped first, so the device holds one
-        carry: a degrade's rollback restores from a committed snapshot
-        or the host snapshot, never from the tripped state."""
+        set, no sink and no trace of its own). The sink is taken from the
+        old sim first and handed to the new one (one run_start/run_end
+        pair a supervised run), the old sim's trace capture is stopped,
+        and the old sim is dropped before the build, so the device holds
+        one carry: a degrade's rollback restores from a committed
+        snapshot or the host snapshot, never from the tripped state. If
+        the build fails, the sink is closed with its run_end."""
+        old = self.sim
+        sink, old.telemetry = old.telemetry, None
+        if old.tracer is not None:
+            old.tracer.stop()
+        t = old.t
+        del old
         self.sim = None
-        self.sim = self._factory(cfg)
+        try:
+            self.sim = self._factory(cfg)
+        except BaseException:
+            if sink is not None:
+                sink.close(t=t)
+            raise
+        self.sim.telemetry = sink
 
     def _handle_trip(self, exc: FloatingPointError):
         """Health trip: rollback and one rung down the kernel ladder;
@@ -278,7 +303,9 @@ class Supervisor:
         reason = f"{type(exc).__name__}: {str(exc)[:200]}"
         self._pin_env(pins)
         cfg = cfg_fn(self._cfg) if cfg_fn is not None else self._cfg
-        out = dataclasses.replace(cfg.output, check_finite=True)
+        # the sink follows the run (_swap_sim); the trace ends here
+        out = dataclasses.replace(cfg.output, check_finite=True,
+                                  telemetry_path=None, profile_dir=None)
         cfg = dataclasses.replace(cfg, output=out, require_pallas=False)
         # the trip's traceback frames (advance's self) would keep the
         # tripped sim alive through the swap: clear their locals
@@ -292,6 +319,12 @@ class Supervisor:
         self.degrades += 1
         src = self._rollback(reason, t_failed)
         self.rollbacks += 1
+        self._emit("rollback", t_failed=int(t_failed),
+                   t_restored=int(self.sim.t), source=str(src),
+                   reason=reason, chip=None, host=None)
+        self._emit("degrade", t=int(self.sim.t), old_kind=old_kind,
+                   new_kind=self.sim.step_kind, reason=reason, chip=None,
+                   host=None)
         _log.warn(f"supervisor: health trip at t<={t_failed} "
                   f"({str(exc)[:120]}); rolled back to t={self.sim.t} "
                   f"({src}) and degraded {old_kind} -> "
@@ -310,10 +343,14 @@ class Supervisor:
         _log.warn(f"supervisor: transient error at t={t} "
                   f"({str(exc)[:120]}); retry {consec}/"
                   f"{self.policy.max_retries} in {delay:.1f}s")
+        self._emit("retry", t=int(t), attempt=int(consec),
+                   delay_s=float(delay), error=reason, chip=None, host=None)
         self.policy.sleep(delay)
         self.retries += 1
-        self._rollback(reason, t)
+        src = self._rollback(reason, t)
         self.rollbacks += 1
+        self._emit("rollback", t_failed=int(t), t_restored=int(self.sim.t),
+                   source=str(src), reason=reason, chip=None, host=None)
         self._persist()
 
     # -- the loop ----------------------------------------------------------

@@ -1,31 +1,118 @@
-"""Health reduction of the PyTorch port (what ``check_finite`` needs).
+"""Flight recorder of the PyTorch port: health counters, trace spans, the
+telemetry sink.
 
-Counterpart of ``fdtd3d_tpu/telemetry.py::make_health_fn`` reduced to
-the finite flag: one min/max reduction per state tensor at the end of a
-chunk, folded into one device scalar that the caller reads back once.
-The energy, divergence and per-chip counters and the telemetry sink
-come with ROADMAP.md item A5.
+Counterpart of ``fdtd3d_tpu/telemetry.py`` for one unsharded device:
 
-A batch (fdtd3d_torch/batch.py) reduces per lane: one (B,) tensor from
-one reduction over the lane-stacked state, read back once per chunk, so
-a NaN in one lane flips only that lane's flag.
+* **Health counters** -- ``make_health_fn`` builds one reduction over
+  the dict-form view of the live carry (``solver.make_chunk_runner``
+  calls it at the end of every chunk): per stored component one
+  ``torch.aminmax`` pass (max |E|, max |H|; NaN propagates) and one
+  per-x-plane sum of squares (``torch.linalg.vector_norm`` over (y, z),
+  which also widens bf16 without a temporary), the interior div·E over
+  x-slabs of bounded depth (``diag.div_e_parts``), and one
+  ``torch.aminmax`` of every other floating leaf (the non-finite flag:
+  psi, J/K, the ds lo words, the compensated residuals, the incident
+  line). Every partial lands in one small tensor that the caller reads
+  back once (``readback``): one device-to-host transfer a chunk, never a
+  field. The check_finite path and the sink read the same pass.
+  ``make_lane_health_fn`` is the same reduction per lane of a
+  lane-stacked batch.
+* **Named spans** -- ``span`` (``torch.profiler.record_function`` plus
+  an NVTX range on the card) and ``named`` give torch.profiler traces
+  the reference's domain names (``fdtd3d/chunk``, ``fdtd3d/health``...).
+* **The sink** -- ``TelemetrySink`` appends schema-v11 JSONL records:
+  ``run_start`` provenance, one ``chunk`` record a chunk (health and wall
+  time), ``per_chip``/``imbalance``, the supervisor's ``retry``/
+  ``rollback``/``degrade`` and the batch's ``batch_lane`` rows. The
+  schema tables, ``validate_record`` and the readers are a copy of the
+  reference's, so the reference's tools (``tools/telemetry_report.py``)
+  read the port's files unchanged. ``run_start.jax_version`` is ``"n/a"``
+  (the port imports no JAX); ``torch_version`` and ``cuda_version`` ride
+  as extra keys; ``vmem_rung`` is always 0 (the port has no VMEM
+  ladder).
+
+Counter definitions (f32 partials, combined on the host in double):
+
+``energy``
+    0.5 * sum cell * (eps0 |E|^2 + mu0 |H|^2), vacuum-weighted (the
+    material-weighted energy is ``diag.metrics``).
+``div_l2`` / ``div_linf``
+    RMS and max of the discrete div E over interior cells
+    (``diag.div_e_parts``).
+``max_e`` / ``max_h``
+    max over the components of max |comp| (float32x2: the hi words).
+``nonfinite``
+    1.0 when any floating leaf of the state holds a NaN or an Inf.
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Any, Dict, Iterator, List
+import os
+import subprocess
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+SCHEMA_VERSION = 11
+READ_VERSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 
-def _tensors(tree: Any) -> Iterator[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
+HEALTH_KEYS = ("energy", "div_l2", "div_linf", "max_e", "max_h",
+               "nonfinite")
 
+# the per-chip counters (unsharded: vectors of length 1)
+PER_CHIP_KEYS = ("energy", "max_e", "max_h")
+
+# each x-slab of the div·E pass holds at most this many cells (its
+# temporaries are a few slabs of f32: ~64 MB each at 1024^3)
+DIV_SLAB_CELLS = 1 << 24
+
+
+class _Span:
+    """``torch.profiler.record_function`` and, on the card, an NVTX
+    range of the same name."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+        self._nvtx = False
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        if torch.cuda.is_available():
+            torch.cuda.nvtx.range_push(self.name)
+            self._nvtx = True
+        return self
+
+    def __exit__(self, *exc):
+        if self._nvtx:
+            torch.cuda.nvtx.range_pop()
+            self._nvtx = False
+        self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str) -> _Span:
+    """Host-side trace span ``fdtd3d/<name>``: a torch.profiler range
+    (and NVTX on the card), so traces show the host loop's phases in the
+    reference's terms (chunk, pack, checkpoint, telemetry-readback,
+    ntff-sample, io-dump)."""
+    return _Span(f"fdtd3d/{name}")
+
+
+def named(name: str) -> _Span:
+    """The scope of a phase inside a chunk (health, prepare; the
+    reference's ``jax.named_scope``): the same torch.profiler range."""
+    return _Span(f"fdtd3d/{name}")
+
+
+# --------------------------------------------------------------------------
+# health counters
+# --------------------------------------------------------------------------
 
 def max_abs(x: torch.Tensor) -> torch.Tensor:
     """max |x| in one pass; NaN propagates (torch.aminmax keeps NaN)."""
@@ -33,43 +120,642 @@ def max_abs(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(hi, -lo).float()
 
 
-def make_health_fn():
-    """health(state) -> device scalar max |x| over every floating tensor
-    of the state (either form, dict or packed): finite iff the whole
-    state is finite."""
-
-    def health(state: Dict[str, Any]) -> torch.Tensor:
-        return torch.stack([max_abs(t) for t in _tensors(state)
-                            if t.is_floating_point()]).max()
-
-    return health
-
-
-def is_finite(health: torch.Tensor) -> bool:
-    """The one host readback of a chunk's health scalar."""
-    return math.isfinite(health.item())
-
-
 def lane_max_abs(x: torch.Tensor) -> torch.Tensor:
     """max |x| of each lane of a lane-leading tensor, (B,); NaN
     propagates."""
-    lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
+    lo, hi = lane_minmax(x)
     return torch.maximum(hi, -lo).float()
 
 
-def make_lane_health_fn():
-    """health(state) -> (B,) device tensor: per lane, max |x| over every
-    floating tensor of a lane-stacked state (dict or packed form, every
-    leaf lane-leading)."""
+def lane_minmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, max) of each lane of a lane-leading tensor, (B,) each, in
+    one pass where the lane's cells flatten to a view (else a min and a
+    max pass); nothing the size of ``x`` is copied. NaN propagates."""
+    try:
+        flat = x.view(x.shape[0], -1)
+    except RuntimeError:
+        dims = tuple(range(1, x.dim()))
+        return x.amin(dims), x.amax(dims)
+    return torch.aminmax(flat, dim=1)
 
-    def health(state: Dict[str, Any]) -> torch.Tensor:
-        return torch.stack([lane_max_abs(t) for t in _tensors(state)
-                            if t.is_floating_point()]).amax(dim=0)
+
+def plane_norms(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """sqrt of the sum of squares of each x-plane of a lane-leading
+    (B, n1, n2, n3) tensor, (B, n1), in ``dtype`` or ``x``'s own dtype
+    where that is wider (float64 fields): the two-level reduction of the
+    reference (per-plane partials), without a squared temporary."""
+    return torch.linalg.vector_norm(
+        x, dim=(-2, -1), dtype=torch.promote_types(x.dtype, dtype))
+
+
+def _leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}" if path else str(k))
+    else:
+        yield path, tree
+
+
+class Parts:
+    """Named device partials of one reduction pass, concatenated into one
+    tensor (a row per lane) and read back in one transfer. ``add`` takes
+    (B, k) segments; ``finish`` returns the device tensor and the
+    decoder of its rows (name -> list of floats)."""
+
+    def __init__(self):
+        self._segs: List[Tuple[str, torch.Tensor]] = []
+
+    def add(self, name: str, seg: torch.Tensor) -> None:
+        self._segs.append((name, seg.reshape(seg.shape[0], -1)))
+
+    def finish(self) -> Tuple[torch.Tensor, Callable]:
+        wide = torch.float64 if any(s.dtype == torch.float64
+                                    for _n, s in self._segs) \
+            else torch.float32
+        spans, off = {}, 0
+        for name, s in self._segs:
+            spans[name] = (off, off + s.shape[1])
+            off += s.shape[1]
+        parts = torch.cat([s.to(wide) for _n, s in self._segs], dim=1)
+
+        def decode(row: List[float]) -> Dict[str, List[float]]:
+            return {k: row[a:b] for k, (a, b) in spans.items()}
+        return parts, decode
+
+
+def _fmax(vals) -> float:
+    """max that propagates NaN (Python's max does not)."""
+    out = -math.inf
+    for v in vals:
+        if math.isnan(v):
+            return math.nan
+        out = max(out, v)
+    return out
+
+
+class Health:
+    """One chunk's health partials on the device and their decoder
+    (``readback`` reads them); ``lanes``: a batch's per-lane rows."""
+
+    def __init__(self, parts: torch.Tensor, decode: Callable, lanes: bool):
+        self.parts = parts
+        self._decode = decode
+        self.lanes = lanes
+
+    def decode(self, rows: List[List[float]]):
+        vals = [self._decode(r) for r in rows]
+        return vals if self.lanes else vals[0]
+
+
+def _health_pass(static, view: Dict[str, Any], lanes: bool,
+                 per_chip: bool) -> Health:
+    from fdtd3d_torch import diag, physics
+    mode = static.mode
+    cell = float(static.dx ** mode.ndim)
+    lead = (lambda t: t) if lanes else (lambda t: t.unsqueeze(0))
+    parts = Parts()
+    for grp, comps in (("E", mode.e_components), ("H", mode.h_components)):
+        for c in comps:
+            v = lead(view[grp][c])
+            lo, hi = lane_minmax(v)
+            parts.add(f"lo:{c}", lo)
+            parts.add(f"hi:{c}", hi)
+            parts.add(f"sq:{c}", plane_norms(v))
+    cast = static.compute_dtype
+    e = {c: lead(view["E"][c]) for c in mode.e_components}
+    sumsq, count, linf = diag.div_e_parts(
+        e, mode.e_components, mode.active_axes, 1.0 / static.dx, cast)
+    parts.add("div_sumsq", sumsq)
+    parts.add("div_linf", linf)
+    others = [lead(t) for k, t in _leaves(view)
+              if isinstance(t, torch.Tensor) and t.is_floating_point()
+              and k.split("/")[0] not in ("E", "H")]
+    for i, t in enumerate(others):
+        lo, hi = lane_minmax(t)
+        parts.add(f"lo:{i}", lo)
+        parts.add(f"hi:{i}", hi)
+    tensor, dec = parts.finish()
+
+    def decode(row):
+        p = dec(row)
+        mx = {}
+        sums = {"E": 0.0, "H": 0.0}
+        ok = True
+        for grp, comps in (("E", mode.e_components),
+                           ("H", mode.h_components)):
+            m = []
+            for c in comps:
+                lo, hi = p[f"lo:{c}"][0], p[f"hi:{c}"][0]
+                ok = ok and math.isfinite(lo) and math.isfinite(hi)
+                m.append(_fmax((hi, -lo)))
+                sums[grp] += math.fsum(x * x for x in p[f"sq:{c}"])
+            mx[grp] = _fmax(m) if m else 0.0
+        for i in range(len(others)):
+            ok = ok and math.isfinite(p[f"lo:{i}"][0]) \
+                and math.isfinite(p[f"hi:{i}"][0])
+        energy = 0.5 * cell * (physics.EPS0 * sums["E"]
+                               + physics.MU0 * sums["H"])
+        out = {"energy": energy,
+               "div_l2": math.sqrt(p["div_sumsq"][0] / max(count, 1.0)),
+               "div_linf": p["div_linf"][0],
+               "max_e": mx["E"], "max_h": mx["H"],
+               "nonfinite": 0.0 if ok else 1.0}
+        if per_chip:
+            out["per_chip"] = {"energy": [energy], "max_e": [mx["E"]],
+                               "max_h": [mx["H"]]}
+        return out
+
+    return Health(tensor, decode, lanes)
+
+
+def make_health_fn(static, per_chip: bool = False):
+    """health(view) -> :class:`Health` of the dict-form state ``view``
+    (a view of the live carry: nothing is cloned). ``readback`` turns it
+    into ``HEALTH_KEYS`` floats (``nonfinite`` as ``finite``), plus
+    ``per_chip`` length-1 vectors with ``per_chip``."""
+
+    def health(view: Dict[str, Any]) -> Health:
+        with named("health"):
+            return _health_pass(static, view, False, per_chip)
 
     return health
 
 
+def make_lane_health_fn(static, per_chip: bool = False):
+    """health(view) -> :class:`Health` of a lane-stacked dict-form state
+    (every leaf lane-leading): the counters of each lane, from one pass
+    and one readback (``readback``: lists over the lanes)."""
+
+    def health(view: Dict[str, Any]) -> Health:
+        with named("health"):
+            return _health_pass(static, view, True, per_chip)
+
+    return health
+
+
+def readback(health: Health) -> Dict[str, Any]:
+    """The one device-to-host transfer of a chunk's health partials ->
+    floats: ``HEALTH_KEYS`` with ``nonfinite`` turned into ``finite``,
+    and ``per_chip`` when the pass carries it. Never a field array."""
+    with span("telemetry-readback"):
+        rows = health.parts.tolist()
+    out = health.decode(rows)
+    if health.lanes:
+        return _lane_rows(out)
+    out = dict(out)
+    out["finite"] = out.pop("nonfinite") == 0.0
+    return out
+
+
+def _lane_rows(lanes: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Per-lane counter dicts -> the batch's readback form: each key a
+    list over lanes, non-finite values as None, ``finite`` flags, and
+    ``per_chip`` as per-lane vectors."""
+    def fin(v):
+        return v if math.isfinite(v) else None
+    out: Dict[str, Any] = {k: [fin(d[k]) for d in lanes]
+                           for k in HEALTH_KEYS if k != "nonfinite"}
+    out["finite"] = [d["nonfinite"] == 0.0 for d in lanes]
+    if lanes and "per_chip" in lanes[0]:
+        out["per_chip"] = {k: [[fin(x) for x in d["per_chip"][k]]
+                               for d in lanes] for k in PER_CHIP_KEYS}
+    return out
+
+
 def lanes_finite(health: torch.Tensor) -> List[bool]:
-    """The one host readback of a chunk's per-lane health: finite flag
-    per lane."""
+    """Finite flag per lane of a (B,) max |x| tensor (one readback)."""
     return [math.isfinite(v) for v in health.tolist()]
+
+
+def imbalance_summary(per_chip: Dict[str, list],
+                      metric: str = "energy") -> Optional[Dict[str, Any]]:
+    """Per-chunk load-asymmetry summary of a per-chip counter vector:
+    max, mean, max/mean and the argmax chip (a non-finite chip is named
+    as the argmax with ratio null and ``nonfinite_chips``). None for a
+    single chip (every unsharded run) or a missing metric."""
+    vals = per_chip.get(metric)
+    if not vals or len(vals) < 2:
+        return None
+    vals = [v if v is not None else float("nan") for v in vals]
+    bad = [i for i, v in enumerate(vals) if not np.isfinite(v)]
+    finite = [v for v in vals if np.isfinite(v)]
+    mx = max(finite) if finite else 0.0
+    mean = sum(finite) / len(finite) if finite else 0.0
+    if bad:
+        return {"metric": metric, "max": float(mx), "mean": float(mean),
+                "ratio": None, "argmax": bad[0], "n_chips": len(vals),
+                "nonfinite_chips": bad}
+    return {"metric": metric, "max": float(mx), "mean": float(mean),
+            "ratio": (float(mx / mean) if mean > 0 else None),
+            "argmax": int(np.argmax(vals)), "n_chips": len(vals)}
+
+
+# --------------------------------------------------------------------------
+# provenance + schema
+# --------------------------------------------------------------------------
+
+_git_sha_cache: Optional[str] = None
+
+
+def git_sha() -> str:
+    """The checkout's HEAD sha (short), cached; 'unknown' outside a git
+    checkout."""
+    global _git_sha_cache
+    if _git_sha_cache is None:
+        try:
+            _git_sha_cache = subprocess.run(
+                ["git", "rev-parse", "--short=12", "HEAD"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=10,
+            ).stdout.strip() or "unknown"
+        except (OSError, subprocess.SubprocessError):
+            _git_sha_cache = "unknown"
+    return _git_sha_cache
+
+
+def provenance(sim=None) -> Dict[str, Any]:
+    """The run_start record's fields: git sha, versions, the device, and
+    with ``sim`` its scheme, grid, dtype, topology, step kind, the
+    temporal-blocking depth or why it did not engage, and a batch's lane
+    count and fallback token."""
+    dev = torch.device(sim.device if sim is not None else "cpu")
+    rec: Dict[str, Any] = {
+        "wall_time": time.strftime("%Y-%m-%dT%H:%M:%S"),
+        "git_sha": git_sha(),
+        "jax_version": "n/a",
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "device_kind": torch.cuda.get_device_name(dev)
+        if dev.type == "cuda" else "cpu",
+        "hbm_gbps": None,
+    }
+    if sim is None:
+        return rec
+    nlanes = getattr(sim, "batch_size", None)
+    if nlanes:
+        rec["batch"] = int(nlanes)
+    bfb = getattr(sim, "batch_fallback", None)
+    if bfb:
+        rec["batch_fallback"] = str(bfb)
+    cfg = sim.cfg
+    rec.update(scheme=cfg.scheme, grid=list(cfg.grid_shape),
+               dtype=cfg.dtype, topology=list(sim.topology),
+               step_kind=sim.step_kind, vmem_rung=0)
+    diag = sim.step_diag or {}
+    if diag.get("temporal_block") is not None:
+        rec["ghost_depth"] = int(diag["temporal_block"])
+    if diag.get("tb_fallback") is not None:
+        rec["tb_fallback"] = dict(diag["tb_fallback"])
+    return rec
+
+
+# Required keys (and accepted types) per record type; extra keys are
+# always allowed. A copy of the reference's table: the schema version
+# bumps only when a required key changes meaning or disappears.
+_NUM = (int, float)
+_OPT_NUM = (int, float, type(None))
+RECORD_SCHEMA: Dict[str, Dict[str, tuple]] = {
+    "run_start": {
+        "wall_time": (str,), "git_sha": (str,), "jax_version": (str,),
+        "platform": (str,),
+        # v2 additions (skipped when validating a v1 record)
+        "device_kind": (str,), "hbm_gbps": _OPT_NUM,
+    },
+    "attribution": {
+        "source": (str,), "sections": (dict,),
+        "measured_total_ms": _OPT_NUM, "coverage_bytes": _OPT_NUM,
+    },
+    # counters are _OPT_NUM: a non-finite value is written as null
+    # (NaN/Infinity literals are not JSON)
+    "chunk": {
+        "chunk": (int,), "t": (int,), "steps": (int,),
+        "wall_s": _NUM, "mcells_per_s": _NUM,
+        "energy": _OPT_NUM, "div_l2": _OPT_NUM, "div_linf": _OPT_NUM,
+        "max_e": _OPT_NUM, "max_h": _OPT_NUM, "finite": (bool,),
+        "vmem_rung": (int,),
+    },
+    "ladder_downgrade": {
+        "t": (int,), "old_budget_mb": _OPT_NUM,
+        "new_budget_mb": _OPT_NUM,
+        "old_tile": _OPT_NUM, "new_tile": _OPT_NUM, "vmem_rung": (int,),
+    },
+    "run_end": {
+        "t": (int,), "steps": (int,), "wall_s": _NUM,
+        "mcells_per_s": _NUM, "first_unhealthy_t": _OPT_NUM,
+    },
+    # v3: the supervisor's recovery records; v5 stamps each with the
+    # chip/host the failure was attributed to (null unsharded)
+    "retry": {
+        "t": (int,), "attempt": (int,), "delay_s": _NUM,
+        "error": (str,), "chip": _OPT_NUM, "host": _OPT_NUM,
+    },
+    "rollback": {
+        "t_failed": (int,), "t_restored": (int,), "source": (str,),
+        "reason": (str,), "chip": _OPT_NUM, "host": _OPT_NUM,
+    },
+    "degrade": {
+        "t": (int,), "old_kind": (str,), "new_kind": (str,),
+        "reason": (str,), "chip": _OPT_NUM, "host": _OPT_NUM,
+    },
+    "topology_change": {
+        "t": (int,), "old_topology": (list,), "new_topology": (list,),
+        "reason": (str,), "chip": _OPT_NUM, "host": _OPT_NUM,
+    },
+    # v4: the per-chip lane
+    "per_chip": {
+        "chunk": (int,), "t": (int,), "n_chips": (int,),
+        "counters": (dict,),
+    },
+    "imbalance": {
+        "chunk": (int,), "t": (int,), "metric": (str,),
+        "max": _NUM, "mean": _NUM, "ratio": _OPT_NUM, "argmax": (int,),
+        "n_chips": (int,),
+    },
+    # v6: one record per lane per chunk of a batch
+    "batch_lane": {
+        "chunk": (int,), "t": (int,), "lane": (int,),
+        "energy": _OPT_NUM, "div_l2": _OPT_NUM, "div_linf": _OPT_NUM,
+        "max_e": _OPT_NUM, "max_h": _OPT_NUM, "finite": (bool,),
+    },
+    # v7: SLO alerts and the run-registry rows
+    "alert": {
+        "rule": (str,), "t_start": (int,), "t_end": (int,),
+        "value": _OPT_NUM, "threshold": _OPT_NUM, "message": (str,),
+    },
+    "run_begin": {
+        "run_id": (str,), "status": (str,), "kind": (str,),
+        "wall_time": (str,), "git_sha": (str,), "platform": (str,),
+    },
+    "run_final": {
+        "run_id": (str,), "status": (str,), "t": (int,),
+        "steps": (int,), "wall_s": _NUM, "mcells_per_s": _NUM,
+    },
+    # v8: the job queue's journal rows
+    "job_submit": {
+        "job_id": (str,), "tenant": (str,), "status": (str,),
+        "priority": (int,), "wall_time": (str,), "spec": (str,),
+        "cells": _NUM,
+    },
+    "job_state": {
+        "job_id": (str,), "tenant": (str,), "status": (str,),
+    },
+    # v9: the causal trace plane's spans
+    "span": {
+        "name": (str,), "trace_id": (str,), "span_id": (str,),
+        "t0": _NUM, "t1": _NUM,
+    },
+    # v10: heartbeats and the watcher's liveness verdicts
+    "heartbeat": {
+        "emitter": (str,), "pid": (int,), "host": (str,),
+        "seq": (int,), "unix": _NUM, "t": _OPT_NUM,
+    },
+    "liveness": {
+        "emitter": (str,), "status": (str,), "last_unix": _NUM,
+        "last_t": _OPT_NUM, "deadline_s": _NUM, "silent_s": _NUM,
+        "message": (str,),
+    },
+    # v11: the multi-scheduler lease rows
+    "lease_acquire": {
+        "sched": (str,), "pid": (int,), "host": (str,),
+        "start": _NUM, "token": (int,), "unix": _NUM, "ttl_s": _NUM,
+    },
+    "lease_renew": {
+        "sched": (str,), "pid": (int,), "host": (str,),
+        "start": _NUM, "token": (int,), "unix": _NUM, "ttl_s": _NUM,
+    },
+    "lease_release": {
+        "sched": (str,), "pid": (int,), "host": (str,),
+        "start": _NUM, "token": (int,), "unix": _NUM, "ttl_s": _NUM,
+    },
+}
+
+# Documented optional keys per record type (the reference's table; the
+# port's writers add torch_version/cuda_version to run_start, which the
+# validator allows as extra keys).
+RECORD_OPTIONAL: Dict[str, tuple] = {
+    "run_start": ("scheme", "grid", "dtype", "topology", "step_kind",
+                  "vmem_rung", "tile", "comm_strategy", "ghost_depth",
+                  "aot_cache", "batch", "run_id", "tb_fallback",
+                  "job_id", "batch_fallback", "trace_id", "span_id",
+                  "parent_span_id"),
+    "run_end": ("compile_ms", "aot_cache"),
+    "ladder_downgrade": ("old_ghost_depth", "new_ghost_depth"),
+    "attribution": ("host_spans_ms", "per_core", "imbalance",
+                    "ledger_step_kind", "roofline"),
+    "imbalance": ("nonfinite_chips", "lane", "group"),
+    "per_chip": ("lane", "group"),
+    "run_begin": ("scheme", "grid", "dtype", "topology", "step_kind",
+                  "ghost_depth", "batch", "jax_version",
+                  "device_kind", "config_fp", "exec_key_comparable",
+                  "telemetry_path", "metrics_path", "save_dir",
+                  "trace_dir", "job_id", "tenant", "trace_id"),
+    "run_final": ("recovery_events", "unhealthy_lanes",
+                  "first_unhealthy_t", "compile_ms", "aot_cache",
+                  "exit_reason", "trace_id"),
+    "batch_lane": ("trace_id", "span_id", "parent_span_id"),
+    "job_submit": ("unix", "resume", "time_steps", "trace_id",
+                   "span_id", "age_base"),
+    "job_state": ("run_id", "reason", "wait_s", "topology", "group",
+                  "lane", "t", "excluded_chips", "unix",
+                  "resumed_from", "trace_id", "span_id",
+                  "parent_span_id", "fence", "sched"),
+    "span": ("parent_span_id", "attrs", "job_id", "tenant", "run_id",
+             "lane", "group"),
+    "heartbeat": ("run_id", "trace_id", "job_id", "cadence_s"),
+    "liveness": ("run_id", "trace_id", "job_id", "pid", "host"),
+    "lease_acquire": ("takeover_from", "reason"),
+    "lease_renew": ("takeover_from", "reason"),
+    "lease_release": ("takeover_from", "reason"),
+}
+
+# keys/record types that exist only from a schema version on: skipped
+# (keys) or rejected (types) when validating an older record
+_V2_ONLY_KEYS = {"run_start": ("device_kind", "hbm_gbps")}
+_V5_ONLY_KEYS = {"retry": ("chip", "host"),
+                 "rollback": ("chip", "host"),
+                 "degrade": ("chip", "host")}
+_SINCE = {2: ("attribution",), 3: ("retry", "rollback", "degrade"),
+          4: ("per_chip", "imbalance"), 5: ("topology_change",),
+          6: ("batch_lane",), 7: ("alert", "run_begin", "run_final"),
+          8: ("job_submit", "job_state"), 9: ("span",),
+          10: ("heartbeat", "liveness"),
+          11: ("lease_acquire", "lease_renew", "lease_release")}
+
+
+def validate_record(rec: Dict[str, Any]) -> None:
+    """Raise ValueError when a record violates its declared schema
+    version (writers emit v11; v1-v10 files remain readable)."""
+    if not isinstance(rec, dict):
+        raise ValueError(f"record is not an object: {rec!r}")
+    v = rec.get("v")
+    if v not in READ_VERSIONS:
+        raise ValueError(f"record schema version {v!r} not in "
+                         f"{READ_VERSIONS}")
+    rtype = rec.get("type")
+    if rtype not in RECORD_SCHEMA or any(
+            v < since and rtype in types for since, types in _SINCE.items()):
+        raise ValueError(f"unknown record type {rtype!r}")
+    for key, types in RECORD_SCHEMA[rtype].items():
+        if v == 1 and key in _V2_ONLY_KEYS.get(rtype, ()):
+            continue
+        if v < 5 and key in _V5_ONLY_KEYS.get(rtype, ()):
+            continue
+        if key not in rec:
+            raise ValueError(f"{rtype} record missing {key!r}: {rec}")
+        val = rec[key]
+        # bool is an int subclass: only accept it where bool is listed
+        if isinstance(val, bool) and bool not in types:
+            raise ValueError(f"{rtype}.{key} is bool, expected "
+                             f"{types}: {rec}")
+        if not isinstance(val, types):
+            raise ValueError(f"{rtype}.{key} has type "
+                             f"{type(val).__name__}, expected {types}")
+
+
+# --------------------------------------------------------------------------
+# the sink
+# --------------------------------------------------------------------------
+
+# the recovery record types the sink tallies
+RECOVERY_TYPES = ("retry", "rollback", "degrade", "topology_change")
+
+
+def _scrub(v):
+    """Non-finite floats -> None, recursively: NaN/Infinity literals are
+    not JSON and would break strict readers on exactly the unhealthy
+    runs the recorder exists for (``finite`` carries the state)."""
+    if isinstance(v, float) and not math.isfinite(v):
+        return None
+    if isinstance(v, (list, tuple)):
+        return [_scrub(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _scrub(x) for k, x in v.items()}
+    return v
+
+
+class TelemetrySink:
+    """Append-only JSONL writer of the flight recorder.
+
+    Every record is validated at write time (a malformed record is a bug
+    of the writer, not of the reader) and flushed. The file is opened in
+    append mode, so several runs can share one path, each delimited by
+    its own run_start/run_end pair. ``path=None`` is a file-less sink
+    that validates and tallies only."""
+
+    def __init__(self, path: Optional[str],
+                 run_meta: Optional[Dict] = None):
+        self.path = path
+        self._fh = None
+        self.n_records = 0
+        self.steps_total = 0
+        self.wall_total = 0.0
+        self.first_unhealthy_t: Optional[int] = None
+        self.recovery_counts: Dict[str, int] = {
+            k: 0 for k in RECOVERY_TYPES}
+        self._closed = False
+        if path is not None:
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
+            self._fh = open(path, "a")
+        if run_meta is not None:
+            self.emit("run_start", **run_meta)
+
+    def emit(self, rec_type: str, **fields) -> Dict[str, Any]:
+        rec = {"v": SCHEMA_VERSION, "type": rec_type,
+               **{k: _scrub(v) for k, v in fields.items()}}
+        validate_record(rec)
+        if rec_type == "chunk":
+            self.steps_total += rec["steps"]
+            self.wall_total += rec["wall_s"]
+            if not rec["finite"] and self.first_unhealthy_t is None:
+                # a bound: the first bad step is in (t - steps, t]
+                self.first_unhealthy_t = rec["t"]
+        if rec_type in self.recovery_counts:
+            self.recovery_counts[rec_type] += 1
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
+        self.n_records += 1
+        return rec
+
+    def emit_chunk(self, chunk: int, t: int, steps: int, wall_s: float,
+                   cells: float, health: Dict[str, Any],
+                   vmem_rung: int = 0) -> Dict[str, Any]:
+        """The per-chunk record from a ``readback`` dict and the wall."""
+        mcps = cells * steps / wall_s / 1e6 if wall_s > 0 else 0.0
+        return self.emit(
+            "chunk", chunk=chunk, t=t, steps=steps,
+            wall_s=float(wall_s), mcells_per_s=float(mcps),
+            energy=health["energy"], div_l2=health["div_l2"],
+            div_linf=health["div_linf"],
+            max_e=health["max_e"], max_h=health["max_h"],
+            finite=bool(health["finite"]), vmem_rung=int(vmem_rung))
+
+    def abandon(self) -> None:
+        """Drop the sink without a run_end record (the stream then ends
+        as a killed process leaves it), releasing the file."""
+        self._closed = True
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+    def close(self, t: int = 0, **extra) -> None:
+        """Write run_end (idempotent) and close the file."""
+        if self._closed:
+            return
+        self._closed = True
+        mcps = extra.pop("mcells_per_s", None) or 0.0
+        self.emit("run_end", t=int(t), steps=self.steps_total,
+                  wall_s=self.wall_total, mcells_per_s=float(mcps),
+                  first_unhealthy_t=self.first_unhealthy_t, **extra)
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+def pct_summary(vals) -> Dict[str, float]:
+    """``{"p50", "p95", "max"}`` of a value list (zeros when empty): the
+    per-chunk statistics of ``profiling.StepClock.summary`` and of the
+    reference's report tools."""
+    if not vals:
+        return {"p50": 0.0, "p95": 0.0, "max": 0.0}
+    arr = np.asarray(list(vals), dtype=np.float64)
+    return {"p50": float(np.percentile(arr, 50)),
+            "p95": float(np.percentile(arr, 95)),
+            "max": float(arr.max())}
+
+
+def split_runs(records):
+    """Group a validated record list into runs at run_start markers (a
+    truncated head without a run_start still forms a run)."""
+    runs, cur = [], None
+    for rec in records:
+        if rec["type"] == "run_start":
+            if cur:
+                runs.append(cur)
+            cur = [rec]
+        else:
+            if cur is None:
+                cur = []
+            cur.append(rec)
+    if cur:
+        runs.append(cur)
+    return runs
+
+
+def read_jsonl(path: str):
+    """Parse and validate a telemetry JSONL file -> list of records."""
+    out = []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError as exc:
+                raise ValueError(f"{path}:{i + 1}: not JSON: {exc}")
+            validate_record(rec)
+            out.append(rec)
+    return out

@@ -270,15 +270,20 @@ def test_nan_in_one_lane_flips_only_its_flag():
 
 
 def test_lane_health_reduction():
-    """One (B,) reduction over lane-leading leaves: NaN and inf flip
-    their lane only."""
-    health = telemetry.make_lane_health_fn()
-    state = {"E": torch.zeros(3, 3, 4, 4, 4), "inc": {
-        "Einc": torch.zeros(3, 10)}, "t": 4}
-    assert telemetry.lanes_finite(health(state)) == [True] * 3
-    state["E"][2, 1, 0, 0, 0] = float("inf")
-    state["inc"]["Einc"][0, 3] = float("nan")
-    assert telemetry.lanes_finite(health(state)) == [False, True, False]
+    """One health pass over lane-leading leaves, read back once: NaN and
+    inf flip their lane only, in a field and in a leaf outside E/H."""
+    bsim = BatchSimulation([to_port(c) for c in lane_cfgs("spheres")]
+                           + [to_port(lane_cfgs("spheres")[0])],
+                           device="cpu")
+    health = telemetry.make_lane_health_fn(bsim.static)
+    state = bsim._dict_view()
+    hv = telemetry.readback(health(state))
+    assert hv["finite"] == [True] * 3
+    state["E"]["Ey"][2, 1, 0, 0] = float("inf")
+    next(iter(state["J"].values()))[0, 3, 3, 3] = float("nan")
+    hv = telemetry.readback(health(state))
+    assert hv["finite"] == [False, True, False]
+    assert hv["max_e"][1] == 0.0 and hv["max_e"][2] is None
 
 
 @pytest.mark.parametrize("what", ["size", "float32x2", "batch_max",
@@ -347,15 +352,39 @@ def test_cli_batch_prints_the_reference_lines(tmp_path):
     assert any(ln.startswith("done: 2 lanes x 6 steps in ") for ln in got)
 
 
-@pytest.mark.parametrize("flag,item", [("--profile", "A14"),
-                                       ("--telemetry=t.jsonl", "A5"),
-                                       ("--metrics=m.txt", "A15"),
+@pytest.mark.parametrize("flag,item", [("--metrics=m.txt", "A15"),
                                        ("--ntff", r"A13\(b\)"),
                                        ("--save-materials", r"A13\(b\)")])
 def test_cli_batch_unported_flags_raise(tmp_path, flag, item):
     paths = _spec_files(tmp_path, (1.0, 2.0))
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(["--batch", *paths, flag, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--profile", "--telemetry"])
+def test_cli_batch_observability_flags(tmp_path, capsys, flag):
+    """--profile with --batch logs that a batch keeps no clock (as the
+    reference's batch has none) and runs; --telemetry writes the batch's
+    stream: run_start with the lane count, one batch_lane row per lane
+    per chunk and the aggregate chunk record, run_end."""
+    import json
+    paths = _spec_files(tmp_path, (1.0, 2.0))
+    tel = tmp_path / "t.jsonl"
+    arg = "--profile" if flag == "--profile" else f"--telemetry={tel}"
+    assert tcli.main(["--batch", *paths, arg, "--batch-chunk", "3",
+                      "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "batch lane 1: healthy" in out
+    if flag == "--profile":
+        assert "profile: a batch keeps no per-chunk clock" in out
+        return
+    recs = [json.loads(ln) for ln in tel.read_text().splitlines()]
+    assert recs[0]["type"] == "run_start" and recs[0]["batch"] == 2
+    assert recs[0]["batch_fallback"] == "batch_unsupported:pallas_disabled"
+    assert [(r["t"], r["lane"]) for r in recs if r["type"] == "batch_lane"] \
+        == [(3, 0), (3, 1), (6, 0), (6, 1)]
+    assert [r["t"] for r in recs if r["type"] == "chunk"] == [3, 6]
+    assert recs[-1]["type"] == "run_end" and recs[-1]["steps"] == 6
 
 
 def test_run_batch_and_lane_stacked_conversions():

@@ -57,14 +57,45 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
 
 @pytest.mark.parametrize("flag,item", [
     (["--checkpoint-backend", "orbax"], "A11"),
-    (["--metrics-every", "5"], "A5"),
-    (["--per-chip-telemetry"], "A5"), (["--profile"], "A14"),
-    (["--num-processes", "2"], "A11"), (["--telemetry", "x.jsonl"], "A5"),
+    (["--num-processes", "2"], "A11"), (["--metrics", "m.txt"], "A15"),
     (["--complex-field-values"], "A10"),
 ])
 def test_cli_flags_outside_the_slice_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(["--3d", "--same-size", "16", "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("flag", ["--metrics-every", "--per-chip-telemetry",
+                                  "--profile", "--telemetry"])
+def test_cli_observability_flags_run(tmp_path, capsys, flag):
+    """The flags of the health and profiling slice run on the CPU and
+    leave their output: metrics.jsonl records at each cadence step, the
+    per_chip records, the profile line, the telemetry file."""
+    import json
+    tel = tmp_path / "t.jsonl"
+    extra = {"--metrics-every": ["--metrics-every", "2"],
+             "--per-chip-telemetry": ["--per-chip-telemetry",
+                                      "--telemetry", str(tel)],
+             "--profile": ["--profile"],
+             "--telemetry": ["--telemetry", str(tel)]}[flag]
+    assert tcli.main(["--3d", "--same-size", "16", "--time-steps", "4",
+                      "--point-source", "Ez", "--device", "cpu",
+                      "--save-dir", str(tmp_path)] + extra) == 0
+    out = capsys.readouterr().out
+    if flag == "--metrics-every":
+        rows = [json.loads(ln) for ln in
+                (tmp_path / "metrics.jsonl").read_text().splitlines()]
+        assert [r["t"] for r in rows] == [2.0, 4.0]
+        assert all(r["energy"] > 0 for r in rows)
+    elif flag == "--profile":
+        assert "profile: 4 steps in " in out
+    else:
+        recs = [json.loads(ln) for ln in tel.read_text().splitlines()]
+        types = [r["type"] for r in recs]
+        assert types[0] == "run_start" and types[-1] == "run_end"
+        assert types.count("chunk") == 1
+        assert types.count("per_chip") == (flag == "--per-chip-telemetry")
+        assert f"telemetry: {len(recs)} records -> {tel}" in out
 
 
 PRECISION = os.path.join(ROOT, "Examples", "precision3D_float32x2.txt")

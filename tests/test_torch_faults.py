@@ -1,6 +1,7 @@
 """Deterministic fault injection in the PyTorch port, on the CPU (the
-cases of tests/test_faults.py without the chip- and host-scoped faults
-and the telemetry sink, which wait for ROADMAP.md items A11 and A5).
+cases of tests/test_faults.py without the chip- and host-scoped faults,
+which wait for ROADMAP.md item A11; the telemetry records of a trip are
+held in tests/test_torch_telemetry.py).
 
 * The plan grammar parses as the reference's; the kinds and scopes the
   port does not fire raise NotImplementedError naming their item when

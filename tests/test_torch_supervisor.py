@@ -1,6 +1,7 @@
 """The PyTorch port's durable-run supervisor on the CPU (the cases of
-tests/test_supervisor.py without the topology ladder and the telemetry
-records, which wait for ROADMAP.md items A11 and A5).
+tests/test_supervisor.py without the topology ladder, which waits for
+ROADMAP.md item A11; the supervisor's telemetry records are held in
+tests/test_torch_telemetry.py).
 
 * ``run_with_retry``: attempts and errors recorded, exhaustion keeps the
   record, non-transient errors propagate at once.
