@@ -314,8 +314,32 @@ health pass is torch ops on views of the carry the kernels leave):
    DIR`` on a 64^3 run: the trace holds the chunk, readback and health
    spans and device kernels.
 
-``--only 27,28,29`` runs these phases alone after the build and prints
-their JSON (no kernels or ok line).
+Complex field values (no kernel is new: a complex run is two real legs,
+each on the packed twin ``csrc/packed_eh.cu``, two launches a leg a
+step):
+
+30. (a) one paired step, then 10, against the native complex plain step
+   on the card from the same seeded complex state, the real and the
+   imaginary parts of E, H, psi, J/K and the incident line at ``TOL`` of
+   their family's max: vacuum3D_tfsf at 256^3, 128^3 with an eps sphere
+   and a Drude sphere, 128^3 with a double-negative sphere (J and K);
+   (b) vacuum3D_tfsf at 256^3, 150 steps, ``--complex-field-values``
+   through the CLI with DAT dumps, ``--check-finite`` and
+   ``--telemetry``: kind ``complex2x_packed_cuda``, token
+   ``paired_complex``, 300 launches of each packed family and no tb
+   pass, finite ``<c8`` dumps, one run_start/run_end; the same argv
+   real under ``FDTD3D_NO_TEMPORAL``: the re parts bit-equal to its
+   dumps, the im parts exactly 0; (c) at 256^3 in one call the paired
+   step's ms beside the real packed and tb steps', pack and unpack, the
+   packed launches on a leg against their plain versions and bounds;
+   set-up, Mcells/s and peak memory of 20 complex and 20 real steps at
+   256^3 and 512^3; (d) the 64^3 dipole, complex, with ``--ntff``: the
+   pattern within ``COMPLEX_PATTERN_TOL`` of the real run's, the im leg
+   0; ``--supervise`` with a NaN at t=168: one rollback and one
+   degrade, complex kinds on both rungs.
+
+``--only 27,28,29,30`` runs these phases alone after the build and
+prints their JSON (no kernels or ok line).
 
 The packed and two-pass kernels' bound counts each coefficient grid
 inside the box outside which it holds its background value
@@ -327,7 +351,7 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
 ``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25, and
-each CLI run of 26-29 in this process) resets the counts just before
+each CLI run of 26-30 in this process) resets the counts just before
 it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -4310,14 +4334,356 @@ def observability(dev):
     return rec
 
 
+# --------------------------------------------------------------------------
+# complex field values: the paired real legs on the packed twin (phase 30)
+# --------------------------------------------------------------------------
+
+COMPLEX_DIR = os.path.join(OUT_DIR, "complex")
+COMPLEX = ["--complex-field-values"]
+# phase 30 (d): the complex dipole's far-field pattern against the real
+# run's (the re leg is the real run, the im leg stays 0)
+COMPLEX_PATTERN_TOL = 1e-6
+
+
+def complex_parts(state):
+    """(real parts, imaginary parts) of a complex dict-form state, as two
+    trees of contiguous real tensors."""
+    from fdtd3d_torch.solver import _complex_parts
+    import torch
+    return _complex_parts(state, torch.real), _complex_parts(state,
+                                                             torch.imag)
+
+
+def seed_legs(sim, dev, seed):
+    """Seeded 0.01 N(0, 1) E, H and J/K in both legs of a paired
+    complex sim's carry (a different draw for each leg)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for part in ("re", "im"):
+        carry = sim._carry[part]
+        for key in ("E", "H", "J", "K"):
+            if key in carry:
+                carry[key].copy_(0.01 * torch.randn(
+                    carry[key].shape, generator=g, device=dev))
+
+
+def paired_vs_plain(cfg, dev, seed, label, steps=STEPS_CMP):
+    """One paired step (both legs on the CUDA kernels) and then
+    ``steps`` against the native-complex plain step on the card from the
+    same seeded complex state, the real and the imaginary parts of every
+    leaf (E, H, psi, J/K, the incident line) gated at ``TOL`` of their
+    family's max; -> (worst error, the sim's kind)."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    from fdtd3d_torch.solver import build_static, make_plain_step
+    sim = Simulation(cfg, device=dev)
+    if sim.step_kind not in ("complex2x_packed_cuda",):
+        fail(f"{label}: ran {sim.step_kind}, not complex2x_packed_cuda")
+    seed_legs(sim, dev, seed)
+    native = build_static(cfg)        # no device: the native route
+    plain = make_plain_step(native)
+    want = sim.state                  # the joined complex state (copies)
+    step = sim._runner
+    worst = 0.0
+    for n in (1, steps):
+        sim.advance(n)
+        for _ in range(n):
+            want = plain(want, sim.coeffs)
+        torch.cuda.synchronize()
+        got = sim._dict_view()
+        for part, g, w in zip(("re", "im"), complex_parts(got),
+                              complex_parts(want)):
+            worst = max(worst, compare(g, w, f"{label}: {n} step(s), {part}",
+                                       family=True))
+        del got
+    say(f"{label}: the paired legs ({step.kind}) match the native complex "
+        f"plain step over 1 + {steps} steps (max abs err {worst:.3e})")
+    del sim, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def complex_kernels(dev):
+    """Phase 30 (a): the paired legs against the native complex plain
+    step at 256^3 (vacuum3D_tfsf, BASELINE config #3's full width), at
+    128^3 with an eps sphere and a Drude sphere (grids, J) and with a
+    double-negative sphere (K)."""
+    mie = ["--same-size", "128", "--eps-sphere-center-x", "64",
+           "--eps-sphere-center-y", "64", "--eps-sphere-center-z", "64",
+           "--eps-sphere-radius", "16", "--use-drude", "--eps-inf", "4.0",
+           "--omega-p", "1e12", "--gamma-d", "5e10",
+           "--drude-sphere-center-x", "64", "--drude-sphere-center-y",
+           "64", "--drude-sphere-center-z", "64",
+           "--drude-sphere-radius", "12", "--topology", "none"]
+    return {
+        "vacuum_256": paired_vs_plain(
+            config(EXAMPLE, ["--same-size", "256"] + COMPLEX), dev, 71,
+            "complex 256^3 TFSF+CPML"),
+        "mie_128": paired_vs_plain(
+            config(MIE, mie + COMPLEX), dev, 72,
+            "complex 128^3 eps sphere + Drude sphere"),
+        "dng_128": paired_vs_plain(
+            config(MIE, dng_flags(128, 10) + COMPLEX), dev, 73,
+            "complex 128^3 double-negative sphere (J and K)")}
+
+
+def complex_main_path(steps=150):
+    """Phase 30 (b): vacuum3D_tfsf at 256^3, ``steps`` steps, complex,
+    through the CLI with DAT dumps, ``--check-finite`` and
+    ``--telemetry``: the kind and token, 2 x ``steps`` packed launches a
+    family and no tb pass, finite ``<c8`` dumps, one run_start/run_end;
+    then the same argv real under ``FDTD3D_NO_TEMPORAL``: the re parts
+    bit-equal to its dumps, the im parts exactly 0."""
+    import numpy as np
+    from fdtd3d_torch import telemetry
+    from fdtd3d_torch.io import load_dat
+    dirs = {k: os.path.join(COMPLEX_DIR, f"main_{k}")
+            for k in ("complex", "real")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    tel = os.path.join(dirs["complex"], "t.jsonl")
+    base = ["--cmd-from-file", EXAMPLE, "--same-size", "256",
+            "--time-steps", str(steps), "--save-res", str(steps),
+            "--check-finite"]
+    log, _err, launches, wall, peak = cli_logged(
+        base + COMPLEX + ["--telemetry", tel, "--save-dir",
+                          dirs["complex"]], "complex main path")
+    want = dict({k: 0 for k in launches}, e_update=2 * steps,
+                h_update=2 * steps)
+    got = dict(launches)
+    if got != want:
+        fail(f"complex main path: launches {got} != {want}")
+    if "step_kind=complex2x_packed_cuda tb_fallback=paired_complex" \
+            not in log:
+        fail("complex main path: not complex2x_packed_cuda with the "
+             "paired_complex token")
+    recs = telemetry.read_jsonl(tel)      # every record validated
+    types = [r.get("type") for r in recs]
+    if types.count("run_start") != 1 or types.count("run_end") != 1:
+        fail(f"complex main path: records {types}")
+    os.environ["FDTD3D_NO_TEMPORAL"] = "1"
+    try:
+        rlog, _e, rlaunches, rwall, rpeak = cli_logged(
+            base + ["--save-dir", dirs["real"]], "real, FDTD3D_NO_TEMPORAL")
+    finally:
+        os.environ.pop("FDTD3D_NO_TEMPORAL")
+    if "step_kind=packed_cuda" not in rlog:
+        fail("the real run under FDTD3D_NO_TEMPORAL is not packed_cuda")
+    re_equal, im_zero = True, True
+    for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
+        name = f"{c}_t{steps:06d}.dat"
+        z = load_dat(os.path.join(dirs["complex"], name))
+        r = load_dat(os.path.join(dirs["real"], name))
+        with open(os.path.join(dirs["complex"], name + ".manifest.json")) \
+                as f:
+            dtype = json.load(f)["dtype"]
+        if z.shape != (256, 256, 256) or dtype != "<c8" \
+                or not np.isfinite(z).all():
+            fail(f"{c}: bad complex dump ({z.shape}, {dtype}, or "
+                 f"non-finite)")
+        re_equal &= bool(np.array_equal(z.real.view(np.uint32),
+                                        r.view(np.uint32)))
+        im_zero &= not bool(np.any(z.imag))
+    rec = {"steps": steps, "launches": got, "wall_s": wall,
+           "mcells_per_s": done_mcps(log), "peak_mem_bytes": peak,
+           "real_wall_s": rwall, "real_mcells_per_s": done_mcps(rlog),
+           "real_peak_mem_bytes": rpeak,
+           "real_launches": {k: rlaunches[k]
+                             for k in ("tb_pass", "e_update", "h_update")},
+           "re_bit_equal_to_real": re_equal, "im_exactly_zero": im_zero,
+           "records": len(recs)}
+    say(f"complex main path: {json.dumps(rec)}")
+    if not (re_equal and im_zero):
+        fail(f"complex main path: superposition gate failed (re bit-equal "
+             f"{re_equal}, im zero {im_zero})")
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def complex_times(dev, reps=50, plain_reps=3):
+    """Phase 30 (c): at 256^3 in one call, CUDA-event ms of the paired
+    step (its two legs' launches and patches), of the real packed step
+    (the leg's own configuration) and of the real tb step (a pass / 2),
+    of pack and unpack, and of each packed launch on a leg beside its
+    plain version and bound (the ``kernels`` line's complex rows); then
+    peak device memory of 20 complex and 20 real steps at 256^3 and 512^3
+    (vacuum3D_tfsf), with set-up seconds and Mcells/s."""
+    import gc
+
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb
+    from fdtd3d_torch.sim import Simulation
+    from fdtd3d_torch.solver import build_static, make_step
+    cfg = config(EXAMPLE, ["--same-size", "256"] + COMPLEX)
+    sim = Simulation(cfg, device=dev)
+    sim.advance(150)                    # a wave on the grid
+    pstep = make_step(sim.static, dev)
+    pcc = pstep.prepare(sim.coeffs)
+    carry = sim._carry
+    paired_ms = timed(lambda: pstep(carry, pcc), reps)
+    state = sim.state
+    pack_ms = timed(lambda: pstep.pack(state), 5)
+    unpack_ms = timed(lambda: pstep.unpack(carry), 5)
+    del state
+    leg = carry["re"]
+    cc = pcc["re"]
+    e_ms = timed(lambda: packed.e_update(leg["E"], leg["H"], leg.get("J"),
+                                         leg["psE"], cc["E"]), reps)
+    h_ms = timed(lambda: packed.h_update(leg["H"], leg["E"], leg["psH"],
+                                         cc["H"]), reps)
+    e_plain = timed(lambda: packed.e_update_plain(
+        leg["E"], leg["H"], leg.get("J"), leg["psE"], cc["E"]), plain_reps)
+    h_plain = timed(lambda: packed.h_update_plain(
+        leg["H"], leg["E"], leg["psH"], cc["H"]), plain_reps)
+    bound = {}
+    for fam in ("E", "H"):
+        t_bytes = family_bytes(leg, cc, fam) / HBM_BYTES_PER_S * 1e3
+        t_ops = family_flops(leg, fam) / F32_FLOPS * 1e3
+        bound[fam] = (max(t_bytes, t_ops),
+                      "bytes" if t_bytes >= t_ops else "operations")
+    real = build_static(config(EXAMPLE, ["--same-size", "256"]))
+    rstep = packed.make_packed_step(real, dev)
+    rcc = rstep.prepare(sim.coeffs)
+    packed_ms = timed(lambda: rstep(leg, rcc), reps)
+    tb = packed_tb.make_packed_tb_step(real, dev)
+    tcc = tb.prepare(sim.coeffs)
+    tb_carry = {k: clone_carry(v) for k, v in leg.items()}
+    tb_ms = timed(lambda: tb(tb_carry, tcc), reps) / 2
+    del tb_carry, tb, tcc, rstep, rcc, pstep, pcc, leg, cc, carry, sim
+    cells = 256 ** 3
+    rec = {"paired_step_ms": paired_ms, "real_packed_step_ms": packed_ms,
+           "real_tb_step_ms": tb_ms, "pack_ms": pack_ms,
+           "unpack_ms": unpack_ms,
+           "paired_over_packed": paired_ms / packed_ms,
+           "paired_over_tb": paired_ms / tb_ms,
+           "mcells_per_s": cells / (paired_ms * 1e-3) / 1e6,
+           "e_update_ms": e_ms, "h_update_ms": h_ms,
+           "e_plain_ms": e_plain, "h_plain_ms": h_plain,
+           "e_bound_ms": bound["E"][0], "e_bound_by": bound["E"][1],
+           "h_bound_ms": bound["H"][0], "h_bound_by": bound["H"][1]}
+    say(f"complex times at 256^3: {json.dumps(rec)}")
+    for size in (256, 512):
+        for label, extra in (("complex", COMPLEX), ("real", [])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            s = Simulation(config(EXAMPLE, ["--same-size", str(size),
+                                            "--check-finite"] + extra),
+                           device=dev)
+            s.advance(2)
+            torch.cuda.synchronize()
+            setup = time.time() - t0
+            t0 = time.time()
+            s.advance(20)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            r = {"step_kind": s.step_kind, "setup_s": setup, "wall_s": wall,
+                 "mcells_per_s": size ** 3 * 20 / wall / 1e6,
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            rec[f"{label}_{size}"] = r
+            say(f"{label} {size}^3, 20 steps: {json.dumps(r)}")
+            del s
+    for size in (256, 512):
+        rec[f"peak_ratio_{size}"] = rec[f"complex_{size}"][
+            "peak_mem_bytes"] / rec[f"real_{size}"]["peak_mem_bytes"]
+    torch.cuda.empty_cache()
+    return rec
+
+
+def complex_dipole(n=64, steps=240):
+    """Phase 30 (d): the 64^3 z dipole complex with ``--ntff``: the
+    pattern within ``COMPLEX_PATTERN_TOL`` of the real run's (under
+    ``FDTD3D_NO_TEMPORAL``: the same packed kernels), the im leg 0 at
+    the end; then ``--supervise`` with a NaN at t=168: one rollback and
+    one degrade, complex kinds on both rungs."""
+    import numpy as np
+    import torch
+    from fdtd3d_torch import faults
+    base = ["--3d", "--same-size", str(n), "--time-steps", str(steps),
+            "--courant-factor", "0.5", "--wavelength", "12e-3",
+            "--use-pml", "--pml-size", "8", "--point-source", "Ez",
+            "--ntff", "--ntff-margin", "8", "--checkpoint-every", "24"]
+    cfg = config(os.devnull, base)
+    dirs = {k: os.path.join(COMPLEX_DIR, f"dipole_{k}")
+            for k in ("complex", "real", "supervised")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    with NtffProbe() as probe:
+        log, _e, launches, wall, _p = cli_logged(
+            base + COMPLEX + ["--save-dir", dirs["complex"]],
+            "complex dipole")
+    legs = probe.col.sim.component_legs()
+    im_zero = all(not bool(torch.any(v)) for v in legs[1].values())
+    probe.col = None
+    del legs
+    os.environ["FDTD3D_NO_TEMPORAL"] = "1"
+    try:
+        cli_logged(base + ["--save-dir", dirs["real"]], "real dipole")
+    finally:
+        os.environ.pop("FDTD3D_NO_TEMPORAL")
+    rel = float(np.abs(read_pattern(dirs["complex"], cfg, "complex dipole")
+                       - read_pattern(dirs["real"], cfg, "real dipole"))
+                .max())
+    faults.clear()
+    os.environ["FDTD3D_FAULT_PLAN"] = "nan@t=168"
+    try:
+        slog, serr, slaunches, swall, _p = cli_logged(
+            base + COMPLEX + ["--supervise", "--save-dir",
+                              dirs["supervised"]], "complex dipole supervised")
+    finally:
+        os.environ.pop("FDTD3D_FAULT_PLAN")
+        faults.clear()
+    rungs = [ln.split("degraded ")[1].split(" -> ") for ln in
+             serr.splitlines() if "degraded " in ln]
+    rec = {"n": n, "steps": steps, "wall_s": wall,
+           "launches": {k: launches[k] for k in ("tb_pass", "e_update",
+                                                  "h_update")},
+           "pattern_rel_vs_real": rel, "im_leg_zero": im_zero,
+           "supervised_wall_s": swall, "degrades": rungs,
+           "supervised_launches": {k: v for k, v in slaunches.items()
+                                   if k in ("e_update", "h_update",
+                                            "fused_eh", "e_family",
+                                            "h_family", "tb_pass")}}
+    say(f"complex dipole: {json.dumps(rec)}")
+    if "step_kind=complex2x_packed_cuda" not in log or not im_zero:
+        fail(f"complex dipole: not complex2x_packed_cuda, or the im leg "
+             f"is not 0 ({im_zero})")
+    if not rel <= COMPLEX_PATTERN_TOL:
+        fail(f"complex dipole: pattern {rel:.3e} from the real run's")
+    if "1 rollbacks, 1 ladder degrades (now complex2x_" not in slog \
+            or len(rungs) != 1 \
+            or not all(r.strip().startswith("complex2x_") and
+                       r.strip().endswith("_cuda") for r in rungs[0]):
+        fail(f"complex dipole supervised: {rungs}, {slog[-300:]}")
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def complex_fields(dev):
+    """Phase 30: complex field values as paired real legs on the packed
+    twin: kernels against the native complex plain step, the CLI main
+    path and its superposition gate, the times and peak memory, the
+    complex dipole's far field and a supervised NaN."""
+    shutil.rmtree(COMPLEX_DIR, ignore_errors=True)
+    rec = {"max_abs_err": complex_kernels(dev),
+           "main_path": complex_main_path(),
+           "times": complex_times(dev),
+           "dipole": complex_dipole()}
+    shutil.rmtree(COMPLEX_DIR, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
-    ap.add_argument("--only", default=None, metavar="27,28,29",
-                    help="run only these of phases 27, 28 and 29 (after the "
-                         "build) and print their JSON, without the kernels "
-                         "line and the closing ok line")
+    ap.add_argument("--only", default=None, metavar="27,28,29,30",
+                    help="run only these of phases 27, 28, 29 and 30 (after "
+                         "the build) and print their JSON, without the "
+                         "kernels line and the closing ok line")
     args = ap.parse_args()
 
     import torch
@@ -4360,13 +4726,16 @@ def main() -> int:
                 say(f"ptxas {lib}: {line.strip()}")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {27, 28, 29}:
-            fail(f"--only takes phases 27, 28 and 29, not {sorted(only)}")
+        if not only <= {27, 28, 29, 30}:
+            fail(f"--only takes phases 27, 28, 29 and 30, not "
+                 f"{sorted(only)}")
         for phase, key, fn in ((27, "modes", modes_and_outputs),
                                (28, "far_field",
                                 lambda: mie_far_field(dev)),
                                (29, "observability",
-                                lambda: observability(dev))):
+                                lambda: observability(dev)),
+                               (30, "complex",
+                                lambda: complex_fields(dev))):
             if phase in only:
                 t1 = time.time()
                 result[key] = fn()
@@ -4934,11 +5303,15 @@ def main() -> int:
     # ---- phase 29: health counters, the telemetry sink, profiling -------
     result["observability"] = observability(dev)
     mark("phase 29")
+    # ---- phase 30: complex fields as paired real legs on the packed twin -
+    result["complex"] = cplx = complex_fields(dev)
+    mark("phase 30")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
         "dng_ladder_256": dng_l_err, "k_lanes_128": k_lanes["max_abs_err"],
-        "comp_lanes_128": comp_lanes["max_abs_err"]})
+        "comp_lanes_128": comp_lanes["max_abs_err"],
+        "complex": cplx["max_abs_err"]})
     result["bf16_stats"] = BF16_STATS
 
     smi = subprocess.run(
@@ -5139,6 +5512,16 @@ def main() -> int:
                 "plain_ms": rec[f"{fam}_plain_ms"],
                 "bound_ms": rec[f"{fam}_bound_ms"],
                 "bound_by": rec[f"{fam}_bound_by"], "library_ms": None})
+    ct = cplx["times"]
+    for fam in ("e", "h"):
+        kernels.append({
+            "name": f"packed_eh.{fam}_update[complex legs]", "route": "cuda",
+            "source": src, "replaces": "fdtd3d_tpu/ops/pallas_packed.py:694",
+            "launches": cplx["main_path"]["launches"][f"{fam}_update"],
+            "max_abs_err": max(cplx["max_abs_err"].values()),
+            "ms": ct[f"{fam}_update_ms"], "plain_ms": ct[f"{fam}_plain_ms"],
+            "bound_ms": ct[f"{fam}_bound_ms"],
+            "bound_by": ct[f"{fam}_bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

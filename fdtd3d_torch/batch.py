@@ -260,10 +260,14 @@ class BatchSimulation:
                 "step has no lane-capable kernel (the reference refuses "
                 "them too) — run ds scenarios solo")
         if cfg0.complex_fields:
+            # the reference's message (fdtd3d_tpu/batch.py:158); the port
+            # rejects native complex lanes too: no lane-capable step
+            # runs complex arithmetic
             raise ValueError(
                 "batched execution does not support the paired-"
                 "complex path (its complex<->paired conversion routes "
-                "through host numpy); run complex scenarios solo")
+                "through host numpy, which cannot run under vmap); "
+                "run complex batches on a backend with native complex")
         out0 = cfg0.output
         if out0.metrics_path:
             raise NotImplementedError(

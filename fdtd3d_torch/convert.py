@@ -10,6 +10,10 @@ so both packages can start from identical fields (hi and lo words
 alike) and be compared in the unpacked form. Coefficients cross the
 same way, the ``*_lo`` words and the ds CPML profile pairs included.
 
+Complex fields cross as complex arrays (complex64/complex128 both
+ways); the two real legs of a paired complex run cross as two
+dict-form states under ``re``/``im``.
+
 bfloat16 leaves (bf16 fields, and the Kahan residuals ``rE``/``rH`` of
 compensated mode, bf16 in both packages): the reference keeps them as
 ``ml_dtypes`` bfloat16 arrays, which numpy sees as 2-byte void words;
@@ -64,32 +68,33 @@ def bf16_words(t: torch.Tensor) -> np.ndarray:
 
 def _to_torch(tree: Any, device) -> Any:
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device) for k, v in tree.items()}
+        return {k: int(np.asarray(v)) if k == "t" else _to_torch(v, device)
+                for k, v in tree.items()}
     return from_host(tree).to(device)
 
 
 def _to_numpy(tree: Any) -> Any:
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
+        return {k: np.asarray(v, dtype=np.int32) if k == "t"
+                else _to_numpy(v) for k, v in tree.items()}
     return to_host(tree)
 
 
 def state_from_reference(np_state: Dict[str, Any],
                          device="cpu") -> Dict[str, Any]:
     """The reference's unpacked state (numpy leaves) -> the port's
-    dict-form state on ``device``."""
-    out = {k: _to_torch(v, device) for k, v in np_state.items()
-           if k != "t"}
-    out["t"] = int(np.asarray(np_state["t"]))
-    return out
+    dict-form state on ``device``; complex leaves stay complex, and a
+    paired complex carry's legs (``{"re": leg, "im": leg, "t"}``, each
+    leg a dict-form state) cross the same way, every ``t`` a host
+    integer."""
+    return _to_torch(np_state, device)
 
 
 def state_to_reference(state: Dict[str, Any]) -> Dict[str, Any]:
     """The port's dict-form state -> the reference's unpacked form
-    (numpy leaves, ``t`` as an int32 scalar)."""
-    out = {k: _to_numpy(v) for k, v in state.items() if k != "t"}
-    out["t"] = np.asarray(state["t"], dtype=np.int32)
-    return out
+    (numpy leaves, complex ones complex, every ``t`` an int32 scalar;
+    a paired carry's legs too)."""
+    return _to_numpy(state)
 
 
 def coeffs_from_reference(np_coeffs: Dict[str, Any],

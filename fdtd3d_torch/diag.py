@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from fdtd3d_torch.layout import YEE_OFFSETS, component_axis
+from fdtd3d_torch.ops.tfsf import real_dtype
 from fdtd3d_torch.telemetry import (DIV_SLAB_CELLS, Parts, lane_minmax,
                                     max_abs, plane_norms)
 
@@ -43,9 +44,11 @@ def div_e_parts(e_state: Dict[str, torch.Tensor], e_comps: Sequence[str],
     (``fdtd3d_tpu/diag.py::div_e_parts``). Interior cells never read the
     padded plane of the backward difference, so the pass runs over
     x-slabs of at most ``slab_cells`` cells: its temporaries are a few
-    slabs in ``cast`` (the compute dtype: bf16 storage widens to f32),
-    never a whole volume. Each slab's differences are summed, then read
-    by one ``aminmax`` and one ``vector_norm``; 1/dx scales the two
+    slabs in ``cast`` (the compute dtype: bf16 storage widens to f32;
+    complex fields difference in complex and are read through the
+    modulus, as the reference's ``jnp.abs``), never a whole volume. Each
+    slab's differences are summed, then read by one ``aminmax`` and one
+    ``vector_norm``; 1/dx scales the two
     results (the reference scales each difference: an ulp apart)."""
     comps = [(c, component_axis(c)) for c in e_comps
              if component_axis(c) in active]
@@ -59,8 +62,9 @@ def div_e_parts(e_state: Dict[str, torch.Tensor], e_comps: Sequence[str],
     sizes = [max(0, shape[a] - 2) if a in active else shape[a]
              for a in range(3)]
     count = float(np.prod(sizes))
-    sumsq = torch.zeros(lanes, dtype=cast, device=v0.device)
-    linf = torch.zeros(lanes, dtype=cast, device=v0.device)
+    rdt = real_dtype(cast)
+    sumsq = torch.zeros(lanes, dtype=rdt, device=v0.device)
+    linf = torch.zeros(lanes, dtype=rdt, device=v0.device)
     if count == 0:
         return sumsq, 1.0, linf
     x0, x1 = (1, shape[0] - 1) if 0 in active else (0, shape[0])
@@ -77,6 +81,8 @@ def div_e_parts(e_state: Dict[str, torch.Tensor], e_comps: Sequence[str],
             d = torch.sub(v[tuple(cur)].to(cast), v[tuple(prev)].to(cast))
             div = d if div is None else div.add_(d)
         flat = div.reshape(lanes, -1)
+        if flat.is_complex():
+            flat = flat.abs()
         mn, mx = torch.aminmax(flat, dim=1)
         linf = torch.maximum(linf, torch.maximum(mx, -mn))
         sumsq = sumsq + torch.linalg.vector_norm(flat, dim=1).square()
@@ -180,7 +186,8 @@ def _energy_weights(sim) -> Dict[str, Tuple[float, Any, Any]]:
                     delta = np.where(mask, float(sph.value) - base, 0.0)
             if box is not None:
                 delta = torch.from_numpy(np.ascontiguousarray(delta)).to(
-                    device=sim.device, dtype=static.compute_dtype)
+                    device=sim.device,
+                    dtype=real_dtype(static.compute_dtype))
             cache[c] = (base, box, delta)
     sim._energy_weights_cache = cache
     return cache
@@ -202,21 +209,27 @@ def _device_metrics(sim) -> Dict[str, float]:
     cdt = static.compute_dtype
     cell = float(static.dx ** mode.ndim)
     weights = _energy_weights(sim)
-    view = sim._dict_view()
+    # a paired complex run's components are joined one at a time
+    comps = sim.component_views()
+    names = {g: [c for c in comps if c[0] == g] for g in ("E", "H")}
     parts = Parts()
-    for grp in ("E", "H"):
-        for c, v in view[grp].items():
-            v = v.unsqueeze(0)
-            lo, hi = lane_minmax(v)
-            parts.add(f"lo:{c}", lo)
-            parts.add(f"hi:{c}", hi)
-            parts.add(f"sq:{c}", plane_norms(v, cdt))
-            _base, box, delta = weights[c]
-            if box is not None:
-                vb = v[0][box].to(cdt)
-                parts.add(f"box:{c}", (delta * vb * vb).sum()
-                          .reshape(1, 1))
-    e = {c: v.unsqueeze(0) for c, v in view["E"].items()}
+    e = {}
+    for c in comps:
+        v = comps[c].unsqueeze(0)
+        if c[0] == "E":
+            e[c] = v
+        lo, hi = lane_minmax(v)
+        parts.add(f"lo:{c}", lo)
+        parts.add(f"hi:{c}", hi)
+        parts.add(f"sq:{c}", plane_norms(v, cdt))
+        _base, box, delta = weights[c]
+        if box is not None:
+            vb = v[0][box].to(cdt)
+            if vb.is_complex():
+                vb = vb.abs()
+            parts.add(f"box:{c}", (delta * vb * vb).sum()
+                      .reshape(1, 1))
+        del v
     sumsq, count, linf = div_e_parts(e, mode.e_components,
                                      mode.active_axes, 1.0 / static.dx,
                                      cdt)
@@ -227,7 +240,7 @@ def _device_metrics(sim) -> Dict[str, float]:
     out: Dict[str, float] = {}
     energy = 0.0
     for grp, c0 in (("E", physics.EPS0), ("H", physics.MU0)):
-        for c in view[grp]:
+        for c in names[grp]:
             lo, hi = p[f"lo:{c}"][0], p[f"hi:{c}"][0]
             out[f"max_{c}"] = hi if math.isnan(hi) else max(hi, -lo)
             base, box, _d = weights[c]
@@ -238,7 +251,7 @@ def _device_metrics(sim) -> Dict[str, float]:
     out["energy"] = energy
     out["div_l2"] = math.sqrt(p["div_sumsq"][0] / count)
     out["div_linf"] = p["div_linf"][0]
-    out["e_scale"] = max((out[f"max_{c}"] for c in view["E"]), default=0.0)
+    out["e_scale"] = max((out[f"max_{c}"] for c in names["E"]), default=0.0)
     sim._metrics_cache = (t_now, out)
     return out
 

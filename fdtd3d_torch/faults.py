@@ -317,7 +317,7 @@ def on_chunk_boundary(sim) -> None:
 def _inject_nan(sim, comp: str) -> None:
     """One NaN at the centre of ``comp``, written into the live carry
     through ``Simulation.set_field`` (one cell; no copy of the field)."""
-    shape = tuple(sim.component_views()[comp].shape)
+    shape = tuple(sim.component_legs()[0][comp].shape)
     idx = tuple(s // 2 for s in shape)
     sim.set_field(comp, float("nan"), at=idx)
     _log.warn(f"fault plan: injected NaN into {comp} at t={sim.t}")

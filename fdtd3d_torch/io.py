@@ -262,7 +262,8 @@ def _index_table(n: int) -> np.ndarray:
 
 def txt_bytes(arr: np.ndarray, start: int = 0, stop: int = None) -> bytes:
     """The TXT dump's lines ``start`` to ``stop`` (C order) of ``arr``:
-    each ``"i j k %.9e\n"`` (one index per dimension), the reference's
+    each ``"i j k %.9e\n"`` (one index per dimension), or for a complex
+    array ``"i j k %.9e %.9e\n"`` (real, imaginary), the reference's
     format (``fdtd3d_tpu/io.py::dump_txt``), built without a Python loop
     over the values."""
     arr = np.asarray(arr)
@@ -270,7 +271,10 @@ def txt_bytes(arr: np.ndarray, start: int = 0, stop: int = None) -> bytes:
     if stop <= start:
         return b""
     tables = [_index_table(n) for n in arr.shape]
+    cplx = np.iscomplexobj(arr)
     width = sum(t.shape[1] for t in tables) + _E9_WIDTH + 1
+    if cplx:
+        width += _E9_WIDTH + 1
     lines = np.empty((stop - start, width), dtype=np.uint8)
     idx = np.unravel_index(np.arange(start, stop), arr.shape)
     col = 0
@@ -278,7 +282,14 @@ def txt_bytes(arr: np.ndarray, start: int = 0, stop: int = None) -> bytes:
         lines[:, col:col + t.shape[1]] = t[i]
         col += t.shape[1]
     # the values gathered by index: a broadcast grid is never copied whole
-    lines[:, col:col + _E9_WIDTH] = format_e9(arr[idx])
+    vals = arr[idx]
+    if cplx:
+        lines[:, col:col + _E9_WIDTH] = format_e9(vals.real)
+        col += _E9_WIDTH
+        lines[:, col] = ord(" ")
+        col += 1
+        vals = vals.imag
+    lines[:, col:col + _E9_WIDTH] = format_e9(vals)
     lines[:, -1] = ord("\n")
     return lines[lines != 0].tobytes()
 
@@ -305,12 +316,16 @@ def dump_txt(arr: np.ndarray, path: str):
 def load_txt(path: str, shape: Tuple[int, ...],
              dtype=np.float64) -> np.ndarray:
     """A TXT dump back into an array of ``shape``: each line's value
-    placed at its indices."""
+    placed at its indices (a complex ``dtype`` reads the real and
+    imaginary columns)."""
     out = np.zeros(shape, dtype=dtype)
     data = np.loadtxt(path, dtype=np.float64, ndmin=2)
     if data.size:
         nd = len(shape)
-        out[tuple(data[:, :nd].astype(np.int64).T)] = data[:, nd]
+        vals = data[:, nd]
+        if np.iscomplexobj(out):
+            vals = vals + 1j * data[:, nd + 1]
+        out[tuple(data[:, :nd].astype(np.int64).T)] = vals
     return out
 
 
@@ -350,8 +365,10 @@ def bmp_image(arr: np.ndarray, active_axes=(0, 1)) -> np.ndarray:
     """The (rows, cols) image ``dump_bmp`` colours: the central cut of a
     rank-3 grid spanned by the first two active axes (rows = the second,
     cols = the first), or for one active axis its line repeated in 24
-    rows."""
+    rows. A complex field shows its real part, as the reference's."""
     arr = np.asarray(arr)
+    if np.iscomplexobj(arr):
+        arr = arr.real
     axes = list(active_axes) or [0, 1]
     if len(axes) == 1:
         a = axes[0]
@@ -516,9 +533,14 @@ def _flat_leaves(prefix: str, tree, out: Dict[str, Any]) -> Dict[str, Any]:
 def _host_leaf(leaf) -> np.ndarray:
     """One leaf as the host array the file stores: a tensor through
     ``convert.to_host`` (bf16 widened exactly to f32, the reference's
-    rule for non-native dtypes), the host step counter as an int32
-    scalar (the reference's ``t``), a numpy leaf as it is."""
+    rule for non-native dtypes; complex as complex, the reference's
+    ``<c8``/``<c16`` members), the host step counter as an int32 scalar
+    (the reference's ``t``), a numpy leaf as it is. A callable leaf is
+    called first (a paired complex run joins each leaf from its legs
+    only when the writer reaches it)."""
     import torch
+    if callable(leaf):
+        leaf = leaf()
     if isinstance(leaf, torch.Tensor):
         from fdtd3d_torch import convert
         return convert.to_host(leaf)

@@ -12,7 +12,7 @@ fields on the box's six faces (24 face planes: each face's tangential E
 and H components), sampled between chunks of the run.
 
 Sampling (``NtffCollector.sample``) reads the face planes from the live
-carry (``Simulation.component_views``, fetched anew at every sample: the
+carry (``Simulation.component_legs``, fetched anew at every sample: the
 temporal-blocked pass swaps its buffers, so a view held from an earlier
 sample may point at a stale one) and adds each plane times the DFT
 phase, E at ``-w t dt`` and H at ``-w (t + 1/2) dt`` (the leapfrog's
@@ -26,7 +26,10 @@ reference's is jnp outside any kernel); no host transfer happens until
 Storage rules: a bf16 plane is widened to float32 before any arithmetic;
 float32x2 runs sample the hi words (the reference reads ``state["E"]``,
 whose lo words live in ``loE``/``loH``); float64 planes are averaged in
-float64 and rounded to float32, as the reference casts them.
+float64 and rounded to float32, as the reference casts them. Complex
+fields add their imaginary planes (a paired run's im leg, a native run's
+imaginary part) in the same real arithmetic, each part rounded to
+float32 as the reference's ``jnp.real``/``jnp.imag`` casts are.
 
 ``far_field`` and ``directivity_pattern`` evaluate the radiation
 integrals on the host, each component at its own Yee position
@@ -110,9 +113,10 @@ class NtffCollector:
         return tuple(sl)
 
     def _face_plane(self, views, key: Key) -> torch.Tensor:
-        """The float32 plane of ``key`` sampled from the component views:
-        E on the face, H averaged over the face and the plane below it
-        (a bf16 field widened first)."""
+        """The plane of ``key`` sampled from the component views: E on
+        the face, H averaged over the face and the plane below it (a
+        bf16 field widened first), in float32 (a complex field's plane
+        stays complex64: ``sample`` takes its parts)."""
         axis, side, c = key
         f = views[c]
         if f.dtype == torch.bfloat16:
@@ -123,11 +127,16 @@ class NtffCollector:
         else:
             plane = 0.5 * (f[self._face(axis, idx)]
                            + f[self._face(axis, idx - 1)])
-        return plane.to(torch.float32)
+        return plane.to(torch.complex64 if plane.is_complex()
+                        else torch.float32)
 
     def sample(self):
         """Accumulate one DFT sample at the sim's current step, on the
-        device (no host transfer)."""
+        device (no host transfer). A complex field's real and imaginary
+        planes (the two legs of a paired run, or the parts of a native
+        complex one) enter as the reference's real arithmetic:
+        ``(pr + j pi)(cs + j sn) = (pr cs - pi sn) + j (pr sn + pi cs)``;
+        a real field's as ``pr cs + j pr sn``."""
         t = self.sim.t
         ang_e = -self.omega * t * self.dt
         ang_h = -self.omega * (t + 0.5) * self.dt
@@ -135,18 +144,25 @@ class NtffCollector:
                        float(np.float32(math.sin(ang_e)))),
                  "H": (float(np.float32(math.cos(ang_h))),
                        float(np.float32(math.sin(ang_h))))}
-        views = self.sim.component_views()
+        legs = self.sim.component_legs()
         for key in self.keys:
-            plane = self._face_plane(views, key)
+            planes = [self._face_plane(v, key) for v in legs]
+            if planes[0].is_complex():
+                planes = [planes[0].real, planes[0].imag]
+            pr = planes[0]
+            pi = planes[1] if len(planes) == 2 else None
             acc = self._acc.get(key)
             if acc is None:
                 acc = self._acc[key] = torch.zeros(
-                    (4,) + tuple(plane.shape), dtype=torch.float32,
-                    device=plane.device)
+                    (4,) + tuple(pr.shape), dtype=torch.float32,
+                    device=pr.device)
             cs, sn = phase[key[2][0]]
-            # real fields: (p + 0j)(cs + j sn) = p cs + j p sn
-            for s, comp, contrib in ((acc[0], acc[1], plane * cs),
-                                     (acc[2], acc[3], plane * sn)):
+            if pi is None:
+                re_part, im_part = pr * cs, pr * sn
+            else:
+                re_part, im_part = pr * cs - pi * sn, pr * sn + pi * cs
+            for s, comp, contrib in ((acc[0], acc[1], re_part),
+                                     (acc[2], acc[3], im_part)):
                 y = contrib - comp
                 total = s + y
                 comp.copy_((total - s) - y)

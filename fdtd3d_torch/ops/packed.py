@@ -113,12 +113,14 @@ STACKED_AUX = (("J", "e_components"), ("K", "h_components"),
 
 def eligible(static) -> bool:
     """The reference's ``pallas_packed.eligible`` (:229), unsharded: 3D
-    real float32 or bf16 storage, not double-single, and not
+    real float32 or bf16 storage (not complex: a complex run's legs are
+    real), not double-single, and not
     compensated mode with magnetic Drude K (whose residual the kernel
     does not Kahan-treat)."""
     cfg = static.cfg
     return static.mode.name == "3D" \
         and cfg.dtype in ("float32", "bfloat16") \
+        and not cfg.complex_fields \
         and not (static.use_drude_m and cfg.compensated)
 
 

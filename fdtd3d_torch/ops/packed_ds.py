@@ -97,7 +97,8 @@ LINE_KEYS = ("Einc", "Einc_lo", "Hinc", "Hinc_lo")
 def eligible(static) -> bool:
     """Packed-ds scope: 3D float32x2, unsharded, every CPML axis with
     slab-compact psi."""
-    return (static.cfg.ds_fields and static.mode.name == "3D"
+    return (static.cfg.ds_fields and not static.cfg.complex_fields
+            and static.mode.name == "3D"
             and tuple(static.topology) == (1, 1, 1)
             and set(static.pml_axes) == set(slab_axes(static)))
 

@@ -135,14 +135,17 @@ def reject_reason(static) -> Optional[str]:
     """Why a configuration is outside this pass's scope, or None.
 
     The reference's ``_reject_reason`` tokens where the reason is the
-    same (``ds_fields``, ``packed_ineligible``, ``compensated``,
-    ``magnetic_drude``, ``source_in_absorber``), and the port's own for
-    what this slice leaves out: ``dtype`` (float64), ``sharded``, and
-    ``depth`` (``FDTD3D_TB_DEPTH`` pinned to anything but 2)."""
+    same (``paired_complex`` first, ``ds_fields``, ``packed_ineligible``
+    (also native complex fields), ``compensated``, ``magnetic_drude``,
+    ``source_in_absorber``), and the port's own for what this slice
+    leaves out: ``dtype`` (float64), ``sharded``, and ``depth``
+    (``FDTD3D_TB_DEPTH`` pinned to anything but 2)."""
     cfg = static.cfg
+    if static.paired_complex:
+        return "paired_complex"
     if cfg.ds_fields:
         return "ds_fields"
-    if static.mode.name != "3D":
+    if static.mode.name != "3D" or cfg.complex_fields:
         return "packed_ineligible"
     if cfg.dtype not in ("float32", "bfloat16"):
         return "dtype"

@@ -112,7 +112,8 @@ def eligible(static) -> bool:
     storage, not compensated, not double-single; any topology."""
     if static.mode.name != "3D":
         return False
-    if static.cfg.dtype not in ("float32", "bfloat16"):
+    if static.cfg.dtype not in ("float32", "bfloat16") \
+            or static.cfg.complex_fields:
         return False
     return not (static.cfg.compensated or static.cfg.ds_fields)
 

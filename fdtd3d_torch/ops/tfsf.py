@@ -161,8 +161,16 @@ def line_loss_profiles(n_inc: int, dt: float, dx: float, dtype):
 
 
 def real_type(dtype):
-    """The numpy scalar type of a real torch dtype."""
-    return np.float64 if dtype == torch.float64 else np.float32
+    """The numpy scalar type of a torch dtype's real part."""
+    return np.float64 if dtype in (torch.float64, torch.complex128) \
+        else np.float32
+
+
+def real_dtype(dtype):
+    """The torch dtype of a dtype's real part: a complex line's samples
+    are taken at real coordinates, in the matching precision."""
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(dtype, dtype)
 
 
 def advance_einc(inc: Dict[str, torch.Tensor], coeffs, t: int, dt, omega,
@@ -272,7 +280,7 @@ def corr_plane_term(corr: Correction, setup: TfsfSetup, coeffs,
     if abs(pol) < POL_EPS:
         return None
     gs = (coeffs["gx"], coeffs["gy"], coeffs["gz"])
-    rdt = inc["Einc"].dtype
+    rdt = real_dtype(inc["Einc"].dtype)
     line = inc["Einc"] if corr.src[0] == "E" else inc["Hinc"]
     val = _interp_line(line, corr_line_coord(corr, setup, gs, active_axes,
                                              rdt))

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections.abc import Mapping
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -146,6 +147,42 @@ def _map_tensors(tree: Any, fn: Callable) -> Any:
     return tree
 
 
+def _install(dsts, src: torch.Tensor) -> None:
+    """Copy ``src`` into the live carry: into ``dsts[0]`` as it is, or
+    for the two legs of a paired complex run its real part into the re
+    leg and its imaginary part (zero for a real ``src``) into the im
+    leg."""
+    if len(dsts) == 1:
+        dsts[0].copy_(src.to(dtype=dsts[0].dtype))
+        return
+    re, im = dsts
+    if src.is_complex():
+        re.copy_(src.real)
+        im.copy_(src.imag)
+    else:
+        re.copy_(src.to(dtype=re.dtype))
+        im.zero_()
+
+
+class _JoinedViews(Mapping):
+    """The component views of a paired complex run: each component
+    joined from its re and im leg views (``torch.complex``) when it is
+    read, so a reader holds one joined component at a time."""
+
+    def __init__(self, re: Dict[str, torch.Tensor],
+                 im: Dict[str, torch.Tensor]):
+        self._re, self._im = re, im
+
+    def __getitem__(self, comp):
+        return torch.complex(self._re[comp], self._im[comp])
+
+    def __iter__(self):
+        return iter(self._re)
+
+    def __len__(self):
+        return len(self._re)
+
+
 class Simulation:
     """Owns solver state + coefficients; advances the leapfrog in chunks."""
 
@@ -155,7 +192,7 @@ class Simulation:
         # the deterministic fault plan (fdtd3d_torch/faults.py): adopt
         # FDTD3D_FAULT_PLAN once per process; a no-op otherwise
         _faults.load_env()
-        self.static: StaticSetup = build_static(cfg)
+        self.static: StaticSetup = build_static(cfg, self.device)
         # unsharded: the checkpoint metadata's topology, and the one the
         # supervisor persists
         self.topology = tuple(self.static.topology)
@@ -174,7 +211,8 @@ class Simulation:
         # kernel diagnostics: the temporal-blocking depth, or why the
         # temporal-blocked pass did not engage (tb_fallback)
         self.step_diag = self._runner.diag
-        if cfg.require_pallas and self.step_kind not in (
+        if cfg.require_pallas and self.step_kind.replace(
+                "complex2x_", "", 1) not in (
                 "packed_tb_cuda", "packed_cuda", "packed_ds_cuda",
                 "fused_cuda", "pallas3d_cuda"):
             raise ValueError(
@@ -211,10 +249,26 @@ class Simulation:
     # -- state representation ---------------------------------------------
 
     def _dict_view(self) -> Dict[str, Any]:
-        """Dict-form view of the live carry (no copies)."""
+        """Dict-form view of the live carry (no copies); of a paired
+        complex carry, the complex state joined from its legs (new
+        tensors: read it, do not write into it)."""
         if self._runner.packed:
             return self._runner.unpack(self._carry)
         return self._carry
+
+    def _leg_views(self):
+        """The dict-form views of the live carry's real legs: two for a
+        paired complex run (re, im), else the one dict form."""
+        if self._runner.legs is not None:
+            return self._runner.legs(self._carry)
+        return [self._dict_view()]
+
+    def component_legs(self):
+        """Every stored field component (E then H) of each leg
+        (:meth:`_leg_views`) as views of the live carry: ``[re, im]``
+        of a paired complex run, else ``[component_views()]``."""
+        return [{c: v for g in ("E", "H") for c, v in view[g].items()}
+                for view in self._leg_views()]
 
     @property
     def state(self) -> Dict[str, Any]:
@@ -228,12 +282,16 @@ class Simulation:
         (:meth:`adopt_state`)."""
         self.adopt_state(value)
 
-    def component_views(self) -> Dict[str, torch.Tensor]:
+    def component_views(self):
         """Every stored field component (E then H) as a view of the live
         carry: with float32x2 fields, the hi words (as the reference's
-        ``field``/``fields`` return them)."""
-        view = self._dict_view()
-        return {c: v for g in ("E", "H") for c, v in view[g].items()}
+        ``field``/``fields`` return them). A paired complex run's
+        components are joined from its legs one at a time, as each is
+        read (new tensors: read them, write through ``set_field``)."""
+        legs = self.component_legs()
+        if len(legs) == 1:
+            return legs[0]
+        return _JoinedViews(*legs)
 
     # -- stepping ----------------------------------------------------------
 
@@ -328,15 +386,19 @@ class Simulation:
         return self
 
     def _nonfinite_leaves(self):
-        """Names of the state leaves holding non-finite values (failure
-        path only: a host pass over the state)."""
-        view = self._dict_view()
-        for grp, sub in view.items():
-            if not isinstance(sub, dict):
-                continue
-            for k, v in sub.items():
-                if not bool(torch.isfinite(v).all()):
-                    yield k if grp in ("E", "H") else f"{grp}/{k}"
+        """Names of the state leaves holding non-finite values in any
+        leg (failure path only: a host pass over the state)."""
+        seen = set()
+        for view in self._leg_views():
+            for grp, sub in view.items():
+                if not isinstance(sub, dict):
+                    continue
+                for k, v in sub.items():
+                    name = k if grp in ("E", "H") else f"{grp}/{k}"
+                    if name not in seen \
+                            and not bool(torch.isfinite(v).all()):
+                        seen.add(name)
+                        yield name
 
     def run(self, time_steps: Optional[int] = None,
             on_interval: Optional[Callable] = None, interval: int = 0):
@@ -359,9 +421,14 @@ class Simulation:
     def t(self) -> int:
         return int(self._carry["t"])
 
-    def sample(self, comp: str, idx) -> float:
-        """One field value as a python float (one small readback)."""
-        return float(self.component_views()[comp][tuple(idx)].item())
+    def sample(self, comp: str, idx):
+        """One field value as a python float, or complex for complex
+        fields (one small readback a leg)."""
+        vals = [leg[comp][tuple(idx)].item()
+                for leg in self.component_legs()]
+        if len(vals) == 2:
+            return complex(vals[0], vals[1])
+        return vals[0] if isinstance(vals[0], complex) else float(vals[0])
 
     def field(self, comp: str) -> np.ndarray:
         """One field component as a host numpy array: with bf16 storage
@@ -375,13 +442,16 @@ class Simulation:
 
     def set_field(self, comp: str, value, at=None):
         """Overwrite one field component of the live carry, or with
-        ``at`` (an index into the component) only those cells."""
-        views = self.component_views()
-        if comp not in views:
+        ``at`` (an index into the component) only those cells; a paired
+        complex run takes the value's real part into its re leg and its
+        imaginary part (0 for a real value) into its im leg."""
+        legs = self.component_legs()
+        if comp not in legs[0]:
             raise KeyError(f"{comp} not active in scheme {self.cfg.scheme}")
-        dst = views[comp] if at is None else views[comp][at]
-        src = convert.from_host(np.broadcast_to(np.asarray(value), dst.shape))
-        dst.copy_(src.to(dtype=dst.dtype))
+        dsts = [leg[comp] if at is None else leg[comp][at] for leg in legs]
+        src = convert.from_host(np.broadcast_to(np.asarray(value),
+                                                dsts[0].shape))
+        _install(dsts, src)
         lo = self._dict_view().get("lo" + comp[0])
         if lo is not None:
             # the pair's value is hi + lo: a stale lo word would perturb
@@ -403,7 +473,7 @@ class Simulation:
                               slab_axes(self.static).items()},
                 "dtype": self.cfg.dtype,
                 "step_kind": self.step_kind,
-                "state_keys": sorted(self._dict_view().keys())}
+                "state_keys": sorted(self._leg_views()[0].keys())}
         meta.update(self.extra_ckpt_meta)
         return meta
 
@@ -412,7 +482,7 @@ class Simulation:
         if reason:
             raise ValueError(reason)
         if "state_keys" in extra:
-            want = sorted(self._dict_view().keys())
+            want = sorted(self._leg_views()[0].keys())
             got = list(extra["state_keys"])
             if got != want:
                 raise ValueError(
@@ -427,10 +497,27 @@ class Simulation:
         time (``io.save_checkpoint``): no copy of the state on the
         device."""
         with telemetry.span("checkpoint"):
-            io.save_checkpoint(self._dict_view(), path,
+            io.save_checkpoint(self._ckpt_tree(), path,
                                extra=self._ckpt_meta())
         _faults.on_checkpoint(path)  # committed: the fault plan's hook
         return self
+
+    def _ckpt_tree(self):
+        """The tree a checkpoint writes: the dict view, or for a paired
+        complex run the complex state with each leaf joined from the
+        legs only when ``io.save_checkpoint`` reaches it (a callable
+        leaf), so one leaf at a time is on the device twice."""
+        legs = self._leg_views()
+        if len(legs) == 1:
+            return legs[0]
+
+        def lazy(re, im):
+            if isinstance(re, dict):
+                return {k: lazy(v, im[k]) for k, v in re.items()}
+            if isinstance(re, torch.Tensor):
+                return lambda: torch.complex(re, im)
+            return re
+        return lazy(*legs)
 
     def restore(self, path: str):
         """Load a checkpoint (this package's or the reference's npz) into
@@ -465,13 +552,13 @@ class Simulation:
                 f"with the reference on an unsharded topology")
         pairs = []
 
-        def walk(dst, new, path):
-            if not isinstance(new, dict) or set(new) != set(dst):
+        def walk(dsts, new, path):
+            if not isinstance(new, dict) or set(new) != set(dsts[0]):
                 raise ValueError(f"state structure mismatch at "
                                  f"{path or 'top'}")
-            for k, v in dst.items():
+            for k, v in dsts[0].items():
                 if isinstance(v, dict):
-                    walk(v, new[k], f"{path}/{k}")
+                    walk([d[k] for d in dsts], new[k], f"{path}/{k}")
                 elif k != "t":
                     src = new[k] if isinstance(new[k], torch.Tensor) \
                         else convert.from_host(np.asarray(new[k]))
@@ -479,11 +566,11 @@ class Simulation:
                         raise ValueError(
                             f"{path}/{k}: shape {tuple(src.shape)} != "
                             f"{tuple(v.shape)}")
-                    pairs.append((v, src))
+                    pairs.append(([d[k] for d in dsts], src))
 
-        walk(self._dict_view(), tree, "")
-        for dst, src in pairs:
-            dst.copy_(src.to(dtype=dst.dtype))
+        walk(self._leg_views(), tree, "")
+        for dsts, src in pairs:
+            _install(dsts, src)
         self._carry["t"] = int(tree["t"])
         self._ckpt_last_t = self.t
         return self

@@ -62,6 +62,20 @@ reference's; with a coefficient grid, or with magnetic Drude K, the
 reference declines its packed kernel and so does the port: the plain
 step runs.
 
+Complex fields (``cfg.complex_fields``, the reference's
+COMPLEX_FIELD_VALUES mode) take one of the reference's two routes. On a
+CUDA device (or under the reference's test hook
+``FDTD3D_FORCE_PAIRED_COMPLEX``) the run is two real legs
+(``_make_paired_complex_step``, ``StaticSetup.paired_complex``): the
+update is linear with real coefficients and real sources, so the re leg
+carries the sources, the im leg runs the same step with their
+amplitudes zeroed, and each leg rides the normal kernel chain (kind
+``complex2x_<leg kind>``: ``complex2x_packed_cuda`` in 3D f32). Elsewhere
+the plain step runs in native complex arithmetic (complex64 or
+complex128 fields, psi, J, K and incident line; the waveform and the
+line coordinates stay real): the oracle of the paired route, as the
+reference's CPU route is of its TPU one.
+
 Every kernel is 3D-only, as the reference's are: a 1D or 2D scheme
 mode (inactive axes are singleton dims) runs the plain step (kind
 ``plain``, ``plain_ds`` with float32x2), the counterpart of the
@@ -69,8 +83,9 @@ reference's jnp and jnp-ds steps, with ``tb_fallback`` token
 ``packed_ineligible``; ``require_pallas`` raises on it.
 
 Scope: every scheme mode, real float32, bfloat16, float32x2 and
-float64, CPML on any axes, TFSF, the point source, electric Drude J,
-magnetic Drude K (not with float32x2), compensated float32, material
+float64, complex float32 and float64, CPML on any axes, TFSF, the point
+source, electric Drude J, magnetic Drude K (not with float32x2),
+compensated float32, material
 coefficient grids, PEC walls, unsharded. Everything else raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -111,6 +126,8 @@ class StaticSetup:
     real_dtype: Any                  # numpy dtype of the coefficients
     use_drude_m: bool = False
     topology: Tuple[int, int, int] = (1, 1, 1)
+    # complex fields as two real legs (_make_paired_complex_step)
+    paired_complex: bool = False
 
     @property
     def aux_dtype(self):
@@ -153,8 +170,8 @@ def check_scope(cfg: SimConfig) -> None:
         raise NotImplementedError(
             f"{what} is not ported to fdtd3d_torch yet (ROADMAP.md queue "
             f"{item}); run it with the reference package fdtd3d_tpu")
-    if cfg.complex_fields:
-        out("complex fields", "A10")
+    if cfg.complex_fields and cfg.dtype == "float32x2":
+        out("complex fields with float32x2", "A10(b)")
     if cfg.materials.use_drude_m and cfg.dtype == "float32x2":
         out("magnetic Drude (K current) with float32x2 fields", "B4(b)")
     if cfg.output.checkpoint_backend == "orbax":
@@ -171,7 +188,22 @@ def check_scope(cfg: SimConfig) -> None:
         out(f"{par.n_devices} devices", "A11")
 
 
-def build_static(cfg: SimConfig) -> StaticSetup:
+def paired_complex_wanted(cfg: SimConfig, device=None) -> bool:
+    """Whether a complex run takes the paired-real route: on a CUDA
+    device, as the reference takes it on its TPU, or anywhere under the
+    reference's test hook ``FDTD3D_FORCE_PAIRED_COMPLEX``; otherwise the
+    plain step runs in native complex arithmetic."""
+    import os
+    if not cfg.complex_fields:
+        return False
+    if os.environ.get("FDTD3D_FORCE_PAIRED_COMPLEX"):
+        return True
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def build_static(cfg: SimConfig, device=None) -> StaticSetup:
+    """The static setup of ``cfg`` for a run on ``device`` (which
+    decides the complex route; None: not on a CUDA device)."""
     cfg.validate()
     check_scope(cfg)
     mode = cfg.mode
@@ -182,7 +214,8 @@ def build_static(cfg: SimConfig) -> StaticSetup:
         use_drude=cfg.materials.use_drude,
         field_dtype=cfg.torch_dtype(),
         real_dtype=np.float64 if cfg.dtype == "float64" else np.float32,
-        use_drude_m=cfg.materials.use_drude_m)
+        use_drude_m=cfg.materials.use_drude_m,
+        paired_complex=paired_complex_wanted(cfg, device))
     if cfg.tfsf.enabled:
         st = dataclasses.replace(st, tfsf_setup=tfsf.build_setup(cfg, st))
     return st
@@ -964,12 +997,27 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     lane-capable kernel covers raises rather than running another
     step."""
     import os
+    if batch and (static.cfg.complex_fields
+                  or static.cfg.dtype not in LANE_DTYPES):
+        raise RuntimeError(
+            "make_step(batch>0): only real float32 and bfloat16 steps are "
+            "lane-capable; gate batched builds with "
+            "solver.batch_fallback_reason")
+    if static.paired_complex:
+        flag = static.cfg.use_pallas
+        packed = torch.device(device).type == "cuda" if flag is None \
+            else flag
+        return _stamp_tb_fallback(
+            _make_paired_complex_step(static, device),
+            tb_fallback_reason(static, packed, allow_multistep))
+    if static.cfg.complex_fields and torch.device(device).type == "cuda" \
+            and static.cfg.use_pallas is not False:
+        raise ValueError(
+            "complex fields on a CUDA device run the paired-real legs: "
+            "build the static setup with the run's device "
+            "(solver.build_static(cfg, device)), or pass use_pallas=False "
+            "for the native complex plain step")
     if batch:
-        if static.cfg.dtype not in LANE_DTYPES:
-            raise RuntimeError(
-                "make_step(batch>0): only float32 and bfloat16 steps are "
-                "lane-capable; gate batched builds with "
-                "solver.batch_fallback_reason")
         reason = tb_fallback_reason(static, True, allow_multistep)
         if reason in ("env:FDTD3D_NO_PACKED", "env:FDTD3D_FORCE_FUSED"):
             raise RuntimeError(
@@ -1028,6 +1076,121 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     return _stamp_tb_fallback(step, reason)
 
 
+def _complex_parts(tree, part):
+    """One real part of a complex dict-form state (fresh contiguous
+    tensors; a real leaf is its own real part and has a zero imaginary
+    one; ``t`` stays as it is)."""
+    if isinstance(tree, dict):
+        return {k: _complex_parts(v, part) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if tree.is_complex():
+        return part(tree).contiguous()
+    return tree.clone() if part is torch.real else torch.zeros_like(tree)
+
+
+def _complex_join(re, im):
+    """The complex dict-form state of two real legs' dict forms: new
+    tensors ``re + 1j im``, exact (``torch.complex``)."""
+    if isinstance(re, dict):
+        return {k: _complex_join(v, im[k]) for k, v in re.items()}
+    if isinstance(re, torch.Tensor) and re.is_floating_point():
+        return torch.complex(re, im)
+    return re
+
+
+def _make_paired_complex_step(static: StaticSetup, device):
+    """Complex fields as two real legs (the reference's
+    ``solver._make_paired_complex_step``, fdtd3d_tpu/solver.py:1198).
+
+    The update is linear with real coefficients and real sources, so a
+    complex run decomposes exactly: the re leg carries the sources, the
+    im leg runs the same step with the TFSF and point-source amplitudes
+    zeroed (its incident line stays zero: the machinery is present and
+    inert). Each leg is the normal step of its real configuration,
+    built with ``allow_multistep=False`` (the pair calls each leg once
+    a step): on a CUDA device the packed twin ``csrc/packed_eh.cu`` in
+    3D f32, its K build with magnetic Drude, the ladder's twins under
+    their escape hatches; f64 and 1D/2D legs run the plain step, as
+    real runs do. On a CUDA device an eligible leg that does not run a
+    kernel is an error, never a quiet plain run.
+
+    The carry is ``{"re": leg, "im": leg, "t": t}``, each leg in its
+    step's own form (packed when the leg step is packed). ``pack`` and
+    ``unpack`` convert to and from the complex dict form on the device
+    (``.real``/``.imag`` copied contiguous, ``torch.complex``): exact,
+    and no host round trip, where the reference must go through host
+    numpy. ``legs`` gives the two legs' dict-form views, the health
+    pass's input (the reference's ``health_view``). Kind
+    ``complex2x_<leg kind>``; ``diag`` the re leg's."""
+    from fdtd3d_torch.ops import packed as packed_mod
+    from fdtd3d_torch.ops import pallas3d
+    cfg = static.cfg
+    cfg_re = dataclasses.replace(cfg, complex_fields=False)
+    cfg_im = dataclasses.replace(
+        cfg_re,
+        point_source=dataclasses.replace(cfg.point_source, amplitude=0.0),
+        tfsf=dataclasses.replace(cfg.tfsf, amplitude=0.0))
+    st_re = dataclasses.replace(build_static(cfg_re),
+                                topology=static.topology)
+    st_im = dataclasses.replace(build_static(cfg_im),
+                                topology=static.topology)
+    step_re = make_step(st_re, device, allow_multistep=False)
+    step_im = make_step(st_im, device, allow_multistep=False)
+    if torch.device(device).type == "cuda" and cfg.use_pallas is not False \
+            and (packed_mod.eligible(st_re) or pallas3d.eligible(st_re)) \
+            and not step_re.kind.endswith("_cuda"):
+        raise RuntimeError(
+            f"complex leg on a CUDA device ran {step_re.kind}, not a "
+            f"kernel")
+    prep_re = getattr(step_re, "prepare", None)
+    prep_im = getattr(step_im, "prepare", None)
+    leg_packed = getattr(step_re, "packed", False)
+
+    def im_coeffs(coeffs):
+        # the im leg's point-source drive: its amplitude coefficient
+        # zeroed (the reference zeroes its traced ps_amp the same way)
+        if "ps_amp" not in coeffs:
+            return coeffs
+        out = dict(coeffs)
+        out["ps_amp"] = 0.0
+        return out
+
+    def prepare(coeffs):
+        ci = im_coeffs(coeffs)
+        return {"re": prep_re(coeffs) if prep_re is not None else coeffs,
+                "im": prep_im(ci) if prep_im is not None else ci}
+
+    def step(s, cc):
+        # the pair's t is the one a restore or a state install sets
+        s["re"]["t"] = s["im"]["t"] = s["t"]
+        re = step_re(s["re"], cc["re"])
+        im = step_im(s["im"], cc["im"])
+        return {"re": re, "im": im, "t": re["t"]}
+
+    def leg_view(leg):
+        return step_re.unpack(leg) if leg_packed else leg
+
+    def pack(state):
+        legs = [_complex_parts(state, part)
+                for part in (torch.real, torch.imag)]
+        if leg_packed:
+            legs = [step_re.pack(leg) for leg in legs]
+        return {"re": legs[0], "im": legs[1], "t": int(state["t"])}
+
+    def unpack(p):
+        return _complex_join(leg_view(p["re"]), leg_view(p["im"]))
+
+    step.prepare = prepare
+    step.pack = pack
+    step.unpack = unpack
+    step.legs = lambda p: [leg_view(p["re"]), leg_view(p["im"])]
+    step.packed = True
+    step.kind = "complex2x_" + step_re.kind
+    step.diag = dict(getattr(step_re, "diag", None) or {})
+    return step
+
+
 def make_chunk_runner(static: StaticSetup, device, health: bool = False,
                       batch: int = 0, per_chip: bool = False):
     """run_chunk(state, coeffs, n): n steps in a Python loop.
@@ -1044,8 +1207,9 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     is the :class:`telemetry.Health` of ``telemetry.make_health_fn``,
     computed on the dict-form view of the chunk's final carry (a packed
     carry through ``unpack``: views, built anew every chunk, since the tb
-    pass swaps its buffers) in a ``health`` scope, and read back by the
-    caller once. ``per_chip`` adds the per-chip vectors
+    pass swaps its buffers; a paired complex carry as its two legs'
+    views, ``run_chunk.legs``) in a ``health`` scope, and read back by
+    the caller once. ``per_chip`` adds the per-chip vectors
     (``run_chunk.per_chip``).
 
     ``batch=B`` builds the lane-capable runner (``make_step``'s batch):
@@ -1058,6 +1222,7 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     spc = getattr(step, "steps_per_call", 1)
     tail = getattr(step, "tail_step", step)
     packed = getattr(step, "packed", False)
+    legs = getattr(step, "legs", None)
     health_fn = None
     if health:
         health_fn = (telemetry.make_lane_health_fn if batch
@@ -1082,9 +1247,15 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
         for _ in range(rem):
             state = tail(state, cc)
         if health_fn is not None:
-            return state, health_fn(step.unpack(state) if packed
-                                    else state)
+            return state, health_fn(views(state))
         return state
+
+    def views(state):
+        """The dict-form views the health pass reads: the two legs of a
+        paired complex carry, else the carry's one dict form."""
+        if legs is not None:
+            return legs(state)
+        return step.unpack(state) if packed else state
 
     run_chunk.health = health_fn is not None
     run_chunk.per_chip = health_fn is not None and per_chip
@@ -1092,6 +1263,8 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     run_chunk.steps_per_call = spc
     run_chunk.diag = getattr(step, "diag", None)
     run_chunk.packed = packed
+    run_chunk.legs = legs
+    run_chunk.views = views
     if packed:
         run_chunk.pack = step.pack
         run_chunk.unpack = step.unpack

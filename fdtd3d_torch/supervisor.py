@@ -23,10 +23,11 @@ and checkpoint integrity are the persistence half).
   ``fused_preferred`` names it, as for bf16 and coefficient grids,
   straight to ``pallas3d_*``) -> ``FDTD3D_NO_FUSED`` -> ``pallas3d_*`` ->
   ``use_pallas=False`` -> ``plain``; float32x2 ``packed_ds_*`` ->
-  ``plain_ds``. A kind is ``*_cuda`` on the card and ``*_plain`` on the
-  CPU. A trip at the bottom (``plain``/``plain_ds``, the reference's
-  jnp rung) is physics, not a kernel fault, and is raised; so is a trip
-  whose escape hatch did not change the kind.
+  ``plain_ds``; a paired complex run the same rungs with its
+  ``complex2x_`` prefix. A kind is ``*_cuda`` on the card and
+  ``*_plain`` on the CPU. A trip at the bottom (``plain``/``plain_ds``,
+  the reference's jnp rung) is physics, not a kernel fault, and is
+  raised; so is a trip whose escape hatch did not change the kind.
 * **simulated preemptions** (``faults.SimulatedPreemption``, a
   ``BaseException``) propagate untouched: the committed checkpoints and
   the CLI's ``--resume auto`` are the recovery. The supervisor persists
@@ -122,7 +123,14 @@ def degrade_plan(kind: str):
 
     -> (environment pins to set, config transform or None), or None at
     the bottom. The pins are the kernels' escape hatches, the levers an
-    operator would pull by hand."""
+    operator would pull by hand. A paired complex run
+    (``complex2x_<leg kind>``) walks its legs' ladder: both legs are
+    rebuilt one rung down, so ``complex2x_packed_cuda`` goes to
+    ``complex2x_fused_cuda`` or ``complex2x_pallas3d_cuda``, and so on to
+    ``complex2x_plain``. (The reference's ladder names no complex2x
+    kind, so its supervisor raises a complex run's trip without a
+    rollback; ROADMAP.md §C.)"""
+    kind = kind.replace("complex2x_", "", 1)
     base = kind.rsplit("_", 1)[0] if kind.endswith(("_cuda", "_plain")) \
         else kind
     if base == "packed_tb":

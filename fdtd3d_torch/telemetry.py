@@ -40,7 +40,9 @@ Counter definitions (f32 partials, combined on the host in double):
     RMS and max of the discrete div E over interior cells
     (``diag.div_e_parts``).
 ``max_e`` / ``max_h``
-    max over the components of max |comp| (float32x2: the hi words).
+    max over the components of max |comp| (float32x2: the hi words;
+    complex: the modulus; the paired legs of a complex run: the max
+    over the legs, as the reference combines them).
 ``nonfinite``
     1.0 when any floating leaf of the state holds a NaN or an Inf.
 """
@@ -115,7 +117,10 @@ def named(name: str) -> _Span:
 # --------------------------------------------------------------------------
 
 def max_abs(x: torch.Tensor) -> torch.Tensor:
-    """max |x| in one pass; NaN propagates (torch.aminmax keeps NaN)."""
+    """max |x| in one pass; NaN propagates (torch.aminmax keeps NaN); a
+    complex tensor through its modulus."""
+    if x.is_complex():
+        x = x.abs()
     lo, hi = torch.aminmax(x.reshape(-1))
     return torch.maximum(hi, -lo).float()
 
@@ -130,7 +135,11 @@ def lane_max_abs(x: torch.Tensor) -> torch.Tensor:
 def lane_minmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(min, max) of each lane of a lane-leading tensor, (B,) each, in
     one pass where the lane's cells flatten to a view (else a min and a
-    max pass); nothing the size of ``x`` is copied. NaN propagates."""
+    max pass); nothing the size of ``x`` is copied. NaN propagates. A
+    complex tensor is read through its modulus (a real copy of it): its
+    max |x| and its finiteness are what the counters take."""
+    if x.is_complex():
+        x = x.abs()
     try:
         flat = x.view(x.shape[0], -1)
     except RuntimeError:
@@ -207,57 +216,70 @@ class Health:
         return vals if self.lanes else vals[0]
 
 
-def _health_pass(static, view: Dict[str, Any], lanes: bool,
-                 per_chip: bool) -> Health:
+def _health_pass(static, views, lanes: bool, per_chip: bool) -> Health:
+    """The partials of every leg of ``views`` (one dict-form view, or
+    the two real legs of a paired complex run) in one tensor, and their
+    decoder, which combines the legs as the reference's
+    ``make_health_fn`` does: energies and div·E sums of squares add,
+    ``max_e``/``max_h`` and ``div_linf`` take the max over the legs,
+    the interior count is one leg's."""
     from fdtd3d_torch import diag, physics
     mode = static.mode
     cell = float(static.dx ** mode.ndim)
     lead = (lambda t: t) if lanes else (lambda t: t.unsqueeze(0))
     parts = Parts()
-    for grp, comps in (("E", mode.e_components), ("H", mode.h_components)):
-        for c in comps:
-            v = lead(view[grp][c])
-            lo, hi = lane_minmax(v)
-            parts.add(f"lo:{c}", lo)
-            parts.add(f"hi:{c}", hi)
-            parts.add(f"sq:{c}", plane_norms(v))
-    cast = static.compute_dtype
-    e = {c: lead(view["E"][c]) for c in mode.e_components}
-    sumsq, count, linf = diag.div_e_parts(
-        e, mode.e_components, mode.active_axes, 1.0 / static.dx, cast)
-    parts.add("div_sumsq", sumsq)
-    parts.add("div_linf", linf)
-    others = [lead(t) for k, t in _leaves(view)
-              if isinstance(t, torch.Tensor) and t.is_floating_point()
-              and k.split("/")[0] not in ("E", "H")]
-    for i, t in enumerate(others):
-        lo, hi = lane_minmax(t)
-        parts.add(f"lo:{i}", lo)
-        parts.add(f"hi:{i}", hi)
+    n_others = []
+    for g, view in enumerate(views):
+        for grp, comps in (("E", mode.e_components),
+                           ("H", mode.h_components)):
+            for c in comps:
+                v = lead(view[grp][c])
+                lo, hi = lane_minmax(v)
+                parts.add(f"lo:{g}:{c}", lo)
+                parts.add(f"hi:{g}:{c}", hi)
+                parts.add(f"sq:{g}:{c}", plane_norms(v))
+        e = {c: lead(view["E"][c]) for c in mode.e_components}
+        sumsq, count, linf = diag.div_e_parts(
+            e, mode.e_components, mode.active_axes, 1.0 / static.dx,
+            div_cast(static, e))
+        parts.add(f"div_sumsq:{g}", sumsq)
+        parts.add(f"div_linf:{g}", linf)
+        others = [lead(t) for k, t in _leaves(view)
+                  if isinstance(t, torch.Tensor)
+                  and (t.is_floating_point() or t.is_complex())
+                  and k.split("/")[0] not in ("E", "H")]
+        for i, t in enumerate(others):
+            lo, hi = lane_minmax(t)
+            parts.add(f"lo:{g}:{i}", lo)
+            parts.add(f"hi:{g}:{i}", hi)
+        n_others.append(len(others))
     tensor, dec = parts.finish()
 
     def decode(row):
         p = dec(row)
-        mx = {}
+        mx = {"E": [], "H": []}
         sums = {"E": 0.0, "H": 0.0}
+        div_sumsq, div_linf = 0.0, []
         ok = True
-        for grp, comps in (("E", mode.e_components),
-                           ("H", mode.h_components)):
-            m = []
-            for c in comps:
-                lo, hi = p[f"lo:{c}"][0], p[f"hi:{c}"][0]
-                ok = ok and math.isfinite(lo) and math.isfinite(hi)
-                m.append(_fmax((hi, -lo)))
-                sums[grp] += math.fsum(x * x for x in p[f"sq:{c}"])
-            mx[grp] = _fmax(m) if m else 0.0
-        for i in range(len(others)):
-            ok = ok and math.isfinite(p[f"lo:{i}"][0]) \
-                and math.isfinite(p[f"hi:{i}"][0])
+        for g, n in enumerate(n_others):
+            for grp, comps in (("E", mode.e_components),
+                               ("H", mode.h_components)):
+                for c in comps:
+                    lo, hi = p[f"lo:{g}:{c}"][0], p[f"hi:{g}:{c}"][0]
+                    ok = ok and math.isfinite(lo) and math.isfinite(hi)
+                    mx[grp].append(_fmax((hi, -lo)))
+                    sums[grp] += math.fsum(x * x for x in p[f"sq:{g}:{c}"])
+            for i in range(n):
+                ok = ok and math.isfinite(p[f"lo:{g}:{i}"][0]) \
+                    and math.isfinite(p[f"hi:{g}:{i}"][0])
+            div_sumsq += p[f"div_sumsq:{g}"][0]
+            div_linf.append(p[f"div_linf:{g}"][0])
+        mx = {grp: _fmax(m) if m else 0.0 for grp, m in mx.items()}
         energy = 0.5 * cell * (physics.EPS0 * sums["E"]
                                + physics.MU0 * sums["H"])
         out = {"energy": energy,
-               "div_l2": math.sqrt(p["div_sumsq"][0] / max(count, 1.0)),
-               "div_linf": p["div_linf"][0],
+               "div_l2": math.sqrt(div_sumsq / max(count, 1.0)),
+               "div_linf": _fmax(div_linf),
                "max_e": mx["E"], "max_h": mx["H"],
                "nonfinite": 0.0 if ok else 1.0}
         if per_chip:
@@ -268,15 +290,32 @@ def _health_pass(static, view: Dict[str, Any], lanes: bool,
     return Health(tensor, decode, lanes)
 
 
-def make_health_fn(static, per_chip: bool = False):
-    """health(view) -> :class:`Health` of the dict-form state ``view``
-    (a view of the live carry: nothing is cloned). ``readback`` turns it
-    into ``HEALTH_KEYS`` floats (``nonfinite`` as ``finite``), plus
-    ``per_chip`` length-1 vectors with ``per_chip``."""
+def div_cast(static, e_view) -> torch.dtype:
+    """The dtype div·E is differenced in: the reference's cast rule
+    (telemetry.py:230-243). Complex fields stay complex (native
+    complex runs); real legs of a complex run (the paired route) take
+    the real dtype, never a complex cast; real fields the compute dtype
+    (bf16 storage widens to f32)."""
+    from fdtd3d_torch.ops.tfsf import real_dtype
+    first = next(iter(e_view.values()))
+    if first.is_complex():
+        return first.dtype
+    return real_dtype(static.compute_dtype)
 
-    def health(view: Dict[str, Any]) -> Health:
+
+def make_health_fn(static, per_chip: bool = False):
+    """health(views) -> :class:`Health` of the dict-form state ``views``
+    (a view of the live carry: nothing is cloned), or of a sequence of
+    them, the two real legs of a paired complex run (the reference's
+    ``states`` sequence: energies add, maxima take the max).
+    ``readback`` turns it into ``HEALTH_KEYS`` floats (``nonfinite`` as
+    ``finite``), plus ``per_chip`` length-1 vectors with ``per_chip``."""
+
+    def health(views) -> Health:
+        if isinstance(views, dict):
+            views = [views]
         with named("health"):
-            return _health_pass(static, view, False, per_chip)
+            return _health_pass(static, views, False, per_chip)
 
     return health
 
@@ -288,7 +327,7 @@ def make_lane_health_fn(static, per_chip: bool = False):
 
     def health(view: Dict[str, Any]) -> Health:
         with named("health"):
-            return _health_pass(static, view, True, per_chip)
+            return _health_pass(static, [view], True, per_chip)
 
     return health
 

@@ -58,7 +58,7 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
 @pytest.mark.parametrize("flag,item", [
     (["--checkpoint-backend", "orbax"], "A11"),
     (["--num-processes", "2"], "A11"), (["--metrics", "m.txt"], "A15"),
-    (["--complex-field-values"], "A10"),
+    (["--complex-field-values", "--dtype", "float32x2"], "A10"),
 ])
 def test_cli_flags_outside_the_slice_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -199,11 +199,12 @@ _K = MaterialsConfig(use_drude_m=True, mu_inf=1.5, omega_pm=1e11,
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(scheme="2D_TMz", size=(16, 16, 1), complex_fields=True), "A10"),
+    (dict(scheme="2D_TMz", size=(16, 16, 1), complex_fields=True,
+          dtype="float32x2"), "A10"),
     (dict(dtype="float32x2", materials=_K), r"B4\(b\)"),
     (dict(dtype="float32x2", parallel=ParallelConfig(
         topology="manual", manual_topology=(2, 1, 1))), "A9"),
-    (dict(complex_fields=True), "A10"),
+    (dict(complex_fields=True, dtype="float32x2"), "A10"),
     (dict(compensated=True, parallel=ParallelConfig(
         topology="manual", manual_topology=(2, 1, 1))), "A11"),
 ])
