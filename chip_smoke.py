@@ -338,20 +338,48 @@ step):
    0; ``--supervise`` with a NaN at t=168: one rollback and one
    degrade, complex kinds on both rungs.
 
-``--only 27,28,29,30`` runs these phases alone after the build and
-prints their JSON (no kernels or ok line).
+Magnetic Drude K in the float32x2 kernel (``csrc/packed_ds.cu``: K
+read and written at the H phase's cell, km/bm inside their box) and
+complex float32x2 as two real ds legs on it:
+
+31. (a) 10 CUDA ds steps with K against the plain version at 128^3, the
+   DNG sphere of ``dng_flags`` (J and K) and a K sphere on the precision
+   example (oblique TFSF), and one step at 256^3 in (c): fields at
+   ``DS_FIELD_TOL``, J and K at ``DS_J_TOL``; (b) the DNG sphere at
+   128^3, 300 steps, float32x2 against the float64 plain step, gated
+   at ``DS_ADE_BAR`` (float32 for contrast); (c) the DNG sphere at
+   256^3 in float32x2 through ``Simulation`` (40 steps: ds launches,
+   kernels a step, set-up, peak memory), then the line, the pass and
+   the step with K and, in the same call, without K (J only) beside
+   their plain versions and bounds; (d) the precision example as it
+   stands with ``--complex-field-values --telemetry``:
+   kind ``complex2x_packed_ds_cuda``, 2 x the real run's ds launches,
+   ``<c8`` dumps with the re parts bit-equal to the real float32x2
+   run's (phase 5's, or its own under ``--only``) and the im parts 0,
+   within ``DS_REL_BAR`` of float64; at 128^3 one paired step with
+   both legs seeded against each leg's plain ds step, the paired step
+   beside the real ds step in one call, pack and unpack, a leg's
+   kernels beside their plain versions; ``--supervise`` at 64^3 with a
+   NaN at t=30: one rollback, ``complex2x_packed_ds_cuda ->
+   complex2x_plain_ds``.
+
+``--only 27,28,29,30,31`` (any of them) runs these phases alone after
+the build and prints their JSON (no kernels or ok line).
 
 The packed and two-pass kernels' bound counts each coefficient grid
 inside the box outside which it holds its background value
-(``packed.material``): the kernels read grids there only. Phase 3
-prints the packed kernels' registers, spills and blocks an SM.
+(``packed.material``): the kernels read grids there only. The ds
+pass's bound counts each grid inside its own such box too; the ds
+kernel reads km/bm inside their box and its other grids whole
+(``pass_as_read_bytes_ms``). Phase 3 prints the packed kernels'
+registers, spills and blocks an SM.
 
 Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 (kernel against plain version, lane against solo) launch the kernels
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
 ``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25, and
-each CLI run of 26-30 in this process) resets the counts just before
+each CLI run of 26-31 in this process) resets the counts just before
 it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -749,25 +777,33 @@ def family_flops(carry, family):
 def seeded_ds_sim(cfg, dev, seed, warm=0):
     """A packed-ds Simulation on the card, ``warm`` kernel steps in
     (so the incident line carries a wave), then seeded E/H pairs: f64
-    draws split into normalised (hi, lo) words, and seeded J."""
+    draws split into normalised (hi, lo) words, and seeded J and K."""
     import torch
     from fdtd3d_torch.sim import Simulation
     sim = Simulation(cfg, device=dev)
     if sim.step_kind != "packed_ds_cuda":
         fail(f"float32x2 ran {sim.step_kind}, not packed_ds_cuda")
     sim.advance(warm)
+    seed_ds_carry(sim._carry, dev, seed)
+    return sim
+
+
+def seed_ds_carry(carry, dev, seed):
+    """Seeded E/H pairs in a packed-ds carry, in place: f64 draws split
+    into normalised (hi, lo) words; seeded J and K where it has them."""
+    import torch
     g = torch.Generator(device=dev).manual_seed(seed)
-    carry = sim._carry
     for key in ("E", "H"):
         v = 0.01 * torch.randn(carry[key][:3].shape, generator=g,
                                device=dev, dtype=torch.float64)
         hi = v.float()
         carry[key][:3].copy_(hi)
         carry[key][3:].copy_((v - hi.double()).float())
-    if "J" in carry:
-        carry["J"].copy_(1e-4 * torch.randn(carry["J"].shape, generator=g,
-                                            device=dev))
-    return sim
+    for key in ("J", "K"):
+        if key in carry:
+            carry[key].copy_(1e-4 * torch.randn(carry[key].shape,
+                                                generator=g, device=dev))
+    return carry
 
 
 def compare_ds(got, want, what, field_tol):
@@ -775,7 +811,8 @@ def compare_ds(got, want, what, field_tol):
     (hi and lo rows) relative to the family's hi max, psi pairs at
     DS_PSI_TOL of the psi hi max, J at DS_J_TOL, the incident line
     pairs at DS_VACUUM_TOL; returns the largest absolute error of the
-    pass's leaves (fields, psi, J) and, apart, of the line's:
+    pass's leaves (fields, psi, J, K at DS_J_TOL) and, apart, of the
+    line's:
     {"pass": x, "line": y}."""
     worst = {"pass": 0.0, "line": 0.0}
 
@@ -795,9 +832,10 @@ def compare_ds(got, want, what, field_tol):
         for a, b in want[fam].items():
             gate(f"{fam}[{a}]", got[fam][a], b, float(b[:2].abs().max()),
                  DS_PSI_TOL)
-    if "J" in want:
-        gate("J", got["J"], want["J"], float(want["J"].abs().max()),
-             DS_J_TOL)
+    for key in ("J", "K"):
+        if key in want:
+            gate(key, got[key], want[key], float(want[key].abs().max()),
+                 DS_J_TOL)
     for k, b in want.get("inc", {}).items():
         scale = float(want["inc"][k.replace("_lo", "")].abs().max())
         gate(f"inc/{k}", got["inc"][k], b, scale, DS_VACUUM_TOL, "line")
@@ -827,21 +865,25 @@ def ds_kernel_vs_plain(cfg, dev, seed, label, field_tol=DS_FIELD_TOL):
     return err
 
 
-def ds_one_step_vs_plain(sim):
+def ds_one_step_vs_plain(sim, seed=None, what="one ds step (line + pass)"):
     """One step of the CUDA path (line kernel + pass) against one plain
-    step (the reference's schedule in torch ops) from the same carry;
-    returns the worst absolute errors (``compare_ds``; 0.0: bit-exact on
-    every leaf)."""
+    step (the reference's schedule in torch ops) from the same carry
+    (with ``seed``, a copy of it with seeded E/H pairs, J and K:
+    ``seed_ds_carry``); returns the worst absolute errors
+    (``compare_ds``; 0.0: bit-exact on every leaf)."""
     import torch
     from fdtd3d_torch.ops import packed_ds
     k_step = packed_ds.make_packed_ds_step(sim.static, sim.device)
     p_step = packed_ds.make_packed_ds_step(sim.static, sim.device,
                                            plain=True)
     cc = k_step.prepare(sim.coeffs)
-    a = k_step(clone_carry(sim._carry), cc)
-    b = p_step(clone_carry(sim._carry), cc)
+    start = clone_carry(sim._carry)
+    if seed is not None:
+        seed_ds_carry(start, sim.device, seed)
+    a = k_step(clone_carry(start), cc)
+    b = p_step(start, cc)
     torch.cuda.synchronize()
-    return compare_ds(a, b, "one ds step (line + pass)", DS_FIELD_TOL)
+    return compare_ds(a, b, what, DS_FIELD_TOL)
 
 
 def bits_equal(a, b):
@@ -953,12 +995,17 @@ def eft_probe_check(dev):
 
 
 def rel_vs_f64(fields, ref):
-    """max over components of |x - f64| / the family's f64 max."""
+    """max over components of |x - f64| / the family's f64 max (complex
+    fields against a complex or a real reference)."""
     import numpy as np
     scale = {fam: max(np.abs(ref[c]).max() for c in ref if c[0] == fam)
              for fam in "EH"}
-    return max(float(np.abs(np.asarray(fields[c], np.float64)
-                            - ref[c]).max() / scale[c[0]]) for c in ref)
+
+    def wide(v):
+        return np.asarray(v, np.complex128 if np.iscomplexobj(v)
+                          else np.float64)
+    return max(float(np.abs(wide(fields[c]) - ref[c]).max() / scale[c[0]])
+               for c in ref)
 
 
 def ds_record_cells(cc, family):
@@ -974,25 +1021,42 @@ def ds_record_cells(cc, family):
     return n
 
 
-def ds_pass_bytes(carry, cc):
+def ds_pass_bytes(carry, cc, as_read=False):
     """Bytes one ds pass must move: each input read once, each output
-    written once (E and H: 6 words each read and 6 written; psi pairs
-    and J read and written; coefficient grids, profiles, the record
-    geometry of 7 floats and an index a record cell, the line)."""
+    written once (E and H: 6 words each read and 6 written; psi pairs,
+    J and K read and written; profiles, the record geometry of 7 floats
+    and an index a record cell, the line; each coefficient grid, a hi
+    or lo word of a/b or plain f32 kj/bj of either family, inside the
+    box outside which it holds its background value: ``grid_cells`` of
+    that grid alone). ``as_read``: the grids as the kernel reads them,
+    km/bm inside the H family's box and every other grid whole."""
     import torch
     vol = carry["E"][0].numel() * 4
     n = 4 * 6 * vol
     for fam in ("psE", "psH"):
         n += sum(2 * v.numel() * 4 for v in carry[fam].values())
-    if "J" in carry:
-        n += 2 * 3 * vol
+    for key in ("J", "K"):
+        if key in carry:
+            n += 2 * 3 * vol
     for family in ("E", "H"):
         fc = cc[family]
+        box = 1
+        for lo, hi in fc.get("box") or ():
+            box *= hi - lo + 1
         for key in ("a", "b", "kj", "bj"):
+            boxed = family == "H" and key in ("kj", "bj")
             for v in fc[key] or []:
                 for t in (v if isinstance(v, tuple) else (v,)):
-                    if isinstance(t, torch.Tensor) and t.dim() > 0:
-                        n += t.numel() * 4
+                    if not (isinstance(t, torch.Tensor) and t.dim() > 0):
+                        continue
+                    if not as_read:
+                        n += 4 * grid_cells({"shape": fc["shape"], "a": [t],
+                                             "b": None, "kj": None,
+                                             "bj": None})
+                    elif boxed:
+                        n += 4 * (box if fc["box"] else 0)
+                    else:
+                        n += 4 * t.numel()
         n += sum(v.numel() * 4 for v in fc["prof"].values())
         n += 8 * 4 * ds_record_cells(cc, family)
     if "inc" in carry:
@@ -1007,14 +1071,15 @@ def ds_pass_flops(carry, cc):
     sum (72); 118 per slab psi pair (three pair products, two pair
     sums); per record cell the term (three pair products, a pair sum,
     the gate: 94) and its pair sum into the accumulator (20); 16 for
-    Drude J per component."""
+    Drude J and 16 for K per component (two products, a sum, add_f)."""
     cells = carry["E"][0].numel()
     f = 2 * 3 * cells * (2 * 40 + 2 + 20 + 72)
     for fam in ("psE", "psH"):
         f += sum(v.numel() // 2 for v in carry[fam].values()) * 118
     f += 114 * (ds_record_cells(cc, "E") + ds_record_cells(cc, "H"))
-    if "J" in carry:
-        f += 3 * cells * 16
+    for key in ("J", "K"):
+        if key in carry:
+            f += 3 * cells * 16
     return f
 
 
@@ -1066,6 +1131,8 @@ def ds_times(sim, dev, reps, plain_reps):
                     f"{key}_bound_ms": max(t_bytes, t_ops),
                     f"{key}_bound_by": "bytes" if t_bytes >= t_ops
                     else "operations"})
+    out["pass_as_read_bytes_ms"] = ds_pass_bytes(
+        carry, cc, as_read=True) / HBM_BYTES_PER_S * 1e3
     out["pass_bound_share"] = out["pass_bound_ms"] / out["pass_ms"]
     out["step_bound_share"] = (out["pass_bound_ms"] + out["line_bound_ms"]) \
         / out["step_ms"]
@@ -4676,13 +4743,357 @@ def complex_fields(dev):
     return rec
 
 
+
+# --------------------------------------------------------------------------
+# float32x2 with magnetic Drude K, and complex float32x2 (phase 31)
+# --------------------------------------------------------------------------
+
+X2 = ["--dtype", "float32x2"]
+DS_K_DIR = os.path.join(OUT_DIR, "ds_k")
+# the float32x2 bar with the deliberately plain-f32 ADE currents J and K
+# (fdtd3d_tpu/solver.py:939-961); DS_REL_BAR is the vacuum example's
+DS_ADE_BAR = 1e-6
+
+
+def k_sphere_flags(size):
+    """A K sphere alone (tests/torch_parity.py's materials: mu_inf 1.5,
+    omega_pm 1e11, gamma_m 1e10) on the precision example at ``size``
+    (oblique TFSF, CPML), radius size/8."""
+    c, r = str(size // 2), str(size // 8)
+    out = ["--same-size", str(size), "--use-drude-m", "--mu-inf", "1.5",
+           "--omega-pm", "1e11", "--gamma-m", "1e10"]
+    for a in "xyz":
+        out += [f"--drude-m-sphere-center-{a}", c]
+    return out + ["--drude-m-sphere-radius", r]
+
+
+def ds_k_kernels(dev):
+    """Phase 31 (a): 10 CUDA ds steps with K against 10 of the plain
+    version (the reference's schedule in torch ops) from one seeded
+    carry (E/H pairs, J, K) at 128^3: the DNG sphere of ``dng_flags``
+    (J and K on one sphere, da/db pair grids, km/bm in their box) and a
+    K sphere alone on the precision example (oblique TFSF); fields at
+    DS_FIELD_TOL of their family's max, J and K at DS_J_TOL."""
+    return {
+        "dng_128": ds_kernel_vs_plain(
+            config(MIE, dng_flags(128, 10) + X2), dev, 81,
+            "ds 128^3 DNG sphere (J and K)"),
+        "k_sphere_128": ds_kernel_vs_plain(
+            config(PRECISION, k_sphere_flags(128)), dev, 82,
+            "ds 128^3 K sphere, oblique TFSF")}
+
+
+def ds_k_accuracy(dev, steps=300):
+    """Phase 31 (b): the DNG sphere at 128^3 for ``steps`` steps through
+    ``Simulation``: float32x2 (the K kernel) and float32 (the packed K
+    build) against the port's float64 plain step on the card, each
+    field's max |diff| over its family's f64 max; float32x2 gated at
+    DS_ADE_BAR."""
+    import numpy as np
+    from fdtd3d_torch.sim import Simulation
+    runs = {}
+    for dtype, kind in (("float64", "plain"), ("float32x2", "packed_ds_cuda"),
+                        ("float32", "packed_cuda")):
+        sim = Simulation(config(MIE, dng_flags(128, steps)
+                                + ["--dtype", dtype]), device=dev)
+        if sim.step_kind != kind:
+            fail(f"DNG 128^3 {dtype} ran {sim.step_kind}, not {kind}")
+        sim.run()
+        sim.block_until_ready()
+        runs[dtype] = sim.fields()
+        del sim
+    ref = runs.pop("float64")
+    rec = {"steps": steps, "e_max": float(max(np.abs(ref[c]).max()
+                                              for c in ref if c[0] == "E")),
+           "rel_vs_f64": rel_vs_f64(runs["float32x2"], ref),
+           "f32_rel_vs_f64": rel_vs_f64(runs["float32"], ref)}
+    say(f"DNG 128^3 accuracy: {json.dumps(rec)}")
+    if not rec["e_max"] > 0:
+        fail("DNG 128^3: no wave reached the grid")
+    if not rec["rel_vs_f64"] <= DS_ADE_BAR:
+        fail(f"DNG 128^3 float32x2 rel vs f64 {rec['rel_vs_f64']:.3e} > "
+             f"{DS_ADE_BAR}")
+    return rec
+
+
+def ds_k_times(dev, size=256, steps=40, reps=20, plain_reps=2):
+    """Phase 31 (c): the DNG sphere at ``size``^3 in float32x2 through
+    ``Simulation`` for ``steps`` steps with the finite check (the main
+    path: ds launches, kernels a step, set-up, peak memory), then on
+    its state, 100 steps in, one CUDA step against the plain version
+    from a seeded copy (E/H pairs, J, K everywhere: ``seed_ds_carry``;
+    fields at DS_FIELD_TOL, J and K at DS_J_TOL), the shape and plan the
+    times are taken at, and CUDA-event times of the line, the pass and
+    the step beside the plain version and the bound (``ds_times``: K's
+    24 B/cell, every coefficient grid inside its box); then the same
+    without K (J only, mu a scalar) in the same call."""
+    import torch
+    from fdtd3d_torch.ops import packed_ds
+    from fdtd3d_torch.sim import Simulation
+    rec = {"steps": steps}
+    for label, flags in (("k", dng_flags(size, steps)),
+                         ("no_k", dng_flags(size, steps)[:-3])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        sim = Simulation(config(MIE, flags + X2 + ["--check-finite"]),
+                         device=dev)
+        setup = time.time() - t0
+        if sim.step_kind != "packed_ds_cuda" \
+                or sim.static.use_drude_m != (label == "k"):
+            fail(f"DNG {size}^3 {label}: {sim.step_kind}, use_drude_m "
+                 f"{sim.static.use_drude_m}")
+        if label == "k":
+            reset_launches()
+            t0 = time.time()
+            sim.run()
+            sim.block_until_ready()
+            got = {"ds_pass": packed_ds.ds_pass.launches,
+                   "ds_line": packed_ds.line_advance.launches}
+            if got != {"ds_pass": steps, "ds_line": steps}:
+                fail(f"DNG {size}^3 float32x2: launches {got}")
+            rec.update(launches=got, wall_s=time.time() - t0, setup_s=setup,
+                       kernels_per_step=(got["ds_line"]
+                                         + packed_ds.ds_pass.kernels) / steps,
+                       peak_mem_bytes=torch.cuda.max_memory_allocated())
+            if rec["kernels_per_step"] > 3:
+                fail(f"DNG {size}^3: {rec['kernels_per_step']} kernels a "
+                     f"step")
+        sim.advance(100 - sim.t)          # the line carries the wave
+        err = ds_one_step_vs_plain(
+            sim, seed=83, what=f"DNG {size}^3 {label}: one seeded ds step")
+        rec[label] = ds_times(sim, dev, reps, plain_reps)
+        rec[label]["max_abs_err"] = err
+        del sim
+    torch.cuda.empty_cache()
+    rec["k_over_no_k"] = rec["k"]["pass_ms"] / rec["no_k"]["pass_ms"]
+    say(f"DNG {size}^3 ds times: {json.dumps(rec)}")
+    return rec
+
+
+def complex_ds_main_path(dev, real_fields=None, ref64=None):
+    """Phase 31 (d): the precision example as it stands (128^3, 1000
+    steps) with ``--complex-field-values --telemetry``: the kind and
+    token, 2 x the real run's ds launches, ``<c8`` dumps whose re parts
+    are bit-equal to the real float32x2 run's dumps and whose im parts
+    are exactly 0, and their accuracy against a float64 complex run
+    (DS_REL_BAR); ``real_fields``/``ref64``: phase 5's real float32x2
+    dumps and float64 fields of the same configuration, when the whole
+    script has them."""
+    import numpy as np
+    from fdtd3d_torch import telemetry
+    from fdtd3d_torch.io import load_dat
+    from fdtd3d_torch.sim import Simulation
+    steps = config(PRECISION, []).time_steps
+    dirs = {k: os.path.join(DS_K_DIR, f"complex_{k}")
+            for k in ("complex", "real")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    tel = os.path.join(dirs["complex"], "t.jsonl")
+    base = ["--cmd-from-file", PRECISION, "--save-res", str(steps),
+            "--check-finite"]
+    log, _e, launches, wall, peak = cli_logged(
+        base + COMPLEX + ["--telemetry", tel, "--save-dir",
+                          dirs["complex"]], "complex float32x2")
+    if "step_kind=complex2x_packed_ds_cuda tb_fallback=paired_complex" \
+            not in log:
+        fail("complex float32x2: not complex2x_packed_ds_cuda with the "
+             "paired_complex token")
+    recs = telemetry.read_jsonl(tel)
+    rec = {"steps": steps, "wall_s": wall, "peak_mem_bytes": peak,
+           "launches": {k: launches[k] for k in ("ds_pass", "ds_line")},
+           "records": len(recs)}
+    if real_fields is None:
+        rlog, _e, rl, rwall, rpeak = cli_logged(
+            base + ["--save-dir", dirs["real"]], "real float32x2")
+        rec.update(real_wall_s=rwall, real_peak_mem_bytes=rpeak,
+                   real_launches={k: rl[k] for k in ("ds_pass", "ds_line")})
+        real_fields = {c: load_dat(os.path.join(
+            dirs["real"], f"{c}_t{steps:06d}.dat"))
+            for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz")}
+    want = {"ds_pass": 2 * steps, "ds_line": 2 * steps}
+    if rec["launches"] != want or any(
+            launches[k] for k in ("tb_pass", "e_update", "h_update")):
+        fail(f"complex float32x2: launches {launches} != {want}")
+    re_equal, im_zero, fields = True, True, {}
+    for c, r in real_fields.items():
+        name = f"{c}_t{steps:06d}.dat"
+        z = load_dat(os.path.join(dirs["complex"], name))
+        with open(os.path.join(dirs["complex"], name + ".manifest.json")) \
+                as f:
+            dtype = json.load(f)["dtype"]
+        if dtype != "<c8" or z.shape != r.shape or not np.isfinite(z).all():
+            fail(f"complex float32x2 {c}: {dtype} {z.shape}")
+        re_equal &= bool(np.array_equal(z.real.view(np.uint32),
+                                        np.asarray(r).view(np.uint32)))
+        im_zero &= not bool(np.any(z.imag))
+        fields[c] = z
+    if ref64 is None:
+        sim = Simulation(config(PRECISION, COMPLEX + ["--dtype",
+                                                      "float64"]),
+                         device=dev)
+        sim.run()
+        ref64 = sim.fields()
+        del sim
+    rel = rel_vs_f64(fields, ref64)
+    rec.update(re_bit_equal_to_real=re_equal, im_exactly_zero=im_zero,
+               rel_vs_f64=rel)
+    say(f"complex float32x2 main path: {json.dumps(rec)}")
+    if not (re_equal and im_zero):
+        fail(f"complex float32x2: re bit-equal {re_equal}, im zero "
+             f"{im_zero}")
+    if not rel <= DS_REL_BAR:
+        fail(f"complex float32x2 rel vs f64 {rel:.3e} > {DS_REL_BAR}")
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def paired_ds_vs_plain(sim, pstep, pcc, seed):
+    """One paired complex step of the kernels against each leg's plain
+    ds step, from a copy of ``sim``'s carry with both legs' E/H pairs
+    seeded (``seed_ds_carry``, a seed a leg): the re leg against the
+    plain step of the real configuration, the im leg against that of
+    the configuration with its TFSF and point-source amplitudes zeroed
+    (the reference's im leg); the reference's packed-ds gates on each
+    leg, and the im leg must come out nonzero. Returns the worst errors
+    over both legs (``compare_ds``)."""
+    import dataclasses
+
+    import torch
+    from fdtd3d_torch.ops import packed_ds
+    from fdtd3d_torch.solver import build_static
+    cfg_re = dataclasses.replace(sim.static.cfg, complex_fields=False)
+    cfg_im = dataclasses.replace(
+        cfg_re, point_source=dataclasses.replace(cfg_re.point_source,
+                                                 amplitude=0.0),
+        tfsf=dataclasses.replace(cfg_re.tfsf, amplitude=0.0))
+    start = clone_carry(sim._carry)
+    for i, part in enumerate(("re", "im")):
+        seed_ds_carry(start[part], sim.device, seed + i)
+    got = pstep(clone_carry(start), pcc)
+    worst = {"pass": 0.0, "line": 0.0}
+    for part, cfg in (("re", cfg_re), ("im", cfg_im)):
+        plain = packed_ds.make_packed_ds_step(build_static(cfg), sim.device,
+                                              plain=True)
+        want = plain(start[part], pcc[part])
+        torch.cuda.synchronize()
+        err = compare_ds(got[part], want, f"complex float32x2 {part} leg: "
+                         "one seeded paired step", DS_FIELD_TOL)
+        worst = {k: max(worst[k], err[k]) for k in worst}
+    if not float(got["im"]["E"][:3].abs().max()) > 0:
+        fail("complex float32x2: the seeded im leg came out zero")
+    say(f"complex float32x2: one seeded paired step matches each leg's "
+        f"plain ds step (max abs err {max(worst.values()):.3e})")
+    return worst
+
+
+def complex_ds_times(dev, reps=50, plain_reps=3):
+    """Phase 31 (d): at 128^3 (the precision example, a wave on the grid)
+    one seeded paired step against each leg's plain step
+    (``paired_ds_vs_plain``), CUDA-event ms of the paired step beside
+    the real ds step in the same call, of pack and unpack; one leg's
+    line and pass beside their plain versions and bounds (``ds_times``
+    on the re leg)."""
+    import types
+
+    from fdtd3d_torch.ops import packed_ds
+    from fdtd3d_torch.sim import Simulation
+    from fdtd3d_torch.solver import build_static, make_step
+    sim = Simulation(config(PRECISION, COMPLEX), device=dev)
+    sim.advance(100)
+    pstep = make_step(sim.static, dev)
+    pcc = pstep.prepare(sim.coeffs)
+    carry = sim._carry
+    err = paired_ds_vs_plain(sim, pstep, pcc, seed=84)
+    leg = types.SimpleNamespace(static=build_static(config(PRECISION, [])),
+                                _carry=carry["re"], coeffs=sim.coeffs,
+                                device=dev)
+    paired_ms = timed(lambda: pstep(carry, pcc), reps)
+    rstep = packed_ds.make_packed_ds_step(leg.static, dev)
+    rcc = rstep.prepare(sim.coeffs)
+    real = clone_carry(carry["re"])
+    real_ms = timed(lambda: rstep(real, rcc), reps)
+    state = sim.state
+    pack_ms = timed(lambda: pstep.pack(state), 5)
+    unpack_ms = timed(lambda: pstep.unpack(carry), 5)
+    del state, real
+    leg_t = ds_times(leg, dev, reps, plain_reps)
+    rec = {"paired_step_ms": paired_ms, "real_ds_step_ms": real_ms,
+           "paired_over_real": paired_ms / real_ms, "pack_ms": pack_ms,
+           "unpack_ms": unpack_ms, "leg": leg_t, "max_abs_err": err}
+    say(f"complex float32x2 times at 128^3: {json.dumps(rec)}")
+    return rec
+
+
+def complex_ds_supervised(n=64, steps=60):
+    """Phase 31 (d): the precision example at ``n``^3, complex, under
+    ``--supervise`` with a NaN at t=30 and a checkpoint every 20 steps:
+    one rollback and one degrade, ``complex2x_packed_ds_cuda ->
+    complex2x_plain_ds``."""
+    from fdtd3d_torch import faults
+    out = os.path.join(DS_K_DIR, "supervised")
+    shutil.rmtree(out, ignore_errors=True)
+    faults.clear()
+    os.environ["FDTD3D_FAULT_PLAN"] = "nan@t=30"
+    try:
+        log, err, launches, wall, _p = cli_logged(
+            ["--cmd-from-file", PRECISION, "--same-size", str(n),
+             "--time-steps", str(steps), "--checkpoint-every", "20",
+             "--supervise", "--save-dir", out] + COMPLEX,
+            "complex float32x2 supervised")
+    finally:
+        os.environ.pop("FDTD3D_FAULT_PLAN")
+        faults.clear()
+    rungs = [ln.split("degraded ")[1].split(" -> ") for ln in
+             err.splitlines() if "degraded " in ln]
+    rec = {"n": n, "steps": steps, "wall_s": wall, "degrades": rungs,
+           "launches": {k: launches[k] for k in ("ds_pass", "ds_line")}}
+    say(f"complex float32x2 supervised: {json.dumps(rec)}")
+    want = ["complex2x_packed_ds_cuda", "complex2x_plain_ds"]
+    if "1 rollbacks, 1 ladder degrades (now complex2x_plain_ds" not in log \
+            or len(rungs) != 1 or [r.strip() for r in rungs[0]] != want:
+        fail(f"complex float32x2 supervised: {rungs}, {log[-300:]}")
+    shutil.rmtree(out, ignore_errors=True)
+    return rec
+
+
+def ds_k_and_complex(dev, real_fields=None, ref64=None):
+    """Phase 31: magnetic Drude K in the float32x2 kernel (its kernel
+    against the plain version, the DNG sphere's accuracy against float64,
+    its times with and without K at 256^3), and complex float32x2 as two
+    ds legs on that kernel (the CLI main path, times, a supervised
+    NaN)."""
+    shutil.rmtree(DS_K_DIR, ignore_errors=True)
+    rec = {"max_abs_err": ds_k_kernels(dev),
+           "accuracy": ds_k_accuracy(dev),
+           "times": ds_k_times(dev),
+           "complex_main_path": complex_ds_main_path(dev, real_fields,
+                                                     ref64),
+           "complex_times": complex_ds_times(dev),
+           "complex_supervised": complex_ds_supervised()}
+    shutil.rmtree(DS_K_DIR, ignore_errors=True)
+    return rec
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
-    ap.add_argument("--only", default=None, metavar="27,28,29,30",
-                    help="run only these of phases 27, 28, 29 and 30 (after "
-                         "the build) and print their JSON, without the "
+    ap.add_argument("--only", default=None, metavar="27,28,29,30,31",
+                    help="run only these of phases 27 to 31 (after the "
+                         "build) and print their JSON, without the "
                          "kernels line and the closing ok line")
     args = ap.parse_args()
 
@@ -4726,16 +5137,18 @@ def main() -> int:
                 say(f"ptxas {lib}: {line.strip()}")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {27, 28, 29, 30}:
-            fail(f"--only takes phases 27, 28, 29 and 30, not "
-                 f"{sorted(only)}")
+        if not only <= {27, 28, 29, 30, 31}:
+            fail(f"--only takes phases 27 to 31, not {sorted(only)}")
+        result["nvidia_smi"] = card_line()
         for phase, key, fn in ((27, "modes", modes_and_outputs),
                                (28, "far_field",
                                 lambda: mie_far_field(dev)),
                                (29, "observability",
                                 lambda: observability(dev)),
                                (30, "complex",
-                                lambda: complex_fields(dev))):
+                                lambda: complex_fields(dev)),
+                               (31, "ds_k_complex",
+                                lambda: ds_k_and_complex(dev))):
             if phase in only:
                 t1 = time.time()
                 result[key] = fn()
@@ -4917,6 +5330,9 @@ def main() -> int:
         f"{F32_REL_FLOOR})")
     if not rel_ds <= DS_REL_BAR:
         fail(f"float32x2 rel vs f64 {rel_ds:.3e} > {DS_REL_BAR}")
+    # phase 31's complex run of the same argv: its re parts against these
+    # dumps, its accuracy against this float64 run
+    phase5_ds = (ds_fields, ref64)
     del ds_fields, runs, ref64
 
     # ---- phase 3: times at 256^3 -----------------------------------------
@@ -5306,21 +5722,23 @@ def main() -> int:
     # ---- phase 30: complex fields as paired real legs on the packed twin -
     result["complex"] = cplx = complex_fields(dev)
     mark("phase 30")
+    # ---- phase 31: K in the float32x2 kernel, complex float32x2 legs ----
+    result["ds_k_complex"] = dsk = ds_k_and_complex(dev, *phase5_ds)
+    del phase5_ds
+    mark("phase 31")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
         "dng_ladder_256": dng_l_err, "k_lanes_128": k_lanes["max_abs_err"],
         "comp_lanes_128": comp_lanes["max_abs_err"],
-        "complex": cplx["max_abs_err"]})
+        "complex": cplx["max_abs_err"],
+        "ds_k": dsk["max_abs_err"],
+        "ds_k_256": {k: dsk["times"][k]["max_abs_err"]
+                     for k in ("k", "no_k")},
+        "complex_ds": dsk["complex_times"]["max_abs_err"]})
     result["bf16_stats"] = BF16_STATS
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=False, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     result["nvidia_smi"] = card
     if args.out:
         with open(args.out, "w") as f:
@@ -5522,6 +5940,29 @@ def main() -> int:
             "ms": ct[f"{fam}_update_ms"], "plain_ms": ct[f"{fam}_plain_ms"],
             "bound_ms": ct[f"{fam}_bound_ms"],
             "bound_by": ct[f"{fam}_bound_by"], "library_ms": None})
+    dk, cm = dsk["times"], dsk["complex_main_path"]
+    leg = dsk["complex_times"]["leg"]
+    for kname, launches_n, err_n, t in (
+            ("packed_ds.pass[K]", dk["launches"]["ds_pass"],
+             max([e["pass"] for e in dsk["max_abs_err"].values()]
+                 + [dk["k"]["max_abs_err"]["pass"]]), dk["k"]),
+            ("packed_ds.pass[complex legs]", cm["launches"]["ds_pass"],
+             dsk["complex_times"]["max_abs_err"]["pass"], leg)):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": ds_src,
+            "replaces": "fdtd3d_tpu/ops/pallas_packed_ds.py:429",
+            "launches": launches_n, "max_abs_err": err_n,
+            "ms": t["pass_ms"], "plain_ms": t["pass_plain_ms"],
+            "bound_ms": t["pass_bound_ms"], "bound_by": t["pass_bound_by"],
+            "library_ms": None})
+    kernels.append({
+        "name": "packed_ds.line[complex legs]", "route": "cuda",
+        "source": ds_src, "replaces": "fdtd3d_tpu/ops/tfsf.py:235",
+        "launches": cm["launches"]["ds_line"],
+        "max_abs_err": dsk["complex_times"]["max_abs_err"]["line"],
+        "ms": leg["line_ms"], "plain_ms": leg["line_plain_ms"],
+        "bound_ms": leg["line_bound_ms"], "bound_by": leg["line_bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

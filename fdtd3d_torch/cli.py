@@ -18,9 +18,14 @@ the SIGTERM/SIGINT handlers (exit 143/130), and the closing throughput
 line, for ``--dtype float32``, ``bfloat16`` (bf16 storage, f32
 arithmetic; the DAT dumps are the fields' 2-byte words, as the
 reference's), ``float32x2`` (the hi words are dumped, in f32, as the
-reference dumps them) and ``float64``; and ``--batch a.txt b.txt ...``
-(``_run_batch_cli``): the command files as the lanes of one batch
-(fdtd3d_torch/batch.py), with the reference's per-lane lines. The
+reference dumps them; with the magnetic Drude flags too, and with
+``--complex-field-values`` as two ds legs, ``<c8`` dumps of the hi
+words: on the CPU under the reference's hook
+``FDTD3D_FORCE_PAIRED_COMPLEX``, else a ValueError) and ``float64``;
+and ``--batch a.txt b.txt ...`` (``_run_batch_cli``): the command
+files as the lanes of one batch (fdtd3d_torch/batch.py), with the
+reference's per-lane lines (float32x2 lanes refused, as the reference
+refuses them). The
 observability flags: ``--telemetry`` (the schema-v11 JSONL of
 ``fdtd3d_torch/telemetry.py``; with ``--per-chip-telemetry`` the
 per-chip rows), ``--metrics-every`` (``save_dir/metrics.jsonl``, in the

@@ -12,7 +12,10 @@ same way, the ``*_lo`` words and the ds CPML profile pairs included.
 
 Complex fields cross as complex arrays (complex64/complex128 both
 ways); the two real legs of a paired complex run cross as two
-dict-form states under ``re``/``im``.
+dict-form states under ``re``/``im``. A complex float32x2 state crosses
+like any other: complex64 leaves, the low words too once the run has
+stepped (real float32 low words before, as the reference's
+``init_state`` makes them), and magnetic Drude's ``K`` beside ``J``.
 
 bfloat16 leaves (bf16 fields, and the Kahan residuals ``rE``/``rH`` of
 compensated mode, bf16 in both packages): the reference keeps them as

@@ -16,14 +16,21 @@
 //   E' = ca E + cb (curl_b H + CPML terms + source records - J'),
 //   J' = kj J + bj E_hi                           (plain f32, as the
 //                                                  reference keeps it)
-//   H' = da H - db (curl_f E' + CPML terms + source records)
+//   H' = da H - db (curl_f E' + CPML terms + source records + K'),
+//   K' = km K + bm H_hi                           (magnetic Drude, plain
+//                                                  f32 likewise)
 // with each difference, product and sum an error-free-transform (EFT)
 // sequence: the differences are exact (two_diff) and scaled by 1/dx as
 // a pair, the slab CPML runs as pair recursions on compact slab stacks
 // (psi' = b psi + c d, term = ik d + psi'), each source record's plane
 // term is added into the accumulator pair at its plane before the
 // coefficient multiply, in table order, and ca/cb/da/db are pairs
-// (scalars or grids). A record's term is computed in the kernel from
+// (scalars or grids); J' and K' enter the accumulator pair after the
+// records, by add_f (the reference's jnp-ds order; its kernel adds K in
+// the lagged H phase, pallas_packed_ds.py:746-756, as this pass does:
+// K of a cell is read and written where its H is). km/bm are grids
+// read only inside their box (where they differ from the background)
+// or scalars. A record's term is computed in the kernel from
 // the line: v = Einc or Hinc interpolated as v0 (1 - w) + v1 w with the
 // pairs of the record's fixed geometry (ops/packed_ds.py::
 // build_term_plan), times its sign*pol/dx pair, times its 0/1 gate. E
@@ -101,8 +108,10 @@
 //    kernel may start on the SMs the edge kernel leaves free
 //    (programmatic dependent launch: the two write disjoint cells and
 //    read only the source buffers and the line; without: 1.93 / 0.43).
-//    Coefficient grids and Drude J are compiled out of the calls that
-//    have none.
+//    Coefficient grids, Drude J and magnetic Drude K are compiled out of
+//    the calls that have none. K is the simple first design: read and
+//    written in device memory at the H phase's cell (no ring: only the
+//    cell's own thread reads it), 24 B/cell more a step.
 // 5. Each axis cut whole into near-equal tiles (cut band by band, the
 //    band tiles 8-9 cells wide: 2.25 / 0.49), over x segments of 16
 //    planes where that gives every SM four items, else 10 (10 at 256^3:
@@ -192,6 +201,14 @@ struct Coef {
   float val;
 };
 
+// A plain f32 coefficient read from its grid only inside the grid's box
+// (where it differs from its background), else the scalar `val`.
+struct BoxCoef {
+  const float* grid;  // (n1, n2, n3) or nullptr (a scalar everywhere)
+  float val;          // the scalar, or the grid's background value
+  int lo[3], hi[3];   // the box, inclusive bounds per axis
+};
+
 struct Rec {
   int off;    // offset of the record's plane cells in the geometry
   int comp;   // component index within the family
@@ -218,6 +235,8 @@ struct Params {
   float* E2;              // destination stacks, written only
   float* H2;
   float* J2;
+  const float* K0;        // magnetic Drude K (3, n1, n2, n3) or nullptr
+  float* K2;
   const float* psE0[3];   // per axis a: (4, n with dim a = 2 m[a]) or null
   const float* psH0[3];
   float* psE2[3];
@@ -229,6 +248,8 @@ struct Params {
   Family fe, fh;
   Coef kj[3];             // Drude, E only
   Coef bj[3];
+  BoxCoef km[3];          // magnetic Drude, H only
+  BoxCoef bm[3];
   int m[3];               // slab planes per side, 0 = no CPML on the axis
   int pj, pk;             // the point source's column
   int n1, n2, n3;
@@ -390,6 +411,13 @@ __device__ __forceinline__ void pair_coef(const PairCoef& c, int64_t cell,
 
 __device__ __forceinline__ float coef(const Coef& c, int64_t cell) {
   return c.grid ? c.grid[cell] : c.val;
+}
+
+__device__ __forceinline__ float box_coef(const BoxCoef& c, int x, int j,
+                                          int k, int64_t cell) {
+  const bool in = c.grid && x >= c.lo[0] && x <= c.hi[0] && j >= c.lo[1] &&
+                  j <= c.hi[1] && k >= c.lo[2] && k <= c.hi[2];
+  return in ? c.grid[cell] : c.val;
 }
 
 // Plane of index ia inside the compact 2m-plane slab stack, or -1.
@@ -625,11 +653,11 @@ __device__ __forceinline__ void curl_term(const Params& p,
 // planes, plane x, from the source family's ring planes `here` (plane x)
 // and `there` (x - 1 for E, x + 1 for H); `old` the family's old pair
 // words, `thr` whether `there` exists, `store` whether the cell is the
-// thread's own (its psi and J are written). AX: the axes whose slab
+// thread's own (its psi, J and K are written). AX: the axes whose slab
 // path is compiled in (bit a; 0 in the inner kernel); GRID = false
-// compiles the coefficient grids and Drude J out. Each stage runs for
-// the three components before the next (curl sums, records, Drude J,
-// coefficient products, walls): every component sees the reference's
+// compiles the coefficient grids, Drude J and K out. Each stage runs for
+// the three components before the next (curl sums, records, Drude J or
+// K, coefficient products, walls): every component sees the reference's
 // operations in the reference's order, and the three independent chains
 // give the compiler instructions to interleave.
 template <bool BACKWARD, int AX, bool GRID>
@@ -667,6 +695,18 @@ __device__ __forceinline__ void update(const Params& p, const Family& f,
                     __fmul_rn(coef(p.bj[c], cell), old[c]));
       if (store) p.J2[c * vol + cell] = jn;
       add_f(ah[c], al[c], -jn, ah[c], al[c]);
+    }
+  }
+  if (!BACKWARD && GRID && p.K0) {
+    const int64_t vol = (int64_t)p.n1 * p.n2 * p.n3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float kn = __fadd_rn(
+          __fmul_rn(box_coef(p.km[c], x, col.j, col.k, cell),
+                    p.K0[c * vol + cell]),
+          __fmul_rn(box_coef(p.bm[c], x, col.j, col.k, cell), old[c]));
+      if (store) p.K2[c * vol + cell] = kn;
+      add_f(ah[c], al[c], kn, ah[c], al[c]);
     }
   }
 #pragma unroll
@@ -983,8 +1023,9 @@ int fdtd_ds_pass(const Params* p, void* stream) {
   if (msum > MAX_SLAB_SUM || p->n_item[0] < 0 || p->n_item[1] < 0) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  // the builds with grids when any coefficient is a grid or Drude J runs
-  bool grid = p->J0 != nullptr;
+  // the builds with grids when any coefficient is a grid or Drude J or
+  // K runs
+  bool grid = p->J0 != nullptr || p->K0 != nullptr;
   for (int c = 0; c < 3; ++c) {
     grid = grid || p->fe.a[c].hi || p->fe.b[c].hi || p->fh.a[c].hi ||
            p->fh.b[c].hi;

@@ -29,7 +29,8 @@ whose lo words live in ``loE``/``loH``); float64 planes are averaged in
 float64 and rounded to float32, as the reference casts them. Complex
 fields add their imaginary planes (a paired run's im leg, a native run's
 imaginary part) in the same real arithmetic, each part rounded to
-float32 as the reference's ``jnp.real``/``jnp.imag`` casts are.
+float32 as the reference's ``jnp.real``/``jnp.imag`` casts are; a
+complex float32x2 run's legs give their hi words.
 
 ``far_field`` and ``directivity_pattern`` evaluate the radiation
 integrals on the host, each component at its own Yee position

@@ -653,27 +653,27 @@ def psi_shape(shape, a: int, m: int, lead=()) -> Tuple[int, ...]:
 
 def carry_buffers(carry) -> List[torch.Tensor]:
     """The buffers an out-of-place pass reads and writes, in a fixed
-    order: E, H, psi, J."""
+    order: E, H, psi, J, K."""
     out = [carry["E"], carry["H"]]
     out += [carry["psE"][a] for a in sorted(carry["psE"])]
     out += [carry["psH"][a] for a in sorted(carry["psH"])]
-    if "J" in carry:
-        out.append(carry["J"])
+    out += [carry[k] for k in ("J", "K") if k in carry]
     return out
 
 
 def alloc_like(carry) -> Dict[str, Any]:
-    """A spare set of a carry's pass buffers (E, H, psi, J)."""
+    """A spare set of a carry's pass buffers (E, H, psi, J, K)."""
     return {"E": torch.empty_like(carry["E"]),
             "H": torch.empty_like(carry["H"]),
             "psE": {a: torch.empty_like(v) for a, v in carry["psE"].items()},
             "psH": {a: torch.empty_like(v) for a, v in carry["psH"].items()},
-            **({"J": torch.empty_like(carry["J"])} if "J" in carry else {})}
+            **{k: torch.empty_like(carry[k]) for k in ("J", "K")
+               if k in carry}}
 
 
 def swap_buffers(carry, spare) -> None:
     """Exchange the pass buffers between the carry and the spare."""
-    for key in ("E", "H", "J"):
+    for key in ("E", "H", "J", "K"):
         if key in carry:
             carry[key], spare[key] = spare[key], carry[key]
     for fam in ("psE", "psH"):

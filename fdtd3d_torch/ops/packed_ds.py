@@ -19,7 +19,10 @@ then Hinc). Per E component: the EFT curl of the H pair times 1/dx as a
 pair, the y/z/x slab CPML as pair recursions (term = ik*d + psi'), each
 source record's plane term added into the accumulator pair at its plane
 before the ca/cb pair multiply, Drude J in plain f32, PEC walls; then H
-the same from the new E. The source records are the reference's: every
+the same from the new E, with magnetic Drude K in plain f32 (``K' = km K
++ bm H_hi`` on the hi word of the old H, added to the accumulator pair
+after the records, as the reference's lagged H phase adds it). The
+source records are the reference's: every
 TFSF face correction whose polarisation projection does not vanish,
 grouped by normal axis, with the point source as a pseudo-record at the
 end of the axis-0 group (E only). A record's plane term interpolates
@@ -44,8 +47,8 @@ The CUDA step (kind ``packed_ds_cuda``), in launch order:
    into (y, z) tiles over x segments; the items that reach into a CPML
    slab run in the edge kernel, the others in the inner one.
 
-The step then swaps the carry's E, H, psi, J and line with the spare
-set: the carry always holds the live state.
+The step then swaps the carry's E, H, psi, J, K and line with the
+spare set: the carry always holds the live state.
 
 Beside each kernel wrapper stands its plain PyTorch version with the
 same signature (``line_advance_plain``, ``ds_pass_plain``: the same
@@ -69,8 +72,11 @@ operations take about the same time (csrc/packed_ds.cu).
 Layout (the reference's): ``E``, ``H`` (6, n1, n2, n3) with rows [0,3)
 the hi words and [3,6) the lo words; ``psE[a]``/``psH[a]`` (4, ...)
 with dim 1+a of 2m planes, rows = the two components with a curl term
-along a (hi, then the same two lo); ``J`` (3, ...) with Drude; ``inc``
-the ds line with ``*_lo`` words.
+along a (hi, then the same two lo); ``J`` (3, ...) with Drude and ``K``
+(3, ...) with magnetic Drude, plain f32 beside the pairs; ``inc`` the
+ds line with ``*_lo`` words. km/bm are read inside the box where their
+grids differ from the background (``packed.material``'s rule; outside
+it the background scalar), as the f32 twin reads its grids.
 """
 
 from __future__ import annotations
@@ -429,6 +435,8 @@ def pack(state: Dict[str, Any], static) -> Dict[str, Any]:
                 + [state[f"lopsi_{grp}"][k] for k in keys])
     if static.use_drude:
         p["J"] = torch.stack([state["J"][c] for c in ec])
+    if static.use_drude_m:
+        p["K"] = torch.stack([state["K"][c] for c in hc])
     if static.tfsf_setup is not None:
         p["inc"] = {k: v.clone() for k, v in state["inc"].items()}
     return p
@@ -456,6 +464,8 @@ def unpack(p: Dict[str, Any], static) -> Dict[str, Any]:
                     state[f"lopsi_{grp}"][k] = p[fam][a][2 + r]
     if "J" in p:
         state["J"] = {c: p["J"][j] for j, c in enumerate(ec)}
+    if "K" in p:
+        state["K"] = {c: p["K"][j] for j, c in enumerate(hc)}
     if "inc" in p:
         state["inc"] = dict(p["inc"])
     return state
@@ -464,7 +474,10 @@ def unpack(p: Dict[str, Any], static) -> Dict[str, Any]:
 def prepare_family(static, coeffs, family: str, records: List[Record],
                    plan: Optional[TermPlan]) -> Dict[str, Any]:
     """Per-family operands: ca/cb (E) or da/db (H) as hi/lo pairs of
-    tensors (0-d scalars or grids), kj/bj in plain f32, the slab CPML
+    tensors (0-d scalars or grids), the ADE current's coefficients in
+    plain f32 under ``kj``/``bj`` (E: Drude kj/bj; H: magnetic Drude
+    km/bm, with ``box``, where their grids differ from their
+    background, ``bg``, as ``packed.material`` finds it), the slab CPML
     profile packs (6, 2m) per axis (b, c, ik hi then lo), the walls, the
     1/dx pair, and the record table with each record's term offset
     (the point source's cell in ``point_pos``)."""
@@ -487,6 +500,13 @@ def prepare_family(static, coeffs, family: str, records: List[Record],
     if family == "E" and static.use_drude:
         fc["kj"] = [ds.as_f32(coeffs[f"kj_{c}"], like) for c in comps]
         fc["bj"] = [ds.as_f32(coeffs[f"bj_{c}"], like) for c in comps]
+    if family == "H" and static.use_drude_m:
+        fc["kj"] = [ds.as_f32(coeffs[f"km_{c}"], like) for c in comps]
+        fc["bj"] = [ds.as_f32(coeffs[f"bm_{c}"], like) for c in comps]
+        fc["box"], fc["bg"] = packed.material(
+            {"shape": fc["shape"], "a": None, "b": None,
+             "kj": [v if v.dim() else None for v in fc["kj"]],
+             "bj": [v if v.dim() else None for v in fc["bj"]]})
     for a in fc["m"]:
         fc["prof"][a] = torch.stack(
             [coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"] for v in ("b", "c", "ik")]
@@ -583,6 +603,10 @@ def _family_plain(F, S, J, psi, fc, terms, point, backward: bool) -> None:
                     wall = _bcast1d(fc["wall"][w], w)
                     vh, vl = vh * wall, vl * wall
         else:
+            if J is not None:        # K: the dual current, added
+                k_new = fc["kj"][c] * J[c] + fc["bj"][c] * old[0]
+                acc = ds.add_f(*acc, k_new)
+                J[c].copy_(k_new)
             vh, vl = ds.sub_ff(*ds.mul_ff(*old, *fc["a"][c]),
                                *ds.mul_ff(*acc, *fc["b"][c]))
         F[c].copy_(vh)
@@ -596,10 +620,10 @@ def e_update_plain(E, H, J, psi, fc, terms, point) -> None:
     _family_plain(E, H, J, psi, fc, terms, point, backward=True)
 
 
-def h_update_plain(H, E, psi, fc, terms) -> None:
-    """H pairs (and psi_H pairs) in place from forward ds differences
-    of the E pairs, with the H records."""
-    _family_plain(H, E, None, psi, fc, terms, None, backward=False)
+def h_update_plain(H, E, psi, fc, terms, K=None) -> None:
+    """H pairs (and psi_H pairs, and K with magnetic Drude) in place from
+    forward ds differences of the E pairs, with the H records."""
+    _family_plain(H, E, K, psi, fc, terms, None, backward=False)
 
 
 # --------------------------------------------------------------------------
@@ -617,7 +641,8 @@ def ds_pass_plain(src, dst, cc, line_src, line_dst, point) -> None:
         a.copy_(b)
     e_update_plain(dst["E"], dst["H"], dst.get("J"), dst["psE"], cc["E"],
                    terms, point)
-    h_update_plain(dst["H"], dst["E"], dst["psH"], cc["H"], terms)
+    h_update_plain(dst["H"], dst["E"], dst["psH"], cc["H"], terms,
+                   dst.get("K"))
 
 
 # --------------------------------------------------------------------------
@@ -632,6 +657,12 @@ class _PairCoef(ctypes.Structure):
 
 class _Coef(ctypes.Structure):
     _fields_ = [("grid", ctypes.c_void_p), ("val", ctypes.c_float)]
+
+
+class _BoxCoef(ctypes.Structure):
+    """Mirror of ``struct BoxCoef`` in csrc/packed_ds.cu."""
+    _fields_ = [("grid", ctypes.c_void_p), ("val", ctypes.c_float),
+                ("lo", ctypes.c_int * 3), ("hi", ctypes.c_int * 3)]
 
 
 class _Rec(ctypes.Structure):
@@ -654,12 +685,14 @@ class _Params(ctypes.Structure):
     _fields_ = [("E0", ctypes.c_void_p), ("H0", ctypes.c_void_p),
                 ("J0", ctypes.c_void_p), ("E2", ctypes.c_void_p),
                 ("H2", ctypes.c_void_p), ("J2", ctypes.c_void_p),
+                ("K0", ctypes.c_void_p), ("K2", ctypes.c_void_p),
                 ("psE0", ctypes.c_void_p * 3), ("psH0", ctypes.c_void_p * 3),
                 ("psE2", ctypes.c_void_p * 3), ("psH2", ctypes.c_void_p * 3),
                 ("geo", ctypes.c_void_p), ("geo_i0", ctypes.c_void_p),
                 ("total", ctypes.c_longlong), ("plan", ctypes.c_void_p),
                 ("fe", _Family), ("fh", _Family),
                 ("kj", _Coef * 3), ("bj", _Coef * 3),
+                ("km", _BoxCoef * 3), ("bm", _BoxCoef * 3),
                 ("m", ctypes.c_int * 3), ("pj", ctypes.c_int),
                 ("pk", ctypes.c_int), ("n1", ctypes.c_int),
                 ("n2", ctypes.c_int), ("n3", ctypes.c_int),
@@ -737,6 +770,25 @@ def _coef_struct(v: torch.Tensor, name, shape, device) -> _Coef:
     return _Coef(_check(v, name, shape, device), 0.0)
 
 
+def _box_struct(fc, key: str, c: int, device) -> _BoxCoef:
+    """km (``key`` "kj" of the H family) or bm ("bj") of component c: a
+    scalar, or a grid read inside the family's box with its background
+    value outside it (a grid equal to its background everywhere is read
+    nowhere)."""
+    v = fc[key][c]
+    out = _BoxCoef()
+    if v.dim() == 0:
+        out.val = float(v)
+        return out
+    out.val = fc["bg"][(key, c)]
+    box = fc["box"]
+    if box:
+        out.grid = _check(v, f"{key}[{c}]", fc["shape"], device)
+        for a, (lo, hi) in enumerate(box):
+            out.lo[a], out.hi[a] = lo, hi
+    return out
+
+
 def _family_struct(fc, device) -> _Family:
     shape = fc["shape"]
     f = _Family()
@@ -787,6 +839,10 @@ def _base_params(cc, device, lib) -> _Params:
         for c in range(3):
             prm.kj[c] = _coef_struct(fe["kj"][c], f"kj[{c}]", shape, device)
             prm.bj[c] = _coef_struct(fe["bj"][c], f"bj[{c}]", shape, device)
+    if cc["H"]["kj"] is not None:
+        for c in range(3):
+            prm.km[c] = _box_struct(cc["H"], "kj", c, device)
+            prm.bm[c] = _box_struct(cc["H"], "bj", c, device)
     for a, m in fe["m"].items():
         prm.m[a] = m
         if int(np.prod(packed.psi_shape(shape, a, m))) * 2 >= 2 ** 31:
@@ -834,10 +890,13 @@ def _pass_params(src, dst, cc, line_src, line_dst, point, lib) -> _Params:
     prm.H0 = _check(src["H"], "H", full, device)
     prm.E2 = _check(dst["E"], "E (destination)", full, device)
     prm.H2 = _check(dst["H"], "H (destination)", full, device)
+    jshape = (3,) + tuple(shape)
     if cc["E"]["kj"] is not None:
-        jshape = (3,) + tuple(shape)
         prm.J0 = _check(src["J"], "J", jshape, device)
         prm.J2 = _check(dst["J"], "J (destination)", jshape, device)
+    if cc["H"]["kj"] is not None:
+        prm.K0 = _check(src["K"], "K", jshape, device)
+        prm.K2 = _check(dst["K"], "K (destination)", jshape, device)
     for a, m in cc["E"]["m"].items():
         ps = [4] + list(shape)
         ps[1 + a] = 2 * m
@@ -1021,7 +1080,8 @@ def make_packed_ds_step(static, device, plain: bool = False):
         point = point_src(t) if point_src is not None else None
         e_update_plain(pst["E"], pst["H"], pst.get("J"), pst["psE"],
                        cc["E"], terms, point)
-        h_update_plain(pst["H"], pst["E"], pst["psH"], cc["H"], terms)
+        h_update_plain(pst["H"], pst["E"], pst["psH"], cc["H"], terms,
+                       pst.get("K"))
         pst["t"] = t + 1
         return pst
 

@@ -452,11 +452,13 @@ class Simulation:
         src = convert.from_host(np.broadcast_to(np.asarray(value),
                                                 dsts[0].shape))
         _install(dsts, src)
-        lo = self._dict_view().get("lo" + comp[0])
-        if lo is not None:
-            # the pair's value is hi + lo: a stale lo word would perturb
-            # the value just set
-            (lo[comp] if at is None else lo[comp][at]).zero_()
+        for view in self._leg_views():
+            lo = view.get("lo" + comp[0])
+            if lo is not None:
+                # the pair's value is hi + lo: a stale lo word (of
+                # either leg of a paired run) would perturb the value
+                # just set
+                (lo[comp] if at is None else lo[comp][at]).zero_()
         return self
 
     # -- checkpoints -------------------------------------------------------
@@ -517,7 +519,9 @@ class Simulation:
             if isinstance(re, torch.Tensor):
                 return lambda: torch.complex(re, im)
             return re
-        return lazy(*legs)
+        tree = lazy(*legs)
+        tree["t"] = self.t      # the legs' t is synced only as they step
+        return tree
 
     def restore(self, path: str):
         """Load a checkpoint (this package's or the reference's npz) into

@@ -33,7 +33,8 @@ tensors ``{E, H, psi_E, psi_H, J, inc, t}`` with the reference's keys
 * float32x2 (double-single hi+lo pairs, ops/ds.py): the packed-ds step
   (``ops/packed_ds.py``, kinds ``packed_ds_cuda``/``packed_ds_plain``)
   or the plain ds step (kind ``plain_ds``, the reference's jnp-ds
-  branch), which ``FDTD3D_NO_PACKED`` also selects.
+  branch), which ``FDTD3D_NO_PACKED`` also selects. Drude J and
+  magnetic Drude K ride both in plain f32, as in the reference.
 * float64: the plain step in f64 (no kernel in either package); it is
   the oracle of the accuracy check on the card.
 
@@ -70,11 +71,13 @@ CUDA device (or under the reference's test hook
 update is linear with real coefficients and real sources, so the re leg
 carries the sources, the im leg runs the same step with their
 amplitudes zeroed, and each leg rides the normal kernel chain (kind
-``complex2x_<leg kind>``: ``complex2x_packed_cuda`` in 3D f32). Elsewhere
-the plain step runs in native complex arithmetic (complex64 or
-complex128 fields, psi, J, K and incident line; the waveform and the
-line coordinates stay real): the oracle of the paired route, as the
-reference's CPU route is of its TPU one.
+``complex2x_<leg kind>``: ``complex2x_packed_cuda`` in 3D f32,
+``complex2x_packed_ds_cuda`` in 3D float32x2). Elsewhere the plain step
+runs in native complex arithmetic (complex64 or complex128 fields, psi,
+J, K and incident line; the waveform and the line coordinates stay
+real): the oracle of the paired route, as the reference's CPU route is
+of its TPU one. Complex float32x2 has no native route (the reference's
+fails on its first complex clip): it runs only as paired ds legs.
 
 Every kernel is 3D-only, as the reference's are: a 1D or 2D scheme
 mode (inactive axes are singleton dims) runs the plain step (kind
@@ -84,8 +87,8 @@ reference's jnp and jnp-ds steps, with ``tb_fallback`` token
 
 Scope: every scheme mode, real float32, bfloat16, float32x2 and
 float64, complex float32 and float64, CPML on any axes, TFSF, the point
-source, electric Drude J, magnetic Drude K (not with float32x2),
-compensated float32, material
+source, electric Drude J, magnetic Drude K, compensated float32,
+material
 coefficient grids, PEC walls, unsharded. Everything else raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -170,10 +173,6 @@ def check_scope(cfg: SimConfig) -> None:
         raise NotImplementedError(
             f"{what} is not ported to fdtd3d_torch yet (ROADMAP.md queue "
             f"{item}); run it with the reference package fdtd3d_tpu")
-    if cfg.complex_fields and cfg.dtype == "float32x2":
-        out("complex fields with float32x2", "A10(b)")
-    if cfg.materials.use_drude_m and cfg.dtype == "float32x2":
-        out("magnetic Drude (K current) with float32x2 fields", "B4(b)")
     if cfg.output.checkpoint_backend == "orbax":
         out("the orbax checkpoint backend", "A11")
     par = cfg.parallel
@@ -390,13 +389,19 @@ def init_state(static: StaticSetup, device) -> Dict[str, Any]:
             if a in static.pml_axes:
                 psi_h[f"{c}_{AXES[a]}"] = psi_zeros(a)
     ds_fields = static.cfg.ds_fields
+    # the low words are real float32 even with complex fields, as the
+    # reference's init_state makes them (a paired run joins them into
+    # complex with the rest of the state once it has stepped)
+    f32 = torch.float32
     if psi_e:
         state["psi_E"] = psi_e
         state["psi_H"] = psi_h
         if ds_fields:
             # the psi recursions run in ds too (build_coeffs)
-            state["lopsi_E"] = {k: zeros(v.shape) for k, v in psi_e.items()}
-            state["lopsi_H"] = {k: zeros(v.shape) for k, v in psi_h.items()}
+            state["lopsi_E"] = {k: zeros(v.shape, f32)
+                                for k, v in psi_e.items()}
+            state["lopsi_H"] = {k: zeros(v.shape, f32)
+                                for k, v in psi_h.items()}
     if static.use_drude:
         state["J"] = {c: zeros() for c in mode.e_components}
     if static.use_drude_m:
@@ -408,14 +413,14 @@ def init_state(static: StaticSetup, device) -> Dict[str, Any]:
                        for c in mode.h_components}
     if ds_fields:
         # double-single low words: E/H carried as hi+lo f32 pairs
-        state["loE"] = {c: zeros() for c in mode.e_components}
-        state["loH"] = {c: zeros() for c in mode.h_components}
+        state["loE"] = {c: zeros(dtype=f32) for c in mode.e_components}
+        state["loH"] = {c: zeros(dtype=f32) for c in mode.h_components}
     if static.tfsf_setup is not None:
         n = static.tfsf_setup.n_inc
         state["inc"] = {"Einc": zeros((n,)), "Hinc": zeros((n,))}
         if ds_fields:
-            state["inc"]["Einc_lo"] = zeros((n,))
-            state["inc"]["Hinc_lo"] = zeros((n,))
+            state["inc"]["Einc_lo"] = zeros((n,), f32)
+            state["inc"]["Hinc_lo"] = zeros((n,), f32)
     return state
 
 
@@ -716,9 +721,11 @@ def make_plain_ds_step(static: StaticSetup):
     pairs (``loE``/``loH``/``lopsi_*``/``inc/*_lo``), every difference,
     product and sum an error-free-transform sequence (ops/ds.py).
 
-    Deliberately plain f32, as in the reference: the Drude J current,
-    the Gaussian envelope of a pulse, and the geometry of the
-    interpolation. Kind ``plain_ds``."""
+    Deliberately plain f32, as in the reference: the Drude J and
+    magnetic Drude K currents (each ``k' = k_c k + b_c f`` on the hi word
+    of the old field, added to the accumulator pair by ``add_f`` after
+    the TFSF corrections), the Gaussian envelope of a pulse, and the
+    geometry of the interpolation. Kind ``plain_ds``."""
     mode, cfg = static.mode, static.cfg
     setup = static.tfsf_setup
     ps = cfg.point_source
@@ -859,15 +866,24 @@ def make_plain_ds_step(static: StaticSetup):
                                                  setup)
             state = dict(state, inc=new_state["inc"])
 
-        new_H, new_loH = {}, {}
+        new_H, new_loH, new_K = {}, {}, {}
         acc_h = _half_update("H", state, coeffs, new_psi)
         for c in mode.h_components:
+            ah, al = acc_h[c]
+            if static.use_drude_m:
+                # after the TFSF corrections, before da/db: the
+                # reference's order; K stays plain f32 on the hi word
+                k_new = coeffs[f"km_{c}"] * state["K"][c] \
+                    + coeffs[f"bm_{c}"] * state["H"][c]
+                new_K[c] = k_new
+                ah, al = ds.add_f(ah, al, k_new)
             t1 = ds.mul_ff(state["H"][c], state["loH"][c],
-                           *coef_pair(coeffs, f"da_{c}", acc_h[c][0]))
-            t2 = ds.mul_ff(*acc_h[c],
-                           *coef_pair(coeffs, f"db_{c}", acc_h[c][0]))
+                           *coef_pair(coeffs, f"da_{c}", ah))
+            t2 = ds.mul_ff(ah, al, *coef_pair(coeffs, f"db_{c}", ah))
             new_H[c], new_loH[c] = ds.sub_ff(*t1, *t2)
         new_state["H"], new_state["loH"] = new_H, new_loH
+        if static.use_drude_m:
+            new_state["K"] = new_K
         if new_psi["psi_E"]:
             new_state.update(new_psi)
         new_state["t"] = t + 1
@@ -1010,6 +1026,13 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
         return _stamp_tb_fallback(
             _make_paired_complex_step(static, device),
             tb_fallback_reason(static, packed, allow_multistep))
+    if static.cfg.complex_fields and static.cfg.ds_fields:
+        raise ValueError(
+            "complex fields with float32x2 run only as the paired real "
+            "legs (complex2x_plain_ds / complex2x_packed_ds_*, ROADMAP "
+            "A10): the reference's native complex jnp-ds route fails on "
+            "complex values, so none is ported. Run on a CUDA device, or "
+            "set FDTD3D_FORCE_PAIRED_COMPLEX=1 on the CPU")
     if static.cfg.complex_fields and torch.device(device).type == "cuda" \
             and static.cfg.use_pallas is not False:
         raise ValueError(
@@ -1043,11 +1066,7 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     packed = torch.device(device).type == "cuda" if flag is None else flag
     reason = tb_fallback_reason(static, packed, allow_multistep)
     if static.cfg.ds_fields:
-        # the reference's ds dispatch: FDTD3D_NO_PACKED, or a
-        # configuration outside the packed-ds scope (a 1D/2D mode),
-        # takes the plain ds step (its jnp-ds branch)
-        if packed and not os.environ.get("FDTD3D_NO_PACKED") \
-                and packed_ds.eligible(static):
+        if packed and _ds_kernel_wanted(static):
             step = packed_ds.make_packed_ds_step(static, device)
         else:
             step = make_plain_ds_step(static)
@@ -1074,6 +1093,18 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
         step = make_plain_step(static) if packed_mod.declines(static) \
             else packed_mod.make_packed_step(static, device)
     return _stamp_tb_fallback(step, reason)
+
+
+def _ds_kernel_wanted(static: StaticSetup) -> bool:
+    """The reference's ds dispatch: the packed-ds kernel runs a float32x2
+    configuration inside its scope unless ``FDTD3D_NO_PACKED`` is set;
+    otherwise (a 1D/2D mode, or the variable) the plain ds step runs,
+    the bottom of the ds ladder (its jnp-ds branch)."""
+    import os
+
+    from fdtd3d_torch.ops import packed_ds
+    return packed_ds.eligible(static) \
+        and not os.environ.get("FDTD3D_NO_PACKED")
 
 
 def _complex_parts(tree, part):
@@ -1111,9 +1142,20 @@ def _make_paired_complex_step(static: StaticSetup, device):
     built with ``allow_multistep=False`` (the pair calls each leg once
     a step): on a CUDA device the packed twin ``csrc/packed_eh.cu`` in
     3D f32, its K build with magnetic Drude, the ladder's twins under
-    their escape hatches; f64 and 1D/2D legs run the plain step, as
-    real runs do. On a CUDA device an eligible leg that does not run a
-    kernel is an error, never a quiet plain run.
+    their escape hatches; in 3D float32x2 the packed-ds twin
+    ``csrc/packed_ds.cu`` (J and K included), the plain ds step under
+    ``FDTD3D_NO_PACKED``; f64 and 1D/2D legs run the plain step (or
+    the plain ds step), as real runs do. On a CUDA device an eligible
+    leg that does not run a kernel is an error, never a quiet plain
+    run.
+
+    With float32x2 the complex state's low words start real (float32,
+    the reference's ``init_state``) and a real leaf's imaginary part is
+    zero here: the reference copies a real leaf into both legs, which
+    agrees while the low words are zero (every state it packs: the
+    initial one, or one it unpacked after a step, whose leaves it made
+    complex). ROADMAP.md §C records the difference for a nonzero real
+    low word installed by hand.
 
     The carry is ``{"re": leg, "im": leg, "t": t}``, each leg in its
     step's own form (packed when the leg step is packed). ``pack`` and
@@ -1137,9 +1179,10 @@ def _make_paired_complex_step(static: StaticSetup, device):
                                 topology=static.topology)
     step_re = make_step(st_re, device, allow_multistep=False)
     step_im = make_step(st_im, device, allow_multistep=False)
+    kernel_leg = _ds_kernel_wanted(st_re) if cfg.ds_fields \
+        else packed_mod.eligible(st_re) or pallas3d.eligible(st_re)
     if torch.device(device).type == "cuda" and cfg.use_pallas is not False \
-            and (packed_mod.eligible(st_re) or pallas3d.eligible(st_re)) \
-            and not step_re.kind.endswith("_cuda"):
+            and kernel_leg and not step_re.kind.endswith("_cuda"):
         raise RuntimeError(
             f"complex leg on a CUDA device ran {step_re.kind}, not a "
             f"kernel")
@@ -1179,7 +1222,9 @@ def _make_paired_complex_step(static: StaticSetup, device):
         return {"re": legs[0], "im": legs[1], "t": int(state["t"])}
 
     def unpack(p):
-        return _complex_join(leg_view(p["re"]), leg_view(p["im"]))
+        out = _complex_join(leg_view(p["re"]), leg_view(p["im"]))
+        out["t"] = p["t"]       # the legs' own t is synced at each step
+        return out
 
     step.prepare = prepare
     step.pack = pack

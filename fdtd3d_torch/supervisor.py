@@ -22,9 +22,11 @@ and checkpoint integrity are the persistence half).
   ``FDTD3D_NO_PACKED`` -> ``fused_*`` (or, where the port's
   ``fused_preferred`` names it, as for bf16 and coefficient grids,
   straight to ``pallas3d_*``) -> ``FDTD3D_NO_FUSED`` -> ``pallas3d_*`` ->
-  ``use_pallas=False`` -> ``plain``; float32x2 ``packed_ds_*`` ->
-  ``plain_ds``; a paired complex run the same rungs with its
-  ``complex2x_`` prefix. A kind is ``*_cuda`` on the card and
+  ``use_pallas=False`` -> ``plain``; float32x2 ``packed_ds_*`` (with
+  or without magnetic Drude K, which both carry) -> ``plain_ds``; a
+  paired complex run the same rungs with its ``complex2x_`` prefix
+  (complex float32x2: ``complex2x_packed_ds_*`` ->
+  ``complex2x_plain_ds``). A kind is ``*_cuda`` on the card and
   ``*_plain`` on the CPU. A trip at the bottom (``plain``/``plain_ds``,
   the reference's jnp rung) is physics, not a kernel fault, and is
   raised; so is a trip whose escape hatch did not change the kind.
@@ -127,7 +129,8 @@ def degrade_plan(kind: str):
     (``complex2x_<leg kind>``) walks its legs' ladder: both legs are
     rebuilt one rung down, so ``complex2x_packed_cuda`` goes to
     ``complex2x_fused_cuda`` or ``complex2x_pallas3d_cuda``, and so on to
-    ``complex2x_plain``. (The reference's ladder names no complex2x
+    ``complex2x_plain``; ``complex2x_packed_ds_cuda`` (float32x2 legs)
+    to ``complex2x_plain_ds``. (The reference's ladder names no complex2x
     kind, so its supervisor raises a complex run's trip without a
     rollback; ROADMAP.md §C.)"""
     kind = kind.replace("complex2x_", "", 1)

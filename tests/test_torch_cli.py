@@ -58,11 +58,31 @@ def test_cli_dat_dumps_match_reference(tmp_path, capsys, use_pallas):
 @pytest.mark.parametrize("flag,item", [
     (["--checkpoint-backend", "orbax"], "A11"),
     (["--num-processes", "2"], "A11"), (["--metrics", "m.txt"], "A15"),
-    (["--complex-field-values", "--dtype", "float32x2"], "A10"),
 ])
 def test_cli_flags_outside_the_slice_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(["--3d", "--same-size", "16", "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("paired", [False, True],
+                         ids=["native_raises", "paired_runs"])
+def test_cli_complex_float32x2(monkeypatch, capsys, paired):
+    """``--complex-field-values --dtype float32x2``, which raised A10(b),
+    runs as the paired ds legs (on the CPU under the reference's hook
+    FDTD3D_FORCE_PAIRED_COMPLEX); without the hook the native complex
+    route, which the reference fails on, raises a ValueError naming the
+    paired route."""
+    argv = ["--3d", "--same-size", "16", "--time-steps", "2", "--device",
+            "cpu", "--complex-field-values", "--dtype", "float32x2"]
+    monkeypatch.delenv("FDTD3D_FORCE_PAIRED_COMPLEX", raising=False)
+    if not paired:
+        with pytest.raises(ValueError, match="FDTD3D_FORCE_PAIRED_COMPLEX"):
+            tcli.main(argv)
+        return
+    monkeypatch.setenv("FDTD3D_FORCE_PAIRED_COMPLEX", "1")
+    assert tcli.main(argv) == 0
+    assert "step_kind=complex2x_plain_ds tb_fallback=paired_complex" \
+        in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", ["--metrics-every", "--per-chip-telemetry",

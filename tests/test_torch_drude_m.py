@@ -17,8 +17,11 @@ float32 auxiliary state in f32 and bf16 runs (as J), float64 in f64.
 * A batch of K lanes: ``batch_fallback_reason`` equals the reference's
   (None: its packed kernel carries K lanes), and each lane of the
   lane-capable packed step equals the reference's solo jnp run.
-* float32x2 with K (B4(b)), in 3D and in 1D, still raises, naming its
-  ROADMAP.md item.
+* float32x2 with K (B4(b), ported), in 3D and in 1D: the cases that
+  raised its ROADMAP.md item now run it, the packed-ds step's plain kind
+  against the plain ds step in 3D, the plain ds step against the
+  reference's jnp-ds step in 1D (tests/test_torch_ds_drude_m.py holds
+  the rest).
 """
 
 import dataclasses
@@ -26,7 +29,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import BASE, np_state, seed_reference, to_port
+from torch_parity import (BASE, assert_ds_state_close, np_state,
+                          seed_reference, to_port)
 
 from fdtd3d_torch import convert
 from fdtd3d_torch.batch import BatchSimulation
@@ -238,21 +242,46 @@ def test_batch_lanes_match_the_reference_solo_runs():
     (dict(dtype="float32x2"), r"B4\(b\)"),
 ])
 def test_out_of_scope_k_raises_naming_its_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TSim(to_port(config("k_sphere", **kw)), device="cpu")
+    """The configuration that raised ``item`` runs since it was ported:
+    float32x2 with the K sphere on the packed-ds step's plain kind, 6
+    steps from seeded E/H, against the plain ds step at 1e-9 of each
+    family's max (the slab CPML sums differ in order at O(eps^2)) and K
+    at 1e-9 of its max (psi at the ds gate, 1e-6)."""
+    runs = {}
+    for use_pallas in (True, False):
+        sim = TSim(to_port(config("k_sphere", use_pallas=use_pallas,
+                                  **kw)), device="cpu")
+        rng = np.random.RandomState(17)
+        for c in ("Ex", "Ey", "Ez", "Hx", "Hy", "Hz"):
+            sim.set_field(c, 0.01 * rng.standard_normal((16, 16, 16)))
+        runs[sim.step_kind] = convert.state_to_reference(sim.run(6).state)
+    assert set(runs) == {"packed_ds_plain", "plain_ds"}, item
+    assert np.abs(runs["plain_ds"]["K"]["Hx"]).max() > 0
+    assert_ds_state_close(runs["plain_ds"], runs["packed_ds_plain"],
+                          {"field": 1e-9, "ade": 1e-9})
 
 
 def test_one_dimensional_k_raises_naming_its_item():
-    """1D K runs (tests/test_torch_modes.py holds it); float32x2 with K
-    stays out of scope in 1D too."""
+    """float32x2 with K in 1D, which raised B4(b), runs since it was
+    ported: the plain ds step (kind ``plain_ds``, as every kernel is
+    3D-only) against the reference's jnp-ds step, 4 steps from seeded
+    fields, at the ds gates (E/H 1e-6 of the family max, K 1e-5)."""
     cfg = SimConfig(scheme="1D_EzHy", size=(64, 1, 1), time_steps=4,
                     dx=1e-3, courant_factor=0.5, wavelength=15e-3,
                     dtype="float32x2",
                     materials=MaterialsConfig(**dict(
                         K_MAT, drude_m_sphere=SphereConfig(
                             enabled=True, center=(32, 0, 0), radius=5))))
-    with pytest.raises(NotImplementedError, match=r"B4\(b\)"):
-        TSim(to_port(cfg), device="cpu")
+    ref = RSim(cfg)
+    seed_reference(ref, 18)
+    port = TSim(to_port(cfg), device="cpu")
+    assert (ref.step_kind, port.step_kind) == ("jnp_ds", "plain_ds")
+    port.state = convert.state_from_reference(np_state(ref))
+    ref.run()
+    port.run()
+    want, got = np_state(ref), convert.state_to_reference(port.state)
+    assert np.abs(want["K"]["Hy"]).max() > 0
+    assert_ds_state_close(want, got)
 
 
 def test_parameter_blocks_carry_k():

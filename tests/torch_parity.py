@@ -150,3 +150,45 @@ def assert_state_close(want, got, tol: float = TOL, path: str = ""):
         err = np.abs(a.astype(np.float64) - b).max()
         rel = err / scale if scale > 0 else err
         assert rel < tol, f"{path}/{k}: rel {rel:.2e} (max {scale:.2e})"
+
+
+# the reference's ds gates (tests/test_pallas_packed_ds.py:263-285): E and
+# H (hi and lo words) against the family's max, psi pairs against the psi
+# max, the ADE currents J and K against their own max, the incident line
+DS_GATES = {"field": 1e-6, "psi": 1e-6, "ade": 1e-5, "line": 1e-12}
+
+
+def assert_ds_state_close(want, got, gates=None):
+    """Every leaf of the unpacked float32x2 state within its ds gate
+    (``DS_GATES`` unless ``gates`` overrides some): a lo word is held
+    to its family's (or its psi's) hi max, since the pair's value is hi
+    + lo and a lo word alone is roundoff."""
+    g = dict(DS_GATES, **(gates or {}))
+    assert set(want) == set(got), f"keys {set(want)} != {set(got)}"
+
+    def rel(a, b, scale):
+        return float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max()
+                     / (scale + 1e-30))
+
+    for grp in ("E", "H"):
+        scale = max(np.abs(want[grp][c]).max() for c in want[grp])
+        for key in (grp, "lo" + grp):
+            for c in want[key]:
+                r = rel(want[key][c], got[key][c], scale)
+                assert r < g["field"], f"{key}/{c}: rel {r:.2e}"
+    for key in ("psi_E", "psi_H", "lopsi_E", "lopsi_H"):
+        assert (key in want) == (key in got), key
+        for c in want.get(key, {}):
+            hi = want[key.replace("lo", "")][c]
+            r = rel(want[key][c], got[key][c], np.abs(hi).max())
+            assert r < g["psi"], f"{key}/{c}: rel {r:.2e}"
+    for grp in ("J", "K"):
+        for c in want.get(grp, {}):
+            r = rel(want[grp][c], got[grp][c], np.abs(want[grp][c]).max())
+            assert r < g["ade"], f"{grp}/{c}: rel {r:.2e}"
+    for k in want.get("inc", {}):
+        r = rel(want["inc"][k], got["inc"][k],
+                np.abs(want["inc"][k.replace("_lo", "")]).max())
+        assert r < g["line"], f"inc/{k}: rel {r:.2e}"
+    assert int(want["t"]) == int(got["t"])
