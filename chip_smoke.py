@@ -362,9 +362,27 @@ complex float32x2 as two real ds legs on it:
    kernels beside their plain versions; ``--supervise`` at 64^3 with a
    NaN at t=30: one rollback, ``complex2x_packed_ds_cuda ->
    complex2x_plain_ds``.
+32. domain decomposition in one process (the sharded packed step,
+   ``Simulation(cfg, devices=[...])`` with four or two shards on
+   ``cuda:0``): (a) one seeded E launch, one H launch (each after its
+   ghost exchange) and one whole step at 256^3 on (2,2,1), each shard
+   against the plain versions (f32 at ``TOL``, bf16 at ``BF16_TOL``);
+   (b) vacuum3D_tfsf at 256^3 for 150 steps on (2,2,1) and (1,1,2)
+   against the unsharded packed run under ``FDTD3D_NO_TEMPORAL`` (every
+   leaf, psi on the full axis; bit-equality reported) and the
+   unsharded tb run (E, H at ``TOL``), and bf16 on (2,2,1) against the
+   unsharded bf16 packed run, each run's sharded launches counted (and
+   no unsharded one); on distinct cards too where there are two or
+   four, else it says the peer-copy path did not run; (c) the Mie
+   example at 256^3 on (2,2,1), 100 steps, against its unsharded packed
+   run; (d) same-call CUDA-event times of the sharded step, its two
+   exchanges and one shard's E and H launch (beside their plain versions
+   and bounds) and of the unsharded packed step, the (2,2,1) run's peak
+   memory beside four times ``plan.plan``'s per-shard bytes, and config
+   #5's plan on four devices (printed, not run; under 80 GB a device).
 
-``--only 27,28,29,30,31`` (any of them) runs these phases alone after
-the build and prints their JSON (no kernels or ok line).
+``--only 27,...,32`` (any of them) runs these phases alone after the
+build and prints their JSON (no kernels or ok line).
 
 The packed and two-pass kernels' bound counts each coefficient grid
 inside the box outside which it holds its background value
@@ -378,9 +396,9 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 (kernel against plain version, lane against solo) launch the kernels
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
-``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25, and
-each CLI run of 26-31 in this process) resets the counts just before
-it and reads them just after. The last
+``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25,
+each CLI run of 26-31 in this process, and each sharded run of 32)
+resets the counts just before it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -5076,6 +5094,376 @@ def ds_k_and_complex(dev, real_fields=None, ref64=None):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 32: domain decomposition in one process (the sharded packed step)
+# --------------------------------------------------------------------------
+
+SHARDED_TOPOLOGIES = ((2, 2, 1), (1, 1, 2))
+
+
+def clone_tree(tree):
+    """A copy of a carry with lists (the sharded carry's shards) too."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def topo_flag(topo):
+    return ["--manual-topology", "x".join(str(p) for p in topo)]
+
+
+def seeded_sharded_sim(cfg, devices, seed):
+    """A decomposed Simulation with every shard's E, H (J, K) seeded from
+    one torch generator on the first device."""
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(cfg, devices=devices)
+    g = torch.Generator(device=devices[0]).manual_seed(seed)
+    for ps in sim._carry["shards"]:
+        for key in ("E", "H", "J", "K"):
+            if key in ps:
+                ps[key].copy_((0.01 * torch.randn(
+                    ps[key].shape, generator=g, device=devices[0])).to(
+                        ps[key].device))
+    return sim
+
+
+def sharded_calls(step, carry, cc, family, fns):
+    """One family's launch on every shard of ``carry`` (after its ghost
+    exchange) with ``fns`` = (E function, H function)."""
+    shards = carry["shards"]
+    if family == "E":
+        gh = step.exchange(carry, -1)
+        for r, ps in enumerate(shards):
+            fns[0](ps["E"], ps["H"], ps.get("J"), ps["psE"], cc[r]["E"],
+                   ps.get("rE"), ghost=gh[r])
+    else:
+        gh = step.exchange(carry, 1)
+        for r, ps in enumerate(shards):
+            fns[1](ps["H"], ps["E"], ps["psH"], cc[r]["H"], ps.get("K"),
+                   ps.get("rH"), ghost=gh[r])
+
+
+def sharded_kernels_vs_plain(cfg, devices, seed, label, tol):
+    """The sharded launches against their plain versions, shard by
+    shard, on one seeded carry: one E launch, one H launch (each after
+    its exchange), then one whole sharded step; -> worst errors."""
+    import torch
+    from fdtd3d_torch.ops import packed
+    sim = seeded_sharded_sim(cfg, devices, seed)
+    k_step = packed.make_sharded_packed_step(sim.static, sim.mesh)
+    p_step = packed.make_sharded_packed_step(sim.static, sim.mesh,
+                                             plain=True)
+    cc = k_step.prepare(sim.coeffs)
+    kern = (packed.e_update_sharded, packed.h_update_sharded)
+    plain = (packed.e_update_plain, packed.h_update_plain)
+    errs = {}
+    base = sim._carry
+    for fam in ("E", "H"):
+        a, b = clone_tree(base), clone_tree(base)
+        sharded_calls(k_step, a, cc, fam, kern)
+        sharded_calls(p_step, b, cc, fam, plain)
+        torch.cuda.synchronize()
+        errs[fam] = max(compare(ka, kb, f"{label}: one sharded {fam} "
+                                f"launch, shard {r}", family=True, tol=tol)
+                        for r, (ka, kb) in enumerate(zip(a["shards"],
+                                                         b["shards"])))
+    a, b = clone_tree(base), clone_tree(base)
+    a = k_step(a, cc)
+    b = p_step(b, cc)
+    torch.cuda.synchronize()
+    errs["step"] = max(compare(ka, kb, f"{label}: one sharded step, shard "
+                               f"{r}", family=True, tol=tol)
+                       for r, (ka, kb) in enumerate(zip(a["shards"],
+                                                        b["shards"])))
+    say(f"{label}: sharded launches match their plain versions shard by "
+        f"shard (max abs err {errs})")
+    return errs
+
+
+def state_vs(got, want, what, tol):
+    """Max |diff| of two global states (``host_state``'s: tensors on the
+    card, psi expanded on the host), gated at ``tol`` of the family max;
+    prints the first differing cell of each leaf that differs; ->
+    (worst, bit-equal)."""
+    import numpy as np
+    import torch
+
+    def flat(t, p=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{p}{k}/")
+            else:
+                yield f"{p}{k}", torch.as_tensor(v)
+    gw = dict(flat(want))
+    fam = {}
+    for name, v in gw.items():
+        top = name.split("/")[0]
+        fam[top] = max(fam.get(top, 0.0), float(v.abs().max()))
+    worst, same, bad = 0.0, True, []
+    for name, a in flat(got):
+        b = gw[name].to(a.device)
+        d = (a.double() - b.double()).abs()
+        err = float(d.max())
+        scale = fam[name.split("/")[0]]
+        rel = err / scale if scale > 0 else err
+        if err > 0:
+            where = np.unravel_index(int(torch.argmax(d)), tuple(d.shape))
+            say(f"{what}: {name} max|diff| {err:.3e} (rel {rel:.3e} of "
+                f"{scale:.3e}) at {tuple(int(v) for v in where)}, "
+                f"{int((d > 0).sum())} cells differ")
+        if not rel < tol:
+            bad.append(f"{name} rel {rel:.3e}")
+        worst = max(worst, err)
+        same = same and err == 0.0
+        del d
+    if bad:
+        fail(f"{what}: {'; '.join(bad)} >= {tol}")
+    return worst, same
+
+
+def host_state(sim):
+    """A Simulation's global state for ``state_vs``: E, H (and J, K) as
+    copies on the card, psi on the host expanded to the full axis from
+    its topology's slab layout (``io.psi_slab_expand``)."""
+    from fdtd3d_torch import convert, io
+    from fdtd3d_torch.solver import slab_axes
+    slabs = slab_axes(sim.static)
+    tree = {}
+    for k, v in sim.state.items():
+        if not isinstance(v, dict) or k == "inc":
+            continue
+        if k.startswith("psi"):
+            tree[k] = {}
+            for key, arr in v.items():
+                a = "xyz".index(key[-1])
+                tree[k][key] = io.psi_slab_expand(
+                    convert.to_host(arr), a, sim.static.grid_shape[a],
+                    sim.topology[a], slabs.get(a))
+        else:
+            tree[k] = {kk: vv.float() for kk, vv in v.items()}
+    return tree
+
+
+def sharded_run(argv, devices, steps, path=EXAMPLE):
+    """A decomposed run through Simulation(devices=...): the sharded
+    kernels' counts set to 0 just before it is driven and read after,
+    its wall, the peak memory it added (from its construction on), and
+    its state."""
+    import torch
+    from fdtd3d_torch.ops import packed
+    from fdtd3d_torch.sim import Simulation
+    cfg = config(path, argv)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # the references' states
+    sim = Simulation(cfg, devices=devices)
+    if sim.step_kind != "packed_cuda" or sim.mesh is None:
+        fail(f"{argv}: ran {sim.step_kind} (mesh {sim.mesh}), not the "
+             f"sharded packed_cuda step")
+    reset_launches()
+    packed.e_update_sharded.launches = packed.h_update_sharded.launches = 0
+    t0 = time.time()
+    sim.run(steps)
+    sim.block_until_ready()
+    wall = time.time() - t0
+    launches = {"e_update_sharded": packed.e_update_sharded.launches,
+                "e_update": packed.e_update.launches,
+                "h_update_sharded": packed.h_update_sharded.launches,
+                "h_update": packed.h_update.launches}
+    want = steps * sim.mesh.n
+    if launches != {"e_update_sharded": want, "h_update_sharded": want,
+                    "e_update": 0, "h_update": 0}:
+        fail(f"{argv}: sharded launches {launches}, want {want} of each "
+             f"sharded launch and no unsharded one")
+    return {"sim": sim, "wall_s": wall, "launches": launches,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated() - held,
+            "tb_fallback": sim.step_diag["tb_fallback"]["reason"]}
+
+
+def unsharded_run(argv, dev, steps, temporal, path=EXAMPLE):
+    """The unsharded run of the same argv: the tb pass (``temporal``) or
+    the packed step (under ``FDTD3D_NO_TEMPORAL``)."""
+    from fdtd3d_torch.sim import Simulation
+    cfg = config(path, argv)
+    saved = os.environ.get("FDTD3D_NO_TEMPORAL")
+    if not temporal:
+        os.environ["FDTD3D_NO_TEMPORAL"] = "1"
+    try:
+        sim = Simulation(cfg, device=dev)
+        want = "packed_tb_cuda" if temporal else "packed_cuda"
+        if sim.step_kind != want:
+            fail(f"{argv}: ran {sim.step_kind}, not {want}")
+        sim.run(steps)
+        sim.block_until_ready()
+    finally:
+        if saved is None:
+            os.environ.pop("FDTD3D_NO_TEMPORAL", None)
+        else:
+            os.environ["FDTD3D_NO_TEMPORAL"] = saved
+    return sim
+
+
+def sharded_times(dev, reps=20, plain_reps=2):
+    """Same-call CUDA-event times at 256^3 (vacuum3D_tfsf): the sharded
+    step on (2,2,1) with four shards on the card, its two exchanges, one
+    shard's E and H launch (beside their plain versions and bounds: the
+    shard's bytes and its ghost planes' reads), and the unsharded packed
+    step."""
+    import torch
+    from fdtd3d_torch.ops import packed
+    from fdtd3d_torch.sim import Simulation
+    cfg = config(EXAMPLE, ["--same-size", "256"] + topo_flag((2, 2, 1)))
+    sim = seeded_sharded_sim(cfg, [dev] * 4, 41)
+    step = packed.make_sharded_packed_step(sim.static, sim.mesh)
+    cc = step.prepare(sim.coeffs)
+    carry = sim._carry
+    out = {"step_ms": timed(lambda: step(carry, cc), reps),
+           "exchange_ms": timed(lambda: (step.exchange(carry, -1),
+                                         step.exchange(carry, 1)), reps)}
+    ps, c0 = carry["shards"][0], cc[0]
+    gh, ge = step.ghosts[-1][0], step.ghosts[1][0]
+    out["e_update_ms"] = timed(lambda: packed.e_update_sharded(
+        ps["E"], ps["H"], ps.get("J"), ps["psE"], c0["E"], ghost=gh), reps)
+    out["h_update_ms"] = timed(lambda: packed.h_update_sharded(
+        ps["H"], ps["E"], ps["psH"], c0["H"], ghost=ge), reps)
+    out["e_plain_ms"] = timed(lambda: packed.e_update_plain(
+        ps["E"], ps["H"], ps.get("J"), ps["psE"], c0["E"], ghost=gh),
+        plain_reps)
+    out["h_plain_ms"] = timed(lambda: packed.h_update_plain(
+        ps["H"], ps["E"], ps["psH"], c0["H"], ghost=ge), plain_reps)
+    for fam, g in (("E", gh), ("H", ge)):
+        # the ghosts' two components of each plane, read once
+        nbytes = family_bytes(ps, c0, fam) + sum(
+            2 * v[0].numel() * v.element_size() for v in g.values())
+        b = bound(nbytes, family_flops(ps, fam))
+        out[f"{fam.lower()}_bound_ms"], out[f"{fam.lower()}_bound_by"] = b
+    del sim, step, cc, carry
+    os.environ["FDTD3D_NO_TEMPORAL"] = "1"
+    try:
+        ref = seeded_sim(config(EXAMPLE, ["--same-size", "256"]), dev, 41)
+    finally:
+        os.environ.pop("FDTD3D_NO_TEMPORAL", None)
+    ustep = packed.make_packed_step(ref.static, dev)
+    ucc = ustep.prepare(ref.coeffs)
+    ucarry = ref._carry
+    out["unsharded_step_ms"] = timed(lambda: ustep(ucarry, ucc), reps)
+    say("sharded times at 256^3 on (2,2,1), four shards on one card: "
+        + json.dumps(out))
+    return out
+
+
+def sharded(dev):
+    """Phase 32: the sharded packed step on one card (several shards a
+    card), and on distinct cards where there are more."""
+    import numpy as np
+    import torch
+    from fdtd3d_torch import plan as plan_mod
+    rec = {"max_abs_err": {}}
+    cfg221 = config(EXAMPLE, ["--same-size", "256"] + topo_flag((2, 2, 1)))
+    # (a) each sharded launch against its plain version, shard by shard
+    rec["max_abs_err"]["f32"] = sharded_kernels_vs_plain(
+        cfg221, [dev] * 4, 32, "256^3 (2,2,1)", TOL)
+    rec["max_abs_err"]["bf16"] = sharded_kernels_vs_plain(
+        config(EXAMPLE, ["--same-size", "256", "--dtype", "bfloat16"]
+               + topo_flag((2, 2, 1))), [dev] * 4, 33,
+        "256^3 (2,2,1) bf16", BF16_TOL)
+    # (b) the main path at full width against the unsharded runs
+    steps = 150
+    base = ["--same-size", "256", "--time-steps", str(steps)]
+    packed_ref = host_state(unsharded_run(base, dev, steps, False))
+    tb_ref = host_state(unsharded_run(base, dev, steps, True))
+    main = {}
+    for topo in SHARDED_TOPOLOGIES:
+        run = sharded_run(base + topo_flag(topo), [dev] * int(np.prod(topo)),
+                          steps)
+        got = host_state(run.pop("sim"))
+        err, same = state_vs(got, packed_ref, f"{topo} vs unsharded packed",
+                             TOL)
+        # the fields: the tb carry's psi stands at another point of its
+        # recursion than the packed step's at a pass's end (the two agree
+        # on E and H at ~2e-7, on psi only to its own size)
+        err_tb, _ = state_vs({g: got[g] for g in ("E", "H")},
+                             {g: tb_ref[g] for g in ("E", "H")},
+                             f"{topo} vs unsharded tb (E, H)", TOL)
+        run.update(vs_packed_max_abs=err, bit_equal_packed=same,
+                   vs_tb_max_abs=err_tb)
+        main["x".join(map(str, topo))] = run
+        say(f"main path {topo} on one card, {steps} steps: vs the "
+            f"unsharded packed run max abs {err:.3e} (bit-equal {same}), "
+            f"vs tb {err_tb:.3e}; launches {run['launches']}; "
+            f"{run['wall_s']:.2f} s")
+        del got
+    del tb_ref
+    b16 = base + ["--dtype", "bfloat16"]
+    bf_ref = host_state(unsharded_run(b16, dev, steps, False))
+    run = sharded_run(b16 + topo_flag((2, 2, 1)), [dev] * 4, steps)
+    got = host_state(run.pop("sim"))
+    err, same = state_vs(got, bf_ref, "(2,2,1) bf16 vs unsharded bf16",
+                         BF16_TOL)
+    run.update(vs_packed_max_abs=err, bit_equal_packed=same)
+    main["2x2x1_bf16"] = run
+    del got, bf_ref
+    say(f"main path (2,2,1) bf16: vs the unsharded bf16 packed run max abs "
+        f"{err:.3e} (bit-equal {same})")
+    rec["main_path"] = main
+    # the plan's bytes for (b) beside what the card held
+    p221 = plan_mod.plan(cfg221)
+    rec["plan_221"] = {"per_shard_bytes": p221.hbm_per_chip,
+                       "four_shards_bytes": 4 * p221.hbm_per_chip,
+                       "max_memory_allocated": main["2x2x1"]
+                       ["peak_mem_bytes"], "report": p221.report()}
+    say("plan of (2,2,1) at 256^3 (per shard):\n" + p221.report()
+        + f"\n  4 shards: {4 * p221.hbm_per_chip} B; the run's peak "
+        f"allocation {main['2x2x1']['peak_mem_bytes']} B")
+    # peer copies between cards
+    n_cards = torch.cuda.device_count()
+    rec["distinct_cards"] = {}
+    for topo in ((1, 1, 2), (2, 2, 1)):
+        n = int(np.prod(topo))
+        if n > n_cards:
+            continue
+        run = sharded_run(base + topo_flag(topo),
+                          [torch.device("cuda", i) for i in range(n)],
+                          steps)
+        got = host_state(run.pop("sim"))
+        err, same = state_vs(got, packed_ref, f"{topo} on {n} cards", TOL)
+        run.update(vs_packed_max_abs=err, bit_equal_packed=same)
+        rec["distinct_cards"]["x".join(map(str, topo))] = run
+        say(f"{topo} on {n} distinct cards (peer copies): max abs "
+            f"{err:.3e} (bit-equal {same})")
+    if not rec["distinct_cards"]:
+        say(f"{n_cards} card: the peer-copy path between cards was not "
+            f"run")
+    del packed_ref
+    # (c) the Mie example's sphere box across every shard edge
+    margs = mie_scaled(256)[2:] + ["--time-steps", "100"]
+    mie_ref = host_state(unsharded_run(margs + ["--topology", "none"], dev,
+                                       100, False, MIE))
+    run = sharded_run(margs + topo_flag((2, 2, 1)), [dev] * 4, 100, MIE)
+    sim = run.pop("sim")
+    err, same = state_vs(host_state(sim), mie_ref, "Mie (2,2,1)", TOL)
+    run.update(vs_packed_max_abs=err, bit_equal_packed=same)
+    rec["mie_221"] = run
+    say(f"Mie 256^3 (2,2,1), 100 steps: vs the unsharded packed run max "
+        f"abs {err:.3e} (bit-equal {same})")
+    del sim, mie_ref
+    # (d) times, and config #5's plan on four devices (printed, not run)
+    rec["times"] = sharded_times(dev)
+    nano = os.path.join(ROOT, "Examples", "drude3D_nanoantenna.txt")
+    p5 = plan_mod.plan(config(nano, ["--num-devices", "4"]), n_devices=4)
+    rec["plan_config5_4"] = {"topology": list(p5.topology),
+                             "per_device_bytes": p5.hbm_per_chip,
+                             "report": p5.report()}
+    say("plan of config #5 (drude3D_nanoantenna, 1024^3) on 4 devices:\n"
+        + p5.report())
+    if not p5.hbm_per_chip < 80e9:
+        fail(f"config #5 on 4 devices plans {p5.hbm_per_chip} B a device")
+    return rec
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -5091,8 +5479,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
-    ap.add_argument("--only", default=None, metavar="27,28,29,30,31",
-                    help="run only these of phases 27 to 31 (after the "
+    ap.add_argument("--only", default=None, metavar="27,...,32",
+                    help="run only these of phases 27 to 32 (after the "
                          "build) and print their JSON, without the "
                          "kernels line and the closing ok line")
     args = ap.parse_args()
@@ -5137,8 +5525,8 @@ def main() -> int:
                 say(f"ptxas {lib}: {line.strip()}")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {27, 28, 29, 30, 31}:
-            fail(f"--only takes phases 27 to 31, not {sorted(only)}")
+        if not only <= {27, 28, 29, 30, 31, 32}:
+            fail(f"--only takes phases 27 to 32, not {sorted(only)}")
         result["nvidia_smi"] = card_line()
         for phase, key, fn in ((27, "modes", modes_and_outputs),
                                (28, "far_field",
@@ -5148,7 +5536,8 @@ def main() -> int:
                                (30, "complex",
                                 lambda: complex_fields(dev)),
                                (31, "ds_k_complex",
-                                lambda: ds_k_and_complex(dev))):
+                                lambda: ds_k_and_complex(dev)),
+                               (32, "sharded", lambda: sharded(dev))):
             if phase in only:
                 t1 = time.time()
                 result[key] = fn()
@@ -5726,6 +6115,9 @@ def main() -> int:
     result["ds_k_complex"] = dsk = ds_k_and_complex(dev, *phase5_ds)
     del phase5_ds
     mark("phase 31")
+    # ---- phase 32: domain decomposition, the sharded packed step --------
+    result["sharded"] = shd = sharded(dev)
+    mark("phase 32")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
@@ -5963,6 +6355,18 @@ def main() -> int:
         "ms": leg["line_ms"], "plain_ms": leg["line_plain_ms"],
         "bound_ms": leg["line_bound_ms"], "bound_by": leg["line_bound_by"],
         "library_ms": None})
+    st = shd["times"]
+    for fam in ("e", "h"):
+        kernels.append({
+            "name": f"packed_eh.{fam}_update[sharded]", "route": "cuda",
+            "source": src, "replaces": "fdtd3d_tpu/ops/pallas_packed.py:1304",
+            "launches": shd["main_path"]["2x2x1"]["launches"][
+                f"{fam}_update_sharded"],
+            "max_abs_err": max(v[fam.upper()] for v in
+                               shd["max_abs_err"].values()),
+            "ms": st[f"{fam}_update_ms"], "plain_ms": st[f"{fam}_plain_ms"],
+            "bound_ms": st[f"{fam}_bound_ms"],
+            "bound_by": st[f"{fam}_bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -276,6 +276,11 @@ class BatchSimulation:
         self.device = resolve_device(device)
         self.static = specs[0].static
         self.topology = tuple(self.static.topology)
+        if max(self.topology) > 1:
+            raise NotImplementedError(
+                f"a batch on the sharded topology {self.topology} is not "
+                f"ported to fdtd3d_torch yet (ROADMAP.md queue A11(b)); "
+                f"run it with the reference package fdtd3d_tpu")
         self._check_finite = out0.check_finite
         health = bool(out0.telemetry_path) or out0.check_finite
         per_chip = health and bool(out0.per_chip_telemetry) \

@@ -4,8 +4,13 @@ Counterpart of ``fdtd3d_tpu/cli.py``. The front half (``build_parser``
 with every flag of the reference, ``read_cmd_file``, ``args_to_config``)
 is the reference's, so every ``Examples/*.txt`` command file parses to
 the same ``SimConfig``; the port adds ``--device`` (cuda by default,
-``--device cpu`` to run on the CPU). ``main`` runs the single-device
-path of every scheme mode (1D, 2D, 3D): the run in chunks,
+``--device cpu`` to run on the CPU). ``main`` runs every scheme mode
+(1D, 2D, 3D), and 3D on a decomposed topology (``--topology auto``
+over the visible cards or ``--num-devices``, ``--manual-topology
+PXxPYxPZ``: the sharded packed step in one process, one shard a
+visible card, or on the CPU up to ``parallel.mesh.CPU_SHARDS`` shards;
+``_check_topology_fits`` refuses more shards than that), ``--dry-run`` (the per-device plan of
+``fdtd3d_torch/plan.py``, no device touched): the run in chunks,
 ``--norms-every`` lines, dumps every ``--save-res`` steps in the
 ``--save-formats`` (dat, txt, bmp), ``--save-materials``,
 ``--save-cmd-to-file``, the near-to-far-field transform (``--ntff``:
@@ -463,8 +468,8 @@ def args_to_config(args) -> SimConfig:
 
 # (flag attribute, value that means "not used", ROADMAP.md item)
 _NOT_PORTED = (
-    ("coordinator_address", None, "A11"), ("num_processes", None, "A11"),
-    ("process_id", None, "A11"), ("dry_run", False, "A11"),
+    ("coordinator_address", None, "A11(b)"),
+    ("num_processes", None, "A11(b)"), ("process_id", None, "A11(b)"),
     ("metrics", None, "A15"),
 )
 
@@ -498,6 +503,49 @@ def check_ported(args) -> None:
         val = getattr(args, attr)
         if val != unused:
             _not_ported("--" + attr.replace("_", "-"), item)
+
+
+def _check_topology_fits(cfg, device=None, resuming: bool = False):
+    """A SystemExit naming the problem when the decomposition cannot map
+    onto the devices a run has (the reference's ``_check_topology_fits``,
+    fdtd3d_tpu/cli.py:573-596), never a raw traceback: the visible CUDA
+    cards, or on the CPU ``parallel.mesh.CPU_SHARDS`` shards."""
+    from fdtd3d_torch.parallel.mesh import auto_count, device_count
+    from fdtd3d_torch.solver import config_topology
+    kind = "cpu" if device is not None and str(device).startswith("cpu") \
+        else "cuda"
+    avail = device_count(kind)
+    try:
+        topo = config_topology(cfg, n_devices=auto_count(kind))
+    except ValueError as exc:
+        raise SystemExit(f"invalid decomposition topology: {exc}")
+    n = topo[0] * topo[1] * topo[2]
+    if n > 1 and n > avail:
+        hint = ""
+        if resuming:
+            hint = (" — snapshots are topology-portable: pass a smaller "
+                    "--manual-topology (or --topology none) and --resume "
+                    "reshards the checkpoint onto it")
+        raise SystemExit(
+            f"topology {topo} needs {n} devices but only {avail} are "
+            f"available{hint}")
+    return topo
+
+
+def dry_run(cfg, num_devices=None) -> int:
+    """``--dry-run``: the per-device plan (``fdtd3d_torch/plan.py``)
+    printed, no device touched (the reference's :706-725)."""
+    from fdtd3d_torch import plan as plan_mod
+    from fdtd3d_torch.log import log
+    if cfg.parallel.topology == "auto" and not num_devices:
+        raise SystemExit(
+            "--dry-run with --topology auto needs --num-devices N (the "
+            "plan depends on the device count you are sizing for)")
+    p_ = plan_mod.plan(cfg, n_devices=num_devices or 1)
+    log(f"dry run: scheme={cfg.scheme} global={cfg.grid_shape} "
+        f"steps={cfg.time_steps} dtype={cfg.dtype}")
+    log(p_.report())
+    return 0
 
 
 def resolve_ntff_cadence(cfg):
@@ -788,6 +836,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         # the supervisor consumes the finite check: force it on
         args.check_finite = True
     cfg = args_to_config(args)
+    if args.dry_run:
+        return dry_run(cfg, args.num_devices)
+    topo = _check_topology_fits(cfg, args.device,
+                                resuming=bool(args.resume
+                                              or args.load_checkpoint))
+    if max(topo) > 1 and args.supervise:
+        _not_ported(f"--supervise on the sharded topology {topo} (the "
+                    f"supervisor's topology ladder)", "A11(b)")
 
     import signal
 
@@ -849,7 +905,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"({name})")
         fallback = (sim.step_diag or {}).get("tb_fallback")
         log(f"step_kind={sim.step_kind}"
-            + (f" tb_fallback={fallback['reason']}" if fallback else ""))
+            + (f" tb_fallback={fallback['reason']}" if fallback else "")
+            + (f" topology={sim.topology} shards on "
+               f"{[str(d) for d in sim.mesh.devices]}"
+               if sim.mesh is not None else ""))
 
         # the running DFT of the far field, sampled between chunks
         ntff_col, ntff_every, ntff_start = make_ntff_collector(sim, cfg)

@@ -27,6 +27,14 @@ holding the same values, widened exactly (``to_host``): numpy has no
 bf16 of its own, and every bf16 value is an f32 value. Magnetic Drude's
 ``K`` crosses like J.
 
+A decomposed run's global state and coefficients have the reference's
+sharded layout (psi ``2 m p`` planes along its own axis, the slab
+profiles ``2 m p`` long: ``solver.slab_axes`` and ``build_coeffs`` of a
+static with that topology, in both packages), so they cross as any
+other, leaf for leaf; ``parallel.mesh.ShardMesh.split`` cuts them into
+the shards' pieces and ``io.reshard_psi_tree`` moves psi between
+topologies.
+
 A batch (fdtd3d_torch/batch.py) has the lane-stacked forms: the
 reference's batched state and coefficient trees carry a leading lane
 axis on every leaf (``t`` a (B,) vector, a scalar coefficient a (B,)

@@ -98,7 +98,11 @@
 // FMA contraction, so r' is the true rounding error of the add and the
 // launch reproduces the plain version's bits. It takes two cells a
 // thread where n3 is even, so its residual words are 4 bytes too. The
-// other builds keep their (contracted) arithmetic.
+// other builds contract the update's products (ca old + cb acc, the ADE
+// current) into FMAs, but round each scaled difference d0 inv_dx on its
+// own: the slab kernel keeps it for psi, so a contracted acc += d0 inv_dx
+// in the plain kernel alone would give a cell other bits there than in
+// the slab kernel, which a shard's identity slab planes run.
 //
 // Lanes: one launch advances `lanes` independent scenarios of the same
 // shape; the lane is a column of the plan's row, and every base pointer
@@ -108,6 +112,24 @@
 // coefficients are one value for every lane. A solo run is one lane.
 // Offsets are 64-bit: at 1024^3 the stacked array holds more than 2^31
 // elements.
+//
+// Shards (the sharded variant; the reference's ppermuted ghost operands,
+// pallas_packed.py:1304-1320): a shard of a decomposed run (one lane)
+// gets, per axis where a neighbour shard lies beyond the edge its
+// differences reach, that neighbour's boundary plane (Params.ghost, a
+// (3, plane) copy made between the launches by ops/stencil.py): E reads
+// the lower neighbour's last plane of H, H the upper neighbour's first
+// plane of new E. The x ghost is the march's first x neighbour, the y
+// ghost the halo row of the tiles at the shard's edge (E: below row 0,
+// H: above row n2 - 1), the z ghost the cell beside column 0 (E) or
+// n3 - 1 (H), loaded like the halo, plane by plane. The PEC walls stand
+// on the global edges only (open_lo/open_hi). That code is compiled into
+// the sharded builds only (template SHARD, taken when a launch has a
+// ghost or an open side): in the one build it cost the unsharded
+// launches up to 23% (bf16 h_update, PERF.md section 6). A sharded
+// launch computes each cell as the unsharded one does. The reference
+// fixes the hi-edge H planes after its one-pass kernel (hi_edge_h_fix);
+// here H runs after E and its patches, and reads the true plane.
 //
 // What bounds it on the card: memory bytes and requests. A launch must
 // read the other family and its own family once and write its own once
@@ -228,6 +250,15 @@ struct Params {
   int pairs;             // the plan's tiles take two z cells a thread
   const int* plan;       // (items, PLAN_COLS) work items, slab ones first
   int n_item[2];         // items of the slab and of the plain section
+  // A shard of a decomposed run (one lane): per axis a, the neighbour's
+  // plane beyond the edge the launch's differences reach, (3, the grid
+  // without a) of the field type (E: the lower neighbour's last plane of
+  // H, H: the upper neighbour's first plane of E), or nullptr: the PEC
+  // zero. open_lo/open_hi: a shard lies beyond that side of axis a, so
+  // the edge there is no PEC wall.
+  const void* ghost[3];
+  int open_lo[3];
+  int open_hi[3];
 };
 
 // Products and sums of the compensated branch: rounded to nearest one by
@@ -311,8 +342,10 @@ struct Ring {
 // PEC walls), marching x upwards; false: H from forward differences of E
 // (with magnetic Drude K), marching downwards. COMP: compensated mode
 // (float fields only). SLAB: the CPML psi path compiled in. T: the
-// fields' storage type; V: z cells a thread.
-template <bool BACKWARD, bool COMP, bool SLAB, typename T, int V>
+// fields' storage type; V: z cells a thread. SHARD: a shard's ghost
+// planes and open sides compiled in (the unsharded build has none of
+// their code or registers).
+template <bool BACKWARD, bool COMP, bool SLAB, typename T, int V, bool SHARD>
 __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
                                                                : MIN_BLOCKS)
     family_march(const Params p, int first) {
@@ -347,6 +380,12 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
   const T* const S = static_cast<const T*>(p.S) + lane_off;
   float* const J = p.J ? p.J + lane_off : nullptr;
   bf16_t* const R = COMP ? p.R + lane_off : nullptr;
+  // a shard's ghost planes (SHARD builds only; the unsharded build
+  // keeps the expressions it had before them, so its registers and
+  // spills are its own)
+  const T* const G0 = static_cast<const T*>(p.ghost[0]);  // (3, n2, n3)
+  const T* const G1 = static_cast<const T*>(p.ghost[1]);  // (3, n1, n3)
+  const T* const G2 = static_cast<const T*>(p.ghost[2]);  // (3, n1, n2)
 
   // this thread's cells: row j, columns kk .. kk + V - 1
   const int j = j0 + w;
@@ -354,9 +393,12 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
   const bool own = w < ny && l * V < nz;
   const int at = (BACKWARD ? w + 1 : w) * RW + COL0 + l * V;  // in a slot
   const int oat = w * TZ + l * V;  // in an own ring plane
-  // the halo row (E: below the tile, H: above it) and column word
+  // the halo row (E: below the tile, H: above it) and column word; a
+  // halo row outside the shard comes from the y ghost plane
   const int hj = BACKWARD ? j0 - 1 : j0 + ny;
-  const bool hrow = w == 0 && hj >= 0 && hj < n2 && l * V < nz;
+  const bool hin = hj >= 0 && hj < n2;
+  const bool hrow = SHARD ? w == 0 && (hin || G1) && l * V < nz
+                          : w == 0 && hj >= 0 && hj < n2 && l * V < nz;
   const int hat = (BACKWARD ? 0 : ny) * RW + COL0 + l * V;
   const int hk = BACKWARD ? k0 - V : k0 + TZ;
   const bool hcol = w == TY - 1 && l < ny &&
@@ -365,16 +407,28 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
   const int64_t own_off = static_cast<int64_t>(j) * n3 + kk;
   const int64_t hrow_off = static_cast<int64_t>(hj) * n3 + kk;
   const int64_t hcol_off = static_cast<int64_t>(j0 + l) * n3 + hk;
+  // the z neighbour beyond the shard's edge (E: left of column 0, H:
+  // right of column n3 - 1), one cell a row from the z ghost plane, at
+  // the ring cell the march reads it from
+  const bool zg = SHARD && G2 && w == TY - 1 && l < ny &&
+                  (BACKWARD ? k0 == 0 : k0 + nz == n3);
+  const int zgat = BACKWARD ? (l + 1) * RW + V - 1 : l * RW + nz;
+  const int64_t n12 = static_cast<int64_t>(n1) * n2;
 
   // facts of the thread's columns, fixed over the march
   const int qy = SLAB ? slab_plane(j, n2, p.m[1]) : -1;
-  const bool y_wall = j == 0 || j == n2 - 1;
+  // a PEC wall is a global edge: a shard's edge toward a neighbour is none
+  const bool y_wall = SHARD ? (j == 0 && !p.open_lo[1]) ||
+                                  (j == n2 - 1 && !p.open_hi[1])
+                            : j == 0 || j == n2 - 1;
   int qz[V];
   bool z_wall[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     qz[v] = SLAB ? slab_plane(kk + v, n3, p.m[2]) : -1;
-    z_wall[v] = kk + v == 0 || kk + v == n3 - 1;
+    z_wall[v] = SHARD ? (kk + v == 0 && !p.open_lo[2]) ||
+                            (kk + v == n3 - 1 && !p.open_hi[2])
+                      : kk + v == 0 || kk + v == n3 - 1;
   }
 
   // the source family's plane i into ring slot `slot`, and the thread's
@@ -393,7 +447,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
         if (COMP) copy_word<V>(rr + os + c * OP, R + c * vol + cell);
       }
     }
-    if (hrow) {  // components 0 and 2 have the y terms
+    if (hrow && (!SHARD || hin)) {  // components 0 and 2: the y terms
       copy_word<V>(rs + hat, S + base + hrow_off);
       copy_word<V>(rs + 2 * RP + hat, S + 2 * vol + base + hrow_off);
     }
@@ -401,23 +455,40 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
       copy_word<V>(rs + hcat, S + base + hcol_off);
       copy_word<V>(rs + RP + hcat, S + vol + base + hcol_off);
     }
+    if constexpr (SHARD) {
+      if (hrow && !hin) {  // the y ghost plane's row of plane i
+        const T* g = G1 + static_cast<int64_t>(i) * n3 + kk;
+        copy_word<V>(rs + hat, g);
+        copy_word<V>(rs + 2 * RP + hat,
+                     g + 2 * static_cast<int64_t>(n1) * n3);
+      }
+      if (zg) {  // the z ghost plane's cell of row j0 + l, plane i
+        const T* g = G2 + static_cast<int64_t>(i) * n2 + j0 + l;
+        rs[zgat] = g[0];
+        rs[RP + zgat] = g[n12];
+      }
+    }
   };
 
   const int dir = BACKWARD ? 1 : -1;
   const int start = BACKWARD ? x0 : x1 - 1;
   const int count = x1 - x0;
   // the x neighbours of the first plane (E: H(x0 - 1), H: E(x1)) of
-  // components 1 and 2, the two with an x term; the PEC ghost outside
+  // components 1 and 2, the two with an x term; outside the shard the
+  // x ghost plane, or the PEC zero
   float xn[2][V];
   {
     const int xi = start - dir;
     const bool in = own && xi >= 0 && xi < n1;
+    const bool ghost = SHARD && own && !in && G0;  // the x ghost plane
 #pragma unroll
     for (int d = 0; d < 2; ++d) {
       if (in) {
         ldv<V>(S + (d + 1) * vol + static_cast<int64_t>(xi) * pstride +
                    own_off,
                xn[d]);
+      } else if (ghost) {
+        ldv<V>(G0 + (d + 1) * pstride + own_off, xn[d]);
       } else {
 #pragma unroll
         for (int v = 0; v < V; ++v) xn[d][v] = 0.f;
@@ -425,6 +496,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
     }
   }
   // every source ring cell a load does not fill stays 0: the PEC ghosts
+  // (a shard's ghost planes are loaded like the halo, plane by plane)
   for (int t = threadIdx.x; t < Rg::S_BYTES / 4; t += NT) {
     reinterpret_cast<unsigned*>(smem)[t] = 0u;
   }
@@ -449,7 +521,9 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
     for (int d = 0; d < 3; ++d) ldv<V>(rs + d * RP, here[d]);
     const int64_t cell0 = static_cast<int64_t>(i) * pstride + own_off;
     const int qx = SLAB ? slab_plane(i, n1, p.m[0]) : -1;
-    const bool x_wall = i == 0 || i == n1 - 1;
+    const bool x_wall = SHARD ? (i == 0 && !p.open_lo[0]) ||
+                                    (i == n1 - 1 && !p.open_hi[0])
+                              : i == 0 || i == n1 - 1;
 
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -504,9 +578,14 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
           const int a = term_axis(c, t);
           const float sg = t == 0 ? 1.f : -1.f;
           const float dv = d0[t][v];
+          // the scaled difference rounded on its own (never contracted
+          // into the accumulator's add): a cell sums the same values
+          // in the slab kernel, which keeps dfa for psi, as in the plain
+          // one, so a shard's identity slab cells match the unsharded
+          // run bit for bit
           const float dfa = COMP ? add_rn(mul_rn(dv, p.inv_dx),
                                           mul_rn(dv, p.inv_dx_lo))
-                                 : dv * p.inv_dx;
+                                 : mul_rn(dv, p.inv_dx);
           if (SLAB) {
             const int q = a == 0 ? qx : (a == 1 ? qy : qz[v]);
             if (q >= 0) {
@@ -584,29 +663,38 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 && !COMP ? F32_BLOCKS
 
 typedef void (*Kernel)(const Params, int);
 
-// The builds: [family][storage][cells a thread][section]. Storage 0
-// float32, 1 bf16, 2 compensated float32; cells a thread 0: one, 1: two
-// (the float32 build's two-cell entry is its one-cell kernel unless
-// F32_PAIRS); section 0 the slab kernel, 1 the plain one (the slab
-// kernel too when SECTIONS is 0).
+// The builds: [sharded][family][storage][cells a thread][section].
+// Sharded 0: the unsharded kernels, 1: with ghost planes and open sides;
+// storage 0 float32, 1 bf16, 2 compensated float32; cells a thread 0:
+// one, 1: two (the float32 build's two-cell entry is its one-cell kernel
+// unless F32_PAIRS); section 0 the slab kernel, 1 the plain one (the
+// slab kernel too when SECTIONS is 0).
 #if SECTIONS
-#define SECTION_PAIR(B, C, T, V) \
-  { family_march<B, C, true, T, V>, family_march<B, C, false, T, V> }
+#define SECTION_PAIR(B, C, T, V, S) \
+  { family_march<B, C, true, T, V, S>, family_march<B, C, false, T, V, S> }
 #else
-#define SECTION_PAIR(B, C, T, V) \
-  { family_march<B, C, true, T, V>, family_march<B, C, true, T, V> }
+#define SECTION_PAIR(B, C, T, V, S) \
+  { family_march<B, C, true, T, V, S>, family_march<B, C, true, T, V, S> }
 #endif
 #define F32_EVEN_V (F32_PAIRS ? 2 : 1)
-#define FAMILY_KERNELS(B)                                                   \
-  {                                                                         \
-    {SECTION_PAIR(B, false, float, 1), SECTION_PAIR(B, false, float,      \
-                                                    F32_EVEN_V)},           \
-        {SECTION_PAIR(B, false, bf16_t, 1),                                 \
-         SECTION_PAIR(B, false, bf16_t, 2)},                                \
-        {SECTION_PAIR(B, true, float, 1), SECTION_PAIR(B, true, float, 2)} \
+#define FAMILY_KERNELS(B, S)                                               \
+  {                                                                        \
+    {SECTION_PAIR(B, false, float, 1, S),                                  \
+     SECTION_PAIR(B, false, float, F32_EVEN_V, S)},                        \
+        {SECTION_PAIR(B, false, bf16_t, 1, S),                             \
+         SECTION_PAIR(B, false, bf16_t, 2, S)},                            \
+        {SECTION_PAIR(B, true, float, 1, S),                               \
+         SECTION_PAIR(B, true, float, 2, S)}                               \
   }
-static const Kernel kKernels[2][3][2][2] = {FAMILY_KERNELS(true),
-                                            FAMILY_KERNELS(false)};
+static const Kernel kKernels[2][2][3][2][2] = {
+    {FAMILY_KERNELS(true, false), FAMILY_KERNELS(false, false)},
+    {FAMILY_KERNELS(true, true), FAMILY_KERNELS(false, true)}};
+#define N_KERNELS 48  // every entry of kKernels
+
+// Entry q of kKernels in its order.
+static Kernel kernel_at(int q) {
+  return kKernels[q / 24][(q / 12) % 2][(q / 4) % 3][(q / 2) % 2][q % 2];
+}
 
 // Whether a launch takes two z cells a thread: rows of an even n3 are
 // aligned to words of two cells; bf16 and compensated always pair them,
@@ -645,8 +733,8 @@ static cudaError_t set_attributes() {
     err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  for (int q = 0; q < 24 && err == cudaSuccess; ++q) {
-    const Kernel k = kKernels[q / 12][(q / 4) % 3][(q / 2) % 2][q % 2];
+  for (int q = 0; q < N_KERNELS && err == cudaSuccess; ++q) {
+    const Kernel k = kernel_at(q);
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                most);
     if (err == cudaSuccess) {
@@ -668,11 +756,18 @@ static int launch(const Params* p, void* stream, bool backward) {
   if (p->R && p->bf16) {  // compensated mode is float32 only
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (p->lanes != 1 && (p->ghost[0] || p->ghost[1] || p->ghost[2])) {
+    return static_cast<int>(cudaErrorInvalidValue);  // ghosts: one lane
+  }
   const bool pairs = pairs_for(p->bf16, p->R != nullptr, p->n3);
   if (pairs != (p->pairs != 0)) {  // a plan made for another tile width
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int storage = p->R ? 2 : (p->bf16 ? 1 : 0);
+  bool shard = false;  // the sharded build, where a shard has a neighbour
+  for (int a = 0; a < 3; ++a) {
+    shard = shard || p->ghost[a] || p->open_lo[a] || p->open_hi[a];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int first = 0;
   bool launched = false;
@@ -694,8 +789,8 @@ static int launch(const Params* p, void* stream, bool backward) {
       attr.val.programmaticStreamSerializationAllowed = 1;
       cfg.attrs = &attr;
       cfg.numAttrs = SECTIONS && launched ? 1 : 0;
-      const Kernel k =
-          kKernels[backward ? 0 : 1][storage][pairs ? 1 : 0][q];
+      const Kernel k = kKernels[shard ? 1 : 0][backward ? 0 : 1][storage]
+                               [pairs ? 1 : 0][q];
       cudaError_t err =
           cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(k), args);
       if (err == cudaSuccess) err = cudaGetLastError();
@@ -724,13 +819,13 @@ int fdtd_packed_tile(int bf16, int comp, int n3, int* out) {
   return 0;
 }
 
-// Per kernel of kKernels in its order (family, storage, cells a thread,
-// section), four ints: registers a thread, local (spill) bytes a thread,
-// resident blocks an SM (without J or K), static shared bytes.
+// Per kernel of kKernels in its order (sharded, family, storage, cells a
+// thread, section), four ints: registers a thread, local (spill) bytes a
+// thread, resident blocks an SM (without J or K), static shared bytes.
 int fdtd_packed_occupancy(int* out) {
   cudaError_t err = set_attributes();
-  for (int q = 0; q < 24 && err == cudaSuccess; ++q) {
-    const Kernel k = kKernels[q / 12][(q / 4) % 3][(q / 2) % 2][q % 2];
+  for (int q = 0; q < N_KERNELS && err == cudaSuccess; ++q) {
+    const Kernel k = kernel_at(q);
     cudaFuncAttributes a;
     err = cudaFuncGetAttributes(&a, k);
     int blocks = 0;

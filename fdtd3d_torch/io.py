@@ -674,6 +674,132 @@ def read_checkpoint_meta(path: str) -> Dict:
     return extra
 
 
+# --------------------------------------------------------------------------
+# reshard on resume: the CPML psi layout between topologies
+# --------------------------------------------------------------------------
+
+# A snapshot's arrays are topology-independent except the CPML psi,
+# stored slab-compact per shard (solver.slab_axes: 2 m planes a shard
+# along its own axis). A snapshot of one topology becomes another's by
+# expanding psi to the full axis and compacting it onto the target
+# layout (``fdtd3d_tpu/io.py`` :530-650, the same rules): both exact
+# data movement, the compact step checking that every dropped plane is
+# zero (psi is zero outside the absorbing slabs, so a nonzero drop means
+# the snapshot and its declared layout disagree).
+
+_PSI_GROUPS = ("psi_E", "psi_H", "lopsi_E", "lopsi_H")
+_AXES = "xyz"
+
+
+def _along(a: int, lo: int, hi: int, ndim: int):
+    sl = [slice(None)] * ndim
+    sl[a] = slice(lo, hi)
+    return tuple(sl)
+
+
+def psi_slab_expand(arr: np.ndarray, axis: int, n_global: int,
+                    topo_a: int, m: Optional[int],
+                    key: str = "psi") -> np.ndarray:
+    """Stored psi (slab-compact, or full storage when ``m`` is None) ->
+    the full global axis. Shard i of ``topo_a`` holds planes
+    [i 2m, i 2m + m) (its local lo edge) and [i 2m + m, (i + 1) 2m)
+    (its local hi edge)."""
+    arr = np.asarray(arr)
+    if m is None:
+        if arr.shape[axis] != n_global:
+            raise ValueError(
+                f"reshard: {key} has {arr.shape[axis]} planes along "
+                f"axis {_AXES[axis]} but the declared layout is full "
+                f"storage of {n_global}: snapshot and layout disagree")
+        return arr
+    want = 2 * m * topo_a
+    if arr.shape[axis] != want:
+        raise ValueError(
+            f"reshard: {key} has {arr.shape[axis]} planes along axis "
+            f"{_AXES[axis]} but the declared slab layout (m={m} x "
+            f"{topo_a} shards) stores {want}: snapshot and layout "
+            f"disagree")
+    shape = list(arr.shape)
+    shape[axis] = n_global
+    out = np.zeros(shape, dtype=arr.dtype)
+    ln = n_global // topo_a
+    nd = arr.ndim
+    for i in range(topo_a):
+        out[_along(axis, i * ln, i * ln + m, nd)] = \
+            arr[_along(axis, 2 * i * m, 2 * i * m + m, nd)]
+        out[_along(axis, (i + 1) * ln - m, (i + 1) * ln, nd)] = \
+            arr[_along(axis, 2 * i * m + m, 2 * (i + 1) * m, nd)]
+    return out
+
+
+def psi_slab_compact(full: np.ndarray, axis: int, topo_a: int,
+                     m: Optional[int], key: str = "psi") -> np.ndarray:
+    """Full-length psi -> the target layout (slab-compact, or full when
+    ``m`` is None), refusing to drop a nonzero plane."""
+    full = np.asarray(full)
+    if m is None:
+        return full
+    n_global = full.shape[axis]
+    ln = n_global // topo_a
+    shape = list(full.shape)
+    shape[axis] = 2 * m * topo_a
+    out = np.zeros(shape, dtype=full.dtype)
+    nd = full.ndim
+    kept = np.zeros(n_global, dtype=bool)
+    for i in range(topo_a):
+        out[_along(axis, 2 * i * m, 2 * i * m + m, nd)] = \
+            full[_along(axis, i * ln, i * ln + m, nd)]
+        out[_along(axis, 2 * i * m + m, 2 * (i + 1) * m, nd)] = \
+            full[_along(axis, (i + 1) * ln - m, (i + 1) * ln, nd)]
+        kept[i * ln:i * ln + m] = True
+        kept[(i + 1) * ln - m:(i + 1) * ln] = True
+    dropped = np.where(~kept)[0]
+    if dropped.size and np.any(np.take(full, dropped, axis=axis) != 0):
+        raise ValueError(
+            f"reshard would drop non-zero psi planes of {key} (axis "
+            f"{_AXES[axis]}, planes outside the target slab layout m={m} "
+            f"x {topo_a} shards hold non-zero recursion state): the "
+            f"snapshot does not match its declared layout; refusing a "
+            f"lossy reshard")
+    return out
+
+
+def reshard_psi_tree(state: Dict, grid_shape: Tuple[int, int, int],
+                     src_topology: Tuple[int, int, int],
+                     src_slabs: Dict[int, int],
+                     dst_topology: Tuple[int, int, int],
+                     dst_slabs: Dict[int, int]) -> Dict:
+    """Every psi leaf of a state tree converted from ``src_topology``'s
+    slab layout to ``dst_topology``'s (``*_slabs``: axis -> planes a
+    side, ``solver.slab_axes`` of each); the other leaves pass through.
+    Tensor psi leaves are brought to the host first."""
+    from fdtd3d_torch import convert
+    for label, topo in (("source", src_topology),
+                        ("target", dst_topology)):
+        for a in range(3):
+            if topo[a] < 1 or grid_shape[a] % topo[a]:
+                raise ValueError(
+                    f"reshard: {label} topology {tuple(topo)} does not "
+                    f"divide grid {tuple(grid_shape)} evenly on axis "
+                    f"{_AXES[a]}")
+    out = dict(state)
+    for group in _PSI_GROUPS:
+        if group not in state:
+            continue
+        newg = {}
+        for key, arr in state[group].items():
+            if not isinstance(arr, np.ndarray):
+                arr = convert.to_host(arr)
+            a = _AXES.index(key.rsplit("_", 1)[1])
+            full = psi_slab_expand(arr, a, grid_shape[a], src_topology[a],
+                                   src_slabs.get(a), key=f"{group}/{key}")
+            newg[key] = psi_slab_compact(full, a, dst_topology[a],
+                                         dst_slabs.get(a),
+                                         key=f"{group}/{key}")
+        out[group] = newg
+    return out
+
+
 # the cadence writer's naming scheme: ckpt_t000123.npz (npz backend) or
 # the directory ckpt_t000123 (the reference's orbax backend)
 _CKPT_NAME_RE = re.compile(r"^ckpt_t(\d+)(\.npz)?$")
@@ -685,7 +811,7 @@ def find_checkpoints(save_dir: str) -> List[Tuple[int, str]]:
     Committed means an ``.npz`` under its final name (the atomic writer
     never publishes a partial file). A directory of that name (the
     reference's orbax backend) is skipped with a warning: this port
-    reads npz only (A11). Integrity beyond commit is checked at load
+    reads npz only (A11(b)). Integrity beyond commit is checked at load
     time; resume paths try candidates newest first and fall back past a
     :class:`CheckpointCorrupt` one."""
     out: List[Tuple[int, str]] = []

@@ -78,6 +78,12 @@ its per-lane ``cb``, the point source ``ps_amp * cb`` per lane. A solo
 run (``batch=0``) keeps the carry without the lane axis and launches
 the same kernels with one lane.
 
+Shards (``make_sharded_packed_step``): a decomposed run's shards each
+run the two launches on their local grid with the neighbours' boundary
+planes as ghost operands (``e_update_sharded``/``h_update_sharded``,
+``Params.ghost``) and PEC walls on the global edges only
+(``fc["open"]``); the plain versions take the same ghosts.
+
 Beside each kernel wrapper stands its plain PyTorch version with the
 same signature (``e_update_plain``/``h_update_plain``), on the solo
 and the lane-stacked layouts alike. A wrapper uses the plain version
@@ -97,7 +103,7 @@ import torch
 
 from fdtd3d_torch.layout import component_axis
 from fdtd3d_torch.ops import build, patches, tfsf
-from fdtd3d_torch.ops.stencil import make_diff_ops
+from fdtd3d_torch.ops.stencil import diff_ghost, make_diff_ops
 from fdtd3d_torch.solver import _bcast1d, _slab_fix, slab_axes
 
 AXES = "xyz"
@@ -303,8 +309,18 @@ def scaled_diff(d0, fc):
     return d0 * fc["inv_dx"] + d0 * fc["comp"]["inv_dx_lo"]
 
 
+def _curl_diff(f, a: int, backward: bool, ghost, d: int):
+    """The difference of component d's field ``f`` along axis a: with
+    the PEC zero beyond the edge, or a neighbour shard's plane from
+    ``ghost`` (axis -> (3, plane)) where it has one."""
+    g = None if ghost is None else ghost.get(a)
+    if g is None:
+        return (_diff_b if backward else _diff_f)(f, a)
+    return diff_ghost(f, a, backward, g[d].float())
+
+
 def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
-                  point=None, R=None) -> None:
+                  point=None, R=None, ghost=None) -> None:
     """One family update in place. ``J``: the family's ADE current (J on
     E, K on H) or None; ``R``: the Kahan residuals (bf16) in compensated
     mode. ``records(c, acc)`` and, for E, ``point(c, acc)`` add in-kernel
@@ -313,15 +329,16 @@ def _family_plain(F, S, J, psi, fc, backward: bool, records=None,
     source after the Drude current, as the reference's kernels order
     them. bf16 fields are widened to float32 before any operation and
     the new values rounded to bf16 where they are stored, as the kernel
-    loads and stores them."""
-    diff = _diff_b if backward else _diff_f
+    loads and stores them. ``ghost`` (a shard of a decomposed run):
+    axis -> the neighbour's plane (3, plane) beyond the edge the
+    family's differences reach (E: below, H: above)."""
     S = S.float()
     for c in range(3):
         acc = None
         for t in range(2):
             a, d = (c + 1 + t) % 3, (c + 2 - t) % 3
             s = 1.0 if t == 0 else -1.0
-            dfa = scaled_diff(diff(S[d], a), fc)
+            dfa = scaled_diff(_curl_diff(S[d], a, backward, ghost, d), fc)
             if a in fc["m"]:
                 row = psi[a][psi_row(c, a)]
                 new_psi, fix = _slab_fix(a, s, dfa, row,
@@ -371,22 +388,25 @@ def lane_views(F, S, J, psi, R=None):
                None if R is None else R[lane])
 
 
-def e_update_plain(E, H, J, psi, fc, R=None) -> None:
+def e_update_plain(E, H, J, psi, fc, R=None, ghost=None) -> None:
     """E (and J, psi_E, the residual rE in compensated mode) in place
     from backward differences of H, on the solo or the lane-stacked
-    layout (one lane after the other)."""
+    layout (one lane after the other). ``ghost``: a shard's H ghost
+    planes (axis -> the lower neighbour's last plane), solo layout
+    only."""
     for lane, e, h, j, ps, r in lane_views(E, H, J, psi, R):
         _family_plain(e, h, j, ps, fc if lane is None else lane_fc(fc, lane),
-                      backward=True, R=r)
+                      backward=True, R=r, ghost=ghost)
 
 
-def h_update_plain(H, E, psi, fc, K=None, R=None) -> None:
+def h_update_plain(H, E, psi, fc, K=None, R=None, ghost=None) -> None:
     """H (and K with magnetic Drude, psi_H, the residual rH in
     compensated mode) in place from forward differences of E, on the
-    solo or the lane-stacked layout."""
+    solo or the lane-stacked layout. ``ghost``: a shard's E ghost
+    planes (axis -> the upper neighbour's first plane)."""
     for lane, h, e, k, ps, r in lane_views(H, E, K, psi, R):
         _family_plain(h, e, k, ps, fc if lane is None else lane_fc(fc, lane),
-                      backward=False, R=r)
+                      backward=False, R=r, ghost=ghost)
 
 
 # --------------------------------------------------------------------------
@@ -574,7 +594,9 @@ class _Params(ctypes.Structure):
                 ("n3", ctypes.c_int), ("lanes", ctypes.c_int),
                 ("inv_dx", ctypes.c_float), ("inv_dx_lo", ctypes.c_float),
                 ("bf16", ctypes.c_int), ("pairs", ctypes.c_int),
-                ("plan", ctypes.c_void_p), ("n_item", ctypes.c_int * 2)]
+                ("plan", ctypes.c_void_p), ("n_item", ctypes.c_int * 2),
+                ("ghost", ctypes.c_void_p * 3),
+                ("open_lo", ctypes.c_int * 3), ("open_hi", ctypes.c_int * 3)]
 
 
 def _library() -> ctypes.CDLL:
@@ -681,7 +703,15 @@ def swap_buffers(carry, spare) -> None:
             carry[fam][a], spare[fam][a] = spare[fam][a], carry[fam][a]
 
 
-def _params(F, S, J, psi, fc, R=None, tile=None, sms=132) -> _Params:
+def ghost_shape(shape, a: int) -> Tuple[int, ...]:
+    """Shape of a ghost plane of axis a: (3, the grid without a)."""
+    out = [3] + list(shape)
+    del out[1 + a]
+    return tuple(out)
+
+
+def _params(F, S, J, psi, fc, R=None, tile=None, sms=132,
+            ghost=None) -> _Params:
     """The launch's parameter block; the static part (coefficients with
     each grid's background, profiles, the work plan) is built and checked
     once per prepared family, device, lane count and tile. ``J``: the
@@ -690,7 +720,10 @@ def _params(F, S, J, psi, fc, R=None, tile=None, sms=132) -> _Params:
     coefficients the kernel takes as scalars only. ``tile``: (rows,
     columns, sections, two cells a thread) of the library's build
     (``default_tile`` when None); ``sms``: the card's SM count, for the
-    plan."""
+    plan. A shard of a decomposed run: ``fc["open"]`` per axis (below,
+    above) whether a neighbour lies there (no PEC wall on that side),
+    ``ghost`` axis -> the neighbour's plane (``ghost_shape``) the
+    launch reads beyond its edge (E: below, H: above)."""
     device = F.device
     shape = fc["shape"]
     lanes, lead = carry_lanes(F)
@@ -750,6 +783,8 @@ def _params(F, S, J, psi, fc, R=None, tile=None, sms=132) -> _Params:
         prm.lanes = lanes
         prm.field_lane = 3 * shape[0] * shape[1] * shape[2]
         prm.inv_dx = fc["inv_dx"]
+        for a, (lo, hi) in enumerate(fc.get("open") or ((0, 0),) * 3):
+            prm.open_lo[a], prm.open_hi[a] = int(lo), int(hi)
         fc["_params"] = base = (key, prm, plan)
     prm = _Params.from_buffer_copy(base[1])
     full = lead + (3,) + tuple(shape)
@@ -769,6 +804,11 @@ def _params(F, S, J, psi, fc, R=None, tile=None, sms=132) -> _Params:
     for a, ma in fc["m"].items():
         prm.psi[a] = _check(psi[a], f"psi[{a}]",
                             psi_shape(shape, a, ma, lead), device)
+    for a, g in (ghost or {}).items():
+        if lead:
+            raise ValueError("ghost planes are for a solo carry")
+        prm.ghost[a] = _check(g, f"ghost[{a}]", ghost_shape(shape, a),
+                              device, fd)
     return prm
 
 
@@ -790,9 +830,9 @@ def launch_geometry(lib, F, fc) -> Tuple[Tuple[int, int, int], int]:
 
 
 KERNEL_NAMES = tuple(
-    f"{fam}_{store}_{cells}_{sec}" for fam in ("e", "h")
-    for store in ("f32", "bf16", "comp") for cells in ("one", "pair")
-    for sec in ("slab", "plain"))
+    f"{fam}_{store}_{cells}_{sec}{shard}" for shard in ("", "_sharded")
+    for fam in ("e", "h") for store in ("f32", "bf16", "comp")
+    for cells in ("one", "pair") for sec in ("slab", "plain"))
 
 
 def occupancy() -> Dict[str, Dict[str, int]]:
@@ -800,7 +840,8 @@ def occupancy() -> Dict[str, Dict[str, int]]:
     and static shared bytes of each kernel of the library, as the CUDA
     runtime reports them for the card, by ``KERNEL_NAMES``: family,
     storage (f32, bf16, compensated), one or two z cells a thread, the
-    slab or the plain section."""
+    slab or the plain section, and the sharded builds (``_sharded``:
+    ghost planes and open sides compiled in)."""
     lib = _library()
     out = (ctypes.c_int * (4 * len(KERNEL_NAMES)))()
     err = lib.fdtd_packed_occupancy(ctypes.addressof(out))
@@ -851,6 +892,38 @@ e_update.launches = 0
 h_update.launches = 0
 
 
+def e_update_sharded(E, H, J, psi, fc, R=None, ghost=None) -> None:
+    """One shard's E update (the sharded variant of ``e_update``): the
+    CUDA kernel with the shard's open sides (``fc["open"]``) and its H
+    ghost planes on CUDA tensors, the plain version on CPU tensors.
+    ``e_update_sharded.launches`` counts its calls."""
+    if not E.is_cuda:
+        e_update_plain(E, H, J, psi, fc, R, ghost)
+        return
+    lib = _library()
+    _launch(lib, "fdtd_e_update",
+            _params(E, H, J, psi, fc, R, *launch_geometry(lib, E, fc),
+                    ghost=ghost), E.device)
+    e_update_sharded.launches += 1
+
+
+def h_update_sharded(H, E, psi, fc, K=None, R=None, ghost=None) -> None:
+    """One shard's H update (the sharded variant of ``h_update``), with
+    its E ghost planes; ``h_update_sharded.launches`` counts calls."""
+    if not H.is_cuda:
+        h_update_plain(H, E, psi, fc, K, R, ghost)
+        return
+    lib = _library()
+    _launch(lib, "fdtd_h_update",
+            _params(H, E, K, psi, fc, R, *launch_geometry(lib, H, fc),
+                    ghost=ghost), H.device)
+    h_update_sharded.launches += 1
+
+
+e_update_sharded.launches = 0
+h_update_sharded.launches = 0
+
+
 # --------------------------------------------------------------------------
 # the packed step
 # --------------------------------------------------------------------------
@@ -874,13 +947,13 @@ def make_packed_step(static, device, plain: bool = False, batch: int = 0):
     setup = static.tfsf_setup
     thin = sorted(set(static.pml_axes) - set(slab_axes(static)))
     if thin:
-        # the reference runs a thin y or z axis through pallas3d's
-        # in-kernel full-length psi, and a thin x axis on its jnp step
-        item = "B3" if any(a in (1, 2) for a in thin) else "A11"
+        # unsharded, slab storage fits whenever the PML leaves an
+        # interior; only a shard's local extent can be too thin
+        # (solver.sharded_scope refuses it first)
         raise NotImplementedError(
             f"full-length CPML psi on axis {', '.join(AXES[a] for a in thin)}"
             f" (a PML too thick for slab storage) is not in the packed "
-            f"step's scope (ROADMAP.md queue {item})")
+            f"step's scope (ROADMAP.md queue A11(b)/B3(c))")
     e_fn, h_fn = (e_update_plain, h_update_plain) if plain \
         else (e_update, h_update)
 
@@ -920,3 +993,188 @@ def make_packed_step(static, device, plain: bool = False, batch: int = 0):
     on_cuda = torch.device(device).type == "cuda"
     step.kind = "packed_cuda" if on_cuda and not plain else "packed_plain"
     return step
+
+
+# --------------------------------------------------------------------------
+# the sharded packed step (domain decomposition in one process)
+# --------------------------------------------------------------------------
+
+def make_sharded_packed_step(static, mesh, plain: bool = False):
+    """The packed step of a decomposed run: every shard of ``mesh`` (a
+    ``parallel.mesh.ShardMesh``) holds its piece of the state and the
+    coefficients on its own device, and a step runs shard by shard in
+    six phases:
+
+    1. each shard with a lower neighbour on a sharded axis receives that
+       neighbour's last plane of old H (``stencil.exchange_stack``, the
+       ghost); a shard at the global lo edge keeps the PEC zero;
+    2. the E launch (``e_update_sharded``) on every shard, reading the
+       ghosts, with PEC walls only on the global edges (``fc["open"]``);
+    3. the E patches: the TFSF faces and the point source, each shard
+       the part inside its box (``patches.build_tfsf_plan``'s and
+       ``build_point_source``'s ``offset``);
+    4. each shard with an upper neighbour receives that neighbour's
+       first plane of new E (after its patches);
+    5. the H launch on every shard, reading those ghosts;
+    6. the H patches.
+
+    The reference's TPU kernel runs E and H in one pass, so its sharded
+    step fixes the H planes at a shard's hi edge after the kernel
+    (``pallas_packed.hi_edge_h_fix`` :139) and the patch terms that
+    cross a shard edge (``pallas_fused._traced_patch_fix`` :72). Here
+    the H launch runs after the E patches and reads the true neighbour
+    plane, so neither fix exists: a cell computes the same operations
+    in the same order as in the unsharded step. An interior shard's
+    CPML slab rows are identity (b = c = 0, 1/kappa = 1, the reference's
+    ``build_slab_coeffs``), so its psi stays 0 and its curl terms are
+    unchanged: a sharded run is the unsharded packed run, value for
+    value.
+
+    The incident line advances once a step on each device that holds a
+    shard, and every shard on that device reads the same tensors.
+    ``plain=True`` runs the plain versions on any device (the yardstick
+    of chip_smoke.py). The carry is ``{"shards": [one packed carry a
+    shard], "t"}``; ``pack`` splits a global dict state onto the shards'
+    devices, ``unpack`` gives the shards' dict-form views (a list) and
+    ``join`` the global dict state (new tensors). Kind ``packed_cuda``
+    on CUDA devices, ``packed_plain`` on the CPU or with ``plain``;
+    ``step.mesh`` names the mesh."""
+    from fdtd3d_torch.ops.stencil import exchange_stack, ghost_buffers
+    from fdtd3d_torch.solver import shard_static
+    local = shard_static(static, mesh)
+    types = {d.type for d in mesh.devices}
+    if len(types) != 1:
+        raise ValueError(f"a mesh mixes device types {sorted(types)}")
+    setup = static.tfsf_setup
+    e_fn, h_fn = (e_update_plain, h_update_plain) if plain \
+        else (e_update_sharded, h_update_sharded)
+    # the shards of each device; the first of each advances the line
+    groups: Dict[Any, List[int]] = {}
+    for r, d in enumerate(mesh.devices):
+        groups.setdefault(d, []).append(r)
+    ghosts: Dict[int, List[Dict[int, torch.Tensor]]] = {}
+
+    def prepare(coeffs) -> List[Dict[str, Any]]:
+        """Per-shard operands from the shards' device coefficients (a
+        list, ``mesh.split`` of the global dict moved to each device)."""
+        out = []
+        for r, cc in enumerate(coeffs):
+            off = mesh.offset(r)
+            fam = {f: prepare_family(local, cc, f) for f in ("E", "H")}
+            for fc in fam.values():
+                fc["open"] = mesh.open_sides(r)
+            out.append({"coeffs": cc, **fam,
+                        "tfsf_E": patches.build_tfsf_plan(local, cc, "E", 0,
+                                                          off),
+                        "tfsf_H": patches.build_tfsf_plan(local, cc, "H", 0,
+                                                          off),
+                        "point": patches.build_point_source(local, cc, off)})
+        return out
+
+    def ghost_set(shards, side: int):
+        """The stacks a phase sends (H below E, E above H) and the ghost
+        buffers, made once (anew if the carry's dtype or devices
+        change)."""
+        src = [s["H" if side < 0 else "E"] for s in shards]
+        bufs = ghosts.get(side)
+        if bufs is None or any(
+                g.device != st.device or g.dtype != st.dtype
+                for b, st in zip(bufs, src) for g in b.values()):
+            bufs = ghosts[side] = ghost_buffers(mesh, src, side)
+        return src, bufs
+
+    def exchange(carry, side: int):
+        """Fill the ghosts of one phase: side -1 H's last planes upwards
+        (before the E launch), +1 E's first planes downwards (before
+        the H launch)."""
+        src, bufs = ghost_set(carry["shards"], side)
+        exchange_stack(src, bufs, mesh, side)
+        return bufs
+
+    def advance_line(shards, cc, fn):
+        for rs in groups.values():
+            inc = fn(shards[rs[0]]["inc"], cc[rs[0]]["coeffs"])
+            for r in rs:
+                shards[r]["inc"] = inc
+
+    def step(carry, cc):
+        shards = carry["shards"]
+        t = carry["t"]
+        if setup is not None:
+            advance_line(shards, cc, lambda inc, co: tfsf.advance_einc(
+                inc, co, t, static.dt, static.omega, setup))
+        gh = exchange(carry, -1)
+        for r, ps in enumerate(shards):
+            e_fn(ps["E"], ps["H"], ps.get("J"), ps["psE"], cc[r]["E"],
+                 ps.get("rE"), ghost=gh[r])
+        for r, ps in enumerate(shards):
+            if setup is not None:
+                patches.tfsf_patch(ps["E"], cc[r]["tfsf_E"], ps["inc"])
+            patches.point_source_patch(local, ps["E"], cc[r]["point"], t)
+        if setup is not None:
+            advance_line(shards, cc, lambda inc, co: tfsf.advance_hinc(
+                inc, co, setup))
+        ge = exchange(carry, 1)
+        for r, ps in enumerate(shards):
+            h_fn(ps["H"], ps["E"], ps["psH"], cc[r]["H"], ps.get("K"),
+                 ps.get("rH"), ghost=ge[r])
+        if setup is not None:
+            for r, ps in enumerate(shards):
+                patches.tfsf_patch(ps["H"], cc[r]["tfsf_H"], ps["inc"])
+        carry["t"] = t + 1
+        for ps in shards:
+            ps["t"] = t + 1
+        return carry
+
+    def pack_state(state) -> Dict[str, Any]:
+        """A global dict-form state (tensors or numpy) onto the shards:
+        each piece copied to its device, the line shared per device."""
+        pieces = mesh.split(state)
+        shards = []
+        for r, piece in enumerate(pieces):
+            dev = mesh.devices[r]
+            on_dev = _to_device(piece, dev)
+            shards.append(pack(on_dev, local))
+        for rs in groups.values():
+            for r in rs[1:]:
+                if "inc" in shards[r]:
+                    shards[r]["inc"] = shards[rs[0]]["inc"]
+        return {"shards": shards, "t": int(state["t"])}
+
+    def unpack_views(carry) -> List[Dict[str, Any]]:
+        views = []
+        for ps in carry["shards"]:
+            ps["t"] = carry["t"]
+            views.append(unpack(ps, local))
+        return views
+
+    def join(carry, device=None) -> Dict[str, Any]:
+        out = mesh.join(unpack_views(carry), device)
+        out["t"] = carry["t"]
+        return out
+
+    step.prepare = prepare
+    step.pack = pack_state
+    step.unpack = unpack_views
+    step.join = join
+    step.exchange = exchange
+    step.ghosts = ghosts
+    step.packed = True
+    step.mesh = mesh
+    on_cuda = "cuda" in types
+    step.kind = "packed_cuda" if on_cuda and not plain else "packed_plain"
+    step.diag = {"topology": list(mesh.topology), "shards": mesh.n}
+    return step
+
+
+def _to_device(tree, device):
+    """A tree of numpy or tensor leaves as contiguous tensors on
+    ``device`` (new tensors)."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True).contiguous()
+    if isinstance(tree, np.ndarray):
+        from fdtd3d_torch.convert import from_host
+        return from_host(np.ascontiguousarray(tree)).to(device)
+    return tree

@@ -2,8 +2,9 @@
 
 Counterpart of the patch helpers of ``fdtd3d_tpu/ops/pallas3d.py``
 (``plane_corrections`` :859, ``tfsf_patch`` :961, ``point_source_patch``
-:1012), unsharded. A source adds ``cb * term`` to the E cells it
-drives (``-db * term`` to H), after the family's kernel: the reference's
+:1012); on a decomposed run each shard patches the cells it owns. A
+source adds ``cb * term`` to the E cells it drives (``-db * term`` to
+H), after the family's kernel: the reference's
 plain step adds ``term`` to the curl accumulator before the ``cb``
 multiply, so the two differ by one rounding of the added term. With
 bf16 fields the patch value is rounded to bf16 before it is added, and
@@ -12,8 +13,10 @@ the sum is rounded again, as the reference's patches do.
 The TFSF faces are planned once per run (``build_tfsf_plan``): the
 face cells, the line indices and weights of the interpolation, and the
 coefficients are static, so a step's patch is two gathers off the
-incident line, a few elementwise ops on the face cells, and one
-``index_add_`` onto the stacked field. The geometry comes from the same
+incident line, a few elementwise ops on the face cells, and an
+``index_add_`` onto the stacked field for each round of distinct cells
+(``_rounds``: a box edge's cells take two entries, a corner's three),
+so every cell adds its entries in plan order on either device. The geometry comes from the same
 functions the plain step uses (ops/tfsf.py), so the two cannot drift.
 
 Lanes: on a lane-stacked carry (B, 3, n1, n2, n3) with a lane-stacked
@@ -66,12 +69,19 @@ def _coef_at(coef, cells: torch.Tensor, vol: int, batch: int = 0):
 
 
 def build_tfsf_plan(static, coeffs, family: str,
-                    batch: int = 0) -> Optional[Dict]:
+                    batch: int = 0, offset=(0, 0, 0)) -> Optional[Dict]:
     """The static part of one family's TFSF face patches, flattened over
     every correction that can touch a cell: target cell, line indices,
     interpolation weights, ``sign*pol/dx`` and ``+-cb`` per entry (per
     lane, (B, N), for ``batch=B``). Cells the transverse box gate or a
-    PEC wall zeroes are left out."""
+    PEC wall zeroes are left out.
+
+    A shard of a decomposed run (``static`` its local setup, ``coeffs``
+    its piece of the coefficients, whose ``gx``/``gy``/``gz`` hold the
+    global indices of its cells) passes its global ``offset``: a face
+    plane is patched by the shard that owns it, in local indices, over
+    the part of the plane inside the shard's box (the transverse gate
+    reads the global indices)."""
     setup = static.tfsf_setup
     if setup is None:
         return None
@@ -91,7 +101,8 @@ def build_tfsf_plan(static, coeffs, family: str,
             pol = tfsf.corr_polarization(corr, setup)
             if abs(pol) < tfsf.POL_EPS:
                 continue
-            if not 0 <= corr.plane < shape[corr.axis]:
+            plane = corr.plane - offset[corr.axis]
+            if not 0 <= plane < shape[corr.axis]:
                 continue
             pshape = list(shape)
             pshape[corr.axis] = 1
@@ -109,11 +120,11 @@ def build_tfsf_plan(static, coeffs, family: str,
                     if a2 != component_axis(c):
                         w2 = coeffs[f"wall_{AXES[a2]}"]
                         if a2 == corr.axis:
-                            w2 = w2[corr.plane:corr.plane + 1]
+                            w2 = w2[plane:plane + 1]
                         s2 = [1, 1, 1]
                         s2[a2] = w2.shape[0]
                         keep &= w2.reshape(s2).expand(pshape) > 0
-            cells = _plane_cells(shape, ci, corr.axis, corr.plane, device)
+            cells = _plane_cells(shape, ci, corr.axis, plane, device)
             cells = cells.expand(pshape)[keep]
             parts["cells"].append(cells)
             parts["i0"].append(i0.expand(pshape)[keep])
@@ -128,7 +139,30 @@ def build_tfsf_plan(static, coeffs, family: str,
     plan = {k: torch.cat(v, dim=-1) for k, v in parts.items()}
     plan["i1"] = plan["i0"] + 1
     plan["line"] = "Hinc" if family == "E" else "Einc"
+    plan["rounds"] = _rounds(plan["cells"])
     return plan
+
+
+def _rounds(cells: torch.Tensor):
+    """The entries in rounds of distinct cells, in entry order: round r
+    holds each cell's (r+1)-th entry (a cell on an edge of the TFSF box
+    takes a correction of each face). ``tfsf_patch`` adds one round
+    after the other, so a cell sums its entries in plan order on any
+    device (a single ``index_add_`` on the card adds duplicates by
+    atomics, in no fixed order), and a shard's plan, whose entries keep
+    that order, adds the same values in the same order as the whole
+    grid's: None when every cell is distinct."""
+    flat = cells.cpu().numpy()
+    order = np.argsort(flat, kind="stable")
+    srt = flat[order]
+    start = np.r_[True, srt[1:] != srt[:-1]]
+    first = np.maximum.accumulate(np.where(start, np.arange(len(srt)), 0))
+    rank = np.empty(len(flat), np.int64)
+    rank[order] = np.arange(len(srt)) - first
+    if rank.max(initial=0) == 0:
+        return None
+    return [torch.from_numpy(np.flatnonzero(rank == r)).to(cells.device)
+            for r in range(int(rank.max()) + 1)]
 
 
 def tfsf_patch(arr: torch.Tensor, plan: Optional[Dict],
@@ -141,28 +175,36 @@ def tfsf_patch(arr: torch.Tensor, plan: Optional[Dict],
     val = plan["w0"] * line[..., plan["i0"]] \
         + plan["w1"] * line[..., plan["i1"]]
     val = (plan["cb"] * (plan["k"] * val)).to(arr.dtype)
-    if val.dim() == 1:
-        arr.view(-1).index_add_(0, plan["cells"], val)
-    else:
-        arr.view(val.shape[0], -1).index_add_(1, plan["cells"], val)
+    flat = arr.view(-1) if val.dim() == 1 else arr.view(val.shape[0], -1)
+    rounds = plan.get("rounds")
+    if rounds is None:
+        flat.index_add_(flat.dim() - 1, plan["cells"], val)
+        return
+    for idx in rounds:
+        flat.index_add_(flat.dim() - 1, plan["cells"][idx],
+                        val.index_select(val.dim() - 1, idx))
 
 
-def build_point_source(static, coeffs) -> Optional[Dict]:
+def build_point_source(static, coeffs, offset=(0, 0, 0)) -> Optional[Dict]:
     """Static part of the point-source patch: the driven cell of the
     stacked E array and ``ps_amp * cb`` there for each lane, a (B,)
     device tensor ((1,) for a solo run), or None when off, or on a
     wall. ``coeffs["ps_amp"]`` is a host float, or a (B,) tensor of
-    per-lane amplitudes."""
+    per-lane amplitudes. A shard of a decomposed run (its local
+    ``static`` and global ``offset``) drives the cell only if it owns
+    it (None otherwise)."""
     ps = static.cfg.point_source
     if not ps.enabled:
         return None
     mode = static.mode
     n1, n2, n3 = static.grid_shape
-    i, j, k = ps.position
+    i, j, k = (ps.position[a] - offset[a] for a in range(3))
+    if not (0 <= i < n1 and 0 <= j < n2 and 0 <= k < n3):
+        return None       # another shard owns the driven cell
     ci = mode.e_components.index(ps.component)
     for a2 in mode.active_axes:
         if a2 != component_axis(ps.component) \
-                and ps.position[a2] in (0, static.grid_shape[a2] - 1):
+                and ps.position[a2] in (0, static.cfg.grid_shape[a2] - 1):
             return None   # a PEC wall cell stays zero
     cb = coeffs[f"cb_{ps.component}"]
     device = coeffs["gx"].device

@@ -1,7 +1,9 @@
 """High-level Simulation of the PyTorch port.
 
-Counterpart of ``fdtd3d_tpu/sim.py::Simulation`` for one device: owns
-the state and the coefficients and advances the leapfrog in chunks.
+Counterpart of ``fdtd3d_tpu/sim.py::Simulation``: owns the state and
+the coefficients and advances the leapfrog in chunks, on one device or,
+on a sharded topology, one shard a device of a list (``devices``; the
+class docstring).
 With ``OutputConfig.check_finite`` or a telemetry sink
 (``OutputConfig.telemetry_path``) every chunk ends with the health pass
 of ``fdtd3d_torch/telemetry.py`` (energy, div·E, max |E|/|H| and the
@@ -51,9 +53,10 @@ import torch
 from fdtd3d_torch import convert, io, profiling, telemetry
 from fdtd3d_torch import faults as _faults
 from fdtd3d_torch import log as _log
+from fdtd3d_torch.parallel import mesh as pmesh
 from fdtd3d_torch.solver import (StaticSetup, build_coeffs, build_static,
-                                 coeffs_to_device, init_state,
-                                 make_chunk_runner, slab_axes)
+                                 coeffs_to_device, config_topology,
+                                 init_state, make_chunk_runner, slab_axes)
 
 _AXES_STR = "xyz"
 
@@ -183,21 +186,79 @@ class _JoinedViews(Mapping):
         return len(self._re)
 
 
-class Simulation:
-    """Owns solver state + coefficients; advances the leapfrog in chunks."""
+class _ShardedComponents(Mapping):
+    """The field components of a decomposed run, each joined from the
+    shards' pieces onto the first shard's device when it is read (new
+    tensors: read them, write through ``set_field``)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, sim):
+        self._sim = sim
+        mode = sim.static.mode
+        self._names = list(mode.e_components) + list(mode.h_components)
+
+    def __getitem__(self, comp):
+        views = self._sim._shard_views()
+        grp = "E" if comp in views[0]["E"] else "H"
+        return self._sim.mesh.join_leaf(
+            comp, [v[grp][comp] for v in views], self._sim.device)
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self):
+        return len(self._names)
+
+
+class Simulation:
+    """Owns solver state + coefficients; advances the leapfrog in chunks.
+
+    ``devices`` (a list of devices, repeats allowed) places one shard of
+    a decomposed run on each entry, in the mesh's order: the topology is
+    the configuration's (``ParallelConfig``; "auto" over the list's
+    length, or the configuration's ``n_devices``). Without it a sharded
+    configuration takes the visible CUDA cards, or on the CPU
+    ``parallel.mesh.CPU_SHARDS`` shards ("auto" without a count: the
+    visible cards, one on the CPU). A sharded
+    run holds each shard's state and coefficients on its device
+    (``self.mesh``, ``self.coeffs`` a list of per-shard dicts), steps
+    through ``ops/packed.py::make_sharded_packed_step``, and reads and
+    writes the global view: ``field``/``fields``/``sample``/
+    ``set_field``, ``state`` (a joined copy), ``checkpoint`` (the
+    reference's sharded layout, joined leaf by leaf) and ``restore``/
+    ``adopt_state`` (resharding a snapshot of another topology)."""
+
+    def __init__(self, cfg, device=None, devices=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if not devices:
+                raise ValueError("devices: an empty list")
+            self.device = devices[0]
+        else:
+            self.device = resolve_device(device)
         # the deterministic fault plan (fdtd3d_torch/faults.py): adopt
         # FDTD3D_FAULT_PLAN once per process; a no-op otherwise
         _faults.load_env()
-        self.static: StaticSetup = build_static(cfg, self.device)
-        # unsharded: the checkpoint metadata's topology, and the one the
-        # supervisor persists
+        avail = len(devices) if devices is not None \
+            else pmesh.auto_count(self.device.type)
+        topo = config_topology(cfg, n_devices=avail)
+        self.static: StaticSetup = build_static(cfg, self.device,
+                                                topology=topo)
+        # the checkpoint metadata's topology, and the one the supervisor
+        # persists
         self.topology = tuple(self.static.topology)
-        self.coeffs = coeffs_to_device(build_coeffs(self.static),
-                                       self.device)
+        self.mesh: Optional[pmesh.ShardMesh] = None
+        coeffs_np = build_coeffs(self.static)
+        if max(self.topology) > 1:
+            self.mesh = pmesh.ShardMesh(
+                self.topology, self.static.grid_shape,
+                devices if devices is not None
+                else pmesh.default_devices(self.device))
+            self.coeffs = [coeffs_to_device(piece, self.mesh.devices[r])
+                           for r, piece in enumerate(
+                               self.mesh.split(coeffs_np, coeff=True))]
+        else:
+            self.coeffs = coeffs_to_device(coeffs_np, self.device)
         out = cfg.output
         self._check_finite = out.check_finite
         # the health pass rides every chunk when the finite check or a
@@ -206,7 +267,7 @@ class Simulation:
         self._runner = make_chunk_runner(
             self.static, self.device, health=health,
             per_chip=health and bool(out.per_chip_telemetry)
-            and bool(out.telemetry_path))
+            and bool(out.telemetry_path), mesh=self.mesh)
         self.step_kind: str = self._runner.kind
         # kernel diagnostics: the temporal-blocking depth, or why the
         # temporal-blocked pass did not engage (tb_fallback)
@@ -227,11 +288,14 @@ class Simulation:
         # zeros made directly in the carry's form: building the dict
         # form first and packing it would hold the fields twice
         with telemetry.span("pack"):
-            shapes = init_state(self.static, "meta")
-            if self._runner.packed:
-                shapes = self._runner.pack(shapes)
-            self._carry = _map_tensors(shapes, lambda t: torch.zeros(
-                t.shape, dtype=t.dtype, device=self.device))
+            if self.mesh is not None:
+                self._carry = self._sharded_zeros()
+            else:
+                shapes = init_state(self.static, "meta")
+                if self._runner.packed:
+                    shapes = self._runner.pack(shapes)
+                self._carry = _map_tensors(shapes, lambda t: torch.zeros(
+                    t.shape, dtype=t.dtype, device=self.device))
         self._cells = float(np.prod([self.static.grid_shape[a] for a in
                                      self.static.mode.active_axes]))
         self.clock = profiling.StepClock() if out.profile else None
@@ -248,10 +312,24 @@ class Simulation:
 
     # -- state representation ---------------------------------------------
 
+    def _sharded_zeros(self) -> Dict[str, Any]:
+        """The zero carry of a decomposed run: the packed form, made
+        shard by shard on each shard's device."""
+        from fdtd3d_torch.ops import packed
+        return {"shards": pmesh.sharded_zeros(self.static, self.mesh,
+                                              packed.pack), "t": 0}
+
+    def _shard_views(self):
+        """The shards' dict-form views of the live carry (a list)."""
+        return self._runner.unpack(self._carry)
+
     def _dict_view(self) -> Dict[str, Any]:
         """Dict-form view of the live carry (no copies); of a paired
-        complex carry, the complex state joined from its legs (new
+        complex carry, the complex state joined from its legs, of a
+        decomposed run the global state joined from the shards (new
         tensors: read it, do not write into it)."""
+        if self.mesh is not None:
+            return self._runner.join(self._carry, self.device)
         if self._runner.packed:
             return self._runner.unpack(self._carry)
         return self._carry
@@ -266,7 +344,10 @@ class Simulation:
     def component_legs(self):
         """Every stored field component (E then H) of each leg
         (:meth:`_leg_views`) as views of the live carry: ``[re, im]``
-        of a paired complex run, else ``[component_views()]``."""
+        of a paired complex run, else ``[component_views()]``; of a
+        decomposed run the components joined as they are read."""
+        if self.mesh is not None:
+            return [_ShardedComponents(self)]
         return [{c: v for g in ("E", "H") for c, v in view[g].items()}
                 for view in self._leg_views()]
 
@@ -387,9 +468,11 @@ class Simulation:
 
     def _nonfinite_leaves(self):
         """Names of the state leaves holding non-finite values in any
-        leg (failure path only: a host pass over the state)."""
+        leg or shard (failure path only: a host pass over the state)."""
         seen = set()
-        for view in self._leg_views():
+        views = self._shard_views() if self.mesh is not None \
+            else self._leg_views()
+        for view in views:
             for grp, sub in view.items():
                 if not isinstance(sub, dict):
                     continue
@@ -423,7 +506,13 @@ class Simulation:
 
     def sample(self, comp: str, idx):
         """One field value as a python float, or complex for complex
-        fields (one small readback a leg)."""
+        fields (one small readback a leg; of a decomposed run, from the
+        shard that owns the cell)."""
+        if self.mesh is not None:
+            r, local = self.mesh.owner(idx)
+            view = self._shard_views()[r]
+            grp = "E" if comp in view["E"] else "H"
+            return float(view[grp][comp][local].item())
         vals = [leg[comp][tuple(idx)].item()
                 for leg in self.component_legs()]
         if len(vals) == 2:
@@ -448,6 +537,17 @@ class Simulation:
         legs = self.component_legs()
         if comp not in legs[0]:
             raise KeyError(f"{comp} not active in scheme {self.cfg.scheme}")
+        if self.mesh is not None:
+            # the global component, written and cut back onto the shards
+            full = legs[0][comp]
+            dst = full if at is None else full[at]
+            _install([dst], convert.from_host(np.broadcast_to(
+                np.asarray(value), dst.shape)))
+            views = self._shard_views()
+            grp = "E" if comp in views[0]["E"] else "H"
+            for view, piece in zip(views, self.mesh.split({comp: full})):
+                view[grp][comp].copy_(piece[comp])
+            return self
         dsts = [leg[comp] if at is None else leg[comp][at] for leg in legs]
         src = convert.from_host(np.broadcast_to(np.asarray(value),
                                                 dsts[0].shape))
@@ -464,10 +564,10 @@ class Simulation:
     # -- checkpoints -------------------------------------------------------
 
     def _ckpt_meta(self) -> Dict[str, Any]:
-        """The snapshot's metadata, in the reference's keys: an
-        unsharded topology and its psi slab layout
-        (``solver.slab_axes``), so the reference restores the file;
-        ``step_kind`` holds the port's kind."""
+        """The snapshot's metadata, in the reference's keys: the
+        topology and its psi slab layout (``solver.slab_axes``), so
+        either package restores (and reshards) the file; ``step_kind``
+        holds the port's kind."""
         meta = {"t": self.t, "scheme": self.cfg.scheme,
                 "size": list(self.cfg.size),
                 "topology": list(self.topology),
@@ -475,7 +575,7 @@ class Simulation:
                               slab_axes(self.static).items()},
                 "dtype": self.cfg.dtype,
                 "step_kind": self.step_kind,
-                "state_keys": sorted(self._leg_views()[0].keys())}
+                "state_keys": self._state_keys()}
         meta.update(self.extra_ckpt_meta)
         return meta
 
@@ -484,7 +584,7 @@ class Simulation:
         if reason:
             raise ValueError(reason)
         if "state_keys" in extra:
-            want = sorted(self._leg_views()[0].keys())
+            want = self._state_keys()
             got = list(extra["state_keys"])
             if got != want:
                 raise ValueError(
@@ -492,6 +592,13 @@ class Simulation:
                     f"{want}; the step-kind family (ds/compensated/"
                     f"Drude companions) must match — resume with the "
                     f"same physics/dtype configuration")
+
+    def _state_keys(self):
+        """The dict-form state's top-level keys, sorted (the carry
+        family a snapshot must match)."""
+        view = self._shard_views()[0] if self.mesh is not None \
+            else self._leg_views()[0]
+        return sorted(view.keys())
 
     def checkpoint(self, path: str):
         """Bit-exact snapshot of the whole state as one npz file (the
@@ -509,6 +616,8 @@ class Simulation:
         complex run the complex state with each leaf joined from the
         legs only when ``io.save_checkpoint`` reaches it (a callable
         leaf), so one leaf at a time is on the device twice."""
+        if self.mesh is not None:
+            return self._sharded_ckpt_tree()
         legs = self._leg_views()
         if len(legs) == 1:
             return legs[0]
@@ -523,6 +632,25 @@ class Simulation:
         tree["t"] = self.t      # the legs' t is synced only as they step
         return tree
 
+    def _sharded_ckpt_tree(self):
+        """The global tree of a decomposed run with each leaf joined on
+        the host from the shards' pieces only when the writer reaches
+        it (a callable leaf): the reference's sharded layout (psi
+        ``2 m p`` planes along its axis), one leaf at a time."""
+        views = self._shard_views()
+
+        def lazy(nodes):
+            first = nodes[0]
+            if isinstance(first, dict):
+                return {k: lazy([n[k] for n in nodes]) for k in first}
+            if isinstance(first, torch.Tensor):
+                return lambda: self.mesh.join_leaf(
+                    "", [convert.to_host(n) for n in nodes])
+            return first
+        tree = lazy(views)
+        tree["t"] = self.t
+        return tree
+
     def restore(self, path: str):
         """Load a checkpoint (this package's or the reference's npz) into
         this sim's live carry. A snapshot failing its integrity checks
@@ -533,27 +661,54 @@ class Simulation:
             raise NotImplementedError(
                 f"{path} is an orbax checkpoint directory: only npz "
                 f"checkpoints are ported to fdtd3d_torch yet (ROADMAP.md "
-                f"queue A11)")
+                f"queue A11(b))")
         loaded, extra = io.load_checkpoint(path)
         self._check_ckpt_meta(extra)
         return self.adopt_state(loaded,
-                                src_topology=extra.get("topology"))
+                                src_topology=extra.get("topology"),
+                                src_meta=extra)
 
-    def adopt_state(self, tree, src_topology=None):
+    def _reshard(self, tree, src_topology, src_meta=None):
+        """The psi of a tree from ``src_topology``'s slab layout onto
+        this run's (``io.reshard_psi_tree``), checking the layout the
+        snapshot declares (``psi_slabs``) against its topology's."""
+        import dataclasses
+
+        from fdtd3d_torch import log as _log
+        src_static = dataclasses.replace(self.static,
+                                         topology=tuple(src_topology))
+        src_slabs = slab_axes(src_static)
+        dst_slabs = slab_axes(self.static)
+        if src_meta and "psi_slabs" in src_meta:
+            recorded = {_AXES_STR.index(k): int(v)
+                        for k, v in src_meta["psi_slabs"].items()}
+            if recorded != src_slabs:
+                raise io.CheckpointCorrupt(
+                    f"checkpoint psi slab layout {recorded} does not "
+                    f"match the layout its topology {tuple(src_topology)} "
+                    f"implies {src_slabs}: the snapshot was written by an "
+                    f"incompatible build or damaged")
+        _log.log(f"resharding checkpoint: topology {tuple(src_topology)} "
+                 f"-> {self.topology} (psi slabs {src_slabs} -> "
+                 f"{dst_slabs})")
+        return io.reshard_psi_tree(tree, self.static.grid_shape,
+                                   tuple(src_topology), src_slabs,
+                                   self.topology, dst_slabs)
+
+    def adopt_state(self, tree, src_topology=None, src_meta=None):
         """Install a dict-form state tree (numpy or tensor leaves, the
         keys and shapes of ``init_state``) as the live state, leaf by
         leaf into the live carry (``copy_``, as ``set_field`` does): no
         second carry on the device. The one install path of the
         ``state`` setter, :meth:`restore` and the supervisor's rollback
-        to an in-memory snapshot. A tree from a sharded topology needs
-        the psi reshard of ROADMAP.md item A11."""
+        to an in-memory snapshot. A tree from another topology
+        (``src_topology``) has its psi resharded onto this run's layout
+        first; a decomposed run takes each shard's piece of the global
+        tree."""
         if src_topology is not None and \
                 tuple(int(p) for p in src_topology) != self.topology:
-            raise NotImplementedError(
-                f"a checkpoint written on topology {tuple(src_topology)} "
-                f"needs the psi reshard, which is not ported to "
-                f"fdtd3d_torch yet (ROADMAP.md queue A11); restore it "
-                f"with the reference on an unsharded topology")
+            tree = self._reshard(tree, tuple(int(p) for p in src_topology),
+                                 src_meta)
         pairs = []
 
         def walk(dsts, new, path):
@@ -572,7 +727,12 @@ class Simulation:
                             f"{tuple(v.shape)}")
                     pairs.append(([d[k] for d in dsts], src))
 
-        walk(self._leg_views(), tree, "")
+        if self.mesh is not None:
+            for view, piece in zip(self._shard_views(),
+                                   self.mesh.split(tree)):
+                walk([view], piece, "")
+        else:
+            walk(self._leg_views(), tree, "")
         for dsts, src in pairs:
             _install(dsts, src)
         self._carry["t"] = int(tree["t"])
@@ -605,8 +765,11 @@ class Simulation:
         return self
 
     def block_until_ready(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.mesh.distinct_devices() if self.mesh is not None \
+            else [self.device]
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     @staticmethod

@@ -85,12 +85,20 @@ mode (inactive axes are singleton dims) runs the plain step (kind
 reference's jnp and jnp-ds steps, with ``tb_fallback`` token
 ``packed_ineligible``; ``require_pallas`` raises on it.
 
+A sharded topology (``StaticSetup.topology``, resolved by
+``config_topology``) runs the sharded packed step over a
+``parallel.mesh.ShardMesh`` (``make_step(mesh=)``,
+``ops/packed.py::make_sharded_packed_step``), in 3D f32 or bf16 storage
+(compensated where the packed kernel takes it), with the ``tb_fallback``
+token ``SHARDED_TB_FALLBACK``; ``check_scope`` and ``sharded_scope``
+refuse the rest, naming the item.
+
 Scope: every scheme mode, real float32, bfloat16, float32x2 and
 float64, complex float32 and float64, CPML on any axes, TFSF, the point
 source, electric Drude J, magnetic Drude K, compensated float32,
-material
-coefficient grids, PEC walls, unsharded. Everything else raises
-``NotImplementedError`` naming its ROADMAP.md item.
+material coefficient grids, PEC walls, unsharded; the sharded packed
+step above. Everything else raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -166,25 +174,116 @@ def slab_axes(static: StaticSetup) -> Dict[int, int]:
     return out
 
 
-def check_scope(cfg: SimConfig) -> None:
+def _out_of_scope(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to fdtd3d_torch yet (ROADMAP.md queue "
+        f"{item}); run it with the reference package fdtd3d_tpu")
+
+
+def check_scope(cfg: SimConfig, topology=(1, 1, 1)) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for every
-    configuration this slice of the port does not run."""
-    def out(what: str, item: str):
-        raise NotImplementedError(
-            f"{what} is not ported to fdtd3d_torch yet (ROADMAP.md queue "
-            f"{item}); run it with the reference package fdtd3d_tpu")
+    configuration this slice of the port does not run. On a sharded
+    ``topology`` the port runs the sharded packed step only (3D, float32
+    or bf16 storage, compensated mode where the packed kernel takes it);
+    what the reference runs sharded otherwise waits for its item."""
+    import os
     if cfg.output.checkpoint_backend == "orbax":
-        out("the orbax checkpoint backend", "A11")
-    par = cfg.parallel
-    manual = par.topology == "manual" and tuple(
-        par.manual_topology or (1, 1, 1)) != (1, 1, 1)
-    if cfg.dtype == "float32x2" and (manual
-                                     or par.n_devices not in (None, 1)):
-        out("float32x2 on a sharded topology", "A9/A11")
-    if manual:
-        out(f"manual topology {par.manual_topology}", "A11")
-    if par.n_devices not in (None, 1):
-        out(f"{par.n_devices} devices", "A11")
+        _out_of_scope("the orbax checkpoint backend", "A11(b)")
+    if max(topology) == 1:
+        return
+    where = f"on the sharded topology {tuple(topology)}"
+    if cfg.dtype == "float32x2":
+        _out_of_scope(f"float32x2 {where} (the sharded packed-ds step of "
+                      f"A9)", "B4(c)")
+    if cfg.mode.name != "3D":
+        _out_of_scope(f"the {cfg.mode.name} mode {where} (the sharded "
+                      f"plain step)", "A11(b)")
+    if cfg.dtype == "float64":
+        _out_of_scope(f"float64 {where} (the sharded plain step)",
+                      "A11(b)")
+    if cfg.ntff.enabled:
+        _out_of_scope(f"the far-field transform {where}", "A11(b)")
+    if cfg.use_pallas is False:
+        _out_of_scope(f"the plain step {where}", "A11(b)")
+    for name in ("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"):
+        if os.environ.get(name):
+            _out_of_scope(f"the kernel ladder below packed ({name}) "
+                          f"{where}", "B3(c), its sharded plain step A11(b)")
+
+
+def sharded_scope(static: "StaticSetup") -> None:
+    """The sharded packed step's scope (the reference's
+    ``pallas_packed.eligible`` under a mesh, pallas_packed.py:219-248):
+    every CPML axis holds slab psi on each shard, the sources sit
+    inside the CPML identity region (``sources_interior``), and the
+    packed kernel takes the configuration. Raise NotImplementedError
+    naming the item of what falls outside: the reference runs it on its
+    jnp step (or its two-pass kernels), the sharded plain step of
+    A11(b)."""
+    from fdtd3d_torch.ops import packed
+    where = f"on the sharded topology {tuple(static.topology)}"
+    thin = sorted(set(static.pml_axes) - set(slab_axes(static)))
+    if thin:
+        _out_of_scope(
+            f"a shard too thin for slab CPML psi on axis "
+            f"{', '.join(AXES[a] for a in thin)} ({where}: the local "
+            f"extent must exceed 2 (pml + 1) planes; the reference runs "
+            f"it on full-length psi)", "A11(b)/B3(c)")
+    if not sources_interior(static):
+        _out_of_scope(
+            f"a source inside the absorber {where} (the TFSF faces and "
+            f"the point source must sit inside the CPML identity region; "
+            f"the reference runs it on its jnp step)", "A11(b)")
+    if packed.declines(static):
+        _out_of_scope(
+            f"compensated mode with coefficient grids or magnetic Drude "
+            f"K {where} (the packed kernel declines it: the sharded plain "
+            f"step)", "A11(b)")
+
+
+def sources_interior(static: "StaticSetup") -> bool:
+    """True iff every TFSF E-correction plane and the point source sit,
+    with a one-plane guard, strictly inside the region where both CPML
+    profile sets are identity (planes [npml, n-2-npml]): the reference's
+    ``pallas_packed._sources_interior`` (:179), the scope of its sharded
+    packed step."""
+    lo = [None, None, None]
+    hi = [None, None, None]
+
+    def grow(a, v):
+        lo[a] = v if lo[a] is None else min(lo[a], v)
+        hi[a] = v if hi[a] is None else max(hi[a], v)
+
+    setup = static.tfsf_setup
+    if setup is not None:
+        for corr in setup.corrections:
+            if corr.field != "E":
+                continue
+            grow(corr.axis, corr.plane)
+            for b in range(3):
+                if b != corr.axis and b in static.mode.active_axes:
+                    grow(b, setup.lo[b])
+                    grow(b, setup.hi[b])
+    if static.cfg.point_source.enabled:
+        for a in range(3):
+            grow(a, static.cfg.point_source.position[a])
+    for a in static.mode.active_axes:
+        if lo[a] is None:
+            continue
+        npml = static.cfg.pml.size[a] if a in static.pml_axes else 0
+        n = static.grid_shape[a]
+        if lo[a] - 1 < npml or hi[a] + 1 > n - 2 - npml:
+            return False
+    return True
+
+
+def shard_static(static: "StaticSetup", mesh) -> "StaticSetup":
+    """The static setup of one shard of ``mesh``: the local grid shape,
+    unsharded (``slab_axes`` gives the same slabs: the same local
+    extent), the global TFSF geometry and configuration kept (the
+    patches place the global faces by each shard's offset)."""
+    return dataclasses.replace(static, grid_shape=tuple(mesh.local_shape),
+                               topology=(1, 1, 1))
 
 
 def paired_complex_wanted(cfg: SimConfig, device=None) -> bool:
@@ -200,11 +299,27 @@ def paired_complex_wanted(cfg: SimConfig, device=None) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
 
-def build_static(cfg: SimConfig, device=None) -> StaticSetup:
+def config_topology(cfg: SimConfig, n_devices=None) -> Tuple[int, int, int]:
+    """The topology ``cfg`` asks for (``parallel.mesh.resolve_topology``):
+    a manual topology as it stands, "auto" over ``n_devices`` (or the
+    config's ``n_devices``), unsharded when "auto" has no count."""
+    from fdtd3d_torch.parallel.mesh import resolve_topology
+    par = cfg.parallel
+    if par.topology == "auto" and not (par.n_devices or n_devices):
+        return (1, 1, 1)
+    return resolve_topology(par, cfg.grid_shape, cfg.mode.active_axes,
+                            n_devices=n_devices)
+
+
+def build_static(cfg: SimConfig, device=None,
+                 topology=None) -> StaticSetup:
     """The static setup of ``cfg`` for a run on ``device`` (which
-    decides the complex route; None: not on a CUDA device)."""
+    decides the complex route; None: not on a CUDA device) over
+    ``topology`` (None: ``config_topology(cfg)``)."""
     cfg.validate()
-    check_scope(cfg)
+    topo = tuple(topology) if topology is not None \
+        else config_topology(cfg)
+    check_scope(cfg, topo)
     mode = cfg.mode
     pml_axes = tuple(a for a in mode.active_axes if cfg.pml.size[a] > 0)
     st = StaticSetup(
@@ -213,11 +328,31 @@ def build_static(cfg: SimConfig, device=None) -> StaticSetup:
         use_drude=cfg.materials.use_drude,
         field_dtype=cfg.torch_dtype(),
         real_dtype=np.float64 if cfg.dtype == "float64" else np.float32,
-        use_drude_m=cfg.materials.use_drude_m,
+        use_drude_m=cfg.materials.use_drude_m, topology=topo,
         paired_complex=paired_complex_wanted(cfg, device))
     if cfg.tfsf.enabled:
         st = dataclasses.replace(st, tfsf_setup=tfsf.build_setup(cfg, st))
+    if max(topo) > 1:
+        if cfg.complex_fields:
+            _sharded_complex(st)
+        sharded_scope(st)
     return st
+
+
+def _sharded_complex(static: StaticSetup) -> None:
+    """Complex fields on a sharded topology: the paired-real route
+    raises as the reference's does (solver.py:1218-1224); the native
+    complex route is the sharded plain step (A11(b))."""
+    if static.paired_complex:
+        raise ValueError(
+            "complex fields on the paired-real route cannot run on a "
+            "sharded topology (the reference's rule: its complex<->paired "
+            "conversion cannot run inside shard_map). Run complex sharded "
+            "on the native complex route, or run real-dtype sharded; see "
+            "solver._make_paired_complex_step.")
+    _out_of_scope(f"native complex fields on the sharded topology "
+                  f"{tuple(static.topology)} (the sharded plain step)",
+                  "A11(b)")
 
 
 # --------------------------------------------------------------------------
@@ -1003,16 +1138,35 @@ def _ladder_step(static: StaticSetup, device):
     return step if step is not None else make_plain_step(static)
 
 
+# the token a sharded step carries for the temporal-blocked pass it does
+# not take: the sharded tb pass is ROADMAP.md item B2(d)
+SHARDED_TB_FALLBACK = "sharded_tb:B2(d)"
+
+
 def make_step(static: StaticSetup, device, allow_multistep: bool = True,
-              batch: int = 0):
+              batch: int = 0, mesh=None):
     """The step for ``static`` on ``device`` (see the module docstring
     for the dispatch rule). ``allow_multistep=False`` skips the
     temporal-blocked pass, whose step advances two steps per call.
     ``batch=B`` (B >= 1) builds the lane-capable step; the caller gates
     it with ``batch_fallback_reason`` first, and a configuration no
     lane-capable kernel covers raises rather than running another
-    step."""
+    step. A sharded ``static`` (``build_static`` checked its scope)
+    takes the sharded packed step over ``mesh`` (a
+    ``parallel.mesh.ShardMesh``), with the ``tb_fallback`` token
+    ``SHARDED_TB_FALLBACK``."""
     import os
+    if max(static.topology) > 1:
+        from fdtd3d_torch.ops import packed as packed_mod
+        if mesh is None or tuple(mesh.topology) != tuple(static.topology):
+            raise ValueError(
+                f"a static setup on the sharded topology {static.topology} "
+                f"needs its ShardMesh (make_step(..., mesh=))")
+        if batch:
+            _out_of_scope("a batch on a sharded topology", "A11(b)")
+        return _stamp_tb_fallback(
+            packed_mod.make_sharded_packed_step(static, mesh),
+            SHARDED_TB_FALLBACK)
     if batch and (static.cfg.complex_fields
                   or static.cfg.dtype not in LANE_DTYPES):
         raise RuntimeError(
@@ -1237,7 +1391,7 @@ def _make_paired_complex_step(static: StaticSetup, device):
 
 
 def make_chunk_runner(static: StaticSetup, device, health: bool = False,
-                      batch: int = 0, per_chip: bool = False):
+                      batch: int = 0, per_chip: bool = False, mesh=None):
     """run_chunk(state, coeffs, n): n steps in a Python loop.
 
     Steps exposing ``prepare`` (the packed steps) get it called outside
@@ -1260,16 +1414,25 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     ``batch=B`` builds the lane-capable runner (``make_step``'s batch):
     its carry has a leading lane axis and its health is that of
     ``telemetry.make_lane_health_fn``, per lane.
+
+    ``mesh`` (a sharded static): the sharded packed step; its views are
+    the shards' dict forms (``run_chunk.views``, a list) and its health
+    that of ``telemetry.make_sharded_health_fn``: local partials
+    finished over the shards.
     """
     from fdtd3d_torch import telemetry
-    step = make_step(static, device, batch=batch)
+    step = make_step(static, device, batch=batch, mesh=mesh)
     prep = getattr(step, "prepare", None)
     spc = getattr(step, "steps_per_call", 1)
     tail = getattr(step, "tail_step", step)
     packed = getattr(step, "packed", False)
     legs = getattr(step, "legs", None)
     health_fn = None
-    if health:
+    sharded = getattr(step, "mesh", None)
+    if health and sharded is not None:
+        health_fn = telemetry.make_sharded_health_fn(static, sharded,
+                                                     per_chip=per_chip)
+    elif health:
         health_fn = (telemetry.make_lane_health_fn if batch
                      else telemetry.make_health_fn)(static,
                                                     per_chip=per_chip)
@@ -1310,7 +1473,11 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     run_chunk.packed = packed
     run_chunk.legs = legs
     run_chunk.views = views
+    run_chunk.mesh = sharded
     if packed:
         run_chunk.pack = step.pack
         run_chunk.unpack = step.unpack
+    if sharded is not None:
+        run_chunk.join = step.join
+        run_chunk.ghosts = step.ghosts
     return run_chunk

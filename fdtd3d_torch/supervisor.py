@@ -205,7 +205,14 @@ class Supervisor:
         that need the sim before run() (the CLI restores checkpoints
         into it) go through here, after the resume state is applied."""
         if self.sim is None:
-            self.sim = self._factory(self._cfg)
+            sim = self._factory(self._cfg)
+            if getattr(sim, "mesh", None) is not None:
+                raise NotImplementedError(
+                    f"a supervised run on the sharded topology "
+                    f"{sim.topology} (the supervisor's topology ladder) is "
+                    f"not ported to fdtd3d_torch yet (ROADMAP.md queue "
+                    f"A11(b)); run it with the reference package fdtd3d_tpu")
+            self.sim = sim
             self._persist()
         return self.sim
 

@@ -216,19 +216,21 @@ class Health:
         return vals if self.lanes else vals[0]
 
 
-def _health_pass(static, views, lanes: bool, per_chip: bool) -> Health:
+def _health_parts(static, views, lanes: bool):
     """The partials of every leg of ``views`` (one dict-form view, or
-    the two real legs of a paired complex run) in one tensor, and their
-    decoder, which combines the legs as the reference's
-    ``make_health_fn`` does: energies and div·E sums of squares add,
-    ``max_e``/``max_h`` and ``div_linf`` take the max over the legs,
-    the interior count is one leg's."""
-    from fdtd3d_torch import diag, physics
+    the two real legs of a paired complex run) in one tensor, and the
+    function that turns a row of it into the view's sums: the E and H
+    sums of squares, div·E's sum of squares, interior count and max,
+    ``max_e``/``max_h`` and the finite flag, combined over the legs as
+    the reference's ``make_health_fn`` combines them (energies and
+    div·E sums of squares add, maxima take the max, the interior count
+    is one leg's)."""
+    from fdtd3d_torch import diag
     mode = static.mode
-    cell = float(static.dx ** mode.ndim)
     lead = (lambda t: t) if lanes else (lambda t: t.unsqueeze(0))
     parts = Parts()
     n_others = []
+    count = 1.0
     for g, view in enumerate(views):
         for grp, comps in (("E", mode.e_components),
                            ("H", mode.h_components)):
@@ -255,10 +257,10 @@ def _health_pass(static, views, lanes: bool, per_chip: bool) -> Health:
         n_others.append(len(others))
     tensor, dec = parts.finish()
 
-    def decode(row):
+    def sums(row) -> Dict[str, Any]:
         p = dec(row)
         mx = {"E": [], "H": []}
-        sums = {"E": 0.0, "H": 0.0}
+        sq = {"E": 0.0, "H": 0.0}
         div_sumsq, div_linf = 0.0, []
         ok = True
         for g, n in enumerate(n_others):
@@ -268,26 +270,53 @@ def _health_pass(static, views, lanes: bool, per_chip: bool) -> Health:
                     lo, hi = p[f"lo:{g}:{c}"][0], p[f"hi:{g}:{c}"][0]
                     ok = ok and math.isfinite(lo) and math.isfinite(hi)
                     mx[grp].append(_fmax((hi, -lo)))
-                    sums[grp] += math.fsum(x * x for x in p[f"sq:{g}:{c}"])
+                    sq[grp] += math.fsum(x * x for x in p[f"sq:{g}:{c}"])
             for i in range(n):
                 ok = ok and math.isfinite(p[f"lo:{g}:{i}"][0]) \
                     and math.isfinite(p[f"hi:{g}:{i}"][0])
             div_sumsq += p[f"div_sumsq:{g}"][0]
             div_linf.append(p[f"div_linf:{g}"][0])
-        mx = {grp: _fmax(m) if m else 0.0 for grp, m in mx.items()}
-        energy = 0.5 * cell * (physics.EPS0 * sums["E"]
-                               + physics.MU0 * sums["H"])
-        out = {"energy": energy,
-               "div_l2": math.sqrt(div_sumsq / max(count, 1.0)),
-               "div_linf": _fmax(div_linf),
-               "max_e": mx["E"], "max_h": mx["H"],
-               "nonfinite": 0.0 if ok else 1.0}
-        if per_chip:
-            out["per_chip"] = {"energy": [energy], "max_e": [mx["E"]],
-                               "max_h": [mx["H"]]}
-        return out
+        return {"sq_e": sq["E"], "sq_h": sq["H"], "div_sumsq": div_sumsq,
+                "count": count, "div_linf": _fmax(div_linf),
+                "max_e": _fmax(mx["E"]) if mx["E"] else 0.0,
+                "max_h": _fmax(mx["H"]) if mx["H"] else 0.0, "ok": ok}
 
-    return Health(tensor, decode, lanes)
+    return tensor, sums
+
+
+def _finish(static, shards: List[Dict[str, Any]], per_chip: bool
+            ) -> Dict[str, Any]:
+    """The health counters of the sums of one or more shards (the
+    reference's local reductions finished by sum and max over the mesh:
+    energies and div·E sums of squares and counts add, maxima take the
+    max), with ``per_chip`` the shards' own energy and maxima."""
+    cell = float(static.dx ** static.mode.ndim)
+    from fdtd3d_torch import physics
+
+    def energy(sq_e, sq_h):
+        return 0.5 * cell * (physics.EPS0 * sq_e + physics.MU0 * sq_h)
+    count = sum(s["count"] for s in shards)
+    out = {"energy": energy(math.fsum(s["sq_e"] for s in shards),
+                            math.fsum(s["sq_h"] for s in shards)),
+           "div_l2": math.sqrt(sum(s["div_sumsq"] for s in shards)
+                               / max(count, 1.0)),
+           "div_linf": _fmax(s["div_linf"] for s in shards),
+           "max_e": _fmax(s["max_e"] for s in shards),
+           "max_h": _fmax(s["max_h"] for s in shards),
+           "nonfinite": 0.0 if all(s["ok"] for s in shards) else 1.0}
+    if per_chip:
+        out["per_chip"] = {
+            "energy": [energy(s["sq_e"], s["sq_h"]) for s in shards],
+            "max_e": [s["max_e"] for s in shards],
+            "max_h": [s["max_h"] for s in shards]}
+    return out
+
+
+def _health_pass(static, views, lanes: bool, per_chip: bool) -> Health:
+    """The partials of ``views`` (``_health_parts``) and their decoder."""
+    tensor, sums = _health_parts(static, views, lanes)
+    return Health(tensor, lambda row: _finish(static, [sums(row)],
+                                              per_chip), lanes)
 
 
 def div_cast(static, e_view) -> torch.dtype:
@@ -316,6 +345,40 @@ def make_health_fn(static, per_chip: bool = False):
             views = [views]
         with named("health"):
             return _health_pass(static, views, False, per_chip)
+
+    return health
+
+
+def make_sharded_health_fn(static, mesh, per_chip: bool = False):
+    """health(views) -> :class:`Health` of a decomposed run, ``views``
+    the shards' dict-form views (a list, in the mesh's order): each
+    shard's local partials (div·E over its own interior, as the
+    reference's ``div_e_parts`` under a mesh sees it: the planes at a
+    shard's edges are left out) in one tensor on the first shard's
+    device, one readback, finished by sum and max over the shards; with
+    ``per_chip`` the shards' energies and maxima as vectors."""
+
+    def health(views) -> Health:
+        with named("health"):
+            tensors, fns = [], []
+            dev = views[0]["E"][next(iter(views[0]["E"]))].device
+            for view in views:
+                t, fn = _health_parts(static, [view], False)
+                tensors.append(t.to(dev))
+                fns.append(fn)
+            widths = [t.shape[1] for t in tensors]
+            wide = torch.float64 if any(t.dtype == torch.float64
+                                        for t in tensors) \
+                else torch.float32
+            tensor = torch.cat([t.to(wide) for t in tensors], dim=1)
+
+        def decode(row):
+            shards, at = [], 0
+            for w, fn in zip(widths, fns):
+                shards.append(fn(row[at:at + w]))
+                at += w
+            return _finish(static, shards, per_chip)
+        return Health(tensor, decode, False)
 
     return health
 

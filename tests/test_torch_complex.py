@@ -392,7 +392,8 @@ def test_batch_and_sharded_complex_are_rejected(_native_route):
     _native_route.setenv(PAIRED, "1")
     sharded = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, topology="manual", manual_topology=(1, 2, 2)))
-    with pytest.raises(NotImplementedError, match="A11"):
+    # the paired route on a topology raises as the reference's does
+    with pytest.raises(ValueError, match="cannot run on a sharded"):
         TSim(sharded, device="cpu")
     ref_sharded = dataclasses.replace(cfg_of("3d_full"), parallel=(
         ParallelConfig(topology="manual", manual_topology=(1, 2, 2))))

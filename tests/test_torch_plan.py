@@ -1,0 +1,158 @@
+"""The port's planner (``fdtd3d_torch/plan.py``), mirroring
+tests/test_plan.py.
+
+* ``plan`` equals, byte for byte, what a run of the port allocates on
+  the CPU on each shard (its carry, its coefficients, and the ghost
+  buffers of the busiest shard after a step), unsharded and sharded, in
+  f32, bf16, compensated mode, with magnetic Drude K, coefficient grids
+  and TFSF, and float32x2 unsharded;
+* the halo count per mode, the topology ladder (``degrade_topology``,
+  ``fits_devices``, ``shrink_to_devices``) and the topology it plans
+  for are the reference's;
+* ``--dry-run`` runs on both CLIs without a device; config #5
+  (``Examples/drude3D_nanoantenna.txt``, 1024^3) on 4 devices fits an
+  80 GB card;
+* a configuration ``Simulation`` refuses, ``plan`` refuses the same way.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fdtd3d_torch import SimConfig, Simulation
+from fdtd3d_torch import cli as tcli
+from fdtd3d_torch import plan as tplan
+from fdtd3d_torch.config import (MaterialsConfig, ParallelConfig, PmlConfig,
+                                 PointSourceConfig, SphereConfig,
+                                 TfsfConfig)
+from fdtd3d_tpu import cli as rcli
+from fdtd3d_tpu import plan as rplan
+from fdtd3d_tpu.config import ParallelConfig as RPar
+from fdtd3d_tpu.config import PmlConfig as RPml
+from fdtd3d_tpu.config import SimConfig as RConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPHERES = MaterialsConfig(
+    eps_sphere=SphereConfig(enabled=True, center=(16, 16, 16), radius=5,
+                            value=3.0),
+    use_drude=True, eps_inf=2.0, omega_p=2e11, gamma=1e10,
+    drude_sphere=SphereConfig(enabled=True, center=(16, 16, 16), radius=3),
+    use_drude_m=True, mu_inf=1.5, omega_pm=1e11, gamma_m=1e10,
+    drude_m_sphere=SphereConfig(enabled=True, center=(16, 16, 16),
+                                radius=3))
+CASES = {
+    "f32_spheres": dict(materials=SPHERES),
+    "bf16": dict(dtype="bfloat16", materials=SPHERES),
+    "compensated": dict(compensated=True),
+    "float32x2": dict(dtype="float32x2"),
+}
+
+
+def _cfg(case, topo):
+    """32^3 with TFSF and a point source; four shards along x take a
+    thinner x PML (their local extent of 8 must exceed 2 (pml + 1))."""
+    par = ParallelConfig(topology="manual", manual_topology=topo)
+    pml = (2, 3, 3) if topo[0] == 4 else (3, 3, 3)
+    return SimConfig(scheme="3D", size=(32, 32, 32), time_steps=2,
+                     pml=PmlConfig(size=pml), use_pallas=True,
+                     tfsf=TfsfConfig(enabled=True, margin=(2, 2, 2)),
+                     point_source=PointSourceConfig(
+                         enabled=True, component="Ez",
+                         position=(15, 16, 17)),
+                     parallel=par, **CASES[case])
+
+
+def _bytes(tree, seen):
+    if isinstance(tree, dict):
+        return sum(_bytes(v, seen) for v in tree.values())
+    if isinstance(tree, torch.Tensor) and id(tree) not in seen:
+        seen.add(id(tree))
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+@pytest.mark.parametrize("case,topo", [
+    ("f32_spheres", (1, 1, 1)), ("f32_spheres", (2, 2, 2)),
+    ("f32_spheres", (4, 1, 1)), ("bf16", (1, 2, 2)),
+    ("compensated", (2, 1, 2)), ("float32x2", (1, 1, 1))])
+def test_plan_matches_actual_allocation(case, topo):
+    cfg = _cfg(case, topo)
+    sim = Simulation(cfg, device="cpu")
+    sim.run(1)
+    p = tplan.plan(cfg)
+    assert p.topology == topo and p.local_shape == tuple(
+        32 // t for t in topo)
+    shards = sim._carry["shards"] if sim.mesh else [sim._carry]
+    coeffs = sim.coeffs if sim.mesh else [sim.coeffs]
+    for ps, cc in zip(shards, coeffs):
+        assert _bytes(ps, set()) + _bytes(cc, set()) == \
+            p.hbm_per_chip - p.ghost_bytes
+    ghosts = 0
+    if sim.mesh is not None:
+        g = sim._runner.ghosts
+        ghosts = max(sum(_bytes(b, set()) for b in (g[-1][r], g[1][r]))
+                     for r in range(sim.mesh.n))
+    assert ghosts == p.ghost_bytes
+
+
+def test_halo_counts_and_ladder_equal_reference():
+    mode = SimConfig(scheme="3D").mode
+    rmode = RConfig(scheme="3D").mode
+    for a in range(3):
+        assert tplan._halo_planes(mode, a) == rplan._halo_planes(rmode, a)
+    for topo in ((2, 2, 2), (4, 2, 1), (1, 1, 1), (3, 3, 1), (8, 1, 1)):
+        assert tplan.degrade_topology(topo) == rplan.degrade_topology(topo)
+        for n in (1, 2, 4, 8):
+            assert tplan.fits_devices(topo, n) == rplan.fits_devices(topo,
+                                                                      n)
+            assert tplan.shrink_to_devices(topo, n) == \
+                rplan.shrink_to_devices(topo, n)
+    # an interior shard moves what the reference plans for a chip
+    p = tplan.plan(_cfg("f32_spheres", (4, 1, 1)))
+    rp = rplan.plan(RConfig(
+        scheme="3D", size=(32, 32, 32), pml=RPml(size=(3, 3, 3)),
+        parallel=RPar(topology="manual", manual_topology=(4, 1, 1))))
+    assert p.halo_bytes_per_step == rp.halo_bytes_per_step
+    assert p.topology == rp.topology
+
+
+def test_plan_refuses_what_simulation_refuses():
+    cfg = _cfg("f32_spheres", (1, 8, 1))  # a local extent of 4
+    with pytest.raises(NotImplementedError, match=r"A11\(b\)/B3\(c\)"):
+        Simulation(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"A11\(b\)/B3\(c\)"):
+        tplan.plan(cfg)
+
+
+def test_config5_on_four_devices_fits_an_80gb_card():
+    argv = tcli.read_cmd_file(os.path.join(ROOT, "Examples",
+                                           "drude3D_nanoantenna.txt"))
+    cfg = tcli.args_to_config(tcli.build_parser().parse_args(
+        argv + ["--num-devices", "4"]))
+    p = tplan.plan(cfg, n_devices=4)
+    assert int(np.prod(p.topology)) == 4
+    assert p.hbm_per_chip < 80e9
+    assert p.comm_strategy is not None and p.comm_strategy.source == "fixed"
+    # the bytes a device holds fall with the shards (the 1D
+    # coefficients and the line do not)
+    one = tplan.plan_for_topology(cfg, (1, 1, 1))
+    assert 3.9 * p.hbm_per_chip < one.hbm_per_chip < 4 * p.hbm_per_chip
+
+
+def test_dry_run_on_both_clis(capsys):
+    argv = ["--cmd-from-file", os.path.join(ROOT, "Examples",
+                                            "drude3D_nanoantenna.txt"),
+            "--dry-run", "--num-devices", "4"]
+    assert rcli.main(argv) == 0
+    ref_out = capsys.readouterr().out
+    assert tcli.main(argv) == 0
+    port_out = capsys.readouterr().out
+    topo = [ln for ln in port_out.splitlines() if "topology (" in ln]
+    assert topo and topo[0].split("(")[1] == \
+        [ln for ln in ref_out.splitlines()
+         if "topology (" in ln][0].split("(")[1]
+    assert "TOTAL per device" in port_out
+    with pytest.raises(SystemExit, match="--num-devices"):
+        tcli.main(argv[:3])
