@@ -381,7 +381,30 @@ complex float32x2 as two real ds legs on it:
    memory beside four times ``plan.plan``'s per-shard bytes, and config
    #5's plan on four devices (printed, not run; under 80 GB a device).
 
-``--only 27,...,32`` (any of them) runs these phases alone after the
+33. float32x2 on a decomposed grid (the sharded packed-ds step, four or
+   two shards on ``cuda:0``): (b) the precision example as it stands
+   (128^3, 1000 steps) on (2,2,1) and (1,1,2), and the DNG sphere of
+   ``dng_flags`` at 256^3 in float32x2 (J, K and coefficient grids
+   across every shard edge) for 40 steps on (2,2,1), through
+   ``Simulation``, each bit-equal on every leaf (lo words and the line
+   included, psi on the full axis) to the unsharded ds run (the first
+   differing cells printed on a miss), its launches counted (the pass
+   on every shard a step, the hi-edge launch on every shard with an
+   upper neighbour, the line once a step, no unsharded pass) and its
+   peak allocation; (a) on a seeded copy of each (2,2,1) run's state,
+   the line once a device, the sharded pass on each shard (after the
+   lo pair-ghost exchange) and the hi-edge H launch on each shard with
+   an upper neighbour (after the hi exchange) against their plain
+   versions, then one whole sharded step against the plain sharded
+   step, every gate 0.0; (c) on seeded copies of both runs' states,
+   same-call CUDA-event times of the sharded ds step (four shards on
+   the card) and the unsharded ds step, the two exchanges, shard 0's
+   pass and hi-edge launch beside their plain versions and bounds, and
+   the kernels' device ms under torch.profiler; (d) the (2,2,1)
+   precision run's peak memory beside four times ``plan.plan``'s
+   per-shard bytes.
+
+``--only 27,...,33`` (any of them) runs these phases alone after the
 build and prints their JSON (no kernels or ok line).
 
 The packed and two-pass kernels' bound counts each coefficient grid
@@ -397,7 +420,8 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
 ``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25,
-each CLI run of 26-31 in this process, and each sharded run of 32)
+each CLI run of 26-31 in this process, and each sharded run of 32 and
+33)
 resets the counts just before it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1553,9 +1577,12 @@ def reset_launches():
     from fdtd3d_torch.ops import pallas_fused
     for fn in (packed.e_update, packed.h_update, packed_tb.tb_pass,
                packed_ds.line_advance, packed_ds.ds_pass, pallas3d.e_family,
-               pallas3d.h_family, pallas_fused.fused_eh):
+               pallas3d.h_family, pallas_fused.fused_eh,
+               packed.e_update_sharded, packed.h_update_sharded,
+               packed_ds.ds_pass_sharded, packed_ds.hi_edge_h):
         fn.launches = 0
     packed_ds.ds_pass.kernels = pallas_fused.fused_eh.kernels = 0
+    packed_ds.ds_pass_sharded.kernels = 0
     pallas3d.e_family.kernels = pallas3d.h_family.kernels = 0
 
 
@@ -5136,12 +5163,12 @@ def sharded_calls(step, carry, cc, family, fns):
     exchange) with ``fns`` = (E function, H function)."""
     shards = carry["shards"]
     if family == "E":
-        gh = step.exchange(carry, -1)
+        gh = step.exchange(shards, -1)
         for r, ps in enumerate(shards):
             fns[0](ps["E"], ps["H"], ps.get("J"), ps["psE"], cc[r]["E"],
                    ps.get("rE"), ghost=gh[r])
     else:
-        gh = step.exchange(carry, 1)
+        gh = step.exchange(shards, 1)
         for r, ps in enumerate(shards):
             fns[1](ps["H"], ps["E"], ps["psH"], cc[r]["H"], ps.get("K"),
                    ps.get("rH"), ghost=gh[r])
@@ -5321,8 +5348,9 @@ def sharded_times(dev, reps=20, plain_reps=2):
     cc = step.prepare(sim.coeffs)
     carry = sim._carry
     out = {"step_ms": timed(lambda: step(carry, cc), reps),
-           "exchange_ms": timed(lambda: (step.exchange(carry, -1),
-                                         step.exchange(carry, 1)), reps)}
+           "exchange_ms": timed(lambda: (
+               step.exchange(carry["shards"], -1),
+               step.exchange(carry["shards"], 1)), reps)}
     ps, c0 = carry["shards"][0], cc[0]
     gh, ge = step.ghosts[-1][0], step.ghosts[1][0]
     out["e_update_ms"] = timed(lambda: packed.e_update_sharded(
@@ -5464,6 +5492,392 @@ def sharded(dev):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 33: float32x2 on a decomposed grid (the sharded packed-ds step)
+# --------------------------------------------------------------------------
+
+def exact_trees(got, want, what):
+    """Max |diff| over the leaves of two carries (or spare sets), gated
+    at 0.0 (by value: -0 equals +0); on a miss prints the first
+    differing cells of each leaf that differs and fails."""
+    import numpy as np
+    import torch
+    want_leaves = dict(leaves(want))
+    worst, bad = 0.0, []
+    for name, a in leaves(got):
+        b = want_leaves[name]
+        d = (a.double() - b.double()).abs()
+        nan = torch.isnan(d)
+        err = float(d.nan_to_num(0.0).max())
+        if err > 0 or bool(nan.any()):
+            first = torch.nonzero((d > 0) | nan)[:5].tolist()
+            where = np.unravel_index(int(torch.argmax(d.nan_to_num(0.0))),
+                                     tuple(d.shape))
+            say(f"{what}: {name} max|diff| {err:.3e} at "
+                f"{tuple(int(v) for v in where)}; first cells {first}")
+            bad.append(name)
+        worst = max(worst, err)
+    if bad:
+        fail(f"{what}: {', '.join(bad)} differ from the plain version")
+    return worst
+
+
+def ds_sharded_sim(cfg, devices):
+    """A decomposed float32x2 Simulation on ``devices`` (the sharded
+    packed-ds step)."""
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(cfg, devices=devices)
+    if sim.step_kind != "packed_ds_cuda" or sim.mesh is None:
+        fail(f"float32x2 on {cfg.parallel.manual_topology}: ran "
+             f"{sim.step_kind} (mesh {sim.mesh}), not the sharded "
+             f"packed_ds_cuda step")
+    return sim
+
+
+def ds_sharded_launches_vs_plain(sim, seed, label):
+    """Phase 33 (a): on a copy of ``sim``'s carry with every shard's E/H
+    pairs, J and K seeded, each sharded launch of one step against its
+    plain version, shard by shard: the line once per device, the pass
+    (after the lo ghost exchange), the hi-edge launch (after the hi
+    ghost exchange, on each shard with an upper neighbour; kernel and
+    plain from the kernel pass's output), then one whole sharded step
+    against the plain sharded step; every gate 0.0. -> worst errors."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_ds, tfsf
+    static, mesh = sim.static, sim.mesh
+    k_step = packed_ds.make_sharded_packed_ds_step(static, mesh)
+    p_step = packed_ds.make_sharded_packed_ds_step(static, mesh, plain=True)
+    cc = k_step.prepare(sim.coeffs)
+    base = clone_tree(sim._carry)
+    groups = {}
+    for r, sh in enumerate(base["shards"]):
+        seed_ds_carry(sh, sh["E"].device, seed + r)
+        groups.setdefault(sh["E"].device, r)
+    shards = base["shards"]
+    t = int(base["t"])
+    errs = {"line": 0.0, "pass": 0.0, "hi_edge": 0.0}
+    lines = {}
+    if static.tfsf_setup is not None:
+        pair = tfsf.line_source(static.tfsf_setup, static.omega,
+                                static.dt)(t)
+        for d, r in groups.items():
+            inc = shards[r]["inc"]
+            lk = {k: torch.empty_like(v) for k, v in inc.items()}
+            lp = {k: torch.empty_like(v) for k, v in inc.items()}
+            packed_ds.line_advance(inc, lk, cc[r], pair)
+            packed_ds.line_advance_plain(inc, lp, cc[r], pair)
+            torch.cuda.synchronize()
+            errs["line"] = max(errs["line"], exact_trees(
+                lk, lp, f"{label}: the line, device {d}"))
+            lines[d] = lk
+    ps = static.cfg.point_source
+    point = None
+    if ps.enabled:
+        from fdtd3d_torch.ops.sources import DsSourceTable
+        point = DsSourceTable(ps.waveform, 0.5, static.omega, static.dt,
+                              ps.amplitude)(t)
+    lo = k_step.exchange(shards, -1)
+    outs = []
+    for r, sh in enumerate(shards):
+        d = sh["E"].device
+        args = (cc[r], sh.get("inc"), lines.get(d),
+                point if cc[r]["has_point"] else None)
+        a, b = packed.alloc_like(sh), packed.alloc_like(sh)
+        packed_ds.ds_pass_sharded(sh, a, *args, lo[r])
+        packed_ds.ds_pass_plain(sh, b, *args, lo[r])
+        torch.cuda.synchronize()
+        errs["pass"] = max(errs["pass"], exact_trees(
+            a, b, f"{label}: the sharded pass, shard {r}"))
+        outs.append((a, args))
+    hi = k_step.exchange([a for a, _ in outs], 1)
+    n_edge = 0
+    for r, (sh, (a, args)) in enumerate(zip(shards, outs)):
+        if not hi[r]:
+            continue
+        b = clone_tree(a)
+        packed_ds.hi_edge_h(sh, a, *args[:3], hi[r])
+        packed_ds.hi_edge_h_plain(sh, b, *args[:3], hi[r])
+        torch.cuda.synchronize()
+        errs["hi_edge"] = max(errs["hi_edge"], exact_trees(
+            a, b, f"{label}: the hi-edge launch, shard {r}"))
+        n_edge += 1
+    del outs
+    a, b = clone_tree(base), base
+    a = k_step(a, cc)
+    b = p_step(b, cc)
+    torch.cuda.synchronize()
+    errs["step"] = max(exact_trees(ka, kb, f"{label}: one sharded ds step, "
+                                   f"shard {r}")
+                       for r, (ka, kb) in enumerate(zip(a["shards"],
+                                                        b["shards"])))
+    say(f"{label}: the sharded ds launches (pass on {mesh.n} shards, "
+        f"hi-edge H on {n_edge}) and one step equal their plain versions "
+        f"(max abs err {errs})")
+    return errs
+
+
+def ds_sharded_run(sim, steps):
+    """Phase 33 (b): ``steps`` steps of a decomposed float32x2
+    Simulation, its kernels' counts set to 0 just before and read just
+    after: the sharded pass on every shard a step, the hi-edge launch on
+    every shard with an upper neighbour, the line once a device, and no
+    unsharded pass."""
+    import numpy as np
+    from fdtd3d_torch.ops import packed_ds
+    reset_launches()
+    t0 = time.time()
+    sim.run(steps)
+    sim.block_until_ready()
+    wall = time.time() - t0
+    mesh = sim.mesh
+    edges = sum(any(up for _, up in mesh.open_sides(r))
+                for r in range(mesh.n))
+    got = {"ds_pass_sharded": packed_ds.ds_pass_sharded.launches,
+           "hi_edge_h": packed_ds.hi_edge_h.launches,
+           "ds_line": packed_ds.line_advance.launches,
+           "ds_pass": packed_ds.ds_pass.launches}
+    want = {"ds_pass_sharded": steps * mesh.n, "hi_edge_h": steps * edges,
+            "ds_line": steps * len(mesh.distinct_devices())
+            if sim.static.tfsf_setup is not None else 0, "ds_pass": 0}
+    if got != want:
+        fail(f"sharded float32x2 {tuple(mesh.topology)}: launches {got}, "
+             f"want {want}")
+    return {"wall_s": wall, "launches": got,
+            "kernels_per_shard_step": packed_ds.ds_pass_sharded.kernels
+            / (steps * mesh.n),
+            "topology": list(int(p) for p in np.asarray(mesh.topology))}
+
+
+def ds_state(sim):
+    """``host_state`` of a float32x2 run with its lo words and its line:
+    E, loE, H, loH, J, K and inc on the card, the psi pairs (``psi_*``
+    and ``lopsi_*``) on the host expanded to the full axis."""
+    from fdtd3d_torch import convert, io
+    from fdtd3d_torch.solver import slab_axes
+    slabs = slab_axes(sim.static)
+    tree = {}
+    for k, v in sim.state.items():
+        if not isinstance(v, dict):
+            continue
+        if "psi" in k:
+            tree[k] = {}
+            for key, arr in v.items():
+                a = "xyz".index(key[-1])
+                tree[k][key] = io.psi_slab_expand(
+                    convert.to_host(arr), a, sim.static.grid_shape[a],
+                    sim.topology[a], slabs.get(a))
+        else:
+            tree[k] = {kk: vv.float() for kk, vv in v.items()}
+    return tree
+
+
+def hi_edge_bytes_flops(carry, cc, ghost):
+    """(bytes, f32 operations) of one hi-edge launch: per hi-edge cell
+    the old H pair read, the new H pair written and the new E pair of
+    the cell read (its +1 neighbours are other cells' or the ghosts'),
+    psi pairs of the cell's slab planes read and written, K read and
+    written; each ghost plane's two components' pairs read once; the H
+    half of ``ds_pass_flops`` a cell (two differences, the sign, the
+    pair sum, the coefficient products: 174 a component; 118 a psi
+    pair, 16 K a component)."""
+    import numpy as np
+    shape = cc["shape"]
+    mask = np.zeros(shape, bool)
+    for b, i in [(b, shape[b] - 1) for b in range(3) if cc["open"][b][1]]:
+        idx = [slice(None)] * 3
+        idx[b] = i
+        mask[tuple(idx)] = True
+    cells = int(mask.sum())
+    slab = 0
+    for a, m in cc["H"]["m"].items():
+        n = shape[a]
+        sl = [slice(None)] * 3
+        keep = np.zeros(n, bool)
+        keep[:m] = keep[n - m:] = True
+        sl[a] = keep
+        slab += int(mask[tuple(sl)].sum()) * 2   # two rows a psi stack
+    nbytes = cells * 3 * 24 + slab * 2 * 8
+    ops = cells * 3 * 174 + slab * 118
+    if "K" in carry:
+        nbytes += cells * 3 * 8
+        ops += cells * 3 * 16
+    nbytes += sum(4 * 4 * v[0].numel() for v in ghost.values())
+    return nbytes, ops
+
+
+def ds_bound(nbytes, nops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_NONFMA_OPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def device_ms(fn, names):
+    """``fn()`` under torch.profiler: per kernel name of ``names`` (a
+    function template's instances included: the trace names them
+    ``void name<...>(...)``), (launches, mean device ms a launch) from
+    the Chrome trace, and the device ms of every kernel; (0, None)
+    where the trace holds none of that name (the profiler drops events
+    in a long process, phase 29)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "ds_sharded_trace.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [ev for ev in json.load(f)["traceEvents"]
+                  if ev.get("cat") == "kernel"]
+    os.remove(path)
+    out = {"all_ms": sum(ev.get("dur", 0.0) for ev in events) / 1e3}
+    for name in names:
+        durs = [ev.get("dur", 0.0) for ev in events
+                if ev.get("name", "").replace("void ", "", 1)
+                .startswith(name)]
+        out[name] = (len(durs), sum(durs) / len(durs) / 1e3 if durs
+                     else None)
+    return out
+
+
+def ds_sharded_times(sim, one, label, reps=20, plain_reps=2, traced=5):
+    """Phase 33 (c): same-call CUDA-event times on seeded copies of a
+    decomposed float32x2 run's state (``sim``: four shards on the card)
+    and of the unsharded run's (``one``): the sharded ds step, its two
+    exchanges, shard 0's pass and hi-edge launch beside their plain
+    versions and bounds, and the unsharded ds step; then, under
+    torch.profiler, ``reps`` sharded steps' device time and their
+    kernels' (the pass's section kernels, the hi-edge launch) over
+    ``traced`` steps."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_ds
+    for r, sh in enumerate(sim._carry["shards"]):
+        seed_ds_carry(sh, sh["E"].device, 330 + r)
+    seed_ds_carry(one._carry, one.device, 339)
+    step = packed_ds.make_sharded_packed_ds_step(sim.static, sim.mesh)
+    cc = step.prepare(sim.coeffs)
+    carry = sim._carry
+    ustep = packed_ds.make_packed_ds_step(one.static, one.device)
+    ucc = ustep.prepare(one.coeffs)
+    ucarry = one._carry
+    out = {"step_ms": timed(lambda: step(carry, cc), reps),
+           "unsharded_step_ms": timed(lambda: ustep(ucarry, ucc), reps)}
+    out["step_over_unsharded"] = out["step_ms"] / out["unsharded_step_ms"]
+    spare = [packed.alloc_like(sh) for sh in carry["shards"]]
+    out["exchange_ms"] = timed(lambda: (step.exchange(carry["shards"], -1),
+                                        step.exchange(spare, 1)), reps)
+    sh, c0 = carry["shards"][0], cc[0]
+    inc = sh.get("inc")
+    line = {k: v.clone() for k, v in inc.items()} if inc else None
+    point = (0.0, 0.0) if c0["has_point"] else None
+    lo = step.exchange(carry["shards"], -1)[0]
+    dst = spare[0]
+    packed_ds.ds_pass_sharded(sh, dst, c0, inc, line, point, lo)
+    hi = step.exchange(spare, 1)[0]
+    args = (sh, dst, c0, inc, line)
+    out.update(
+        pass_ms=timed(lambda: packed_ds.ds_pass_sharded(*args, point, lo),
+                      reps),
+        pass_plain_ms=timed(lambda: packed_ds.ds_pass_plain(*args, point,
+                                                            lo), plain_reps),
+        hi_edge_ms=timed(lambda: packed_ds.hi_edge_h(*args, hi), reps),
+        hi_edge_plain_ms=timed(lambda: packed_ds.hi_edge_h_plain(*args, hi),
+                               plain_reps))
+    # the pass: a shard's bytes and operations, its lo ghosts' two
+    # components' pairs read once
+    nbytes = ds_pass_bytes(sh, c0) + sum(4 * 4 * v[0].numel()
+                                         for v in lo.values())
+    out["pass_bound_ms"], out["pass_bound_by"] = ds_bound(
+        nbytes, ds_pass_flops(sh, c0))
+    out["hi_edge_bound_ms"], out["hi_edge_bound_by"] = ds_bound(
+        *hi_edge_bytes_flops(sh, c0, hi))
+    out["pass_items"] = [int(n) for n in c0["_plan"][1][1]] \
+        if "_plan" in c0 else None
+    out["shard_shape"] = list(c0["shape"])
+    # device time: the kernels of ``traced`` sharded steps
+    t0 = time.time()
+    dev_ms = device_ms(lambda: [step(carry, cc) for _ in range(traced)],
+                       ("ds_section", "ds_hi_edge", "ds_line"))
+    wall = (time.time() - t0) * 1e3 / traced
+    out["device"] = {
+        "step_kernels_ms": dev_ms["all_ms"] / traced,
+        "pass_section_launches": dev_ms["ds_section"][0],
+        "pass_section_ms": dev_ms["ds_section"][1],
+        "hi_edge_launches": dev_ms["ds_hi_edge"][0],
+        "hi_edge_ms": dev_ms["ds_hi_edge"][1],
+        "line_ms": dev_ms["ds_line"][1],
+        "profiled_step_wall_ms": wall}
+    say(f"{label} ds times, (2,2,1) four shards on one card: "
+        + json.dumps(out))
+    del step, cc, carry, spare, dst, sh, args, ustep, ucc, ucarry
+    torch.cuda.empty_cache()
+    return out
+
+
+def ds_sharded(dev):
+    """Phase 33: float32x2 on a decomposed grid, four (or two) shards on
+    ``cuda:0`` through ``Simulation(cfg, devices=[...])``: (b) each run
+    against the unsharded ds run (the peak allocation of each measured
+    from its construction through its run), then (a) on a seeded copy
+    of its final state, and (c) on seeded copies of both runs'
+    states."""
+    import numpy as np
+    import torch
+    from fdtd3d_torch import plan as plan_mod
+    from fdtd3d_torch.sim import Simulation
+    rec = {"max_abs_err": {}, "main_path": {}, "times": {}}
+    main = rec["main_path"]
+    for label, path, argv, topos, key in (
+            ("precision 128^3", PRECISION, [], ((2, 2, 1), (1, 1, 2)),
+             "precision"),
+            ("DNG 256^3", MIE, dng_flags(256, 40) + X2, ((2, 2, 1),),
+             "dng")):
+        one = Simulation(config(path, argv), device=dev)
+        if one.step_kind != "packed_ds_cuda":
+            fail(f"{label} ran {one.step_kind}, not packed_ds_cuda")
+        one.run()
+        one.block_until_ready()
+        want = ds_state(one)
+        for topo in topos:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            sim = ds_sharded_sim(config(path, argv + topo_flag(topo)),
+                                 [dev] * int(np.prod(topo)))
+            run = ds_sharded_run(sim, one.cfg.time_steps)
+            run["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - held
+            run["tb_fallback"] = sim.step_diag["tb_fallback"]["reason"]
+            err, same = state_vs(ds_state(sim), want,
+                                 f"{label} {topo} vs unsharded ds", 1e-9)
+            if not same:
+                fail(f"{label} {topo}: not bit-equal to the unsharded ds "
+                     f"run (max abs {err:.3e})")
+            run.update(vs_unsharded_max_abs=err, bit_equal=same)
+            main[f"{key}_{'x'.join(map(str, topo))}"] = run
+            say(f"{label} {topo}, {one.cfg.time_steps} steps: bit-equal to "
+                f"the unsharded ds run; launches {run['launches']}; "
+                f"{run['wall_s']:.2f} s; peak {run['peak_mem_bytes']} B")
+            if topo == (2, 2, 1):
+                rec["max_abs_err"][key] = ds_sharded_launches_vs_plain(
+                    sim, 3300, f"{label} (2,2,1)")
+                rec["times"][key] = ds_sharded_times(sim, one, label)
+            del sim
+        del one, want
+        torch.cuda.empty_cache()
+    # (d) the (2,2,1) run's peak beside the plan's bytes for four shards
+    p = plan_mod.plan(config(PRECISION, topo_flag((2, 2, 1))))
+    rec["plan_221"] = {"per_shard_bytes": p.hbm_per_chip,
+                       "four_shards_bytes": 4 * p.hbm_per_chip,
+                       "max_memory_allocated":
+                       main["precision_2x2x1"]["peak_mem_bytes"],
+                       "report": p.report()}
+    say("plan of the precision example on (2,2,1) (per shard):\n"
+        + p.report() + f"\n  4 shards: {4 * p.hbm_per_chip} B; the run's "
+        f"peak allocation {main['precision_2x2x1']['peak_mem_bytes']} B")
+    return rec
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -5479,8 +5893,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
-    ap.add_argument("--only", default=None, metavar="27,...,32",
-                    help="run only these of phases 27 to 32 (after the "
+    ap.add_argument("--only", default=None, metavar="27,...,33",
+                    help="run only these of phases 27 to 33 (after the "
                          "build) and print their JSON, without the "
                          "kernels line and the closing ok line")
     args = ap.parse_args()
@@ -5525,8 +5939,8 @@ def main() -> int:
                 say(f"ptxas {lib}: {line.strip()}")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {27, 28, 29, 30, 31, 32}:
-            fail(f"--only takes phases 27 to 32, not {sorted(only)}")
+        if not only <= {27, 28, 29, 30, 31, 32, 33}:
+            fail(f"--only takes phases 27 to 33, not {sorted(only)}")
         result["nvidia_smi"] = card_line()
         for phase, key, fn in ((27, "modes", modes_and_outputs),
                                (28, "far_field",
@@ -5537,7 +5951,9 @@ def main() -> int:
                                 lambda: complex_fields(dev)),
                                (31, "ds_k_complex",
                                 lambda: ds_k_and_complex(dev)),
-                               (32, "sharded", lambda: sharded(dev))):
+                               (32, "sharded", lambda: sharded(dev)),
+                               (33, "ds_sharded",
+                                lambda: ds_sharded(dev))):
             if phase in only:
                 t1 = time.time()
                 result[key] = fn()
@@ -6118,6 +6534,9 @@ def main() -> int:
     # ---- phase 32: domain decomposition, the sharded packed step --------
     result["sharded"] = shd = sharded(dev)
     mark("phase 32")
+    # ---- phase 33: float32x2 on a decomposed grid, the sharded ds step ---
+    result["ds_sharded"] = dsh = ds_sharded(dev)
+    mark("phase 33")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
@@ -6367,6 +6786,22 @@ def main() -> int:
             "ms": st[f"{fam}_update_ms"], "plain_ms": st[f"{fam}_plain_ms"],
             "bound_ms": st[f"{fam}_bound_ms"],
             "bound_by": st[f"{fam}_bound_by"], "library_ms": None})
+    dt33 = dsh["times"]["precision"]
+    for kname, key, err_key, replaces in (
+            ("packed_ds.pass[sharded]", "ds_pass_sharded", "pass",
+             "fdtd3d_tpu/ops/pallas_packed_ds.py:429"),
+            ("packed_ds.hi_edge_h[sharded]", "hi_edge_h", "hi_edge",
+             "fdtd3d_tpu/ops/pallas_packed_ds.py:1237")):
+        ms_key = "pass" if err_key == "pass" else "hi_edge"
+        kernels.append({
+            "name": kname, "route": "cuda", "source": ds_src,
+            "replaces": replaces,
+            "launches": dsh["main_path"]["precision_2x2x1"]["launches"][key],
+            "max_abs_err": max(v[err_key] for v in
+                               dsh["max_abs_err"].values()),
+            "ms": dt33[f"{ms_key}_ms"], "plain_ms": dt33[f"{ms_key}_plain_ms"],
+            "bound_ms": dt33[f"{ms_key}_bound_ms"],
+            "bound_by": dt33[f"{ms_key}_bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -142,6 +142,30 @@
 // differs from Dekker's product in the low word where the split's
 // partial products underflow, so it stays a variant.
 //
+// Shards (the sharded variant; the reference's pair ghosts and hi-edge
+// fix, pallas_packed_ds.py:1198-1280): a shard of a decomposed run gets,
+// per axis with a lower neighbour, that neighbour's last plane of old H
+// as a pair (Params.glo, a (6, plane) copy made before the pass by
+// ops/stencil.py), and the PEC walls stand on the global edges only
+// (open_lo/open_hi). The x ghost is the march's plane x0 - 1 at x0 = 0,
+// the y and z ghosts the halo row and column below the tiles at the
+// shard's lo edges, loaded into the old-H ring like the halo. That code
+// is compiled into the sharded builds only (template SHARD, taken when a
+// launch has a ghost or an open side), so the unsharded builds keep
+// their code. The pass is out of place, so H on a shard's hi edge, whose
+// forward differences reach into the upper neighbour's new E, is
+// computed with the zero ghost and then computed again, whole, by
+// ds_hi_edge: after the pass of every shard and the exchange of the
+// upper neighbours' first planes of new E (Params.ghi), it runs the
+// pass's own cell code (update<false, 7, GRID>) on the union of the
+// shard's hi-edge planes, from the source buffers H0, psH0 and K0, and
+// overwrites what the pass wrote there. Every cell of a sharded step
+// thus runs the unsharded step's operations: a shard edge inside the
+// grid lies in the shard's slab planes, whose profiles there are
+// exactly identity, and a pair passes through the identity recursion
+// unchanged. The reference adds the missing term to the zero-ghost H
+// instead (pallas_packed_ds.py:1237-1280).
+//
 // Build knobs (-D): BY, BZ (threads of a block, halo included), PIPE,
 // INNER_BLOCKS, EDGE_BLOCKS, OVERLAP, FMA_PROD. The timing-only builds
 // are source patches of scripts/ds_variants.py, not knobs of this file.
@@ -256,6 +280,14 @@ struct Params {
   int n_item[SECTIONS];   // items of each section, in launch order
   float iv_h, iv_l;       // 1/dx as a pair
   float pt_h, pt_l;       // the point source's pair this step
+  // a shard of a decomposed run (the sharded builds): per axis a, the
+  // lower neighbour's last plane of old H and the upper neighbour's
+  // first plane of new E, (6, the grid without a) pairs or nullptr, and
+  // whether a neighbour lies below / above (no PEC wall there)
+  const float* glo[3];
+  const float* ghi[3];
+  int open_lo[3];
+  int open_hi[3];
 };
 
 struct Line {
@@ -752,8 +784,9 @@ __device__ __forceinline__ void cp_wait() {
 // Thread (ly, lz) takes window cell (j0 - 1 + ly, k0 - 1 + lz): it loads
 // the cell's old H if the cell lies in the window, computes E on the
 // owned cells and the +y/+z halo row and column, and H on the owned
-// cells. GRID as in update.
-template <int AX, bool GRID>
+// cells. GRID as in update. SHARD: a shard's lo ghosts and open sides
+// compiled in (the sharded builds; see the header).
+template <int AX, bool GRID, bool SHARD>
 __device__ __forceinline__ void march(const Params& p, int first) {
   extern __shared__ __align__(16) float ring[];
   __shared__ RecTable tab[2];
@@ -787,11 +820,24 @@ __device__ __forceinline__ void march(const Params& p, int first) {
   const int64_t vol = (int64_t)n1 * pstride;
   col.qy = slab_plane(j, n2, p.m[1]);
   col.qz = slab_plane(k, n3, p.m[2]);
-  const bool y_wall = j == 0 || j == n2 - 1, z_wall = k == 0 || k == n3 - 1;
+  // a shard's lo ghost planes (SHARD builds only): x is the plane
+  // before x0 = 0; the window's row j = -1 and column k = -1 hold the
+  // y and z ghosts' cells (old H only: no E is computed there)
+  const float* const G0 = SHARD ? p.glo[0] : nullptr;  // (6, n2, n3)
+  const float* const G1 = SHARD ? p.glo[1] : nullptr;  // (6, n1, n3)
+  const float* const G2 = SHARD ? p.glo[2] : nullptr;  // (6, n1, n2)
+  const bool gy = SHARD && G1 && j == -1 && lz < wz && k >= 0 && k < n3;
+  const bool gz = SHARD && G2 && k == -1 && ly < wy && j >= 0 && j < n2;
+  const bool y_wall = SHARD ? (j == 0 && !p.open_lo[1]) ||
+                                  (j == n2 - 1 && !p.open_hi[1])
+                            : j == 0 || j == n2 - 1;
+  const bool z_wall = SHARD ? (k == 0 && !p.open_lo[2]) ||
+                                  (k == n3 - 1 && !p.open_hi[2])
+                            : k == 0 || k == n3 - 1;
   col.wall = (y_wall || z_wall ? 1u : 0u) | (z_wall ? 2u : 0u) |
              (y_wall ? 4u : 0u);
-  col.ym = j > 0;
-  col.zm = k > 0;
+  col.ym = j > 0 || (SHARD && G1 && j == 0);
+  col.zm = k > 0 || (SHARD && G2 && k == 0);
   col.yp = j < n2 - 1;
   col.zp = k < n3 - 1;
   const bool pcol = j == p.pj && k == p.pk;
@@ -818,9 +864,24 @@ __device__ __forceinline__ void march(const Params& p, int first) {
   // loaded, and has used a slot's plane before it refills the slot); one
   // commit group a plane
   auto load_plane = [&](int x, bool e) {
+    if (SHARD && (gy || gz) && x >= 0 && x < lim) {  // a y or z ghost cell
+      const float* g = gy ? G1 + (int64_t)x * n3 + k : G2 + (int64_t)x * n2 + j;
+      const int64_t gs = gy ? (int64_t)n1 * n3 : (int64_t)n1 * n2;
+      const int s = (x & (RING - 1)) * PL + tid;
+#pragma unroll
+      for (int w = 0; w < 6; ++w) cp_async4(hr + s + w * NT, g + w * gs);
+      return;
+    }
     if (x >= lim || !inside) return;
-    const int64_t off = (int64_t)x * pstride + cidx;
     const int s = (x & (RING - 1)) * PL + tid;
+    if (SHARD && x < 0) {  // the x ghost plane, before x0 = 0
+#pragma unroll
+      for (int w = 0; w < 6; ++w) {
+        cp_async4(hr + s + w * NT, G0 + w * pstride + cidx);
+      }
+      return;
+    }
+    const int64_t off = (int64_t)x * pstride + cidx;
 #pragma unroll
     for (int w = 0; w < 6; ++w) {
       cp_async4(hr + s + w * NT, p.H0 + w * vol + off);
@@ -833,7 +894,7 @@ __device__ __forceinline__ void march(const Params& p, int first) {
       }
     }
   };
-  if (x0 > 0) load_plane(x0 - 1, false);  // H, read by E(x0)
+  if (x0 > 0 || (SHARD && G0)) load_plane(x0 - 1, false);  // H, read by E(x0)
 #pragma unroll
   for (int q = 0; q < PIPE; ++q) {
     load_plane(x0 + q, true);
@@ -859,10 +920,14 @@ __device__ __forceinline__ void march(const Params& p, int first) {
 #pragma unroll
       for (int w = 0; w < 6; ++w) old[w] = er[e_i + w * NT + tid];
       const unsigned bits = cb_e | plane_bits(tab[0], i, pcol);
-      const unsigned wall = col.wall | (i == 0 || i == n1 - 1 ? 6u : 0u);
+      const bool x_wall = SHARD ? (i == 0 && !p.open_lo[0]) ||
+                                      (i == n1 - 1 && !p.open_hi[0])
+                                : i == 0 || i == n1 - 1;
+      const unsigned wall = col.wall | (x_wall ? 6u : 0u);
       update<true, AX, GRID>(p, p.fe, tab[0], prof, bits, hr + r_i, hr + r_m,
-                             i > 0, tid, i, slab_plane(i, n1, p.m[0]), col,
-                             wall, c_at, old, store, out);
+                             i > 0 || (SHARD && G0), tid, i,
+                             slab_plane(i, n1, p.m[0]), col, wall, c_at, old,
+                             store, out);
 #pragma unroll
       for (int w = 0; w < 6; ++w) {
         nr[s_i + w * NT + tid] = out[w];
@@ -892,10 +957,10 @@ __device__ __forceinline__ void march(const Params& p, int first) {
   cp_wait<0>();  // the last groups are empty; none stays in flight
 }
 
-template <int AX, bool GRID, int MINB>
+template <int AX, bool GRID, int MINB, bool SHARD>
 __global__ void __launch_bounds__(NT, MINB)
     ds_section(const Params p, int first) {
-  march<AX, GRID>(p, first);
+  march<AX, GRID, SHARD>(p, first);
 }
 
 // Dynamic shared memory of a block: the old H and E rings, the new E
@@ -910,12 +975,169 @@ typedef void (*Kernel)(const Params, int);
 // The plan's sections, in launch order (ops/packed_ds.py::SECTIONS): the
 // items whose computed cells touch a CPML slab, then the others; one
 // launch of each, in a build with the coefficient grids and Drude J (a
-// call that has any) or one without.
-static const Kernel kKernels[2][SECTIONS] = {
-    {ds_section<7, false, EDGE_BLOCKS>, ds_section<0, false, INNER_BLOCKS>},
-    {ds_section<7, true, EDGE_BLOCKS>, ds_section<0, true, INNER_BLOCKS>}};
+// call that has any) or one without; [sharded][grid][section]: the
+// unsharded builds, then a shard's (lo ghosts and open sides).
+static const Kernel kKernels[2][2][SECTIONS] = {
+    {{ds_section<7, false, EDGE_BLOCKS, false>,
+      ds_section<0, false, INNER_BLOCKS, false>},
+     {ds_section<7, true, EDGE_BLOCKS, false>,
+      ds_section<0, true, INNER_BLOCKS, false>}},
+    {{ds_section<7, false, EDGE_BLOCKS, true>,
+      ds_section<0, false, INNER_BLOCKS, true>},
+     {ds_section<7, true, EDGE_BLOCKS, true>,
+      ds_section<0, true, INNER_BLOCKS, true>}}};
+
+// ---------------------------------------------------------------------
+// a shard's hi-edge H (the sharded variant)
+// ---------------------------------------------------------------------
+
+// Blocks of the hi-edge launch on each face of a shard with an upper
+// neighbour: x (the plane n1 - 1, tiles of (BY - 1) x (BZ - 1) cells),
+// y (the row n2 - 1 below the x face: BY / 2 planes of BZ - 1 cells a
+// block) and z (the column n3 - 1 below both: BZ / 2 planes of BY - 1
+// cells a block). Each cell of the union lies on one face.
+struct EdgeFaces {
+  int n[3];       // blocks of each face
+  int nx, ny;     // planes x < nx carry the y and z faces; rows j < ny z's
+};
+
+static EdgeFaces edge_faces(const Params& p) {
+  EdgeFaces f;
+  f.nx = p.n1 - (p.open_hi[0] ? 1 : 0);
+  f.ny = p.n2 - (p.open_hi[1] ? 1 : 0);
+  const int ty = (p.n2 + BY - 2) / (BY - 1), tz = (p.n3 + BZ - 2) / (BZ - 1);
+  f.n[0] = p.open_hi[0] ? ty * tz : 0;
+  f.n[1] = p.open_hi[1] ? ((f.nx + BY / 2 - 1) / (BY / 2)) * tz : 0;
+  f.n[2] = p.open_hi[2]
+               ? ((f.nx + BZ / 2 - 1) / (BZ / 2)) * ((f.ny + BY - 2) / (BY - 1))
+               : 0;
+  return f;
+}
+
+// The new E pair word w at (x, j, k), where x, j or k may be one past the
+// shard's hi edge: there the upper neighbour's ghost plane, else 0.
+__device__ __forceinline__ float edge_e(const Params& p, int w, int x, int j,
+                                        int k) {
+  const int n1 = p.n1, n2 = p.n2, n3 = p.n3;
+  const bool in0 = x < n1, in1 = j < n2, in2 = k < n3;
+  if (in0 && in1 && in2) {
+    return p.E2[((int64_t)w * n1 + x) * n2 * (int64_t)n3 +
+                (int64_t)j * n3 + k];
+  }
+  if (x == n1 && in1 && in2 && p.ghi[0]) {
+    return p.ghi[0][((int64_t)w * n2 + j) * n3 + k];
+  }
+  if (j == n2 && in0 && in2 && p.ghi[1]) {
+    return p.ghi[1][((int64_t)w * n1 + x) * n3 + k];
+  }
+  if (k == n3 && in0 && in1 && p.ghi[2]) {
+    return p.ghi[2][((int64_t)w * n1 + x) * n2 + j];
+  }
+  return 0.f;
+}
+
+// The new H (with its psi and K) of every cell on a shard's hi-edge
+// planes, computed whole by the pass's own cell code from the source
+// buffers, the new E and the hi ghosts. A block lays its cells' new E out
+// as the pass's ring planes do (`here`: the cell's plane, its +y
+// neighbour BZ words on, its +z one word on; `there`: plane x + 1 at the
+// same slot), so update<false, 7, GRID> reads them as in the march: on
+// the x face thread (ly, lz) takes cell (n1 - 1, j0 + ly, k0 + lz); on
+// the y face the thread pair (2g, lz), (2g + 1, lz) takes cell (x0 + g,
+// n2 - 1, k0 + lz), the odd row holding its +y neighbour; on the z face
+// the pair (ly, 2g), (ly, 2g + 1) cell (x0 + g, j0 + ly, n3 - 1).
+template <bool GRID>
+__global__ void __launch_bounds__(NT, 1)
+    ds_hi_edge(const Params p, EdgeFaces f) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ RecTable tab;
+  float* here = ring;
+  float* there = here + PL;
+  float* prof = there + PL;
+  const int tid = threadIdx.y * BZ + threadIdx.x;
+  const int ly = threadIdx.y, lz = threadIdx.x;
+  const int n1 = p.n1, n2 = p.n2, n3 = p.n3;
+  int b = blockIdx.x, face = 0;
+  while (face < 2 && b >= f.n[face]) b -= f.n[face++];
+  int x, j, k;
+  bool compute;
+  if (face == 0) {
+    const int tz = (n3 + BZ - 2) / (BZ - 1);
+    x = n1 - 1;
+    j = (b / tz) * (BY - 1) + ly;
+    k = (b % tz) * (BZ - 1) + lz;
+    compute = ly < BY - 1 && lz < BZ - 1 && j < n2 && k < n3;
+  } else if (face == 1) {
+    const int tz = (n3 + BZ - 2) / (BZ - 1);
+    x = (b / tz) * (BY / 2) + (ly >> 1);
+    j = n2 - 1 + (ly & 1);
+    k = (b % tz) * (BZ - 1) + lz;
+    compute = !(ly & 1) && lz < BZ - 1 && x < f.nx && k < n3;
+  } else {
+    const int ty = (f.ny + BY - 2) / (BY - 1);
+    x = (b / ty) * (BZ / 2) + (lz >> 1);
+    j = (b % ty) * (BY - 1) + ly;
+    k = n3 - 1 + (lz & 1);
+    compute = !(lz & 1) && ly < BY - 1 && x < f.nx && j < f.ny;
+  }
+#pragma unroll
+  for (int w = 0; w < 6; ++w) {
+    here[w * NT + tid] = edge_e(p, w, x, j, k);
+    there[w * NT + tid] = edge_e(p, w, x + 1, j, k);
+  }
+  copy_table(p.fh, tid, tab);
+  for (int fam = 0; fam < 2; ++fam) {
+    for (int a = 0; a < 3; ++a) {
+      const float* src = (fam == 0 ? p.fe : p.fh).prof[a];
+      float* dst = prof + prof_offset(p, fam, a);
+      for (int t = tid; t < 12 * p.m[a]; t += NT) dst[t] = src[t];
+    }
+  }
+  __syncthreads();
+  if (!compute) return;
+  Col col;
+  col.j = j;
+  col.k = k;
+  col.qy = slab_plane(j, n2, p.m[1]);
+  col.qz = slab_plane(k, n3, p.m[2]);
+  col.wall = 0u;
+  col.ym = j > 0;
+  col.zm = k > 0;
+  col.yp = j < n2 - 1 || p.open_hi[1];
+  col.zp = k < n3 - 1 || p.open_hi[2];
+  const int64_t vol = (int64_t)n1 * n2 * n3;
+  const int64_t cell = ((int64_t)x * n2 + j) * n3 + k;
+  float old[6], out[6];
+#pragma unroll
+  for (int w = 0; w < 6; ++w) old[w] = p.H0[w * vol + cell];
+  const unsigned bits = column_bits(tab, p.fh.n_rec, j, k) |
+                        plane_bits(tab, x, false);
+  update<false, 7, GRID>(p, p.fh, tab, prof, bits, here, there,
+                         x < n1 - 1 || p.open_hi[0], tid, x,
+                         slab_plane(x, n1, p.m[0]), col, 0u, cell, old, true,
+                         out);
+#pragma unroll
+  for (int w = 0; w < 6; ++w) p.H2[w * vol + cell] = out[w];
+}
+
+typedef void (*EdgeKernel)(const Params, EdgeFaces);
+static const EdgeKernel kEdge[2] = {ds_hi_edge<false>, ds_hi_edge<true>};
+
+static int edge_smem_bytes(int msum) {
+  return (2 * PL + 24 * msum) * static_cast<int>(sizeof(float));
+}
 
 static int g_smem_most = 0;  // shared memory a block may have (opt-in)
+
+// The builds with grids: any coefficient is a grid, or Drude J or K runs.
+static bool uses_grids(const Params& p) {
+  bool grid = p.J0 != nullptr || p.K0 != nullptr;
+  for (int c = 0; c < 3; ++c) {
+    grid = grid || p.fe.a[c].hi || p.fe.b[c].hi || p.fh.a[c].hi ||
+           p.fh.b[c].hi;
+  }
+  return grid;
+}
 
 // Lets both kernels take the largest shared memory a call may need and
 // prefer shared memory over L1, once.
@@ -931,14 +1153,20 @@ static cudaError_t set_attributes() {
   if (err != cudaSuccess) return err;
   g_smem_most = most;
   const int want = smem_bytes(MAX_SLAB_SUM);
-  for (int q = 0; q < 2 * SECTIONS; ++q) {
-    const Kernel k = kKernels[q / SECTIONS][q % SECTIONS];
+  for (int q = 0; q < 4 * SECTIONS + 2; ++q) {
+    const void* k =
+        q < 4 * SECTIONS
+            ? reinterpret_cast<const void*>(
+                  kKernels[q / (2 * SECTIONS)][(q / SECTIONS) % 2]
+                          [q % SECTIONS])
+            : reinterpret_cast<const void*>(kEdge[q - 4 * SECTIONS]);
+    const int need = q < 4 * SECTIONS ? want : edge_smem_bytes(MAX_SLAB_SUM);
     cudaFuncAttributes a;
     err = cudaFuncGetAttributes(&a, k);
     if (err != cudaSuccess) return err;
     const int room = most - static_cast<int>(a.sharedSizeBytes);
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               want < room ? want : room);
+                               need < room ? need : room);
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(
           k, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -985,14 +1213,15 @@ int fdtd_ds_tile(int* out) {
   return 0;
 }
 
-// Per section kernel (the builds without grids, then those with), four
-// ints: registers a thread, local (spill) bytes a thread, resident blocks
-// an SM at the shared memory of CPML of 8 planes on every axis, static
-// shared bytes.
+// Per section kernel (the builds without grids, then those with; the
+// unsharded builds, then the sharded ones), four ints: registers a
+// thread, local (spill) bytes a thread, resident blocks an SM at the
+// shared memory of CPML of 8 planes on every axis, static shared bytes.
 int fdtd_ds_occupancy(int* out) {
   cudaError_t err = set_attributes();
-  for (int q = 0; q < 2 * SECTIONS && err == cudaSuccess; ++q) {
-    const Kernel k = kKernels[q / SECTIONS][q % SECTIONS];
+  for (int q = 0; q < 4 * SECTIONS && err == cudaSuccess; ++q) {
+    const Kernel k =
+        kKernels[q / (2 * SECTIONS)][(q / SECTIONS) % 2][q % SECTIONS];
     cudaFuncAttributes a;
     err = cudaFuncGetAttributes(&a, k);
     int blocks = 0;
@@ -1023,12 +1252,10 @@ int fdtd_ds_pass(const Params* p, void* stream) {
   if (msum > MAX_SLAB_SUM || p->n_item[0] < 0 || p->n_item[1] < 0) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  // the builds with grids when any coefficient is a grid or Drude J or
-  // K runs
-  bool grid = p->J0 != nullptr || p->K0 != nullptr;
-  for (int c = 0; c < 3; ++c) {
-    grid = grid || p->fe.a[c].hi || p->fe.b[c].hi || p->fh.a[c].hi ||
-           p->fh.b[c].hi;
+  const bool grid = uses_grids(*p);
+  bool shard = false;  // the sharded builds, where a shard has a neighbour
+  for (int a = 0; a < 3; ++a) {
+    shard = shard || p->glo[a] || p->open_lo[a] || p->open_hi[a];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int q = 0; q < SECTIONS; ++q) {  // in the plan's order
@@ -1053,13 +1280,31 @@ int fdtd_ds_pass(const Params* p, void* stream) {
       cfg.numAttrs = OVERLAP && first > 0 ? 1 : 0;
       err = cudaLaunchKernelExC(
           &cfg,
-          reinterpret_cast<const void*>(kKernels[grid][q]),
+          reinterpret_cast<const void*>(kKernels[shard][grid][q]),
           args);
       if (err == cudaSuccess) err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// A shard's hi-edge H: one launch over the faces where it has an upper
+// neighbour (none: nothing is launched). It must follow the pass of
+// every shard and the exchange of the hi ghosts (Params.ghi).
+int fdtd_ds_hi_edge(const Params* p, void* stream) {
+  cudaError_t err = set_attributes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int msum = p->m[0] + p->m[1] + p->m[2];
+  if (msum > MAX_SLAB_SUM) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const EdgeFaces f = edge_faces(*p);
+  const int blocks = f.n[0] + f.n[1] + f.n[2];
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  kEdge[uses_grids(*p)]<<<blocks, dim3(BZ, BY), edge_smem_bytes(msum),
+                          static_cast<cudaStream_t>(stream)>>>(*p, f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int fdtd_ds_terms(const Params* p, int h_first, float* out, void* stream) {

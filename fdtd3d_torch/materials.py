@@ -16,6 +16,8 @@ reference's per-component material sampling.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
 import numpy as np
@@ -38,8 +40,10 @@ def _positions(comp: str, shape, active_axes):
     return out
 
 
-def _sphere_mask(comp, shape, active_axes, sphere):
+def _sphere_mask(comp, shape, active_axes, sphere, planes=slice(None)):
+    """Cells inside ``sphere``; ``planes`` takes a slice of axis 0."""
     px, py, pz = _positions(comp, shape, active_axes)
+    px = px[planes]
     d2 = 0.0
     for a, p in enumerate((px, py, pz)):
         if a in active_axes:
@@ -112,6 +116,62 @@ def drude_params(comp: str, shape, active_axes, mat,
         wp[_sphere_mask(comp, shape, active_axes, sphere)] = wp0
         return wp, float(g), False
     return float(wp0), float(g), True
+
+
+def sphere_enabled(sphere) -> bool:
+    return sphere is not None and sphere.enabled and sphere.radius > 0
+
+
+def _by_planes(shape, fill) -> None:
+    """Call ``fill(planes)`` on slices of axis 0 that cover ``shape``,
+    on a thread each when the grid is large: numpy's loops release the
+    GIL, and each plane's result does not depend on the slicing."""
+    workers = min(8, len(os.sched_getaffinity(0)))
+    if workers < 2 or int(np.prod(shape)) < (1 << 20):
+        fill(slice(None))
+        return
+    step = -(-shape[0] // (4 * workers))
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(lambda i: fill(slice(i, i + step)),
+                      range(0, shape[0], step)))
+
+
+def sphere_labels(comp: str, shape, active_axes,
+                  spheres) -> Optional[np.ndarray]:
+    """uint8 grid at ``comp``'s positions whose bit b is set inside
+    ``spheres[b]`` (a None or disabled entry sets no bit), or None when
+    no sphere is enabled."""
+    live = [(b, sp) for b, sp in enumerate(spheres) if sphere_enabled(sp)]
+    if not live:
+        return None
+    label = np.zeros(shape, np.uint8)
+
+    def fill(planes):
+        for b, sphere in live:
+            label[planes] |= _sphere_mask(comp, shape, active_axes, sphere,
+                                          planes).view(np.uint8) << b
+    _by_planes(shape, fill)
+    return label
+
+
+def label_grid(table: np.ndarray, label: np.ndarray) -> np.ndarray:
+    """``table[label]``: the grid of a per-label table."""
+    out = np.empty(label.shape, table.dtype)
+
+    def fill(planes):
+        out[planes] = table[label[planes]]
+    _by_planes(label.shape, fill)
+    return out
+
+
+def sphere_table(b: int, nbits: int, inside: float,
+                 outside: float) -> np.ndarray:
+    """A material that is ``inside`` in sphere b and ``outside``
+    elsewhere, as one f64 value per label of ``sphere_labels`` over
+    ``nbits`` spheres: what ``scalar_or_grid`` and ``drude_params``
+    store at the cells of that label."""
+    inner = (np.arange(1 << nbits) >> b) & 1 == 1
+    return np.where(inner, np.float64(inside), np.float64(outside))
 
 
 def merge_drude_eps(eps: Material, omega_p, eps_inf: float) -> Material:

@@ -103,7 +103,8 @@ import torch
 
 from fdtd3d_torch.layout import component_axis
 from fdtd3d_torch.ops import build, patches, tfsf
-from fdtd3d_torch.ops.stencil import diff_ghost, make_diff_ops
+from fdtd3d_torch.ops.stencil import (diff_ghost, exchange_stack,
+                                      ghost_buffers, make_diff_ops)
 from fdtd3d_torch.solver import _bcast1d, _slab_fix, slab_axes
 
 AXES = "xyz"
@@ -1039,7 +1040,6 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
     ``join`` the global dict state (new tensors). Kind ``packed_cuda``
     on CUDA devices, ``packed_plain`` on the CPU or with ``plain``;
     ``step.mesh`` names the mesh."""
-    from fdtd3d_torch.ops.stencil import exchange_stack, ghost_buffers
     from fdtd3d_torch.solver import shard_static
     local = shard_static(static, mesh)
     types = {d.type for d in mesh.devices}
@@ -1048,11 +1048,8 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
     setup = static.tfsf_setup
     e_fn, h_fn = (e_update_plain, h_update_plain) if plain \
         else (e_update_sharded, h_update_sharded)
-    # the shards of each device; the first of each advances the line
-    groups: Dict[Any, List[int]] = {}
-    for r, d in enumerate(mesh.devices):
-        groups.setdefault(d, []).append(r)
-    ghosts: Dict[int, List[Dict[int, torch.Tensor]]] = {}
+    groups = device_groups(mesh)
+    exchange, ghosts = make_exchange(mesh)
 
     def prepare(coeffs) -> List[Dict[str, Any]]:
         """Per-shard operands from the shards' device coefficients (a
@@ -1071,26 +1068,6 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
                         "point": patches.build_point_source(local, cc, off)})
         return out
 
-    def ghost_set(shards, side: int):
-        """The stacks a phase sends (H below E, E above H) and the ghost
-        buffers, made once (anew if the carry's dtype or devices
-        change)."""
-        src = [s["H" if side < 0 else "E"] for s in shards]
-        bufs = ghosts.get(side)
-        if bufs is None or any(
-                g.device != st.device or g.dtype != st.dtype
-                for b, st in zip(bufs, src) for g in b.values()):
-            bufs = ghosts[side] = ghost_buffers(mesh, src, side)
-        return src, bufs
-
-    def exchange(carry, side: int):
-        """Fill the ghosts of one phase: side -1 H's last planes upwards
-        (before the E launch), +1 E's first planes downwards (before
-        the H launch)."""
-        src, bufs = ghost_set(carry["shards"], side)
-        exchange_stack(src, bufs, mesh, side)
-        return bufs
-
     def advance_line(shards, cc, fn):
         for rs in groups.values():
             inc = fn(shards[rs[0]]["inc"], cc[rs[0]]["coeffs"])
@@ -1103,7 +1080,7 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
         if setup is not None:
             advance_line(shards, cc, lambda inc, co: tfsf.advance_einc(
                 inc, co, t, static.dt, static.omega, setup))
-        gh = exchange(carry, -1)
+        gh = exchange(shards, -1)
         for r, ps in enumerate(shards):
             e_fn(ps["E"], ps["H"], ps.get("J"), ps["psE"], cc[r]["E"],
                  ps.get("rE"), ghost=gh[r])
@@ -1114,7 +1091,7 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
         if setup is not None:
             advance_line(shards, cc, lambda inc, co: tfsf.advance_hinc(
                 inc, co, setup))
-        ge = exchange(carry, 1)
+        ge = exchange(shards, 1)
         for r, ps in enumerate(shards):
             h_fn(ps["H"], ps["E"], ps["psH"], cc[r]["H"], ps.get("K"),
                  ps.get("rH"), ghost=ge[r])
@@ -1126,15 +1103,65 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
             ps["t"] = t + 1
         return carry
 
+    step.prepare = prepare
+    step.pack, step.unpack, step.join = sharded_carry(mesh, local, pack,
+                                                      unpack)
+    step.exchange = exchange
+    step.ghosts = ghosts
+    step.packed = True
+    step.mesh = mesh
+    on_cuda = "cuda" in types
+    step.kind = "packed_cuda" if on_cuda and not plain else "packed_plain"
+    step.diag = {"topology": list(mesh.topology), "shards": mesh.n}
+    return step
+
+
+def device_groups(mesh) -> Dict[Any, List[int]]:
+    """The shards of each device of ``mesh``, in the mesh's order: the
+    first of each advances the incident line the device's shards
+    share."""
+    groups: Dict[Any, List[int]] = {}
+    for r, d in enumerate(mesh.devices):
+        groups.setdefault(d, []).append(r)
+    return groups
+
+
+def make_exchange(mesh):
+    """(exchange, ghosts) of a sharded step: ``exchange(shards, side)``
+    fills and returns the ghost buffers of one phase from ``shards``
+    (carries or spare sets): side -1 the lower neighbours' last planes
+    of H (before the E launch or the pass), +1 the upper neighbours'
+    first planes of E (before the H launch or the hi-edge launch), as
+    ``stencil.exchange_stack`` copies them; ``ghosts`` side -> the
+    buffers, made once (anew if the stacks' dtype or devices
+    change)."""
+    ghosts: Dict[int, List[Dict[int, torch.Tensor]]] = {}
+
+    def exchange(shards, side: int):
+        src = [s["H" if side < 0 else "E"] for s in shards]
+        bufs = ghosts.get(side)
+        if bufs is None or any(
+                g.device != st.device or g.dtype != st.dtype
+                for b, st in zip(bufs, src) for g in b.values()):
+            bufs = ghosts[side] = ghost_buffers(mesh, src, side)
+        exchange_stack(src, bufs, mesh, side)
+        return bufs
+
+    return exchange, ghosts
+
+
+def sharded_carry(mesh, local, pack_fn, unpack_fn):
+    """(pack, unpack, join) of a sharded carry ``{"shards", "t"}``:
+    ``pack`` splits a global dict-form state (tensors or numpy) onto the
+    shards, each piece copied to its device and packed by
+    ``pack_fn(piece, local)``, the line shared per device; ``unpack``
+    gives the shards' dict-form views (a list); ``join`` the global
+    dict state (new tensors)."""
+    groups = device_groups(mesh)
+
     def pack_state(state) -> Dict[str, Any]:
-        """A global dict-form state (tensors or numpy) onto the shards:
-        each piece copied to its device, the line shared per device."""
-        pieces = mesh.split(state)
-        shards = []
-        for r, piece in enumerate(pieces):
-            dev = mesh.devices[r]
-            on_dev = _to_device(piece, dev)
-            shards.append(pack(on_dev, local))
+        shards = [pack_fn(_to_device(piece, mesh.devices[r]), local)
+                  for r, piece in enumerate(mesh.split(state))]
         for rs in groups.values():
             for r in rs[1:]:
                 if "inc" in shards[r]:
@@ -1145,7 +1172,7 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
         views = []
         for ps in carry["shards"]:
             ps["t"] = carry["t"]
-            views.append(unpack(ps, local))
+            views.append(unpack_fn(ps, local))
         return views
 
     def join(carry, device=None) -> Dict[str, Any]:
@@ -1153,18 +1180,7 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
         out["t"] = carry["t"]
         return out
 
-    step.prepare = prepare
-    step.pack = pack_state
-    step.unpack = unpack_views
-    step.join = join
-    step.exchange = exchange
-    step.ghosts = ghosts
-    step.packed = True
-    step.mesh = mesh
-    on_cuda = "cuda" in types
-    step.kind = "packed_cuda" if on_cuda and not plain else "packed_plain"
-    step.diag = {"topology": list(mesh.topology), "shards": mesh.n}
-    return step
+    return pack_state, unpack_views, join
 
 
 def _to_device(tree, device):

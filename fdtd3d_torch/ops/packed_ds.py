@@ -3,8 +3,10 @@ step, and no PyTorch op between them.
 
 Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas_packed_ds.py::make_packed_ds_step`` (factory
-:193, kernel :364 with body :429, ``pallas_call`` :936) for unsharded
-3D float32x2 runs, and the reference step's host part around it (the ds
+:193, kernel :364 with body :429, ``pallas_call`` :936) for 3D
+float32x2 runs, unsharded and decomposed (its pair ghosts :1198-1211
+and hi-edge H fix :1237-1280: ``make_sharded_packed_ds_step`` below),
+and the reference step's host part around it (the ds
 incident line and the TFSF record terms), with the hand-written CUDA
 C++ kernels of ``fdtd3d_torch/csrc/packed_ds.cu`` (``sm_90a``, built by
 nvcc with ``--fmad=false`` at first use, bound with ctypes). CUDA C++
@@ -64,6 +66,17 @@ holds the kernels against: the reference's own schedule in torch ops
 ``h_update_plain`` in place). The test-only probes ``eft_probe`` and
 ``device_terms`` run the kernel's own EFTs and record-term function.
 
+A decomposed run (``make_sharded_packed_ds_step``) gives each shard its
+own records (``shard_records``), runs the sharded builds of the pass
+(``ds_pass_sharded``: the lower neighbours' last planes of old H as
+pair ghosts, walls on the global edges only) and then, on each shard
+with an upper neighbour, ``hi_edge_h``: H, psi_H and K of its hi-edge
+planes computed again, whole, from the source buffers and the upper
+neighbours' first planes of new E. Their plain versions
+(``ds_pass_plain`` with ``ghost``, ``hi_edge_h_plain``) follow the same
+schedule; ``ds_pass_sharded.launches`` (``.kernels``) and
+``hi_edge_h.launches`` count kernel calls.
+
 What bounds it on the card: a step must move E and H once each (96
 B/cell) plus the psi slabs, and do ~1,000 f32 operations a cell, which
 ``--fmad=false`` issues at the card's non-FMA rate: bytes and
@@ -101,11 +114,11 @@ LINE_KEYS = ("Einc", "Einc_lo", "Hinc", "Hinc_lo")
 
 
 def eligible(static) -> bool:
-    """Packed-ds scope: 3D float32x2, unsharded, every CPML axis with
-    slab-compact psi."""
+    """Packed-ds scope: 3D float32x2, every CPML axis with slab-compact
+    psi (on a topology: on each shard; ``make_sharded_packed_ds_step``
+    runs it there)."""
     return (static.cfg.ds_fields and not static.cfg.complex_fields
             and static.mode.name == "3D"
-            and tuple(static.topology) == (1, 1, 1)
             and set(static.pml_axes) == set(slab_axes(static)))
 
 
@@ -154,6 +167,28 @@ def family_records(static, family: str) -> List[Record]:
         groups[0].append(Record(comps.index(ps.component), 0,
                                 ps.position[0], None))
     return groups[0] + groups[1] + groups[2]
+
+
+def shard_records(static, mesh, r: int) -> Dict[str, List[Record]]:
+    """Shard r's records of both families: the global records
+    (``family_records``) whose plane lies in the shard's box, in their
+    order, each with its plane made shard-local; the correction keeps
+    its global geometry, and the term plan of the shard's coefficients
+    (its pieces of the cell index vectors ``gx``/``gy``/``gz``) gives
+    each record the global line coordinates of the shard's columns.
+    The point source is a record of its owner shard only. The
+    reference's traced shard-local plane indices with ownership folded
+    into the terms (``pallas_packed_ds.py:288-293``, ``:331-405``),
+    made static per shard on the host."""
+    off, n = mesh.offset(r), mesh.local_shape
+    owner = mesh.owner(static.cfg.point_source.position)[0]
+    out: Dict[str, List[Record]] = {}
+    for fam in ("E", "H"):
+        out[fam] = [rec._replace(plane=rec.plane - off[rec.axis])
+                    for rec in family_records(static, fam)
+                    if 0 <= rec.plane - off[rec.axis] < n[rec.axis]
+                    and (rec.corr is not None or owner == r)]
+    return out
 
 
 class TermPlan(NamedTuple):
@@ -472,7 +507,8 @@ def unpack(p: Dict[str, Any], static) -> Dict[str, Any]:
 
 
 def prepare_family(static, coeffs, family: str, records: List[Record],
-                   plan: Optional[TermPlan]) -> Dict[str, Any]:
+                   plan: Optional[TermPlan],
+                   point_pos=None) -> Dict[str, Any]:
     """Per-family operands: ca/cb (E) or da/db (H) as hi/lo pairs of
     tensors (0-d scalars or grids), the ADE current's coefficients in
     plain f32 under ``kj``/``bj`` (E: Drude kj/bj; H: magnetic Drude
@@ -480,7 +516,8 @@ def prepare_family(static, coeffs, family: str, records: List[Record],
     background, ``bg``, as ``packed.material`` finds it), the slab CPML
     profile packs (6, 2m) per axis (b, c, ik hi then lo), the walls, the
     1/dx pair, and the record table with each record's term offset
-    (the point source's cell in ``point_pos``)."""
+    (the point source's cell in ``point_pos``: the configuration's, or
+    a shard's local cell)."""
     mode = static.mode
     like = coeffs["gx"]
     comps = mode.e_components if family == "E" else mode.h_components
@@ -496,7 +533,8 @@ def prepare_family(static, coeffs, family: str, records: List[Record],
         "records": records,
         "offsets": [None if rec.corr is None else plan.offsets[(family, r)]
                     for r, rec in enumerate(records)],
-        "point_pos": tuple(static.cfg.point_source.position)}
+        "point_pos": tuple(point_pos if point_pos is not None
+                           else static.cfg.point_source.position)}
     if family == "E" and static.use_drude:
         fc["kj"] = [ds.as_f32(coeffs[f"kj_{c}"], like) for c in comps]
         fc["bj"] = [ds.as_f32(coeffs[f"bj_{c}"], like) for c in comps]
@@ -574,14 +612,28 @@ def _add_records(acc, c: int, fc, terms, point) -> None:
         al[sl] = nl
 
 
-def _family_plain(F, S, J, psi, fc, terms, point, backward: bool) -> None:
+def _shift_pair(f, a: int, backward: bool, ghost, d: int):
+    """The pair ``f`` of component d shifted along axis a (``_shift``),
+    with ``ghost`` (axis -> a (6, plane) pair plane) in place of the PEC
+    zero beyond the edge where it has one: rows d (hi) and 3 + d (lo)."""
+    g = (_shift(f[0], a, backward), _shift(f[1], a, backward))
+    plane = None if ghost is None else ghost.get(a)
+    if plane is not None:
+        edge = 0 if backward else f[0].shape[a] - 1
+        for q, row in enumerate((d, 3 + d)):
+            g[q].narrow(a, edge, 1).copy_(plane[row].unsqueeze(a))
+    return g
+
+
+def _family_plain(F, S, J, psi, fc, terms, point, backward: bool,
+                  ghost=None) -> None:
     iv = fc["iv"]
     for c in range(3):
         acc = None
         for t in range(2):
             a, d = (c + 1 + t) % 3, (c + 2 - t) % 3
             f = (S[d], S[3 + d])
-            g = (_shift(f[0], a, backward), _shift(f[1], a, backward))
+            g = _shift_pair(f, a, backward, ghost, d)
             term = ds_diff(f, g, iv) if backward else ds_diff(g, f, iv)
             if a in fc["m"]:
                 term = _slab_term(a, term, psi[a], psi_row(c, a),
@@ -613,36 +665,72 @@ def _family_plain(F, S, J, psi, fc, terms, point, backward: bool) -> None:
         F[3 + c].copy_(vl)
 
 
-def e_update_plain(E, H, J, psi, fc, terms, point) -> None:
+def e_update_plain(E, H, J, psi, fc, terms, point, ghost=None) -> None:
     """E pairs (and J, psi_E pairs) in place from backward ds
     differences of the H pairs, with the E records and the point
-    source's pair ``point`` (or None)."""
-    _family_plain(E, H, J, psi, fc, terms, point, backward=True)
+    source's pair ``point`` (or None). ``ghost`` (a shard of a
+    decomposed run): axis -> its lower neighbour's last plane of H
+    pairs, (6, plane)."""
+    _family_plain(E, H, J, psi, fc, terms, point, True, ghost)
 
 
-def h_update_plain(H, E, psi, fc, terms, K=None) -> None:
+def h_update_plain(H, E, psi, fc, terms, K=None, ghost=None) -> None:
     """H pairs (and psi_H pairs, and K with magnetic Drude) in place from
-    forward ds differences of the E pairs, with the H records."""
-    _family_plain(H, E, K, psi, fc, terms, None, backward=False)
+    forward ds differences of the E pairs, with the H records.
+    ``ghost``: axis -> the upper neighbour's first plane of E pairs."""
+    _family_plain(H, E, K, psi, fc, terms, None, False, ghost)
 
 
 # --------------------------------------------------------------------------
 # plain versions of the CUDA path (CPU tensors and tests)
 # --------------------------------------------------------------------------
 
-def ds_pass_plain(src, dst, cc, line_src, line_dst, point) -> None:
+def ds_pass_plain(src, dst, cc, line_src, line_dst, point,
+                  ghost=None) -> None:
     """One step of E and H from the carry ``src`` into ``dst`` (the same
     keys and shapes; ``src`` is not modified), the kernel's schedule:
     the record terms of ``plan_terms`` from the two line buffers, then
     the E and H updates of the whole volume with the point source's
-    ``point`` pair (or None)."""
+    ``point`` pair (or None). A shard's pass (the sharded kernel's
+    schedule): E reads the lower neighbours' H planes ``ghost`` (axis ->
+    (6, plane)); H keeps the zero ghost at the hi edges, which
+    ``hi_edge_h_plain`` then computes again."""
     terms = plan_terms(cc, line_src, line_dst)
     for a, b in zip(packed.carry_buffers(dst), packed.carry_buffers(src)):
         a.copy_(b)
     e_update_plain(dst["E"], dst["H"], dst.get("J"), dst["psE"], cc["E"],
-                   terms, point)
+                   terms, point, ghost)
     h_update_plain(dst["H"], dst["E"], dst["psH"], cc["H"], terms,
                    dst.get("K"))
+
+
+def hi_edge_cells(cc):
+    """The hi-edge planes of a shard: [(axis, index)] of each axis where
+    an upper neighbour lies beyond (``cc["open"]``)."""
+    shape = cc["shape"]
+    return [(b, shape[b] - 1) for b in range(3) if cc["open"][b][1]]
+
+
+def hi_edge_h_plain(src, dst, cc, line_src, line_dst, ghost) -> None:
+    """A shard's hi-edge H (the plain version of ``hi_edge_h``): H, psi_H
+    and K of every cell on the shard's hi-edge planes, computed again
+    from the source buffers ``src``, the new E in ``dst`` and the upper
+    neighbours' first planes of new E ``ghost`` (axis -> (6, plane)),
+    and written into ``dst`` there. The whole H update runs into
+    scratch copies, and only the hi-edge cells are kept."""
+    terms = plan_terms(cc, line_src, line_dst)
+    H = src["H"].clone()
+    psH = {a: v.clone() for a, v in src["psH"].items()}
+    K = src["K"].clone() if "K" in src else None
+    h_update_plain(H, dst["E"], psH, cc["H"], terms, K, ghost)
+    m = cc["H"]["m"]
+    for b, i in hi_edge_cells(cc):
+        dst["H"].narrow(1 + b, i, 1).copy_(H.narrow(1 + b, i, 1))
+        if K is not None:
+            dst["K"].narrow(1 + b, i, 1).copy_(K.narrow(1 + b, i, 1))
+        for a, v in psH.items():
+            q = 2 * m[a] - 1 if a == b else i
+            dst["psH"][a].narrow(1 + b, q, 1).copy_(v.narrow(1 + b, q, 1))
 
 
 # --------------------------------------------------------------------------
@@ -698,7 +786,9 @@ class _Params(ctypes.Structure):
                 ("n2", ctypes.c_int), ("n3", ctypes.c_int),
                 ("n_item", ctypes.c_int * len(SECTIONS)),
                 ("iv_h", ctypes.c_float), ("iv_l", ctypes.c_float),
-                ("pt_h", ctypes.c_float), ("pt_l", ctypes.c_float)]
+                ("pt_h", ctypes.c_float), ("pt_l", ctypes.c_float),
+                ("glo", ctypes.c_void_p * 3), ("ghi", ctypes.c_void_p * 3),
+                ("open_lo", ctypes.c_int * 3), ("open_hi", ctypes.c_int * 3)]
 
 
 class _Line(ctypes.Structure):
@@ -711,8 +801,9 @@ class _Line(ctypes.Structure):
 def _library() -> ctypes.CDLL:
     lib = build.load(_LIB)
     if not getattr(lib, "_fdtd_bound", False):
-        lib.fdtd_ds_pass.argtypes = [ctypes.POINTER(_Params),
-                                     ctypes.c_void_p]
+        for fn in ("fdtd_ds_pass", "fdtd_ds_hi_edge"):
+            getattr(lib, fn).argtypes = [ctypes.POINTER(_Params),
+                                         ctypes.c_void_p]
         lib.fdtd_ds_line.argtypes = [ctypes.POINTER(_Line), ctypes.c_void_p]
         lib.fdtd_ds_terms.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
                                       ctypes.c_void_p, ctypes.c_void_p]
@@ -720,7 +811,8 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p]
         for fn in ("fdtd_ds_tile", "fdtd_ds_occupancy"):
             getattr(lib, fn).argtypes = [ctypes.c_void_p]
-        for fn in ("fdtd_ds_pass", "fdtd_ds_line", "fdtd_ds_terms",
+        for fn in ("fdtd_ds_pass", "fdtd_ds_hi_edge", "fdtd_ds_line",
+                   "fdtd_ds_terms",
                    "fdtd_ds_eft_probe", "fdtd_ds_tile", "fdtd_ds_occupancy",
                    "fdtd_ds_params_size", "fdtd_ds_line_size"):
             getattr(lib, fn).restype = ctypes.c_int
@@ -881,6 +973,26 @@ def _line_pointers(prm: _Params, cc, line_src, line_dst, device) -> None:
                            device)
 
 
+def ghost_shape(shape, a: int) -> Tuple[int, ...]:
+    """Shape of a ghost pair plane of axis a: (6, the grid without a)."""
+    out = [6] + list(shape)
+    del out[1 + a]
+    return tuple(out)
+
+
+def _shard_params(prm: _Params, cc, device, lo=None, hi=None) -> None:
+    """A shard's part of the parameter block: its open sides and its
+    ghost pair planes, ``lo`` (old H from below, the pass) and ``hi``
+    (new E from above, the hi-edge launch), axis -> (6, plane)."""
+    for a, (below, above) in enumerate(cc["open"]):
+        prm.open_lo[a], prm.open_hi[a] = int(below), int(above)
+    for field, ghosts in (("glo", lo), ("ghi", hi)):
+        for a, g in (ghosts or {}).items():
+            getattr(prm, field)[a] = _check(g, f"{field}[{a}]",
+                                            ghost_shape(cc["shape"], a),
+                                            device)
+
+
 def _pass_params(src, dst, cc, line_src, line_dst, point, lib) -> _Params:
     device = src["E"].device
     shape = cc["shape"]
@@ -961,6 +1073,54 @@ ds_pass.launches = 0
 ds_pass.kernels = 0     # section kernels launched by those calls
 
 
+def ds_pass_sharded(src, dst, cc, line_src, line_dst, point,
+                    ghost=None) -> None:
+    """One shard's pass (the sharded variant of ``ds_pass``): the sharded
+    builds of the section kernels, with the shard's open sides
+    (``cc["open"]``) and its lo ghost pair planes ``ghost``, on CUDA
+    tensors; the plain version on CPU tensors.
+    ``ds_pass_sharded.launches`` counts its calls, ``.kernels`` the
+    section kernels they launched."""
+    if not src["E"].is_cuda:
+        ds_pass_plain(src, dst, cc, line_src, line_dst, point, ghost)
+        return
+    lib = _library()
+    prm = _pass_params(src, dst, cc, line_src, line_dst, point, lib)
+    _shard_params(prm, cc, src["E"].device, lo=ghost)
+    _raise_on(lib, "fdtd_ds_pass",
+              lib.fdtd_ds_pass(ctypes.byref(prm), _stream(src["E"].device)))
+    ds_pass_sharded.launches += 1
+    ds_pass_sharded.kernels += sum(n > 0 for n in prm.n_item)
+
+
+def hi_edge_h(src, dst, cc, line_src, line_dst, ghost) -> None:
+    """A shard's hi-edge H (csrc/packed_ds.cu ``ds_hi_edge``): H, psi_H
+    and K of the cells on the shard's hi-edge planes computed again into
+    ``dst`` from the source buffers, the new E in ``dst`` and the upper
+    neighbours' first planes of new E ``ghost``; the kernel on CUDA
+    tensors, ``hi_edge_h_plain`` on CPU tensors. Call it only for a
+    shard with an upper neighbour; ``hi_edge_h.launches`` counts its
+    launches."""
+    if not hi_edge_cells(cc):
+        raise ValueError("hi_edge_h: the shard has no upper neighbour")
+    if not src["E"].is_cuda:
+        hi_edge_h_plain(src, dst, cc, line_src, line_dst, ghost)
+        return
+    lib = _library()
+    # the H launch reads no point source (an E record): any pair will do
+    prm = _pass_params(src, dst, cc, line_src, line_dst, (0.0, 0.0), lib)
+    _shard_params(prm, cc, src["E"].device, hi=ghost)
+    _raise_on(lib, "fdtd_ds_hi_edge",
+              lib.fdtd_ds_hi_edge(ctypes.byref(prm),
+                                  _stream(src["E"].device)))
+    hi_edge_h.launches += 1
+
+
+ds_pass_sharded.launches = 0
+ds_pass_sharded.kernels = 0
+hi_edge_h.launches = 0
+
+
 def device_terms(cc, line_src, line_dst) -> torch.Tensor:
     """The record terms (2, total) by the kernel's own record-term
     device function from two CUDA line buffers (a test-only probe)."""
@@ -979,10 +1139,12 @@ def device_terms(cc, line_src, line_dst) -> torch.Tensor:
 def occupancy() -> Dict[str, Dict[str, int]]:
     """Registers and local (spill) bytes a thread, resident blocks an SM
     and static shared bytes of each pass kernel (SECTIONS, and their
-    builds with coefficient grids and Drude J, ``*_grid``), as the CUDA
-    runtime reports them for the card."""
+    builds with coefficient grids and Drude J, ``*_grid``; the sharded
+    builds ``*_sharded``), as the CUDA runtime reports them for the
+    card."""
     lib = _library()
-    names = SECTIONS + tuple(f"{n}_grid" for n in SECTIONS)
+    names = tuple(f"{n}{g}{sh}" for sh in ("", "_sharded")
+                  for g in ("", "_grid") for n in SECTIONS)
     out = (ctypes.c_int * (4 * len(names)))()
     _raise_on(lib, "fdtd_ds_occupancy",
               lib.fdtd_ds_occupancy(ctypes.addressof(out)))
@@ -1026,6 +1188,10 @@ def make_packed_ds_step(static, device, plain: bool = False):
             "thick for slab psi storage) is outside the packed-ds step's "
             "scope: the dispatch runs the plain ds step there, as the "
             "reference runs its jnp-ds step (packed_ds.eligible)")
+    if max(static.topology) > 1:
+        raise ValueError(f"a static setup on the sharded topology "
+                         f"{static.topology} takes "
+                         f"make_sharded_packed_ds_step")
     setup = static.tfsf_setup
     ps = static.cfg.point_source
     records = {"E": family_records(static, "E"),
@@ -1086,6 +1252,7 @@ def make_packed_ds_step(static, device, plain: bool = False):
         return pst
 
     out = plain_step if plain else step
+    out.spare = spare
     out.prepare = prepare
     out.pack = lambda state: pack(state, static)
     out.unpack = lambda p: unpack(p, static)
@@ -1094,3 +1261,148 @@ def make_packed_ds_step(static, device, plain: bool = False):
     out.kind = "packed_ds_cuda" if on_cuda and not plain \
         else "packed_ds_plain"
     return out
+
+
+# --------------------------------------------------------------------------
+# the sharded packed-ds step (domain decomposition in one process)
+# --------------------------------------------------------------------------
+
+def make_sharded_packed_ds_step(static, mesh, plain: bool = False):
+    """The packed-ds step of a decomposed run: every shard of ``mesh`` (a
+    ``parallel.mesh.ShardMesh``) holds its piece of the packed carry and
+    of the coefficients on its own device, and a step runs in six
+    phases:
+
+    1. the incident line advances once on each device that holds a
+       shard (``line_advance``, into the device's spare line), and every
+       shard there reads the same two line buffers;
+    2. each shard with a lower neighbour on a sharded axis receives that
+       neighbour's last plane of old H as a pair (``stencil.
+       exchange_stack``, a (6, plane) ghost); a shard at the global lo
+       edge keeps the PEC zero;
+    3. the pass (``ds_pass_sharded``) on every shard, out of place into
+       its spare set, reading those ghosts, with PEC walls on the
+       global edges only (``cc["open"]``) and its own records
+       (``shard_records``: shard-local planes, the global line
+       geometry); H at a hi edge with an upper neighbour sees the zero
+       ghost;
+    4. each shard with an upper neighbour receives that neighbour's
+       first plane of new E as a pair;
+    5. ``hi_edge_h`` on every such shard computes H, psi_H and K of its
+       hi-edge planes again, whole, from the source buffers and those
+       ghosts, over what the pass wrote there;
+    6. each shard swaps its buffers with its spare set, and each device
+       its line buffers once.
+
+    Every cell runs the operations of the unsharded pass, in its order:
+    an interior shard's slab profile pairs are exactly identity (psi
+    stays 0, the curl term passes unchanged), so a sharded run equals
+    the unsharded ``packed_ds`` run value for value. The reference adds
+    the missing term to the zero-ghost H after its kernel instead
+    (``pallas_packed_ds.py:1237-1280``) and agrees at the ds gates.
+
+    ``plain=True`` runs the plain versions on any device (the yardstick
+    of chip_smoke.py). The carry is ``{"shards": [one packed-ds carry a
+    shard], "t"}``, the shards of a device sharing one ``inc``; ``pack``
+    splits a global dict state onto the shards' devices, ``unpack``
+    gives the shards' dict-form views and ``join`` the global dict
+    state. Kind ``packed_ds_cuda`` on CUDA devices, ``packed_ds_plain``
+    on the CPU or with ``plain``."""
+    from fdtd3d_torch.solver import shard_static
+    if not eligible(static):
+        raise ValueError(
+            "this float32x2 configuration is outside the packed-ds step's "
+            "scope (solver.sharded_scope refuses it first)")
+    local = shard_static(static, mesh)
+    types = {d.type for d in mesh.devices}
+    if len(types) != 1:
+        raise ValueError(f"a mesh mixes device types {sorted(types)}")
+    setup = static.tfsf_setup
+    ps = static.cfg.point_source
+    recs = [shard_records(static, mesh, r) for r in range(mesh.n)]
+    has_point = [any(rec.corr is None for rec in rs["E"]) for rs in recs]
+    line_src = tfsf.line_source(setup, static.omega, static.dt) \
+        if setup is not None else None
+    point_src = DsSourceTable(ps.waveform, 0.5, static.omega, static.dt,
+                              ps.amplitude) if any(has_point) else None
+    line_fn, pass_fn, edge_fn = \
+        (line_advance_plain, ds_pass_plain, hi_edge_h_plain) if plain \
+        else (line_advance, ds_pass_sharded, hi_edge_h)
+    groups = packed.device_groups(mesh)
+    exchange, ghosts = packed.make_exchange(mesh)
+    spare: List[Dict[str, Any]] = []
+    spare_inc: Dict[Any, Dict[str, torch.Tensor]] = {}
+
+    def prepare(coeffs) -> List[Dict[str, Any]]:
+        """Per-shard operands from the shards' device coefficients (a
+        list, ``mesh.split`` of the global dict moved to each
+        device)."""
+        n_inc = setup.n_inc if setup is not None else 0
+        out = []
+        for r, co in enumerate(coeffs):
+            off = mesh.offset(r)
+            plan = build_term_plan(local, co, recs[r])
+            pos = tuple(p - o for p, o in zip(ps.position, off))
+            cc = {"coeffs": co, "plan": plan, "static": local,
+                  "shape": tuple(local.grid_shape), "n_inc": n_inc,
+                  "has_point": has_point[r], "open": mesh.open_sides(r)}
+            for fam in ("E", "H"):
+                cc[fam] = prepare_family(local, co, fam, recs[r][fam], plan,
+                                         pos)
+            cc["geo"], cc["geo_i0"], cc["h_first"] = kernel_geometry(
+                plan, n_inc)
+            out.append(cc)
+        return out
+
+    def alloc(shards) -> None:
+        spare[:] = [packed.alloc_like(s) for s in shards]
+        spare_inc.clear()
+        if setup is not None:
+            for d, rs in groups.items():
+                spare_inc[d] = {k: torch.empty_like(v)
+                                for k, v in shards[rs[0]]["inc"].items()}
+
+    def step(carry, cc):
+        shards = carry["shards"]
+        t = carry["t"]
+        if not spare or spare[0]["E"].device != shards[0]["E"].device:
+            alloc(shards)
+        if setup is not None:
+            for d, rs in groups.items():
+                line_fn(shards[rs[0]]["inc"], spare_inc[d], cc[rs[0]],
+                        line_src(t))
+        point = point_src(t) if point_src is not None else None
+        lines = [(shards[r].get("inc"), spare_inc.get(d))
+                 for r, d in enumerate(mesh.devices)]
+        lo = exchange(shards, -1)
+        for r, sh in enumerate(shards):
+            pass_fn(sh, spare[r], cc[r], *lines[r],
+                    point if has_point[r] else None, lo[r])
+        hi = exchange(spare, 1)
+        for r, sh in enumerate(shards):
+            if hi[r]:
+                edge_fn(sh, spare[r], cc[r], *lines[r], hi[r])
+        for r, sh in enumerate(shards):
+            packed.swap_buffers(sh, spare[r])
+        if setup is not None:
+            for d, rs in groups.items():
+                new, spare_inc[d] = spare_inc[d], shards[rs[0]]["inc"]
+                for r in rs:
+                    shards[r]["inc"] = new
+        carry["t"] = t + 1
+        for sh in shards:
+            sh["t"] = t + 1
+        return carry
+
+    step.prepare = prepare
+    step.pack, step.unpack, step.join = packed.sharded_carry(mesh, local,
+                                                             pack, unpack)
+    step.exchange = exchange
+    step.ghosts = ghosts
+    step.spare = {"shards": spare, "inc": spare_inc}
+    step.packed = True
+    step.mesh = mesh
+    step.kind = "packed_ds_cuda" if "cuda" in types and not plain \
+        else "packed_ds_plain"
+    step.diag = {"topology": list(mesh.topology), "shards": mesh.n}
+    return step

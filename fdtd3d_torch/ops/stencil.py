@@ -100,30 +100,34 @@ def exchange_stack(stacks: Sequence[torch.Tensor],
                    ghosts: Sequence[Dict[int, torch.Tensor]], mesh,
                    side: int) -> None:
     """Fill every shard's ghost planes from its neighbours' stacked
-    fields (3, n1, n2, n3). ``side`` -1 (lo -> hi, E's ghosts): shard r
-    receives, on each axis where ``ghosts[r]`` has a buffer, the last
-    plane of its lower neighbour's stack (old H); +1 (hi -> lo, H's
-    ghosts): the first plane of its upper neighbour's (new E). Only the
-    two components with a curl term along the axis are copied."""
+    fields: (3, n1, n2, n3), or float32x2 pairs (6, n1, n2, n3), the hi
+    words in rows [0, 3) and the lo words in [3, 6). ``side`` -1 (lo ->
+    hi, E's ghosts): shard r receives, on each axis where ``ghosts[r]``
+    has a buffer, the last plane of its lower neighbour's stack (old H);
+    +1 (hi -> lo, H's ghosts): the first plane of its upper neighbour's
+    (new E). Only the two components with a curl term along the axis are
+    copied (of a pair stack their hi rows c, then their lo rows 3 + c)."""
     for r, bufs in enumerate(ghosts):
         for a, buf in bufs.items():
             src = stacks[mesh.neighbor(r, a, side)]
             n = src.shape[1 + a]
             plane = src.select(1 + a, n - 1 if side < 0 else 0)
             comps = ghost_components(a)
-            if comps == (0, 1) or comps == (1, 2):
-                c0 = comps[0]
-                copy_plane(buf[c0:c0 + 2], plane[c0:c0 + 2])
-            else:
-                for c in comps:
-                    copy_plane(buf[c], plane[c])
+            for base in range(0, src.shape[0], 3):
+                if comps == (0, 1) or comps == (1, 2):
+                    c0 = base + comps[0]
+                    copy_plane(buf[c0:c0 + 2], plane[c0:c0 + 2])
+                else:
+                    for c in comps:
+                        copy_plane(buf[base + c], plane[base + c])
 
 
 def ghost_buffers(mesh, stacks: Sequence[torch.Tensor], side: int
                   ) -> List[Dict[int, torch.Tensor]]:
-    """Zeroed ghost buffers of every shard (3, plane) in the stacks'
-    dtype, on the axes where it has a neighbour on ``side`` (-1: E's
-    ghosts from below, +1: H's from above)."""
+    """Zeroed ghost buffers of every shard, (3, plane) or a pair stack's
+    (6, plane), in the stacks' dtype, on the axes where it has a
+    neighbour on ``side`` (-1: E's ghosts from below, +1: H's from
+    above)."""
     out: List[Dict[int, torch.Tensor]] = []
     for r, st in enumerate(stacks):
         bufs = {}

@@ -18,8 +18,11 @@ sharded packed step, without allocating anything:
   words in compensated and float32x2 modes), and the 1D vectors (cell
   indices, walls, CPML profiles, the line's loss profiles), which every
   shard holds its own piece or copy of;
-* the ghost buffers of the sharded step: (3, plane) a side with a
-  neighbour, E's from below and H's from above.
+* the ghost buffers of the sharded steps: (3, plane) a side with a
+  neighbour, E's from below and H's from above; float32x2 pairs (6,
+  plane), old H from below and new E from above;
+* the packed-ds step's spare set (it writes out of place): a second
+  E, H, psi, J and K, and a second incident line a device.
 
 The work plans and TFSF patch tables the packed step prepares (a few
 kilobytes to megabytes of int32 and float rows) are not counted.
@@ -27,7 +30,8 @@ kilobytes to megabytes of int32 and float rows) are not counted.
 ``halo_bytes_per_step`` is the traffic of one step of the most connected
 shard: on each sharded axis, toward each neighbour, the two components
 of one family received and the two of the other sent, a plane each
-(the reference's count for an interior shard).
+(the reference's count for an interior shard), float32x2 planes as
+pairs.
 
 ``CommStrategy`` records the port's one exchange schedule, fixed: the
 two component planes of an axis copied together (one strided copy for
@@ -78,6 +82,7 @@ class Plan:
     coeff_bytes: int           # 3D coefficient grids
     vector_bytes: int          # 1D coefficients (indices, walls, profiles)
     ghost_bytes: int           # the sharded step's ghost buffers
+    spare_bytes: int           # the packed-ds step's out-of-place set
     halo_bytes_per_step: int   # received + sent a step, busiest shard
     n_chips: int
     halo_by_axis: Dict[str, Dict[str, int]] = dataclasses.field(
@@ -88,7 +93,7 @@ class Plan:
     def hbm_per_chip(self) -> int:
         return (self.fields_bytes + self.psi_bytes + self.drude_bytes
                 + self.residual_bytes + self.inc_bytes + self.coeff_bytes
-                + self.vector_bytes + self.ghost_bytes)
+                + self.vector_bytes + self.ghost_bytes + self.spare_bytes)
 
     def report(self) -> str:
         gib = 1 << 30
@@ -105,6 +110,7 @@ class Plan:
             f"  material coeffs:     {self.coeff_bytes / gib:8.3f} GiB",
             f"  1D coefficients:     {self.vector_bytes / mib:8.3f} MiB",
             f"  ghost planes:        {self.ghost_bytes / mib:8.3f} MiB",
+            f"  ds spare set:        {self.spare_bytes / gib:8.3f} GiB",
             f"  TOTAL per device:    {self.hbm_per_chip / gib:8.3f} GiB",
             f"  halo exchange:       {self.halo_bytes_per_step / mib:8.3f}"
             f" MiB/device/step",
@@ -216,6 +222,12 @@ def plan(cfg, n_devices: int = 1) -> Plan:
     coeff = (len(mode.e_components) * per_e
              + len(mode.h_components) * per_h) * cells * rb
     vectors = _vector_bytes(static, local)
+    spare = 0
+    if ds and static.cfg.use_pallas is not False \
+            and solver._ds_kernel_wanted(static):
+        # the packed-ds step on the card (use_pallas None or True)
+        spare = fields + psi + drude + inc
+    words = 2 if ds else 1
     ghost, halo = 0, 0
     by_axis: Dict[str, Dict[str, int]] = {}
     for a in range(3):
@@ -225,19 +237,20 @@ def plan(cfg, n_devices: int = 1) -> Plan:
             # interior one has a buffer from below (E's) and one from
             # above (H's), three components each; with two, one of them
             sides = 2 if topo[a] > 2 else 1
-            ghost += sides * 3 * plane * fb
+            ghost += sides * 3 * words * plane * fb
             # each side: the planes of one family received, the other's
             # sent
             planes = _halo_planes(mode, a)
+            pb = words * plane * fb
             by_axis[AXES[a]] = {
-                "planes_per_step": planes, "plane_bytes": plane * fb,
-                "bytes_per_neighbor_per_step": planes * plane * fb,
-                "bytes_per_step": sides * planes * plane * fb}
-            halo += sides * planes * plane * fb
+                "planes_per_step": planes, "plane_bytes": pb,
+                "bytes_per_neighbor_per_step": planes * pb,
+                "bytes_per_step": sides * planes * pb}
+            halo += sides * planes * pb
     strat = None
     if max(topo) > 1:
         strat = CommStrategy(
-            step_kind="packed", topology=topo,
+            step_kind="packed_ds" if ds else "packed", topology=topo,
             shard_axes=tuple(AXES[a] for a in range(3) if topo[a] > 1),
             ghost_depth=1, split="fused", schedule="sync",
             source="fixed",
@@ -246,7 +259,8 @@ def plan(cfg, n_devices: int = 1) -> Plan:
     return Plan(topology=topo, local_shape=local, fields_bytes=fields,
                 psi_bytes=psi, drude_bytes=drude, residual_bytes=residual,
                 inc_bytes=inc, coeff_bytes=coeff, vector_bytes=vectors,
-                ghost_bytes=ghost, halo_bytes_per_step=halo,
+                ghost_bytes=ghost, spare_bytes=spare,
+                halo_bytes_per_step=halo,
                 n_chips=int(np.prod(topo)), halo_by_axis=by_axis,
                 comm_strategy=strat)
 

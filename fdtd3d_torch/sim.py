@@ -221,7 +221,8 @@ class Simulation:
     visible cards, one on the CPU). A sharded
     run holds each shard's state and coefficients on its device
     (``self.mesh``, ``self.coeffs`` a list of per-shard dicts), steps
-    through ``ops/packed.py::make_sharded_packed_step``, and reads and
+    through ``ops/packed.py::make_sharded_packed_step`` (float32x2:
+    ``ops/packed_ds.py::make_sharded_packed_ds_step``), and reads and
     writes the global view: ``field``/``fields``/``sample``/
     ``set_field``, ``state`` (a joined copy), ``checkpoint`` (the
     reference's sharded layout, joined leaf by leaf) and ``restore``/
@@ -315,9 +316,10 @@ class Simulation:
     def _sharded_zeros(self) -> Dict[str, Any]:
         """The zero carry of a decomposed run: the packed form, made
         shard by shard on each shard's device."""
-        from fdtd3d_torch.ops import packed
-        return {"shards": pmesh.sharded_zeros(self.static, self.mesh,
-                                              packed.pack), "t": 0}
+        from fdtd3d_torch.ops import packed, packed_ds
+        pack = packed_ds.pack if self.static.cfg.ds_fields else packed.pack
+        return {"shards": pmesh.sharded_zeros(self.static, self.mesh, pack),
+                "t": 0}
 
     def _shard_views(self):
         """The shards' dict-form views of the live carry (a list)."""

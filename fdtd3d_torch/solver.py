@@ -90,14 +90,16 @@ A sharded topology (``StaticSetup.topology``, resolved by
 ``parallel.mesh.ShardMesh`` (``make_step(mesh=)``,
 ``ops/packed.py::make_sharded_packed_step``), in 3D f32 or bf16 storage
 (compensated where the packed kernel takes it), with the ``tb_fallback``
-token ``SHARDED_TB_FALLBACK``; ``check_scope`` and ``sharded_scope``
-refuse the rest, naming the item.
+token ``SHARDED_TB_FALLBACK``, and 3D float32x2 the sharded packed-ds
+step (``ops/packed_ds.py::make_sharded_packed_ds_step``, token
+``ds_fields``); ``check_scope`` and ``sharded_scope`` refuse the rest,
+naming the item.
 
 Scope: every scheme mode, real float32, bfloat16, float32x2 and
 float64, complex float32 and float64, CPML on any axes, TFSF, the point
 source, electric Drude J, magnetic Drude K, compensated float32,
 material coefficient grids, PEC walls, unsharded; the sharded packed
-step above. Everything else raises ``NotImplementedError`` naming its
+steps above. Everything else raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 """
 
@@ -183,18 +185,16 @@ def _out_of_scope(what: str, item: str):
 def check_scope(cfg: SimConfig, topology=(1, 1, 1)) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for every
     configuration this slice of the port does not run. On a sharded
-    ``topology`` the port runs the sharded packed step only (3D, float32
-    or bf16 storage, compensated mode where the packed kernel takes it);
-    what the reference runs sharded otherwise waits for its item."""
+    ``topology`` the port runs the sharded packed steps only (3D:
+    float32 or bf16 storage, compensated mode where the packed kernel
+    takes it, and float32x2 on the sharded packed-ds step); what the
+    reference runs sharded otherwise waits for its item."""
     import os
     if cfg.output.checkpoint_backend == "orbax":
         _out_of_scope("the orbax checkpoint backend", "A11(b)")
     if max(topology) == 1:
         return
     where = f"on the sharded topology {tuple(topology)}"
-    if cfg.dtype == "float32x2":
-        _out_of_scope(f"float32x2 {where} (the sharded packed-ds step of "
-                      f"A9)", "B4(c)")
     if cfg.mode.name != "3D":
         _out_of_scope(f"the {cfg.mode.name} mode {where} (the sharded "
                       f"plain step)", "A11(b)")
@@ -216,13 +216,25 @@ def sharded_scope(static: "StaticSetup") -> None:
     ``pallas_packed.eligible`` under a mesh, pallas_packed.py:219-248):
     every CPML axis holds slab psi on each shard, the sources sit
     inside the CPML identity region (``sources_interior``), and the
-    packed kernel takes the configuration. Raise NotImplementedError
-    naming the item of what falls outside: the reference runs it on its
-    jnp step (or its two-pass kernels), the sharded plain step of
-    A11(b)."""
+    packed kernel takes the configuration. float32x2 takes the sharded
+    packed-ds step, whose scope is the reference's
+    ``pallas_packed_ds.eligible`` under a mesh (:116-130) with its
+    slab-psi check (:199-202): slab psi on each shard, and nothing else
+    (its records carry the sources on any shard). Raise
+    NotImplementedError naming the item of what falls outside: the
+    reference runs it on its jnp step (or its two-pass kernels, or its
+    jnp-ds step), the sharded plain step of A11(b)."""
     from fdtd3d_torch.ops import packed
     where = f"on the sharded topology {tuple(static.topology)}"
     thin = sorted(set(static.pml_axes) - set(slab_axes(static)))
+    if thin and static.cfg.ds_fields:
+        _out_of_scope(
+            f"float32x2 on a shard too thin for slab CPML psi on axis "
+            f"{', '.join(AXES[a] for a in thin)} ({where}: the local "
+            f"extent must exceed 2 (pml + 1) planes; the reference runs "
+            f"it on its jnp-ds step, the sharded plain ds step)", "A11(b)")
+    if static.cfg.ds_fields:
+        return
     if thin:
         _out_of_scope(
             f"a shard too thin for slab CPML psi on axis "
@@ -381,45 +393,82 @@ def build_coeffs(static: StaticSetup) -> Dict[str, Any]:
     def _cast(v):
         return rd(v) if np.isscalar(v) else v.astype(rd)
 
+    # Without a material file, each medium is uniform inside and outside
+    # its sphere and the Drude plasma's: the formulas below then run on
+    # one f64 value per label of ``materials.sphere_labels`` (bit 0 the
+    # medium's sphere, bit 1 the plasma's) and ``_grid`` gathers the
+    # stored values at the cells. f64 arithmetic is elementwise, so each
+    # cell gets the bits the formulas give on full grids, which a
+    # material file still takes.
+    label = None
+
+    def _grid(v):
+        if isinstance(v, np.ndarray) and v.ndim == 1:
+            return materials.label_grid(v, label)
+        return v
+
+    def _medium(c, base, sphere, file_path, drude, magnetic):
+        """(medium, plasma frequency, gamma) of component c, the plasma's
+        None without ``drude``; sets the labels their tables are on."""
+        nonlocal label
+        if file_path:
+            label = None
+            med = materials.scalar_or_grid(c, shape, mode.active_axes, base,
+                                           sphere, file_path)
+            if not drude:
+                return med, None, None
+            wp, g, _ = materials.drude_params(c, shape, mode.active_axes,
+                                              mat, magnetic=magnetic)
+            return med, wp, g
+        plasma = mat.drude_m_sphere if magnetic else mat.drude_sphere
+        plasma = plasma if drude else None
+        label = materials.sphere_labels(c, shape, mode.active_axes,
+                                        (sphere, plasma))
+        med = (materials.sphere_table(0, 2, sphere.value, base)
+               if materials.sphere_enabled(sphere) else float(base))
+        if not drude:
+            return med, None, None
+        wp0 = mat.omega_pm if magnetic else mat.omega_p
+        wp = (materials.sphere_table(1, 2, wp0, 0.0)
+              if materials.sphere_enabled(plasma) else float(wp0))
+        return med, wp, float(mat.gamma_m if magnetic else mat.gamma)
+
     def _cast_ds(key, v):
         """Store coefficient ``key``; in compensated and float32x2 modes
         also its double-single low word ``key_lo`` = f32(v64 - f32(v64)):
         an f32 ca/cb/da/db alone perturbs the discrete system by ~eps32,
         a drift from f64 that grows linearly in t."""
-        out[key] = _cast(v)
+        hi = _cast(v)
+        out[key] = _grid(hi)
         if cfg.compensated or cfg.ds_fields:
             v64 = np.asarray(v, np.float64)
-            out[f"{key}_lo"] = _cast(v64 - np.asarray(out[key],
-                                                      np.float64))
+            out[f"{key}_lo"] = _grid(_cast(v64 - np.asarray(hi,
+                                                            np.float64)))
 
     for c in mode.e_components:
-        eps = materials.scalar_or_grid(c, shape, mode.active_axes, mat.eps,
-                                       mat.eps_sphere, mat.eps_file)
+        eps, wp, gamma = _medium(c, mat.eps, mat.eps_sphere, mat.eps_file,
+                                 static.use_drude, False)
         if static.use_drude:
-            wp, gamma, _ = materials.drude_params(c, shape,
-                                                  mode.active_axes, mat)
             eps = materials.merge_drude_eps(eps, wp, mat.eps_inf)
             out[f"kj_{c}"] = _cast((1.0 - gamma * dt / 2.0)
                                    / (1.0 + gamma * dt / 2.0))
-            out[f"bj_{c}"] = _cast(physics.EPS0 * np.square(wp) * dt
-                                   / (1.0 + gamma * dt / 2.0))
+            out[f"bj_{c}"] = _grid(_cast(physics.EPS0 * np.square(wp) * dt
+                                         / (1.0 + gamma * dt / 2.0)))
         se = mat.sigma_e * dt / (2.0 * physics.EPS0 * np.asarray(eps))
         _cast_ds(f"ca_{c}", (1.0 - se) / (1.0 + se))
         _cast_ds(f"cb_{c}", dt / (physics.EPS0 * np.asarray(eps))
                  / (1.0 + se))
 
     for c in mode.h_components:
-        mu = materials.scalar_or_grid(c, shape, mode.active_axes, mat.mu,
-                                      mat.mu_sphere, mat.mu_file)
+        mu, wpm, gm = _medium(c, mat.mu, mat.mu_sphere, mat.mu_file,
+                              static.use_drude_m, True)
         if static.use_drude_m:
             # magnetic Drude (metamaterial) K: the dual of J
-            wpm, gm, _ = materials.drude_params(c, shape, mode.active_axes,
-                                                mat, magnetic=True)
             mu = materials.merge_drude_eps(mu, wpm, mat.mu_inf)
             out[f"km_{c}"] = _cast((1.0 - gm * dt / 2.0)
                                    / (1.0 + gm * dt / 2.0))
-            out[f"bm_{c}"] = _cast(physics.MU0 * np.square(wpm) * dt
-                                   / (1.0 + gm * dt / 2.0))
+            out[f"bm_{c}"] = _grid(_cast(physics.MU0 * np.square(wpm) * dt
+                                         / (1.0 + gm * dt / 2.0)))
         sm = mat.sigma_m * dt / (2.0 * physics.MU0 * np.asarray(mu))
         _cast_ds(f"da_{c}", (1.0 - sm) / (1.0 + sm))
         _cast_ds(f"db_{c}", dt / (physics.MU0 * np.asarray(mu))
@@ -1154,7 +1203,9 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     step. A sharded ``static`` (``build_static`` checked its scope)
     takes the sharded packed step over ``mesh`` (a
     ``parallel.mesh.ShardMesh``), with the ``tb_fallback`` token
-    ``SHARDED_TB_FALLBACK``."""
+    ``SHARDED_TB_FALLBACK``; in float32x2 the sharded packed-ds step,
+    with the token the reference's dispatch records for it
+    (``ds_fields``)."""
     import os
     if max(static.topology) > 1:
         from fdtd3d_torch.ops import packed as packed_mod
@@ -1164,6 +1215,11 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
                 f"needs its ShardMesh (make_step(..., mesh=))")
         if batch:
             _out_of_scope("a batch on a sharded topology", "A11(b)")
+        if static.cfg.ds_fields:
+            from fdtd3d_torch.ops import packed_ds
+            return _stamp_tb_fallback(
+                packed_ds.make_sharded_packed_ds_step(static, mesh),
+                tb_fallback_reason(static, True, allow_multistep))
         return _stamp_tb_fallback(
             packed_mod.make_sharded_packed_step(static, mesh),
             SHARDED_TB_FALLBACK)
@@ -1477,6 +1533,9 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     if packed:
         run_chunk.pack = step.pack
         run_chunk.unpack = step.unpack
+    # the out-of-place steps' spare buffers (the packed-ds steps), which
+    # the planner counts
+    run_chunk.spare = getattr(step, "spare", None)
     if sharded is not None:
         run_chunk.join = step.join
         run_chunk.ghosts = step.ghosts

@@ -18,7 +18,9 @@ it stands) after 100 steps, and its kernels: the line kernel and the
 one-pass
 ``ds_pass`` where the checkout has them, else the two in-place
 ``e_update``/``h_update`` launches of the earlier design with the
-step's record terms. With ``--fused SIZES`` it also times the
+step's record terms; a size with the suffix ``_k`` (``256_k``) adds
+the K sphere of ``chip_smoke.k_sphere_flags`` (magnetic Drude K, km/bm
+grids), and ``--only-ds`` times only these. With ``--fused SIZES`` it also times the
 recompute-fused pass (one ``fused_eh`` call: the section kernels where
 the checkout has them, else its single launch), the two-pass
 ``e_family`` and ``h_family`` launches, and the whole fused and
@@ -42,7 +44,7 @@ a directory that ``.gitignore`` lists (``git archive``) and pass it as
 ``PATH``.
 
     python3 scripts/solo_kernel_times.py [PATH] [--lanes 4] [--ds 256,128]
-        [--fused 256,512] [--only-fused] [--packed]
+        [--only-ds] [--fused 256,512] [--only-fused] [--packed]
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ def main() -> int:
                     help="also time the fused pass, the two-pass kernels "
                          "and both ladder steps at 256 and/or 512 (a "
                          "_bf16 suffix: in bf16)")
+    ap.add_argument("--only-ds", action="store_true",
+                    help="with --ds: skip the other kernels' times")
     ap.add_argument("--only-fused", action="store_true",
                     help="with --fused: skip the other kernels' times")
     ap.add_argument("--packed", action="store_true",
@@ -87,6 +91,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     out = {"checkout": args.path,
            "card": torch.cuda.get_device_name(0)}
+    if args.ds and args.only_ds:
+        build.build_many(["packed_ds"])
+        for size in args.ds.split(","):
+            out[f"ds_{size}"] = ds_times(cs, dev, size)
+        print(json.dumps(out), flush=True)
+        return 0
     if args.fused and args.only_fused:
         build.build_many(["family", "fused_eh"])
         for size in args.fused.split(","):
@@ -275,7 +285,9 @@ def ds_times(cs, dev, size):
     from fdtd3d_torch.ops import packed_ds, tfsf
     from fdtd3d_torch.sim import Simulation
     torch.cuda.empty_cache()
-    sim = Simulation(cs.config(cs.PRECISION, ["--same-size", size]),
+    n, _, k = size.partition("_")
+    sim = Simulation(cs.config(cs.PRECISION, cs.k_sphere_flags(int(n))
+                               if k == "k" else ["--same-size", n]),
                      device=dev)
     sim.advance(100)
     carry = sim._carry

@@ -68,14 +68,12 @@ def test_out_of_scope_examples_name_their_roadmap_item(name, item):
     cfg = _cfg(tcli, tcli.read_cmd_file(os.path.join(ROOT, "Examples",
                                                      name)))
     if cfg.dtype == "float32x2" or cfg.compensated:
-        # the unsharded float32x2 and compensated steps are ported, and
-        # compensated on a topology too (A11(a)); what stays out of
-        # scope is float32x2's sharded step (A9's sharded kernel, B4(c))
+        # the float32x2 and compensated steps are ported, on a topology
+        # too (A11(a); float32x2's sharded packed-ds step, B4(c))
         cfg = dataclasses.replace(cfg, parallel=ParallelConfig(
             topology="manual", manual_topology=(2, 1, 1)))
-        if cfg.compensated:
-            assert tsolver.build_static(cfg).topology == (2, 1, 1)
-            return
+        assert tsolver.build_static(cfg).topology == (2, 1, 1)
+        return
     else:
         # the 1D/2D modes and complex fields are ported, complex fields
         # with float32x2 too (A10(b)), as the paired ds legs only: the

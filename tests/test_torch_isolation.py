@@ -215,6 +215,15 @@ def test_out_of_scope_config_raises(kw, item):
         sim = Simulation(SimConfig(**cfg), device="cpu").run(2)
         assert sim.step_kind == "plain_ds" and "K" in sim.state
         return
+    if item == "A9":
+        # ported: float32x2 on a topology runs the sharded packed-ds
+        # step (B4(c)), its plain versions on the CPU (an x PML that
+        # leaves the 8-cell shards room for slab psi)
+        cfg["pml"] = PmlConfig(size=(2, 3, 3))
+        sim = Simulation(SimConfig(**cfg), device="cpu").run(2)
+        assert sim.step_kind == "packed_ds_plain"
+        assert sim.mesh is not None and sim.topology == (2, 1, 1)
+        return
     if kw.get("complex_fields"):
         # complex float32x2 is ported as paired ds legs (A10(b)); its
         # native route, which the reference fails on, raises a

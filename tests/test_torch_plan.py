@@ -2,14 +2,17 @@
 tests/test_plan.py.
 
 * ``plan`` equals, byte for byte, what a run of the port allocates on
-  the CPU on each shard (its carry, its coefficients, and the ghost
-  buffers of the busiest shard after a step), unsharded and sharded, in
-  f32, bf16, compensated mode, with magnetic Drude K, coefficient grids
-  and TFSF, and float32x2 unsharded;
+  the CPU on each shard (its carry, its coefficients, the ghost buffers
+  of the busiest shard and the packed-ds step's spare set after a
+  step), unsharded and sharded, in f32, bf16, compensated mode, with
+  magnetic Drude K, coefficient grids and TFSF, and float32x2 (its pair
+  ghosts on a topology);
 * the halo count per mode, the topology ladder (``degrade_topology``,
   ``fits_devices``, ``shrink_to_devices``) and the topology it plans
   for are the reference's;
-* ``--dry-run`` runs on both CLIs without a device; config #5
+* ``--dry-run`` runs on both CLIs without a device (config #5, and the
+  float32x2 precision example on 4 devices), whatever log level an
+  earlier test in the worker left either package at; config #5
   (``Examples/drude3D_nanoantenna.txt``, 1024^3) on 4 devices fits an
   80 GB card;
 * a configuration ``Simulation`` refuses, ``plan`` refuses the same way.
@@ -76,7 +79,8 @@ def _bytes(tree, seen):
 @pytest.mark.parametrize("case,topo", [
     ("f32_spheres", (1, 1, 1)), ("f32_spheres", (2, 2, 2)),
     ("f32_spheres", (4, 1, 1)), ("bf16", (1, 2, 2)),
-    ("compensated", (2, 1, 2)), ("float32x2", (1, 1, 1))])
+    ("compensated", (2, 1, 2)), ("float32x2", (1, 1, 1)),
+    ("float32x2", (2, 2, 1)), ("float32x2", (4, 1, 2))])
 def test_plan_matches_actual_allocation(case, topo):
     cfg = _cfg(case, topo)
     sim = Simulation(cfg, device="cpu")
@@ -86,9 +90,21 @@ def test_plan_matches_actual_allocation(case, topo):
         32 // t for t in topo)
     shards = sim._carry["shards"] if sim.mesh else [sim._carry]
     coeffs = sim.coeffs if sim.mesh else [sim.coeffs]
-    for ps, cc in zip(shards, coeffs):
+    # the packed-ds step's spare set: a shard's pass buffers and its
+    # device's second line
+    spare = sim._runner.spare
+    if spare is None:
+        spares = [0] * len(shards)
+    elif sim.mesh is not None:
+        spares = [_bytes(sh, set()) + _bytes(spare["inc"], set())
+                  for sh in spare["shards"]]
+    else:
+        spares = [_bytes(spare, set())]
+    assert (p.spare_bytes > 0) == (case == "float32x2")
+    for ps, cc, sp in zip(shards, coeffs, spares):
+        assert sp == p.spare_bytes
         assert _bytes(ps, set()) + _bytes(cc, set()) == \
-            p.hbm_per_chip - p.ghost_bytes
+            p.hbm_per_chip - p.ghost_bytes - p.spare_bytes
     ghosts = 0
     if sim.mesh is not None:
         g = sim._runner.ghosts
@@ -141,7 +157,47 @@ def test_config5_on_four_devices_fits_an_80gb_card():
     assert 3.9 * p.hbm_per_chip < one.hbm_per_chip < 4 * p.hbm_per_chip
 
 
-def test_dry_run_on_both_clis(capsys):
+@pytest.fixture
+def log_level_one():
+    """Both packages' process-global log levels pinned at 1 (the CLIs'
+    ``--dry-run`` prints its plan through it without setting it; an
+    earlier CLI run in the worker with ``--log-level 0`` leaves it
+    silent), restored after."""
+    from fdtd3d_torch import log as tlog
+    from fdtd3d_tpu import log as rlog
+    saved = (tlog._level, rlog.get_level())
+    tlog.set_level(1)
+    rlog.set_level(1)
+    yield
+    tlog.set_level(saved[0])
+    rlog.set_level(saved[1])
+
+
+def _dry_run_topologies(name, capsys, extra=()):
+    """The ``topology (`` lines both CLIs' ``--dry-run --num-devices 4``
+    print for an example, and the port's output."""
+    argv = ["--cmd-from-file", os.path.join(ROOT, "Examples", name),
+            "--dry-run", "--num-devices", "4", *extra]
+    assert rcli.main(argv) == 0
+    ref_out = capsys.readouterr().out
+    assert tcli.main(argv) == 0
+    port_out = capsys.readouterr().out
+    return ([ln for ln in ref_out.splitlines() if "topology (" in ln],
+            [ln for ln in port_out.splitlines() if "topology (" in ln],
+            port_out)
+
+
+def test_dry_run_float32x2_on_a_topology(capsys, log_level_one):
+    """The float32x2 precision example plans on 4 devices on both CLIs
+    (the sharded packed-ds step: pair ghosts, the spare set)."""
+    ref, port, out = _dry_run_topologies("precision3D_float32x2.txt",
+                                         capsys, ("--topology", "auto"))
+    assert port and ref and port[0].split("(")[1] == ref[0].split("(")[1]
+    assert "(1, 1, 1)" not in port[0]
+    assert "ds spare set" in out and "packed_ds" in out
+
+
+def test_dry_run_on_both_clis(capsys, log_level_one):
     argv = ["--cmd-from-file", os.path.join(ROOT, "Examples",
                                             "drude3D_nanoantenna.txt"),
             "--dry-run", "--num-devices", "4"]

@@ -10,6 +10,11 @@ tests/test_reshard.py.
   ``Simulation`` and through the CLI killed and resumed;
 * each package restores the other's sharded npz onto another topology,
   leaf for leaf what the other package restores;
+* a float32x2 snapshot written on (2,2,1) (the sharded packed-ds
+  step, lo words and ``lopsi_*`` in the reference's sharded layout)
+  restores unsharded and on (1,2,2) leaf for leaf as the reference
+  restores it, and the resumed run finishes bit-identical to the
+  uninterrupted one;
 * the metadata records the layout; a forged layout is refused; a
   topology that needs more devices than there are is a named
   SystemExit.
@@ -61,6 +66,52 @@ def _cfg3d(topo=None, steps=16, save_dir=None, every=0) -> SimConfig:
 def _port(topo=None, steps=16):
     return TSim(dataclasses.replace(to_port(_cfg3d(topo, steps)),
                                     use_pallas=True), device="cpu")
+
+
+def _port_ds(topo=None, steps=16):
+    return TSim(dataclasses.replace(to_port(_cfg3d(topo, steps)),
+                                    use_pallas=True, dtype="float32x2"),
+                device="cpu")
+
+
+def _full_psi(sim):
+    """A port sim's state (the reference's form) with psi expanded to
+    the full axis from its topology's layout."""
+    from fdtd3d_torch.solver import slab_axes
+    return tio.reshard_psi_tree(convert.state_to_reference(sim.state),
+                                sim.static.grid_shape, sim.topology,
+                                slab_axes(sim.static), (1, 1, 1), {})
+
+
+def _assert_trees_equal(want, got, what):
+    assert set(want) == set(got), what
+    for k, v in want.items():
+        if isinstance(v, dict):
+            _assert_trees_equal(v, got[k], f"{what}/{k}")
+        else:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
+                                          err_msg=f"{what}/{k}")
+
+
+@pytest.mark.parametrize("dst_topo", [None, (1, 2, 2)])
+def test_float32x2_checkpoint_crosses_topology_bit_exact(tmp_path,
+                                                         dst_topo):
+    ck = str(tmp_path / "ck.npz")
+    a = _port_ds((2, 2, 1))
+    assert a.step_kind == "packed_ds_plain" and a.mesh is not None
+    a.advance(8)
+    a.checkpoint(ck)
+    a.advance(8)
+    b = _port_ds(dst_topo)
+    b.restore(ck)
+    assert b.t == 8
+    ref = RSim(dataclasses.replace(_cfg3d(dst_topo), dtype="float32x2",
+                                   use_pallas=True))
+    ref.restore(ck)
+    _assert_trees_equal(_np_state(ref), convert.state_to_reference(b.state),
+                        f"restored on {dst_topo}")
+    b.advance(8)
+    _assert_trees_equal(_full_psi(a), _full_psi(b), f"on {dst_topo}")
 
 
 def _slab_like(n=24, m=4, other=(6, 5)):

@@ -14,8 +14,8 @@ tests/test_packed_sourced_sharded.py.
   ``per_chip`` vectors against the reference's under its mesh, through
   both packages' telemetry files (1e-6 on maxima, 1e-5 on sums);
 * what the slice does not run refuses, naming its ROADMAP.md item: a
-  shard too thin for slab psi and a source inside the absorber
-  (A11(b)), float32x2 (B4(c)), the ladder below packed (B3(c)), 2D
+  shard too thin for slab psi (float32x2's too) and a source inside
+  the absorber (A11(b)), the ladder below packed (B3(c)), 2D
   modes, float64, the plain step, ``--ntff``, batches and supervised
   runs (A11(b)); complex fields on the paired route raise the
   reference's ValueError.
@@ -198,7 +198,7 @@ def _item(pattern):
     (dict(topo=(4, 1, 1)), "A11(b)/B3(c)"),             # local 6 <= 8
     (dict(topo=(2, 2, 2), point_source=PointSourceConfig(
         enabled=True, component="Ez", position=(2, 9, 7))), "A11(b)"),
-    (dict(topo=(2, 1, 1), dtype="float32x2"), "B4(c)"),
+    (dict(topo=(4, 1, 1), dtype="float32x2"), "A11(b)"),  # thin ds shard
     (dict(topo=(2, 1, 1), dtype="float64"), "A11(b)"),
     (dict(topo=(1, 2, 1), use_pallas=False), "A11(b)"),
     (dict(topo=(2, 2, 1), compensated=True, materials=MaterialsConfig(
