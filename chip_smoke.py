@@ -404,7 +404,30 @@ complex float32x2 as two real ds legs on it:
    precision run's peak memory beside four times ``plan.plan``'s
    per-shard bytes.
 
-``--only 27,...,33`` (any of them) runs these phases alone after the
+34. the sharded two-pass family kernels (the sharded builds of
+   ``csrc/family.cu``: ghost planes, open walls, full-length psi on a
+   thin y/z shard, shard-local records) through the sharded two-pass
+   step, four or two shards on ``cuda:0`` under ``FDTD3D_NO_PACKED``:
+   (a) on seeded fields at 256^3 on (2,2,1), f32 and bf16, the E launch
+   of every shard (after its exchange), the H launch of every shard and
+   one whole sharded step against the plain versions shard by shard,
+   every gate 0.0; (b) vacuum3D_tfsf at 256^3 for 150 steps on (2,2,1)
+   and (1,1,2), f32 and bf16, and the Mie example (512^3) on (2,2,1)
+   for 100 steps, each bit-equal on every leaf (psi on the full axis)
+   to the unsharded two-pass run of the same argv, its sharded launches
+   counted (one of each family a shard a step, no unsharded one) and
+   its peak allocation; (c) vacuum3D_tfsf as it stands (64^3, pml 8)
+   on (1,4,1), the thin-y case (token ``thin_grid_psi``, full-length y
+   psi), from the CLI's configuration through ``Simulation`` (one card
+   takes no four-shard CLI run), against the unsharded two-pass run;
+   (d) same-call CUDA-event times at 256^3 of the sharded step, its two
+   exchanges, shard 0's E and H launch beside their plain versions and
+   bounds (the shard's bytes, grids in their box, the ghost planes'
+   two components read once), the unsharded two-pass step, the section
+   kernels a step under torch.profiler, and the (2,2,1) run's peak
+   beside four times ``plan.plan``'s per-shard bytes.
+
+``--only 27,...,34`` (any of them) runs these phases alone after the
 build and prints their JSON (no kernels or ok line).
 
 The packed and two-pass kernels' bound counts each coefficient grid
@@ -420,8 +443,8 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
 ``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25,
-each CLI run of 26-31 in this process, and each sharded run of 32 and
-33)
+each CLI run of 26-31 in this process, and each sharded run of 32, 33
+and 34)
 resets the counts just before it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1579,11 +1602,13 @@ def reset_launches():
                packed_ds.line_advance, packed_ds.ds_pass, pallas3d.e_family,
                pallas3d.h_family, pallas_fused.fused_eh,
                packed.e_update_sharded, packed.h_update_sharded,
-               packed_ds.ds_pass_sharded, packed_ds.hi_edge_h):
+               packed_ds.ds_pass_sharded, packed_ds.hi_edge_h,
+               pallas3d.e_family_sharded, pallas3d.h_family_sharded):
         fn.launches = 0
     packed_ds.ds_pass.kernels = pallas_fused.fused_eh.kernels = 0
     packed_ds.ds_pass_sharded.kernels = 0
     pallas3d.e_family.kernels = pallas3d.h_family.kernels = 0
+    pallas3d.e_family_sharded.kernels = pallas3d.h_family_sharded.kernels = 0
 
 
 def seeded_dict_state(cfg, dev, seed):
@@ -1917,7 +1942,7 @@ def rel_fields(got, want):
                / scale[c[0]] for c in want)
 
 
-def ladder_bytes(static, coeffs, state, kernel):
+def ladder_bytes(static, coeffs, state, kernel, fp=None):
     """Bytes a launch must move: each field, psi, J and K it reads once,
     each output written once. ``kernel``: e_family or h_family (its
     family's psi of every slab axis, its TFSF records' plane terms, its
@@ -1925,7 +1950,9 @@ def ladder_bytes(static, coeffs, state, kernel):
     background, as the kernels read them: ``grid_cells``) or fused_eh
     (both families, the record terms, every grid whole, though the pass
     reads them only inside that box).
-    E and H at their storage width, everything else f32."""
+    E and H at their storage width, everything else f32. ``fp``: the
+    launch's prepared operands (a shard's), else ``pallas3d.prepare``'s.
+    """
     import numpy as np
     import torch
     from fdtd3d_torch.ops import pallas3d, tfsf
@@ -1935,7 +1962,8 @@ def ladder_bytes(static, coeffs, state, kernel):
     fvol = next(iter(state["E"].values())).element_size() * cells
     fams = {"e_family": "E", "h_family": "H", "fused_eh": "EH"}[kernel]
     n = (6 + 3 * len(fams)) * fvol         # both families read, own written
-    fp = pallas3d.prepare(static, coeffs)
+    if fp is None:
+        fp = pallas3d.prepare(static, coeffs)
     if fp["plan"] is not None:
         if kernel == "fused_eh":
             n += 4 * fp["plan"].total
@@ -5410,9 +5438,10 @@ def sharded(dev):
         got = host_state(run.pop("sim"))
         err, same = state_vs(got, packed_ref, f"{topo} vs unsharded packed",
                              TOL)
-        # the fields: the tb carry's psi stands at another point of its
-        # recursion than the packed step's at a pass's end (the two agree
-        # on E and H at ~2e-7, on psi only to its own size)
+        # the fields: at normal incidence psi holds only the TFSF
+        # boundary's roundoff (its max ~1e-9 of E's), where every route,
+        # the reference's own included, differs by psi's own size; E and
+        # H agree at ~2e-7
         err_tb, _ = state_vs({g: got[g] for g in ("E", "H")},
                              {g: tb_ref[g] for g in ("E", "H")},
                              f"{topo} vs unsharded tb (E, H)", TOL)
@@ -5878,6 +5907,332 @@ def ds_sharded(dev):
         f"peak allocation {main['precision_2x2x1']['peak_mem_bytes']} B")
     return rec
 
+# --------------------------------------------------------------------------
+# phase 34: the sharded two-pass family kernels (the sharded two-pass step)
+# --------------------------------------------------------------------------
+
+FAMILY_SHARDED = ("e_family_sharded", "h_family_sharded")
+
+
+def family_shard_calls(local, step, carry, fps, family, fns):
+    """One family's launch on every shard of a dict-form sharded carry
+    (after its ghost exchange) with ``fns`` = (E function, H function),
+    each shard's outputs put into its dict; the record terms and the
+    drive of the shard's step (``local``: the shard's static setup)."""
+    from fdtd3d_torch.ops import pallas3d, tfsf
+    shards = carry["shards"]
+    gh = step.exchange(shards, -1 if family == "E" else 1)
+    for r, (ps, fp) in enumerate(zip(shards, fps)):
+        terms = None
+        if local.tfsf_setup is not None:
+            inc = tfsf.advance_einc(ps["inc"], fp["coeffs"], ps["t"],
+                                    local.dt, local.omega, local.tfsf_setup)
+            terms = tfsf.record_terms(fp["plan"], inc)
+        key = "psi_" + family
+        psi = {k: ps[key][k] for v in fp[family]["psi"].values()
+               for _, k in v}
+        if family == "E":
+            f, p, j = fns[0](ps["E"], ps["H"], psi, ps.get("J"), fp, terms,
+                             pallas3d.point_drive(local, fp, ps["t"]),
+                             ghost=gh[r])
+            ade = "J"
+        else:
+            f, p, j = fns[1](ps["H"], ps["E"], psi, fp, ps.get("K"), terms,
+                             ghost=gh[r])
+            ade = "K"
+        ps[family] = f
+        ps[key] = dict(ps[key], **p)
+        if j is not None:
+            ps[ade] = j
+
+
+def seed_family_fields(states, dev, seed):
+    """E, H (J, K) of dict-form states (a shard's or an unsharded run's)
+    to seeded random values (0.01 sigma) from one generator on
+    ``dev``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for st in states:
+        for key in ("E", "H", "J", "K"):
+            for v in st.get(key, {}).values():
+                v.copy_((0.01 * torch.randn(v.shape, generator=g,
+                                            device=dev)).to(v))
+
+
+def family_sharded_sim(cfg, devices, seed=None):
+    """A decomposed Simulation on ``devices`` under ``FDTD3D_NO_PACKED``
+    that must run the sharded two-pass step (``pallas3d_cuda``), every
+    shard's E, H (J, K) seeded when ``seed`` is given."""
+    from fdtd3d_torch.sim import Simulation
+    with ladder_env("FDTD3D_NO_PACKED"):
+        sim = Simulation(cfg, devices=devices)
+    if sim.step_kind != "pallas3d_cuda" or sim.mesh is None:
+        fail(f"{cfg.parallel.manual_topology}: ran {sim.step_kind} (mesh "
+             f"{sim.mesh}), not the sharded pallas3d_cuda step")
+    if seed is not None:
+        seed_family_fields(sim._carry["shards"], devices[0], seed)
+    return sim
+
+
+def family_sharded_vs_plain(cfg, devices, seed, label):
+    """Phase 34 (a): on one seeded decomposed carry, the E launch of
+    every shard (after its exchange), the H launch of every shard (after
+    its exchange), then one whole sharded step, each against the plain
+    versions shard by shard; every gate 0.0 (``exact_trees``)."""
+    import torch
+    from fdtd3d_torch.ops import pallas3d
+    from fdtd3d_torch.solver import shard_static
+    sim = family_sharded_sim(cfg, devices, seed)
+    local = shard_static(sim.static, sim.mesh)
+    k_step = pallas3d.make_sharded_pallas_step(sim.static, sim.mesh)
+    p_step = pallas3d.make_sharded_pallas_step(sim.static, sim.mesh,
+                                               plain=True)
+    fps = k_step.prepare(sim.coeffs)
+    kern = (pallas3d.e_family_sharded, pallas3d.h_family_sharded)
+    plain = (pallas3d.e_family_plain, pallas3d.h_family_plain)
+    base = sim._carry
+    errs = {}
+    for fam in ("E", "H"):
+        a, b = clone_tree(base), clone_tree(base)
+        family_shard_calls(local, k_step, a, fps, fam, kern)
+        family_shard_calls(local, p_step, b, fps, fam, plain)
+        torch.cuda.synchronize()
+        errs[fam] = max(exact_trees(ka, kb, f"{label}: one sharded {fam} "
+                                    f"launch, shard {r}")
+                        for r, (ka, kb) in enumerate(zip(a["shards"],
+                                                         b["shards"])))
+    a, b = clone_tree(base), clone_tree(base)
+    a = k_step(a, fps)
+    b = p_step(b, fps)
+    torch.cuda.synchronize()
+    errs["step"] = max(exact_trees(ka, kb, f"{label}: one sharded step, "
+                                   f"shard {r}")
+                       for r, (ka, kb) in enumerate(zip(a["shards"],
+                                                        b["shards"])))
+    plan = fps[0].get("_plan_E")
+    say(f"{label}: sharded two-pass launches match their plain versions "
+        f"shard by shard (max abs err {errs}; shard 0's E items by "
+        f"section {plan[1][1] if plan else None})")
+    del sim, k_step, p_step, fps, base, a, b
+    return errs
+
+
+def family_sharded_run(cfg, devices, steps):
+    """A decomposed two-pass run through Simulation(devices=...): the
+    counts set to 0 just before it is driven and read after, its wall,
+    the peak memory it added (from its construction on), its state."""
+    import torch
+    from fdtd3d_torch.ops import pallas3d
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sim = family_sharded_sim(cfg, devices)
+    reset_launches()
+    pallas3d.e_family_sharded.launches = 0
+    pallas3d.h_family_sharded.launches = 0
+    pallas3d.e_family_sharded.kernels = 0
+    pallas3d.h_family_sharded.kernels = 0
+    t0 = time.time()
+    sim.run(steps)
+    sim.block_until_ready()
+    wall = time.time() - t0
+    launches = {k: getattr(pallas3d, k).launches for k in
+                FAMILY_SHARDED + ("e_family", "h_family")}
+    launches["section_kernels"] = pallas3d.e_family_sharded.kernels \
+        + pallas3d.h_family_sharded.kernels
+    want = steps * sim.mesh.n
+    if (launches["e_family_sharded"], launches["h_family_sharded"],
+            launches["e_family"], launches["h_family"]) != (want, want, 0, 0):
+        fail(f"{cfg.parallel.manual_topology}: launches {launches}, want "
+             f"{want} of each sharded family launch and no unsharded one")
+    return {"sim": sim, "wall_s": wall, "launches": launches,
+            "kernels_per_step": launches["section_kernels"] / steps,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated() - held,
+            "tb_fallback": sim.step_diag["tb_fallback"]["reason"]}
+
+
+def family_unsharded_run(cfg, dev, steps):
+    """The unsharded two-pass run of the same configuration
+    (``FDTD3D_NO_PACKED`` + ``FDTD3D_NO_FUSED``)."""
+    from fdtd3d_torch.sim import Simulation
+    with ladder_env("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"):
+        sim = Simulation(cfg, device=dev)
+    if sim.step_kind != "pallas3d_cuda":
+        fail(f"unsharded two-pass run: ran {sim.step_kind}")
+    sim.run(steps)
+    sim.block_until_ready()
+    return sim
+
+
+def family_sharded_times(dev, reps=20, plain_reps=2):
+    """Phase 34 (d): same-call CUDA-event times at 256^3 (vacuum3D_tfsf,
+    seeded): the sharded two-pass step on (2,2,1) with four shards on
+    the card, its two exchanges, shard 0's E and H launch beside their
+    plain versions and bounds (the shard's bytes with its grids in their
+    box and its ghost planes' two components read once), and the
+    unsharded two-pass step; the launches a step, under the profiler."""
+    import torch
+    from fdtd3d_torch.ops import pallas3d, tfsf
+    from fdtd3d_torch.solver import shard_static
+    cfg = config(EXAMPLE, ["--same-size", "256"] + topo_flag((2, 2, 1)))
+    sim = family_sharded_sim(cfg, [dev] * 4, 341)
+    step = pallas3d.make_sharded_pallas_step(sim.static, sim.mesh)
+    fps = step.prepare(sim.coeffs)
+    carry = sim._carry
+    local = shard_static(sim.static, sim.mesh)
+    out = {"step_ms": timed(lambda: step(carry, fps), reps),
+           "exchange_ms": timed(lambda: (
+               step.exchange(carry["shards"], -1),
+               step.exchange(carry["shards"], 1)), reps)}
+    ps, fp = carry["shards"][0], fps[0]
+    gh, ge = step.ghosts[-1][0], step.ghosts[1][0]
+    inc = tfsf.advance_einc(ps["inc"], fp["coeffs"], ps["t"], local.dt,
+                            local.omega, local.tfsf_setup)
+    terms = tfsf.record_terms(fp["plan"], inc)
+    drive = pallas3d.point_drive(local, fp, ps["t"])
+    pe = {k: ps["psi_E"][k] for v in fp["E"]["psi"].values() for _, k in v}
+    ph = {k: ps["psi_H"][k] for v in fp["H"]["psi"].values() for _, k in v}
+    e_args = (ps["E"], ps["H"], pe, ps.get("J"), fp, terms, drive)
+    h_args = (ps["H"], ps["E"], ph, fp, ps.get("K"), terms)
+    lib = pallas3d._library()
+    for name, args, g in (("e_family", e_args, gh), ("h_family", h_args,
+                                                      ge)):
+        fam = name[0].upper()
+        F, S, psi = args[0], args[1], args[2]
+        J = args[3] if fam == "E" else args[4]
+        first = F[fp[fam]["comps"][0]]
+        prm = pallas3d._params(
+            F, S, psi, J, fp, fam, terms, drive if fam == "E" else None,
+            *pallas3d.launch_geometry(lib, first, fp["shape"][2]),
+            ghost=g)[0]
+        fn = "fdtd_e_family" if fam == "E" else "fdtd_h_family"
+        out[f"{name}_launch_ms"] = timed(
+            lambda: pallas3d.launch(lib, fn, prm, first.device), reps)
+        wrapper = getattr(pallas3d, f"{name}_sharded")
+        out[f"{name}_ms"] = timed(lambda: wrapper(*args, ghost=g), reps)
+        plain = getattr(pallas3d, f"{name}_plain")
+        out[f"{name}_plain_ms"] = timed(lambda: plain(*args, ghost=g),
+                                        plain_reps)
+        nbytes = ladder_bytes(local, fp["coeffs"], ps, name, fp) + sum(
+            2 * v[0].numel() * v.element_size() for v in g.values())
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = bound(
+            nbytes, ladder_ops(local, ps, name))
+        out[f"{name}_bytes"] = nbytes
+    dev_ms = device_ms(lambda: [step(carry, fps) for _ in range(5)],
+                       ("family_section",))
+    out["device"] = {"step_kernels_ms": dev_ms["all_ms"] / 5,
+                     "section_launches_a_step":
+                     dev_ms["family_section"][0] / 5,
+                     "section_ms": dev_ms["family_section"][1]}
+    out["shard_shape"] = list(fp["shape"])
+    del sim, step, fps, carry, ps, fp, e_args, h_args, prm
+    torch.cuda.empty_cache()
+    from fdtd3d_torch.sim import Simulation
+    with ladder_env("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED"):
+        ref = Simulation(config(EXAMPLE, ["--same-size", "256"]), device=dev)
+        ustep = pallas3d.make_pallas_step(ref.static, dev)
+    seed_family_fields([ref._carry], dev, 341)
+    ufp = ustep.prepare(ref.coeffs)
+    ust = ref._carry
+    out["unsharded_step_ms"] = timed(lambda: ustep(ust, ufp), reps)
+    out["step_over_unsharded"] = out["step_ms"] / out["unsharded_step_ms"]
+    say("sharded two-pass times at 256^3 on (2,2,1), four shards on one "
+        "card: " + json.dumps(out))
+    del ref, ustep, ufp, ust
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_sharded(dev):
+    """Phase 34: the sharded two-pass step (B3(c)) on one card, four or
+    two shards on ``cuda:0`` through ``Simulation(cfg, devices=[...])``:
+    (a) each sharded launch and one step against the plain versions,
+    (b) the main paths bit-equal to the unsharded two-pass runs, (c) the
+    thin-y example, (d) times and the plan."""
+    import numpy as np
+    import torch
+    from fdtd3d_torch import plan as plan_mod
+    rec = {"max_abs_err": {}, "main_path": {}}
+    # (a) each sharded launch against its plain version, shard by shard
+    for key, extra in (("f32", []), ("bf16", ["--dtype", "bfloat16"])):
+        rec["max_abs_err"][key] = family_sharded_vs_plain(
+            config(EXAMPLE, ["--same-size", "256"] + extra
+                   + topo_flag((2, 2, 1))), [dev] * 4, 340,
+            f"256^3 (2,2,1) {key}")
+    # (b) the main path at full width against the unsharded runs
+    main = rec["main_path"]
+    for label, path, argv, steps, topos in (
+            ("vacuum 256^3", EXAMPLE, ["--same-size", "256"], 150,
+             ((2, 2, 1), (1, 1, 2))),
+            ("vacuum 256^3 bf16", EXAMPLE,
+             ["--same-size", "256", "--dtype", "bfloat16"], 150,
+             ((2, 2, 1), (1, 1, 2))),
+            ("Mie 512^3", MIE, [], 100, ((2, 2, 1),))):
+        one = family_unsharded_run(
+            config(path, argv + ["--topology", "none"]), dev, steps)
+        want = host_state(one)
+        del one
+        for topo in topos:
+            run = family_sharded_run(config(path, argv + topo_flag(topo)),
+                                     [dev] * int(np.prod(topo)), steps)
+            got = host_state(run.pop("sim"))
+            err, same = state_vs(got, want, f"{label} {topo} vs the "
+                                 f"unsharded two-pass run", TOL)
+            if not same:
+                fail(f"{label} {topo}: not bit-equal to the unsharded "
+                     f"two-pass run (max abs {err:.3e})")
+            run.update(vs_unsharded_max_abs=err, bit_equal=same)
+            main[f"{label} {'x'.join(map(str, topo))}"] = run
+            say(f"{label} {topo}, {steps} steps: bit-equal to the "
+                f"unsharded two-pass run; launches {run['launches']}; "
+                f"{run['wall_s']:.2f} s; peak {run['peak_mem_bytes']} B; "
+                f"token {run['tb_fallback']}")
+            del got
+        del want
+        torch.cuda.empty_cache()
+    # (c) the example as it stands (64^3, pml 8) on (1,4,1): a local y of
+    # 16 holds no slab psi, so y psi is full-length; the CLI's own
+    # configuration (one card takes no four-shard CLI run, the CLI's
+    # _check_topology_fits), run through Simulation
+    from fdtd3d_torch import cli
+    argv = cli.read_cmd_file(EXAMPLE)
+    steps = cli.args_to_config(cli.build_parser().parse_args(
+        argv)).time_steps
+    cfg141 = cli.args_to_config(cli.build_parser().parse_args(
+        argv + topo_flag((1, 4, 1))))
+    one = host_state(family_unsharded_run(config(EXAMPLE, []), dev, steps))
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(cfg141, devices=[dev] * 4)
+    if sim.step_kind != "pallas3d_cuda" or \
+            sim.step_diag["tb_fallback"]["reason"] != "thin_grid_psi":
+        fail(f"the example on (1,4,1) ran {sim.step_kind} "
+             f"({sim.step_diag}), not pallas3d_cuda with thin_grid_psi")
+    sim.run()
+    sim.block_until_ready()
+    err, same = state_vs(host_state(sim), one, "64^3 (1,4,1) thin y vs the "
+                         "unsharded two-pass run", TOL)
+    rec["thin_141"] = {"steps": steps, "vs_unsharded_max_abs": err,
+                       "bit_equal": same,
+                       "tb_fallback": sim.step_diag["tb_fallback"]["reason"]}
+    say(f"the example as it stands on (1,4,1) (full-length y psi), {steps} "
+        f"steps: vs the unsharded two-pass run max abs {err:.3e} "
+        f"(bit-equal {same})")
+    del sim, one
+    # (d) times, and the (2,2,1) run's peak beside the plan's bytes
+    rec["times"] = family_sharded_times(dev)
+    with ladder_env("FDTD3D_NO_PACKED"):
+        p = plan_mod.plan(config(EXAMPLE, ["--same-size", "256"]
+                                 + topo_flag((2, 2, 1))))
+    peak = main["vacuum 256^3 2x2x1"]["peak_mem_bytes"]
+    rec["plan_221"] = {"per_shard_bytes": p.hbm_per_chip,
+                       "four_shards_bytes": 4 * p.hbm_per_chip,
+                       "spare_bytes": p.spare_bytes,
+                       "max_memory_allocated": peak, "report": p.report()}
+    say("plan of vacuum3D_tfsf 256^3 on (2,2,1) under FDTD3D_NO_PACKED "
+        "(per shard):\n" + p.report() + f"\n  4 shards: "
+        f"{4 * p.hbm_per_chip} B; the run's peak allocation {peak} B")
+    return rec
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -5893,8 +6248,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
-    ap.add_argument("--only", default=None, metavar="27,...,33",
-                    help="run only these of phases 27 to 33 (after the "
+    ap.add_argument("--only", default=None, metavar="27,...,34",
+                    help="run only these of phases 27 to 34 (after the "
                          "build) and print their JSON, without the "
                          "kernels line and the closing ok line")
     args = ap.parse_args()
@@ -5939,8 +6294,8 @@ def main() -> int:
                 say(f"ptxas {lib}: {line.strip()}")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {27, 28, 29, 30, 31, 32, 33}:
-            fail(f"--only takes phases 27 to 33, not {sorted(only)}")
+        if not only <= {27, 28, 29, 30, 31, 32, 33, 34}:
+            fail(f"--only takes phases 27 to 34, not {sorted(only)}")
         result["nvidia_smi"] = card_line()
         for phase, key, fn in ((27, "modes", modes_and_outputs),
                                (28, "far_field",
@@ -5953,7 +6308,9 @@ def main() -> int:
                                 lambda: ds_k_and_complex(dev)),
                                (32, "sharded", lambda: sharded(dev)),
                                (33, "ds_sharded",
-                                lambda: ds_sharded(dev))):
+                                lambda: ds_sharded(dev)),
+                               (34, "family_sharded",
+                                lambda: family_sharded(dev))):
             if phase in only:
                 t1 = time.time()
                 result[key] = fn()
@@ -6537,6 +6894,9 @@ def main() -> int:
     # ---- phase 33: float32x2 on a decomposed grid, the sharded ds step ---
     result["ds_sharded"] = dsh = ds_sharded(dev)
     mark("phase 33")
+    # ---- phase 34: the sharded two-pass family kernels ------------------
+    result["family_sharded"] = fsh = family_sharded(dev)
+    mark("phase 34")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
@@ -6802,6 +7162,18 @@ def main() -> int:
             "ms": dt33[f"{ms_key}_ms"], "plain_ms": dt33[f"{ms_key}_plain_ms"],
             "bound_ms": dt33[f"{ms_key}_bound_ms"],
             "bound_by": dt33[f"{ms_key}_bound_by"], "library_ms": None})
+    ft = fsh["times"]
+    for key in ("e_family", "h_family"):
+        kernels.append({
+            "name": f"family.{key}[sharded]", "route": "cuda",
+            "source": fam_src, "replaces": "fdtd3d_tpu/ops/pallas3d.py:293",
+            "launches": fsh["main_path"]["vacuum 256^3 2x2x1"]["launches"][
+                f"{key}_sharded"],
+            "max_abs_err": max(v[key[0].upper()] for v in
+                               fsh["max_abs_err"].values()),
+            "ms": ft[f"{key}_launch_ms"], "plain_ms": ft[f"{key}_plain_ms"],
+            "bound_ms": ft[f"{key}_bound_ms"],
+            "bound_by": ft[f"{key}_bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

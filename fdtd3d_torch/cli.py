@@ -7,8 +7,10 @@ the same ``SimConfig``; the port adds ``--device`` (cuda by default,
 ``--device cpu`` to run on the CPU). ``main`` runs every scheme mode
 (1D, 2D, 3D), and 3D on a decomposed topology (``--topology auto``
 over the visible cards or ``--num-devices``, ``--manual-topology
-PXxPYxPZ``: the sharded packed step, or in float32x2 the sharded
-packed-ds step, in one process, one shard a visible card, or on the CPU up to ``parallel.mesh.CPU_SHARDS`` shards;
+PXxPYxPZ``: the sharded packed step, where the reference's dispatch
+takes its two-pass kernels the sharded two-pass step, in float32x2 the
+sharded packed-ds step, in one process, one shard a visible card, or on
+the CPU up to ``parallel.mesh.CPU_SHARDS`` shards;
 ``_check_topology_fits`` refuses more shards than that), ``--dry-run`` (the per-device plan of
 ``fdtd3d_torch/plan.py``, no device touched): the run in chunks,
 ``--norms-every`` lines, dumps every ``--save-res`` steps in the

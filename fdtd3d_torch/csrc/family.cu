@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas3d.py::make_family_kernel (builder :167, kernel
 // body :293, pallas_call :507) for 3D real float32 and bf16 storage,
-// unsharded, together with what the reference's step
+// unsharded and on a shard of a decomposed grid (its ghost blocks :446,
+// gather_ghosts :559, full-length psi :242/:253), together with what
+// the reference's step
 // (make_pallas_step :1068) patches onto each launch's output: the x
 // slab CPML post-pass (x_slab_post :852), the TFSF face patches
 // (tfsf_patch :961) and the point source (point_source_patch :1012).
@@ -145,6 +147,33 @@
 // launch of the sections). Timing-only builds are source patches of
 // scripts/family_variants.py, not knobs of this file.
 //
+// Shards (the sharded builds, template SHARD; the reference's
+// ppermuted ghost operands, pallas3d.py:559): a shard of a decomposed
+// run gets, per axis where a neighbour shard lies beyond the edge its
+// differences reach, that neighbour's boundary plane (Params.ghost, a
+// (3, plane) copy made between the launches by ops/stencil.py): E reads
+// the lower neighbour's last plane of H, H the upper neighbour's first
+// plane of the new E. The x ghost is the march's first x neighbour, the
+// y ghost the halo row of the tiles at the shard's edge (E: below row
+// 0, H: above row n2 - 1), the z ghost the cell beside column 0 (E) or
+// n3 - 1 (H), loaded like the halo, plane by plane (csrc/packed_eh.cu's
+// scheme). The PEC walls stand on the global edges only
+// (open_lo/open_hi). A shard whose local extent is too thin for slab psi
+// on y or z (Params.full, the reference's "full" kind, pallas3d.py:159)
+// keeps psi of its whole local length on that axis, with the profile of
+// the same length (the shard's piece of pml_{b,c,ik}{e,h}_{y|z}); every
+// cell of it is on a slab plane of that axis, so every item is a SLAB
+// item. Outside the absorber that profile is identity (b = c = 0,
+// 1/kappa = 1), so psi stays 0 there and the curl term keeps its value
+// (its sign of zero aside). The sharded code is compiled into its own
+// instances only (taken when a launch has a ghost, an open side or a
+// full axis): the unsharded launches keep their code, registers and
+// speed (a ghost branch in the one build cost the packed twin's bf16
+// h_update 23%, PERF.md section 6). TFSF records and the point source
+// come to a shard with shard-local planes and cells
+// (ops/pallas3d.py::shard_operands), so the record code is the
+// unsharded one.
+//
 // Offsets are 64-bit across planes. Every entry returns
 // cudaGetLastError() (or the first error) so the caller can raise on a
 // refused launch.
@@ -197,6 +226,17 @@ struct Params {
   float drive;            // ps_amp * waveform(t)
   int pairs;              // the plan's tiles take two z cells a thread
   int n_item[N_SECTIONS];  // items of each section, in launch order
+  // A shard of a decomposed run: per axis a, the neighbour's plane
+  // beyond the edge the launch's differences reach, (3, the grid without
+  // a) of the field type (E: the lower neighbour's last plane of H, H:
+  // the upper neighbour's first plane of E), or nullptr: the PEC zero.
+  // open_lo/open_hi: a shard lies beyond that side of axis a, so the
+  // edge there is no PEC wall. full: axis a (y or z) holds psi of the
+  // whole local length (profiles of n[a] values), not the compact slabs.
+  const void* ghost[3];
+  int open_lo[3];
+  int open_hi[3];
+  int full[3];
 };
 
 // A coefficient's V cells: its grid where the item reads grids, else its
@@ -238,8 +278,10 @@ struct Ring {
 // differences of E (magnetic Drude K), marching downwards. KIND: the
 // section (0 SLAB: the psi path and the sources compiled in; 1 SOURCE:
 // the sources only; 2 PLAIN: neither). T: the fields' storage type; V:
-// z cells a thread.
-template <bool BACKWARD, int KIND, typename T, int V>
+// z cells a thread. SHARD: a shard's ghost planes, open sides and
+// full-length psi compiled in (the unsharded build has none of their
+// code or registers).
+template <bool BACKWARD, int KIND, typename T, int V, bool SHARD>
 __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
                                                      : MIN_BLOCKS)
     family_section(const Params p, int first) {
@@ -270,6 +312,10 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
   const int n1 = p.g.n[0], n2 = p.g.n[1], n3 = p.g.n[2];
   const int64_t pstride = static_cast<int64_t>(n2) * n3;
   const bool ade = p.dr.Jin[0] != nullptr;
+  // a shard's ghost planes (SHARD builds only)
+  const T* const G0 = static_cast<const T*>(p.ghost[0]);  // (3, n2, n3)
+  const T* const G1 = static_cast<const T*>(p.ghost[1]);  // (3, n1, n3)
+  const T* const G2 = static_cast<const T*>(p.ghost[2]);  // (3, n1, n2)
 
   // this thread's cells: row j, columns kk .. kk + V - 1
   const int j = j0 + w;
@@ -277,9 +323,12 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
   const bool own = w < ny && l * V < nz;
   const int at = (BACKWARD ? w + 1 : w) * RW + COL0 + l * V;  // in a slot
   const int oat = w * TZ + l * V;  // in an own ring plane
-  // the halo row (E: below the tile, H: above it) and column word
+  // the halo row (E: below the tile, H: above it) and column word; a
+  // halo row outside the shard comes from the y ghost plane
   const int hj = BACKWARD ? j0 - 1 : j0 + ny;
-  const bool hrow = w == 0 && hj >= 0 && hj < n2 && l * V < nz;
+  const bool hin = hj >= 0 && hj < n2;
+  const bool hrow = SHARD ? w == 0 && (hin || G1) && l * V < nz
+                          : w == 0 && hj >= 0 && hj < n2 && l * V < nz;
   const int hat = (BACKWARD ? 0 : ny) * RW + COL0 + l * V;
   const int hk = BACKWARD ? k0 - V : k0 + TZ;
   const bool hcol = w == TY - 1 && l < ny &&
@@ -288,16 +337,32 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
   const int64_t own_off = static_cast<int64_t>(j) * n3 + kk;
   const int64_t hrow_off = static_cast<int64_t>(hj) * n3 + kk;
   const int64_t hcol_off = static_cast<int64_t>(j0 + l) * n3 + hk;
+  // the z neighbour beyond the shard's edge (E: left of column 0, H:
+  // right of column n3 - 1), one cell a row from the z ghost plane, at
+  // the ring cell the march reads it from
+  const bool zg = SHARD && G2 && w == TY - 1 && l < ny &&
+                  (BACKWARD ? k0 == 0 : k0 + nz == n3);
+  const int zgat = BACKWARD ? (l + 1) * RW + V - 1 : l * RW + nz;
+  const int64_t n12 = static_cast<int64_t>(n1) * n2;
 
-  // facts of the thread's columns, fixed over the march
-  const int qy = SLAB ? slab_plane(j, n2, p.g.m[1]) : -1;
-  const bool y_wall = j == 0 || j == n2 - 1;
+  // facts of the thread's columns, fixed over the march: the psi plane
+  // of each axis (a full axis: the index itself), the PEC walls (on a
+  // shard, the global edges only)
+  const int qy = SLAB ? (SHARD && p.full[1] ? j : slab_plane(j, n2, p.g.m[1]))
+                      : -1;
+  const bool y_wall = SHARD ? (j == 0 && !p.open_lo[1]) ||
+                                  (j == n2 - 1 && !p.open_hi[1])
+                            : j == 0 || j == n2 - 1;
   int qz[V];
   bool z_wall[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    qz[v] = SLAB ? slab_plane(kk + v, n3, p.g.m[2]) : -1;
-    z_wall[v] = kk + v == 0 || kk + v == n3 - 1;
+    qz[v] = SLAB ? (SHARD && p.full[2] ? kk + v
+                                       : slab_plane(kk + v, n3, p.g.m[2]))
+                 : -1;
+    z_wall[v] = SHARD ? (kk + v == 0 && !p.open_lo[2]) ||
+                            (kk + v == n3 - 1 && !p.open_hi[2])
+                      : kk + v == 0 || kk + v == n3 - 1;
   }
 
   // the source family's plane i into ring slot `slot`, and the thread's
@@ -315,7 +380,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
         if (ade) copy_word<V>(jr + os + c * OP, p.dr.Jin[c] + cell);
       }
     }
-    if (hrow) {  // components 0 and 2 have the y terms
+    if (hrow && (!SHARD || hin)) {  // components 0 and 2: the y terms
       copy_word<V>(rs + hat, fld<T>(p.S, 0) + base + hrow_off);
       copy_word<V>(rs + 2 * RP + hat, fld<T>(p.S, 2) + base + hrow_off);
     }
@@ -323,23 +388,40 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
       copy_word<V>(rs + hcat, fld<T>(p.S, 0) + base + hcol_off);
       copy_word<V>(rs + RP + hcat, fld<T>(p.S, 1) + base + hcol_off);
     }
+    if constexpr (SHARD) {
+      if (hrow && !hin) {  // the y ghost plane's row of plane i
+        const T* g = G1 + static_cast<int64_t>(i) * n3 + kk;
+        copy_word<V>(rs + hat, g);
+        copy_word<V>(rs + 2 * RP + hat,
+                     g + 2 * static_cast<int64_t>(n1) * n3);
+      }
+      if (zg) {  // the z ghost plane's cell of row j0 + l, plane i
+        const T* g = G2 + static_cast<int64_t>(i) * n2 + j0 + l;
+        rs[zgat] = g[0];
+        rs[RP + zgat] = g[n12];
+      }
+    }
   };
 
   const int dir = BACKWARD ? 1 : -1;
   const int start = BACKWARD ? x0 : x1 - 1;
   const int count = x1 - x0;
   // the x neighbours of the first plane (E: H(x0 - 1), H: E(x1)) of
-  // components 1 and 2, the two with an x term; the PEC ghost outside
+  // components 1 and 2, the two with an x term; outside the shard the x
+  // ghost plane, or the PEC zero
   float xn[2][V];
   {
     const int xi = start - dir;
     const bool in = own && xi >= 0 && xi < n1;
+    const bool ghost = SHARD && own && !in && G0;  // the x ghost plane
 #pragma unroll
     for (int d = 0; d < 2; ++d) {
       if (in) {
         ldv<V>(fld<T>(p.S, d + 1) + static_cast<int64_t>(xi) * pstride +
                    own_off,
                xn[d]);
+      } else if (ghost) {
+        ldv<V>(G0 + (d + 1) * pstride + own_off, xn[d]);
       } else {
 #pragma unroll
         for (int v = 0; v < V; ++v) xn[d][v] = 0.f;
@@ -347,6 +429,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
     }
   }
   // every source ring cell a load does not fill stays 0: the PEC ghosts
+  // (a shard's ghost planes are loaded like the halo, plane by plane)
   for (int t = threadIdx.x; t < Rg::S_BYTES / 4; t += NT) {
     reinterpret_cast<unsigned*>(smem)[t] = 0u;
   }
@@ -381,7 +464,9 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
     for (int d = 0; d < 3; ++d) ldv<V>(rs + d * RP, here[d]);
     const int64_t cell0 = static_cast<int64_t>(i) * pstride + own_off;
     const int qx = SLAB ? slab_plane(i, n1, p.g.m[0]) : -1;
-    const bool x_wall = i == 0 || i == n1 - 1;
+    const bool x_wall = SHARD ? (i == 0 && !p.open_lo[0]) ||
+                                    (i == n1 - 1 && !p.open_hi[0])
+                              : i == 0 || i == n1 - 1;
     const unsigned pbits = SRC ? plane_bits(tab, i) : 0u;
     const bool pplane = SRC && BACKWARD && i == p.pi;
 
@@ -438,7 +523,8 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
           float term;
           if (SLAB && p.f.psi_in[c][t] != nullptr) {
             const int q = a == 0 ? qx : (a == 1 ? qy : qz[v]);
-            const int m2 = 2 * p.g.m[a];
+            // psi planes along the axis: 2m, or a full axis's length
+            const int m2 = SHARD && p.full[a] ? p.g.n[a] : 2 * p.g.m[a];
             term = curl_term(t, dfa[t][v], q, p.f.prof[a], m2,
                              p.f.psi_in[c][t], p.f.psi_out[c][t],
                              q >= 0 ? slab_offset(a, q, i, j, k, n2, n3, m2)
@@ -481,36 +567,41 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? F32_BLOCKS
 
 typedef void (*Kernel)(const Params, int);
 
-// The builds: [family][storage][cells a thread][section]. Storage 0
-// float32, 1 bf16; cells a thread 0: one, 1: two (the float32 build's
-// two-cell entry is its one-cell kernel unless F32_PAIRS); sections
-// SLAB, SOURCE, PLAIN (each the SLAB kernel when SECTIONS is 0).
+// The builds: [sharded][family][storage][cells a thread][section].
+// Sharded 0: the unsharded kernels, 1: with ghost planes, open sides and
+// full-length psi; storage 0 float32, 1 bf16; cells a thread 0: one, 1:
+// two (the float32 build's two-cell entry is its one-cell kernel unless
+// F32_PAIRS); sections SLAB, SOURCE, PLAIN (each the SLAB kernel when
+// SECTIONS is 0).
 #if SECTIONS
-#define SECTION_KERNELS(B, T, V)                                   \
+#define SECTION_KERNELS(B, T, V, S)                                \
   {                                                                \
-    family_section<B, 0, T, V>, family_section<B, 1, T, V>,        \
-        family_section<B, 2, T, V>                                 \
+    family_section<B, 0, T, V, S>, family_section<B, 1, T, V, S>,  \
+        family_section<B, 2, T, V, S>                              \
   }
 #else
-#define SECTION_KERNELS(B, T, V)                                   \
+#define SECTION_KERNELS(B, T, V, S)                                \
   {                                                                \
-    family_section<B, 0, T, V>, family_section<B, 0, T, V>,        \
-        family_section<B, 0, T, V>                                 \
+    family_section<B, 0, T, V, S>, family_section<B, 0, T, V, S>,  \
+        family_section<B, 0, T, V, S>                              \
   }
 #endif
 #define F32_EVEN_V (F32_PAIRS ? 2 : 1)
-#define FAMILY_KERNELS(B)                                               \
-  {                                                                     \
-    {SECTION_KERNELS(B, float, 1), SECTION_KERNELS(B, float, F32_EVEN_V)}, \
-        {SECTION_KERNELS(B, bf16_t, 1), SECTION_KERNELS(B, bf16_t, 2)}  \
+#define FAMILY_KERNELS(B, S)                                             \
+  {                                                                      \
+    {SECTION_KERNELS(B, float, 1, S),                                    \
+     SECTION_KERNELS(B, float, F32_EVEN_V, S)},                          \
+        {SECTION_KERNELS(B, bf16_t, 1, S), SECTION_KERNELS(B, bf16_t, 2, S)} \
   }
-static const Kernel kKernels[2][2][2][N_SECTIONS] = {FAMILY_KERNELS(true),
-                                                     FAMILY_KERNELS(false)};
-#define N_KERNELS (2 * 2 * 2 * N_SECTIONS)
+static const Kernel kKernels[2][2][2][2][N_SECTIONS] = {
+    {FAMILY_KERNELS(true, false), FAMILY_KERNELS(false, false)},
+    {FAMILY_KERNELS(true, true), FAMILY_KERNELS(false, true)}};
+#define N_KERNELS (2 * 2 * 2 * 2 * N_SECTIONS)
 
 static const Kernel& kernel_at(int q) {
-  return kKernels[q / (4 * N_SECTIONS)][(q / (2 * N_SECTIONS)) % 2]
-                 [(q / N_SECTIONS) % 2][q % N_SECTIONS];
+  return kKernels[q / (8 * N_SECTIONS)][(q / (4 * N_SECTIONS)) % 2]
+                 [(q / (2 * N_SECTIONS)) % 2][(q / N_SECTIONS) % 2]
+                 [q % N_SECTIONS];
 }
 
 // Whether a launch takes two z cells a thread: rows of an even n3 are
@@ -581,6 +672,14 @@ static int launch(const Params* p, void* stream, bool backward) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int bf16 = p->g.bf16 ? 1 : 0;
+  bool shard = false;  // the sharded build: a ghost, an open side, a full axis
+  for (int a = 0; a < 3; ++a) {
+    shard = shard || p->ghost[a] || p->open_lo[a] || p->open_hi[a] ||
+            p->full[a];
+  }
+  if (p->full[0]) {  // a thin x axis stays on the plain step
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int first = 0;
   bool launched = false;
@@ -604,7 +703,8 @@ static int launch(const Params* p, void* stream, bool backward) {
       attr.val.programmaticStreamSerializationAllowed = 1;
       cfg.attrs = &attr;
       cfg.numAttrs = OVERLAP && launched ? 1 : 0;
-      const Kernel k = kKernels[backward ? 0 : 1][bf16][pairs ? 1 : 0][q];
+      const Kernel k =
+          kKernels[shard ? 1 : 0][backward ? 0 : 1][bf16][pairs ? 1 : 0][q];
       cudaError_t err =
           cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(k), args);
       if (err == cudaSuccess) err = cudaGetLastError();
@@ -631,8 +731,8 @@ int fdtd_family_tile(int bf16, int n3, int* out) {
   return 0;
 }
 
-// Per kernel of kKernels in its order (family, storage, cells a thread,
-// section), four ints: registers a thread, local (spill) bytes a thread,
+// Per kernel of kKernels in its order (sharded, family, storage, cells a
+// thread, section), four ints: registers a thread, local (spill) bytes a thread,
 // resident blocks an SM (without J or K), static shared bytes.
 int fdtd_family_occupancy(int* out) {
   cudaError_t err = set_attributes();

@@ -103,8 +103,9 @@ import torch
 
 from fdtd3d_torch.layout import component_axis
 from fdtd3d_torch.ops import build, patches, tfsf
-from fdtd3d_torch.ops.stencil import (diff_ghost, exchange_stack,
-                                      ghost_buffers, make_diff_ops)
+from fdtd3d_torch.ops.stencil import (diff_ghost, exchange_components,
+                                      exchange_stack, ghost_buffers,
+                                      make_diff_ops)
 from fdtd3d_torch.solver import _bcast1d, _slab_fix, slab_axes
 
 AXES = "xyz"
@@ -949,12 +950,13 @@ def make_packed_step(static, device, plain: bool = False, batch: int = 0):
     thin = sorted(set(static.pml_axes) - set(slab_axes(static)))
     if thin:
         # unsharded, slab storage fits whenever the PML leaves an
-        # interior; only a shard's local extent can be too thin
-        # (solver.sharded_scope refuses it first)
+        # interior; only a shard's local extent can be too thin (the
+        # dispatch sends a thin y or z shard to the sharded two-pass
+        # step, and solver.sharded_scope refuses a thin x one)
         raise NotImplementedError(
             f"full-length CPML psi on axis {', '.join(AXES[a] for a in thin)}"
             f" (a PML too thick for slab storage) is not in the packed "
-            f"step's scope (ROADMAP.md queue A11(b)/B3(c))")
+            f"step's scope (ROADMAP.md queue A11(b))")
     e_fn, h_fn = (e_update_plain, h_update_plain) if plain \
         else (e_update, h_update)
 
@@ -1106,6 +1108,7 @@ def make_sharded_packed_step(static, mesh, plain: bool = False):
     step.prepare = prepare
     step.pack, step.unpack, step.join = sharded_carry(mesh, local, pack,
                                                       unpack)
+    step.pack_shard = pack
     step.exchange = exchange
     step.ghosts = ghosts
     step.packed = True
@@ -1126,25 +1129,34 @@ def device_groups(mesh) -> Dict[Any, List[int]]:
     return groups
 
 
-def make_exchange(mesh):
+def make_exchange(mesh, names=None):
     """(exchange, ghosts) of a sharded step: ``exchange(shards, side)``
     fills and returns the ghost buffers of one phase from ``shards``
     (carries or spare sets): side -1 the lower neighbours' last planes
     of H (before the E launch or the pass), +1 the upper neighbours'
     first planes of E (before the H launch or the hi-edge launch), as
-    ``stencil.exchange_stack`` copies them; ``ghosts`` side -> the
-    buffers, made once (anew if the stacks' dtype or devices
-    change)."""
+    ``stencil.exchange_stack`` copies them, or for dict-form shards
+    (``names``: family -> its three component names, the two-pass step)
+    ``stencil.exchange_components``; ``ghosts`` side -> the buffers,
+    made once (anew if the fields' dtype or devices change)."""
     ghosts: Dict[int, List[Dict[int, torch.Tensor]]] = {}
 
     def exchange(shards, side: int):
-        src = [s["H" if side < 0 else "E"] for s in shards]
+        fam = "H" if side < 0 else "E"
+        src = [s[fam] for s in shards]
+        first = src if names is None else [f[names[fam][0]] for f in src]
         bufs = ghosts.get(side)
-        if bufs is None or any(
-                g.device != st.device or g.dtype != st.dtype
-                for b, st in zip(bufs, src) for g in b.values()):
-            bufs = ghosts[side] = ghost_buffers(mesh, src, side)
-        exchange_stack(src, bufs, mesh, side)
+        if bufs is None or any(g.device != f.device or g.dtype != f.dtype
+                               for b, f in zip(bufs, first)
+                               for g in b.values()):
+            # a dict-form family stands as a (3, n1, n2, n3) view
+            like = first if names is None else [
+                f.unsqueeze(0).expand(3, *f.shape) for f in first]
+            bufs = ghosts[side] = ghost_buffers(mesh, like, side)
+        if names is None:
+            exchange_stack(src, bufs, mesh, side)
+        else:
+            exchange_components(src, names[fam], bufs, mesh, side)
         return bufs
 
     return exchange, ghosts

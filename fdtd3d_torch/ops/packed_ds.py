@@ -1397,6 +1397,7 @@ def make_sharded_packed_ds_step(static, mesh, plain: bool = False):
     step.prepare = prepare
     step.pack, step.unpack, step.join = packed.sharded_carry(mesh, local,
                                                              pack, unpack)
+    step.pack_shard = pack
     step.exchange = exchange
     step.ghosts = ghosts
     step.spare = {"shards": spare, "inc": spare_inc}

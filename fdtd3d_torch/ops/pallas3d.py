@@ -4,9 +4,10 @@ Replaces the Pallas TPU kernel
 ``fdtd3d_tpu/ops/pallas3d.py::make_family_kernel`` (builder :167, kernel
 body :293, ``pallas_call`` :507), through its step
 ``make_pallas_step`` (:1068), for 3D real float32 and bf16 storage,
-unsharded, with the hand-written CUDA C++ kernel
-``fdtd3d_torch/csrc/family.cu`` (``sm_90a``, built by nvcc at first
-use, bound with ctypes). CUDA C++ rather than Triton: a marching stencil
+unsharded and on a decomposed grid (``make_sharded_pallas_step``, with
+the reference's ``gather_ghosts`` :559), with the hand-written CUDA
+C++ kernel ``fdtd3d_torch/csrc/family.cu`` (``sm_90a``, built by nvcc
+at first use, bound with ctypes). CUDA C++ rather than Triton: a marching stencil
 with shared-memory plane rings fed by cp.async and CPML slab branches,
 like the port's other kernels.
 
@@ -80,9 +81,16 @@ H family, :191): ``h_family`` reads and writes K as ``e_family`` does
 J, ``K' = km K + bm H`` added to the H accumulator after its records
 (J is taken off E's), km/bm scalars or grids.
 
-Out of scope here, and raising ``NotImplementedError`` with the
-ROADMAP.md item (the reference's kernel accepts them): sharded runs
-(A11).
+A decomposed grid (``make_sharded_pallas_step``): every shard holds
+its piece of the dict-form state and of the coefficients; the launches
+take the neighbours' boundary planes (``e_family_sharded``/
+``h_family_sharded``: the sharded builds of csrc/family.cu, with ghost
+planes, PEC walls on the global edges only and, on a y or z axis too
+thin for slab psi, psi of the shard's whole local length: the
+reference's "full" kind, :159/:242/:253), each shard's TFSF records
+with shard-local planes and the point source on its owner shard only
+(``shard_prepare``). A thin x axis stays on the plain step, as the
+reference's does (:1095-1098).
 """
 
 from __future__ import annotations
@@ -98,7 +106,7 @@ from fdtd3d_torch.ops import build, packed, packed_tb, tfsf
 from fdtd3d_torch.ops.packed import _check as check
 from fdtd3d_torch.ops.packed import family_value, field_dtype
 from fdtd3d_torch.ops.sources import waveform
-from fdtd3d_torch.ops.stencil import make_diff_ops
+from fdtd3d_torch.ops.stencil import diff_ghost, make_diff_ops
 from fdtd3d_torch.solver import _slab_fix, slab_axes
 
 AXES = "xyz"
@@ -118,30 +126,24 @@ def eligible(static) -> bool:
     return not (static.cfg.compensated or static.cfg.ds_fields)
 
 
-def check_scope(static, what: str) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for what
-    the reference's kernel covers and this twin does not yet."""
-    def out(feature: str, item: str):
-        raise NotImplementedError(
-            f"{feature} in the {what} is not ported to fdtd3d_torch yet "
-            f"(ROADMAP.md queue {item}); run it with the reference "
-            f"package fdtd3d_tpu")
-    if tuple(static.topology) != (1, 1, 1):
-        out(f"topology {tuple(static.topology)}", "A11")
+def full_axes(static) -> Tuple[int, ...]:
+    """The CPML axes whose local extent is too thin for slab psi: there
+    the kernels keep psi of the whole local length (the reference's
+    "full" kind, ``_classify`` :159)."""
+    return tuple(sorted(set(static.pml_axes) - set(slab_axes(static))))
 
 
 def kernel_psi_terms(static, family: str) -> Dict[str, List[Tuple[int, str]]]:
     """component -> [(term index, psi key)] of the psi the family's
-    kernels update: the terms along every slab-compacted CPML axis, x
-    included."""
-    slabs = slab_axes(static)
+    kernels update: the terms along every CPML axis, x included (slab
+    psi, or full-length psi on a thin y or z axis)."""
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
     out: Dict[str, List[Tuple[int, str]]] = {}
     for c in comps:
         terms = CURL_TERMS[component_axis(c)]
         out[c] = [(t, f"{c}_{AXES[a]}") for t, (a, _d, _s) in enumerate(terms)
-                  if a in slabs]
+                  if a in static.pml_axes]
     return out
 
 
@@ -149,8 +151,11 @@ def family_operands(static, coeffs, family: str) -> Dict[str, Any]:
     """One family's kernel operands from device coefficients: the
     material coefficients per component (host float or grid; the ADE
     current's, Drude J's kj/bj or K's km/bm, under ``kj``/``bj``), the
-    slab CPML profiles (3, 2m) of every slab axis, the in-kernel psi
-    keys, and the wall vectors (used by the plain version)."""
+    slab CPML profiles (3, 2m) of every slab axis (``m``) and the
+    full-length ones (3, n) of a thin axis (``full``: axis -> n), the
+    in-kernel psi keys, the wall vectors (used by the plain version) and
+    the open sides of a shard (``open``: per axis (below, above), none
+    unsharded)."""
     from fdtd3d_torch.ops.packed import ade_keys
     mode = static.mode
     comps = mode.e_components if family == "E" else mode.h_components
@@ -164,8 +169,10 @@ def family_operands(static, coeffs, family: str) -> Dict[str, Any]:
         "a": [coeffs[f"{pa}_{c}"] for c in comps],
         "b": [coeffs[f"{pb}_{c}"] for c in comps],
         "kj": None, "bj": None, "m": slabs, "prof": {},
+        "full": {a: static.grid_shape[a] for a in full_axes(static)},
         "psi": kernel_psi_terms(static, family),
-        "wall": [coeffs[f"wall_{ax}"] for ax in AXES], "comp": None}
+        "wall": [coeffs[f"wall_{ax}"] for ax in AXES], "comp": None,
+        "open": ((False, False),) * 3}
     ade = ade_keys(static, family)
     if ade is not None:
         fc["kj"] = [coeffs[f"{ade[0]}_{c}"] for c in comps]
@@ -174,17 +181,30 @@ def family_operands(static, coeffs, family: str) -> Dict[str, Any]:
         fc["prof"][a] = torch.stack(
             [coeffs[f"pml_slab_{v}{tag}_{AXES[a]}"]
              for v in ("b", "c", "ik")]).contiguous()
+    for a in fc["full"]:
+        fc["prof"][a] = torch.stack(
+            [coeffs[f"pml_{v}{tag}_{AXES[a]}"]
+             for v in ("b", "c", "ik")]).contiguous()
     return fc
 
 
-def prepare(static, coeffs) -> Dict[str, Any]:
+def psi_len(fc, a: int) -> int:
+    """Planes of a family's psi along its own axis a: 2m of a slab axis,
+    the local extent of a full one."""
+    return 2 * fc["m"][a] if a in fc["m"] else fc["full"][a]
+
+
+def prepare(static, coeffs, records=None) -> Dict[str, Any]:
     """Both families' operands (``family_operands``), the record plan and
     tables (``tfsf.build_record_plan`` over the TFSF records of
     ``packed_tb.tfsf_records``: (component index, normal axis, plane,
     offset) per record, in the order the kernels add them), and the
     point source's cell and f32 amplitude: what the two-pass and the
-    recompute-fused steps' kernels take."""
-    records = packed_tb.tfsf_records(static)
+    recompute-fused steps' kernels take. ``records`` (family -> TFSF
+    records) replace the configuration's: a shard's (``shard_prepare``).
+    """
+    if records is None:
+        records = packed_tb.tfsf_records(static)
     plan = tfsf.build_record_plan(static, coeffs, records)
     fp: Dict[str, Any] = {
         "coeffs": coeffs, "shape": tuple(static.grid_shape),
@@ -208,6 +228,26 @@ def prepare(static, coeffs) -> Dict[str, Any]:
     return fp
 
 
+def shard_prepare(static, mesh, r: int, coeffs) -> Dict[str, Any]:
+    """Shard r's operands (``prepare`` on the shard's static setup and
+    device coefficients): its TFSF records with shard-local planes and
+    the global line geometry of its columns, the point source on its
+    owner shard only, at its local cell
+    (``packed_ds.shard_records``), and the shard's open sides."""
+    from fdtd3d_torch.ops.packed_ds import shard_records
+    from fdtd3d_torch.solver import shard_static
+    recs = shard_records(static, mesh, r)
+    tf = {fam: [rec for rec in recs[fam] if rec.corr is not None]
+          for fam in ("E", "H")}
+    fp = prepare(shard_static(static, mesh), coeffs, tf)
+    if fp["point"] is not None:
+        owner, cell = mesh.owner(static.cfg.point_source.position)
+        fp["point"] = (fp["point"][0], tuple(cell)) if owner == r else None
+    for fam in ("E", "H"):
+        fp[fam]["open"] = mesh.open_sides(r)
+    return fp
+
+
 def point_drive(static, fp, t: int) -> Optional[float]:
     """The point source's add at step t, ``ps_amp * waveform(t)`` in f32
     (the temporal-blocked pass's drive), or None without one."""
@@ -223,8 +263,19 @@ def point_drive(static, fp, t: int) -> Optional[float]:
 # plain versions (the kernel's arithmetic in torch; CPU tensors and tests)
 # --------------------------------------------------------------------------
 
+def _full_fix(a, s, dfa, psi, prof):
+    """Full-length CPML psi along axis a (a thin axis): (new psi, the
+    accumulator's correction s ((ik - 1) dfa + psi')), psi' = b psi + c
+    dfa over the whole local axis, the operations ``_slab_fix`` does on
+    each slab plane."""
+    b, cc, ik = (v.reshape([-1 if d == a else 1 for d in range(3)])
+                 for v in prof)
+    new = b * psi + cc * dfa
+    return new, s * ((ik - 1.0) * dfa + new)
+
+
 def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
-                  point=None):
+                  point=None, ghost=None):
     """One family update as the kernels compute it: returns (new fields,
     new in-kernel psi, new ADE current or None), fresh tensors; the
     inputs are not touched. ``J``: the family's ADE current (Drude J on
@@ -233,8 +284,10 @@ def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
     records after the curl, the point source after the Drude current.
     bf16 fields are widened to float32 before any operation; the new
     fields come back in float32, unrounded (the callers round them where
-    the kernel stores them)."""
-    diff = _diff_b if backward else _diff_f
+    the kernel stores them). ``ghost`` (a shard of a decomposed run):
+    axis -> the neighbour's plane (3, plane) beyond the edge the
+    family's differences reach (E: below, H: above), in place of the
+    PEC zero (``stencil.diff_ghost``)."""
     other = "H" if backward else "E"
     S = {k: v.float() for k, v in S.items()}
     new_f, new_psi, new_j = {}, {}, ({} if J is not None else None)
@@ -242,13 +295,18 @@ def _family_plain(F, S, psi, J, fc, backward: bool, records=None,
         psi_of = dict(fc["psi"][c])
         acc = None
         for t, (a, d_axis, s) in enumerate(CURL_TERMS[component_axis(c)]):
-            dfa = diff(S[other + AXES[d_axis]], a) * fc["inv_dx"]
+            g = None if ghost is None else ghost.get(a)
+            f = S[other + AXES[d_axis]]
+            dfa = (diff_ghost(f, a, backward, g[d_axis].float())
+                   if g is not None else
+                   (_diff_b if backward else _diff_f)(f, a)) * fc["inv_dx"]
             term = s * dfa
             if t in psi_of:
                 key = psi_of[t]
-                new_psi[key], fix = _slab_fix(a, s, dfa, psi[key],
-                                              tuple(fc["prof"][a]),
-                                              fc["m"][a])
+                prof = tuple(fc["prof"][a])
+                new_psi[key], fix = (
+                    _slab_fix(a, s, dfa, psi[key], prof, fc["m"][a])
+                    if a in fc["m"] else _full_fix(a, s, dfa, psi[key], prof))
                 term = term + fix
             acc = term if acc is None else acc + term
         if records is not None:
@@ -301,23 +359,26 @@ def stored(new: Dict[str, torch.Tensor], like: Dict[str, torch.Tensor]):
     return {c: v.to(like[c].dtype) for c, v in new.items()}
 
 
-def e_family_plain(E, H, psi, J, fp, terms=None, drive=None):
-    """New E (and psi_E of every slab axis, J) from backward differences
+def e_family_plain(E, H, psi, J, fp, terms=None, drive=None, ghost=None):
+    """New E (and psi_E of every CPML axis, J) from backward differences
     of H with the E records (``terms``: ``tfsf.record_terms``' vector, or
     None) and the point source's ``drive`` (or None): the plain version
-    of ``e_family``."""
+    of ``e_family`` (and, with a shard's H ``ghost`` planes, of
+    ``e_family_sharded``)."""
     rec = None if terms is None else record_adder(fp, "E", terms)
     pt = None if drive is None else point_adder(fp, drive)
     new_e, new_psi, new_j = _family_plain(E, H, psi, J, fp["E"], True, rec,
-                                          pt)
+                                          pt, ghost)
     return stored(new_e, E), new_psi, new_j
 
 
-def h_family_plain(H, E, psi, fp, K=None, terms=None):
+def h_family_plain(H, E, psi, fp, K=None, terms=None, ghost=None):
     """New H (and psi_H, K with magnetic Drude) from forward differences
-    of E with the H records: the plain version of ``h_family``."""
+    of E with the H records: the plain version of ``h_family`` (and,
+    with a shard's E ``ghost`` planes, of ``h_family_sharded``)."""
     rec = None if terms is None else record_adder(fp, "H", terms)
-    new_h, new_psi, new_k = _family_plain(H, E, psi, K, fp["H"], False, rec)
+    new_h, new_psi, new_k = _family_plain(H, E, psi, K, fp["H"], False, rec,
+                                          None, ghost)
     return stored(new_h, H), new_psi, new_k
 
 
@@ -427,9 +488,10 @@ def material(fp, family: str):
 def plan_geometry(fp, family: str):
     """(m per axis, the family's records as (axis, plane), the point
     source's cell for E or None) of a prepared operand set, as
-    ``plan_items`` takes them."""
+    ``plan_items`` takes them; a full-length psi axis counts as a slab
+    of its whole extent, so every item is a SLAB item."""
     fc = fp[family]
-    m = tuple(fc["m"].get(a, 0) for a in range(3))
+    m = tuple(fc["m"].get(a, fc["full"].get(a, 0)) for a in range(3))
     records = tuple((axis, plane) for _, axis, plane, _ in
                     fp[f"rec_{family}"])
     point = None
@@ -485,7 +547,10 @@ class _Params(ctypes.Structure):
                 ("pc", ctypes.c_int), ("pi", ctypes.c_int),
                 ("pj", ctypes.c_int), ("pk", ctypes.c_int),
                 ("drive", ctypes.c_float), ("pairs", ctypes.c_int),
-                ("n_item", ctypes.c_int * len(SECTIONS))]
+                ("n_item", ctypes.c_int * len(SECTIONS)),
+                ("ghost", ctypes.c_void_p * 3),
+                ("open_lo", ctypes.c_int * 3), ("open_hi", ctypes.c_int * 3),
+                ("full", ctypes.c_int * 3)]
 
 
 def bind(name: str, fns, params_cls) -> ctypes.CDLL:
@@ -526,13 +591,6 @@ def coef_struct(v, name: str, shape, device) -> Coef:
     return Coef(None, float(v))
 
 
-def psi_shape(shape, a: int, m: int) -> Tuple[int, ...]:
-    """Shape of a compact slab psi array of axis a."""
-    s = list(shape)
-    s[a] = 2 * m
-    return tuple(s)
-
-
 def fill_family(ops: FamOps, F, psi, fc, device) -> Tuple[Dict, Dict]:
     """Fill one family's operand block: old fields, fresh outputs, the
     in-kernel psi (in and fresh out), profiles and coefficients.
@@ -548,13 +606,16 @@ def fill_family(ops: FamOps, F, psi, fc, device) -> Tuple[Dict, Dict]:
         ops.b[ci] = coef_struct(fc["b"][ci], f"b[{c}]", shape, device)
         for t, key in fc["psi"][c]:
             a = CURL_TERMS[component_axis(c)][t][0]
-            ps = psi_shape(shape, a, fc["m"][a])
+            ps = list(shape)
+            ps[a] = psi_len(fc, a)
+            ps = tuple(ps)
             ops.psi_in[ci][t] = check(psi[key], key, ps, device)
             new_psi[key] = torch.empty(ps, dtype=torch.float32,
                                        device=device)
             ops.psi_out[ci][t] = new_psi[key].data_ptr()
-    for a, m in fc["m"].items():
-        ops.prof[a] = check(fc["prof"][a], f"prof[{a}]", (3, 2 * m), device)
+    for a in fc["prof"]:
+        ops.prof[a] = check(fc["prof"][a], f"prof[{a}]", (3, psi_len(fc, a)),
+                            device)
     return new_f, new_psi
 
 
@@ -641,13 +702,16 @@ def device_plan(fp, family: str, device, tile, sms=132
 
 
 def _params(F, S, psi, J, fp, family: str, terms=None, drive=None,
-            tile=None, sms=132):
+            tile=None, sms=132, ghost=None):
     """The launch's parameter block on the fields' device, with fresh
     outputs: (params, new fields, new psi, new ADE current or None).
     ``tile``: (rows, columns, two cells a thread) of the library's build
     (``default_tile`` when None); ``sms``: the card's SM count, for the
     plan. Items outside the family's grid box take each grid's
-    background value as their scalar."""
+    background value as their scalar. A shard of a decomposed run:
+    ``fp[family]["open"]`` its open sides, ``fp[family]["full"]`` its
+    full-length psi axes, ``ghost`` axis -> the neighbour's plane (3,
+    the grid without the axis) beyond its edge (E: below, H: above)."""
     fc = fp[family]
     device = F[fc["comps"][0]].device
     shape = fc["shape"]
@@ -684,15 +748,23 @@ def _params(F, S, psi, J, fp, family: str, terms=None, drive=None,
             raise ValueError("E family: a point source but no drive")
         prm.pc, (prm.pi, prm.pj, prm.pk) = fp["point"]
         prm.drive = drive
+    for a, (lo, hi) in enumerate(fc["open"]):
+        prm.open_lo[a], prm.open_hi[a] = int(lo), int(hi)
+    for a in fc["full"]:
+        prm.full[a] = 1
+    for a, g in (ghost or {}).items():
+        prm.ghost[a] = check(g, f"ghost[{a}]", packed.ghost_shape(shape, a),
+                             device, fd)
     return prm, new_f, new_psi, new_j
 
 
-def _launch_family(fn: str, F, S, psi, J, fp, family, terms, drive):
+def _launch_family(fn: str, F, S, psi, J, fp, family, terms, drive,
+                   ghost=None):
     lib = _library()
     first = F[fp[family]["comps"][0]]
     prm, new_f, new_psi, new_j = _params(
         F, S, psi, J, fp, family, terms, drive,
-        *launch_geometry(lib, first, fp["shape"][2]))
+        *launch_geometry(lib, first, fp["shape"][2]), ghost=ghost)
     launch(lib, fn, prm, first.device)
     return sum(n > 0 for n in prm.n_item), (new_f, new_psi, new_j)
 
@@ -726,17 +798,49 @@ e_family.launches = h_family.launches = 0
 e_family.kernels = h_family.kernels = 0   # section kernels launched
 
 
+def e_family_sharded(E, H, psi, J, fp, terms=None, drive=None, ghost=None):
+    """One shard's new E (the sharded variant of ``e_family``): the
+    sharded CUDA kernels with the shard's open sides, full-length psi
+    axes and H ``ghost`` planes on CUDA tensors, the plain version on CPU
+    tensors. ``e_family_sharded.launches`` counts calls, ``.kernels``
+    the section kernels."""
+    if not E[fp["E"]["comps"][0]].is_cuda:
+        return e_family_plain(E, H, psi, J, fp, terms, drive, ghost)
+    n, outs = _launch_family("fdtd_e_family", E, H, psi, J, fp, "E", terms,
+                             drive, ghost)
+    e_family_sharded.launches += 1
+    e_family_sharded.kernels += n
+    return outs
+
+
+def h_family_sharded(H, E, psi, fp, K=None, terms=None, ghost=None):
+    """One shard's new H (the sharded variant of ``h_family``), with its
+    E ``ghost`` planes; ``h_family_sharded.launches`` counts calls."""
+    if not H[fp["H"]["comps"][0]].is_cuda:
+        return h_family_plain(H, E, psi, fp, K, terms, ghost)
+    n, outs = _launch_family("fdtd_h_family", H, E, psi, K, fp, "H", terms,
+                             None, ghost)
+    h_family_sharded.launches += 1
+    h_family_sharded.kernels += n
+    return outs
+
+
+e_family_sharded.launches = h_family_sharded.launches = 0
+e_family_sharded.kernels = h_family_sharded.kernels = 0
+
+
 KERNEL_NAMES = tuple(
-    f"{fam}_{store}_{cells}_{sec}" for fam in ("e", "h")
-    for store in ("f32", "bf16") for cells in ("one", "pair")
-    for sec in SECTIONS)
+    f"{fam}_{store}_{cells}_{sec}{shard}" for shard in ("", "_sharded")
+    for fam in ("e", "h") for store in ("f32", "bf16")
+    for cells in ("one", "pair") for sec in SECTIONS)
 
 
 def occupancy() -> Dict[str, Dict[str, int]]:
     """Registers and local (spill) bytes a thread, resident blocks an SM
     and static shared bytes of each kernel of the library, as the CUDA
     runtime reports them for the card, by ``KERNEL_NAMES``: family,
-    storage, one or two z cells a thread, section."""
+    storage, one or two z cells a thread, section, and ``_sharded`` for
+    the sharded builds."""
     lib = _library()
     out = (ctypes.c_int * (4 * len(KERNEL_NAMES)))()
     err = lib.fdtd_family_occupancy(ctypes.addressof(out))
@@ -756,24 +860,19 @@ def make_pallas_step(static, device, plain: bool = False):
     """The two-pass step on dict-form state (not mutated; a new state
     dict is returned), or None when the reference would not take it (not
     ``eligible``, or a CPML x axis too thin for slab psi, where the
-    reference runs its jnp step).
+    reference runs its jnp step). A y or z axis too thin for slab psi
+    keeps psi of its whole length (the sharded builds of the kernel).
 
     On a CUDA ``device`` the two family updates launch the kernels (kind
     ``pallas3d_cuda``); on the CPU they run their plain versions (kind
     ``pallas3d_plain``). ``plain=True`` runs the plain versions on any
     device: the yardstick chip_smoke.py holds the kernels against."""
-    if not eligible(static):
+    if tuple(static.topology) != (1, 1, 1):
+        raise ValueError(
+            f"a static setup on the sharded topology {static.topology} "
+            f"steps through make_sharded_pallas_step (it takes the mesh)")
+    if not eligible(static) or 0 in full_axes(static):
         return None
-    check_scope(static, "two-pass family kernel (ROADMAP B3)")
-    slabs = slab_axes(static)
-    if 0 in static.pml_axes and 0 not in slabs:
-        return None
-    if any(a not in slabs for a in static.pml_axes):
-        # only a sharded local extent can be too thin for slab psi
-        raise NotImplementedError(
-            "full-length CPML psi on y or z (a PML too thick for slab "
-            "storage, which only a sharded topology makes) is not ported "
-            "(ROADMAP.md queue A11)")
     setup = static.tfsf_setup
     e_fn, h_fn = (e_family_plain, h_family_plain) if plain \
         else (e_family, h_family)
@@ -814,4 +913,132 @@ def make_pallas_step(static, device, plain: bool = False):
     step.prepare = lambda coeffs: prepare(static, coeffs)
     on_cuda = torch.device(device).type == "cuda"
     step.kind = "pallas3d_cuda" if on_cuda and not plain else "pallas3d_plain"
+    return step
+
+
+# --------------------------------------------------------------------------
+# the sharded two-pass step (domain decomposition in one process)
+# --------------------------------------------------------------------------
+
+def make_sharded_pallas_step(static, mesh, plain: bool = False):
+    """The two-pass step of a decomposed run: every shard of ``mesh`` (a
+    ``parallel.mesh.ShardMesh``) holds its piece of the dict-form state
+    and of the coefficients on its own device, and a step runs in six
+    phases:
+
+    1. the E-incident line advances once a device (its shards share it)
+       and each shard's record terms are taken from it;
+    2. each shard with a lower neighbour on a sharded axis receives that
+       neighbour's last plane of old H (``stencil.exchange_components``,
+       the ghost); a shard at the global lo edge keeps the PEC zero;
+    3. ``e_family_sharded`` on every shard: the whole new E, with its
+       records and the point source's drive (its owner only) in the
+       kernel, PEC walls on the global edges only;
+    4. the H-incident line advances;
+    5. each shard with an upper neighbour receives that neighbour's
+       first plane of new E;
+    6. ``h_family_sharded`` on every shard.
+
+    Nothing is patched. The reference's step (pallas3d.py:1068-1183)
+    patches the x slab, the TFSF faces and the point source after each
+    kernel, ownership-gated per shard (:961, :1012); here they are in
+    the kernel, as in the unsharded two-pass step, so a cell computes
+    the same operations in the same order as there: an interior shard's
+    slab rows are identity (b = c = 0, 1/kappa = 1), and a thin shard's
+    full-length psi (``full_axes``) is identity outside the absorber, so
+    its curl terms keep their values. A sharded run is the unsharded
+    two-pass run value for value (a zero's sign aside).
+
+    Each shard's new family replaces its old one as soon as its launch
+    returns (the carry's shard dicts are updated in place), so a card
+    holds one family's new set beside the old one at a time, not a
+    second state. ``plain=True`` runs the plain versions on any device
+    (the yardstick of chip_smoke.py). The carry is ``{"shards": [one
+    dict-form state a shard], "t"}`` (``packed.sharded_carry`` with
+    identity pack and unpack): ``pack`` splits a global dict state onto
+    the shards' devices, ``unpack`` gives the shards' dicts (a list) and
+    ``join`` the global dict state (new tensors); ``pack_shard`` is None
+    (the zero carry is the dict form). Kind ``pallas3d_cuda`` on CUDA
+    devices, ``pallas3d_plain`` on the CPU or with ``plain``."""
+    from fdtd3d_torch.solver import shard_static
+    local = shard_static(static, mesh)
+    if not eligible(local) or 0 in full_axes(local):
+        raise ValueError(
+            "the sharded two-pass step takes 3D real float32 or bf16 "
+            "storage, not compensated, with slab psi on a CPML x axis "
+            "(solver.sharded_scope)")
+    types = {d.type for d in mesh.devices}
+    if len(types) != 1:
+        raise ValueError(f"a mesh mixes device types {sorted(types)}")
+    setup = static.tfsf_setup
+    e_fn, h_fn = (e_family_plain, h_family_plain) if plain \
+        else (e_family_sharded, h_family_sharded)
+    mode = static.mode
+    names = {"E": tuple(mode.e_components), "H": tuple(mode.h_components)}
+    groups = packed.device_groups(mesh)
+    exchange, ghosts = packed.make_exchange(mesh, names)
+    psi_names = {fam: [k for v in kernel_psi_terms(local, fam).values()
+                       for _, k in v] for fam in ("E", "H")}
+
+    def prepare(coeffs) -> List[Dict[str, Any]]:
+        """Per-shard operands from the shards' device coefficients (a
+        list, ``mesh.split`` of the global dict moved to each device)."""
+        return [shard_prepare(static, mesh, r, cc)
+                for r, cc in enumerate(coeffs)]
+
+    def advance_line(shards, fps, fn):
+        for rs in groups.values():
+            inc = fn(shards[rs[0]]["inc"], fps[rs[0]]["coeffs"])
+            for r in rs:
+                shards[r]["inc"] = inc
+
+    def step(carry, fps):
+        shards = carry["shards"]
+        t = carry["t"]
+        terms = [None] * len(shards)
+        if setup is not None:
+            advance_line(shards, fps, lambda inc, co: tfsf.advance_einc(
+                inc, co, t, static.dt, static.omega, setup))
+            terms = [tfsf.record_terms(fp["plan"], ps["inc"])
+                     for ps, fp in zip(shards, fps)]
+        gh = exchange(shards, -1)
+        for r, (ps, fp) in enumerate(zip(shards, fps)):
+            new_e, pe, new_j = e_fn(
+                ps["E"], ps["H"], {k: ps["psi_E"][k] for k in psi_names["E"]},
+                ps.get("J"), fp, terms[r], point_drive(local, fp, t),
+                ghost=gh[r])
+            ps["E"] = new_e
+            if pe:
+                ps["psi_E"] = dict(ps["psi_E"], **pe)
+            if new_j is not None:
+                ps["J"] = new_j
+        if setup is not None:
+            advance_line(shards, fps, lambda inc, co: tfsf.advance_hinc(
+                inc, co, setup))
+        ge = exchange(shards, 1)
+        for r, (ps, fp) in enumerate(zip(shards, fps)):
+            new_h, ph, new_k = h_fn(
+                ps["H"], ps["E"], {k: ps["psi_H"][k] for k in psi_names["H"]},
+                fp, ps.get("K"), terms[r], ghost=ge[r])
+            ps["H"] = new_h
+            if ph:
+                ps["psi_H"] = dict(ps["psi_H"], **ph)
+            if new_k is not None:
+                ps["K"] = new_k
+        carry["t"] = t + 1
+        for ps in shards:
+            ps["t"] = t + 1
+        return carry
+
+    step.prepare = prepare
+    step.pack, step.unpack, step.join = packed.sharded_carry(
+        mesh, local, lambda piece, _local: piece, lambda ps, _local: ps)
+    step.pack_shard = None
+    step.exchange = exchange
+    step.ghosts = ghosts
+    step.packed = True
+    step.mesh = mesh
+    step.kind = "pallas3d_cuda" if "cuda" in types and not plain \
+        else "pallas3d_plain"
+    step.diag = {"topology": list(mesh.topology), "shards": mesh.n}
     return step

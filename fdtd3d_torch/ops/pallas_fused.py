@@ -476,7 +476,6 @@ def make_fused_eh_step(static, device, plain: bool = False):
     holds the kernel against."""
     if not eligible(static):
         return None
-    pallas3d.check_scope(static, "recompute-fused kernel (ROADMAP B6)")
     setup = static.tfsf_setup
     fn = fused_eh_plain if plain else fused_eh
     psi_names = {fam: [k for v in pallas3d.kernel_psi_terms(

@@ -4,7 +4,8 @@ Counterpart of ``fdtd3d_tpu/ops/stencil.py``: ``make_diff_ops`` (at the
 domain edge the missing neighbor plane is zero, which is the PEC ghost
 value), ``diff_ghost`` (the same difference with a neighbour shard's
 plane in place of that zero), and ``exchange_stack`` (reference
-``exchange_stack`` :46): the boundary planes a decomposed run's shards
+``exchange_stack`` :46; ``exchange_components`` for the dict-form state
+of the two-pass step): the boundary planes a decomposed run's shards
 send each other between the launches, each into a ghost buffer of the
 receiving shard. A shard at the global edge has no buffer on that side:
 its ghost is the PEC zero.
@@ -120,6 +121,23 @@ def exchange_stack(stacks: Sequence[torch.Tensor],
                 else:
                     for c in comps:
                         copy_plane(buf[base + c], plane[base + c])
+
+
+def exchange_components(fields: Sequence[Dict[str, torch.Tensor]],
+                        names: Sequence[str],
+                        ghosts: Sequence[Dict[int, torch.Tensor]], mesh,
+                        side: int) -> None:
+    """``exchange_stack`` for dict-form shards: ``fields[r]`` maps the
+    family's component ``names[c]`` to shard r's (n1, n2, n3) tensor;
+    the same planes go into the same (3, plane) ghost buffers, one
+    ``copy_plane`` a component."""
+    for r, bufs in enumerate(ghosts):
+        for a, buf in bufs.items():
+            src = fields[mesh.neighbor(r, a, side)]
+            for c in ghost_components(a):
+                f = src[names[c]]
+                copy_plane(buf[c], f.select(a, f.shape[a] - 1 if side < 0
+                                            else 0))
 
 
 def ghost_buffers(mesh, stacks: Sequence[torch.Tensor], side: int

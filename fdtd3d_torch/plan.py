@@ -22,7 +22,11 @@ sharded packed step, without allocating anything:
   neighbour, E's from below and H's from above; float32x2 pairs (6,
   plane), old H from below and new E from above;
 * the packed-ds step's spare set (it writes out of place): a second
-  E, H, psi, J and K, and a second incident line a device.
+  E, H, psi, J and K, and a second incident line a device;
+* the sharded two-pass step's out-of-place family (kind ``pallas3d``,
+  where ``solver.sharded_two_pass_reason`` sends a decomposed run): a
+  new E with its psi and J (or H with its psi and K) lives beside the
+  old one while its launch runs, the larger of the two families.
 
 The work plans and TFSF patch tables the packed step prepares (a few
 kilobytes to megabytes of int32 and float rows) are not counted.
@@ -82,7 +86,8 @@ class Plan:
     coeff_bytes: int           # 3D coefficient grids
     vector_bytes: int          # 1D coefficients (indices, walls, profiles)
     ghost_bytes: int           # the sharded step's ghost buffers
-    spare_bytes: int           # the packed-ds step's out-of-place set
+    spare_bytes: int           # the packed-ds or two-pass step's
+                               # out-of-place set
     halo_bytes_per_step: int   # received + sent a step, busiest shard
     n_chips: int
     halo_by_axis: Dict[str, Dict[str, int]] = dataclasses.field(
@@ -98,6 +103,9 @@ class Plan:
     def report(self) -> str:
         gib = 1 << 30
         mib = 1 << 20
+        two_pass = self.comm_strategy is not None \
+            and self.comm_strategy.step_kind == "pallas3d"
+        spare_label = "new E or H family:" if two_pass else "ds spare set:"
         lines = [
             f"topology {self.topology} ({self.n_chips} device"
             f"{'s' if self.n_chips != 1 else ''}), local grid "
@@ -110,7 +118,7 @@ class Plan:
             f"  material coeffs:     {self.coeff_bytes / gib:8.3f} GiB",
             f"  1D coefficients:     {self.vector_bytes / mib:8.3f} MiB",
             f"  ghost planes:        {self.ghost_bytes / mib:8.3f} MiB",
-            f"  ds spare set:        {self.spare_bytes / gib:8.3f} GiB",
+            f"  {spare_label:<20s} {self.spare_bytes / gib:8.3f} GiB",
             f"  TOTAL per device:    {self.hbm_per_chip / gib:8.3f} GiB",
             f"  halo exchange:       {self.halo_bytes_per_step / mib:8.3f}"
             f" MiB/device/step",
@@ -200,20 +208,24 @@ def plan(cfg, n_devices: int = 1) -> Plan:
     ds = static.cfg.ds_fields
     fields = len(mode.components) * cells * fb * (2 if ds else 1)
     slabs = solver.slab_axes(static)
-    psi = 0
-    for comps in (mode.e_components, mode.h_components):
+    # per family: its fields, psi and ADE current (J on E, K on H)
+    fam_psi = {}
+    for fam, comps in (("E", mode.e_components), ("H", mode.h_components)):
+        fam_psi[fam] = 0
         for c in comps:
             for (a, _d, _s) in CURL_TERMS[component_axis(c)]:
                 if a in static.pml_axes:
                     shape = list(local)
                     if a in slabs:
                         shape[a] = 2 * slabs[a]
-                    psi += int(np.prod(shape)) * ab * (2 if ds else 1)
-    drude = 0
-    if static.use_drude:
-        drude += len(mode.e_components) * cells * ab
-    if static.use_drude_m:
-        drude += len(mode.h_components) * cells * ab
+                    fam_psi[fam] += int(np.prod(shape)) * ab * (2 if ds
+                                                                else 1)
+    psi = fam_psi["E"] + fam_psi["H"]
+    fam_ade = {"E": len(mode.e_components) * cells * ab
+               if static.use_drude else 0,
+               "H": len(mode.h_components) * cells * ab
+               if static.use_drude_m else 0}
+    drude = fam_ade["E"] + fam_ade["H"]
     residual = len(mode.components) * cells * 2 \
         if static.cfg.compensated else 0
     inc = 2 * static.tfsf_setup.n_inc * ab * (2 if ds else 1) \
@@ -223,10 +235,16 @@ def plan(cfg, n_devices: int = 1) -> Plan:
              + len(mode.h_components) * per_h) * cells * rb
     vectors = _vector_bytes(static, local)
     spare = 0
+    kind = "packed_ds" if ds else "packed"
     if ds and static.cfg.use_pallas is not False \
             and solver._ds_kernel_wanted(static):
         # the packed-ds step on the card (use_pallas None or True)
         spare = fields + psi + drude + inc
+    elif max(topo) > 1 and solver.sharded_two_pass_reason(static):
+        kind = "pallas3d"
+        spare = max(len(comps) * cells * fb + fam_psi[fam] + fam_ade[fam]
+                    for fam, comps in (("E", mode.e_components),
+                                       ("H", mode.h_components)))
     words = 2 if ds else 1
     ghost, halo = 0, 0
     by_axis: Dict[str, Dict[str, int]] = {}
@@ -250,7 +268,7 @@ def plan(cfg, n_devices: int = 1) -> Plan:
     strat = None
     if max(topo) > 1:
         strat = CommStrategy(
-            step_kind="packed_ds" if ds else "packed", topology=topo,
+            step_kind=kind, topology=topo,
             shard_axes=tuple(AXES[a] for a in range(3) if topo[a] > 1),
             ghost_depth=1, split="fused", schedule="sync",
             source="fixed",

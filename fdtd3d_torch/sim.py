@@ -222,7 +222,9 @@ class Simulation:
     run holds each shard's state and coefficients on its device
     (``self.mesh``, ``self.coeffs`` a list of per-shard dicts), steps
     through ``ops/packed.py::make_sharded_packed_step`` (float32x2:
-    ``ops/packed_ds.py::make_sharded_packed_ds_step``), and reads and
+    ``ops/packed_ds.py::make_sharded_packed_ds_step``; where the
+    reference takes its two-pass kernels,
+    ``ops/pallas3d.py::make_sharded_pallas_step``), and reads and
     writes the global view: ``field``/``fields``/``sample``/
     ``set_field``, ``state`` (a joined copy), ``checkpoint`` (the
     reference's sharded layout, joined leaf by leaf) and ``restore``/
@@ -314,11 +316,11 @@ class Simulation:
     # -- state representation ---------------------------------------------
 
     def _sharded_zeros(self) -> Dict[str, Any]:
-        """The zero carry of a decomposed run: the packed form, made
-        shard by shard on each shard's device."""
-        from fdtd3d_torch.ops import packed, packed_ds
-        pack = packed_ds.pack if self.static.cfg.ds_fields else packed.pack
-        return {"shards": pmesh.sharded_zeros(self.static, self.mesh, pack),
+        """The zero carry of a decomposed run: the step's form (packed,
+        or the two-pass step's dict form), made shard by shard on each
+        shard's device."""
+        return {"shards": pmesh.sharded_zeros(self.static, self.mesh,
+                                              self._runner.pack_shard),
                 "t": 0}
 
     def _shard_views(self):

@@ -92,15 +92,20 @@ A sharded topology (``StaticSetup.topology``, resolved by
 (compensated where the packed kernel takes it), with the ``tb_fallback``
 token ``SHARDED_TB_FALLBACK``, and 3D float32x2 the sharded packed-ds
 step (``ops/packed_ds.py::make_sharded_packed_ds_step``, token
-``ds_fields``); ``check_scope`` and ``sharded_scope`` refuse the rest,
-naming the item.
+``ds_fields``). Where the reference's dispatch lands a sharded f32/bf16
+run on its two-pass kernels (``FDTD3D_NO_PACKED``/``FDTD3D_FORCE_FUSED``,
+a source inside the absorber, a y or z shard too thin for slab psi:
+``sharded_two_pass_reason``), the sharded two-pass step runs
+(``ops/pallas3d.py::make_sharded_pallas_step``) with the token the
+reference records there; ``check_scope`` and ``sharded_scope`` refuse
+the rest, naming the item.
 
 Scope: every scheme mode, real float32, bfloat16, float32x2 and
 float64, complex float32 and float64, CPML on any axes, TFSF, the point
 source, electric Drude J, magnetic Drude K, compensated float32,
 material coefficient grids, PEC walls, unsharded; the sharded packed
-steps above. Everything else raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+and two-pass steps above. Everything else raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -185,11 +190,11 @@ def _out_of_scope(what: str, item: str):
 def check_scope(cfg: SimConfig, topology=(1, 1, 1)) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for every
     configuration this slice of the port does not run. On a sharded
-    ``topology`` the port runs the sharded packed steps only (3D:
-    float32 or bf16 storage, compensated mode where the packed kernel
-    takes it, and float32x2 on the sharded packed-ds step); what the
-    reference runs sharded otherwise waits for its item."""
-    import os
+    ``topology`` the port runs the sharded packed and two-pass steps
+    only (3D: float32 or bf16 storage, compensated mode where the packed
+    kernel takes it, and float32x2 on the sharded packed-ds step;
+    ``sharded_scope``); what the reference runs sharded otherwise waits
+    for its item."""
     if cfg.output.checkpoint_backend == "orbax":
         _out_of_scope("the orbax checkpoint backend", "A11(b)")
     if max(topology) == 1:
@@ -205,52 +210,95 @@ def check_scope(cfg: SimConfig, topology=(1, 1, 1)) -> None:
         _out_of_scope(f"the far-field transform {where}", "A11(b)")
     if cfg.use_pallas is False:
         _out_of_scope(f"the plain step {where}", "A11(b)")
-    for name in ("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"):
-        if os.environ.get(name):
-            _out_of_scope(f"the kernel ladder below packed ({name}) "
-                          f"{where}", "B3(c), its sharded plain step A11(b)")
 
 
 def sharded_scope(static: "StaticSetup") -> None:
-    """The sharded packed step's scope (the reference's
-    ``pallas_packed.eligible`` under a mesh, pallas_packed.py:219-248):
-    every CPML axis holds slab psi on each shard, the sources sit
-    inside the CPML identity region (``sources_interior``), and the
-    packed kernel takes the configuration. float32x2 takes the sharded
+    """What a sharded topology runs, mirroring the reference's dispatch
+    under a mesh: the sharded packed step (its ``pallas_packed.eligible``,
+    pallas_packed.py:219-248: slab psi on each shard, the sources inside
+    the CPML identity region, ``sources_interior``), and where that
+    declines (``sharded_two_pass_reason``: a y or z shard too thin for
+    slab psi, a source inside the absorber, ``FDTD3D_NO_PACKED`` or
+    ``FDTD3D_FORCE_FUSED``) the sharded two-pass step, whose scope is
+    the reference's ``pallas3d.eligible`` (:86-106, not compensated) with
+    its slab-psi check on x (:1095-1098). float32x2 takes the sharded
     packed-ds step, whose scope is the reference's
     ``pallas_packed_ds.eligible`` under a mesh (:116-130) with its
-    slab-psi check (:199-202): slab psi on each shard, and nothing else
-    (its records carry the sources on any shard). Raise
-    NotImplementedError naming the item of what falls outside: the
-    reference runs it on its jnp step (or its two-pass kernels, or its
-    jnp-ds step), the sharded plain step of A11(b)."""
-    from fdtd3d_torch.ops import packed
+    slab-psi check (:199-202): slab psi on each shard, no
+    ``FDTD3D_NO_PACKED``, and nothing else (its records carry the
+    sources on any shard). Raise NotImplementedError naming the item of
+    what falls outside: the reference runs it on its jnp (or jnp-ds)
+    step, the sharded plain step of A11(b)."""
+    import os
     where = f"on the sharded topology {tuple(static.topology)}"
     thin = sorted(set(static.pml_axes) - set(slab_axes(static)))
-    if thin and static.cfg.ds_fields:
-        _out_of_scope(
-            f"float32x2 on a shard too thin for slab CPML psi on axis "
-            f"{', '.join(AXES[a] for a in thin)} ({where}: the local "
-            f"extent must exceed 2 (pml + 1) planes; the reference runs "
-            f"it on its jnp-ds step, the sharded plain ds step)", "A11(b)")
+    thin_s = ", ".join(AXES[a] for a in thin)
     if static.cfg.ds_fields:
+        if thin:
+            _out_of_scope(
+                f"float32x2 on a shard too thin for slab CPML psi on axis "
+                f"{thin_s} ({where}: the local extent must exceed 2 (pml "
+                f"+ 1) planes; the reference runs it on its jnp-ds step, "
+                f"the sharded plain ds step)", "A11(b)")
+        if os.environ.get("FDTD3D_NO_PACKED"):
+            _out_of_scope(
+                f"float32x2 under FDTD3D_NO_PACKED {where} (the reference "
+                f"runs it on its jnp-ds step, the sharded plain ds step)",
+                "A11(b)")
         return
-    if thin:
+    if 0 in thin:
         _out_of_scope(
-            f"a shard too thin for slab CPML psi on axis "
-            f"{', '.join(AXES[a] for a in thin)} ({where}: the local "
-            f"extent must exceed 2 (pml + 1) planes; the reference runs "
-            f"it on full-length psi)", "A11(b)/B3(c)")
-    if not sources_interior(static):
+            f"a shard too thin for slab CPML psi on axis x ({where}: the "
+            f"local extent must exceed 2 (pml + 1) planes; the reference "
+            f"runs it on its jnp step, the sharded plain step)", "A11(b)")
+    from fdtd3d_torch.ops import packed
+    if static.cfg.compensated and (
+            sharded_two_pass_reason(static) is not None
+            or packed.declines(static)):
+        # the reference's two-pass kernels decline compensated mode
         _out_of_scope(
-            f"a source inside the absorber {where} (the TFSF faces and "
-            f"the point source must sit inside the CPML identity region; "
-            f"the reference runs it on its jnp step)", "A11(b)")
-    if packed.declines(static):
-        _out_of_scope(
-            f"compensated mode with coefficient grids or magnetic Drude "
-            f"K {where} (the packed kernel declines it: the sharded plain "
-            f"step)", "A11(b)")
+            f"compensated mode {where} where the sharded packed kernel "
+            f"declines it (a shard too thin for slab psi, a source inside "
+            f"the absorber, coefficient grids or magnetic Drude K, or the "
+            f"ladder variables; the reference runs it on its jnp step, "
+            f"the sharded plain step)", "A11(b)")
+
+
+def sharded_two_pass_reason(static: "StaticSetup",
+                            allow_multistep: bool = True) -> Optional[str]:
+    """Where the reference's dispatch lands a sharded float32 or bf16
+    run on its two-pass kernels (its ``pallas`` kind), the
+    ``tb_fallback`` token it records there; None where it runs the
+    sharded packed step. The two-pass kernels take the run when the
+    packed kernel declines a source inside the absorber
+    (``sources_interior``, token ``packed_ineligible``), when
+    ``FDTD3D_NO_PACKED`` or ``FDTD3D_FORCE_FUSED`` skips packed (its
+    fused kernel is unsharded only), or when a y or z shard is too thin
+    for slab psi (``thin_grid_psi``); the token is the reference's
+    ``tb_fallback_reason`` for such a run, in its order
+    (fdtd3d_tpu/solver.py:530-570: the tb pass's scope token
+    ``magnetic_drude`` first, then the dispatch context, then
+    ``thin_grid_psi``)."""
+    import os
+    env = {k: bool(os.environ.get(k)) for k in (
+        "FDTD3D_NO_TEMPORAL", "FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED")}
+    src = (static.tfsf_setup is not None
+           or static.cfg.point_source.enabled) \
+        and not sources_interior(static)
+    thin = set(static.pml_axes) != set(slab_axes(static))
+    if not (src or thin or env["FDTD3D_NO_PACKED"]
+            or env["FDTD3D_FORCE_FUSED"]):
+        return None
+    if src:
+        return "packed_ineligible"
+    if static.use_drude_m:
+        return "magnetic_drude"
+    if not allow_multistep:
+        return "single_step_contract"
+    for name in env:
+        if env[name]:
+            return f"env:{name}"
+    return "thin_grid_psi"
 
 
 def sources_interior(static: "StaticSetup") -> bool:
@@ -1203,9 +1251,11 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     step. A sharded ``static`` (``build_static`` checked its scope)
     takes the sharded packed step over ``mesh`` (a
     ``parallel.mesh.ShardMesh``), with the ``tb_fallback`` token
-    ``SHARDED_TB_FALLBACK``; in float32x2 the sharded packed-ds step,
-    with the token the reference's dispatch records for it
-    (``ds_fields``)."""
+    ``SHARDED_TB_FALLBACK``, or where the reference's dispatch runs its
+    two-pass kernels the sharded two-pass step, with the token it
+    records there (``sharded_two_pass_reason``); in float32x2 the
+    sharded packed-ds step, with the token the reference's dispatch
+    records for it (``ds_fields``)."""
     import os
     if max(static.topology) > 1:
         from fdtd3d_torch.ops import packed as packed_mod
@@ -1220,6 +1270,11 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
             return _stamp_tb_fallback(
                 packed_ds.make_sharded_packed_ds_step(static, mesh),
                 tb_fallback_reason(static, True, allow_multistep))
+        reason = sharded_two_pass_reason(static, allow_multistep)
+        if reason is not None:
+            from fdtd3d_torch.ops import pallas3d
+            return _stamp_tb_fallback(
+                pallas3d.make_sharded_pallas_step(static, mesh), reason)
         return _stamp_tb_fallback(
             packed_mod.make_sharded_packed_step(static, mesh),
             SHARDED_TB_FALLBACK)
@@ -1539,4 +1594,6 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     if sharded is not None:
         run_chunk.join = step.join
         run_chunk.ghosts = step.ghosts
+        # the form a zero shard is made in (None: the dict form)
+        run_chunk.pack_shard = step.pack_shard
     return run_chunk

@@ -318,12 +318,15 @@ def _coef(v, grid, bg, cut):
 def _slab_fix(fc, psi, out_psi, key, a, sgn, dfa, i, j0, k0, ny, nz):
     """The CPML slab correction of a curl term along axis a on a tile
     (zero off the slab), the new compact psi written into ``out_psi``
-    where the slab is, in ``solver._slab_delta``'s operations."""
-    shape, m = fc["shape"], fc["m"][a]
+    where the slab is, in ``solver._slab_delta``'s operations; on a full
+    axis (a shard too thin for slab psi) every index is its own psi
+    plane."""
+    shape = fc["shape"]
     js = torch.arange(j0, j0 + ny).reshape(ny, 1).expand(ny, nz)
     ks = torch.arange(k0, k0 + nz).reshape(1, nz).expand(ny, nz)
     along = ([i], range(j0, j0 + ny), range(k0, k0 + nz))[a]
-    q = torch.tensor([_slab_plane(v, shape[a], m) for v in along])
+    q = torch.tensor([v if a in fc["full"] else
+                      _slab_plane(v, shape[a], fc["m"][a]) for v in along])
     q = q.reshape((1, 1) if a == 0 else (ny, 1) if a == 1 else (1, nz))
     q = q.expand(ny, nz)
     mask = q >= 0
@@ -341,14 +344,20 @@ def _slab_fix(fc, psi, out_psi, key, a, sgn, dfa, i, j0, k0, ny, nz):
     return fix
 
 
-def emulate(F, S, psi, J, fp, family, terms, drive, tile, pipe=2, sms=132):
+def emulate(F, S, psi, J, fp, family, terms, drive, tile, pipe=2, sms=132,
+            ghost=None):
     """One family's update as the kernels schedule it: (new fields, new
     psi, new ADE current or None). The plan's items in order, each with
     its section's code only; in each, the planes of its x segment in the
     march's direction, the other family's plane loaded into a ring of
     pipe + 1 slots (the tile, the halo row, the halo column word; ring
     cells never loaded stay 0, the PEC ghosts), the x neighbour from the
-    plane before in the march. Cells no item writes stay NaN."""
+    plane before in the march. Cells no item writes stay NaN. A shard
+    (the sharded builds): ``ghost`` axis -> the neighbour's (3, plane)
+    beyond the edge, loaded where the kernel loads it (the first x
+    neighbour, the halo row of an edge tile, the cell beside an edge
+    column); the PEC walls from the open sides ``fc["open"]``; psi of a
+    full axis (``fc["full"]``) indexed by the cell's own index."""
     fc = fp[family]
     backward = family == "E"
     shape = fc["shape"]
@@ -371,6 +380,14 @@ def emulate(F, S, psi, J, fp, family, terms, drive, tile, pipe=2, sms=132):
     col0 = v_cells if backward else 0
     hcol = 0 if backward else tz
     r0 = 1 if backward else 0
+    ghost = ghost or {}
+    walls = []
+    for a in range(3):
+        w = torch.ones(shape[a])
+        lo, hi = fc["open"][a]
+        w[0] = 1.0 if lo else 0.0
+        w[-1] = 1.0 if hi else 0.0
+        walls.append(w)
     for q, row in enumerate(rows):
         j0, k0, ny, nz, x0, x1, _, grid = (int(v) for v in row)
         sec = int(np.searchsorted(bounds, q, side="right")) - 1
@@ -382,18 +399,27 @@ def emulate(F, S, psi, J, fp, family, terms, drive, tile, pipe=2, sms=132):
         hcol_in = k0 > 0 if backward else (nz == tz and k0 + tz < n3)
         ys, zs = slice(j0, j0 + ny), slice(k0, k0 + nz)
 
+        zg = 2 in ghost and (k0 == 0 if backward else k0 + nz == n3)
+
         def load(i, slot):
             ring[slot, :, r0:r0 + ny, col0:col0 + nz] = s[:, i, ys, zs]
             if 0 <= hj < n2:
                 ring[slot, 0::2, hrow, col0:col0 + nz] = s[0::2, i, hj, zs]
+            elif 1 in ghost:
+                ring[slot, 0::2, hrow, col0:col0 + nz] = \
+                    ghost[1][0::2, i, zs]
             if hcol_in:
                 ring[slot, :2, r0:r0 + ny, hcol:hcol + v_cells] = \
                     s[:2, i, ys, hk:hk + v_cells]
+            if zg:
+                col = col0 - 1 if backward else col0 + nz
+                ring[slot, :2, r0:r0 + ny, col] = ghost[2][:2, i, ys]
 
         d = 1 if backward else -1
         start, count = (x0 if backward else x1 - 1), x1 - x0
         xi = start - d
         xn = s[1:3, xi, ys, zs].float() if 0 <= xi < n1 \
+            else ghost[0][1:3, ys, zs].float() if 0 in ghost \
             else torch.zeros((2, ny, nz))
         for p in range(pipe):
             if p < count:
@@ -408,8 +434,7 @@ def emulate(F, S, psi, J, fp, family, terms, drive, tile, pipe=2, sms=132):
             ynb = rg[:, r0 + dy:r0 + dy + ny, col0:col0 + nz]
             znb = rg[:, r0:r0 + ny, col0 + dy:col0 + dy + nz]
             cut = (slice(i, i + 1), ys, zs)
-            walls = [fc["wall"][0][i:i + 1], fc["wall"][1][ys],
-                     fc["wall"][2][zs]]
+            tile_walls = [walls[0][i:i + 1], walls[1][ys], walls[2][zs]]
             for ci, c in enumerate(fc["comps"]):
                 psi_of = dict(fc["psi"][c])
                 acc = None
@@ -456,7 +481,7 @@ def emulate(F, S, psi, J, fp, family, terms, drive, tile, pipe=2, sms=132):
                     ci, F[c][cut].float(), acc,
                     _coef(fc["a"][ci], grid, background.get(("a", ci)), cut),
                     _coef(fc["b"][ci], grid, background.get(("b", ci)), cut),
-                    walls, backward, drude, hook)
+                    tile_walls, backward, drude, hook)
                 out[c][cut] = val
                 if jn is not None:
                     out_j[c][cut] = jn

@@ -216,8 +216,11 @@ _K = MaterialsConfig(use_drude_m=True, mu_inf=1.5, omega_pm=1e11,
                                    ("FDTD3D_NO_PACKED", "FDTD3D_NO_FUSED")])
 @pytest.mark.parametrize("kw,item", [
     (dict(dtype="float32x2", materials=_K), r"B4\(b\)"),
+    # a y shard of 8 holds no slab psi for pml 3: the sharded two-pass
+    # step (PR 22), as the reference's two-pass kernels take it
     (dict(dtype="bfloat16", materials=_K, parallel=ParallelConfig(
-        topology="manual", manual_topology=(1, 2, 1))), "A11"),
+        topology="manual", manual_topology=(1, 2, 1))), "pallas3d_plain"),
+    # an x shard of 8: the reference's jnp step, the sharded plain step
     (dict(parallel=ParallelConfig(topology="manual",
                                   manual_topology=(2, 1, 1))), "A11"),
 ])
@@ -233,6 +236,11 @@ def test_out_of_scope_configs_raise_naming_their_item(kw, item, names,
         sim = TSim(cfg, device="cpu").run(2)
         assert sim.step_kind == "plain_ds" and "K" in sim.state
         return
+    if item == "pallas3d_plain":
+        sim = TSim(cfg, device="cpu").run(2)
+        assert sim.step_kind == item and "K" in sim._shard_views()[0]
+        assert sim.step_diag["tb_fallback"]["reason"] == "magnetic_drude"
+        return
     with pytest.raises(NotImplementedError, match=item):
         TSim(cfg, device="cpu")
 
@@ -243,18 +251,18 @@ def test_out_of_scope_configs_raise_naming_their_item(kw, item, names,
     (dict(topology=(2, 1, 1)), "A11"),
 ])
 def test_builders_raise_naming_their_item(change, item):
-    """The kernels' own builders refuse what the reference's kernels
-    cover and these twins do not, whoever calls them: a sharded static
-    (with f32 or bf16 storage, with magnetic Drude K or without, which
-    are in their scope) raises in the two-pass builder and is not
-    fused-eligible, as in the reference."""
+    """The unsharded builders refuse a sharded static (with f32 or bf16
+    storage, with magnetic Drude K or without), whoever calls them: the
+    two-pass builder raises and names its sharded builder
+    (``make_sharded_pallas_step``, which takes a mesh), and the static is
+    not fused-eligible, as in the reference."""
     static = build_static(to_port(ref_config("xyz_cpml")))
     change = dict(change)
     if "dtype" in change:
         static = dataclasses.replace(static, cfg=dataclasses.replace(
             static.cfg, dtype=change.pop("dtype")))
     static = dataclasses.replace(static, **change)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="make_sharded_pallas_step"):
         pallas3d.make_pallas_step(static, "cpu")
     if "topology" in change:
         assert pallas_fused.make_fused_eh_step(static, "cpu") is None

@@ -135,11 +135,47 @@ def test_halo_counts_and_ladder_equal_reference():
 
 
 def test_plan_refuses_what_simulation_refuses():
-    cfg = _cfg("f32_spheres", (1, 8, 1))  # a local extent of 4
-    with pytest.raises(NotImplementedError, match=r"A11\(b\)/B3\(c\)"):
+    cfg = _cfg("f32_spheres", (8, 1, 1))  # a local x extent of 4
+    with pytest.raises(NotImplementedError, match=r"A11\(b\)"):
         Simulation(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A11\(b\)/B3\(c\)"):
+    with pytest.raises(NotImplementedError, match=r"A11\(b\)"):
         tplan.plan(cfg)
+
+
+def _family_set(shard, fam):
+    """Bytes of one family's fields, psi and ADE current in a shard's
+    dict-form state: what the two-pass step's launch makes anew."""
+    seen = set()
+    return (_bytes(shard[fam], seen) + _bytes(shard[f"psi_{fam}"], seen)
+            + _bytes(shard.get("J" if fam == "E" else "K", {}), seen))
+
+
+@pytest.mark.parametrize("topo,env", [((1, 8, 1), ()),   # thin y
+                                      ((2, 2, 1), ("FDTD3D_NO_PACKED",))])
+def test_plan_of_the_sharded_two_pass_step(topo, env, monkeypatch):
+    """A thin-y run and a ``FDTD3D_NO_PACKED`` run on (2,2,1): step kind
+    ``pallas3d``, the carry, coefficients and ghosts as allocated, and
+    the out-of-place family (the larger of a new E with its psi and J
+    and a new H with its psi and K) counted as spare."""
+    for k in ("FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"):
+        monkeypatch.delenv(k, raising=False)
+    for k in env:
+        monkeypatch.setenv(k, "1")
+    cfg = _cfg("f32_spheres", topo)
+    sim = Simulation(cfg, device="cpu")
+    assert sim.step_kind == "pallas3d_plain"
+    sim.run(1)
+    p = tplan.plan(cfg)
+    assert p.comm_strategy.step_kind == "pallas3d"
+    assert "new E or H family" in p.report()
+    for r, (sh, cc) in enumerate(zip(sim._carry["shards"], sim.coeffs)):
+        assert p.spare_bytes == max(_family_set(sh, f) for f in "EH")
+        assert _bytes(sh, set()) + _bytes(cc, set()) == \
+            p.hbm_per_chip - p.ghost_bytes - p.spare_bytes
+    g = sim._runner.ghosts
+    assert p.ghost_bytes == max(
+        sum(_bytes(b, set()) for b in (g[-1][r], g[1][r]))
+        for r in range(sim.mesh.n))
 
 
 def test_config5_on_four_devices_fits_an_80gb_card():

@@ -14,11 +14,14 @@ tests/test_packed_sourced_sharded.py.
   ``per_chip`` vectors against the reference's under its mesh, through
   both packages' telemetry files (1e-6 on maxima, 1e-5 on sums);
 * what the slice does not run refuses, naming its ROADMAP.md item: a
-  shard too thin for slab psi (float32x2's too) and a source inside
-  the absorber (A11(b)), the ladder below packed (B3(c)), 2D
+  shard too thin for slab psi on x (float32x2's on any axis), 2D
   modes, float64, the plain step, ``--ntff``, batches and supervised
   runs (A11(b)); complex fields on the paired route raise the
-  reference's ValueError.
+  reference's ValueError. A source inside the absorber and the ladder
+  below packed leave the sharded packed step for the sharded two-pass
+  step (``pallas3d_plain`` here; tests/test_torch_sharded_family.py
+  holds its numbers), as the reference's dispatch leaves its packed
+  kernel for its two-pass kernels.
 """
 
 import dataclasses
@@ -195,9 +198,10 @@ def _item(pattern):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(topo=(4, 1, 1)), "A11(b)/B3(c)"),             # local 6 <= 8
+    (dict(topo=(4, 1, 1)), "A11(b)"),                   # local 6 <= 8
+    # a source inside the absorber: the sharded two-pass step runs it
     (dict(topo=(2, 2, 2), point_source=PointSourceConfig(
-        enabled=True, component="Ez", position=(2, 9, 7))), "A11(b)"),
+        enabled=True, component="Ez", position=(2, 9, 7))), None),
     (dict(topo=(4, 1, 1), dtype="float32x2"), "A11(b)"),  # thin ds shard
     (dict(topo=(2, 1, 1), dtype="float64"), "A11(b)"),
     (dict(topo=(1, 2, 1), use_pallas=False), "A11(b)"),
@@ -209,15 +213,26 @@ def test_out_of_scope_sharded_raises_naming_its_item(kw, item):
     flag = kw.pop("use_pallas", True)
     cfg = dataclasses.replace(to_port(cfg_of("grids_j", topo, **kw)),
                               use_pallas=flag)
+    if item is None:
+        sim = TSim(cfg, device="cpu")
+        assert sim.step_kind == "pallas3d_plain"
+        assert sim.step_diag["tb_fallback"]["reason"] == "packed_ineligible"
+        return
     with pytest.raises(NotImplementedError, match=_item(item)):
         TSim(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["FDTD3D_NO_PACKED", "FDTD3D_FORCE_FUSED"])
 def test_ladder_below_packed_sharded_raises(name, monkeypatch):
+    """The ladder variables on a topology raised until the sharded
+    two-pass step (B3(c)) came: they now run it, as the reference's
+    dispatch does (its fused kernel is unsharded only); the token is
+    the reference's (the K sphere's ``magnetic_drude`` first)."""
     monkeypatch.setenv(name, "1")
-    with pytest.raises(NotImplementedError, match=_item("B3(c)")):
-        TSim(port_cfg(cfg_of("k", (2, 1, 1))), device="cpu")
+    sim = TSim(port_cfg(cfg_of("k", (2, 1, 1))), device="cpu")
+    assert sim.step_kind == "pallas3d_plain"
+    assert sim.step_diag["tb_fallback"]["reason"] == "magnetic_drude"
+    sim.advance(1)
 
 
 def test_2d_mode_ntff_batch_and_supervisor_sharded_raise():
