@@ -427,7 +427,29 @@ complex float32x2 as two real ds legs on it:
    kernels a step under torch.profiler, and the (2,2,1) run's peak
    beside four times ``plan.plan``'s per-shard bytes.
 
-``--only 27,...,34`` (any of them) runs these phases alone after the
+35. the sharded temporal-blocked pass (the sharded builds of
+   ``csrc/packed_tb.cu``: each shard's two generations on its frame,
+   the neighbours' two generation-0 planes of E, H, J and psi read from
+   the ghost buffers), four or two shards on ``cuda:0``: (a) on seeded
+   fields at 256^3 on (2,2,1), f32 and bf16, every shard's pass (after
+   the exchange) and one whole sharded tb step against the plain
+   versions shard by shard, f32 at 2e-6 and bf16 at 3e-2 of the family
+   max; (b) vacuum3D_tfsf at 256^3 for 150 and 151 steps on (2,2,1)
+   and 150 on (1,1,2), bf16 150 on (2,2,1) and 151 on (1,1,2), each
+   against the unsharded tb run of the same argv at those gates (every
+   differing leaf printed), E and H of the f32 (2,2,1) run against the
+   sharded packed run; (c) the Mie example (512^3) on (2,2,1) for 20
+   steps against its unsharded tb run; (d) in every run of (b) and (c)
+   the counts: ``steps // 2`` passes a shard, the packed tail's
+   launches ``steps % 2`` a shard, no unsharded launch; (e) same-call
+   CUDA-event times at 256^3 of the sharded tb step, its exchange, the
+   sharded packed step and the unsharded tb step, shard 0's pass beside
+   its plain version and bound (its bytes and its ghost buffers' reads),
+   the sharded builds' registers and spills, and the (2,2,1) run's peak
+   beside four times ``plan.plan``'s per-shard bytes. Phase 32's runs
+   pin ``FDTD3D_NO_TEMPORAL``: they hold the sharded packed step.
+
+``--only 27,...,35`` (any of them) runs these phases alone after the
 build and prints their JSON (no kernels or ok line).
 
 The packed and two-pass kernels' bound counts each coefficient grid
@@ -443,8 +465,7 @@ Phases 1, 4, 7, 11, 13, 14, 16-18, 20-25's checks and the checks of 9
 outside the main paths' counts; each main path (phases 2, 5, 9's one
 step, 10, each run of 12, 15, 17's CLI runs and 18's, and the CLI and
 ``Simulation`` runs of 20-24, the ``run_batch`` runs of 24-25,
-each CLI run of 26-31 in this process, and each sharded run of 32, 33
-and 34)
+each CLI run of 26-31 in this process, and each sharded run of 32-35)
 resets the counts just before it and reads them just after. The last
 lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1579,6 +1600,21 @@ def ladder_env(*names):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def no_temporal():
+    """``FDTD3D_NO_TEMPORAL`` set for the block (the packed step where the
+    tb pass would run, sharded or not), restored after."""
+    saved = os.environ.get("FDTD3D_NO_TEMPORAL")
+    os.environ["FDTD3D_NO_TEMPORAL"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("FDTD3D_NO_TEMPORAL", None)
+        else:
+            os.environ["FDTD3D_NO_TEMPORAL"] = saved
+
+
 def ladder_launches():
     """The ladder kernels' counts, and the f32 main path's (which a run
     down the ladder must leave at 0)."""
@@ -1603,7 +1639,8 @@ def reset_launches():
                pallas3d.h_family, pallas_fused.fused_eh,
                packed.e_update_sharded, packed.h_update_sharded,
                packed_ds.ds_pass_sharded, packed_ds.hi_edge_h,
-               pallas3d.e_family_sharded, pallas3d.h_family_sharded):
+               pallas3d.e_family_sharded, pallas3d.h_family_sharded,
+               packed_tb.tb_pass_sharded):
         fn.launches = 0
     packed_ds.ds_pass.kernels = pallas_fused.fused_eh.kernels = 0
     packed_ds.ds_pass_sharded.kernels = 0
@@ -5314,7 +5351,10 @@ def sharded_run(argv, devices, steps, path=EXAMPLE):
     cfg = config(path, argv)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()   # the references' states
-    sim = Simulation(cfg, devices=devices)
+    # the sharded packed step, which the sharded tb pass (phase 35) takes
+    # over without FDTD3D_NO_TEMPORAL
+    with no_temporal():
+        sim = Simulation(cfg, devices=devices)
     if sim.step_kind != "packed_cuda" or sim.mesh is None:
         fail(f"{argv}: ran {sim.step_kind} (mesh {sim.mesh}), not the "
              f"sharded packed_cuda step")
@@ -5467,7 +5507,8 @@ def sharded(dev):
         f"{err:.3e} (bit-equal {same})")
     rec["main_path"] = main
     # the plan's bytes for (b) beside what the card held
-    p221 = plan_mod.plan(cfg221)
+    with no_temporal():
+        p221 = plan_mod.plan(cfg221)
     rec["plan_221"] = {"per_shard_bytes": p221.hbm_per_chip,
                        "four_shards_bytes": 4 * p221.hbm_per_chip,
                        "max_memory_allocated": main["2x2x1"]
@@ -6233,6 +6274,366 @@ def family_sharded(dev):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 35: the sharded temporal-blocked pass (the sharded tb step)
+# --------------------------------------------------------------------------
+
+TB_BF16_TOL = 3e-2       # tests/test_pallas_packed_tb.py:161
+
+
+def tb_shard_inputs(step, static, carry, cc):
+    """The host part of one sharded pass on ``carry`` (its line left as
+    it is): per shard (terms, drive), and the filled ghost buffers."""
+    from fdtd3d_torch.ops import packed, packed_tb
+    shards, work = carry["shards"], {}
+    for rs in packed.device_groups(step.mesh).values():
+        _, terms, drives = packed_tb.generation_terms_many(
+            static, [cc[r]["tb"] for r in rs], shards[rs[0]].get("inc"),
+            carry["t"])
+        work.update({r: (t, d) for r, t, d in zip(rs, terms, drives)})
+    return work, step.exchange(shards)
+
+
+def tb_spare(ps):
+    """A spare set of a shard's pass buffers as the sharded step makes
+    it, psi zeroed (the kernel leaves an interior shard's identity slab
+    rows, whose psi is 0, alone), and E, H and J filled with NaN: a cell
+    of the box that a pass leaves unwritten fails the comparison."""
+    from fdtd3d_torch.ops import packed
+    sp = packed.alloc_like(ps)
+    for key in ("E", "H", "J"):
+        if key in sp:
+            sp[key].fill_(float("nan"))
+    for fam in ("psE", "psH"):
+        for v in sp[fam].values():
+            v.zero_()
+    return sp
+
+
+def tb_sharded_vs_plain(cfg, devices, seed, label, tol):
+    """Each shard's ``tb_pass_sharded`` launch against its plain version
+    on the same seeded carry, terms and ghosts, then one whole sharded
+    tb step against the plain step; -> worst errors."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb
+    sim = seeded_sharded_sim(cfg, devices, seed)
+    if sim.step_kind != "packed_tb_cuda":
+        fail(f"{label}: the sharded run takes {sim.step_kind} "
+             f"({sim.step_diag}), not packed_tb_cuda")
+    k_step = packed_tb.make_sharded_packed_tb_step(sim.static, sim.mesh)
+    p_step = packed_tb.make_sharded_packed_tb_step(sim.static, sim.mesh,
+                                                   plain=True)
+    cc = k_step.prepare(sim.coeffs)
+    carry = sim._carry
+    work, gh = tb_shard_inputs(k_step, sim.static, carry, cc)
+    errs = {"pass": 0.0}
+    for r, ps in enumerate(carry["shards"]):
+        terms, drive = work[r]
+        a, b = tb_spare(ps), tb_spare(ps)
+        packed_tb.tb_pass_sharded(ps, a, cc[r]["tb"], terms, drive, gh[r])
+        packed_tb.tb_pass_sharded_plain(ps, b, cc[r]["tb"], terms, drive,
+                                        gh[r])
+        torch.cuda.synchronize()
+        errs["pass"] = max(errs["pass"], compare(
+            a, b, f"{label}: one sharded tb pass, shard {r}", family=True,
+            tol=tol))
+        del a, b
+    a, b = clone_tree(carry), clone_tree(carry)
+    a = k_step(a, cc)
+    b = p_step(b, cc)
+    torch.cuda.synchronize()
+    errs["step"] = max(compare(ka, kb, f"{label}: one sharded tb step, "
+                               f"shard {r}", family=True, tol=tol)
+                       for r, (ka, kb) in enumerate(zip(a["shards"],
+                                                        b["shards"])))
+    say(f"{label}: each sharded tb launch and a step match the plain "
+        f"versions shard by shard (max abs err {errs})")
+    return errs
+
+
+def tb_sharded_run(cfg, devices, steps):
+    """A decomposed run on the sharded tb step through
+    Simulation(devices=...): its kind and token checked, every kernel
+    count set to 0 just before it is driven and read after (the passes
+    ``steps // 2`` a shard, the packed tail's launches ``steps % 2`` a
+    shard, no unsharded launch), its wall and the peak memory it added."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb
+    from fdtd3d_torch.sim import Simulation
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sim = Simulation(cfg, devices=devices)
+    if sim.step_kind != "packed_tb_cuda" or sim.mesh is None \
+            or "tb_fallback" in (sim.step_diag or {}):
+        fail(f"{cfg.parallel.manual_topology}: ran {sim.step_kind} "
+             f"({sim.step_diag}), not the sharded packed_tb_cuda step")
+    reset_launches()
+    t0 = time.time()
+    sim.run(steps)
+    sim.block_until_ready()
+    wall = time.time() - t0
+    launches = {"tb_pass_sharded": packed_tb.tb_pass_sharded.launches,
+                "tb_pass": packed_tb.tb_pass.launches,
+                "e_update_sharded": packed.e_update_sharded.launches,
+                "h_update_sharded": packed.h_update_sharded.launches,
+                "e_update": packed.e_update.launches,
+                "h_update": packed.h_update.launches}
+    n = sim.mesh.n
+    want = {"tb_pass_sharded": steps // 2 * n, "tb_pass": 0,
+            "e_update_sharded": steps % 2 * n,
+            "h_update_sharded": steps % 2 * n, "e_update": 0,
+            "h_update": 0}
+    if launches != want:
+        fail(f"sharded tb launches {launches}, want {want}")
+    return {"sim": sim, "wall_s": wall, "launches": launches,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated() - held}
+
+
+def tb_state_vs(got, want, what, tol, psi_gate=False):
+    """``state_vs`` of a sharded tb run against another run: the fields
+    (E, H, J) gated at ``tol`` of their family max; psi gated there too
+    with ``psi_gate`` (a seeded state, whose psi carries signal), else
+    only its differences printed: at normal incidence psi holds only the
+    TFSF boundary's roundoff, where two builds that contract other
+    products into FMAs differ by psi's own size (phase 32); -> (worst
+    error of the gated leaves, every leaf bit-equal)."""
+    fields = [g for g in ("E", "H", "J") if g in want]
+    err, same = state_vs({g: got[g] for g in fields},
+                         {g: want[g] for g in fields}, what, tol)
+    psi = [g for g in want if g.startswith("psi")]
+    perr, psi_same = state_vs({g: got[g] for g in psi},
+                              {g: want[g] for g in psi}, f"{what} (psi)",
+                              tol if psi_gate else float("inf"))
+    return (max(err, perr) if psi_gate else err), same and psi_same
+
+
+def tb_seeded_vs_unsharded(argv, topo, steps, seed, tol, dev):
+    """A seeded state (E, H at 0.01 randn, every psi slab cell at 0.01
+    randn: psi carries signal) run ``steps`` through the unsharded tb
+    step and, resharded, through the sharded one on ``topo``: every
+    leaf, psi included, gated at ``tol`` of its family max; -> (worst
+    error, bit-equal)."""
+    import numpy as np
+    import torch
+    from fdtd3d_torch.sim import Simulation
+    one = seeded_sim(config(EXAMPLE, argv + ["--topology", "none"]), dev,
+                     seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    for fam in ("psE", "psH"):
+        for v in one._carry[fam].values():
+            v.copy_(0.01 * torch.randn(v.shape, generator=g, device=dev))
+    sim = Simulation(config(EXAMPLE, argv + topo_flag(topo)),
+                     devices=[dev] * int(np.prod(topo)))
+    sim.adopt_state(one.state, src_topology=one.topology)
+    if one.step_kind != "packed_tb_cuda" \
+            or sim.step_kind != "packed_tb_cuda" \
+            or "tb_fallback" in (sim.step_diag or {}):
+        fail(f"seeded runs took {one.step_kind} and {sim.step_kind} "
+             f"({sim.step_diag}), not packed_tb_cuda")
+    for s in (one, sim):
+        s.run(steps)
+        s.block_until_ready()
+    return tb_state_vs(host_state(sim), host_state(one),
+                       f"seeded {topo} {steps} steps vs the unsharded tb "
+                       f"run", tol, psi_gate=True)
+
+
+def tb_unsharded_run(cfg, dev, steps):
+    """The unsharded tb run of the same configuration."""
+    from fdtd3d_torch.sim import Simulation
+    sim = Simulation(cfg, device=dev)
+    if sim.step_kind != "packed_tb_cuda":
+        fail(f"the unsharded run took {sim.step_kind}, not packed_tb_cuda")
+    sim.run(steps)
+    sim.block_until_ready()
+    return sim
+
+
+def tb_sharded_times(dev, reps=20, plain_reps=2):
+    """Same-call CUDA-event times at 256^3 (vacuum3D_tfsf) on (2,2,1),
+    four shards on the card: the sharded tb step (a pass, two steps),
+    its exchange, one shard's pass (beside its plain version and its
+    bound: the shard's bytes and its ghost buffers' reads), the sharded
+    packed step, and the unsharded tb step."""
+    import torch
+    from fdtd3d_torch.ops import packed, packed_tb
+    from fdtd3d_torch.sim import Simulation
+    cfg = config(EXAMPLE, ["--same-size", "256"] + topo_flag((2, 2, 1)))
+    sim = seeded_sharded_sim(cfg, [dev] * 4, 351)
+    step = packed_tb.make_sharded_packed_tb_step(sim.static, sim.mesh)
+    cc = step.prepare(sim.coeffs)
+    carry = sim._carry
+    out = {"tb_step_ms": timed(lambda: step(carry, cc), reps),
+           "exchange_ms": timed(lambda: step.exchange(carry["shards"]),
+                                reps)}
+    work, gh = tb_shard_inputs(step, sim.static, carry, cc)
+    ps, c0 = carry["shards"][0], cc[0]
+    dst = tb_spare(ps)
+    terms, drive = work[0]
+    out["pass_ms"] = timed(lambda: packed_tb.tb_pass_sharded(
+        ps, dst, c0["tb"], terms, drive, gh[0]), reps)
+    out["pass_plain_ms"] = timed(lambda: packed_tb.tb_pass_sharded_plain(
+        ps, dst, c0["tb"], terms, drive, gh[0]), plain_reps)
+    ghost_bytes = sum(b.numel() * b.element_size()
+                      for key, g in gh[0].items()
+                      for pairs in ((g,) if key in ("E", "H", "J")
+                                    else g.values())
+                      for pair in pairs.values() for b in pair
+                      if b is not None)
+    nbytes = tb_bytes(ps, c0) + ghost_bytes
+    out["pass_bytes"] = nbytes
+    out["pass_bound_ms"], out["pass_bound_by"] = bound(nbytes,
+                                                       tb_flops(ps, c0))
+    # device time under torch.profiler: five passes of shard 0, and
+    # three whole steps (the four shards' passes; the exchange's copies
+    # are not kernels)
+    dev_pass = device_ms(lambda: [packed_tb.tb_pass_sharded(
+        ps, dst, c0["tb"], terms, drive, gh[0]) for _ in range(5)],
+        ["tb_section"])
+    out["pass_device_ms"] = dev_pass["all_ms"] / 5
+    out["pass_section_kernels"] = dev_pass["tb_section"][0] // 5
+    out["step_device_ms"] = device_ms(lambda: [step(carry, cc)
+                                               for _ in range(3)],
+                                      [])["all_ms"] / 3
+    pstep = packed.make_sharded_packed_step(sim.static, sim.mesh)
+    pcc = pstep.prepare(sim.coeffs)
+    out["packed_step_ms"] = timed(lambda: pstep(carry, pcc), reps)
+    del sim, step, cc, carry, dst, pstep, pcc, gh, work
+    torch.cuda.empty_cache()
+    one = seeded_sim(config(EXAMPLE, ["--same-size", "256"]), dev, 351)
+    ustep = packed_tb.make_packed_tb_step(one.static, dev)
+    ucc = ustep.prepare(one.coeffs)
+    ucarry = one._carry
+    out["unsharded_tb_step_ms"] = timed(lambda: ustep(ucarry, ucc), reps)
+    out["occupancy_sharded"] = {
+        k: [v["registers"], v["local_bytes"], v["blocks_per_sm"]]
+        for k, v in packed_tb.occupancy().items() if "sharded" in k}
+    say("sharded tb times at 256^3 on (2,2,1), four shards on one card: "
+        + json.dumps(out))
+    del one, ustep, ucc, ucarry
+    torch.cuda.empty_cache()
+    return out
+
+
+def tb_sharded(dev):
+    """Phase 35: the sharded tb step (B2(d)) on one card, four or two
+    shards on ``cuda:0`` through ``Simulation(cfg, devices=[...])``: (a)
+    each shard's launch (into NaN-filled destinations) and a step
+    against the plain versions, (b) the main paths against the unsharded
+    tb runs at the pass's gates (fields; psi printed: roundoff at normal
+    incidence), E, H against the sharded packed run, and seeded states
+    with every leaf, psi included, gated, (c) the Mie example at 512^3,
+    (d) the launch counts (in every run of (b) and (c)), (e) times, the
+    exchange and the peak beside the plan."""
+    import numpy as np
+    import torch
+    from fdtd3d_torch import plan as plan_mod
+    rec = {"max_abs_err": {}, "main_path": {}}
+    # (a) each sharded launch against its plain version, shard by shard,
+    # into NaN-filled destinations
+    for key, extra, tol, seed in (
+            ("f32", [], TOL, 350), ("f32 seed 5", [], TOL, 5),
+            ("bf16", ["--dtype", "bfloat16"], TB_BF16_TOL, 350)):
+        rec["max_abs_err"][key] = tb_sharded_vs_plain(
+            config(EXAMPLE, ["--same-size", "256"] + extra
+                   + topo_flag((2, 2, 1))), [dev] * 4, seed,
+            f"256^3 (2,2,1) {key}", tol)
+    # (b) the main path at full width against the unsharded tb runs
+    main = rec["main_path"]
+    for label, argv, tol, runs in (
+            ("vacuum 256^3", ["--same-size", "256"], TOL,
+             (((2, 2, 1), 150), ((2, 2, 1), 151), ((1, 1, 2), 150))),
+            ("vacuum 256^3 bf16", ["--same-size", "256", "--dtype",
+                                   "bfloat16"], TB_BF16_TOL,
+             (((2, 2, 1), 150), ((1, 1, 2), 151)))):
+        for steps in sorted({s for _, s in runs}):
+            one = tb_unsharded_run(config(EXAMPLE, argv + [
+                "--topology", "none"]), dev, steps)
+            want = host_state(one)
+            del one
+            for topo, st in runs:
+                if st != steps:
+                    continue
+                run = tb_sharded_run(config(EXAMPLE, argv + topo_flag(topo)),
+                                     [dev] * int(np.prod(topo)), steps)
+                got = host_state(run.pop("sim"))
+                err, same = tb_state_vs(got, want, f"{label} {topo} {steps} "
+                                        f"steps vs the unsharded tb run", tol)
+                run.update(vs_unsharded_tb_max_abs=err, bit_equal=same)
+                name = f"{label} {'x'.join(map(str, topo))} {steps}"
+                main[name] = run
+                say(f"{name}: vs the unsharded tb run max abs {err:.3e} "
+                    f"(bit-equal {same}); launches {run['launches']}; "
+                    f"{run['wall_s']:.2f} s; peak {run['peak_mem_bytes']} B")
+                if label == "vacuum 256^3" and topo == (2, 2, 1) \
+                        and steps == 150:
+                    # E and H against the sharded packed run (psi holds
+                    # only roundoff at normal incidence, phase 32)
+                    pk = sharded_run(argv + ["--time-steps", str(steps)]
+                                     + topo_flag(topo), [dev] * 4, steps)
+                    pw = host_state(pk.pop("sim"))
+                    err_pk, _ = state_vs({g: got[g] for g in ("E", "H")},
+                                         {g: pw[g] for g in ("E", "H")},
+                                         f"{name} vs the sharded packed run "
+                                         f"(E, H)", TOL)
+                    run["vs_sharded_packed_max_abs"] = err_pk
+                    say(f"{name}: E, H vs the sharded packed run max abs "
+                        f"{err_pk:.3e}")
+                    del pw
+                del got
+            del want
+            torch.cuda.empty_cache()
+    # (b) seeded states, whose psi carries signal: every leaf, psi
+    # included, at the gates
+    for label, argv, tol in (
+            ("f32", ["--same-size", "256"], TOL),
+            ("bf16", ["--same-size", "256", "--dtype", "bfloat16"],
+             TB_BF16_TOL)):
+        err, same = tb_seeded_vs_unsharded(argv, (2, 2, 1), 10, 352, tol,
+                                           dev)
+        main[f"seeded 256^3 {label} 2x2x1 10"] = {
+            "vs_unsharded_tb_max_abs": err, "bit_equal": same}
+        say(f"seeded 256^3 {label} (2,2,1), 10 steps: every leaf (psi "
+            f"included) vs the unsharded tb run max abs {err:.3e} "
+            f"(bit-equal {same})")
+        torch.cuda.empty_cache()
+    # (c) the Mie example at 512^3: its sphere's grids and TFSF across
+    # every shard edge
+    margs = ["--time-steps", "20"]
+    one = tb_unsharded_run(config(MIE, margs + ["--topology", "none"]), dev,
+                           20)
+    want = host_state(one)
+    del one
+    torch.cuda.empty_cache()
+    run = tb_sharded_run(config(MIE, margs + topo_flag((2, 2, 1))),
+                         [dev] * 4, 20)
+    err, same = tb_state_vs(host_state(run.pop("sim")), want,
+                            "Mie 512^3 (2,2,1) vs the unsharded tb run", TOL)
+    run.update(vs_unsharded_tb_max_abs=err, bit_equal=same)
+    main["Mie 512^3 2x2x1 20"] = run
+    say(f"Mie 512^3 (2,2,1), 20 steps: vs the unsharded tb run max abs "
+        f"{err:.3e} (bit-equal {same}); launches {run['launches']}; peak "
+        f"{run['peak_mem_bytes']} B")
+    del want
+    torch.cuda.empty_cache()
+    # (e) times, and the (2,2,1) run's peak beside the plan's bytes
+    rec["times"] = tb_sharded_times(dev)
+    p = plan_mod.plan(config(EXAMPLE, ["--same-size", "256"]
+                             + topo_flag((2, 2, 1))))
+    if p.step_kind != "packed_tb":
+        fail(f"the plan of the (2,2,1) run names {p.step_kind}")
+    peak = main["vacuum 256^3 2x2x1 150"]["peak_mem_bytes"]
+    rec["plan_221"] = {"per_shard_bytes": p.hbm_per_chip,
+                       "four_shards_bytes": 4 * p.hbm_per_chip,
+                       "spare_bytes": p.spare_bytes,
+                       "ghost_bytes": p.ghost_bytes,
+                       "max_memory_allocated": peak, "report": p.report()}
+    say("plan of vacuum3D_tfsf 256^3 on (2,2,1) (per shard):\n"
+        + p.report() + f"\n  4 shards: {4 * p.hbm_per_chip} B; the run's "
+        f"peak allocation {peak} B")
+    return rec
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -6248,8 +6649,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the measurements as JSON here")
-    ap.add_argument("--only", default=None, metavar="27,...,34",
-                    help="run only these of phases 27 to 34 (after the "
+    ap.add_argument("--only", default=None, metavar="27,...,35",
+                    help="run only these of phases 27 to 35 (after the "
                          "build) and print their JSON, without the "
                          "kernels line and the closing ok line")
     args = ap.parse_args()
@@ -6294,8 +6695,8 @@ def main() -> int:
                 say(f"ptxas {lib}: {line.strip()}")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {27, 28, 29, 30, 31, 32, 33, 34}:
-            fail(f"--only takes phases 27 to 34, not {sorted(only)}")
+        if not only <= {27, 28, 29, 30, 31, 32, 33, 34, 35}:
+            fail(f"--only takes phases 27 to 35, not {sorted(only)}")
         result["nvidia_smi"] = card_line()
         for phase, key, fn in ((27, "modes", modes_and_outputs),
                                (28, "far_field",
@@ -6310,7 +6711,8 @@ def main() -> int:
                                (33, "ds_sharded",
                                 lambda: ds_sharded(dev)),
                                (34, "family_sharded",
-                                lambda: family_sharded(dev))):
+                                lambda: family_sharded(dev)),
+                               (35, "tb_sharded", lambda: tb_sharded(dev))):
             if phase in only:
                 t1 = time.time()
                 result[key] = fn()
@@ -6897,6 +7299,9 @@ def main() -> int:
     # ---- phase 34: the sharded two-pass family kernels ------------------
     result["family_sharded"] = fsh = family_sharded(dev)
     mark("phase 34")
+    # ---- phase 35: the sharded temporal-blocked pass --------------------
+    result["tb_sharded"] = tsh = tb_sharded(dev)
+    mark("phase 35")
     result["max_abs_err"].update({
         "compensated": max(comp_ex["max_abs_err"].values()),
         "dng_512": {dt: v["max_abs_err"] for dt, v in dng.items()},
@@ -7174,6 +7579,17 @@ def main() -> int:
             "ms": ft[f"{key}_launch_ms"], "plain_ms": ft[f"{key}_plain_ms"],
             "bound_ms": ft[f"{key}_bound_ms"],
             "bound_by": ft[f"{key}_bound_by"], "library_ms": None})
+    tt = tsh["times"]
+    kernels.append({
+        "name": "packed_tb.pass[sharded]", "route": "cuda",
+        "source": tb_src,
+        "replaces": "fdtd3d_tpu/ops/pallas_packed_tb.py:900",
+        "launches": tsh["main_path"]["vacuum 256^3 2x2x1 150"]["launches"][
+            "tb_pass_sharded"],
+        "max_abs_err": max(v["pass"] for v in tsh["max_abs_err"].values()),
+        "ms": tt["pass_ms"], "plain_ms": tt["pass_plain_ms"],
+        "bound_ms": tt["pass_bound_ms"], "bound_by": tt["pass_bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

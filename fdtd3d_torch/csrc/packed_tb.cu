@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 // fdtd3d_tpu/ops/pallas_packed_tb.py::make_packed_tb_step (builder :520,
-// kernel body :900, pallas_call :1320) for unsharded 3D float32 and bf16
-// storage runs at k = 2.
+// kernel body :900, pallas_call :1320; sharded parts :1339-1788) for 3D
+// float32 and bf16 storage runs at k = 2, unsharded and on a shard.
 //
 // What one call computes, on the stacked layout E, H = (3, n1, n2, n3)
 // float32, C order, z innermost, out of place (source buffers *0,
@@ -123,6 +123,38 @@
 // slots they refill; the coefficient, J and record rings keep cp.async.
 // The rings and shared memory are the float build's.
 //
+// Shards (Params.shard; template SHARD, one lane): a shard of a
+// decomposed run advances its box on its frame, the box grown by GHOST =
+// 2 cells on each side with a neighbour; the call's n1, n2, n3, records
+// and point source are the frame's (ops/packed_tb.py::prepare_shard), m
+// and the profiles the shard's own, its CPML slab decisions taken on the
+// global grid (Params.base, ng), so an interior shard's identity slab
+// rows run the plain code. The march is the unsharded one on the frame:
+// generation 1 is computed in the halo from the neighbours'
+// generation-0 cells, so H(t+2) on the box's upper edge reads the true
+// E(t+2) and no fix follows. That route rather than the reference's
+// wedge pre-pass and generation ghosts (pallas_packed_tb.py:1537, :1612,
+// :1649): the march already recomputes a 2-cell halo between blocks, so
+// the frame needs only generation-0 cells, at the cost of two planes a
+// side a pass. What the SHARD build changes: a column's generation-0
+// cells (E, H, J, the coefficient grids) come from the shard's own
+// buffers inside its box and from the ghost buffers beyond it (gcol,
+// field_at: the later axis's buffer holds the corners), psi of an axis
+// from the shard's slab stack or the ghost buffers of another axis
+// (psi_load: one branch per axis, 32-bit offsets; a ghost plane of an
+// axis lies in no slab of that axis), the stores go to the shard's own
+// stacks (psi_own), and the frame's edges are PEC walls on closed sides
+// only. The arithmetic is the unsharded build's, products contracted
+// into FMAs by nvcc: a shard's pass agrees with its plain version at the
+// pass's gate (a sharded run has equalled the unsharded one bit for bit
+// on the card, PERF.md). psi_load branches per axis because an address
+// built from runtime-indexed arrays spilled 616 bytes in the general
+// edge kernel, whose items then set a shard's pass (1.04 ms against
+// 0.35, scripts/tb_variants.py --sharded). The parameter block is
+// __grid_constant__: the sharded builds index its ghost pointers with
+// per-column values (without it, 24 bytes of spills in the grid edge
+// kernel at the same time).
+//
 // In place would be wrong: a block reads halo columns of E, H, psi and J
 // that a neighbouring block writes, so the call reads only the source
 // buffers and writes only the destination ones (the caller ping-pongs).
@@ -173,6 +205,7 @@
 #define OVERLAP 1  // a section's kernel may start while the one before ends
 #endif
 #define HALO 2
+#define GHOST 2  // planes a shard reads beyond an open side (ops/packed_tb.py)
 #define NT (BZ * BY)
 #define PLANE (3 * NT)  // floats of one ring plane (three components)
 #define RING ((PIPE + 2) <= 4 ? 4 : 8)  // generation-0 ring planes
@@ -242,6 +275,27 @@ struct Params {
                           // kKernels)
   float inv_dx;
   int bf16;               // E and H are bf16 words (else float32)
+  // a shard of a decomposed run (shard != 0, one lane; see "Shards" in
+  // the header): n1, n2, n3, the records and the point source are the
+  // frame's; the buffers *0, *2, the coefficient grids, the psi stacks
+  // and m, prof the shard's own (local extent nl, slab planes m = ml a
+  // side, taken where the global grid's slabs are)
+  int shard;
+  int lo[3];              // the frame's planes below the shard's box
+  int nl[3];              // the shard's extent
+  int open_lo[3];         // a neighbour below / above: no PEC wall there
+  int open_hi[3];
+  int base[3];            // the frame's first cell on the global grid
+  int ng[3];              // the global grid: the CPML slabs are its own
+  const void* gE[3][2];   // ghost planes by axis and side (below, above):
+  const void* gH[3][2];   // E, H (float or bf16 words), J (float), and
+  const void* gJ[3][2];   // each psi stack's, gpE[a][c][side] of axis a's
+  const float* gpE[3][3][2];
+  const float* gpH[3][3][2];
+  // the coefficient grids' ghost planes, gco[slot][c][axis][side]: slots
+  // E a, b, kj, bj, H a, b (ops/packed_tb.py GRID_SLOTS); the grids
+  // themselves (Coef.grid) are the shard's own
+  const void* gco[6][3][3][2];
 };
 
 // CURL_TERMS of fdtd3d_tpu/layout.py: component c couples
@@ -441,14 +495,151 @@ struct Pl {
   unsigned wall;  // E components that an x PEC wall zeroes
 };
 
+template <bool SHARD>
 __device__ __forceinline__ Pl plane(const Params& p, int x) {
   Pl pl;
   pl.x = x;
-  pl.qx = p.m[0] > 0 ? slab_plane(x, p.n1, p.m[0]) : -1;
+  if constexpr (SHARD) {
+    pl.qx = p.m[0] > 0 ? slab_plane(x + p.base[0], p.ng[0], p.m[0]) : -1;
+  } else {
+    pl.qx = p.m[0] > 0 ? slab_plane(x, p.n1, p.m[0]) : -1;
+  }
   pl.xm = x > 0;
   pl.xp = x < p.n1 - 1;
-  pl.wall = (x == 0 || x == p.n1 - 1) ? 6u : 0u;
+  if constexpr (SHARD) {  // the frame's edges are walls on closed sides only
+    pl.wall = ((x == 0 && !p.open_lo[0]) || (x == p.n1 - 1 && !p.open_hi[0]))
+                  ? 6u
+                  : 0u;
+  } else {
+    pl.wall = (x == 0 || x == p.n1 - 1) ? 6u : 0u;
+  }
   return pl;
+}
+
+// A shard's generation-0 field column: where the frame's column (j, k)
+// lives in the shard's buffers. sel 0: a column of the shard's box, in
+// the carry or, beyond the box along x, in the x ghost planes; 1, 2: a
+// column of the y or z ghost planes (side 0 below, 1 above), whose
+// buffers span the frame along the earlier axes (the corners). base:
+// the column's offset at x plane 0 (of the box for sel 0, of the frame
+// otherwise); ps: between x planes; cs: between components (sel 1, 2).
+struct GCol {
+  int sel, side;
+  int64_t base, ps, cs;
+};
+
+__device__ __forceinline__ GCol gcol(const Params& p, int j, int k) {
+  GCol g;
+  const int lj = j - p.lo[1], lk = k - p.lo[2];
+  const int64_t n3 = p.nl[2];
+  g.side = 0;
+  g.cs = 0;
+  if (lk < 0 || lk >= p.nl[2]) {
+    g.sel = 2;
+    g.side = lk >= 0;
+    g.base = (int64_t)j * GHOST + (g.side ? lk - p.nl[2] : lk + GHOST);
+    g.ps = (int64_t)p.n2 * GHOST;
+    g.cs = (int64_t)p.n1 * g.ps;
+  } else if (lj < 0 || lj >= p.nl[1]) {
+    g.sel = 1;
+    g.side = lj >= 0;
+    g.base = (int64_t)(g.side ? lj - p.nl[1] : lj + GHOST) * n3 + lk;
+    g.ps = GHOST * n3;
+    g.cs = (int64_t)p.n1 * g.ps;
+  } else {
+    g.sel = 0;
+    g.base = (int64_t)lj * n3 + lk;
+    g.ps = (int64_t)p.nl[1] * n3;
+  }
+  return g;
+}
+
+// The generation-0 cell of component 0 of a field at frame plane x of a
+// shard's column (the carry `local`, or its ghost planes `g`), and the
+// distance between its components in `cs`.
+template <typename T>
+__device__ __forceinline__ const T* field_at(const Params& p,
+                                             const void* local,
+                                             const void* const (&g)[3][2],
+                                             const GCol& gc, int x,
+                                             int64_t& cs) {
+  if (gc.sel) {
+    cs = gc.cs;
+    return static_cast<const T*>(g[gc.sel][gc.side]) + gc.base +
+           (int64_t)x * gc.ps;
+  }
+  const int lx = x - p.lo[0];
+  if (lx < 0 || lx >= p.nl[0]) {
+    cs = GHOST * gc.ps;
+    return static_cast<const T*>(g[0][lx >= 0]) +
+           (int64_t)(lx < 0 ? lx + GHOST : lx - p.nl[0]) * gc.ps + gc.base;
+  }
+  cs = (int64_t)p.nl[0] * gc.ps;
+  return static_cast<const T*>(local) + (int64_t)lx * gc.ps + gc.base;
+}
+
+// A shard's coefficient at frame plane x of its column: its own grid
+// inside the box, the grid's ghost planes beyond it; the scalar where the
+// coefficient is one.
+__device__ __forceinline__ const float* grid_at(const Params& p,
+                                                const float* local,
+                                                const void* const (&g)[3][2],
+                                                const GCol& gc, int x) {
+  int64_t cs;
+  return field_at<float>(p, local, g, gc, x, cs);
+}
+__device__ __forceinline__ float gval(const Params& p, const Coef& c,
+                                      const void* const (&g)[3][2],
+                                      const GCol& gc, int x) {
+  return c.grid ? *grid_at(p, c.grid, g, gc, x) : c.val;
+}
+
+// A shard's psi of axis a, row `row`, at slab plane q of box cell (lx,
+// lj, lk): its offset in the shard's own stack (2 m planes along a, the
+// box along the other axes; a shard's stack holds fewer than 2^31
+// values: the wrapper checks).
+__device__ __forceinline__ int psi_own(const Params& p, int a, int row,
+                                       int q, int lx, int lj, int lk) {
+  const int m2 = 2 * p.m[a];
+  if (a == 0) return ((row * m2 + q) * p.nl[1] + lj) * p.nl[2] + lk;
+  if (a == 1) return ((row * p.nl[0] + lx) * m2 + q) * p.nl[2] + lk;
+  return ((row * p.nl[0] + lx) * p.nl[1] + lj) * m2 + q;
+}
+
+// A shard's generation-0 psi of axis a, row `row`, at slab plane q of
+// frame cell (x, j, k) (the global grid's slab, which the shard holds: a
+// cell beyond its box along a lies in no slab of a, shards_fit): from
+// the shard's own stack `own` inside its box; beyond it along another
+// axis c (the later one where both are), from c's ghost planes g[c]
+// [side], which span the frame along the earlier axes, as the fields' do.
+// a is a constant once the callers' loops unroll, so each call keeps one
+// branch per axis.
+__device__ __forceinline__ float psi_load(const Params& p, int a, int row,
+                                          int q, int x, int j, int k,
+                                          const float* own,
+                                          const float* const (&g)[3][2]) {
+  const int lx = x - p.lo[0], lj = j - p.lo[1], lk = k - p.lo[2];
+  const bool ox = (unsigned)lx >= (unsigned)p.nl[0];
+  const bool oy = (unsigned)lj >= (unsigned)p.nl[1];
+  const bool oz = (unsigned)lk >= (unsigned)p.nl[2];
+  const int gx = lx < 0 ? lx + GHOST : lx - p.nl[0];
+  const int gy = lj < 0 ? lj + GHOST : lj - p.nl[1];
+  const int gz = lk < 0 ? lk + GHOST : lk - p.nl[2];
+  const int m2 = 2 * p.m[a];
+  const float* const zg = g[2][lk >= 0];
+  const float* const yg = g[1][lj >= 0];
+  const float* const xg = g[0][lx >= 0];
+  if (a == 0) {
+    if (oz) return zg[((row * m2 + q) * p.n2 + j) * GHOST + gz];
+    if (oy) return yg[((row * m2 + q) * GHOST + gy) * p.nl[2] + lk];
+  } else if (a == 1) {
+    if (oz) return zg[((row * p.n1 + x) * m2 + q) * GHOST + gz];
+    if (ox) return xg[((row * GHOST + gx) * m2 + q) * p.nl[2] + lk];
+  } else {
+    if (oy) return yg[((row * p.n1 + x) * GHOST + gy) * m2 + q];
+    if (ox) return xg[((row * GHOST + gx) * p.nl[1] + lj) * m2 + q];
+  }
+  return own[psi_own(p, a, row, q, lx, lj, lk)];
 }
 
 __device__ __forceinline__ int slab_of(const Col& col, const Pl& pl,
@@ -460,9 +651,10 @@ __device__ __forceinline__ int slab_of(const Col& col, const Pl& pl,
 // lane from the stacks `ps`, for every curl term (2 c + t) whose axis (of
 // the axes AX) has a CPML slab holding the cell; the other entries of
 // `out` are left as they are.
-template <int AX>
+template <int AX, bool SHARD>
 __device__ __forceinline__ void load_psi(const Params& p,
                                          const float* const (&ps)[3],
+                                         const float* const (&gp)[3][3][2],
                                          int lane, const Col& col,
                                          const Pl& pl, float (&out)[6]) {
 #pragma unroll
@@ -471,7 +663,10 @@ __device__ __forceinline__ void load_psi(const Params& p,
     for (int t = 0; t < 2; ++t) {
       const int a = term_axis(c, t);
       const int q = (AX >> a) & 1 ? slab_of(col, pl, a) : -1;
-      if (q >= 0) {
+      if (SHARD && q >= 0) {
+        out[2 * c + t] = psi_load(p, a, c < a ? c : c - 1, q, pl.x, col.j,
+                                  col.k, ps[a], gp[a]);
+      } else if (q >= 0) {
         out[2 * c + t] =
             ps[a][lane * p.psi_lane[a] +
                   psi_offset(a, c < a ? c : c - 1, q, pl.x, col.j, col.k,
@@ -524,11 +719,12 @@ __device__ __forceinline__ float eval(const Coef& c, const float* cf,
 // AX: the axes whose slab terms are compiled in (bit a: axis a; 0 for
 // none), REC = false compiles the records out, GRID = false the
 // coefficient grids and Drude J.
-template <int G, int AX, bool REC, bool GRID, bool MULTI, int ZW>
+template <int G, int AX, bool REC, bool GRID, bool MULTI, int ZW, bool SHARD>
 __device__ __forceinline__ void e_cell(
     const Params& p, const RecTable& rt, unsigned bits, const float* hr,
     int s0, int s1, const Col& col, const Pl& pl, const Src& src, int lane,
-    int64_t cell, int tid, const float (&old)[3], const float (&drive)[2],
+    int64_t cell, int64_t lcell, const GCol& gc, int tid,
+    const float (&old)[3], const float (&drive)[2],
     bool point, const float (&psi0)[6], const float (&j0)[3],
     float (&pe)[6], float (&jr)[3], float (&out)[3], bool store) {
   const int64_t vol = (int64_t)p.n1 * p.n2 * p.n3;
@@ -559,6 +755,9 @@ __device__ __forceinline__ void e_cell(
           const float psi = pr[q] * ps_old + pr[2 * m + q] * dfa;
           if (G == 0) {
             pe[2 * c + t] = psi;
+          } else if (SHARD && store) {  // an owned cell: the shard's stack
+            p.psE2[a][psi_own(p, a, c < a ? c : c - 1, q, pl.x - p.lo[0],
+                               col.j - p.lo[1], col.k - p.lo[2])] = psi;
           } else if (store) {
             p.psE2[a][lane * p.psi_lane[a] +
                       psi_offset(a, c < a ? c : c - 1, q, pl.x, col.j,
@@ -575,10 +774,15 @@ __device__ __forceinline__ void e_cell(
     }
     if (GRID && p.J0) {
       const float jo = G == 0 ? j0[c] : jr[c];
-      const float jn = coef(p.kj[c], lane, cell) * jo +
-                       coef(p.bj[c], lane, cell) * old[c];
+      const float jn =
+          SHARD ? gval(p, p.kj[c], p.gco[2][c], gc, pl.x) * jo +
+                      gval(p, p.bj[c], p.gco[3][c], gc, pl.x) * old[c]
+                : coef(p.kj[c], lane, cell) * jo +
+                      coef(p.bj[c], lane, cell) * old[c];
       if (G == 0) {
         jr[c] = jn;
+      } else if (SHARD && store) {
+        p.J2[c * ((int64_t)p.nl[0] * p.nl[1] * p.nl[2]) + lcell] = jn;
       } else if (store) {
         p.J2[(int64_t)lane * p.field_lane + c * vol + cell] = jn;
       }
@@ -598,11 +802,12 @@ __device__ __forceinline__ void e_cell(
 // One H cell of generation G + 1 at this thread's column.
 // er: the ring of the E generation G + 1 (plane x at offset s0, x+1 at
 // s1); old: H(G) of the cell; psi, AX, REC and GRID as in e_cell.
-template <int G, int AX, bool REC, bool GRID, bool MULTI, int ZW>
+template <int G, int AX, bool REC, bool GRID, bool MULTI, int ZW, bool SHARD>
 __device__ __forceinline__ void h_cell(
     const Params& p, const RecTable& rt, unsigned bits, const float* er,
     int s0, int s1, const Col& col, const Pl& pl, const Src& src, int lane,
-    int64_t cell, int tid, const float (&old)[3], const float (&psi0)[6],
+    int64_t cell, int64_t lcell, const GCol& gc, int tid,
+    const float (&old)[3], const float (&psi0)[6],
     float (&ph)[6], float (&out)[3], bool store) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -631,6 +836,9 @@ __device__ __forceinline__ void h_cell(
           const float psi = pr[q] * ps_old + pr[2 * m + q] * dfa;
           if (G == 0) {
             ph[2 * c + t] = psi;
+          } else if (SHARD && store) {  // an owned cell: the shard's stack
+            p.psH2[a][psi_own(p, a, c < a ? c : c - 1, q, pl.x - p.lo[0],
+                               col.j - p.lo[1], col.k - p.lo[2])] = psi;
           } else if (store) {
             p.psH2[a][lane * p.psi_lane[a] +
                       psi_offset(a, c < a ? c : c - 1, q, pl.x, col.j,
@@ -645,8 +853,13 @@ __device__ __forceinline__ void h_cell(
       acc = add_records<MULTI, ZW>(p, rt, src.stage, 1, bits, c, G, lane,
                                    pl.x, col.j, col.k, tid, acc);
     }
-    out[c] = cval<GRID>(p.fh.a[c], lane, cell) * old[c] -
-             cval<GRID>(p.fh.b[c], lane, cell) * acc;
+    if (SHARD && GRID) {
+      out[c] = gval(p, p.fh.a[c], p.gco[4][c], gc, pl.x) * old[c] -
+               gval(p, p.fh.b[c], p.gco[5][c], gc, pl.x) * acc;
+    } else {
+      out[c] = cval<GRID>(p.fh.a[c], lane, cell) * old[c] -
+               cval<GRID>(p.fh.b[c], lane, cell) * acc;
+    }
   }
 }
 
@@ -658,28 +871,28 @@ __device__ __forceinline__ void h_cell(
   do {                                                          \
     if constexpr (AX != 0) {                                    \
       if (full) {                                               \
-        e_cell<G, AX, true, GRID, MULTI, ZW>(__VA_ARGS__);      \
+        e_cell<G, AX, true, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);      \
       } else {                                                  \
-        e_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);      \
+        e_cell<G, 0, false, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);      \
       }                                                         \
     } else if (full) {                                          \
-      e_cell<G, 0, true, GRID, MULTI, ZW>(__VA_ARGS__);         \
+      e_cell<G, 0, true, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);         \
     } else {                                                    \
-      e_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);        \
+      e_cell<G, 0, false, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);        \
     }                                                           \
   } while (0)
 #define H_CELL(G, ...)                                          \
   do {                                                          \
     if constexpr (AX != 0) {                                    \
       if (full) {                                               \
-        h_cell<G, AX, true, GRID, MULTI, ZW>(__VA_ARGS__);      \
+        h_cell<G, AX, true, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);      \
       } else {                                                  \
-        h_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);      \
+        h_cell<G, 0, false, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);      \
       }                                                         \
     } else if (full) {                                          \
-      h_cell<G, 0, true, GRID, MULTI, ZW>(__VA_ARGS__);         \
+      h_cell<G, 0, true, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);         \
     } else {                                                    \
-      h_cell<G, 0, false, GRID, MULTI, ZW>(__VA_ARGS__);        \
+      h_cell<G, 0, false, GRID, MULTI, ZW, SHARD>(__VA_ARGS__);        \
     }                                                           \
   } while (0)
 
@@ -704,7 +917,7 @@ struct Tables {
 // GRID = false compiles the coefficient grids and Drude J out. ZW: the
 // block's extent along z (BZ, or BZ / 2 in the transposed layout of
 // z-band items, with 2 BY along y). T: the fields' storage type.
-template <bool MULTI, int AX, bool GRID, int ZW, typename T>
+template <bool MULTI, int AX, bool GRID, int ZW, typename T, bool SHARD>
 __device__ __forceinline__ void march(const Params& p, int first_item) {
   constexpr bool EDGE = AX != 0;
   constexpr bool BF = sizeof(T) == 2;
@@ -765,9 +978,20 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
   const bool in_e2 = in_h1 && ly >= 2 && lz >= 2;
   const bool own = in_e2 && ly < wy - 2 && lz < wz - 2;
   const int64_t cidx = inside ? (int64_t)j * n3 + k : 0;
-  col.qy = p.m[1] > 0 ? slab_plane(j, n2, p.m[1]) : -1;
-  col.qz = p.m[2] > 0 ? slab_plane(k, n3, p.m[2]) : -1;
-  const bool y_wall = j == 0 || j == n2 - 1, z_wall = k == 0 || k == n3 - 1;
+  // a shard's slabs are the global grid's
+  col.qy = p.m[1] <= 0 ? -1
+           : SHARD    ? slab_plane(j + p.base[1], p.ng[1], p.m[1])
+                      : slab_plane(j, n2, p.m[1]);
+  col.qz = p.m[2] <= 0 ? -1
+           : SHARD    ? slab_plane(k + p.base[2], p.ng[2], p.m[2])
+                      : slab_plane(k, n3, p.m[2]);
+  // a shard's frame: walls on its closed edges only
+  const bool y_wall = SHARD ? (j == 0 && !p.open_lo[1]) ||
+                                  (j == n2 - 1 && !p.open_hi[1])
+                            : j == 0 || j == n2 - 1;
+  const bool z_wall = SHARD ? (k == 0 && !p.open_lo[2]) ||
+                                  (k == n3 - 1 && !p.open_hi[2])
+                            : k == 0 || k == n3 - 1;
   col.wall = (y_wall || z_wall ? 1u : 0u) | (z_wall ? 2u : 0u) |
              (y_wall ? 4u : 0u);
   col.ym = j > 0;
@@ -777,6 +1001,11 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
   // the lane's offset in the field and J stacks (psi and coefficient
   // grids take theirs where they are read); 0 in a single-lane launch
   const int64_t lf = lane * p.field_lane;
+  // a shard: where its column's generation-0 cells live, and the volume
+  // of its own stacks (the stores' component stride)
+  const GCol gc = SHARD ? gcol(p, j, k) : GCol{};
+  const int64_t lvol =
+      SHARD ? (int64_t)p.nl[0] * p.nl[1] * p.nl[2] : vol;
   const bool pcol = j == p.pj && k == p.pk;
   // a launch of several lanes reads its lane's point-source values once:
   // a register operand lets every cell add them branch-free, as the
@@ -812,21 +1041,27 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
     if (inside) {
       const int64_t off = lf + (int64_t)x * pstride + cidx;
       const int s = slot * PLANE + tid;
+      // a shard reads each field through its column's place (gcol)
+      int64_t hs = vol, es = vol;
+      const T* const hp =
+          SHARD ? field_at<T>(p, p.H0, p.gH, gc, x, hs) : H0 + off;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         if constexpr (BF) {
-          hw[c] = H0[off + c * vol];
+          hw[c] = hp[c * hs];
         } else {
-          cp_async4(h0r + s + c * NT, H0 + off + c * vol);
+          cp_async4(h0r + s + c * NT, hp + c * hs);
         }
       }
       if (in_e1) {
+        const T* const ep =
+            SHARD ? field_at<T>(p, p.E0, p.gE, gc, x, es) : E0 + off;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
           if constexpr (BF) {
-            ew[c] = E0[off + c * vol];
+            ew[c] = ep[c * es];
           } else {
-            cp_async4(e0r + s + c * NT, E0 + off + c * vol);
+            cp_async4(e0r + s + c * NT, ep + c * es);
           }
         }
         if (GRID) {
@@ -836,15 +1071,25 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
           for (int c = 0; c < 3; ++c) {
             const Coef& a = p.fe.a[c];
             const Coef& b = p.fe.b[c];
-            if (a.grid) cp_async4(cs + c * NT, a.grid + lane * a.lane + at);
+            if (a.grid) {
+              cp_async4(cs + c * NT,
+                        SHARD ? grid_at(p, a.grid, p.gco[0][c], gc, x)
+                              : a.grid + lane * a.lane + at);
+            }
             if (b.grid) {
-              cp_async4(cs + (3 + c) * NT, b.grid + lane * b.lane + at);
+              cp_async4(cs + (3 + c) * NT,
+                        SHARD ? grid_at(p, b.grid, p.gco[1][c], gc, x)
+                              : b.grid + lane * b.lane + at);
             }
           }
           if (p.J0) {
+            int64_t js = vol;
+            const float* const jp =
+                SHARD ? field_at<float>(p, p.J0, p.gJ, gc, x, js)
+                      : p.J0 + off;
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
-              cp_async4(j0r + s + c * NT, p.J0 + off + c * vol);
+              cp_async4(j0r + s + c * NT, jp + c * js);
             }
           }
         }
@@ -885,12 +1130,15 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
   if (ib > 0 && inside) {  // H of plane ib - 1, read by E1(ib)
     const int64_t off = lf + (int64_t)(ib - 1) * pstride + cidx;
     const int s = ((ib - 1) & (RING - 1)) * PLANE + tid;
+    int64_t hs = vol;
+    const T* const hp =
+        SHARD ? field_at<T>(p, p.H0, p.gH, gc, ib - 1, hs) : H0 + off;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       if constexpr (BF) {
-        h0r[s + c * NT] = ld(H0 + off + c * vol);
+        h0r[s + c * NT] = ld(hp + c * hs);
       } else {
-        cp_async4(h0r + s + c * NT, H0 + off + c * vol);
+        cp_async4(h0r + s + c * NT, hp + c * hs);
       }
     }
   }
@@ -919,9 +1167,9 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
   // plane i + 1 after E1(i), psi_H of plane i after H1(i - 1)
   float pse[6] = {0.f}, psh[6] = {0.f};
   if (EDGE) {
-    const Pl pl = plane(p, ib);
-    if (in_e1) load_psi<AX>(p, p.psE0, lane, col, pl, pse);
-    if (in_h1) load_psi<AX>(p, p.psH0, lane, col, pl, psh);
+    const Pl pl = plane<SHARD>(p, ib);
+    if (in_e1) load_psi<AX, SHARD>(p, p.psE0, p.gpE, lane, col, pl, pse);
+    if (in_h1) load_psi<AX, SHARD>(p, p.psH0, p.gpH, lane, col, pl, psh);
   }
 
   for (int i = ib; i <= x1 + 1; ++i) {
@@ -935,9 +1183,9 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
     const int r_m = ((i - 1) & (RING - 1)) * PLANE;
     const int s_i = (i & 1) * PLANE;
     const int s_m = ((i + 1) & 1) * PLANE;
-    const Pl pl_i = plane(p, i);
-    const Pl pl_a = plane(p, i - 1);
-    const Pl pl_2 = plane(p, i - 2);
+    const Pl pl_i = plane<SHARD>(p, i);
+    const Pl pl_a = plane<SHARD>(p, i - 1);
+    const Pl pl_2 = plane<SHARD>(p, i - 2);
     const Src src_i = {stage, cr + 2 * r_i + tid, prof};
     const Src src_m = {stage, cr + 2 * r_m + tid, prof};
 
@@ -954,12 +1202,13 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
         for (int c = 0; c < 3; ++c) jn[c] = j0r[r_i + c * NT + tid];
       }
       E_CELL(0, p, rt_e, bits, h0r, r_i, r_m, col, pl_i, src_i, lane, cell,
-             tid, old, drive, pcol && i == p.pi, pse, jn, pe_new, j_new, out,
-             false);
+             cell, gc, tid, old, drive, pcol && i == p.pi, pse, jn, pe_new,
+             j_new, out, false);
 #pragma unroll
       for (int c = 0; c < 3; ++c) e1r[s_i + c * NT + tid] = out[c];
       if (EDGE && i + 1 < lim) {
-        load_psi<AX>(p, p.psE0, lane, col, plane(p, i + 1), pse);
+        load_psi<AX, SHARD>(p, p.psE0, p.gpE, lane, col,
+                            plane<SHARD>(p, i + 1), pse);
       }
     }
     __syncthreads();
@@ -974,11 +1223,11 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = h0r[r_m + c * NT + tid];
       H_CELL(0, p, rt_h, bits, e1r, s_m, s_i, col, pl_a, src_m, lane, cell,
-             tid, old, psh, ph_new, out, false);
+             cell, gc, tid, old, psh, ph_new, out, false);
 #pragma unroll
       for (int c = 0; c < 3; ++c) h1r[s_m + c * NT + tid] = out[c];
       if (EDGE && i <= x1 && i < n1) {
-        load_psi<AX>(p, p.psH0, lane, col, pl_i, psh);
+        load_psi<AX, SHARD>(p, p.psH0, p.gpH, lane, col, pl_i, psh);
       }
     }
     __syncthreads();
@@ -986,6 +1235,9 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
     // phase E2(i-1): H1 at i-1 and i-2, E1 at i-1; written on [x0, x1)
     if (xa >= x0 && xa <= x1 && xa < n1 && in_e2) {
       const int64_t cell = (int64_t)xa * pstride + cidx;
+      // the cell in the shard's own stacks (owned cells only)
+      const int64_t lcell =
+          SHARD ? (int64_t)(xa - p.lo[0]) * gc.ps + gc.base : cell;
       const bool store = own && xa < x1;
       const unsigned bits = cb_e | tab.xb[0][xa - ib];
       const bool full = bits != 0u || (col_slab || ((AX & 1) && pl_a.qx >= 0));
@@ -993,12 +1245,12 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = e1r[s_m + c * NT + tid];
       E_CELL(1, p, rt_e, bits, h1r, s_m, s_i, col, pl_a, src_m, lane, cell,
-             tid, old, drive, pcol && xa == p.pi, pse, j_new, pe_old, j_old,
-             out, store);
+             lcell, gc, tid, old, drive, pcol && xa == p.pi, pse, j_new, pe_old,
+             j_old, out, store);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         e2r[s_m + c * NT + tid] = out[c];
-        if (store) st(E2 + lf + c * vol + cell, out[c]);
+        if (store) st(E2 + lf + c * lvol + lcell, out[c]);
       }
     }
     __syncthreads();
@@ -1007,15 +1259,17 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
     const int x2 = i - 2;
     if (x2 >= x0 && x2 < x1 && own) {
       const int64_t cell = (int64_t)x2 * pstride + cidx;
+      const int64_t lcell =
+          SHARD ? (int64_t)(x2 - p.lo[0]) * gc.ps + gc.base : cell;
       const unsigned bits = cb_h | tab.xb[1][x2 - ib];
       const bool full = bits != 0u || (col_slab || ((AX & 1) && pl_2.qx >= 0));
       float old[3], out[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) old[c] = h1r[s_i + c * NT + tid];
       H_CELL(1, p, rt_h, bits, e2r, s_i, s_m, col, pl_2, src_i, lane, cell,
-             tid, old, psh, ph_old, out, true);
+             lcell, gc, tid, old, psh, ph_old, out, true);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) st(H2 + lf + c * vol + cell, out[c]);
+      for (int c = 0; c < 3; ++c) st(H2 + lf + c * lvol + lcell, out[c]);
     }
     // bf16: plane i + PIPE into the rings, after every read of the slots
     // it refills (see load_plane)
@@ -1057,20 +1311,20 @@ __device__ __forceinline__ void march(const Params& p, int first_item) {
 // Each kernel runs the items of one plan section, from item `first`:
 // AX, GRID and its target blocks an SM are the section's; an item of a
 // section whose slabs include z may take the transposed layout.
-template <bool MULTI, int AX, bool GRID, int MINB, typename T>
+template <bool MULTI, int AX, bool GRID, int MINB, typename T, bool SHARD>
 __global__ void __launch_bounds__(NT, MINB)
-    tb_section(const Params p, int first) {
+    tb_section(const __grid_constant__ Params p, int first) {
 #if ZBAND
   if constexpr ((AX & 4) != 0) {
     const int item =
         first + (MULTI ? (int)(blockIdx.x / p.lanes) : (int)blockIdx.x);
     if (p.plan[PLAN_COLS * item + 7]) {
-      march<MULTI, AX, GRID, BZ / 2, T>(p, first);
+      march<MULTI, AX, GRID, BZ / 2, T, SHARD>(p, first);
       return;
     }
   }
 #endif
-  march<MULTI, AX, GRID, BZ, T>(p, first);
+  march<MULTI, AX, GRID, BZ, T, SHARD>(p, first);
 }
 
 // Dynamic shared memory of a block: the generation-0 rings of H and E,
@@ -1093,10 +1347,11 @@ typedef void (*Kernel)(const Params, int);
 // of the coefficient and J rings, so their builds are for one block an
 // SM. The kernels of one slab axis keep less psi state than the general
 // one and are built for SINGLE_BLOCKS. Each has a float and a bf16 build.
-#define SECTION(AX, GRID, MINB, T)       \
-  {                                      \
-    tb_section<false, AX, GRID, MINB, T>, \
-        tb_section<true, AX, GRID, MINB, T> \
+#define SECTION(AX, GRID, MINB, T)                \
+  {                                               \
+    tb_section<false, AX, GRID, MINB, T, false>,  \
+        tb_section<true, AX, GRID, MINB, T, false>, \
+        tb_section<false, AX, GRID, MINB, T, true>  \
   }
 #define SECTION_KERNELS(T)                                            \
   {                                                                   \
@@ -1106,8 +1361,12 @@ typedef void (*Kernel)(const Params, int);
         SECTION(7, false, EDGE_BLOCKS, T), SECTION(0, true, 1, T),    \
         SECTION(0, false, INNER_BLOCKS, T)                            \
   }
-static const Kernel kKernels[2][SECTIONS][2] = {SECTION_KERNELS(float),
-                                                SECTION_KERNELS(bf16_t)};
+#define VARIANTS 3  // solo, lanes, a shard (one lane)
+static const Kernel kKernels[2][SECTIONS][VARIANTS] = {
+    SECTION_KERNELS(float), SECTION_KERNELS(bf16_t)};
+#define KERNEL(q)                                                       \
+  kKernels[(q) / (VARIANTS * SECTIONS)][(q) / VARIANTS % SECTIONS] \
+          [(q) % VARIANTS]
 static const bool kGrid[SECTIONS] = {true,  false, false, false,
                                      false, true,  false};
 
@@ -1128,8 +1387,8 @@ static cudaError_t set_attributes() {
   if (err != cudaSuccess) return err;
   g_smem_most = most;
   const int want = smem_bytes(true, MAX_SLAB_SUM);
-  for (int q = 0; q < 4 * SECTIONS; ++q) {
-    const Kernel k = kKernels[q / (2 * SECTIONS)][q / 2 % SECTIONS][q % 2];
+  for (int q = 0; q < 2 * VARIANTS * SECTIONS; ++q) {
+    const Kernel k = KERNEL(q);
     cudaFuncAttributes a;
     err = cudaFuncGetAttributes(&a, k);
     if (err != cudaSuccess) return err;
@@ -1163,18 +1422,19 @@ int fdtd_tb_tile(int* out) {
   return 0;
 }
 
-// Per kernel (each section's solo build, then its lane-capable one; the
-// float builds, then the bf16 ones), four ints: registers a thread, local
-// (spill) bytes a thread, resident blocks an SM at the call's shared
-// memory (CPML of 8 planes on every axis), static shared bytes.
+// Per kernel (each section's solo build, its lane-capable one and its
+// sharded one; the float builds, then the bf16 ones), four ints:
+// registers a thread, local (spill) bytes a thread, resident blocks an SM
+// at the call's shared memory (CPML of 8 planes on every axis), static
+// shared bytes.
 int fdtd_tb_occupancy(int* out) {
   cudaError_t err = set_attributes();
-  for (int q = 0; q < 4 * SECTIONS && err == cudaSuccess; ++q) {
-    const Kernel k = kKernels[q / (2 * SECTIONS)][q / 2 % SECTIONS][q % 2];
+  for (int q = 0; q < 2 * VARIANTS * SECTIONS && err == cudaSuccess; ++q) {
+    const Kernel k = KERNEL(q);
     cudaFuncAttributes a;
     err = cudaFuncGetAttributes(&a, k);
     int blocks = 0;
-    const int smem = smem_bytes(kGrid[q / 2 % SECTIONS], 24);
+    const int smem = smem_bytes(kGrid[q / VARIANTS % SECTIONS], 24);
     if (err == cudaSuccess &&
         smem + static_cast<int>(a.sharedSizeBytes) <= g_smem_most) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, NT,
@@ -1200,7 +1460,7 @@ int fdtd_tb_pass(const Params* p, void* stream) {
   }
   const int msum = p->m[0] + p->m[1] + p->m[2];
   if (p->lanes < 1 || items * p->lanes > 0x7fffffffLL ||
-      msum > MAX_SLAB_SUM) {
+      msum > MAX_SLAB_SUM || (p->shard && p->lanes != 1)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const dim3 block(BZ, BY);
@@ -1225,9 +1485,10 @@ int fdtd_tb_pass(const Params* p, void* stream) {
       attr.val.programmaticStreamSerializationAllowed = 1;
       cfg.attrs = &attr;
       cfg.numAttrs = OVERLAP && first > 0 ? 1 : 0;
+      const int variant = p->shard ? 2 : (p->lanes > 1 ? 1 : 0);
       err = cudaLaunchKernelExC(
-          &cfg, reinterpret_cast<const void*>(
-                    kKernels[p->bf16 ? 1 : 0][q][p->lanes > 1]),
+          &cfg,
+          reinterpret_cast<const void*>(kKernels[p->bf16 ? 1 : 0][q][variant]),
           args);
       if (err == cudaSuccess) err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);

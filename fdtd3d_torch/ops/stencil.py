@@ -7,8 +7,10 @@ plane in place of that zero), and ``exchange_stack`` (reference
 ``exchange_stack`` :46; ``exchange_components`` for the dict-form state
 of the two-pass step): the boundary planes a decomposed run's shards
 send each other between the launches, each into a ghost buffer of the
-receiving shard. A shard at the global edge has no buffer on that side:
-its ghost is the PEC zero.
+receiving shard, one plane, or with ``depth`` 2 the temporal-blocked
+pass's two planes of every row, corners included
+(``deep_ghost_buffers``, ``extend_stack``). A shard at the global edge
+has no buffer on that side: its ghost is the PEC zero.
 
 Sign/time conventions (leapfrog):
   E-update uses BACKWARD differences of H:  (H[i] - H[i-1]) / d
@@ -97,9 +99,8 @@ def copy_plane(dst: torch.Tensor, src: torch.Tensor) -> None:
     torch.cuda.current_stream(src.device).wait_event(done)
 
 
-def exchange_stack(stacks: Sequence[torch.Tensor],
-                   ghosts: Sequence[Dict[int, torch.Tensor]], mesh,
-                   side: int) -> None:
+def exchange_stack(stacks: Sequence[torch.Tensor], ghosts, mesh,
+                   side: int, depth: int = 1) -> None:
     """Fill every shard's ghost planes from its neighbours' stacked
     fields: (3, n1, n2, n3), or float32x2 pairs (6, n1, n2, n3), the hi
     words in rows [0, 3) and the lo words in [3, 6). ``side`` -1 (lo ->
@@ -107,7 +108,20 @@ def exchange_stack(stacks: Sequence[torch.Tensor],
     has a buffer, the last plane of its lower neighbour's stack (old H);
     +1 (hi -> lo, H's ghosts): the first plane of its upper neighbour's
     (new E). Only the two components with a curl term along the axis are
-    copied (of a pair stack their hi rows c, then their lo rows 3 + c)."""
+    copied (of a pair stack their hi rows c, then their lo rows 3 + c).
+
+    ``depth`` > 1 (the temporal-blocked pass's ghosts, whose generation
+    1 is computed again in the receiving shard's halo): ``side`` is not
+    used; ``ghosts[r]`` maps each exchanged axis to its [below, above]
+    buffers (``deep_ghost_buffers``), and both sides are filled with
+    ``depth`` planes of every row of any leading-row stack (fields, J,
+    a psi stack), axis by axis in order: the buffers of a later axis
+    span the earlier axes' ghost planes as well, copied from the
+    neighbour's own buffers, so a corner cell reaches its shard without
+    a diagonal message."""
+    if depth > 1:
+        run_copies(deep_copies(stacks, ghosts, mesh, depth))
+        return
     for r, bufs in enumerate(ghosts):
         for a, buf in bufs.items():
             src = stacks[mesh.neighbor(r, a, side)]
@@ -156,4 +170,124 @@ def ghost_buffers(mesh, stacks: Sequence[torch.Tensor], side: int
                 bufs[a] = torch.zeros(shape, dtype=st.dtype,
                                       device=st.device)
         out.append(bufs)
+    return out
+
+
+def deep_ghost_buffers(mesh, stacks: Sequence[torch.Tensor], depth: int,
+                       skip: Optional[int] = None
+                       ) -> List[Dict[int, List[Optional[torch.Tensor]]]]:
+    """Zeroed ``depth``-plane ghost buffers of every shard for
+    ``exchange_stack(..., depth=depth)``: axis -> [below, above] (None
+    where the shard has no neighbour), on every sharded axis but
+    ``skip`` (a psi stack's own, slab-compact axis), in the stacks'
+    dtype. A buffer holds every row of ``depth`` planes along its axis,
+    the shard's extent along the later axes and, along each earlier
+    exchanged axis, the extent grown by ``depth`` on every side with a
+    neighbour (the corners)."""
+    axes = [a for a in range(3) if mesh.topology[a] > 1 and a != skip]
+    out = []
+    for r, st in enumerate(stacks):
+        grown = {c: sum(mesh.neighbor(r, c, s) is not None for s in (-1, 1))
+                 for c in axes}
+        bufs: Dict[int, List[Optional[torch.Tensor]]] = {}
+        for a in axes:
+            shape = deep_ghost_shape(st.shape, a, grown, depth)
+            bufs[a] = [torch.zeros(shape, dtype=st.dtype, device=st.device)
+                       if mesh.neighbor(r, a, s) is not None else None
+                       for s in (-1, 1)]
+        out.append(bufs)
+    return out
+
+
+def deep_ghost_shape(shape, a: int, grown: Dict[int, int],
+                     depth: int) -> List[int]:
+    """The shape of one of ``deep_ghost_buffers``' buffers along axis
+    ``a`` of a leading-row stack of ``shape``: ``depth`` planes along
+    ``a``, and along each earlier exchanged axis c of ``grown`` (c -> the
+    shard's neighbours on c) the extent grown by ``depth`` a neighbour
+    (the corners). The planner counts the buffers by it too."""
+    out = list(shape)
+    out[1 + a] = depth
+    for c, n in grown.items():
+        if c < a:
+            out[1 + c] += depth * n
+    return out
+
+
+def deep_copies(stacks: Sequence[torch.Tensor], ghosts, mesh, depth: int
+                ) -> Dict[int, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """The copies of ``exchange_stack(..., depth=depth)`` as (destination,
+    source) views, by the axis whose buffers they fill: each buffer of
+    axis a takes the neighbour's ``depth`` boundary planes along a,
+    along each earlier exchanged axis from the neighbour's own stack
+    and, beyond it, from the neighbour's buffers of that axis (the
+    corners), so the copies of an axis read only the stacks and the
+    buffers of earlier axes."""
+    out: Dict[int, List[Tuple[torch.Tensor, torch.Tensor]]] = {}
+    for a in sorted({a for g in ghosts for a in g}):
+        pairs = out[a] = []
+        for r, bufs in enumerate(ghosts):
+            for s, buf in enumerate(bufs.get(a, ())):
+                if buf is None:
+                    continue
+                nb = mesh.neighbor(r, a, 2 * s - 1)
+                n = stacks[nb].shape[1 + a]
+                _fill(pairs, buf, stacks[nb], ghosts[nb],
+                      [c for c in sorted(ghosts[nb]) if c < a], a,
+                      n - depth if s == 0 else 0, depth)
+    return out
+
+
+def _fill(pairs, dst, stack, gh, earlier, a: int, start: int,
+          depth: int) -> None:
+    """The copies that fill ``dst`` with planes [start, start + depth)
+    along ``a`` of a shard's stack grown along the axes ``earlier`` by its
+    ghost buffers ``gh``."""
+    if not earlier:
+        pairs.append((dst, stack.narrow(1 + a, start, depth)))
+        return
+    c = earlier[-1]
+    lo, hi = gh[c]
+    at = 0
+    if lo is not None:
+        pairs.append((dst.narrow(1 + c, 0, depth),
+                      lo.narrow(1 + a, start, depth)))
+        at = depth
+    n = stack.shape[1 + c]
+    _fill(pairs, dst.narrow(1 + c, at, n), stack, gh, earlier[:-1], a,
+          start, depth)
+    if hi is not None:
+        pairs.append((dst.narrow(1 + c, at + n, depth),
+                      hi.narrow(1 + a, start, depth)))
+
+
+def run_copies(copies: Dict[int, List[Tuple[torch.Tensor, torch.Tensor]]]
+               ) -> None:
+    """``deep_copies``' copies, axis by axis: those within one card in one
+    ``_foreach_copy_`` a card and axis (one call instead of a Python
+    round trip a copy), those between cards by ``copy_plane``."""
+    for a in sorted(copies):
+        local: Dict[torch.device, Tuple[list, list]] = {}
+        for dst, src in copies[a]:
+            if dst.device == src.device:
+                d, s = local.setdefault(dst.device, ([], []))
+                d.append(dst)
+                s.append(src)
+            else:
+                copy_plane(dst, src)
+        for dev, (d, s) in local.items():
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    torch._foreach_copy_(d, s)
+            else:
+                torch._foreach_copy_(d, s)
+
+
+def extend_stack(stack: torch.Tensor, gh) -> torch.Tensor:
+    """A shard's stack grown by its ``deep_ghost_buffers`` on every
+    exchanged axis (a new tensor): the values its frame holds."""
+    out = stack
+    for a in sorted(gh):
+        lo, hi = gh[a]
+        out = torch.cat([t for t in (lo, out, hi) if t is not None], 1 + a)
     return out

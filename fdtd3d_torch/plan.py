@@ -26,7 +26,18 @@ sharded packed step, without allocating anything:
 * the sharded two-pass step's out-of-place family (kind ``pallas3d``,
   where ``solver.sharded_two_pass_reason`` sends a decomposed run): a
   new E with its psi and J (or H with its psi and K) lives beside the
-  old one while its launch runs, the larger of the two families.
+  old one while its launch runs, the larger of the two families;
+* the temporal-blocked pass (kind ``packed_tb``, wherever the dispatch
+  takes it, sharded or not: ``solver.tb_fallback_reason`` gives no
+  token): its spare set, a second E, H, psi and J, which it swaps with
+  the carry every pass; on a topology also its ghost buffers,
+  ``GHOST`` planes of every row of E, H, J and each psi stack a side
+  with a neighbour, those of a later axis spanning the earlier axes'
+  (``stencil.deep_ghost_buffers``), beside the packed tail's one-plane
+  buffers, and its coefficient grids over the shard's frame
+  (``packed_tb.frame_coeffs``: the ``GHOST``-plane buffers of each 3D
+  grid, as a one-row stack; ``frame_bytes``; its grown 1D vectors, a
+  few kilobytes, are not counted).
 
 The work plans and TFSF patch tables the packed step prepares (a few
 kilobytes to megabytes of int32 and float rows) are not counted.
@@ -35,14 +46,16 @@ kilobytes to megabytes of int32 and float rows) are not counted.
 shard: on each sharded axis, toward each neighbour, the two components
 of one family received and the two of the other sent, a plane each
 (the reference's count for an interior shard), float32x2 planes as
-pairs.
+pairs; for the tb pass the ghost buffers of a side received and the
+same sent, once a pass of two steps.
 
 ``CommStrategy`` records the port's one exchange schedule, fixed: the
 two component planes of an axis copied together (one strided copy for
 x and z, one a component for y), on the receiving shard's stream,
-before the launch that reads them (no overlap). The reference's chooser
-scores strategies against its cost model (``costs.py``), which is
-ROADMAP.md item A14(b) here.
+before the launch that reads them (no overlap); the tb pass's
+``ghost_depth`` is 2 (``GHOST`` planes, every row, axis by axis). The
+reference's chooser scores strategies against its cost model
+(``costs.py``), which is ROADMAP.md item A14(b) here.
 """
 
 from __future__ import annotations
@@ -55,6 +68,8 @@ import torch
 
 from fdtd3d_torch import solver
 from fdtd3d_torch.layout import CURL_TERMS, component_axis
+from fdtd3d_torch.ops.packed_tb import GHOST
+from fdtd3d_torch.ops.stencil import deep_ghost_shape
 
 AXES = "xyz"
 
@@ -86,26 +101,29 @@ class Plan:
     coeff_bytes: int           # 3D coefficient grids
     vector_bytes: int          # 1D coefficients (indices, walls, profiles)
     ghost_bytes: int           # the sharded step's ghost buffers
-    spare_bytes: int           # the packed-ds or two-pass step's
+    spare_bytes: int           # the packed-ds, two-pass or tb step's
                                # out-of-place set
     halo_bytes_per_step: int   # received + sent a step, busiest shard
     n_chips: int
     halo_by_axis: Dict[str, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
     comm_strategy: Optional[CommStrategy] = None
+    frame_bytes: int = 0       # the sharded tb pass's grid ghosts
+    step_kind: str = "packed"
 
     @property
     def hbm_per_chip(self) -> int:
         return (self.fields_bytes + self.psi_bytes + self.drude_bytes
                 + self.residual_bytes + self.inc_bytes + self.coeff_bytes
-                + self.vector_bytes + self.ghost_bytes + self.spare_bytes)
+                + self.vector_bytes + self.ghost_bytes + self.spare_bytes
+                + self.frame_bytes)
 
     def report(self) -> str:
         gib = 1 << 30
         mib = 1 << 20
-        two_pass = self.comm_strategy is not None \
-            and self.comm_strategy.step_kind == "pallas3d"
-        spare_label = "new E or H family:" if two_pass else "ds spare set:"
+        spare_label = {"pallas3d": "new E or H family:",
+                       "packed_tb": "tb spare set:"}.get(self.step_kind,
+                                                         "ds spare set:")
         lines = [
             f"topology {self.topology} ({self.n_chips} device"
             f"{'s' if self.n_chips != 1 else ''}), local grid "
@@ -116,10 +134,12 @@ class Plan:
             f"  Kahan residuals:     {self.residual_bytes / gib:8.3f} GiB",
             f"  TFSF incident line:  {self.inc_bytes / mib:8.3f} MiB",
             f"  material coeffs:     {self.coeff_bytes / gib:8.3f} GiB",
+            f"  grid ghosts (tb):    {self.frame_bytes / mib:8.3f} MiB",
             f"  1D coefficients:     {self.vector_bytes / mib:8.3f} MiB",
             f"  ghost planes:        {self.ghost_bytes / mib:8.3f} MiB",
             f"  {spare_label:<20s} {self.spare_bytes / gib:8.3f} GiB",
             f"  TOTAL per device:    {self.hbm_per_chip / gib:8.3f} GiB",
+            f"  step kind:           {self.step_kind}",
             f"  halo exchange:       {self.halo_bytes_per_step / mib:8.3f}"
             f" MiB/device/step",
         ]
@@ -193,6 +213,42 @@ def _halo_planes(mode, a: int) -> int:
     return n
 
 
+def _deep_ghosts(static, local, slabs, fb: int, ab: int
+                 ) -> Tuple[int, int]:
+    """(bytes, halo bytes a step) of the sharded tb pass's ghost buffers
+    on the busiest shard (a neighbour on both sides of an axis split
+    more than twice): ``stencil.deep_ghost_buffers`` of E and H (three
+    rows at the storage width), J (with Drude) and each psi stack (two
+    rows, its own axis slab-compact and not exchanged). A pass receives
+    them and sends as much, once for two steps."""
+    topo = static.topology
+    sides = [(2 if topo[a] > 2 else 1) if topo[a] > 1 else 0
+             for a in range(3)]
+    stacks = [(3, fb, None), (3, fb, None)]
+    if static.use_drude:
+        stacks.append((3, ab, None))
+    for b in slabs:
+        stacks += [(2, ab, b), (2, ab, b)]
+    total = _stack_ghosts(stacks, local, slabs, sides)
+    return total, total
+
+
+def _stack_ghosts(stacks, local, slabs, sides) -> int:
+    """Bytes of ``deep_ghost_buffers`` of the stacks (rows, element size,
+    the slab-compact axis or None) on a shard with ``sides`` neighbours
+    a sharded axis (``stencil.deep_ghost_shape``)."""
+    total = 0
+    for rows, size, skip in stacks:
+        dims = [rows] + list(local)
+        if skip is not None:
+            dims[1 + skip] = 2 * slabs[skip]
+        grown = {c: sides[c] for c in range(3) if sides[c] and c != skip}
+        for a in grown:
+            shape = deep_ghost_shape(dims, a, grown, GHOST)
+            total += sides[a] * int(np.prod(shape)) * size
+    return total
+
+
 def plan(cfg, n_devices: int = 1) -> Plan:
     """The per-device plan of ``cfg`` over ``n_devices`` (the topology
     authority's resolution: manual as given, "auto" over the count),
@@ -245,8 +301,21 @@ def plan(cfg, n_devices: int = 1) -> Plan:
         spare = max(len(comps) * cells * fb + fam_psi[fam] + fam_ade[fam]
                     for fam, comps in (("E", mode.e_components),
                                        ("H", mode.h_components)))
+    elif not ds and solver.tb_fallback_reason(
+            static, static.cfg.use_pallas is not False) is None:
+        kind = "packed_tb"
+        spare = fields + psi + drude
     words = 2 if ds else 1
     ghost, halo = 0, 0
+    frame, deep, deep_halo = 0, 0, None
+    if kind == "packed_tb" and max(topo) > 1:
+        deep, deep_halo = _deep_ghosts(static, local, slabs, fb, ab)
+        # the frame cells of every 3D coefficient grid beyond the box:
+        # its ghost buffers as a one-row stack (the busiest shard's)
+        sides = [(2 if topo[a] > 2 else 1) if topo[a] > 1 else 0
+                 for a in range(3)]
+        frame = coeff // (cells * rb) * _stack_ghosts(
+            [(1, rb, None)], local, slabs, sides) if cells else 0
     by_axis: Dict[str, Dict[str, int]] = {}
     for a in range(3):
         if topo[a] > 1:
@@ -265,12 +334,18 @@ def plan(cfg, n_devices: int = 1) -> Plan:
                 "bytes_per_neighbor_per_step": planes * pb,
                 "bytes_per_step": sides * planes * pb}
             halo += sides * planes * pb
+    if deep_halo is not None:
+        # the tb pass's ghosts beside the packed tail's; its exchange is
+        # the traffic of a step (the tail runs an odd step only)
+        ghost += deep
+        halo = deep_halo
     strat = None
     if max(topo) > 1:
         strat = CommStrategy(
             step_kind=kind, topology=topo,
             shard_axes=tuple(AXES[a] for a in range(3) if topo[a] > 1),
-            ghost_depth=1, split="fused", schedule="sync",
+            ghost_depth=GHOST if kind == "packed_tb" else 1,
+            split="fused", schedule="sync",
             source="fixed",
             plane_bytes_max=max(v["plane_bytes"] * 2
                                 for v in by_axis.values()))
@@ -280,7 +355,7 @@ def plan(cfg, n_devices: int = 1) -> Plan:
                 ghost_bytes=ghost, spare_bytes=spare,
                 halo_bytes_per_step=halo,
                 n_chips=int(np.prod(topo)), halo_by_axis=by_axis,
-                comm_strategy=strat)
+                comm_strategy=strat, frame_bytes=frame, step_kind=kind)
 
 
 def plan_for_topology(cfg, topology: Tuple[int, int, int]) -> Plan:

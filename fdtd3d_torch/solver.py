@@ -86,11 +86,13 @@ reference's jnp and jnp-ds steps, with ``tb_fallback`` token
 ``packed_ineligible``; ``require_pallas`` raises on it.
 
 A sharded topology (``StaticSetup.topology``, resolved by
-``config_topology``) runs the sharded packed step over a
-``parallel.mesh.ShardMesh`` (``make_step(mesh=)``,
-``ops/packed.py::make_sharded_packed_step``), in 3D f32 or bf16 storage
-(compensated where the packed kernel takes it), with the ``tb_fallback``
-token ``SHARDED_TB_FALLBACK``, and 3D float32x2 the sharded packed-ds
+``config_topology``) runs, over a ``parallel.mesh.ShardMesh``
+(``make_step(mesh=)``), in 3D f32 or bf16 storage the sharded
+temporal-blocked pass (``ops/packed_tb.py::make_sharded_packed_tb_step``)
+wherever the unsharded dispatch would take its pass, else the sharded
+packed step (``ops/packed.py::make_sharded_packed_step``; compensated
+where the packed kernel takes it) with the reference's ``tb_fallback``
+token (``tb_fallback_reason``), and 3D float32x2 the sharded packed-ds
 step (``ops/packed_ds.py::make_sharded_packed_ds_step``, token
 ``ds_fields``). Where the reference's dispatch lands a sharded f32/bf16
 run on its two-pass kernels (``FDTD3D_NO_PACKED``/``FDTD3D_FORCE_FUSED``,
@@ -1235,11 +1237,6 @@ def _ladder_step(static: StaticSetup, device):
     return step if step is not None else make_plain_step(static)
 
 
-# the token a sharded step carries for the temporal-blocked pass it does
-# not take: the sharded tb pass is ROADMAP.md item B2(d)
-SHARDED_TB_FALLBACK = "sharded_tb:B2(d)"
-
-
 def make_step(static: StaticSetup, device, allow_multistep: bool = True,
               batch: int = 0, mesh=None):
     """The step for ``static`` on ``device`` (see the module docstring
@@ -1249,11 +1246,12 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
     it with ``batch_fallback_reason`` first, and a configuration no
     lane-capable kernel covers raises rather than running another
     step. A sharded ``static`` (``build_static`` checked its scope)
-    takes the sharded packed step over ``mesh`` (a
-    ``parallel.mesh.ShardMesh``), with the ``tb_fallback`` token
-    ``SHARDED_TB_FALLBACK``, or where the reference's dispatch runs its
-    two-pass kernels the sharded two-pass step, with the token it
-    records there (``sharded_two_pass_reason``); in float32x2 the
+    takes over ``mesh`` (a ``parallel.mesh.ShardMesh``) the sharded
+    temporal-blocked pass where ``tb_fallback_reason`` gives no token,
+    else the sharded packed step with that token, or where the
+    reference's dispatch runs its two-pass kernels the sharded two-pass
+    step, with the token it records there (``sharded_two_pass_reason``);
+    in float32x2 the
     sharded packed-ds step, with the token the reference's dispatch
     records for it (``ds_fields``)."""
     import os
@@ -1275,9 +1273,12 @@ def make_step(static: StaticSetup, device, allow_multistep: bool = True,
             from fdtd3d_torch.ops import pallas3d
             return _stamp_tb_fallback(
                 pallas3d.make_sharded_pallas_step(static, mesh), reason)
+        reason = tb_fallback_reason(static, True, allow_multistep)
+        if reason is None:
+            from fdtd3d_torch.ops import packed_tb
+            return packed_tb.make_sharded_packed_tb_step(static, mesh)
         return _stamp_tb_fallback(
-            packed_mod.make_sharded_packed_step(static, mesh),
-            SHARDED_TB_FALLBACK)
+            packed_mod.make_sharded_packed_step(static, mesh), reason)
     if batch and (static.cfg.complex_fields
                   or static.cfg.dtype not in LANE_DTYPES):
         raise RuntimeError(
@@ -1588,8 +1589,8 @@ def make_chunk_runner(static: StaticSetup, device, health: bool = False,
     if packed:
         run_chunk.pack = step.pack
         run_chunk.unpack = step.unpack
-    # the out-of-place steps' spare buffers (the packed-ds steps), which
-    # the planner counts
+    # the out-of-place steps' spare buffers (the packed-ds and tb steps),
+    # which the planner counts
     run_chunk.spare = getattr(step, "spare", None)
     if sharded is not None:
         run_chunk.join = step.join

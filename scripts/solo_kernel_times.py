@@ -37,7 +37,12 @@ mode, the f32 main path's temporal-blocked step there (half a pass
 call), ``e_update``/``h_update`` (J and K, 18 coefficient grids) and
 the packed step on the double-negative sphere of ``chip_smoke.py``
 phase 23 at 512^3 after 20 steps, and (``--lanes``, 4 unless given)
-the lane-capable launches on the Mie lanes. Needs a CUDA
+the lane-capable launches on the Mie lanes. With ``--tb KEYS`` it
+also times one solo temporal-blocked pass, twice, at each of the
+comma-separated keys: ``256`` (vacuum3D_tfsf at 256^3 after 150 steps),
+``256_bf16`` (the same in bf16), ``mie512`` (``Examples/sphere3D_mie.txt``
+as it stands, one lane at 512^3, after 20 steps); ``--only-tb`` times
+only these. Needs a CUDA
 device. Compare two commits within one call, in turns (parent, change,
 change, parent), each in its own process: unpack the other commit into
 a directory that ``.gitignore`` lists (``git archive``) and pass it as
@@ -45,6 +50,7 @@ a directory that ``.gitignore`` lists (``git archive``) and pass it as
 
     python3 scripts/solo_kernel_times.py [PATH] [--lanes 4] [--ds 256,128]
         [--only-ds] [--fused 256,512] [--only-fused] [--packed]
+        [--tb 256,256_bf16,mie512] [--only-tb]
 """
 
 from __future__ import annotations
@@ -72,6 +78,11 @@ def main() -> int:
                     help="with --ds: skip the other kernels' times")
     ap.add_argument("--only-fused", action="store_true",
                     help="with --fused: skip the other kernels' times")
+    ap.add_argument("--tb", default=None,
+                    help="also time one solo tb pass at these keys "
+                         "(256, 256_bf16, mie512)")
+    ap.add_argument("--only-tb", action="store_true",
+                    help="with --tb: skip the other kernels' times")
     ap.add_argument("--packed", action="store_true",
                     help="also time the packed step's builds (f32, bf16, "
                          "compensated, the DNG sphere at 512^3, lanes)")
@@ -91,6 +102,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     out = {"checkout": args.path,
            "card": torch.cuda.get_device_name(0)}
+    if args.tb and args.only_tb:
+        build.build_many(["packed_tb"])
+        for key in args.tb.split(","):
+            out[f"tb_{key}"] = tb_times(cs, dev, key)
+            torch.cuda.empty_cache()
+        print(json.dumps(out), flush=True)
+        return 0
     if args.ds and args.only_ds:
         build.build_many(["packed_ds"])
         for size in args.ds.split(","):
@@ -161,6 +179,31 @@ def main() -> int:
         out[f"fused_{size}"] = fused_times(cs, dev, size)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def tb_times(cs, dev, key, reps=30):
+    """One solo tb pass at ``key`` (see the module docstring), twice, on
+    the state its run reached, out of place into a copy of the carry."""
+    from fdtd3d_torch.ops import packed_tb
+    from fdtd3d_torch.sim import Simulation
+    if key == "mie512":
+        cfg, steps = cs.config(cs.MIE, []), 20
+    else:
+        size, _, dt = key.partition("_")
+        cfg = cs.config(cs.EXAMPLE, ["--same-size", size]
+                        + (cs.BF16 if dt == "bf16" else []))
+        steps = 150
+    sim = Simulation(cfg, device=dev)
+    sim.advance(steps)
+    carry = sim._carry
+    tcc = packed_tb.make_packed_tb_step(sim.static, dev).prepare(sim.coeffs)
+    spare = {k: cs.clone_carry(v) for k, v in carry.items()
+             if k in ("E", "H", "J", "psE", "psH")}
+    _, terms, drive = packed_tb.generation_terms(sim.static, tcc["tb"],
+                                                 carry.get("inc"),
+                                                 carry["t"])
+    return {f"tb_ms_{rep}": cs.timed(lambda: packed_tb.tb_pass(
+        carry, spare, tcc["tb"], terms, drive), reps) for rep in range(2)}
 
 
 def packed_times(cs, dev, reps=30):

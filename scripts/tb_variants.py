@@ -38,17 +38,28 @@ grids). Variants (the build knobs of the source's header):
 * ``one_edge``: every SLAB item in the general edge kernel (no kernel
   of one slab axis);
 * ``seg_N``: x segments of N planes (as built: 48 where the grid gives
-  every SM four items).
+  every SM four items);
+* ``param_copy``: a source patch (PATCHES, written under
+  ``build/tb_variants``), the kernel parameter block without
+  ``__grid_constant__`` (the compiler may copy the arrays a build
+  indexes with per-thread values into local memory).
+
+With ``--sharded`` the carries are shards of a decomposed run instead:
+shard 0 and shard 3 of ``vacuum3D_tfsf.txt`` at 256^3 on (2,2,1), four
+shards on the card, after 150 steps (their ghosts exchanged), each
+shard's pass (``packed_tb.tb_pass_sharded``) timed and its blocks
+timed as above, beside the unsharded pass of the same grid.
 
 Prints one JSON object: the card, per variant the kernels' registers,
-spills and blocks an SM, and per carry ms per pass (both turns), each
+spills and blocks an SM, and per carry ms per pass (both turns; and
+``host_ms``, the host's time to issue one), each
 plan section's makespan and per-class block milliseconds (deciles) of
 one pass; a variant whose launch the card refuses is listed under
 ``failed`` with the error. Needs a CUDA device and nvcc; prints no result
 without them.
 
     python3 scripts/tb_variants.py [--mie] [--only a,b]
-        [--source NAME=PATH ...] [--out FILE]
+        [--source NAME=PATH ...] [--sharded] [--out FILE]
 """
 
 from __future__ import annotations
@@ -90,6 +101,14 @@ VARIANTS = {
     "seg_32": ((), "seg_32"),
     "seg_48": ((), "seg_48"),
     "seg_64": ((), "seg_64"),
+    "param_copy": ((), None),
+}
+
+# variant -> (text of csrc/packed_tb.cu, its replacement): timing-only
+# builds written under OUT_DIR
+PATCHES = {
+    "param_copy": ("tb_section(const __grid_constant__ Params p",
+                   "tb_section(const Params p"),
 }
 
 
@@ -101,6 +120,15 @@ def build_variants(names, sources):
     procs = {}
     for name in names:
         src = sources.get(name, os.path.join(build.CSRC, "packed_tb.cu"))
+        if name in PATCHES and name not in sources:
+            with open(src) as f:
+                text = f.read()
+            old, new = PATCHES[name]
+            if old not in text:
+                raise RuntimeError(f"{name}: the source lacks {old!r}")
+            src = os.path.join(OUT_DIR, f"{name}.cu")
+            with open(src, "w") as f:
+                f.write(text.replace(old, new))
         knobs = VARIANTS[name][0] if name in VARIANTS else ()
         defs = ["-DTB_BLOCK_TIMER"] + [f"-D{d}" for d in knobs]
         cmd = [build.find_nvcc(), *build.flags("packed_tb"), "-I",
@@ -186,6 +214,41 @@ def carry_for(path, extra, dev, steps):
     return launch
 
 
+def shard_carries(path, extra, dev, steps, topo, ranks):
+    """Each of shards ``ranks``' pass launch (``tb_pass_sharded``) of a
+    decomposed run on ``topo`` (every shard on ``dev``) after
+    ``steps``, its ghosts exchanged: [(rank, launch)]."""
+    from fdtd3d_torch import cli
+    from fdtd3d_torch.ops import packed, packed_tb
+    from fdtd3d_torch.sim import Simulation
+    cfg = cli.args_to_config(cli.build_parser().parse_args(
+        cli.read_cmd_file(path) + list(extra)
+        + ["--manual-topology", "x".join(map(str, topo))]))
+    n = topo[0] * topo[1] * topo[2]
+    sim = Simulation(cfg, devices=[dev] * n)
+    sim.advance(steps)
+    step = packed_tb.make_sharded_packed_tb_step(sim.static, sim.mesh)
+    cc = step.prepare(sim.coeffs)
+    shards = sim._carry["shards"]
+    gh = step.exchange(shards)
+    out = []
+    for rs in packed.device_groups(sim.mesh).values():
+        _, terms, drives = packed_tb.generation_terms_many(
+            sim.static, [cc[r]["tb"] for r in rs], shards[rs[0]].get("inc"),
+            sim._carry["t"])
+        for r, t, d in zip(rs, terms, drives):
+            if r not in ranks:
+                continue
+            spare = packed.alloc_like(shards[r])
+
+            def launch(r=r, t=t, d=d, spare=spare):
+                packed_tb.tb_pass_sharded(shards[r], spare, cc[r]["tb"], t,
+                                          d, gh[r])
+            launch.tb = cc[r]["tb"]
+            out.append((r, launch))
+    return out
+
+
 def timed(fn, reps):
     import torch
     fn()
@@ -198,6 +261,21 @@ def timed(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def host_ms(fn, reps):
+    """The host's time to issue one call (the launches queue; the card is
+    synchronised before and after, outside the clock)."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def block_times(lib, launch):
@@ -248,6 +326,9 @@ def main() -> int:
                     metavar="NAME=PATH",
                     help="also time the source file PATH (the same "
                          "parameter block) as variant NAME")
+    ap.add_argument("--sharded", action="store_true",
+                    help="time shards 0 and 3 of a (2,2,1) run at 256^3 "
+                         "beside the unsharded pass")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON here")
     args = ap.parse_args()
@@ -262,13 +343,15 @@ def main() -> int:
     libs = build_variants(names, sources)
     dev = torch.device("cuda", 0)
     out = {"device": torch.cuda.get_device_name(0), "occupancy": {},
-           "ms": {}, "blocks": {}}
+           "ms": {}, "host_ms": {}, "blocks": {}}
     for name in names:
         build._LIBS["packed_tb"] = libs[name]
         out["occupancy"][name] = packed_tb.occupancy()
-    carries = [("tfsf_cpml", EXAMPLE, ["--same-size", "256"], 150),
-               ("vacuum", EXAMPLE, ["--same-size", "256", "--no-use-pml",
-                                    "--no-use-tfsf"], 150)]
+    carries = [("tfsf_cpml", EXAMPLE, ["--same-size", "256"], 150)]
+    if not args.sharded:
+        carries.append(("vacuum", EXAMPLE, ["--same-size", "256",
+                                            "--no-use-pml",
+                                            "--no-use-tfsf"], 150))
     if args.mie:
         carries.append(("mie512", MIE, [], 20))
     base = packed_tb.plan_items
@@ -278,10 +361,19 @@ def main() -> int:
         packed_tb.plan_items = plan_option(
             base, VARIANTS[name][1] if name in VARIANTS else None)
         tb.pop("_plan", None)
+        tb.pop("_sharded_params", None)
+
+    def launches():
+        for label, path, extra, steps in carries:
+            yield label, carry_for(path, extra, dev, steps)
+        if args.sharded:
+            for r, launch in shard_carries(
+                    EXAMPLE, ["--same-size", "256"], dev, 150, (2, 2, 1),
+                    (0, 3)):
+                yield f"shard221_{r}", launch
 
     failed = out["failed"] = {}
-    for label, path, extra, steps in carries:
-        launch = carry_for(path, extra, dev, steps)
+    for label, launch in launches():
         for name in names + names[::-1]:
             if name in failed:
                 continue
@@ -292,6 +384,8 @@ def main() -> int:
                 failed[name] = f"{label}: {exc}"
                 continue
             out["ms"].setdefault(label, {}).setdefault(name, []).append(ms)
+            out["host_ms"].setdefault(label, {}).setdefault(
+                name, []).append(host_ms(launch, 20))
         for name in names:
             if name not in failed:
                 use(name, launch.tb)

@@ -98,11 +98,15 @@ def unsharded_packed():
 
 
 @pytest.mark.parametrize("topo", TOPOLOGIES)
-def test_sharded_matches_reference_and_unsharded(topo, unsharded_packed):
+def test_sharded_matches_reference_and_unsharded(topo, unsharded_packed,
+                                                 monkeypatch):
+    # the sharded packed step (the sharded tb pass has its own tests,
+    # tests/test_torch_sharded_tb.py)
+    monkeypatch.setenv("FDTD3D_NO_TEMPORAL", "1")
     ref, port = seeded_pair(topo)
     assert port.mesh is not None and port.step_kind == "packed_plain"
     assert port.step_diag["tb_fallback"]["reason"] == \
-        tsolver.SHARDED_TB_FALLBACK
+        "env:FDTD3D_NO_TEMPORAL"
     assert ref.mesh is not None and ref.step_kind == "jnp"
     ref.advance(STEPS)
     port.advance(STEPS)

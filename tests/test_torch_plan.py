@@ -27,6 +27,7 @@ import torch
 from fdtd3d_torch import SimConfig, Simulation
 from fdtd3d_torch import cli as tcli
 from fdtd3d_torch import plan as tplan
+from fdtd3d_torch.ops import packed_tb
 from fdtd3d_torch.config import (MaterialsConfig, ParallelConfig, PmlConfig,
                                  PointSourceConfig, SphereConfig,
                                  TfsfConfig)
@@ -45,8 +46,14 @@ SPHERES = MaterialsConfig(
     use_drude_m=True, mu_inf=1.5, omega_pm=1e11, gamma_m=1e10,
     drude_m_sphere=SphereConfig(enabled=True, center=(16, 16, 16),
                                 radius=3))
+# the spheres without K: inside the temporal-blocked pass's scope
+TB_SPHERES = MaterialsConfig(
+    eps_sphere=SPHERES.eps_sphere, use_drude=True, eps_inf=2.0,
+    omega_p=2e11, gamma=1e10, drude_sphere=SPHERES.drude_sphere)
 CASES = {
     "f32_spheres": dict(materials=SPHERES),
+    "f32_tb": dict(materials=TB_SPHERES),
+    "bf16_tb": dict(dtype="bfloat16", materials=TB_SPHERES),
     "bf16": dict(dtype="bfloat16", materials=SPHERES),
     "compensated": dict(compensated=True),
     "float32x2": dict(dtype="float32x2"),
@@ -70,6 +77,8 @@ def _cfg(case, topo):
 def _bytes(tree, seen):
     if isinstance(tree, dict):
         return sum(_bytes(v, seen) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_bytes(v, seen) for v in tree)
     if isinstance(tree, torch.Tensor) and id(tree) not in seen:
         seen.add(id(tree))
         return tree.numel() * tree.element_size()
@@ -80,35 +89,51 @@ def _bytes(tree, seen):
     ("f32_spheres", (1, 1, 1)), ("f32_spheres", (2, 2, 2)),
     ("f32_spheres", (4, 1, 1)), ("bf16", (1, 2, 2)),
     ("compensated", (2, 1, 2)), ("float32x2", (1, 1, 1)),
-    ("float32x2", (2, 2, 1)), ("float32x2", (4, 1, 2))])
+    ("float32x2", (2, 2, 1)), ("float32x2", (4, 1, 2)),
+    ("f32_tb", (1, 1, 1)), ("f32_tb", (2, 2, 1)), ("bf16_tb", (1, 2, 2))])
 def test_plan_matches_actual_allocation(case, topo):
     cfg = _cfg(case, topo)
     sim = Simulation(cfg, device="cpu")
-    sim.run(1)
+    sim.run(3)     # a tb run: a pass and its packed tail
     p = tplan.plan(cfg)
+    tb = case.endswith("_tb")
+    assert p.step_kind == ("packed_tb" if tb else "packed_ds"
+                           if case == "float32x2" else "packed")
+    assert sim.step_kind.startswith("packed_tb") == tb
     assert p.topology == topo and p.local_shape == tuple(
         32 // t for t in topo)
     shards = sim._carry["shards"] if sim.mesh else [sim._carry]
     coeffs = sim.coeffs if sim.mesh else [sim.coeffs]
-    # the packed-ds step's spare set: a shard's pass buffers and its
-    # device's second line
+    # the packed-ds and tb steps' spare set: a shard's pass buffers (and
+    # the ds step's device's second line)
     spare = sim._runner.spare
     if spare is None:
         spares = [0] * len(shards)
     elif sim.mesh is not None:
-        spares = [_bytes(sh, set()) + _bytes(spare["inc"], set())
+        spares = [_bytes(sh, set()) + _bytes(spare.get("inc", {}), set())
                   for sh in spare["shards"]]
     else:
         spares = [_bytes(spare, set())]
-    assert (p.spare_bytes > 0) == (case == "float32x2")
+    assert (p.spare_bytes > 0) == (case == "float32x2" or tb)
+    # the sharded tb pass's ghost buffers of the coefficient grids, as
+    # its prepare makes them
+    frame = 0
+    if tb and sim.mesh is not None:
+        frame = max(_bytes(fc["_frame_ghosts"], set())
+                    for fc in packed_tb.frame_coeffs(sim.static, sim.mesh,
+                                                     sim.coeffs))
+        assert frame > 0
+    assert frame == p.frame_bytes
     for ps, cc, sp in zip(shards, coeffs, spares):
         assert sp == p.spare_bytes
         assert _bytes(ps, set()) + _bytes(cc, set()) == \
-            p.hbm_per_chip - p.ghost_bytes - p.spare_bytes
+            p.hbm_per_chip - p.ghost_bytes - p.spare_bytes - p.frame_bytes
     ghosts = 0
     if sim.mesh is not None:
         g = sim._runner.ghosts
+        deep = g.get("deep", {})
         ghosts = max(sum(_bytes(b, set()) for b in (g[-1][r], g[1][r]))
+                     + sum(_bytes(bufs[r], set()) for bufs in deep.values())
                      for r in range(sim.mesh.n))
     assert ghosts == p.ghost_bytes
 

@@ -204,13 +204,16 @@ def test_dispatch_kind_and_token_follow_reference(case):
 
 
 def test_outside_the_cases_stays_on_the_sharded_packed_step(monkeypatch):
-    set_env(monkeypatch, ())
+    # the sharded packed step under FDTD3D_NO_TEMPORAL (without it the
+    # sharded tb pass takes the case, tests/test_torch_sharded_tb.py)
+    set_env(monkeypatch, ("FDTD3D_NO_TEMPORAL",))
     port = TSim(to_port(cfg_of("x_221", (2, 2, 1))), device="cpu")
     assert port.step_kind == "packed_plain"
-    assert port.step_diag["tb_fallback"]["reason"] == "sharded_tb:B2(d)"
-    # the reference's sharded packed kernels (its tb pass, B2(d) here)
+    assert port.step_diag["tb_fallback"]["reason"] == \
+        "env:FDTD3D_NO_TEMPORAL"
+    # the reference's sharded packed kernel
     ref = RSim(cfg_of("x_221", (2, 2, 1)))
-    assert ref.step_kind in ("pallas_packed_tb", "pallas_packed")
+    assert ref.step_kind == "pallas_packed"
 
 
 @pytest.mark.parametrize("topo,names,kw", [

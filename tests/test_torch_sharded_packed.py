@@ -114,7 +114,10 @@ def unsharded(case):
 @pytest.mark.parametrize("case,topo", [
     ("grids_j", (2, 2, 1)), ("grids_j", (1, 2, 2)), ("k", (2, 1, 2)),
     ("compensated", (2, 2, 2)), ("bf16", (2, 2, 1))])
-def test_sharded_packed_matches_reference(case, topo):
+def test_sharded_packed_matches_reference(case, topo, monkeypatch):
+    # the sharded packed step, where the sharded tb pass would take the
+    # case (tests/test_torch_sharded_tb.py holds that)
+    monkeypatch.setenv("FDTD3D_NO_TEMPORAL", "1")
     ref = RSim(cfg_of(case, topo))
     seed_reference(ref, 3)
     port = TSim(port_cfg(cfg_of(case, topo)), device="cpu")
@@ -150,7 +153,9 @@ def _records(path):
         return [json.loads(line) for line in f if line.strip()]
 
 
-def test_health_counters_and_per_chip_match_reference(tmp_path):
+def test_health_counters_and_per_chip_match_reference(tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setenv("FDTD3D_NO_TEMPORAL", "1")   # the sharded packed step
     topo = (2, 2, 2)
     out = {}
     for who in ("ref", "port"):
